@@ -1,0 +1,179 @@
+// Reduced one-hot Viterbi: the three decode passes as CUDA kernels for Hopper
+// (sm_90a), with a plain C interface loaded through ctypes
+// (cpgisland_tpu_torch/ops/_kernels.py).  Plain versions of the same
+// functions, used on the CPU and as the reference on the card, live in
+// cpgisland_tpu_torch/ops/viterbi_onehot.py (oh_*_plain).
+//
+// Layout shared by all three: time-major streams [bk, nb] (global step
+// b*bk + k sits at [k, b]), one thread per lane b looping over the bk steps
+// of its block.  Neighbouring threads read neighbouring addresses at every
+// step, so each warp's load of a step row is one coalesced 128-byte
+// transaction.  The per-pair tables (at most MAX_PAIRS rows) are copied
+// into shared memory once per block; a lookup there returns exactly the f32
+// value the TPU kernel's compare/select tree produced.  Ragged lane counts
+// are masked here; the wrapper pads bk to a multiple of 8 with identity
+// pairs.
+//
+// Max-plus needs adds and maxes only.  There is no multiply, so no FMA can
+// be contracted and every result equals its plain PyTorch version bit for
+// bit: the add/max order below is the JAX kernels' order, op for op.
+//
+// What bounds them: each lane is a dependent chain of bk steps (add, max,
+// next step), and at the default block of 4096 steps a 64 Mi-symbol record
+// has only 16384 lanes, about 124 threads per SM.  Too few warps hide the
+// latency of the chain, so the kernels are latency-bound well above their
+// byte bound.  The design keeps each step's loads independent of the chain
+// (the pair stream is read ahead in groups of 8 steps) so several loads are
+// in flight per thread; retuning bk for more lanes is left to a later change.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define LOG_ZERO (-1e30f)
+#define MAX_PAIRS 64
+#define THREADS 128
+#define ROW_TILE 8
+
+// B1: replaces cpgisland_tpu/ops/viterbi_onehot.py::_oh_products_kernel.
+// Per lane, the 2x2 max-plus product of its bk pair-selected step matrices:
+// out[0..3, b] = C00, C01, C10, C11.  Reads 4 B per step (the pair stream)
+// and writes 16 B per lane.
+__global__ void __launch_bounds__(THREADS)
+oh_products_kernel(const int32_t* __restrict__ pair2, const float* __restrict__ tab,
+                   float* __restrict__ out, int bk, int nb, int nP) {
+  __shared__ float s_tab[MAX_PAIRS * 4];
+  for (int i = threadIdx.x; i < nP * 4; i += blockDim.x) s_tab[i] = tab[i];
+  __syncthreads();
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= nb) return;
+  float c00 = 0.0f, c01 = LOG_ZERO, c10 = LOG_ZERO, c11 = 0.0f;
+  const int32_t* p = pair2 + b;
+  for (int k0 = 0; k0 < bk; k0 += ROW_TILE) {
+    int q[ROW_TILE];
+#pragma unroll
+    for (int r = 0; r < ROW_TILE; ++r) q[r] = __ldg(p + (size_t)(k0 + r) * nb);
+#pragma unroll
+    for (int r = 0; r < ROW_TILE; ++r) {
+      const float* t = s_tab + 4 * q[r];
+      const float a00 = t[0], a01 = t[1], a10 = t[2], a11 = t[3];
+      // new[i, c] = max(C[i, 0] + T[0, c], C[i, 1] + T[1, c]) — the TPU
+      // kernel's operand order (viterbi_onehot.py:421-424).
+      const float n00 = fmaxf(c00 + a00, c01 + a10);
+      const float n01 = fmaxf(c00 + a01, c01 + a11);
+      const float n10 = fmaxf(c10 + a00, c11 + a10);
+      const float n11 = fmaxf(c10 + a01, c11 + a11);
+      c00 = n00; c01 = n01; c10 = n10; c11 = n11;
+    }
+  }
+  out[b] = c00;
+  out[(size_t)nb + b] = c01;
+  out[2 * (size_t)nb + b] = c10;
+  out[3 * (size_t)nb + b] = c11;
+}
+
+// B2: replaces _oh_backpointers_kernel.  The reduced delta recursion from
+// the true entering vector v_red [2, nb]; strict > keeps first-max
+// tie-breaking.  Writes one int32 word per 8 steps (bp0 | bp1 << 1 at bits
+// 2r, 2r+1), the exit deltas dexit [2, nb] and the exit -> entry
+// composition bits ebits [nb].  Reads 4 B and writes 0.25 B per step.
+__global__ void __launch_bounds__(THREADS)
+oh_backpointers_kernel(const int32_t* __restrict__ pair2, const float* __restrict__ v_red,
+                       const float* __restrict__ tab, int32_t* __restrict__ bp,
+                       float* __restrict__ dexit, int32_t* __restrict__ ebits,
+                       int bk, int nb, int nP) {
+  __shared__ float s_tab[MAX_PAIRS * 4];
+  for (int i = threadIdx.x; i < nP * 4; i += blockDim.x) s_tab[i] = tab[i];
+  __syncthreads();
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= nb) return;
+  float d0 = v_red[b], d1 = v_red[(size_t)nb + b];
+  int32_t E = 0b10;  // identity: exit c -> entry c
+  const int32_t* p = pair2 + b;
+  for (int k0 = 0; k0 < bk; k0 += ROW_TILE) {
+    int q[ROW_TILE];
+#pragma unroll
+    for (int r = 0; r < ROW_TILE; ++r) q[r] = __ldg(p + (size_t)(k0 + r) * nb);
+    int32_t word = 0;
+#pragma unroll
+    for (int r = 0; r < ROW_TILE; ++r) {
+      const float* t = s_tab + 4 * q[r];
+      const float a0 = d0 + t[0];
+      const float a1 = d1 + t[2];
+      const float b0 = d0 + t[1];
+      const float b1 = d1 + t[3];
+      const int32_t bp0 = a1 > a0;
+      const int32_t bp1 = b1 > b0;
+      d0 = fmaxf(a0, a1);
+      d1 = fmaxf(b0, b1);
+      word |= (bp0 | (bp1 << 1)) << (2 * r);
+      E = ((E >> bp0) & 1) | (((E >> bp1) & 1) << 1);
+    }
+    bp[(size_t)(k0 / ROW_TILE) * nb + b] = word;
+  }
+  dexit[b] = d0;
+  dexit[(size_t)nb + b] = d1;
+  ebits[b] = E;
+}
+
+// B3: replaces _oh_backtrace_kernel.  Walks the packed pointers from the
+// anchored exit bit, k = bk-1 down to 0, emitting idtab[pair][bit] — the
+// full state id of the pair's exit group.  Reads 4.25 B and writes 4 B per
+// step.
+__global__ void __launch_bounds__(THREADS)
+oh_backtrace_kernel(const int32_t* __restrict__ bp, const int32_t* __restrict__ pair2,
+                    const int32_t* __restrict__ idtab, const int32_t* __restrict__ exit_bits,
+                    int32_t* __restrict__ path, int bk, int nb, int nP) {
+  __shared__ int32_t s_id[MAX_PAIRS * 2];
+  for (int i = threadIdx.x; i < nP * 2; i += blockDim.x) s_id[i] = idtab[i];
+  __syncthreads();
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= nb) return;
+  int32_t bit = exit_bits[b];
+  for (int w = bk / ROW_TILE - 1; w >= 0; --w) {
+    const int32_t word = __ldg(bp + (size_t)w * nb + b);
+    int q[ROW_TILE];
+#pragma unroll
+    for (int r = 0; r < ROW_TILE; ++r)
+      q[r] = __ldg(pair2 + (size_t)(w * ROW_TILE + r) * nb + b);
+#pragma unroll
+    for (int r = ROW_TILE - 1; r >= 0; --r) {
+      path[(size_t)(w * ROW_TILE + r) * nb + b] = s_id[2 * q[r] + bit];
+      bit = (word >> (2 * r + bit)) & 1;
+    }
+  }
+}
+
+static inline unsigned grid_for(int nb) { return (unsigned)((nb + THREADS - 1) / THREADS); }
+
+// The C interface: every pointer and the stream arrive as void*, sizes as
+// int.  Each function launches on the caller's stream and returns
+// cudaGetLastError(), so a refused launch reaches the Python wrapper.
+extern "C" {
+
+int oh_products(const void* pair2, const void* tab, void* out, int bk, int nb, int nP,
+                void* stream) {
+  if (nP > MAX_PAIRS || bk % ROW_TILE || nb <= 0) return (int)cudaErrorInvalidValue;
+  oh_products_kernel<<<grid_for(nb), THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)pair2, (const float*)tab, (float*)out, bk, nb, nP);
+  return (int)cudaGetLastError();
+}
+
+int oh_backpointers(const void* pair2, const void* v_red, const void* tab, void* bp,
+                    void* dexit, void* ebits, int bk, int nb, int nP, void* stream) {
+  if (nP > MAX_PAIRS || bk % ROW_TILE || nb <= 0) return (int)cudaErrorInvalidValue;
+  oh_backpointers_kernel<<<grid_for(nb), THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)pair2, (const float*)v_red, (const float*)tab, (int32_t*)bp,
+      (float*)dexit, (int32_t*)ebits, bk, nb, nP);
+  return (int)cudaGetLastError();
+}
+
+int oh_backtrace(const void* bp, const void* pair2, const void* idtab, const void* exit_bits,
+                 void* path, int bk, int nb, int nP, void* stream) {
+  if (nP > MAX_PAIRS || bk % ROW_TILE || nb <= 0) return (int)cudaErrorInvalidValue;
+  oh_backtrace_kernel<<<grid_for(nb), THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)bp, (const int32_t*)pair2, (const int32_t*)idtab,
+      (const int32_t*)exit_bits, (int32_t*)path, bk, nb, nP);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"
