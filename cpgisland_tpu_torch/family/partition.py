@@ -1,6 +1,6 @@
 """Emission-support partition analysis — the eligibility oracle for the
 reduced (one-hot) engines.  Counterpart of ``cpgisland_tpu/family/
-partition.py``, cut to what the decode path consults.
+partition.py``, cut to what the decode and training paths consult.
 
 Whenever the per-symbol supports {s : B[s, o] > 0} partition the states into
 disjoint blocks, the Viterbi score vector at time t is LOG_ZERO outside
@@ -94,3 +94,12 @@ def reduced_eligible(params: HmmParams) -> bool:
     blocks of REDUCED_GROUP states — the reduced engines' domain."""
     p = partition_concrete(params)
     return bool(p is not False and p.reduced)
+
+
+def reduced_stats_eligible(params: HmmParams) -> bool:
+    """Eligibility for the reduced-stream chunked-EM stats: reduced_eligible
+    AND a power-of-two n_symbols (the z-normalized stats path of the JAX
+    package lowers only for power-of-two alphabets; the port keeps its
+    domain)."""
+    S = params.n_symbols
+    return reduced_eligible(params) and S & (S - 1) == 0

@@ -70,16 +70,39 @@ class HmmParams:
         )
 
     @classmethod
-    def from_probs(cls, pi, A, B, device="cpu") -> "HmmParams":
-        pi = torch.as_tensor(np.asarray(pi), dtype=torch.float32, device=device)
-        A = torch.as_tensor(np.asarray(A), dtype=torch.float32, device=device)
-        B = torch.as_tensor(np.asarray(B), dtype=torch.float32, device=device)
+    def from_probs(cls, pi, A, B, device=None) -> "HmmParams":
+        """Parameters from probabilities.  Tensors stay on their own device
+        (the M-step builds the next model on the card with no host round
+        trip) unless ``device`` is given; numpy arrays and lists go to
+        ``device``, the CPU by default.  Either route rounds to float32 the
+        same way, so the two give the same bits."""
+
+        def as_f32(x):
+            if isinstance(x, torch.Tensor):
+                return x.to(device=device, dtype=torch.float32)
+            return torch.as_tensor(np.asarray(x), dtype=torch.float32,
+                                   device=device or "cpu")
+
+        pi, A, B = as_f32(pi), as_f32(A), as_f32(B)
         if A.shape != (pi.shape[0], pi.shape[0]) or B.shape[0] != pi.shape[0]:
             raise ValueError(
                 f"inconsistent shapes pi={tuple(pi.shape)} A={tuple(A.shape)} "
                 f"B={tuple(B.shape)}"
             )
         return cls(log_pi=_log(pi), log_A=_log(A), log_B=_log(B))
+
+    def max_abs_diff(self, other: "HmmParams") -> torch.Tensor:
+        """Max absolute difference in probability space — the convergence
+        metric (the reference's driver stops when |model_t+1 - model_t| <
+        epsilon, CpGIslandFinder.java:96,200-201).  A 0-d tensor on the
+        parameters' device."""
+        return torch.maximum(
+            torch.max(torch.abs(self.pi - other.pi)),
+            torch.maximum(
+                torch.max(torch.abs(self.A - other.A)),
+                torch.max(torch.abs(self.B - other.B)),
+            ),
+        )
 
 
 def params_from_numpy(log_pi, log_A, log_B, device="cpu") -> HmmParams:

@@ -1,16 +1,18 @@
 """Build, load and launch the hand-written CUDA kernels.
 
 The sources under ``cpgisland_tpu_torch/csrc/`` expose a plain C interface.
-At first use they are compiled with ``nvcc`` for Hopper (``sm_90a``) into a
-shared library under ``build/torch_kernels/`` beside the package (named by a
-hash of source and flags, so an edited source rebuilds), and loaded with
-ctypes.  Nothing is built or loaded at import time: the CPU tests import
-every module, and the CPU has no ``nvcc``.
+At first use each is compiled with ``nvcc`` for Hopper (``sm_90a``) into a
+shared library under ``build/torch_kernels/`` beside the package (named by
+a hash of source and flags, so an edited source rebuilds) — one ``nvcc``
+per source, all started together — and loaded with ctypes.  Nothing is
+built or loaded at import time: the CPU tests import every module, and the
+CPU has no ``nvcc``.
 
-Every launch goes through :func:`launch`, which passes tensor pointers and
-PyTorch's current stream, raises if the C function reports a CUDA error, and
-adds one to the kernel's entry in :data:`launches` — the count a run reads
-to show that its main path went through the kernels.
+Every launch goes through :func:`launch`, which passes tensor pointers,
+the function's int arguments and PyTorch's current stream, raises if the C
+function reports a CUDA error, and adds one to the kernel's entry in
+:data:`launches` — the count a run reads to show that its main path went
+through the kernels.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from pathlib import Path
 import torch
 
 _PKG = Path(__file__).resolve().parents[1]
-_SOURCE = _PKG / "csrc" / "viterbi_onehot.cu"
+_CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -35,23 +37,28 @@ NVCC_FLAGS = (
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# name -> (pointer argument count); every function ends with (bk, nb, nP, stream).
+# name -> (source stem under csrc/, pointer argument count, int argument
+# names in the C function's order); every function ends with the stream.
 _SIGNATURES = {
-    "oh_products": 3,
-    "oh_backpointers": 6,
-    "oh_backtrace": 5,
+    "oh_products": ("viterbi_onehot", 3, ("bk", "nb", "nP")),
+    "oh_backpointers": ("viterbi_onehot", 6, ("bk", "nb", "nP")),
+    "oh_backtrace": ("viterbi_onehot", 5, ("bk", "nb", "nP")),
+    "oh_fwdbwd": ("fb_onehot", 8, ("Tp", "NL", "nreal", "T")),
+    "oh_seq_stats": ("fb_onehot", 14, ("Tp", "NL", "S", "K", "Tt")),
 }
+SOURCES = tuple(sorted({src for src, _, _ in _SIGNATURES.values()}))
 
 # Launches per kernel since the last reset_launches(); incremented only where
 # a kernel is launched.
 launches = {name: 0 for name in _SIGNATURES}
 
-# Set by the first build in this process: seconds spent and nvcc's report
-# (-Xptxas -v: registers, shared memory and spills per kernel).
+# Set by the first build in this process: wall seconds of the parallel
+# build, and nvcc's report per source (-Xptxas -v: registers, shared
+# memory and spills per kernel).
 build_info: dict = {}
 
 _lock = threading.Lock()
-_lib = None
+_lib = None  # name -> loaded C function, once built
 
 
 def reset_launches() -> None:
@@ -72,52 +79,69 @@ def _nvcc() -> str:
     )
 
 
-def _build() -> Path:
-    src = _SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libviterbi_onehot_{tag}.so"
-    if out.exists():
-        build_info.setdefault("seconds", 0.0)
-        return out
+def _build_all() -> dict:
+    """stem -> built library path; sources not built yet compile in
+    parallel, one nvcc each."""
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    out, procs = {}, {}
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
+    for stem in SOURCES:
+        src = _CSRC / f"{stem}.cu"
+        tag = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        lib = BUILD_DIR / f"lib{stem}_{tag}.so"
+        out[stem] = lib
+        if not lib.exists():
+            tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+            procs[stem] = (tmp, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            ))
+    reports, failed = {}, []
+    for stem, (tmp, proc) in procs.items():
+        _, err = proc.communicate()
+        reports[stem] = err
+        if proc.returncode != 0:
+            failed.append(f"{stem}.cu ({proc.returncode}):\n{err}")
+        else:
+            os.replace(tmp, out[stem])
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     build_info["seconds"] = time.perf_counter() - t0
-    build_info["nvcc_report"] = proc.stderr
+    build_info["nvcc_report"] = reports
     return out
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
+def library() -> dict:
+    """name -> the loaded C function of every kernel, built on first call."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(_build()))
-            for name, n_ptr in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = [_P] * n_ptr + [_I, _I, _I, _P]
+            libs = {stem: ctypes.CDLL(str(path)) for stem, path in _build_all().items()}
+            fns = {}
+            for name, (stem, n_ptr, ints) in _SIGNATURES.items():
+                fn = getattr(libs[stem], name)
+                fn.argtypes = [_P] * n_ptr + [_I] * len(ints) + [_P]
                 fn.restype = _I
-            _lib = lib
+                fns[name] = fn
+            _lib = fns
         return _lib
 
 
-def launch(name: str, *tensors: torch.Tensor, bk: int, nb: int, nP: int) -> None:
+def launch(name: str, *tensors: torch.Tensor, **ints: int) -> None:
     """Launch kernel ``name`` on PyTorch's current stream with the tensors'
-    device pointers (in the C function's order), then check the launch."""
+    device pointers (in the C function's order) and its int arguments (by
+    name), then check the launch."""
+    _, n_ptr, names = _SIGNATURES[name]
+    if len(tensors) != n_ptr or set(ints) != set(names):
+        raise TypeError(f"{name} takes {n_ptr} tensors and the ints {names}")
     for t in tensors:
         if not t.is_cuda or not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous CUDA tensors")
-    fn = getattr(library(), name)
+    fn = library()[name]
     stream = torch.cuda.current_stream(tensors[0].device).cuda_stream
     with torch.cuda.device(tensors[0].device):
-        err = fn(*[t.data_ptr() for t in tensors], bk, nb, nP, stream)
+        err = fn(*[t.data_ptr() for t in tensors], *[int(ints[k]) for k in names], stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
     launches[name] += 1

@@ -1,7 +1,9 @@
-"""High-level driver: FASTA in -> island calls out (the reference's
-``testModel``, CpGIslandFinder.java:227-344), on the card.
+"""High-level driver on the card: FASTA in -> trained model / island calls
+out (the reference's ``trainModel`` and ``testModel``,
+CpGIslandFinder.java:102-225 and :227-344, and its ``main``).
 
-Counterpart of ``cpgisland_tpu/pipeline.py``'s :func:`decode_file`.
+Counterpart of ``cpgisland_tpu/pipeline.py``'s :func:`train_file`,
+:func:`decode_file` and :func:`run`.
 
 ``compat=True`` reproduces the reference end to end: headers encoded as
 bases, the remainder chunk dropped, 1 MiB decode chunks decoded and island
@@ -24,11 +26,13 @@ from typing import IO, Optional, Union
 import numpy as np
 import torch
 
-from cpgisland_tpu_torch.models.hmm import HmmParams
+from cpgisland_tpu_torch.models import presets
+from cpgisland_tpu_torch.models.hmm import HmmParams, dump_text
 from cpgisland_tpu_torch.ops import islands as islands_mod
 from cpgisland_tpu_torch.ops.islands import IslandCalls
 from cpgisland_tpu_torch.ops.viterbi_parallel import viterbi_parallel_batch
 from cpgisland_tpu_torch.parallel.decode import resolve_engine, viterbi_sharded
+from cpgisland_tpu_torch.train import baum_welch
 from cpgisland_tpu_torch.utils import chunking, codec
 
 # Largest record decoded in one pass in clean mode; longer records need the
@@ -57,7 +61,7 @@ def resolve_device(device) -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "CUDA is not available: the decode kernels need an NVIDIA GPU; "
+            "CUDA is not available: the kernels need an NVIDIA GPU; "
             "pass device='cpu' (CLI: --device cpu) to run their plain "
             "PyTorch versions instead"
         )
@@ -269,3 +273,69 @@ def decode_file(
         # Single-record files keep the reference's bare 5-column format.
         calls = dataclasses.replace(calls, names=None)
     return _finish_decode(calls, n_sym, n_records, islands_out, phases)
+
+
+def train_file(
+    training_path: str,
+    *,
+    params: Optional[HmmParams] = None,
+    num_iters: int = 10,
+    convergence: float = 0.005,
+    backend: str = "local",
+    mode: str = "rescaled",
+    engine: str = "auto",
+    compat: bool = True,
+    chunk_size: int = chunking.TRAIN_CHUNK,
+    model_out: Optional[str] = None,
+    symbol_cache: Optional[str] = None,
+    invalid_symbols: str = "skip",
+    device="cuda",
+) -> baum_welch.FitResult:
+    """Train the CpG HMM on a sequence file (the reference's ``trainModel``).
+
+    ``params`` (default: the Durbin 8-state preset) moves to ``device``
+    (default "cuda").  compat mode encodes header lines as bases and drops
+    the remainder chunk, so it trains nothing on a file below
+    ``chunk_size`` symbols; clean mode parses FASTA and pads the last
+    chunk.  ``invalid_symbols`` is the codec's skip/mask/fail policy (clean
+    mode only).  ``model_out``: write the reference's text dump of the
+    trained model.  Symbol caches, and every backend but ``local``, are
+    not ported and raise NotImplementedError."""
+    if params is None:
+        params = presets.durbin_cpg8()
+    if symbol_cache is not None:
+        raise NotImplementedError("symbol caches are not ported yet (ROADMAP A1)")
+    _check_invalid_symbols(invalid_symbols, compat)
+    dev = resolve_device(device)
+    phases: dict = {}
+    with _phase(phases, "encode"):
+        symbols = codec.encode_file(training_path, skip_headers=not compat,
+                                    invalid=invalid_symbols)
+        chunked = chunking.frame(symbols, chunk_size, drop_remainder=compat)
+    result = baum_welch.fit(
+        params.to(dev), chunked, num_iters=num_iters, convergence=convergence,
+        backend=backend, mode=mode, engine=engine,
+    )
+    result.phases.update(phases)
+    if model_out is not None:
+        dump_text(result.params, model_out)
+    return result
+
+
+def run(
+    training_path: str,
+    test_path: str,
+    islands_out: str,
+    model_out: str,
+    convergence: float = 0.005,
+    num_iters: int = 10,
+    *,
+    compat: bool = True,
+    device="cuda",
+) -> DecodeResult:
+    """The reference's full ``main()`` from the Durbin preset: train, dump
+    the model, decode, write islands (CpGIslandFinder.java:346-357)."""
+    fit = train_file(training_path, num_iters=num_iters, convergence=convergence,
+                     model_out=model_out, compat=compat, device=device)
+    return decode_file(test_path, fit.params, islands_out=islands_out, compat=compat,
+                       device=device)

@@ -12,6 +12,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+TRAIN_CHUNK = 0x10000  # CpGIslandFinder.java:130 (training shards)
 DECODE_CHUNK = 0x100000  # CpGIslandFinder.java:256
 PAD_SYMBOL = 4  # one past the 4 real symbols; ops treat it as "no observation"
 

@@ -132,3 +132,34 @@ def test_reduced_eligible_matches_jax(rng, case):
     tp = TH.params_from_numpy(jp.log_pi, jp.log_A, jp.log_B)
     assert TPart.reduced_eligible(tp) == JPart.reduced_eligible(jp)
     assert TPart.reduced_eligible(tp) == (case in ("flagship", "scrambled"))
+
+
+def test_from_probs_of_tensors_equals_numpy_route(rng):
+    """from_probs keeps tensors on their device (the M-step builds the next
+    model with no host round trip); the tensor route and the numpy route
+    round to float32 the same way, so they give the same bits."""
+    import torch
+
+    for _ in range(3):
+        pi, A, B = _random_model(rng)
+        via_numpy = TH.HmmParams.from_probs(pi, A, B)
+        for dtype in (torch.float64, torch.float32):
+            via_tensor = TH.HmmParams.from_probs(
+                *(torch.as_tensor(np.asarray(x), dtype=dtype) for x in (pi, A, B)))
+            for a, b in zip((via_numpy.log_pi, via_numpy.log_A, via_numpy.log_B),
+                            (via_tensor.log_pi, via_tensor.log_A, via_tensor.log_B)):
+                assert torch.equal(a, b)
+                assert b.dtype == torch.float32 and b.device == torch.device("cpu")
+    meta = TH.HmmParams.from_probs(*(torch.ones(s, device="meta") for s in (2, (2, 2), (2, 4))))
+    assert meta.device.type == "meta"  # no host round trip
+
+
+def test_max_abs_diff_matches_jax(rng):
+    """The convergence metric: the max probability-space change over pi, A
+    and B (held to the f32 exp's ulp, see the module docstring)."""
+    for _ in range(3):
+        a, b = _random_model(rng), _random_model(rng)
+        want = float(JH.HmmParams.from_probs(*a).max_abs_diff(JH.HmmParams.from_probs(*b)))
+        got = TH.HmmParams.from_probs(*a).max_abs_diff(TH.HmmParams.from_probs(*b))
+        assert got.dim() == 0
+        assert float(got) == pytest.approx(want, abs=1e-7)
