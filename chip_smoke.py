@@ -5,16 +5,18 @@
 
 Builds the port's CUDA kernels from the sources in this checkout (one nvcc
 per source, in parallel), holds each one against its plain PyTorch version
-on the card, drives the decode and the training main paths end to end (a
-seeded chromosome-sized FASTA) and checks the results.  Phases, one JSON
-line each:
+on the card, drives the decode, training and posterior main paths end to
+end (a seeded chromosome-sized FASTA) and checks the results.  Phases, one
+JSON line each:
 
 1. card: name and power limit, kernel build time;
 2. kernels: B1-B3 at full size (bk=4096, nb=16384: 64 Mi steps, PAD runs
-   and record resets in the pair stream) and B4-B5 at NL=1024 lanes x
-   Tp=65,536 steps (ragged lengths, a short last lane, PAD tails) — B1-B4
-   bit-equal to their plain versions, B5 within rtol 1e-5 / atol 1e-3 —
-   with median time, bound and plain-version time;
+   and record resets in the pair stream), B4-B5 at NL=1024 lanes x
+   Tp=65,536 steps (ragged lengths, a short last lane, PAD tails), and B7
+   at the posterior's geometry, NL=8192 lanes x lane_T=8192 steps (64 Mi
+   steps, a short last lane with a PAD tail), where B4 is timed again —
+   B1-B4 and B7 bit-equal to their plain versions, B5 within rtol 1e-5 /
+   atol 1e-3 — with median time, bound and plain-version time;
 3. main path, decode: ``pipeline.decode_file`` on a 64 Mi-base record plus
    256 scaffolds, clean then compat, with per-phase wall seconds and the
    launch counts of that run (B1-B3 each > 0);
@@ -32,9 +34,21 @@ line each:
    atol 1e-5 with the same structural zeros and identical island files;
 6. run: ``pipeline.run`` in compat mode at the reference defaults
    (convergence 0.005, 10 iterations) on the FASTA, with the launch counts
-   of that run (all five kernels > 0);
-7. profile: device time by kernel over one decode of the big record and
-   over one EM iteration, and the device's idle share of each.
+   of that run (all five decode and training kernels > 0);
+7. posterior: ``pipeline.posterior_file`` on the same FASTA (islands and
+   confidence) at the default span (the big record in one pass, the
+   scaffolds batched: B7 launches exactly once) and at a 16 Mi span (the
+   big record in 4 spans: B7 exactly 8 times, 4 transfer totals and 4
+   posterior sweeps), B4 > 0 in both; the two runs must give identical
+   island files, mean confidence within 1e-6 and confidence within atol
+   1e-4.  Then parity: the posterior of the first 4 Mi symbols through the
+   plain versions on the card must equal the kernels' bit for bit (the
+   same MPM path), and a small FASTA with records longer than a 32 Ki span
+   must give identical island files and confidence within atol 1e-5 on
+   the CPU and on the card;
+8. profile: device time by kernel over one decode of the big record, one
+   EM iteration and one posterior of the big record, and the device's
+   idle share of each.
 
 Then the kernel table as one JSON object and, last, the ok line.  Exits
 non-zero on any failure, or when CUDA is not available.
@@ -58,17 +72,19 @@ import torch
 from cpgisland_tpu_torch import pipeline
 from cpgisland_tpu_torch.models import presets
 from cpgisland_tpu_torch.models.hmm import load_text
-from cpgisland_tpu_torch.ops import _kernels, fb_chunked
+from cpgisland_tpu_torch.ops import _kernels, fb_chunked, fb_seq
 from cpgisland_tpu_torch.ops import fb_onehot as FB
 from cpgisland_tpu_torch.ops import viterbi_onehot as OH
-from cpgisland_tpu_torch.ops.prepared import prepare_chunked
+from cpgisland_tpu_torch.ops.prepared import prepare_chunked, prepare_seq
 from cpgisland_tpu_torch.parallel.decode import viterbi_sharded
+from cpgisland_tpu_torch.parallel.posterior import posterior_sharded
 from cpgisland_tpu_torch.train import baum_welch
 from cpgisland_tpu_torch.train.backends import LocalBackend
 from cpgisland_tpu_torch.utils import chunking, codec
 
 BK, NB = 4096, 16384  # the default block; 64 Mi steps
 FB_NL, FB_TP = 1024, chunking.TRAIN_CHUNK  # B4/B5: 1024 chunks of 65,536 steps
+POST_NL, POST_LANE_T = 8192, fb_seq.DEFAULT_LANE_T  # B7 (and B4): a 64 Mi span
 BIG_RECORD = 64 << 20
 N_SCAFFOLDS = 256
 PARITY_SYMBOLS = 4 << 20
@@ -84,6 +100,8 @@ KERNELS = {
                         "cpgisland_tpu_torch/csrc/viterbi_onehot.cu"),
     "oh_backtrace": ("cpgisland_tpu/ops/viterbi_onehot.py:539",
                      "cpgisland_tpu_torch/csrc/viterbi_onehot.cu"),
+    "oh_prod": ("cpgisland_tpu/ops/fb_onehot.py:102",
+                "cpgisland_tpu_torch/csrc/fb_onehot.cu"),
     "oh_fwdbwd": ("cpgisland_tpu/ops/fb_onehot.py:266",
                   "cpgisland_tpu_torch/csrc/fb_onehot.cu"),
     "oh_seq_stats": ("cpgisland_tpu/ops/fb_onehot.py:804",
@@ -91,6 +109,11 @@ KERNELS = {
 }
 DECODE_KERNELS = ("oh_products", "oh_backpointers", "oh_backtrace")
 TRAIN_KERNELS = ("oh_fwdbwd", "oh_seq_stats")
+POSTERIOR_KERNELS = ("oh_prod", "oh_fwdbwd")
+ISLAND_STATES = (0, 1, 2, 3)
+# (label, span, B7 launches): the big record in one pass (the scaffolds
+# batch, without B7), then in 4 spans (4 transfer totals, 4 posteriors).
+POSTERIOR_RUNS = (("default", 1 << 26, 1), ("span16Mi", 1 << 24, 8))
 
 
 def emit(obj) -> None:
@@ -271,6 +294,56 @@ def fb_kernel_phase(rng: np.random.Generator, params, dev) -> dict:
     )
     if not agree:
         raise SystemExit("chip_smoke: oh_seq_stats disagrees with its plain version")
+    return results
+
+
+def post_kernel_phase(rng: np.random.Generator, params, dev) -> dict:
+    """B7 at the posterior's geometry: one 64 Mi span laid out as POST_NL
+    lanes of POST_LANE_T steps, its last lane short (a PAD tail).  B4 is
+    held and timed again on the same lanes (a whole-sequence span: few,
+    long chains)."""
+    S = params.n_symbols
+    T = POST_NL * POST_LANE_T
+    length = T - POST_LANE_T // 3
+    obs = torch.from_numpy(rng.integers(0, S, size=T).astype(np.uint8)).to(dev)
+    prep = prepare_seq(S, obs, length, lane_T=POST_LANE_T)
+    Tp, NL = prep.pair2.shape
+    assert (Tp, NL) == (POST_LANE_T, POST_NL)
+    tab = FB.prob_tab_ext(params, OH._groups(params))
+    red_k = FB.oh_prod(prep.pair2, tab)
+    red_p = FB.oh_prod_plain(prep.pair2, tab)
+    torch.cuda.synchronize()
+    equal = torch.equal(red_k, red_p)
+    steps_n = Tp * NL
+    results = {"oh_prod": kernel_row(
+        "oh_prod", equal, max_abs_err(red_k, red_p), lambda: FB.oh_prod(prep.pair2, tab),
+        lambda: FB.oh_prod_plain(prep.pair2, tab),
+        # the pair stream read, [4, NL] written; per step 8 multiplies, 7
+        # adds, a max and 4 divisions
+        n_bytes=4 * steps_n + tab.numel() * 4 + 16 * NL, n_ops=20 * steps_n,
+        steps=steps_n, plain_runs=1, bit_equal=equal,
+    )}
+    if not equal:
+        raise SystemExit("chip_smoke: oh_prod disagrees with its plain version")
+
+    lens2 = prep.lane_lens[None, :].contiguous()
+    v = lambda: torch.from_numpy(rng.random((2, NL)).astype(np.float32) + 0.01).to(dev)
+    fb_args = (prep.pair2, prep.pairn2, lens2, v(), v(), tab, POST_LANE_T)
+    al_k, be_k = FB.oh_fwdbwd(*fb_args)
+    al_p, be_p = FB.oh_fwdbwd_plain(*fb_args)
+    torch.cuda.synchronize()
+    equal = torch.equal(al_k, al_p) and torch.equal(be_k, be_p)
+    err = max(max_abs_err(al_k, al_p), max_abs_err(be_k, be_p))
+    del al_p, be_p
+    kernel_row(
+        "oh_fwdbwd", equal, err, lambda: FB.oh_fwdbwd(*fb_args),
+        lambda: FB.oh_fwdbwd_plain(*fb_args),
+        n_bytes=24 * steps_n + 4 * NL + 16 * NL + tab.numel() * 4, n_ops=2 * 7 * steps_n,
+        steps=steps_n, plain_runs=1, bit_equal=equal, geometry="posterior span",
+    )
+    if not equal:
+        raise SystemExit("chip_smoke: oh_fwdbwd disagrees with its plain version at the "
+                         "posterior geometry")
     return results
 
 
@@ -514,14 +587,100 @@ def run_phase(fa: str, tmp: str, dev) -> dict:
     finite = all(bool(torch.isfinite(x).all()) for x in (model.log_pi, model.log_A, model.log_B))
     emit({"phase": "run", "mode": "compat", "wall_s": wall, "symbols_decoded": res.n_symbols,
           "islands": len(res.calls), "launches": launches})
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k in DECODE_KERNELS + TRAIN_KERNELS if launches[k] == 0]
     if missing or not finite:
         raise SystemExit(f"chip_smoke: run never launched {missing} or wrote a non-finite model")
     return launches
 
 
 # ---------------------------------------------------------------------------
-# Phase 7: where the device time goes
+# Phase 7: the posterior main path, and its parity
+
+
+def posterior_phase(params, fa: str, tmp: str, dev) -> dict:
+    """posterior_file at the default span and at a 16 Mi span; returns the
+    launch counts of both runs together."""
+    runs, launches = {}, {k: 0 for k in POSTERIOR_KERNELS}
+    for label, span, want_b7 in POSTERIOR_RUNS:
+        isl, conf = (os.path.join(tmp, f"posterior.{label}.{x}") for x in ("txt", "npy"))
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = pipeline.posterior_file(fa, params, islands_out=isl, confidence_out=conf,
+                                      span=span, device=dev)
+        wall = time.perf_counter() - t0
+        counts = {k: _kernels.launches[k] for k in POSTERIOR_KERNELS}
+        check_calls(res, f"posterior {label}")
+        emit({
+            "phase": "posterior", "span": span, "symbols": res.n_symbols,
+            "records": res.n_records, "islands": len(res.calls),
+            "mean_island_confidence": res.mean_island_confidence, "wall_s": wall,
+            "phases_s": res.phases, "msym_per_s": res.n_symbols / wall / 1e6,
+            "posterior_msym_per_s": res.n_symbols / res.phases["posterior"] / 1e6,
+            "launches": counts,
+        })
+        if counts["oh_prod"] != want_b7 or counts["oh_fwdbwd"] == 0:
+            raise SystemExit(f"chip_smoke: posterior ({label}) launched {counts}; B7 must "
+                             f"launch {want_b7} times and B4 at least once")
+        for k in POSTERIOR_KERNELS:
+            launches[k] += counts[k]
+        with open(isl) as f:
+            runs[label] = (f.read(), np.load(conf), res.mean_island_confidence)
+    (isl_a, conf_a, mean_a), (isl_b, conf_b, mean_b) = runs.values()
+    same = isl_a == isl_b
+    err = float(np.abs(conf_a.astype(np.float64) - conf_b).max())
+    emit({"phase": "posterior_spans", "islands_identical": same, "max_conf_err": err,
+          "mean_conf_diff": abs(mean_a - mean_b)})
+    if not (same and err <= 1e-4 and abs(mean_a - mean_b) <= 1e-6):
+        raise SystemExit("chip_smoke: the span-threaded posterior differs from the one-pass")
+    return launches
+
+
+def posterior_fasta(rng: np.random.Generator, path: str) -> str:
+    """Three records longer than a 32 Ki span and four scaffolds."""
+    with open(path, "wb") as f:
+        for i, n in enumerate((40_000, 47_000, 54_000, 3_000, 9_000, 1_500, 12_000)):
+            f.write(to_fasta_bytes(rng, f"p{i}", make_sequence(rng, n)))
+    return path
+
+
+def posterior_parity_phase(rng: np.random.Generator, params, big: np.ndarray, tmp: str,
+                           dev) -> None:
+    obs = torch.from_numpy(big[:PARITY_SYMBOLS]).to(dev)
+    mask = np.zeros(params.n_states, np.float32)
+    mask[list(ISLAND_STATES)] = 1.0
+    conf_k, path_k = fb_seq.seq_posterior(params, obs, obs.shape[0], mask, want_path=True)
+    kernels = (FB.oh_prod, FB.oh_fwdbwd)
+    FB.oh_prod, FB.oh_fwdbwd = FB.oh_prod_plain, FB.oh_fwdbwd_plain
+    try:
+        conf_p, path_p = fb_seq.seq_posterior(params, obs, obs.shape[0], mask, want_path=True)
+    finally:
+        FB.oh_prod, FB.oh_fwdbwd = kernels
+    torch.cuda.synchronize()
+    same = torch.equal(conf_k, conf_p) and torch.equal(path_k, path_p)
+    emit({"phase": "posterior_parity", "symbols": int(obs.shape[0]), "bit_equal": same,
+          "max_conf_err": max_abs_err(conf_k, conf_p),
+          "path_mismatches": int((path_k != path_p).sum())})
+    if not same:
+        raise SystemExit("chip_smoke: the kernel posterior differs from the plain posterior")
+
+    fa = posterior_fasta(rng, os.path.join(tmp, "posterior_small.fa"))
+    out = {}
+    for where in ("cpu", dev):
+        buf = io.StringIO()
+        conf = os.path.join(tmp, f"posterior_small.{where}.npy")
+        pipeline.posterior_file(fa, params, islands_out=buf, confidence_out=conf,
+                                span=1 << 15, device=where)
+        out[str(where)] = (buf.getvalue(), np.load(conf))
+    (isl_c, conf_c), (isl_g, conf_g) = out["cpu"], out[str(dev)]
+    err = float(np.abs(conf_c.astype(np.float64) - conf_g).max())
+    emit({"phase": "posterior_cpu_vs_cuda", "islands_identical": isl_c == isl_g,
+          "lines": isl_g.count("\n"), "max_conf_err": err})
+    if not (isl_c == isl_g and isl_g and err <= 1e-5):
+        raise SystemExit("chip_smoke: posterior on the CPU and on the card disagree")
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: where the device time goes
 
 
 def device_rows(prof) -> list:
@@ -580,6 +739,11 @@ def profile_phase(params, big: np.ndarray, fa: str, dev) -> None:
     profiled(f"one EM iteration, {chunked.num_chunks} chunks of {chunking.TRAIN_CHUNK}",
              em_iteration)
 
+    # One posterior of the big record (one span), MPM path included, to host.
+    posterior_sharded(params, big[: 1 << 20], ISLAND_STATES, want_path=True)
+    profiled(f"posterior_sharded, {big.size} symbols",
+             lambda: posterior_sharded(params, big, ISLAND_STATES, want_path=True))
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -603,11 +767,17 @@ def main(argv=None) -> int:
     params = presets.durbin_cpg8(device=dev)
     results = kernel_phase(rng, params, dev)
     results |= fb_kernel_phase(rng, params, dev)
+    results |= post_kernel_phase(rng, params, dev)
     with tempfile.TemporaryDirectory() as tmp:
         fa, big, launches = main_path_phase(rng, params, tmp, dev)
         launches |= train_phase(params, fa, dev)
         parity_phase(rng, params, big, tmp, dev)
         run_phase(fa, tmp, dev)
+        # Launches on the main paths: each kernel's count over the decode,
+        # train and posterior runs.
+        for k, n in posterior_phase(params, fa, tmp, dev).items():
+            launches[k] = launches.get(k, 0) + n
+        posterior_parity_phase(rng, params, big, tmp, dev)
         profile_phase(params, big, fa, dev)
 
     table = []

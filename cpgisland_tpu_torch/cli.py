@@ -19,6 +19,9 @@ Two forms, as ``python -m cpgisland_tpu``:
            [--invalid-symbols skip|mask|fail]
        python -m cpgisland_tpu_torch run TRAIN TEST --islands-out i.txt \\
            --model-out m.txt [--iters N] [--convergence E] [--clean]
+       python -m cpgisland_tpu_torch posterior FILE [--islands-out i.txt] \\
+           [--confidence-out c.npy] [--mpm-path-out p.npy] [--min-len N] \\
+           [--island-states 0,1,2,3] [--model m.txt] [--invalid-symbols P]
 
 Everything runs on the card unless ``--device cpu`` is given (the kernels'
 plain versions); that flag may stand anywhere in the arguments, the
@@ -32,7 +35,7 @@ import argparse
 import sys
 from typing import Optional, Sequence
 
-_SUBCOMMANDS = ("train", "decode", "run")
+_SUBCOMMANDS = ("train", "decode", "run", "posterior")
 _DEVICES = ("cuda", "cpu")
 
 
@@ -105,6 +108,31 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--iters", type=int, default=10)
     r.add_argument("--convergence", type=float, default=0.005)
     _add_clean_flag(r)
+
+    po = sub.add_parser(
+        "posterior",
+        help="soft decoding: per-position island confidence (forward-backward "
+        "posteriors; the soft counterpart of `decode`, always clean)",
+    )
+    po.add_argument("test_file")
+    po.add_argument("--model", help="model text file (default: the --preset model)")
+    po.add_argument("--preset", choices=("durbin8",), default="durbin8",
+                    help="model preset (durbin8: the reference's 8-state CpG+- table)")
+    po.add_argument("--confidence-out", help=".npy of float32 P(in island) per symbol")
+    po.add_argument("--mpm-path-out",
+                    help=".npy of the int8 max-posterior-marginal state path")
+    po.add_argument("--islands-out",
+                    help="call CpG islands from the MPM path (decode-format records)")
+    po.add_argument("--min-len", type=int, default=None,
+                    help="minimum island length for --islands-out")
+    po.add_argument(
+        "--island-states",
+        help="comma-separated island state ids for models whose states don't "
+        "encode bases; composition then comes from the observations",
+    )
+    po.add_argument("--engine", choices=("auto", "onehot"), default="auto",
+                    help="forward-backward engine (auto: the reduced one-hot kernels)")
+    _add_invalid_symbols_flag(po)
     return ap
 
 
@@ -125,7 +153,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     parser = build_parser()
     args = parser.parse_args(argv)
-    compat = not args.clean
+    compat = not getattr(args, "clean", True)  # posterior is always clean
     if getattr(args, "invalid_symbols", "skip") != "skip" and compat:
         parser.error("--invalid-symbols mask|fail requires --clean")
 
@@ -139,6 +167,32 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         final = res.logliks[-1] if res.logliks else float("nan")
         print(f"trained: iters={res.iterations} converged={res.converged} "
               f"final_loglik={final:.4f}")
+        return 0
+
+    if args.cmd == "posterior":
+        if args.min_len is not None and not args.islands_out:
+            parser.error("--min-len only applies with --islands-out")
+        if not (args.confidence_out or args.mpm_path_out or args.islands_out):
+            parser.error("nothing to do: pass --confidence-out, --mpm-path-out, "
+                         "and/or --islands-out")
+        island_states = None
+        if args.island_states:
+            try:
+                island_states = tuple(int(x) for x in args.island_states.split(","))
+            except ValueError:
+                parser.error("--island-states must be comma-separated integers, got "
+                             f"{args.island_states!r}")
+        params = load_text(args.model) if args.model else presets.durbin_cpg8()
+        res = pipeline.posterior_file(
+            args.test_file, params, confidence_out=args.confidence_out,
+            mpm_path_out=args.mpm_path_out, islands_out=args.islands_out,
+            min_len=args.min_len, island_states=island_states, engine=args.engine,
+            invalid_symbols=args.invalid_symbols, device=device,
+        )
+        extra = (f"; {len(res.calls)} islands -> {args.islands_out}"
+                 if res.calls is not None else "")
+        print(f"posterior: {res.n_symbols} symbols in {res.n_records} records; "
+              f"mean island confidence {res.mean_island_confidence:.4f}{extra}")
         return 0
 
     if args.cmd == "decode":

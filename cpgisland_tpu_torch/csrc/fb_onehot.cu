@@ -1,16 +1,32 @@
-// Reduced one-hot forward-backward: the chunked E-step's two kernels for
+// Reduced one-hot forward-backward: the fused arm's three kernels for
 // Hopper (sm_90a), with a plain C interface loaded through ctypes
 // (cpgisland_tpu_torch/ops/_kernels.py).  Plain versions of the same
 // functions, used on the CPU and as the reference on the card, live in
-// cpgisland_tpu_torch/ops/fb_onehot.py (oh_fwdbwd_plain, oh_seq_stats_plain).
+// cpgisland_tpu_torch/ops/fb_onehot.py (oh_prod_plain, oh_fwdbwd_plain,
+// oh_seq_stats_plain).
 //
 // Layout: time-major streams, [Tp, NL] for the pairs and [Tp, 2, NL] for
 // alphas and betas (lane n of step t at t * NL + n, component c at
-// (2t + c) * NL + n).  Lanes are independent chunks of the training batch;
+// (2t + c) * NL + n).  Lanes are independent chunks of the training batch,
+// or consecutive stretches of one record (the posterior);
 // neighbouring threads take neighbouring lanes, so every load and store of
 // a warp is one coalesced transaction per row.  The per-pair 2x2 tables
 // (at most MAX_S^2 real rows plus the identity row, which every PAD pair
 // is clamped onto) sit in shared memory.
+//
+// B7 oh_prod_kernel replaces cpgisland_tpu/ops/fb_onehot.py::
+// _oh_prod_kernel.  Per lane, the 2x2 (+, x) product of its pair-selected
+// step matrices, each step renormalized by the product's total.  Bound: it
+// reads 4 B per step and writes 16 B per lane, 0.27 GB at NL = 8192 lanes
+// of 8192 steps (0.080 ms at 3.35 TB/s); each lane is one dependent chain
+// of steps whose every step waits on four IEEE divisions, so like B4 it is
+// latency-bound well above that.  The design: one thread per lane (32 to a
+// block, so the warps spread over the SMs), the pair stream read a group of
+// steps ahead of the chain (as in B4), and every product, sum and division
+// an explicit round-to-nearest intrinsic in the plain version's order —
+// ((n00 + n01) + n10) + n11 for the total — so it equals the plain version
+// bit for bit.  (The TPU kernel renormalizes every 8 steps; the directions,
+// all that its consumers read, are the same.)
 //
 // B4 oh_fwdbwd_kernel replaces cpgisland_tpu/ops/fb_onehot.py::
 // _oh_fwdbwd_kernel.  Bound: it reads 8 B and writes 16 B per step and
@@ -145,6 +161,50 @@ oh_fwdbwd_kernel(const int32_t* __restrict__ pair, const int32_t* __restrict__ p
 }
 
 // ---------------------------------------------------------------------------
+// B7: the per-lane transfer products.
+
+__global__ void __launch_bounds__(FB_THREADS)
+oh_prod_kernel(const int32_t* __restrict__ pair, const float* __restrict__ tab,
+               float* __restrict__ out, int Tp, int NL, int nreal) {
+  __shared__ float s_tab[MAX_TAB];
+  for (int i = threadIdx.x; i < (nreal + 1) * 4; i += blockDim.x) s_tab[i] = tab[i];
+  __syncthreads();
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= NL) return;
+  const size_t nl = (size_t)NL;
+  const int32_t* p = pair + n;
+  float c00 = 1.0f, c01 = 0.0f, c10 = 0.0f, c11 = 1.0f;
+  int q[LOOKAHEAD], qn[LOOKAHEAD];
+  load_group(p, nl, 0, 1, Tp, nreal, q);
+  for (int t0 = 0; t0 < Tp; t0 += LOOKAHEAD) {
+    load_group(p, nl, t0 + LOOKAHEAD, 1, Tp, nreal, qn);
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) {
+      if (t0 + r < Tp) {
+        // new[i, c] = C[i, 0] * T[0, c] + C[i, 1] * T[1, c], then each
+        // entry over the total (fb_onehot.py:162-167, the twin's order).
+        const float* m = s_tab + 4 * q[r];
+        const float n00 = __fadd_rn(__fmul_rn(c00, m[0]), __fmul_rn(c01, m[2]));
+        const float n01 = __fadd_rn(__fmul_rn(c00, m[1]), __fmul_rn(c01, m[3]));
+        const float n10 = __fadd_rn(__fmul_rn(c10, m[0]), __fmul_rn(c11, m[2]));
+        const float n11 = __fadd_rn(__fmul_rn(c10, m[1]), __fmul_rn(c11, m[3]));
+        const float tot = fmaxf(__fadd_rn(__fadd_rn(__fadd_rn(n00, n01), n10), n11), 1e-30f);
+        c00 = __fdiv_rn(n00, tot);
+        c01 = __fdiv_rn(n01, tot);
+        c10 = __fdiv_rn(n10, tot);
+        c11 = __fdiv_rn(n11, tot);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) q[r] = qn[r];
+  }
+  out[n] = c00;
+  out[nl + n] = c01;
+  out[2 * nl + n] = c10;
+  out[3 * nl + n] = c11;
+}
+
+// ---------------------------------------------------------------------------
 // B5: z-normalized counts.  Per-lane accumulator rows (R = 4 S^2 + 2S + 1):
 // [0, 4 S^2) pair bins ((s_prev * S + s_cur) * 4 + a * 2 + c), then the 2S
 // emission rows (2 * s + a), then the loglik.
@@ -273,6 +333,15 @@ oh_seq_stats_reduce_kernel(const float* __restrict__ part, const int32_t* __rest
 // int.  Each function launches on the caller's stream and returns
 // cudaGetLastError(), so a refused launch reaches the Python wrapper.
 extern "C" {
+
+int oh_prod(const void* pair, const void* tab, void* out, int Tp, int NL, int nreal,
+            void* stream) {
+  if (nreal < 1 || nreal > MAX_S * MAX_S || Tp <= 0 || NL <= 0) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((NL + FB_THREADS - 1) / FB_THREADS);
+  oh_prod_kernel<<<blocks, FB_THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)pair, (const float*)tab, (float*)out, Tp, NL, nreal);
+  return (int)cudaGetLastError();
+}
 
 int oh_fwdbwd(const void* pair, const void* pairn, const void* lens, const void* a0,
               const void* beta0, const void* tab, void* alphas, void* betas, int Tp,

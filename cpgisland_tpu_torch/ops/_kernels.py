@@ -43,6 +43,7 @@ _SIGNATURES = {
     "oh_products": ("viterbi_onehot", 3, ("bk", "nb", "nP")),
     "oh_backpointers": ("viterbi_onehot", 6, ("bk", "nb", "nP")),
     "oh_backtrace": ("viterbi_onehot", 5, ("bk", "nb", "nP")),
+    "oh_prod": ("fb_onehot", 3, ("Tp", "NL", "nreal")),
     "oh_fwdbwd": ("fb_onehot", 8, ("Tp", "NL", "nreal", "T")),
     "oh_seq_stats": ("fb_onehot", 14, ("Tp", "NL", "S", "K", "Tt")),
 }

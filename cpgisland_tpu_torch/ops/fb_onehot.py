@@ -1,14 +1,22 @@
-"""One-hot-emission reduced forward-backward: two CUDA kernels and their
+"""One-hot-emission reduced forward-backward: three CUDA kernels and their
 plain PyTorch versions.
 
-Counterpart of ``cpgisland_tpu/ops/fb_onehot.py``, cut to the fused
-chunked E-step.  For one-hot-emission models (the flagship 8-state
-preset) the alpha/beta vectors are exactly zero outside the 2-state group
-of the position's symbol, so the K-state recurrences reduce to 2-state
-recurrences whose per-step 2x2 matrix is A (times the emission
-probability) between the previous symbol's group and the current one's —
-the per-pair table :func:`prob_pair_table`.
+Counterpart of ``cpgisland_tpu/ops/fb_onehot.py``, cut to the fused arm
+(the chunked E-step and the posterior).  For one-hot-emission models (the
+flagship 8-state preset) the alpha/beta vectors are exactly zero outside
+the 2-state group of the position's symbol, so the K-state recurrences
+reduce to 2-state recurrences whose per-step 2x2 matrix is A (times the
+emission probability) between the previous symbol's group and the current
+one's — the per-pair table :func:`prob_pair_table`.
 
+- B7 :func:`oh_prod` (replaces ``_oh_prod_kernel``): each lane's 2x2
+  (+, x) product of its pair-selected step matrices, renormalized by its
+  own total — the lane transfer operators whose directions make the
+  whole-sequence boundary messages exact.  The plain version
+  :func:`oh_prod_plain` is the twin of ``_xla_products_prob`` (one
+  renormalizing division per step; the TPU kernel renormalizes every 8
+  steps, which changes only the internal scale).  The kernel equals it
+  bit for bit.
 - B4 :func:`oh_fwdbwd` (replaces ``_oh_fwdbwd_kernel``): the forward
   chain with deferred Rabiner scaling and the self-normalized backward
   chain, independent of each other, in one launch.  The plain version
@@ -33,7 +41,13 @@ import torch
 
 from cpgisland_tpu_torch.models.hmm import HmmParams
 from cpgisland_tpu_torch.ops import _kernels
-from cpgisland_tpu_torch.ops.viterbi_onehot import GROUP, _check, _groups, pair_stream
+from cpgisland_tpu_torch.ops.viterbi_onehot import (
+    GROUP,
+    _check,
+    _groups,
+    _scatter_products,
+    pair_stream,
+)
 
 _I32 = torch.int32
 _F32 = torch.float32
@@ -82,6 +96,93 @@ def scatter_streams(x2: torch.Tensor, gt: torch.Tensor, esym2: torch.Tensor,
     full = torch.where(iK[None, :, None] == glow[:, None, :], x2[:, 0:1, :], 0.0)
     # The two group members are distinct states, so add-compose is exact.
     return full + torch.where(iK[None, :, None] == ghigh[:, None, :], x2[:, 1:2, :], 0.0)
+
+
+# ---------------------------------------------------------------------------
+# B7: the per-lane transfer products
+
+
+def oh_prod_plain(pair2: torch.Tensor, tab_ext: torch.Tensor) -> torch.Tensor:
+    """Plain version of B7 -> [4, NL] (rows C00, C01, C10, C11).
+
+    pair2 [Tp, NL] int32, tab_ext [S*S + 1, 4] (identity last; PAD pairs
+    clamp onto it).  From the identity, each step takes C <- C . T_t, the
+    2x2 (+, x) product in the twin's operand order (each 2-term sum one
+    rounded addition), then divides every entry by max(((C00 + C01) + C10)
+    + C11, 1e-30)."""
+    Tp, NL = pair2.shape
+    nreal = tab_ext.shape[0] - 1
+    T = tab_ext[torch.clamp_max(pair2, nreal).long()].unbind(0)  # per-step [NL, 4]
+    one = torch.ones(NL, dtype=_F32, device=pair2.device)
+    zero = torch.zeros(NL, dtype=_F32, device=pair2.device)
+    c00, c01, c10, c11 = one, zero, zero, one
+    for t in T:
+        a00, a01, a10, a11 = t.unbind(1)
+        n00 = c00 * a00 + c01 * a10
+        n01 = c00 * a01 + c01 * a11
+        n10 = c10 * a00 + c11 * a10
+        n11 = c10 * a01 + c11 * a11
+        tot = torch.clamp_min(((n00 + n01) + n10) + n11, 1e-30)
+        c00, c01, c10, c11 = n00 / tot, n01 / tot, n10 / tot, n11 / tot
+    return torch.stack([c00, c01, c10, c11])
+
+
+def oh_prod(pair2: torch.Tensor, tab_ext: torch.Tensor) -> torch.Tensor:
+    """Kernel B7 (replaces the JAX package's ``_oh_prod_kernel``) -> [4, NL]
+    f32.  Arguments as :func:`oh_prod_plain`."""
+    _check_same_device(pair2, (tab_ext,))
+    if pair2.dim() != 2 or 0 in pair2.shape:
+        raise ValueError(f"pair2 must be a non-empty [Tp, NL], got {tuple(pair2.shape)}")
+    Tp, NL = pair2.shape
+    _check("pair2", pair2, _I32, (Tp, NL))
+    _check_table(tab_ext)
+    if pair2.device.type == "cpu":
+        return oh_prod_plain(pair2, tab_ext)
+    out = torch.empty((4, NL), dtype=_F32, device=pair2.device)
+    _kernels.launch("oh_prod", pair2, tab_ext, out, Tp=Tp, NL=NL, nreal=tab_ext.shape[0] - 1)
+    return out
+
+
+def products_reduced(params: HmmParams, pair2: torch.Tensor) -> torch.Tensor:
+    """Per-lane reduced transfer products [NL, 2, 2] of a [lane_T, NL] pair
+    stream (kernel B7).  Adjacent lanes' products compose directly: the
+    pair stream's forward fill makes lane n's exit group lane n+1's entry
+    group, so a 2x2 chain over lanes equals the dense chain exactly."""
+    NL = pair2.shape[1]
+    red = oh_prod(pair2, prob_tab_ext(params, _groups(params)))
+    return red.T.reshape(NL, GROUP, GROUP)
+
+
+def _scatter_products_prob(red, gt, e_in, e_out, K):
+    """[NL, 2, 2] reduced products -> [NL, K, K] dense (zero fill): exact,
+    since every consumer multiplies the out-of-group entries by zeros."""
+    return _scatter_products(red, gt, e_in, e_out, K, fill=0.0)
+
+
+def group_select(esym2: torch.Tensor, table: torch.Tensor):
+    """(table[esym2, 0], table[esym2, 1]) for a [S, 2] per-symbol table, as
+    one compare-and-select pass per symbol (the JAX package's form): at a
+    64 Mi span this is several times cheaper than an int64-indexed gather
+    into [Tp, NL, 2]."""
+    lo = torch.zeros(esym2.shape, dtype=table.dtype, device=esym2.device)
+    hi = torch.zeros_like(lo)
+    for s in range(table.shape[0]):
+        hit = esym2 == s
+        lo = torch.where(hit, table[s, 0], lo)
+        hi = torch.where(hit, table[s, 1], hi)
+    return lo, hi
+
+
+def conf_from_reduced(alphas2, betas2, esym2, lens2, conf_mask, gt):
+    """Per-position island confidence [Tp, NL] from the reduced streams: an
+    elementwise epilogue of B4.  Scale-free, so the self-normalized betas
+    are exact here.  ``conf_mask`` [K] marks the island states."""
+    m0, m1 = group_select(esym2, conf_mask.to(_F32)[gt])
+    graw0 = alphas2[:, 0] * betas2[:, 0]
+    graw1 = alphas2[:, 1] * betas2[:, 1]
+    tot = torch.clamp_min(graw0 + graw1, 1e-30)
+    vmask = torch.arange(alphas2.shape[0], device=alphas2.device)[:, None] < lens2
+    return torch.where(vmask, (m0 * graw0 + m1 * graw1) / tot, 0.0)
 
 
 # ---------------------------------------------------------------------------
@@ -288,19 +389,17 @@ def run_fb_kernels_onehot(params: HmmParams, sel_t, prev_dev, lens2: torch.Tenso
 
     a0_raw / beta0 arrive full-K [K, NL] and are projected onto each lane's
     entry / exit group here.  ``pair_esym``: a prepared (pair2, esym2,
-    pairn2) stream; otherwise it is built from ``sel_t`` and ``prev_dev``.
-    Returns (alphas2 [Tp, 2, NL], betas2 [Tp, 2, NL] self-normalized, esym2
-    [Tp, NL]).  Unlike the JAX runner it returns no Rabiner scales: the
-    z-normalized stats, the only consumer here, do not read them."""
+    pairn2) stream (esym2 may be None: it is derived from pair2);
+    otherwise it is built from ``sel_t`` and ``prev_dev``.  Returns
+    (alphas2 [Tp, 2, NL], betas2 [Tp, 2, NL] self-normalized, esym2
+    [Tp, NL]); with ``conf_mask`` ([K] island indicator) the second slot
+    is the island confidence [Tp, NL] instead (:func:`conf_from_reduced`
+    over B4's streams).  Unlike the JAX runner it returns no Rabiner
+    scales: no consumer here reads them."""
     if not fused:
         raise NotImplementedError(
-            "the split forward/backward arm (kernels B9/B10 with the cs-scaled "
-            "stats B12) is not ported yet (ROADMAP §B)"
-        )
-    if conf_mask is not None:
-        raise NotImplementedError(
-            "in-pass island confidence (posterior, kernel B11) is not ported yet "
-            "(ROADMAP A7)"
+            "the split forward/backward arm (kernels B9, B10, B11, B12) is "
+            "not ported yet (ROADMAP §B)"
         )
     from cpgisland_tpu_torch.ops.prepared import _pair_next
 
@@ -311,10 +410,14 @@ def run_fb_kernels_onehot(params: HmmParams, sel_t, prev_dev, lens2: torch.Tenso
         esym2, pairn2 = decode_esym(pair2, S), _pair_next(pair2, S)
     else:
         pair2, esym2, pairn2 = pair_esym
+        if esym2 is None:
+            esym2 = decode_esym(pair2, S)
     a0_red = torch.gather(a0_raw.T, 1, gt[esym2[0].long()]).T.contiguous()
     beta0_red = torch.gather(beta0.T, 1, gt[esym2[-1].long()]).T.contiguous()
     alphas2, betas2 = oh_fwdbwd(pair2, pairn2, lens2, a0_red.to(_F32),
                                 beta0_red.to(_F32), prob_tab_ext(params, gt), T)
+    if conf_mask is not None:
+        return alphas2, conf_from_reduced(alphas2, betas2, esym2, lens2, conf_mask, gt), esym2
     return alphas2, betas2, esym2
 
 

@@ -1,0 +1,253 @@
+"""Counterpart of ``cpgisland_tpu/ops/fb_pallas.py``'s whole-sequence half.
+
+Exact forward-backward over ONE long sequence on one device, for one-hot
+emission models (the flagship 8-state preset): the sequence splits into
+lanes of ``lane_T`` steps; kernel B7 (``fb_onehot.oh_prod``) gives each
+lane's 2x2 transfer product; two associative scans over the lanes turn
+those into every lane's exact entering-alpha and exiting-beta directions;
+kernel B4 (``fb_onehot.oh_fwdbwd``) then runs every lane's forward and
+backward chain from those messages, so the result is the whole-sequence
+posterior, not a chunk approximation.  ``enter_dir`` / ``exit_dir`` carry
+the same messages across consecutive spans of a record too long for one
+pass (``pipeline.posterior_file``).
+
+Only the fused two-pass arm of the reduced engine is ported: the dense
+engine (ROADMAP A10), the split arm (B9-B12) and the one-pass matrix arm
+(B8) are not.  The glue below keeps every contraction to sums of at most
+two nonzero terms (sums over a group of 2, or over K with all but two
+entries exact zeros) and spells out the one 4-term total, so it gives the
+same float32 bits on the CPU and on the card.
+
+Lane geometry: the JAX package picks ``lane_T`` from TPU rate tables,
+which do not carry over; here it is :data:`DEFAULT_LANE_T` capped at the
+input's power-of-two size (:func:`pick_lane_T`).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from cpgisland_tpu_torch.models.hmm import HmmParams
+from cpgisland_tpu_torch.ops import fb_onehot
+from cpgisland_tpu_torch.ops.fb_chunked import DEFAULT_T_TILE, _batch_lane_setup
+from cpgisland_tpu_torch.ops.prepared import PreparedSeq, check_seq, prepare_chunked, prepare_seq
+from cpgisland_tpu_torch.ops.viterbi_onehot import GROUP, _groups
+from cpgisland_tpu_torch.ops.viterbi_parallel import associative_scan
+
+# Steps per lane (the JAX package's legacy DEFAULT_LANE_T).  At a 64 Mi
+# span that is 8192 lanes, one B4 / B7 chain per thread each.
+DEFAULT_LANE_T = 8192
+
+_F32 = torch.float32
+
+
+def pick_lane_T(n: int) -> int:
+    """Lane length for an ``n``-symbol span: DEFAULT_LANE_T, capped at the
+    power of two at or above ``n`` so a small input is one short lane."""
+    p = 8
+    while p < n:
+        p <<= 1
+    return min(DEFAULT_LANE_T, p)
+
+
+def _norm_rows(v: torch.Tensor) -> torch.Tensor:
+    return v / torch.clamp_min(torch.sum(v, dim=-1, keepdim=True), 1e-30)
+
+
+def _mm2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[..., 2, 2] x [..., 2, 2] (+, x) product; each entry one 2-term sum."""
+    return (a[..., :, :, None] * b[..., None, :, :]).sum(-2)
+
+
+def _lane_combine(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Normalized 2x2 matrix combine (the (+, x) semiring)."""
+    m = _mm2(a, b)
+    tot = ((m[..., 0, 0] + m[..., 0, 1]) + m[..., 1, 0]) + m[..., 1, 1]
+    return m / torch.clamp_min(tot, 1e-30)[..., None, None]
+
+
+def _scan(red: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+    """Inclusive scan of lane products with the combination tree of
+    ``jax.lax.associative_scan``; ``reverse`` gives the suffix products
+    R[n] = red[n] . red[n+1] . ..."""
+    if not reverse:
+        return associative_scan(lambda a, b: [_lane_combine(a[0], b[0])], [red])[0]
+    rev = associative_scan(lambda a, b: [_lane_combine(b[0], a[0])], [red.flip(0)])[0]
+    return rev.flip(0)
+
+
+def _scatter_rows(red: torch.Tensor, g: torch.Tensor, K: int) -> torch.Tensor:
+    """[NL, 2] group components -> [NL, K] (zero fill); g [NL, 2] state ids."""
+    iK = torch.arange(K, device=red.device)
+    return (torch.where(iK[None, :] == g[:, 0:1], red[:, 0:1], 0.0)
+            + torch.where(iK[None, :] == g[:, 1:2], red[:, 1:2], 0.0))
+
+
+def _prep_for(params: HmmParams, obs, length, lane_T, first, prev_sym, prepared):
+    """The span's prep: ``prepared`` (checked against this call; its lane
+    geometry wins unless ``lane_T`` is given), else built here with
+    ``lane_T`` or :func:`pick_lane_T`."""
+    S = params.n_symbols
+    if prepared is None:
+        return prepare_seq(S, obs, length, lane_T=lane_T or pick_lane_T(obs.shape[0]),
+                           first=first, prev_sym=prev_sym)
+    check_seq(prepared, S, obs.shape[0], lane_T or prepared.lane_T, first, prev_sym)
+    return prepared
+
+
+def _lane_streams(params: HmmParams, obs: torch.Tensor, length: int,
+                  lane_T: Optional[int] = None, *,
+                  enter_dir=None, exit_dir=None, first: bool = True, conf_mask=None,
+                  prev_sym: Optional[int] = None, prepared: Optional[PreparedSeq] = None):
+    """Lane transfer products -> boundary messages -> B4 streams.
+
+    ``first``: this span starts the sequence (global position 0 is the
+    init).  ``enter_dir`` ([K], needed when not ``first``): the
+    entering-alpha direction from the previous span; ``exit_dir`` ([K],
+    optional): the exiting-beta direction from the next span (None: a free
+    end).  Returns (alphas2 [lane_T, 2, NL], betas2 [lane_T, 2, NL] —
+    or, with ``conf_mask``, the confidence [lane_T, NL] —, esym2, lens2)."""
+    K = params.n_states
+    A, B, pi = params.A.to(_F32), params.B.to(_F32), params.pi.to(_F32)
+    if not first and enter_dir is None:
+        raise ValueError(
+            "continuation spans (first=False) need enter_dir — the "
+            "entering-alpha direction from the previous span"
+        )
+    prep = _prep_for(params, obs, length, lane_T, first, prev_sym, prepared)
+    NL = prep.lane_lens.shape[0]
+    gt = _groups(params)
+    gin, gout = gt[prep.e_in.long()], gt[prep.e_out.long()]  # [NL, 2]
+    red = fb_onehot.products_reduced(params, prep.pair2)  # [NL, 2, 2]
+    incl_red = _scan(red)
+
+    o0 = prep.o0
+    a0_dir = _norm_rows(pi * B[:, o0])
+    base_dir = a0_dir if first else _norm_rows(torch.as_tensor(enter_dir, dtype=_F32,
+                                                               device=A.device))
+    anchor = (torch.full((K,), 1.0 / K, dtype=_F32, device=A.device) if exit_dir is None
+              else _norm_rows(torch.as_tensor(exit_dir, dtype=_F32, device=A.device)))
+
+    # Entering-alpha directions in the 2-component group space, scattered to
+    # the dense [K] rows; lane 0 enters with the FULL base direction (a
+    # threaded enter_dir may carry mass outside lane 0's entry group, which
+    # reaches its v_0 through A).
+    eye2 = torch.eye(GROUP, dtype=_F32, device=A.device)[None]
+    excl_red = torch.cat([eye2, incl_red[:-1]], dim=0)
+    base_red = base_dir[gin[0]]
+    enters = _scatter_rows(_norm_rows((base_red[None, :, None] * excl_red).sum(1)), gin, K)
+    enters[0] = base_dir
+    Rsuf_red = _scan(red, reverse=True)
+    anchor_red = anchor[gout[-1]]
+    beta_exits_red = torch.cat(
+        [_norm_rows((Rsuf_red[1:] * anchor_red[None, None, :]).sum(-1)), anchor_red[None]],
+        dim=0,
+    )
+    beta_exits = _scatter_rows(beta_exits_red, gout, K)
+
+    # Per-lane v_0, unnormalized (its sum is that position's Rabiner c).
+    Bf = B[:, prep.first_syms.long()].T  # [NL, K]
+    v0_cont = (enters[:, :, None] * A[None]).sum(1) * Bf
+    if first:
+        v0_cont[0] = pi * B[:, o0]  # lane 0 holds the init
+    v0 = torch.where((prep.lane_lens > 0)[:, None], v0_cont,
+                     torch.full((NL, K), 1.0 / K, dtype=_F32, device=A.device))
+    lens2 = prep.lane_lens[None, :].contiguous()
+    al2, third2, esym2 = fb_onehot.run_fb_kernels_onehot(
+        params, None, None, lens2, v0.T, beta_exits.T, prep.lane_T,
+        pair_esym=(prep.pair2, None, prep.pairn2), conf_mask=conf_mask,
+    )
+    return al2, third2, esym2, lens2
+
+
+def _conf_path_from_streams(alphas2, betas2, esym2, lens2, island_mask, gt):
+    """(conf2 [Tp, NL] f32, path2 [Tp, NL] int32) from the reduced streams.
+
+    The JAX package scatters the streams to dense [Tp, K, NL] and reduces
+    over K; every dense entry outside the position's group is an exact
+    zero, so this gives the same bits without the scatter: the island sum
+    and the total are sums of the two group terms, and the argmax is the
+    group's low state unless the high one is strictly larger (first-max
+    ties), or state 0 when both terms are 0 (the dense argmax of all
+    zeros)."""
+    conf2 = fb_onehot.conf_from_reduced(alphas2, betas2, esym2, lens2, island_mask, gt)
+    g_lo, g_hi = fb_onehot.group_select(esym2, gt.to(torch.int32))
+    graw0 = alphas2[:, 0] * betas2[:, 0]
+    graw1 = alphas2[:, 1] * betas2[:, 1]
+    state = torch.where(graw1 > graw0, g_hi, g_lo)
+    state = torch.where((graw0 == 0) & (graw1 == 0), 0, state)
+    vmask = torch.arange(alphas2.shape[0], device=alphas2.device)[:, None] < lens2
+    return conf2, torch.where(vmask, state, 0).to(torch.int32)
+
+
+def seq_posterior(params: HmmParams, obs: torch.Tensor, length: int, island_mask, *,
+                  enter_dir=None, exit_dir=None, first: bool = True, want_path: bool = False,
+                  lane_T: Optional[int] = None, prev_sym: Optional[int] = None,
+                  prepared: Optional[PreparedSeq] = None):
+    """Single-device posterior of one span: (conf [T] f32, MPM path [T]
+    int32 — zeros unless ``want_path``), on ``obs``'s device (the params'
+    device).  The twin of ``seq_posterior_pallas(onehot=True, fused=True)``
+    and its ``_seq_posterior_core``.
+
+    ``island_mask``: [K] 0/1, the island states; conf[t] is the posterior
+    mass on them.  ``prepared``: the span's :class:`PreparedSeq`, shared
+    with its transfer-total sweep.  ``lane_T`` default: the prep's, else
+    :func:`pick_lane_T`.  Continuation spans need ``enter_dir`` and
+    ``prev_sym``."""
+    T = obs.shape[0]
+    island_mask = torch.as_tensor(island_mask, dtype=_F32, device=params.device)
+    kw = dict(enter_dir=enter_dir, exit_dir=exit_dir, first=first, prev_sym=prev_sym,
+              prepared=prepared)
+    if not want_path:
+        _, conf2, _, _ = _lane_streams(params, obs, length, lane_T, conf_mask=island_mask, **kw)
+        # Lane n covers positions [n * lane_T, (n + 1) * lane_T): back to
+        # global order, pad sliced off.
+        return conf2.T.reshape(-1)[:T], torch.zeros(T, dtype=torch.int32, device=obs.device)
+    al2, b2, esym2, lens2 = _lane_streams(params, obs, length, lane_T, **kw)
+    conf2, path2 = _conf_path_from_streams(al2, b2, esym2, lens2, island_mask, _groups(params))
+    return conf2.T.reshape(-1)[:T], path2.T.reshape(-1)[:T]
+
+
+def batch_posterior(params: HmmParams, chunks: torch.Tensor, lengths: torch.Tensor,
+                    island_mask, *, want_path: bool = False, t_tile: int = DEFAULT_T_TILE):
+    """Posterior of a [N, T] batch of independent records, one record per
+    lane of B4 (the chunked layout: pi at the start, a free end — exact,
+    since each record fits its lane).  Returns (conf [N, T] f32, path
+    [N, T] int32 — zeros unless ``want_path``).  The onehot branch of
+    ``batch_posterior_pallas``."""
+    S = params.n_symbols
+    N, T = chunks.shape
+    prep = prepare_chunked(S, chunks, lengths, t_tile=t_tile)
+    _, a0_raw, beta0, _ = _batch_lane_setup(params, prep)
+    mask = torch.as_tensor(island_mask, dtype=_F32, device=params.device)
+    streams = (prep.pair2, prep.esym2, prep.pairn2)
+    if not want_path:
+        _, conf2, _ = fb_onehot.run_fb_kernels_onehot(
+            params, None, None, prep.lens2, a0_raw, beta0, T, pair_esym=streams,
+            conf_mask=mask,
+        )
+        return conf2.T[:N, :T], torch.zeros((N, T), dtype=torch.int32, device=chunks.device)
+    al2, b2, esym2 = fb_onehot.run_fb_kernels_onehot(
+        params, None, None, prep.lens2, a0_raw, beta0, T, pair_esym=streams,
+    )
+    conf2, path2 = _conf_path_from_streams(al2, b2, esym2, prep.lens2, mask, _groups(params))
+    return conf2.T[:N, :T], path2.T[:N, :T]
+
+
+def seq_transfer_total(params: HmmParams, obs: torch.Tensor, length: int, *,
+                       first: bool = True, lane_T: Optional[int] = None,
+                       prev_sym: Optional[int] = None,
+                       prepared: Optional[PreparedSeq] = None) -> torch.Tensor:
+    """Normalized [K, K] transfer operator M of one span (alpha_dir_out ∝
+    alpha_dir_in @ M): the products-only sweep of span threading.  Only
+    the entries between the span's entry and exit groups are nonzero.
+    ``first`` masks global position 0 (the init) — True only for a
+    record's first span; continuation spans need ``prev_sym``."""
+    prep = _prep_for(params, obs, length, lane_T, first, prev_sym, prepared)
+    red = fb_onehot.products_reduced(params, prep.pair2)
+    total_red = _scan(red)[-1:]
+    return fb_onehot._scatter_products_prob(
+        total_red, _groups(params), prep.e_in[:1], prep.e_out[-1:], params.n_states
+    )[0]

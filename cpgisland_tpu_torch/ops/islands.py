@@ -206,3 +206,43 @@ def call_islands(
         oe_threshold=oe_threshold,
         offset=chunk * chunk_size,
     )
+
+
+def call_islands_obs(
+    path: np.ndarray,
+    obs: np.ndarray,
+    *,
+    island_states,
+    min_len: Optional[int] = None,
+    gc_threshold: float = 0.5,
+    oe_threshold: float = 0.6,
+    offset: int = 0,
+) -> IslandCalls:
+    """Island calling for any set of island states (clean semantics only).
+
+    :func:`call_islands` reads the base out of the state id (the
+    reference's A+..T- labeling); models whose states do not encode bases
+    need membership from the PATH and composition from the OBSERVATIONS: a
+    position is in an island iff path[t] is in ``island_states``, and the
+    C/G/CpG counts come from obs[t] (symbol ids 0..3 = acgt).  Same
+    records and thresholds; coordinates are 1-based plus ``offset``."""
+    path = np.asarray(path)
+    obs = np.asarray(obs)
+    if path.shape != obs.shape:
+        raise ValueError(f"path {path.shape} and obs {obs.shape} differ")
+    if path.shape[0] == 0:
+        return _empty_calls()
+    in_mask = np.isin(path, np.asarray(list(island_states)))
+    prev_in = np.concatenate([[False], in_mask[:-1]])
+    opening = in_mask & ~prev_in
+    is_c = in_mask & (obs == 1)
+    is_g = in_mask & (obs == 2)
+    cg_event = in_mask & prev_in & (obs == 2) & np.concatenate([[False], obs[:-1] == 1])
+    return _runs_to_calls(
+        in_mask, opening, is_c, is_g, cg_event,
+        drop_open_at_end=False,
+        min_len=min_len,
+        gc_threshold=gc_threshold,
+        oe_threshold=oe_threshold,
+        offset=offset,
+    )

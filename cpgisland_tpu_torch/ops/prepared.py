@@ -1,16 +1,20 @@
-"""Prepared symbol streams: everything the chunked E-step derives from the
-symbols alone.
+"""Prepared symbol streams: everything the reduced kernels' callers derive
+from the symbols alone.
 
-Counterpart of ``cpgisland_tpu/ops/prepared.py``, cut to the chunked lane
-layout of the reduced (one-hot) engine.  None of it depends on the model
-parameters, so ``train.baum_welch.fit`` builds it ONCE per fit on the
-device (from the uint8 chunks) and hands it to every EM iteration; the
-identity-keyed cache of the JAX package is not ported.
+Counterpart of ``cpgisland_tpu/ops/prepared.py``, cut to the reduced
+(one-hot) engine: the chunked lane layout (one record per lane) and the
+whole-sequence lane layout of one span.  None of it depends on the model
+parameters, so ``train.baum_welch.fit`` builds the chunked prep ONCE per
+fit on the device (from the uint8 chunks) and hands it to every EM
+iteration, and ``pipeline.posterior_file`` builds one span's prep once for
+both of its sweeps.  The identity-keyed cache of the JAX package is not
+ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -87,3 +91,97 @@ def prepare_chunked(S: int, chunks: torch.Tensor, lengths: torch.Tensor, *,
         esym2=decode_esym(pair2, S), pairn2=_pair_next(pair2, S),
         S=S, Tt=Tt, N=int(N), T=int(T),
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class PreparedSeq:
+    """Symbol-only prep for the whole-sequence lane layout of one span.
+
+    first_syms [NL] int32 each lane's first clamped symbol (its v_0
+    emission); lane_lens [NL] int32; o0 the span's first clamped symbol (a
+    Python int); pair2 / e_in / e_out the pair stream ([lane_T, NL]) and
+    each lane's entry / exit symbol, pairn2 its time-shifted next-step
+    pairs (the backward chain's input).  ``T`` is the span's input length
+    (NL rounds up, so different T can share a lane shape) and ``prev_key``
+    the continuation prev symbol it was built for (None on a first span).
+    The JAX package also keeps the full lane layouts, which only its dense
+    engine reads."""
+
+    first_syms: torch.Tensor
+    lane_lens: torch.Tensor
+    o0: int
+    pair2: torch.Tensor
+    e_in: torch.Tensor
+    e_out: torch.Tensor
+    pairn2: torch.Tensor
+    S: int
+    lane_T: int
+    first: bool
+    T: int
+    prev_key: Optional[int]
+
+
+def _lane_layout(obs: torch.Tensor, length: int, S: int, lane_T: int, mask_first: bool):
+    """Pad one sequence into [NL, lane_T] lanes, NL = ceil(T / lane_T)
+    (the JAX package also rounds NL up to its 128-lane tile; the extra
+    lanes are empty, identity products).  Valid positions are clamped to
+    [0, S); with ``mask_first`` global position 0's step becomes PAD (its
+    emission is the init, folded into the base direction by the consumer).
+    Returns (obs_l [NL, lane_T], sel_l — obs_l with PAD on invalid steps —,
+    lane_lens [NL], o0)."""
+    T = obs.shape[0]
+    dev = obs.device
+    NL = max(1, -(-T // lane_T))
+    valid = torch.arange(T, device=dev) < length
+    obs_flat = torch.where(valid, torch.clamp_max(obs.to(_I32), S - 1), 0).to(_I32)
+    sel_flat = torch.where(valid, obs_flat, S).to(_I32)
+    if mask_first and T:
+        sel_flat[0] = S
+    pad = NL * lane_T - T
+    obs_l = torch.nn.functional.pad(obs_flat, (0, pad)).reshape(NL, lane_T)
+    sel_l = torch.nn.functional.pad(sel_flat, (0, pad), value=S).reshape(NL, lane_T)
+    lane_lens = torch.clamp(length - torch.arange(NL, device=dev) * lane_T, 0, lane_T).to(_I32)
+    o0 = int(obs_flat[0]) if T else 0
+    return obs_l, sel_l, lane_lens, o0
+
+
+def prepare_seq(S: int, obs: torch.Tensor, length: int, *, lane_T: int, first: bool = True,
+                prev_sym: Optional[int] = None) -> PreparedSeq:
+    """Build one span's whole-sequence prep on ``obs``'s device.  A
+    continuation span (``first=False``) needs ``prev_sym``, the symbol
+    emitted before it: it conditions the reduced chain's entry group."""
+    if lane_T <= 0:
+        raise ValueError(f"lane_T must be positive, got {lane_T}")
+    if not first and prev_sym is None:
+        raise ValueError("onehot continuation spans (first=False) need prev_sym")
+    obs_l, sel_l, lane_lens, o0 = _lane_layout(obs, int(length), S, lane_T, bool(first))
+    # One copy into the time-major layout: the streams handed to the kernels
+    # are then contiguous.
+    pair2, e_in, e_out = pair_stream(S, sel_l.T.contiguous(), o0 if first else int(prev_sym))
+    return PreparedSeq(
+        first_syms=obs_l[:, 0].contiguous(), lane_lens=lane_lens, o0=o0,
+        pair2=pair2, e_in=e_in, e_out=e_out, pairn2=_pair_next(pair2, S), S=S,
+        lane_T=int(lane_T), first=bool(first), T=int(obs.shape[0]),
+        prev_key=None if first else int(prev_sym),
+    )
+
+
+def check_seq(prep: PreparedSeq, S: int, T: int, lane_T: int, first: bool,
+              prev_sym=None) -> None:
+    """Consistency gate between a span's prep and its consumer: a mismatch
+    raises instead of computing on the wrong layout or entry symbol."""
+    if not isinstance(prep, PreparedSeq):
+        raise TypeError(f"expected PreparedSeq, got {type(prep).__name__}")
+    if (prep.S, prep.lane_T, prep.first, prep.T) != (S, lane_T, bool(first), int(T)):
+        raise ValueError(
+            f"prepared seq streams were built for S={prep.S}, T={prep.T}, "
+            f"lane_T={prep.lane_T}, first={prep.first}; this call needs S={S}, "
+            f"T={int(T)}, lane_T={lane_T}, first={bool(first)} — rebuild the "
+            "prep for this geometry"
+        )
+    if prep.prev_key is not None and prev_sym is not None and int(prev_sym) != prep.prev_key:
+        raise ValueError(
+            f"prepared seq streams were conditioned on prev_sym={prep.prev_key}; "
+            f"this call passes prev_sym={int(prev_sym)} — rebuild the prep for "
+            "this span"
+        )

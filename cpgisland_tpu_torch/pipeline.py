@@ -3,7 +3,7 @@ out (the reference's ``trainModel`` and ``testModel``,
 CpGIslandFinder.java:102-225 and :227-344, and its ``main``).
 
 Counterpart of ``cpgisland_tpu/pipeline.py``'s :func:`train_file`,
-:func:`decode_file` and :func:`run`.
+:func:`decode_file`, :func:`posterior_file` and :func:`run`.
 
 ``compat=True`` reproduces the reference end to end: headers encoded as
 bases, the remainder chunk dropped, 1 MiB decode chunks decoded and island
@@ -28,12 +28,15 @@ import torch
 
 from cpgisland_tpu_torch.models import presets
 from cpgisland_tpu_torch.models.hmm import HmmParams, dump_text
+from cpgisland_tpu_torch.ops import fb_seq
 from cpgisland_tpu_torch.ops import islands as islands_mod
 from cpgisland_tpu_torch.ops.islands import IslandCalls
 from cpgisland_tpu_torch.ops.viterbi_parallel import viterbi_parallel_batch
-from cpgisland_tpu_torch.parallel.decode import resolve_engine, viterbi_sharded
+from cpgisland_tpu_torch.parallel import posterior as post
+from cpgisland_tpu_torch.parallel.decode import _prev_real_symbol, resolve_engine, viterbi_sharded
 from cpgisland_tpu_torch.train import baum_welch
 from cpgisland_tpu_torch.utils import chunking, codec
+from cpgisland_tpu_torch.utils.npystream import NpyStreamWriter
 
 # Largest record decoded in one pass in clean mode; longer records need the
 # span-wise decode, not ported yet.
@@ -273,6 +276,297 @@ def decode_file(
         # Single-record files keep the reference's bare 5-column format.
         calls = dataclasses.replace(calls, names=None)
     return _finish_decode(calls, n_sym, n_records, islands_out, phases)
+
+
+# One posterior pass keeps a span's pair streams and reduced alpha/beta
+# streams on the card (about 40 B/symbol by count of shapes).  Longer
+# records run span by span with exact boundary messages threaded between
+# the spans: the span bounds peak memory, not the result.
+POSTERIOR_SPAN = 1 << 26
+
+# Records at or below this size batch into one chunked-layout B4 pass, one
+# record per lane (exact: each record fits its lane whole).
+POSTERIOR_BATCH_MAX = 1 << 19
+
+
+@dataclass
+class PosteriorResult:
+    n_symbols: int
+    n_records: int
+    mean_island_confidence: float
+    calls: Optional[IslandCalls] = None
+    # Wall seconds per phase ("encode", "posterior", "span-totals", "islands").
+    phases: dict = field(default_factory=dict)
+
+
+def _posterior_record_unit(params: HmmParams, symbols: np.ndarray, island_states, *,
+                           engine: str, want_path: bool):
+    """One whole record's posterior on the params' device -> host (conf,
+    path or None): the single-record core of :func:`posterior_file`."""
+    return post.posterior_sharded(params, symbols, island_states, engine=engine,
+                                  want_path=want_path)
+
+
+def _thread_spans(params: HmmParams, first_sym: int, totals: list):
+    """Entering-alpha and exiting-beta directions of each span of a record
+    from the spans' [K, K] transfer operators, threaded on the host in
+    float64.  Returns (enters, exits): enters[0] is the record's init
+    direction, exits[-1] None (a free end)."""
+    K, S = params.n_states, params.n_symbols
+    pi = np.exp(params.log_pi.double().cpu().numpy())
+    B = np.exp(params.log_B.double().cpu().numpy())
+    # Mirrors the JAX package: the first emission folds in only for a real
+    # first symbol.
+    v = pi * B[:, first_sym] if first_sym < S else pi
+    enters = [v / v.sum()]
+    for tot in totals[:-1]:
+        v = enters[-1] @ tot.astype(np.float64)
+        enters.append(v / v.sum())
+    exits: list = [None] * len(totals)
+    e = np.full(K, 1.0 / K)
+    for s in range(len(totals) - 2, -1, -1):
+        e = totals[s + 1].astype(np.float64) @ e
+        e = e / e.sum()
+        exits[s] = e.astype(np.float32)
+    return [x.astype(np.float32) for x in enters], exits
+
+
+def posterior_file(
+    test_path: str,
+    params: HmmParams,
+    *,
+    confidence_out: Optional[str] = None,
+    mpm_path_out: Optional[str] = None,
+    islands_out: Optional[Union[str, IO[str]]] = None,
+    min_len: Optional[int] = None,
+    island_states=None,
+    span: int = POSTERIOR_SPAN,
+    engine: str = "auto",
+    island_engine: str = "auto",
+    symbol_cache: Optional[str] = None,
+    prefetch: int = 0,
+    integrity_check: bool = False,
+    resume: bool = False,
+    manifest_path: Optional[str] = None,
+    metrics=None,
+    session=None,
+    invalid_symbols: str = "skip",
+    device="cuda",
+) -> PosteriorResult:
+    """Soft decoding of a FASTA file: per-position island confidence.
+
+    P(position in an island | whole record) is the posterior mass on the
+    island states, written as one float32 per symbol (a streamed .npy) to
+    ``confidence_out``.  ``mpm_path_out`` writes the max-posterior-marginal
+    state path (int8 .npy); ``islands_out`` calls CpG islands from that
+    path over each whole record (clean semantics, the ``beg end len gc oe``
+    format of :func:`decode_file`, a name column when the file has several
+    records), with ``min_len``.  At least one output is required.
+
+    ``island_states``: which states count as island (default: the first
+    n_symbols states, the reference's X+/X- labeling, which the model must
+    then have; given explicitly, islands are called from the observations'
+    composition).  Records up to ``span`` symbols run in one pass; longer
+    ones run span by span with exact boundary messages threaded between
+    the spans; records up to min(span, POSTERIOR_BATCH_MAX) batch together,
+    one per lane, by power-of-two size class (file order kept).  Runs on
+    ``device`` (default "cuda"); islands are called on the host
+    (``island_engine`` "auto" or "host").  The prefetching executor,
+    resume manifests, integrity checks, metrics, sessions, symbol caches
+    and the device island engine are not ported and raise
+    NotImplementedError."""
+    for requested, what in (
+        (symbol_cache is not None, "symbol caches (ROADMAP A1)"),
+        (island_engine == "device", "the device island engine (ROADMAP A6)"),
+        (prefetch > 0, "the prefetching record executor (ROADMAP A12)"),
+        (resume or manifest_path is not None, "resume manifests (ROADMAP A12)"),
+        (integrity_check, "integrity checks (ROADMAP A12)"),
+        (metrics is not None, "metrics logging (ROADMAP A12)"),
+        (session is not None, "serving sessions (ROADMAP A13)"),
+    ):
+        if requested:
+            raise NotImplementedError(f"posterior_file: {what} not ported yet")
+    if island_engine not in ("auto", "host"):
+        raise ValueError(f"island_engine must be auto|host|device, got {island_engine!r}")
+    obs_based_calls = island_states is not None
+    if island_states is None:
+        if params.n_states != 2 * params.n_symbols:
+            raise ValueError(
+                f"island confidence: model has {params.n_states} states / "
+                f"{params.n_symbols} symbols, not the 2M-state X+/X- labeling the "
+                "built-in island caller assumes; pass island_states=(...)"
+            )
+        island_states = tuple(range(params.n_symbols))
+    island_states = tuple(sorted(island_states))
+    _check_invalid_symbols(invalid_symbols, compat=False)
+    want_conf = confidence_out is not None
+    want_islands = islands_out is not None
+    want_path = mpm_path_out is not None or want_islands
+    if not (want_conf or want_path):
+        raise ValueError("posterior: nothing to do — request confidence_out, "
+                         "mpm_path_out, and/or islands_out")
+    if span <= 0:
+        raise ValueError(f"span must be positive, got {span}")
+    dev = resolve_device(device)
+    params = params.to(dev)
+    eng = post.resolve_fb_engine(engine, params)
+    mask = post.island_mask(params, island_states)
+    S = params.n_symbols
+    phases: dict = {}
+    call_parts: list = []
+    conf_w = path_w = None
+    n_sym = n_records = 0
+    conf_total = 0.0
+
+    def emit(conf: np.ndarray, path) -> None:
+        nonlocal conf_total
+        # float64 sum: float32 partials drift ~1e-5 at multi-Gbase.
+        conf_total += float(conf.sum(dtype=np.float64))
+        if conf_w is not None:
+            conf_w.write(conf)
+        if path_w is not None:
+            path_w.write(path)
+
+    def call_rec(name: str, symbols: np.ndarray, path) -> None:
+        if not want_islands:
+            return
+        with _phase(phases, "islands"):
+            if obs_based_calls:
+                calls = islands_mod.call_islands_obs(path, symbols, island_states=island_states,
+                                                     min_len=min_len)
+            else:
+                calls = islands_mod.call_islands(path, chunk=0, compat=False, min_len=min_len)
+        call_parts.append(calls.with_names(name or "."))
+
+    def one_record(name: str, symbols: np.ndarray) -> None:
+        with _phase(phases, "posterior"):
+            conf, path = _posterior_record_unit(params, symbols, island_states, engine=eng,
+                                                want_path=want_path)
+        emit(conf, path)
+        call_rec(name, symbols, path)
+
+    def flush_small(batch: list) -> None:
+        if len(batch) <= 1:
+            for rec in batch:
+                one_record(*rec)
+            return
+        # One pass per power-of-two size class: padding every record to the
+        # batch maximum would multiply the work by the size spread.  Results
+        # go out in file order.
+        by_class: dict = {}
+        for i, (_, s) in enumerate(batch):
+            by_class.setdefault(_round_pow2(s.size, floor=1 << 14), []).append(i)
+        results: list = [None] * len(batch)
+        # Device memory per pass, in padded symbols: want_path keeps both
+        # reduced streams, so it gets half.
+        budget = (1 << 26) // (2 if want_path else 1)
+        for Tpad in sorted(by_class):
+            group_all = by_class[Tpad]
+            max_rows = max(1, budget // Tpad)
+            for lo in range(0, len(group_all), max_rows):
+                group = group_all[lo : lo + max_rows]
+                rows = np.full((_round_pow2(len(group), floor=8), Tpad), chunking.PAD_SYMBOL,
+                               np.uint8)
+                lens = np.zeros(rows.shape[0], np.int32)
+                for g, i in enumerate(group):
+                    s = batch[i][1]
+                    rows[g, : s.size] = s
+                    lens[g] = s.size
+                with _phase(phases, "posterior"):
+                    conf2, path2 = fb_seq.batch_posterior(
+                        params, torch.from_numpy(rows).to(dev), torch.from_numpy(lens).to(dev),
+                        mask, want_path=want_path,
+                    )
+                    conf2 = conf2.cpu().numpy()
+                    path2 = path2.to(torch.int8).cpu().numpy() if want_path else None
+                for g, i in enumerate(group):
+                    n = batch[i][1].size
+                    results[i] = (conf2[g, :n], path2[g, :n] if want_path else None)
+        for (name, s), (conf, path) in zip(batch, results):
+            emit(conf, path)
+            call_rec(name, s, path)
+
+    def spanned_record(name: str, symbols: np.ndarray) -> None:
+        # Sweep A: each span's [K, K] transfer operator (B7 only).  Each span
+        # is uploaded and prepared once, for both sweeps.
+        starts = range(0, symbols.size, span)
+        prevs = [0 if lo == 0 else _prev_real_symbol(symbols, lo, S) for lo in starts]
+        placed, preps, span_totals = [], [], []
+        with _phase(phases, "span-totals"):
+            for lo, prev in zip(starts, prevs):
+                piece = symbols[lo : lo + span]
+                placed.append(post.place_record_span(params, piece))
+                preps.append(post.prepare_record_span(params, placed[-1], piece.size, engine=eng,
+                                                      first=lo == 0, prev_sym=prev))
+                span_totals.append(post.transfer_total_sharded(
+                    params, piece, engine=eng, first=lo == 0, placed=placed[-1],
+                    prev_sym=prev, prepared=preps[-1]))
+        enters, exits = _thread_spans(params, int(symbols[0]), span_totals)
+        # Sweep B: each span's posterior with the threaded messages.
+        paths = []
+        for s, (lo, prev) in enumerate(zip(starts, prevs)):
+            piece = symbols[lo : lo + span]
+            with _phase(phases, "posterior"):
+                conf, path = post.posterior_sharded(
+                    params, piece, island_states, engine=eng,
+                    enter_dir=None if s == 0 else enters[s], exit_dir=exits[s], first=s == 0,
+                    want_path=want_path, placed=placed[s], prev_sym=prev, prepared=preps[s],
+                )
+            placed[s] = preps[s] = None  # release the span's device memory
+            emit(conf, path)
+            paths.append(path)
+        if want_islands:
+            # Over the WHOLE record's path, so no island is clipped at a span
+            # boundary.
+            call_rec(name, symbols, np.concatenate(paths))
+
+    records = codec.iter_fasta_records(test_path, invalid=invalid_symbols)
+    pending: list = []
+    try:
+        if want_conf:
+            conf_w = NpyStreamWriter(confidence_out, np.float32)
+        if mpm_path_out is not None:
+            path_w = NpyStreamWriter(mpm_path_out, np.int8)
+        while True:
+            with _phase(phases, "encode"):
+                rec = next(records, None)
+            if rec is None:
+                break
+            name, symbols = rec
+            n_records += 1
+            n_sym += symbols.size
+            if symbols.size == 0:
+                continue
+            # A record the span would split takes the span path, never the batch.
+            if symbols.size <= min(span, POSTERIOR_BATCH_MAX):
+                pending.append((name, symbols))
+                if len(pending) >= 128:
+                    flush_small(pending)
+                    pending = []
+                continue
+            flush_small(pending)  # keep file order around a large record
+            pending = []
+            if symbols.size <= span:
+                one_record(name, symbols)
+            else:
+                spanned_record(name, symbols)
+        flush_small(pending)
+    finally:
+        for w in (conf_w, path_w):
+            if w is not None:
+                w.close()
+    calls_all = None
+    if want_islands:
+        calls_all = IslandCalls.concatenate(call_parts)
+        if n_records <= 1:
+            # Single-record files keep the reference's bare 5-column format.
+            calls_all = dataclasses.replace(calls_all, names=None)
+        _write_calls(calls_all, islands_out)
+    return PosteriorResult(
+        n_symbols=int(n_sym), n_records=n_records,
+        mean_island_confidence=conf_total / n_sym if n_sym else 0.0,
+        calls=calls_all, phases=phases,
+    )
 
 
 def train_file(

@@ -169,3 +169,53 @@ def test_train_file_cuda_equals_cpu(cuda_device, tmp_path):
     for x, y in ((a.params.pi, b.params.pi), (a.params.A, b.params.A),
                  (a.params.B, b.params.B)):
         np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(), atol=1e-5)
+
+
+# -- B7: the posterior's transfer products -------------------------------------
+
+
+@pytest.mark.parametrize("T", [8, 4099, 8192])
+@pytest.mark.parametrize("NL", [1, 33, 8192])
+def test_prod_kernel_bit_equal(cuda_device, NL, T):
+    """B7 writes every product, sum and division as a round-to-nearest
+    intrinsic in the plain version's order: bit-equal.  Pair indices run
+    past the table (PAD pairs onto the identity row) and lanes end in PAD
+    tails."""
+    from cpgisland_tpu_torch.ops import fb_onehot as FB
+
+    rng = np.random.default_rng(NL * 13 + T)
+    params = presets.durbin_cpg8(device=cuda_device)
+    pair = rng.integers(0, 16, size=(T, NL)).astype(np.int32)
+    pad = rng.random((T, NL)) < 0.05
+    pair[pad] = 16 + rng.integers(0, 4, size=int(pad.sum()))
+    pair[T - T // 5 :, -1] = 16  # a short last lane
+    pair_d = torch.from_numpy(pair).to(cuda_device)
+    tab = FB.prob_tab_ext(params, OH._groups(params))
+    before = _kernels.launches["oh_prod"]
+    got = FB.oh_prod(pair_d, tab)
+    want = FB.oh_prod_plain(pair_d, tab)
+    torch.cuda.synchronize()
+    assert _kernels.launches["oh_prod"] == before + 1
+    assert torch.equal(got, want)
+
+
+def test_posterior_file_cuda_equals_cpu(cuda_device, tmp_path):
+    """Posterior island files are byte-identical on the card and on the CPU,
+    with a record long enough to run span by span and batched scaffolds;
+    the confidence files agree within 1e-5."""
+    rng = np.random.default_rng(9)
+    p = tmp_path / "p.fa"
+    with open(p, "w") as f:
+        for r, n in enumerate((40_000, 3_000, 7_000, 2_500)):
+            s = rng.choice(4, size=n, p=[0.3, 0.2, 0.2, 0.3])
+            s[500:1700] = rng.choice(4, size=1200, p=[0.15, 0.35, 0.35, 0.15])
+            f.write(f">r{r}\n" + "".join("ACGT"[x] for x in s) + "\n")
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        buf = io.StringIO()
+        conf = tmp_path / f"c.{dev}.npy"
+        pipeline.posterior_file(str(p), presets.durbin_cpg8(), islands_out=buf,
+                                confidence_out=str(conf), span=1 << 14, device=dev)
+        outs[dev] = (buf.getvalue(), np.load(conf))
+    assert outs["cpu"][0] == outs["cuda"][0] and outs["cuda"][0]
+    np.testing.assert_allclose(outs["cpu"][1], outs["cuda"][1], rtol=0, atol=1e-5)
