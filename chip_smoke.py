@@ -46,9 +46,27 @@ JSON line each:
    same MPM path), and a small FASTA with records longer than a 32 Ki span
    must give identical island files and confidence within atol 1e-5 on
    the CPU and on the card;
-8. profile: device time by kernel over one decode of the big record, one
-   EM iteration and one posterior of the big record, and the device's
-   idle share of each.
+8. profile: device time by kernel over one decode of the big record, the
+   device island engine on its path, one EM iteration and one posterior
+   of the big record, and the device's idle share of each;
+9. dense kernels: B13-B15 at bk=4096, nb=16384 (64 Mi steps with PAD
+   runs) for K=8 (the flagship's tables through the dense engine) and K=2
+   (the two_state preset), each bit-equal to its plain version, with
+   median time, bound and plain-version time;
+10. dense main path: ``pipeline.decode_file`` of the same FASTA, whose big
+   record opens with a 10,000-N run, clean with ``invalid_symbols="mask"``
+   (the big record is demoted to the dense kernels: B13-B15 > 0, the
+   scaffolds keep the flat reduced batch: B1-B3 > 0) and clean with the
+   two_state preset and ``island_states=(0,)`` (B13-B15 > 0, B1-B3 = 0),
+   with wall, per-phase seconds and launch counts;
+11. island engines: the clean decode and both dense decodes again with
+   ``island_engine="host"`` — island files identical to the device
+   engine's (the default on the card), islands phase seconds both ways;
+12. dense parity: the first 4 Mi symbols of the big record (N-led) through
+   the plain versions on the card give the kernels' path at K=8 and K=2,
+   and a small N-led FASTA gives identical island files on the CPU and on
+   the card for both dense decodes; then profiles of one dense decode of
+   the big record at K=8 and at K=2.
 
 Then the kernel table as one JSON object and, last, the ok line.  Exits
 non-zero on any failure, or when CUDA is not available.
@@ -75,6 +93,8 @@ from cpgisland_tpu_torch.models.hmm import load_text
 from cpgisland_tpu_torch.ops import _kernels, fb_chunked, fb_seq
 from cpgisland_tpu_torch.ops import fb_onehot as FB
 from cpgisland_tpu_torch.ops import viterbi_onehot as OH
+from cpgisland_tpu_torch.ops import viterbi_pallas as VP
+from cpgisland_tpu_torch.ops.islands_device import call_islands_device
 from cpgisland_tpu_torch.ops.prepared import prepare_chunked, prepare_seq
 from cpgisland_tpu_torch.parallel.decode import viterbi_sharded
 from cpgisland_tpu_torch.parallel.posterior import posterior_sharded
@@ -86,6 +106,7 @@ BK, NB = 4096, 16384  # the default block; 64 Mi steps
 FB_NL, FB_TP = 1024, chunking.TRAIN_CHUNK  # B4/B5: 1024 chunks of 65,536 steps
 POST_NL, POST_LANE_T = 8192, fb_seq.DEFAULT_LANE_T  # B7 (and B4): a 64 Mi span
 BIG_RECORD = 64 << 20
+BIG_LEAD_N = 10_000  # the big record opens with an N run, as assembled chromosomes do
 N_SCAFFOLDS = 256
 PARITY_SYMBOLS = 4 << 20
 TRAIN_ITERS = 5
@@ -106,8 +127,15 @@ KERNELS = {
                   "cpgisland_tpu_torch/csrc/fb_onehot.cu"),
     "oh_seq_stats": ("cpgisland_tpu/ops/fb_onehot.py:804",
                      "cpgisland_tpu_torch/csrc/fb_onehot.cu"),
+    "dense_products": ("cpgisland_tpu/ops/viterbi_pallas.py:118",
+                       "cpgisland_tpu_torch/csrc/viterbi_dense.cu"),
+    "dense_backpointers": ("cpgisland_tpu/ops/viterbi_pallas.py:156",
+                           "cpgisland_tpu_torch/csrc/viterbi_dense.cu"),
+    "dense_backtrace": ("cpgisland_tpu/ops/viterbi_pallas.py:213",
+                        "cpgisland_tpu_torch/csrc/viterbi_dense.cu"),
 }
 DECODE_KERNELS = ("oh_products", "oh_backpointers", "oh_backtrace")
+DENSE_KERNELS = ("dense_products", "dense_backpointers", "dense_backtrace")
 TRAIN_KERNELS = ("oh_fwdbwd", "oh_seq_stats")
 POSTERIOR_KERNELS = ("oh_prod", "oh_fwdbwd")
 ISLAND_STATES = (0, 1, 2, 3)
@@ -369,10 +397,11 @@ def make_sequence(rng: np.random.Generator, n: int) -> np.ndarray:
     return s
 
 
-def to_fasta_bytes(rng: np.random.Generator, name: str, s: np.ndarray) -> bytes:
+def to_fasta_bytes(rng: np.random.Generator, name: str, s: np.ndarray, lead_n: int = 0) -> bytes:
     """One FASTA record, 60 bases a line, with soft-masked (lowercase) runs
-    and N runs over about 1% of the record."""
-    text = np.frombuffer(b"ACGT", np.uint8)[s].copy()
+    and N runs over about 1% of the record, after ``lead_n`` leading Ns."""
+    text = np.concatenate([np.full(lead_n, ord("N"), np.uint8),
+                           np.frombuffer(b"ACGT", np.uint8)[s]])
     n = text.size
     for a in rng.integers(0, n, size=max(1, n // 200_000)):
         text[a : a + int(rng.integers(100, 5000))] += 32  # lowercase
@@ -391,7 +420,7 @@ def to_fasta_bytes(rng: np.random.Generator, name: str, s: np.ndarray) -> bytes:
 def write_fasta(rng: np.random.Generator, path: str) -> np.ndarray:
     big = make_sequence(rng, BIG_RECORD)
     with open(path, "wb") as f:
-        f.write(to_fasta_bytes(rng, "chr1", big))
+        f.write(to_fasta_bytes(rng, "chr1", big, lead_n=BIG_LEAD_N))
         sizes = np.exp(rng.uniform(np.log(2 << 10), np.log(512 << 10), size=N_SCAFFOLDS))
         for i, m in enumerate(sizes.astype(np.int64)):
             f.write(to_fasta_bytes(rng, f"scaffold{i}", make_sequence(rng, int(m))))
@@ -420,7 +449,8 @@ def main_path_phase(rng: np.random.Generator, params, tmp: str, dev):
           "seconds": time.perf_counter() - t0})
     _kernels.reset_launches()
     for label, compat in (("clean", False), ("compat", True)):
-        out = os.path.join(tmp, f"islands.{label}.txt")
+        out = os.path.join(tmp, f"islands.{label}.device.txt" if not compat
+                           else f"islands.{label}.txt")
         t0 = time.perf_counter()
         res = pipeline.decode_file(fa, params, islands_out=out, compat=compat, device=dev)
         wall = time.perf_counter() - t0
@@ -721,6 +751,11 @@ def profile_phase(params, big: np.ndarray, fa: str, dev) -> None:
     viterbi_sharded(params, big[: 1 << 20], engine="onehot")  # warm caches
     profiled(f"viterbi_sharded, {big.size} symbols",
              lambda: viterbi_sharded(params, big, engine="onehot"))
+    # The device island engine on that record's path, left on the card.
+    path = viterbi_sharded(params, big, engine="onehot", return_device=True)
+    call_islands_device(path[: 1 << 20])
+    profiled(f"call_islands_device, {big.size} symbols", lambda: call_islands_device(path))
+    del path
 
     # One EM iteration of the compat training batch, as fit runs it: the
     # E-step, the M-step and the one fetch of delta and loglik.
@@ -743,6 +778,175 @@ def profile_phase(params, big: np.ndarray, fa: str, dev) -> None:
     posterior_sharded(params, big[: 1 << 20], ISLAND_STATES, want_path=True)
     profiled(f"posterior_sharded, {big.size} symbols",
              lambda: posterior_sharded(params, big, ISLAND_STATES, want_path=True))
+
+
+# ---------------------------------------------------------------------------
+# Phases 9-12: the dense Viterbi kernels (B13-B15) and the dense decode path
+
+
+def dense_models(dev) -> dict:
+    """K -> the model whose tables the dense kernels run at that K."""
+    return {8: presets.durbin_cpg8(device=dev), 2: presets.two_state_cpg(device=dev)}
+
+
+def dense_kernel_phase(rng: np.random.Generator, dev) -> dict:
+    """B13-B15 at the decode geometry (64 Mi steps, PAD runs along the time
+    axis) for K = 8 and K = 2; each bit-equal to its plain version.
+    Returns the K = 8 rows (the flagship's dense route) by kernel name."""
+    results = {}
+    for K, params in dense_models(dev).items():
+        S = params.n_symbols
+        steps = rng.integers(0, S, size=(BK, NB)).astype(np.int32)
+        for k0, b, n in zip(rng.integers(0, BK, size=NB // 4), rng.integers(0, NB, size=NB // 4),
+                            rng.integers(1, 200, size=NB // 4)):
+            steps[k0 : k0 + n, b] = S
+        real = int((steps < S).sum())  # PAD steps are identity: no work
+        steps_d = torch.from_numpy(steps).to(dev)
+        v = rng.normal(scale=3.0, size=(K, NB)).astype(np.float32)
+        v_d = torch.from_numpy(v - v.max(axis=0, keepdims=True)).to(dev)
+        exits = torch.from_numpy(rng.integers(0, K, size=NB).astype(np.int32)).to(dev)
+        logAT, logB = VP._tables(params)
+        tab_b = (logAT.numel() + logB.numel()) * 4
+        P_k = VP.dense_products(steps_d, logAT, logB)
+        P_p = VP.dense_products_plain(steps_d, logAT, logB)
+        bp_k = VP.dense_backpointers(steps_d, v_d, logAT, logB)
+        bp_p = VP.dense_backpointers_plain(steps_d, v_d, logAT, logB)
+        path_k = VP.dense_backtrace(bp_k[0], exits)
+        path_p = VP.dense_backtrace_plain(bp_k[0], exits)
+        torch.cuda.synchronize()
+        steps_n = BK * NB
+        rows = {  # (pairs to compare, kernel, plain, bytes moved, operations)
+            "dense_products": (
+                [(P_k, P_p)], lambda: VP.dense_products(steps_d, logAT, logB),
+                lambda: VP.dense_products_plain(steps_d, logAT, logB),
+                # steps read, [K*K, nb] written; K^3 adds + K^2 (K-1) maxes per real step
+                4 * steps_n + tab_b + 4 * K * K * NB, K * K * (2 * K - 1) * real),
+            "dense_backpointers": (
+                list(zip(bp_k, bp_p)), lambda: VP.dense_backpointers(steps_d, v_d, logAT, logB),
+                lambda: VP.dense_backpointers_plain(steps_d, v_d, logAT, logB),
+                # steps read and packed pointers written; K^2 adds + K (K-1) compares
+                8 * steps_n + tab_b + 8 * K * NB + 4 * NB, K * (2 * K - 1) * real),
+            "dense_backtrace": (
+                [(path_k, path_p)], lambda: VP.dense_backtrace(bp_k[0], exits),
+                lambda: VP.dense_backtrace_plain(bp_k[0], exits),
+                # packed pointers read, path written; shift and mask per step
+                8 * steps_n + 4 * NB, 2 * steps_n),
+        }
+        for name, (pairs, kernel_fn, plain_fn, n_bytes, n_ops) in rows.items():
+            equal = all(torch.equal(a, b) for a, b in pairs)
+            err = max(max_abs_err(a, b) for a, b in pairs)
+            row = kernel_row(name, equal, err, kernel_fn, plain_fn, n_bytes, n_ops, steps_n,
+                             plain_runs=2, bit_equal=equal, K=K, real_steps=real)
+            if not equal:
+                raise SystemExit(f"chip_smoke: {name} (K={K}) disagrees with its plain version")
+            if K == 8:
+                results[name] = row
+        del P_p, bp_p, path_p
+    return results
+
+
+def decode_to(fa: str, params, out: str, dev, **kw):
+    """One clean decode with the launch counts of that run."""
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = pipeline.decode_file(fa, params, islands_out=out, compat=False, device=dev, **kw)
+    wall = time.perf_counter() - t0
+    return res, wall, dict(_kernels.launches)
+
+
+DENSE_RUNS = (  # label, preset, decode_file keywords
+    ("mask", presets.durbin_cpg8, {"invalid_symbols": "mask"}),
+    ("two_state", presets.two_state_cpg, {"island_states": (0,)}),
+)
+
+
+def dense_main_phase(fa: str, tmp: str, dev) -> dict:
+    """The dense decode paths on the genome: launches of both runs
+    together."""
+    launches = {k: 0 for k in DENSE_KERNELS}
+    for label, make, kw in DENSE_RUNS:
+        res, wall, counts = decode_to(fa, make(device=dev), os.path.join(
+            tmp, f"islands.{label}.device.txt"), dev, **kw)
+        check_calls(res, label)
+        emit({
+            "phase": "dense_main_path", "mode": label, "symbols": res.n_symbols,
+            "records": res.n_chunks, "islands": len(res.calls), "wall_s": wall,
+            "phases_s": res.phases, "msym_per_s": res.n_symbols / wall / 1e6,
+            "decode_msym_per_s": res.n_symbols / res.phases["decode"] / 1e6,
+            "launches": counts,
+        })
+        dense_ok = all(counts[k] > 0 for k in DENSE_KERNELS)
+        reduced = [counts[k] for k in DECODE_KERNELS]
+        reduced_ok = all(reduced) if label == "mask" else not any(reduced)
+        if not (dense_ok and reduced_ok and len(res.calls)):
+            raise SystemExit(f"chip_smoke: the {label} decode launched {counts} and called "
+                             f"{len(res.calls)} islands")
+        for k in DENSE_KERNELS:
+            launches[k] += counts[k]
+    return launches
+
+
+def island_engine_phase(fa: str, tmp: str, dev) -> None:
+    """Each clean decode again with the host island engine: files identical
+    to the device engine's."""
+    runs = (("clean", presets.durbin_cpg8, {}),) + DENSE_RUNS
+    for label, make, kw in runs:
+        res, wall, _ = decode_to(fa, make(device=dev), os.path.join(
+            tmp, f"islands.{label}.host.txt"), dev, island_engine="host", **kw)
+        with open(os.path.join(tmp, f"islands.{label}.host.txt")) as f:
+            host = f.read()
+        with open(os.path.join(tmp, f"islands.{label}.device.txt")) as f:
+            device = f.read()
+        emit({"phase": "island_engines", "mode": label, "identical": host == device,
+              "lines": host.count("\n"), "host_islands_s": res.phases["islands"],
+              "host_decode_s": res.phases["decode"], "host_wall_s": wall})
+        if host != device or not host:
+            raise SystemExit(f"chip_smoke: {label} island files differ between engines")
+
+
+def dense_parity_phase(rng: np.random.Generator, big: np.ndarray, tmp: str, dev) -> None:
+    """The first 4 Mi symbols of the big record, N-led, through the dense
+    kernels and through their plain versions on the card; then a small
+    N-led FASTA decoded on the CPU and on the card."""
+    obs = np.concatenate([np.full(BIG_LEAD_N, 4, np.uint8), big[: PARITY_SYMBOLS - BIG_LEAD_N]])
+    for K, params in dense_models(dev).items():
+        path_k = viterbi_sharded(params, obs, engine="pallas")
+        kernels = (VP.dense_products, VP.dense_backpointers, VP.dense_backtrace)
+        VP.dense_products, VP.dense_backpointers, VP.dense_backtrace = (
+            VP.dense_products_plain, VP.dense_backpointers_plain, VP.dense_backtrace_plain)
+        try:
+            path_p = viterbi_sharded(params, obs, engine="pallas")
+        finally:
+            VP.dense_products, VP.dense_backpointers, VP.dense_backtrace = kernels
+        same = bool(np.array_equal(path_k, path_p))
+        emit({"phase": "dense_path_parity", "K": K, "symbols": int(obs.size),
+              "paths_equal": same, "mismatches": int((path_k != path_p).sum())})
+        if not same:
+            raise SystemExit(f"chip_smoke: the dense kernel path (K={K}) differs from the plain path")
+
+    fa = os.path.join(tmp, "dense_small.fa")
+    with open(fa, "wb") as f:
+        for i, n in enumerate((40_000, 3_000, 9_000, 20_000)):
+            f.write(to_fasta_bytes(rng, f"d{i}", make_sequence(rng, n), lead_n=500 * (i % 2)))
+    for label, make, kw in DENSE_RUNS:
+        out = {}
+        for where in ("cpu", dev):
+            buf = io.StringIO()
+            pipeline.decode_file(fa, make(), islands_out=buf, compat=False, device=where, **kw)
+            out[str(where)] = buf.getvalue()
+        same = out["cpu"] == out[str(dev)]
+        emit({"phase": "dense_cpu_vs_cuda", "mode": label, "identical": same,
+              "lines": out[str(dev)].count("\n")})
+        if not (same and out["cpu"]):
+            raise SystemExit(f"chip_smoke: {label} island files differ between CPU and CUDA")
+
+
+def dense_profile_phase(big: np.ndarray, dev) -> None:
+    obs = np.concatenate([np.full(BIG_LEAD_N, 4, np.uint8), big])
+    for K, params in dense_models(dev).items():
+        viterbi_sharded(params, obs[: 1 << 20], engine="pallas")  # warm caches
+        profiled(f"viterbi_sharded pallas K={K}, {obs.size} symbols",
+                 lambda: viterbi_sharded(params, obs, engine="pallas"))
 
 
 def main(argv=None) -> int:
@@ -768,8 +972,12 @@ def main(argv=None) -> int:
     results = kernel_phase(rng, params, dev)
     results |= fb_kernel_phase(rng, params, dev)
     results |= post_kernel_phase(rng, params, dev)
+    results |= dense_kernel_phase(rng, dev)
     with tempfile.TemporaryDirectory() as tmp:
         fa, big, launches = main_path_phase(rng, params, tmp, dev)
+        launches |= dense_main_phase(fa, tmp, dev)
+        island_engine_phase(fa, tmp, dev)
+        dense_parity_phase(rng, big, tmp, dev)
         launches |= train_phase(params, fa, dev)
         parity_phase(rng, params, big, tmp, dev)
         run_phase(fa, tmp, dev)
@@ -779,6 +987,7 @@ def main(argv=None) -> int:
             launches[k] = launches.get(k, 0) + n
         posterior_parity_phase(rng, params, big, tmp, dev)
         profile_phase(params, big, fa, dev)
+        dense_profile_phase(big, dev)
 
     table = []
     for name, r in results.items():

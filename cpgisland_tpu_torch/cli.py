@@ -15,7 +15,9 @@ Two forms, as ``python -m cpgisland_tpu``:
        python -m cpgisland_tpu_torch train FILE --model-out m.txt [--iters N] \\
            [--convergence E] [--init-model m0.txt] [--clean] [--invalid-symbols P]
        python -m cpgisland_tpu_torch decode FILE --islands-out i.txt \\
-           [--model m.txt | --preset durbin8] [--clean [--min-len N]] \\
+           [--model m.txt | --preset durbin8|two_state] [--clean [--min-len N]] \\
+           [--island-states 0] [--engine auto|xla|pallas|onehot] \\
+           [--island-engine auto|host|device] [--island-cap N] \\
            [--invalid-symbols skip|mask|fail]
        python -m cpgisland_tpu_torch run TRAIN TEST --islands-out i.txt \\
            --model-out m.txt [--iters N] [--convergence E] [--clean]
@@ -76,6 +78,31 @@ def _add_clean_flag(p: argparse.ArgumentParser) -> None:
     )
 
 
+def _positive_int(text: str) -> int:
+    v = int(text)
+    if v <= 0:
+        raise argparse.ArgumentTypeError(f"must be a positive integer, got {text!r}")
+    return v
+
+
+def _add_island_states_flag(p: argparse.ArgumentParser) -> None:
+    p.add_argument(
+        "--island-states",
+        help="comma-separated island state ids for models whose states don't "
+        "encode bases (e.g. '0' for the two_state preset); composition then "
+        "comes from the observations (decode: --clean only)",
+    )
+
+
+def _parse_island_states(parser: argparse.ArgumentParser, text: Optional[str]):
+    if not text:
+        return None
+    try:
+        return tuple(int(x) for x in text.split(","))
+    except ValueError:
+        parser.error(f"--island-states must be comma-separated integers, got {text!r}")
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="cpgisland_tpu_torch", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -93,11 +120,23 @@ def build_parser() -> argparse.ArgumentParser:
     d = sub.add_parser("decode", help="Viterbi decode + island calling")
     d.add_argument("test_file")
     d.add_argument("--model", help="model text file (default: the --preset model)")
-    d.add_argument("--preset", choices=("durbin8",), default="durbin8",
-                   help="model preset (durbin8: the reference's 8-state CpG+- table)")
+    d.add_argument("--preset", choices=("durbin8", "two_state"), default="durbin8",
+                   help="model preset (durbin8: the reference's 8-state CpG+- table; "
+                   "two_state: minimal island/background model, needs --island-states 0)")
     d.add_argument("--islands-out", required=True)
     _add_clean_flag(d)
     d.add_argument("--min-len", type=int, default=None, help="clean mode only")
+    _add_island_states_flag(d)
+    d.add_argument("--engine", choices=("auto", "xla", "pallas", "onehot"), default="auto",
+                   help="decode engine (auto: the reduced one-hot kernels for eligible "
+                   "models, else the dense kernels for K <= 8, else the plain xla twin)")
+    d.add_argument("--island-engine", choices=("auto", "host", "device"), default="auto",
+                   help="island caller placement (clean mode): device calls islands where "
+                   "the path lies and returns only the call records (auto: device on the "
+                   "card)")
+    d.add_argument("--island-cap", type=_positive_int, default=None,
+                   help="initial device output size in island calls (default 128 Ki); an "
+                   "overflow retries the calling pass at the true count")
     _add_invalid_symbols_flag(d)
 
     r = sub.add_parser("run", help="train then decode (the reference main())")
@@ -125,11 +164,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="call CpG islands from the MPM path (decode-format records)")
     po.add_argument("--min-len", type=int, default=None,
                     help="minimum island length for --islands-out")
-    po.add_argument(
-        "--island-states",
-        help="comma-separated island state ids for models whose states don't "
-        "encode bases; composition then comes from the observations",
-    )
+    _add_island_states_flag(po)
     po.add_argument("--engine", choices=("auto", "onehot"), default="auto",
                     help="forward-backward engine (auto: the reduced one-hot kernels)")
     _add_invalid_symbols_flag(po)
@@ -175,13 +210,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         if not (args.confidence_out or args.mpm_path_out or args.islands_out):
             parser.error("nothing to do: pass --confidence-out, --mpm-path-out, "
                          "and/or --islands-out")
-        island_states = None
-        if args.island_states:
-            try:
-                island_states = tuple(int(x) for x in args.island_states.split(","))
-            except ValueError:
-                parser.error("--island-states must be comma-separated integers, got "
-                             f"{args.island_states!r}")
+        island_states = _parse_island_states(parser, args.island_states)
         params = load_text(args.model) if args.model else presets.durbin_cpg8()
         res = pipeline.posterior_file(
             args.test_file, params, confidence_out=args.confidence_out,
@@ -198,10 +227,21 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if args.cmd == "decode":
         if args.min_len is not None and compat:
             parser.error("--min-len requires --clean (the reference has no length filter)")
-        params = load_text(args.model) if args.model else presets.durbin_cpg8()
+        island_states = _parse_island_states(parser, args.island_states)
+        if island_states is not None and compat:
+            parser.error("--island-states requires --clean")
+        if args.model:
+            params = load_text(args.model)
+        else:
+            params = presets.two_state_cpg() if args.preset == "two_state" else presets.durbin_cpg8()
+        err = pipeline.island_layout_error(params, island_states)
+        if err:
+            parser.error(f"--{'model' if args.model else 'preset ' + args.preset}: {err}")
         res = pipeline.decode_file(
             args.test_file, params, islands_out=args.islands_out, compat=compat,
-            min_len=args.min_len, invalid_symbols=args.invalid_symbols, device=device,
+            min_len=args.min_len, engine=args.engine, island_states=island_states,
+            island_engine=args.island_engine, island_cap=args.island_cap,
+            invalid_symbols=args.invalid_symbols, device=device,
         )
         print(f"decoded {res.n_symbols} symbols in {res.n_chunks} chunks; "
               f"{len(res.calls)} islands")

@@ -1,0 +1,263 @@
+// Dense Viterbi: the three decode passes of the "pallas" engine as CUDA
+// kernels for Hopper (sm_90a), for any model with K <= 8 states, with a
+// plain C interface loaded through ctypes (cpgisland_tpu_torch/ops/_kernels.py).
+// Plain versions of the same functions, used on the CPU and as the
+// reference on the card, live in cpgisland_tpu_torch/ops/viterbi_pallas.py
+// (dense_*_plain).
+//
+// Layout shared by all three: the time-major step stream [bk, nb] (global
+// step b*bk + k sits at [k, b]), one thread per lane b looping over the bk
+// steps of its block, so each warp's load of a step row is one coalesced
+// transaction.  The state arrays (the K x K product, the K-state delta) are
+// template-sized and stay in registers.  Every step's matrix
+// M_s[m][j] = logA[m][j] + logB[j][s] (row S: the max-plus identity, for
+// PAD) is built once per thread block into a shared-memory table; its rows
+// are K*K + 1 floats apart, an odd stride, so threads of a warp that look up
+// different symbols hit different banks.  A lookup returns exactly the f32
+// value the TPU kernel's compare/select tree produced.
+//
+// Max-plus needs adds and maxes only, so nothing can contract into an FMA.
+// The operands are the twin's: the step entry logA + logB is formed first,
+// the chain value is added to it after (C[i][m] + M_m[j], delta[m] + M_m[j]),
+// and a max is exact whatever its order, so every result equals its plain
+// PyTorch version bit for bit.  The backpointer sweep starts from m = 0's
+// candidate and takes a later m only when strictly greater: argmax's first
+// maximum, as in the XLA twin, also where every candidate is LOG_ZERO-sized.
+//
+// What bounds them: each lane is a dependent chain of bk steps.  At the
+// default block of 4096 steps a 64 Mi-symbol record has 16384 lanes, about
+// 124 threads per SM, so the kernels are latency-bound; at K = 8 the
+// products pass does about 1000 adds and maxes per step and is bound by
+// operations, at K = 2 all three are bound by bytes.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define LOG_ZERO (-1e30f)
+#define THREADS 128
+#define MAX_K 8
+#define MAX_S 255
+
+// Shared step table: row s holds M_s[m][j] at s * (K*K + 1) + m*K + j.
+template <int K>
+__device__ __forceinline__ void load_step_table(float* s_M, const float* __restrict__ logAT,
+                                                const float* __restrict__ logB, int S) {
+  constexpr int KK = K * K;
+  for (int i = threadIdx.x; i < (S + 1) * KK; i += blockDim.x) {
+    const int s = i / KK, mj = i % KK, m = mj / K, j = mj % K;
+    float v;
+    if (s < S) {
+      v = logAT[j * K + m] + logB[j * S + s];
+    } else {
+      v = (m == j) ? 0.0f : LOG_ZERO;
+    }
+    s_M[s * (KK + 1) + mj] = v;
+  }
+  __syncthreads();
+}
+
+// B13: replaces cpgisland_tpu/ops/viterbi_pallas.py::_products_kernel.  Per
+// lane, the max-plus product of its bk step matrices, written as
+// out[i*K + m, b] = C[i][m].  Reads 4 B per step (the step stream), writes
+// 4*K*K B per lane.
+template <int K>
+__global__ void __launch_bounds__(THREADS)
+dense_products_kernel(const int32_t* __restrict__ steps, const float* __restrict__ logAT,
+                      const float* __restrict__ logB, float* __restrict__ out, int bk, int nb,
+                      int S) {
+  extern __shared__ float s_M[];
+  load_step_table<K>(s_M, logAT, logB, S);
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= nb) return;
+  float C[K][K];
+#pragma unroll
+  for (int i = 0; i < K; ++i)
+#pragma unroll
+    for (int m = 0; m < K; ++m) C[i][m] = (i == m) ? 0.0f : LOG_ZERO;
+  const int32_t* p = steps + b;
+#pragma unroll 2
+  for (int k = 0; k < bk; ++k) {
+    const int sym = min(__ldg(p + (size_t)k * nb), S);
+    const float* Ms = s_M + sym * (K * K + 1);
+    float N[K][K];
+    // Column by column: M_s[:, j] is K lookups; new[i][j] = max_m C[i][m] + M[m][j].
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      float col[K];
+#pragma unroll
+      for (int m = 0; m < K; ++m) col[m] = Ms[m * K + j];
+#pragma unroll
+      for (int i = 0; i < K; ++i) {
+        float best = C[i][0] + col[0];
+#pragma unroll
+        for (int m = 1; m < K; ++m) best = fmaxf(best, C[i][m] + col[m]);
+        N[i][j] = best;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < K; ++i)
+#pragma unroll
+      for (int m = 0; m < K; ++m) C[i][m] = N[i][m];
+  }
+#pragma unroll
+  for (int i = 0; i < K; ++i)
+#pragma unroll
+    for (int m = 0; m < K; ++m) out[(size_t)(i * K + m) * nb + b] = C[i][m];
+}
+
+// B14: replaces _backpointers_kernel.  The delta recursion from the true
+// entering vector v_enter [K, nb]; each step's K argmax pointers pack 3 bits
+// each into one int32 (bp[k, b]), and the exit -> entry table E (3 bits per
+// exit state) composes E'[j] = E[bp[j]].  Writes the exit deltas dexit
+// [K, nb] and the packed table ftab [nb].  Reads 4 B and writes 4 B per step.
+template <int K>
+__global__ void __launch_bounds__(THREADS)
+dense_backpointers_kernel(const int32_t* __restrict__ steps, const float* __restrict__ v_enter,
+                          const float* __restrict__ logAT, const float* __restrict__ logB,
+                          int32_t* __restrict__ bp, float* __restrict__ dexit,
+                          int32_t* __restrict__ ftab, int bk, int nb, int S) {
+  extern __shared__ float s_M[];
+  load_step_table<K>(s_M, logAT, logB, S);
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= nb) return;
+  float d[K];
+#pragma unroll
+  for (int m = 0; m < K; ++m) d[m] = v_enter[(size_t)m * nb + b];
+  uint32_t E = 0;  // identity: exit j -> entry j
+#pragma unroll
+  for (int j = 0; j < K; ++j) E |= (uint32_t)j << (3 * j);
+  const int32_t* p = steps + b;
+#pragma unroll 2
+  for (int k = 0; k < bk; ++k) {
+    const int sym = min(__ldg(p + (size_t)k * nb), S);
+    const float* Ms = s_M + sym * (K * K + 1);
+    float nd[K];
+    uint32_t word = 0, newE = 0;
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      float best = d[0] + Ms[j];
+      uint32_t arg = 0;
+#pragma unroll
+      for (int m = 1; m < K; ++m) {
+        const float c = d[m] + Ms[m * K + j];
+        if (c > best) {
+          best = c;
+          arg = m;
+        }
+      }
+      nd[j] = best;
+      word |= arg << (3 * j);
+      newE |= ((E >> (3 * arg)) & 7u) << (3 * j);
+    }
+#pragma unroll
+    for (int j = 0; j < K; ++j) d[j] = nd[j];
+    E = newE;
+    bp[(size_t)k * nb + b] = (int32_t)word;
+  }
+#pragma unroll
+  for (int m = 0; m < K; ++m) dexit[(size_t)m * nb + b] = d[m];
+  ftab[b] = (int32_t)E;
+}
+
+// B15: replaces _backtrace_kernel.  Walks the packed pointers back from the
+// anchored exit state, k = bk-1 down to 0, emitting the state after each
+// step: path[k] = state; state = (bp[k] >> 3*state) & 7.  Reads 4 B and
+// writes 4 B per step.
+__global__ void __launch_bounds__(THREADS)
+dense_backtrace_kernel(const int32_t* __restrict__ bp, const int32_t* __restrict__ exits,
+                       int32_t* __restrict__ path, int bk, int nb) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= nb) return;
+  uint32_t state = (uint32_t)exits[b];
+#pragma unroll 8
+  for (int k = bk - 1; k >= 0; --k) {
+    const uint32_t word = (uint32_t)__ldg(bp + (size_t)k * nb + b);
+    path[(size_t)k * nb + b] = (int32_t)state;
+    state = (word >> (3 * state)) & 7u;
+  }
+}
+
+static inline unsigned grid_for(int nb) { return (unsigned)((nb + THREADS - 1) / THREADS); }
+
+static inline size_t table_bytes(int K, int S) {
+  return (size_t)(S + 1) * (size_t)(K * K + 1) * sizeof(float);
+}
+
+// Above 48 KiB a kernel must opt in to its dynamic shared memory.
+template <typename Fn>
+static int allow_smem(Fn fn, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <int K>
+static int launch_products(const void* steps, const void* logAT, const void* logB, void* out,
+                           int bk, int nb, int S, cudaStream_t stream) {
+  const size_t smem = table_bytes(K, S);
+  int err = allow_smem(dense_products_kernel<K>, smem);
+  if (err) return err;
+  dense_products_kernel<K><<<grid_for(nb), THREADS, smem, stream>>>(
+      (const int32_t*)steps, (const float*)logAT, (const float*)logB, (float*)out, bk, nb, S);
+  return (int)cudaGetLastError();
+}
+
+template <int K>
+static int launch_backpointers(const void* steps, const void* v_enter, const void* logAT,
+                               const void* logB, void* bp, void* dexit, void* ftab, int bk, int nb,
+                               int S, cudaStream_t stream) {
+  const size_t smem = table_bytes(K, S);
+  int err = allow_smem(dense_backpointers_kernel<K>, smem);
+  if (err) return err;
+  dense_backpointers_kernel<K><<<grid_for(nb), THREADS, smem, stream>>>(
+      (const int32_t*)steps, (const float*)v_enter, (const float*)logAT, (const float*)logB,
+      (int32_t*)bp, (float*)dexit, (int32_t*)ftab, bk, nb, S);
+  return (int)cudaGetLastError();
+}
+
+#define DISPATCH_K(K, CALL)    \
+  switch (K) {                 \
+    case 1: return CALL(1);    \
+    case 2: return CALL(2);    \
+    case 3: return CALL(3);    \
+    case 4: return CALL(4);    \
+    case 5: return CALL(5);    \
+    case 6: return CALL(6);    \
+    case 7: return CALL(7);    \
+    case 8: return CALL(8);    \
+    default: return (int)cudaErrorInvalidValue; \
+  }
+
+// The C interface: every pointer and the stream arrive as void*, sizes as
+// int.  Each function launches on the caller's stream and returns a CUDA
+// error code (cudaGetLastError() after the launch), so a refused launch
+// reaches the Python wrapper.
+extern "C" {
+
+int dense_products(const void* steps, const void* logAT, const void* logB, void* out, int bk,
+                   int nb, int K, int S, void* stream) {
+  if (bk <= 0 || nb <= 0 || S < 1 || S > MAX_S) return (int)cudaErrorInvalidValue;
+#define CALL_P(KK) launch_products<KK>(steps, logAT, logB, out, bk, nb, S, (cudaStream_t)stream)
+  DISPATCH_K(K, CALL_P)
+#undef CALL_P
+}
+
+int dense_backpointers(const void* steps, const void* v_enter, const void* logAT,
+                       const void* logB, void* bp, void* dexit, void* ftab, int bk, int nb, int K,
+                       int S, void* stream) {
+  if (bk <= 0 || nb <= 0 || S < 1 || S > MAX_S) return (int)cudaErrorInvalidValue;
+#define CALL_B(KK)                                                                     \
+  launch_backpointers<KK>(steps, v_enter, logAT, logB, bp, dexit, ftab, bk, nb, S, \
+                          (cudaStream_t)stream)
+  DISPATCH_K(K, CALL_B)
+#undef CALL_B
+}
+
+int dense_backtrace(const void* bp, const void* exits, void* path, int bk, int nb,
+                    void* stream) {
+  if (bk <= 0 || nb <= 0) return (int)cudaErrorInvalidValue;
+  dense_backtrace_kernel<<<grid_for(nb), THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)bp, (const int32_t*)exits, (int32_t*)path, bk, nb);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

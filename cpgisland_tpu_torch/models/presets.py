@@ -4,6 +4,11 @@
 hardcodes as its Baum-Welch initialization (CpGIslandFinder.java:155-173).
 State ids: 0..3 = A+ C+ G+ T+ (island), 4..7 = A- C- G- T- (background);
 emissions are one-hot (state X+- emits x).
+
+``two_state_cpg`` is a minimal island/background model whose states do not
+encode bases: it decodes through the dense engines, and islands are called
+with ``island_states=(0,)`` (membership from the path, composition from the
+observations).
 """
 
 from __future__ import annotations
@@ -43,3 +48,23 @@ def durbin_cpg8(device="cpu") -> HmmParams:
     B = np.zeros((8, 4))
     B[np.arange(8), np.arange(8) % 4] = 1.0  # one-hot: X+- emits x
     return HmmParams.from_probs(_DURBIN_PI, A, B, device=device)
+
+
+def two_state_cpg(p_stay_island: float = 0.999, p_stay_bg: float = 0.9995,
+                  device="cpu") -> HmmParams:
+    """A minimal 2-state island/background model.  State 0 = island
+    (GC-rich emissions), state 1 = background (AT-leaning)."""
+    pi = np.array([0.1, 0.9])
+    A = np.array(
+        [
+            [p_stay_island, 1.0 - p_stay_island],
+            [1.0 - p_stay_bg, p_stay_bg],
+        ]
+    )
+    B = np.array(
+        [
+            [0.15, 0.35, 0.35, 0.15],  # island: C/G enriched
+            [0.30, 0.20, 0.20, 0.30],  # background: A/T enriched
+        ]
+    )
+    return HmmParams.from_probs(pi, A, B, device=device)

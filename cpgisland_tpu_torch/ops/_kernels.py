@@ -46,6 +46,9 @@ _SIGNATURES = {
     "oh_prod": ("fb_onehot", 3, ("Tp", "NL", "nreal")),
     "oh_fwdbwd": ("fb_onehot", 8, ("Tp", "NL", "nreal", "T")),
     "oh_seq_stats": ("fb_onehot", 14, ("Tp", "NL", "S", "K", "Tt")),
+    "dense_products": ("viterbi_dense", 4, ("bk", "nb", "K", "S")),
+    "dense_backpointers": ("viterbi_dense", 7, ("bk", "nb", "K", "S")),
+    "dense_backtrace": ("viterbi_dense", 3, ("bk", "nb")),
 }
 SOURCES = tuple(sorted({src for src, _, _ in _SIGNATURES.values()}))
 

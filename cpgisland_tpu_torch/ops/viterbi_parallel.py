@@ -14,11 +14,15 @@ associative, so a T-step recurrence becomes three block passes over
 3. **backtrace** — a cross-block composition anchors every block's exit
    state to the global argmax, then lanes walk their backpointers.
 
-Only the reduced one-hot engine is ported (ops.viterbi_onehot, whose three
-passes are CUDA kernels on the card).  The stitching below is plain PyTorch
-and performs the same float32 operations in the same order as the JAX
-package, including the combination tree of its associative scan, so the
-two agree bit for bit on the same inputs.
+Three engines supply the passes (:func:`get_passes`): "xla", the plain
+PyTorch twins below (any K; the JAX package's non-kernel engine); "pallas",
+the dense kernels for K <= 8 (ops.viterbi_pallas, CUDA kernels B13-B15 on
+the card); and "onehot", the reduced kernels for one-hot-emission models
+(ops.viterbi_onehot, B1-B3).  The dense engines perform the same float32
+adds and maxes as each other, so they agree bit for bit.  The stitching is
+plain PyTorch and performs the same float32 operations in the same order as
+the JAX package, including the combination tree of its associative scan, so
+the two agree bit for bit on the same inputs.
 """
 
 from __future__ import annotations
@@ -32,13 +36,6 @@ from cpgisland_tpu_torch.models.hmm import LOG_ZERO, HmmParams
 # Legacy default kept for parity with the JAX package; not yet retuned for
 # the card.
 DEFAULT_BLOCK = 4096
-
-NOT_PORTED = (
-    "the dense decode engines ('xla', 'pallas') are not ported to PyTorch "
-    "yet; this package decodes only models eligible for the reduced one-hot "
-    "engine, and only records whose first symbol is a real base"
-)
-
 
 def _identity_logmat(K: int, device) -> torch.Tensor:
     eye = torch.eye(K, dtype=torch.bool, device=device)
@@ -136,12 +133,17 @@ class BlockDecode(NamedTuple):
 
 def _enter_vectors(v_enter0: torch.Tensor, incl: torch.Tensor, offs=None):
     """Normalized per-block entering score vectors from the exclusive
-    prefix, plus (with ``offs``) the per-block true-score offsets."""
-    K = v_enter0.shape[0]
-    excl = torch.cat([_identity_logmat(K, incl.device)[None], incl[:-1]], dim=0)
-    v = torch.amax(v_enter0[None, :, None] + excl, dim=1)  # [nb, K]
+    prefix, plus (with ``offs``) the per-block true-score offsets.
+
+    v_enter0 [..., K] and incl [nb, ..., K, K]: the leading dims after the
+    block axis are independent records (the dense batch decoder), each
+    computed exactly as alone."""
+    K = v_enter0.shape[-1]
+    ident = _identity_logmat(K, incl.device).expand(incl.shape[1:])[None]
+    excl = torch.cat([ident, incl[:-1]], dim=0)
+    v = torch.amax(v_enter0[None, ..., :, None] + excl, dim=-2)  # [nb, ..., K]
     vmax = torch.amax(v, dim=-1)
-    v = torch.clamp_min(v - vmax[:, None], LOG_ZERO)
+    v = torch.clamp_min(v - vmax[..., None], LOG_ZERO)
     if offs is None:
         return v
     excl_off = torch.cat([torch.zeros_like(offs[:1]), offs[:-1]])
@@ -155,9 +157,92 @@ def _suffix_compositions(F: torch.Tensor) -> torch.Tensor:
     return rev.flip(0)
 
 
+# ---------------------------------------------------------------------------
+# The "xla" engine: plain PyTorch twins of the JAX package's lax.scan passes.
+# Step matrices are selected by an index gather of M_ext (the JAX twin's
+# one-hot matmul at HIGHEST precision returns the same float32 values).
+
+
+def _products_scan(M_ext: torch.Tensor, steps2: torch.Tensor) -> torch.Tensor:
+    """Each lane's max-plus product of its block's step matrices: steps2
+    [bk, nb] -> [nb, K, K] (PAD rows of M_ext are the identity)."""
+    K = M_ext.shape[-1]
+    C = _identity_logmat(K, steps2.device).expand(steps2.shape[1], K, K)
+    for k in range(steps2.shape[0]):
+        C = maxplus_matmul(C, M_ext[steps2[k].long()])
+    return C
+
+
+def _backpointers_scan(M_ext: torch.Tensor, v_enter: torch.Tensor, steps2: torch.Tensor,
+                       emit):
+    """The delta recursion from the entering vectors v_enter [nb, K]:
+    argmax backpointers (first max on ties, as ``jnp.argmax``) and the
+    exit -> entry composition E'[j] = E[bp[j]].  Returns (delta [nb, K],
+    F [nb, K] int32, [emit(bp) for each step]) with bp [nb, K] int64."""
+    nb, K = v_enter.shape
+    delta = v_enter
+    E = torch.arange(K, device=v_enter.device).expand(nb, K)
+    rows = []
+    for k in range(steps2.shape[0]):
+        scores = delta[:, :, None] + M_ext[steps2[k].long()]  # [nb, from, to]
+        bp = torch.argmax(scores, dim=1)
+        delta = torch.amax(scores, dim=1)
+        E = torch.gather(E, 1, bp)
+        rows.append(emit(bp))
+    return delta, E.to(torch.int32), rows
+
+
+def lane_products(params: HmmParams, steps2: torch.Tensor) -> torch.Tensor:
+    """Per-lane block products [nb, K, K] before the prefix scan."""
+    M_ext, _ = _step_tables(params)
+    return _products_scan(M_ext, steps2)
+
+
+def _pass_products(params: HmmParams, steps2: torch.Tensor, prev0=None):
+    """Pass A (xla twin): (incl, offs, total).  ``prev0`` is consumed only
+    by the onehot engine; the dense engines ignore it."""
+    incl, offs = scan_block_products(lane_products(params, steps2))
+    return incl, offs, incl[-1]
+
+
+def _pass_backpointers(params: HmmParams, v_enter: torch.Tensor, steps2: torch.Tensor,
+                       prev0=None):
+    """Pass B (xla twin): (delta_exit [nb, K], F [nb, K], bps [bk, nb, K]
+    int8)."""
+    M_ext, _ = _step_tables(params)
+    delta, F, rows = _backpointers_scan(M_ext, v_enter, steps2,
+                                        lambda bp: bp.to(torch.int8))
+    return delta, F, torch.stack(rows)
+
+
+def _pass_backtrace(bps: torch.Tensor, exits: torch.Tensor) -> torch.Tensor:
+    """Pass C (xla twin): walk the backpointers from each lane's exit state,
+    emitting the state after each step.  Returns [bk * nb] in global step
+    order."""
+    bk, nb, _ = bps.shape
+    state = exits.long()
+    path2 = torch.empty((bk, nb), dtype=torch.int32, device=bps.device)
+    for k in range(bk - 1, -1, -1):
+        path2[k] = state
+        state = torch.gather(bps[k], 1, state[:, None])[:, 0].long()
+    return path2.T.reshape(-1)
+
+
 def get_passes(engine: str):
     """The block-pass triple (products, backpointers, backtrace) of an
-    engine.  Only 'onehot' (ops.viterbi_onehot) is ported."""
+    engine: 'xla' (the twins above), 'pallas' (ops.viterbi_pallas, K <= 8)
+    or 'onehot' (ops.viterbi_onehot; needs prev0).  The backpointer blob
+    is engine-specific and flows opaquely into the backtrace."""
+    if engine == "xla":
+        return _pass_products, _pass_backpointers, _pass_backtrace
+    if engine == "pallas":
+        from cpgisland_tpu_torch.ops import viterbi_pallas
+
+        return (
+            viterbi_pallas.pass_products,
+            viterbi_pallas.pass_backpointers,
+            viterbi_pallas.pass_backtrace,
+        )
     if engine == "onehot":
         from cpgisland_tpu_torch.ops import viterbi_onehot
 
@@ -166,9 +251,7 @@ def get_passes(engine: str):
             viterbi_onehot.pass_backpointers,
             viterbi_onehot.pass_backtrace,
         )
-    if engine in ("xla", "pallas"):
-        raise NotImplementedError(NOT_PORTED)
-    raise ValueError(f"unknown engine {engine!r}; expected onehot")
+    raise ValueError(f"unknown engine {engine!r}; expected xla|pallas|onehot")
 
 
 def _block_passes(
@@ -195,8 +278,12 @@ def _block_passes(
 
     extra = {}
     if resets is not None:
+        if engine != "onehot":
+            raise ValueError("record-reset steps need the onehot engine")
         extra["resets"] = resets
     if pre is not None:
+        if engine != "onehot":
+            raise ValueError("prepared pair streams need the onehot engine")
         extra["pre"] = pre
     incl, offs, total = products(params, steps2, prev0, **extra)
     v_enter, enter_offs = _enter_vectors(v_enter0, incl, offs)
@@ -225,7 +312,8 @@ def viterbi_parallel(
 
     PAD symbols (>= n_symbols) are pass-through identity steps.  The onehot
     engine needs obs[0] < n_symbols (a PAD first symbol has no entry group
-    for the reduced chain); parallel.decode refuses such records."""
+    for the reduced chain); parallel.decode demotes such records to a dense
+    engine."""
     _, emit_ext = _step_tables(params)
     obs = obs.to(device=params.device, dtype=torch.int32)
     T = obs.shape[0]
@@ -254,6 +342,67 @@ def viterbi_parallel(
     return path, torch.amax(dec.delta_exit) + dec.score_offset
 
 
+def _lane_products_fn(engine: str):
+    """The dense engine's per-lane block products (before the prefix scan)."""
+    if engine == "pallas":
+        from cpgisland_tpu_torch.ops import viterbi_pallas
+
+        return viterbi_pallas.lane_products
+    return lane_products
+
+
+def _dense_batch(params: HmmParams, chunks: torch.Tensor, lengths: torch.Tensor,
+                 block_size: int, return_score: bool, engine: str):
+    """Every record of the batch decoded as by :func:`viterbi_parallel`
+    alone (the JAX package's vmap), with all records' blocks side by side
+    as the lanes of one launch per pass.  Record r's block b is lane
+    r * nb + b; the prefix scans, stitching and anchors run batched over
+    records, each record's exactly as alone, so the result equals the
+    per-record decode bit for bit."""
+    _, backpointers, backtrace = get_passes(engine)
+    N, T = chunks.shape
+    dev = params.device
+    K, pad_sym = params.n_states, params.n_symbols
+    obs_c = torch.where(
+        torch.arange(T, device=dev)[None, :] >= lengths.to(dev)[:, None],
+        pad_sym,
+        torch.clamp_max(chunks.to(device=dev, dtype=torch.int32), pad_sym),
+    ).to(torch.int32)
+    _, emit_ext = _step_tables(params)
+    v0 = params.log_pi[None, :] + emit_ext[obs_c[:, 0].long()]  # [N, K]
+    if T == 1:
+        path = torch.argmax(v0, dim=-1).to(torch.int32)[:, None]
+        return (path, torch.amax(v0, dim=-1)) if return_score else path
+
+    S = T - 1
+    bk = min(block_size, max(8, S))
+    nb = -(-S // bk)
+    steps = torch.cat([
+        obs_c[:, 1:],
+        torch.full((N, nb * bk - S), pad_sym, dtype=torch.int32, device=dev),
+    ], dim=1)
+    steps2 = steps.reshape(N * nb, bk).T  # [bk, N*nb]: record r's step b*bk + k at [k, r*nb + b]
+
+    P = _lane_products_fn(engine)(params, steps2).reshape(N, nb, K, K).transpose(0, 1)
+    incl, offs = scan_block_products(P)  # [nb, N, K, K], [nb, N]
+    v_enter, enter_offs = _enter_vectors(v0, incl, offs)  # [nb, N, K]
+    delta_blocks, F, bps = backpointers(
+        params, v_enter.transpose(0, 1).reshape(N * nb, K), steps2, None)
+    delta_exit = delta_blocks.reshape(N, nb, K)[:, -1]  # [N, K]
+    s_exit = torch.argmax(delta_exit, dim=-1)  # [N]
+    Gsuf = _suffix_compositions(F.reshape(N, nb, K).transpose(0, 1))  # [nb, N, K]
+    exits = torch.cat([
+        torch.gather(Gsuf[1:], 2, s_exit[None, :, None].expand(nb - 1, N, 1))[..., 0],
+        s_exit[None, :].to(torch.int32),
+    ])  # [nb, N]
+    path = backtrace(bps, exits.T.reshape(-1)).reshape(N, nb * bk)
+    s0 = torch.gather(Gsuf[0], 1, s_exit[:, None])  # [N, 1] entry states
+    full = torch.cat([s0.to(torch.int32), path[:, :S]], dim=1)
+    if not return_score:
+        return full
+    return full, torch.amax(delta_exit, dim=-1) + enter_offs[-1]
+
+
 def viterbi_parallel_batch(
     params: HmmParams,
     chunks: torch.Tensor,
@@ -263,21 +412,25 @@ def viterbi_parallel_batch(
     engine: str = "onehot",
 ):
     """Batched decode of a [N, T] batch of padded chunks (paths [N, T];
-    positions >= lengths[i] carry the exit state).
+    positions >= lengths[i] are forced to PAD and carry the exit state).
 
     Onehot batches run FLAT (viterbi_onehot.decode_batch_flat): records
     concatenate into one stream with rank-one RESET steps at record
     boundaries, so every kernel runs at single-stream occupancy.  Records
     need at least 2 symbols; per-record scores need the score-threading
-    backpointer kernel, not ported yet."""
+    backpointer kernel (B6), not ported yet.  The dense engines ('xla',
+    'pallas') decode each record exactly as alone (:func:`_dense_batch`)
+    and return per-record scores."""
+    block_size = DEFAULT_BLOCK if block_size is None else int(block_size)
     if engine != "onehot":
-        get_passes(engine)  # raises: not ported / unknown
+        get_passes(engine)  # raises on an unknown engine
+        return _dense_batch(params, chunks, lengths, block_size, return_score, engine)
     if return_score:
         raise NotImplementedError(
-            "per-record scores from the flat batch need the score-threading "
-            "backpointer kernel, not ported yet; pass return_score=False"
+            "per-record scores from the flat onehot batch need the "
+            "score-threading backpointer kernel (B6, ROADMAP A6), not ported "
+            "yet; pass return_score=False or use a dense engine"
         )
     from cpgisland_tpu_torch.ops.viterbi_onehot import decode_batch_flat
 
-    block_size = DEFAULT_BLOCK if block_size is None else int(block_size)
     return decode_batch_flat(params, chunks, lengths, block_size=block_size)

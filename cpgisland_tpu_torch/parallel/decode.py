@@ -3,8 +3,7 @@
 Counterpart of ``cpgisland_tpu/parallel/decode.py``, for one device (the JAX
 package shards a record over a mesh; here the mesh has one member, so the
 cross-device stitching is the identity and no collective runs).  Engine
-resolution keeps the JAX package's rules for the engines that are ported:
-only the reduced one-hot engine so far.
+resolution keeps the JAX package's rules, without its fault breaker.
 """
 
 from __future__ import annotations
@@ -14,9 +13,9 @@ import torch
 
 from cpgisland_tpu_torch.family import partition as family_partition
 from cpgisland_tpu_torch.models.hmm import HmmParams
+from cpgisland_tpu_torch.ops import viterbi_pallas
 from cpgisland_tpu_torch.ops.viterbi_parallel import (
     DEFAULT_BLOCK,
-    NOT_PORTED,
     _enter_vectors,
     _identity_logmat,
     _step_tables,
@@ -28,17 +27,20 @@ from cpgisland_tpu_torch.ops.viterbi_parallel import (
 
 def resolve_engine(engine: str, params: HmmParams) -> str:
     """'auto' picks the reduced one-hot kernels when the model's emission
-    structure supports them (the flagship 8-state model does); the dense
-    engines are not ported yet, so any other model raises."""
+    structure supports them (the flagship 8-state model does), else the
+    dense kernels when the model fits their 3-bit backpointer packing
+    (K <= 8), else the plain "xla" twins.  'auto' picks the same names on
+    the CPU, where every kernel wrapper runs its plain version.  An explicit
+    engine is checked and honoured as named."""
     if engine == "auto":
         if family_partition.reduced_eligible(params):
             return "onehot"
-        raise NotImplementedError(NOT_PORTED)
-    if engine in ("xla", "pallas"):
-        raise NotImplementedError(NOT_PORTED)
-    if engine != "onehot":
-        raise ValueError(f"unknown engine {engine!r}; expected auto|onehot")
-    if not family_partition.reduced_eligible(params):
+        return "pallas" if viterbi_pallas.supports(params) else "xla"
+    if engine not in ("xla", "pallas", "onehot"):
+        raise ValueError(f"unknown engine {engine!r}; expected auto|xla|pallas|onehot")
+    if engine == "pallas" and not viterbi_pallas.supports(params):
+        raise ValueError(f"pallas engine needs n_states <= 8, got {params.n_states}")
+    if engine == "onehot" and not family_partition.reduced_eligible(params):
         raise ValueError(
             "onehot engine needs a one-hot emission-support partition with "
             "2 states per symbol"
@@ -47,10 +49,12 @@ def resolve_engine(engine: str, params: HmmParams) -> str:
 
 
 def _engine_for_record(eng: str, obs: np.ndarray, params: HmmParams) -> str:
-    """Records outside the onehot engine's exactness domain (first position
-    has no real emission) need a dense engine, which is not ported yet."""
+    """Demote 'onehot' to a dense engine for records outside its exactness
+    domain (first position has no real emission: the reduced chain has no
+    entry group there) — the dense kernels when the 3-bit packing fits,
+    else the "xla" twins."""
     if eng == "onehot" and (obs.shape[0] == 0 or int(obs[0]) >= params.n_symbols):
-        raise NotImplementedError(NOT_PORTED)
+        return "pallas" if viterbi_pallas.supports(params) else "xla"
     return eng
 
 
@@ -98,10 +102,13 @@ def viterbi_sharded(
     *,
     block_size: int = DEFAULT_BLOCK,
     engine: str = "auto",
-) -> np.ndarray:
+    return_device: bool = False,
+):
     """Decode one whole record on the params' device; returns the [T] int32
-    path on the host.  The record pads with the PAD sentinel to a multiple of
-    ``block_size`` (PAD steps are identity, so the result is exact)."""
+    path on the host, or as a tensor on the device with ``return_device``
+    (for the device island caller).  The record pads with the PAD sentinel
+    to a multiple of ``block_size`` (PAD steps are identity, so the result
+    is exact).  The dense engines ignore ``prev0``."""
     obs = np.asarray(obs)
     T = obs.shape[0]
     eng = _engine_for_record(resolve_engine(engine, params), obs, params)
@@ -112,6 +119,6 @@ def viterbi_sharded(
     obs_c = torch.clamp_max(arr.to(torch.int32), S)
     if rem:
         obs_c = torch.cat([obs_c, torch.full((rem,), S, dtype=torch.int32, device=dev)])
-    prev0 = torch.tensor(int(obs[0]), dtype=torch.int32, device=dev)
-    path = _decode_body(params, obs_c, block_size, eng, prev0)
-    return path[:T].cpu().numpy()
+    prev0 = torch.tensor(int(obs[0]) if T and int(obs[0]) < S else 0, dtype=torch.int32, device=dev)
+    path = _decode_body(params, obs_c, block_size, eng, prev0)[:T]
+    return path if return_device else path.cpu().numpy()

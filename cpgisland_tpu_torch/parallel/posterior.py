@@ -23,8 +23,9 @@ from cpgisland_tpu_torch.ops.prepared import PreparedSeq, prepare_seq
 from cpgisland_tpu_torch.train.backends import ONEHOT_MAX_STATES
 
 _NOT_PORTED = (
-    "only the reduced one-hot posterior engine is ported; the XLA lane path "
-    "(ROADMAP A2) and the dense kernels (A10) are not"
+    "only the reduced one-hot posterior engine is ported; the dense "
+    "forward-backward engine (kernels B16-B20, ROADMAP A10) and the XLA lane "
+    "path (A2) are not ported yet"
 )
 
 

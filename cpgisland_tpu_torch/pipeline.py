@@ -18,6 +18,7 @@ together as one flat batch.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass, field
@@ -30,6 +31,7 @@ from cpgisland_tpu_torch.models import presets
 from cpgisland_tpu_torch.models.hmm import HmmParams, dump_text
 from cpgisland_tpu_torch.ops import fb_seq
 from cpgisland_tpu_torch.ops import islands as islands_mod
+from cpgisland_tpu_torch.ops import islands_device
 from cpgisland_tpu_torch.ops.islands import IslandCalls
 from cpgisland_tpu_torch.ops.viterbi_parallel import viterbi_parallel_batch
 from cpgisland_tpu_torch.parallel import posterior as post
@@ -38,14 +40,22 @@ from cpgisland_tpu_torch.train import baum_welch
 from cpgisland_tpu_torch.utils import chunking, codec
 from cpgisland_tpu_torch.utils.npystream import NpyStreamWriter
 
+log = logging.getLogger(__name__)
+
 # Largest record decoded in one pass in clean mode; longer records need the
-# span-wise decode, not ported yet.
+# span-wise decode, not ported yet (ROADMAP A6).
 CLEAN_DECODE_SPAN = 1 << 28
 
 # Records at or below this size batch together into one flat decode (clean
 # mode): real assemblies carry hundreds of small scaffolds beside the
 # chromosomes.
 SMALL_RECORD_MAX = 4 << 20
+
+
+# The device island engine never grows its output columns past this many
+# calls (4 Mi slots = 96 MiB of int32 columns): a count beyond it means a
+# degenerate input, where a clear cap error beats an opaque device OOM.
+ISLAND_CAP_CEILING = 1 << 22
 
 
 @dataclass
@@ -82,6 +92,22 @@ def _phase(phases: dict, name: str):
         phases[name] = phases.get(name, 0.0) + time.perf_counter() - t0
 
 
+def island_layout_error(params: HmmParams, island_states=None) -> Optional[str]:
+    """The K = 2M island-caller pairing check, shared by decode_file and the
+    CLI's parse-time validation.  The built-in caller reads base identity
+    out of state ids, which is meaningful only for the reference's 2M-state
+    X+/X- labeling (CpGIslandFinder.java:182-189); other models need the
+    observation-based caller.  Returns an error message, or None."""
+    if island_states is None and params.n_states != 2 * params.n_symbols:
+        return (
+            f"model has {params.n_states} states / {params.n_symbols} symbols, "
+            "not the 2M-state X+/X- labeling the built-in island caller "
+            "assumes — pass island_states=(...) (clean mode) to use the "
+            "observation-based caller"
+        )
+    return None
+
+
 def _check_invalid_symbols(invalid_symbols: str, compat: bool) -> None:
     if invalid_symbols not in codec.INVALID_POLICIES:
         raise ValueError(
@@ -102,25 +128,135 @@ def _round_pow2(n: int, floor: int = 1 << 16) -> int:
     return p
 
 
-def _batch_paths(params: HmmParams, engine: str, chunks: np.ndarray,
-                 lengths: np.ndarray) -> np.ndarray:
-    """Flat batch decode of host [N, T] uint8 rows -> host int32 paths."""
+def _sync(dev: torch.device) -> None:
+    """Wait for the card: the decode phase ends when its kernels have run,
+    not when they were queued (else the islands phase is billed for it)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _batch_paths(params: HmmParams, eng: str, chunks: np.ndarray,
+                 lengths: np.ndarray) -> torch.Tensor:
+    """Batch decode of host [N, T] uint8 rows -> int32 paths on the params'
+    device: the flat reset-step stream for onehot, the dense batch (each
+    record exactly as alone) for the dense engines."""
     dev = params.device
-    paths = viterbi_parallel_batch(
+    return viterbi_parallel_batch(
         params,
         torch.from_numpy(np.ascontiguousarray(chunks)).to(dev),  # uint8 upload
         torch.from_numpy(np.ascontiguousarray(lengths)).to(dev),
         return_score=False,
-        engine=engine,
+        engine=eng,
     )
-    return paths.cpu().numpy()
+
+
+def _resolve_island_engine(island_engine: str, *, dev: torch.device, device_eligible: bool,
+                           ineligible_msg: str, island_cap: Optional[int]):
+    """(use_device_islands, cap_box): 'auto' calls islands on the card in
+    clean mode, 'device' wherever the decode runs (the CPU too), 'host' on
+    the host.  cap_box is a one-element list shared by every record of the
+    run, so a cap grown by one overflow is kept for the rest."""
+    if island_engine not in ("auto", "host", "device"):
+        raise ValueError(f"island_engine must be auto|host|device, got {island_engine!r}")
+    if island_engine == "device" and not device_eligible:
+        raise ValueError(ineligible_msg)
+    use_device = island_engine == "device" or (
+        island_engine == "auto" and device_eligible and dev.type == "cuda")
+    cap = islands_device.DEFAULT_CAP if island_cap is None else int(island_cap)
+    if cap > ISLAND_CAP_CEILING:
+        log.warning("island_cap %d exceeds the %d ceiling; clamping", cap, ISLAND_CAP_CEILING)
+        cap = ISLAND_CAP_CEILING
+    return use_device, [cap]
+
+
+def _grow_cap_or_raise(e: islands_device.IslandCapOverflow, cap_box: list) -> None:
+    """Grow cap_box to the next power of two that holds the true count, or
+    re-raise when the count exceeds the ceiling."""
+    if e.n > ISLAND_CAP_CEILING:
+        raise islands_device.IslandCapOverflow(e.n, cap_box[0]) from None
+    new_cap = min(_round_pow2(e.n + 1, floor=2 * cap_box[0]), ISLAND_CAP_CEILING)
+    log.warning(
+        "island calls (%d) overflowed cap=%d; retrying the calling pass with "
+        "cap=%d (decode not re-run)", e.n, cap_box[0], new_cap,
+    )
+    cap_box[0] = new_cap
+
+
+def _device_calls_retry(fn, *args, cap_box: list, **kwargs) -> IslandCalls:
+    """Device island calling that survives cap overflow: the overflow
+    carries the true count, so the retry re-runs only the calling pass on
+    the decoded path, still on the device, at a sufficient cap."""
+    while True:
+        try:
+            return fn(*args, cap=cap_box[0], **kwargs)
+        except islands_device.IslandCapOverflow as e:
+            _grow_cap_or_raise(e, cap_box)
+
+
+def _record_calls(path, symbols: np.ndarray, *, island_states, min_len, use_device: bool,
+                  cap_box: list) -> IslandCalls:
+    """Clean-mode islands of one record from its path (a device tensor for
+    the device engine, a host array otherwise)."""
+    if use_device:
+        if island_states is not None:
+            return _device_calls_retry(
+                islands_device.call_islands_device_obs, path,
+                torch.from_numpy(symbols).to(path.device), island_states=island_states,
+                min_len=min_len, cap_box=cap_box)
+        return _device_calls_retry(islands_device.call_islands_device, path,
+                                   min_len=min_len, cap_box=cap_box)
+    if island_states is not None:
+        return islands_mod.call_islands_obs(path, symbols, island_states=island_states,
+                                            min_len=min_len)
+    return islands_mod.call_islands(path, chunk=0, compat=False, min_len=min_len)
+
+
+def _batched_device_calls(params: HmmParams, paths: torch.Tensor, rows: np.ndarray,
+                          lengths: np.ndarray, batch: list, *, island_states, min_len,
+                          cap_box: list) -> list:
+    """ONE device island call over a padded [Bp, Tpad] batch of paths.
+    Masked tails and one separator column become a non-island state so no
+    run crosses records; each call's record is recovered from its
+    coordinate.  Returns per-record IslandCalls in batch order."""
+    Bp, Tpad = paths.shape
+    dev = paths.device
+    stride = Tpad + 1
+    # Background: N_ISLAND_STATES for the 8-state labeling, n_states (an id
+    # no state uses) for island_states sets.
+    fill = islands_mod.N_ISLAND_STATES if island_states is None else params.n_states
+    mask = torch.arange(Tpad, device=dev)[None, :] < torch.from_numpy(lengths).to(dev)[:, None]
+    masked = torch.where(mask, paths, fill)
+    sep = torch.full((Bp, 1), fill, dtype=masked.dtype, device=dev)
+    flat = torch.cat([masked, sep], dim=1).reshape(-1)
+    if island_states is None:
+        all_calls = _device_calls_retry(islands_device.call_islands_device, flat,
+                                        min_len=min_len, cap_box=cap_box)
+    else:
+        obs = torch.from_numpy(np.ascontiguousarray(rows)).to(dev)
+        obs_flat = torch.cat([obs, torch.zeros((Bp, 1), dtype=obs.dtype, device=dev)],
+                             dim=1).reshape(-1)
+        all_calls = _device_calls_retry(islands_device.call_islands_device_obs, flat,
+                                        obs_flat, island_states=island_states,
+                                        min_len=min_len, cap_box=cap_box)
+    rec_of = (all_calls.beg - 1) // stride
+    parts = []
+    for i, (name, _) in enumerate(batch):
+        sel = rec_of == i
+        parts.append(IslandCalls(
+            beg=all_calls.beg[sel] - i * stride, end=all_calls.end[sel] - i * stride,
+            length=all_calls.length[sel], gc_content=all_calls.gc_content[sel],
+            oe_ratio=all_calls.oe_ratio[sel],
+        ).with_names(name or "."))
+    return parts
 
 
 def _decode_small_batch(params: HmmParams, batch: list, *, engine: str, min_len,
+                        island_states, use_device: bool, cap_box: list,
                         phases: dict) -> list:
-    """Decode a batch of small records as one flat stream; islands per
+    """Decode a batch of small records in one batched decode; islands per
     record.  Rows pad to a power-of-two length and at least 8 rows, so few
-    distinct shapes occur across many scaffolds."""
+    distinct shapes occur across many scaffolds.  Small records that start
+    with PAD stay on the flat onehot batch, as in the JAX package."""
     B = len(batch)
     sizes = [s.size for _, s in batch]
     Tpad = _round_pow2(max(sizes + [1]))
@@ -132,14 +268,21 @@ def _decode_small_batch(params: HmmParams, batch: list, *, engine: str, min_len,
     lengths[:B] = sizes
     with _phase(phases, "decode"):
         paths = _batch_paths(params, engine, rows, lengths)
-    parts = []
+        if use_device:
+            _sync(paths.device)
+        else:
+            paths = paths.cpu().numpy()
     with _phase(phases, "islands"):
-        for i, (name, symbols) in enumerate(batch):
-            calls = islands_mod.call_islands(
-                paths[i, : symbols.size], chunk=0, compat=False, min_len=min_len
-            )
-            parts.append(calls.with_names(name or "."))
-    return parts
+        if use_device:
+            return _batched_device_calls(params, paths, rows, lengths, batch,
+                                         island_states=island_states, min_len=min_len,
+                                         cap_box=cap_box)
+        return [
+            _record_calls(paths[i, : symbols.size], symbols, island_states=island_states,
+                          min_len=min_len, use_device=False, cap_box=cap_box
+                          ).with_names(name or ".")
+            for i, (name, symbols) in enumerate(batch)
+        ]
 
 
 def _write_calls(calls: IslandCalls, islands_out: Union[str, IO[str]]) -> None:
@@ -167,12 +310,16 @@ def decode_file(
     params: HmmParams,
     *,
     islands_out: Optional[Union[str, IO[str]]] = None,
+    state_path_out: Optional[str] = None,
     compat: bool = True,
     chunk_size: int = chunking.DECODE_CHUNK,
     device_batch: int = 8,
     min_len: Optional[int] = None,
     span: int = CLEAN_DECODE_SPAN,
     engine: str = "auto",
+    island_states=None,
+    island_engine: str = "auto",
+    island_cap: Optional[int] = None,
     invalid_symbols: str = "skip",
     device="cuda",
 ) -> DecodeResult:
@@ -183,16 +330,36 @@ def decode_file(
     batches of ``device_batch``; clean mode decodes each FASTA record
     exactly and batches records of at most SMALL_RECORD_MAX symbols
     ``device_batch`` at a time.  ``invalid_symbols`` is the codec's
-    skip/mask/fail policy (clean mode only)."""
+    skip/mask/fail policy (clean mode only); under 'mask' a record may
+    start with PAD, and the reduced engine then hands it to a dense one.
+
+    ``engine``: auto|xla|pallas|onehot (parallel.decode.resolve_engine).
+    ``island_states`` (clean mode only): call islands with membership from
+    the path and composition from the observations (e.g.
+    presets.two_state_cpg with island_states=(0,)).  ``island_engine``:
+    "device" calls islands where the path lies (ops.islands_device; only
+    the compact call counts cross to the host), "host" on the host, "auto"
+    on the card in clean mode.  ``island_cap``: the device engine's initial
+    output size in calls; an overflow regrows it and re-runs only the
+    calling pass.  State-path dumps are not ported (ROADMAP A12)."""
+    if island_states is not None and compat:
+        raise ValueError("island_states needs clean mode (compat=False); the "
+                         "reference caller is 8-state-specific")
+    if state_path_out is not None:
+        raise NotImplementedError("decode_file: state-path dumps are not ported yet "
+                                  "(ROADMAP A12)")
     _check_invalid_symbols(invalid_symbols, compat)
-    if params.n_states != 2 * params.n_symbols:
-        raise ValueError(
-            f"model has {params.n_states} states / {params.n_symbols} symbols, "
-            "not the 2M-state X+/X- labeling the island caller assumes"
-        )
+    err = island_layout_error(params, island_states)
+    if err:
+        raise ValueError(err)
     dev = resolve_device(device)
     params = params.to(dev)
     eng = resolve_engine(engine, params)
+    use_device, cap_box = _resolve_island_engine(
+        island_engine, dev=dev, device_eligible=not compat, island_cap=island_cap,
+        ineligible_msg="island_engine='device' implements clean-mode calling only "
+        "(compat quirk reproduction is host-side)",
+    )
     phases: dict = {}
 
     if compat:
@@ -206,6 +373,7 @@ def decode_file(
             hi = min(lo + device_batch, n)
             with _phase(phases, "decode"):
                 batch_paths = _batch_paths(params, eng, chunks[lo:hi], lengths[lo:hi])
+                batch_paths = batch_paths.cpu().numpy()
             with _phase(phases, "islands"):
                 parts.extend(
                     islands_mod.call_islands(
@@ -228,15 +396,20 @@ def decode_file(
             raise NotImplementedError(
                 f"record {rec_name!r} has {symbols.size} symbols, more than the "
                 f"single-pass span ({span}); the span-wise decode is not "
-                "ported yet"
+                "ported yet (ROADMAP A6)"
             )
         with _phase(phases, "decode"):
             if symbols.size == 0:
                 full = np.zeros(0, dtype=np.int32)
             else:
-                full = viterbi_sharded(params, symbols, engine=eng)
+                full = viterbi_sharded(params, symbols, engine=eng, return_device=use_device)
+                _sync(dev)
         with _phase(phases, "islands"):
-            calls = islands_mod.call_islands(full, chunk=0, compat=False, min_len=min_len)
+            if symbols.size == 0:
+                calls = islands_mod.call_islands(full, chunk=0, compat=False)
+            else:
+                calls = _record_calls(full, symbols, island_states=island_states,
+                                      min_len=min_len, use_device=use_device, cap_box=cap_box)
         # "." = headerless leading sequence (keeps the name column parseable).
         parts.append(calls.with_names(rec_name or "."))
 
@@ -246,9 +419,9 @@ def decode_file(
         if len(batch) == 1:
             decode_one(*batch[0])
             return
-        parts.extend(
-            _decode_small_batch(params, batch, engine=eng, min_len=min_len, phases=phases)
-        )
+        parts.extend(_decode_small_batch(
+            params, batch, engine=eng, min_len=min_len, island_states=island_states,
+            use_device=use_device, cap_box=cap_box, phases=phases))
 
     records = codec.iter_fasta_records(test_path, invalid=invalid_symbols)
     pending: list = []

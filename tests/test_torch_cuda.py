@@ -219,3 +219,86 @@ def test_posterior_file_cuda_equals_cpu(cuda_device, tmp_path):
         outs[dev] = (buf.getvalue(), np.load(conf))
     assert outs["cpu"][0] == outs["cuda"][0] and outs["cuda"][0]
     np.testing.assert_allclose(outs["cpu"][1], outs["cuda"][1], rtol=0, atol=1e-5)
+
+
+# -- B13-B15: the dense Viterbi kernels ----------------------------------------
+
+
+def _dense_operands(rng, K, bk, nb, device):
+    """Seeded steps with PAD runs, a K-state model (the flagship's one-hot
+    tables at K = 8, the two_state preset at K = 2), entering vectors and
+    exit states, on ``device``."""
+    from cpgisland_tpu_torch.ops import viterbi_pallas as VP
+
+    params = (presets.durbin_cpg8 if K == 8 else presets.two_state_cpg)(device=device)
+    S = params.n_symbols
+    steps = rng.integers(0, S, size=(bk, nb)).astype(np.int32)
+    for _ in range(max(1, nb // 4)):
+        k0, b, n = rng.integers(0, bk), rng.integers(0, nb), rng.integers(1, 200)
+        steps[k0 : k0 + n, b] = S
+    v = rng.normal(scale=3.0, size=(K, nb)).astype(np.float32)
+    logAT, logB = VP._tables(params)
+    return (torch.from_numpy(steps).to(device), torch.from_numpy(v - v.max(0)).to(device),
+            logAT, logB, torch.from_numpy(rng.integers(0, K, size=nb).astype(np.int32)).to(device))
+
+
+@pytest.mark.parametrize("K", [2, 8])
+@pytest.mark.parametrize("bk", [8, 4096])
+@pytest.mark.parametrize("nb", [1, 33, 4096])
+def test_dense_kernels_equal_plain_versions(cuda_device, K, bk, nb):
+    from cpgisland_tpu_torch.ops import viterbi_pallas as VP
+
+    steps, v, logAT, logB, exits = _dense_operands(np.random.default_rng(K * bk + nb), K, bk,
+                                                   nb, cuda_device)
+    names = ("dense_products", "dense_backpointers", "dense_backtrace")
+    before = {k: _kernels.launches[k] for k in names}
+    assert torch.equal(VP.dense_products(steps, logAT, logB),
+                       VP.dense_products_plain(steps, logAT, logB))
+    got = VP.dense_backpointers(steps, v, logAT, logB)
+    want = VP.dense_backpointers_plain(steps, v, logAT, logB)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(VP.dense_backtrace(got[0], exits), VP.dense_backtrace_plain(got[0], exits))
+    torch.cuda.synchronize()
+    assert all(_kernels.launches[k] == before[k] + 1 for k in names)
+
+
+def test_dense_decode_file_cuda_equals_cpu(cuda_device, tmp_path):
+    """two_state (island_states=(0,)) and the flagship on a record that
+    opens with N under mask: island files identical on the card (device
+    and host island engines) and on the CPU."""
+    rng = np.random.default_rng(11)
+    p = tmp_path / "n.fa"
+    with open(p, "w") as f:
+        for r, n in enumerate((30_000, 4_000, 6_000)):
+            s = rng.choice(4, size=n, p=[0.3, 0.2, 0.2, 0.3])
+            s[900:2400] = rng.choice(4, size=1500, p=[0.15, 0.35, 0.35, 0.15])
+            f.write(f">r{r}\n" + "N" * 700 + "".join("ACGT"[x] for x in s) + "\n")
+    cases = ((presets.two_state_cpg, {"island_states": (0,)}),
+             (presets.durbin_cpg8, {"invalid_symbols": "mask"}))
+    for make, kw in cases:
+        outs = set()
+        for dev, eng in (("cpu", "host"), ("cuda", "host"), ("cuda", "device")):
+            buf = io.StringIO()
+            pipeline.decode_file(str(p), make(), islands_out=buf, compat=False, device=dev,
+                                 island_engine=eng, **kw)
+            outs.add(buf.getvalue())
+        assert len(outs) == 1 and outs.pop()
+
+
+def test_device_islands_on_the_card_equal_host(cuda_device):
+    from cpgisland_tpu_torch.ops import islands as H
+    from cpgisland_tpu_torch.ops import islands_device as D
+
+    rng = np.random.default_rng(5)
+    parts = []
+    for _ in range(400):
+        parts.append(rng.integers(4, 8, size=rng.integers(1, 3000)))
+        parts.append(rng.choice([1, 2, 0], size=rng.integers(1, 2000)))
+    path = np.concatenate(parts).astype(np.int32)
+    for block_w in (1 << 10, 1 << 22):
+        cols, n = D._device_calls(torch.from_numpy(path).to(cuda_device), D.DEFAULT_CAP, None,
+                                  0.5, 0.6, block_w)
+        got = D._fetch_calls(cols, n, D.DEFAULT_CAP, 0, 0.5, 0.6)
+        want = H.call_islands(path, compat=False)
+        for k in ("beg", "end", "length", "gc_content", "oe_ratio"):
+            assert np.array_equal(getattr(got, k), getattr(want, k))

@@ -21,8 +21,10 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "cpgisland_tpu")
              or m.startswith(("jax.", "jaxlib.", "cpgisland_tpu.")))
-print(len(names), bad)
-sys.exit(1 if bad or len(names) < 12 else 0)
+missing ={"cpgisland_tpu_torch.ops.viterbi_pallas",
+           "cpgisland_tpu_torch.ops.islands_device"} - set(names)
+print(len(names), bad, sorted(missing))
+sys.exit(1 if bad or missing or len(names) < 12 else 0)
 """
 
 

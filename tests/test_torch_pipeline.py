@@ -108,8 +108,12 @@ def test_unported_routes_raise(fasta, tmp_path, monkeypatch):
         TPL.decode_file(fasta, tp, compat=False, span=1000, device="cpu")
     with pytest.raises(ValueError):
         TPL.decode_file(fasta, tp, compat=True, invalid_symbols="mask", device="cpu")
-    # A lone record whose first position is masked needs a dense engine.
+    with pytest.raises(NotImplementedError, match="A12"):
+        TPL.decode_file(fasta, tp, compat=False, state_path_out=str(tmp_path / "p.npy"),
+                        device="cpu")
+    # A lone record whose first position is masked decodes through the dense
+    # engine (the pad-first demotion) instead of raising.
     p = tmp_path / "padfirst.fa"
     p.write_text(">r\nNNACGTACGTACGT\n")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TPL.decode_file(str(p), tp, compat=False, invalid_symbols="mask", device="cpu")
+    res = TPL.decode_file(str(p), tp, compat=False, invalid_symbols="mask", device="cpu")
+    assert res.n_symbols == 14

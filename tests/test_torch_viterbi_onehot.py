@@ -267,12 +267,15 @@ def test_engine_resolution(rng):
     dense = params_from_numpy(*(np.log(rng.dirichlet(np.ones(4), size=n)).astype(np.float32)
                                 for n in (1, 4, 4)))
     dense = params_from_numpy(dense.log_pi[0], dense.log_A, dense.log_B)
-    for eng in ("auto", "xla", "pallas"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            TD.resolve_engine(eng, dense)
+    # The dense engines: 'auto' takes the dense kernels for K <= 8.
+    for eng, want in (("auto", "pallas"), ("xla", "xla"), ("pallas", "pallas")):
+        assert TD.resolve_engine(eng, dense) == want
     with pytest.raises(ValueError):
         TD.resolve_engine("onehot", dense)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TD.viterbi_sharded(tp, np.array([4, 0, 1, 2], np.uint8))  # PAD first
+    # PAD first: the reduced engine hands the record to the dense kernels.
+    obs = np.array([4, 0, 1, 2, 2, 1], np.uint8)
+    assert TD._engine_for_record("onehot", obs, tp) == "pallas"
+    path = TD.viterbi_sharded(tp, obs)
+    assert np.array_equal(path, TD.viterbi_sharded(tp, obs, engine="xla"))
     assert TD._prev_real_symbol(np.array([2, 4, 4, 1, 4], np.uint8), 3, 4) == 2
     assert TD._prev_real_symbol(np.array([4, 4], np.uint8), 1, 4) == 0
