@@ -66,7 +66,30 @@ JSON line each:
    the plain versions on the card give the kernels' path at K=8 and K=2,
    and a small N-led FASTA gives identical island files on the CPU and on
    the card for both dense decodes; then profiles of one dense decode of
-   the big record at K=8 and at K=2.
+   the big record at K=8 and at K=2;
+13. dense FB kernels: B16, B18 and B20 at NL=1024 x Tp=65,536 (ragged, as
+   B4/B5) and B17, B16 and B19 at NL=8192 x lane_T=8192 (a 64 Mi span,
+   PAD tail), for K=8 (the flagship's tables) and K=2 (two_state) —
+   B16-B19 bit-equal to their plain versions, B20 within rtol 1e-5 / atol
+   1e-3 — with median time, bound and plain-version time;
+14. dense train: ``pipeline.train_file`` with two_state, compat then clean,
+   5 iterations each (B16, B18 and B20 exactly 5 per mode, B4 and B5
+   never; EM Msym/s, per-phase seconds, logliks non-decreasing), then the
+   flagship through ``engine="pallas"``, clean, whose loglik trajectory
+   must match phase 4's reduced one within rtol 1e-5;
+15. dense posterior: ``pipeline.posterior_file`` with two_state and
+   ``island_states=(0,)``, islands and confidence, at the default span
+   (B17 exactly once) and a 16 Mi span (exactly 8), B16 and B18 in both,
+   identical island files and confidence within atol 1e-4; then a
+   confidence-only run (B19 > 0, B18 never, the path run's confidence
+   within 1e-6);
+16. dense parity: two_state on the first 4 Mi symbols through the dense
+   kernels and through their plain versions on the card (posterior with
+   and without the path bit for bit; a 3-iteration fit within rtol 1e-5 /
+   atol 1e-5), a small FASTA soft-decoded and trained on the CPU and on
+   the card (identical island files, confidence and model dumps within
+   1e-5), and profiles of one dense EM iteration and one dense posterior
+   of the big record.
 
 Then the kernel table as one JSON object and, last, the ok line.  Exits
 non-zero on any failure, or when CUDA is not available.
@@ -92,6 +115,7 @@ from cpgisland_tpu_torch.models import presets
 from cpgisland_tpu_torch.models.hmm import load_text
 from cpgisland_tpu_torch.ops import _kernels, fb_chunked, fb_seq
 from cpgisland_tpu_torch.ops import fb_onehot as FB
+from cpgisland_tpu_torch.ops import fb_pallas as FP
 from cpgisland_tpu_torch.ops import viterbi_onehot as OH
 from cpgisland_tpu_torch.ops import viterbi_pallas as VP
 from cpgisland_tpu_torch.ops.islands_device import call_islands_device
@@ -133,11 +157,19 @@ KERNELS = {
                            "cpgisland_tpu_torch/csrc/viterbi_dense.cu"),
     "dense_backtrace": ("cpgisland_tpu/ops/viterbi_pallas.py:213",
                         "cpgisland_tpu_torch/csrc/viterbi_dense.cu"),
+    "fb_fwd": ("cpgisland_tpu/ops/fb_pallas.py:201", "cpgisland_tpu_torch/csrc/fb_dense.cu"),
+    "fb_prod": ("cpgisland_tpu/ops/fb_pallas.py:241", "cpgisland_tpu_torch/csrc/fb_dense.cu"),
+    "fb_bwd": ("cpgisland_tpu/ops/fb_pallas.py:303", "cpgisland_tpu_torch/csrc/fb_dense.cu"),
+    "fb_bwd_conf": ("cpgisland_tpu/ops/fb_pallas.py:366",
+                    "cpgisland_tpu_torch/csrc/fb_dense.cu"),
+    "fb_stats": ("cpgisland_tpu/ops/fb_pallas.py:535", "cpgisland_tpu_torch/csrc/fb_dense.cu"),
 }
 DECODE_KERNELS = ("oh_products", "oh_backpointers", "oh_backtrace")
 DENSE_KERNELS = ("dense_products", "dense_backpointers", "dense_backtrace")
 TRAIN_KERNELS = ("oh_fwdbwd", "oh_seq_stats")
 POSTERIOR_KERNELS = ("oh_prod", "oh_fwdbwd")
+DENSE_TRAIN_KERNELS = ("fb_fwd", "fb_bwd", "fb_stats")
+DENSE_FB_KERNELS = ("fb_fwd", "fb_prod", "fb_bwd", "fb_bwd_conf", "fb_stats")
 ISLAND_STATES = (0, 1, 2, 3)
 # (label, span, B7 launches): the big record in one pass (the scaffolds
 # batch, without B7), then in 4 spans (4 transfer totals, 4 posteriors).
@@ -244,12 +276,26 @@ def kernel_phase(rng: np.random.Generator, params, dev) -> dict:
     return results
 
 
+def timed_once(fn):
+    """(result, device ms) of one call of ``fn``: for the plain versions,
+    whose one call both times them and gives the reference output."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
 def kernel_row(name, agree, err, kernel_fn, plain_fn, n_bytes, n_ops, steps, plain_runs,
-               **extra) -> dict:
-    """Time a kernel (median of 10) and its plain version, add the bound,
-    print the row and return it."""
+               plain_ms=None, **extra) -> dict:
+    """Time a kernel (median of 10) and its plain version (unless its
+    ``plain_ms`` is given), add the bound, print the row and return it."""
     ms = time_ms(kernel_fn, runs=10)
-    plain_ms = time_ms(plain_fn, runs=plain_runs, warmup=0)
+    if plain_ms is None:
+        plain_ms = time_ms(plain_fn, runs=plain_runs, warmup=0)
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / F32_OPS_PER_S * 1e3
     replaces, source = KERNELS[name]
@@ -264,18 +310,25 @@ def kernel_row(name, agree, err, kernel_fn, plain_fn, n_bytes, n_ops, steps, pla
     return row
 
 
-def fb_kernel_phase(rng: np.random.Generator, params, dev) -> dict:
-    """B4 and B5 at the training path's shapes: NL chunks of Tp = 65,536
-    steps, ragged lengths (a short last lane, PAD tails), the flagship
-    model's tables; B5 with the chunked caller's zero enters and pair0
-    mask."""
-    K, S = params.n_states, params.n_symbols
+def ragged_chunks(rng: np.random.Generator, S: int):
+    """FB_NL chunks of FB_TP symbols, a quarter of them cut short and the
+    last one to a fifth, PAD past each length."""
     chunks = rng.integers(0, S, size=(FB_NL, FB_TP)).astype(np.uint8)
     lengths = np.full(FB_NL, FB_TP, np.int32)
     lengths[-1] = FB_TP // 5
     ragged = rng.random(FB_NL) < 0.25
     lengths[:-1][ragged[:-1]] = rng.integers(1, FB_TP, size=int(ragged[:-1].sum()))
     chunks[np.arange(FB_TP)[None, :] >= lengths[:, None]] = S
+    return chunks, lengths
+
+
+def fb_kernel_phase(rng: np.random.Generator, params, dev) -> dict:
+    """B4 and B5 at the training path's shapes: NL chunks of Tp = 65,536
+    steps, ragged lengths (a short last lane, PAD tails), the flagship
+    model's tables; B5 with the chunked caller's zero enters and pair0
+    mask."""
+    K, S = params.n_states, params.n_symbols
+    chunks, lengths = ragged_chunks(rng, S)
     prep = prepare_chunked(S, torch.from_numpy(chunks).to(dev),
                            torch.from_numpy(lengths).to(dev), t_tile=fb_chunked.DEFAULT_T_TILE)
     gt = OH._groups(params)
@@ -474,11 +527,16 @@ def main_path_phase(rng: np.random.Generator, params, tmp: str, dev):
 # Phase 4: the training main path on the same FASTA
 
 
-def train_phase(params, fa: str, dev) -> dict:
-    """train_file compat then clean, TRAIN_ITERS iterations each with
-    convergence 0 (fixed work); B4 and B5 must launch once per iteration."""
-    launches = {k: 0 for k in TRAIN_KERNELS}
-    for label, compat in (("compat", True), ("clean", False)):
+def train_phase(params, fa: str, dev, kernels=TRAIN_KERNELS, absent=DENSE_TRAIN_KERNELS,
+                engine: str = "auto", modes=(("compat", True), ("clean", False)),
+                model: str = "durbin8"):
+    """train_file in each mode, TRAIN_ITERS iterations with convergence 0
+    (fixed work): each of ``kernels`` must launch once per iteration and
+    none of ``absent``.  Returns (launches over the modes, logliks by
+    mode)."""
+    launches = {k: 0 for k in kernels}
+    logliks = {}
+    for label, compat in modes:
         symbols = chunking.frame(
             codec.encode_file(fa, skip_headers=not compat), chunking.TRAIN_CHUNK,
             drop_remainder=compat,
@@ -486,9 +544,9 @@ def train_phase(params, fa: str, dev) -> dict:
         _kernels.reset_launches()
         t0 = time.perf_counter()
         res = pipeline.train_file(fa, params=params, num_iters=TRAIN_ITERS, convergence=0.0,
-                                  compat=compat, device=dev)
+                                  compat=compat, engine=engine, device=dev)
         wall = time.perf_counter() - t0
-        counts = {k: _kernels.launches[k] for k in TRAIN_KERNELS}
+        counts = {k: _kernels.launches[k] for k in kernels + absent}
         ll = res.logliks
         # EM never lowers the loglik; allow f32 rounding of a ~1e8 sum.
         monotone = all(b >= a - 1e-6 * abs(a) for a, b in zip(ll, ll[1:]))
@@ -496,21 +554,25 @@ def train_phase(params, fa: str, dev) -> dict:
             res.params.log_pi, res.params.log_A, res.params.log_B))
         em_s = res.phases["em"]
         emit({
-            "phase": "train", "mode": label, "symbols": symbols, "lanes": -(-symbols // chunking.TRAIN_CHUNK),
+            "phase": "train", "model": model, "engine": engine, "mode": label,
+            "symbols": symbols, "lanes": -(-symbols // chunking.TRAIN_CHUNK),
             "iterations": res.iterations, "wall_s": wall, "phases_s": res.phases,
             "em_msym_per_s": symbols * res.iterations / em_s / 1e6,
             "estep_ms_per_iter": res.phases["estep"] / res.iterations * 1e3,
             "mstep_ms_per_iter": res.phases["mstep"] / res.iterations * 1e3,
             "logliks": ll, "deltas": res.deltas, "launches": counts,
         })
-        if res.iterations != TRAIN_ITERS or any(n != TRAIN_ITERS for n in counts.values()):
-            raise SystemExit(f"chip_smoke: {label} training launched {counts} in "
-                             f"{res.iterations} iterations, not {TRAIN_ITERS} each")
+        if (res.iterations != TRAIN_ITERS or any(counts[k] != TRAIN_ITERS for k in kernels)
+                or any(counts[k] for k in absent)):
+            raise SystemExit(f"chip_smoke: {model} {label} training launched {counts} in "
+                             f"{res.iterations} iterations; want {TRAIN_ITERS} of each of "
+                             f"{kernels} and none of {absent}")
         if not (monotone and finite):
-            raise SystemExit(f"chip_smoke: {label} training is not monotone or not finite")
-        for k in TRAIN_KERNELS:
+            raise SystemExit(f"chip_smoke: {model} {label} training is not monotone or not finite")
+        for k in kernels:
             launches[k] += counts[k]
-    return launches
+        logliks[label] = ll
+    return launches, logliks
 
 
 # ---------------------------------------------------------------------------
@@ -627,41 +689,48 @@ def run_phase(fa: str, tmp: str, dev) -> dict:
 # Phase 7: the posterior main path, and its parity
 
 
-def posterior_phase(params, fa: str, tmp: str, dev) -> dict:
-    """posterior_file at the default span and at a 16 Mi span; returns the
+def posterior_phase(params, fa: str, tmp: str, dev, prod="oh_prod", chains=("oh_fwdbwd",),
+                    absent=DENSE_FB_KERNELS, island_states=None, model="durbin8") -> dict:
+    """posterior_file at the default span and at a 16 Mi span: the products
+    kernel ``prod`` launches once per span pass and per transfer total,
+    each of ``chains`` at least once, none of ``absent``.  Returns the
     launch counts of both runs together."""
-    runs, launches = {}, {k: 0 for k in POSTERIOR_KERNELS}
-    for label, span, want_b7 in POSTERIOR_RUNS:
-        isl, conf = (os.path.join(tmp, f"posterior.{label}.{x}") for x in ("txt", "npy"))
+    runs, launches = {}, {k: 0 for k in (prod,) + chains}
+    for label, span, want_prod in POSTERIOR_RUNS:
+        isl, conf = (os.path.join(tmp, f"posterior.{model}.{label}.{x}") for x in ("txt", "npy"))
         _kernels.reset_launches()
         t0 = time.perf_counter()
         res = pipeline.posterior_file(fa, params, islands_out=isl, confidence_out=conf,
-                                      span=span, device=dev)
+                                      span=span, island_states=island_states, device=dev)
         wall = time.perf_counter() - t0
-        counts = {k: _kernels.launches[k] for k in POSTERIOR_KERNELS}
-        check_calls(res, f"posterior {label}")
+        counts = {k: _kernels.launches[k] for k in (prod,) + chains + tuple(absent)}
+        check_calls(res, f"posterior {model} {label}")
         emit({
-            "phase": "posterior", "span": span, "symbols": res.n_symbols,
+            "phase": "posterior", "model": model, "span": span, "symbols": res.n_symbols,
             "records": res.n_records, "islands": len(res.calls),
             "mean_island_confidence": res.mean_island_confidence, "wall_s": wall,
             "phases_s": res.phases, "msym_per_s": res.n_symbols / wall / 1e6,
             "posterior_msym_per_s": res.n_symbols / res.phases["posterior"] / 1e6,
             "launches": counts,
         })
-        if counts["oh_prod"] != want_b7 or counts["oh_fwdbwd"] == 0:
-            raise SystemExit(f"chip_smoke: posterior ({label}) launched {counts}; B7 must "
-                             f"launch {want_b7} times and B4 at least once")
-        for k in POSTERIOR_KERNELS:
+        if (counts[prod] != want_prod or any(counts[k] == 0 for k in chains)
+                or any(counts[k] for k in absent)):
+            raise SystemExit(f"chip_smoke: {model} posterior ({label}) launched {counts}; "
+                             f"{prod} must launch {want_prod} times, each of {chains} at "
+                             f"least once, none of {absent}")
+        for k in launches:
             launches[k] += counts[k]
         with open(isl) as f:
             runs[label] = (f.read(), np.load(conf), res.mean_island_confidence)
     (isl_a, conf_a, mean_a), (isl_b, conf_b, mean_b) = runs.values()
     same = isl_a == isl_b
     err = float(np.abs(conf_a.astype(np.float64) - conf_b).max())
-    emit({"phase": "posterior_spans", "islands_identical": same, "max_conf_err": err,
+    emit({"phase": "posterior_spans", "model": model, "islands_identical": same,
+          "max_conf_err": err,
           "mean_conf_diff": abs(mean_a - mean_b)})
     if not (same and err <= 1e-4 and abs(mean_a - mean_b) <= 1e-6):
-        raise SystemExit("chip_smoke: the span-threaded posterior differs from the one-pass")
+        raise SystemExit(f"chip_smoke: the {model} span-threaded posterior differs from the "
+                         "one-pass")
     return launches
 
 
@@ -757,8 +826,13 @@ def profile_phase(params, big: np.ndarray, fa: str, dev) -> None:
     profiled(f"call_islands_device, {big.size} symbols", lambda: call_islands_device(path))
     del path
 
-    # One EM iteration of the compat training batch, as fit runs it: the
-    # E-step, the M-step and the one fetch of delta and loglik.
+    profile_em(params, fa, dev, "durbin8")
+    profile_posterior(params, big, ISLAND_STATES, "durbin8")
+
+
+def profile_em(params, fa: str, dev, model: str) -> None:
+    """One EM iteration of the compat training batch, as fit runs it: the
+    E-step, the M-step and the one fetch of delta and loglik."""
     chunked = chunking.frame(codec.encode_file(fa), chunking.TRAIN_CHUNK,
                              drop_remainder=True)
     backend = LocalBackend()
@@ -771,13 +845,16 @@ def profile_phase(params, big: np.ndarray, fa: str, dev) -> None:
         return torch.stack([delta, stats.loglik]).tolist()
 
     em_iteration()
-    profiled(f"one EM iteration, {chunked.num_chunks} chunks of {chunking.TRAIN_CHUNK}",
-             em_iteration)
+    profiled(f"one EM iteration {model} ({backend.resolved}), {chunked.num_chunks} chunks of "
+             f"{chunking.TRAIN_CHUNK}", em_iteration)
 
-    # One posterior of the big record (one span), MPM path included, to host.
-    posterior_sharded(params, big[: 1 << 20], ISLAND_STATES, want_path=True)
-    profiled(f"posterior_sharded, {big.size} symbols",
-             lambda: posterior_sharded(params, big, ISLAND_STATES, want_path=True))
+
+def profile_posterior(params, big: np.ndarray, island_states, model: str) -> None:
+    """One posterior of the big record (one span), MPM path included, to
+    the host."""
+    posterior_sharded(params, big[: 1 << 20], island_states, want_path=True)
+    profiled(f"posterior_sharded {model}, {big.size} symbols",
+             lambda: posterior_sharded(params, big, island_states, want_path=True))
 
 
 # ---------------------------------------------------------------------------
@@ -949,6 +1026,257 @@ def dense_profile_phase(big: np.ndarray, dev) -> None:
                  lambda: viterbi_sharded(params, obs, engine="pallas"))
 
 
+# ---------------------------------------------------------------------------
+# Phases 13-16: the dense forward-backward kernels (B16-B20) and the dense
+# train and posterior paths
+
+
+def _agree_row(name, got, want, kernel_fn, plain_ms, n_bytes, n_ops, steps, K, tol=None,
+               **extra) -> dict:
+    """Hold a dense FB kernel's outputs against its plain version's (bit
+    for bit, or within ``tol`` = (rtol, atol)), time it and print its row;
+    raise on a disagreement."""
+    if tol is None:
+        agree = all(torch.equal(g, w) for g, w in zip(got, want))
+        extra["bit_equal"] = agree
+    else:
+        agree = all(torch.allclose(g, w, rtol=tol[0], atol=tol[1]) for g, w in zip(got, want))
+        extra["tolerance"] = f"rtol {tol[0]:g}, atol {tol[1]:g}"
+    err = max(max_abs_err(g, w) for g, w in zip(got, want))
+    row = kernel_row(name, agree, err, kernel_fn, None, n_bytes, n_ops, steps, plain_runs=1,
+                     plain_ms=plain_ms, K=K, **extra)
+    if not agree:
+        raise SystemExit(f"chip_smoke: {name} (K={K}, {extra.get('geometry')}) disagrees with "
+                         "its plain version")
+    return row
+
+
+def dense_fb_kernel_phase(rng: np.random.Generator, dev) -> dict:
+    """B16, B18 and B20 at the training geometry (FB_NL ragged chunks of
+    FB_TP steps) and B17, B16 and B19 at the posterior's (one 64 Mi span
+    as POST_NL lanes of POST_LANE_T steps, a PAD tail), for K = 8 (the
+    flagship's tables) and K = 2 (two_state).  B16-B19 bit-equal to their
+    plain versions, B20 within rtol 1e-5 / atol 1e-3.  Returns the rows
+    for the table by kernel name: K = 8, B17 and B19 at the posterior
+    geometry, the others at the training one."""
+    results = {}
+    for K, params in dense_models(dev).items():
+        S = params.n_symbols
+        A, B, _ = FP.tables(params)
+        tab_b = (A.numel() + B.numel()) * 4
+        keep = {}
+
+        chunks, lengths = ragged_chunks(rng, S)
+        prep = prepare_chunked(S, torch.from_numpy(chunks).to(dev),
+                               torch.from_numpy(lengths).to(dev),
+                               t_tile=fb_chunked.DEFAULT_T_TILE, onehot=False)
+        _, a0, beta0, _ = fb_chunked._batch_lane_setup(params, prep)
+        Tp, NL = prep.steps2.shape
+        n, valid = Tp * NL, int(np.minimum(lengths, Tp).sum())
+        geo = {"geometry": "train", "valid_steps": valid}
+        args = (prep.steps2, prep.lens2, a0, A, B)
+        al = FP.fb_fwd(*args)
+        al_p, plain_ms = timed_once(lambda: FP.fb_fwd_plain(*args))
+        keep["fb_fwd"] = _agree_row(
+            "fb_fwd", [al], [al_p], lambda: FP.fb_fwd(*args), plain_ms,
+            # steps read, alphas written; K^2 products, K(K-1) sums, 2K scalings,
+            # the row sum and its reciprocal a valid step
+            4 * n + 4 * K * n + 4 * NL + 4 * K * NL + tab_b, (2 * K * K + 2 * K) * valid, n,
+            K, **geo)
+        del al_p
+        _, steps_next, cs_next = FP.backward_inputs(prep.steps2, al)
+        args = (steps_next, prep.lens2, cs_next, beta0, A, B, FB_TP)
+        be = FP.fb_bwd(*args)
+        be_p, plain_ms = timed_once(lambda: FP.fb_bwd_plain(*args))
+        keep["fb_bwd"] = _agree_row(
+            "fb_bwd", [be], [be_p], lambda: FP.fb_bwd(*args), plain_ms,
+            # o_{t+1} and c_{t+1} read, betas written
+            8 * n + 4 * K * n + 4 * NL + 4 * K * NL + tab_b, (2 * K * K + K + 1) * valid, n,
+            K, **geo)
+        del be_p
+        args = (al, be, prep.steps2, prep.lens2, B)
+        got = FP.fb_stats(*args, prep.Tt)
+        want, plain_ms = timed_once(lambda: FP.fb_stats_plain(*args))
+        keep["fb_stats"] = _agree_row(
+            "fb_stats", list(got), list(want), lambda: FP.fb_stats(*args, prep.Tt), plain_ms,
+            # alphas, betas and the symbol read at the valid steps, the counts written
+            (8 * K + 4) * valid + 4 * NL + 4 * B.numel() + 4 * (K * K + K * S + 1) * NL,
+            (2 * K * K + 7 * K + 3) * valid, valid, K, tol=(1e-5, 1e-3), **geo)
+        del al, be, got, want, prep, steps_next, cs_next
+
+        T = POST_NL * POST_LANE_T
+        obs = torch.from_numpy(rng.integers(0, S, size=T).astype(np.uint8)).to(dev)
+        prep = prepare_seq(S, obs, T - POST_LANE_T // 3, lane_T=POST_LANE_T, onehot=False)
+        Tp, NL = prep.steps2.shape
+        assert (Tp, NL) == (POST_LANE_T, POST_NL)
+        n, real = Tp * NL, int((prep.sel2 < S).sum())
+        geo = {"geometry": "posterior span", "valid_steps": real}
+        tab = FP.step_table(A, B)
+        P = FP.fb_prod(prep.sel2, tab)
+        P_p, plain_ms = timed_once(lambda: FP.fb_prod_plain(prep.sel2, tab))
+        keep["fb_prod"] = _agree_row(
+            "fb_prod", [P], [P_p], lambda: FP.fb_prod(prep.sel2, tab), plain_ms,
+            # the step stream read, the K x K products written; K^2 (2K - 1) a
+            # real step, and a renormalization every 8 steps
+            4 * n + 4 * tab.numel() + 4 * K * K * NL,
+            K * K * (2 * K - 1) * real + 2 * K * K * (n // 8), n, K, **geo)
+        lens2 = prep.lane_lens[None, :].contiguous()
+        rand = lambda: torch.from_numpy(  # noqa: E731
+            rng.random((K, NL)).astype(np.float32) + 0.01).to(dev)
+        args = (prep.steps2, lens2, rand(), A, B)
+        al = FP.fb_fwd(*args)
+        al_p, plain_ms = timed_once(lambda: FP.fb_fwd_plain(*args))
+        _agree_row("fb_fwd", [al], [al_p], lambda: FP.fb_fwd(*args), plain_ms,
+                   4 * n + 4 * K * n + 4 * NL + 4 * K * NL + tab_b,
+                   (2 * K * K + 2 * K) * real, n, K, **geo)
+        del al_p
+        _, steps_next, cs_next = FP.backward_inputs(prep.steps2, al)
+        mask = torch.tensor([1.0] * (K // 2) + [0.0] * (K - K // 2), device=dev)
+        args = (steps_next, lens2, cs_next, rand(), al, mask, A, B, POST_LANE_T)
+        conf = FP.fb_bwd_conf(*args)
+        conf_p, plain_ms = timed_once(lambda: FP.fb_bwd_conf_plain(*args))
+        keep["fb_bwd_conf"] = _agree_row(
+            "fb_bwd_conf", [conf], [conf_p], lambda: FP.fb_bwd_conf(*args), plain_ms,
+            # o_{t+1}, c_{t+1} and the alphas read, the confidence written
+            8 * n + 4 * K * n + 4 * n + 4 * NL + 4 * K * NL + tab_b,
+            (2 * K * K + 5 * K + 2) * real, n, K, **geo)
+        del al, conf, conf_p, P, P_p, prep, obs
+        if K == 8:
+            results = keep
+    return results
+
+
+def dense_train_phase(params, fa: str, dev, onehot_logliks: dict) -> dict:
+    """two_state training, compat then clean (B16, B18 and B20 once per EM
+    iteration, B4 and B5 never); then the flagship through the dense
+    engine, clean, whose loglik trajectory must match the reduced
+    engine's (``onehot_logliks``, phase 4) within rtol 1e-5.  Returns the
+    two_state runs' launch counts."""
+    launches, _ = train_phase(presets.two_state_cpg(device=dev), fa, dev, DENSE_TRAIN_KERNELS,
+                              TRAIN_KERNELS, model="two_state")
+    _, ll = train_phase(params, fa, dev, DENSE_TRAIN_KERNELS, TRAIN_KERNELS, engine="pallas",
+                        modes=(("clean", False),))
+    a, b = np.asarray(ll["clean"]), np.asarray(onehot_logliks["clean"])
+    emit({"phase": "train_engines", "model": "durbin8", "mode": "clean",
+          "logliks_pallas": ll["clean"], "logliks_onehot": onehot_logliks["clean"],
+          "max_rel_diff": float(np.max(np.abs(a - b) / np.abs(b)))})
+    if not np.allclose(a, b, rtol=1e-5, atol=0):
+        raise SystemExit("chip_smoke: the flagship trains differently through the dense engine")
+    return launches
+
+
+def dense_posterior_phase(fa: str, tmp: str, dev) -> dict:
+    """two_state posterior with island_states=(0,) at the default span
+    (B17 once, for the big record) and at a 16 Mi span (B17 8 times), B16
+    and B18 in both; then a confidence-only run at the default span
+    (B19, never B18) whose confidence must equal the path run's within
+    1e-6.  Returns the launch counts of the three runs."""
+    two = presets.two_state_cpg(device=dev)
+    launches = posterior_phase(two, fa, tmp, dev, prod="fb_prod", chains=("fb_fwd", "fb_bwd"),
+                               absent=POSTERIOR_KERNELS + ("fb_bwd_conf",),
+                               island_states=(0,), model="two_state")
+    conf = os.path.join(tmp, "posterior.two_state.conf_only.npy")
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = pipeline.posterior_file(fa, two, confidence_out=conf, island_states=(0,), device=dev)
+    wall = time.perf_counter() - t0
+    counts = {k: _kernels.launches[k] for k in DENSE_FB_KERNELS}
+    err = float(np.abs(np.load(conf).astype(np.float64)
+                       - np.load(os.path.join(tmp, "posterior.two_state.default.npy"))).max())
+    emit({"phase": "posterior", "model": "two_state", "output": "confidence only",
+          "symbols": res.n_symbols, "wall_s": wall, "phases_s": res.phases,
+          "msym_per_s": res.n_symbols / wall / 1e6,
+          "posterior_msym_per_s": res.n_symbols / res.phases["posterior"] / 1e6,
+          "launches": counts, "max_conf_err_vs_path_run": err})
+    if counts["fb_bwd_conf"] == 0 or counts["fb_bwd"] or counts["fb_prod"] != 1 or err > 1e-6:
+        raise SystemExit(f"chip_smoke: the confidence-only posterior launched {counts} "
+                         f"(max confidence error {err} vs the path run)")
+    for k in ("fb_bwd_conf", "fb_fwd", "fb_prod"):
+        launches[k] = launches.get(k, 0) + counts[k]
+    return launches
+
+
+def _swap_plain(use_plain: bool, fn):
+    """``fn()`` with the dense FB kernel wrappers replaced by their plain
+    versions (on the card) when ``use_plain``."""
+    kernels = {k: getattr(FP, k) for k in DENSE_FB_KERNELS}
+    if use_plain:
+        FP.fb_fwd, FP.fb_bwd, FP.fb_prod = FP.fb_fwd_plain, FP.fb_bwd_plain, FP.fb_prod_plain
+        FP.fb_bwd_conf = FP.fb_bwd_conf_plain
+        FP.fb_stats = lambda *args: FP.fb_stats_plain(*args[:-1])  # drops Tt
+    try:
+        return fn()
+    finally:
+        for k, f in kernels.items():
+            setattr(FP, k, f)
+
+
+def dense_fb_parity_phase(rng: np.random.Generator, big: np.ndarray, tmp: str, dev) -> None:
+    """two_state on the first 4 Mi symbols of the big record through the
+    dense kernels and through their plain versions on the card: the
+    posterior (with and without the path) bit for bit, and a 3-iteration
+    fit within rtol 1e-5 / atol 1e-5; then a small FASTA soft-decoded and
+    trained on the CPU and on the card."""
+    two = presets.two_state_cpg(device=dev)
+    obs = torch.from_numpy(big[:PARITY_SYMBOLS]).to(dev)
+    mask = np.array([1.0, 0.0], np.float32)
+    for want_path in (True, False):
+        def post():
+            return fb_seq.seq_posterior(two, obs, obs.shape[0], mask, want_path=want_path,
+                                        engine="pallas")
+
+        conf_k, path_k = _swap_plain(False, post)
+        conf_p, path_p = _swap_plain(True, post)
+        torch.cuda.synchronize()
+        same = torch.equal(conf_k, conf_p) and torch.equal(path_k, path_p)
+        emit({"phase": "dense_posterior_parity", "model": "two_state", "want_path": want_path,
+              "symbols": int(obs.shape[0]), "bit_equal": same,
+              "max_conf_err": max_abs_err(conf_k, conf_p),
+              "path_mismatches": int((path_k != path_p).sum())})
+        if not same:
+            raise SystemExit("chip_smoke: the dense kernel posterior differs from the plain one")
+
+    chunked = chunking.frame(big[:PARITY_SYMBOLS], chunking.TRAIN_CHUNK)
+    fits = [_swap_plain(p, lambda: baum_welch.fit(two, chunked, num_iters=3, convergence=0.0))
+            for p in (False, True)]
+    ll_ok = np.allclose(fits[0].logliks, fits[1].logliks, rtol=1e-5, atol=0)
+    p_err = max(float(np.abs(a - b).max())
+                for a, b in zip(probs(fits[0].params), probs(fits[1].params)))
+    emit({"phase": "dense_train_parity", "model": "two_state", "symbols": PARITY_SYMBOLS,
+          "logliks_kernel": fits[0].logliks, "logliks_plain": fits[1].logliks,
+          "max_prob_err": p_err})
+    if not (ll_ok and p_err <= 1e-5):
+        raise SystemExit("chip_smoke: dense EM through the kernels differs from the plain path")
+
+    fa = posterior_fasta(rng, os.path.join(tmp, "dense_posterior_small.fa"))
+    out = {}
+    for where in ("cpu", dev):
+        buf = io.StringIO()
+        conf = os.path.join(tmp, f"dense_posterior_small.{where}.npy")
+        mod = os.path.join(tmp, f"dense_train_small.{where}.txt")
+        pipeline.posterior_file(fa, presets.two_state_cpg(), islands_out=buf, confidence_out=conf,
+                                island_states=(0,), span=1 << 15, device=where)
+        pipeline.train_file(fa, params=presets.two_state_cpg(), compat=False, num_iters=3,
+                            chunk_size=1 << 13, model_out=mod, device=where)
+        out[str(where)] = (buf.getvalue(), np.load(conf), probs(load_text(mod)))
+    (isl_c, conf_c, p_c), (isl_g, conf_g, p_g) = out["cpu"], out[str(dev)]
+    c_err = float(np.abs(conf_c.astype(np.float64) - conf_g).max())
+    d_err = max(float(np.abs(a - b).max()) for a, b in zip(p_c, p_g))
+    zeros_same = all(np.array_equal(a == 0, b == 0) for a, b in zip(p_c, p_g))
+    emit({"phase": "dense_cpu_vs_cuda", "mode": "two_state posterior and train",
+          "islands_identical": isl_c == isl_g, "lines": isl_g.count("\n"), "max_conf_err": c_err,
+          "max_dump_err": d_err, "structural_zeros_same": zeros_same})
+    if not (isl_c == isl_g and isl_g and c_err <= 1e-5 and d_err <= 1e-5 and zeros_same):
+        raise SystemExit("chip_smoke: the two_state posterior or training differs between the "
+                         "CPU and the card")
+
+
+def dense_fb_profile_phase(big: np.ndarray, fa: str, dev) -> None:
+    two = presets.two_state_cpg(device=dev)
+    profile_em(two, fa, dev, "two_state")
+    profile_posterior(two, big, (0,), "two_state")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -973,21 +1301,29 @@ def main(argv=None) -> int:
     results |= fb_kernel_phase(rng, params, dev)
     results |= post_kernel_phase(rng, params, dev)
     results |= dense_kernel_phase(rng, dev)
+    results |= dense_fb_kernel_phase(rng, dev)
     with tempfile.TemporaryDirectory() as tmp:
         fa, big, launches = main_path_phase(rng, params, tmp, dev)
         launches |= dense_main_phase(fa, tmp, dev)
         island_engine_phase(fa, tmp, dev)
         dense_parity_phase(rng, big, tmp, dev)
-        launches |= train_phase(params, fa, dev)
+        train_launches, onehot_logliks = train_phase(params, fa, dev)
+        launches |= train_launches
         parity_phase(rng, params, big, tmp, dev)
         run_phase(fa, tmp, dev)
         # Launches on the main paths: each kernel's count over the decode,
-        # train and posterior runs.
+        # train and posterior runs (the dense FB kernels: two_state's).
         for k, n in posterior_phase(params, fa, tmp, dev).items():
             launches[k] = launches.get(k, 0) + n
         posterior_parity_phase(rng, params, big, tmp, dev)
         profile_phase(params, big, fa, dev)
         dense_profile_phase(big, dev)
+        dense_launches = dense_train_phase(params, fa, dev, onehot_logliks)
+        for k, n in dense_posterior_phase(fa, tmp, dev).items():
+            dense_launches[k] = dense_launches.get(k, 0) + n
+        launches |= dense_launches
+        dense_fb_parity_phase(rng, big, tmp, dev)
+        dense_fb_profile_phase(big, fa, dev)
 
     table = []
     for name, r in results.items():

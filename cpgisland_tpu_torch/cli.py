@@ -13,7 +13,8 @@ Two forms, as ``python -m cpgisland_tpu``:
 2. Subcommands:
 
        python -m cpgisland_tpu_torch train FILE --model-out m.txt [--iters N] \\
-           [--convergence E] [--init-model m0.txt] [--clean] [--invalid-symbols P]
+           [--convergence E] [--init-model m0.txt | --preset durbin8|two_state] \\
+           [--engine auto|xla|pallas|onehot] [--clean] [--invalid-symbols P]
        python -m cpgisland_tpu_torch decode FILE --islands-out i.txt \\
            [--model m.txt | --preset durbin8|two_state] [--clean [--min-len N]] \\
            [--island-states 0] [--engine auto|xla|pallas|onehot] \\
@@ -23,7 +24,8 @@ Two forms, as ``python -m cpgisland_tpu``:
            --model-out m.txt [--iters N] [--convergence E] [--clean]
        python -m cpgisland_tpu_torch posterior FILE [--islands-out i.txt] \\
            [--confidence-out c.npy] [--mpm-path-out p.npy] [--min-len N] \\
-           [--island-states 0,1,2,3] [--model m.txt] [--invalid-symbols P]
+           [--island-states 0,1,2,3] [--model m.txt | --preset durbin8|two_state] \\
+           [--engine auto|xla|pallas|onehot] [--invalid-symbols P]
 
 Everything runs on the card unless ``--device cpu`` is given (the kernels'
 plain versions); that flag may stand anywhere in the arguments, the
@@ -103,6 +105,26 @@ def _parse_island_states(parser: argparse.ArgumentParser, text: Optional[str]):
         parser.error(f"--island-states must be comma-separated integers, got {text!r}")
 
 
+def _add_preset_flag(p: argparse.ArgumentParser, what: str) -> None:
+    p.add_argument("--preset", choices=("durbin8", "two_state"), default="durbin8",
+                   help=f"{what} preset (durbin8: the reference's 8-state CpG+- table; "
+                   "two_state: minimal island/background model, needs --island-states 0 "
+                   "to call islands)")
+
+
+def _add_fb_engine_flag(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--engine", choices=("auto", "xla", "pallas", "onehot"), default="auto",
+                   help="forward-backward engine (auto: the reduced one-hot kernels for "
+                   "eligible models, else the dense kernels for K <= 8; xla is not "
+                   "ported yet)")
+
+
+def _preset_params(name: str):
+    from cpgisland_tpu_torch.models import presets
+
+    return presets.two_state_cpg() if name == "two_state" else presets.durbin_cpg8()
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="cpgisland_tpu_torch", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -113,16 +135,16 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--model-out", required=True)
     t.add_argument("--iters", type=int, default=10)
     t.add_argument("--convergence", type=float, default=0.005)
-    t.add_argument("--init-model", help="start from a model text file instead of the Durbin preset")
+    t.add_argument("--init-model", help="start from a model text file instead of the --preset model")
+    _add_preset_flag(t, "initial model")
+    _add_fb_engine_flag(t)
     _add_clean_flag(t)
     _add_invalid_symbols_flag(t)
 
     d = sub.add_parser("decode", help="Viterbi decode + island calling")
     d.add_argument("test_file")
     d.add_argument("--model", help="model text file (default: the --preset model)")
-    d.add_argument("--preset", choices=("durbin8", "two_state"), default="durbin8",
-                   help="model preset (durbin8: the reference's 8-state CpG+- table; "
-                   "two_state: minimal island/background model, needs --island-states 0)")
+    _add_preset_flag(d, "model")
     d.add_argument("--islands-out", required=True)
     _add_clean_flag(d)
     d.add_argument("--min-len", type=int, default=None, help="clean mode only")
@@ -155,8 +177,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     po.add_argument("test_file")
     po.add_argument("--model", help="model text file (default: the --preset model)")
-    po.add_argument("--preset", choices=("durbin8",), default="durbin8",
-                    help="model preset (durbin8: the reference's 8-state CpG+- table)")
+    _add_preset_flag(po, "model")
     po.add_argument("--confidence-out", help=".npy of float32 P(in island) per symbol")
     po.add_argument("--mpm-path-out",
                     help=".npy of the int8 max-posterior-marginal state path")
@@ -165,8 +186,7 @@ def build_parser() -> argparse.ArgumentParser:
     po.add_argument("--min-len", type=int, default=None,
                     help="minimum island length for --islands-out")
     _add_island_states_flag(po)
-    po.add_argument("--engine", choices=("auto", "onehot"), default="auto",
-                    help="forward-backward engine (auto: the reduced one-hot kernels)")
+    _add_fb_engine_flag(po)
     _add_invalid_symbols_flag(po)
     return ap
 
@@ -174,7 +194,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: Optional[Sequence[str]] = None) -> int:
     device, argv = _take_device(list(sys.argv[1:] if argv is None else argv))
     from cpgisland_tpu_torch import pipeline
-    from cpgisland_tpu_torch.models import presets
     from cpgisland_tpu_torch.models.hmm import load_text
 
     # The reference's six-positional form.
@@ -193,11 +212,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         parser.error("--invalid-symbols mask|fail requires --clean")
 
     if args.cmd == "train":
-        params = load_text(args.init_model) if args.init_model else presets.durbin_cpg8()
+        params = load_text(args.init_model) if args.init_model else _preset_params(args.preset)
         res = pipeline.train_file(
             args.training_file, params=params, num_iters=args.iters,
             convergence=args.convergence, compat=compat, model_out=args.model_out,
-            invalid_symbols=args.invalid_symbols, device=device,
+            engine=args.engine, invalid_symbols=args.invalid_symbols, device=device,
         )
         final = res.logliks[-1] if res.logliks else float("nan")
         print(f"trained: iters={res.iterations} converged={res.converged} "
@@ -211,7 +230,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             parser.error("nothing to do: pass --confidence-out, --mpm-path-out, "
                          "and/or --islands-out")
         island_states = _parse_island_states(parser, args.island_states)
-        params = load_text(args.model) if args.model else presets.durbin_cpg8()
+        params = load_text(args.model) if args.model else _preset_params(args.preset)
+        err = pipeline.island_layout_error(params, island_states)
+        if err:
+            parser.error(f"--{'model' if args.model else 'preset ' + args.preset}: {err}")
         res = pipeline.posterior_file(
             args.test_file, params, confidence_out=args.confidence_out,
             mpm_path_out=args.mpm_path_out, islands_out=args.islands_out,
@@ -230,10 +252,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         island_states = _parse_island_states(parser, args.island_states)
         if island_states is not None and compat:
             parser.error("--island-states requires --clean")
-        if args.model:
-            params = load_text(args.model)
-        else:
-            params = presets.two_state_cpg() if args.preset == "two_state" else presets.durbin_cpg8()
+        params = load_text(args.model) if args.model else _preset_params(args.preset)
         err = pipeline.island_layout_error(params, island_states)
         if err:
             parser.error(f"--{'model' if args.model else 'preset ' + args.preset}: {err}")

@@ -1,0 +1,558 @@
+// Dense forward-backward: the "pallas" engine's five kernels for Hopper
+// (sm_90a), for any model with K <= 8 states and S <= 16 symbols, with a
+// plain C interface loaded through ctypes (cpgisland_tpu_torch/ops/_kernels.py).
+// Plain versions of the same functions, used on the CPU and as the reference
+// on the card, live in cpgisland_tpu_torch/ops/fb_pallas.py (fb_*_plain).
+//
+// Layout: time-major streams, [Tp, NL] for the symbols, the scale factors and
+// the confidence, [Tp, K, NL] for alphas and betas (lane n of step t, state k
+// at (t * K + k) * NL + n).  Lanes are independent chunks of the training
+// batch or consecutive stretches of one record (the posterior).  The chain
+// kernels run one thread per lane, 32 to a block so the few warps spread over
+// the SMs; neighbouring threads take neighbouring lanes, so every load and
+// store of a warp is one coalesced row.  A, B and the island mask sit in
+// shared memory; the K-state vectors (the K x K product for B17) stay in
+// registers, sized by the template parameter K.  Each chain thread reads its
+// symbol stream (and B18's scale factors) a group of LOOKAHEAD steps ahead
+// of the chain.
+//
+// Bit equality with the plain versions (B16-B19): every product and sum is an
+// explicit round-to-nearest intrinsic (__fmul_rn / __fadd_rn), so nvcc
+// contracts nothing into an FMA, every reciprocal or quotient is __fdiv_rn
+// (IEEE), and every K-term sum runs j = 0, 1, ..., K-1 in sequence, as the
+// plain version spells it.  The operand order is the JAX kernels': the raw
+// forward contraction times B[k, o_t], then times 1 / sum(v_{t-1}); the
+// backward's B[k, o_{t+1}] * (1 / c_{t+1}) first, then times beta_{t+1}.
+//
+// B16 fb_fwd_kernel replaces cpgisland_tpu/ops/fb_pallas.py::_fwd_kernel: the
+// forward with deferred Rabiner scaling, v_t = ((sum_j v_{t-1}[j] A[j, k]) *
+// B[k, o_t]) * (1 / sum v_{t-1}); v_0 = a0; carried where t >= len.  Bound:
+// it reads 4 B and writes 4K B per step (2.4 GB at K = 8, NL = 1024, Tp =
+// 65,536: 0.72 ms at 3.35 TB/s); each lane is a dependent chain of Tp steps
+// and a training batch has only ~1,300 lanes, so it is latency-bound well
+// above that.
+//
+// B17 fb_prod_kernel replaces _prod_kernel: each lane's (+, x) product of its
+// step matrices M_t[m, j] = A[m, j] * B[j, o_t] (the identity for PAD, o_t >=
+// S), renormalized by the product's total after every 8th step counted from
+// the lane's start, as the TPU kernel does, so only directions leave it.  The
+// step matrices come from a [S + 1, K*K] table built by the caller, its rows
+// K*K + 1 floats apart in shared memory (an odd stride: lanes on different
+// symbols hit different banks).  Bound: K^3 multiplies and adds per real
+// step, 0.96 ms of f32 operations at K = 8 and 64 Mi steps; the 64-entry
+// product and its successor live in registers (B13's pressure).
+//
+// B18 fb_bwd_kernel<K, false> replaces _bwd_kernel: beta_t[j] = sum_k A[j, k]
+// * ((B[k, o_{t+1}] * (1 / c_{t+1})) * beta_{t+1}[k]) on the time-shifted
+// streams (steps_next[t] = o_{t+1}, cs_next[t] = c_{t+1}), where t <= T-2
+// (T the chunk length) and t + 1 < len; carried elsewhere.  Bound: it reads
+// 8 B and writes 4K B per step (latency-bound as B16).
+//
+// B19 fb_bwd_kernel<K, true> replaces _bwd_conf_kernel: B18's chain, emitting
+// conf_t = (sum_k g_k * mask_k) * (1 / max(sum_k g_k, 1e-30)), g = alpha_t *
+// beta_t, 0 past len, instead of storing the betas.  Reads 8 + 4K B, writes
+// 4 B per step; the alphas of a group of LOOKAHEAD steps load together at the
+// group's start (a load issued at its step stalls the chain for its latency).
+//
+// B20 fb_stats_part_kernel + fb_stats_reduce_kernel replace _stats_kernel:
+// the per-lane counts macc[j*K + k] = sum_t ahat_{t-1}[j] * B[k, o_t] *
+// beta_t[k] / c_t, emit[s*K + k] = sum_{o_t = s} gamma_t[k] and ll = sum_t
+// log c_t over the valid steps.  No serial chain: ahat_{t-1} is read back
+// from the alphas stream, so each lane's steps split into segments of Tt, one
+// thread per (lane, segment) — enough threads to fill the card — with macc in
+// registers and the emission bins in the thread's own column of shared
+// memory; the second kernel sums each lane's segments in order (no atomics:
+// the result is the same every run).  Bound: it reads 8K + 4 B per valid
+// step (4.3 GB at K = 8 over the training batch: 1.3 ms).  Its sums run in
+// another order than the plain version's, which agrees within a tolerance.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define MAX_K 8
+#define MAX_S 16
+#define CHAIN_THREADS 32
+#define LOOKAHEAD 8
+#define STATS_THREADS 64
+#define REDUCE_THREADS 128
+
+// Sequential K-term sum in round-to-nearest: x[0] + x[1] + ... + x[K-1].
+template <int K>
+__device__ __forceinline__ float seq_sum(const float (&x)[K]) {
+  float s = x[0];
+#pragma unroll
+  for (int k = 1; k < K; ++k) s = __fadd_rn(s, x[k]);
+  return s;
+}
+
+// q[r] = the int at step first + step * r of a lane's stream, 0 outside [0, Tp).
+__device__ __forceinline__ void load_ints(const int32_t* p, size_t stride, int first, int step,
+                                          int Tp, int (&q)[LOOKAHEAD]) {
+#pragma unroll
+  for (int r = 0; r < LOOKAHEAD; ++r) {
+    const int t = first + step * r;
+    q[r] = (t >= 0 && t < Tp) ? __ldg(p + (size_t)t * stride) : 0;
+  }
+}
+
+__device__ __forceinline__ void load_floats(const float* p, size_t stride, int first, int step,
+                                            int Tp, float (&q)[LOOKAHEAD]) {
+#pragma unroll
+  for (int r = 0; r < LOOKAHEAD; ++r) {
+    const int t = first + step * r;
+    q[r] = (t >= 0 && t < Tp) ? __ldg(p + (size_t)t * stride) : 1.0f;
+  }
+}
+
+// A [K, K] and B [K, S] into shared memory (s_A[j*K + k], s_B[k*S + s]).
+template <int K>
+__device__ __forceinline__ void load_tables(float* s_A, float* s_B, const float* __restrict__ A,
+                                            const float* __restrict__ B, int S) {
+  for (int i = threadIdx.x; i < K * K; i += blockDim.x) s_A[i] = A[i];
+  for (int i = threadIdx.x; i < K * S; i += blockDim.x) s_B[i] = B[i];
+}
+
+// ---------------------------------------------------------------------------
+// B16: the forward chain.
+
+template <int K>
+__global__ void __launch_bounds__(CHAIN_THREADS)
+fb_fwd_kernel(const int32_t* __restrict__ steps, const int32_t* __restrict__ lens,
+              const float* __restrict__ a0, const float* __restrict__ A,
+              const float* __restrict__ B, float* __restrict__ alphas, int Tp, int NL, int S) {
+  __shared__ float s_A[K * K];
+  __shared__ float s_B[K * MAX_S];
+  load_tables<K>(s_A, s_B, A, B, S);
+  __syncthreads();
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= NL) return;
+  const size_t nl = (size_t)NL;
+  const int len = lens[n];
+  float v[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    v[k] = a0[k * nl + n];
+    alphas[k * nl + n] = v[k];
+  }
+  const int32_t* p = steps + n;
+  int q[LOOKAHEAD], qn[LOOKAHEAD];
+  load_ints(p, nl, 1, 1, Tp, q);
+  for (int t0 = 1; t0 < Tp; t0 += LOOKAHEAD) {
+    load_ints(p, nl, t0 + LOOKAHEAD, 1, Tp, qn);
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) {
+      const int t = t0 + r;
+      if (t < Tp) {
+        const int o = min(max(q[r], 0), S - 1);
+        const float inv = __fdiv_rn(1.0f, seq_sum<K>(v));
+        float nv[K];
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          float acc = __fmul_rn(v[0], s_A[k]);
+#pragma unroll
+          for (int j = 1; j < K; ++j) acc = __fadd_rn(acc, __fmul_rn(v[j], s_A[j * K + k]));
+          nv[k] = __fmul_rn(__fmul_rn(acc, s_B[k * S + o]), inv);
+        }
+        if (t < len) {
+#pragma unroll
+          for (int k = 0; k < K; ++k) v[k] = nv[k];
+        }
+        float* out = alphas + (size_t)t * K * nl + n;
+#pragma unroll
+        for (int k = 0; k < K; ++k) out[k * nl] = v[k];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) q[r] = qn[r];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B18 (CONF = false) and B19 (CONF = true): the backward chain.
+
+template <int K, bool CONF>
+__global__ void __launch_bounds__(CHAIN_THREADS)
+fb_bwd_kernel(const int32_t* __restrict__ steps_next, const int32_t* __restrict__ lens,
+              const float* __restrict__ cs_next, const float* __restrict__ beta0,
+              const float* __restrict__ alphas, const float* __restrict__ mask,
+              const float* __restrict__ A, const float* __restrict__ B, float* __restrict__ out,
+              int Tp, int NL, int S, int T) {
+  __shared__ float s_A[K * K];
+  __shared__ float s_B[K * MAX_S];
+  __shared__ float s_mask[K];
+  load_tables<K>(s_A, s_B, A, B, S);
+  if (CONF && threadIdx.x < K) s_mask[threadIdx.x] = mask[threadIdx.x];
+  __syncthreads();
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= NL) return;
+  const size_t nl = (size_t)NL;
+  const int len = lens[n];
+  float beta[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) beta[k] = beta0[k * nl + n];
+  const int32_t* p = steps_next + n;
+  const float* c = cs_next + n;
+  int q[LOOKAHEAD], qn[LOOKAHEAD];
+  float cq[LOOKAHEAD], cqn[LOOKAHEAD];
+  // B19: the group's alphas, all loaded at the group's start so that one
+  // memory latency serves LOOKAHEAD steps instead of stalling every step.
+  constexpr int AG = CONF ? LOOKAHEAD : 1;
+  float ag[AG][K];
+  load_ints(p, nl, Tp - 1, -1, Tp, q);
+  load_floats(c, nl, Tp - 1, -1, Tp, cq);
+  for (int k0 = 0; k0 < Tp; k0 += LOOKAHEAD) {
+    load_ints(p, nl, Tp - 1 - (k0 + LOOKAHEAD), -1, Tp, qn);
+    load_floats(c, nl, Tp - 1 - (k0 + LOOKAHEAD), -1, Tp, cqn);
+    if (CONF) {
+#pragma unroll
+      for (int r = 0; r < AG; ++r) {
+        const int t = Tp - 1 - (k0 + r);
+        const float* a = alphas + (size_t)max(t, 0) * K * nl + n;
+#pragma unroll
+        for (int k = 0; k < K; ++k) ag[r][k] = t >= 0 ? __ldg(a + k * nl) : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) {
+      const int t = Tp - 1 - (k0 + r);
+      if (t >= 0) {
+        const int o = min(max(q[r], 0), S - 1);
+        const float invc = __fdiv_rn(1.0f, cq[r]);
+        float w[K];
+#pragma unroll
+        for (int k = 0; k < K; ++k) w[k] = __fmul_rn(__fmul_rn(s_B[k * S + o], invc), beta[k]);
+        float nb[K];
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+          float acc = __fmul_rn(s_A[j * K], w[0]);
+#pragma unroll
+          for (int k = 1; k < K; ++k) acc = __fadd_rn(acc, __fmul_rn(s_A[j * K + k], w[k]));
+          nb[j] = acc;
+        }
+        if (t <= T - 2 && t + 1 < len) {
+#pragma unroll
+          for (int k = 0; k < K; ++k) beta[k] = nb[k];
+        }
+        if (CONF) {
+          float g[K], gm[K];
+#pragma unroll
+          for (int k = 0; k < K; ++k) {
+            g[k] = __fmul_rn(ag[CONF ? r : 0][k], beta[k]);
+            gm[k] = __fmul_rn(g[k], s_mask[k]);
+          }
+          const float tot = fmaxf(seq_sum<K>(g), 1e-30f);
+          out[(size_t)t * nl + n] =
+              t < len ? __fmul_rn(seq_sum<K>(gm), __fdiv_rn(1.0f, tot)) : 0.0f;
+        } else {
+          float* o_row = out + (size_t)t * K * nl + n;
+#pragma unroll
+          for (int k = 0; k < K; ++k) o_row[k * nl] = beta[k];
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) {
+      q[r] = qn[r];
+      cq[r] = cqn[r];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B17: the per-lane transfer products.
+
+template <int K>
+__global__ void __launch_bounds__(CHAIN_THREADS)
+fb_prod_kernel(const int32_t* __restrict__ sel, const float* __restrict__ tab,
+               float* __restrict__ out, int Tp, int NL, int S) {
+  constexpr int KK = K * K;
+  __shared__ float s_M[(MAX_S + 1) * (MAX_K * MAX_K + 1)];
+  for (int i = threadIdx.x; i < (S + 1) * KK; i += blockDim.x)
+    s_M[(i / KK) * (KK + 1) + i % KK] = tab[i];
+  __syncthreads();
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= NL) return;
+  const size_t nl = (size_t)NL;
+  float C[K][K];
+#pragma unroll
+  for (int i = 0; i < K; ++i)
+#pragma unroll
+    for (int m = 0; m < K; ++m) C[i][m] = (i == m) ? 1.0f : 0.0f;
+  const int32_t* p = sel + n;
+  int q[LOOKAHEAD], qn[LOOKAHEAD];
+  load_ints(p, nl, 0, 1, Tp, q);
+  for (int t0 = 0; t0 < Tp; t0 += LOOKAHEAD) {
+    load_ints(p, nl, t0 + LOOKAHEAD, 1, Tp, qn);
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) {
+      const int t = t0 + r;
+      if (t < Tp) {
+        const float* M = s_M + min(max(q[r], 0), S) * (KK + 1);
+        float N[K][K];
+        // N[i][j] = sum_m C[i][m] * M[m][j], column by column.
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+          float col[K];
+#pragma unroll
+          for (int m = 0; m < K; ++m) col[m] = M[m * K + j];
+#pragma unroll
+          for (int i = 0; i < K; ++i) {
+            float acc = __fmul_rn(C[i][0], col[0]);
+#pragma unroll
+            for (int m = 1; m < K; ++m) acc = __fadd_rn(acc, __fmul_rn(C[i][m], col[m]));
+            N[i][j] = acc;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < K; ++i)
+#pragma unroll
+          for (int m = 0; m < K; ++m) C[i][m] = N[i][m];
+        if ((t & 7) == 7) {
+          // The total: row sums in order, then their sum in order.
+          float tot = 0.0f;
+#pragma unroll
+          for (int i = 0; i < K; ++i) {
+            const float si = seq_sum<K>(C[i]);
+            tot = i == 0 ? si : __fadd_rn(tot, si);
+          }
+          const float inv = __fdiv_rn(1.0f, fmaxf(tot, 1e-30f));
+#pragma unroll
+          for (int i = 0; i < K; ++i)
+#pragma unroll
+            for (int m = 0; m < K; ++m) C[i][m] = __fmul_rn(C[i][m], inv);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) q[r] = qn[r];
+  }
+#pragma unroll
+  for (int i = 0; i < K; ++i)
+#pragma unroll
+    for (int m = 0; m < K; ++m) out[(size_t)(i * K + m) * nl + n] = C[i][m];
+}
+
+// ---------------------------------------------------------------------------
+// B20: per-lane counts.  Partial rows per (segment, lane), R = K*K + K*S + 1:
+// [0, K*K) macc (j*K + k), then K*S emission rows (s*K + k), then the loglik.
+
+template <int K>
+__global__ void __launch_bounds__(STATS_THREADS)
+fb_stats_part_kernel(const float* __restrict__ alphas, const float* __restrict__ betas,
+                     const int32_t* __restrict__ steps, const int32_t* __restrict__ lens,
+                     const float* __restrict__ B, float* __restrict__ part, int Tp, int NL,
+                     int S, int Tt) {
+  __shared__ float s_B[K * MAX_S];
+  __shared__ float s_emit[K * MAX_S * STATS_THREADS];  // [s*K + k][thread]
+  for (int i = threadIdx.x; i < K * S; i += blockDim.x) s_B[i] = B[i];
+  float* my = s_emit + threadIdx.x;
+  for (int r = 0; r < K * S; ++r) my[r * STATS_THREADS] = 0.0f;
+  __syncthreads();
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= NL) return;
+  const size_t nl = (size_t)NL;
+  const int seg = blockIdx.y;
+  const int len = min(lens[n], Tp);
+  const int t0 = seg * Tt;
+  const int t1 = min(t0 + Tt, len);
+  float macc[K][K];
+#pragma unroll
+  for (int j = 0; j < K; ++j)
+#pragma unroll
+    for (int k = 0; k < K; ++k) macc[j][k] = 0.0f;
+  float ll = 0.0f;
+  if (t0 < t1) {
+    // Normalized alpha of the step before the segment (unused at t == 0).
+    float ap[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) ap[k] = 0.0f;
+    if (t0 > 0) {
+      float a[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) a[k] = alphas[((size_t)(t0 - 1) * K + k) * nl + n];
+      const float inv = 1.0f / fmaxf(seq_sum<K>(a), 1e-30f);
+#pragma unroll
+      for (int k = 0; k < K; ++k) ap[k] = a[k] * inv;
+    }
+    for (int t = t0; t < t1; ++t) {
+      float a[K], b[K], g[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        a[k] = __ldg(alphas + ((size_t)t * K + k) * nl + n);
+        b[k] = __ldg(betas + ((size_t)t * K + k) * nl + n);
+        g[k] = a[k] * b[k];
+      }
+      const int o = min(max(__ldg(steps + (size_t)t * nl + n), 0), S - 1);
+      const float cs = fmaxf(seq_sum<K>(a), 1e-30f);
+      const float inv_cs = 1.0f / cs;
+      const float inv_g = 1.0f / fmaxf(seq_sum<K>(g), 1e-30f);
+      float* e = my + (o * K) * STATS_THREADS;
+#pragma unroll
+      for (int k = 0; k < K; ++k) e[k * STATS_THREADS] += g[k] * inv_g;
+      ll += logf(cs);
+      if (t > 0) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const float w = s_B[k * S + o] * b[k] * inv_cs;
+#pragma unroll
+          for (int j = 0; j < K; ++j) macc[j][k] += ap[j] * w;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < K; ++k) ap[k] = a[k] * inv_cs;
+    }
+  }
+  const int R = K * K + K * S + 1;
+  float* dst = part + (size_t)seg * R * nl + n;
+#pragma unroll
+  for (int j = 0; j < K; ++j)
+#pragma unroll
+    for (int k = 0; k < K; ++k) dst[(size_t)(j * K + k) * nl] = macc[j][k];
+  for (int r = 0; r < K * S; ++r) dst[(size_t)(K * K + r) * nl] = my[r * STATS_THREADS];
+  dst[(size_t)(R - 1) * nl] = ll;
+}
+
+__global__ void __launch_bounds__(REDUCE_THREADS)
+fb_stats_reduce_kernel(const float* __restrict__ part, float* __restrict__ macc,
+                       float* __restrict__ emit, float* __restrict__ ll, int nseg, int NL, int K,
+                       int S) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= NL) return;
+  const size_t nl = (size_t)NL;
+  const int r = blockIdx.y;
+  const int R = K * K + K * S + 1;
+  float s = 0.0f;
+  for (int g = 0; g < nseg; ++g) s += part[((size_t)g * R + r) * nl + n];
+  if (r < K * K) {
+    macc[(size_t)r * nl + n] = s;
+  } else if (r < K * K + K * S) {
+    emit[(size_t)(r - K * K) * nl + n] = s;
+  } else {
+    ll[n] = s;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launchers and the C interface: every pointer and the stream arrive as
+// void*, sizes as int.  Each function launches on the caller's stream and
+// returns cudaGetLastError(), so a refused launch reaches the Python wrapper.
+
+static inline unsigned blocks_for(int NL, int threads) {
+  return (unsigned)((NL + threads - 1) / threads);
+}
+
+static inline bool bad_dims(int Tp, int NL, int K, int S) {
+  return Tp <= 0 || NL <= 0 || K < 1 || K > MAX_K || S < 1 || S > MAX_S;
+}
+
+#define DISPATCH_K(K, CALL)                      \
+  switch (K) {                                   \
+    case 1: return CALL(1);                      \
+    case 2: return CALL(2);                      \
+    case 3: return CALL(3);                      \
+    case 4: return CALL(4);                      \
+    case 5: return CALL(5);                      \
+    case 6: return CALL(6);                      \
+    case 7: return CALL(7);                      \
+    case 8: return CALL(8);                      \
+    default: return (int)cudaErrorInvalidValue;  \
+  }
+
+template <int K>
+static int launch_fwd(const void* steps, const void* lens, const void* a0, const void* A,
+                      const void* B, void* alphas, int Tp, int NL, int S, cudaStream_t st) {
+  fb_fwd_kernel<K><<<blocks_for(NL, CHAIN_THREADS), CHAIN_THREADS, 0, st>>>(
+      (const int32_t*)steps, (const int32_t*)lens, (const float*)a0, (const float*)A,
+      (const float*)B, (float*)alphas, Tp, NL, S);
+  return (int)cudaGetLastError();
+}
+
+template <int K, bool CONF>
+static int launch_bwd(const void* steps_next, const void* lens, const void* cs_next,
+                      const void* beta0, const void* alphas, const void* mask, const void* A,
+                      const void* B, void* out, int Tp, int NL, int S, int T, cudaStream_t st) {
+  fb_bwd_kernel<K, CONF><<<blocks_for(NL, CHAIN_THREADS), CHAIN_THREADS, 0, st>>>(
+      (const int32_t*)steps_next, (const int32_t*)lens, (const float*)cs_next,
+      (const float*)beta0, (const float*)alphas, (const float*)mask, (const float*)A,
+      (const float*)B, (float*)out, Tp, NL, S, T);
+  return (int)cudaGetLastError();
+}
+
+template <int K>
+static int launch_prod(const void* sel, const void* tab, void* out, int Tp, int NL, int S,
+                       cudaStream_t st) {
+  fb_prod_kernel<K><<<blocks_for(NL, CHAIN_THREADS), CHAIN_THREADS, 0, st>>>(
+      (const int32_t*)sel, (const float*)tab, (float*)out, Tp, NL, S);
+  return (int)cudaGetLastError();
+}
+
+template <int K>
+static int launch_stats(const void* alphas, const void* betas, const void* steps,
+                        const void* lens, const void* B, void* part, void* macc, void* emit,
+                        void* ll, int Tp, int NL, int S, int Tt, cudaStream_t st) {
+  const int nseg = (Tp + Tt - 1) / Tt;
+  if (nseg > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid(blocks_for(NL, STATS_THREADS), (unsigned)nseg);
+  fb_stats_part_kernel<K><<<grid, STATS_THREADS, 0, st>>>(
+      (const float*)alphas, (const float*)betas, (const int32_t*)steps, (const int32_t*)lens,
+      (const float*)B, (float*)part, Tp, NL, S, Tt);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 rgrid(blocks_for(NL, REDUCE_THREADS), (unsigned)(K * K + K * S + 1));
+  fb_stats_reduce_kernel<<<rgrid, REDUCE_THREADS, 0, st>>>(
+      (const float*)part, (float*)macc, (float*)emit, (float*)ll, nseg, NL, K, S);
+  return (int)cudaGetLastError();
+}
+
+extern "C" {
+
+int fb_fwd(const void* steps, const void* lens, const void* a0, const void* A, const void* B,
+           void* alphas, int Tp, int NL, int K, int S, void* stream) {
+  if (bad_dims(Tp, NL, K, S)) return (int)cudaErrorInvalidValue;
+#define CALL_F(KK) launch_fwd<KK>(steps, lens, a0, A, B, alphas, Tp, NL, S, (cudaStream_t)stream)
+  DISPATCH_K(K, CALL_F)
+#undef CALL_F
+}
+
+int fb_bwd(const void* steps_next, const void* lens, const void* cs_next, const void* beta0,
+           const void* A, const void* B, void* betas, int Tp, int NL, int K, int S, int T,
+           void* stream) {
+  if (bad_dims(Tp, NL, K, S)) return (int)cudaErrorInvalidValue;
+#define CALL_B(KK)                                                                          \
+  launch_bwd<KK, false>(steps_next, lens, cs_next, beta0, nullptr, nullptr, A, B, betas, Tp, \
+                        NL, S, T, (cudaStream_t)stream)
+  DISPATCH_K(K, CALL_B)
+#undef CALL_B
+}
+
+int fb_bwd_conf(const void* steps_next, const void* lens, const void* cs_next,
+                const void* beta0, const void* alphas, const void* mask, const void* A,
+                const void* B, void* conf, int Tp, int NL, int K, int S, int T, void* stream) {
+  if (bad_dims(Tp, NL, K, S)) return (int)cudaErrorInvalidValue;
+#define CALL_C(KK)                                                                        \
+  launch_bwd<KK, true>(steps_next, lens, cs_next, beta0, alphas, mask, A, B, conf, Tp, NL, \
+                       S, T, (cudaStream_t)stream)
+  DISPATCH_K(K, CALL_C)
+#undef CALL_C
+}
+
+int fb_prod(const void* sel, const void* tab, void* out, int Tp, int NL, int K, int S,
+            void* stream) {
+  if (bad_dims(Tp, NL, K, S)) return (int)cudaErrorInvalidValue;
+#define CALL_P(KK) launch_prod<KK>(sel, tab, out, Tp, NL, S, (cudaStream_t)stream)
+  DISPATCH_K(K, CALL_P)
+#undef CALL_P
+}
+
+int fb_stats(const void* alphas, const void* betas, const void* steps, const void* lens,
+             const void* B, void* part, void* macc, void* emit, void* ll, int Tp, int NL, int K,
+             int S, int Tt, void* stream) {
+  if (bad_dims(Tp, NL, K, S) || Tt <= 0) return (int)cudaErrorInvalidValue;
+#define CALL_S(KK)                                                                          \
+  launch_stats<KK>(alphas, betas, steps, lens, B, part, macc, emit, ll, Tp, NL, S, Tt, \
+                   (cudaStream_t)stream)
+  DISPATCH_K(K, CALL_S)
+#undef CALL_S
+}
+
+}  // extern "C"

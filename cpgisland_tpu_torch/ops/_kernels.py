@@ -49,6 +49,11 @@ _SIGNATURES = {
     "dense_products": ("viterbi_dense", 4, ("bk", "nb", "K", "S")),
     "dense_backpointers": ("viterbi_dense", 7, ("bk", "nb", "K", "S")),
     "dense_backtrace": ("viterbi_dense", 3, ("bk", "nb")),
+    "fb_fwd": ("fb_dense", 6, ("Tp", "NL", "K", "S")),
+    "fb_prod": ("fb_dense", 3, ("Tp", "NL", "K", "S")),
+    "fb_bwd": ("fb_dense", 7, ("Tp", "NL", "K", "S", "T")),
+    "fb_bwd_conf": ("fb_dense", 9, ("Tp", "NL", "K", "S", "T")),
+    "fb_stats": ("fb_dense", 9, ("Tp", "NL", "K", "S", "Tt")),
 }
 SOURCES = tuple(sorted({src for src, _, _ in _SIGNATURES.values()}))
 

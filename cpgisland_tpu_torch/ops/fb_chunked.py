@@ -1,14 +1,15 @@
-"""Counterpart of ``cpgisland_tpu/ops/fb_pallas.py``'s chunked one-hot E-step.
+"""Counterpart of ``cpgisland_tpu/ops/fb_pallas.py``'s chunked E-step.
 
 One EM iteration's sufficient statistics for a batch of independent
-chunks: the onehot branch of ``batch_stats_pallas`` with ``fused=True``
-(the shipped default), together with ``_batch_lane_setup``,
-``_assemble_reduced_stats`` and ``_gamma0_full``.  One chunk per lane;
-each lane starts from pi and ends free.  Two kernels carry the
-iteration: B4 (forward and self-normalized backward chains,
-``fb_onehot.oh_fwdbwd``) and B5 (z-normalized counts,
-``fb_onehot.oh_seq_stats``); the rest is small tensor code on the same
-device.
+chunks: ``batch_stats_pallas`` with ``fused=True`` (the shipped default),
+together with ``_batch_lane_setup``, ``_assemble_reduced_stats`` and
+``_gamma0_full``.  One chunk per lane; each lane starts from pi and ends
+free.  The reduced engine ("onehot") runs two kernels: B4 (forward and
+self-normalized backward chains, ``fb_onehot.oh_fwdbwd``) and B5
+(z-normalized counts, ``fb_onehot.oh_seq_stats``).  The dense engine
+("pallas", any K <= 8 model) runs three: B16 (forward), B18 (backward)
+and B20 (counts) of ``ops.fb_pallas``.  The rest is small tensor code on
+the same device.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from cpgisland_tpu_torch.models.hmm import HmmParams
-from cpgisland_tpu_torch.ops import fb_onehot
+from cpgisland_tpu_torch.ops import fb_onehot, fb_pallas
 from cpgisland_tpu_torch.ops.forward_backward import SuffStats
 from cpgisland_tpu_torch.ops.prepared import PreparedChunked, prepare_chunked
 from cpgisland_tpu_torch.ops.viterbi_onehot import GROUP, _groups
@@ -62,12 +63,38 @@ def _gamma0_full(al2, b2, gt, esym2, K):
     return fb_onehot.scatter_streams(gamma02[None], gt, esym2[0:1], K)[0]
 
 
+def _dense_batch_stats(params: HmmParams, prep: PreparedChunked, a0_raw, beta0,
+                       valid0) -> SuffStats:
+    """The dense branch of ``batch_stats_pallas``: B16 -> B18 -> B20, then
+    trans = A * sum(macc), emit = sum(emit).reshape(S, K).T, init = gamma_0
+    on the valid lanes."""
+    K, S = params.n_states, params.n_symbols
+    A, B, _ = fb_pallas.tables(params)
+    alphas, _, betas = fb_pallas._run_fb_kernels(A, B, prep.steps2, prep.lens2, a0_raw,
+                                                 beta0, prep.T)
+    macc, emitf, ll = fb_pallas._run_stats_kernel(B, alphas, betas, prep.steps2, prep.lens2,
+                                                  prep.Tt)
+    g0raw = alphas[0] * betas[0]  # [K, NL]
+    gamma0 = g0raw / torch.clamp_min(fb_pallas.seq_sum(g0raw, 0), 1e-30)
+    return SuffStats(
+        init=torch.sum(torch.where(valid0[None, :], gamma0, 0.0), dim=1),
+        trans=A * torch.sum(macc, dim=1).reshape(K, K),
+        emit=torch.sum(emitf, dim=1).reshape(S, K).T,
+        loglik=torch.sum(ll),
+        n_seqs=torch.sum(valid0.to(torch.int32)),
+    )
+
+
 def batch_stats(params: HmmParams, chunks: torch.Tensor, lengths: torch.Tensor,
-                prepared=None) -> SuffStats:
+                prepared=None, engine: str = "onehot") -> SuffStats:
     """Batch-summed SuffStats of the chunks [N, T] (uint8, padded) with
-    true ``lengths`` [N], on the chunks' device.  ``prepared``: the
-    symbol-only prep of the same batch (``ops.prepared.prepare_chunked``),
-    built once per fit; built here otherwise."""
+    true ``lengths`` [N], on the chunks' device, through the reduced
+    ("onehot") or the dense ("pallas") kernels.  ``prepared``: the
+    symbol-only prep of the same batch (``ops.prepared.prepare_chunked``
+    for the same engine), built once per fit; built here otherwise."""
+    if engine not in ("onehot", "pallas"):
+        raise ValueError(f"batch_stats engine must be onehot|pallas, got {engine!r}")
+    onehot = engine == "onehot"
     K, S = params.n_states, params.n_symbols
     N, T = chunks.shape
     if N == 0:
@@ -77,13 +104,16 @@ def batch_stats(params: HmmParams, chunks: torch.Tensor, lengths: torch.Tensor,
         return SuffStats(init=z(K), trans=z(K, K), emit=z(K, S), loglik=z(),
                          n_seqs=torch.zeros((), dtype=torch.int32, device=chunks.device))
     if prepared is None:
-        prepared = prepare_chunked(S, chunks, lengths, t_tile=DEFAULT_T_TILE)
-    elif (prepared.S, prepared.N, prepared.T) != (S, N, T):
+        prepared = prepare_chunked(S, chunks, lengths, t_tile=DEFAULT_T_TILE, onehot=onehot)
+    elif (prepared.S, prepared.N, prepared.T, prepared.onehot) != (S, N, T, onehot):
         raise ValueError(
             f"prepared streams were built for S={prepared.S}, a {prepared.N} x "
-            f"{prepared.T} batch; this call has S={S}, {N} x {T}"
+            f"{prepared.T} batch, onehot={prepared.onehot}; this call has S={S}, "
+            f"{N} x {T}, onehot={onehot}"
         )
     A, a0_raw, beta0, valid0 = _batch_lane_setup(params, prepared)
+    if not onehot:
+        return _dense_batch_stats(params, prepared, a0_raw, beta0, valid0)
     lens2 = prepared.lens2
     al2, b2, esym2 = fb_onehot.run_fb_kernels_onehot(
         params, prepared.sel2, 0, lens2, a0_raw, beta0, T,

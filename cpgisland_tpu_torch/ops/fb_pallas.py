@@ -1,0 +1,409 @@
+"""Dense forward-backward engine ("pallas"): five CUDA kernels and their
+plain PyTorch versions.
+
+Counterpart of the dense half of ``cpgisland_tpu/ops/fb_pallas.py``: the
+rescaled E-step and posterior streams for any model with K <= 8 states,
+whatever its emissions (``--preset two_state``, a ``--model`` file whose
+emissions are not one-hot pairs, or the flagship's own tables when
+``engine="pallas"`` is asked for).  The kernels (``csrc/fb_dense.cu``) run
+one thread per lane over the time-major streams, with A and B in shared
+memory and the K-state vectors in registers:
+
+- B16 :func:`fb_fwd` (replaces ``_fwd_kernel``): the forward with deferred
+  Rabiner scaling, v_t = ((sum_j v_{t-1}[j] A[j, k]) * B[k, o_t]) *
+  (1 / sum v_{t-1}), so the stored alphas carry alpha-hat_t * c_t and the
+  scale factors come back as row sums;
+- B17 :func:`fb_prod` (replaces ``_prod_kernel``): each lane's (+, x)
+  product of its step matrices A[m, j] * B[j, o_t] (the identity for PAD),
+  renormalized after every 8th step — the lane transfer operators of the
+  whole-sequence boundary messages;
+- B18 :func:`fb_bwd` (replaces ``_bwd_kernel``): the backward on the
+  time-shifted o_{t+1}, c_{t+1};
+- B19 :func:`fb_bwd_conf` (replaces ``_bwd_conf_kernel``): B18's chain
+  emitting the island confidence instead of storing betas;
+- B20 :func:`fb_stats` (replaces ``_stats_kernel``): per-lane expected
+  counts and loglik from the stored streams.
+
+Each wrapper takes its plain version for a CPU tensor, launches the kernel
+for a CUDA tensor, and raises otherwise.  The plain versions of B16-B19 do
+the kernels' float32 operations in the kernels' order — every K-term sum
+sequential from j = 0, every reciprocal an IEEE division — so kernel and
+plain version agree bit for bit; B20 sums over time in another order and
+agrees within a tolerance.  Against the JAX package (XLA:CPU contracts
+products into FMAs and reduces in its own order) they agree within the
+parity tests' tolerances.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cpgisland_tpu_torch.models.hmm import HmmParams
+from cpgisland_tpu_torch.ops import _kernels
+from cpgisland_tpu_torch.ops.viterbi_pallas import _check
+
+MAX_STATES = 8  # the kernels' register-resident state vectors
+MAX_SYMBOLS = 16  # the kernels' shared-memory emission tables
+ROW_TILE = 8  # B17 renormalizes its product after every ROW_TILE steps
+
+_I32 = torch.int32
+_F32 = torch.float32
+
+
+def supports(params: HmmParams) -> bool:
+    """Kernel eligibility: K <= 8 states (the JAX package's envelope) over
+    at most 16 symbols."""
+    return params.n_states <= MAX_STATES and params.n_symbols <= MAX_SYMBOLS
+
+
+def seq_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """x summed along ``dim`` one term at a time, index 0 first: the
+    kernels' order, and the same bits on the CPU and on the card."""
+    parts = x.unbind(dim)
+    s = parts[0]
+    for p in parts[1:]:
+        s = s + p
+    return s
+
+
+def emit_sel(B: torch.Tensor, syms: torch.Tensor) -> torch.Tensor:
+    """B[:, syms] -> [K, *syms.shape]: the JAX package's ``_emit_sel``
+    compare-select tree as one table lookup (the same f32 values)."""
+    return B[:, syms.long()]
+
+
+def step_table(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """B17's per-symbol step matrices [S + 1, K*K]: row s < S holds
+    M_s[m, j] = A[m, j] * B[j, s] at m*K + j, row S the identity (PAD)."""
+    K, S = B.shape
+    M = A[None, :, :] * B.T[:, None, :]  # [s, m, j]
+    eye = torch.eye(K, dtype=_F32, device=A.device)[None]
+    return torch.cat([M, eye], dim=0).reshape(S + 1, K * K).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Plain versions.  Shapes are the kernels' own: steps2 / steps_next / sel2
+# [Tp, NL] int32, lens2 [1, NL] int32, a0 / beta0 [K, NL], A [K, K],
+# B [K, S], streams [Tp, K, NL], cs_next / conf [Tp, NL].
+
+
+def fb_fwd_plain(steps2, lens2, a0, A, B) -> torch.Tensor:
+    """Plain version of B16 -> alphas [Tp, K, NL]: v_0 = a0; for t >= 1,
+    v_t = ((sum_j v_{t-1}[j] * A[j, k]) * B[k, o_t]) * (1 / sum v_{t-1})
+    where t < len, v_{t-1} carried elsewhere."""
+    Tp, NL = steps2.shape
+    K, S = B.shape
+    out = torch.empty((Tp, K, NL), dtype=_F32, device=steps2.device)
+    o = torch.clamp(steps2, 0, S - 1).long()
+    valid = torch.arange(Tp, device=steps2.device)[:, None] < lens2
+    v = a0
+    out[0] = v
+    for t in range(1, Tp):
+        inv = torch.reciprocal(seq_sum(v, 0))
+        raw = seq_sum(v[:, None, :] * A[:, :, None], 0)  # [k, NL]
+        v = torch.where(valid[t], (raw * B[:, o[t]]) * inv, v)
+        out[t] = v
+    return out
+
+
+def fb_bwd_plain(steps_next, lens2, cs_next, beta0, A, B, T: int) -> torch.Tensor:
+    """Plain version of B18 -> betas [Tp, K, NL]: from beta0 at t = Tp-1
+    down to 0, beta_t[j] = sum_k A[j, k] * ((B[k, o_{t+1}] * (1 /
+    c_{t+1})) * beta_{t+1}[k]) where t <= T-2 and t+1 < len, carried
+    elsewhere (steps_next[t] = o_{t+1}, cs_next[t] = c_{t+1})."""
+    Tp, NL = steps_next.shape
+    K, S = B.shape
+    out = torch.empty((Tp, K, NL), dtype=_F32, device=steps_next.device)
+    o = torch.clamp(steps_next, 0, S - 1).long()
+    invc = torch.reciprocal(cs_next)
+    t_col = torch.arange(Tp, device=steps_next.device)[:, None]
+    keep = (t_col <= T - 2) & (t_col + 1 < lens2)
+    beta = beta0
+    for t in range(Tp - 1, -1, -1):
+        w = (B[:, o[t]] * invc[t]) * beta  # [k, NL]
+        beta = torch.where(keep[t], seq_sum(A[:, :, None] * w[None, :, :], 1), beta)
+        out[t] = beta
+    return out
+
+
+def conf_from_streams(alphas, betas, lens2, mask) -> torch.Tensor:
+    """B19's epilogue: conf_t = (sum_k g_k * mask_k) * (1 / max(sum_k g_k,
+    1e-30)), g = alphas * betas, 0 past each lane's length -> [Tp, NL]."""
+    g = alphas * betas
+    tot = torch.clamp_min(seq_sum(g, 1), 1e-30)
+    isl = seq_sum(g * mask.to(_F32)[None, :, None], 1)
+    valid = torch.arange(g.shape[0], device=g.device)[:, None] < lens2
+    return torch.where(valid, isl * torch.reciprocal(tot), 0.0)
+
+
+def fb_bwd_conf_plain(steps_next, lens2, cs_next, beta0, alphas, mask, A, B,
+                      T: int) -> torch.Tensor:
+    """Plain version of B19 -> conf [Tp, NL]: B18's betas through
+    :func:`conf_from_streams`."""
+    betas = fb_bwd_plain(steps_next, lens2, cs_next, beta0, A, B, T)
+    return conf_from_streams(alphas, betas, lens2, mask)
+
+
+def fb_prod_plain(sel2, tab) -> torch.Tensor:
+    """Plain version of B17 -> [K*K, NL], row i*K + m holding C[i, m].
+
+    From the identity, each step takes C <- C . M_{sel_t} (sel >= S: the
+    identity row of ``tab``, [S + 1, K*K] from :func:`step_table`); after
+    every 8th step (counted from the lane's start) C is multiplied by 1 /
+    max(total, 1e-30), the total being the row sums added in order."""
+    Tp, NL = sel2.shape
+    S = tab.shape[0] - 1
+    K = round(tab.shape[1] ** 0.5)
+    M_all = tab.reshape(S + 1, K, K)
+    sel = torch.clamp(sel2, 0, S).long()
+    C = torch.eye(K, dtype=_F32, device=sel2.device)[:, :, None].expand(K, K, NL)
+    for t in range(Tp):
+        M = M_all[sel[t]].permute(1, 2, 0)  # [m, j, NL]
+        C = seq_sum(C[:, :, None, :] * M[None], 1)  # [i, j, NL]
+        if t % ROW_TILE == ROW_TILE - 1:
+            tot = seq_sum(seq_sum(C, 1), 0)
+            C = C * torch.reciprocal(torch.clamp_min(tot, 1e-30))
+    return C.reshape(K * K, NL).contiguous()
+
+
+def fb_stats_plain(alphas, betas, steps2, lens2, B):
+    """Plain version of B20 -> (macc [K*K, NL], emit [K*S, NL], ll [1, NL]).
+
+    Over each lane's valid steps: macc[j*K + k] = sum_{t >= 1} ahat_{t-1}[j]
+    * (B[k, o_t] * beta_t[k] * (1 / c_t)) with ahat = alpha / c and c_t =
+    max(sum_k alpha_t[k], 1e-30); emit[s*K + k] = sum_{o_t = s} gamma_t[k]
+    (gamma = normalized alpha * beta); ll = sum_t log c_t.  Time sums as
+    tensor reductions."""
+    Tp, K, NL = alphas.shape
+    S = B.shape[1]
+    dev = alphas.device
+    vmask = torch.arange(Tp, device=dev)[:, None] < lens2  # [Tp, NL]
+    cs = torch.clamp_min(seq_sum(alphas, 1), 1e-30)
+    inv_cs = torch.reciprocal(cs)[:, None, :]
+    g = alphas * betas
+    gamma = torch.where(vmask[:, None, :],
+                        g * torch.reciprocal(torch.clamp_min(seq_sum(g, 1), 1e-30))[:, None, :],
+                        0.0)
+    o = torch.clamp(steps2, 0, S - 1).long()
+    emit = torch.cat([torch.where((o == s)[:, None, :], gamma, 0.0).sum(0) for s in range(S)])
+    ll = torch.where(vmask, torch.log(cs), 0.0).sum(0)[None, :]
+    w = emit_sel(B, o).permute(1, 0, 2) * betas * inv_cs  # [Tp, K, NL]
+    pair = vmask.clone()
+    pair[0] = False  # t == 0 has no incoming pair
+    wm = torch.where(pair[:, None, :], w, 0.0)
+    ap = alphas * inv_cs
+    macc = torch.stack([(ap[:-1, j : j + 1] * wm[1:]).sum(0) for j in range(K)])
+    return macc.reshape(K * K, NL), emit, ll
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+
+
+def _check_device(ref: torch.Tensor, tensors) -> None:
+    if ref.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {ref.device}")
+    for t in tensors:
+        if t.device != ref.device:
+            raise ValueError(f"all operands must share the device {ref.device}")
+
+
+def _check_stream(name: str, t: torch.Tensor):
+    if t.dim() != 2 or 0 in t.shape:
+        raise ValueError(f"{name} must be a non-empty [Tp, NL], got {tuple(t.shape)}")
+    _check(name, t, _I32, tuple(t.shape))
+    return t.shape
+
+
+def _check_tables(A: torch.Tensor, B: torch.Tensor):
+    if B.dim() != 2:
+        raise ValueError(f"B must be [K, S], got {tuple(B.shape)}")
+    K, S = B.shape
+    if not (1 <= K <= MAX_STATES and 1 <= S <= MAX_SYMBOLS):
+        raise ValueError(f"dense FB kernels need 1 <= K <= {MAX_STATES} and "
+                         f"1 <= S <= {MAX_SYMBOLS}, got K={K}, S={S}")
+    _check("A", A, _F32, (K, K))
+    _check("B", B, _F32, (K, S))
+    return K, S
+
+
+def fb_fwd(steps2, lens2, a0, A, B) -> torch.Tensor:
+    """Kernel B16 (replaces the JAX package's ``_fwd_kernel``) -> alphas
+    [Tp, K, NL] f32.  Arguments as :func:`fb_fwd_plain`."""
+    _check_device(steps2, (lens2, a0, A, B))
+    Tp, NL = _check_stream("steps2", steps2)
+    K, S = _check_tables(A, B)
+    _check("lens2", lens2, _I32, (1, NL))
+    _check("a0", a0, _F32, (K, NL))
+    if steps2.device.type == "cpu":
+        return fb_fwd_plain(steps2, lens2, a0, A, B)
+    alphas = torch.empty((Tp, K, NL), dtype=_F32, device=steps2.device)
+    _kernels.launch("fb_fwd", steps2, lens2, a0, A, B, alphas, Tp=Tp, NL=NL, K=K, S=S)
+    return alphas
+
+
+def fb_bwd(steps_next, lens2, cs_next, beta0, A, B, T: int) -> torch.Tensor:
+    """Kernel B18 (replaces ``_bwd_kernel``) -> betas [Tp, K, NL] f32.
+    Arguments as :func:`fb_bwd_plain`."""
+    _check_device(steps_next, (lens2, cs_next, beta0, A, B))
+    Tp, NL = _check_stream("steps_next", steps_next)
+    K, S = _check_tables(A, B)
+    _check("lens2", lens2, _I32, (1, NL))
+    _check("cs_next", cs_next, _F32, (Tp, NL))
+    _check("beta0", beta0, _F32, (K, NL))
+    if steps_next.device.type == "cpu":
+        return fb_bwd_plain(steps_next, lens2, cs_next, beta0, A, B, T)
+    betas = torch.empty((Tp, K, NL), dtype=_F32, device=steps_next.device)
+    _kernels.launch("fb_bwd", steps_next, lens2, cs_next, beta0, A, B, betas,
+                    Tp=Tp, NL=NL, K=K, S=S, T=T)
+    return betas
+
+
+def fb_bwd_conf(steps_next, lens2, cs_next, beta0, alphas, mask, A, B, T: int) -> torch.Tensor:
+    """Kernel B19 (replaces ``_bwd_conf_kernel``) -> conf [Tp, NL] f32; the
+    betas never leave the kernel.  Arguments as :func:`fb_bwd_conf_plain`."""
+    _check_device(steps_next, (lens2, cs_next, beta0, alphas, mask, A, B))
+    Tp, NL = _check_stream("steps_next", steps_next)
+    K, S = _check_tables(A, B)
+    _check("lens2", lens2, _I32, (1, NL))
+    _check("cs_next", cs_next, _F32, (Tp, NL))
+    _check("beta0", beta0, _F32, (K, NL))
+    _check("alphas", alphas, _F32, (Tp, K, NL))
+    _check("mask", mask, _F32, (K,))
+    if steps_next.device.type == "cpu":
+        return fb_bwd_conf_plain(steps_next, lens2, cs_next, beta0, alphas, mask, A, B, T)
+    conf = torch.empty((Tp, NL), dtype=_F32, device=steps_next.device)
+    _kernels.launch("fb_bwd_conf", steps_next, lens2, cs_next, beta0, alphas, mask, A, B,
+                    conf, Tp=Tp, NL=NL, K=K, S=S, T=T)
+    return conf
+
+
+def fb_prod(sel2, tab) -> torch.Tensor:
+    """Kernel B17 (replaces ``_prod_kernel``) -> [K*K, NL] f32.  Arguments
+    as :func:`fb_prod_plain`."""
+    _check_device(sel2, (tab,))
+    Tp, NL = _check_stream("sel2", sel2)
+    if tab.dim() != 2:
+        raise ValueError(f"tab must be [S + 1, K*K], got {tuple(tab.shape)}")
+    S = tab.shape[0] - 1
+    K = round(tab.shape[1] ** 0.5)
+    if K * K != tab.shape[1] or not (1 <= K <= MAX_STATES and 1 <= S <= MAX_SYMBOLS):
+        raise ValueError(f"tab of shape {tuple(tab.shape)}: need [S + 1, K*K] with "
+                         f"K <= {MAX_STATES}, 1 <= S <= {MAX_SYMBOLS}")
+    _check("tab", tab, _F32, (S + 1, K * K))
+    if sel2.device.type == "cpu":
+        return fb_prod_plain(sel2, tab)
+    out = torch.empty((K * K, NL), dtype=_F32, device=sel2.device)
+    _kernels.launch("fb_prod", sel2, tab, out, Tp=Tp, NL=NL, K=K, S=S)
+    return out
+
+
+def fb_stats(alphas, betas, steps2, lens2, B, Tt: int):
+    """Kernel B20 (replaces ``_stats_kernel``) -> (macc [K*K, NL], emit
+    [K*S, NL], ll [1, NL]).  Arguments as :func:`fb_stats_plain`; the
+    kernel reduces each lane in segments of ``Tt`` steps, then sums the
+    segments in order (no atomics: the same result every run)."""
+    _check_device(steps2, (alphas, betas, lens2, B))
+    Tp, NL = _check_stream("steps2", steps2)
+    K, S = B.shape if B.dim() == 2 else (0, 0)
+    if not (1 <= K <= MAX_STATES and 1 <= S <= MAX_SYMBOLS):
+        raise ValueError(f"dense FB kernels need 1 <= K <= {MAX_STATES} and "
+                         f"1 <= S <= {MAX_SYMBOLS}, got B of shape {tuple(B.shape)}")
+    _check("B", B, _F32, (K, S))
+    _check("alphas", alphas, _F32, (Tp, K, NL))
+    _check("betas", betas, _F32, (Tp, K, NL))
+    _check("lens2", lens2, _I32, (1, NL))
+    if Tt <= 0:
+        raise ValueError(f"Tt must be positive, got {Tt}")
+    if steps2.device.type == "cpu":
+        return fb_stats_plain(alphas, betas, steps2, lens2, B)
+    dev = steps2.device
+    R = K * K + K * S + 1
+    part = torch.empty((-(-Tp // Tt), R, NL), dtype=_F32, device=dev)
+    macc = torch.empty((K * K, NL), dtype=_F32, device=dev)
+    emit = torch.empty((K * S, NL), dtype=_F32, device=dev)
+    ll = torch.empty((1, NL), dtype=_F32, device=dev)
+    _kernels.launch("fb_stats", alphas, betas, steps2, lens2, B, part, macc, emit, ll,
+                    Tp=Tp, NL=NL, K=K, S=S, Tt=Tt)
+    return macc, emit, ll
+
+
+# ---------------------------------------------------------------------------
+# Runners (the JAX module's helpers of the same names)
+
+
+def tables(params: HmmParams):
+    """(A, B, pi) as contiguous f32 probability tables on the params' device."""
+    if not supports(params):
+        raise ValueError(
+            f"dense FB kernels need n_states <= {MAX_STATES} and n_symbols <= "
+            f"{MAX_SYMBOLS}, got K={params.n_states}, S={params.n_symbols}"
+        )
+    return tuple(x.to(_F32).contiguous() for x in (params.A, params.B, params.pi))
+
+
+def _run_fb_kernels(A, B, steps2, lens2, a0_raw, beta0, T: int, conf_mask=None):
+    """The forward + backward pair over a [Tp, NL] lane layout.
+
+    a0_raw [K, NL]: each lane's unnormalized v_0 (its sum is that
+    position's c); beta0 [K, NL]: each lane's entering beta (ones for
+    independent chunks, suffix boundary messages for lanes of one long
+    sequence); T: the chunk length (B18's last active step is T - 2).
+    Returns (alphas [Tp, K, NL], cs [Tp, NL], betas [Tp, K, NL]); with
+    ``conf_mask`` ([K] island indicator) the third element is B19's island
+    confidence [Tp, NL] instead.  The scale factors and the time-shifted
+    streams are glue shared by the kernel and plain routes, so B18 and B19
+    see the same inputs either way."""
+    alphas = fb_fwd(steps2, lens2, a0_raw.contiguous(), A, B)
+    cs, steps_next, cs_next = backward_inputs(steps2, alphas)
+    beta0 = beta0.contiguous()
+    if conf_mask is not None:
+        mask = torch.as_tensor(conf_mask, dtype=_F32, device=A.device).contiguous()
+        return alphas, cs, fb_bwd_conf(steps_next, lens2, cs_next, beta0, alphas, mask, A, B, T)
+    return alphas, cs, fb_bwd(steps_next, lens2, cs_next, beta0, A, B, T)
+
+
+def backward_inputs(steps2, alphas):
+    """(cs [Tp, NL], steps_next, cs_next): the scale factors as the row sums
+    of B16's output (v_t sums to c_t), and the time-shifted streams B18 and
+    B19 read (steps_next[t] = o_{t+1}, cs_next[t] = c_{t+1}; 0 and 1 past
+    the end)."""
+    NL = steps2.shape[1]
+    cs = seq_sum(alphas, 1)
+    steps_next = torch.cat([steps2[1:], torch.zeros((1, NL), dtype=_I32, device=steps2.device)])
+    cs_next = torch.cat([cs[1:], torch.ones((1, NL), dtype=_F32, device=cs.device)])
+    return cs, steps_next, cs_next
+
+
+def _run_stats_kernel(B, alphas, betas, steps2, lens2, Tt: int):
+    """Per-lane counts (B20): (macc [K*K, NL], emit [K*S, NL], ll [1, NL])."""
+    return fb_stats(alphas, betas, steps2, lens2, B, Tt)
+
+
+def _run_products_kernel(A, B, sel2) -> torch.Tensor:
+    """Per-lane probability-space transfer products (B17) of a [lane_T, NL]
+    PAD-marked step stream -> P [NL, K, K] (P[lane, i, m])."""
+    K = A.shape[0]
+    out = fb_prod(sel2, step_table(A, B))
+    return out.T.reshape(-1, K, K)
+
+
+def _conf_path_from_streams(alphas, betas, lens2, island_mask):
+    """(conf2 [Tp, NL] f32, path2 [Tp, NL] int32) from stored streams: the
+    island share of gamma (a division, as the JAX package's want_path
+    branch) and the max-posterior-marginal state, first maximum on ties as
+    ``jnp.argmax``."""
+    Tp = alphas.shape[0]
+    vmask = torch.arange(Tp, device=alphas.device)[:, None] < lens2
+    graw = alphas * betas
+    mask = torch.as_tensor(island_mask, dtype=_F32, device=alphas.device)
+    gsum = torch.clamp_min(seq_sum(graw, 1), 1e-30)
+    gisl = seq_sum(graw * mask[None, :, None], 1)
+    conf2 = torch.where(vmask, gisl / gsum, 0.0)
+    best = graw[:, 0]
+    arg = torch.zeros(best.shape, dtype=_I32, device=alphas.device)
+    for k in range(1, graw.shape[1]):
+        take = graw[:, k] > best
+        best = torch.where(take, graw[:, k], best)
+        arg = torch.where(take, k, arg)
+    return conf2, torch.where(vmask, arg, 0).to(_I32)

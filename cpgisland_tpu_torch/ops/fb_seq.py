@@ -1,22 +1,25 @@
 """Counterpart of ``cpgisland_tpu/ops/fb_pallas.py``'s whole-sequence half.
 
-Exact forward-backward over ONE long sequence on one device, for one-hot
-emission models (the flagship 8-state preset): the sequence splits into
-lanes of ``lane_T`` steps; kernel B7 (``fb_onehot.oh_prod``) gives each
-lane's 2x2 transfer product; two associative scans over the lanes turn
-those into every lane's exact entering-alpha and exiting-beta directions;
-kernel B4 (``fb_onehot.oh_fwdbwd``) then runs every lane's forward and
-backward chain from those messages, so the result is the whole-sequence
-posterior, not a chunk approximation.  ``enter_dir`` / ``exit_dir`` carry
-the same messages across consecutive spans of a record too long for one
-pass (``pipeline.posterior_file``).
+Exact forward-backward over ONE long sequence on one device: the sequence
+splits into lanes of ``lane_T`` steps; a products kernel gives each lane's
+transfer operator; two associative scans over the lanes turn those into
+every lane's exact entering-alpha and exiting-beta directions; the chain
+kernels then run every lane's forward and backward from those messages,
+so the result is the whole-sequence posterior, not a chunk approximation.
+``enter_dir`` / ``exit_dir`` carry the same messages across consecutive
+spans of a record too long for one pass (``pipeline.posterior_file``).
 
-Only the fused two-pass arm of the reduced engine is ported: the dense
-engine (ROADMAP A10), the split arm (B9-B12) and the one-pass matrix arm
-(B8) are not.  The glue below keeps every contraction to sums of at most
-two nonzero terms (sums over a group of 2, or over K with all but two
-entries exact zeros) and spells out the one 4-term total, so it gives the
-same float32 bits on the CPU and on the card.
+Two engines, as in the JAX package.  The reduced one ("onehot", one-hot
+emission models such as the flagship) runs B7 (``fb_onehot.oh_prod``,
+2x2 products) and B4 (``fb_onehot.oh_fwdbwd``); its boundary combine
+stays in the 2-component group space.  The dense one ("pallas", any
+model with K <= 8) runs B17 (``fb_pallas.fb_prod``, K x K products), B16
+and B18 — or B19, which emits the island confidence, when no path is
+asked for — with the combine over [NL, K, K].  Only the fused two-pass
+arm of the reduced engine is ported: the split arm (B9-B12) and the
+one-pass matrix arm (B8) are not.  The glue spells every contraction as
+an explicit sum in a fixed order (sums over K in order, the one total
+row-major), so it gives the same float32 bits on the CPU and on the card.
 
 Lane geometry: the JAX package picks ``lane_T`` from TPU rate tables,
 which do not carry over; here it is :data:`DEFAULT_LANE_T` capped at the
@@ -30,8 +33,9 @@ from typing import Optional
 import torch
 
 from cpgisland_tpu_torch.models.hmm import HmmParams
-from cpgisland_tpu_torch.ops import fb_onehot
+from cpgisland_tpu_torch.ops import fb_onehot, fb_pallas
 from cpgisland_tpu_torch.ops.fb_chunked import DEFAULT_T_TILE, _batch_lane_setup
+from cpgisland_tpu_torch.ops.fb_pallas import seq_sum
 from cpgisland_tpu_torch.ops.prepared import PreparedSeq, check_seq, prepare_chunked, prepare_seq
 from cpgisland_tpu_torch.ops.viterbi_onehot import GROUP, _groups
 from cpgisland_tpu_torch.ops.viterbi_parallel import associative_scan
@@ -52,19 +56,47 @@ def pick_lane_T(n: int) -> int:
     return min(DEFAULT_LANE_T, p)
 
 
+def _check_engine(engine: str) -> bool:
+    """True for the reduced engine, False for the dense one."""
+    if engine not in ("onehot", "pallas"):
+        raise ValueError(f"fb_seq engine must be onehot|pallas, got {engine!r}")
+    return engine == "onehot"
+
+
 def _norm_rows(v: torch.Tensor) -> torch.Tensor:
-    return v / torch.clamp_min(torch.sum(v, dim=-1, keepdim=True), 1e-30)
+    return v / torch.clamp_min(seq_sum(v, -1), 1e-30)[..., None]
 
 
-def _mm2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """[..., 2, 2] x [..., 2, 2] (+, x) product; each entry one 2-term sum."""
-    return (a[..., :, :, None] * b[..., None, :, :]).sum(-2)
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[..., K, K] x [..., K, K] (+, x) product; each entry a K-term sum
+    in order (for K = 2 one rounded addition)."""
+    acc = a[..., :, 0:1] * b[..., 0:1, :]
+    for j in range(1, a.shape[-1]):
+        acc = acc + a[..., :, j : j + 1] * b[..., j : j + 1, :]
+    return acc
+
+
+def _vecmat(v: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """out[..., j] = sum_k v[..., k] * m[..., k, j], in order of k."""
+    acc = v[..., 0:1] * m[..., 0, :]
+    for k in range(1, m.shape[-2]):
+        acc = acc + v[..., k : k + 1] * m[..., k, :]
+    return acc
+
+
+def _matvec(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """out[..., i] = sum_j m[..., i, j] * v[..., j], in order of j."""
+    acc = m[..., :, 0] * v[..., 0:1]
+    for j in range(1, m.shape[-1]):
+        acc = acc + m[..., :, j] * v[..., j : j + 1]
+    return acc
 
 
 def _lane_combine(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Normalized 2x2 matrix combine (the (+, x) semiring)."""
-    m = _mm2(a, b)
-    tot = ((m[..., 0, 0] + m[..., 0, 1]) + m[..., 1, 0]) + m[..., 1, 1]
+    """Normalized K x K matrix combine (the (+, x) semiring), the total
+    summed row-major in order."""
+    m = _mm(a, b)
+    tot = seq_sum(m.flatten(-2), -1)
     return m / torch.clamp_min(tot, 1e-30)[..., None, None]
 
 
@@ -85,16 +117,79 @@ def _scatter_rows(red: torch.Tensor, g: torch.Tensor, K: int) -> torch.Tensor:
             + torch.where(iK[None, :] == g[:, 1:2], red[:, 1:2], 0.0))
 
 
-def _prep_for(params: HmmParams, obs, length, lane_T, first, prev_sym, prepared):
-    """The span's prep: ``prepared`` (checked against this call; its lane
-    geometry wins unless ``lane_T`` is given), else built here with
-    ``lane_T`` or :func:`pick_lane_T`."""
+def _prep_for(params: HmmParams, obs, length, lane_T, first, prev_sym, prepared,
+              onehot: bool = True):
+    """The span's prep for the engine: ``prepared`` (checked against this
+    call; its lane geometry wins unless ``lane_T`` is given), else built
+    here with ``lane_T`` or :func:`pick_lane_T`."""
     S = params.n_symbols
     if prepared is None:
         return prepare_seq(S, obs, length, lane_T=lane_T or pick_lane_T(obs.shape[0]),
-                           first=first, prev_sym=prev_sym)
-    check_seq(prepared, S, obs.shape[0], lane_T or prepared.lane_T, first, prev_sym)
+                           first=first, prev_sym=prev_sym, onehot=onehot)
+    check_seq(prepared, S, obs.shape[0], lane_T or prepared.lane_T, first, prev_sym,
+              onehot=onehot)
     return prepared
+
+
+def _check_continuation(first: bool, enter_dir) -> None:
+    if not first and enter_dir is None:
+        raise ValueError(
+            "continuation spans (first=False) need enter_dir — the "
+            "entering-alpha direction from the previous span"
+        )
+
+
+def _boundary_dirs(params: HmmParams, o0: int, first: bool, enter_dir, exit_dir):
+    """(base_dir, anchor): the direction entering lane 0 (the init at a
+    record's start, else the threaded ``enter_dir``) and the exiting-beta
+    direction of the last lane (uniform at a free end)."""
+    K = params.n_states
+    B, pi = params.B.to(_F32), params.pi.to(_F32)
+    dev = pi.device
+    base_dir = (_norm_rows(pi * B[:, o0]) if first
+                else _norm_rows(torch.as_tensor(enter_dir, dtype=_F32, device=dev)))
+    anchor = (torch.full((K,), 1.0 / K, dtype=_F32, device=dev) if exit_dir is None
+              else _norm_rows(torch.as_tensor(exit_dir, dtype=_F32, device=dev)))
+    return base_dir, anchor
+
+
+def _lane_v0(prep: PreparedSeq, enters, A, B, pi, first: bool) -> torch.Tensor:
+    """Each lane's v_0 [NL, K], unnormalized (its sum is that position's
+    Rabiner c): the entering direction through A and the lane's first
+    emission; lane 0 holds the init on a first span, an empty lane 1/K."""
+    NL, K = enters.shape
+    v0 = _vecmat(enters, A) * B[:, prep.first_syms.long()].T
+    if first:
+        v0[0] = pi * B[:, prep.o0]
+    return torch.where((prep.lane_lens > 0)[:, None], v0,
+                       torch.full((NL, K), 1.0 / K, dtype=_F32, device=A.device))
+
+
+def _lane_streams_dense(params: HmmParams, obs: torch.Tensor, length: int,
+                        lane_T: Optional[int] = None, *, enter_dir=None, exit_dir=None,
+                        first: bool = True, conf_mask=None,
+                        prepared: Optional[PreparedSeq] = None):
+    """The dense branch of ``_lane_streams``: B17 products -> the two
+    [NL, K, K] boundary scans -> entering / exiting directions and each
+    lane's v_0 -> B16 and B18 (or B19 with ``conf_mask``).  Returns
+    (alphas [lane_T, K, NL], betas [lane_T, K, NL] — or the confidence
+    [lane_T, NL] with ``conf_mask`` —, lens2)."""
+    K = params.n_states
+    _check_continuation(first, enter_dir)
+    A, B, pi = fb_pallas.tables(params)
+    prep = _prep_for(params, obs, length, lane_T, first, None, prepared, onehot=False)
+    P = fb_pallas._run_products_kernel(A, B, prep.sel2)  # [NL, K, K]
+    base_dir, anchor = _boundary_dirs(params, prep.o0, first, enter_dir, exit_dir)
+    eye = torch.eye(K, dtype=_F32, device=A.device)[None]
+    excl = torch.cat([eye, _scan(P)[:-1]], dim=0)  # prefix products
+    enters = _norm_rows(_vecmat(base_dir, excl))  # [NL, K]
+    Rsuf = _scan(P, reverse=True)
+    beta_exits = torch.cat([_norm_rows(_matvec(Rsuf[1:], anchor)), anchor[None]], dim=0)
+    v0 = _lane_v0(prep, enters, A, B, pi, first)
+    lens2 = prep.lane_lens[None, :].contiguous()
+    alphas, _, third = fb_pallas._run_fb_kernels(
+        A, B, prep.steps2, lens2, v0.T, beta_exits.T, prep.lane_T, conf_mask=conf_mask)
+    return alphas, third, lens2
 
 
 def _lane_streams(params: HmmParams, obs: torch.Tensor, length: int,
@@ -111,24 +206,14 @@ def _lane_streams(params: HmmParams, obs: torch.Tensor, length: int,
     or, with ``conf_mask``, the confidence [lane_T, NL] —, esym2, lens2)."""
     K = params.n_states
     A, B, pi = params.A.to(_F32), params.B.to(_F32), params.pi.to(_F32)
-    if not first and enter_dir is None:
-        raise ValueError(
-            "continuation spans (first=False) need enter_dir — the "
-            "entering-alpha direction from the previous span"
-        )
+    _check_continuation(first, enter_dir)
     prep = _prep_for(params, obs, length, lane_T, first, prev_sym, prepared)
-    NL = prep.lane_lens.shape[0]
     gt = _groups(params)
     gin, gout = gt[prep.e_in.long()], gt[prep.e_out.long()]  # [NL, 2]
     red = fb_onehot.products_reduced(params, prep.pair2)  # [NL, 2, 2]
     incl_red = _scan(red)
 
-    o0 = prep.o0
-    a0_dir = _norm_rows(pi * B[:, o0])
-    base_dir = a0_dir if first else _norm_rows(torch.as_tensor(enter_dir, dtype=_F32,
-                                                               device=A.device))
-    anchor = (torch.full((K,), 1.0 / K, dtype=_F32, device=A.device) if exit_dir is None
-              else _norm_rows(torch.as_tensor(exit_dir, dtype=_F32, device=A.device)))
+    base_dir, anchor = _boundary_dirs(params, prep.o0, first, enter_dir, exit_dir)
 
     # Entering-alpha directions in the 2-component group space, scattered to
     # the dense [K] rows; lane 0 enters with the FULL base direction (a
@@ -137,23 +222,16 @@ def _lane_streams(params: HmmParams, obs: torch.Tensor, length: int,
     eye2 = torch.eye(GROUP, dtype=_F32, device=A.device)[None]
     excl_red = torch.cat([eye2, incl_red[:-1]], dim=0)
     base_red = base_dir[gin[0]]
-    enters = _scatter_rows(_norm_rows((base_red[None, :, None] * excl_red).sum(1)), gin, K)
+    enters = _scatter_rows(_norm_rows(_vecmat(base_red, excl_red)), gin, K)
     enters[0] = base_dir
     Rsuf_red = _scan(red, reverse=True)
     anchor_red = anchor[gout[-1]]
     beta_exits_red = torch.cat(
-        [_norm_rows((Rsuf_red[1:] * anchor_red[None, None, :]).sum(-1)), anchor_red[None]],
+        [_norm_rows(_matvec(Rsuf_red[1:], anchor_red)), anchor_red[None]],
         dim=0,
     )
     beta_exits = _scatter_rows(beta_exits_red, gout, K)
-
-    # Per-lane v_0, unnormalized (its sum is that position's Rabiner c).
-    Bf = B[:, prep.first_syms.long()].T  # [NL, K]
-    v0_cont = (enters[:, :, None] * A[None]).sum(1) * Bf
-    if first:
-        v0_cont[0] = pi * B[:, o0]  # lane 0 holds the init
-    v0 = torch.where((prep.lane_lens > 0)[:, None], v0_cont,
-                     torch.full((NL, K), 1.0 / K, dtype=_F32, device=A.device))
+    v0 = _lane_v0(prep, enters, A, B, pi, first)
     lens2 = prep.lane_lens[None, :].contiguous()
     al2, third2, esym2 = fb_onehot.run_fb_kernels_onehot(
         params, None, None, lens2, v0.T, beta_exits.T, prep.lane_T,
@@ -185,50 +263,74 @@ def _conf_path_from_streams(alphas2, betas2, esym2, lens2, island_mask, gt):
 def seq_posterior(params: HmmParams, obs: torch.Tensor, length: int, island_mask, *,
                   enter_dir=None, exit_dir=None, first: bool = True, want_path: bool = False,
                   lane_T: Optional[int] = None, prev_sym: Optional[int] = None,
-                  prepared: Optional[PreparedSeq] = None):
+                  prepared: Optional[PreparedSeq] = None, engine: str = "onehot"):
     """Single-device posterior of one span: (conf [T] f32, MPM path [T]
     int32 — zeros unless ``want_path``), on ``obs``'s device (the params'
-    device).  The twin of ``seq_posterior_pallas(onehot=True, fused=True)``
-    and its ``_seq_posterior_core``.
+    device).  The twin of ``seq_posterior_pallas(fused=True)`` and its
+    ``_seq_posterior_core``, through the reduced (``engine="onehot"``) or
+    the dense (``"pallas"``) kernels; without ``want_path`` the dense
+    engine's backward (B19) emits the confidence directly.
 
     ``island_mask``: [K] 0/1, the island states; conf[t] is the posterior
-    mass on them.  ``prepared``: the span's :class:`PreparedSeq`, shared
-    with its transfer-total sweep.  ``lane_T`` default: the prep's, else
-    :func:`pick_lane_T`.  Continuation spans need ``enter_dir`` and
-    ``prev_sym``."""
+    mass on them.  ``prepared``: the span's :class:`PreparedSeq` for the
+    same engine, shared with its transfer-total sweep.  ``lane_T``
+    default: the prep's, else :func:`pick_lane_T`.  Continuation spans
+    need ``enter_dir``, and on the reduced engine ``prev_sym``."""
     T = obs.shape[0]
     island_mask = torch.as_tensor(island_mask, dtype=_F32, device=params.device)
-    kw = dict(enter_dir=enter_dir, exit_dir=exit_dir, first=first, prev_sym=prev_sym,
-              prepared=prepared)
+    kw = dict(enter_dir=enter_dir, exit_dir=exit_dir, first=first, prepared=prepared)
+    if not _check_engine(engine):
+        if not want_path:
+            _, conf2, _ = _lane_streams_dense(params, obs, length, lane_T,
+                                              conf_mask=island_mask, **kw)
+            return conf2.T.reshape(-1)[:T], torch.zeros(T, dtype=torch.int32, device=obs.device)
+        alphas, betas, lens2 = _lane_streams_dense(params, obs, length, lane_T, **kw)
+        conf2, path2 = fb_pallas._conf_path_from_streams(alphas, betas, lens2, island_mask)
+        return conf2.T.reshape(-1)[:T], path2.T.reshape(-1)[:T]
     if not want_path:
-        _, conf2, _, _ = _lane_streams(params, obs, length, lane_T, conf_mask=island_mask, **kw)
+        _, conf2, _, _ = _lane_streams(params, obs, length, lane_T, conf_mask=island_mask,
+                                       prev_sym=prev_sym, **kw)
         # Lane n covers positions [n * lane_T, (n + 1) * lane_T): back to
         # global order, pad sliced off.
         return conf2.T.reshape(-1)[:T], torch.zeros(T, dtype=torch.int32, device=obs.device)
-    al2, b2, esym2, lens2 = _lane_streams(params, obs, length, lane_T, **kw)
+    al2, b2, esym2, lens2 = _lane_streams(params, obs, length, lane_T, prev_sym=prev_sym, **kw)
     conf2, path2 = _conf_path_from_streams(al2, b2, esym2, lens2, island_mask, _groups(params))
     return conf2.T.reshape(-1)[:T], path2.T.reshape(-1)[:T]
 
 
 def batch_posterior(params: HmmParams, chunks: torch.Tensor, lengths: torch.Tensor,
-                    island_mask, *, want_path: bool = False, t_tile: int = DEFAULT_T_TILE):
+                    island_mask, *, want_path: bool = False, t_tile: int = DEFAULT_T_TILE,
+                    engine: str = "onehot"):
     """Posterior of a [N, T] batch of independent records, one record per
-    lane of B4 (the chunked layout: pi at the start, a free end — exact,
-    since each record fits its lane).  Returns (conf [N, T] f32, path
-    [N, T] int32 — zeros unless ``want_path``).  The onehot branch of
+    lane (the chunked layout: pi at the start, a free end — exact, since
+    each record fits its lane), through B4 (``engine="onehot"``) or B16
+    with B18 / B19 (``"pallas"``).  Returns (conf [N, T] f32, path [N, T]
+    int32 — zeros unless ``want_path``).  The twin of
     ``batch_posterior_pallas``."""
+    onehot = _check_engine(engine)
     S = params.n_symbols
     N, T = chunks.shape
-    prep = prepare_chunked(S, chunks, lengths, t_tile=t_tile)
+    prep = prepare_chunked(S, chunks, lengths, t_tile=t_tile, onehot=onehot)
     _, a0_raw, beta0, _ = _batch_lane_setup(params, prep)
     mask = torch.as_tensor(island_mask, dtype=_F32, device=params.device)
+    no_path = torch.zeros((N, T), dtype=torch.int32, device=chunks.device)
+    if not onehot:
+        A, B, _ = fb_pallas.tables(params)
+        if not want_path:
+            _, _, conf2 = fb_pallas._run_fb_kernels(A, B, prep.steps2, prep.lens2, a0_raw,
+                                                    beta0, T, conf_mask=mask)
+            return conf2.T[:N, :T], no_path
+        alphas, _, betas = fb_pallas._run_fb_kernels(A, B, prep.steps2, prep.lens2, a0_raw,
+                                                     beta0, T)
+        conf2, path2 = fb_pallas._conf_path_from_streams(alphas, betas, prep.lens2, mask)
+        return conf2.T[:N, :T], path2.T[:N, :T]
     streams = (prep.pair2, prep.esym2, prep.pairn2)
     if not want_path:
         _, conf2, _ = fb_onehot.run_fb_kernels_onehot(
             params, None, None, prep.lens2, a0_raw, beta0, T, pair_esym=streams,
             conf_mask=mask,
         )
-        return conf2.T[:N, :T], torch.zeros((N, T), dtype=torch.int32, device=chunks.device)
+        return conf2.T[:N, :T], no_path
     al2, b2, esym2 = fb_onehot.run_fb_kernels_onehot(
         params, None, None, prep.lens2, a0_raw, beta0, T, pair_esym=streams,
     )
@@ -239,13 +341,20 @@ def batch_posterior(params: HmmParams, chunks: torch.Tensor, lengths: torch.Tens
 def seq_transfer_total(params: HmmParams, obs: torch.Tensor, length: int, *,
                        first: bool = True, lane_T: Optional[int] = None,
                        prev_sym: Optional[int] = None,
-                       prepared: Optional[PreparedSeq] = None) -> torch.Tensor:
+                       prepared: Optional[PreparedSeq] = None,
+                       engine: str = "onehot") -> torch.Tensor:
     """Normalized [K, K] transfer operator M of one span (alpha_dir_out ∝
-    alpha_dir_in @ M): the products-only sweep of span threading.  Only
-    the entries between the span's entry and exit groups are nonzero.
-    ``first`` masks global position 0 (the init) — True only for a
-    record's first span; continuation spans need ``prev_sym``."""
-    prep = _prep_for(params, obs, length, lane_T, first, prev_sym, prepared)
+    alpha_dir_in @ M): the products-only sweep of span threading (B7 or,
+    on the dense engine, B17).  On the reduced engine only the entries
+    between the span's entry and exit groups are nonzero.  ``first`` masks
+    global position 0 (the init) — True only for a record's first span;
+    reduced continuation spans need ``prev_sym``."""
+    onehot = _check_engine(engine)
+    prep = _prep_for(params, obs, length, lane_T, first, prev_sym if onehot else None,
+                     prepared, onehot=onehot)
+    if not onehot:
+        A, B, _ = fb_pallas.tables(params)
+        return _scan(fb_pallas._run_products_kernel(A, B, prep.sel2))[-1]
     red = fb_onehot.products_reduced(params, prep.pair2)
     total_red = _scan(red)[-1:]
     return fb_onehot._scatter_products_prob(

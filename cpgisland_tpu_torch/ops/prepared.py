@@ -1,9 +1,10 @@
-"""Prepared symbol streams: everything the reduced kernels' callers derive
-from the symbols alone.
+"""Prepared symbol streams: everything the forward-backward kernels'
+callers derive from the symbols alone.
 
-Counterpart of ``cpgisland_tpu/ops/prepared.py``, cut to the reduced
-(one-hot) engine: the chunked lane layout (one record per lane) and the
-whole-sequence lane layout of one span.  None of it depends on the model
+Counterpart of ``cpgisland_tpu/ops/prepared.py``: the chunked lane layout
+(one record per lane) and the whole-sequence lane layout of one span, for
+the reduced (one-hot) engine, which reads the pair stream, and for the
+dense engine, which reads the clamped symbols.  None of it depends on the model
 parameters, so ``train.baum_welch.fit`` builds the chunked prep ONCE per
 fit on the device (from the uint8 chunks) and hands it to every EM
 iteration, and ``pipeline.posterior_file`` builds one span's prep once for
@@ -31,20 +32,22 @@ class PreparedChunked:
     steps2 [Tp, NL] int32 clamped symbols; lens2 [1, NL] int32; sel2
     [Tp, NL] PAD-marked selection symbols; pair2 / esym2 / pairn2 the
     reduced pair stream, its per-position emitted symbol and the
-    time-shifted next-step pairs the backward chain consumes.  ``N`` x
-    ``T`` is the chunk batch it was built for.  Lanes are not padded (NL ==
-    N); steps pad to ``Tp``, a multiple of the t-tile ``Tt``."""
+    time-shifted next-step pairs the backward chain consumes (None for
+    the dense engine, which reads steps2 and lens2 only).  ``N`` x ``T``
+    is the chunk batch it was built for.  Lanes are not padded (NL == N);
+    steps pad to ``Tp``, a multiple of the t-tile ``Tt``."""
 
     steps2: torch.Tensor
     lens2: torch.Tensor
     sel2: torch.Tensor
-    pair2: torch.Tensor
-    esym2: torch.Tensor
-    pairn2: torch.Tensor
+    pair2: Optional[torch.Tensor]
+    esym2: Optional[torch.Tensor]
+    pairn2: Optional[torch.Tensor]
     S: int
     Tt: int
     N: int
     T: int
+    onehot: bool = True
 
 
 def _pair_next(pair2: torch.Tensor, S: int) -> torch.Tensor:
@@ -64,8 +67,9 @@ def chunked_Tt(T: int, t_tile: int) -> int:
 
 
 def prepare_chunked(S: int, chunks: torch.Tensor, lengths: torch.Tensor, *,
-                    t_tile: int) -> PreparedChunked:
-    """Build the chunked-layout prep on the chunks' device.
+                    t_tile: int, onehot: bool = True) -> PreparedChunked:
+    """Build the chunked-layout prep on the chunks' device; the pair
+    stream only for the reduced engine (``onehot``).
 
     Positions inside a chunk's length are clamped to ``S - 1`` (a masked
     PAD inside a chunk counts as the last real symbol, as in the JAX
@@ -81,6 +85,9 @@ def prepare_chunked(S: int, chunks: torch.Tensor, lengths: torch.Tensor, *,
     steps2[:T] = obs_c.T
     lens2 = lengths[None, :].contiguous()
     sel2 = torch.where(torch.arange(Tp, device=dev)[:, None] < lens2, steps2, S).to(_I32)
+    if not onehot:
+        return PreparedChunked(steps2=steps2, lens2=lens2, sel2=sel2, pair2=None, esym2=None,
+                               pairn2=None, S=S, Tt=Tt, N=int(N), T=int(T), onehot=False)
     # Lanes are independent records: the prev0 = 0 seed (and the symbol
     # the fill threads in from the previous lane) only reaches each lane's
     # position-0 pair, which no consumer reads (the forward's t == 0
@@ -99,26 +106,31 @@ class PreparedSeq:
 
     first_syms [NL] int32 each lane's first clamped symbol (its v_0
     emission); lane_lens [NL] int32; o0 the span's first clamped symbol (a
-    Python int); pair2 / e_in / e_out the pair stream ([lane_T, NL]) and
-    each lane's entry / exit symbol, pairn2 its time-shifted next-step
-    pairs (the backward chain's input).  ``T`` is the span's input length
-    (NL rounds up, so different T can share a lane shape) and ``prev_key``
-    the continuation prev symbol it was built for (None on a first span).
-    The JAX package also keeps the full lane layouts, which only its dense
-    engine reads."""
+    Python int).  The reduced engine (``onehot``) reads pair2 / e_in /
+    e_out, the pair stream ([lane_T, NL]) and each lane's entry / exit
+    symbol, and pairn2, its time-shifted next-step pairs (the backward
+    chain's input); the dense engine reads the time-major lane layouts
+    steps2 (clamped symbols) and sel2 (PAD-marked: the products' input).
+    Each prep carries only its engine's streams.  ``T`` is the span's input
+    length (NL rounds up, so different T can share a lane shape) and
+    ``prev_key`` the continuation prev symbol it was built for (None on a
+    first span and for the dense engine, which needs none)."""
 
     first_syms: torch.Tensor
     lane_lens: torch.Tensor
     o0: int
-    pair2: torch.Tensor
-    e_in: torch.Tensor
-    e_out: torch.Tensor
-    pairn2: torch.Tensor
+    pair2: Optional[torch.Tensor]
+    e_in: Optional[torch.Tensor]
+    e_out: Optional[torch.Tensor]
+    pairn2: Optional[torch.Tensor]
     S: int
     lane_T: int
     first: bool
     T: int
     prev_key: Optional[int]
+    onehot: bool = True
+    steps2: Optional[torch.Tensor] = None
+    sel2: Optional[torch.Tensor] = None
 
 
 def _lane_layout(obs: torch.Tensor, length: int, S: int, lane_T: int, mask_first: bool):
@@ -146,15 +158,24 @@ def _lane_layout(obs: torch.Tensor, length: int, S: int, lane_T: int, mask_first
 
 
 def prepare_seq(S: int, obs: torch.Tensor, length: int, *, lane_T: int, first: bool = True,
-                prev_sym: Optional[int] = None) -> PreparedSeq:
-    """Build one span's whole-sequence prep on ``obs``'s device.  A
-    continuation span (``first=False``) needs ``prev_sym``, the symbol
-    emitted before it: it conditions the reduced chain's entry group."""
+                prev_sym: Optional[int] = None, onehot: bool = True) -> PreparedSeq:
+    """Build one span's whole-sequence prep on ``obs``'s device, for the
+    reduced engine (``onehot``) or the dense one.  A reduced continuation
+    span (``first=False``) needs ``prev_sym``, the symbol emitted before
+    it: it conditions the reduced chain's entry group.  The dense engine
+    takes none."""
     if lane_T <= 0:
         raise ValueError(f"lane_T must be positive, got {lane_T}")
-    if not first and prev_sym is None:
+    if onehot and not first and prev_sym is None:
         raise ValueError("onehot continuation spans (first=False) need prev_sym")
     obs_l, sel_l, lane_lens, o0 = _lane_layout(obs, int(length), S, lane_T, bool(first))
+    if not onehot:
+        return PreparedSeq(
+            first_syms=obs_l[:, 0].contiguous(), lane_lens=lane_lens, o0=o0, pair2=None,
+            e_in=None, e_out=None, pairn2=None, S=S, lane_T=int(lane_T), first=bool(first),
+            T=int(obs.shape[0]), prev_key=None, onehot=False,
+            steps2=obs_l.T.contiguous(), sel2=sel_l.T.contiguous(),
+        )
     # One copy into the time-major layout: the streams handed to the kernels
     # are then contiguous.
     pair2, e_in, e_out = pair_stream(S, sel_l.T.contiguous(), o0 if first else int(prev_sym))
@@ -167,11 +188,17 @@ def prepare_seq(S: int, obs: torch.Tensor, length: int, *, lane_T: int, first: b
 
 
 def check_seq(prep: PreparedSeq, S: int, T: int, lane_T: int, first: bool,
-              prev_sym=None) -> None:
+              prev_sym=None, onehot: bool = True) -> None:
     """Consistency gate between a span's prep and its consumer: a mismatch
-    raises instead of computing on the wrong layout or entry symbol."""
+    raises instead of computing on the wrong layout, engine or entry
+    symbol."""
     if not isinstance(prep, PreparedSeq):
         raise TypeError(f"expected PreparedSeq, got {type(prep).__name__}")
+    if prep.onehot != bool(onehot):
+        raise ValueError(
+            f"prepared seq streams were built for the {'onehot' if prep.onehot else 'dense'} "
+            f"engine; this call runs the {'onehot' if onehot else 'dense'} one"
+        )
     if (prep.S, prep.lane_T, prep.first, prep.T) != (S, lane_T, bool(first), int(T)):
         raise ValueError(
             f"prepared seq streams were built for S={prep.S}, T={prep.T}, "

@@ -1,9 +1,10 @@
 """Whole-record posterior (soft) decoding on one device.
 
-Counterpart of ``cpgisland_tpu/parallel/posterior.py``, for one device
-and the reduced one-hot engine: per-position island confidence
-P(position in island | whole record) and the max-posterior-marginal path,
-through ``ops.fb_seq`` (kernels B7 and B4).  The JAX package shards a
+Counterpart of ``cpgisland_tpu/parallel/posterior.py``, for one device:
+per-position island confidence P(position in island | whole record) and
+the max-posterior-marginal path, through ``ops.fb_seq`` on the reduced
+one-hot engine (kernels B7 and B4) or the dense one (B17, B16 and B18,
+or B19 for the confidence alone).  The JAX package shards a
 record over a mesh; here the mesh has one member, so the cross-device
 exchange is the identity.  Span threading across calls (``enter_dir`` /
 ``exit_dir``) is driven by ``pipeline.posterior_file``.
@@ -18,31 +19,46 @@ import torch
 
 from cpgisland_tpu_torch.family import partition as family_partition
 from cpgisland_tpu_torch.models.hmm import HmmParams
-from cpgisland_tpu_torch.ops import fb_seq
+from cpgisland_tpu_torch.ops import fb_pallas, fb_seq
 from cpgisland_tpu_torch.ops.prepared import PreparedSeq, prepare_seq
 from cpgisland_tpu_torch.train.backends import ONEHOT_MAX_STATES
 
-_NOT_PORTED = (
-    "only the reduced one-hot posterior engine is ported; the dense "
-    "forward-backward engine (kernels B16-B20, ROADMAP A10) and the XLA lane "
-    "path (A2) are not ported yet"
+_XLA_NOT_PORTED = (
+    "the generic XLA lane posterior (any K, log numerics) is not ported yet "
+    "(ROADMAP A2)"
 )
 
 
 def resolve_fb_engine(engine: str, params: HmmParams) -> str:
     """'auto' picks the reduced one-hot kernels for a reduced-eligible model
-    with K <= 32 (the flagship is one); every other engine or model raises
-    (not ported)."""
+    with K <= 32 (the flagship is one), else the dense kernels for K <= 8
+    (``fb_pallas.supports``), as the JAX router does on its TPU.  'pallas'
+    is honoured wherever the dense kernels fit; 'xla', and 'auto' for a
+    model neither engine takes, raise NotImplementedError (ROADMAP A2)."""
     eligible = (family_partition.reduced_eligible(params)
                 and params.n_states <= ONEHOT_MAX_STATES)
     if engine == "auto":
         if eligible:
             return "onehot"
-        raise NotImplementedError(_NOT_PORTED)
-    if engine in ("xla", "pallas"):
-        raise NotImplementedError(_NOT_PORTED)
+        if fb_pallas.supports(params):
+            return "pallas"
+        raise NotImplementedError(
+            f"{params.n_states} states over {params.n_symbols} symbols: outside the "
+            f"reduced engine's domain and the dense kernels' (K <= {fb_pallas.MAX_STATES}, "
+            f"S <= {fb_pallas.MAX_SYMBOLS}); {_XLA_NOT_PORTED}"
+        )
+    if engine == "xla":
+        raise NotImplementedError(_XLA_NOT_PORTED)
+    if engine == "pallas":
+        if not fb_pallas.supports(params):
+            raise ValueError(
+                f"pallas FB kernels need n_states <= {fb_pallas.MAX_STATES} and "
+                f"n_symbols <= {fb_pallas.MAX_SYMBOLS}, got {params.n_states} / "
+                f"{params.n_symbols}"
+            )
+        return engine
     if engine != "onehot":
-        raise ValueError(f"unknown engine {engine!r}; expected auto|onehot")
+        raise ValueError(f"unknown engine {engine!r}; expected auto|xla|pallas|onehot")
     if not eligible:
         raise ValueError(
             "onehot FB kernels need a one-hot emission-support partition with 2 "
@@ -60,9 +76,12 @@ def island_mask(params: HmmParams, island_states) -> np.ndarray:
 def _prev_sym_arg(engine: str, first: bool, prev_sym) -> Optional[int]:
     """The reduced kernels condition a continuation span's entry group on
     the symbol before it; forgetting it would silently mis-condition the
-    chain, so a onehot continuation span without ``prev_sym`` raises."""
+    chain, so a onehot continuation span without ``prev_sym`` raises.  The
+    dense engine reads no prev symbol (None)."""
+    if engine != "onehot":
+        return None
     if prev_sym is None:
-        if not first and engine == "onehot":
+        if not first:
             raise ValueError(
                 "onehot continuation spans (first=False) need prev_sym — the "
                 "symbol immediately before this span"
@@ -81,13 +100,14 @@ def prepare_record_span(params: HmmParams, placed: torch.Tensor, length: int, *,
                         engine: str = "auto", first: bool = True,
                         prev_sym: Optional[int] = None,
                         lane_T: Optional[int] = None) -> PreparedSeq:
-    """One span's symbol-only prep (lane layout + pair stream), shared by the
+    """One span's symbol-only prep for the resolved engine (the lane layout,
+    plus the pair stream on the reduced engine), shared by the
     transfer-total sweep and the posterior sweep."""
     eng = resolve_fb_engine(engine, params)
     ps = _prev_sym_arg(eng, first, prev_sym)
     return prepare_seq(params.n_symbols, placed, int(length),
                        lane_T=lane_T or fb_seq.pick_lane_T(placed.shape[0]), first=first,
-                       prev_sym=ps)
+                       prev_sym=ps, onehot=eng == "onehot")
 
 
 def posterior_sharded(params: HmmParams, obs, island_states, *, engine: str = "auto",
@@ -103,15 +123,16 @@ def posterior_sharded(params: HmmParams, obs, island_states, *, engine: str = "a
     ``prepared`` (from :func:`prepare_record_span`) its prep, whose lane
     geometry then wins.  ``enter_dir`` / ``exit_dir`` ([K] directions)
     thread span-boundary messages; continuation spans (``first=False``)
-    need ``prev_sym``.  The fused two-pass arm runs (the JAX package's
-    default); its split arm (B9-B12) and one-pass arm (B8) are not ported."""
+    on the reduced engine need ``prev_sym``.  On the reduced engine the
+    fused two-pass arm runs (the JAX package's default); its split arm
+    (B9-B12) and one-pass arm (B8) are not ported."""
     eng = resolve_fb_engine(engine, params)
     ps = _prev_sym_arg(eng, first, prev_sym)
     arr = placed if placed is not None else place_record_span(params, obs)
     conf, path = fb_seq.seq_posterior(
         params, arr, int(obs.shape[0]), island_mask(params, island_states),
         enter_dir=enter_dir, exit_dir=exit_dir, first=first, want_path=want_path,
-        lane_T=lane_T, prev_sym=ps, prepared=prepared,
+        lane_T=lane_T, prev_sym=ps, prepared=prepared, engine=eng,
     )
     return conf.cpu().numpy(), (path.to(torch.int8).cpu().numpy() if want_path else None)
 
@@ -121,10 +142,11 @@ def transfer_total_sharded(params: HmmParams, obs, *, engine: str = "auto",
                            prepared: Optional[PreparedSeq] = None) -> np.ndarray:
     """One span's normalized [K, K] probability-space transfer operator on
     the host (sweep A of span threading).  ``placed`` / ``prepared`` as in
-    :func:`posterior_sharded`; continuation spans need ``prev_sym``."""
+    :func:`posterior_sharded`; reduced continuation spans need
+    ``prev_sym``."""
     eng = resolve_fb_engine(engine, params)
     ps = _prev_sym_arg(eng, first, prev_sym)
     arr = placed if placed is not None else place_record_span(params, obs)
     total = fb_seq.seq_transfer_total(params, arr, int(obs.shape[0]), first=first,
-                                      prev_sym=ps, prepared=prepared)
+                                      prev_sym=ps, prepared=prepared, engine=eng)
     return total.cpu().numpy()

@@ -451,14 +451,17 @@ def decode_file(
     return _finish_decode(calls, n_sym, n_records, islands_out, phases)
 
 
-# One posterior pass keeps a span's pair streams and reduced alpha/beta
-# streams on the card (about 40 B/symbol by count of shapes).  Longer
-# records run span by span with exact boundary messages threaded between
-# the spans: the span bounds peak memory, not the result.
+# One posterior pass keeps a span's symbol streams and alpha/beta streams
+# on the card: about 40 B/symbol on the reduced engine, 8K B/symbol for
+# each dense K-state stream (64 B/symbol for alphas and betas at K = 8,
+# plus the path glue).  Longer records run span by span with exact
+# boundary messages threaded between the spans: the span bounds peak
+# memory, not the result.
 POSTERIOR_SPAN = 1 << 26
 
-# Records at or below this size batch into one chunked-layout B4 pass, one
-# record per lane (exact: each record fits its lane whole).
+# Records at or below this size batch into one chunked-layout pass (B4,
+# or B16 with B18 / B19), one record per lane (exact: each record fits its
+# lane whole).
 POSTERIOR_BATCH_MAX = 1 << 19
 
 
@@ -542,8 +545,13 @@ def posterior_file(
     composition).  Records up to ``span`` symbols run in one pass; longer
     ones run span by span with exact boundary messages threaded between
     the spans; records up to min(span, POSTERIOR_BATCH_MAX) batch together,
-    one per lane, by power-of-two size class (file order kept).  Runs on
-    ``device`` (default "cuda"); islands are called on the host
+    one per lane, by power-of-two size class (file order kept).  ``engine``:
+    auto|xla|pallas|onehot (``parallel.posterior.resolve_fb_engine``: auto
+    takes the reduced kernels for the flagship's family, the dense ones for
+    any other model with K <= 8; "xla" is not ported).  A run without a path
+    output (confidence only) takes the dense engine's confidence-emitting
+    backward (B19).  Runs on ``device`` (default "cuda"); islands are called
+    on the host
     (``island_engine`` "auto" or "host").  The prefetching executor,
     resume manifests, integrity checks, metrics, sessions, symbol caches
     and the device island engine are not ported and raise
@@ -648,7 +656,7 @@ def posterior_file(
                 with _phase(phases, "posterior"):
                     conf2, path2 = fb_seq.batch_posterior(
                         params, torch.from_numpy(rows).to(dev), torch.from_numpy(lens).to(dev),
-                        mask, want_path=want_path,
+                        mask, want_path=want_path, engine=eng,
                     )
                     conf2 = conf2.cpu().numpy()
                     path2 = path2.to(torch.int8).cpu().numpy() if want_path else None
@@ -660,8 +668,9 @@ def posterior_file(
             call_rec(name, s, path)
 
     def spanned_record(name: str, symbols: np.ndarray) -> None:
-        # Sweep A: each span's [K, K] transfer operator (B7 only).  Each span
-        # is uploaded and prepared once, for both sweeps.
+        # Sweep A: each span's [K, K] transfer operator (B7 or B17 only).
+        # Each span is uploaded and prepared once, for both sweeps; only the
+        # reduced engine reads the symbol before a span.
         starts = range(0, symbols.size, span)
         prevs = [0 if lo == 0 else _prev_real_symbol(symbols, lo, S) for lo in starts]
         placed, preps, span_totals = [], [], []
@@ -761,7 +770,10 @@ def train_file(
     """Train the CpG HMM on a sequence file (the reference's ``trainModel``).
 
     ``params`` (default: the Durbin 8-state preset) moves to ``device``
-    (default "cuda").  compat mode encodes header lines as bases and drops
+    (default "cuda").  ``engine``: auto|xla|pallas|onehot
+    (``train.backends.resolve_fb_engine``: auto takes the reduced kernels
+    for the flagship's family, the dense ones for any other model with
+    K <= 8; "xla" is not ported).  compat mode encodes header lines as bases and drops
     the remainder chunk, so it trains nothing on a file below
     ``chunk_size`` symbols; clean mode parses FASTA and pads the last
     chunk.  ``invalid_symbols`` is the codec's skip/mask/fail policy (clean
@@ -798,11 +810,14 @@ def run(
     num_iters: int = 10,
     *,
     compat: bool = True,
+    engine: str = "auto",
     device="cuda",
 ) -> DecodeResult:
     """The reference's full ``main()`` from the Durbin preset: train, dump
-    the model, decode, write islands (CpGIslandFinder.java:346-357)."""
+    the model, decode, write islands (CpGIslandFinder.java:346-357).
+    ``engine`` goes to the decode, as in the JAX package; training takes
+    its own "auto" engine."""
     fit = train_file(training_path, num_iters=num_iters, convergence=convergence,
                      model_out=model_out, compat=compat, device=device)
     return decode_file(test_path, fit.params, islands_out=islands_out, compat=compat,
-                       device=device)
+                       engine=engine, device=device)

@@ -302,3 +302,153 @@ def test_device_islands_on_the_card_equal_host(cuda_device):
         want = H.call_islands(path, compat=False)
         for k in ("beg", "end", "length", "gc_content", "oe_ratio"):
             assert np.array_equal(getattr(got, k), getattr(want, k))
+
+
+# -- B16-B20: the dense forward-backward kernels --------------------------------
+
+
+def _fb_dense_operands(rng, K, NL, T, device):
+    """A seeded K-state model (the flagship's tables at K = 8, the
+    two_state preset at K = 2), the chunked layout of [NL, T] chunks with
+    ragged lengths (an empty lane and a short last lane where NL allows,
+    PAD tails), and the kernels' tables on ``device``."""
+    from cpgisland_tpu_torch.ops import fb_chunked
+    from cpgisland_tpu_torch.ops import fb_pallas as FP
+    from cpgisland_tpu_torch.ops.prepared import prepare_chunked
+
+    params = (presets.durbin_cpg8 if K == 8 else presets.two_state_cpg)(device=device)
+    S = params.n_symbols
+    chunks = rng.integers(0, S, size=(NL, T)).astype(np.uint8)
+    lengths = np.full(NL, T, np.int32)
+    lengths[-1] = max(1, T // 3)
+    if NL > 2:
+        lengths[1] = 0
+        lengths[2:-1] = rng.integers(1, T + 1, size=NL - 3)
+    chunks[np.arange(T)[None, :] >= lengths[:, None]] = S
+    prep = prepare_chunked(S, torch.from_numpy(chunks).to(device),
+                           torch.from_numpy(lengths).to(device), t_tile=512, onehot=False)
+    _, a0, beta0, _ = fb_chunked._batch_lane_setup(params, prep)
+    A, B, _ = FP.tables(params)
+    return params, prep, A, B, a0, beta0
+
+
+@pytest.mark.parametrize("K", [2, 8])
+@pytest.mark.parametrize("T", [9, 4099])
+@pytest.mark.parametrize("NL", [1, 33, 1024])
+def test_fb_dense_chain_kernels_bit_equal(cuda_device, K, NL, T):
+    """B16, B18 and B19 write every product and sum as a round-to-nearest
+    intrinsic in the plain version's order: bit-equal, ragged and empty
+    lanes included."""
+    from cpgisland_tpu_torch.ops import fb_pallas as FP
+
+    rng = np.random.default_rng(K * 1000 + NL * 7 + T)
+    params, prep, A, B, a0, beta0 = _fb_dense_operands(rng, K, NL, T, cuda_device)
+    names = ("fb_fwd", "fb_bwd", "fb_bwd_conf")
+    before = {k: _kernels.launches[k] for k in names}
+    alphas = FP.fb_fwd(prep.steps2, prep.lens2, a0, A, B)
+    assert torch.equal(alphas, FP.fb_fwd_plain(prep.steps2, prep.lens2, a0, A, B))
+    Tp = alphas.shape[0]
+    _, steps_next, cs_next = FP.backward_inputs(prep.steps2, alphas)
+    args = (steps_next, prep.lens2, cs_next, beta0)
+    assert torch.equal(FP.fb_bwd(*args, A, B, T), FP.fb_bwd_plain(*args, A, B, T))
+    mask = torch.from_numpy((np.arange(K) < K // 2).astype(np.float32)).to(cuda_device)
+    got = FP.fb_bwd_conf(*args, alphas, mask, A, B, T)
+    assert torch.equal(got, FP.fb_bwd_conf_plain(*args, alphas, mask, A, B, T))
+    assert got.shape == (Tp, NL) and bool(torch.isfinite(got).all())
+    torch.cuda.synchronize()
+    assert all(_kernels.launches[k] == before[k] + 1 for k in names)
+
+
+@pytest.mark.parametrize("K", [2, 8])
+@pytest.mark.parametrize("T", [8, 4099])
+@pytest.mark.parametrize("NL", [1, 33, 1024])
+def test_fb_dense_prod_kernel_bit_equal(cuda_device, K, NL, T):
+    """B17 renormalizes after every 8th step as its plain version does:
+    bit-equal, PAD steps (the identity) and PAD tails included."""
+    from cpgisland_tpu_torch.ops import fb_pallas as FP
+
+    rng = np.random.default_rng(K * 3000 + NL * 5 + T)
+    params = (presets.durbin_cpg8 if K == 8 else presets.two_state_cpg)(device=cuda_device)
+    S = params.n_symbols
+    sel = rng.integers(0, S, size=(T, NL)).astype(np.int32)
+    sel[rng.random((T, NL)) < 0.05] = S
+    sel[T - T // 5 :, -1] = S
+    sel_d = torch.from_numpy(sel).to(cuda_device)
+    A, B, _ = FP.tables(params)
+    tab = FP.step_table(A, B)
+    before = _kernels.launches["fb_prod"]
+    got = FP.fb_prod(sel_d, tab)
+    want = FP.fb_prod_plain(sel_d, tab)
+    torch.cuda.synchronize()
+    assert _kernels.launches["fb_prod"] == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("K", [2, 8])
+@pytest.mark.parametrize("T", [9, 4099])
+@pytest.mark.parametrize("NL", [1, 33, 1024])
+def test_fb_dense_stats_kernel_within_tolerance(cuda_device, K, NL, T):
+    """B20 sums over time in another order than its plain version: rtol
+    1e-5 and atol 1e-3 on the counts and the loglik."""
+    from cpgisland_tpu_torch.ops import fb_pallas as FP
+
+    rng = np.random.default_rng(K * 5000 + NL * 3 + T)
+    params, prep, A, B, a0, beta0 = _fb_dense_operands(rng, K, NL, T, cuda_device)
+    alphas, _, betas = FP._run_fb_kernels(A, B, prep.steps2, prep.lens2, a0, beta0, T)
+    before = _kernels.launches["fb_stats"]
+    got = FP.fb_stats(alphas, betas, prep.steps2, prep.lens2, B, prep.Tt)
+    want = FP.fb_stats_plain(alphas, betas, prep.steps2, prep.lens2, B)
+    torch.cuda.synchronize()
+    assert _kernels.launches["fb_stats"] == before + 1
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=1e-5, atol=1e-3)
+
+
+def _two_state_fasta(rng, path, sizes):
+    with open(path, "w") as f:
+        for r, n in enumerate(sizes):
+            s = rng.choice(4, size=n, p=[0.3, 0.2, 0.2, 0.3])
+            s[900:2400] = rng.choice(4, size=1500, p=[0.15, 0.35, 0.35, 0.15])
+            f.write(f">r{r}\n" + "".join("ACGT"[x] for x in s) + "\n")
+    return str(path)
+
+
+def test_dense_train_file_cuda_equals_cpu(cuda_device, tmp_path):
+    """two_state training through B16, B18 and B20 on the card holds
+    against the plain versions on the CPU: logliks within rtol 1e-5,
+    probabilities within atol 1e-5; B4 and B5 never launch."""
+    p = _two_state_fasta(np.random.default_rng(7), tmp_path / "t.fa", (30_000, 20_000))
+    before = dict(_kernels.launches)
+    fits = {dev: pipeline.train_file(p, params=presets.two_state_cpg(), compat=False,
+                                      chunk_size=4096, num_iters=3, convergence=0.0, device=dev)
+            for dev in ("cpu", "cuda")}
+    counts = {k: _kernels.launches[k] - before[k] for k in before}
+    assert counts["fb_fwd"] == counts["fb_bwd"] == counts["fb_stats"] == 3
+    assert counts["oh_fwdbwd"] == counts["oh_seq_stats"] == 0
+    a, b = fits["cpu"], fits["cuda"]
+    np.testing.assert_allclose(a.logliks, b.logliks, rtol=1e-5)
+    for x, y in ((a.params.pi, b.params.pi), (a.params.A, b.params.A),
+                 (a.params.B, b.params.B)):
+        np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(), atol=1e-5)
+
+
+def test_dense_posterior_file_cuda_equals_cpu(cuda_device, tmp_path):
+    """two_state posterior (island_states=(0,)), span-threaded and batched:
+    island files identical on the card and on the CPU, confidence within
+    1e-5; a confidence-only run launches B19 and not B18."""
+    p = _two_state_fasta(np.random.default_rng(13), tmp_path / "p.fa", (40_000, 3_000, 7_000))
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        buf = io.StringIO()
+        conf = tmp_path / f"c.{dev}.npy"
+        pipeline.posterior_file(p, presets.two_state_cpg(), islands_out=buf,
+                                confidence_out=str(conf), island_states=(0,), span=1 << 14,
+                                device=dev)
+        outs[dev] = (buf.getvalue(), np.load(conf))
+    assert outs["cpu"][0] == outs["cuda"][0] and outs["cuda"][0]
+    np.testing.assert_allclose(outs["cpu"][1], outs["cuda"][1], rtol=0, atol=1e-5)
+    before = dict(_kernels.launches)
+    pipeline.posterior_file(p, presets.two_state_cpg(), confidence_out=str(tmp_path / "c.npy"),
+                            island_states=(0,), device="cuda")
+    assert _kernels.launches["fb_bwd_conf"] > before["fb_bwd_conf"]
+    assert _kernels.launches["fb_bwd"] == before["fb_bwd"]

@@ -19,6 +19,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from cpgisland_tpu import pipeline as JPL
 from cpgisland_tpu.models import presets as JP
@@ -27,6 +28,19 @@ from cpgisland_tpu_torch import pipeline as TPL
 from cpgisland_tpu_torch.models.hmm import params_from_numpy
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The plain dense batch walks 4096 steps of ops over 128 lanes (8
+    rows of a 64 Ki pad, 16 blocks each), past PyTorch's intra-op grain:
+    every step then forks its thread pool, which under a parallel test run
+    (several workers on the same cores) cost 60x.  One thread keeps each
+    step's op inline."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _seq(rng, n, gc):

@@ -120,8 +120,11 @@ def test_resolve_fb_engine_and_backends():
     assert TBE.resolve_fb_engine("auto", tp, "rescaled") == "onehot"
     assert TBE.resolve_fb_engine("onehot", tp, "rescaled") == "onehot"
     dense = HmmParams.from_probs(np.full(2, 0.5), np.full((2, 2), 0.5), np.full((2, 4), 0.25))
-    for engine, params, mode in (("auto", dense, "rescaled"), ("xla", tp, "rescaled"),
-                                 ("pallas", tp, "rescaled"), ("auto", tp, "log")):
+    assert TBE.resolve_fb_engine("auto", dense, "rescaled") == "pallas"
+    assert TBE.resolve_fb_engine("pallas", tp, "rescaled") == "pallas"
+    big = HmmParams.from_probs(np.full(9, 1 / 9), np.full((9, 9), 1 / 9), np.full((9, 4), 0.25))
+    for engine, params, mode in (("auto", big, "rescaled"), ("xla", tp, "rescaled"),
+                                 ("auto", tp, "log")):
         with pytest.raises(NotImplementedError):
             TBE.resolve_fb_engine(engine, params, mode)
     with pytest.raises(ValueError):
