@@ -110,20 +110,22 @@ import time
 import numpy as np
 import torch
 
-from cpgisland_tpu_torch import pipeline
+from cpgisland_tpu_torch import family, pipeline
 from cpgisland_tpu_torch.models import presets
 from cpgisland_tpu_torch.models.hmm import load_text
 from cpgisland_tpu_torch.ops import _kernels, fb_chunked, fb_seq
 from cpgisland_tpu_torch.ops import fb_onehot as FB
 from cpgisland_tpu_torch.ops import fb_pallas as FP
+from cpgisland_tpu_torch.ops import loglik as LL
 from cpgisland_tpu_torch.ops import viterbi_onehot as OH
 from cpgisland_tpu_torch.ops import viterbi_pallas as VP
 from cpgisland_tpu_torch.ops.islands_device import call_islands_device
 from cpgisland_tpu_torch.ops.prepared import prepare_chunked, prepare_seq
 from cpgisland_tpu_torch.parallel.decode import viterbi_sharded
-from cpgisland_tpu_torch.parallel.posterior import posterior_sharded
+from cpgisland_tpu_torch.family.stacked import stack_groups
+from cpgisland_tpu_torch.parallel.posterior import posterior_sharded, resolve_fb_engine
 from cpgisland_tpu_torch.train import baum_welch
-from cpgisland_tpu_torch.train.backends import LocalBackend
+from cpgisland_tpu_torch.train.backends import FamilyEStep, LocalBackend, fit_family
 from cpgisland_tpu_torch.utils import chunking, codec
 
 BK, NB = 4096, 16384  # the default block; 64 Mi steps
@@ -163,6 +165,18 @@ KERNELS = {
     "fb_bwd_conf": ("cpgisland_tpu/ops/fb_pallas.py:366",
                     "cpgisland_tpu_torch/csrc/fb_dense.cu"),
     "fb_stats": ("cpgisland_tpu/ops/fb_pallas.py:535", "cpgisland_tpu_torch/csrc/fb_dense.cu"),
+    "oh_prod_stacked": ("cpgisland_tpu/ops/fb_onehot.py:1695",
+                        "cpgisland_tpu_torch/csrc/fb_onehot.cu"),
+    "oh_fwdbwd_stacked": ("cpgisland_tpu/ops/fb_onehot.py:1930",
+                          "cpgisland_tpu_torch/csrc/fb_onehot.cu"),
+    "oh_seq_stats_stacked": ("cpgisland_tpu/ops/fb_onehot.py:2323",
+                             "cpgisland_tpu_torch/csrc/fb_onehot.cu"),
+    # The scoring pass has no Pallas kernel: it replaces the serial lax.scan of
+    # sequence_loglik.
+    "oh_loglik": ("cpgisland_tpu/ops/forward_backward.py:316",
+                  "cpgisland_tpu_torch/csrc/loglik.cu"),
+    "fb_loglik": ("cpgisland_tpu/ops/forward_backward.py:316",
+                  "cpgisland_tpu_torch/csrc/loglik.cu"),
 }
 DECODE_KERNELS = ("oh_products", "oh_backpointers", "oh_backtrace")
 DENSE_KERNELS = ("dense_products", "dense_backpointers", "dense_backtrace")
@@ -174,6 +188,12 @@ ISLAND_STATES = (0, 1, 2, 3)
 # (label, span, B7 launches): the big record in one pass (the scaffolds
 # batch, without B7), then in 4 spans (4 transfer totals, 4 posteriors).
 POSTERIOR_RUNS = (("default", 1 << 26, 1), ("span16Mi", 1 << 24, 8))
+# (S, M) of the stacked kernel checks: the flagship (S=4) or dinuc_cpg (S=16)
+# plus M-1 random partition=2 members of its alphabet.
+STACK_CONFIGS = ((4, 2), (4, 5), (16, 2))
+STACKED_KERNELS = ("oh_prod_stacked", "oh_fwdbwd_stacked", "oh_seq_stats_stacked")
+SINGLE_FB_KERNELS = ("oh_prod", "oh_fwdbwd", "oh_seq_stats")
+FAMILY_M = 3
 
 
 def emit(obj) -> None:
@@ -1277,6 +1297,404 @@ def dense_fb_profile_phase(big: np.ndarray, fa: str, dev) -> None:
     profile_posterior(two, big, (0,), "two_state")
 
 
+# ---------------------------------------------------------------------------
+# Phases 17-20: the stacked kernels (B21, B24, B25), the scoring kernels, the
+# compare main path and the family trainer
+
+
+def family_members(gen: torch.Generator, dev, S: int, M: int) -> list:
+    """The flagship (S = 4) or dinuc_cpg (S = 16) plus M - 1 random
+    partition=2 members of its alphabet: a stacked member set."""
+    first = presets.durbin_cpg8(device=dev) if S == 4 else presets.dinuc_cpg(device=dev)
+    return [first] + [presets.random_hmm(gen, 2 * S, S, partition=2, device=dev)
+                      for _ in range(M - 1)]
+
+
+def chaining_stream(rng: np.random.Generator, n: int, S: int) -> np.ndarray:
+    """n random symbols of the S-symbol alphabet; for S = 16 the pair recode
+    of random bases, so consecutive pairs chain as dinuc_cpg requires."""
+    base = rng.integers(0, 4, size=n).astype(np.uint8)
+    return base if S == 4 else codec.recode_pairs(base)
+
+
+def chaining_chunks(rng: np.random.Generator, S: int):
+    """ragged_chunks of the S-symbol alphabet, pair-recoded for S = 16."""
+    chunks, lengths = ragged_chunks(rng, 4)
+    if S == 16:
+        pad = chunks == 4
+        chunks = codec.recode_pairs(np.minimum(chunks, 3).ravel()).reshape(chunks.shape)
+        chunks[pad] = 16
+    return chunks, lengths
+
+
+def _stacked_row(name, S, M, geometry, got, want, per_member, kernel_fn, plain_ms, single_ms,
+                 n_bytes, n_ops, steps, tol=None, **more) -> dict:
+    """Hold a stacked kernel against its plain version (bit for bit, or
+    within ``tol``) and, per member, against the single-model kernel (bit
+    for bit); time it beside M x the single-model kernel's time."""
+    if tol is None:
+        agree = all(torch.equal(g, w) for g, w in zip(got, want))
+    else:
+        agree = all(torch.allclose(g, w, rtol=tol[0], atol=tol[1]) for g, w in zip(got, want))
+    err = max(max_abs_err(g, w) for g, w in zip(got, want))
+    extra = {"bit_equal": agree} if tol is None else {"tolerance": f"rtol {tol[0]:g}, atol {tol[1]:g}"}
+    row = kernel_row(name, agree and per_member, err, kernel_fn, None, n_bytes, n_ops, steps,
+                     plain_runs=1, plain_ms=plain_ms, S=S, M=M, geometry=geometry,
+                     equals_single_per_member=per_member, single_ms=single_ms,
+                     m_times_single_ms=M * single_ms, **extra, **more)
+    if not (agree and per_member):
+        raise SystemExit(f"chip_smoke: {name} (S={S}, M={M}, {geometry}) disagrees with its plain "
+                         f"version ({agree}) or with the single-model kernel per member "
+                         f"({per_member})")
+    return row
+
+
+def stacked_kernel_phase(rng: np.random.Generator, gen: torch.Generator, dev) -> dict:
+    """B21 at NL=8192 x lane_T=8192, B24 there and at NL=1024 x Tp=65,536,
+    B25 at the training geometry, for each of STACK_CONFIGS: per member
+    bit-equal to B7 / B4 / B5, B21 and B24 bit-equal to their plain
+    versions, B25 within rtol 1e-5 / atol 1e-3 of its plain version.
+    Returns the table rows (S = 4, M = 2) by kernel name."""
+    results = {}
+    T = POST_NL * POST_LANE_T
+    for S in (4, 16):
+        obs = torch.from_numpy(chaining_stream(rng, T, S)).to(dev)
+        post = prepare_seq(S, obs, T - POST_LANE_T // 3, lane_T=POST_LANE_T)
+        post_lens = post.lane_lens[None, :].contiguous()
+        chunks, lengths = chaining_chunks(rng, S)
+        train = prepare_chunked(S, torch.from_numpy(chunks).to(dev),
+                                torch.from_numpy(lengths).to(dev),
+                                t_tile=fb_chunked.DEFAULT_T_TILE)
+        del obs
+        for S_, M in STACK_CONFIGS:
+            if S_ != S:
+                continue
+            members = family_members(gen, dev, S, M)
+            gts, tabs = FB.stacked_tables(members)
+            K = 2 * S
+            tab_b = tabs[0].numel() * 4
+            one = lambda m: tabs[m].contiguous()  # noqa: E731
+
+            # B21 at the posterior geometry.
+            Tp, NL = post.pair2.shape
+            n = Tp * NL
+            red = FB.oh_prod_stacked(post.pair2, tabs)
+            red_p, plain_ms = timed_once(lambda: FB.oh_prod_stacked_plain(post.pair2, tabs))
+            per = all(torch.equal(FB.oh_prod(post.pair2, one(m)), red[m]) for m in range(M))
+            single_ms = time_ms(lambda: FB.oh_prod(post.pair2, one(0)), runs=10)
+            row = _stacked_row(
+                "oh_prod_stacked", S, M, "posterior span", [red], [red_p], per,
+                lambda: FB.oh_prod_stacked(post.pair2, tabs), plain_ms, single_ms,
+                # the shared pair stream read once, M tables, M x [4, NL] written
+                4 * n + M * (tab_b + 16 * NL), M * 20 * n, n)
+            del red, red_p
+
+            # B24 at the posterior geometry, then at the training one.
+            for geo, prep, lens2, steps_T in (("posterior span", post, post_lens, POST_LANE_T),
+                                              ("train", train, train.lens2, FB_TP)):
+                Tp, NL = prep.pair2.shape
+                n = Tp * NL
+                rand = lambda: torch.from_numpy(  # noqa: E731
+                    rng.random((M, 2, NL)).astype(np.float32) + 0.01).to(dev)
+                args = (prep.pair2, prep.pairn2, lens2, rand(), rand(), tabs, steps_T)
+                al, be = FB.oh_fwdbwd_stacked(*args)
+                (al_p, be_p), plain_ms = timed_once(lambda: FB.oh_fwdbwd_stacked_plain(*args))
+                per = True
+                for m in range(M):
+                    a1, b1 = FB.oh_fwdbwd(prep.pair2, prep.pairn2, lens2, args[3][m], args[4][m],
+                                          one(m), steps_T)
+                    per = per and torch.equal(a1, al[m]) and torch.equal(b1, be[m])
+                    del a1, b1
+                single_ms = time_ms(lambda: FB.oh_fwdbwd(prep.pair2, prep.pairn2, lens2,
+                                                         args[3][0], args[4][0], one(0), steps_T),
+                                    runs=10)
+                fwd_row = _stacked_row(
+                    "oh_fwdbwd_stacked", S, M, geo, [al, be], [al_p, be_p], per,
+                    lambda: FB.oh_fwdbwd_stacked(*args), plain_ms, single_ms,
+                    # pair + pairn read once, M x (alphas + betas) written
+                    8 * n + M * (16 * n + 16 * NL + tab_b) + 4 * NL, M * 2 * 7 * n, n)
+                del al_p, be_p
+                if geo == "posterior span":
+                    del al, be
+            # B25 on the training geometry's streams, with the chunked
+            # caller's zero enters and pair0 mask.
+            Tp, NL = train.pair2.shape
+            B_reds = torch.stack([FB.reduced_emissions(p, gt) for p, gt in zip(members, gts)])
+            gts32 = gts.to(torch.int32).contiguous()
+            zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=dev)  # noqa: E731
+            st_args = (al, be, train.pair2, train.lens2, tabs, B_reds, gts32, zeros(M, K, NL),
+                       zeros(M, 2, NL), zeros(1, NL))
+            got = FB.oh_seq_stats_stacked(*st_args, train.Tt)
+            # At S = 16 the plain version's [Tp, K, lanes] intermediates of the
+            # whole batch outgrow the card: it is held on the first 128
+            # lanes there (every lane's counts are its own).
+            lanes = NL if S == 4 else 128
+            sub = (st_args[0][..., :lanes], st_args[1][..., :lanes], train.pair2[:, :lanes],
+                   train.lens2[:, :lanes], tabs, B_reds, gts32, st_args[7][..., :lanes],
+                   st_args[8][..., :lanes], st_args[9][:, :lanes])
+            sub = tuple(x.contiguous() for x in sub)
+            want, plain_ms = timed_once(lambda: FB.oh_seq_stats_stacked_plain(*sub))
+            got_sub = [g[..., :lanes] for g in got]
+            per = True
+            for m in range(M):
+                single = FB.oh_seq_stats(al[m], be[m], train.pair2, train.lens2, one(m),
+                                         B_reds[m], gts32[m], zeros(K, NL), zeros(2, NL),
+                                         zeros(1, NL), train.Tt)
+                per = per and all(torch.equal(a, b[m]) for a, b in zip(single, got))
+            single_ms = time_ms(lambda: FB.oh_seq_stats(
+                al[0], be[0], train.pair2, train.lens2, one(0), B_reds[0], gts32[0],
+                zeros(K, NL), zeros(2, NL), zeros(1, NL), train.Tt), runs=10)
+            valid = int(np.minimum(lengths, Tp).sum())  # B25 reads valid steps only
+            st_row = _stacked_row(
+                "oh_seq_stats_stacked", S, M, "train", got_sub, list(want), per,
+                lambda: FB.oh_seq_stats_stacked(*st_args, train.Tt), plain_ms, single_ms,
+                # per member alphas + betas at the valid steps; the pair once
+                M * (16 * valid + (K * K + 2 * S + 1) * NL * 4) + 4 * valid + 4 * NL,
+                M * 40 * valid, valid, tol=(1e-5, 1e-3), plain_lanes=lanes)
+            del al, be, got, want, st_args, sub, got_sub
+            if (S, M) == (4, 2):
+                results |= {"oh_prod_stacked": row, "oh_fwdbwd_stacked": fwd_row,
+                            "oh_seq_stats_stacked": st_row}
+        del post, train
+        torch.cuda.empty_cache()
+    return results
+
+
+def _captured(fn, module, name: str):
+    """(fn(), the arguments of the one call it makes to module.name)."""
+    orig, seen = getattr(module, name), []
+
+    def spy(*args):
+        seen.append(args)
+        return orig(*args)
+
+    setattr(module, name, spy)
+    try:
+        out = fn()
+    finally:
+        setattr(module, name, orig)
+    return out, seen[-1]
+
+
+def scoring_kernel_phase(big: np.ndarray, dev) -> dict:
+    """The scoring kernels on the genome's 64 Mi record (the lanes of the
+    posterior, 8,192 x 8,192) for the flagship (reduced chain), two_state
+    and null (dense chain, K = 2 and 1): the chain kernels against their
+    plain versions on the same lanes (rtol 1e-5 per lane), and the whole
+    sequence_loglik on a 4 Mi prefix through the kernels and through the
+    plain chains (rtol 1e-5).  Returns the rows: the flagship's oh_loglik
+    and two_state's fb_loglik."""
+    results = {}
+    obs = torch.from_numpy(big).to(dev)
+    for model, params in (("durbin8", presets.durbin_cpg8(device=dev)),
+                          ("two_state", presets.two_state_cpg(device=dev)),
+                          ("null", presets.null_background(4, device=dev))):
+        name = "oh_loglik" if LL.scoring_engine(params) == "onehot" else "fb_loglik"
+        LL.sequence_loglik(params, obs[: 1 << 20])  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ll, args = _captured(lambda: LL.sequence_loglik(params, obs), LL, name)
+        wall = time.perf_counter() - t0
+        kernel, plain = getattr(LL, name), getattr(LL, f"{name}_plain")
+        got = kernel(*args)
+        want, plain_ms = timed_once(lambda: plain(*args))
+        agree = bool(torch.allclose(got, want, rtol=1e-5, atol=0))
+        Tp, NL = args[0].shape
+        real = int((args[0] < (params.n_symbols ** 2 if name == "oh_loglik"
+                               else params.n_symbols)).sum())
+        K = params.n_states
+        ops = 10 * real if name == "oh_loglik" else (2 * K * K + 2 * K + 1) * real
+        row = kernel_row(name, agree, max_abs_err(got, want), lambda: kernel(*args), None,
+                         4 * Tp * NL + 4 * args[1].numel() + 8 * got.numel(), ops, Tp * NL,
+                         plain_runs=1, plain_ms=plain_ms, model=model, K=K,
+                         tolerance="rtol 1e-5 per lane", record_symbols=int(big.size),
+                         loglik=ll, sequence_loglik_wall_s=wall)
+        if not (agree and np.isfinite(ll)):
+            raise SystemExit(f"chip_smoke: the {model} scoring kernel disagrees with its plain "
+                             f"version, or scored {ll}")
+        prefix = obs[:PARITY_SYMBOLS]
+        ll_k = LL.sequence_loglik(params, prefix)
+        orig = getattr(LL, name)
+        setattr(LL, name, plain)
+        try:
+            ll_p = LL.sequence_loglik(params, prefix)
+        finally:
+            setattr(LL, name, orig)
+        emit({"phase": "scoring_parity", "model": model, "symbols": PARITY_SYMBOLS,
+              "loglik_kernel": ll_k, "loglik_plain": ll_p,
+              "rel_diff": abs(ll_k - ll_p) / abs(ll_p)})
+        if not abs(ll_k - ll_p) <= 1e-5 * abs(ll_p):
+            raise SystemExit(f"chip_smoke: {model} scores differently through the plain chain")
+        if model in ("durbin8", "two_state"):
+            results[name] = row
+    return results
+
+
+def compare_casts(gen: torch.Generator, model_path: str) -> list:
+    """(label, members, stacked) of the compare main path: the default cast,
+    the flagship against the flagship that ``run`` trained (a stacked group)
+    stacked and not, and an order-2 cast with a random K = 32 pair member
+    (a stacked group on the pair alphabet)."""
+    b = family.builtin_member
+    trained = [b("durbin8"), family.member_from_params("trained", load_text(model_path)),
+               b("two_state"), b("null")]
+    rand32 = family.member_from_params("rand32", presets.random_hmm(gen, 32, 16, partition=2))
+    return [("default", family.default_members(), True), ("trained", trained, True),
+            ("trained", trained, False), ("order2", [b("dinuc_cpg"), rand32, b("null16")], True)]
+
+
+def check_comparison(res, label: str) -> None:
+    ok = res.n_records > 0
+    for rc in res.records:
+        for m in rc.members:
+            ok = ok and np.isfinite(m.loglik) and np.isfinite(m.log_odds)
+            ok = ok and (m.conf.shape == (rc.n_symbols,)) and bool(np.all(np.isfinite(m.conf)))
+            ok = ok and bool(np.all((m.conf >= 0) & (m.conf <= 1 + 1e-6)))
+    calls = sum(len(rc.winner_calls) for rc in res.records)
+    if not (ok and calls > 0):
+        raise SystemExit(f"chip_smoke: compare ({label}) gave non-finite or out-of-range results "
+                         f"or no winner-track islands ({calls})")
+
+
+def compare_phase(fa: str, tmp: str, dev, casts: list) -> dict:
+    """compare_file over the genome for each cast; a run with a stacked
+    group launches B21 and B24 (and no B7 or B4: every reduced member of
+    these casts is grouped), any other run B7 and B4 and no stacked kernel,
+    every run both scoring kernels, and the stacked and sequential reports
+    are byte-identical.  Returns the launch counts of
+    every run together."""
+    launches: dict = {}
+    reports = {}
+    for label, members, stacked in casts:
+        arm = "stacked" if stacked else "sequential"
+        out = os.path.join(tmp, f"compare.{label}.{arm}.txt")
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = pipeline.compare_file(fa, members, out=out, stacked=stacked, device=dev)
+        wall = time.perf_counter() - t0
+        counts = {k: v for k, v in _kernels.launches.items() if v}
+        check_comparison(res, f"{label} {arm}")
+        big = max(res.records, key=lambda rc: rc.n_symbols)
+        emit({"phase": "compare", "cast": label, "arm": arm, "models": res.member_names,
+              "symbols": res.n_symbols, "records": res.n_records, "wall_s": wall,
+              "phases_s": res.phases, "msym_per_s": res.n_symbols / wall / 1e6,
+              "winner_islands": sum(len(rc.winner_calls) for rc in res.records),
+              "big_record": {m.name: {"loglik": m.loglik, "log_odds": m.log_odds,
+                                      "islands": len(m.calls)} for m in big.members},
+              "launches": counts})
+        engines = [None if m.is_null else resolve_fb_engine("auto", m.params) for m in members]
+        if stack_groups(members, engines, enabled=stacked):
+            bad = (any(counts.get(k, 0) == 0 for k in ("oh_prod_stacked", "oh_fwdbwd_stacked"))
+                   or counts.get("oh_prod", 0) or counts.get("oh_fwdbwd", 0))
+        else:
+            bad = (any(counts.get(k, 0) == 0 for k in ("oh_prod", "oh_fwdbwd"))
+                   or any(counts.get(k, 0) for k in STACKED_KERNELS))
+        if bad or not counts.get("oh_loglik") or not counts.get("fb_loglik"):
+            raise SystemExit(f"chip_smoke: compare ({label}, {arm}) launched {counts}")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        with open(out) as f:
+            reports[(label, arm)] = f.read()
+    same = reports[("trained", "stacked")] == reports[("trained", "sequential")]
+    emit({"phase": "compare_arms", "cast": "trained", "reports_identical": same,
+          "lines": reports[("trained", "stacked")].count("\n")})
+    if not same:
+        raise SystemExit("chip_smoke: the stacked and sequential compare reports differ")
+    return launches
+
+
+def _model_lines(report: str) -> list:
+    return [ln.split() for ln in report.splitlines() if ln.startswith("# model ")]
+
+
+def compare_parity_phase(rng: np.random.Generator, big: np.ndarray, tmp: str, dev,
+                         casts: list) -> None:
+    """A small FASTA compared on the CPU and on the card (the stacked cast):
+    the winner-track and record lines byte-identical, each model's loglik
+    and log-odds within rtol 1e-5 of the logliks; then the dinuc lift on a
+    4 Mi prefix of the genome: ll(flagship) - log 4 = ll(dinuc_cpg) within
+    1e-5 relative, and the two confidence tracks within 1e-3."""
+    fa = os.path.join(tmp, "compare_small.fa")
+    with open(fa, "wb") as f:
+        for i, n in enumerate((9_000, 23_000, 4_000)):
+            f.write(to_fasta_bytes(rng, f"c{i}", make_sequence(rng, n)))
+    members = next(m for label, m, stacked in casts if label == "trained")
+    out = []
+    for where in ("cpu", dev):
+        buf = io.StringIO()
+        pipeline.compare_file(fa, members, out=buf, device=where)
+        out.append(buf.getvalue())
+    rest = [[ln for ln in r.splitlines() if not ln.startswith("# model ")] for r in out]
+    mc, mg = _model_lines(out[0]), _model_lines(out[1])
+    err = 0.0
+    for a, b in zip(mc, mg):
+        ll_scale = abs(float(a[4]))
+        err = max(err, abs(float(a[4]) - float(b[4])) / ll_scale,
+                  abs(float(a[6]) - float(b[6])) / ll_scale)
+    same = rest[0] == rest[1] and [x[:4] + x[7:] for x in mc] == [x[:4] + x[7:] for x in mg]
+    emit({"phase": "compare_cpu_vs_cuda", "lines_identical": same, "lines": len(rest[1]),
+          "max_rel_err": err})
+    if not (same and len(mc) == len(mg) and err <= 1e-5):
+        raise SystemExit("chip_smoke: compare on the CPU and on the card disagree")
+
+    obs = big[:PARITY_SYMBOLS]
+    rc = family.compare_record([family.builtin_member("durbin8"),
+                                family.builtin_member("dinuc_cpg")], obs, device=dev)
+    fl, di = rc.members
+    lift = abs((fl.loglik - np.log(4.0)) - di.loglik) / abs(fl.loglik)
+    c_err = float(np.abs(fl.conf.astype(np.float64) - di.conf).max())
+    emit({"phase": "dinuc_lift", "symbols": PARITY_SYMBOLS, "loglik_flagship": fl.loglik,
+          "loglik_dinuc": di.loglik, "rel_err": lift, "max_conf_err": c_err})
+    if not (lift <= 1e-5 and c_err <= 1e-3):
+        raise SystemExit("chip_smoke: dinuc_cpg is not the flagship's pair lift")
+
+
+def fit_family_phase(gen: torch.Generator, fa: str, dev) -> dict:
+    """fit_family of FAMILY_M reduced members (the flagship and random
+    partition=2 members) on the genome's training batch, TRAIN_ITERS
+    iterations: B24 and B25 once per iteration, B4 and B5 never, and every
+    member's trajectory and model equal to its own baum_welch.fit bit for
+    bit; then profiles of one stacked E-step and of the sequential arm.
+    Returns the launch counts of the fit_family run."""
+    chunked = chunking.frame(codec.encode_file(fa), chunking.TRAIN_CHUNK, drop_remainder=True)
+    members = family_members(gen, dev, 4, FAMILY_M)
+    chunks, lengths = LocalBackend().place(chunked, dev)
+    fit_family(members, chunks, lengths, n_iter=1)  # warm
+    _kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fitted, hist = fit_family(members, chunks, lengths, n_iter=TRAIN_ITERS)
+    wall = time.perf_counter() - t0
+    counts = {k: _kernels.launches[k] for k in STACKED_KERNELS + SINGLE_FB_KERNELS}
+    solo = [baum_welch.fit(p, chunked, num_iters=TRAIN_ITERS, convergence=0.0, engine="onehot")
+            for p in members]
+    ll_same = [bool(np.array_equal(hist[:, m], np.asarray(r.logliks, np.float64)))
+               for m, r in enumerate(solo)]
+    params_same = [all(torch.equal(getattr(fitted[m], f), getattr(r.params, f))
+                       for f in ("log_pi", "log_A", "log_B")) for m, r in enumerate(solo)]
+    same = all(ll_same) and all(params_same)
+    symbols = int(chunked.total)
+    emit({"phase": "fit_family", "M": FAMILY_M, "chunks": chunked.num_chunks, "symbols": symbols,
+          "iterations": TRAIN_ITERS, "wall_s": wall,
+          "em_msym_per_s_times_m": symbols * TRAIN_ITERS * FAMILY_M / wall / 1e6,
+          "solo_em_s": [r.phases["em"] for r in solo], "logliks": hist.tolist(),
+          "equals_solo_fits": same, "logliks_equal": ll_same, "models_equal": params_same,
+          "solo_logliks": [r.logliks for r in solo], "launches": counts})
+    if not same:
+        raise SystemExit("chip_smoke: fit_family differs from the members' own fits")
+    if (counts["oh_fwdbwd_stacked"] != TRAIN_ITERS or counts["oh_seq_stats_stacked"] != TRAIN_ITERS
+            or counts["oh_fwdbwd"] or counts["oh_seq_stats"]):
+        raise SystemExit(f"chip_smoke: fit_family launched {counts}")
+    for stacked in (True, False):
+        estep = FamilyEStep(stacked=stacked)
+        prep = estep.prepare_streams(members, chunks, lengths)
+        estep(members, chunks, lengths, prepared=prep)
+        profiled(f"one family E-step, M={FAMILY_M}, {'stacked' if stacked else 'sequential'}, "
+                 f"{chunked.num_chunks} chunks of {chunking.TRAIN_CHUNK}",
+                 lambda: [st.loglik for st in estep(members, chunks, lengths, prepared=prep)])
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1302,6 +1720,8 @@ def main(argv=None) -> int:
     results |= post_kernel_phase(rng, params, dev)
     results |= dense_kernel_phase(rng, dev)
     results |= dense_fb_kernel_phase(rng, dev)
+    gen = torch.Generator().manual_seed(args.seed)
+    results |= stacked_kernel_phase(rng, gen, dev)
     with tempfile.TemporaryDirectory() as tmp:
         fa, big, launches = main_path_phase(rng, params, tmp, dev)
         launches |= dense_main_phase(fa, tmp, dev)
@@ -1324,6 +1744,14 @@ def main(argv=None) -> int:
         launches |= dense_launches
         dense_fb_parity_phase(rng, big, tmp, dev)
         dense_fb_profile_phase(big, fa, dev)
+        results |= scoring_kernel_phase(big, dev)
+        casts = compare_casts(gen, os.path.join(tmp, "run.model.txt"))
+        # The compare runs and fit_family are main paths too: their counts
+        # add to every kernel's.
+        for counts in (compare_phase(fa, tmp, dev, casts), fit_family_phase(gen, fa, dev)):
+            for k, n in counts.items():
+                launches[k] = launches.get(k, 0) + n
+        compare_parity_phase(rng, big, tmp, dev, casts)
 
     table = []
     for name, r in results.items():

@@ -26,6 +26,10 @@ Two forms, as ``python -m cpgisland_tpu``:
            [--confidence-out c.npy] [--mpm-path-out p.npy] [--min-len N] \\
            [--island-states 0,1,2,3] [--model m.txt | --preset durbin8|two_state] \\
            [--engine auto|xla|pallas|onehot] [--invalid-symbols P]
+       python -m cpgisland_tpu_torch compare FILE --out report.txt \\
+           [--models durbin8,two_state,null | NAME=MODEL.txt,...] [--baseline NAME] \\
+           [--min-len N] [--threshold X] [--engine auto|xla|pallas|onehot] \\
+           [--no-stacked] [--invalid-symbols P]
 
 Everything runs on the card unless ``--device cpu`` is given (the kernels'
 plain versions); that flag may stand anywhere in the arguments, the
@@ -39,7 +43,7 @@ import argparse
 import sys
 from typing import Optional, Sequence
 
-_SUBCOMMANDS = ("train", "decode", "run", "posterior")
+_SUBCOMMANDS = ("train", "decode", "run", "posterior", "compare")
 _DEVICES = ("cuda", "cpu")
 
 
@@ -188,6 +192,33 @@ def build_parser() -> argparse.ArgumentParser:
     _add_island_states_flag(po)
     _add_fb_engine_flag(po)
     _add_invalid_symbols_flag(po)
+
+    cp = sub.add_parser(
+        "compare",
+        help="multi-model posterior comparison: N family members over one FASTA stream — "
+        "per-model log-odds vs a baseline, per-model islands, and a per-position "
+        "winning-model track in the reference island format (clean semantics)",
+    )
+    cp.add_argument("test_file")
+    cp.add_argument(
+        "--models", default="durbin8,two_state,null",
+        help="comma-separated family members: built-in names (durbin8,two_state,dinuc_cpg,"
+        "null,null16) and/or NAME=MODEL.txt entries (loaded model text; island states "
+        "inferred for 2M-state layouts).  Default: durbin8,two_state,null",
+    )
+    cp.add_argument("--out", required=True, help="comparison report path")
+    cp.add_argument("--baseline", help="member name for the log-odds denominator (default: "
+                    "the one null member when present, else the first member)")
+    cp.add_argument("--min-len", type=int, default=None,
+                    help="minimum island length for the emitted tracks")
+    cp.add_argument("--threshold", type=float, default=None,
+                    help="winner-track confidence threshold (default 0.5): a position below "
+                    "it on every member falls back to background")
+    _add_fb_engine_flag(cp)
+    cp.add_argument("--no-stacked", action="store_true",
+                    help="run every member on its own (the stacked dispatch puts same-order "
+                    "reduced members in ONE launch set; results are bit-identical either way)")
+    _add_invalid_symbols_flag(cp)
     return ap
 
 
@@ -244,6 +275,40 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                  if res.calls is not None else "")
         print(f"posterior: {res.n_symbols} symbols in {res.n_records} records; "
               f"mean island confidence {res.mean_island_confidence:.4f}{extra}")
+        return 0
+
+    if args.cmd == "compare":
+        from cpgisland_tpu_torch import family
+
+        members, seen = [], set()
+        for tok in args.models.split(","):
+            tok = tok.strip()
+            if not tok:
+                continue
+            if "=" in tok:
+                name, path = tok.split("=", 1)
+                m = family.member_from_params(name, load_text(path))
+            else:
+                m = family.builtin_member(tok)
+            if m.name in seen:
+                parser.error(f"duplicate member name {m.name!r}")
+            seen.add(m.name)
+            members.append(m)
+        if not members:
+            parser.error("--models named no members")
+        try:
+            family.resolve_baseline(members, args.baseline)
+        except ValueError as e:
+            parser.error(str(e))
+        res = pipeline.compare_file(
+            args.test_file, members, out=args.out, engine=args.engine, baseline=args.baseline,
+            min_len=args.min_len, threshold=args.threshold,
+            invalid_symbols=args.invalid_symbols, stacked=not args.no_stacked, device=device,
+        )
+        n_winner = sum(len(rc.winner_calls) for rc in res.records)
+        print(f"compared {len(res.member_names)} models over {res.n_symbols} symbols in "
+              f"{res.n_records} records; baseline {res.baseline}; {n_winner} winner-track "
+              f"islands -> {args.out}")
         return 0
 
     if args.cmd == "decode":

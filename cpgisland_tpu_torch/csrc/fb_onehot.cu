@@ -1,9 +1,9 @@
-// Reduced one-hot forward-backward: the fused arm's three kernels for
-// Hopper (sm_90a), with a plain C interface loaded through ctypes
-// (cpgisland_tpu_torch/ops/_kernels.py).  Plain versions of the same
-// functions, used on the CPU and as the reference on the card, live in
-// cpgisland_tpu_torch/ops/fb_onehot.py (oh_prod_plain, oh_fwdbwd_plain,
-// oh_seq_stats_plain).
+// Reduced one-hot forward-backward: the fused arm's three kernels and their
+// stacked (multi-model) forms for Hopper (sm_90a), with a plain C interface
+// loaded through ctypes (cpgisland_tpu_torch/ops/_kernels.py).  Plain
+// versions of the same functions, used on the CPU and as the reference on
+// the card, live in cpgisland_tpu_torch/ops/fb_onehot.py (oh_prod_plain,
+// oh_fwdbwd_plain, oh_seq_stats_plain and their *_stacked_plain forms).
 //
 // Layout: time-major streams, [Tp, NL] for the pairs and [Tp, 2, NL] for
 // alphas and betas (lane n of step t at t * NL + n, component c at
@@ -58,6 +58,23 @@
 // kernel writes bin (s_prev, s_cur, a, c) to macc row
 // gt[s_prev, a] * K + gt[s_cur, c].  The sums run in another order than
 // the plain version's, which agrees within a tolerance.
+//
+// B21 oh_prod_stacked_kernel, B24 oh_fwdbwd_stacked_kernel and B25 (the B5
+// kernels with M > 1) replace fb_onehot.py::_oh_prod_stacked_kernel,
+// _oh_fwdbwd_stacked_kernel and _oh_seq_stats_stacked_kernel: B7, B4 and B5
+// for M models over ONE shared pair stream (the members of a comparison, or
+// a family trained in lockstep).  On the TPU one program carries M members'
+// rows; here the member is one more grid dimension: one thread per (lane,
+// member) for B21, per (lane, direction, member) for B24, per (lane,
+// segment, member) for B25, each running exactly the single-model body on
+// its member's table (in that block's shared memory, so M does not bound the
+// table space) and its member's slice of the member-major operands ([M, Tp,
+// 2, NL] streams, [M, 4, NL] products).  So a member's outputs equal its own
+// single-model launch bit for bit, and the launch is M times wider: the
+// chains are latency-bound and the single-model training batch fills 43 of
+// 132 SMs with one warp each.  Bound: B21 and B24 read the shared pair
+// stream once and write M times the single-model outputs; B25 reads M times
+// B5's streams.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -68,9 +85,8 @@
 #define LOOKAHEAD 16
 #define REDUCE_THREADS 128
 
-// ---------------------------------------------------------------------------
-// B4: the forward and the self-normalized backward chain of each lane.
-
+// q[r] = the (clamped) pair at step first + step * r of a lane's stream; PAD
+// pairs and steps outside [0, Tp) -> the identity row.
 __device__ __forceinline__ void load_group(const int32_t* p, size_t stride, int first,
                                            int step, int Tp, int nreal,
                                            int (&q)[LOOKAHEAD]) {
@@ -78,101 +94,86 @@ __device__ __forceinline__ void load_group(const int32_t* p, size_t stride, int 
   for (int r = 0; r < LOOKAHEAD; ++r) {
     const int t = first + step * r;
     const int v = (t >= 0 && t < Tp) ? __ldg(p + (size_t)t * stride) : nreal;
-    q[r] = v < nreal ? v : nreal;  // PAD pairs -> the identity row
-  }
-}
-
-__global__ void __launch_bounds__(FB_THREADS)
-oh_fwdbwd_kernel(const int32_t* __restrict__ pair, const int32_t* __restrict__ pairn,
-                 const int32_t* __restrict__ lens, const float* __restrict__ a0,
-                 const float* __restrict__ beta0, const float* __restrict__ tab,
-                 float* __restrict__ alphas, float* __restrict__ betas,
-                 int Tp, int NL, int nreal, int T) {
-  __shared__ float s_tab[MAX_TAB];
-  for (int i = threadIdx.x; i < (nreal + 1) * 4; i += blockDim.x) s_tab[i] = tab[i];
-  __syncthreads();
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= NL) return;
-  const size_t nl = (size_t)NL;
-  const int len = lens[n];
-  int q[LOOKAHEAD], qn[LOOKAHEAD];
-
-  if (blockIdx.y == 0) {
-    // Forward: alpha_t = (alpha_{t-1} . M_t) * (1 / sum alpha_{t-1}) on
-    // valid steps; the entering vector at t == 0; carried past len.
-    const float e0 = a0[n], e1 = a0[nl + n];
-    float v0 = e0, v1 = e1;
-    const int32_t* p = pair + n;
-    float* out = alphas + n;
-    load_group(p, nl, 0, 1, Tp, nreal, q);
-    for (int t0 = 0; t0 < Tp; t0 += LOOKAHEAD) {
-      load_group(p, nl, t0 + LOOKAHEAD, 1, Tp, nreal, qn);
-#pragma unroll
-      for (int r = 0; r < LOOKAHEAD; ++r) {
-        const int t = t0 + r;
-        if (t < Tp) {
-          const float* m = s_tab + 4 * q[r];
-          const float inv = __fdiv_rn(1.0f, __fadd_rn(v0, v1));
-          const float raw0 = __fadd_rn(__fmul_rn(v0, m[0]), __fmul_rn(v1, m[2]));
-          const float raw1 = __fadd_rn(__fmul_rn(v0, m[1]), __fmul_rn(v1, m[3]));
-          if (t == 0) {
-            v0 = e0;
-            v1 = e1;
-          } else if (t < len) {
-            v0 = __fmul_rn(raw0, inv);
-            v1 = __fmul_rn(raw1, inv);
-          }
-          out[(size_t)(2 * t) * nl] = v0;
-          out[(size_t)(2 * t + 1) * nl] = v1;
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < LOOKAHEAD; ++r) q[r] = qn[r];
-    }
-  } else {
-    // Backward, t = Tp-1 down to 0: beta_t = (M_{t+1} . beta_{t+1}) *
-    // (1 / sum beta_{t+1}) where t <= T-2 and t+1 < len, else carried.
-    float b0 = beta0[n], b1 = beta0[nl + n];
-    const int32_t* p = pairn + n;
-    float* out = betas + n;
-    load_group(p, nl, Tp - 1, -1, Tp, nreal, q);
-    for (int k0 = 0; k0 < Tp; k0 += LOOKAHEAD) {
-      load_group(p, nl, Tp - 1 - (k0 + LOOKAHEAD), -1, Tp, nreal, qn);
-#pragma unroll
-      for (int r = 0; r < LOOKAHEAD; ++r) {
-        const int t = Tp - 1 - (k0 + r);
-        if (t >= 0) {
-          const float* m = s_tab + 4 * q[r];
-          const float binv = __fdiv_rn(1.0f, __fadd_rn(b0, b1));
-          const float x0 = __fmul_rn(__fadd_rn(__fmul_rn(m[0], b0), __fmul_rn(m[1], b1)), binv);
-          const float x1 = __fmul_rn(__fadd_rn(__fmul_rn(m[2], b0), __fmul_rn(m[3], b1)), binv);
-          if (t <= T - 2 && t + 1 < len) {
-            b0 = x0;
-            b1 = x1;
-          }
-          out[(size_t)(2 * t) * nl] = b0;
-          out[(size_t)(2 * t + 1) * nl] = b1;
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < LOOKAHEAD; ++r) q[r] = qn[r];
-    }
+    q[r] = v < nreal ? v : nreal;
   }
 }
 
 // ---------------------------------------------------------------------------
-// B7: the per-lane transfer products.
+// The chain bodies, one lane each.  The single-model kernels and the stacked
+// ones (B21, B24, B25) call the same functions on their member's table and
+// output slice, so a member's results in a stacked launch equal its own
+// single-model launch bit for bit.
 
-__global__ void __launch_bounds__(FB_THREADS)
-oh_prod_kernel(const int32_t* __restrict__ pair, const float* __restrict__ tab,
-               float* __restrict__ out, int Tp, int NL, int nreal) {
-  __shared__ float s_tab[MAX_TAB];
-  for (int i = threadIdx.x; i < (nreal + 1) * 4; i += blockDim.x) s_tab[i] = tab[i];
-  __syncthreads();
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= NL) return;
-  const size_t nl = (size_t)NL;
-  const int32_t* p = pair + n;
+// B4's forward: alpha_t = (alpha_{t-1} . M_t) * (1 / sum alpha_{t-1}) on
+// valid steps; the entering vector at t == 0; carried past len.  ``p`` and
+// ``out`` point at the lane's column.
+__device__ __forceinline__ void fwd_chain(const int32_t* p, const float* s_tab, float e0,
+                                          float e1, float* out, int len, int Tp, size_t nl,
+                                          int nreal) {
+  float v0 = e0, v1 = e1;
+  int q[LOOKAHEAD], qn[LOOKAHEAD];
+  load_group(p, nl, 0, 1, Tp, nreal, q);
+  for (int t0 = 0; t0 < Tp; t0 += LOOKAHEAD) {
+    load_group(p, nl, t0 + LOOKAHEAD, 1, Tp, nreal, qn);
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) {
+      const int t = t0 + r;
+      if (t < Tp) {
+        const float* m = s_tab + 4 * q[r];
+        const float inv = __fdiv_rn(1.0f, __fadd_rn(v0, v1));
+        const float raw0 = __fadd_rn(__fmul_rn(v0, m[0]), __fmul_rn(v1, m[2]));
+        const float raw1 = __fadd_rn(__fmul_rn(v0, m[1]), __fmul_rn(v1, m[3]));
+        if (t == 0) {
+          v0 = e0;
+          v1 = e1;
+        } else if (t < len) {
+          v0 = __fmul_rn(raw0, inv);
+          v1 = __fmul_rn(raw1, inv);
+        }
+        out[(size_t)(2 * t) * nl] = v0;
+        out[(size_t)(2 * t + 1) * nl] = v1;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) q[r] = qn[r];
+  }
+}
+
+// B4's backward, t = Tp-1 down to 0: beta_t = (M_{t+1} . beta_{t+1}) *
+// (1 / sum beta_{t+1}) where t <= T-2 and t+1 < len, else carried.
+__device__ __forceinline__ void bwd_chain(const int32_t* p, const float* s_tab, float b0,
+                                          float b1, float* out, int len, int Tp, size_t nl,
+                                          int nreal, int T) {
+  int q[LOOKAHEAD], qn[LOOKAHEAD];
+  load_group(p, nl, Tp - 1, -1, Tp, nreal, q);
+  for (int k0 = 0; k0 < Tp; k0 += LOOKAHEAD) {
+    load_group(p, nl, Tp - 1 - (k0 + LOOKAHEAD), -1, Tp, nreal, qn);
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) {
+      const int t = Tp - 1 - (k0 + r);
+      if (t >= 0) {
+        const float* m = s_tab + 4 * q[r];
+        const float binv = __fdiv_rn(1.0f, __fadd_rn(b0, b1));
+        const float x0 = __fmul_rn(__fadd_rn(__fmul_rn(m[0], b0), __fmul_rn(m[1], b1)), binv);
+        const float x1 = __fmul_rn(__fadd_rn(__fmul_rn(m[2], b0), __fmul_rn(m[3], b1)), binv);
+        if (t <= T - 2 && t + 1 < len) {
+          b0 = x0;
+          b1 = x1;
+        }
+        out[(size_t)(2 * t) * nl] = b0;
+        out[(size_t)(2 * t + 1) * nl] = b1;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) q[r] = qn[r];
+  }
+}
+
+// B7's product: from the identity, C <- C . T_t, each entry then over the
+// total ((n00 + n01) + n10) + n11, the twin's order (fb_onehot.py:162-167).
+// Writes C00, C01, C10, C11 at out[0], out[nl], out[2 nl], out[3 nl].
+__device__ __forceinline__ void prod_chain(const int32_t* p, const float* s_tab, float* out,
+                                           int Tp, size_t nl, int nreal) {
   float c00 = 1.0f, c01 = 0.0f, c10 = 0.0f, c11 = 1.0f;
   int q[LOOKAHEAD], qn[LOOKAHEAD];
   load_group(p, nl, 0, 1, Tp, nreal, q);
@@ -181,8 +182,6 @@ oh_prod_kernel(const int32_t* __restrict__ pair, const float* __restrict__ tab,
 #pragma unroll
     for (int r = 0; r < LOOKAHEAD; ++r) {
       if (t0 + r < Tp) {
-        // new[i, c] = C[i, 0] * T[0, c] + C[i, 1] * T[1, c], then each
-        // entry over the total (fb_onehot.py:162-167, the twin's order).
         const float* m = s_tab + 4 * q[r];
         const float n00 = __fadd_rn(__fmul_rn(c00, m[0]), __fmul_rn(c01, m[2]));
         const float n01 = __fadd_rn(__fmul_rn(c00, m[1]), __fmul_rn(c01, m[3]));
@@ -198,17 +197,169 @@ oh_prod_kernel(const int32_t* __restrict__ pair, const float* __restrict__ tab,
 #pragma unroll
     for (int r = 0; r < LOOKAHEAD; ++r) q[r] = qn[r];
   }
-  out[n] = c00;
-  out[nl + n] = c01;
-  out[2 * nl + n] = c10;
-  out[3 * nl + n] = c11;
+  out[0] = c00;
+  out[nl] = c01;
+  out[2 * nl] = c10;
+  out[3 * nl] = c11;
+}
+
+__device__ __forceinline__ void load_table(float* s_tab, const float* tab, int nreal) {
+  for (int i = threadIdx.x; i < (nreal + 1) * 4; i += blockDim.x) s_tab[i] = tab[i];
+  __syncthreads();
 }
 
 // ---------------------------------------------------------------------------
-// B5: z-normalized counts.  Per-lane accumulator rows (R = 4 S^2 + 2S + 1):
-// [0, 4 S^2) pair bins ((s_prev * S + s_cur) * 4 + a * 2 + c), then the 2S
-// emission rows (2 * s + a), then the loglik.
+// B4 and B24: the forward and the self-normalized backward chain of each lane
+// (B24: of each member, blockIdx.z; every stacked operand is member-major,
+// [M, ...], so member m's slice is one contiguous single-model operand).
 
+__global__ void __launch_bounds__(FB_THREADS)
+oh_fwdbwd_kernel(const int32_t* __restrict__ pair, const int32_t* __restrict__ pairn,
+                 const int32_t* __restrict__ lens, const float* __restrict__ a0,
+                 const float* __restrict__ beta0, const float* __restrict__ tab,
+                 float* __restrict__ alphas, float* __restrict__ betas,
+                 int Tp, int NL, int nreal, int T) {
+  __shared__ float s_tab[MAX_TAB];
+  load_table(s_tab, tab, nreal);
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= NL) return;
+  const size_t nl = (size_t)NL;
+  if (blockIdx.y == 0)
+    fwd_chain(pair + n, s_tab, a0[n], a0[nl + n], alphas + n, lens[n], Tp, nl, nreal);
+  else
+    bwd_chain(pairn + n, s_tab, beta0[n], beta0[nl + n], betas + n, lens[n], Tp, nl, nreal, T);
+}
+
+__global__ void __launch_bounds__(FB_THREADS)
+oh_fwdbwd_stacked_kernel(const int32_t* __restrict__ pair, const int32_t* __restrict__ pairn,
+                         const int32_t* __restrict__ lens, const float* __restrict__ a0,
+                         const float* __restrict__ beta0, const float* __restrict__ tab,
+                         float* __restrict__ alphas, float* __restrict__ betas,
+                         int Tp, int NL, int nreal, int T) {
+  __shared__ float s_tab[MAX_TAB];
+  const int m = blockIdx.z;
+  load_table(s_tab, tab + (size_t)m * (nreal + 1) * 4, nreal);
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= NL) return;
+  const size_t nl = (size_t)NL;
+  const size_t vec = (size_t)m * 2 * nl;          // member m of [M, 2, NL]
+  const size_t strm = (size_t)m * Tp * 2 * nl;    // member m of [M, Tp, 2, NL]
+  if (blockIdx.y == 0)
+    fwd_chain(pair + n, s_tab, a0[vec + n], a0[vec + nl + n], alphas + strm + n, lens[n], Tp,
+              nl, nreal);
+  else
+    bwd_chain(pairn + n, s_tab, beta0[vec + n], beta0[vec + nl + n], betas + strm + n, lens[n],
+              Tp, nl, nreal, T);
+}
+
+// ---------------------------------------------------------------------------
+// B7 and B21: the per-lane transfer products (B21: of each member, blockIdx.y).
+
+__global__ void __launch_bounds__(FB_THREADS)
+oh_prod_kernel(const int32_t* __restrict__ pair, const float* __restrict__ tab,
+               float* __restrict__ out, int Tp, int NL, int nreal) {
+  __shared__ float s_tab[MAX_TAB];
+  load_table(s_tab, tab, nreal);
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= NL) return;
+  prod_chain(pair + n, s_tab, out + n, Tp, (size_t)NL, nreal);
+}
+
+__global__ void __launch_bounds__(FB_THREADS)
+oh_prod_stacked_kernel(const int32_t* __restrict__ pair, const float* __restrict__ tab,
+                       float* __restrict__ out, int Tp, int NL, int nreal) {
+  __shared__ float s_tab[MAX_TAB];
+  const int m = blockIdx.y;
+  load_table(s_tab, tab + (size_t)m * (nreal + 1) * 4, nreal);
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= NL) return;
+  prod_chain(pair + n, s_tab, out + (size_t)m * 4 * NL + n, Tp, (size_t)NL, nreal);
+}
+
+// ---------------------------------------------------------------------------
+// B5 and B25: z-normalized counts.  Per-lane accumulator rows (R = 4 S^2 +
+// 2S + 1): [0, 4 S^2) pair bins ((s_prev * S + s_cur) * 4 + a * 2 + c), then
+// the 2S emission rows (2 * s + a), then the loglik.  B25 runs B5's body for
+// member blockIdx.z on its own slices.
+
+// One (lane, segment) of B5: accumulate into the thread's shared column
+// ``my`` (stride bd) over steps [t0, t1) of the lane whose streams ``al``,
+// ``be``, ``p`` point at (column n of the member's [Tp, 2, NL] / [Tp, NL]).
+__device__ __forceinline__ void stats_segment(
+    const float* al, const float* be, const int32_t* p, const float* s_tab,
+    const float* s_bred, const int* s_igt, const float* enters_full, const float* enters_red,
+    float pair0, float* my, int bd, int t0, int t1, size_t nl, int S, int K) {
+  const int nreal = S * S;
+  const int EMIT = 4 * nreal;
+  const int LL = EMIT + 2 * S;
+  // Normalized alpha of the step before the segment.
+  float ah0 = 0.0f, ah1 = 0.0f;
+  if (t0 > 0) {
+    const float p0 = al[(size_t)(2 * t0 - 2) * nl];
+    const float p1 = al[(size_t)(2 * t0 - 1) * nl];
+    const float ic = __fdiv_rn(1.0f, fmaxf(__fadd_rn(p0, p1), 1e-30f));
+    ah0 = __fmul_rn(p0, ic);
+    ah1 = __fmul_rn(p1, ic);
+  }
+  float ll = 0.0f;
+  for (int t = t0; t < t1; ++t) {
+    const float a0 = al[(size_t)(2 * t) * nl];
+    const float a1 = al[(size_t)(2 * t + 1) * nl];
+    const float be0 = be[(size_t)(2 * t) * nl];
+    const float be1 = be[(size_t)(2 * t + 1) * nl];
+    const int pr = p[(size_t)t * nl];
+    // A PAD pair carries its symbol: previous and current are both it.
+    const int esym = pr < nreal ? pr % S : pr - nreal;
+    const int sprev = pr < nreal ? pr / S : esym;
+    const float cs = __fadd_rn(a0, a1);
+    const float inv_cs = __fdiv_rn(1.0f, fmaxf(cs, 1e-30f));
+    const float g0 = __fmul_rn(a0, be0), g1 = __fmul_rn(a1, be1);
+    const float inv_g = __fdiv_rn(1.0f, fmaxf(__fadd_rn(g0, g1), 1e-30f));
+    float* e = my + (EMIT + 2 * esym) * bd;
+    e[0] = __fadd_rn(e[0], __fmul_rn(g0, inv_g));
+    e[bd] = __fadd_rn(e[bd], __fmul_rn(g1, inv_g));
+    ll = __fadd_rn(ll, logf(fmaxf(cs, 1e-30f)));
+    const float* m = s_tab + 4 * (pr < nreal ? pr : nreal);
+    // z = sum_ac aprev[a] T[a, c] beta[c]; xi[a, c] = aprev[a] w[c] / z
+    // with w[c] = B_red[esym, c] beta[c] (the table supplies A * B).
+    const float r0 = __fadd_rn(__fmul_rn(m[0], be0), __fmul_rn(m[1], be1));
+    const float r1 = __fadd_rn(__fmul_rn(m[2], be0), __fmul_rn(m[3], be1));
+    if (t > 0) {
+      const float z = __fadd_rn(__fmul_rn(ah0, r0), __fmul_rn(ah1, r1));
+      const float inv_z = __fdiv_rn(1.0f, fmaxf(z, 1e-30f));
+      const float wz0 = __fmul_rn(__fmul_rn(s_bred[2 * esym], be0), inv_z);
+      const float wz1 = __fmul_rn(__fmul_rn(s_bred[2 * esym + 1], be1), inv_z);
+      float* bin = my + ((sprev * S + esym) * 4) * bd;
+      bin[0] = __fadd_rn(bin[0], __fmul_rn(ah0, wz0));
+      bin[bd] = __fadd_rn(bin[bd], __fmul_rn(ah0, wz1));
+      bin[2 * bd] = __fadd_rn(bin[2 * bd], __fmul_rn(ah1, wz0));
+      bin[3 * bd] = __fadd_rn(bin[3 * bd], __fmul_rn(ah1, wz1));
+    } else if (pair0 != 0.0f) {
+      // Within-lane t == 0: the previous alpha is the entering message
+      // (reduced for z, full K for the counts), masked by pair0.
+      const float e0 = enters_red[0], e1 = enters_red[nl];
+      const float z = __fadd_rn(__fmul_rn(e0, r0), __fmul_rn(e1, r1));
+      const float inv_z = __fmul_rn(pair0, __fdiv_rn(1.0f, fmaxf(z, 1e-30f)));
+      const float wz0 = __fmul_rn(__fmul_rn(s_bred[2 * esym], be0), inv_z);
+      const float wz1 = __fmul_rn(__fmul_rn(s_bred[2 * esym + 1], be1), inv_z);
+      for (int i = 0; i < K; ++i) {
+        const float ef = enters_full[(size_t)i * nl];
+        const int sa = s_igt[i];
+        float* bin = my + (((sa >> 1) * S + esym) * 4 + (sa & 1) * 2) * bd;
+        bin[0] = __fadd_rn(bin[0], __fmul_rn(ef, wz0));
+        bin[bd] = __fadd_rn(bin[bd], __fmul_rn(ef, wz1));
+      }
+    }
+    ah0 = __fmul_rn(a0, inv_cs);
+    ah1 = __fmul_rn(a1, inv_cs);
+  }
+  my[LL * bd] = ll;
+}
+
+// Grid (lane blocks, segments, members); a single-model launch is member 0
+// of 1.  Member m's operands: alphas / betas at m * Tp * 2 * NL, tab at m *
+// (S^2 + 1) * 4, bred and gt at m * 2S, enters_full at m * K * NL,
+// enters_red at m * 2 * NL, part at m * nseg * R * NL.
 __global__ void oh_seq_stats_part_kernel(
     const float* __restrict__ alphas, const float* __restrict__ betas,
     const int32_t* __restrict__ pair, const int32_t* __restrict__ lens,
@@ -220,15 +371,16 @@ __global__ void oh_seq_stats_part_kernel(
   __shared__ float s_tab[MAX_TAB];
   __shared__ float s_bred[2 * MAX_S];
   __shared__ int s_igt[2 * MAX_S];  // state id -> s * 2 + a
+  const int m = blockIdx.z;
   const int nreal = S * S;
-  const int EMIT = 4 * nreal;
-  const int LL = EMIT + 2 * S;
-  const int R = LL + 1;
+  const int R = 4 * nreal + 2 * S + 1;
   const int bd = blockDim.x;
-  for (int i = threadIdx.x; i < (nreal + 1) * 4; i += bd) s_tab[i] = tab[i];
+  const size_t nl = (size_t)NL;
+  const float* tab_m = tab + (size_t)m * (nreal + 1) * 4;
+  for (int i = threadIdx.x; i < (nreal + 1) * 4; i += bd) s_tab[i] = tab_m[i];
   for (int i = threadIdx.x; i < 2 * S; i += bd) {
-    s_bred[i] = bred[i];
-    s_igt[gt[i]] = i;
+    s_bred[i] = bred[(size_t)m * 2 * S + i];
+    s_igt[gt[(size_t)m * 2 * S + i]] = i;
   }
   float* my = acc + threadIdx.x;
   for (int r = 0; r < R; ++r) my[r * bd] = 0.0f;
@@ -236,76 +388,21 @@ __global__ void oh_seq_stats_part_kernel(
 
   const int n = blockIdx.x * bd + threadIdx.x;
   if (n >= NL) return;
-  const size_t nl = (size_t)NL;
   const int seg = blockIdx.y;
   const int len = min(lens[n], Tp);
   const int t0 = seg * Tt;
   const int t1 = min(t0 + Tt, len);
-  if (t0 < t1) {
-    // Normalized alpha of the step before the segment.
-    float ah0 = 0.0f, ah1 = 0.0f;
-    if (t0 > 0) {
-      const float p0 = alphas[(size_t)(2 * t0 - 2) * nl + n];
-      const float p1 = alphas[(size_t)(2 * t0 - 1) * nl + n];
-      const float ic = 1.0f / fmaxf(p0 + p1, 1e-30f);
-      ah0 = p0 * ic;
-      ah1 = p1 * ic;
-    }
-    float ll = 0.0f;
-    for (int t = t0; t < t1; ++t) {
-      const float a0 = alphas[(size_t)(2 * t) * nl + n];
-      const float a1 = alphas[(size_t)(2 * t + 1) * nl + n];
-      const float be0 = betas[(size_t)(2 * t) * nl + n];
-      const float be1 = betas[(size_t)(2 * t + 1) * nl + n];
-      const int p = pair[(size_t)t * nl + n];
-      // A PAD pair carries its symbol: previous and current are both it.
-      const int esym = p < nreal ? p % S : p - nreal;
-      const int sprev = p < nreal ? p / S : esym;
-      const float cs = a0 + a1;
-      const float inv_cs = 1.0f / fmaxf(cs, 1e-30f);
-      const float g0 = a0 * be0, g1 = a1 * be1;
-      const float inv_g = 1.0f / fmaxf(g0 + g1, 1e-30f);
-      my[(EMIT + 2 * esym) * bd] += g0 * inv_g;
-      my[(EMIT + 2 * esym + 1) * bd] += g1 * inv_g;
-      ll += logf(fmaxf(cs, 1e-30f));
-      const float* m = s_tab + 4 * (p < nreal ? p : nreal);
-      // z = sum_ac aprev[a] T[a, c] beta[c]; xi[a, c] = aprev[a] w[c] / z
-      // with w[c] = B_red[esym, c] beta[c] (the table supplies A * B).
-      if (t > 0) {
-        const float z = ah0 * (m[0] * be0 + m[1] * be1) + ah1 * (m[2] * be0 + m[3] * be1);
-        const float inv_z = 1.0f / fmaxf(z, 1e-30f);
-        const float wz0 = s_bred[2 * esym] * be0 * inv_z;
-        const float wz1 = s_bred[2 * esym + 1] * be1 * inv_z;
-        float* bin = my + ((sprev * S + esym) * 4) * bd;
-        bin[0] += ah0 * wz0;
-        bin[bd] += ah0 * wz1;
-        bin[2 * bd] += ah1 * wz0;
-        bin[3 * bd] += ah1 * wz1;
-      } else if (pair0m[n] != 0.0f) {
-        // Within-lane t == 0: the previous alpha is the entering message
-        // (reduced for z, full K for the counts), masked by pair0m.
-        const float e0 = enters_red[n], e1 = enters_red[nl + n];
-        const float z = e0 * (m[0] * be0 + m[1] * be1) + e1 * (m[2] * be0 + m[3] * be1);
-        const float inv_z = pair0m[n] * (1.0f / fmaxf(z, 1e-30f));
-        const float wz0 = s_bred[2 * esym] * be0 * inv_z;
-        const float wz1 = s_bred[2 * esym + 1] * be1 * inv_z;
-        for (int i = 0; i < K; ++i) {
-          const float ef = enters_full[(size_t)i * nl + n];
-          const int sa = s_igt[i];
-          float* bin = my + (((sa >> 1) * S + esym) * 4 + (sa & 1) * 2) * bd;
-          bin[0] += ef * wz0;
-          bin[bd] += ef * wz1;
-        }
-      }
-      ah0 = a0 * inv_cs;
-      ah1 = a1 * inv_cs;
-    }
-    my[LL * bd] = ll;
-  }
-  float* out = part + (size_t)seg * R * nl + n;
+  const size_t strm = (size_t)m * Tp * 2 * nl;
+  if (t0 < t1)
+    stats_segment(alphas + strm + n, betas + strm + n, pair + n, s_tab, s_bred, s_igt,
+                  enters_full + (size_t)m * K * nl + n, enters_red + (size_t)m * 2 * nl + n,
+                  pair0m[n], my, bd, t0, t1, nl, S, K);
+  const int nseg = gridDim.y;
+  float* out = part + ((size_t)m * nseg + seg) * R * nl + n;
   for (int r = 0; r < R; ++r) out[(size_t)r * nl] = my[r * bd];
 }
 
+// Grid (lane blocks, rows R, members): each lane's segments summed in order.
 __global__ void __launch_bounds__(REDUCE_THREADS)
 oh_seq_stats_reduce_kernel(const float* __restrict__ part, const int32_t* __restrict__ gt,
                            float* __restrict__ macc, float* __restrict__ emit,
@@ -314,51 +411,30 @@ oh_seq_stats_reduce_kernel(const float* __restrict__ part, const int32_t* __rest
   if (n >= NL) return;
   const size_t nl = (size_t)NL;
   const int r = blockIdx.y;
+  const int m = blockIdx.z;
   const int nbins = 4 * S * S;
   const int R = nbins + 2 * S + 1;
+  const float* pm = part + (size_t)m * nseg * R * nl;
+  const int32_t* g = gt + (size_t)m * 2 * S;
   float s = 0.0f;
-  for (int g = 0; g < nseg; ++g) s += part[((size_t)g * R + r) * nl + n];
+  for (int i = 0; i < nseg; ++i) s = __fadd_rn(s, pm[((size_t)i * R + r) * nl + n]);
   if (r < nbins) {
     const int p = r >> 2, a = (r >> 1) & 1, c = r & 1;
-    const int row = gt[2 * (p / S) + a] * K + gt[2 * (p % S) + c];
-    macc[(size_t)row * nl + n] = s;
+    const int row = g[2 * (p / S) + a] * K + g[2 * (p % S) + c];
+    macc[((size_t)m * K * K + row) * nl + n] = s;
   } else if (r < nbins + 2 * S) {
-    emit[(size_t)(r - nbins) * nl + n] = s;
+    emit[((size_t)m * 2 * S + r - nbins) * nl + n] = s;
   } else {
-    ll[n] = s;
+    ll[(size_t)m * nl + n] = s;
   }
 }
 
-// The C interface: every pointer and the stream arrive as void*, sizes as
-// int.  Each function launches on the caller's stream and returns
-// cudaGetLastError(), so a refused launch reaches the Python wrapper.
-extern "C" {
-
-int oh_prod(const void* pair, const void* tab, void* out, int Tp, int NL, int nreal,
-            void* stream) {
-  if (nreal < 1 || nreal > MAX_S * MAX_S || Tp <= 0 || NL <= 0) return (int)cudaErrorInvalidValue;
-  const unsigned blocks = (unsigned)((NL + FB_THREADS - 1) / FB_THREADS);
-  oh_prod_kernel<<<blocks, FB_THREADS, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)pair, (const float*)tab, (float*)out, Tp, NL, nreal);
-  return (int)cudaGetLastError();
-}
-
-int oh_fwdbwd(const void* pair, const void* pairn, const void* lens, const void* a0,
-              const void* beta0, const void* tab, void* alphas, void* betas, int Tp,
-              int NL, int nreal, int T, void* stream) {
-  if (nreal < 1 || nreal > MAX_S * MAX_S || Tp <= 0 || NL <= 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((NL + FB_THREADS - 1) / FB_THREADS), 2);
-  oh_fwdbwd_kernel<<<grid, FB_THREADS, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)pair, (const int32_t*)pairn, (const int32_t*)lens, (const float*)a0,
-      (const float*)beta0, (const float*)tab, (float*)alphas, (float*)betas, Tp, NL, nreal, T);
-  return (int)cudaGetLastError();
-}
-
-int oh_seq_stats(const void* alphas, const void* betas, const void* pair, const void* lens,
-                 const void* tab, const void* bred, const void* gt, const void* enters_full,
-                 const void* enters_red, const void* pair0m, void* part, void* macc,
-                 void* emit, void* ll, int Tp, int NL, int S, int K, int Tt, void* stream) {
-  if (S < 1 || S > MAX_S || K != 2 * S || Tp <= 0 || NL <= 0 || Tt <= 0)
+static int launch_seq_stats(const void* alphas, const void* betas, const void* pair,
+                            const void* lens, const void* tab, const void* bred, const void* gt,
+                            const void* enters_full, const void* enters_red, const void* pair0m,
+                            void* part, void* macc, void* emit, void* ll, int Tp, int NL, int S,
+                            int K, int Tt, int M, cudaStream_t st) {
+  if (S < 1 || S > MAX_S || K != 2 * S || Tp <= 0 || NL <= 0 || Tt <= 0 || M < 1 || M > 65535)
     return (int)cudaErrorInvalidValue;
   const int R = 4 * S * S + 2 * S + 1;
   const int nseg = (Tp + Tt - 1) / Tt;
@@ -370,18 +446,87 @@ int oh_seq_stats(const void* alphas, const void* betas, const void* pair, const 
         oh_seq_stats_part_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const dim3 grid((unsigned)((NL + threads - 1) / threads), (unsigned)nseg);
-  oh_seq_stats_part_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+  const dim3 grid((unsigned)((NL + threads - 1) / threads), (unsigned)nseg, (unsigned)M);
+  oh_seq_stats_part_kernel<<<grid, threads, smem, st>>>(
       (const float*)alphas, (const float*)betas, (const int32_t*)pair, (const int32_t*)lens,
       (const float*)tab, (const float*)bred, (const int32_t*)gt, (const float*)enters_full,
       (const float*)enters_red, (const float*)pair0m, (float*)part, Tp, NL, S, K, Tt);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const dim3 rgrid((unsigned)((NL + REDUCE_THREADS - 1) / REDUCE_THREADS), (unsigned)R);
-  oh_seq_stats_reduce_kernel<<<rgrid, REDUCE_THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)part, (const int32_t*)gt, (float*)macc, (float*)emit, (float*)ll, nseg,
-      NL, S, K);
+  const dim3 rgrid((unsigned)((NL + REDUCE_THREADS - 1) / REDUCE_THREADS), (unsigned)R,
+                   (unsigned)M);
+  oh_seq_stats_reduce_kernel<<<rgrid, REDUCE_THREADS, 0, st>>>(
+      (const float*)part, (const int32_t*)gt, (float*)macc, (float*)emit, (float*)ll, nseg, NL,
+      S, K);
   return (int)cudaGetLastError();
+}
+
+// The C interface: every pointer and the stream arrive as void*, sizes as
+// int.  Each function launches on the caller's stream and returns
+// cudaGetLastError(), so a refused launch reaches the Python wrapper.
+extern "C" {
+
+static inline bool bad_stream(int Tp, int NL, int nreal) {
+  return nreal < 1 || nreal > MAX_S * MAX_S || Tp <= 0 || NL <= 0;
+}
+
+int oh_prod(const void* pair, const void* tab, void* out, int Tp, int NL, int nreal,
+            void* stream) {
+  if (bad_stream(Tp, NL, nreal)) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((NL + FB_THREADS - 1) / FB_THREADS);
+  oh_prod_kernel<<<blocks, FB_THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)pair, (const float*)tab, (float*)out, Tp, NL, nreal);
+  return (int)cudaGetLastError();
+}
+
+int oh_prod_stacked(const void* pair, const void* tab, void* out, int Tp, int NL, int nreal,
+                    int M, void* stream) {
+  if (bad_stream(Tp, NL, nreal) || M < 1 || M > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((NL + FB_THREADS - 1) / FB_THREADS), (unsigned)M);
+  oh_prod_stacked_kernel<<<grid, FB_THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)pair, (const float*)tab, (float*)out, Tp, NL, nreal);
+  return (int)cudaGetLastError();
+}
+
+int oh_fwdbwd(const void* pair, const void* pairn, const void* lens, const void* a0,
+              const void* beta0, const void* tab, void* alphas, void* betas, int Tp,
+              int NL, int nreal, int T, void* stream) {
+  if (bad_stream(Tp, NL, nreal)) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((NL + FB_THREADS - 1) / FB_THREADS), 2);
+  oh_fwdbwd_kernel<<<grid, FB_THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)pair, (const int32_t*)pairn, (const int32_t*)lens, (const float*)a0,
+      (const float*)beta0, (const float*)tab, (float*)alphas, (float*)betas, Tp, NL, nreal, T);
+  return (int)cudaGetLastError();
+}
+
+int oh_fwdbwd_stacked(const void* pair, const void* pairn, const void* lens, const void* a0,
+                      const void* beta0, const void* tab, void* alphas, void* betas, int Tp,
+                      int NL, int nreal, int T, int M, void* stream) {
+  if (bad_stream(Tp, NL, nreal) || M < 1 || M > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((NL + FB_THREADS - 1) / FB_THREADS), 2, (unsigned)M);
+  oh_fwdbwd_stacked_kernel<<<grid, FB_THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)pair, (const int32_t*)pairn, (const int32_t*)lens, (const float*)a0,
+      (const float*)beta0, (const float*)tab, (float*)alphas, (float*)betas, Tp, NL, nreal, T);
+  return (int)cudaGetLastError();
+}
+
+int oh_seq_stats(const void* alphas, const void* betas, const void* pair, const void* lens,
+                 const void* tab, const void* bred, const void* gt, const void* enters_full,
+                 const void* enters_red, const void* pair0m, void* part, void* macc,
+                 void* emit, void* ll, int Tp, int NL, int S, int K, int Tt, void* stream) {
+  return launch_seq_stats(alphas, betas, pair, lens, tab, bred, gt, enters_full, enters_red,
+                          pair0m, part, macc, emit, ll, Tp, NL, S, K, Tt, 1,
+                          (cudaStream_t)stream);
+}
+
+int oh_seq_stats_stacked(const void* alphas, const void* betas, const void* pair,
+                         const void* lens, const void* tab, const void* bred, const void* gt,
+                         const void* enters_full, const void* enters_red, const void* pair0m,
+                         void* part, void* macc, void* emit, void* ll, int Tp, int NL, int S,
+                         int K, int Tt, int M, void* stream) {
+  return launch_seq_stats(alphas, betas, pair, lens, tab, bred, gt, enters_full, enters_red,
+                          pair0m, part, macc, emit, ll, Tp, NL, S, K, Tt, M,
+                          (cudaStream_t)stream);
 }
 
 }  // extern "C"

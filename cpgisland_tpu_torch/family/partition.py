@@ -1,6 +1,7 @@
 """Emission-support partition analysis — the eligibility oracle for the
 reduced (one-hot) engines.  Counterpart of ``cpgisland_tpu/family/
-partition.py``, cut to what the decode and training paths consult.
+partition.py``, cut to what the engine routers and ``family.members``
+consult.
 
 Whenever the per-symbol supports {s : B[s, o] > 0} partition the states into
 disjoint blocks, the Viterbi score vector at time t is LOG_ZERO outside
@@ -87,6 +88,13 @@ def partition_concrete(params: HmmParams) -> Union[EmissionPartition, bool]:
         onehot=bool(np.all(supp.sum(axis=1) == 1)),
         uniform=sizes.pop() if len(sizes) == 1 else None,
     )
+
+
+def partition_of(params: HmmParams) -> Optional[EmissionPartition]:
+    """The partition, or None when the emission supports do not partition
+    the states."""
+    p = partition_concrete(params)
+    return p if isinstance(p, EmissionPartition) else None
 
 
 def reduced_eligible(params: HmmParams) -> bool:

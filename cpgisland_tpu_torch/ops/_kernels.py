@@ -46,6 +46,11 @@ _SIGNATURES = {
     "oh_prod": ("fb_onehot", 3, ("Tp", "NL", "nreal")),
     "oh_fwdbwd": ("fb_onehot", 8, ("Tp", "NL", "nreal", "T")),
     "oh_seq_stats": ("fb_onehot", 14, ("Tp", "NL", "S", "K", "Tt")),
+    "oh_prod_stacked": ("fb_onehot", 3, ("Tp", "NL", "nreal", "M")),
+    "oh_fwdbwd_stacked": ("fb_onehot", 8, ("Tp", "NL", "nreal", "T", "M")),
+    "oh_seq_stats_stacked": ("fb_onehot", 14, ("Tp", "NL", "S", "K", "Tt", "M")),
+    "oh_loglik": ("loglik", 4, ("Tp", "NL", "nreal", "M")),
+    "fb_loglik": ("loglik", 5, ("Tp", "NL", "K", "S")),
     "dense_products": ("viterbi_dense", 4, ("bk", "nb", "K", "S")),
     "dense_backpointers": ("viterbi_dense", 7, ("bk", "nb", "K", "S")),
     "dense_backtrace": ("viterbi_dense", 3, ("bk", "nb")),

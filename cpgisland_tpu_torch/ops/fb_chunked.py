@@ -9,7 +9,8 @@ self-normalized backward chains, ``fb_onehot.oh_fwdbwd``) and B5
 (z-normalized counts, ``fb_onehot.oh_seq_stats``).  The dense engine
 ("pallas", any K <= 8 model) runs three: B16 (forward), B18 (backward)
 and B20 (counts) of ``ops.fb_pallas``.  The rest is small tensor code on
-the same device.
+the same device.  ``batch_stats_stacked`` runs M reduced members of one K
+over one batch through the stacked kernels B24 and B25.
 """
 
 from __future__ import annotations
@@ -129,12 +130,52 @@ def batch_stats(params: HmmParams, chunks: torch.Tensor, lengths: torch.Tensor,
         params, al2, b2, prepared.pair2, lens2, gt, zeros(GROUP), zeros(K), zeros(1),
         prepared.Tt,
     )
-    trans, emit, loglik = _assemble_reduced_stats(params, A, gt, macc, emit_red, ll)
-    init_l = torch.where(valid0[None, :], _gamma0_full(al2, b2, gt, esym2, K), 0.0)
+    return _reduced_suffstats(params, A, gt, al2, b2, esym2, (macc, emit_red, ll), valid0)
+
+
+def _reduced_suffstats(params: HmmParams, A, gt, al2, b2, esym2, counts, valid0) -> SuffStats:
+    """One member's SuffStats from its reduced streams and B5's (or B25's)
+    per-lane counts."""
+    trans, emit, loglik = _assemble_reduced_stats(params, A, gt, *counts)
+    init_l = torch.where(valid0[None, :], _gamma0_full(al2, b2, gt, esym2, params.n_states), 0.0)
     return SuffStats(
         init=torch.sum(init_l, dim=1),
         trans=trans,
         emit=emit,
         loglik=loglik,
         n_seqs=torch.sum(valid0.to(torch.int32)),
+    )
+
+
+def batch_stats_stacked(params_list, chunks: torch.Tensor, lengths: torch.Tensor,
+                        prepared=None) -> tuple:
+    """Per-member SuffStats of M reduced members of one K over ONE chunk
+    batch, from one launch of B24 (every member's chains) and one of B25
+    (every member's counts) — the counterpart of the JAX package's
+    ``batch_stats_pallas_stacked`` (fused arm).  Member m's stats equal
+    ``batch_stats(params_list[m], ..., engine="onehot")`` bit for bit.
+    ``prepared``: the batch's onehot chunked prep, shared by every member
+    (built here otherwise)."""
+    S = fb_onehot.check_stacked_members(params_list)
+    N, T = chunks.shape
+    if prepared is None:
+        prepared = prepare_chunked(S, chunks, lengths, t_tile=DEFAULT_T_TILE, onehot=True)
+    elif (prepared.S, prepared.N, prepared.T, prepared.onehot) != (S, N, T, True):
+        raise ValueError("prepared streams were not built for this batch on the onehot engine")
+    setups = [_batch_lane_setup(p, prepared) for p in params_list]
+    lens2 = prepared.lens2
+    al, be, esym2 = fb_onehot.run_fb_kernels_onehot_stacked(
+        params_list, lens2, [s[1] for s in setups], [s[2] for s in setups], T,
+        pair_esym=(prepared.pair2, prepared.esym2, prepared.pairn2),
+    )
+    M, NL = len(params_list), al.shape[3]
+    K = params_list[0].n_states
+    zeros = lambda *shape: torch.zeros(shape, dtype=_F32, device=al.device)
+    counts = fb_onehot.run_seq_stats_onehot_stacked(
+        params_list, al, be, prepared.pair2, lens2, zeros(M, GROUP, NL), zeros(M, K, NL),
+        zeros(1, NL), prepared.Tt,
+    )
+    return tuple(
+        _reduced_suffstats(p, A, _groups(p), al[m], be[m], esym2, counts[m], valid0)
+        for m, (p, (A, _, _, valid0)) in enumerate(zip(params_list, setups))
     )

@@ -31,6 +31,17 @@ one's — the per-pair table :func:`prob_pair_table`.
   :func:`oh_seq_stats_plain` is the twin of ``_xla_znorm_stats``; the two
   sum over time in different orders and agree within a tolerance.
 
+The stacked half runs M models of one alphabet over ONE shared pair
+stream in one launch (the members of a comparison, a family trained in
+lockstep): B21 :func:`oh_prod_stacked` (replaces ``_oh_prod_stacked_kernel``),
+B24 :func:`oh_fwdbwd_stacked` (``_oh_fwdbwd_stacked_kernel``) and B25
+:func:`oh_seq_stats_stacked` (``_oh_seq_stats_stacked_kernel``).  Stacked
+operands are member-major (``[M, ...]``), so member m's slice is a
+contiguous single-model operand; each member's arithmetic is the
+single-model kernel's, so its outputs equal a single-model launch bit for
+bit.  Their plain versions carry the member axis through one step loop
+(B25's, like the JAX twin, runs the single-model plain version per member).
+
 Each wrapper takes the plain version for a CPU tensor, launches its kernel
 (``csrc/fb_onehot.cu``) for a CUDA tensor, and raises otherwise.
 """
@@ -382,6 +393,26 @@ def oh_seq_stats(alphas2, betas2, pair2, lens2, tab_ext, B_red, gt, enters_full,
 # Runners (the JAX module's entry points)
 
 
+def _reduced_operands(params: HmmParams, gt, esym2, a0_raw, beta0):
+    """(a0_red, beta0_red) [2, NL]: the full-K entering vectors projected
+    onto each lane's entry / exit group."""
+    a0_red = torch.gather(a0_raw.T, 1, gt[esym2[0].long()]).T.contiguous()
+    beta0_red = torch.gather(beta0.T, 1, gt[esym2[-1].long()]).T.contiguous()
+    return a0_red.to(_F32), beta0_red.to(_F32)
+
+
+def _streams(S: int, pair_esym, sel_t, prev_dev):
+    """(pair2, esym2, pairn2): the prepared stream, or one built from
+    ``sel_t`` and ``prev_dev``."""
+    from cpgisland_tpu_torch.ops.prepared import _pair_next
+
+    if pair_esym is None:
+        pair2, _, _ = pair_stream(S, sel_t, prev_dev)
+        return pair2, decode_esym(pair2, S), _pair_next(pair2, S)
+    pair2, esym2, pairn2 = pair_esym
+    return pair2, decode_esym(pair2, S) if esym2 is None else esym2, pairn2
+
+
 def run_fb_kernels_onehot(params: HmmParams, sel_t, prev_dev, lens2: torch.Tensor,
                           a0_raw: torch.Tensor, beta0: torch.Tensor, T: int, *,
                           pair_esym=None, fused: bool = True, conf_mask=None):
@@ -401,21 +432,11 @@ def run_fb_kernels_onehot(params: HmmParams, sel_t, prev_dev, lens2: torch.Tenso
             "the split forward/backward arm (kernels B9, B10, B11, B12) is "
             "not ported yet (ROADMAP §B)"
         )
-    from cpgisland_tpu_torch.ops.prepared import _pair_next
-
-    S = params.n_symbols
     gt = _groups(params)
-    if pair_esym is None:
-        pair2, _, _ = pair_stream(S, sel_t, prev_dev)
-        esym2, pairn2 = decode_esym(pair2, S), _pair_next(pair2, S)
-    else:
-        pair2, esym2, pairn2 = pair_esym
-        if esym2 is None:
-            esym2 = decode_esym(pair2, S)
-    a0_red = torch.gather(a0_raw.T, 1, gt[esym2[0].long()]).T.contiguous()
-    beta0_red = torch.gather(beta0.T, 1, gt[esym2[-1].long()]).T.contiguous()
-    alphas2, betas2 = oh_fwdbwd(pair2, pairn2, lens2, a0_red.to(_F32),
-                                beta0_red.to(_F32), prob_tab_ext(params, gt), T)
+    pair2, esym2, pairn2 = _streams(params.n_symbols, pair_esym, sel_t, prev_dev)
+    a0_red, beta0_red = _reduced_operands(params, gt, esym2, a0_raw, beta0)
+    alphas2, betas2 = oh_fwdbwd(pair2, pairn2, lens2, a0_red, beta0_red,
+                                prob_tab_ext(params, gt), T)
     if conf_mask is not None:
         return alphas2, conf_from_reduced(alphas2, betas2, esym2, lens2, conf_mask, gt), esym2
     return alphas2, betas2, esym2
@@ -430,7 +451,271 @@ def run_seq_stats_onehot(params: HmmParams, alphas2, betas2, pair2, lens2, gt,
     S = params.n_symbols
     if S & (S - 1):
         raise ValueError("run_seq_stats_onehot: power-of-two S only")
-    B = params.B.to(_F32)
-    B_red = B[gt, torch.arange(S, device=gt.device)[:, None]].contiguous()
+    B_red = reduced_emissions(params, gt)
     return oh_seq_stats(alphas2, betas2, pair2, lens2, prob_tab_ext(params, gt), B_red,
                         gt.to(_I32).contiguous(), enters_full, enters_red, pair0_mask, Tt)
+
+
+# ---------------------------------------------------------------------------
+# The stacked half: B21, B24 and B25 for M members over one pair stream
+
+
+def check_stacked_members(params_list) -> int:
+    """Validate a stacked member set (one alphabet, reduced tables that fit
+    the kernels) and return its S."""
+    if not params_list:
+        raise ValueError("a stacked launch needs at least one member")
+    S = params_list[0].n_symbols
+    if any(p.n_symbols != S for p in params_list):
+        raise ValueError("stacked members must share one alphabet, got n_symbols "
+                         f"{[p.n_symbols for p in params_list]}")
+    if S > MAX_SYMBOLS or any(p.n_states > GROUP * MAX_SYMBOLS for p in params_list):
+        raise ValueError(f"stacked members need at most {MAX_SYMBOLS} symbols and "
+                         f"{GROUP * MAX_SYMBOLS} states")
+    return S
+
+
+def stacked_tables(params_list):
+    """(group tables [M, S, 2] int64, pair tables [M, S*S + 1, 4] f32) of a
+    stacked member set, identity rows last."""
+    gts = torch.stack([_groups(p) for p in params_list])
+    tabs = torch.stack([prob_tab_ext(p, gt) for p, gt in zip(params_list, gts)])
+    return gts, tabs.contiguous()
+
+
+def _check_stacked_tables(tabs: torch.Tensor) -> int:
+    if tabs.dim() != 3 or 0 in tabs.shape:
+        raise ValueError(f"stacked tables must be a non-empty [M, nP, 4], got {tuple(tabs.shape)}")
+    M = tabs.shape[0]
+    _check_table(tabs[0])
+    _check("tabs", tabs, _F32, (M, tabs.shape[1], 4))
+    return M
+
+
+def oh_prod_stacked_plain(pair2: torch.Tensor, tabs: torch.Tensor) -> torch.Tensor:
+    """Plain version of B21 -> [M, 4, NL]: :func:`oh_prod_plain` for every
+    member's table ``tabs[m]`` ([M, S*S + 1, 4]), the member axis carried
+    through one step loop (per member the same operations)."""
+    nreal = tabs.shape[1] - 1
+    M, NL = tabs.shape[0], pair2.shape[1]
+    pc = torch.clamp_max(pair2, nreal).long()
+    one = torch.ones((M, NL), dtype=_F32, device=pair2.device)
+    zero = torch.zeros((M, NL), dtype=_F32, device=pair2.device)
+    c00, c01, c10, c11 = one, zero, zero, one
+    for t in range(pair2.shape[0]):
+        a00, a01, a10, a11 = tabs[:, pc[t]].unbind(-1)  # [M, NL] each
+        n00 = c00 * a00 + c01 * a10
+        n01 = c00 * a01 + c01 * a11
+        n10 = c10 * a00 + c11 * a10
+        n11 = c10 * a01 + c11 * a11
+        tot = torch.clamp_min(((n00 + n01) + n10) + n11, 1e-30)
+        c00, c01, c10, c11 = n00 / tot, n01 / tot, n10 / tot, n11 / tot
+    return torch.stack([c00, c01, c10, c11], dim=1)
+
+
+def oh_prod_stacked(pair2: torch.Tensor, tabs: torch.Tensor) -> torch.Tensor:
+    """Kernel B21 (replaces ``_oh_prod_stacked_kernel``) -> [M, 4, NL] f32.
+    Arguments as :func:`oh_prod_stacked_plain`."""
+    _check_same_device(pair2, (tabs,))
+    if pair2.dim() != 2 or 0 in pair2.shape:
+        raise ValueError(f"pair2 must be a non-empty [Tp, NL], got {tuple(pair2.shape)}")
+    Tp, NL = pair2.shape
+    _check("pair2", pair2, _I32, (Tp, NL))
+    M = _check_stacked_tables(tabs)
+    if pair2.device.type == "cpu":
+        return oh_prod_stacked_plain(pair2, tabs)
+    out = torch.empty((M, 4, NL), dtype=_F32, device=pair2.device)
+    _kernels.launch("oh_prod_stacked", pair2, tabs, out, Tp=Tp, NL=NL,
+                    nreal=tabs.shape[1] - 1, M=M)
+    return out
+
+
+def products_reduced_stacked(params_list, pair2: torch.Tensor) -> list:
+    """Every member's [NL, 2, 2] lane products (:func:`products_reduced`)
+    in ONE launch of B21 over the shared pair stream."""
+    check_stacked_members(params_list)
+    NL = pair2.shape[1]
+    red = oh_prod_stacked(pair2, stacked_tables(params_list)[1])
+    return [r.T.reshape(NL, GROUP, GROUP) for r in red]
+
+
+def oh_fwdbwd_stacked_plain(pair2, pairn2, lens2, a0_red, beta0_red, tabs, T: int):
+    """Plain version of B24 -> (alphas [M, Tp, 2, NL], betas [M, Tp, 2,
+    NL]): :func:`oh_fwdbwd_plain` for every member (a0_red / beta0_red
+    [M, 2, NL], tabs [M, S*S + 1, 4]), the member axis carried through one
+    step loop per direction."""
+    Tp, NL = pair2.shape
+    M = tabs.shape[0]
+    nreal = tabs.shape[1] - 1
+    steps = torch.arange(Tp, device=pair2.device)[:, None]
+    valid = (steps < lens2).unbind(0)
+    keep = ((steps <= T - 2) & (steps + 1 < lens2)).unbind(0)
+
+    def matrices(pairs, t, order):
+        # Step t's matrices [M, 2 (summed index), 2 (output), NL].
+        m = tabs[:, torch.clamp_max(pairs[t], nreal).long()][..., order]  # [M, NL, 4]
+        return m.reshape(M, NL, 2, 2).permute(0, 2, 3, 1)
+
+    alphas = [a0_red]
+    for t in range(1, Tp):
+        v = alphas[-1]
+        inv = torch.reciprocal(v.sum(1))
+        raw = (v[:, :, None, :] * matrices(pair2, t, [0, 1, 2, 3])).sum(1)
+        alphas.append(torch.where(valid[t], raw * inv[:, None], v))
+    betas = [beta0_red]
+    for tb in range(Tp - 1, -1, -1):
+        bn = betas[-1]
+        binv = torch.reciprocal(bn.sum(1))
+        b = (bn[:, :, None, :] * matrices(pairn2, tb, [0, 2, 1, 3])).sum(1) * binv[:, None]
+        betas.append(torch.where(keep[tb], b, bn))
+    return torch.stack(alphas, dim=1), torch.stack(betas[:0:-1], dim=1)
+
+
+def oh_fwdbwd_stacked(pair2, pairn2, lens2, a0_red, beta0_red, tabs, T: int):
+    """Kernel B24 (replaces ``_oh_fwdbwd_stacked_kernel``) -> (alphas,
+    betas), each [M, Tp, 2, NL] f32.  Arguments as
+    :func:`oh_fwdbwd_stacked_plain`."""
+    _check_same_device(pair2, (pairn2, lens2, a0_red, beta0_red, tabs))
+    if pair2.dim() != 2 or 0 in pair2.shape:
+        raise ValueError(f"pair2 must be a non-empty [Tp, NL], got {tuple(pair2.shape)}")
+    Tp, NL = pair2.shape
+    M = _check_stacked_tables(tabs)
+    _check("pair2", pair2, _I32, (Tp, NL))
+    _check("pairn2", pairn2, _I32, (Tp, NL))
+    _check("lens2", lens2, _I32, (1, NL))
+    _check("a0_red", a0_red, _F32, (M, GROUP, NL))
+    _check("beta0_red", beta0_red, _F32, (M, GROUP, NL))
+    if pair2.device.type == "cpu":
+        return oh_fwdbwd_stacked_plain(pair2, pairn2, lens2, a0_red, beta0_red, tabs, T)
+    alphas = torch.empty((M, Tp, GROUP, NL), dtype=_F32, device=pair2.device)
+    betas = torch.empty((M, Tp, GROUP, NL), dtype=_F32, device=pair2.device)
+    _kernels.launch("oh_fwdbwd_stacked", pair2, pairn2, lens2, a0_red, beta0_red, tabs,
+                    alphas, betas, Tp=Tp, NL=NL, nreal=tabs.shape[1] - 1, T=T, M=M)
+    return alphas, betas
+
+
+def run_fb_kernels_onehot_stacked(params_list, lens2: torch.Tensor, a0_raws, beta0s, T: int,
+                                  *, pair_esym, fused: bool = True, conf_masks=None):
+    """:func:`run_fb_kernels_onehot` for M members over ONE shared
+    prepared stream ``pair_esym`` = (pair2, esym2 or None, pairn2), through
+    one launch of B24.  ``a0_raws`` / ``beta0s``: per-member [K_m, NL]
+    entering vectors.  Returns (alphas [M, Tp, 2, NL], betas [M, Tp, 2, NL]
+    self-normalized, esym2); with ``conf_masks`` (per-member [K_m] island
+    indicators) the second slot is the list of per-member confidences
+    [Tp, NL] (:func:`conf_from_reduced`)."""
+    if not fused:
+        raise NotImplementedError(
+            "the stacked split forward/backward arm (kernels B22, B23) is not ported "
+            "yet (ROADMAP A14)"
+        )
+    S = check_stacked_members(params_list)
+    pair2, esym2, pairn2 = _streams(S, pair_esym, None, None)
+    gts, tabs = stacked_tables(params_list)
+    reds = [_reduced_operands(p, gt, esym2, a0, b0)
+            for p, gt, a0, b0 in zip(params_list, gts, a0_raws, beta0s)]
+    alphas, betas = oh_fwdbwd_stacked(
+        pair2, pairn2, lens2, torch.stack([a for a, _ in reds]),
+        torch.stack([b for _, b in reds]), tabs, T)
+    if conf_masks is None:
+        return alphas, betas, esym2
+    confs = [conf_from_reduced(alphas[m], betas[m], esym2, lens2, conf_masks[m], gts[m])
+             for m in range(len(params_list))]
+    return alphas, confs, esym2
+
+
+def oh_seq_stats_stacked_plain(alphas2, betas2, pair2, lens2, tabs, B_reds, gts, enters_full,
+                               enters_red, pair0m):
+    """Plain version of B25 -> (macc [M, K*K, NL], emit_red [M, 2S, NL],
+    ll [M, 1, NL]): :func:`oh_seq_stats_plain` run for each member of the
+    member-major operands (the JAX twin loops ``_xla_znorm_stats`` the same
+    way: time reductions, no step loop)."""
+    outs = [oh_seq_stats_plain(alphas2[m], betas2[m], pair2, lens2, tabs[m], B_reds[m], gts[m],
+                               enters_full[m], enters_red[m], pair0m)
+            for m in range(tabs.shape[0])]
+    return tuple(_stack_keeping_strides(x) for x in zip(*outs))
+
+
+def _stack_keeping_strides(xs) -> torch.Tensor:
+    """Stack equal-shaped dense tensors along a new leading axis so that each
+    member's slice keeps the strides of its own tensor: a later reduction
+    over the slice then runs in the same order as over the single-model
+    output (on the CPU, ``torch.sum`` orders its terms by memory layout)."""
+    x0 = xs[0]
+    out = torch.empty_strided((len(xs),) + tuple(x0.shape), (x0.numel(),) + x0.stride(),
+                              dtype=x0.dtype, device=x0.device)
+    for o, x in zip(out, xs):
+        o.copy_(x)
+    return out
+
+
+def oh_seq_stats_stacked(alphas2, betas2, pair2, lens2, tabs, B_reds, gts, enters_full,
+                         enters_red, pair0m, Tt: int):
+    """Kernel B25 (replaces ``_oh_seq_stats_stacked_kernel``): B5 with a
+    member grid dimension -> (macc [M, K*K, NL], emit_red [M, 2S, NL], ll
+    [M, 1, NL]).  Arguments member-major versions of :func:`oh_seq_stats`'s;
+    every member has the same K = 2S."""
+    _check_same_device(pair2, (alphas2, betas2, lens2, tabs, B_reds, gts, enters_full,
+                               enters_red, pair0m))
+    if pair2.dim() != 2 or 0 in pair2.shape:
+        raise ValueError(f"pair2 must be a non-empty [Tp, NL], got {tuple(pair2.shape)}")
+    Tp, NL = pair2.shape
+    M = _check_stacked_tables(tabs)
+    S = gts.shape[1]
+    K = enters_full.shape[1]
+    if K != GROUP * S or tabs.shape[1] != S * S + 1:
+        raise ValueError(f"{K} states, {tabs.shape[1]} table rows for {S} symbols: the reduced "
+                         "stats need K == 2S and S*S + 1 rows")
+    _check("alphas2", alphas2, _F32, (M, Tp, GROUP, NL))
+    _check("betas2", betas2, _F32, (M, Tp, GROUP, NL))
+    _check("pair2", pair2, _I32, (Tp, NL))
+    _check("lens2", lens2, _I32, (1, NL))
+    _check("B_reds", B_reds, _F32, (M, S, GROUP))
+    _check("gts", gts, _I32, (M, S, GROUP))
+    _check("enters_full", enters_full, _F32, (M, K, NL))
+    _check("enters_red", enters_red, _F32, (M, GROUP, NL))
+    _check("pair0m", pair0m, _F32, (1, NL))
+    if Tt <= 0:
+        raise ValueError(f"Tt must be positive, got {Tt}")
+    if pair2.device.type == "cpu":
+        return oh_seq_stats_stacked_plain(alphas2, betas2, pair2, lens2, tabs, B_reds, gts,
+                                          enters_full, enters_red, pair0m)
+    dev = pair2.device
+    rows = 4 * S * S + 2 * S + 1
+    part = torch.empty((M, -(-Tp // Tt), rows, NL), dtype=_F32, device=dev)
+    macc = torch.empty((M, K * K, NL), dtype=_F32, device=dev)
+    emit_red = torch.empty((M, 2 * S, NL), dtype=_F32, device=dev)
+    ll = torch.empty((M, 1, NL), dtype=_F32, device=dev)
+    _kernels.launch("oh_seq_stats_stacked", alphas2, betas2, pair2, lens2, tabs, B_reds, gts,
+                    enters_full, enters_red, pair0m, part, macc, emit_red, ll,
+                    Tp=Tp, NL=NL, S=S, K=K, Tt=Tt, M=M)
+    return macc, emit_red, ll
+
+
+def reduced_emissions(params: HmmParams, gt) -> torch.Tensor:
+    """B_red [S, 2]: each group member's probability of emitting its symbol."""
+    S = params.n_symbols
+    return params.B.to(_F32)[gt, torch.arange(S, device=gt.device)[:, None]].contiguous()
+
+
+def run_seq_stats_onehot_stacked(params_list, alphas2, betas2, pair2, lens2, enters_red,
+                                 enters_full, pair0_mask, Tt: int) -> list:
+    """:func:`run_seq_stats_onehot` for M members of one K (and a
+    power-of-two S) in one launch of B25, over the member-major streams of
+    :func:`run_fb_kernels_onehot_stacked` (enters_red [M, 2, NL],
+    enters_full [M, K, NL]).  Returns per-member (macc, emit_red, ll)."""
+    S = check_stacked_members(params_list)
+    if S & (S - 1):
+        raise ValueError("run_seq_stats_onehot_stacked: power-of-two S only")
+    if len({p.n_states for p in params_list}) != 1:
+        raise ValueError("the stacked stats kernel needs one common n_states, got "
+                         f"{[p.n_states for p in params_list]}")
+    gts, tabs = stacked_tables(params_list)
+    B_reds = torch.stack([reduced_emissions(p, gt) for p, gt in zip(params_list, gts)])
+    macc, emit_red, ll = oh_seq_stats_stacked(alphas2, betas2, pair2, lens2, tabs, B_reds,
+                                              gts.to(_I32).contiguous(), enters_full,
+                                              enters_red, pair0_mask, Tt)
+    # Each member's counts in an allocation of their own, as a single-model
+    # launch returns them: PyTorch's CUDA reductions vectorize only from an
+    # aligned start, so a sum over a member's slice of the stacked buffer
+    # could add in another order than over its own launch's output.
+    return [tuple(x[m].clone() for x in (macc, emit_red, ll)) for m in range(len(params_list))]

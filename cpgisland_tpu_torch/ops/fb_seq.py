@@ -21,6 +21,11 @@ one-pass matrix arm (B8) are not.  The glue spells every contraction as
 an explicit sum in a fixed order (sums over K in order, the one total
 row-major), so it gives the same float32 bits on the CPU and on the card.
 
+``seq_posterior_stacked`` runs M reduced members over one record through
+the stacked kernels (B21 products, B24 chains), each member's boundary glue
+the single-model one; ``batch_stats_stacked`` (``ops/fb_chunked.py``) is its
+chunked E-step counterpart.
+
 Lane geometry: the JAX package picks ``lane_T`` from TPU rate tables,
 which do not carry over; here it is :data:`DEFAULT_LANE_T` capped at the
 input's power-of-two size (:func:`pick_lane_T`).
@@ -192,25 +197,17 @@ def _lane_streams_dense(params: HmmParams, obs: torch.Tensor, length: int,
     return alphas, third, lens2
 
 
-def _lane_streams(params: HmmParams, obs: torch.Tensor, length: int,
-                  lane_T: Optional[int] = None, *,
-                  enter_dir=None, exit_dir=None, first: bool = True, conf_mask=None,
-                  prev_sym: Optional[int] = None, prepared: Optional[PreparedSeq] = None):
-    """Lane transfer products -> boundary messages -> B4 streams.
-
-    ``first``: this span starts the sequence (global position 0 is the
-    init).  ``enter_dir`` ([K], needed when not ``first``): the
-    entering-alpha direction from the previous span; ``exit_dir`` ([K],
-    optional): the exiting-beta direction from the next span (None: a free
-    end).  Returns (alphas2 [lane_T, 2, NL], betas2 [lane_T, 2, NL] —
-    or, with ``conf_mask``, the confidence [lane_T, NL] —, esym2, lens2)."""
+def _reduced_lane_inputs(params: HmmParams, prep: PreparedSeq, red: torch.Tensor, first: bool,
+                         enter_dir, exit_dir):
+    """One member's boundary glue of the reduced engine: from its lane
+    products ``red`` [NL, 2, 2], the two scans -> each lane's v_0 [NL, K]
+    and exiting beta [NL, K] (B4's entering vectors).  Shared by the
+    single-model and the stacked lane streams, so both feed B4 / B24 the
+    same bits."""
     K = params.n_states
     A, B, pi = params.A.to(_F32), params.B.to(_F32), params.pi.to(_F32)
-    _check_continuation(first, enter_dir)
-    prep = _prep_for(params, obs, length, lane_T, first, prev_sym, prepared)
     gt = _groups(params)
     gin, gout = gt[prep.e_in.long()], gt[prep.e_out.long()]  # [NL, 2]
-    red = fb_onehot.products_reduced(params, prep.pair2)  # [NL, 2, 2]
     incl_red = _scan(red)
 
     base_dir, anchor = _boundary_dirs(params, prep.o0, first, enter_dir, exit_dir)
@@ -231,13 +228,55 @@ def _lane_streams(params: HmmParams, obs: torch.Tensor, length: int,
         dim=0,
     )
     beta_exits = _scatter_rows(beta_exits_red, gout, K)
-    v0 = _lane_v0(prep, enters, A, B, pi, first)
+    return _lane_v0(prep, enters, A, B, pi, first), beta_exits
+
+
+def _lane_streams(params: HmmParams, obs: torch.Tensor, length: int,
+                  lane_T: Optional[int] = None, *,
+                  enter_dir=None, exit_dir=None, first: bool = True, conf_mask=None,
+                  prev_sym: Optional[int] = None, prepared: Optional[PreparedSeq] = None):
+    """Lane transfer products -> boundary messages -> B4 streams.
+
+    ``first``: this span starts the sequence (global position 0 is the
+    init).  ``enter_dir`` ([K], needed when not ``first``): the
+    entering-alpha direction from the previous span; ``exit_dir`` ([K],
+    optional): the exiting-beta direction from the next span (None: a free
+    end).  Returns (alphas2 [lane_T, 2, NL], betas2 [lane_T, 2, NL] —
+    or, with ``conf_mask``, the confidence [lane_T, NL] —, esym2, lens2)."""
+    _check_continuation(first, enter_dir)
+    prep = _prep_for(params, obs, length, lane_T, first, prev_sym, prepared)
+    red = fb_onehot.products_reduced(params, prep.pair2)  # [NL, 2, 2]
+    v0, beta_exits = _reduced_lane_inputs(params, prep, red, first, enter_dir, exit_dir)
     lens2 = prep.lane_lens[None, :].contiguous()
     al2, third2, esym2 = fb_onehot.run_fb_kernels_onehot(
         params, None, None, lens2, v0.T, beta_exits.T, prep.lane_T,
         pair_esym=(prep.pair2, None, prep.pairn2), conf_mask=conf_mask,
     )
     return al2, third2, esym2, lens2
+
+
+def _lane_streams_stacked(params_list, obs: torch.Tensor, length: int,
+                          lane_T: Optional[int] = None, *, conf_masks=None,
+                          prepared: Optional[PreparedSeq] = None):
+    """:func:`_lane_streams` for M reduced members of one alphabet over one
+    record (a first span with a free end): the symbol-only prep is built
+    once, every member's lane products come from one launch of B21, the
+    boundary glue runs per member (:func:`_reduced_lane_inputs`), and the
+    chains from one launch of B24.  The counterpart of the JAX package's
+    ``fb_pallas._lane_streams_stacked``.  Returns (alphas [M, lane_T, 2,
+    NL], betas [M, lane_T, 2, NL] — or, with ``conf_masks``, the list of
+    per-member confidences [lane_T, NL] —, esym2, lens2)."""
+    fb_onehot.check_stacked_members(params_list)
+    prep = _prep_for(params_list[0], obs, length, lane_T, True, None, prepared)
+    reds = fb_onehot.products_reduced_stacked(params_list, prep.pair2)
+    inputs = [_reduced_lane_inputs(p, prep, red, True, None, None)
+              for p, red in zip(params_list, reds)]
+    lens2 = prep.lane_lens[None, :].contiguous()
+    al, third, esym2 = fb_onehot.run_fb_kernels_onehot_stacked(
+        params_list, lens2, [v0.T for v0, _ in inputs], [b.T for _, b in inputs], prep.lane_T,
+        pair_esym=(prep.pair2, None, prep.pairn2), conf_masks=conf_masks,
+    )
+    return al, third, esym2, lens2
 
 
 def _conf_path_from_streams(alphas2, betas2, esym2, lens2, island_mask, gt):
@@ -296,6 +335,35 @@ def seq_posterior(params: HmmParams, obs: torch.Tensor, length: int, island_mask
     al2, b2, esym2, lens2 = _lane_streams(params, obs, length, lane_T, prev_sym=prev_sym, **kw)
     conf2, path2 = _conf_path_from_streams(al2, b2, esym2, lens2, island_mask, _groups(params))
     return conf2.T.reshape(-1)[:T], path2.T.reshape(-1)[:T]
+
+
+def seq_posterior_stacked(params_list, obs: torch.Tensor, length: int, island_masks, *,
+                          want_path: bool = False, lane_T: Optional[int] = None,
+                          prepared: Optional[PreparedSeq] = None):
+    """:func:`seq_posterior` (reduced engine, one first span, free end) for
+    M members of one alphabet over ONE record, through the stacked kernels
+    B21 and B24: (conf [M, T] f32, path [M, T] int32 — zeros unless
+    ``want_path``).  Member m's rows equal ``seq_posterior(params_list[m],
+    ..., engine="onehot")`` on the same input and geometry bit for bit.
+    The twin of ``seq_posterior_pallas_stacked``."""
+    T = obs.shape[0]
+    M = len(params_list)
+    dev = params_list[0].device
+    masks = [torch.as_tensor(m, dtype=_F32, device=dev) for m in island_masks]
+    if not want_path:
+        _, confs, _, _ = _lane_streams_stacked(params_list, obs, length, lane_T,
+                                               conf_masks=masks, prepared=prepared)
+        return (torch.stack([c.T.reshape(-1)[:T] for c in confs]),
+                torch.zeros((M, T), dtype=torch.int32, device=obs.device))
+    al, be, esym2, lens2 = _lane_streams_stacked(params_list, obs, length, lane_T,
+                                                 prepared=prepared)
+    confs, paths = [], []
+    for m, params in enumerate(params_list):
+        conf2, path2 = _conf_path_from_streams(al[m], be[m], esym2, lens2, masks[m],
+                                               _groups(params))
+        confs.append(conf2.T.reshape(-1)[:T])
+        paths.append(path2.T.reshape(-1)[:T])
+    return torch.stack(confs), torch.stack(paths)
 
 
 def batch_posterior(params: HmmParams, chunks: torch.Tensor, lengths: torch.Tensor,

@@ -1,9 +1,10 @@
 """Forward-backward statistics: the E-step's output contract.
 
 Counterpart of ``cpgisland_tpu/ops/forward_backward.py``, cut to the
-:class:`SuffStats` container the reduced chunked E-step
-(``ops/fb_chunked.py``) fills.  The generic K-state engines (rescaled and
-log numerics, posterior marginals) are not ported yet.
+:class:`SuffStats` container the chunked E-steps (``ops/fb_chunked.py``)
+fill and the scoring entry :func:`sequence_loglik` (lane-parallel, through
+the kernels of ``ops/loglik.py``).  The generic K-state engines (rescaled
+and log numerics, posterior marginals) are not ported yet.
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from cpgisland_tpu_torch.ops.loglik import sequence_loglik  # noqa: F401  (the scoring entry)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -8,6 +8,8 @@ or B19 for the confidence alone).  The JAX package shards a
 record over a mesh; here the mesh has one member, so the cross-device
 exchange is the identity.  Span threading across calls (``enter_dir`` /
 ``exit_dir``) is driven by ``pipeline.posterior_file``.
+``posterior_sharded_stacked`` runs M reduced members over one record
+through the stacked kernels (B21, B24), for ``family.compare``.
 """
 
 from __future__ import annotations
@@ -90,10 +92,16 @@ def _prev_sym_arg(engine: str, first: bool, prev_sym) -> Optional[int]:
     return int(prev_sym)
 
 
-def place_record_span(params: HmmParams, piece) -> torch.Tensor:
+def place_record_span(params: HmmParams, piece, *, pad_to: Optional[int] = None) -> torch.Tensor:
     """Upload one span's symbols (uint8) to the params' device ONCE for both
-    span sweeps."""
-    return torch.from_numpy(np.ascontiguousarray(piece)).to(params.device)
+    span sweeps (or, in ``family.compare``, for every member of an order).
+    ``pad_to`` pads with PAD (``n_symbols``) to that many symbols; the
+    consumers take the real length separately."""
+    piece = np.ascontiguousarray(piece)
+    if pad_to is not None and pad_to > piece.shape[0]:
+        piece = np.concatenate([piece, np.full(pad_to - piece.shape[0], params.n_symbols,
+                                               piece.dtype)])
+    return torch.from_numpy(piece).to(params.device)
 
 
 def prepare_record_span(params: HmmParams, placed: torch.Tensor, length: int, *,
@@ -129,12 +137,13 @@ def posterior_sharded(params: HmmParams, obs, island_states, *, engine: str = "a
     eng = resolve_fb_engine(engine, params)
     ps = _prev_sym_arg(eng, first, prev_sym)
     arr = placed if placed is not None else place_record_span(params, obs)
+    T = int(obs.shape[0])  # a placed span may be padded past the record
     conf, path = fb_seq.seq_posterior(
-        params, arr, int(obs.shape[0]), island_mask(params, island_states),
+        params, arr, T, island_mask(params, island_states),
         enter_dir=enter_dir, exit_dir=exit_dir, first=first, want_path=want_path,
         lane_T=lane_T, prev_sym=ps, prepared=prepared, engine=eng,
     )
-    return conf.cpu().numpy(), (path.to(torch.int8).cpu().numpy() if want_path else None)
+    return conf[:T].cpu().numpy(), (path[:T].to(torch.int8).cpu().numpy() if want_path else None)
 
 
 def transfer_total_sharded(params: HmmParams, obs, *, engine: str = "auto",
@@ -150,3 +159,26 @@ def transfer_total_sharded(params: HmmParams, obs, *, engine: str = "auto",
     total = fb_seq.seq_transfer_total(params, arr, int(obs.shape[0]), first=first,
                                       prev_sym=ps, prepared=prepared, engine=eng)
     return total.cpu().numpy()
+
+
+def posterior_sharded_stacked(params_list, obs, island_states_list, *, want_path: bool = False,
+                              lane_T: Optional[int] = None, placed=None,
+                              prepared: Optional[PreparedSeq] = None):
+    """Island confidence (and optionally MPM paths) of M reduced members of
+    one alphabet over ONE record, through the stacked kernels (B21, B24):
+    host arrays (conf [M, T] f32, path [M, T] int8 or None).  Member m's
+    rows equal ``posterior_sharded(params_list[m], ..., engine="onehot")``
+    on the same ``placed`` input and geometry bit for bit; callers group
+    members whose engine resolves to "onehot" (``family.stacked``).
+    ``placed``: the record's one upload, shared with the scoring pass and
+    the sequential arm."""
+    params_list = tuple(params_list)
+    for p in params_list:
+        resolve_fb_engine("onehot", p)
+    arr = placed if placed is not None else place_record_span(params_list[0], obs)
+    masks = [island_mask(p, s) for p, s in zip(params_list, island_states_list)]
+    T = int(obs.shape[0])
+    conf, path = fb_seq.seq_posterior_stacked(params_list, arr, T, masks, want_path=want_path,
+                                              lane_T=lane_T, prepared=prepared)
+    return (conf[:, :T].cpu().numpy(),
+            path[:, :T].to(torch.int8).cpu().numpy() if want_path else None)

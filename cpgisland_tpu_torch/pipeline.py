@@ -3,7 +3,8 @@ out (the reference's ``trainModel`` and ``testModel``,
 CpGIslandFinder.java:102-225 and :227-344, and its ``main``).
 
 Counterpart of ``cpgisland_tpu/pipeline.py``'s :func:`train_file`,
-:func:`decode_file`, :func:`posterior_file` and :func:`run`.
+:func:`decode_file`, :func:`posterior_file`, :func:`compare_file` and
+:func:`run`.
 
 ``compat=True`` reproduces the reference end to end: headers encoded as
 bases, the remainder chunk dropped, 1 MiB decode chunks decoded and island
@@ -476,35 +477,40 @@ class PosteriorResult:
 
 
 def _posterior_record_unit(params: HmmParams, symbols: np.ndarray, island_states, *,
-                           engine: str, want_path: bool):
+                           engine: str, want_path: bool, placed=None):
     """One whole record's posterior on the params' device -> host (conf,
-    path or None): the single-record core of :func:`posterior_file`."""
+    path or None): the single-record core of :func:`posterior_file` and of
+    ``family.compare``'s sequential arm.  ``placed``: the record already on
+    the device (``parallel.posterior.place_record_span``, possibly padded),
+    which compare shares between the scoring pass and an order's
+    members."""
     return post.posterior_sharded(params, symbols, island_states, engine=engine,
-                                  want_path=want_path)
+                                  want_path=want_path, placed=placed)
 
 
 def _thread_spans(params: HmmParams, first_sym: int, totals: list):
     """Entering-alpha and exiting-beta directions of each span of a record
-    from the spans' [K, K] transfer operators, threaded on the host in
-    float64.  Returns (enters, exits): enters[0] is the record's init
-    direction, exits[-1] None (a free end)."""
+    from the spans' float32 [K, K] transfer operators, threaded on the host
+    as the JAX package threads them (``cpgisland_tpu/pipeline.py``): the
+    init direction from float64 ``pi * B[:, first]``, then every product
+    and normalization in float32.  Returns (enters, exits): enters[0] is
+    the record's init direction, exits[-1] None (a free end)."""
     K, S = params.n_states, params.n_symbols
-    pi = np.exp(params.log_pi.double().cpu().numpy())
-    B = np.exp(params.log_B.double().cpu().numpy())
-    # Mirrors the JAX package: the first emission folds in only for a real
-    # first symbol.
+    pi = np.exp(params.log_pi.cpu().numpy().astype(np.float64))
+    B = np.exp(params.log_B.cpu().numpy().astype(np.float64))
+    # The first emission folds in only for a real first symbol.
     v = pi * B[:, first_sym] if first_sym < S else pi
-    enters = [v / v.sum()]
+    enters = [(v / v.sum()).astype(np.float32)]
     for tot in totals[:-1]:
-        v = enters[-1] @ tot.astype(np.float64)
-        enters.append(v / v.sum())
+        v = enters[-1] @ tot
+        enters.append((v / v.sum()).astype(np.float32))
     exits: list = [None] * len(totals)
-    e = np.full(K, 1.0 / K)
+    e = np.full(K, 1.0 / K, np.float32)
     for s in range(len(totals) - 2, -1, -1):
-        e = totals[s + 1].astype(np.float64) @ e
-        e = e / e.sum()
-        exits[s] = e.astype(np.float32)
-    return [x.astype(np.float32) for x in enters], exits
+        e = totals[s + 1] @ e
+        e = (e / e.sum()).astype(np.float32)
+        exits[s] = e
+    return enters, exits
 
 
 def posterior_file(
@@ -749,6 +755,114 @@ def posterior_file(
         mean_island_confidence=conf_total / n_sym if n_sym else 0.0,
         calls=calls_all, phases=phases,
     )
+
+
+@dataclass
+class CompareResult:
+    n_symbols: int
+    n_records: int
+    member_names: list
+    baseline: str
+    records: list  # [family.RecordComparison] in file order
+    # Wall seconds per phase ("encode" — the FASTA parse and each order's
+    # stream —, "score", "posterior", "islands", "winner").
+    phases: dict = field(default_factory=dict)
+
+
+def compare_file(
+    test_path: str,
+    members=None,
+    *,
+    out: Optional[Union[str, IO[str]]] = None,
+    engine: str = "auto",
+    baseline: Optional[str] = None,
+    min_len: Optional[int] = None,
+    threshold: Optional[float] = None,
+    symbol_cache: Optional[str] = None,
+    invalid_symbols: str = "skip",
+    metrics=None,
+    timer=None,
+    sessions=None,
+    stacked: bool = True,
+    device="cuda",
+) -> CompareResult:
+    """Multi-model posterior comparison over a FASTA file (clean semantics,
+    per record): the CLI's ``compare``.
+
+    Every member is evaluated over the same record stream (order-2 members
+    over its pair recode) through ``family.compare_record`` on ``device``
+    (default "cuda"): per member the record loglik, the log-odds against
+    ``baseline`` and the island calls from its MPM path, and the
+    per-position winner track.  ``out`` (path or open file) gets the
+    report: a ``# cpgisland compare`` header, then per record a ``# record``
+    line, one ``# model`` line per member (loglik, log-odds, island count)
+    and the winner track as reference-format island lines named
+    ``<record>|<member>`` (bare ``<member>`` in single-record files).
+
+    ``members`` defaults to the 3-model cast (durbin8, two_state, null).
+    ``stacked`` (default) groups same-order reduced members into one
+    stacked launch set per record; the results are bit-identical either
+    way.  Symbol caches (ROADMAP A1), metrics and phase timers (A12) and
+    serving sessions (A13) are not ported and raise NotImplementedError."""
+    from cpgisland_tpu_torch import family
+
+    for requested, what in (
+        (symbol_cache is not None, "symbol caches (ROADMAP A1)"),
+        (metrics is not None, "metrics logging (ROADMAP A12)"),
+        (timer is not None, "phase timers (ROADMAP A12)"),
+        (sessions is not None, "serving sessions (ROADMAP A13)"),
+    ):
+        if requested:
+            raise NotImplementedError(f"compare_file: {what} not ported yet")
+    if members is None:
+        members = family.default_members()
+    names = [m.name for m in members]
+    kw = {} if threshold is None else {"threshold": threshold}
+    b_idx = family.resolve_baseline(members, baseline)
+    _check_invalid_symbols(invalid_symbols, compat=False)
+    dev = resolve_device(device)
+    phases: dict = {}
+    records: list = []
+    n_sym = 0
+    rec_iter = codec.iter_fasta_records(test_path, invalid=invalid_symbols)
+    while True:
+        with _phase(phases, "encode"):
+            rec = next(rec_iter, None)
+        if rec is None:
+            break
+        rec_name, symbols = rec
+        n_sym += symbols.size
+        records.append(family.compare_record(
+            members, symbols, record=rec_name or ".", engine=engine,
+            baseline=members[b_idx].name, min_len=min_len, stacked=stacked, device=dev,
+            phases=phases, **kw,
+        ))
+    if out is not None:
+        _write_compare(records, names, members[b_idx].name, out)
+    return CompareResult(n_symbols=n_sym, n_records=len(records), member_names=names,
+                         baseline=members[b_idx].name, records=records, phases=phases)
+
+
+def _write_compare(records, names, baseline: str, out) -> None:
+    """The compare report writer (see :func:`compare_file`'s format)."""
+    own = isinstance(out, str)
+    f = open(out, "w") if own else out
+    try:
+        f.write(f"# cpgisland compare models={','.join(names)} baseline={baseline}\n")
+        multi = len(records) > 1
+        for rc in records:
+            f.write(f"# record {rc.record} symbols {rc.n_symbols}\n")
+            for m in rc.members:
+                f.write(f"# model {m.name} loglik {m.loglik:.6f} "
+                        f"log_odds {m.log_odds:.6f} islands {len(m.calls)}\n")
+            wc = rc.winner_calls
+            if multi and wc.names is not None:
+                wc = dataclasses.replace(
+                    wc, names=np.array([f"{rc.record}|{n}" for n in wc.names], dtype=object))
+            f.write(wc.format_lines())
+    finally:
+        if own:
+            f.close()
 
 
 def train_file(

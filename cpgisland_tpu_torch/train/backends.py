@@ -7,18 +7,20 @@ one MR job per EM iteration: mappers run forward-backward over 65,536-symbol
 chunks and emit expected counts, the reduce sums them
 (CpGIslandFinder.java:200-201).  Here the chunk batch is one tensor on the
 card, every chunk one lane of the E-step kernels, and the reduce a sum over
-lanes.
+lanes.  :class:`FamilyEStep` and :func:`fit_family` train M reduced
+members of one alphabet in lockstep through the stacked kernels.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from cpgisland_tpu_torch.family import partition as family_partition
 from cpgisland_tpu_torch.models.hmm import HmmParams
-from cpgisland_tpu_torch.ops import fb_chunked, fb_pallas
+from cpgisland_tpu_torch.ops import fb_chunked, fb_onehot, fb_pallas
 from cpgisland_tpu_torch.ops.forward_backward import SuffStats
 from cpgisland_tpu_torch.ops.prepared import PreparedChunked, prepare_chunked
 from cpgisland_tpu_torch.utils import chunking
@@ -109,6 +111,89 @@ class LocalBackend:
             raise RuntimeError("LocalBackend: call prepare_streams before the E-step")
         return fb_chunked.batch_stats(params, chunks, lengths, prepared=prepared,
                                       engine=self.resolved)
+
+
+class FamilyEStep:
+    """Stacked E-step of M model-family members (reduced-stats-eligible,
+    one alphabet) over ONE shared chunk batch: every member's chains in one
+    launch of B24 and its counts in one of B25 (``fb_chunked.
+    batch_stats_stacked``).  Member m's statistics equal
+    ``LocalBackend(engine="onehot")``'s bit for bit.  ``stacked=False`` is
+    the sequential arm: M single-model reduced E-steps over the same placed
+    batch and prep.  The JAX package's ``None`` defaults read its tuner
+    table, which the port does not have (ROADMAP A14): here ``None`` means
+    True.  ``fuse_fb=False`` (the split arm, B22 / B23) is not ported."""
+
+    def __init__(self, t_tile: Optional[int] = None, fuse_fb: Optional[bool] = None,
+                 stacked: Optional[bool] = None):
+        if fuse_fb is False:
+            raise NotImplementedError(
+                "FamilyEStep(fuse_fb=False): the stacked split arm (kernels B22, B23) is "
+                "not ported yet (ROADMAP A14)"
+            )
+        self.t_tile = fb_chunked.DEFAULT_T_TILE if t_tile is None else int(t_tile)
+        self.fuse_fb = True
+        self.stacked = True if stacked is None else bool(stacked)
+
+    def validate(self, params_list) -> None:
+        fb_onehot.check_stacked_members(params_list)
+        for p in params_list:
+            if not (family_partition.reduced_stats_eligible(p)
+                    and p.n_states <= ONEHOT_MAX_STATES):
+                raise ValueError(
+                    "FamilyEStep members must be reduced-stats-eligible (one-hot emissions "
+                    "in groups of 2 over a power-of-two alphabet, at most "
+                    f"{ONEHOT_MAX_STATES} states)"
+                )
+
+    def place(self, chunks, lengths, device) -> tuple:
+        """The uint8 chunks and their lengths on ``device``, uploaded once."""
+        return (torch.as_tensor(chunks).to(device), torch.as_tensor(lengths).to(device))
+
+    def prepare_streams(self, params_list, chunks: torch.Tensor,
+                        lengths: torch.Tensor) -> PreparedChunked:
+        """ONE symbol-only prep for every member: the pair stream depends on
+        the symbols and the alphabet only."""
+        return prepare_chunked(params_list[0].n_symbols, chunks, lengths, t_tile=self.t_tile,
+                               onehot=True)
+
+    def __call__(self, params_list, chunks: torch.Tensor, lengths: torch.Tensor,
+                 prepared: Optional[PreparedChunked] = None) -> tuple:
+        params_list = tuple(params_list)
+        self.validate(params_list)
+        if prepared is None:
+            prepared = self.prepare_streams(params_list, chunks, lengths)
+        if not self.stacked:
+            return tuple(fb_chunked.batch_stats(p, chunks, lengths, prepared=prepared,
+                                                engine="onehot") for p in params_list)
+        return fb_chunked.batch_stats_stacked(params_list, chunks, lengths, prepared=prepared)
+
+
+def fit_family(params_list, chunks, lengths, *, n_iter: int = 10,
+               estep: Optional[FamilyEStep] = None):
+    """Train M family members in LOCKSTEP over one chunk batch (``chunks``
+    [N, T] uint8, ``lengths`` [N], arrays or tensors) on the first
+    member's device: each iteration runs ONE stacked E-step and M M-steps.
+    Member m's trajectory equals ``baum_welch.fit`` of that member alone
+    (onehot engine, convergence 0) bit for bit.  No host sync inside the
+    loop: the logliks come back once, after it.  Returns (trained params
+    list, logliks [n_iter, M] float64)."""
+    from cpgisland_tpu_torch.train.baum_welch import mstep
+
+    estep = estep if estep is not None else FamilyEStep()
+    dev = params_list[0].device
+    params_list = [HmmParams(p.log_pi.float(), p.log_A.float(), p.log_B.float())
+                   for p in params_list]
+    chunks, lengths = estep.place(chunks, lengths, dev)
+    prep = estep.prepare_streams(params_list, chunks, lengths)
+    hist = []
+    for _ in range(int(n_iter)):
+        stats = estep(params_list, chunks, lengths, prepared=prep)
+        hist.append(torch.stack([st.loglik.float() for st in stats]))
+        params_list = [mstep(p, st) for p, st in zip(params_list, stats)]
+    if not hist:
+        return params_list, np.zeros((0, len(params_list)), np.float64)
+    return params_list, torch.stack(hist).double().cpu().numpy()
 
 
 def get_backend(name: str = "local", *, mode: str = "rescaled",

@@ -16,7 +16,7 @@ whitespace are file format, never invalid.
 
 from __future__ import annotations
 
-from typing import Iterator, Union
+from typing import Iterator, Optional, Union
 
 import numpy as np
 
@@ -236,3 +236,30 @@ def _concat(bufs: list) -> np.ndarray:
         return np.zeros(0, dtype=np.uint8)
     return np.concatenate(bufs)
 
+
+def recode_pairs(symbols: np.ndarray, n_symbols: int = N_SYMBOLS,
+                 prev: Optional[int] = None) -> np.ndarray:
+    """Recode a base-alphabet stream to the PAIR (dinucleotide) alphabet:
+    ``out[t] = symbols[t-1] * n_symbols + symbols[t]``, position-aligned
+    with the input, uint8 (PAD = ``n_symbols ** 2``).
+
+    A position with no real left context (the first one unless ``prev``
+    gives the symbol before the stream, and any real position right after
+    a PAD) recodes to the SELF-CONTEXT pair ``(cur, cur)``: in-alphabet and
+    chain-consistent, so the structural zeros of pair-chained models such
+    as ``presets.dinuc_cpg`` never see a dead chain.  A PAD input symbol
+    stays PAD."""
+    if n_symbols * n_symbols >= 255:
+        raise ValueError(f"pair alphabet {n_symbols}^2 does not fit the uint8 symbol stream")
+    s = np.asarray(symbols)
+    out = np.full(s.shape, n_symbols * n_symbols, dtype=np.uint8)
+    if s.size == 0:
+        return out
+    cur = s.astype(np.int32)
+    prv = np.empty_like(cur)
+    prv[1:] = cur[:-1]
+    prv[0] = int(prev) if prev is not None and 0 <= int(prev) < n_symbols else n_symbols
+    real = cur < n_symbols
+    prv = np.where(real & (prv >= n_symbols), cur, prv)
+    out[real] = (prv[real] * n_symbols + cur[real]).astype(np.uint8)
+    return out

@@ -452,3 +452,252 @@ def test_dense_posterior_file_cuda_equals_cpu(cuda_device, tmp_path):
                             island_states=(0,), device="cuda")
     assert _kernels.launches["fb_bwd_conf"] > before["fb_bwd_conf"]
     assert _kernels.launches["fb_bwd"] == before["fb_bwd"]
+
+
+# -- B21, B24, B25: the stacked kernels; the scoring kernels -------------------
+
+
+def _stacked_batch(NL, T, S, M, device):
+    """M members of one alphabet (the flagship at S = 4, dinuc_cpg at S =
+    16, plus random partition=2 members) over one seeded [NL, T] chunk
+    batch: ragged lengths, an empty lane where NL allows, PAD tails; pair
+    recoded (so consecutive pairs chain) at S = 16."""
+    from cpgisland_tpu_torch.ops import fb_onehot as FB
+    from cpgisland_tpu_torch.ops.prepared import prepare_chunked
+    from cpgisland_tpu_torch.utils.codec import recode_pairs
+
+    rng = np.random.default_rng(NL * 31 + T + 7 * M + S)
+    gen = torch.Generator().manual_seed(NL + M + S)
+    first = presets.durbin_cpg8(device=device) if S == 4 else presets.dinuc_cpg(device=device)
+    members = [first] + [presets.random_hmm(gen, 2 * S, S, partition=2, device=device)
+                         for _ in range(M - 1)]
+    chunks = rng.integers(0, 4, size=(NL, T)).astype(np.uint8)
+    if S == 16:
+        chunks = recode_pairs(chunks.ravel()).reshape(NL, T)
+    lengths = np.full(NL, T, np.int32)
+    lengths[-1] = max(1, T // 3)
+    if NL > 2:
+        lengths[1] = 0
+        lengths[2:-1] = rng.integers(1, T + 1, size=NL - 3)
+    chunks[np.arange(T)[None, :] >= lengths[:, None]] = S
+    prep = prepare_chunked(S, torch.from_numpy(chunks).to(device),
+                           torch.from_numpy(lengths).to(device), t_tile=512)
+    gts, tabs = FB.stacked_tables(members)
+    return rng, members, prep, gts, tabs
+
+
+_STACK_GRID = pytest.mark.parametrize("S", [4, 16])
+_STACK_M = pytest.mark.parametrize("M", [1, 2, 5])
+_STACK_NL = pytest.mark.parametrize("NL", [1, 33, 1024])
+
+
+@_STACK_GRID
+@_STACK_M
+@_STACK_NL
+def test_prod_stacked_kernel_bit_equal(cuda_device, NL, M, S):
+    """B21 equals its plain version, and each member's slice equals B7 on
+    that member's table, bit for bit."""
+    from cpgisland_tpu_torch.ops import fb_onehot as FB
+
+    _, _, prep, _, tabs = _stacked_batch(NL, 2000, S, M, cuda_device)
+    before = _kernels.launches["oh_prod_stacked"]
+    got = FB.oh_prod_stacked(prep.pair2, tabs)
+    assert _kernels.launches["oh_prod_stacked"] == before + 1
+    assert torch.equal(got, FB.oh_prod_stacked_plain(prep.pair2, tabs))
+    for m in range(M):
+        assert torch.equal(got[m], FB.oh_prod(prep.pair2, tabs[m].contiguous()))
+
+
+@_STACK_GRID
+@_STACK_M
+@_STACK_NL
+def test_fwdbwd_stacked_kernel_bit_equal(cuda_device, NL, M, S):
+    """B24 equals its plain version, and each member's chains equal B4's on
+    that member's operands, bit for bit."""
+    from cpgisland_tpu_torch.ops import fb_onehot as FB
+
+    T = 2000
+    rng, _, prep, _, tabs = _stacked_batch(NL, T, S, M, cuda_device)
+    v = lambda: torch.from_numpy(  # noqa: E731
+        rng.random((M, 2, NL)).astype(np.float32) + 0.01).to(cuda_device)
+    args = (prep.pair2, prep.pairn2, prep.lens2, v(), v(), tabs, T)
+    before = _kernels.launches["oh_fwdbwd_stacked"]
+    al, be = FB.oh_fwdbwd_stacked(*args)
+    assert _kernels.launches["oh_fwdbwd_stacked"] == before + 1
+    al_p, be_p = FB.oh_fwdbwd_stacked_plain(*args)
+    assert torch.equal(al, al_p) and torch.equal(be, be_p)
+    for m in range(M):
+        a1, b1 = FB.oh_fwdbwd(prep.pair2, prep.pairn2, prep.lens2, args[3][m], args[4][m],
+                              tabs[m].contiguous(), T)
+        assert torch.equal(a1, al[m]) and torch.equal(b1, be[m])
+
+
+@_STACK_GRID
+@_STACK_M
+@_STACK_NL
+def test_seq_stats_stacked_kernel(cuda_device, NL, M, S):
+    """B25 within B5's tolerance of its plain version (rtol 1e-5 / atol
+    1e-3), and each member's counts equal B5's bit for bit (the same body
+    on the same operands); random entering messages and pair0 masks."""
+    from cpgisland_tpu_torch.ops import fb_onehot as FB
+
+    T = 2000
+    rng, members, prep, gts, tabs = _stacked_batch(NL, T, S, M, cuda_device)
+    K = 2 * S
+    v = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.random(shape).astype(np.float32) + 0.01).to(cuda_device)
+    al, be = FB.oh_fwdbwd_stacked(prep.pair2, prep.pairn2, prep.lens2, v(M, 2, NL),
+                                  v(M, 2, NL), tabs, T)
+    B_reds = torch.stack([FB.reduced_emissions(p, gt) for p, gt in zip(members, gts)])
+    gts32 = gts.to(torch.int32).contiguous()
+    pair0m = torch.from_numpy(rng.integers(0, 2, size=(1, NL)).astype(np.float32)).to(cuda_device)
+    args = (al, be, prep.pair2, prep.lens2, tabs, B_reds, gts32, v(M, K, NL), v(M, 2, NL),
+            pair0m)
+    before = _kernels.launches["oh_seq_stats_stacked"]
+    got = FB.oh_seq_stats_stacked(*args, prep.Tt)
+    assert _kernels.launches["oh_seq_stats_stacked"] == before + 1
+    for g, w in zip(got, FB.oh_seq_stats_stacked_plain(*args)):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=1e-5, atol=1e-3)
+    for m in range(M):
+        single = FB.oh_seq_stats(al[m], be[m], prep.pair2, prep.lens2, tabs[m].contiguous(),
+                                 B_reds[m], gts32[m], args[7][m], args[8][m], pair0m, prep.Tt)
+        assert all(torch.equal(a, b[m]) for a, b in zip(single, got))
+
+
+@_STACK_GRID
+@_STACK_M
+@_STACK_NL
+def test_reduced_scoring_kernel(cuda_device, NL, M, S):
+    """The reduced scoring chain: per-lane float64 sums within 1e-12 of its
+    plain version (the float32 chain is bit-equal; only the float64 log
+    may round differently), each member equal to its own M = 1 launch."""
+    from cpgisland_tpu_torch.ops import loglik as LL
+
+    rng, _, prep, _, tabs = _stacked_batch(NL, 2000, S, M, cuda_device)
+    e = rng.random((M, 2, NL)).astype(np.float32) + 0.01
+    enter = torch.from_numpy(e / e.sum(axis=1, keepdims=True)).to(cuda_device)
+    before = _kernels.launches["oh_loglik"]
+    got = LL.oh_loglik(prep.pair2, enter, tabs)
+    assert _kernels.launches["oh_loglik"] == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               LL.oh_loglik_plain(prep.pair2, enter, tabs).cpu().numpy(),
+                               rtol=1e-12)
+    for m in range(M):
+        one = LL.oh_loglik(prep.pair2, enter[m : m + 1], tabs[m : m + 1].contiguous())
+        assert torch.equal(one[0], got[m])
+
+
+@pytest.mark.parametrize("model", ["two_state", "null4", "null16", "durbin8"])
+@_STACK_NL
+def test_dense_scoring_kernel(cuda_device, NL, model):
+    """The dense scoring chain (K = 2, 1, 1, 8) against its plain version on
+    a symbol stream with PADs and a PAD tail: within 1e-12 per lane."""
+    from cpgisland_tpu_torch.ops import fb_pallas as FP
+    from cpgisland_tpu_torch.ops import loglik as LL
+
+    params = {"two_state": lambda: presets.two_state_cpg(device=cuda_device),
+              "null4": lambda: presets.null_background(4, device=cuda_device),
+              "null16": lambda: presets.null_background(16, device=cuda_device),
+              "durbin8": lambda: presets.durbin_cpg8(device=cuda_device)}[model]()
+    K, S = params.n_states, params.n_symbols
+    rng = np.random.default_rng(NL + K + S)
+    sel = rng.integers(0, S, size=(2000, NL)).astype(np.int32)
+    sel[rng.random(sel.shape) < 0.05] = S
+    sel[1500:, -1] = S
+    e = rng.random((K, NL)).astype(np.float32) + 0.01
+    enter = torch.from_numpy(e / e.sum(axis=0)).to(cuda_device)
+    A, B, _ = FP.tables(params)
+    sel_d = torch.from_numpy(sel).to(cuda_device)
+    before = _kernels.launches["fb_loglik"]
+    got = LL.fb_loglik(sel_d, enter, A, B)
+    assert _kernels.launches["fb_loglik"] == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               LL.fb_loglik_plain(sel_d, enter, A, B).cpu().numpy(), rtol=1e-12)
+
+
+def test_compare_file_cuda_equals_cpu(cuda_device, tmp_path):
+    """The compare report of a mixed cast with a stacked group: record and
+    winner-track lines byte-identical on the card and on the CPU, each
+    model line's loglik and log-odds within 1e-6 of the loglik (the models'
+    probability tables are exp of their log tables on each device, which
+    rounds an ulp apart); the card's stacked run launches B21 and B24 and
+    no B7 or B4."""
+    from cpgisland_tpu_torch import family
+
+    gen = torch.Generator().manual_seed(3)
+    members = [family.builtin_member("durbin8"),
+               family.member_from_params("rand", presets.random_hmm(gen, 8, 4, partition=2)),
+               family.builtin_member("two_state"), family.builtin_member("null")]
+    rng = np.random.default_rng(21)
+    p = tmp_path / "c.fa"
+    with open(p, "w") as f:
+        for r, n in enumerate((12_000, 3_000, 7_000)):
+            s = rng.choice(4, size=n, p=[0.3, 0.2, 0.2, 0.3])
+            s[500:1700] = rng.choice(4, size=1200, p=[0.15, 0.35, 0.35, 0.15])
+            f.write(f">r{r}\n" + "".join("ACGT"[x] for x in s) + "\n")
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        buf = io.StringIO()
+        _kernels.reset_launches()
+        pipeline.compare_file(str(p), members, out=buf, device=dev)
+        outs[dev] = buf.getvalue().splitlines()
+    assert _kernels.launches["oh_prod_stacked"] and _kernels.launches["oh_fwdbwd_stacked"]
+    assert _kernels.launches["oh_prod"] == _kernels.launches["oh_fwdbwd"] == 0
+    assert len(outs["cpu"]) == len(outs["cuda"])
+    for a, b in zip(outs["cpu"], outs["cuda"]):
+        if not a.startswith("# model "):
+            assert a == b
+            continue
+        a, b = a.split(), b.split()
+        assert a[:4] + a[7:] == b[:4] + b[7:]
+        for i in (4, 6):
+            assert abs(float(a[i]) - float(b[i])) <= 1e-6 * abs(float(a[4]))
+
+
+def test_fit_family_cuda_equals_solo_fits(cuda_device):
+    """fit_family on the card: B24 and B25 once per iteration, no B4 or B5,
+    and every member's trajectory and model equal to its own fit on the
+    card, bit for bit."""
+    from cpgisland_tpu_torch.train import baum_welch
+    from cpgisland_tpu_torch.train.backends import fit_family
+    from cpgisland_tpu_torch.utils import chunking
+
+    gen = torch.Generator().manual_seed(4)
+    members = [presets.durbin_cpg8(device=cuda_device)] + [
+        presets.random_hmm(gen, 8, 4, partition=2, device=cuda_device) for _ in range(2)]
+    rng = np.random.default_rng(8)
+    s = rng.choice(4, size=40_000, p=[0.3, 0.2, 0.2, 0.3]).astype(np.uint8)
+    chunked = chunking.frame(s, 4096)
+    _kernels.reset_launches()
+    fitted, hist = fit_family(members, chunked.chunks, chunked.lengths, n_iter=3)
+    assert _kernels.launches["oh_fwdbwd_stacked"] == _kernels.launches["oh_seq_stats_stacked"] == 3
+    assert _kernels.launches["oh_fwdbwd"] == _kernels.launches["oh_seq_stats"] == 0
+    for m, p in enumerate(members):
+        solo = baum_welch.fit(p, chunked, num_iters=3, convergence=0.0, engine="onehot")
+        np.testing.assert_array_equal(hist[:, m], np.asarray(solo.logliks))
+        for f in ("log_pi", "log_A", "log_B"):
+            assert torch.equal(getattr(fitted[m], f), getattr(solo.params, f))
+
+
+@pytest.mark.parametrize("n_chunks", [1390, 1391])
+def test_family_estep_cuda_equals_local_backend(cuda_device, n_chunks):
+    """One stacked E-step at a training batch's lane count (an odd one
+    too, so a member's slice of the stacked outputs starts off a 16-byte
+    boundary): every member's statistics equal LocalBackend(engine="onehot")
+    on the card bit for bit."""
+    from cpgisland_tpu_torch.train.backends import FamilyEStep, LocalBackend
+    from cpgisland_tpu_torch.utils import chunking
+
+    gen = torch.Generator().manual_seed(6)
+    members = [presets.durbin_cpg8(device=cuda_device)] + [
+        presets.random_hmm(gen, 8, 4, partition=2, device=cuda_device) for _ in range(2)]
+    rng = np.random.default_rng(n_chunks)
+    chunked = chunking.frame(rng.integers(0, 4, size=n_chunks * 512 - 100).astype(np.uint8), 512)
+    estep = FamilyEStep()
+    chunks, lengths = estep.place(chunked.chunks, chunked.lengths, cuda_device)
+    got = estep(members, chunks, lengths)
+    for p, g in zip(members, got):
+        backend = LocalBackend(engine="onehot")
+        want = backend(p, chunks, lengths, prepared=backend.prepare_streams(p, chunks, lengths))
+        for f in ("init", "trans", "emit", "loglik", "n_seqs"):
+            assert torch.equal(getattr(g, f), getattr(want, f)), f
