@@ -89,7 +89,31 @@ JSON line each:
    atol 1e-5), a small FASTA soft-decoded and trained on the CPU and on
    the card (identical island files, confidence and model dumps within
    1e-5), and profiles of one dense EM iteration and one dense posterior
-   of the big record.
+   of the big record;
+17-20. the stacked kernels (B21, B24, B25) and the scoring kernels, the
+   compare main path (three casts, stacked against sequential) and
+   ``fit_family`` against solo fits;
+21. flat-batch scores: ``viterbi_parallel_batch(engine="onehot")`` over the
+   256 scaffolds in one padded batch (B6 exactly once, B2 never); the
+   batch again through the plain B1, B6 and B3 on the card gives the same
+   paths and scores bit for bit, and B6's inputs and outputs at this shape
+   equal its plain version's; each score within 64 f32 ulps of its stream
+   magnitude plus 5e-5 of itself of the record's own ``viterbi_parallel``
+   score and of a float64 re-score of its path;
+22. the genome decoded clean at a 16 Mi span (the big record in 4 spans),
+   flagship and two_state: island files identical to phases 3 and 10;
+23. the span-wise decode at full size: one record of 2^28 + 2^25 symbols
+   with an island planted across the span boundary, decoded at the
+   default span (2 spans, device islands) and in one pass: identical
+   island files, the boundary island one call, wall per phase and the
+   device memory peak.
+
+Phase 2 also holds B6 (the score-threading backpointer kernel) bit for bit
+against its plain version on B2's flat stream, with B2's outputs equal to
+B6's first three.  Phases 7 and 15 run the posterior's islands on the
+device engine (the default on the card) and then once with the host
+engine (identical island files) and once island-only (the confidence
+summed on the card, its mean within 1e-6 relative).
 
 Then the kernel table as one JSON object and, last, the ok line.  Exits
 non-zero on any failure, or when CUDA is not available.
@@ -121,7 +145,7 @@ from cpgisland_tpu_torch.ops import viterbi_onehot as OH
 from cpgisland_tpu_torch.ops import viterbi_pallas as VP
 from cpgisland_tpu_torch.ops.islands_device import call_islands_device
 from cpgisland_tpu_torch.ops.prepared import prepare_chunked, prepare_seq
-from cpgisland_tpu_torch.parallel.decode import viterbi_sharded
+from cpgisland_tpu_torch.parallel.decode import viterbi_sharded, viterbi_sharded_spans
 from cpgisland_tpu_torch.family.stacked import stack_groups
 from cpgisland_tpu_torch.parallel.posterior import posterior_sharded, resolve_fb_engine
 from cpgisland_tpu_torch.train import baum_welch
@@ -147,6 +171,8 @@ KERNELS = {
                         "cpgisland_tpu_torch/csrc/viterbi_onehot.cu"),
     "oh_backtrace": ("cpgisland_tpu/ops/viterbi_onehot.py:539",
                      "cpgisland_tpu_torch/csrc/viterbi_onehot.cu"),
+    "oh_backpointers_scores": ("cpgisland_tpu/ops/viterbi_onehot.py:481",
+                               "cpgisland_tpu_torch/csrc/viterbi_onehot.cu"),
     "oh_prod": ("cpgisland_tpu/ops/fb_onehot.py:102",
                 "cpgisland_tpu_torch/csrc/fb_onehot.cu"),
     "oh_fwdbwd": ("cpgisland_tpu/ops/fb_onehot.py:266",
@@ -196,7 +222,15 @@ SINGLE_FB_KERNELS = ("oh_prod", "oh_fwdbwd", "oh_seq_stats")
 FAMILY_M = 3
 
 
+_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line is stamped with the seconds since the
+    script started (the kernel table and the ok line carry only their own
+    keys)."""
+    if "phase" in obj:
+        obj = obj | {"t_s": round(time.perf_counter() - _START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -255,42 +289,58 @@ def kernel_phase(rng: np.random.Generator, params, dev) -> dict:
     results = {}
     steps_n = BK * NB
     # (kernel call, plain call, bytes moved, f32 operations)
+    # Each plain version runs once: its output is the reference, its
+    # device time the plain_ms of the row.
+    plain_ms = {}
     red_k = OH.oh_products(pair2, tab)
-    red_p = OH.oh_products_plain(pair2, tab)
+    red_p, plain_ms["oh_products"] = timed_once(lambda: OH.oh_products_plain(pair2, tab))
     bp_k, de_k, eb_k = OH.oh_backpointers(pair2, v_red, tab)
-    bp_p, de_p, eb_p = OH.oh_backpointers_plain(pair2, v_red, tab)
+    (bp_p, de_p, eb_p), plain_ms["oh_backpointers"] = timed_once(
+        lambda: OH.oh_backpointers_plain(pair2, v_red, tab))
     path_k = OH.oh_backtrace(bp_k, pair2, idtab, exit_bits)
-    path_p = OH.oh_backtrace_plain(bp_p, pair2, idtab, exit_bits)
+    path_p, plain_ms["oh_backtrace"] = timed_once(
+        lambda: OH.oh_backtrace_plain(bp_p, pair2, idtab, exit_bits))
+    # B6 on the same flat stream: bit-equal to its plain version on every
+    # output, and its first three outputs to B2's launch (B2 re-checked).
+    sc_k = OH.oh_backpointers_scores(pair2, v_red, tab)
+    sc_p, plain_ms["oh_backpointers_scores"] = timed_once(
+        lambda: OH.oh_backpointers_scores_plain(pair2, v_red, tab))
     checks = {
         "oh_products": [(red_k, red_p)],
         "oh_backpointers": [(bp_k, bp_p), (de_k, de_p), (eb_k, eb_p)],
         "oh_backtrace": [(path_k, path_p)],
+        "oh_backpointers_scores": list(zip(sc_k, sc_p)) + list(zip(sc_k[:3], (bp_k, de_k, eb_k))),
     }
     tab_b, id_b = tab.numel() * 4, idtab.numel() * 4
     bytes_moved = {
         "oh_products": 4 * steps_n + tab_b + 16 * NB,
         "oh_backpointers": 4 * steps_n + 8 * NB + tab_b + steps_n // 2 + 8 * NB + 4 * NB,
         "oh_backtrace": steps_n // 2 + 4 * steps_n + id_b + 4 * NB + 4 * steps_n,
+        # B2's bytes plus the [bk, nb] f32 chain max
+        "oh_backpointers_scores": (4 * steps_n + 8 * NB + tab_b + steps_n // 2 + 8 * NB
+                                   + 4 * NB + 4 * steps_n),
     }
     ops = {  # adds + maxes per step (compares and bit ops counted as ops)
         "oh_products": 12 * steps_n,
         "oh_backpointers": 14 * steps_n,
         "oh_backtrace": 3 * steps_n,
+        "oh_backpointers_scores": 15 * steps_n,
     }
     calls = {
-        "oh_products": (lambda: OH.oh_products(pair2, tab),
-                        lambda: OH.oh_products_plain(pair2, tab)),
-        "oh_backpointers": (lambda: OH.oh_backpointers(pair2, v_red, tab),
-                            lambda: OH.oh_backpointers_plain(pair2, v_red, tab)),
-        "oh_backtrace": (lambda: OH.oh_backtrace(bp_k, pair2, idtab, exit_bits),
-                         lambda: OH.oh_backtrace_plain(bp_k, pair2, idtab, exit_bits)),
+        "oh_products": lambda: OH.oh_products(pair2, tab),
+        "oh_backpointers": lambda: OH.oh_backpointers(pair2, v_red, tab),
+        "oh_backtrace": lambda: OH.oh_backtrace(bp_k, pair2, idtab, exit_bits),
+        "oh_backpointers_scores": lambda: OH.oh_backpointers_scores(pair2, v_red, tab),
     }
     for name, pairs in checks.items():
         equal = all(torch.equal(a, b) for a, b in pairs)
         err = max(max_abs_err(a, b) for a, b in pairs)
-        kernel_fn, plain_fn = calls[name]
-        results[name] = kernel_row(name, equal, err, kernel_fn, plain_fn, bytes_moved[name],
-                                   ops[name], steps_n, plain_runs=3, bit_equal=equal)
+        extra = {}
+        if name == "oh_backpointers_scores":
+            extra = {"b2_ms": results["oh_backpointers"]["ms"]}
+        results[name] = kernel_row(name, equal, err, calls[name], plain_ms[name],
+                                   bytes_moved[name], ops[name], steps_n, bit_equal=equal,
+                                   **extra)
         if not equal:
             raise SystemExit(f"chip_smoke: {name} disagrees with its plain version")
     return results
@@ -309,13 +359,11 @@ def timed_once(fn):
     return out, a.elapsed_time(b)
 
 
-def kernel_row(name, agree, err, kernel_fn, plain_fn, n_bytes, n_ops, steps, plain_runs,
-               plain_ms=None, **extra) -> dict:
-    """Time a kernel (median of 10) and its plain version (unless its
-    ``plain_ms`` is given), add the bound, print the row and return it."""
+def kernel_row(name, agree, err, kernel_fn, plain_ms, n_bytes, n_ops, steps, **extra) -> dict:
+    """Time a kernel (median of 10) beside its plain version's time (from
+    the one run that gave the reference output), add the bound, print the
+    row and return it."""
     ms = time_ms(kernel_fn, runs=10)
-    if plain_ms is None:
-        plain_ms = time_ms(plain_fn, runs=plain_runs, warmup=0)
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / F32_OPS_PER_S * 1e3
     replaces, source = KERNELS[name]
@@ -358,19 +406,17 @@ def fb_kernel_phase(rng: np.random.Generator, params, dev) -> dict:
     tab = FB.prob_tab_ext(params, gt)
     fb_args = (prep.pair2, prep.pairn2, prep.lens2, a0, b0, tab, FB_TP)
     al_k, be_k = FB.oh_fwdbwd(*fb_args)
-    al_p, be_p = FB.oh_fwdbwd_plain(*fb_args)
-    torch.cuda.synchronize()
+    (al_p, be_p), fb_plain_ms = timed_once(lambda: FB.oh_fwdbwd_plain(*fb_args))
     equal = torch.equal(al_k, al_p) and torch.equal(be_k, be_p)
     err = max(max_abs_err(al_k, al_p), max_abs_err(be_k, be_p))
     del al_p, be_p
     Tp, NL = prep.pair2.shape
     steps_n = Tp * NL
     results = {"oh_fwdbwd": kernel_row(
-        "oh_fwdbwd", equal, err, lambda: FB.oh_fwdbwd(*fb_args),
-        lambda: FB.oh_fwdbwd_plain(*fb_args),
+        "oh_fwdbwd", equal, err, lambda: FB.oh_fwdbwd(*fb_args), fb_plain_ms,
         # pair + pairn read, alphas + betas written, per step
         n_bytes=8 * steps_n + 16 * steps_n + 4 * NL + 16 * NL + tab.numel() * 4,
-        n_ops=2 * 7 * steps_n, steps=steps_n, plain_runs=1, bit_equal=equal,
+        n_ops=2 * 7 * steps_n, steps=steps_n, bit_equal=equal,
     )}
     if not equal:
         raise SystemExit("chip_smoke: oh_fwdbwd disagrees with its plain version")
@@ -381,17 +427,15 @@ def fb_kernel_phase(rng: np.random.Generator, params, dev) -> dict:
     st_args = (al_k, be_k, prep.pair2, prep.lens2, tab, B_red,
                gt.to(torch.int32).contiguous(), zeros(K), zeros(2), zeros(1))
     got = FB.oh_seq_stats(*st_args, prep.Tt)
-    want = FB.oh_seq_stats_plain(*st_args)
-    torch.cuda.synchronize()
+    want, st_plain_ms = timed_once(lambda: FB.oh_seq_stats_plain(*st_args))
     agree = all(torch.allclose(g, w, rtol=1e-5, atol=1e-3) for g, w in zip(got, want))
     err = max(max_abs_err(g, w) for g, w in zip(got, want))
     del want
     valid = int(np.minimum(lengths, Tp).sum())  # B5 reads valid steps only
     results["oh_seq_stats"] = kernel_row(
-        "oh_seq_stats", agree, err, lambda: FB.oh_seq_stats(*st_args, prep.Tt),
-        lambda: FB.oh_seq_stats_plain(*st_args),
+        "oh_seq_stats", agree, err, lambda: FB.oh_seq_stats(*st_args, prep.Tt), st_plain_ms,
         n_bytes=20 * valid + 4 * NL + (K * K + 2 * S + 1) * NL * 4,
-        n_ops=40 * valid, steps=valid, plain_runs=1, tolerance="rtol 1e-5, atol 1e-3",
+        n_ops=40 * valid, steps=valid, tolerance="rtol 1e-5, atol 1e-3",
     )
     if not agree:
         raise SystemExit("chip_smoke: oh_seq_stats disagrees with its plain version")
@@ -412,17 +456,16 @@ def post_kernel_phase(rng: np.random.Generator, params, dev) -> dict:
     assert (Tp, NL) == (POST_LANE_T, POST_NL)
     tab = FB.prob_tab_ext(params, OH._groups(params))
     red_k = FB.oh_prod(prep.pair2, tab)
-    red_p = FB.oh_prod_plain(prep.pair2, tab)
-    torch.cuda.synchronize()
+    red_p, prod_plain_ms = timed_once(lambda: FB.oh_prod_plain(prep.pair2, tab))
     equal = torch.equal(red_k, red_p)
     steps_n = Tp * NL
     results = {"oh_prod": kernel_row(
         "oh_prod", equal, max_abs_err(red_k, red_p), lambda: FB.oh_prod(prep.pair2, tab),
-        lambda: FB.oh_prod_plain(prep.pair2, tab),
+        prod_plain_ms,
         # the pair stream read, [4, NL] written; per step 8 multiplies, 7
         # adds, a max and 4 divisions
         n_bytes=4 * steps_n + tab.numel() * 4 + 16 * NL, n_ops=20 * steps_n,
-        steps=steps_n, plain_runs=1, bit_equal=equal,
+        steps=steps_n, bit_equal=equal,
     )}
     if not equal:
         raise SystemExit("chip_smoke: oh_prod disagrees with its plain version")
@@ -431,16 +474,14 @@ def post_kernel_phase(rng: np.random.Generator, params, dev) -> dict:
     v = lambda: torch.from_numpy(rng.random((2, NL)).astype(np.float32) + 0.01).to(dev)
     fb_args = (prep.pair2, prep.pairn2, lens2, v(), v(), tab, POST_LANE_T)
     al_k, be_k = FB.oh_fwdbwd(*fb_args)
-    al_p, be_p = FB.oh_fwdbwd_plain(*fb_args)
-    torch.cuda.synchronize()
+    (al_p, be_p), fb_plain_ms = timed_once(lambda: FB.oh_fwdbwd_plain(*fb_args))
     equal = torch.equal(al_k, al_p) and torch.equal(be_k, be_p)
     err = max(max_abs_err(al_k, al_p), max_abs_err(be_k, be_p))
     del al_p, be_p
     kernel_row(
-        "oh_fwdbwd", equal, err, lambda: FB.oh_fwdbwd(*fb_args),
-        lambda: FB.oh_fwdbwd_plain(*fb_args),
+        "oh_fwdbwd", equal, err, lambda: FB.oh_fwdbwd(*fb_args), fb_plain_ms,
         n_bytes=24 * steps_n + 4 * NL + 16 * NL + tab.numel() * 4, n_ops=2 * 7 * steps_n,
-        steps=steps_n, plain_runs=1, bit_equal=equal, geometry="posterior span",
+        steps=steps_n, bit_equal=equal, geometry="posterior span",
     )
     if not equal:
         raise SystemExit("chip_smoke: oh_fwdbwd disagrees with its plain version at the "
@@ -453,6 +494,7 @@ def post_kernel_phase(rng: np.random.Generator, params, dev) -> dict:
 
 _BG = np.array([0.295, 0.205, 0.205, 0.295])  # GC 0.41
 _ISLAND = np.array([0.175, 0.325, 0.325, 0.175])  # GC 0.65
+_STRONG_ISLAND = np.array([0.1, 0.4, 0.4, 0.1])  # GC 0.8: one call, never split
 
 
 def make_sequence(rng: np.random.Generator, n: int) -> np.ndarray:
@@ -742,6 +784,8 @@ def posterior_phase(params, fa: str, tmp: str, dev, prod="oh_prod", chains=("oh_
             launches[k] += counts[k]
         with open(isl) as f:
             runs[label] = (f.read(), np.load(conf), res.mean_island_confidence)
+        if label == "default":
+            device_islands_s = res.phases["islands"]
     (isl_a, conf_a, mean_a), (isl_b, conf_b, mean_b) = runs.values()
     same = isl_a == isl_b
     err = float(np.abs(conf_a.astype(np.float64) - conf_b).max())
@@ -751,7 +795,38 @@ def posterior_phase(params, fa: str, tmp: str, dev, prod="oh_prod", chains=("oh_
     if not (same and err <= 1e-4 and abs(mean_a - mean_b) <= 1e-6):
         raise SystemExit(f"chip_smoke: the {model} span-threaded posterior differs from the "
                          "one-pass")
+    posterior_island_engines(params, fa, tmp, dev, island_states, model, isl_a, mean_a,
+                             device_islands_s)
     return launches
+
+
+def posterior_island_engines(params, fa: str, tmp: str, dev, island_states, model: str,
+                             device_file: str, device_mean: float, device_islands_s: float):
+    """The default-span posterior again with the host island engine (its
+    island file must equal the device engine's), and an island-only run
+    on the device engine (the confidence summed on the card: its mean
+    within 1e-6 relative of the host-summed one)."""
+    isl, conf = (os.path.join(tmp, f"posterior.{model}.host.{x}") for x in ("txt", "npy"))
+    t0 = time.perf_counter()
+    res = pipeline.posterior_file(fa, params, islands_out=isl, confidence_out=conf,
+                                  island_states=island_states, island_engine="host", device=dev)
+    wall = time.perf_counter() - t0
+    with open(isl) as f:
+        host_file = f.read()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    res_only = pipeline.posterior_file(fa, params, islands_out=buf, island_states=island_states,
+                                       device=dev)
+    wall_only = time.perf_counter() - t0
+    same = host_file == device_file == buf.getvalue()
+    rel = abs(res_only.mean_island_confidence - device_mean) / abs(device_mean)
+    emit({"phase": "posterior_island_engines", "model": model, "identical": same,
+          "lines": host_file.count("\n"), "device_islands_s": device_islands_s,
+          "host_islands_s": res.phases["islands"], "host_wall_s": wall,
+          "host_phases_s": res.phases, "island_only_wall_s": wall_only,
+          "island_only_phases_s": res_only.phases, "island_only_mean_rel_diff": rel})
+    if not (same and host_file and rel <= 1e-6 and res.mean_island_confidence == device_mean):
+        raise SystemExit(f"chip_smoke: the {model} posterior's island engines disagree")
 
 
 def posterior_fasta(rng: np.random.Generator, path: str) -> str:
@@ -905,35 +980,32 @@ def dense_kernel_phase(rng: np.random.Generator, dev) -> dict:
         logAT, logB = VP._tables(params)
         tab_b = (logAT.numel() + logB.numel()) * 4
         P_k = VP.dense_products(steps_d, logAT, logB)
-        P_p = VP.dense_products_plain(steps_d, logAT, logB)
+        P_p, p_ms = timed_once(lambda: VP.dense_products_plain(steps_d, logAT, logB))
         bp_k = VP.dense_backpointers(steps_d, v_d, logAT, logB)
-        bp_p = VP.dense_backpointers_plain(steps_d, v_d, logAT, logB)
+        bp_p, bp_ms = timed_once(lambda: VP.dense_backpointers_plain(steps_d, v_d, logAT, logB))
         path_k = VP.dense_backtrace(bp_k[0], exits)
-        path_p = VP.dense_backtrace_plain(bp_k[0], exits)
-        torch.cuda.synchronize()
+        path_p, bt_ms = timed_once(lambda: VP.dense_backtrace_plain(bp_k[0], exits))
         steps_n = BK * NB
-        rows = {  # (pairs to compare, kernel, plain, bytes moved, operations)
+        rows = {  # (pairs to compare, kernel, plain ms, bytes moved, operations)
             "dense_products": (
-                [(P_k, P_p)], lambda: VP.dense_products(steps_d, logAT, logB),
-                lambda: VP.dense_products_plain(steps_d, logAT, logB),
+                [(P_k, P_p)], lambda: VP.dense_products(steps_d, logAT, logB), p_ms,
                 # steps read, [K*K, nb] written; K^3 adds + K^2 (K-1) maxes per real step
                 4 * steps_n + tab_b + 4 * K * K * NB, K * K * (2 * K - 1) * real),
             "dense_backpointers": (
                 list(zip(bp_k, bp_p)), lambda: VP.dense_backpointers(steps_d, v_d, logAT, logB),
-                lambda: VP.dense_backpointers_plain(steps_d, v_d, logAT, logB),
+                bp_ms,
                 # steps read and packed pointers written; K^2 adds + K (K-1) compares
                 8 * steps_n + tab_b + 8 * K * NB + 4 * NB, K * (2 * K - 1) * real),
             "dense_backtrace": (
-                [(path_k, path_p)], lambda: VP.dense_backtrace(bp_k[0], exits),
-                lambda: VP.dense_backtrace_plain(bp_k[0], exits),
+                [(path_k, path_p)], lambda: VP.dense_backtrace(bp_k[0], exits), bt_ms,
                 # packed pointers read, path written; shift and mask per step
                 8 * steps_n + 4 * NB, 2 * steps_n),
         }
-        for name, (pairs, kernel_fn, plain_fn, n_bytes, n_ops) in rows.items():
+        for name, (pairs, kernel_fn, plain_ms, n_bytes, n_ops) in rows.items():
             equal = all(torch.equal(a, b) for a, b in pairs)
             err = max(max_abs_err(a, b) for a, b in pairs)
-            row = kernel_row(name, equal, err, kernel_fn, plain_fn, n_bytes, n_ops, steps_n,
-                             plain_runs=2, bit_equal=equal, K=K, real_steps=real)
+            row = kernel_row(name, equal, err, kernel_fn, plain_ms, n_bytes, n_ops, steps_n,
+                             bit_equal=equal, K=K, real_steps=real)
             if not equal:
                 raise SystemExit(f"chip_smoke: {name} (K={K}) disagrees with its plain version")
             if K == 8:
@@ -1063,8 +1135,8 @@ def _agree_row(name, got, want, kernel_fn, plain_ms, n_bytes, n_ops, steps, K, t
         agree = all(torch.allclose(g, w, rtol=tol[0], atol=tol[1]) for g, w in zip(got, want))
         extra["tolerance"] = f"rtol {tol[0]:g}, atol {tol[1]:g}"
     err = max(max_abs_err(g, w) for g, w in zip(got, want))
-    row = kernel_row(name, agree, err, kernel_fn, None, n_bytes, n_ops, steps, plain_runs=1,
-                     plain_ms=plain_ms, K=K, **extra)
+    row = kernel_row(name, agree, err, kernel_fn, plain_ms, n_bytes, n_ops, steps, K=K,
+                     **extra)
     if not agree:
         raise SystemExit(f"chip_smoke: {name} (K={K}, {extra.get('geometry')}) disagrees with "
                          "its plain version")
@@ -1338,8 +1410,8 @@ def _stacked_row(name, S, M, geometry, got, want, per_member, kernel_fn, plain_m
         agree = all(torch.allclose(g, w, rtol=tol[0], atol=tol[1]) for g, w in zip(got, want))
     err = max(max_abs_err(g, w) for g, w in zip(got, want))
     extra = {"bit_equal": agree} if tol is None else {"tolerance": f"rtol {tol[0]:g}, atol {tol[1]:g}"}
-    row = kernel_row(name, agree and per_member, err, kernel_fn, None, n_bytes, n_ops, steps,
-                     plain_runs=1, plain_ms=plain_ms, S=S, M=M, geometry=geometry,
+    row = kernel_row(name, agree and per_member, err, kernel_fn, plain_ms, n_bytes, n_ops,
+                     steps, S=S, M=M, geometry=geometry,
                      equals_single_per_member=per_member, single_ms=single_ms,
                      m_times_single_ms=M * single_ms, **extra, **more)
     if not (agree and per_member):
@@ -1461,12 +1533,13 @@ def stacked_kernel_phase(rng: np.random.Generator, gen: torch.Generator, dev) ->
 
 
 def _captured(fn, module, name: str):
-    """(fn(), the arguments of the one call it makes to module.name)."""
+    """(fn(), (arguments, result) of the last call it makes to module.name)."""
     orig, seen = getattr(module, name), []
 
     def spy(*args):
-        seen.append(args)
-        return orig(*args)
+        out = orig(*args)
+        seen.append((args, out))
+        return out
 
     setattr(module, name, spy)
     try:
@@ -1493,7 +1566,7 @@ def scoring_kernel_phase(big: np.ndarray, dev) -> dict:
         LL.sequence_loglik(params, obs[: 1 << 20])  # warm
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ll, args = _captured(lambda: LL.sequence_loglik(params, obs), LL, name)
+        ll, (args, _) = _captured(lambda: LL.sequence_loglik(params, obs), LL, name)
         wall = time.perf_counter() - t0
         kernel, plain = getattr(LL, name), getattr(LL, f"{name}_plain")
         got = kernel(*args)
@@ -1504,9 +1577,9 @@ def scoring_kernel_phase(big: np.ndarray, dev) -> dict:
                                else params.n_symbols)).sum())
         K = params.n_states
         ops = 10 * real if name == "oh_loglik" else (2 * K * K + 2 * K + 1) * real
-        row = kernel_row(name, agree, max_abs_err(got, want), lambda: kernel(*args), None,
+        row = kernel_row(name, agree, max_abs_err(got, want), lambda: kernel(*args), plain_ms,
                          4 * Tp * NL + 4 * args[1].numel() + 8 * got.numel(), ops, Tp * NL,
-                         plain_runs=1, plain_ms=plain_ms, model=model, K=K,
+                         model=model, K=K,
                          tolerance="rtol 1e-5 per lane", record_symbols=int(big.size),
                          loglik=ll, sequence_loglik_wall_s=wall)
         if not (agree and np.isfinite(ll)):
@@ -1695,6 +1768,186 @@ def fit_family_phase(gen: torch.Generator, fa: str, dev) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phases 21-23: flat-batch scores (B6), the span-wise decode, device islands
+# in the posterior (phase 7 and 15 runs)
+
+
+FLAT_KERNELS = ("oh_products", "oh_backpointers_scores", "oh_backtrace")
+
+
+def scores_phase(params, fa: str, dev) -> dict:
+    """``viterbi_parallel_batch(engine="onehot")`` over the genome's
+    scaffolds, one padded batch: per-record scores through B6.  The same
+    batch then runs with B1, B6 and B3 swapped for their plain versions on
+    the card: paths and scores must be equal bit for bit, and so must B6's
+    inputs and all four of its outputs at the main path's shape.  Each
+    score must also lie within f32 rounding of the record's own
+    ``viterbi_parallel`` score and of a float64 re-score of its path: 64
+    ulps of its stream magnitude |M_r| (the telescoped chain max it is a
+    first difference of, carried through about 2 log2(nb) rounded
+    block-offset combines) plus 5e-5 of the score (the f32 chain inside
+    each block: at most half an ulp of its ~6e3-nat range a step, 1.7e-4
+    of the score).  Returns the launch counts of the batch call."""
+    from cpgisland_tpu_torch.ops.viterbi_parallel import viterbi_parallel, viterbi_parallel_batch
+
+    recs = [s for name, s in codec.iter_fasta_records(fa) if name != "chr1"]
+    N, T = len(recs), pipeline._round_pow2(max(r.size for r in recs))
+    rows = np.full((N, T), chunking.PAD_SYMBOL, np.uint8)
+    for i, r in enumerate(recs):
+        rows[i, : r.size] = r
+    lengths = np.array([r.size for r in recs], np.int32)
+    rows_d, lengths_d = torch.from_numpy(rows).to(dev), torch.from_numpy(lengths).to(dev)
+
+    def batch():
+        return _captured(lambda: viterbi_parallel_batch(params, rows_d, lengths_d,
+                                                         engine="onehot"),
+                         OH, "oh_backpointers_scores")
+
+    _kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (paths_d, scores_d), (b6_in, b6_out) = batch()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: _kernels.launches[k] for k in DECODE_KERNELS + ("oh_backpointers_scores",)}
+    kernels = {k: getattr(OH, k) for k in FLAT_KERNELS}
+    for k in FLAT_KERNELS:
+        setattr(OH, k, getattr(OH, f"{k}_plain"))
+    try:
+        (paths_p, scores_p), (b6_in_p, b6_out_p) = batch()
+    finally:
+        for k, f in kernels.items():
+            setattr(OH, k, f)
+    b6_equal = all(torch.equal(a, b) for a, b in zip(b6_in + b6_out, b6_in_p + b6_out_p))
+    b6_err = max(max_abs_err(a, b) for a, b in zip(b6_out, b6_out_p))
+    plain_equal = torch.equal(paths_d, paths_p) and torch.equal(scores_d, scores_p)
+    b6_shape = list(b6_out[3].shape)  # dmax2 [bk, nb]
+    del b6_in, b6_out, b6_in_p, b6_out_p, paths_p, scores_p
+    paths, scores = paths_d.cpu().numpy(), scores_d.double().cpu().numpy()
+    mag = np.abs(np.cumsum(scores)).astype(np.float32)
+    bound = 64 * np.spacing(mag).astype(np.float64) + 5e-5 * np.abs(scores)
+    gap_own = np.zeros(N)
+    gap_f64 = np.zeros(N)
+    for i, r in enumerate(recs):
+        _, own = viterbi_parallel(params, torch.from_numpy(r).to(dev))
+        gap_own[i] = abs(scores[i] - float(own))
+        gap_f64[i] = abs(scores[i] - path_score_f64(params, r, paths[i, : r.size]))
+    ratio = np.maximum(gap_own, gap_f64) / bound
+    worst = int(np.argmax(ratio))
+    emit({"phase": "flat_scores", "records": N, "T": T, "symbols": int(lengths.sum()),
+          "wall_s": wall, "launches": counts, "b6_shape": b6_shape,
+          "b6_equals_plain": b6_equal, "b6_max_abs_err": b6_err,
+          "paths_scores_equal_plain": plain_equal, "max_stream_magnitude": float(mag.max()),
+          "max_bound": float(bound.max()), "max_gap_vs_own_decode": float(gap_own.max()),
+          "max_gap_vs_f64_rescore": float(gap_f64.max()),
+          "max_gap_over_bound": float(ratio[worst]),
+          "tightest": {"record": worst, "length": int(lengths[worst]),
+                       "score": float(scores[worst]), "magnitude": float(mag[worst]),
+                       "bound": float(bound[worst]), "gap_own": float(gap_own[worst]),
+                       "gap_f64": float(gap_f64[worst])},
+          "scores_finite": bool(np.isfinite(scores).all())})
+    if (counts["oh_backpointers_scores"] != 1 or counts["oh_backpointers"]
+            or not np.isfinite(scores).all() or not b6_equal or not plain_equal
+            or (gap_own > bound).any() or (gap_f64 > bound).any()):
+        raise SystemExit("chip_smoke: the flat-batch scores are off or skipped B6")
+    return counts
+
+
+def span_decode_phase(params, big: np.ndarray, tmp: str, dev) -> dict:
+    """One record of 2^28 + 2^25 symbols (the default span, CLEAN_DECODE_SPAN
+    = 2^28, and an eighth: the big record's sequence repeated), an island
+    planted across the span boundary, decoded clean with device islands at
+    the default span (2 spans) and in one pass (span 2^29): identical
+    island files, the boundary island whole.  Then the two decodes alone,
+    to the card's path, in turns (one pass, spans, spans, one pass).
+    Returns the launch counts of the span-wise run."""
+    boundary = pipeline.CLEAN_DECODE_SPAN
+    n = boundary + boundary // 8
+    fa = os.path.join(tmp, "long.fa")
+    t0 = time.perf_counter()
+    s = np.resize(big, n)
+    lo = boundary - 1500
+    s[lo : lo + 3000] = np.random.default_rng(7).choice(4, size=3000, p=_STRONG_ISLAND)
+    text = np.frombuffer(b"ACGT", np.uint8)[s]
+    full = text.size // 60
+    with open(fa, "wb") as f:
+        f.write(b">chrL synthetic\n")
+        f.write(np.concatenate([text[: full * 60].reshape(full, 60),
+                                np.full((full, 1), ord("\n"), np.uint8)], axis=1).tobytes())
+        f.write(text[full * 60 :].tobytes() + b"\n")
+    del text
+    emit({"phase": "span_fasta", "symbols": n, "bytes": os.path.getsize(fa),
+          "seconds": time.perf_counter() - t0})
+    out, counts = {}, None
+    for label, span in (("spans", boundary), ("one_pass", 2 * boundary)):
+        isl = os.path.join(tmp, f"long.{label}.txt")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res, wall, launches = decode_to(fa, params, isl, dev, span=span)
+        peak = torch.cuda.max_memory_allocated()
+        with open(isl) as f:
+            out[label] = f.read()
+        emit({"phase": "span_decode", "mode": label, "span": span, "symbols": res.n_symbols,
+              "spans": res.n_chunks, "islands": len(res.calls), "wall_s": wall,
+              "phases_s": res.phases, "msym_per_s": res.n_symbols / wall / 1e6,
+              "decode_msym_per_s": res.n_symbols / res.phases["decode"] / 1e6,
+              "peak_device_bytes": peak,
+              "launches": {k: launches[k] for k in DECODE_KERNELS}})
+        if label == "spans":
+            counts = launches
+            if res.n_chunks != 2 or any(launches[k] == 0 for k in DECODE_KERNELS):
+                raise SystemExit(f"chip_smoke: the long record ran {res.n_chunks} spans and "
+                                 f"launched {launches}")
+        os.remove(isl)
+    os.remove(fa)
+    rows = [ln.split() for ln in out["spans"].splitlines()]
+    near = [r for r in rows if abs(int(r[0]) - boundary) < 5000]
+    whole = any(int(r[0]) <= boundary - 500 and int(r[1]) >= boundary + 500 for r in near)
+    same = out["spans"] == out["one_pass"]
+    emit({"phase": "span_decode_parity", "identical": same, "lines": len(rows),
+          "boundary_calls": near, "boundary_island_whole": whole})
+    if not (same and whole and rows):
+        raise SystemExit("chip_smoke: the span-wise decode differs from the one-pass decode "
+                         "or split the boundary island")
+
+    decodes = {
+        "one_pass": lambda: viterbi_sharded(params, s, return_device=True),
+        "spans": lambda: torch.cat(viterbi_sharded_spans(params, s, span=boundary,
+                                                         return_device=True)),
+    }
+    seconds = {k: [] for k in decodes}
+    for label in ("one_pass", "spans", "spans", "one_pass"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = decodes[label]()
+        torch.cuda.synchronize()
+        seconds[label].append(time.perf_counter() - t0)
+        del path
+    emit({"phase": "span_decode_timing", "symbols": n, "seconds": seconds,
+          "spans_over_one_pass": sum(seconds["spans"]) / sum(seconds["one_pass"])})
+    return counts
+
+
+def genome_span_phase(fa: str, tmp: str, dev) -> None:
+    """The genome decoded clean at a 16 Mi span (its 64 Mi record in 4
+    spans), flagship and two_state: island files identical to the
+    one-pass runs of phases 3 and 10."""
+    runs = (("clean", presets.durbin_cpg8, {}), ("two_state", presets.two_state_cpg,
+                                                  {"island_states": (0,)}))
+    for label, make, kw in runs:
+        isl = os.path.join(tmp, f"islands.{label}.span16Mi.txt")
+        res, wall, launches = decode_to(fa, make(device=dev), isl, dev, span=1 << 24, **kw)
+        with open(isl) as f, open(os.path.join(tmp, f"islands.{label}.device.txt")) as g:
+            same = f.read() == g.read()
+        emit({"phase": "genome_span_decode", "mode": label, "span": 1 << 24,
+              "spans": res.n_chunks, "identical_to_one_pass": same, "wall_s": wall,
+              "phases_s": res.phases, "launches": launches})
+        if not same or res.n_chunks <= 257:
+            raise SystemExit(f"chip_smoke: the {label} span-wise genome decode differs "
+                             "from the one-pass decode")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1752,6 +2005,11 @@ def main(argv=None) -> int:
             for k, n in counts.items():
                 launches[k] = launches.get(k, 0) + n
         compare_parity_phase(rng, big, tmp, dev, casts)
+        for k, n in scores_phase(params, fa, dev).items():
+            launches[k] = launches.get(k, 0) + n
+        genome_span_phase(fa, tmp, dev)
+        for k, n in span_decode_phase(params, big, tmp, dev).items():
+            launches[k] = launches.get(k, 0) + n
 
     table = []
     for name, r in results.items():

@@ -25,7 +25,8 @@ Two forms, as ``python -m cpgisland_tpu``:
        python -m cpgisland_tpu_torch posterior FILE [--islands-out i.txt] \\
            [--confidence-out c.npy] [--mpm-path-out p.npy] [--min-len N] \\
            [--island-states 0,1,2,3] [--model m.txt | --preset durbin8|two_state] \\
-           [--engine auto|xla|pallas|onehot] [--invalid-symbols P]
+           [--engine auto|xla|pallas|onehot] [--island-engine auto|host|device] \\
+           [--island-cap N] [--invalid-symbols P]
        python -m cpgisland_tpu_torch compare FILE --out report.txt \\
            [--models durbin8,two_state,null | NAME=MODEL.txt,...] [--baseline NAME] \\
            [--min-len N] [--threshold X] [--engine auto|xla|pallas|onehot] \\
@@ -89,6 +90,12 @@ def _positive_int(text: str) -> int:
     if v <= 0:
         raise argparse.ArgumentTypeError(f"must be a positive integer, got {text!r}")
     return v
+
+
+def _add_island_cap_flag(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--island-cap", type=_positive_int, default=None,
+                   help="initial device output size in island calls (default 128 Ki); an "
+                   "overflow retries the calling pass at the true count")
 
 
 def _add_island_states_flag(p: argparse.ArgumentParser) -> None:
@@ -160,9 +167,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="island caller placement (clean mode): device calls islands where "
                    "the path lies and returns only the call records (auto: device on the "
                    "card)")
-    d.add_argument("--island-cap", type=_positive_int, default=None,
-                   help="initial device output size in island calls (default 128 Ki); an "
-                   "overflow retries the calling pass at the true count")
+    _add_island_cap_flag(d)
     _add_invalid_symbols_flag(d)
 
     r = sub.add_parser("run", help="train then decode (the reference main())")
@@ -189,6 +194,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="call CpG islands from the MPM path (decode-format records)")
     po.add_argument("--min-len", type=int, default=None,
                     help="minimum island length for --islands-out")
+    po.add_argument("--island-engine", choices=("auto", "host", "device"), default="auto",
+                    help="island caller placement: device keeps the MPM path on the card "
+                    "and returns only the call records (auto: device on the card when "
+                    "--islands-out is given without --mpm-path-out)")
+    _add_island_cap_flag(po)
     _add_island_states_flag(po)
     _add_fb_engine_flag(po)
     _add_invalid_symbols_flag(po)
@@ -269,6 +279,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             args.test_file, params, confidence_out=args.confidence_out,
             mpm_path_out=args.mpm_path_out, islands_out=args.islands_out,
             min_len=args.min_len, island_states=island_states, engine=args.engine,
+            island_engine=args.island_engine, island_cap=args.island_cap,
             invalid_symbols=args.invalid_symbols, device=device,
         )
         extra = (f"; {len(res.calls)} islands -> {args.islands_out}"

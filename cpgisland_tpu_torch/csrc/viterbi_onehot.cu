@@ -1,10 +1,10 @@
-// Reduced one-hot Viterbi: the three decode passes as CUDA kernels for Hopper
-// (sm_90a), with a plain C interface loaded through ctypes
-// (cpgisland_tpu_torch/ops/_kernels.py).  Plain versions of the same
+// Reduced one-hot Viterbi: the three decode passes, and the score-threading
+// variant of the backpointer pass, as CUDA kernels for Hopper (sm_90a), with
+// a plain C interface loaded through ctypes (cpgisland_tpu_torch/ops/_kernels.py).  Plain versions of the same
 // functions, used on the CPU and as the reference on the card, live in
 // cpgisland_tpu_torch/ops/viterbi_onehot.py (oh_*_plain).
 //
-// Layout shared by all three: time-major streams [bk, nb] (global step
+// Layout shared by all four: time-major streams [bk, nb] (global step
 // b*bk + k sits at [k, b]), one thread per lane b looping over the bk steps
 // of its block.  Neighbouring threads read neighbouring addresses at every
 // step, so each warp's load of a step row is one coalesced 128-byte
@@ -71,21 +71,26 @@ oh_products_kernel(const int32_t* __restrict__ pair2, const float* __restrict__ 
   out[3 * (size_t)nb + b] = c11;
 }
 
-// B2: replaces _oh_backpointers_kernel.  The reduced delta recursion from
-// the true entering vector v_red [2, nb]; strict > keeps first-max
-// tie-breaking.  Writes one int32 word per 8 steps (bp0 | bp1 << 1 at bits
-// 2r, 2r+1), the exit deltas dexit [2, nb] and the exit -> entry
-// composition bits ebits [nb].  Reads 4 B and writes 0.25 B per step.
-__global__ void __launch_bounds__(THREADS)
-oh_backpointers_kernel(const int32_t* __restrict__ pair2, const float* __restrict__ v_red,
-                       const float* __restrict__ tab, int32_t* __restrict__ bp,
-                       float* __restrict__ dexit, int32_t* __restrict__ ebits,
-                       int bk, int nb, int nP) {
-  __shared__ float s_tab[MAX_PAIRS * 4];
-  for (int i = threadIdx.x; i < nP * 4; i += blockDim.x) s_tab[i] = tab[i];
-  __syncthreads();
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= nb) return;
+// B2 and B6 share one chain body.  B2 replaces _oh_backpointers_kernel: the
+// reduced delta recursion from the true entering vector v_red [2, nb];
+// strict > keeps first-max tie-breaking.  Writes one int32 word per 8 steps
+// (bp0 | bp1 << 1 at bits 2r, 2r+1), the exit deltas dexit [2, nb] and the
+// exit -> entry composition bits ebits [nb].  Reads 4 B and writes 0.25 B
+// per step.
+//
+// B6 (WANT_DMAX) replaces _oh_backpointers_score_kernel
+// (cpgisland_tpu/ops/viterbi_onehot.py:481): the same recursion, plus the
+// running chain max dmax[k, b] = max(d0, d1) after each step (block-relative;
+// the flat batch decoder reads it at each record's last step to recover
+// exact per-record scores).  The max hangs off the chain, so bp, dexit and
+// ebits equal B2's bit for bit.  The store is time-major: a warp's 32 lanes
+// write one coalesced 128-byte row per step.  It adds 4 B written per step
+// (8.25 B a step in all), which is why the path-only decode keeps B2.
+template <bool WANT_DMAX>
+__device__ __forceinline__ void oh_backpointers_body(
+    const int32_t* __restrict__ pair2, const float* __restrict__ v_red,
+    const float* __restrict__ s_tab, int32_t* __restrict__ bp, float* __restrict__ dexit,
+    int32_t* __restrict__ ebits, float* __restrict__ dmax, int bk, int nb, int b) {
   float d0 = v_red[b], d1 = v_red[(size_t)nb + b];
   int32_t E = 0b10;  // identity: exit c -> entry c
   const int32_t* p = pair2 + b;
@@ -107,12 +112,27 @@ oh_backpointers_kernel(const int32_t* __restrict__ pair2, const float* __restric
       d1 = fmaxf(b0, b1);
       word |= (bp0 | (bp1 << 1)) << (2 * r);
       E = ((E >> bp0) & 1) | (((E >> bp1) & 1) << 1);
+      if (WANT_DMAX) dmax[(size_t)(k0 + r) * nb + b] = fmaxf(d0, d1);
     }
     bp[(size_t)(k0 / ROW_TILE) * nb + b] = word;
   }
   dexit[b] = d0;
   dexit[(size_t)nb + b] = d1;
   ebits[b] = E;
+}
+
+template <bool WANT_DMAX>
+__global__ void __launch_bounds__(THREADS)
+oh_backpointers_kernel(const int32_t* __restrict__ pair2, const float* __restrict__ v_red,
+                       const float* __restrict__ tab, int32_t* __restrict__ bp,
+                       float* __restrict__ dexit, int32_t* __restrict__ ebits,
+                       float* __restrict__ dmax, int bk, int nb, int nP) {
+  __shared__ float s_tab[MAX_PAIRS * 4];
+  for (int i = threadIdx.x; i < nP * 4; i += blockDim.x) s_tab[i] = tab[i];
+  __syncthreads();
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= nb) return;
+  oh_backpointers_body<WANT_DMAX>(pair2, v_red, s_tab, bp, dexit, ebits, dmax, bk, nb, b);
 }
 
 // B3: replaces _oh_backtrace_kernel.  Walks the packed pointers from the
@@ -161,9 +181,19 @@ int oh_products(const void* pair2, const void* tab, void* out, int bk, int nb, i
 int oh_backpointers(const void* pair2, const void* v_red, const void* tab, void* bp,
                     void* dexit, void* ebits, int bk, int nb, int nP, void* stream) {
   if (nP > MAX_PAIRS || bk % ROW_TILE || nb <= 0) return (int)cudaErrorInvalidValue;
-  oh_backpointers_kernel<<<grid_for(nb), THREADS, 0, (cudaStream_t)stream>>>(
+  oh_backpointers_kernel<false><<<grid_for(nb), THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)pair2, (const float*)v_red, (const float*)tab, (int32_t*)bp,
-      (float*)dexit, (int32_t*)ebits, bk, nb, nP);
+      (float*)dexit, (int32_t*)ebits, nullptr, bk, nb, nP);
+  return (int)cudaGetLastError();
+}
+
+int oh_backpointers_scores(const void* pair2, const void* v_red, const void* tab, void* bp,
+                           void* dexit, void* ebits, void* dmax, int bk, int nb, int nP,
+                           void* stream) {
+  if (nP > MAX_PAIRS || bk % ROW_TILE || nb <= 0) return (int)cudaErrorInvalidValue;
+  oh_backpointers_kernel<true><<<grid_for(nb), THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)pair2, (const float*)v_red, (const float*)tab, (int32_t*)bp,
+      (float*)dexit, (int32_t*)ebits, (float*)dmax, bk, nb, nP);
   return (int)cudaGetLastError();
 }
 

@@ -42,6 +42,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "oh_products": ("viterbi_onehot", 3, ("bk", "nb", "nP")),
     "oh_backpointers": ("viterbi_onehot", 6, ("bk", "nb", "nP")),
+    "oh_backpointers_scores": ("viterbi_onehot", 7, ("bk", "nb", "nP")),
     "oh_backtrace": ("viterbi_onehot", 5, ("bk", "nb", "nP")),
     "oh_prod": ("fb_onehot", 3, ("Tp", "NL", "nreal")),
     "oh_fwdbwd": ("fb_onehot", 8, ("Tp", "NL", "nreal", "T")),

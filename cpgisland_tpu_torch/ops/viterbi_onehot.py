@@ -1,4 +1,4 @@
-"""One-hot-emission reduced Viterbi engine: three CUDA kernels and their
+"""One-hot-emission reduced Viterbi engine: four CUDA kernels and their
 plain PyTorch versions.
 
 Counterpart of ``cpgisland_tpu/ops/viterbi_onehot.py``.  The flagship 8-state
@@ -12,7 +12,9 @@ The three passes of ops.viterbi_parallel run in the reduced space, over the
 per-step PAIR stream (p = s_prev * S + s_cur for real steps, S*S + carried
 symbol for PAD steps) and a per-pair table of 2x2 step matrices; small
 per-block scatters rebuild the full-K interfaces, so the shared stitching is
-untouched.  The kernels (``csrc/viterbi_onehot.cu``) run one thread per lane
+untouched.  The flat batch decoder's score arm runs the backpointer pass
+through B6, which also emits the per-step chain max.  The kernels
+(``csrc/viterbi_onehot.cu``) run one thread per lane
 over the time-major [bk, nb] streams; each wrapper below launches its kernel
 for a CUDA tensor, takes the plain PyTorch version for a CPU tensor, and
 raises otherwise.  Max-plus is adds and maxes only, so kernel and plain
@@ -239,17 +241,18 @@ def _unpack_words(bp: torch.Tensor) -> torch.Tensor:
     return ((bp[:, None, :] >> shifts[None, :, None]) & 3).reshape(nw * ROW_TILE, nb)
 
 
-def oh_backpointers_plain(pair2: torch.Tensor, v_red: torch.Tensor, tab: torch.Tensor):
-    """Pass B, plain version: the reduced delta recursion from the entering
-    vectors v_red [2, nb].  Returns (bp [bk/8, nb] int32 packed 2-bit
-    backpointers, dexit [2, nb] f32, ebits [nb] int32 exit -> entry bits).
-    Strict ``>`` keeps argmax first-max tie-breaking.  Mirrors
-    ``_xla_backpointers``."""
+def _backpointers_chain(pair2: torch.Tensor, v_red: torch.Tensor, tab: torch.Tensor,
+                        want_dmax: bool):
+    """The reduced delta recursion both plain pass-B versions share (the
+    counterpart of the kernels' ``WANT_DMAX`` template): (bp, dexit, ebits,
+    dmax2 [bk, nb] or None).  With ``want_dmax`` each step also stores
+    max(d0, d1), off the chain, so the first three outputs do not change."""
     bk, nb = pair2.shape
     T = tab[pair2.long()]
     d0, d1 = v_red[0].clone(), v_red[1].clone()
     E = torch.full((nb,), 0b10, dtype=_I32, device=pair2.device)
     rows = []
+    dmax2 = torch.empty((bk, nb), dtype=_F32, device=pair2.device) if want_dmax else None
     for k in range(bk):
         t = T[k]
         a0 = d0 + t[:, 0]
@@ -261,8 +264,27 @@ def oh_backpointers_plain(pair2: torch.Tensor, v_red: torch.Tensor, tab: torch.T
         E = ((E >> bp0) & 1) | (((E >> bp1) & 1) << 1)
         d0 = torch.maximum(a0, a1)
         d1 = torch.maximum(b0, b1)
+        if want_dmax:
+            dmax2[k] = torch.maximum(d0, d1)
         rows.append(bp0 | (bp1 << 1))
-    return _pack_words(torch.stack(rows)), torch.stack([d0, d1]), E
+    return _pack_words(torch.stack(rows)), torch.stack([d0, d1]), E, dmax2
+
+
+def oh_backpointers_plain(pair2: torch.Tensor, v_red: torch.Tensor, tab: torch.Tensor):
+    """Pass B, plain version: the reduced delta recursion from the entering
+    vectors v_red [2, nb].  Returns (bp [bk/8, nb] int32 packed 2-bit
+    backpointers, dexit [2, nb] f32, ebits [nb] int32 exit -> entry bits).
+    Strict ``>`` keeps argmax first-max tie-breaking.  Mirrors
+    ``_xla_backpointers``."""
+    return _backpointers_chain(pair2, v_red, tab, want_dmax=False)[:3]
+
+
+def oh_backpointers_scores_plain(pair2: torch.Tensor, v_red: torch.Tensor, tab: torch.Tensor):
+    """Pass B with score threading, plain version: (bp, dexit, ebits, dmax2
+    [bk, nb]), dmax2 the running chain max max(d0, d1) after each step,
+    relative to the block's normalized entering vector.  Mirrors
+    ``_xla_backpointers_scores``."""
+    return _backpointers_chain(pair2, v_red, tab, want_dmax=True)
 
 
 def oh_backtrace_plain(bp: torch.Tensor, pair2: torch.Tensor, idtab: torch.Tensor,
@@ -335,6 +357,27 @@ def oh_backpointers(pair2: torch.Tensor, v_red: torch.Tensor, tab: torch.Tensor)
     _kernels.launch("oh_backpointers", pair2, v_red, tab, bp, dexit, ebits,
                     bk=bk, nb=nb, nP=nP)
     return bp, dexit, ebits
+
+
+def oh_backpointers_scores(pair2: torch.Tensor, v_red: torch.Tensor, tab: torch.Tensor):
+    """Kernel B6 (replaces ``_oh_backpointers_score_kernel``): B2's outputs
+    plus dmax2 [bk, nb] f32, the per-step chain max -> (bp, dexit, ebits,
+    dmax2)."""
+    _check_stream(pair2, (v_red, tab))
+    bk, nb = pair2.shape
+    nP = tab.shape[0]
+    _check("pair2", pair2, _I32, (bk, nb))
+    _check("v_red", v_red, _F32, (GROUP, nb))
+    _check("tab", tab, _F32, (nP, 4))
+    if pair2.device.type == "cpu":
+        return oh_backpointers_scores_plain(pair2, v_red, tab)
+    bp = torch.empty((bk // ROW_TILE, nb), dtype=_I32, device=pair2.device)
+    dexit = torch.empty((GROUP, nb), dtype=_F32, device=pair2.device)
+    ebits = torch.empty((nb,), dtype=_I32, device=pair2.device)
+    dmax2 = torch.empty((bk, nb), dtype=_F32, device=pair2.device)
+    _kernels.launch("oh_backpointers_scores", pair2, v_red, tab, bp, dexit, ebits, dmax2,
+                    bk=bk, nb=nb, nP=nP)
+    return bp, dexit, ebits, dmax2
 
 
 def oh_backtrace(bp: torch.Tensor, pair2: torch.Tensor, idtab: torch.Tensor,
@@ -419,10 +462,10 @@ def pass_products(params: HmmParams, steps2, prev0=None, resets=None, pre=None):
     return incl, offs, incl[-1]
 
 
-def pass_backpointers(params: HmmParams, v_enter, steps2, prev0=None, resets=None,
-                      pre=None):
-    """Pass B: (delta_blocks [nb, K], F [nb, K], blob); the blob carries the
-    packed pointers plus the pair stream for the backtrace."""
+def _pass_backpointers_impl(params: HmmParams, v_enter, steps2, prev0, resets, pre,
+                            want_scores: bool):
+    """Pass B through B2, or through B6 with ``want_scores``: (delta_blocks
+    [nb, K], F [nb, K], blob, dmax2 [bk, nb] or None)."""
     K = params.n_states
     S, gt, tab, idtab, pair2, e_in, e_out, nreal = _prepared(
         params, steps2, prev0, resets, pre
@@ -431,13 +474,35 @@ def pass_backpointers(params: HmmParams, v_enter, steps2, prev0=None, resets=Non
     v_red = torch.gather(v_enter, 1, gt[e_in.long()])  # [nb, 2]
     ghigh_end = gt[e_out.long(), 1]  # [nb] — exit-bit anchor conversion
     pair2p = _pad_pair_rows(pair2, e_out, nreal)
-    bp, dexit_red, ebits = oh_backpointers(
-        pair2p, v_red.T.to(_F32).contiguous(), tab.contiguous()
-    )
+    args = (pair2p, v_red.T.to(_F32).contiguous(), tab.contiguous())
+    dmax2 = None
+    if want_scores:
+        bp, dexit_red, ebits, dmax2 = oh_backpointers_scores(*args)
+        dmax2 = dmax2[:bk_real]
+    else:
+        bp, dexit_red, ebits = oh_backpointers(*args)
     delta_exit = _scatter_vec(dexit_red.T, gt, e_out, K)
     F = _scatter_ftab(ebits, gt, e_in, e_out, K)
     blob = (bp, pair2p, idtab.contiguous(), ghigh_end, bk_real, nb)
+    return delta_exit, F, blob, dmax2
+
+
+def pass_backpointers(params: HmmParams, v_enter, steps2, prev0=None, resets=None,
+                      pre=None):
+    """Pass B: (delta_blocks [nb, K], F [nb, K], blob); the blob carries the
+    packed pointers plus the pair stream for the backtrace."""
+    delta_exit, F, blob, _ = _pass_backpointers_impl(params, v_enter, steps2, prev0,
+                                                     resets, pre, want_scores=False)
     return delta_exit, F, blob
+
+
+def pass_backpointers_scores(params: HmmParams, v_enter, steps2, prev0=None, resets=None,
+                             pre=None):
+    """:func:`pass_backpointers` through B6: also returns the per-step chain
+    max dmax2 [bk, nb] (block-normalized: add the block's entering offset
+    for true values), the flat batch decoder's score feed."""
+    return _pass_backpointers_impl(params, v_enter, steps2, prev0, resets, pre,
+                                   want_scores=True)
 
 
 def pass_backtrace(blob, exits: torch.Tensor) -> torch.Tensor:
@@ -483,7 +548,7 @@ def prepare_decode_flat(S: int, chunks: torch.Tensor, lengths: torch.Tensor,
 
 
 def decode_batch_flat(params: HmmParams, chunks: torch.Tensor, lengths: torch.Tensor,
-                      block_size: int = 4096, prepared=None) -> torch.Tensor:
+                      block_size: int = 4096, prepared=None, return_score: bool = False):
     """Decode an [N, T] batch as ONE flat stream with RESET steps.
 
     The records concatenate into one sequence whose step into each record's
@@ -493,7 +558,17 @@ def decode_batch_flat(params: HmmParams, chunks: torch.Tensor, lengths: torch.Te
     every kernel runs at single-stream occupancy.  Paths equal per-record
     decodes except where f32 rounding of the folded constant splits a
     near-tie (any mismatch re-scores identically in f64).  Returns paths
-    [N, T] (positions >= lengths[r] carry the exit state)."""
+    [N, T] (positions >= lengths[r] carry the exit state).
+
+    ``return_score=True`` runs the backpointer pass through B6 and also
+    returns exact per-record Viterbi scores [N]: the reset constants
+    telescope (a reset sets v = max(v_prev) + v0red, so the true chain max
+    at record r's last position is M_r = score_r + sum of earlier scores),
+    and scores are first differences of M.  Each M_r is the block-relative
+    chain max there plus that block's entering offset, so a late record's
+    score carries the f32 rounding of the whole stream's magnitude before
+    it.  ``block_size`` is 4096 with or without scores: the port has no
+    tuner table to pick another."""
     from cpgisland_tpu_torch.ops.viterbi_parallel import _block_passes, _step_tables
 
     S = params.n_symbols
@@ -512,8 +587,14 @@ def decode_batch_flat(params: HmmParams, chunks: torch.Tensor, lengths: torch.Te
     v0 = params.log_pi + emit_ext[concat[0].long()]
     dec = _block_passes(
         params, v0, padded, bk, engine="onehot", prev0=concat[0],
-        resets=resets, pre=pre,
+        resets=resets, pre=pre, want_scores=return_score,
     )
     s0 = dec.ftable[torch.argmax(dec.delta_exit)]
-    full = torch.cat([s0[None], dec.path[: N * T - 1]])
-    return full.reshape(N, T)
+    full = torch.cat([s0[None], dec.path[: N * T - 1]]).reshape(N, T)
+    if not return_score:
+        return full
+    # Record r's last position is global step (r+1)*T - 2's output.
+    e = (torch.arange(N, device=full.device) + 1) * T - 2
+    b = torch.div(e, bk, rounding_mode="floor")
+    M = dec.dmax2[e - b * bk, b] + dec.enter_offs[b]
+    return full, torch.cat([M[:1], M[1:] - M[:-1]])

@@ -129,6 +129,10 @@ class BlockDecode(NamedTuple):
     total: torch.Tensor  # [K, K] normalized max-plus product of all steps
     ftable: torch.Tensor  # [K] int32 — maps segment exit state -> entry state
     score_offset: torch.Tensor  # [] add to delta_exit for true scores
+    # want_scores=True only (onehot engine): per-block entering offsets and the
+    # block-normalized per-step chain max, the flat batch decoder's score feed.
+    enter_offs: Optional[torch.Tensor] = None  # [nb]
+    dmax2: Optional[torch.Tensor] = None  # [bk, nb]
 
 
 def _enter_vectors(v_enter0: torch.Tensor, incl: torch.Tensor, offs=None):
@@ -264,6 +268,7 @@ def _block_passes(
     prev0: Optional[torch.Tensor] = None,
     resets: Optional[torch.Tensor] = None,
     pre=None,
+    want_scores: bool = False,
 ) -> BlockDecode:
     """Run the three block passes over ``steps`` (transition symbols, a
     positive multiple of block_size long, PAD allowed) with ``v_enter0``
@@ -271,7 +276,9 @@ def _block_passes(
     anchored at the segment end to ``anchor`` if given, else to the local
     argmax.  ``resets`` ([bk, nb] bool) marks steps that restart the chain at
     a new record (the flat batch decoder); ``pre`` is a prepared pair
-    stream (viterbi_onehot.prepare_pairs)."""
+    stream (viterbi_onehot.prepare_pairs).  ``want_scores`` (onehot engine
+    only) runs the backpointer pass through B6 and fills ``enter_offs`` and
+    ``dmax2``, so callers can read true chain maxima at any step."""
     products, backpointers, backtrace = get_passes(engine)
     nb = steps.shape[0] // block_size
     steps2 = steps.reshape(nb, block_size).T  # [bk, nb]: step b*bk + k at [k, b]
@@ -287,7 +294,16 @@ def _block_passes(
         extra["pre"] = pre
     incl, offs, total = products(params, steps2, prev0, **extra)
     v_enter, enter_offs = _enter_vectors(v_enter0, incl, offs)
-    delta_blocks, F, bps = backpointers(params, v_enter, steps2, prev0, **extra)
+    dmax2 = None
+    if want_scores:
+        if engine != "onehot":
+            raise ValueError("want_scores needs the onehot engine")
+        from cpgisland_tpu_torch.ops import viterbi_onehot
+
+        delta_blocks, F, bps, dmax2 = viterbi_onehot.pass_backpointers_scores(
+            params, v_enter, steps2, prev0, **extra)
+    else:
+        delta_blocks, F, bps = backpointers(params, v_enter, steps2, prev0, **extra)
     delta_exit = delta_blocks[-1]
 
     s_exit = torch.argmax(delta_exit).to(torch.int32) if anchor is None else anchor
@@ -298,6 +314,7 @@ def _block_passes(
     return BlockDecode(
         path=path, delta_exit=delta_exit, total=total, ftable=Gsuf[0],
         score_offset=enter_offs[-1],
+        enter_offs=enter_offs if want_scores else None, dmax2=dmax2,
     )
 
 
@@ -412,25 +429,21 @@ def viterbi_parallel_batch(
     engine: str = "onehot",
 ):
     """Batched decode of a [N, T] batch of padded chunks (paths [N, T];
-    positions >= lengths[i] are forced to PAD and carry the exit state).
+    positions >= lengths[i] are forced to PAD and carry the exit state),
+    with per-record scores [N] when ``return_score``.
 
     Onehot batches run FLAT (viterbi_onehot.decode_batch_flat): records
     concatenate into one stream with rank-one RESET steps at record
-    boundaries, so every kernel runs at single-stream occupancy.  Records
-    need at least 2 symbols; per-record scores need the score-threading
-    backpointer kernel (B6), not ported yet.  The dense engines ('xla',
-    'pallas') decode each record exactly as alone (:func:`_dense_batch`)
-    and return per-record scores."""
+    boundaries, so every kernel runs at single-stream occupancy; records
+    need at least 2 symbols, and the scores come off the flat stream
+    through B6.  The dense engines ('xla', 'pallas') decode each record
+    exactly as alone (:func:`_dense_batch`).  ``block_size=None`` means
+    DEFAULT_BLOCK with or without scores: the port has no tuner table."""
     block_size = DEFAULT_BLOCK if block_size is None else int(block_size)
     if engine != "onehot":
         get_passes(engine)  # raises on an unknown engine
         return _dense_batch(params, chunks, lengths, block_size, return_score, engine)
-    if return_score:
-        raise NotImplementedError(
-            "per-record scores from the flat onehot batch need the "
-            "score-threading backpointer kernel (B6, ROADMAP A6), not ported "
-            "yet; pass return_score=False or use a dense engine"
-        )
     from cpgisland_tpu_torch.ops.viterbi_onehot import decode_batch_flat
 
-    return decode_batch_flat(params, chunks, lengths, block_size=block_size)
+    return decode_batch_flat(params, chunks, lengths, block_size=block_size,
+                             return_score=return_score)

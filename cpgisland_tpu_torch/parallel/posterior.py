@@ -122,10 +122,12 @@ def posterior_sharded(params: HmmParams, obs, island_states, *, engine: str = "a
                       lane_T: Optional[int] = None, enter_dir=None, exit_dir=None,
                       first: bool = True, want_path: bool = False, placed=None,
                       prev_sym: Optional[int] = None,
-                      prepared: Optional[PreparedSeq] = None):
+                      prepared: Optional[PreparedSeq] = None, return_device: bool = False):
     """Island confidence (and optionally the MPM path) of one sequence on
     the params' device.  Returns host arrays (conf [T] f32, path [T] int8 —
-    state ids, a quarter of an int32 download — or None).
+    state ids, a quarter of an int32 download — or None), or the same as
+    tensors left on the device with ``return_device`` (for the device
+    island caller).
 
     ``placed`` (from :func:`place_record_span`) reuses an uploaded span and
     ``prepared`` (from :func:`prepare_record_span`) its prep, whose lane
@@ -143,7 +145,10 @@ def posterior_sharded(params: HmmParams, obs, island_states, *, engine: str = "a
         enter_dir=enter_dir, exit_dir=exit_dir, first=first, want_path=want_path,
         lane_T=lane_T, prev_sym=ps, prepared=prepared, engine=eng,
     )
-    return conf[:T].cpu().numpy(), (path[:T].to(torch.int8).cpu().numpy() if want_path else None)
+    conf, path = conf[:T], (path[:T].to(torch.int8) if want_path else None)
+    if return_device:
+        return conf, path
+    return conf.cpu().numpy(), (path.cpu().numpy() if want_path else None)
 
 
 def transfer_total_sharded(params: HmmParams, obs, *, engine: str = "auto",

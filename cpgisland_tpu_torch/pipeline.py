@@ -36,15 +36,22 @@ from cpgisland_tpu_torch.ops import islands_device
 from cpgisland_tpu_torch.ops.islands import IslandCalls
 from cpgisland_tpu_torch.ops.viterbi_parallel import viterbi_parallel_batch
 from cpgisland_tpu_torch.parallel import posterior as post
-from cpgisland_tpu_torch.parallel.decode import _prev_real_symbol, resolve_engine, viterbi_sharded
+from cpgisland_tpu_torch.parallel.decode import (
+    _prev_real_symbol,
+    resolve_engine,
+    viterbi_sharded,
+    viterbi_sharded_spans,
+)
 from cpgisland_tpu_torch.train import baum_welch
 from cpgisland_tpu_torch.utils import chunking, codec
 from cpgisland_tpu_torch.utils.npystream import NpyStreamWriter
 
 log = logging.getLogger(__name__)
 
-# Largest record decoded in one pass in clean mode; longer records need the
-# span-wise decode, not ported yet (ROADMAP A6).
+# Largest record decoded in one pass in clean mode; longer records decode
+# span by span with exact boundary messages threaded between the spans
+# (parallel.decode.viterbi_sharded_spans): the span bounds device memory,
+# not the result.
 CLEAN_DECODE_SPAN = 1 << 28
 
 # Records at or below this size batch together into one flat decode (clean
@@ -63,6 +70,8 @@ ISLAND_CAP_CEILING = 1 << 22
 class DecodeResult:
     calls: IslandCalls
     n_symbols: int
+    # compat: decode chunks; clean: spans decoded (one per record up to the
+    # span, as in the JAX package).
     n_chunks: int
     # Wall seconds per phase ("encode", "decode", "islands").
     phases: dict = field(default_factory=dict)
@@ -253,11 +262,13 @@ def _batched_device_calls(params: HmmParams, paths: torch.Tensor, rows: np.ndarr
 
 def _decode_small_batch(params: HmmParams, batch: list, *, engine: str, min_len,
                         island_states, use_device: bool, cap_box: list,
-                        phases: dict) -> list:
+                        phases: dict, want_paths: bool = False):
     """Decode a batch of small records in one batched decode; islands per
     record.  Rows pad to a power-of-two length and at least 8 rows, so few
     distinct shapes occur across many scaffolds.  Small records that start
-    with PAD stay on the flat onehot batch, as in the JAX package."""
+    with PAD stay on the flat onehot batch, as in the JAX package.  Returns
+    ([IslandCalls per record], [int8 host path per record] when
+    ``want_paths``, else [])."""
     B = len(batch)
     sizes = [s.size for _, s in batch]
     Tpad = _round_pow2(max(sizes + [1]))
@@ -275,15 +286,20 @@ def _decode_small_batch(params: HmmParams, batch: list, *, engine: str, min_len,
             paths = paths.cpu().numpy()
     with _phase(phases, "islands"):
         if use_device:
-            return _batched_device_calls(params, paths, rows, lengths, batch,
-                                         island_states=island_states, min_len=min_len,
-                                         cap_box=cap_box)
-        return [
-            _record_calls(paths[i, : symbols.size], symbols, island_states=island_states,
-                          min_len=min_len, use_device=False, cap_box=cap_box
-                          ).with_names(name or ".")
-            for i, (name, symbols) in enumerate(batch)
-        ]
+            parts = _batched_device_calls(params, paths, rows, lengths, batch,
+                                          island_states=island_states, min_len=min_len,
+                                          cap_box=cap_box)
+        else:
+            parts = [
+                _record_calls(paths[i, : symbols.size], symbols, island_states=island_states,
+                              min_len=min_len, use_device=False, cap_box=cap_box
+                              ).with_names(name or ".")
+                for i, (name, symbols) in enumerate(batch)
+            ]
+    if not want_paths:
+        return parts, []
+    host = np.asarray(paths)  # the dump forces host islands: already on the host
+    return parts, [host[i, : s.size].astype(np.int8) for i, (_, s) in enumerate(batch)]
 
 
 def _write_calls(calls: IslandCalls, islands_out: Union[str, IO[str]]) -> None:
@@ -340,15 +356,19 @@ def decode_file(
     presets.two_state_cpg with island_states=(0,)).  ``island_engine``:
     "device" calls islands where the path lies (ops.islands_device; only
     the compact call counts cross to the host), "host" on the host, "auto"
-    on the card in clean mode.  ``island_cap``: the device engine's initial
-    output size in calls; an overflow regrows it and re-runs only the
-    calling pass.  State-path dumps are not ported (ROADMAP A12)."""
+    on the card in clean mode without a state-path dump.  ``island_cap``:
+    the device engine's initial output size in calls; an overflow regrows
+    it and re-runs only the calling pass.
+
+    Clean mode decodes a record of at most ``span`` symbols in one pass and
+    a longer one span by span with exact boundary messages threaded between
+    the spans (``viterbi_sharded_spans``): the result equals the one-pass
+    decode, and the span only bounds device memory.  ``state_path_out``
+    (clean mode; compat writes none, as in the JAX package) streams every
+    record's decoded state path, int8, in file order to one .npy file."""
     if island_states is not None and compat:
         raise ValueError("island_states needs clean mode (compat=False); the "
                          "reference caller is 8-state-specific")
-    if state_path_out is not None:
-        raise NotImplementedError("decode_file: state-path dumps are not ported yet "
-                                  "(ROADMAP A12)")
     _check_invalid_symbols(invalid_symbols, compat)
     err = island_layout_error(params, island_states)
     if err:
@@ -357,9 +377,10 @@ def decode_file(
     params = params.to(dev)
     eng = resolve_engine(engine, params)
     use_device, cap_box = _resolve_island_engine(
-        island_engine, dev=dev, device_eligible=not compat, island_cap=island_cap,
-        ineligible_msg="island_engine='device' implements clean-mode calling only "
-        "(compat quirk reproduction is host-side)",
+        island_engine, dev=dev, device_eligible=not compat and state_path_out is None,
+        island_cap=island_cap,
+        ineligible_msg="island_engine='device' implements clean-mode calling without a "
+        "state-path dump (compat quirk reproduction and path dumps are host-side)",
     )
     phases: dict = {}
 
@@ -386,25 +407,36 @@ def decode_file(
         calls = IslandCalls.concatenate(parts)
         return _finish_decode(calls, chunked.total, n, islands_out, phases)
 
-    # Clean path: one exact decode per FASTA record, islands per record with
-    # per-record 1-based coordinates (an island never spans two records).
+    # Clean path: one exact decode per FASTA record (span-wise past
+    # ``span``), islands per record with per-record 1-based coordinates (an
+    # island never spans two records).
     parts = []
     n_sym = 0
     n_records = 0
+    n_spans_total = 0
+    path_writer = None
 
     def decode_one(rec_name: str, symbols: np.ndarray) -> None:
-        if symbols.size > span:
-            raise NotImplementedError(
-                f"record {rec_name!r} has {symbols.size} symbols, more than the "
-                f"single-pass span ({span}); the span-wise decode is not "
-                "ported yet (ROADMAP A6)"
+        nonlocal n_spans_total
+        n_spans = max(1, -(-symbols.size // span))
+        n_spans_total += n_spans
+        if n_spans > 1:
+            log.info(
+                "record %r (%d symbols) exceeds the single-pass decode span (%d); "
+                "decoding %d spans with boundary messages threaded between them",
+                rec_name, symbols.size, span, n_spans,
             )
         with _phase(phases, "decode"):
             if symbols.size == 0:
                 full = np.zeros(0, dtype=np.int32)
+            elif n_spans > 1:
+                pieces = viterbi_sharded_spans(params, symbols, span=span, engine=eng,
+                                               return_device=use_device)
+                # Device islands: the span paths join on the card.
+                full = torch.cat(pieces) if use_device else np.concatenate(pieces)
             else:
                 full = viterbi_sharded(params, symbols, engine=eng, return_device=use_device)
-                _sync(dev)
+            _sync(dev)
         with _phase(phases, "islands"):
             if symbols.size == 0:
                 calls = islands_mod.call_islands(full, chunk=0, compat=False)
@@ -413,43 +445,58 @@ def decode_file(
                                       min_len=min_len, use_device=use_device, cap_box=cap_box)
         # "." = headerless leading sequence (keeps the name column parseable).
         parts.append(calls.with_names(rec_name or "."))
+        if path_writer is not None:
+            path_writer.write(np.asarray(full).astype(np.int8))
 
     def flush_small(batch: list) -> None:
+        nonlocal n_spans_total
         if not batch:
             return
         if len(batch) == 1:
             decode_one(*batch[0])
             return
-        parts.extend(_decode_small_batch(
+        batch_parts, batch_paths = _decode_small_batch(
             params, batch, engine=eng, min_len=min_len, island_states=island_states,
-            use_device=use_device, cap_box=cap_box, phases=phases))
+            use_device=use_device, cap_box=cap_box, phases=phases,
+            want_paths=path_writer is not None)
+        n_spans_total += len(batch)
+        parts.extend(batch_parts)
+        for p in batch_paths:
+            path_writer.write(p)
 
     records = codec.iter_fasta_records(test_path, invalid=invalid_symbols)
     pending: list = []
-    while True:
-        # The parse is timed as its own phase; records stream one at a time.
-        with _phase(phases, "encode"):
-            rec = next(records, None)
-        if rec is None:
-            break
-        rec_name, symbols = rec
-        n_records += 1
-        n_sym += symbols.size
-        if symbols.size <= SMALL_RECORD_MAX:
-            pending.append((rec_name, symbols))
-            if len(pending) >= device_batch:
+    try:
+        if state_path_out is not None:
+            path_writer = NpyStreamWriter(state_path_out, np.int8)
+        while True:
+            # The parse is timed as its own phase; records stream one at a time.
+            with _phase(phases, "encode"):
+                rec = next(records, None)
+            if rec is None:
+                break
+            rec_name, symbols = rec
+            n_records += 1
+            n_sym += symbols.size
+            if symbols.size <= SMALL_RECORD_MAX:
+                pending.append((rec_name, symbols))
+                if len(pending) >= device_batch:
+                    flush_small(pending)
+                    pending = []
+            else:
                 flush_small(pending)
                 pending = []
-        else:
-            flush_small(pending)
-            pending = []
-            decode_one(rec_name, symbols)
-    flush_small(pending)
+                decode_one(rec_name, symbols)
+        flush_small(pending)
+    finally:
+        # A failure mid-file still leaves a loadable (partial) dump.
+        if path_writer is not None:
+            path_writer.close()
     calls = IslandCalls.concatenate(parts)
     if n_records <= 1:
         # Single-record files keep the reference's bare 5-column format.
         calls = dataclasses.replace(calls, names=None)
-    return _finish_decode(calls, n_sym, n_records, islands_out, phases)
+    return _finish_decode(calls, n_sym, n_spans_total, islands_out, phases)
 
 
 # One posterior pass keeps a span's symbol streams and alpha/beta streams
@@ -477,15 +524,17 @@ class PosteriorResult:
 
 
 def _posterior_record_unit(params: HmmParams, symbols: np.ndarray, island_states, *,
-                           engine: str, want_path: bool, placed=None):
-    """One whole record's posterior on the params' device -> host (conf,
-    path or None): the single-record core of :func:`posterior_file` and of
-    ``family.compare``'s sequential arm.  ``placed``: the record already on
-    the device (``parallel.posterior.place_record_span``, possibly padded),
-    which compare shares between the scoring pass and an order's
-    members."""
+                           engine: str, want_path: bool, placed=None,
+                           return_device: bool = False):
+    """One whole record's posterior on the params' device -> (conf, path or
+    None), on the host or, with ``return_device``, left on the device: the
+    single-record core of :func:`posterior_file` and of ``family.compare``'s
+    sequential arm.  ``placed``: the record already on the device
+    (``parallel.posterior.place_record_span``, possibly padded), which
+    compare shares between the scoring pass and an order's members."""
     return post.posterior_sharded(params, symbols, island_states, engine=engine,
-                                  want_path=want_path, placed=placed)
+                                  want_path=want_path, placed=placed,
+                                  return_device=return_device)
 
 
 def _thread_spans(params: HmmParams, first_sym: int, totals: list):
@@ -525,6 +574,7 @@ def posterior_file(
     span: int = POSTERIOR_SPAN,
     engine: str = "auto",
     island_engine: str = "auto",
+    island_cap: Optional[int] = None,
     symbol_cache: Optional[str] = None,
     prefetch: int = 0,
     integrity_check: bool = False,
@@ -556,15 +606,20 @@ def posterior_file(
     takes the reduced kernels for the flagship's family, the dense ones for
     any other model with K <= 8; "xla" is not ported).  A run without a path
     output (confidence only) takes the dense engine's confidence-emitting
-    backward (B19).  Runs on ``device`` (default "cuda"); islands are called
-    on the host
-    (``island_engine`` "auto" or "host").  The prefetching executor,
-    resume manifests, integrity checks, metrics, sessions, symbol caches
-    and the device island engine are not ported and raise
+    backward (B19).  Runs on ``device`` (default "cuda").
+
+    ``island_engine`` / ``island_cap``: as in :func:`decode_file`.
+    "device" reduces the MPM path to compact call records where it lies
+    (one record, the small-record batch in one call per pass, a
+    span-threaded record's spans joined on the device); it needs
+    ``islands_out`` and no ``mpm_path_out`` (the path dump is host-side).
+    "auto" takes it on the card when eligible.  An island-only run then
+    sums the confidence on the device and moves one scalar to the host.
+    The prefetching executor, resume manifests, integrity checks, metrics,
+    sessions and symbol caches are not ported and raise
     NotImplementedError."""
     for requested, what in (
         (symbol_cache is not None, "symbol caches (ROADMAP A1)"),
-        (island_engine == "device", "the device island engine (ROADMAP A6)"),
         (prefetch > 0, "the prefetching record executor (ROADMAP A12)"),
         (resume or manifest_path is not None, "resume manifests (ROADMAP A12)"),
         (integrity_check, "integrity checks (ROADMAP A12)"),
@@ -573,8 +628,6 @@ def posterior_file(
     ):
         if requested:
             raise NotImplementedError(f"posterior_file: {what} not ported yet")
-    if island_engine not in ("auto", "host"):
-        raise ValueError(f"island_engine must be auto|host|device, got {island_engine!r}")
     obs_based_calls = island_states is not None
     if island_states is None:
         if params.n_states != 2 * params.n_symbols:
@@ -597,6 +650,12 @@ def posterior_file(
     dev = resolve_device(device)
     params = params.to(dev)
     eng = post.resolve_fb_engine(engine, params)
+    use_device, cap_box = _resolve_island_engine(
+        island_engine, dev=dev, device_eligible=want_islands and mpm_path_out is None,
+        island_cap=island_cap,
+        ineligible_msg="island_engine='device' reduces the MPM path on device — it "
+        "needs islands_out and no mpm_path_out (the path dump is host-side)",
+    )
     mask = post.island_mask(params, island_states)
     S = params.n_symbols
     phases: dict = {}
@@ -604,9 +663,19 @@ def posterior_file(
     conf_w = path_w = None
     n_sym = n_records = 0
     conf_total = 0.0
+    conf_dev_acc = None  # float32 running sum on the device (island-only runs)
 
-    def emit(conf: np.ndarray, path) -> None:
-        nonlocal conf_total
+    def emit(conf, path) -> None:
+        """Book one piece's outputs: host arrays, or with the device island
+        engine a device confidence (the path stays there for the caller)."""
+        nonlocal conf_total, conf_dev_acc
+        if isinstance(conf, torch.Tensor):
+            if not want_conf:
+                # Summed where it lies: one scalar crosses at the end of the file.
+                s = torch.sum(conf)
+                conf_dev_acc = s if conf_dev_acc is None else conf_dev_acc + s
+                return
+            conf = conf.cpu().numpy()
         # float64 sum: float32 partials drift ~1e-5 at multi-Gbase.
         conf_total += float(conf.sum(dtype=np.float64))
         if conf_w is not None:
@@ -618,17 +687,16 @@ def posterior_file(
         if not want_islands:
             return
         with _phase(phases, "islands"):
-            if obs_based_calls:
-                calls = islands_mod.call_islands_obs(path, symbols, island_states=island_states,
-                                                     min_len=min_len)
-            else:
-                calls = islands_mod.call_islands(path, chunk=0, compat=False, min_len=min_len)
+            calls = _record_calls(path, symbols,
+                                  island_states=island_states if obs_based_calls else None,
+                                  min_len=min_len, use_device=use_device, cap_box=cap_box)
         call_parts.append(calls.with_names(name or "."))
 
     def one_record(name: str, symbols: np.ndarray) -> None:
         with _phase(phases, "posterior"):
             conf, path = _posterior_record_unit(params, symbols, island_states, engine=eng,
-                                                want_path=want_path)
+                                                want_path=want_path, return_device=use_device)
+            _sync(dev)
         emit(conf, path)
         call_rec(name, symbols, path)
 
@@ -643,7 +711,8 @@ def posterior_file(
         by_class: dict = {}
         for i, (_, s) in enumerate(batch):
             by_class.setdefault(_round_pow2(s.size, floor=1 << 14), []).append(i)
-        results: list = [None] * len(batch)
+        results: list = [None] * len(batch)  # (conf, path) per record, host arrays
+        rec_calls: list = [None] * len(batch)  # the device engine's calls per record
         # Device memory per pass, in padded symbols: want_path keeps both
         # reduced streams, so it gets half.
         budget = (1 << 26) // (2 if want_path else 1)
@@ -664,14 +733,39 @@ def posterior_file(
                         params, torch.from_numpy(rows).to(dev), torch.from_numpy(lens).to(dev),
                         mask, want_path=want_path, engine=eng,
                     )
-                    conf2 = conf2.cpu().numpy()
-                    path2 = path2.to(torch.int8).cpu().numpy() if want_path else None
+                    if use_device:
+                        _sync(dev)
+                    else:
+                        conf2 = conf2.cpu().numpy()
+                        path2 = path2.to(torch.int8).cpu().numpy() if want_path else None
+                if use_device:
+                    # One device island call for the pass; padded tails and
+                    # rows are masked out of the confidence sum.
+                    with _phase(phases, "islands"):
+                        g_calls = _batched_device_calls(
+                            params, path2, rows, lens, [batch[i] for i in group],
+                            island_states=island_states if obs_based_calls else None,
+                            min_len=min_len, cap_box=cap_box)
+                    if want_conf:
+                        conf2 = conf2.cpu().numpy()
+                    else:
+                        in_rec = (torch.arange(Tpad, device=dev)[None, :]
+                                  < torch.from_numpy(lens).to(dev)[:, None])
+                        emit(torch.where(in_rec, conf2, 0.0), None)
                 for g, i in enumerate(group):
                     n = batch[i][1].size
-                    results[i] = (conf2[g, :n], path2[g, :n] if want_path else None)
-        for (name, s), (conf, path) in zip(batch, results):
-            emit(conf, path)
-            call_rec(name, s, path)
+                    if use_device:
+                        rec_calls[i] = g_calls[g]
+                        results[i] = (conf2[g, :n] if want_conf else None, None)
+                    else:
+                        results[i] = (conf2[g, :n], path2[g, :n] if want_path else None)
+        for i, ((name, s), (conf, path)) in enumerate(zip(batch, results)):
+            if conf is not None:
+                emit(conf, path)
+            if use_device:
+                call_parts.append(rec_calls[i])
+            else:
+                call_rec(name, s, path)
 
     def spanned_record(name: str, symbols: np.ndarray) -> None:
         # Sweep A: each span's [K, K] transfer operator (B7 or B17 only).
@@ -699,14 +793,16 @@ def posterior_file(
                     params, piece, island_states, engine=eng,
                     enter_dir=None if s == 0 else enters[s], exit_dir=exits[s], first=s == 0,
                     want_path=want_path, placed=placed[s], prev_sym=prev, prepared=preps[s],
+                    return_device=use_device,
                 )
+                _sync(dev)
             placed[s] = preps[s] = None  # release the span's device memory
             emit(conf, path)
             paths.append(path)
         if want_islands:
-            # Over the WHOLE record's path, so no island is clipped at a span
-            # boundary.
-            call_rec(name, symbols, np.concatenate(paths))
+            # Over the WHOLE record's path (joined on the device with the
+            # device engine), so no island is clipped at a span boundary.
+            call_rec(name, symbols, torch.cat(paths) if use_device else np.concatenate(paths))
 
     records = codec.iter_fasta_records(test_path, invalid=invalid_symbols)
     pending: list = []
@@ -743,6 +839,8 @@ def posterior_file(
         for w in (conf_w, path_w):
             if w is not None:
                 w.close()
+    if conf_dev_acc is not None:
+        conf_total += float(conf_dev_acc)  # the one end-of-file scalar fetch
     calls_all = None
     if want_islands:
         calls_all = IslandCalls.concatenate(call_parts)

@@ -701,3 +701,96 @@ def test_family_estep_cuda_equals_local_backend(cuda_device, n_chunks):
         want = backend(p, chunks, lengths, prepared=backend.prepare_streams(p, chunks, lengths))
         for f in ("init", "trans", "emit", "loglik", "n_seqs"):
             assert torch.equal(getattr(g, f), getattr(want, f)), f
+
+
+# -- B6, the span-wise decode and the posterior's device islands ---------------
+
+
+@pytest.mark.parametrize("bk,nb", [(8, 1), (64, 130), (4096, 257)])
+def test_scores_kernel_equals_plain_and_b2(cuda_device, bk, nb):
+    """B6 equals its plain version bit for bit on every output (dmax2
+    included) over a reset-renumbered stream, and its bp, dexit and ebits
+    equal B2's launch on the same input."""
+    rng = np.random.default_rng(7 * bk + nb)
+    params = presets.durbin_cpg8(device=cuda_device)
+    steps = rng.integers(0, 5, size=(bk, nb)).astype(np.int32)
+    resets = torch.from_numpy(rng.random((bk, nb)) < 0.01).to(cuda_device)
+    _, _, tab, _, pair2, _, _, nreal = OH._prepared(params, torch.from_numpy(steps).to(cuda_device),
+                                                    1, resets)
+    assert tab.shape[0] == 24 and nreal == 20  # S*S real, S reset and S PAD rows
+    v = torch.from_numpy(rng.normal(size=(2, nb)).astype(np.float32)).to(cuda_device)
+    before = _kernels.launches["oh_backpointers_scores"]
+    got = OH.oh_backpointers_scores(pair2, v, tab.contiguous())
+    want = OH.oh_backpointers_scores_plain(pair2, v, tab)
+    b2 = OH.oh_backpointers(pair2, v, tab.contiguous())
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(torch.equal(a, b) for a, b in zip(got[:3], b2))
+    assert _kernels.launches["oh_backpointers_scores"] == before + 1
+
+
+def test_flat_batch_scores_cuda_equals_cpu(cuda_device):
+    """viterbi_parallel_batch(engine="onehot") on the card through B6: paths
+    and scores equal the CPU's (plain versions) bit for bit, and each score
+    lies within 1e-3 * N * T of the record's own viterbi_parallel score."""
+    from cpgisland_tpu_torch.ops import viterbi_parallel as VPL
+
+    rng = np.random.default_rng(12)
+    N, T = 6, 3000
+    chunks = rng.integers(0, 4, size=(N, T)).astype(np.uint8)
+    chunks[1, 700:760] = 4
+    lengths = np.array([3000, 2000, 2, 2999, 1500, 3000], np.int32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = presets.durbin_cpg8(device=dev)
+        before = _kernels.launches["oh_backpointers_scores"]
+        out[dev] = VPL.viterbi_parallel_batch(params, torch.from_numpy(chunks).to(dev),
+                                              torch.from_numpy(lengths).to(dev), block_size=512)
+        assert _kernels.launches["oh_backpointers_scores"] == before + (dev == "cuda")
+    (pc, sc), (pg, sg) = out["cpu"], out["cuda"]
+    assert torch.equal(pc, pg.cpu()) and torch.equal(sc, sg.cpu())
+    params = presets.durbin_cpg8(device=cuda_device)
+    for i in range(N):
+        o = np.where(np.arange(T) >= lengths[i], 4, chunks[i]).astype(np.int32)
+        _, s = VPL.viterbi_parallel(params, torch.from_numpy(o).to(cuda_device), block_size=512)
+        assert abs(float(sg[i]) - float(s)) <= 1e-3 * N * T
+
+
+@pytest.mark.parametrize("make", [presets.durbin_cpg8, presets.two_state_cpg])
+def test_spanwise_decode_on_the_card(cuda_device, make):
+    """viterbi_sharded_spans on the card equals its one-shot decode and the
+    CPU's span-wise decode bit for bit (6 spans, a ragged tail)."""
+    from cpgisland_tpu_torch.parallel import decode as PD
+
+    rng = np.random.default_rng(21)
+    obs = rng.choice([0, 3], size=5 * 65536 + 777).astype(np.uint8)
+    for mid in (65536, 2 * 65536):
+        obs[mid - 300 : mid + 300] = np.tile([1, 2], 300)
+    obs[3 * 65536 - 40 : 3 * 65536 + 70] = 4
+    params = make(device=cuda_device)
+    spans = PD.viterbi_sharded_spans(params, obs, span=65536, block_size=1024)
+    one = PD.viterbi_sharded(params, obs, block_size=1024)
+    cpu = PD.viterbi_sharded_spans(make(), obs, span=65536, block_size=1024)
+    assert np.array_equal(np.concatenate(spans), one)
+    assert np.array_equal(np.concatenate(spans), np.concatenate(cpu))
+
+
+def test_posterior_device_islands_on_the_card(cuda_device, tmp_path):
+    """posterior_file on the card: the device island engine (one record, a
+    batch, a 3-span record) writes the host engine's file and the CPU's."""
+    rng = np.random.default_rng(31)
+    p = tmp_path / "x.fa"
+    with open(p, "w") as f:
+        for r, n in enumerate((3000, 90000, 5200, 1300, 20000)):
+            s = rng.choice(4, size=n, p=[0.3, 0.2, 0.2, 0.3])
+            for a in range(500, n - 1000, 6000):
+                s[a : a + 900] = rng.choice(4, size=900, p=[0.15, 0.35, 0.35, 0.15])
+            f.write(f">r{r}\n" + "".join("ACGT"[x] for x in s) + "\n")
+    outs = set()
+    for make, states in ((presets.durbin_cpg8, None), (presets.two_state_cpg, (0,))):
+        for dev, eng in (("cpu", "host"), ("cuda", "host"), ("cuda", "device")):
+            buf = io.StringIO()
+            pipeline.posterior_file(str(p), make(), islands_out=buf, island_states=states,
+                                    span=1 << 15, island_engine=eng, device=dev)
+            outs.add((make.__name__, buf.getvalue()))
+        assert len([o for o in outs if o[0] == make.__name__]) == 1

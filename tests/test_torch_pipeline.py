@@ -102,15 +102,19 @@ def test_default_device_needs_cuda(fasta, monkeypatch):
 
 
 def test_unported_routes_raise(fasta, tmp_path, monkeypatch):
+    """Routes that once raised: records past the span now decode span by
+    span to the one-pass result, and the state-path dump is written; mask
+    in compat mode still raises."""
     _, tp = _jax_model()
     monkeypatch.setattr(TPL, "SMALL_RECORD_MAX", 4)
-    with pytest.raises(NotImplementedError, match="span"):
-        TPL.decode_file(fasta, tp, compat=False, span=1000, device="cpu")
+    one, spanned = io.StringIO(), io.StringIO()
+    TPL.decode_file(fasta, tp, islands_out=one, compat=False, device="cpu")
+    res = TPL.decode_file(fasta, tp, islands_out=spanned, compat=False, span=4000,
+                          state_path_out=str(tmp_path / "p.npy"), device="cpu")
+    assert res.n_chunks > 5 and one.getvalue() == spanned.getvalue()  # 5 records
+    assert np.load(tmp_path / "p.npy").shape == (res.n_symbols,)
     with pytest.raises(ValueError):
         TPL.decode_file(fasta, tp, compat=True, invalid_symbols="mask", device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        TPL.decode_file(fasta, tp, compat=False, state_path_out=str(tmp_path / "p.npy"),
-                        device="cpu")
     # A lone record whose first position is masked decodes through the dense
     # engine (the pad-first demotion) instead of raising.
     p = tmp_path / "padfirst.fa"

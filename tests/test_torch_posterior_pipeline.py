@@ -146,10 +146,15 @@ def test_posterior_unported_and_bad_options(fasta, monkeypatch):
     kw = dict(islands_out=io.StringIO(), device="cpu")
     for opt, val in (("symbol_cache", "x.npy"), ("prefetch", 1), ("resume", True),
                      ("manifest_path", "m.jsonl"), ("integrity_check", True),
-                     ("metrics", object()), ("session", object()),
-                     ("island_engine", "device")):
+                     ("metrics", object()), ("session", object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TPL.posterior_file(fasta, tp, **kw, **{opt: val})
+    # The device island engine is ported; it refuses a run that dumps the
+    # MPM path, as in the JAX package.
+    with pytest.raises(ValueError, match="no mpm_path_out"):
+        TPL.posterior_file(fasta, tp, island_engine="device", mpm_path_out="p.npy", **kw)
+    with pytest.raises(ValueError, match="island_engine"):
+        TPL.posterior_file(fasta, tp, island_engine="gpu", **kw)
     with pytest.raises(ValueError, match="nothing to do"):
         TPL.posterior_file(fasta, tp, device="cpu")
     with pytest.raises(NotImplementedError, match="not"):

@@ -239,10 +239,18 @@ def test_decode_batch_flat_fuzz_geometries(rng):
 
 
 def test_viterbi_parallel_batch_refuses_scores(rng):
-    _, tp = _both(_onehot_model(rng))
-    with pytest.raises(NotImplementedError):
-        TVP.viterbi_parallel_batch(tp, torch.zeros((2, 16), dtype=torch.uint8),
-                                   torch.full((2,), 16), return_score=True)
+    """The flat onehot batch once refused per-record scores; it now returns
+    them through B6's plain version.  Held against the JAX function on the
+    same batch: paths and scores bit for bit."""
+    jp, tp = _both(_onehot_model(rng))
+    chunks = rng.integers(0, 4, size=(2, 16)).astype(np.uint8)
+    lengths = np.array([16, 9], np.int32)
+    pj, sj = JVP.viterbi_parallel_batch(jp, jnp.asarray(chunks), jnp.asarray(lengths),
+                                        block_size=8, engine="onehot")
+    pt, st = TVP.viterbi_parallel_batch(tp, torch.from_numpy(chunks), torch.from_numpy(lengths),
+                                        block_size=8, return_score=True)
+    assert _eq(pj, pt)
+    assert np.array_equal(np.asarray(sj), st.numpy())
 
 
 @pytest.mark.parametrize("T", [3000])
