@@ -106,7 +106,31 @@ JSON line each:
    with an island planted across the span boundary, decoded at the
    default span (2 spans, device islands) and in one pass: identical
    island files, the boundary island one call, wall per phase and the
-   device memory peak.
+   device memory peak;
+24. B8 (the one-pass arm's matrix chains) at a ragged geometry (odd lane
+   lengths, empty lanes) and at 8192 x 8192 on the genome's 64 Mi record,
+   bit-equal to its plain version, timed beside B7 and B4 on those lanes;
+25. whole-sequence training: ``train_file`` clean, 5 iterations,
+   convergence 0, with backend "seq" (flagship: B7, B4, B5 exactly 5
+   each, no B8), ``SeqBackend(one_pass=True)`` (B8 and B5 exactly 5, no
+   B7 or B4), "seq" with two_state (B17, B16, B18 exactly 5) and "seq2d"
+   (the records one by one): EM Msym/s, phases, peak device memory,
+   logliks non-decreasing, the one-pass trajectory within the JAX
+   one-pass tests' bound of the two-pass one;
+26. the device EM loop: seq and local runs with ``fuse="on"`` and "off"
+   bit-equal, a real convergence threshold stopping both loops at one
+   iteration, the host loop's blocking reads counted (0 in the device
+   loop), and each loop's idle share and synchronizing CUDA calls over 5
+   iterations (none in the device loop);
+27. a small FASTA trained by seq and seq2d on the CPU and on the card:
+   dumps compared byte for byte, held within atol 1e-5;
+28. ``posterior_sharded(one_pass=True)`` on the 64 Mi record against the
+   two-pass arm: confidence within atol 2e-5, MPM positions differing
+   counted, both timed (B8 once, no B7 or B4);
+29. peak device bytes per symbol of one seq E-step at 16 Mi and 64 Mi
+   symbols (two-pass, one-pass, dense K = 8) against
+   ``SEQ_BYTES_PER_SYMBOL``, and one seq E-step of the genome at lane_T
+   4096, 8192 and 16384.
 
 Phase 2 also holds B6 (the score-threading backpointer kernel) bit for bit
 against its plain version on B2's flat stream, with B2's outputs equal to
@@ -130,6 +154,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -179,6 +204,8 @@ KERNELS = {
                   "cpgisland_tpu_torch/csrc/fb_onehot.cu"),
     "oh_seq_stats": ("cpgisland_tpu/ops/fb_onehot.py:804",
                      "cpgisland_tpu_torch/csrc/fb_onehot.cu"),
+    "oh_fwdbwd_mat": ("cpgisland_tpu/ops/fb_onehot.py:347",
+                      "cpgisland_tpu_torch/csrc/fb_onehot.cu"),
     "dense_products": ("cpgisland_tpu/ops/viterbi_pallas.py:118",
                        "cpgisland_tpu_torch/csrc/viterbi_dense.cu"),
     "dense_backpointers": ("cpgisland_tpu/ops/viterbi_pallas.py:156",
@@ -220,6 +247,12 @@ STACK_CONFIGS = ((4, 2), (4, 5), (16, 2))
 STACKED_KERNELS = ("oh_prod_stacked", "oh_fwdbwd_stacked", "oh_seq_stats_stacked")
 SINGLE_FB_KERNELS = ("oh_prod", "oh_fwdbwd", "oh_seq_stats")
 FAMILY_M = 3
+SEQ_KERNELS = ("oh_prod", "oh_fwdbwd", "oh_seq_stats")  # the two-pass seq E-step
+ONE_PASS_KERNELS = ("oh_fwdbwd_mat", "oh_seq_stats")
+DENSE_SEQ_KERNELS = ("fb_prod", "fb_fwd", "fb_bwd")
+# The JAX one-pass tests' bound (tests/test_one_pass.py): loglik rel 1e-5,
+# the trained model within atol 1e-5.
+ONE_PASS_LL_RTOL, MODEL_ATOL = 1e-5, 1e-5
 
 
 _START = time.perf_counter()
@@ -1948,6 +1981,328 @@ def genome_span_phase(fa: str, tmp: str, dev) -> None:
                              "from the one-pass decode")
 
 
+# ---------------------------------------------------------------------------
+# Phases 24-29: whole-sequence EM (SeqBackend, Seq2DBackend), the device EM
+# loop and the one-pass arm (B8)
+
+
+def mat_kernel_phase(rng: np.random.Generator, params, big: np.ndarray, dev) -> dict:
+    """B8 at a ragged geometry (odd lane lengths, empty lanes) and at the
+    posterior's 8192 x 8192 on the pair stream of the genome's 64 Mi
+    record: va and wb bit-equal to the plain version; B8 timed beside B7
+    and B4 on the same lanes."""
+    S = params.n_symbols
+    tab = FB.prob_tab_ext(params, OH._groups(params))
+    n = 3000 * 1237
+    obs = torch.from_numpy(rng.integers(0, S, size=n).astype(np.uint8)).to(dev)
+    prep = prepare_seq(S, obs, n - 77, lane_T=1237)
+    NL = prep.pair2.shape[1]
+    lens = rng.integers(0, 1238, size=NL).astype(np.int32)
+    lens[rng.random(NL) < 0.1] = 0
+    lens2 = torch.from_numpy(lens[None, :]).to(dev)
+    args = (prep.pair2, prep.pairn2, lens2, tab, 1237)
+    (vk, wk), (vp, wp) = FB.oh_fwdbwd_mat(*args), FB.oh_fwdbwd_mat_plain(*args)
+    ragged_equal = torch.equal(vk, vp) and torch.equal(wk, wp)
+    emit({"phase": "kernel_ragged", "name": "oh_fwdbwd_mat", "lanes": NL, "lane_T": 1237,
+          "empty_lanes": int((lens == 0).sum()), "bit_equal": ragged_equal,
+          "max_abs_err": max(max_abs_err(vk, vp), max_abs_err(wk, wp))})
+    if not ragged_equal:
+        raise SystemExit("chip_smoke: oh_fwdbwd_mat disagrees with its plain version (ragged)")
+
+    T = POST_NL * POST_LANE_T
+    obs = torch.from_numpy(big[:T]).to(dev)
+    prep = prepare_seq(S, obs, T, lane_T=POST_LANE_T)
+    lens2 = prep.lane_lens[None, :].contiguous()
+    args = (prep.pair2, prep.pairn2, lens2, tab, POST_LANE_T)
+    vk, wk = FB.oh_fwdbwd_mat(*args)
+    (vp, wp), plain_ms = timed_once(lambda: FB.oh_fwdbwd_mat_plain(*args))
+    equal = torch.equal(vk, vp) and torch.equal(wk, wp)
+    err = max(max_abs_err(vk, vp), max_abs_err(wk, wp))
+    del vp, wp, vk, wk
+    steps_n = T
+    v = torch.ones((2, POST_NL), dtype=torch.float32, device=dev)
+    b7_ms = time_ms(lambda: FB.oh_prod(prep.pair2, tab), runs=10)
+    b4_ms = time_ms(lambda: FB.oh_fwdbwd(prep.pair2, prep.pairn2, lens2, v, v, tab,
+                                         POST_LANE_T), runs=10)
+    real = int(prep.lane_lens.sum())
+    row = kernel_row(
+        "oh_fwdbwd_mat", equal, err, lambda: FB.oh_fwdbwd_mat(*args), plain_ms,
+        # pair + pairn read, va + wb written (4 f32 rows each), per step; per
+        # real step 8 multiplies, 7 adds and a division a direction
+        n_bytes=8 * steps_n + 32 * steps_n + 4 * POST_NL + tab.numel() * 4,
+        n_ops=2 * 16 * real, steps=steps_n, bit_equal=equal, b7_ms=b7_ms, b4_ms=b4_ms,
+        b7_plus_b4_ms=b7_ms + b4_ms, geometry="genome 64 Mi record, 8192 x 8192",
+    )
+    if not equal:
+        raise SystemExit("chip_smoke: oh_fwdbwd_mat disagrees with its plain version")
+    return {"oh_fwdbwd_mat": row}
+
+
+def _models_close(a, b, atol: float = MODEL_ATOL) -> tuple:
+    err = max(float(np.abs(x - y).max()) for x, y in zip(probs(a), probs(b)))
+    zeros = all(np.array_equal(x == 0, y == 0) for x, y in zip(probs(a), probs(b)))
+    return err, err <= atol and zeros
+
+
+def seq_train_phase(fa: str, dev) -> tuple:
+    """train_file clean, TRAIN_ITERS iterations, convergence 0 (the device
+    loop), with the whole-sequence backends: the flagship through seq (two
+    pass) and SeqBackend(one_pass=True), two_state through seq, the flagship
+    through seq2d.  Returns (launches over the runs, {label: result})."""
+    from cpgisland_tpu_torch.train.backends import SeqBackend
+
+    flagship, two = presets.durbin_cpg8(device=dev), presets.two_state_cpg(device=dev)
+    runs = (
+        ("seq", flagship, "seq", SEQ_KERNELS, ("oh_fwdbwd_mat",)),
+        ("seq_one_pass", flagship, SeqBackend(one_pass=True), ONE_PASS_KERNELS,
+         ("oh_prod", "oh_fwdbwd")),
+        ("seq_two_state", two, "seq", DENSE_SEQ_KERNELS, SEQ_KERNELS + ("oh_fwdbwd_mat",)),
+        ("seq2d", flagship, "seq2d", ("oh_fwdbwd", "oh_seq_stats"), ("oh_fwdbwd_mat",)),
+    )
+    symbols = int(codec.encode_file(fa, skip_headers=True).size)
+    launches, results = {}, {}
+    for label, params, backend, kernels, absent in runs:
+        _kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = pipeline.train_file(fa, params=params, num_iters=TRAIN_ITERS, convergence=0.0,
+                                  compat=False, backend=backend, device=dev)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        counts = {k: n for k, n in _kernels.launches.items() if n}
+        ll = res.logliks
+        monotone = all(b >= a - 1e-6 * abs(a) for a, b in zip(ll, ll[1:]))
+        emit({
+            "phase": "seq_train", "run": label, "symbols": symbols,
+            "iterations": res.iterations, "wall_s": wall, "phases_s": res.phases,
+            "em_msym_per_s": symbols * res.iterations / res.phases["em"] / 1e6,
+            "peak_device_bytes": peak,
+            "estep_ms_per_iter": res.phases["estep"] / res.iterations * 1e3,
+            "mstep_ms_per_iter": res.phases["mstep"] / res.iterations * 1e3,
+            "logliks": ll, "deltas": res.deltas, "launches": counts,
+        })
+        ok_counts = (all(counts.get(k, 0) >= TRAIN_ITERS for k in kernels)
+                     and not any(counts.get(k, 0) for k in absent))
+        if label in ("seq", "seq_one_pass", "seq_two_state"):
+            ok_counts = ok_counts and all(counts.get(k, 0) == TRAIN_ITERS for k in kernels)
+        if res.iterations != TRAIN_ITERS or not ok_counts:
+            raise SystemExit(f"chip_smoke: {label} training launched {counts}; want "
+                             f"{kernels} every iteration and none of {absent}")
+        if not monotone:
+            raise SystemExit(f"chip_smoke: {label} training logliks decrease: {ll}")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        results[label] = res
+    two_pass, one_pass = results["seq"], results["seq_one_pass"]
+    ll_ok = np.allclose(one_pass.logliks, two_pass.logliks, rtol=ONE_PASS_LL_RTOL, atol=0)
+    err, model_ok = _models_close(one_pass.params, two_pass.params)
+    emit({"phase": "one_pass_vs_two_pass", "max_ll_rel": float(np.max(np.abs(
+        np.subtract(one_pass.logliks, two_pass.logliks)) / np.abs(two_pass.logliks))),
+        "max_prob_err": err, "ok": bool(ll_ok and model_ok)})
+    if not (ll_ok and model_ok):
+        raise SystemExit("chip_smoke: the one-pass trajectory leaves the two-pass one")
+    return launches, results
+
+
+def _fit_result_equal(a, b) -> bool:
+    same_params = all(torch.equal(x, y) for x, y in zip(
+        (a.params.log_pi, a.params.log_A, a.params.log_B),
+        (b.params.log_pi, b.params.log_A, b.params.log_B)))
+    return (same_params and a.logliks == b.logliks and a.deltas == b.deltas
+            and a.iterations == b.iterations and a.converged == b.converged)
+
+
+def em_loop_phase(fa: str, dev, seq_results: dict) -> None:
+    """The device loop against the host loop: the flagship seq and local
+    runs bit-equal with fuse="off"; a real convergence threshold stops both
+    at one iteration; blocking reads counted; each loop's idle share over
+    TRAIN_ITERS iterations under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    params = presets.durbin_cpg8(device=dev)
+    fetches = {"n": 0}
+    real_fetch = baum_welch._fetch
+
+    def counted(x):
+        fetches["n"] += 1
+        return real_fetch(x)
+
+    baum_welch._fetch = counted
+    try:
+        kw = dict(params=params, num_iters=TRAIN_ITERS, convergence=0.0, compat=False,
+                  device=dev)
+        pairs = {}
+        for backend in ("seq", "local"):
+            fetches["n"] = 0
+            on = pipeline.train_file(fa, backend=backend, fuse="on", **kw)
+            on_fetches = fetches["n"]
+            fetches["n"] = 0
+            off = pipeline.train_file(fa, backend=backend, fuse="off", **kw)
+            pairs[backend] = (_fit_result_equal(on, off), on_fetches, fetches["n"])
+        conv = float(np.median(seq_results["seq"].deltas))
+        stops = []
+        for fuse in ("on", "off"):
+            fetches["n"] = 0
+            r = pipeline.train_file(fa, params=params, num_iters=10, convergence=conv,
+                                    compat=False, backend="seq", fuse=fuse, device=dev)
+            stops.append((r, fetches["n"]))
+    finally:
+        baum_welch._fetch = real_fetch
+    (r_on, f_on), (r_off, f_off) = stops
+    emit({"phase": "em_loop", "bit_equal": {k: v[0] for k, v in pairs.items()},
+          "blocking_reads_device_loop": {k: v[1] for k, v in pairs.items()},
+          "blocking_reads_host_loop": {k: v[2] for k, v in pairs.items()},
+          "convergence": conv, "stop_iteration": [r_on.iterations, r_off.iterations],
+          "converged": [r_on.converged, r_off.converged],
+          "stop_reads": [f_on, f_off]})
+    if not (all(v[0] and v[1] == 0 and v[2] == TRAIN_ITERS for v in pairs.values())
+            and _fit_result_equal(r_on, r_off) and r_on.converged and f_on == 0
+            and r_on.iterations < 10):
+        raise SystemExit("chip_smoke: the device EM loop differs from the host loop")
+
+    # Idle share: the two loops themselves, over one placed and prepared input.
+    from cpgisland_tpu_torch.train.backends import SeqBackend
+
+    chunked = chunking.frame(codec.encode_file(fa, skip_headers=True), chunking.TRAIN_CHUNK)
+    for label, backend in (("seq", SeqBackend()), ("local", LocalBackend())):
+        prepared_in = backend.prepare(chunked)
+        chunks, lengths = backend.place(prepared_in, dev)
+        prep = backend.prepare_streams(params, chunks, lengths)
+
+        def iteration(p, watch):
+            watch.mark()
+            stats = backend(p, chunks, lengths, prepared=prep)
+            watch.mark()
+            new_p, delta = baum_welch.em_update(p, stats)
+            watch.mark()
+            return new_p, delta, stats.loglik.float()
+
+        for name, loop in (("host", baum_welch._host_loop), ("device", baum_welch._device_loop)):
+            loop(params, iteration, baum_welch._Stopwatch(dev), 1, 0.0)  # warm
+            torch.cuda.synchronize()
+            # Every synchronizing CUDA call PyTorch makes inside the loop
+            # (a D2H read, a pageable copy, a stream sync) warns here.
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    loop(params, iteration, baum_welch._Stopwatch(dev), TRAIN_ITERS, 0.0)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            syncs = sum("synchroniz" in str(w.message) for w in caught)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                loop(params, iteration, baum_welch._Stopwatch(dev), TRAIN_ITERS, 0.0)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            busy = sum(us for _, us, _ in device_rows(prof)) / 1e6
+            emit({"phase": "em_loop_profile", "backend": label, "loop": name,
+                  "iterations": TRAIN_ITERS, "wall_s": wall, "device_busy_s": busy,
+                  "idle_share": 1.0 - busy / wall, "ms_per_iter": wall / TRAIN_ITERS * 1e3,
+                  "synchronizing_calls": syncs})
+            if name == "device" and syncs:
+                raise SystemExit(f"chip_smoke: the device EM loop ({label}) made {syncs} "
+                                 "synchronizing CUDA calls")
+
+
+def seq_cpu_vs_card_phase(rng: np.random.Generator, tmp: str, dev) -> None:
+    """A small FASTA trained by seq and seq2d on the CPU (the plain
+    versions) and on the card (the kernels): text dumps compared byte for
+    byte, and held to the repo's CPU-vs-card bound (atol 1e-5, the same
+    structural zeros)."""
+    fa = small_fasta(rng, os.path.join(tmp, "seq_small.fa"))
+    for backend in ("seq", "seq2d"):
+        dumps, models = {}, {}
+        for where in ("cpu", dev):
+            out = os.path.join(tmp, f"seq_small.{backend}.{where}.model")
+            res = pipeline.train_file(fa, num_iters=2, convergence=0.0, compat=False,
+                                      backend=backend, model_out=out, device=where)
+            with open(out) as f:
+                dumps[str(where)] = f.read()
+            models[str(where)] = res.params
+        err, ok = _models_close(models["cpu"], models[str(dev)])
+        emit({"phase": "seq_cpu_vs_cuda", "backend": backend,
+              "dumps_byte_identical": dumps["cpu"] == dumps[str(dev)],
+              "max_prob_err": err, "within_1e-5": ok})
+        if not ok:
+            raise SystemExit(f"chip_smoke: {backend} training on the CPU and on the card "
+                             "disagree")
+
+
+def one_pass_posterior_phase(params, big: np.ndarray, dev) -> dict:
+    """posterior_sharded on the 64 Mi record, one-pass (B8) against two-pass
+    (B7 + B4): confidence within atol 2e-5, MPM paths compared, both timed."""
+    obs = big[: POST_NL * POST_LANE_T]
+    out, launches = {}, {}
+    for one_pass in (False, True, True, False):
+        _kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        conf, path = posterior_sharded(params, obs, ISLAND_STATES, want_path=True,
+                                       one_pass=one_pass)
+        wall = time.perf_counter() - t0
+        out.setdefault(one_pass, (conf, path, []))[2].append(wall)
+        launches[one_pass] = {k: n for k, n in _kernels.launches.items() if n}
+    (c2, p2, t2), (c1, p1, t1) = out[False], out[True]
+    err = float(np.abs(c1.astype(np.float64) - c2).max())
+    diff = int((p1 != p2).sum())
+    emit({"phase": "one_pass_posterior", "symbols": int(obs.size), "max_conf_err": err,
+          "path_positions_differing": diff, "wall_s_two_pass": t2, "wall_s_one_pass": t1,
+          "launches_two_pass": launches[False], "launches_one_pass": launches[True]})
+    if (err > 2e-5 or launches[True].get("oh_fwdbwd_mat") != 1
+            or launches[True].get("oh_prod") or launches[True].get("oh_fwdbwd")):
+        raise SystemExit("chip_smoke: the one-pass posterior leaves the two-pass one")
+    return launches[True]
+
+
+def budget_lane_phase(big: np.ndarray, fa: str, dev) -> None:
+    """Peak device bytes per symbol of one seq E-step at 16 Mi and 64 Mi
+    symbols (reduced two-pass, one-pass, dense K = 8), the budget they give
+    on this card, and one seq E-step of the genome at three lane lengths."""
+    from cpgisland_tpu_torch.ops.prepared import prepare_seq as prep_seq
+    from cpgisland_tpu_torch.train import backends as BE
+
+    params = presets.durbin_cpg8(device=dev)
+    worst = 0.0
+    for n in (16 << 20, 64 << 20):
+        obs = torch.from_numpy(big[:n]).to(dev)
+        for label, engine, one_pass in (("two_pass", "onehot", False),
+                                        ("one_pass", "onehot", True),
+                                        ("dense_k8", "pallas", False)):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            lane_T = fb_seq.pick_lane_T(n)
+            prep = prep_seq(4, obs, n, lane_T=lane_T, onehot=engine == "onehot")
+            st = fb_seq.seq_stats(params, obs, n, lane_T=lane_T, engine=engine,
+                                  prepared=prep, one_pass=one_pass)
+            torch.cuda.synchronize()
+            per = (torch.cuda.max_memory_allocated() - base) / n
+            worst = max(worst, per)
+            emit({"phase": "seq_memory", "symbols": n, "arm": label,
+                  "peak_bytes_per_symbol": per, "loglik": float(st.loglik)})
+            del prep, st
+    total = torch.cuda.get_device_properties(dev).total_memory
+    emit({"phase": "seq_budget", "worst_bytes_per_symbol": worst,
+          "constant_bytes_per_symbol": BE.SEQ_BYTES_PER_SYMBOL, "total_memory": total,
+          "budget_symbols": BE.seq_shard_budget(dev),
+          "budget_from_measured": (total - BE.SEQ_RESERVE_BYTES) // int(np.ceil(worst))})
+    if worst > BE.SEQ_BYTES_PER_SYMBOL:
+        raise SystemExit(f"chip_smoke: seq_stats peaks at {worst:.1f} B/symbol, above the "
+                         f"budget's {BE.SEQ_BYTES_PER_SYMBOL}")
+
+    chunked = chunking.frame(codec.encode_file(fa, skip_headers=True), chunking.TRAIN_CHUNK)
+    times = {}
+    for lane_T in (4096, 8192, 16384, 16384, 8192, 4096):
+        backend = BE.SeqBackend(lane_T=lane_T)
+        chunks, lengths = backend.place(backend.prepare(chunked), dev)
+        prep = backend.prepare_streams(params, chunks, lengths)
+        ms = time_ms(lambda: backend(params, chunks, lengths, prepared=prep), runs=5)
+        times.setdefault(lane_T, []).append(ms)
+    emit({"phase": "seq_lane_T", "symbols": chunked.total, "estep_ms": times})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2010,6 +2365,16 @@ def main(argv=None) -> int:
         genome_span_phase(fa, tmp, dev)
         for k, n in span_decode_phase(params, big, tmp, dev).items():
             launches[k] = launches.get(k, 0) + n
+        # Whole-sequence EM, the device loop, the one-pass arm.
+        results |= mat_kernel_phase(rng, params, big, dev)
+        seq_launches, seq_results = seq_train_phase(fa, dev)
+        for k, n in seq_launches.items():
+            launches[k] = launches.get(k, 0) + n
+        em_loop_phase(fa, dev, seq_results)
+        seq_cpu_vs_card_phase(rng, tmp, dev)
+        for k, n in one_pass_posterior_phase(params, big, dev).items():
+            launches[k] = launches.get(k, 0) + n
+        budget_lane_phase(big, fa, dev)
 
     table = []
     for name, r in results.items():

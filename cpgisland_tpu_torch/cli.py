@@ -4,7 +4,8 @@ Two forms, as ``python -m cpgisland_tpu``:
 
 1. The reference's positional form (CpGIslandFinder.java:346-357):
 
-       python -m cpgisland_tpu_torch TRAIN TEST ISLANDS_OUT MODEL_OUT CONVERGENCE NUM_ITERS
+       python -m cpgisland_tpu_torch TRAIN TEST ISLANDS_OUT MODEL_OUT CONVERGENCE NUM_ITERS \\
+           [--backend local|seq|seq2d] [--em-fuse auto|on|off]
 
    trains on TRAIN from the Durbin 8-state model, writes the trained model's
    text dump to MODEL_OUT, decodes TEST and writes island records to
@@ -14,14 +15,16 @@ Two forms, as ``python -m cpgisland_tpu``:
 
        python -m cpgisland_tpu_torch train FILE --model-out m.txt [--iters N] \\
            [--convergence E] [--init-model m0.txt | --preset durbin8|two_state] \\
-           [--engine auto|xla|pallas|onehot] [--clean] [--invalid-symbols P]
+           [--engine auto|xla|pallas|onehot] [--backend local|spmd|seq|seq2d] \\
+           [--em-fuse auto|on|off] [--clean] [--invalid-symbols P]
        python -m cpgisland_tpu_torch decode FILE --islands-out i.txt \\
            [--model m.txt | --preset durbin8|two_state] [--clean [--min-len N]] \\
            [--island-states 0] [--engine auto|xla|pallas|onehot] \\
            [--island-engine auto|host|device] [--island-cap N] \\
            [--invalid-symbols skip|mask|fail]
        python -m cpgisland_tpu_torch run TRAIN TEST --islands-out i.txt \\
-           --model-out m.txt [--iters N] [--convergence E] [--clean]
+           --model-out m.txt [--iters N] [--convergence E] [--clean] \\
+           [--backend local|spmd|seq|seq2d] [--em-fuse auto|on|off]
        python -m cpgisland_tpu_torch posterior FILE [--islands-out i.txt] \\
            [--confidence-out c.npy] [--mpm-path-out p.npy] [--min-len N] \\
            [--island-states 0,1,2,3] [--model m.txt | --preset durbin8|two_state] \\
@@ -48,25 +51,51 @@ _SUBCOMMANDS = ("train", "decode", "run", "posterior", "compare")
 _DEVICES = ("cuda", "cpu")
 
 
+def _take_option(argv: list, flag: str, choices: tuple, default: str) -> tuple:
+    """Remove ``flag X`` / ``flag=X`` from anywhere in argv -> (value, the
+    other arguments)."""
+    value, rest = default, []
+    i = 0
+    while i < len(argv):
+        a = argv[i]
+        if a == flag and i + 1 < len(argv):
+            value, i = argv[i + 1], i + 2
+            continue
+        if a.startswith(flag + "="):
+            value, i = a.split("=", 1)[1], i + 1
+            continue
+        rest.append(a)
+        i += 1
+    if value not in choices:
+        raise SystemExit(f"cpgisland_tpu_torch: {flag} must be one of {choices}, got {value!r}")
+    return value, rest
+
+
 def _take_device(argv: list) -> tuple:
     """Remove ``--device X`` / ``--device=X`` from anywhere in argv (as the
     JAX CLI removes ``--platform`` before it tells the positional form from
     a subcommand) -> (device, the other arguments)."""
-    device, rest = "cuda", []
-    i = 0
-    while i < len(argv):
-        a = argv[i]
-        if a == "--device" and i + 1 < len(argv):
-            device, i = argv[i + 1], i + 2
-            continue
-        if a.startswith("--device="):
-            device, i = a.split("=", 1)[1], i + 1
-            continue
-        rest.append(a)
-        i += 1
-    if device not in _DEVICES:
-        raise SystemExit(f"cpgisland_tpu_torch: --device must be one of {_DEVICES}, got {device!r}")
-    return device, rest
+    return _take_option(argv, "--device", _DEVICES, "cuda")
+
+
+_BACKENDS = ("local", "spmd", "seq", "seq2d")
+_EM_FUSE = ("auto", "on", "off")
+_BACKEND_HELP = (
+    "E-step backend: one device / chunk-sharded mesh psum / exact whole-sequence "
+    "sequence-parallel / per-record 2-D data x seq mesh (the last two have no "
+    "chunk-boundary approximation; seq2d needs --clean).  spmd (a mesh) is not "
+    "ported yet"
+)
+_EM_FUSE_HELP = (
+    "EM loop execution: auto/on keeps the loop on the card with the convergence "
+    "test on device (no blocking read between iterations); off keeps the "
+    "reference's per-iteration host cadence"
+)
+
+
+def _add_train_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--backend", choices=_BACKENDS, default="local", help=_BACKEND_HELP)
+    p.add_argument("--em-fuse", choices=_EM_FUSE, default="auto", help=_EM_FUSE_HELP)
 
 
 def _add_invalid_symbols_flag(p: argparse.ArgumentParser) -> None:
@@ -149,6 +178,7 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--init-model", help="start from a model text file instead of the --preset model")
     _add_preset_flag(t, "initial model")
     _add_fb_engine_flag(t)
+    _add_train_flags(t)
     _add_clean_flag(t)
     _add_invalid_symbols_flag(t)
 
@@ -177,6 +207,7 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--model-out", required=True)
     r.add_argument("--iters", type=int, default=10)
     r.add_argument("--convergence", type=float, default=0.005)
+    _add_train_flags(r)
     _add_clean_flag(r)
 
     po = sub.add_parser(
@@ -237,14 +268,18 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     from cpgisland_tpu_torch import pipeline
     from cpgisland_tpu_torch.models.hmm import load_text
 
-    # The reference's six-positional form.
-    if len(argv) == 6 and argv[0] not in _SUBCOMMANDS:
-        train_f, test_f, islands_out, model_out, convergence, num_iters = argv
-        res = pipeline.run(train_f, test_f, islands_out, model_out,
-                           convergence=float(convergence), num_iters=int(num_iters),
-                           device=device)
-        print(f"{len(res.calls)} islands -> {islands_out}")
-        return 0
+    # The reference's six-positional form; --backend and --em-fuse may
+    # stand anywhere in it, as --device does.
+    if argv and argv[0] not in _SUBCOMMANDS and not argv[0].startswith("-"):
+        backend, rest = _take_option(argv, "--backend", _BACKENDS, "local")
+        fuse, rest = _take_option(rest, "--em-fuse", _EM_FUSE, "auto")
+        if len(rest) == 6:
+            train_f, test_f, islands_out, model_out, convergence, num_iters = rest
+            res = pipeline.run(train_f, test_f, islands_out, model_out,
+                               convergence=float(convergence), num_iters=int(num_iters),
+                               backend=backend, fuse=fuse, device=device)
+            print(f"{len(res.calls)} islands -> {islands_out}")
+            return 0
 
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -257,7 +292,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         res = pipeline.train_file(
             args.training_file, params=params, num_iters=args.iters,
             convergence=args.convergence, compat=compat, model_out=args.model_out,
-            engine=args.engine, invalid_symbols=args.invalid_symbols, device=device,
+            engine=args.engine, invalid_symbols=args.invalid_symbols, backend=args.backend,
+            fuse=args.em_fuse, device=device,
         )
         final = res.logliks[-1] if res.logliks else float("nan")
         print(f"trained: iters={res.iterations} converged={res.converged} "
@@ -344,7 +380,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     res = pipeline.run(
         args.training_file, args.test_file, args.islands_out, args.model_out,
-        convergence=args.convergence, num_iters=args.iters, compat=compat, device=device,
+        convergence=args.convergence, num_iters=args.iters, compat=compat,
+        backend=args.backend, fuse=args.em_fuse, device=device,
     )
     print(f"{len(res.calls)} islands -> {args.islands_out}")
     return 0

@@ -59,6 +59,24 @@
 // gt[s_prev, a] * K + gt[s_cur, c].  The sums run in another order than
 // the plain version's, which agrees within a tolerance.
 //
+// B8 oh_fwdbwd_mat_kernel replaces fb_onehot.py::_oh_fwdbwd_mat_kernel, the
+// one-pass arm: both reduced chains of a lane carried as 2x2 MATRICES from
+// the identity (Va[t] = M_1 ... M_t renormalized by the matrix total, Wb[t]
+// = M_{t+1} ... M_{l-1} self-normalized), so it runs before any boundary
+// message exists and the lane products fall out of an O(NL) epilogue
+// (fb_onehot.run_fb_mat_onehot): one T-scaling pass in place of B7 and B4.
+// Bound: it reads 8 B of pairs and writes 32 B of matrix rows per step and
+// lane, 2.68 GB at NL = 8192 lanes x 8192 steps (0.80 ms at 3.35 TB/s);
+// like B4 each chain is a dependent sequence of steps that each wait on an
+// IEEE division, so it is latency-bound above that.  The design is B4's:
+// the forward and the backward chain of a lane are independent, so each
+// gets its own thread (grid (lane blocks, 2), 32 threads a block), reads
+// its pair stream a group of steps ahead, and keeps its 4 carries in
+// registers; the table sits in shared memory; each step stores its four
+// entries as four coalesced rows.  Bit equality with the plain version:
+// round-to-nearest intrinsics in the plain version's operand order, the
+// total summed ((00 + 01) + 10) + 11, 1/x as __fdiv_rn.
+//
 // B21 oh_prod_stacked_kernel, B24 oh_fwdbwd_stacked_kernel and B25 (the B5
 // kernels with M > 1) replace fb_onehot.py::_oh_prod_stacked_kernel,
 // _oh_fwdbwd_stacked_kernel and _oh_seq_stats_stacked_kernel: B7, B4 and B5
@@ -203,6 +221,81 @@ __device__ __forceinline__ void prod_chain(const int32_t* p, const float* s_tab,
   out[3 * nl] = c11;
 }
 
+// B8's forward: V <- V . M_t times 1 / total(V) on valid steps, carried past
+// len; position 0 stores the identity.  Writes rows 4t + {0,1,2,3}.
+__device__ __forceinline__ void mat_fwd_chain(const int32_t* p, const float* s_tab, float* out,
+                                              int len, int Tp, size_t nl, int nreal) {
+  float v00 = 1.0f, v01 = 0.0f, v10 = 0.0f, v11 = 1.0f;
+  int q[LOOKAHEAD], qn[LOOKAHEAD];
+  load_group(p, nl, 0, 1, Tp, nreal, q);
+  for (int t0 = 0; t0 < Tp; t0 += LOOKAHEAD) {
+    load_group(p, nl, t0 + LOOKAHEAD, 1, Tp, nreal, qn);
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) {
+      const int t = t0 + r;
+      if (t < Tp) {
+        if (t > 0 && t < len) {
+          const float* m = s_tab + 4 * q[r];
+          const float inv =
+              __fdiv_rn(1.0f, __fadd_rn(__fadd_rn(__fadd_rn(v00, v01), v10), v11));
+          const float r00 = __fadd_rn(__fmul_rn(v00, m[0]), __fmul_rn(v01, m[2]));
+          const float r01 = __fadd_rn(__fmul_rn(v00, m[1]), __fmul_rn(v01, m[3]));
+          const float r10 = __fadd_rn(__fmul_rn(v10, m[0]), __fmul_rn(v11, m[2]));
+          const float r11 = __fadd_rn(__fmul_rn(v10, m[1]), __fmul_rn(v11, m[3]));
+          v00 = __fmul_rn(r00, inv);
+          v01 = __fmul_rn(r01, inv);
+          v10 = __fmul_rn(r10, inv);
+          v11 = __fmul_rn(r11, inv);
+        }
+        out[(size_t)(4 * t) * nl] = v00;
+        out[(size_t)(4 * t + 1) * nl] = v01;
+        out[(size_t)(4 * t + 2) * nl] = v10;
+        out[(size_t)(4 * t + 3) * nl] = v11;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) q[r] = qn[r];
+  }
+}
+
+// B8's backward, t = Tp-1 down to 0: W <- M_{t+1} . W times 1 / total(W)
+// where t <= T-2 and t+1 < len, else carried (``p`` is the next-step pair
+// stream, so row t holds M_{t+1}).
+__device__ __forceinline__ void mat_bwd_chain(const int32_t* p, const float* s_tab, float* out,
+                                              int len, int Tp, size_t nl, int nreal, int T) {
+  float w00 = 1.0f, w01 = 0.0f, w10 = 0.0f, w11 = 1.0f;
+  int q[LOOKAHEAD], qn[LOOKAHEAD];
+  load_group(p, nl, Tp - 1, -1, Tp, nreal, q);
+  for (int k0 = 0; k0 < Tp; k0 += LOOKAHEAD) {
+    load_group(p, nl, Tp - 1 - (k0 + LOOKAHEAD), -1, Tp, nreal, qn);
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) {
+      const int t = Tp - 1 - (k0 + r);
+      if (t >= 0) {
+        if (t <= T - 2 && t + 1 < len) {
+          const float* g = s_tab + 4 * q[r];
+          const float binv =
+              __fdiv_rn(1.0f, __fadd_rn(__fadd_rn(__fadd_rn(w00, w01), w10), w11));
+          const float b00 = __fmul_rn(__fadd_rn(__fmul_rn(g[0], w00), __fmul_rn(g[1], w10)), binv);
+          const float b01 = __fmul_rn(__fadd_rn(__fmul_rn(g[0], w01), __fmul_rn(g[1], w11)), binv);
+          const float b10 = __fmul_rn(__fadd_rn(__fmul_rn(g[2], w00), __fmul_rn(g[3], w10)), binv);
+          const float b11 = __fmul_rn(__fadd_rn(__fmul_rn(g[2], w01), __fmul_rn(g[3], w11)), binv);
+          w00 = b00;
+          w01 = b01;
+          w10 = b10;
+          w11 = b11;
+        }
+        out[(size_t)(4 * t) * nl] = w00;
+        out[(size_t)(4 * t + 1) * nl] = w01;
+        out[(size_t)(4 * t + 2) * nl] = w10;
+        out[(size_t)(4 * t + 3) * nl] = w11;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) q[r] = qn[r];
+  }
+}
+
 __device__ __forceinline__ void load_table(float* s_tab, const float* tab, int nreal) {
   for (int i = threadIdx.x; i < (nreal + 1) * 4; i += blockDim.x) s_tab[i] = tab[i];
   __syncthreads();
@@ -250,6 +343,26 @@ oh_fwdbwd_stacked_kernel(const int32_t* __restrict__ pair, const int32_t* __rest
   else
     bwd_chain(pairn + n, s_tab, beta0[vec + n], beta0[vec + nl + n], betas + strm + n, lens[n],
               Tp, nl, nreal, T);
+}
+
+// ---------------------------------------------------------------------------
+// B8: the matrix-carried forward (blockIdx.y == 0) and backward chain of each
+// lane, [Tp, 4, NL] each.
+
+__global__ void __launch_bounds__(FB_THREADS)
+oh_fwdbwd_mat_kernel(const int32_t* __restrict__ pair, const int32_t* __restrict__ pairn,
+                     const int32_t* __restrict__ lens, const float* __restrict__ tab,
+                     float* __restrict__ va, float* __restrict__ wb, int Tp, int NL,
+                     int nreal, int T) {
+  __shared__ float s_tab[MAX_TAB];
+  load_table(s_tab, tab, nreal);
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= NL) return;
+  const size_t nl = (size_t)NL;
+  if (blockIdx.y == 0)
+    mat_fwd_chain(pair + n, s_tab, va + n, lens[n], Tp, nl, nreal);
+  else
+    mat_bwd_chain(pairn + n, s_tab, wb + n, lens[n], Tp, nl, nreal, T);
 }
 
 // ---------------------------------------------------------------------------
@@ -496,6 +609,16 @@ int oh_fwdbwd(const void* pair, const void* pairn, const void* lens, const void*
   oh_fwdbwd_kernel<<<grid, FB_THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)pair, (const int32_t*)pairn, (const int32_t*)lens, (const float*)a0,
       (const float*)beta0, (const float*)tab, (float*)alphas, (float*)betas, Tp, NL, nreal, T);
+  return (int)cudaGetLastError();
+}
+
+int oh_fwdbwd_mat(const void* pair, const void* pairn, const void* lens, const void* tab,
+                  void* va, void* wb, int Tp, int NL, int nreal, int T, void* stream) {
+  if (bad_stream(Tp, NL, nreal)) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((NL + FB_THREADS - 1) / FB_THREADS), 2);
+  oh_fwdbwd_mat_kernel<<<grid, FB_THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)pair, (const int32_t*)pairn, (const int32_t*)lens, (const float*)tab,
+      (float*)va, (float*)wb, Tp, NL, nreal, T);
   return (int)cudaGetLastError();
 }
 

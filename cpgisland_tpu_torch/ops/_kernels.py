@@ -46,6 +46,7 @@ _SIGNATURES = {
     "oh_backtrace": ("viterbi_onehot", 5, ("bk", "nb", "nP")),
     "oh_prod": ("fb_onehot", 3, ("Tp", "NL", "nreal")),
     "oh_fwdbwd": ("fb_onehot", 8, ("Tp", "NL", "nreal", "T")),
+    "oh_fwdbwd_mat": ("fb_onehot", 6, ("Tp", "NL", "nreal", "T")),
     "oh_seq_stats": ("fb_onehot", 14, ("Tp", "NL", "S", "K", "Tt")),
     "oh_prod_stacked": ("fb_onehot", 3, ("Tp", "NL", "nreal", "M")),
     "oh_fwdbwd_stacked": ("fb_onehot", 8, ("Tp", "NL", "nreal", "T", "M")),

@@ -1,8 +1,9 @@
-"""One-hot-emission reduced forward-backward: three CUDA kernels and their
+"""One-hot-emission reduced forward-backward: the CUDA kernels and their
 plain PyTorch versions.
 
-Counterpart of ``cpgisland_tpu/ops/fb_onehot.py``, cut to the fused arm
-(the chunked E-step and the posterior).  For one-hot-emission models (the
+Counterpart of ``cpgisland_tpu/ops/fb_onehot.py``, cut to the fused
+two-pass arm and the one-pass arm (the chunked and whole-sequence E-steps
+and the posterior).  For one-hot-emission models (the
 flagship 8-state preset) the alpha/beta vectors are exactly zero outside
 the 2-state group of the position's symbol, so the K-state recurrences
 reduce to 2-state recurrences whose per-step 2x2 matrix is A (times the
@@ -24,6 +25,14 @@ one's — the per-pair table :func:`prob_pair_table`.
   f32 operations in the same order, the row select an exact gather.  The
   kernel turns FMA contraction off, so it equals the plain version bit for
   bit.
+- B8 :func:`oh_fwdbwd_mat` (replaces ``_oh_fwdbwd_mat_kernel``): the
+  one-pass arm.  Both chains carried as 2x2 matrices from the identity,
+  so it needs no entry vector and runs before the boundary messages
+  exist; :func:`run_fb_mat_onehot` takes the lane products from its
+  epilogue, :func:`contract_mat_streams` applies the entry directions and
+  :func:`mat_loglik_lanes` telescopes the loglik.  The plain version
+  :func:`oh_fwdbwd_mat_plain` is the twin of ``_xla_fwdbwd_mat_onehot``;
+  the kernel equals it bit for bit.
 - B5 :func:`oh_seq_stats` (replaces ``_oh_seq_stats_kernel``): the
   z-normalized counts — each pair's xi divided by its own total, so any
   per-position scale of the betas cancels — giving dense ``macc [K*K]``,
@@ -84,7 +93,8 @@ def prob_pair_table(params: HmmParams, gt: torch.Tensor) -> torch.Tensor:
 def prob_tab_ext(params: HmmParams, gt: torch.Tensor) -> torch.Tensor:
     """[S*S + 1, 4] pair table with the identity as its last row: every
     PAD pair (p >= S*S) is clamped onto that row."""
-    ident = torch.tensor([PROB_IDENT], dtype=_F32, device=gt.device)
+    # Built on the device (no host copy, which would stall the stream).
+    ident = torch.eye(GROUP, dtype=_F32, device=gt.device).reshape(1, 4)  # PROB_IDENT
     return torch.cat([prob_pair_table(params, gt), ident], dim=0).contiguous()
 
 
@@ -288,6 +298,82 @@ def oh_fwdbwd(pair2: torch.Tensor, pairn2: torch.Tensor, lens2: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# B8: the entry-free matrix-carried chains (the one-pass arm)
+
+
+def oh_fwdbwd_mat_plain(pair2: torch.Tensor, pairn2: torch.Tensor, lens2: torch.Tensor,
+                        tab_ext: torch.Tensor, T: int):
+    """Plain version of B8 -> (va [Tp, 4, NL], wb [Tp, 4, NL]), rows 00, 01,
+    10, 11 of each step's 2x2 matrix.
+
+    The twin of ``_xla_fwdbwd_mat_onehot``: both chains carried as 2x2
+    matrices from the identity, so no entry vector is needed.  Forward:
+    V <- V . M_t times 1 / (((V00 + V01) + V10) + V11) on valid steps
+    (t < len), carried past the lane's length; position 0 stores the
+    identity (M_0 belongs to the entry direction).  Backward, t = Tp-1 down
+    to 0: W <- M_{t+1} . W times 1 / the previous W's total where t <= T-2
+    and t+1 < len, else carried.  Each entry is a 2-term sum (one rounded
+    addition) of rounded products, in the twin's operand order."""
+    Tp, NL = pair2.shape
+    nreal = tab_ext.shape[0] - 1
+    steps = torch.arange(Tp, device=pair2.device)[:, None]
+    valid = (steps < lens2).unbind(0)
+    keep = ((steps <= T - 2) & (steps + 1 < lens2)).unbind(0)
+
+    def matrices(pairs):
+        # Each step's matrix as [2 (row), 2 (column), NL].
+        m = tab_ext[torch.clamp_max(pairs, nreal).long()]  # [Tp, NL, 4]
+        return m.permute(0, 2, 1).reshape(Tp, 2, 2, NL).contiguous().unbind(0)
+
+    def total(x):
+        return ((x[0, 0] + x[0, 1]) + x[1, 0]) + x[1, 1]
+
+    eye = torch.eye(2, dtype=_F32, device=pair2.device)[:, :, None].expand(2, 2, NL)
+    # r[i, j] = V[i, 0] * M[0, j] + V[i, 1] * M[1, j], then times 1 / total(V).
+    fwd = matrices(pair2)
+    va = [eye]
+    for t in range(1, Tp):
+        v = va[-1]
+        inv = torch.reciprocal(total(v))
+        m = fwd[t]
+        raw = v[:, 0:1, :] * m[0:1] + v[:, 1:2, :] * m[1:2]
+        va.append(torch.where(valid[t], raw * inv, v))
+    # b[i, j] = (G[i, 0] * W[0, j] + G[i, 1] * W[1, j]) * (1 / total(W)).
+    bwd = matrices(pairn2)
+    wb = [eye]
+    for tb in range(Tp - 1, -1, -1):
+        w = wb[-1]
+        binv = torch.reciprocal(total(w))
+        g = bwd[tb]
+        b = (g[:, 0:1, :] * w[0:1] + g[:, 1:2, :] * w[1:2]) * binv
+        wb.append(torch.where(keep[tb], b, w))
+    return (torch.stack(va).reshape(Tp, 4, NL),
+            torch.stack(wb[:0:-1]).reshape(Tp, 4, NL))
+
+
+def oh_fwdbwd_mat(pair2: torch.Tensor, pairn2: torch.Tensor, lens2: torch.Tensor,
+                  tab_ext: torch.Tensor, T: int):
+    """Kernel B8 (replaces the JAX package's ``_oh_fwdbwd_mat_kernel``) ->
+    (va, wb), each [Tp, 4, NL] f32.  Arguments as
+    :func:`oh_fwdbwd_mat_plain`."""
+    _check_same_device(pair2, (pairn2, lens2, tab_ext))
+    if pair2.dim() != 2 or 0 in pair2.shape:
+        raise ValueError(f"pair2 must be a non-empty [Tp, NL], got {tuple(pair2.shape)}")
+    Tp, NL = pair2.shape
+    _check("pair2", pair2, _I32, (Tp, NL))
+    _check("pairn2", pairn2, _I32, (Tp, NL))
+    _check("lens2", lens2, _I32, (1, NL))
+    _check_table(tab_ext)
+    if pair2.device.type == "cpu":
+        return oh_fwdbwd_mat_plain(pair2, pairn2, lens2, tab_ext, T)
+    va = torch.empty((Tp, 4, NL), dtype=_F32, device=pair2.device)
+    wb = torch.empty((Tp, 4, NL), dtype=_F32, device=pair2.device)
+    _kernels.launch("oh_fwdbwd_mat", pair2, pairn2, lens2, tab_ext, va, wb,
+                    Tp=Tp, NL=NL, nreal=tab_ext.shape[0] - 1, T=T)
+    return va, wb
+
+
+# ---------------------------------------------------------------------------
 # B5: z-normalized counts from the reduced streams
 
 
@@ -440,6 +526,69 @@ def run_fb_kernels_onehot(params: HmmParams, sel_t, prev_dev, lens2: torch.Tenso
     if conf_mask is not None:
         return alphas2, conf_from_reduced(alphas2, betas2, esym2, lens2, conf_mask, gt), esym2
     return alphas2, betas2, esym2
+
+
+def run_fb_mat_onehot(params: HmmParams, lens2: torch.Tensor, T: int, pair_esym):
+    """The one-pass arm's one T-scaling pass: B8 over the [Tp, NL] lane
+    layout, needing no boundary messages.
+
+    ``pair_esym``: (pair2, esym2 or None, pairn2).  Returns (va,
+    wb [Tp, 4, NL], esym2 [Tp, NL], red [NL, 2, 2]).  ``red`` is the lane
+    transfer total that B7 gives on the two-pass arm, from an O(NL)
+    epilogue: red[n] = M_0(n) . Va[last, n] (position 0's step matrix —
+    the identity for a masked init and for empty lanes — times the carried
+    product), renormalized by its own total ((r00 + r01) + r10) + r11;
+    its directions equal B7's to ~ulp.  Apply the entry directions with
+    :func:`contract_mat_streams` once they exist."""
+    S = params.n_symbols
+    gt = _groups(params)
+    tab_ext = prob_tab_ext(params, gt)
+    pair2, esym2, pairn2 = pair_esym
+    if esym2 is None:
+        esym2 = decode_esym(pair2, S)
+    va, wb = oh_fwdbwd_mat(pair2, pairn2, lens2, tab_ext, T)
+    m0 = tab_ext[torch.clamp_max(pair2[0], S * S).long()]  # [NL, 4]
+    ve = va[-1]  # [4, NL]
+    r00 = m0[:, 0] * ve[0] + m0[:, 1] * ve[2]
+    r01 = m0[:, 0] * ve[1] + m0[:, 1] * ve[3]
+    r10 = m0[:, 2] * ve[0] + m0[:, 3] * ve[2]
+    r11 = m0[:, 2] * ve[1] + m0[:, 3] * ve[3]
+    tot = torch.clamp_min(((r00 + r01) + r10) + r11, 1e-30)
+    red = torch.stack([r00, r01, r10, r11], dim=1).reshape(-1, GROUP, GROUP) / tot[:, None, None]
+    return va, wb, esym2, red
+
+
+def contract_mat_streams(va, wb, a0_raw, beta0, gt, esym2):
+    """(alphas2, betas2) [Tp, 2, NL] from B8's matrix streams and the entry
+    directions: alphas2[t, c] = a0[0] Va[t, 0c] + a0[1] Va[t, 1c] and
+    betas2[t, a] = Wb[t, a0] b0[0] + Wb[t, a1] b0[1] — an elementwise
+    epilogue, no chain.  ``a0_raw`` / ``beta0`` arrive full-K [K, NL] and
+    are projected onto each lane's entry / exit group here.  Both streams
+    carry matrix-total scales: their directions match the two-pass
+    streams to ~ulp, but the alphas' sums are not the Rabiner c (the loglik
+    comes from :func:`mat_loglik_lanes`)."""
+    a0 = torch.gather(a0_raw.T, 1, gt[esym2[0].long()]).to(_F32)  # [NL, 2]
+    b0 = torch.gather(beta0.T, 1, gt[esym2[-1].long()]).to(_F32)
+    alphas2 = torch.stack([a0[:, 0] * va[:, 0] + a0[:, 1] * va[:, 2],
+                           a0[:, 0] * va[:, 1] + a0[:, 1] * va[:, 3]], dim=1)
+    betas2 = torch.stack([wb[:, 0] * b0[:, 0] + wb[:, 1] * b0[:, 1],
+                          wb[:, 2] * b0[:, 0] + wb[:, 3] * b0[:, 1]], dim=1)
+    return alphas2, betas2
+
+
+def mat_loglik_lanes(va, alphas2, lens2):
+    """Exact per-lane loglik [1, NL] from the matrix stream (the one-pass
+    arm has no Rabiner c for B5 to sum).  The forward renormalizations
+    telescope: ll_n = log sum_c alphas2[last, c, n] + sum over t + 1 < l_n
+    of log sig_t,n, with sig_t = ((V00 + V01) + V10) + V11 of Va[t] (the
+    pass-through makes row Tp-1 the last valid one).  Empty lanes give 0."""
+    Tp = va.shape[0]
+    sig = ((va[:, 0] + va[:, 1]) + va[:, 2]) + va[:, 3]  # [Tp, NL]
+    smask = (torch.arange(Tp, device=va.device)[:, None] + 1) < lens2
+    last = torch.log(torch.clamp_min(alphas2[-1, 0] + alphas2[-1, 1], 1e-30))[None, :]
+    steps = torch.sum(torch.where(smask, torch.log(torch.clamp_min(sig, 1e-30)), 0.0),
+                      dim=0)[None, :]
+    return torch.where(lens2 > 0, last + steps, 0.0)
 
 
 def run_seq_stats_onehot(params: HmmParams, alphas2, betas2, pair2, lens2, gt,

@@ -16,10 +16,18 @@ stays in the 2-component group space.  The dense one ("pallas", any
 model with K <= 8) runs B17 (``fb_pallas.fb_prod``, K x K products), B16
 and B18 — or B19, which emits the island confidence, when no path is
 asked for — with the combine over [NL, K, K].  Only the fused two-pass
-arm of the reduced engine is ported: the split arm (B9-B12) and the
-one-pass matrix arm (B8) are not.  The glue spells every contraction as
-an explicit sum in a fixed order (sums over K in order, the one total
-row-major), so it gives the same float32 bits on the CPU and on the card.
+arm and the one-pass arm of the reduced engine are ported (the split arm,
+B9-B12, is not): with ``one_pass`` B8 (``fb_onehot.oh_fwdbwd_mat``)
+carries both chains as 2x2 matrices from the identity, so it runs before
+the boundary messages exist, the lane products fall out of its epilogue,
+and one pass over the sequence replaces B7 and B4.  The glue spells every
+contraction as an explicit sum in a fixed order (sums over K in order, the
+one total row-major), so it gives the same float32 bits on the CPU and on
+the card.
+
+``seq_stats`` is the whole-sequence E-step (``SeqBackend``,
+``Seq2DBackend``): B5 over the reduced streams, or the scale-free
+assembly in plain torch over the dense ones.
 
 ``seq_posterior_stacked`` runs M reduced members over one record through
 the stacked kernels (B21 products, B24 chains), each member's boundary glue
@@ -39,9 +47,21 @@ import torch
 
 from cpgisland_tpu_torch.models.hmm import HmmParams
 from cpgisland_tpu_torch.ops import fb_onehot, fb_pallas
-from cpgisland_tpu_torch.ops.fb_chunked import DEFAULT_T_TILE, _batch_lane_setup
+from cpgisland_tpu_torch.ops.fb_chunked import (
+    DEFAULT_T_TILE,
+    _assemble_reduced_stats,
+    _batch_lane_setup,
+    _gamma0_full,
+)
 from cpgisland_tpu_torch.ops.fb_pallas import seq_sum
-from cpgisland_tpu_torch.ops.prepared import PreparedSeq, check_seq, prepare_chunked, prepare_seq
+from cpgisland_tpu_torch.ops.forward_backward import SuffStats
+from cpgisland_tpu_torch.ops.prepared import (
+    PreparedSeq,
+    check_seq,
+    chunked_Tt,
+    prepare_chunked,
+    prepare_seq,
+)
 from cpgisland_tpu_torch.ops.viterbi_onehot import GROUP, _groups
 from cpgisland_tpu_torch.ops.viterbi_parallel import associative_scan
 
@@ -173,12 +193,14 @@ def _lane_v0(prep: PreparedSeq, enters, A, B, pi, first: bool) -> torch.Tensor:
 def _lane_streams_dense(params: HmmParams, obs: torch.Tensor, length: int,
                         lane_T: Optional[int] = None, *, enter_dir=None, exit_dir=None,
                         first: bool = True, conf_mask=None,
-                        prepared: Optional[PreparedSeq] = None):
+                        prepared: Optional[PreparedSeq] = None, with_enters: bool = False):
     """The dense branch of ``_lane_streams``: B17 products -> the two
     [NL, K, K] boundary scans -> entering / exiting directions and each
     lane's v_0 -> B16 and B18 (or B19 with ``conf_mask``).  Returns
     (alphas [lane_T, K, NL], betas [lane_T, K, NL] — or the confidence
-    [lane_T, NL] with ``conf_mask`` —, lens2)."""
+    [lane_T, NL] with ``conf_mask`` —, lens2); ``with_enters`` adds the
+    B16 scales cs [lane_T, NL], the entering directions [NL, K] and the
+    prep (the seq-stats consumer's inputs)."""
     K = params.n_states
     _check_continuation(first, enter_dir)
     A, B, pi = fb_pallas.tables(params)
@@ -192,8 +214,10 @@ def _lane_streams_dense(params: HmmParams, obs: torch.Tensor, length: int,
     beta_exits = torch.cat([_norm_rows(_matvec(Rsuf[1:], anchor)), anchor[None]], dim=0)
     v0 = _lane_v0(prep, enters, A, B, pi, first)
     lens2 = prep.lane_lens[None, :].contiguous()
-    alphas, _, third = fb_pallas._run_fb_kernels(
+    alphas, cs, third = fb_pallas._run_fb_kernels(
         A, B, prep.steps2, lens2, v0.T, beta_exits.T, prep.lane_T, conf_mask=conf_mask)
+    if with_enters:
+        return alphas, third, lens2, cs, enters, prep
     return alphas, third, lens2
 
 
@@ -201,7 +225,10 @@ def _reduced_lane_inputs(params: HmmParams, prep: PreparedSeq, red: torch.Tensor
                          enter_dir, exit_dir):
     """One member's boundary glue of the reduced engine: from its lane
     products ``red`` [NL, 2, 2], the two scans -> each lane's v_0 [NL, K]
-    and exiting beta [NL, K] (B4's entering vectors).  Shared by the
+    and exiting beta [NL, K] (B4's entering vectors), and the entering
+    directions in the group space, enters_red [NL, 2] (row 0: the base
+    direction's components in lane 0's entry group, not renormalized — the
+    JAX package's contract for B5's t == 0 pairs).  Shared by the
     single-model and the stacked lane streams, so both feed B4 / B24 the
     same bits."""
     K = params.n_states
@@ -219,7 +246,9 @@ def _reduced_lane_inputs(params: HmmParams, prep: PreparedSeq, red: torch.Tensor
     eye2 = torch.eye(GROUP, dtype=_F32, device=A.device)[None]
     excl_red = torch.cat([eye2, incl_red[:-1]], dim=0)
     base_red = base_dir[gin[0]]
-    enters = _scatter_rows(_norm_rows(_vecmat(base_red, excl_red)), gin, K)
+    enters_red = _norm_rows(_vecmat(base_red, excl_red))
+    enters_red[0] = base_red
+    enters = _scatter_rows(enters_red, gin, K)
     enters[0] = base_dir
     Rsuf_red = _scan(red, reverse=True)
     anchor_red = anchor[gout[-1]]
@@ -228,30 +257,58 @@ def _reduced_lane_inputs(params: HmmParams, prep: PreparedSeq, red: torch.Tensor
         dim=0,
     )
     beta_exits = _scatter_rows(beta_exits_red, gout, K)
-    return _lane_v0(prep, enters, A, B, pi, first), beta_exits
+    return _lane_v0(prep, enters, A, B, pi, first), beta_exits, enters_red
 
 
 def _lane_streams(params: HmmParams, obs: torch.Tensor, length: int,
                   lane_T: Optional[int] = None, *,
                   enter_dir=None, exit_dir=None, first: bool = True, conf_mask=None,
-                  prev_sym: Optional[int] = None, prepared: Optional[PreparedSeq] = None):
-    """Lane transfer products -> boundary messages -> B4 streams.
+                  prev_sym: Optional[int] = None, prepared: Optional[PreparedSeq] = None,
+                  one_pass: bool = False, return_reduced: bool = False):
+    """Lane transfer products -> boundary messages -> the reduced streams.
 
     ``first``: this span starts the sequence (global position 0 is the
     init).  ``enter_dir`` ([K], needed when not ``first``): the
     entering-alpha direction from the previous span; ``exit_dir`` ([K],
     optional): the exiting-beta direction from the next span (None: a free
     end).  Returns (alphas2 [lane_T, 2, NL], betas2 [lane_T, 2, NL] —
-    or, with ``conf_mask``, the confidence [lane_T, NL] —, esym2, lens2)."""
+    or, with ``conf_mask``, the confidence [lane_T, NL] —, esym2, lens2).
+
+    ``one_pass``: B8 runs first (it needs no boundary message), the lane
+    products ``red`` come from its epilogue, the boundary glue below is
+    unchanged, and :func:`fb_onehot.contract_mat_streams` applies the entry
+    directions: one T-scaling pass in place of B7 and B4.  The streams then
+    carry matrix-total scales — exact for every scale-free consumer.
+    ``return_reduced`` (without ``conf_mask``): return (alphas2, betas2,
+    esym2, lens2, prep, enters_red, ll_lane) for the seq-stats consumer;
+    ll_lane is the one-pass arm's telescoped loglik [1, NL]
+    (:func:`fb_onehot.mat_loglik_lanes`), None on the two-pass arm."""
     _check_continuation(first, enter_dir)
     prep = _prep_for(params, obs, length, lane_T, first, prev_sym, prepared)
-    red = fb_onehot.products_reduced(params, prep.pair2)  # [NL, 2, 2]
-    v0, beta_exits = _reduced_lane_inputs(params, prep, red, first, enter_dir, exit_dir)
     lens2 = prep.lane_lens[None, :].contiguous()
-    al2, third2, esym2 = fb_onehot.run_fb_kernels_onehot(
-        params, None, None, lens2, v0.T, beta_exits.T, prep.lane_T,
-        pair_esym=(prep.pair2, None, prep.pairn2), conf_mask=conf_mask,
-    )
+    if one_pass:
+        va, wb, esym2, red = fb_onehot.run_fb_mat_onehot(
+            params, lens2, prep.lane_T, (prep.pair2, None, prep.pairn2))
+    else:
+        red = fb_onehot.products_reduced(params, prep.pair2)  # [NL, 2, 2]
+    v0, beta_exits, enters_red = _reduced_lane_inputs(params, prep, red, first, enter_dir,
+                                                      exit_dir)
+    ll_lane = None
+    if one_pass:
+        gt = _groups(params)
+        al2, third2 = fb_onehot.contract_mat_streams(va, wb, v0.T, beta_exits.T, gt, esym2)
+        del wb
+        if conf_mask is not None:
+            third2 = fb_onehot.conf_from_reduced(al2, third2, esym2, lens2, conf_mask, gt)
+        elif return_reduced:
+            ll_lane = fb_onehot.mat_loglik_lanes(va, al2, lens2)
+    else:
+        al2, third2, esym2 = fb_onehot.run_fb_kernels_onehot(
+            params, None, None, lens2, v0.T, beta_exits.T, prep.lane_T,
+            pair_esym=(prep.pair2, None, prep.pairn2), conf_mask=conf_mask,
+        )
+    if return_reduced and conf_mask is None:
+        return al2, third2, esym2, lens2, prep, enters_red, ll_lane
     return al2, third2, esym2, lens2
 
 
@@ -269,7 +326,7 @@ def _lane_streams_stacked(params_list, obs: torch.Tensor, length: int,
     fb_onehot.check_stacked_members(params_list)
     prep = _prep_for(params_list[0], obs, length, lane_T, True, None, prepared)
     reds = fb_onehot.products_reduced_stacked(params_list, prep.pair2)
-    inputs = [_reduced_lane_inputs(p, prep, red, True, None, None)
+    inputs = [_reduced_lane_inputs(p, prep, red, True, None, None)[:2]
               for p, red in zip(params_list, reds)]
     lens2 = prep.lane_lens[None, :].contiguous()
     al, third, esym2 = fb_onehot.run_fb_kernels_onehot_stacked(
@@ -277,6 +334,115 @@ def _lane_streams_stacked(params_list, obs: torch.Tensor, length: int,
         pair_esym=(prep.pair2, None, prep.pairn2), conf_masks=conf_masks,
     )
     return al, third, esym2, lens2
+
+
+def _not_lane0(NL: int, dev) -> torch.Tensor:
+    """[NL] bool, False at lane 0 only — built on the device: setting one
+    element from a host scalar would stall the stream (the device EM loop
+    makes no synchronizing call)."""
+    return torch.arange(NL, device=dev) != 0
+
+
+def _scale_free_stats(params: HmmParams, alphas, betas, cs, steps2, lens2, enters,
+                      length: int) -> SuffStats:
+    """The JAX package's scale-free assembly (``_gamma_emit_loglik`` and the
+    per-pair xi of ``_seq_stats_core``) for dense [Tp, K, NL] streams of a
+    first span: gamma_t = normalize(alpha_t * beta_t); xi per pair divided
+    by its own total, so only the betas' directions matter; lane 0's pair
+    uses the entering direction, and the global init has no pair.  Sums
+    over K run in order; the sums over time and lanes, and the xi
+    contraction (one full-f32 matmul), run as tensor reductions."""
+    K, S = params.n_states, params.n_symbols
+    A, B = params.A.to(_F32), params.B.to(_F32)
+    Tp, NL = steps2.shape
+    dev = A.device
+    vmask = torch.arange(Tp, device=dev)[:, None] < lens2  # [Tp, NL]
+    loglik = torch.sum(torch.where(vmask, torch.log(torch.clamp_min(cs, 1e-30)), 0.0))
+    graw = alphas * betas
+    gamma = graw / torch.clamp_min(seq_sum(graw, 1), 1e-30)[:, None, :]
+    del graw
+    gamma = torch.where(vmask[:, None, :], gamma, 0.0)
+    emit = torch.stack([torch.sum(torch.where((steps2 == s)[:, None, :], gamma, 0.0), dim=(0, 2))
+                        for s in range(S)], dim=1)  # [K, S]
+    init = gamma[0, :, 0] if length > 0 else torch.zeros(K, dtype=_F32, device=dev)
+    del gamma
+    w = fb_pallas.emit_sel(B, steps2.long()).permute(1, 0, 2) * betas  # [Tp, K, NL]
+    a_hat = alphas / torch.clamp_min(cs[:, None, :], 1e-30)
+    a_prev = torch.cat([enters.T[None], a_hat[:-1]], dim=0)
+    del a_hat
+    # The global init (lane 0, t == 0) has no incoming pair.
+    pair = torch.cat([vmask[:1] & _not_lane0(NL, dev)[None, :], vmask[1:]])
+    a_prev = torch.where(pair[:, None, :], a_prev, 0.0)
+    # Aw[t, j] = sum_k A[j, k] w[t, k], in order of k.
+    Aw = A[None, :, 0:1] * w[:, 0:1, :]
+    for k in range(1, K):
+        Aw = Aw + A[None, :, k : k + 1] * w[:, k : k + 1, :]
+    z = seq_sum(a_prev * Aw, 1)  # [Tp, NL]: each pair's xi total
+    del Aw
+    a_scaled = a_prev / torch.clamp_min(z, 1e-30)[:, None, :]
+    del a_prev
+    if a_scaled.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("the xi contraction needs full f32 matmuls (allow_tf32 is set)")
+    counts = a_scaled.permute(1, 0, 2).reshape(K, -1) @ w.permute(1, 0, 2).reshape(K, -1).T
+    n_seqs = torch.full((), int(length > 0), dtype=torch.int32, device=dev)
+    return SuffStats(init=init, trans=A * counts, emit=emit, loglik=loglik, n_seqs=n_seqs)
+
+
+def seq_stats(params: HmmParams, obs: torch.Tensor, length: int, *,
+              lane_T: Optional[int] = None, engine: str = "onehot",
+              prepared: Optional[PreparedSeq] = None, one_pass: bool = False,
+              t_tile: int = DEFAULT_T_TILE) -> SuffStats:
+    """Exact whole-sequence sufficient statistics of ONE sequence on one
+    device (n_seqs 1): the counterpart of ``seq_stats_pallas`` and its
+    ``_seq_stats_core(axis=None)``.
+
+    Reduced engine (``engine="onehot"``) with a power-of-two alphabet: the
+    streams of :func:`_lane_streams` go to B5 (z-normalized counts, in
+    segments of ``t_tile`` steps) with the entering directions for each
+    lane's t == 0 pair; with ``one_pass`` the streams come from B8 and the
+    loglik from :func:`fb_onehot.mat_loglik_lanes` (B5's sum of log c reads
+    matrix-scaled alphas).  The dense engine (``"pallas"``: B17, B16, B18),
+    and a reduced model whose alphabet is not a power of two (its streams
+    scattered to dense), take the scale-free assembly
+    (:func:`_scale_free_stats`).  ``one_pass`` applies to the first branch
+    only; elsewhere the two-pass arm runs, bit for bit as without it.
+    ``prepared``: the sequence's prep for the engine (built here
+    otherwise)."""
+    onehot = _check_engine(engine)
+    K, S = params.n_states, params.n_symbols
+    if onehot:
+        kernel_stats = S & (S - 1) == 0
+        al2, b2, esym2, lens2, prep, enters_red, ll_lane = _lane_streams(
+            params, obs, length, lane_T, prepared=prepared, one_pass=one_pass and kernel_stats,
+            return_reduced=True)
+        gt = _groups(params)
+        if not kernel_stats:
+            # Scattered to dense [Tp, K, NL] (exact: out-of-group entries are
+            # zeros wherever they are multiplied in); lane 0's entering row
+            # is never read (the global init has no pair).
+            scatter = lambda x: fb_onehot.scatter_streams(x, gt, esym2, K)
+            enters = _scatter_rows(enters_red, gt[prep.e_in.long()], K)
+            return _scale_free_stats(params, scatter(al2), scatter(b2), al2[:, 0] + al2[:, 1],
+                                     esym2, lens2, enters, int(length))
+        NL = al2.shape[2]
+        ent_full = fb_onehot.scatter_streams(enters_red.T[None], gt, prep.e_in[None, :], K)[0]
+        pair0_mask = _not_lane0(NL, al2.device).to(_F32)[None, :]  # the global init
+        macc, emit_red, ll = fb_onehot.run_seq_stats_onehot(
+            params, al2, b2, prep.pair2, lens2, gt, enters_red.T.contiguous(),
+            ent_full.contiguous(), pair0_mask, chunked_Tt(prep.lane_T, t_tile))
+        if one_pass:
+            ll = ll_lane
+        trans, emit, loglik = _assemble_reduced_stats(params, params.A.to(_F32), gt, macc,
+                                                      emit_red, ll)
+        g0f = _gamma0_full(al2, b2, gt, esym2, K)
+        at_init = int(length) > 0
+        init = g0f[:, 0] if at_init else torch.zeros(K, dtype=_F32, device=al2.device)
+        return SuffStats(init=init, trans=trans, emit=emit, loglik=loglik,
+                         n_seqs=torch.full((), int(at_init), dtype=torch.int32,
+                                           device=al2.device))
+    alphas, betas, lens2, cs, enters, prep = _lane_streams_dense(
+        params, obs, length, lane_T, prepared=prepared, with_enters=True)
+    return _scale_free_stats(params, alphas, betas, cs, prep.steps2, lens2, enters, int(length))
 
 
 def _conf_path_from_streams(alphas2, betas2, esym2, lens2, island_mask, gt):
@@ -302,13 +468,16 @@ def _conf_path_from_streams(alphas2, betas2, esym2, lens2, island_mask, gt):
 def seq_posterior(params: HmmParams, obs: torch.Tensor, length: int, island_mask, *,
                   enter_dir=None, exit_dir=None, first: bool = True, want_path: bool = False,
                   lane_T: Optional[int] = None, prev_sym: Optional[int] = None,
-                  prepared: Optional[PreparedSeq] = None, engine: str = "onehot"):
+                  prepared: Optional[PreparedSeq] = None, engine: str = "onehot",
+                  one_pass: bool = False):
     """Single-device posterior of one span: (conf [T] f32, MPM path [T]
     int32 — zeros unless ``want_path``), on ``obs``'s device (the params'
     device).  The twin of ``seq_posterior_pallas(fused=True)`` and its
     ``_seq_posterior_core``, through the reduced (``engine="onehot"``) or
     the dense (``"pallas"``) kernels; without ``want_path`` the dense
-    engine's backward (B19) emits the confidence directly.
+    engine's backward (B19) emits the confidence directly.  ``one_pass``
+    (reduced engine; ignored on the dense one, as in the JAX package): B8
+    in place of B7 and B4.
 
     ``island_mask``: [K] 0/1, the island states; conf[t] is the posterior
     mass on them.  ``prepared``: the span's :class:`PreparedSeq` for the
@@ -326,6 +495,7 @@ def seq_posterior(params: HmmParams, obs: torch.Tensor, length: int, island_mask
         alphas, betas, lens2 = _lane_streams_dense(params, obs, length, lane_T, **kw)
         conf2, path2 = fb_pallas._conf_path_from_streams(alphas, betas, lens2, island_mask)
         return conf2.T.reshape(-1)[:T], path2.T.reshape(-1)[:T]
+    kw["one_pass"] = one_pass
     if not want_path:
         _, conf2, _, _ = _lane_streams(params, obs, length, lane_T, conf_mask=island_mask,
                                        prev_sym=prev_sym, **kw)

@@ -33,3 +33,14 @@ class SuffStats:
     emit: torch.Tensor
     loglik: torch.Tensor
     n_seqs: torch.Tensor
+
+    @staticmethod
+    def zeros(n_states: int, n_symbols: int, device="cpu") -> "SuffStats":
+        z = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=device)
+        return SuffStats(init=z(n_states), trans=z(n_states, n_states),
+                         emit=z(n_states, n_symbols), loglik=z(),
+                         n_seqs=torch.zeros((), dtype=torch.int32, device=device))
+
+    def __add__(self, other: "SuffStats") -> "SuffStats":
+        return SuffStats(*(getattr(self, f.name) + getattr(other, f.name)
+                           for f in dataclasses.fields(self)))

@@ -8,13 +8,19 @@ dense engine, which reads the clamped symbols.  None of it depends on the model
 parameters, so ``train.baum_welch.fit`` builds the chunked prep ONCE per
 fit on the device (from the uint8 chunks) and hands it to every EM
 iteration, and ``pipeline.posterior_file`` builds one span's prep once for
-both of its sweeps.  The identity-keyed cache of the JAX package is not
-ported.
+both of its sweeps.  :func:`cached_build` and :func:`for_seq` keep the
+JAX package's identity-keyed cache: an entry is keyed on the placed input
+tensors (through weak references, so a dead input frees its entry) plus a
+static key, so a whole-sequence E-step called outside ``fit`` builds its
+prep once per placed input, not once per call.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
+import weakref
+from collections import OrderedDict
 from typing import Optional
 
 import torch
@@ -212,3 +218,69 @@ def check_seq(prep: PreparedSeq, S: int, T: int, lane_T: int, first: bool,
             f"this call passes prev_sym={int(prev_sym)} — rebuild the prep for "
             "this span"
         )
+
+
+# ---------------------------------------------------------------------------
+# The identity-keyed cache
+
+_CACHE_MAX = 8
+_CACHE_LOCK = threading.Lock()
+# (kind, static key, ids of the keyed tensors) -> (weak refs, prep)
+_cache: "OrderedDict[tuple, tuple]" = OrderedDict()
+_stats = {"hits": 0, "misses": 0, "evictions_dead": 0, "evictions_capacity": 0}
+
+
+def cache_stats() -> dict:
+    """Hit / miss / eviction counters since process start (or
+    :func:`clear_cache`), plus the number of live ``entries``."""
+    with _CACHE_LOCK:
+        return dict(_stats, entries=len(_cache))
+
+
+def clear_cache() -> None:
+    with _CACHE_LOCK:
+        _cache.clear()
+        for k in _stats:
+            _stats[k] = 0
+
+
+def _live(ent, tensors) -> bool:
+    return ent is not None and all(r() is t for r, t in zip(ent[0], tensors))
+
+
+def cached_build(kind: str, tensors: tuple, skey: tuple, build):
+    """``build()``'s result, cached on the identity of ``tensors`` (held
+    by weak reference) and the static key ``skey``.  An entry whose
+    tensors died is dropped at the next miss; at most ``_CACHE_MAX``
+    entries are kept (oldest first out)."""
+    key = (kind, skey, tuple(id(t) for t in tensors))
+    with _CACHE_LOCK:
+        ent = _cache.get(key)
+        if _live(ent, tensors):
+            _cache.move_to_end(key)
+            _stats["hits"] += 1
+            return ent[1]
+        if ent is not None:  # the id was recycled onto a new tensor
+            del _cache[key]
+            _stats["evictions_dead"] += 1
+        dead = [k for k, e in _cache.items() if any(r() is None for r in e[0])]
+        for k in dead:
+            del _cache[k]
+        _stats["evictions_dead"] += len(dead)
+    prep = build()
+    with _CACHE_LOCK:
+        _stats["misses"] += 1
+        _cache[key] = (tuple(weakref.ref(t) for t in tensors), prep)
+        while len(_cache) > _CACHE_MAX:
+            _cache.popitem(last=False)
+            _stats["evictions_capacity"] += 1
+    return prep
+
+
+def for_seq(S: int, obs: torch.Tensor, length: int, *, lane_T: int, first: bool = True,
+            onehot: bool = True, prev_sym: Optional[int] = None) -> PreparedSeq:
+    """Cached :func:`prepare_seq`, keyed on the placed ``obs``."""
+    skey = (S, int(length), int(lane_T), bool(first), bool(onehot),
+            None if prev_sym is None else int(prev_sym), tuple(obs.shape), str(obs.dtype))
+    return cached_build("seq", (obs,), skey, lambda: prepare_seq(
+        S, obs, int(length), lane_T=lane_T, first=first, prev_sym=prev_sym, onehot=onehot))

@@ -3,8 +3,8 @@
 Counterpart of ``cpgisland_tpu/parallel/posterior.py``, for one device:
 per-position island confidence P(position in island | whole record) and
 the max-posterior-marginal path, through ``ops.fb_seq`` on the reduced
-one-hot engine (kernels B7 and B4) or the dense one (B17, B16 and B18,
-or B19 for the confidence alone).  The JAX package shards a
+one-hot engine (kernels B7 and B4, or B8 with ``one_pass``) or the dense
+one (B17, B16 and B18, or B19 for the confidence alone).  The JAX package shards a
 record over a mesh; here the mesh has one member, so the cross-device
 exchange is the identity.  Span threading across calls (``enter_dir`` /
 ``exit_dir``) is driven by ``pipeline.posterior_file``.
@@ -122,7 +122,8 @@ def posterior_sharded(params: HmmParams, obs, island_states, *, engine: str = "a
                       lane_T: Optional[int] = None, enter_dir=None, exit_dir=None,
                       first: bool = True, want_path: bool = False, placed=None,
                       prev_sym: Optional[int] = None,
-                      prepared: Optional[PreparedSeq] = None, return_device: bool = False):
+                      prepared: Optional[PreparedSeq] = None, return_device: bool = False,
+                      one_pass: Optional[bool] = None):
     """Island confidence (and optionally the MPM path) of one sequence on
     the params' device.  Returns host arrays (conf [T] f32, path [T] int8 —
     state ids, a quarter of an int32 download — or None), or the same as
@@ -134,8 +135,10 @@ def posterior_sharded(params: HmmParams, obs, island_states, *, engine: str = "a
     geometry then wins.  ``enter_dir`` / ``exit_dir`` ([K] directions)
     thread span-boundary messages; continuation spans (``first=False``)
     on the reduced engine need ``prev_sym``.  On the reduced engine the
-    fused two-pass arm runs (the JAX package's default); its split arm
-    (B9-B12) and one-pass arm (B8) are not ported."""
+    fused two-pass arm runs (B7, B4); ``one_pass=True`` runs the one-pass
+    arm (B8) instead.  ``one_pass=None`` means False, the JAX package's
+    shipped default (the port has no tuner table, ROADMAP A14); the dense
+    engine ignores it.  The split arm (B9-B12) is not ported."""
     eng = resolve_fb_engine(engine, params)
     ps = _prev_sym_arg(eng, first, prev_sym)
     arr = placed if placed is not None else place_record_span(params, obs)
@@ -143,7 +146,7 @@ def posterior_sharded(params: HmmParams, obs, island_states, *, engine: str = "a
     conf, path = fb_seq.seq_posterior(
         params, arr, T, island_mask(params, island_states),
         enter_dir=enter_dir, exit_dir=exit_dir, first=first, want_path=want_path,
-        lane_T=lane_T, prev_sym=ps, prepared=prepared, engine=eng,
+        lane_T=lane_T, prev_sym=ps, prepared=prepared, engine=eng, one_pass=bool(one_pass),
     )
     conf, path = conf[:T], (path[:T].to(torch.int8) if want_path else None)
     if return_device:

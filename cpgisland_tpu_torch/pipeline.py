@@ -963,13 +963,35 @@ def _write_compare(records, names, baseline: str, out) -> None:
             f.close()
 
 
+def _train_input(training_path: str, params: HmmParams, backend, compat: bool,
+                 chunk_size: int, invalid_symbols: str):
+    """train_file's input: whole FASTA records in power-of-two buckets for
+    ``backend="seq2d"`` (clean mode only: compat mode has no records),
+    else the reference's chunk framing."""
+    if backend == "seq2d":
+        if compat:
+            raise ValueError(
+                "backend 'seq2d' trains per FASTA record; compat mode has no "
+                "records — use compat=False (--clean)"
+            )
+        try:
+            return chunking.bucket_records(
+                (s for _, s in codec.iter_fasta_records(training_path, invalid=invalid_symbols)),
+                pad_value=params.n_symbols,
+            )
+        except ValueError:
+            raise ValueError(f"no sequence records in {training_path}")
+    symbols = codec.encode_file(training_path, skip_headers=not compat, invalid=invalid_symbols)
+    return chunking.frame(symbols, chunk_size, drop_remainder=compat)
+
+
 def train_file(
     training_path: str,
     *,
     params: Optional[HmmParams] = None,
     num_iters: int = 10,
     convergence: float = 0.005,
-    backend: str = "local",
+    backend="local",
     mode: str = "rescaled",
     engine: str = "auto",
     compat: bool = True,
@@ -977,21 +999,26 @@ def train_file(
     model_out: Optional[str] = None,
     symbol_cache: Optional[str] = None,
     invalid_symbols: str = "skip",
+    fuse: Union[bool, str] = "auto",
     device="cuda",
 ) -> baum_welch.FitResult:
     """Train the CpG HMM on a sequence file (the reference's ``trainModel``).
 
     ``params`` (default: the Durbin 8-state preset) moves to ``device``
-    (default "cuda").  ``engine``: auto|xla|pallas|onehot
-    (``train.backends.resolve_fb_engine``: auto takes the reduced kernels
-    for the flagship's family, the dense ones for any other model with
-    K <= 8; "xla" is not ported).  compat mode encodes header lines as bases and drops
-    the remainder chunk, so it trains nothing on a file below
-    ``chunk_size`` symbols; clean mode parses FASTA and pads the last
-    chunk.  ``invalid_symbols`` is the codec's skip/mask/fail policy (clean
-    mode only).  ``model_out``: write the reference's text dump of the
-    trained model.  Symbol caches, and every backend but ``local``, are
-    not ported and raise NotImplementedError."""
+    (default "cuda").  ``backend``: a name or a backend instance
+    (``train.backends``): "local" trains on the reference's chunk framing;
+    "seq" on the whole input as ONE sequence; "seq2d" on every FASTA record
+    as its own whole sequence (clean mode only); "spmd" raises (ROADMAP
+    A9).  ``engine``: auto|xla|pallas|onehot (``train.backends``: auto
+    takes the reduced kernels for the flagship's family, the dense ones for
+    any other model with K <= 8; "xla" is not ported).  ``fuse``: the EM
+    loop, on the device ("auto", "on") or on the host ("off").  compat mode
+    encodes header lines as bases and drops the remainder chunk, so it
+    trains nothing on a file below ``chunk_size`` symbols; clean mode
+    parses FASTA and pads the last chunk.  ``invalid_symbols`` is the
+    codec's skip/mask/fail policy (clean mode only).  ``model_out``: write
+    the reference's text dump of the trained model.  Symbol caches are not
+    ported and raise NotImplementedError."""
     if params is None:
         params = presets.durbin_cpg8()
     if symbol_cache is not None:
@@ -1000,12 +1027,11 @@ def train_file(
     dev = resolve_device(device)
     phases: dict = {}
     with _phase(phases, "encode"):
-        symbols = codec.encode_file(training_path, skip_headers=not compat,
-                                    invalid=invalid_symbols)
-        chunked = chunking.frame(symbols, chunk_size, drop_remainder=compat)
+        chunked = _train_input(training_path, params, backend, compat, chunk_size,
+                               invalid_symbols)
     result = baum_welch.fit(
         params.to(dev), chunked, num_iters=num_iters, convergence=convergence,
-        backend=backend, mode=mode, engine=engine,
+        backend=backend, mode=mode, engine=engine, fuse=fuse,
     )
     result.phases.update(phases)
     if model_out is not None:
@@ -1023,13 +1049,18 @@ def run(
     *,
     compat: bool = True,
     engine: str = "auto",
+    backend="local",
+    mode: str = "rescaled",
+    fuse: Union[bool, str] = "auto",
     device="cuda",
 ) -> DecodeResult:
     """The reference's full ``main()`` from the Durbin preset: train, dump
     the model, decode, write islands (CpGIslandFinder.java:346-357).
     ``engine`` goes to the decode, as in the JAX package; training takes
-    its own "auto" engine."""
+    its own "auto" engine, ``backend``, ``mode`` and ``fuse``
+    (:func:`train_file`)."""
     fit = train_file(training_path, num_iters=num_iters, convergence=convergence,
-                     model_out=model_out, compat=compat, device=device)
+                     model_out=model_out, compat=compat, backend=backend, mode=mode,
+                     fuse=fuse, device=device)
     return decode_file(test_path, fit.params, islands_out=islands_out, compat=compat,
                        engine=engine, device=device)

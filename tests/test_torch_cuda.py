@@ -794,3 +794,65 @@ def test_posterior_device_islands_on_the_card(cuda_device, tmp_path):
                                     span=1 << 15, island_engine=eng, device=dev)
             outs.add((make.__name__, buf.getvalue()))
         assert len([o for o in outs if o[0] == make.__name__]) == 1
+
+
+# -- B8 (the one-pass arm) and whole-sequence training ---------------------------
+
+
+@pytest.mark.parametrize("T", [8, 1237, 8192])
+@pytest.mark.parametrize("NL", [1, 33, 4096])
+def test_fwdbwd_mat_kernel_bit_equal(cuda_device, NL, T):
+    """B8 carries both chains as 2x2 matrices with every product, sum and
+    division a round-to-nearest intrinsic in the plain version's order:
+    bit-equal.  Ragged lane lengths, empty lanes, PAD pairs."""
+    from cpgisland_tpu_torch.ops import fb_onehot as FB
+
+    rng = np.random.default_rng(NL * 7 + T)
+    params = presets.durbin_cpg8(device=cuda_device)
+    pair = rng.integers(0, 16, size=(T, NL)).astype(np.int32)
+    pad = rng.random((T, NL)) < 0.05
+    pair[pad] = 16 + rng.integers(0, 4, size=int(pad.sum()))
+    pairn = np.concatenate([pair[1:], np.full((1, NL), 16, np.int32)])
+    lens = rng.integers(0, T + 1, size=(1, NL)).astype(np.int32)
+    lens[0, 0] = T
+    d = lambda x: torch.from_numpy(x).to(cuda_device)
+    tab = FB.prob_tab_ext(params, OH._groups(params))
+    args = (d(pair), d(pairn), d(lens), tab, T)
+    before = _kernels.launches["oh_fwdbwd_mat"]
+    got = FB.oh_fwdbwd_mat(*args)
+    want = FB.oh_fwdbwd_mat_plain(*args)
+    torch.cuda.synchronize()
+    assert _kernels.launches["oh_fwdbwd_mat"] == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("backend", ["seq", "seq_one_pass", "seq2d"])
+def test_seq_training_cuda_equals_cpu(cuda_device, tmp_path, backend):
+    """Whole-sequence training on the card (the kernels) holds against the
+    plain versions on the CPU (logliks rtol 1e-5, probabilities atol
+    1e-5), and the device loop equals the host loop bit for bit there."""
+    from cpgisland_tpu_torch.train.backends import SeqBackend
+
+    rng = np.random.default_rng(8)
+    p = tmp_path / "t.fa"
+    with open(p, "w") as f:
+        for r, n in enumerate((70_000, 9_000)):
+            s = rng.choice(4, size=n, p=[0.3, 0.2, 0.2, 0.3])
+            s[5000:7000] = rng.choice(4, size=2000, p=[0.15, 0.35, 0.35, 0.15])
+            f.write(f">r{r}\n" + "".join("ACGT"[x] for x in s) + "\n")
+    make = {"seq": lambda: "seq", "seq_one_pass": lambda: SeqBackend(one_pass=True),
+            "seq2d": lambda: "seq2d"}[backend]
+    fits = {(dev, fuse): pipeline.train_file(str(p), compat=False, num_iters=3,
+                                              convergence=0.0, backend=make(), fuse=fuse,
+                                              device=dev)
+            for dev, fuse in (("cpu", "on"), ("cuda", "on"), ("cuda", "off"))}
+    a, b, c = fits["cpu", "on"], fits["cuda", "on"], fits["cuda", "off"]
+    assert a.iterations == b.iterations == 3
+    np.testing.assert_allclose(a.logliks, b.logliks, rtol=1e-5)
+    for x, y in ((a.params.pi, b.params.pi), (a.params.A, b.params.A),
+                 (a.params.B, b.params.B)):
+        np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(), atol=1e-5)
+    assert b.logliks == c.logliks and b.deltas == c.deltas
+    assert all(torch.equal(x, y) for x, y in ((b.params.log_A, c.params.log_A),
+                                              (b.params.log_B, c.params.log_B),
+                                              (b.params.log_pi, c.params.log_pi)))

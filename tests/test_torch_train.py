@@ -130,9 +130,11 @@ def test_resolve_fb_engine_and_backends():
     with pytest.raises(ValueError):
         TBE.resolve_fb_engine("bogus", tp, "rescaled")
     assert isinstance(TBE.get_backend("local"), TBE.LocalBackend)
-    for name in ("spmd", "seq", "seq2d"):
-        with pytest.raises(NotImplementedError):
-            TBE.get_backend(name)
+    # The whole-sequence backends are ported; multi-device training is not.
+    assert isinstance(TBE.get_backend("seq"), TBE.SeqBackend)
+    assert isinstance(TBE.get_backend("seq2d"), TBE.Seq2DBackend)
+    with pytest.raises(NotImplementedError, match="A9"):
+        TBE.get_backend("spmd")
 
 
 # -- fit -------------------------------------------------------------------------
@@ -166,12 +168,14 @@ def test_fit_trajectory_matches_jax(rng):
 def test_fit_refuses_unported_options(rng):
     _, tp = _both()
     _, tc = _chunked(rng, N=3, T=64)
-    for kw in ({"fuse": True}, {"checkpoint_dir": "x"}, {"callback": print},
+    for kw in ({"checkpoint_dir": "x"}, {"callback": print},
                {"fallback_backend": TBE.LocalBackend()}, {"start_iteration": 2}):
         with pytest.raises(NotImplementedError):
             TBW.fit(tp, tc, num_iters=1, **kw)
     with pytest.raises(ValueError):
         TBW.fit(tp, tc, num_iters=1, fuse="sometimes")
+    # The device loop (fuse=True) is ported: it runs, as "off" does.
+    assert TBW.fit(tp, tc, num_iters=1, fuse=True).iterations == 1
     assert TBW.fit(tp, tc, num_iters=1, fuse="off").iterations == 1
 
 
