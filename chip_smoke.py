@@ -113,24 +113,45 @@ JSON line each:
 25. whole-sequence training: ``train_file`` clean, 5 iterations,
    convergence 0, with backend "seq" (flagship: B7, B4, B5 exactly 5
    each, no B8), ``SeqBackend(one_pass=True)`` (B8 and B5 exactly 5, no
-   B7 or B4), "seq" with two_state (B17, B16, B18 exactly 5) and "seq2d"
-   (the records one by one): EM Msym/s, phases, peak device memory,
+   B7 or B4), "seq" with two_state (B17, B16, B18 exactly 5), "seq2d"
+   (the records one by one) and ``SeqBackend(fuse_fb=False)`` (B7, B9,
+   B10, B5 exactly 5 each, no B4): EM Msym/s, phases, peak device memory,
    logliks non-decreasing, the one-pass trajectory within the JAX
-   one-pass tests' bound of the two-pass one;
+   one-pass tests' bound of the two-pass one, the split one within rtol
+   1e-5 of it;
 26. the device EM loop: seq and local runs with ``fuse="on"`` and "off"
    bit-equal, a real convergence threshold stopping both loops at one
    iteration, the host loop's blocking reads counted (0 in the device
    loop), and each loop's idle share and synchronizing CUDA calls over 5
-   iterations (none in the device loop);
+   iterations, seq and local on both arms, fused and split (none in the
+   device loop);
 27. a small FASTA trained by seq and seq2d on the CPU and on the card:
    dumps compared byte for byte, held within atol 1e-5;
 28. ``posterior_sharded(one_pass=True)`` on the 64 Mi record against the
    two-pass arm: confidence within atol 2e-5, MPM positions differing
    counted, both timed (B8 once, no B7 or B4);
 29. peak device bytes per symbol of one seq E-step at 16 Mi and 64 Mi
-   symbols (two-pass, one-pass, dense K = 8) against
+   symbols (two-pass, one-pass, split, dense K = 8) against
    ``SEQ_BYTES_PER_SYMBOL``, and one seq E-step of the genome at lane_T
-   4096, 8192 and 16384.
+   4096, 8192 and 16384;
+30. the split arm's kernels: B9, B10 and B12 at NL=1024 x Tp=65,536
+   (ragged, as B4 / B5), B22 and B23 there at M = 2 and 5, B9, B10 and
+   B11 at 8192 x 8192 on the genome's 64 Mi record — B9-B11, B22 and B23
+   bit-equal to their plain versions (B9 also to B4's alphas, B22 / B23
+   per member to B9 / B10), B12 within rtol 1e-5 / atol 1e-3;
+31. ``train_file`` with ``LocalBackend(fuse_fb=False)``, compat then
+   clean (B9, B10, B12 exactly 5 each per mode, B4 and B5 never), the
+   logliks within rtol 1e-5 of phase 4's;
+32. the split posterior: ``posterior_sharded(fused=False)`` on the 64 Mi
+   record (B7, B9, B11 once; with the path B7, B9, B10), a continuation
+   span, and ``batch_posterior`` over 256 short records, each against the
+   fused arm (confidence within atol 2e-5, MPM paths equal, exact launch
+   counts), the one-span posterior timed both ways;
+33. ``fit_family`` with ``FamilyEStep(fuse_fb=False)`` (one B22, one B23
+   and 3 B12 an iteration, logliks within rtol 1e-5 of the fused fit, the
+   stacked split E-step equal to the sequential one bit for bit) and
+   ``posterior_sharded_stacked(fused=False)`` (B21, B22, B23 once each)
+   equal to its members' own split posteriors bit for bit.
 
 Phase 2 also holds B6 (the score-threading backpointer kernel) bit for bit
 against its plain version on B2's flat stream, with B2's outputs equal to
@@ -206,6 +227,15 @@ KERNELS = {
                      "cpgisland_tpu_torch/csrc/fb_onehot.cu"),
     "oh_fwdbwd_mat": ("cpgisland_tpu/ops/fb_onehot.py:347",
                       "cpgisland_tpu_torch/csrc/fb_onehot.cu"),
+    "oh_fwd": ("cpgisland_tpu/ops/fb_onehot.py:188", "cpgisland_tpu_torch/csrc/fb_onehot.cu"),
+    "oh_bwd": ("cpgisland_tpu/ops/fb_onehot.py:221", "cpgisland_tpu_torch/csrc/fb_onehot.cu"),
+    "oh_bwd_conf": ("cpgisland_tpu/ops/fb_onehot.py:492",
+                    "cpgisland_tpu_torch/csrc/fb_onehot.cu"),
+    "oh_stats": ("cpgisland_tpu/ops/fb_onehot.py:572", "cpgisland_tpu_torch/csrc/fb_onehot.cu"),
+    "oh_fwd_stacked": ("cpgisland_tpu/ops/fb_onehot.py:1823",
+                       "cpgisland_tpu_torch/csrc/fb_onehot.cu"),
+    "oh_bwd_stacked": ("cpgisland_tpu/ops/fb_onehot.py:1871",
+                       "cpgisland_tpu_torch/csrc/fb_onehot.cu"),
     "dense_products": ("cpgisland_tpu/ops/viterbi_pallas.py:118",
                        "cpgisland_tpu_torch/csrc/viterbi_dense.cu"),
     "dense_backpointers": ("cpgisland_tpu/ops/viterbi_pallas.py:156",
@@ -253,6 +283,18 @@ DENSE_SEQ_KERNELS = ("fb_prod", "fb_fwd", "fb_bwd")
 # The JAX one-pass tests' bound (tests/test_one_pass.py): loglik rel 1e-5,
 # the trained model within atol 1e-5.
 ONE_PASS_LL_RTOL, MODEL_ATOL = 1e-5, 1e-5
+# The split arm (fused=False): its chunked E-step, its whole-sequence
+# E-step, and the fused arm's kernels it must never launch.
+SPLIT_TRAIN_KERNELS = ("oh_fwd", "oh_bwd", "oh_stats")
+SPLIT_SEQ_KERNELS = ("oh_prod", "oh_fwd", "oh_bwd", "oh_seq_stats")
+FUSED_CHAINS = ("oh_fwdbwd", "oh_fwdbwd_stacked", "oh_fwdbwd_mat")
+SPLIT_STACK_M = (2, 5)
+# The split arm's bounds against the fused arm (tests/test_passfusion.py):
+# confidence atol 2e-5, logliks rtol 1e-5, MPM paths equal.
+SPLIT_CONF_ATOL, SPLIT_LL_RTOL = 2e-5, 1e-5
+# compare's casts run on the big record's first COMPARE_SYMBOLS plus
+# COMPARE_SCAFFOLDS scaffolds (the genome's 257 records cost ~170 s).
+COMPARE_SYMBOLS, COMPARE_SCAFFOLDS = 8 << 20, 16
 
 
 _START = time.perf_counter()
@@ -624,11 +666,11 @@ def main_path_phase(rng: np.random.Generator, params, tmp: str, dev):
 
 def train_phase(params, fa: str, dev, kernels=TRAIN_KERNELS, absent=DENSE_TRAIN_KERNELS,
                 engine: str = "auto", modes=(("compat", True), ("clean", False)),
-                model: str = "durbin8"):
+                model: str = "durbin8", backend="local"):
     """train_file in each mode, TRAIN_ITERS iterations with convergence 0
-    (fixed work): each of ``kernels`` must launch once per iteration and
-    none of ``absent``.  Returns (launches over the modes, logliks by
-    mode)."""
+    (fixed work), through ``backend`` (a name or an instance): each of
+    ``kernels`` must launch once per iteration and none of ``absent``.
+    Returns (launches over the modes, logliks by mode)."""
     launches = {k: 0 for k in kernels}
     logliks = {}
     for label, compat in modes:
@@ -639,7 +681,7 @@ def train_phase(params, fa: str, dev, kernels=TRAIN_KERNELS, absent=DENSE_TRAIN_
         _kernels.reset_launches()
         t0 = time.perf_counter()
         res = pipeline.train_file(fa, params=params, num_iters=TRAIN_ITERS, convergence=0.0,
-                                  compat=compat, engine=engine, device=dev)
+                                  compat=compat, engine=engine, backend=backend, device=dev)
         wall = time.perf_counter() - t0
         counts = {k: _kernels.launches[k] for k in kernels + absent}
         ll = res.logliks
@@ -1662,8 +1704,21 @@ def check_comparison(res, label: str) -> None:
                          f"or no winner-track islands ({calls})")
 
 
+def compare_fasta(rng: np.random.Generator, tmp: str, big: np.ndarray) -> str:
+    """compare's input: the big record's first COMPARE_SYMBOLS symbols
+    (N-led, as in the genome) plus COMPARE_SCAFFOLDS scaffolds drawn as the
+    genome's are."""
+    path = os.path.join(tmp, "compare.fa")
+    with open(path, "wb") as f:
+        f.write(to_fasta_bytes(rng, "chr1", big[:COMPARE_SYMBOLS], lead_n=BIG_LEAD_N))
+        sizes = np.exp(rng.uniform(np.log(2 << 10), np.log(512 << 10), size=COMPARE_SCAFFOLDS))
+        for i, m in enumerate(sizes.astype(np.int64)):
+            f.write(to_fasta_bytes(rng, f"scaffold{i}", make_sequence(rng, int(m))))
+    return path
+
+
 def compare_phase(fa: str, tmp: str, dev, casts: list) -> dict:
-    """compare_file over the genome for each cast; a run with a stacked
+    """compare_file over ``fa`` (compare_fasta's) for each cast; a run with a stacked
     group launches B21 and B24 (and no B7 or B4: every reduced member of
     these casts is grouped), any other run B7 and B4 and no stacked kernel,
     every run both scoring kernels, and the stacked and sequential reports
@@ -2058,6 +2113,8 @@ def seq_train_phase(fa: str, dev) -> tuple:
          ("oh_prod", "oh_fwdbwd")),
         ("seq_two_state", two, "seq", DENSE_SEQ_KERNELS, SEQ_KERNELS + ("oh_fwdbwd_mat",)),
         ("seq2d", flagship, "seq2d", ("oh_fwdbwd", "oh_seq_stats"), ("oh_fwdbwd_mat",)),
+        ("seq_split", flagship, SeqBackend(fuse_fb=False), SPLIT_SEQ_KERNELS,
+         FUSED_CHAINS + ("oh_stats",)),
     )
     symbols = int(codec.encode_file(fa, skip_headers=True).size)
     launches, results = {}, {}
@@ -2083,7 +2140,7 @@ def seq_train_phase(fa: str, dev) -> tuple:
         })
         ok_counts = (all(counts.get(k, 0) >= TRAIN_ITERS for k in kernels)
                      and not any(counts.get(k, 0) for k in absent))
-        if label in ("seq", "seq_one_pass", "seq_two_state"):
+        if label in ("seq", "seq_one_pass", "seq_two_state", "seq_split"):
             ok_counts = ok_counts and all(counts.get(k, 0) == TRAIN_ITERS for k in kernels)
         if res.iterations != TRAIN_ITERS or not ok_counts:
             raise SystemExit(f"chip_smoke: {label} training launched {counts}; want "
@@ -2101,6 +2158,12 @@ def seq_train_phase(fa: str, dev) -> tuple:
         "max_prob_err": err, "ok": bool(ll_ok and model_ok)})
     if not (ll_ok and model_ok):
         raise SystemExit("chip_smoke: the one-pass trajectory leaves the two-pass one")
+    split = results["seq_split"]
+    rel = float(np.max(np.abs(np.subtract(split.logliks, two_pass.logliks))
+                       / np.abs(two_pass.logliks)))
+    emit({"phase": "seq_split_vs_fused", "max_ll_rel": rel})
+    if rel > SPLIT_LL_RTOL:
+        raise SystemExit("chip_smoke: the split seq trajectory leaves the fused one")
     return launches, results
 
 
@@ -2164,7 +2227,9 @@ def em_loop_phase(fa: str, dev, seq_results: dict) -> None:
     from cpgisland_tpu_torch.train.backends import SeqBackend
 
     chunked = chunking.frame(codec.encode_file(fa, skip_headers=True), chunking.TRAIN_CHUNK)
-    for label, backend in (("seq", SeqBackend()), ("local", LocalBackend())):
+    for label, backend in (("seq", SeqBackend()), ("local", LocalBackend()),
+                           ("seq_split", SeqBackend(fuse_fb=False)),
+                           ("local_split", LocalBackend(fuse_fb=False))):
         prepared_in = backend.prepare(chunked)
         chunks, lengths = backend.place(prepared_in, dev)
         prep = backend.prepare_streams(params, chunks, lengths)
@@ -2267,16 +2332,17 @@ def budget_lane_phase(big: np.ndarray, fa: str, dev) -> None:
     worst = 0.0
     for n in (16 << 20, 64 << 20):
         obs = torch.from_numpy(big[:n]).to(dev)
-        for label, engine, one_pass in (("two_pass", "onehot", False),
-                                        ("one_pass", "onehot", True),
-                                        ("dense_k8", "pallas", False)):
+        for label, engine, one_pass, fused in (("two_pass", "onehot", False, True),
+                                               ("one_pass", "onehot", True, True),
+                                               ("split", "onehot", False, False),
+                                               ("dense_k8", "pallas", False, True)):
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
             lane_T = fb_seq.pick_lane_T(n)
             prep = prep_seq(4, obs, n, lane_T=lane_T, onehot=engine == "onehot")
             st = fb_seq.seq_stats(params, obs, n, lane_T=lane_T, engine=engine,
-                                  prepared=prep, one_pass=one_pass)
+                                  prepared=prep, one_pass=one_pass, fused=fused)
             torch.cuda.synchronize()
             per = (torch.cuda.max_memory_allocated() - base) / n
             worst = max(worst, per)
@@ -2301,6 +2367,345 @@ def budget_lane_phase(big: np.ndarray, fa: str, dev) -> None:
         ms = time_ms(lambda: backend(params, chunks, lengths, prepared=prep), runs=5)
         times.setdefault(lane_T, []).append(ms)
     emit({"phase": "seq_lane_T", "symbols": chunked.total, "estep_ms": times})
+
+
+# ---------------------------------------------------------------------------
+# Phases 30-33: the split arm (fused=False): B9-B12, B22 and B23
+
+
+def _bit_row(name, got, want, kernel_fn, plain_ms, n_bytes, n_ops, steps, **extra) -> dict:
+    """kernel_row for a kernel that must equal its plain version bit for
+    bit; fails the run otherwise."""
+    equal = torch.equal(got, want)
+    row = kernel_row(name, equal, max_abs_err(got, want), kernel_fn, plain_ms, n_bytes, n_ops,
+                     steps, bit_equal=equal, **extra)
+    if not equal:
+        raise SystemExit(f"chip_smoke: {name} disagrees with its plain version "
+                         f"({extra.get('geometry', 'train')})")
+    return row
+
+
+def split_kernel_phase(rng: np.random.Generator, gen: torch.Generator, params, big: np.ndarray,
+                       dev) -> dict:
+    """The split arm's kernels at the main paths' shapes: B9, B10 and B12 at
+    the training geometry (FB_NL x FB_TP, ragged as B4 / B5), B22 and B23
+    there for M in SPLIT_STACK_M, and B9, B10 and B11 at 8192 x 8192 on the
+    genome's 64 Mi record.  B9-B11, B22 and B23 bit-equal to their plain
+    versions (B9 also to B4's alphas; B22 and B23 per member to B9 and
+    B10), B12 within rtol 1e-5 / atol 1e-3.  Returns the table rows: the
+    training geometry's (stacked: M = 2), B11 at the posterior's."""
+    K, S = params.n_states, params.n_symbols
+    gt = OH._groups(params)
+    tab = FB.prob_tab_ext(params, gt)
+    tab_b = tab.numel() * 4
+    results = {}
+
+    chunks, lengths = ragged_chunks(rng, S)
+    prep = prepare_chunked(S, torch.from_numpy(chunks).to(dev),
+                           torch.from_numpy(lengths).to(dev), t_tile=fb_chunked.DEFAULT_T_TILE)
+    _, a0_raw, beta0, _ = fb_chunked._batch_lane_setup(params, prep)
+    a0 = torch.gather(a0_raw.T, 1, gt[prep.esym2[0].long()]).T.contiguous()
+    b0 = torch.gather(beta0.T, 1, gt[prep.esym2[-1].long()]).T.contiguous()
+    Tp, NL = prep.pair2.shape
+    n = Tp * NL
+    f_args = (prep.pair2, prep.lens2, a0, tab)
+    al = FB.oh_fwd(*f_args)
+    al_p, plain_ms = timed_once(lambda: FB.oh_fwd_plain(*f_args))
+    al4, _ = FB.oh_fwdbwd(prep.pair2, prep.pairn2, prep.lens2, a0, b0, tab, FB_TP)
+    same_as_b4 = torch.equal(al, al4)
+    del al4
+    results["oh_fwd"] = _bit_row(
+        "oh_fwd", al, al_p, lambda: FB.oh_fwd(*f_args), plain_ms,
+        # the pairs read, the alphas written; per step 4 multiplies, 3 adds,
+        # a division and 2 scaling multiplies
+        4 * n + 8 * n + 4 * NL + 8 * NL + tab_b, 10 * n, n, equals_b4_alphas=same_as_b4)
+    del al_p
+    if not same_as_b4:
+        raise SystemExit("chip_smoke: oh_fwd's alphas differ from oh_fwdbwd's")
+    cs_next = FB.cs_next_of(al)
+    b_args = (prep.pairn2, prep.lens2, cs_next, b0, tab, FB_TP)
+    be = FB.oh_bwd(*b_args)
+    be_p, plain_ms = timed_once(lambda: FB.oh_bwd_plain(*b_args))
+    results["oh_bwd"] = _bit_row(
+        "oh_bwd", be, be_p, lambda: FB.oh_bwd(*b_args), plain_ms,
+        # pairn + cs_next read, the betas written; per step 6 multiplies, 2
+        # adds and a division
+        8 * n + 8 * n + 4 * NL + 8 * NL + tab_b, 9 * n, n)
+    del be_p
+    assert not torch.backends.cuda.matmul.allow_tf32
+    st_args = (al, be, prep.pair2, prep.lens2, FB.reduced_emissions(params, gt),
+               gt.to(torch.int32).contiguous())
+    got = FB.oh_stats(*st_args, prep.Tt)
+    want, plain_ms = timed_once(lambda: FB.oh_stats_plain(*st_args))
+    agree = all(torch.allclose(g, w, rtol=1e-5, atol=1e-3) for g, w in zip(got, want))
+    err = max(max_abs_err(g, w) for g, w in zip(got, want))
+    del want
+    valid = int(np.minimum(lengths, Tp).sum())  # B12 reads valid steps only
+    results["oh_stats"] = kernel_row(
+        "oh_stats", agree, err, lambda: FB.oh_stats(*st_args, prep.Tt), plain_ms,
+        n_bytes=20 * valid + 4 * NL + (K * K + 2 * S + 1) * NL * 4,
+        n_ops=26 * valid, steps=valid, tolerance="rtol 1e-5, atol 1e-3",
+    )
+    if not agree:
+        raise SystemExit("chip_smoke: oh_stats disagrees with its plain version")
+    del al, be, cs_next, got, st_args
+
+    for M in SPLIT_STACK_M:
+        members = family_members(gen, dev, S, M)
+        _, tabs = FB.stacked_tables(members)
+        one = lambda m: tabs[m].contiguous()  # noqa: E731
+        rand = lambda: torch.from_numpy(  # noqa: E731
+            rng.random((M, 2, NL)).astype(np.float32) + 0.01).to(dev)
+        a0s, b0s = rand(), rand()
+        f_args = (prep.pair2, prep.lens2, a0s, tabs)
+        al = FB.oh_fwd_stacked(*f_args)
+        al_p, plain_ms = timed_once(lambda: FB.oh_fwd_stacked_plain(*f_args))
+        per = all(torch.equal(FB.oh_fwd(prep.pair2, prep.lens2, a0s[m], one(m)), al[m])
+                  for m in range(M))
+        single_ms = time_ms(lambda: FB.oh_fwd(prep.pair2, prep.lens2, a0s[0], one(0)), runs=10)
+        f_row = _stacked_row(
+            "oh_fwd_stacked", S, M, "train", [al], [al_p], per,
+            lambda: FB.oh_fwd_stacked(*f_args), plain_ms, single_ms,
+            # the shared pairs read once, M x the alphas written
+            4 * n + M * (8 * n + 8 * NL + tab_b) + 4 * NL, M * 10 * n, n)
+        del al_p
+        cs = FB.cs_next_of(al)
+        b_args = (prep.pairn2, prep.lens2, cs, b0s, tabs, FB_TP)
+        be = FB.oh_bwd_stacked(*b_args)
+        be_p, plain_ms = timed_once(lambda: FB.oh_bwd_stacked_plain(*b_args))
+        per = all(torch.equal(FB.oh_bwd(prep.pairn2, prep.lens2, cs[m], b0s[m], one(m), FB_TP),
+                              be[m]) for m in range(M))
+        single_ms = time_ms(lambda: FB.oh_bwd(prep.pairn2, prep.lens2, cs[0], b0s[0], one(0),
+                                              FB_TP), runs=10)
+        b_row = _stacked_row(
+            "oh_bwd_stacked", S, M, "train", [be], [be_p], per,
+            lambda: FB.oh_bwd_stacked(*b_args), plain_ms, single_ms,
+            # the shared pairn once, M x (cs_next read, the betas written)
+            4 * n + M * (12 * n + 8 * NL + tab_b) + 4 * NL, M * 9 * n, n)
+        del al, be, be_p, cs
+        if M == 2:
+            results |= {"oh_fwd_stacked": f_row, "oh_bwd_stacked": b_row}
+    del prep
+    torch.cuda.empty_cache()
+
+    T = POST_NL * POST_LANE_T
+    post = prepare_seq(S, torch.from_numpy(big[:T]).to(dev), T, lane_T=POST_LANE_T)
+    lens2 = post.lane_lens[None, :].contiguous()
+    v = lambda: torch.from_numpy(  # noqa: E731
+        rng.random((2, POST_NL)).astype(np.float32) + 0.01).to(dev)
+    a0, b0 = v(), v()
+    geo = "genome 64 Mi record, 8192 x 8192"
+    f_args = (post.pair2, lens2, a0, tab)
+    al = FB.oh_fwd(*f_args)
+    al_p, plain_ms = timed_once(lambda: FB.oh_fwd_plain(*f_args))
+    _bit_row("oh_fwd", al, al_p, lambda: FB.oh_fwd(*f_args), plain_ms,
+             12 * T + 12 * POST_NL + tab_b, 10 * T, T, geometry=geo)
+    del al_p
+    cs_next = FB.cs_next_of(al)
+    b_args = (post.pairn2, lens2, cs_next, b0, tab, POST_LANE_T)
+    be = FB.oh_bwd(*b_args)
+    be_p, plain_ms = timed_once(lambda: FB.oh_bwd_plain(*b_args))
+    _bit_row("oh_bwd", be, be_p, lambda: FB.oh_bwd(*b_args), plain_ms,
+             16 * T + 12 * POST_NL + tab_b, 9 * T, T, geometry=geo)
+    del be, be_p
+    mask = torch.zeros(K, dtype=torch.float32, device=dev)
+    mask[list(ISLAND_STATES)] = 1.0
+    c_args = (post.pairn2, post.pair2, lens2, cs_next, b0, al, mask[gt].contiguous(), tab,
+              POST_LANE_T)
+    conf = FB.oh_bwd_conf(*c_args)
+    conf_p, plain_ms = timed_once(lambda: FB.oh_bwd_conf_plain(*c_args))
+    results["oh_bwd_conf"] = _bit_row(
+        "oh_bwd_conf", conf, conf_p, lambda: FB.oh_bwd_conf(*c_args), plain_ms,
+        # pairn, pairs, cs_next and alphas read, the confidence written; per
+        # step B10's 9 operations and the confidence's 8
+        20 * T + 4 * T + 12 * POST_NL + tab_b + 8 * S, 17 * T, T, geometry=geo)
+    del al, cs_next, conf, conf_p, post
+    torch.cuda.empty_cache()
+    return results
+
+
+def split_train_phase(params, fa: str, dev, fused_logliks: dict) -> dict:
+    """train_file through LocalBackend(fuse_fb=False), compat then clean:
+    B9, B10 and B12 exactly TRAIN_ITERS each per mode, B4 and B5 never, and
+    each loglik within SPLIT_LL_RTOL of phase 4's fused run.  Returns the
+    launch counts."""
+    launches, logliks = train_phase(params, fa, dev, kernels=SPLIT_TRAIN_KERNELS,
+                                    absent=TRAIN_KERNELS + DENSE_TRAIN_KERNELS,
+                                    backend=LocalBackend(fuse_fb=False), model="durbin8 split")
+    rel = max(float(np.max(np.abs(np.subtract(logliks[m], fused_logliks[m]))
+                           / np.abs(fused_logliks[m]))) for m in logliks)
+    emit({"phase": "split_vs_fused_train", "max_ll_rel": rel})
+    if rel > SPLIT_LL_RTOL:
+        raise SystemExit("chip_smoke: the split chunked trajectory leaves the fused one")
+    return launches
+
+
+def _posterior_runs(label, fn, arms, checks) -> dict:
+    """Run ``fn(fused)`` for each arm of ``arms`` (fused, split, split,
+    fused: the turns a comparison takes), counting launches and wall; the
+    split arm's launches must equal ``checks``.  Returns {fused: (conf,
+    path, walls, launches)}."""
+    out = {}
+    for fused in arms:
+        _kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        conf, path = fn(fused)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: v for k, v in _kernels.launches.items() if v}
+        prev = out.setdefault(fused, (conf, path, [], counts))
+        prev[2].append(wall)
+    c_f, p_f, t_f, n_f = out[True]
+    c_s, p_s, t_s, n_s = out[False]
+    to_np = lambda x: x.cpu().numpy() if isinstance(x, torch.Tensor) else x  # noqa: E731
+    err = float(np.abs(to_np(c_s).astype(np.float64) - to_np(c_f)).max())
+    paths_equal = p_f is None or bool(np.array_equal(to_np(p_s), to_np(p_f)))
+    emit({"phase": "split_posterior", "run": label, "max_conf_err": err,
+          "paths_equal": paths_equal, "wall_s_fused": t_f, "wall_s_split": t_s,
+          "launches_fused": n_f, "launches_split": n_s})
+    if err > SPLIT_CONF_ATOL or not paths_equal or n_s != checks:
+        raise SystemExit(f"chip_smoke: the split posterior ({label}) leaves the fused one or "
+                         f"launched {n_s}, not {checks}")
+    return out
+
+
+def split_posterior_phase(params, big: np.ndarray, dev) -> dict:
+    """posterior_sharded(fused=False) on the 64 Mi record (B7, B9 and B11;
+    with the path B7, B9 and B10), a continuation span of 16 Mi with
+    threaded directions and prev_sym, and fb_seq.batch_posterior over 256
+    small records one per lane (B9 and B11, or B9 and B10): exact launch
+    counts, confidence within SPLIT_CONF_ATOL of the fused arm, MPM paths
+    equal; the one-span posterior timed on the card both ways.  Returns
+    the split runs' launch counts."""
+    from cpgisland_tpu_torch.parallel.posterior import place_record_span
+
+    S, K = params.n_symbols, params.n_states
+    arms = (True, False, False, True)
+    launches: dict = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    T = POST_NL * POST_LANE_T
+    obs = big[:T]
+    placed = place_record_span(params, obs)
+    for want_path in (False, True):
+        want = {"oh_prod": 1, "oh_fwd": 1, ("oh_bwd" if want_path else "oh_bwd_conf"): 1}
+        out = _posterior_runs(
+            f"64 Mi record, path={want_path}",
+            lambda fused: posterior_sharded(params, obs, ISLAND_STATES, want_path=want_path,
+                                            placed=placed, fused=fused),
+            arms, want)
+        add(out[False][3])
+    mask = np.zeros(K, np.float32)
+    mask[list(ISLAND_STATES)] = 1.0
+    ms = {fused: time_ms(lambda: fb_seq.seq_posterior(params, placed, T, mask,
+                                                      lane_T=POST_LANE_T, fused=fused), runs=5)
+          for fused in arms}
+    emit({"phase": "split_posterior_device_ms", "symbols": T, "fused_ms": ms[True],
+          "split_ms": ms[False], "split_minus_fused_ms": ms[False] - ms[True]})
+    del placed
+
+    span = T // 4  # 16 Mi: the second of the record's four spans at a 16 Mi span
+    piece = big[span : 2 * span]
+    prev = int(big[span - 1])
+    rng = np.random.default_rng(int(piece[:64].sum()))
+    enter = np.zeros(K, np.float32)
+    enter[[prev, prev + S]] = rng.random(2) + 0.1
+    last = int(piece[-1])
+    exit_ = np.zeros(K, np.float32)
+    exit_[[last, last + S]] = rng.random(2) + 0.1
+    out = _posterior_runs(
+        "16 Mi continuation span",
+        lambda fused: posterior_sharded(params, piece, ISLAND_STATES, want_path=True,
+                                        first=False, enter_dir=enter, exit_dir=exit_,
+                                        prev_sym=prev, fused=fused),
+        arms, {"oh_prod": 1, "oh_fwd": 1, "oh_bwd": 1})
+    add(out[False][3])
+
+    N, Tb = N_SCAFFOLDS, 1 << 16
+    starts = rng.integers(0, big.size - Tb, size=N)
+    lengths = rng.integers(2 << 10, Tb + 1, size=N).astype(np.int32)
+    chunks = np.stack([big[a : a + Tb] for a in starts])
+    chunks[np.arange(Tb)[None, :] >= lengths[:, None]] = S
+    ch, ln = torch.from_numpy(chunks).to(dev), torch.from_numpy(lengths).to(dev)
+    for want_path in (False, True):
+        out = _posterior_runs(
+            f"batch of {N} records, path={want_path}",
+            lambda fused: fb_seq.batch_posterior(params, ch, ln, mask, want_path=want_path,
+                                                 fused=fused),
+            arms, {"oh_fwd": 1, ("oh_bwd" if want_path else "oh_bwd_conf"): 1})
+        add(out[False][3])
+    return launches
+
+
+def split_family_phase(gen: torch.Generator, fa: str, big: np.ndarray, dev) -> dict:
+    """fit_family with FamilyEStep(fuse_fb=False), FAMILY_M members on the
+    genome's training batch, TRAIN_ITERS iterations: one B22, one B23 and
+    FAMILY_M launches of B12 an iteration, no fused or single-model chain;
+    logliks within SPLIT_LL_RTOL of the fused fit_family; the stacked split
+    E-step equal to the sequential one bit for bit; then
+    posterior_sharded_stacked(fused=False) of two members on the 64 Mi
+    record (B21, B22 and B23 once each) equal to their own
+    posterior_sharded(fused=False) runs bit for bit and within
+    SPLIT_CONF_ATOL of the fused stacked run.  Returns the launch counts."""
+    from cpgisland_tpu_torch.parallel.posterior import place_record_span, \
+        posterior_sharded_stacked
+
+    chunked = chunking.frame(codec.encode_file(fa), chunking.TRAIN_CHUNK, drop_remainder=True)
+    members = family_members(gen, dev, 4, FAMILY_M)
+    chunks, lengths = LocalBackend().place(chunked, dev)
+    split = FamilyEStep(fuse_fb=False)
+    fit_family(members, chunks, lengths, n_iter=1, estep=split)  # warm
+    _kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, hist = fit_family(members, chunks, lengths, n_iter=TRAIN_ITERS, estep=split)
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in _kernels.launches.items() if v}
+    _, hist_f = fit_family(members, chunks, lengths, n_iter=TRAIN_ITERS)
+    rel = float(np.max(np.abs(hist - hist_f) / np.abs(hist_f)))
+    prep = split.prepare_streams(members, chunks, lengths)
+    st_stacked = split(members, chunks, lengths, prepared=prep)
+    st_seq = FamilyEStep(fuse_fb=False, stacked=False)(members, chunks, lengths, prepared=prep)
+    same = all(torch.equal(getattr(a, f), getattr(b, f)) for a, b in zip(st_stacked, st_seq)
+               for f in ("init", "trans", "emit", "loglik", "n_seqs"))
+    symbols = int(chunked.total)
+    emit({"phase": "split_fit_family", "M": FAMILY_M, "symbols": symbols,
+          "iterations": TRAIN_ITERS, "wall_s": wall,
+          "em_msym_per_s_times_m": symbols * TRAIN_ITERS * FAMILY_M / wall / 1e6,
+          "max_ll_rel_vs_fused": rel, "stacked_equals_sequential": same, "launches": counts})
+    want = {"oh_fwd_stacked": TRAIN_ITERS, "oh_bwd_stacked": TRAIN_ITERS,
+            "oh_stats": FAMILY_M * TRAIN_ITERS}
+    if counts != want or rel > SPLIT_LL_RTOL or not same:
+        raise SystemExit(f"chip_smoke: the split fit_family launched {counts} (want {want}), "
+                         f"left the fused one by {rel} or its arms differ ({same})")
+
+    obs = big[: POST_NL * POST_LANE_T]
+    pair = members[:2]
+    states = [ISLAND_STATES, (0, 3, 6)]
+    placed = place_record_span(pair[0], obs)
+    runs = {}
+    for fused in (True, False):
+        _kernels.reset_launches()
+        conf, _ = posterior_sharded_stacked(pair, obs, states, placed=placed, fused=fused)
+        runs[fused] = (conf, {k: v for k, v in _kernels.launches.items() if v})
+    conf_s, n_s = runs[False]
+    solo = all(np.array_equal(conf_s[m], posterior_sharded(p, obs, states[m], engine="onehot",
+                                                           placed=placed, fused=False)[0])
+               for m, p in enumerate(pair))
+    err = float(np.abs(conf_s.astype(np.float64) - runs[True][0]).max())
+    emit({"phase": "split_posterior_stacked", "M": 2, "symbols": int(obs.size),
+          "equals_single_runs": solo, "max_conf_err_vs_fused": err, "launches": n_s})
+    want = {"oh_prod_stacked": 1, "oh_fwd_stacked": 1, "oh_bwd_stacked": 1}
+    if not solo or err > SPLIT_CONF_ATOL or n_s != want:
+        raise SystemExit("chip_smoke: the stacked split posterior differs from its single "
+                         f"runs ({solo}), the fused arm ({err}) or launched {n_s}")
+    for k, v in n_s.items():
+        counts[k] = counts.get(k, 0) + v
+    return counts
 
 
 def main(argv=None) -> int:
@@ -2356,7 +2761,8 @@ def main(argv=None) -> int:
         casts = compare_casts(gen, os.path.join(tmp, "run.model.txt"))
         # The compare runs and fit_family are main paths too: their counts
         # add to every kernel's.
-        for counts in (compare_phase(fa, tmp, dev, casts), fit_family_phase(gen, fa, dev)):
+        for counts in (compare_phase(compare_fasta(rng, tmp, big), tmp, dev, casts),
+                       fit_family_phase(gen, fa, dev)):
             for k, n in counts.items():
                 launches[k] = launches.get(k, 0) + n
         compare_parity_phase(rng, big, tmp, dev, casts)
@@ -2375,6 +2781,13 @@ def main(argv=None) -> int:
         for k, n in one_pass_posterior_phase(params, big, dev).items():
             launches[k] = launches.get(k, 0) + n
         budget_lane_phase(big, fa, dev)
+        # The split arm (fused=False): its kernels, then its main paths.
+        results |= split_kernel_phase(rng, gen, params, big, dev)
+        for counts in (split_train_phase(params, fa, dev, onehot_logliks),
+                       split_posterior_phase(params, big, dev),
+                       split_family_phase(gen, fa, big, dev)):
+            for k, n in counts.items():
+                launches[k] = launches.get(k, 0) + n
 
     table = []
     for name, r in results.items():

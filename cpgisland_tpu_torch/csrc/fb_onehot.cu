@@ -1,9 +1,11 @@
-// Reduced one-hot forward-backward: the fused arm's three kernels and their
-// stacked (multi-model) forms for Hopper (sm_90a), with a plain C interface
-// loaded through ctypes (cpgisland_tpu_torch/ops/_kernels.py).  Plain
-// versions of the same functions, used on the CPU and as the reference on
-// the card, live in cpgisland_tpu_torch/ops/fb_onehot.py (oh_prod_plain,
-// oh_fwdbwd_plain, oh_seq_stats_plain and their *_stacked_plain forms).
+// Reduced one-hot forward-backward: the fused arm's three kernels, the
+// one-pass arm's, the split arm's four and their stacked (multi-model) forms
+// for Hopper (sm_90a), with a plain C interface loaded through ctypes
+// (cpgisland_tpu_torch/ops/_kernels.py).  Plain versions of the same
+// functions, used on the CPU and as the reference on the card, live in
+// cpgisland_tpu_torch/ops/fb_onehot.py (oh_prod_plain, oh_fwdbwd_plain,
+// oh_seq_stats_plain, oh_fwd_plain, oh_bwd_plain, oh_bwd_conf_plain,
+// oh_stats_plain and their *_stacked_plain forms).
 //
 // Layout: time-major streams, [Tp, NL] for the pairs and [Tp, 2, NL] for
 // alphas and betas (lane n of step t at t * NL + n, component c at
@@ -76,6 +78,42 @@
 // entries as four coalesced rows.  Bit equality with the plain version:
 // round-to-nearest intrinsics in the plain version's operand order, the
 // total summed ((00 + 01) + 10) + 11, 1/x as __fdiv_rn.
+//
+// The split arm (fused=False), B9-B12 with the stacked B22 and B23:
+// B9 oh_fwd_kernel replaces fb_onehot.py::_oh_fwd_kernel (and, with a
+// member grid axis, B22 ::_oh_fwd_stacked_kernel): B4's forward chain alone,
+// the same fwd_chain body, so its alphas equal B4's bit for bit.  B10
+// oh_bwd_kernel<false> replaces ::_oh_bwd_kernel (B23
+// ::_oh_bwd_stacked_kernel with the member axis): the backward chain with
+// true Rabiner betas, each step's raw contraction times 1 / c_{t+1} read
+// from a cs_next stream, in the XLA twin's order (contract first, then
+// scale; the TPU kernel pre-scales the table rows instead).  B11
+// oh_bwd_kernel<true> replaces ::_oh_bwd_conf_kernel: the same chain
+// emitting the island confidence (m0 g0 + m1 g1) / max(g0 + g1, 1e-30),
+// g = alpha * beta, with the mask keyed on the position's own symbol; the
+// betas never reach device memory.  Bound: B9 reads 4 B and writes 8 B a
+// step (0.24 ms at 67.1 M steps), B10 reads 8 B and writes 8 B (0.32 ms),
+// B11 reads 20 B (both pair streams, cs_next, the two alphas) and writes
+// 4 B (0.48 ms); each lane is one dependent chain of IEEE divisions and
+// rounded products, so like B4 they are latency-bound above that.  The
+// design is B4's, one thread per chain (32 to a block), every operand off
+// the chain (the pairs, cs_next and, for B11, each position's symbol and
+// alphas) read a group of steps ahead, so a step waits on the chain alone,
+// and every operation an explicit round-to-nearest intrinsic in the plain
+// version's order; the split arm runs the forward and backward chains in
+// two launches, where B4 runs them side by side in one.
+//
+// B12 oh_stats_part_kernel replaces ::_oh_stats_kernel: the chunked counts
+// over the split arm's cs-scaled streams, DEGREE 1 in the betas (xi[a, c]
+// = a_hat_{t-1}[a] * B_red[s_t, c] * beta_t[c] / c_t, no per-pair
+// normalizer), each lane's t == 0 pair excluded (every chunk lane is its
+// own record).  Bound: 20 B per valid step (two alphas, two betas, the
+// pair; 0.40 ms at 67.1 M steps).  Design: B5's, segments of Tt steps per
+// lane, one thread per (lane, segment) with its bins in shared memory, the
+// previous step's a_hat read from the stream at the segment's start; B5's
+// reduce kernel sums the segments in order and scatters the pair bins to
+// the dense [K*K] rows.  Its sums run in another order than the plain
+// version's einsum, which agrees within a tolerance.
 //
 // B21 oh_prod_stacked_kernel, B24 oh_fwdbwd_stacked_kernel and B25 (the B5
 // kernels with M > 1) replace fb_onehot.py::_oh_prod_stacked_kernel,
@@ -184,6 +222,109 @@ __device__ __forceinline__ void bwd_chain(const int32_t* p, const float* s_tab, 
     }
 #pragma unroll
     for (int r = 0; r < LOOKAHEAD; ++r) q[r] = qn[r];
+  }
+}
+
+// f[r] = the lane's value at step first + step * r; 1 outside [0, Tp).
+__device__ __forceinline__ void load_fgroup(const float* p, size_t stride, int first, int step,
+                                            int Tp, float (&f)[LOOKAHEAD]) {
+#pragma unroll
+  for (int r = 0; r < LOOKAHEAD; ++r) {
+    const int t = first + step * r;
+    f[r] = (t >= 0 && t < Tp) ? __ldg(p + (size_t)t * stride) : 1.0f;
+  }
+}
+
+// B11's per-position operands of steps first - r (r < LOOKAHEAD): the
+// position's pair index, raw (its island-mask row keys the per-pair mask
+// table), and its two alphas, read a group ahead of the chain as the pairs
+// are.  Only loads here: a value computed from a load would make the warp
+// wait for each load in turn.
+__device__ __forceinline__ void load_conf_group(const int32_t* pc, const float* al, size_t nl,
+                                                int first, int Tp, int (&p)[LOOKAHEAD],
+                                                float (&a0)[LOOKAHEAD], float (&a1)[LOOKAHEAD]) {
+#pragma unroll
+  for (int r = 0; r < LOOKAHEAD; ++r) {
+    const int t = first - r;
+    const bool in = t >= 0 && t < Tp;
+    p[r] = in ? __ldg(pc + (size_t)t * nl) : 0;
+    a0[r] = in ? __ldg(al + (size_t)(2 * t) * nl) : 0.0f;
+    a1[r] = in ? __ldg(al + (size_t)(2 * t + 1) * nl) : 0.0f;
+  }
+}
+
+// B10's backward (B11's with CONF), t = Tp-1 down to 0: beta_t = (M_{t+1} .
+// beta_{t+1}) * (1 / c_{t+1}) where t <= T-2 and t+1 < len, else carried;
+// ``cn`` is the lane's cs_next column (c_{t+1} at row t, 1 at the last).
+// Without CONF it stores beta_t at rows 2t, 2t + 1 of ``out``; with CONF it
+// stores conf[t] at row t: 0 past len, else (m0 g0 + m1 g1) / max(g0 + g1,
+// 1e-30) with g = alpha_t * beta_t and (m0, m1) the island-mask row of the
+// position's own symbol (``pc`` the unclamped pair column, ``al`` the
+// alphas column, ``s_pmask`` [2 (S^2 + S)] the mask row of every pair
+// index: a real pair's current symbol, a PAD's carried one).  Every operand
+// off the chain is read a group of steps ahead, so a step waits on its
+// chain alone.
+template <bool CONF>
+__device__ __forceinline__ void split_bwd_chain(const int32_t* pn, const float* cn,
+                                                const float* s_tab, float b0, float b1,
+                                                float* out, int len, int Tp, size_t nl,
+                                                int nreal, int T, const int32_t* pc,
+                                                const float* al, const float* s_pmask,
+                                                int npm) {
+  int q[LOOKAHEAD], qn[LOOKAHEAD];
+  float c[LOOKAHEAD], cx[LOOKAHEAD];
+  int pp[LOOKAHEAD], ppx[LOOKAHEAD];
+  float a0[LOOKAHEAD], a1[LOOKAHEAD], a0x[LOOKAHEAD], a1x[LOOKAHEAD];
+  load_group(pn, nl, Tp - 1, -1, Tp, nreal, q);
+  load_fgroup(cn, nl, Tp - 1, -1, Tp, c);
+  if (CONF) load_conf_group(pc, al, nl, Tp - 1, Tp, pp, a0, a1);
+  for (int k0 = 0; k0 < Tp; k0 += LOOKAHEAD) {
+    const int next = Tp - 1 - (k0 + LOOKAHEAD);
+    load_group(pn, nl, next, -1, Tp, nreal, qn);
+    load_fgroup(cn, nl, next, -1, Tp, cx);
+    if (CONF) load_conf_group(pc, al, nl, next, Tp, ppx, a0x, a1x);
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) {
+      const int t = Tp - 1 - (k0 + r);
+      if (t >= 0) {
+        const float* m = s_tab + 4 * q[r];
+        const float inv_cn = __fdiv_rn(1.0f, c[r]);
+        const float x0 = __fmul_rn(__fadd_rn(__fmul_rn(m[0], b0), __fmul_rn(m[1], b1)), inv_cn);
+        const float x1 = __fmul_rn(__fadd_rn(__fmul_rn(m[2], b0), __fmul_rn(m[3], b1)), inv_cn);
+        if (t <= T - 2 && t + 1 < len) {
+          b0 = x0;
+          b1 = x1;
+        }
+        if (CONF) {
+          float conf = 0.0f;
+          if (t < len) {
+            // A pair index past the table carries no symbol: mask 0, as
+            // the plain version's select gives.
+            const bool known = (unsigned)pp[r] < (unsigned)npm;
+            const float m0 = known ? s_pmask[2 * pp[r]] : 0.0f;
+            const float m1 = known ? s_pmask[2 * pp[r] + 1] : 0.0f;
+            const float g0 = __fmul_rn(a0[r], b0);
+            const float g1 = __fmul_rn(a1[r], b1);
+            const float tot = fmaxf(__fadd_rn(g0, g1), 1e-30f);
+            conf = __fdiv_rn(__fadd_rn(__fmul_rn(m0, g0), __fmul_rn(m1, g1)), tot);
+          }
+          out[(size_t)t * nl] = conf;
+        } else {
+          out[(size_t)(2 * t) * nl] = b0;
+          out[(size_t)(2 * t + 1) * nl] = b1;
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) {
+      q[r] = qn[r];
+      c[r] = cx[r];
+      if (CONF) {
+        pp[r] = ppx[r];
+        a0[r] = a0x[r];
+        a1[r] = a1x[r];
+      }
+    }
   }
 }
 
@@ -343,6 +484,58 @@ oh_fwdbwd_stacked_kernel(const int32_t* __restrict__ pair, const int32_t* __rest
   else
     bwd_chain(pairn + n, s_tab, beta0[vec + n], beta0[vec + nl + n], betas + strm + n, lens[n],
               Tp, nl, nreal, T);
+}
+
+// ---------------------------------------------------------------------------
+// The split arm's chains.  B9 (B22 with M > 1): the forward chain of each
+// lane of member blockIdx.y.  B10 (B23 with M > 1): the cs-scaled backward
+// of each lane of member blockIdx.y, cs_next member-major [M, Tp, NL].  B11:
+// B10 for one model, storing the confidence [Tp, NL] in place of the betas.
+// A single-model launch is member 0 of 1.
+
+__global__ void __launch_bounds__(FB_THREADS)
+oh_fwd_kernel(const int32_t* __restrict__ pair, const int32_t* __restrict__ lens,
+              const float* __restrict__ a0, const float* __restrict__ tab,
+              float* __restrict__ alphas, int Tp, int NL, int nreal) {
+  __shared__ float s_tab[MAX_TAB];
+  const int m = blockIdx.y;
+  load_table(s_tab, tab + (size_t)m * (nreal + 1) * 4, nreal);
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= NL) return;
+  const size_t nl = (size_t)NL;
+  const size_t vec = (size_t)m * 2 * nl;
+  fwd_chain(pair + n, s_tab, a0[vec + n], a0[vec + nl + n], alphas + (size_t)m * Tp * 2 * nl + n,
+            lens[n], Tp, nl, nreal);
+}
+
+template <bool CONF>
+__global__ void __launch_bounds__(FB_THREADS)
+oh_bwd_kernel(const int32_t* __restrict__ pairn, const int32_t* __restrict__ pair,
+              const int32_t* __restrict__ lens, const float* __restrict__ cs_next,
+              const float* __restrict__ beta0, const float* __restrict__ alphas,
+              const float* __restrict__ mtab, const float* __restrict__ tab,
+              float* __restrict__ out, int Tp, int NL, int nreal, int S, int T) {
+  __shared__ float s_tab[MAX_TAB];
+  __shared__ float s_pmask[2 * (MAX_S * MAX_S + MAX_S)];
+  const int m = blockIdx.y;
+  // B11: the island-mask row of every pair index (real pairs p = prev * S +
+  // cur take cur's row, PAD pairs S^2 + s take s's), so no step divides.
+  const int npm = nreal + S;
+  if (CONF)
+    for (int i = threadIdx.x; i < npm; i += blockDim.x) {
+      const int sym = i < nreal ? i % S : i - nreal;
+      s_pmask[2 * i] = mtab[2 * sym];
+      s_pmask[2 * i + 1] = mtab[2 * sym + 1];
+    }
+  load_table(s_tab, tab + (size_t)m * (nreal + 1) * 4, nreal);
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= NL) return;
+  const size_t nl = (size_t)NL;
+  const size_t vec = (size_t)m * 2 * nl;
+  float* dst = CONF ? out + n : out + (size_t)m * Tp * 2 * nl + n;
+  split_bwd_chain<CONF>(pairn + n, cs_next + (size_t)m * Tp * nl + n, s_tab, beta0[vec + n],
+                        beta0[vec + nl + n], dst, lens[n], Tp, nl, nreal, T,
+                        CONF ? pair + n : nullptr, CONF ? alphas + n : nullptr, s_pmask, npm);
 }
 
 // ---------------------------------------------------------------------------
@@ -515,6 +708,89 @@ __global__ void oh_seq_stats_part_kernel(
   for (int r = 0; r < R; ++r) out[(size_t)r * nl] = my[r * bd];
 }
 
+// ---------------------------------------------------------------------------
+// B12: the chunked counts over the split arm's cs-scaled streams, in B5's
+// accumulator rows (so B5's reduce kernel finishes them).  One (lane,
+// segment) over steps [t0, t1): gamma rows and log c as B5; for t >= 1 the
+// pair bin (s_prev, s_cur, a, c) gains a_hat_{t-1}[a] * ((B_red[s_cur, c] *
+// beta_t[c]) * (1 / c_t)), the twin's operand order.
+
+__device__ __forceinline__ void cs_stats_segment(const float* al, const float* be,
+                                                 const int32_t* p, const float* s_bred,
+                                                 float* my, int bd, int t0, int t1, size_t nl,
+                                                 int S) {
+  const int nreal = S * S;
+  const int EMIT = 4 * nreal;
+  const int LL = EMIT + 2 * S;
+  float ah0 = 0.0f, ah1 = 0.0f;
+  if (t0 > 0) {
+    const float p0 = al[(size_t)(2 * t0 - 2) * nl];
+    const float p1 = al[(size_t)(2 * t0 - 1) * nl];
+    const float ic = __fdiv_rn(1.0f, fmaxf(__fadd_rn(p0, p1), 1e-30f));
+    ah0 = __fmul_rn(p0, ic);
+    ah1 = __fmul_rn(p1, ic);
+  }
+  float ll = 0.0f;
+  for (int t = t0; t < t1; ++t) {
+    const float a0 = al[(size_t)(2 * t) * nl];
+    const float a1 = al[(size_t)(2 * t + 1) * nl];
+    const float be0 = be[(size_t)(2 * t) * nl];
+    const float be1 = be[(size_t)(2 * t + 1) * nl];
+    const int pr = p[(size_t)t * nl];
+    // A PAD pair carries its symbol: previous and current are both it.
+    const int esym = pr < nreal ? pr % S : pr - nreal;
+    const int sprev = pr < nreal ? pr / S : esym;
+    const float cs = __fadd_rn(a0, a1);
+    const float inv_cs = __fdiv_rn(1.0f, fmaxf(cs, 1e-30f));
+    const float g0 = __fmul_rn(a0, be0), g1 = __fmul_rn(a1, be1);
+    const float inv_g = __fdiv_rn(1.0f, fmaxf(__fadd_rn(g0, g1), 1e-30f));
+    float* e = my + (EMIT + 2 * esym) * bd;
+    e[0] = __fadd_rn(e[0], __fmul_rn(g0, inv_g));
+    e[bd] = __fadd_rn(e[bd], __fmul_rn(g1, inv_g));
+    ll = __fadd_rn(ll, logf(fmaxf(cs, 1e-30f)));
+    if (t > 0) {
+      const float w0 = __fmul_rn(__fmul_rn(s_bred[2 * esym], be0), inv_cs);
+      const float w1 = __fmul_rn(__fmul_rn(s_bred[2 * esym + 1], be1), inv_cs);
+      float* bin = my + ((sprev * S + esym) * 4) * bd;
+      bin[0] = __fadd_rn(bin[0], __fmul_rn(ah0, w0));
+      bin[bd] = __fadd_rn(bin[bd], __fmul_rn(ah0, w1));
+      bin[2 * bd] = __fadd_rn(bin[2 * bd], __fmul_rn(ah1, w0));
+      bin[3 * bd] = __fadd_rn(bin[3 * bd], __fmul_rn(ah1, w1));
+    }
+    ah0 = __fmul_rn(a0, inv_cs);
+    ah1 = __fmul_rn(a1, inv_cs);
+  }
+  my[LL * bd] = ll;
+}
+
+// Grid (lane blocks, segments); part [nseg, R, NL].
+__global__ void oh_stats_part_kernel(const float* __restrict__ alphas,
+                                     const float* __restrict__ betas,
+                                     const int32_t* __restrict__ pair,
+                                     const int32_t* __restrict__ lens,
+                                     const float* __restrict__ bred, float* __restrict__ part,
+                                     int Tp, int NL, int S, int Tt) {
+  extern __shared__ float acc[];  // [R][blockDim.x]
+  __shared__ float s_bred[2 * MAX_S];
+  const int R = 4 * S * S + 2 * S + 1;
+  const int bd = blockDim.x;
+  const size_t nl = (size_t)NL;
+  for (int i = threadIdx.x; i < 2 * S; i += bd) s_bred[i] = bred[i];
+  float* my = acc + threadIdx.x;
+  for (int r = 0; r < R; ++r) my[r * bd] = 0.0f;
+  __syncthreads();
+
+  const int n = blockIdx.x * bd + threadIdx.x;
+  if (n >= NL) return;
+  const int seg = blockIdx.y;
+  const int len = min(lens[n], Tp);
+  const int t0 = seg * Tt;
+  const int t1 = min(t0 + Tt, len);
+  if (t0 < t1) cs_stats_segment(alphas + n, betas + n, pair + n, s_bred, my, bd, t0, t1, nl, S);
+  float* out = part + (size_t)seg * R * nl + n;
+  for (int r = 0; r < R; ++r) out[(size_t)r * nl] = my[r * bd];
+}
+
 // Grid (lane blocks, rows R, members): each lane's segments summed in order.
 __global__ void __launch_bounds__(REDUCE_THREADS)
 oh_seq_stats_reduce_kernel(const float* __restrict__ part, const int32_t* __restrict__ gt,
@@ -574,6 +850,36 @@ static int launch_seq_stats(const void* alphas, const void* betas, const void* p
   return (int)cudaGetLastError();
 }
 
+// B12: the part kernel, then B5's reduce (member 0 of 1).
+static int launch_cs_stats(const void* alphas, const void* betas, const void* pair,
+                           const void* lens, const void* bred, const void* gt, void* part,
+                           void* macc, void* emit, void* ll, int Tp, int NL, int S, int K, int Tt,
+                           cudaStream_t st) {
+  if (S < 1 || S > MAX_S || K != 2 * S || Tp <= 0 || NL <= 0 || Tt <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int R = 4 * S * S + 2 * S + 1;
+  const int nseg = (Tp + Tt - 1) / Tt;
+  if (nseg > 65535) return (int)cudaErrorInvalidValue;
+  const int threads = (size_t)R * 128 * sizeof(float) <= 200 * 1024 ? 128 : 32;
+  const size_t smem = (size_t)R * threads * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        oh_stats_part_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((unsigned)((NL + threads - 1) / threads), (unsigned)nseg);
+  oh_stats_part_kernel<<<grid, threads, smem, st>>>(
+      (const float*)alphas, (const float*)betas, (const int32_t*)pair, (const int32_t*)lens,
+      (const float*)bred, (float*)part, Tp, NL, S, Tt);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 rgrid((unsigned)((NL + REDUCE_THREADS - 1) / REDUCE_THREADS), (unsigned)R, 1);
+  oh_seq_stats_reduce_kernel<<<rgrid, REDUCE_THREADS, 0, st>>>(
+      (const float*)part, (const int32_t*)gt, (float*)macc, (float*)emit, (float*)ll, nseg, NL,
+      S, K);
+  return (int)cudaGetLastError();
+}
+
 // The C interface: every pointer and the stream arrive as void*, sizes as
 // int.  Each function launches on the caller's stream and returns
 // cudaGetLastError(), so a refused launch reaches the Python wrapper.
@@ -581,6 +887,70 @@ extern "C" {
 
 static inline bool bad_stream(int Tp, int NL, int nreal) {
   return nreal < 1 || nreal > MAX_S * MAX_S || Tp <= 0 || NL <= 0;
+}
+
+static int launch_fwd(const void* pair, const void* lens, const void* a0, const void* tab,
+                      void* alphas, int Tp, int NL, int nreal, int M, cudaStream_t st) {
+  if (bad_stream(Tp, NL, nreal) || M < 1 || M > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((NL + FB_THREADS - 1) / FB_THREADS), (unsigned)M);
+  oh_fwd_kernel<<<grid, FB_THREADS, 0, st>>>((const int32_t*)pair, (const int32_t*)lens,
+                                             (const float*)a0, (const float*)tab,
+                                             (float*)alphas, Tp, NL, nreal);
+  return (int)cudaGetLastError();
+}
+
+static int launch_bwd(const void* pairn, const void* lens, const void* cs_next,
+                      const void* beta0, const void* tab, void* betas, int Tp, int NL,
+                      int nreal, int T, int M, cudaStream_t st) {
+  if (bad_stream(Tp, NL, nreal) || M < 1 || M > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((NL + FB_THREADS - 1) / FB_THREADS), (unsigned)M);
+  oh_bwd_kernel<false><<<grid, FB_THREADS, 0, st>>>(
+      (const int32_t*)pairn, nullptr, (const int32_t*)lens, (const float*)cs_next,
+      (const float*)beta0, nullptr, nullptr, (const float*)tab, (float*)betas, Tp, NL, nreal, 1,
+      T);
+  return (int)cudaGetLastError();
+}
+
+int oh_fwd(const void* pair, const void* lens, const void* a0, const void* tab, void* alphas,
+           int Tp, int NL, int nreal, void* stream) {
+  return launch_fwd(pair, lens, a0, tab, alphas, Tp, NL, nreal, 1, (cudaStream_t)stream);
+}
+
+int oh_fwd_stacked(const void* pair, const void* lens, const void* a0, const void* tab,
+                   void* alphas, int Tp, int NL, int nreal, int M, void* stream) {
+  return launch_fwd(pair, lens, a0, tab, alphas, Tp, NL, nreal, M, (cudaStream_t)stream);
+}
+
+int oh_bwd(const void* pairn, const void* lens, const void* cs_next, const void* beta0,
+           const void* tab, void* betas, int Tp, int NL, int nreal, int T, void* stream) {
+  return launch_bwd(pairn, lens, cs_next, beta0, tab, betas, Tp, NL, nreal, T, 1,
+                    (cudaStream_t)stream);
+}
+
+int oh_bwd_stacked(const void* pairn, const void* lens, const void* cs_next, const void* beta0,
+                   const void* tab, void* betas, int Tp, int NL, int nreal, int T, int M,
+                   void* stream) {
+  return launch_bwd(pairn, lens, cs_next, beta0, tab, betas, Tp, NL, nreal, T, M,
+                    (cudaStream_t)stream);
+}
+
+int oh_bwd_conf(const void* pairn, const void* pair, const void* lens, const void* cs_next,
+                const void* beta0, const void* alphas, const void* mtab, const void* tab,
+                void* conf, int Tp, int NL, int S, int T, void* stream) {
+  if (S < 1 || S > MAX_S || bad_stream(Tp, NL, S * S)) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((NL + FB_THREADS - 1) / FB_THREADS), 1);
+  oh_bwd_kernel<true><<<grid, FB_THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)pairn, (const int32_t*)pair, (const int32_t*)lens, (const float*)cs_next,
+      (const float*)beta0, (const float*)alphas, (const float*)mtab, (const float*)tab,
+      (float*)conf, Tp, NL, S * S, S, T);
+  return (int)cudaGetLastError();
+}
+
+int oh_stats(const void* alphas, const void* betas, const void* pair, const void* lens,
+             const void* bred, const void* gt, void* part, void* macc, void* emit, void* ll,
+             int Tp, int NL, int S, int K, int Tt, void* stream) {
+  return launch_cs_stats(alphas, betas, pair, lens, bred, gt, part, macc, emit, ll, Tp, NL, S, K,
+                         Tt, (cudaStream_t)stream);
 }
 
 int oh_prod(const void* pair, const void* tab, void* out, int Tp, int NL, int nreal,

@@ -50,6 +50,12 @@ _SIGNATURES = {
     "oh_seq_stats": ("fb_onehot", 14, ("Tp", "NL", "S", "K", "Tt")),
     "oh_prod_stacked": ("fb_onehot", 3, ("Tp", "NL", "nreal", "M")),
     "oh_fwdbwd_stacked": ("fb_onehot", 8, ("Tp", "NL", "nreal", "T", "M")),
+    "oh_fwd": ("fb_onehot", 5, ("Tp", "NL", "nreal")),
+    "oh_bwd": ("fb_onehot", 6, ("Tp", "NL", "nreal", "T")),
+    "oh_bwd_conf": ("fb_onehot", 9, ("Tp", "NL", "S", "T")),
+    "oh_stats": ("fb_onehot", 10, ("Tp", "NL", "S", "K", "Tt")),
+    "oh_fwd_stacked": ("fb_onehot", 5, ("Tp", "NL", "nreal", "M")),
+    "oh_bwd_stacked": ("fb_onehot", 6, ("Tp", "NL", "nreal", "T", "M")),
     "oh_seq_stats_stacked": ("fb_onehot", 14, ("Tp", "NL", "S", "K", "Tt", "M")),
     "oh_loglik": ("loglik", 4, ("Tp", "NL", "nreal", "M")),
     "fb_loglik": ("loglik", 5, ("Tp", "NL", "K", "S")),

@@ -1,16 +1,21 @@
 """Counterpart of ``cpgisland_tpu/ops/fb_pallas.py``'s chunked E-step.
 
 One EM iteration's sufficient statistics for a batch of independent
-chunks: ``batch_stats_pallas`` with ``fused=True`` (the shipped default),
-together with ``_batch_lane_setup``, ``_assemble_reduced_stats`` and
-``_gamma0_full``.  One chunk per lane; each lane starts from pi and ends
-free.  The reduced engine ("onehot") runs two kernels: B4 (forward and
-self-normalized backward chains, ``fb_onehot.oh_fwdbwd``) and B5
-(z-normalized counts, ``fb_onehot.oh_seq_stats``).  The dense engine
-("pallas", any K <= 8 model) runs three: B16 (forward), B18 (backward)
-and B20 (counts) of ``ops.fb_pallas``.  The rest is small tensor code on
-the same device.  ``batch_stats_stacked`` runs M reduced members of one K
-over one batch through the stacked kernels B24 and B25.
+chunks: ``batch_stats_pallas``, together with ``_batch_lane_setup``,
+``_assemble_reduced_stats`` and ``_gamma0_full``.  One chunk per lane; each
+lane starts from pi and ends free.  The reduced engine ("onehot") runs, on
+the fused arm (``fused=True``, the shipped default), two kernels: B4
+(forward and self-normalized backward chains, ``fb_onehot.oh_fwdbwd``) and
+B5 (z-normalized counts, ``fb_onehot.oh_seq_stats``); on the split arm
+(``fused=False``) three: B9 (forward), B10 (cs-scaled backward) and B12
+(counts degree 1 in those betas, ``fb_onehot.oh_stats``).  A reduced model
+whose alphabet is not a power of two always takes the split chains, its
+streams scattered to dense for B20.  The dense engine ("pallas", any K <=
+8 model) runs three: B16 (forward), B18 (backward) and B20 (counts) of
+``ops.fb_pallas``.  The rest is small tensor code on the same device.
+``batch_stats_stacked`` runs M reduced members of one K over one batch
+through the stacked kernels B24 and B25, or B22 and B23 with B12 per
+member on the split arm.
 """
 
 from __future__ import annotations
@@ -64,15 +69,12 @@ def _gamma0_full(al2, b2, gt, esym2, K):
     return fb_onehot.scatter_streams(gamma02[None], gt, esym2[0:1], K)[0]
 
 
-def _dense_batch_stats(params: HmmParams, prep: PreparedChunked, a0_raw, beta0,
-                       valid0) -> SuffStats:
-    """The dense branch of ``batch_stats_pallas``: B16 -> B18 -> B20, then
-    trans = A * sum(macc), emit = sum(emit).reshape(S, K).T, init = gamma_0
-    on the valid lanes."""
+def _dense_suffstats(params: HmmParams, A, B, alphas, betas, prep: PreparedChunked,
+                     valid0) -> SuffStats:
+    """SuffStats from dense cs-scaled [Tp, K, NL] streams: B20, then trans
+    = A * sum(macc), emit = sum(emit).reshape(S, K).T, init = gamma_0 on
+    the valid lanes."""
     K, S = params.n_states, params.n_symbols
-    A, B, _ = fb_pallas.tables(params)
-    alphas, _, betas = fb_pallas._run_fb_kernels(A, B, prep.steps2, prep.lens2, a0_raw,
-                                                 beta0, prep.T)
     macc, emitf, ll = fb_pallas._run_stats_kernel(B, alphas, betas, prep.steps2, prep.lens2,
                                                   prep.Tt)
     g0raw = alphas[0] * betas[0]  # [K, NL]
@@ -86,13 +88,24 @@ def _dense_batch_stats(params: HmmParams, prep: PreparedChunked, a0_raw, beta0,
     )
 
 
+def _dense_batch_stats(params: HmmParams, prep: PreparedChunked, a0_raw, beta0,
+                       valid0) -> SuffStats:
+    """The dense branch of ``batch_stats_pallas``: B16 -> B18 -> B20."""
+    A, B, _ = fb_pallas.tables(params)
+    alphas, _, betas = fb_pallas._run_fb_kernels(A, B, prep.steps2, prep.lens2, a0_raw,
+                                                 beta0, prep.T)
+    return _dense_suffstats(params, A, B, alphas, betas, prep, valid0)
+
+
 def batch_stats(params: HmmParams, chunks: torch.Tensor, lengths: torch.Tensor,
-                prepared=None, engine: str = "onehot") -> SuffStats:
+                prepared=None, engine: str = "onehot", fused: bool = True) -> SuffStats:
     """Batch-summed SuffStats of the chunks [N, T] (uint8, padded) with
     true ``lengths`` [N], on the chunks' device, through the reduced
     ("onehot") or the dense ("pallas") kernels.  ``prepared``: the
     symbol-only prep of the same batch (``ops.prepared.prepare_chunked``
-    for the same engine), built once per fit; built here otherwise."""
+    for the same engine), built once per fit; built here otherwise.
+    ``fused`` (reduced engine, power-of-two alphabet): B4 + B5, else the
+    split arm B9 + B10 + B12; the dense engine ignores it."""
     if engine not in ("onehot", "pallas"):
         raise ValueError(f"batch_stats engine must be onehot|pallas, got {engine!r}")
     onehot = engine == "onehot"
@@ -116,21 +129,35 @@ def batch_stats(params: HmmParams, chunks: torch.Tensor, lengths: torch.Tensor,
     if not onehot:
         return _dense_batch_stats(params, prepared, a0_raw, beta0, valid0)
     lens2 = prepared.lens2
+    can_znorm = S & (S - 1) == 0
+    use_fused = fused and can_znorm
     al2, b2, esym2 = fb_onehot.run_fb_kernels_onehot(
         params, prepared.sel2, 0, lens2, a0_raw, beta0, T,
-        pair_esym=(prepared.pair2, prepared.esym2, prepared.pairn2),
+        pair_esym=(prepared.pair2, prepared.esym2, prepared.pairn2), fused=use_fused,
     )
-    # Z-normalized stats over the fused streams: zero enters and an all-zero
-    # pair0 mask say every lane is an independent record with no incoming
-    # t == 0 pair.
     gt = _groups(params)
-    NL = al2.shape[2]
-    zeros = lambda rows: torch.zeros((rows, NL), dtype=_F32, device=al2.device)
-    macc, emit_red, ll = fb_onehot.run_seq_stats_onehot(
-        params, al2, b2, prepared.pair2, lens2, gt, zeros(GROUP), zeros(K), zeros(1),
-        prepared.Tt,
-    )
-    return _reduced_suffstats(params, A, gt, al2, b2, esym2, (macc, emit_red, ll), valid0)
+    if not can_znorm:
+        # The split streams scattered to dense (exact: out-of-group entries
+        # are zeros wherever they are multiplied in) for B20.
+        _, B, _ = fb_pallas.tables(params)
+        scatter = lambda x: fb_onehot.scatter_streams(x, gt, esym2, K)
+        return _dense_suffstats(params, A, B, scatter(al2), scatter(b2), prepared, valid0)
+    if use_fused:
+        # Z-normalized stats over the fused streams: zero enters and an
+        # all-zero pair0 mask say every lane is an independent record with
+        # no incoming t == 0 pair.
+        NL = al2.shape[2]
+        zeros = lambda rows: torch.zeros((rows, NL), dtype=_F32, device=al2.device)
+        counts = fb_onehot.run_seq_stats_onehot(
+            params, al2, b2, prepared.pair2, lens2, gt, zeros(GROUP), zeros(K), zeros(1),
+            prepared.Tt,
+        )
+    else:
+        counts = fb_onehot.run_stats_onehot(
+            params, al2, b2, prepared.pair2, lens2, gt, prepared.Tt,
+            betas_scale=fb_onehot.beta_scale_of(fused=use_fused),
+        )
+    return _reduced_suffstats(params, A, gt, al2, b2, esym2, counts, valid0)
 
 
 def _reduced_suffstats(params: HmmParams, A, gt, al2, b2, esym2, counts, valid0) -> SuffStats:
@@ -148,14 +175,15 @@ def _reduced_suffstats(params: HmmParams, A, gt, al2, b2, esym2, counts, valid0)
 
 
 def batch_stats_stacked(params_list, chunks: torch.Tensor, lengths: torch.Tensor,
-                        prepared=None) -> tuple:
+                        prepared=None, fused: bool = True) -> tuple:
     """Per-member SuffStats of M reduced members of one K over ONE chunk
-    batch, from one launch of B24 (every member's chains) and one of B25
-    (every member's counts) — the counterpart of the JAX package's
-    ``batch_stats_pallas_stacked`` (fused arm).  Member m's stats equal
-    ``batch_stats(params_list[m], ..., engine="onehot")`` bit for bit.
-    ``prepared``: the batch's onehot chunked prep, shared by every member
-    (built here otherwise)."""
+    batch — the counterpart of the JAX package's
+    ``batch_stats_pallas_stacked``.  ``fused``: one launch of B24 (every
+    member's chains) and one of B25 (every member's counts); else the split
+    arm, one launch of B22 and one of B23 (every member's chains) and B12
+    per member.  Member m's stats equal ``batch_stats(params_list[m], ...,
+    engine="onehot", fused=fused)`` bit for bit.  ``prepared``: the batch's
+    onehot chunked prep, shared by every member (built here otherwise)."""
     S = fb_onehot.check_stacked_members(params_list)
     N, T = chunks.shape
     if prepared is None:
@@ -166,15 +194,23 @@ def batch_stats_stacked(params_list, chunks: torch.Tensor, lengths: torch.Tensor
     lens2 = prepared.lens2
     al, be, esym2 = fb_onehot.run_fb_kernels_onehot_stacked(
         params_list, lens2, [s[1] for s in setups], [s[2] for s in setups], T,
-        pair_esym=(prepared.pair2, prepared.esym2, prepared.pairn2),
+        pair_esym=(prepared.pair2, prepared.esym2, prepared.pairn2), fused=fused,
     )
-    M, NL = len(params_list), al.shape[3]
-    K = params_list[0].n_states
-    zeros = lambda *shape: torch.zeros(shape, dtype=_F32, device=al.device)
-    counts = fb_onehot.run_seq_stats_onehot_stacked(
-        params_list, al, be, prepared.pair2, lens2, zeros(M, GROUP, NL), zeros(M, K, NL),
-        zeros(1, NL), prepared.Tt,
-    )
+    if fused:
+        M, NL = len(params_list), al.shape[3]
+        K = params_list[0].n_states
+        zeros = lambda *shape: torch.zeros(shape, dtype=_F32, device=al.device)
+        counts = fb_onehot.run_seq_stats_onehot_stacked(
+            params_list, al, be, prepared.pair2, lens2, zeros(M, GROUP, NL), zeros(M, K, NL),
+            zeros(1, NL), prepared.Tt,
+        )
+    else:
+        # The split arm's cs-scaled betas pair with B12, one launch per
+        # member, each over its own contiguous slice.
+        counts = [fb_onehot.run_stats_onehot(p, al[m], be[m], prepared.pair2, lens2,
+                                             _groups(p), prepared.Tt,
+                                             betas_scale=fb_onehot.beta_scale_of(fused=False))
+                  for m, p in enumerate(params_list)]
     return tuple(
         _reduced_suffstats(p, A, _groups(p), al[m], be[m], esym2, counts[m], valid0)
         for m, (p, (A, _, _, valid0)) in enumerate(zip(params_list, setups))

@@ -1,9 +1,9 @@
 """One-hot-emission reduced forward-backward: the CUDA kernels and their
 plain PyTorch versions.
 
-Counterpart of ``cpgisland_tpu/ops/fb_onehot.py``, cut to the fused
-two-pass arm and the one-pass arm (the chunked and whole-sequence E-steps
-and the posterior).  For one-hot-emission models (the
+Counterpart of ``cpgisland_tpu/ops/fb_onehot.py``: the fused two-pass
+arm, the split arm and the one-pass arm (the chunked and whole-sequence
+E-steps and the posterior).  For one-hot-emission models (the
 flagship 8-state preset) the alpha/beta vectors are exactly zero outside
 the 2-state group of the position's symbol, so the K-state recurrences
 reduce to 2-state recurrences whose per-step 2x2 matrix is A (times the
@@ -40,11 +40,27 @@ one's — the per-pair table :func:`prob_pair_table`.
   :func:`oh_seq_stats_plain` is the twin of ``_xla_znorm_stats``; the two
   sum over time in different orders and agree within a tolerance.
 
+The split arm (``fused=False``, the JAX package's A/B baseline) runs the
+two chains in separate launches, the backward with true Rabiner scaling:
+B9 :func:`oh_fwd` (replaces ``_oh_fwd_kernel``; B4's forward, equal to its
+alphas bit for bit), B10 :func:`oh_bwd` (``_oh_bwd_kernel``: the betas
+scaled by 1 / c_{t+1} from a ``cs_next`` stream), B11 :func:`oh_bwd_conf`
+(``_oh_bwd_conf_kernel``: B10 emitting the island confidence, the betas
+never stored) and B12 :func:`oh_stats` (``_oh_stats_kernel``: the chunked
+counts, degree 1 in those cs-scaled betas, behind the ``betas_scale``
+guard of :func:`run_stats_onehot`).  B9-B11 equal their plain versions
+(twins ``_xla_fwd_onehot``, ``_xla_bwd_onehot`` and the off-TPU conf
+branch of the runner) bit for bit; B12 sums in another order than its
+plain version (the interpret branch of ``run_stats_onehot``) and agrees
+within a tolerance.
+
 The stacked half runs M models of one alphabet over ONE shared pair
 stream in one launch (the members of a comparison, a family trained in
 lockstep): B21 :func:`oh_prod_stacked` (replaces ``_oh_prod_stacked_kernel``),
-B24 :func:`oh_fwdbwd_stacked` (``_oh_fwdbwd_stacked_kernel``) and B25
-:func:`oh_seq_stats_stacked` (``_oh_seq_stats_stacked_kernel``).  Stacked
+B24 :func:`oh_fwdbwd_stacked` (``_oh_fwdbwd_stacked_kernel``), B25
+:func:`oh_seq_stats_stacked` (``_oh_seq_stats_stacked_kernel``) and the
+split arm's B22 :func:`oh_fwd_stacked` (``_oh_fwd_stacked_kernel``) and B23
+:func:`oh_bwd_stacked` (``_oh_bwd_stacked_kernel``).  Stacked
 operands are member-major (``[M, ...]``), so member m's slice is a
 contiguous single-model operand; each member's arithmetic is the
 single-model kernel's, so its outputs equal a single-model launch bit for
@@ -198,16 +214,68 @@ def conf_from_reduced(alphas2, betas2, esym2, lens2, conf_mask, gt):
     """Per-position island confidence [Tp, NL] from the reduced streams: an
     elementwise epilogue of B4.  Scale-free, so the self-normalized betas
     are exact here.  ``conf_mask`` [K] marks the island states."""
-    m0, m1 = group_select(esym2, conf_mask.to(_F32)[gt])
-    graw0 = alphas2[:, 0] * betas2[:, 0]
-    graw1 = alphas2[:, 1] * betas2[:, 1]
-    tot = torch.clamp_min(graw0 + graw1, 1e-30)
-    vmask = torch.arange(alphas2.shape[0], device=alphas2.device)[:, None] < lens2
-    return torch.where(vmask, (m0 * graw0 + m1 * graw1) / tot, 0.0)
+    return _conf_from_mtab(alphas2, betas2, esym2, lens2, conf_mask.to(_F32)[gt])
 
 
 # ---------------------------------------------------------------------------
 # B4: the co-scheduled forward and self-normalized backward chains
+
+
+def _step_matrices(tab_ext: torch.Tensor, pairs: torch.Tensor, order):
+    """Each step's 2x2 matrix as per-step [2 (summed index), 2 (output), NL]
+    views; a sum over 2 terms is one rounded addition, x0 + x1, in any
+    order.  ``order`` [0, 1, 2, 3] gives [a, c] = T[a, c] (the forward's
+    vector-matrix product), [0, 2, 1, 3] gives [c, a] = G[a, c] (the
+    backward's matrix-vector product)."""
+    Tp, NL = pairs.shape
+    nreal = tab_ext.shape[0] - 1
+    m = tab_ext[torch.clamp_max(pairs, nreal).long()][..., order]  # [Tp, NL, 4]
+    return m.reshape(Tp, NL, 2, 2).permute(0, 2, 3, 1).contiguous().unbind(0)
+
+
+def oh_fwd_plain(pair2: torch.Tensor, lens2: torch.Tensor, a0_red: torch.Tensor,
+                 tab_ext: torch.Tensor) -> torch.Tensor:
+    """Plain version of B9 -> alphas2 [Tp, 2, NL]: the twin of
+    ``_xla_fwd_onehot``, and B4's forward.
+
+    pair2 [Tp, NL] int32, lens2 [1, NL], a0_red [2, NL] the entering
+    vector, tab_ext [S*S + 1, 4] (identity last).  alpha_t = (alpha_{t-1} .
+    M_t) / sum(alpha_{t-1}) on valid steps (t < len), the entering vector
+    at t == 0, carried past the lane's length: raw_c = v0 * T[0, c] + v1 *
+    T[1, c], times 1 / (v0 + v1).  Both components are computed
+    elementwise in one [2, NL] tensor; per element the operations and
+    their order are the twin's."""
+    Tp = pair2.shape[0]
+    valid = (torch.arange(Tp, device=pair2.device)[:, None] < lens2).unbind(0)
+    fwd = _step_matrices(tab_ext, pair2, [0, 1, 2, 3])
+    alphas = [a0_red]
+    for t in range(1, Tp):
+        v = alphas[-1]
+        inv = torch.reciprocal(v.sum(0))
+        raw = (v[:, None, :] * fwd[t]).sum(0)
+        alphas.append(torch.where(valid[t], raw * inv, v))
+    return torch.stack(alphas)
+
+
+def _bwd_plain(pairn2: torch.Tensor, lens2: torch.Tensor, beta0_red: torch.Tensor,
+               tab_ext: torch.Tensor, T: int, cs_next=None) -> torch.Tensor:
+    """The backward chain, t = Tp-1 down to 0: beta_t = (M_{t+1} . beta_{t+1})
+    times a scale where t <= T-2 and t+1 < len, carried elsewhere.  b_a =
+    G[a, 0] * bn0 + G[a, 1] * bn1, the raw contraction first, then the
+    scale: 1 / sum(beta_{t+1}) (``cs_next`` None: B4's self-normalized
+    betas) or 1 / cs_next[t] (B10's true Rabiner betas)."""
+    Tp = pairn2.shape[0]
+    steps = torch.arange(Tp, device=pairn2.device)[:, None]
+    keep = ((steps <= T - 2) & (steps + 1 < lens2)).unbind(0)
+    bwd = _step_matrices(tab_ext, pairn2, [0, 2, 1, 3])
+    inv_c = None if cs_next is None else torch.reciprocal(cs_next).unbind(0)
+    betas = [beta0_red]
+    for tb in range(Tp - 1, -1, -1):
+        bn = betas[-1]
+        scale = torch.reciprocal(bn.sum(0)) if inv_c is None else inv_c[tb]
+        b = (bn[:, None, :] * bwd[tb]).sum(0) * scale
+        betas.append(torch.where(keep[tb], b, bn))
+    return torch.stack(betas[:0:-1])
 
 
 def oh_fwdbwd_plain(pair2: torch.Tensor, pairn2: torch.Tensor, lens2: torch.Tensor,
@@ -217,44 +285,12 @@ def oh_fwdbwd_plain(pair2: torch.Tensor, pairn2: torch.Tensor, lens2: torch.Tens
 
     pair2 / pairn2 [Tp, NL] int32 (pairn2[t] = pair2[t + 1]), lens2 [1, NL],
     a0_red / beta0_red [2, NL] the entering vectors, tab_ext [S*S + 1, 4]
-    (identity last), T the chunk length.  Forward: alpha_t =
-    (alpha_{t-1} . M_t) / sum(alpha_{t-1}) on valid steps, the entering
-    vector at t == 0, carried past the lane's length.  Backward: beta_t =
-    (M_{t+1} . beta_{t+1}) / sum(beta_{t+1}) for t <= min(T, len) - 2,
-    carried elsewhere.  Both components of each chain are computed
-    elementwise in one [2, NL] tensor; per element the operations and
-    their order are the twin's."""
-    Tp, NL = pair2.shape
-    nreal = tab_ext.shape[0] - 1
-    steps = torch.arange(Tp, device=pair2.device)[:, None]
-    valid = (steps < lens2).unbind(0)  # per-step [NL] views
-    keep = ((steps <= T - 2) & (steps + 1 < lens2)).unbind(0)
-
-    def matrices(pairs, order):
-        # Each step's 2x2 matrix as [2 (summed index), 2 (output), NL]; a
-        # sum over 2 terms is one rounded addition, x0 + x1, in any order.
-        m = tab_ext[torch.clamp_max(pairs, nreal).long()][..., order]  # [Tp, NL, 4]
-        return m.reshape(Tp, NL, 2, 2).permute(0, 2, 3, 1).contiguous().unbind(0)
-
-    # raw_c = v0 * T[0, c] + v1 * T[1, c], times 1 / (v0 + v1).
-    fwd = matrices(pair2, [0, 1, 2, 3])  # [a, c] = T[a, c]
-    alphas = [a0_red]
-    for t in range(1, Tp):
-        v = alphas[-1]
-        inv = torch.reciprocal(v.sum(0))
-        raw = (v[:, None, :] * fwd[t]).sum(0)
-        alphas.append(torch.where(valid[t], raw * inv, v))
-
-    # b_a = G[a, 0] * bn0 + G[a, 1] * bn1: the raw contraction first, then
-    # the previous beta's own reciprocal sum — the kernel's order.
-    bwd = matrices(pairn2, [0, 2, 1, 3])  # [c, a] = G[a, c]
-    betas = [beta0_red]
-    for tb in range(Tp - 1, -1, -1):
-        bn = betas[-1]
-        binv = torch.reciprocal(bn.sum(0))
-        b = (bn[:, None, :] * bwd[tb]).sum(0) * binv
-        betas.append(torch.where(keep[tb], b, bn))
-    return torch.stack(alphas), torch.stack(betas[:0:-1])
+    (identity last), T the chunk length.  The twin of
+    ``_xla_fwdbwd_onehot``: the forward of :func:`oh_fwd_plain`, and the
+    self-normalized backward beta_t = (M_{t+1} . beta_{t+1}) /
+    sum(beta_{t+1}) for t <= min(T, len) - 2, carried elsewhere."""
+    return (oh_fwd_plain(pair2, lens2, a0_red, tab_ext),
+            _bwd_plain(pairn2, lens2, beta0_red, tab_ext, T))
 
 
 def _check_same_device(ref: torch.Tensor, tensors) -> None:
@@ -295,6 +331,123 @@ def oh_fwdbwd(pair2: torch.Tensor, pairn2: torch.Tensor, lens2: torch.Tensor,
     _kernels.launch("oh_fwdbwd", pair2, pairn2, lens2, a0_red, beta0_red, tab_ext,
                     alphas, betas, Tp=Tp, NL=NL, nreal=tab_ext.shape[0] - 1, T=T)
     return alphas, betas
+
+
+# ---------------------------------------------------------------------------
+# B9-B11: the split arm's chains (forward alone; cs-scaled backward, or the
+# backward emitting the island confidence)
+
+
+def _check_chain_operands(pairs: torch.Tensor, lens2: torch.Tensor, tab_ext: torch.Tensor,
+                          others) -> tuple:
+    """Device, shape and type checks shared by the chain wrappers ->
+    (Tp, NL)."""
+    _check_same_device(pairs, (lens2, tab_ext, *others))
+    if pairs.dim() != 2 or 0 in pairs.shape:
+        raise ValueError(f"pair stream must be a non-empty [Tp, NL], got {tuple(pairs.shape)}")
+    Tp, NL = pairs.shape
+    _check("pairs", pairs, _I32, (Tp, NL))
+    _check("lens2", lens2, _I32, (1, NL))
+    _check_table(tab_ext)
+    return Tp, NL
+
+
+def oh_fwd(pair2: torch.Tensor, lens2: torch.Tensor, a0_red: torch.Tensor,
+           tab_ext: torch.Tensor) -> torch.Tensor:
+    """Kernel B9 (replaces the JAX package's ``_oh_fwd_kernel``) -> alphas2
+    [Tp, 2, NL] f32, equal to B4's alphas.  Arguments as
+    :func:`oh_fwd_plain`."""
+    Tp, NL = _check_chain_operands(pair2, lens2, tab_ext, (a0_red,))
+    _check("a0_red", a0_red, _F32, (GROUP, NL))
+    if pair2.device.type == "cpu":
+        return oh_fwd_plain(pair2, lens2, a0_red, tab_ext)
+    alphas = torch.empty((Tp, GROUP, NL), dtype=_F32, device=pair2.device)
+    _kernels.launch("oh_fwd", pair2, lens2, a0_red, tab_ext, alphas, Tp=Tp, NL=NL,
+                    nreal=tab_ext.shape[0] - 1)
+    return alphas
+
+
+def cs_next_of(alphas2: torch.Tensor) -> torch.Tensor:
+    """[..., Tp, NL] c_{t+1} = a0 + a1 of the alphas at t + 1, 1 at the last
+    row: the split backward's scale (``alphas2`` [..., Tp, 2, NL]).  Built
+    on the alphas' device: no host value enters the stream."""
+    cs = alphas2[..., 1:, 0, :] + alphas2[..., 1:, 1, :]
+    one = torch.ones(cs.shape[:-2] + (1, cs.shape[-1]), dtype=_F32, device=alphas2.device)
+    return torch.cat([cs, one], dim=-2).contiguous()
+
+
+def oh_bwd_plain(pairn2: torch.Tensor, lens2: torch.Tensor, cs_next: torch.Tensor,
+                 beta0_red: torch.Tensor, tab_ext: torch.Tensor, T: int) -> torch.Tensor:
+    """Plain version of B10 -> betas2 [Tp, 2, NL], the true Rabiner
+    (cs-scaled) betas: the twin of ``_xla_bwd_onehot``.  pairn2 [Tp, NL]
+    the time-shifted pairs (last row the identity's PAD), cs_next [Tp, NL]
+    (:func:`cs_next_of`), beta0_red [2, NL] the exit vector.  beta_t =
+    (G[a, 0] * bn0 + G[a, 1] * bn1) * (1 / cs_next[t]) where t <= T-2 and
+    t+1 < len, else carried."""
+    return _bwd_plain(pairn2, lens2, beta0_red, tab_ext, T, cs_next=cs_next)
+
+
+def oh_bwd(pairn2: torch.Tensor, lens2: torch.Tensor, cs_next: torch.Tensor,
+           beta0_red: torch.Tensor, tab_ext: torch.Tensor, T: int) -> torch.Tensor:
+    """Kernel B10 (replaces ``_oh_bwd_kernel``) -> betas2 [Tp, 2, NL] f32.
+    Arguments as :func:`oh_bwd_plain`."""
+    Tp, NL = _check_chain_operands(pairn2, lens2, tab_ext, (cs_next, beta0_red))
+    _check("cs_next", cs_next, _F32, (Tp, NL))
+    _check("beta0_red", beta0_red, _F32, (GROUP, NL))
+    if pairn2.device.type == "cpu":
+        return oh_bwd_plain(pairn2, lens2, cs_next, beta0_red, tab_ext, T)
+    betas = torch.empty((Tp, GROUP, NL), dtype=_F32, device=pairn2.device)
+    _kernels.launch("oh_bwd", pairn2, lens2, cs_next, beta0_red, tab_ext, betas, Tp=Tp, NL=NL,
+                    nreal=tab_ext.shape[0] - 1, T=T)
+    return betas
+
+
+def _conf_from_mtab(alphas2, betas2, esym2, lens2, mtab) -> torch.Tensor:
+    """conf [Tp, NL] = (m0 * g0 + m1 * g1) / max(g0 + g1, 1e-30) on valid
+    steps, 0 elsewhere; g = alpha * beta, (m0, m1) = mtab[esym] ([S, 2],
+    the island mask of each symbol's two group states)."""
+    m0, m1 = group_select(esym2, mtab)
+    graw0 = alphas2[:, 0] * betas2[:, 0]
+    graw1 = alphas2[:, 1] * betas2[:, 1]
+    tot = torch.clamp_min(graw0 + graw1, 1e-30)
+    vmask = torch.arange(alphas2.shape[0], device=alphas2.device)[:, None] < lens2
+    return torch.where(vmask, (m0 * graw0 + m1 * graw1) / tot, 0.0)
+
+
+def oh_bwd_conf_plain(pairn2, pair2, lens2, cs_next, beta0_red, alphas2, mtab, tab_ext,
+                      T: int) -> torch.Tensor:
+    """Plain version of B11 -> conf [Tp, NL]: the B10 betas
+    (:func:`oh_bwd_plain`) reduced to the island confidence — the twin is
+    the off-TPU branch of the JAX runner, ``(m0*g0 + m1*g1) / tot``.
+    pair2 [Tp, NL] the pairs (each position's symbol), alphas2 [Tp, 2, NL]
+    B9's alphas, mtab [S, 2] f32 the island mask of each symbol's group
+    states; the rest as :func:`oh_bwd_plain`."""
+    betas2 = oh_bwd_plain(pairn2, lens2, cs_next, beta0_red, tab_ext, T)
+    return _conf_from_mtab(alphas2, betas2, decode_esym(pair2, mtab.shape[0]), lens2, mtab)
+
+
+def oh_bwd_conf(pairn2, pair2, lens2, cs_next, beta0_red, alphas2, mtab, tab_ext,
+                T: int) -> torch.Tensor:
+    """Kernel B11 (replaces ``_oh_bwd_conf_kernel``) -> conf [Tp, NL] f32;
+    the betas never reach device memory.  Arguments as
+    :func:`oh_bwd_conf_plain`."""
+    Tp, NL = _check_chain_operands(pairn2, lens2, tab_ext,
+                                   (pair2, cs_next, beta0_red, alphas2, mtab))
+    S = mtab.shape[0]
+    _check("pair2", pair2, _I32, (Tp, NL))
+    _check("cs_next", cs_next, _F32, (Tp, NL))
+    _check("beta0_red", beta0_red, _F32, (GROUP, NL))
+    _check("alphas2", alphas2, _F32, (Tp, GROUP, NL))
+    _check("mtab", mtab, _F32, (S, GROUP))
+    if tab_ext.shape[0] != S * S + 1:
+        raise ValueError(f"pair table has {tab_ext.shape[0]} rows, expected {S * S + 1}")
+    if pair2.device.type == "cpu":
+        return oh_bwd_conf_plain(pairn2, pair2, lens2, cs_next, beta0_red, alphas2, mtab,
+                                 tab_ext, T)
+    conf = torch.empty((Tp, NL), dtype=_F32, device=pair2.device)
+    _kernels.launch("oh_bwd_conf", pairn2, pair2, lens2, cs_next, beta0_red, alphas2, mtab,
+                    tab_ext, conf, Tp=Tp, NL=NL, S=S, T=T)
+    return conf
 
 
 # ---------------------------------------------------------------------------
@@ -377,6 +530,34 @@ def oh_fwdbwd_mat(pair2: torch.Tensor, pairn2: torch.Tensor, lens2: torch.Tensor
 # B5: z-normalized counts from the reduced streams
 
 
+def _gamma_emit_ll(alphas2, betas2, esym2, vmask, S: int):
+    """The gamma rows and the loglik shared by B5's and B12's plain
+    versions: (emit_red [2S, NL] — per symbol s, the time sums of
+    normalize(alpha * beta) over its positions —, ll [1, NL] — the sum of
+    log max(c_t, 1e-30) over valid steps —, inv_cs [Tp, NL] = 1 / max(c_t,
+    1e-30)), c_t = a0 + a1."""
+    a0, a1 = alphas2[:, 0], alphas2[:, 1]
+    cs = a0 + a1
+    inv_cs = torch.reciprocal(torch.clamp_min(cs, 1e-30))
+    g0, g1 = a0 * betas2[:, 0], a1 * betas2[:, 1]
+    inv_g = torch.reciprocal(torch.clamp_min(g0 + g1, 1e-30))
+    gm0 = torch.where(vmask, g0 * inv_g, 0.0)
+    gm1 = torch.where(vmask, g1 * inv_g, 0.0)
+    emit_rows = []
+    for s in range(S):
+        m = esym2 == s
+        emit_rows.append(torch.sum(torch.where(m, gm0, 0.0), dim=0))
+        emit_rows.append(torch.sum(torch.where(m, gm1, 0.0), dim=0))
+    ll = torch.sum(torch.where(vmask, torch.log(torch.clamp_min(cs, 1e-30)), 0.0),
+                   dim=0)[None, :]
+    return torch.stack(emit_rows, dim=0), ll, inv_cs
+
+
+def _check_f32_matmul(x: torch.Tensor, what: str) -> None:
+    if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(f"{what} needs full f32 matmuls (allow_tf32 is set)")
+
+
 def oh_seq_stats_plain(alphas2, betas2, pair2, lens2, tab_ext, B_red, gt,
                        enters_full, enters_red, pair0m):
     """Plain version of B5 -> (macc [K*K, NL], emit_red [2S, NL], ll [1, NL]).
@@ -391,28 +572,14 @@ def oh_seq_stats_plain(alphas2, betas2, pair2, lens2, tab_ext, B_red, gt,
     Tp, _, NL = alphas2.shape
     S = gt.shape[0]
     K = enters_full.shape[0]
-    if alphas2.is_cuda and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError("oh_seq_stats_plain needs full f32 matmuls (allow_tf32 is set)")
+    _check_f32_matmul(alphas2, "oh_seq_stats_plain")
     T4 = tab_ext[torch.clamp_max(pair2, S * S).long()]  # [Tp, NL, 4]
     esym2 = decode_esym(pair2, S)
     el = esym2.long()
     a0, a1 = alphas2[:, 0], alphas2[:, 1]
     be0, be1 = betas2[:, 0], betas2[:, 1]
-    cs = a0 + a1
-    inv_cs = torch.reciprocal(torch.clamp_min(cs, 1e-30))
     vmask = torch.arange(Tp, device=pair2.device)[:, None] < lens2
-    g0, g1 = a0 * be0, a1 * be1
-    inv_g = torch.reciprocal(torch.clamp_min(g0 + g1, 1e-30))
-    gm0 = torch.where(vmask, g0 * inv_g, 0.0)
-    gm1 = torch.where(vmask, g1 * inv_g, 0.0)
-    emit_rows = []
-    for s in range(S):
-        m = esym2 == s
-        emit_rows.append(torch.sum(torch.where(m, gm0, 0.0), dim=0))
-        emit_rows.append(torch.sum(torch.where(m, gm1, 0.0), dim=0))
-    emit_red = torch.stack(emit_rows, dim=0)  # [2S, NL]
-    ll = torch.sum(torch.where(vmask, torch.log(torch.clamp_min(cs, 1e-30)), 0.0),
-                   dim=0)[None, :]
+    emit_red, ll, inv_cs = _gamma_emit_ll(alphas2, betas2, esym2, vmask, S)
     # The previous position's normalized alpha, the entering message at t == 0.
     ah2 = torch.stack([a0 * inv_cs, a1 * inv_cs], dim=1)  # [Tp, 2, NL]
     ah_full = scatter_streams(ah2, gt, esym2, K)
@@ -476,6 +643,80 @@ def oh_seq_stats(alphas2, betas2, pair2, lens2, tab_ext, B_red, gt, enters_full,
 
 
 # ---------------------------------------------------------------------------
+# B12: the chunked counts over the split arm's cs-scaled streams
+
+
+def oh_stats_plain(alphas2, betas2, pair2, lens2, B_red, gt):
+    """Plain version of B12 -> (macc [K*K, NL], emit_red [2S, NL], ll [1,
+    NL]), K = 2S: the twin of the interpret branch of the JAX package's
+    ``run_stats_onehot``.
+
+    alphas2 / betas2 [Tp, 2, NL] the split arm's streams (betas
+    cs-scaled: macc is DEGREE 1 in them), pair2 [Tp, NL], lens2 [1, NL],
+    B_red [S, 2], gt [S, 2] state ids.  Gamma rows and loglik as B5's;
+    the counts xi[t] = a_hat_{t-1} (x) w_t with a_hat = alpha / c and w =
+    B_red[s_t] * beta_t / c_t, scattered to the dense K rows, summed over
+    1 <= t < len (each lane's t == 0 pair excluded: every chunk lane is
+    its own record) as one batched product over t."""
+    Tp, _, NL = alphas2.shape
+    S = gt.shape[0]
+    K = GROUP * S
+    _check_f32_matmul(alphas2, "oh_stats_plain")
+    esym2 = decode_esym(pair2, S)
+    el = esym2.long()
+    a0, a1 = alphas2[:, 0], alphas2[:, 1]
+    be0, be1 = betas2[:, 0], betas2[:, 1]
+    steps = torch.arange(Tp, device=pair2.device)[:, None]
+    vmask = steps < lens2
+    emit_red, ll, inv_cs = _gamma_emit_ll(alphas2, betas2, esym2, vmask, S)
+    w_full = scatter_streams(
+        torch.stack([B_red[el, 0] * be0 * inv_cs, B_red[el, 1] * be1 * inv_cs], dim=1),
+        gt, esym2, K)
+    a_hat = scatter_streams(torch.stack([a0 * inv_cs, a1 * inv_cs], dim=1), gt, esym2, K)
+    pairm = (vmask & (steps >= 1))[:, None, :]
+    aprev = torch.cat([torch.zeros_like(a_hat[:1]), a_hat[:-1]], dim=0)
+    aprev = torch.where(pairm, aprev, 0.0)
+    wq = torch.where(pairm, w_full, 0.0)
+    macc = torch.einsum("tin,tjn->ijn", aprev, wq).reshape(K * K, NL)
+    return macc, emit_red, ll
+
+
+def oh_stats(alphas2, betas2, pair2, lens2, B_red, gt, Tt: int):
+    """Kernel B12 (replaces ``_oh_stats_kernel``) -> (macc, emit_red, ll).
+    Arguments as :func:`oh_stats_plain` (gt int32); the kernel reduces each
+    lane in segments of ``Tt`` steps, then sums the segments in order with
+    B5's reduce kernel (no atomics: the result does not change from run to
+    run)."""
+    _check_same_device(pair2, (alphas2, betas2, lens2, B_red, gt))
+    if pair2.dim() != 2 or 0 in pair2.shape:
+        raise ValueError(f"pair2 must be a non-empty [Tp, NL], got {tuple(pair2.shape)}")
+    Tp, NL = pair2.shape
+    S = gt.shape[0]
+    K = GROUP * S
+    if S > MAX_SYMBOLS:
+        raise ValueError(f"{S} symbols: the stats kernel takes at most {MAX_SYMBOLS}")
+    _check("alphas2", alphas2, _F32, (Tp, GROUP, NL))
+    _check("betas2", betas2, _F32, (Tp, GROUP, NL))
+    _check("pair2", pair2, _I32, (Tp, NL))
+    _check("lens2", lens2, _I32, (1, NL))
+    _check("B_red", B_red, _F32, (S, GROUP))
+    _check("gt", gt, _I32, (S, GROUP))
+    if Tt <= 0:
+        raise ValueError(f"Tt must be positive, got {Tt}")
+    if pair2.device.type == "cpu":
+        return oh_stats_plain(alphas2, betas2, pair2, lens2, B_red, gt)
+    dev = pair2.device
+    rows = 4 * S * S + 2 * S + 1  # per-lane accumulators: pair bins, emit, ll
+    part = torch.empty((-(-Tp // Tt), rows, NL), dtype=_F32, device=dev)
+    macc = torch.empty((K * K, NL), dtype=_F32, device=dev)
+    emit_red = torch.empty((2 * S, NL), dtype=_F32, device=dev)
+    ll = torch.empty((1, NL), dtype=_F32, device=dev)
+    _kernels.launch("oh_stats", alphas2, betas2, pair2, lens2, B_red, gt, part, macc, emit_red,
+                    ll, Tp=Tp, NL=NL, S=S, K=K, Tt=Tt)
+    return macc, emit_red, ll
+
+
+# ---------------------------------------------------------------------------
 # Runners (the JAX module's entry points)
 
 
@@ -508,24 +749,35 @@ def run_fb_kernels_onehot(params: HmmParams, sel_t, prev_dev, lens2: torch.Tenso
     entry / exit group here.  ``pair_esym``: a prepared (pair2, esym2,
     pairn2) stream (esym2 may be None: it is derived from pair2);
     otherwise it is built from ``sel_t`` and ``prev_dev``.  Returns
-    (alphas2 [Tp, 2, NL], betas2 [Tp, 2, NL] self-normalized, esym2
-    [Tp, NL]); with ``conf_mask`` ([K] island indicator) the second slot
-    is the island confidence [Tp, NL] instead (:func:`conf_from_reduced`
-    over B4's streams).  Unlike the JAX runner it returns no Rabiner
-    scales: no consumer here reads them."""
-    if not fused:
-        raise NotImplementedError(
-            "the split forward/backward arm (kernels B9, B10, B11, B12) is "
-            "not ported yet (ROADMAP §B)"
-        )
+    (alphas2 [Tp, 2, NL], betas2 [Tp, 2, NL], esym2 [Tp, NL]).
+
+    ``fused`` (the default) runs B4: both chains in one launch, the betas
+    SELF-NORMALIZED per-position directions — exact for every scale-free
+    consumer (the confidence ratio, the z-normalized counts, the MPM
+    argmax), wrong for B12's cs-scaled counts.  ``fused=False`` is the
+    split arm: B9, then B10 over ``cs_next`` (:func:`cs_next_of`), the betas
+    true Rabiner (cs-scaled).  With ``conf_mask`` ([K] island indicator)
+    the second slot is the island confidence [Tp, NL] instead: on the fused
+    arm :func:`conf_from_reduced` over B4's streams, on the split arm B11,
+    which never stores the betas.  Unlike the JAX runner it returns no
+    Rabiner scales: no consumer here reads them."""
     gt = _groups(params)
     pair2, esym2, pairn2 = _streams(params.n_symbols, pair_esym, sel_t, prev_dev)
     a0_red, beta0_red = _reduced_operands(params, gt, esym2, a0_raw, beta0)
-    alphas2, betas2 = oh_fwdbwd(pair2, pairn2, lens2, a0_red, beta0_red,
-                                prob_tab_ext(params, gt), T)
+    tab_ext = prob_tab_ext(params, gt)
+    if fused:
+        alphas2, betas2 = oh_fwdbwd(pair2, pairn2, lens2, a0_red, beta0_red, tab_ext, T)
+        if conf_mask is not None:
+            return alphas2, conf_from_reduced(alphas2, betas2, esym2, lens2, conf_mask,
+                                              gt), esym2
+        return alphas2, betas2, esym2
+    alphas2 = oh_fwd(pair2, lens2, a0_red, tab_ext)
+    cs_next = cs_next_of(alphas2)
     if conf_mask is not None:
-        return alphas2, conf_from_reduced(alphas2, betas2, esym2, lens2, conf_mask, gt), esym2
-    return alphas2, betas2, esym2
+        mtab = conf_mask.to(_F32)[gt].contiguous()
+        return alphas2, oh_bwd_conf(pairn2, pair2, lens2, cs_next, beta0_red, alphas2, mtab,
+                                    tab_ext, T), esym2
+    return alphas2, oh_bwd(pairn2, lens2, cs_next, beta0_red, tab_ext, T), esym2
 
 
 def run_fb_mat_onehot(params: HmmParams, lens2: torch.Tensor, T: int, pair_esym):
@@ -603,6 +855,46 @@ def run_seq_stats_onehot(params: HmmParams, alphas2, betas2, pair2, lens2, gt,
     B_red = reduced_emissions(params, gt)
     return oh_seq_stats(alphas2, betas2, pair2, lens2, prob_tab_ext(params, gt), B_red,
                         gt.to(_I32).contiguous(), enters_full, enters_red, pair0_mask, Tt)
+
+
+def beta_scale_of(fused: bool, one_pass: bool = False) -> str:
+    """The scale of the betas a forward-backward launch produced: "cs" (the
+    split arm: true Rabiner, cs-scaled), "selfnorm" (the fused arm's
+    per-position directions) or "matrix" (the one-pass arm's contraction,
+    also directions).  Route points pass it to :func:`run_stats_onehot`'s
+    ``betas_scale``, so pairing B12 with direction betas raises."""
+    if one_pass:
+        return "matrix"
+    return "selfnorm" if fused else "cs"
+
+
+def run_stats_onehot(params: HmmParams, alphas2, betas2, pair2, lens2, gt, Tt: int, *,
+                     betas_scale: str = "cs"):
+    """Chunked counts from the split arm's reduced streams (B12): (macc
+    [K*K, NL] — trans = A * macc summed over lanes; emit_red [2S, NL],
+    emit_full[gt[s, c], s] = emit_red[2s + c]; ll [1, NL]).  Power-of-two
+    S only; callers fall back to the dense stats kernel otherwise.
+
+    ``betas_scale`` guards the route: macc is DEGREE 1 in the betas, so
+    only "cs" betas (the split backward's) are legal.  "selfnorm" (fused)
+    and "matrix" (one-pass) betas are per-position directions and raise:
+    those arms route :func:`run_seq_stats_onehot` (z-normalized, scale-free
+    in the betas) with zero enters and an all-zero pair0 mask."""
+    if betas_scale != "cs":
+        raise ValueError(
+            f"run_stats_onehot is cs-scaled (macc is degree 1 in the betas) but was routed "
+            f"{betas_scale!r} betas: self-normalized directions must pair with the "
+            "z-normalized run_seq_stats_onehot (zero enters, all-zero pair0 mask); that "
+            "pairing is a bug"
+        )
+    S = params.n_symbols
+    if S & (S - 1):
+        raise ValueError(
+            "run_stats_onehot takes power-of-two n_symbols only; callers fall back to the "
+            "dense stats kernel otherwise"
+        )
+    return oh_stats(alphas2, betas2, pair2, lens2, reduced_emissions(params, gt),
+                    gt.to(_I32).contiguous(), Tt)
 
 
 # ---------------------------------------------------------------------------
@@ -688,36 +980,61 @@ def products_reduced_stacked(params_list, pair2: torch.Tensor) -> list:
     return [r.T.reshape(NL, GROUP, GROUP) for r in red]
 
 
+def _stacked_step(tabs: torch.Tensor, pairs_t: torch.Tensor, order) -> torch.Tensor:
+    """One step's matrices of every member, [M, 2 (summed index), 2
+    (output), NL] (``order`` as in :func:`_step_matrices`)."""
+    M, NL = tabs.shape[0], pairs_t.shape[0]
+    m = tabs[:, torch.clamp_max(pairs_t, tabs.shape[1] - 1).long()][..., order]  # [M, NL, 4]
+    return m.reshape(M, NL, 2, 2).permute(0, 2, 3, 1)
+
+
+def oh_fwd_stacked_plain(pair2, lens2, a0_red, tabs) -> torch.Tensor:
+    """Plain version of B22 -> alphas [M, Tp, 2, NL]: :func:`oh_fwd_plain`
+    for every member (a0_red [M, 2, NL], tabs [M, S*S + 1, 4]), the member
+    axis carried through one step loop (per member the same operations).
+    The twin of ``_xla_fwd_onehot_stacked``."""
+    Tp = pair2.shape[0]
+    valid = (torch.arange(Tp, device=pair2.device)[:, None] < lens2).unbind(0)
+    alphas = [a0_red]
+    for t in range(1, Tp):
+        v = alphas[-1]
+        inv = torch.reciprocal(v.sum(1))
+        raw = (v[:, :, None, :] * _stacked_step(tabs, pair2[t], [0, 1, 2, 3])).sum(1)
+        alphas.append(torch.where(valid[t], raw * inv[:, None], v))
+    return torch.stack(alphas, dim=1)
+
+
+def _bwd_stacked_plain(pairn2, lens2, beta0_red, tabs, T: int, cs_next=None) -> torch.Tensor:
+    """:func:`_bwd_plain` for every member (beta0_red [M, 2, NL], cs_next
+    [M, Tp, NL] or None), the member axis carried through one step loop."""
+    Tp = pairn2.shape[0]
+    steps = torch.arange(Tp, device=pairn2.device)[:, None]
+    keep = ((steps <= T - 2) & (steps + 1 < lens2)).unbind(0)
+    inv_c = None if cs_next is None else torch.reciprocal(cs_next).unbind(1)
+    betas = [beta0_red]
+    for tb in range(Tp - 1, -1, -1):
+        bn = betas[-1]
+        scale = torch.reciprocal(bn.sum(1)) if inv_c is None else inv_c[tb]
+        b = (bn[:, :, None, :] * _stacked_step(tabs, pairn2[tb], [0, 2, 1, 3])).sum(1) * \
+            scale[:, None]
+        betas.append(torch.where(keep[tb], b, bn))
+    return torch.stack(betas[:0:-1], dim=1)
+
+
+def oh_bwd_stacked_plain(pairn2, lens2, cs_next, beta0_red, tabs, T: int) -> torch.Tensor:
+    """Plain version of B23 -> betas [M, Tp, 2, NL]: :func:`oh_bwd_plain`
+    for every member (cs_next [M, Tp, NL], beta0_red [M, 2, NL]).  The twin
+    of ``_xla_bwd_onehot_stacked``."""
+    return _bwd_stacked_plain(pairn2, lens2, beta0_red, tabs, T, cs_next=cs_next)
+
+
 def oh_fwdbwd_stacked_plain(pair2, pairn2, lens2, a0_red, beta0_red, tabs, T: int):
     """Plain version of B24 -> (alphas [M, Tp, 2, NL], betas [M, Tp, 2,
     NL]): :func:`oh_fwdbwd_plain` for every member (a0_red / beta0_red
     [M, 2, NL], tabs [M, S*S + 1, 4]), the member axis carried through one
     step loop per direction."""
-    Tp, NL = pair2.shape
-    M = tabs.shape[0]
-    nreal = tabs.shape[1] - 1
-    steps = torch.arange(Tp, device=pair2.device)[:, None]
-    valid = (steps < lens2).unbind(0)
-    keep = ((steps <= T - 2) & (steps + 1 < lens2)).unbind(0)
-
-    def matrices(pairs, t, order):
-        # Step t's matrices [M, 2 (summed index), 2 (output), NL].
-        m = tabs[:, torch.clamp_max(pairs[t], nreal).long()][..., order]  # [M, NL, 4]
-        return m.reshape(M, NL, 2, 2).permute(0, 2, 3, 1)
-
-    alphas = [a0_red]
-    for t in range(1, Tp):
-        v = alphas[-1]
-        inv = torch.reciprocal(v.sum(1))
-        raw = (v[:, :, None, :] * matrices(pair2, t, [0, 1, 2, 3])).sum(1)
-        alphas.append(torch.where(valid[t], raw * inv[:, None], v))
-    betas = [beta0_red]
-    for tb in range(Tp - 1, -1, -1):
-        bn = betas[-1]
-        binv = torch.reciprocal(bn.sum(1))
-        b = (bn[:, :, None, :] * matrices(pairn2, tb, [0, 2, 1, 3])).sum(1) * binv[:, None]
-        betas.append(torch.where(keep[tb], b, bn))
-    return torch.stack(alphas, dim=1), torch.stack(betas[:0:-1], dim=1)
+    return (oh_fwd_stacked_plain(pair2, lens2, a0_red, tabs),
+            _bwd_stacked_plain(pairn2, lens2, beta0_red, tabs, T))
 
 
 def oh_fwdbwd_stacked(pair2, pairn2, lens2, a0_red, beta0_red, tabs, T: int):
@@ -743,28 +1060,69 @@ def oh_fwdbwd_stacked(pair2, pairn2, lens2, a0_red, beta0_red, tabs, T: int):
     return alphas, betas
 
 
+def _check_stacked_chain(pairs, lens2, tabs, others) -> tuple:
+    """(Tp, NL, M) of a stacked chain launch, its operands checked."""
+    _check_same_device(pairs, (lens2, tabs, *others))
+    if pairs.dim() != 2 or 0 in pairs.shape:
+        raise ValueError(f"pair stream must be a non-empty [Tp, NL], got {tuple(pairs.shape)}")
+    Tp, NL = pairs.shape
+    M = _check_stacked_tables(tabs)
+    _check("pairs", pairs, _I32, (Tp, NL))
+    _check("lens2", lens2, _I32, (1, NL))
+    return Tp, NL, M
+
+
+def oh_fwd_stacked(pair2, lens2, a0_red, tabs) -> torch.Tensor:
+    """Kernel B22 (replaces ``_oh_fwd_stacked_kernel``): B9 with a member
+    grid dimension -> alphas [M, Tp, 2, NL] f32; member m's equal B9's on
+    its own operands.  Arguments as :func:`oh_fwd_stacked_plain`."""
+    Tp, NL, M = _check_stacked_chain(pair2, lens2, tabs, (a0_red,))
+    _check("a0_red", a0_red, _F32, (M, GROUP, NL))
+    if pair2.device.type == "cpu":
+        return oh_fwd_stacked_plain(pair2, lens2, a0_red, tabs)
+    alphas = torch.empty((M, Tp, GROUP, NL), dtype=_F32, device=pair2.device)
+    _kernels.launch("oh_fwd_stacked", pair2, lens2, a0_red, tabs, alphas, Tp=Tp, NL=NL,
+                    nreal=tabs.shape[1] - 1, M=M)
+    return alphas
+
+
+def oh_bwd_stacked(pairn2, lens2, cs_next, beta0_red, tabs, T: int) -> torch.Tensor:
+    """Kernel B23 (replaces ``_oh_bwd_stacked_kernel``): B10 with a member
+    grid dimension -> betas [M, Tp, 2, NL] f32; member m's equal B10's on
+    its own operands.  Arguments as :func:`oh_bwd_stacked_plain`."""
+    Tp, NL, M = _check_stacked_chain(pairn2, lens2, tabs, (cs_next, beta0_red))
+    _check("cs_next", cs_next, _F32, (M, Tp, NL))
+    _check("beta0_red", beta0_red, _F32, (M, GROUP, NL))
+    if pairn2.device.type == "cpu":
+        return oh_bwd_stacked_plain(pairn2, lens2, cs_next, beta0_red, tabs, T)
+    betas = torch.empty((M, Tp, GROUP, NL), dtype=_F32, device=pairn2.device)
+    _kernels.launch("oh_bwd_stacked", pairn2, lens2, cs_next, beta0_red, tabs, betas, Tp=Tp,
+                    NL=NL, nreal=tabs.shape[1] - 1, T=T, M=M)
+    return betas
+
+
 def run_fb_kernels_onehot_stacked(params_list, lens2: torch.Tensor, a0_raws, beta0s, T: int,
                                   *, pair_esym, fused: bool = True, conf_masks=None):
     """:func:`run_fb_kernels_onehot` for M members over ONE shared
-    prepared stream ``pair_esym`` = (pair2, esym2 or None, pairn2), through
-    one launch of B24.  ``a0_raws`` / ``beta0s``: per-member [K_m, NL]
-    entering vectors.  Returns (alphas [M, Tp, 2, NL], betas [M, Tp, 2, NL]
-    self-normalized, esym2); with ``conf_masks`` (per-member [K_m] island
-    indicators) the second slot is the list of per-member confidences
-    [Tp, NL] (:func:`conf_from_reduced`)."""
-    if not fused:
-        raise NotImplementedError(
-            "the stacked split forward/backward arm (kernels B22, B23) is not ported "
-            "yet (ROADMAP A14)"
-        )
+    prepared stream ``pair_esym`` = (pair2, esym2 or None, pairn2): one
+    launch of B24 (``fused``, the betas self-normalized), or of B22 and one
+    of B23 (the split arm, the betas cs-scaled).  ``a0_raws`` / ``beta0s``:
+    per-member [K_m, NL] entering vectors.  Returns (alphas [M, Tp, 2, NL],
+    betas [M, Tp, 2, NL], esym2); with ``conf_masks`` (per-member [K_m]
+    island indicators) the second slot is the list of per-member
+    confidences [Tp, NL] (:func:`conf_from_reduced`, on both arms)."""
     S = check_stacked_members(params_list)
     pair2, esym2, pairn2 = _streams(S, pair_esym, None, None)
     gts, tabs = stacked_tables(params_list)
     reds = [_reduced_operands(p, gt, esym2, a0, b0)
             for p, gt, a0, b0 in zip(params_list, gts, a0_raws, beta0s)]
-    alphas, betas = oh_fwdbwd_stacked(
-        pair2, pairn2, lens2, torch.stack([a for a, _ in reds]),
-        torch.stack([b for _, b in reds]), tabs, T)
+    a0_st = torch.stack([a for a, _ in reds])
+    b0_st = torch.stack([b for _, b in reds])
+    if fused:
+        alphas, betas = oh_fwdbwd_stacked(pair2, pairn2, lens2, a0_st, b0_st, tabs, T)
+    else:
+        alphas = oh_fwd_stacked(pair2, lens2, a0_st, tabs)
+        betas = oh_bwd_stacked(pairn2, lens2, cs_next_of(alphas), b0_st, tabs, T)
     if conf_masks is None:
         return alphas, betas, esym2
     confs = [conf_from_reduced(alphas[m], betas[m], esym2, lens2, conf_masks[m], gts[m])

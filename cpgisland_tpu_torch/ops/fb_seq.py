@@ -15,12 +15,17 @@ emission models such as the flagship) runs B7 (``fb_onehot.oh_prod``,
 stays in the 2-component group space.  The dense one ("pallas", any
 model with K <= 8) runs B17 (``fb_pallas.fb_prod``, K x K products), B16
 and B18 — or B19, which emits the island confidence, when no path is
-asked for — with the combine over [NL, K, K].  Only the fused two-pass
-arm and the one-pass arm of the reduced engine are ported (the split arm,
-B9-B12, is not): with ``one_pass`` B8 (``fb_onehot.oh_fwdbwd_mat``)
-carries both chains as 2x2 matrices from the identity, so it runs before
-the boundary messages exist, the lane products fall out of its epilogue,
-and one pass over the sequence replaces B7 and B4.  The glue spells every
+asked for — with the combine over [NL, K, K].  The reduced engine has
+three arms, as in the JAX package.  The fused two-pass arm (the default)
+runs B7 and B4.  The split arm (``fused=False``) runs B7, then the chains
+in two launches: B9 (``fb_onehot.oh_fwd``) and B10 (``fb_onehot.oh_bwd``,
+true Rabiner betas), or B11 (``fb_onehot.oh_bwd_conf``) when only the
+confidence is asked for; every consumer here is scale-free in the betas,
+so both arms give the same results to rounding.  With ``one_pass`` B8
+(``fb_onehot.oh_fwdbwd_mat``) carries both chains as 2x2 matrices from the
+identity, so it runs before the boundary messages exist, the lane products
+fall out of its epilogue, and one pass over the sequence replaces B7 and
+B4; it takes precedence over ``fused``.  The glue spells every
 contraction as an explicit sum in a fixed order (sums over K in order, the
 one total row-major), so it gives the same float32 bits on the CPU and on
 the card.
@@ -30,7 +35,8 @@ the card.
 assembly in plain torch over the dense ones.
 
 ``seq_posterior_stacked`` runs M reduced members over one record through
-the stacked kernels (B21 products, B24 chains), each member's boundary glue
+the stacked kernels (B21 products, B24 chains, or B22 and B23 on the split
+arm), each member's boundary glue
 the single-model one; ``batch_stats_stacked`` (``ops/fb_chunked.py``) is its
 chunked E-step counterpart.
 
@@ -264,7 +270,7 @@ def _lane_streams(params: HmmParams, obs: torch.Tensor, length: int,
                   lane_T: Optional[int] = None, *,
                   enter_dir=None, exit_dir=None, first: bool = True, conf_mask=None,
                   prev_sym: Optional[int] = None, prepared: Optional[PreparedSeq] = None,
-                  one_pass: bool = False, return_reduced: bool = False):
+                  one_pass: bool = False, return_reduced: bool = False, fused: bool = True):
     """Lane transfer products -> boundary messages -> the reduced streams.
 
     ``first``: this span starts the sequence (global position 0 is the
@@ -279,6 +285,8 @@ def _lane_streams(params: HmmParams, obs: torch.Tensor, length: int,
     unchanged, and :func:`fb_onehot.contract_mat_streams` applies the entry
     directions: one T-scaling pass in place of B7 and B4.  The streams then
     carry matrix-total scales — exact for every scale-free consumer.
+    Otherwise ``fused`` picks the chains: B4 (self-normalized betas) or the
+    split arm's B9 and B10 (cs-scaled betas; B11 with ``conf_mask``).
     ``return_reduced`` (without ``conf_mask``): return (alphas2, betas2,
     esym2, lens2, prep, enters_red, ll_lane) for the seq-stats consumer;
     ll_lane is the one-pass arm's telescoped loglik [1, NL]
@@ -305,7 +313,7 @@ def _lane_streams(params: HmmParams, obs: torch.Tensor, length: int,
     else:
         al2, third2, esym2 = fb_onehot.run_fb_kernels_onehot(
             params, None, None, lens2, v0.T, beta_exits.T, prep.lane_T,
-            pair_esym=(prep.pair2, None, prep.pairn2), conf_mask=conf_mask,
+            pair_esym=(prep.pair2, None, prep.pairn2), conf_mask=conf_mask, fused=fused,
         )
     if return_reduced and conf_mask is None:
         return al2, third2, esym2, lens2, prep, enters_red, ll_lane
@@ -314,15 +322,16 @@ def _lane_streams(params: HmmParams, obs: torch.Tensor, length: int,
 
 def _lane_streams_stacked(params_list, obs: torch.Tensor, length: int,
                           lane_T: Optional[int] = None, *, conf_masks=None,
-                          prepared: Optional[PreparedSeq] = None):
+                          prepared: Optional[PreparedSeq] = None, fused: bool = True):
     """:func:`_lane_streams` for M reduced members of one alphabet over one
     record (a first span with a free end): the symbol-only prep is built
     once, every member's lane products come from one launch of B21, the
     boundary glue runs per member (:func:`_reduced_lane_inputs`), and the
-    chains from one launch of B24.  The counterpart of the JAX package's
-    ``fb_pallas._lane_streams_stacked``.  Returns (alphas [M, lane_T, 2,
-    NL], betas [M, lane_T, 2, NL] — or, with ``conf_masks``, the list of
-    per-member confidences [lane_T, NL] —, esym2, lens2)."""
+    chains from one launch of B24 (``fused``) or of B22 and B23.  The
+    counterpart of the JAX package's ``fb_pallas._lane_streams_stacked``.
+    Returns (alphas [M, lane_T, 2, NL], betas [M, lane_T, 2, NL] — or, with
+    ``conf_masks``, the list of per-member confidences [lane_T, NL] —,
+    esym2, lens2)."""
     fb_onehot.check_stacked_members(params_list)
     prep = _prep_for(params_list[0], obs, length, lane_T, True, None, prepared)
     reds = fb_onehot.products_reduced_stacked(params_list, prep.pair2)
@@ -331,7 +340,7 @@ def _lane_streams_stacked(params_list, obs: torch.Tensor, length: int,
     lens2 = prep.lane_lens[None, :].contiguous()
     al, third, esym2 = fb_onehot.run_fb_kernels_onehot_stacked(
         params_list, lens2, [v0.T for v0, _ in inputs], [b.T for _, b in inputs], prep.lane_T,
-        pair_esym=(prep.pair2, None, prep.pairn2), conf_masks=conf_masks,
+        pair_esym=(prep.pair2, None, prep.pairn2), conf_masks=conf_masks, fused=fused,
     )
     return al, third, esym2, lens2
 
@@ -391,7 +400,7 @@ def _scale_free_stats(params: HmmParams, alphas, betas, cs, steps2, lens2, enter
 def seq_stats(params: HmmParams, obs: torch.Tensor, length: int, *,
               lane_T: Optional[int] = None, engine: str = "onehot",
               prepared: Optional[PreparedSeq] = None, one_pass: bool = False,
-              t_tile: int = DEFAULT_T_TILE) -> SuffStats:
+              t_tile: int = DEFAULT_T_TILE, fused: bool = True) -> SuffStats:
     """Exact whole-sequence sufficient statistics of ONE sequence on one
     device (n_seqs 1): the counterpart of ``seq_stats_pallas`` and its
     ``_seq_stats_core(axis=None)``.
@@ -406,15 +415,16 @@ def seq_stats(params: HmmParams, obs: torch.Tensor, length: int, *,
     scattered to dense), take the scale-free assembly
     (:func:`_scale_free_stats`).  ``one_pass`` applies to the first branch
     only; elsewhere the two-pass arm runs, bit for bit as without it.
-    ``prepared``: the sequence's prep for the engine (built here
-    otherwise)."""
+    ``fused=False`` runs the reduced engine's split chains (B9, B10): B5 is
+    z-normalized, so it is exact over their cs-scaled betas.  ``prepared``:
+    the sequence's prep for the engine (built here otherwise)."""
     onehot = _check_engine(engine)
     K, S = params.n_states, params.n_symbols
     if onehot:
         kernel_stats = S & (S - 1) == 0
         al2, b2, esym2, lens2, prep, enters_red, ll_lane = _lane_streams(
             params, obs, length, lane_T, prepared=prepared, one_pass=one_pass and kernel_stats,
-            return_reduced=True)
+            return_reduced=True, fused=fused)
         gt = _groups(params)
         if not kernel_stats:
             # Scattered to dense [Tp, K, NL] (exact: out-of-group entries are
@@ -469,15 +479,16 @@ def seq_posterior(params: HmmParams, obs: torch.Tensor, length: int, island_mask
                   enter_dir=None, exit_dir=None, first: bool = True, want_path: bool = False,
                   lane_T: Optional[int] = None, prev_sym: Optional[int] = None,
                   prepared: Optional[PreparedSeq] = None, engine: str = "onehot",
-                  one_pass: bool = False):
+                  one_pass: bool = False, fused: bool = True):
     """Single-device posterior of one span: (conf [T] f32, MPM path [T]
     int32 — zeros unless ``want_path``), on ``obs``'s device (the params'
-    device).  The twin of ``seq_posterior_pallas(fused=True)`` and its
+    device).  The twin of ``seq_posterior_pallas`` and its
     ``_seq_posterior_core``, through the reduced (``engine="onehot"``) or
     the dense (``"pallas"``) kernels; without ``want_path`` the dense
     engine's backward (B19) emits the confidence directly.  ``one_pass``
     (reduced engine; ignored on the dense one, as in the JAX package): B8
-    in place of B7 and B4.
+    in place of B7 and B4; else ``fused=False`` (reduced engine) runs the
+    split chains, B9 with B11 (confidence only) or B10.
 
     ``island_mask``: [K] 0/1, the island states; conf[t] is the posterior
     mass on them.  ``prepared``: the span's :class:`PreparedSeq` for the
@@ -496,6 +507,7 @@ def seq_posterior(params: HmmParams, obs: torch.Tensor, length: int, island_mask
         conf2, path2 = fb_pallas._conf_path_from_streams(alphas, betas, lens2, island_mask)
         return conf2.T.reshape(-1)[:T], path2.T.reshape(-1)[:T]
     kw["one_pass"] = one_pass
+    kw["fused"] = fused
     if not want_path:
         _, conf2, _, _ = _lane_streams(params, obs, length, lane_T, conf_mask=island_mask,
                                        prev_sym=prev_sym, **kw)
@@ -509,24 +521,27 @@ def seq_posterior(params: HmmParams, obs: torch.Tensor, length: int, island_mask
 
 def seq_posterior_stacked(params_list, obs: torch.Tensor, length: int, island_masks, *,
                           want_path: bool = False, lane_T: Optional[int] = None,
-                          prepared: Optional[PreparedSeq] = None):
+                          prepared: Optional[PreparedSeq] = None, fused: bool = True):
     """:func:`seq_posterior` (reduced engine, one first span, free end) for
     M members of one alphabet over ONE record, through the stacked kernels
-    B21 and B24: (conf [M, T] f32, path [M, T] int32 — zeros unless
-    ``want_path``).  Member m's rows equal ``seq_posterior(params_list[m],
-    ..., engine="onehot")`` on the same input and geometry bit for bit.
-    The twin of ``seq_posterior_pallas_stacked``."""
+    B21 and B24 (or, ``fused=False``, B22 and B23): (conf [M, T] f32, path
+    [M, T] int32 — zeros unless ``want_path``).  Member m's rows equal
+    ``seq_posterior(params_list[m], ..., engine="onehot", fused=fused)`` on
+    the same input and geometry bit for bit (on the split arm the
+    confidence comes from :func:`fb_onehot.conf_from_reduced`, as in the JAX
+    package's stacked epilogue: B11's arithmetic).  The twin of
+    ``seq_posterior_pallas_stacked``."""
     T = obs.shape[0]
     M = len(params_list)
     dev = params_list[0].device
     masks = [torch.as_tensor(m, dtype=_F32, device=dev) for m in island_masks]
     if not want_path:
         _, confs, _, _ = _lane_streams_stacked(params_list, obs, length, lane_T,
-                                               conf_masks=masks, prepared=prepared)
+                                               conf_masks=masks, prepared=prepared, fused=fused)
         return (torch.stack([c.T.reshape(-1)[:T] for c in confs]),
                 torch.zeros((M, T), dtype=torch.int32, device=obs.device))
     al, be, esym2, lens2 = _lane_streams_stacked(params_list, obs, length, lane_T,
-                                                 prepared=prepared)
+                                                 prepared=prepared, fused=fused)
     confs, paths = [], []
     for m, params in enumerate(params_list):
         conf2, path2 = _conf_path_from_streams(al[m], be[m], esym2, lens2, masks[m],
@@ -538,11 +553,12 @@ def seq_posterior_stacked(params_list, obs: torch.Tensor, length: int, island_ma
 
 def batch_posterior(params: HmmParams, chunks: torch.Tensor, lengths: torch.Tensor,
                     island_mask, *, want_path: bool = False, t_tile: int = DEFAULT_T_TILE,
-                    engine: str = "onehot"):
+                    engine: str = "onehot", fused: bool = True):
     """Posterior of a [N, T] batch of independent records, one record per
     lane (the chunked layout: pi at the start, a free end — exact, since
-    each record fits its lane), through B4 (``engine="onehot"``) or B16
-    with B18 / B19 (``"pallas"``).  Returns (conf [N, T] f32, path [N, T]
+    each record fits its lane), through B4 (``engine="onehot"``; with
+    ``fused=False`` B9 and B11, or B10 with ``want_path``) or B16 with B18 /
+    B19 (``"pallas"``).  Returns (conf [N, T] f32, path [N, T]
     int32 — zeros unless ``want_path``).  The twin of
     ``batch_posterior_pallas``."""
     onehot = _check_engine(engine)
@@ -566,11 +582,11 @@ def batch_posterior(params: HmmParams, chunks: torch.Tensor, lengths: torch.Tens
     if not want_path:
         _, conf2, _ = fb_onehot.run_fb_kernels_onehot(
             params, None, None, prep.lens2, a0_raw, beta0, T, pair_esym=streams,
-            conf_mask=mask,
+            conf_mask=mask, fused=fused,
         )
         return conf2.T[:N, :T], no_path
     al2, b2, esym2 = fb_onehot.run_fb_kernels_onehot(
-        params, None, None, prep.lens2, a0_raw, beta0, T, pair_esym=streams,
+        params, None, None, prep.lens2, a0_raw, beta0, T, pair_esym=streams, fused=fused,
     )
     conf2, path2 = _conf_path_from_streams(al2, b2, esym2, prep.lens2, mask, _groups(params))
     return conf2.T[:N, :T], path2.T[:N, :T]

@@ -3,13 +3,15 @@
 Counterpart of ``cpgisland_tpu/parallel/posterior.py``, for one device:
 per-position island confidence P(position in island | whole record) and
 the max-posterior-marginal path, through ``ops.fb_seq`` on the reduced
-one-hot engine (kernels B7 and B4, or B8 with ``one_pass``) or the dense
-one (B17, B16 and B18, or B19 for the confidence alone).  The JAX package shards a
+one-hot engine (kernels B7 and B4; B7, B9 and B10 or B11 on the split arm,
+``fused=False``; B8 with ``one_pass``) or the dense one (B17, B16 and B18,
+or B19 for the confidence alone).  The JAX package shards a
 record over a mesh; here the mesh has one member, so the cross-device
 exchange is the identity.  Span threading across calls (``enter_dir`` /
 ``exit_dir``) is driven by ``pipeline.posterior_file``.
 ``posterior_sharded_stacked`` runs M reduced members over one record
-through the stacked kernels (B21, B24), for ``family.compare``.
+through the stacked kernels (B21 and B24, or B22 and B23 on the split
+arm), for ``family.compare``.
 """
 
 from __future__ import annotations
@@ -123,7 +125,7 @@ def posterior_sharded(params: HmmParams, obs, island_states, *, engine: str = "a
                       first: bool = True, want_path: bool = False, placed=None,
                       prev_sym: Optional[int] = None,
                       prepared: Optional[PreparedSeq] = None, return_device: bool = False,
-                      one_pass: Optional[bool] = None):
+                      fused: Optional[bool] = None, one_pass: Optional[bool] = None):
     """Island confidence (and optionally the MPM path) of one sequence on
     the params' device.  Returns host arrays (conf [T] f32, path [T] int8 —
     state ids, a quarter of an int32 download — or None), or the same as
@@ -135,10 +137,12 @@ def posterior_sharded(params: HmmParams, obs, island_states, *, engine: str = "a
     geometry then wins.  ``enter_dir`` / ``exit_dir`` ([K] directions)
     thread span-boundary messages; continuation spans (``first=False``)
     on the reduced engine need ``prev_sym``.  On the reduced engine the
-    fused two-pass arm runs (B7, B4); ``one_pass=True`` runs the one-pass
-    arm (B8) instead.  ``one_pass=None`` means False, the JAX package's
-    shipped default (the port has no tuner table, ROADMAP A14); the dense
-    engine ignores it.  The split arm (B9-B12) is not ported."""
+    fused two-pass arm runs (B7, B4); ``fused=False`` the split arm (B7,
+    B9, then B11 for the confidence alone or B10 with ``want_path``);
+    ``one_pass=True`` the one-pass arm (B8), whatever ``fused`` says.
+    ``fused=None`` means True and ``one_pass=None`` False, the JAX
+    package's shipped defaults (the port has no tuner table, ROADMAP A14);
+    the dense engine ignores both."""
     eng = resolve_fb_engine(engine, params)
     ps = _prev_sym_arg(eng, first, prev_sym)
     arr = placed if placed is not None else place_record_span(params, obs)
@@ -147,6 +151,7 @@ def posterior_sharded(params: HmmParams, obs, island_states, *, engine: str = "a
         params, arr, T, island_mask(params, island_states),
         enter_dir=enter_dir, exit_dir=exit_dir, first=first, want_path=want_path,
         lane_T=lane_T, prev_sym=ps, prepared=prepared, engine=eng, one_pass=bool(one_pass),
+        fused=fused is None or bool(fused),
     )
     conf, path = conf[:T], (path[:T].to(torch.int8) if want_path else None)
     if return_device:
@@ -171,12 +176,15 @@ def transfer_total_sharded(params: HmmParams, obs, *, engine: str = "auto",
 
 def posterior_sharded_stacked(params_list, obs, island_states_list, *, want_path: bool = False,
                               lane_T: Optional[int] = None, placed=None,
-                              prepared: Optional[PreparedSeq] = None):
+                              prepared: Optional[PreparedSeq] = None,
+                              fused: Optional[bool] = None):
     """Island confidence (and optionally MPM paths) of M reduced members of
-    one alphabet over ONE record, through the stacked kernels (B21, B24):
-    host arrays (conf [M, T] f32, path [M, T] int8 or None).  Member m's
-    rows equal ``posterior_sharded(params_list[m], ..., engine="onehot")``
-    on the same ``placed`` input and geometry bit for bit; callers group
+    one alphabet over ONE record, through the stacked kernels (B21, B24;
+    with ``fused=False`` B21, B22 and B23, ``None`` meaning True): host
+    arrays (conf [M, T] f32, path [M, T] int8 or None).  Member m's rows
+    equal ``posterior_sharded(params_list[m], ..., engine="onehot",
+    fused=fused)`` on the same ``placed`` input and geometry bit for bit;
+    callers group
     members whose engine resolves to "onehot" (``family.stacked``).
     ``placed``: the record's one upload, shared with the scoring pass and
     the sequential arm."""
@@ -187,6 +195,7 @@ def posterior_sharded_stacked(params_list, obs, island_states_list, *, want_path
     masks = [island_mask(p, s) for p, s in zip(params_list, island_states_list)]
     T = int(obs.shape[0])
     conf, path = fb_seq.seq_posterior_stacked(params_list, arr, T, masks, want_path=want_path,
-                                              lane_T=lane_T, prepared=prepared)
+                                              lane_T=lane_T, prepared=prepared,
+                                              fused=fused is None or bool(fused))
     return (conf[:, :T].cpu().numpy(),
             path[:, :T].to(torch.int8).cpu().numpy() if want_path else None)

@@ -93,11 +93,18 @@ def resolve_fb_engine(engine: str, params: HmmParams, mode: str) -> str:
 class LocalBackend:
     """One device: the chunk batch is placed and its symbol streams are
     prepared once per fit; each call is one E-step over all chunks on the
-    engine resolved in :meth:`prepare_streams`."""
+    engine resolved in :meth:`prepare_streams`.
 
-    def __init__(self, mode: str = "rescaled", engine: str = "auto"):
+    ``fuse_fb=False`` runs the reduced engine's split arm (B9, B10, B12 in
+    place of B4 and B5), the JAX package's A/B baseline; its ``None``
+    default reads the JAX tuner table, which the port does not have
+    (ROADMAP A14): here ``None`` means True, the shipped default."""
+
+    def __init__(self, mode: str = "rescaled", engine: str = "auto",
+                 fuse_fb: Optional[bool] = None):
         self.mode = mode
         self.engine = engine
+        self.fuse_fb = True if fuse_fb is None else bool(fuse_fb)
         self.resolved: Optional[str] = None
 
     def prepare(self, chunked: chunking.Chunked) -> chunking.Chunked:
@@ -127,29 +134,25 @@ class LocalBackend:
         if self.resolved is None:
             raise RuntimeError("LocalBackend: call prepare_streams before the E-step")
         return fb_chunked.batch_stats(params, chunks, lengths, prepared=prepared,
-                                      engine=self.resolved)
+                                      engine=self.resolved, fused=self.fuse_fb)
 
 
 class FamilyEStep:
     """Stacked E-step of M model-family members (reduced-stats-eligible,
     one alphabet) over ONE shared chunk batch: every member's chains in one
     launch of B24 and its counts in one of B25 (``fb_chunked.
-    batch_stats_stacked``).  Member m's statistics equal
-    ``LocalBackend(engine="onehot")``'s bit for bit.  ``stacked=False`` is
-    the sequential arm: M single-model reduced E-steps over the same placed
-    batch and prep.  The JAX package's ``None`` defaults read its tuner
-    table, which the port does not have (ROADMAP A14): here ``None`` means
-    True.  ``fuse_fb=False`` (the split arm, B22 / B23) is not ported."""
+    batch_stats_stacked``); with ``fuse_fb=False`` (the split arm) the
+    chains in one launch of B22 and one of B23, the counts through B12 per
+    member.  Member m's statistics equal ``LocalBackend(engine="onehot",
+    fuse_fb=fuse_fb)``'s bit for bit.  ``stacked=False`` is the sequential
+    arm: M single-model reduced E-steps over the same placed batch and
+    prep.  The JAX package's ``None`` defaults read its tuner table, which
+    the port does not have (ROADMAP A14): here ``None`` means True."""
 
     def __init__(self, t_tile: Optional[int] = None, fuse_fb: Optional[bool] = None,
                  stacked: Optional[bool] = None):
-        if fuse_fb is False:
-            raise NotImplementedError(
-                "FamilyEStep(fuse_fb=False): the stacked split arm (kernels B22, B23) is "
-                "not ported yet (ROADMAP A14)"
-            )
         self.t_tile = fb_chunked.DEFAULT_T_TILE if t_tile is None else int(t_tile)
-        self.fuse_fb = True
+        self.fuse_fb = True if fuse_fb is None else bool(fuse_fb)
         self.stacked = True if stacked is None else bool(stacked)
 
     def validate(self, params_list) -> None:
@@ -182,8 +185,10 @@ class FamilyEStep:
             prepared = self.prepare_streams(params_list, chunks, lengths)
         if not self.stacked:
             return tuple(fb_chunked.batch_stats(p, chunks, lengths, prepared=prepared,
-                                                engine="onehot") for p in params_list)
-        return fb_chunked.batch_stats_stacked(params_list, chunks, lengths, prepared=prepared)
+                                                engine="onehot", fused=self.fuse_fb)
+                         for p in params_list)
+        return fb_chunked.batch_stats_stacked(params_list, chunks, lengths, prepared=prepared,
+                                              fused=self.fuse_fb)
 
 
 def fit_family(params_list, chunks, lengths, *, n_iter: int = 10,
@@ -329,12 +334,14 @@ class SeqBackend:
     ``lane_T``: steps per lane (None: ``fb_seq.pick_lane_T``).  The JAX
     package's ``None`` defaults read its tuner table, which the port does
     not have (ROADMAP A14): here ``t_tile=None`` means
-    ``fb_chunked.DEFAULT_T_TILE``, ``fuse_fb=None`` True (False, the split
-    arm, is not ported) and ``one_pass=None`` False — its shipped legacy
-    defaults.  ``one_pass=True`` runs B8 in place of B7 and B4 on the
-    reduced engine's kernel-stats route (power-of-two alphabets); elsewhere
-    it is ignored, bit for bit.  One device only: a ``mesh`` raises
-    (ROADMAP A9)."""
+    ``fb_chunked.DEFAULT_T_TILE``, ``fuse_fb=None`` True and
+    ``one_pass=None`` False — its shipped legacy defaults.
+    ``fuse_fb=False`` runs the reduced engine's split chains (B9, B10 in
+    place of B4; B5 stays, exact over their cs-scaled betas).
+    ``one_pass=True`` runs B8 in place of B7 and B4 on the reduced engine's
+    kernel-stats route (power-of-two alphabets), whatever ``fuse_fb`` says;
+    elsewhere it is ignored, bit for bit.  One device only: a ``mesh``
+    raises (ROADMAP A9)."""
 
     def __init__(self, mesh=None, block_size: Optional[int] = None,
                  pad_value: int = chunking.PAD_SYMBOL, engine: str = "auto",
@@ -342,16 +349,13 @@ class SeqBackend:
                  fuse_fb: Optional[bool] = None, one_pass: Optional[bool] = None):
         if mesh is not None:
             raise NotImplementedError(_MULTI_DEVICE)
-        if fuse_fb is False:
-            raise NotImplementedError(
-                "SeqBackend(fuse_fb=False): the split forward/backward arm (kernels B9-B12) "
-                "is not ported yet (ROADMAP A14)")
         _check_seq_engine(engine)
         self.block_size = fb_sharded.DEFAULT_BLOCK if block_size is None else int(block_size)
         self.pad_value = pad_value
         self.engine = engine
         self.lane_T = lane_T
         self.t_tile = fb_chunked.DEFAULT_T_TILE if t_tile is None else int(t_tile)
+        self.fuse_fb = True if fuse_fb is None else bool(fuse_fb)
         self.one_pass = bool(one_pass)
         self.resolved: Optional[str] = None
 
@@ -404,7 +408,8 @@ class SeqBackend:
             raise RuntimeError("SeqBackend: call prepare_streams before the E-step")
         return fb_seq.seq_stats(params, obs_flat, sum(_host_lengths(lengths)),
                                 lane_T=prepared.lane_T, engine=self.resolved,
-                                prepared=prepared, one_pass=self.one_pass, t_tile=self.t_tile)
+                                prepared=prepared, one_pass=self.one_pass, t_tile=self.t_tile,
+                                fused=self.fuse_fb)
 
 
 class Seq2DBackend:

@@ -856,3 +856,115 @@ def test_seq_training_cuda_equals_cpu(cuda_device, tmp_path, backend):
     assert all(torch.equal(x, y) for x, y in ((b.params.log_A, c.params.log_A),
                                               (b.params.log_B, c.params.log_B),
                                               (b.params.log_pi, c.params.log_pi)))
+
+
+# -- B9-B12, B22, B23: the split arm ---------------------------------------------
+
+
+def _split_args(rng, NL, T, device):
+    """B9's inputs at a ragged chunked geometry, its alphas and B10's
+    cs_next from them."""
+    from cpgisland_tpu_torch.ops import fb_onehot as FB
+
+    params, prep, gt, a0, b0, tab = _fb_inputs(rng, NL, T, device)
+    al = FB.oh_fwd(prep.pair2, prep.lens2, a0, tab)
+    return params, prep, gt, a0, b0, tab, al, FB.cs_next_of(al)
+
+
+@pytest.mark.parametrize("T", [8, 4099, 65536])
+@pytest.mark.parametrize("NL", [1, 33, 1024])
+def test_split_chain_kernels_bit_equal(cuda_device, NL, T):
+    """B9, B10 and B11 turn FMA contraction off: each equals its plain
+    version bit for bit, and B9's alphas equal B4's."""
+    from cpgisland_tpu_torch.ops import fb_onehot as FB
+
+    rng = np.random.default_rng(NL * 13 + T)
+    before = {k: _kernels.launches[k] for k in ("oh_fwd", "oh_bwd", "oh_bwd_conf")}
+    _, prep, gt, a0, b0, tab, al, cs_next = _split_args(rng, NL, T, cuda_device)
+    assert torch.equal(al, FB.oh_fwd_plain(prep.pair2, prep.lens2, a0, tab))
+    al4, _ = FB.oh_fwdbwd(prep.pair2, prep.pairn2, prep.lens2, a0, b0, tab, T)
+    assert torch.equal(al, al4)
+    bargs = (prep.pairn2, prep.lens2, cs_next, b0, tab, T)
+    assert torch.equal(FB.oh_bwd(*bargs), FB.oh_bwd_plain(*bargs))
+    mtab = torch.from_numpy(rng.integers(0, 2, size=(4, 2)).astype(np.float32)).to(cuda_device)
+    cargs = (prep.pairn2, prep.pair2, prep.lens2, cs_next, b0, al, mtab, tab, T)
+    assert torch.equal(FB.oh_bwd_conf(*cargs), FB.oh_bwd_conf_plain(*cargs))
+    torch.cuda.synchronize()
+    assert all(_kernels.launches[k] == before[k] + 1 for k in before)
+
+
+@pytest.mark.parametrize("T", [8, 4099, 65536])
+@pytest.mark.parametrize("NL", [1, 33, 1024])
+def test_stats_kernel_within_tolerance(cuda_device, NL, T):
+    """B12 sums over time in another order than its plain version: rtol
+    1e-5 on the per-lane sums, atol 1e-3 on the counts."""
+    from cpgisland_tpu_torch.ops import fb_onehot as FB
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    rng = np.random.default_rng(NL * 17 + T)
+    params, prep, gt, a0, b0, tab, al, cs_next = _split_args(rng, NL, T, cuda_device)
+    be = FB.oh_bwd(prep.pairn2, prep.lens2, cs_next, b0, tab, T)
+    args = (al, be, prep.pair2, prep.lens2, FB.reduced_emissions(params, gt),
+            gt.to(torch.int32).contiguous())
+    before = _kernels.launches["oh_stats"]
+    got = FB.oh_stats(*args, prep.Tt)
+    want = FB.oh_stats_plain(*args)
+    torch.cuda.synchronize()
+    assert _kernels.launches["oh_stats"] == before + 1
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=1e-5, atol=1e-3)
+
+
+@_STACK_GRID
+@_STACK_M
+@_STACK_NL
+def test_split_stacked_kernels_bit_equal(cuda_device, NL, M, S):
+    """B22 and B23 equal their plain versions, and each member's chains
+    equal B9's and B10's on that member's operands, bit for bit."""
+    from cpgisland_tpu_torch.ops import fb_onehot as FB
+
+    T = 2000
+    rng, _, prep, _, tabs = _stacked_batch(NL, T, S, M, cuda_device)
+    v = lambda: torch.from_numpy(  # noqa: E731
+        rng.random((M, 2, NL)).astype(np.float32) + 0.01).to(cuda_device)
+    a0, b0 = v(), v()
+    before = {k: _kernels.launches[k] for k in ("oh_fwd_stacked", "oh_bwd_stacked")}
+    al = FB.oh_fwd_stacked(prep.pair2, prep.lens2, a0, tabs)
+    cs_next = FB.cs_next_of(al)
+    be = FB.oh_bwd_stacked(prep.pairn2, prep.lens2, cs_next, b0, tabs, T)
+    assert all(_kernels.launches[k] == before[k] + 1 for k in before)
+    assert torch.equal(al, FB.oh_fwd_stacked_plain(prep.pair2, prep.lens2, a0, tabs))
+    assert torch.equal(be, FB.oh_bwd_stacked_plain(prep.pairn2, prep.lens2, cs_next, b0,
+                                                   tabs, T))
+    for m in range(M):
+        tab = tabs[m].contiguous()
+        assert torch.equal(al[m], FB.oh_fwd(prep.pair2, prep.lens2, a0[m], tab))
+        assert torch.equal(be[m], FB.oh_bwd(prep.pairn2, prep.lens2, cs_next[m], b0[m], tab, T))
+
+
+def test_split_training_cuda_equals_cpu(cuda_device, tmp_path):
+    """``LocalBackend(fuse_fb=False)`` on the card (B9, B10, B12, never B4
+    or B5) holds against the plain versions on the CPU (logliks rtol 1e-5,
+    probabilities atol 1e-5) and against the card's fused arm (logliks rtol
+    1e-5)."""
+    from cpgisland_tpu_torch.train.backends import LocalBackend
+
+    rng = np.random.default_rng(9)
+    p = tmp_path / "t.fa"
+    with open(p, "w") as f:
+        s = rng.choice(4, size=140_000, p=[0.3, 0.2, 0.2, 0.3])
+        s[5000:7000] = rng.choice(4, size=2000, p=[0.15, 0.35, 0.35, 0.15])
+        f.write(">r0\n" + "".join("ACGT"[x] for x in s) + "\n")
+    kw = dict(compat=False, num_iters=3, convergence=0.0)
+    cpu = pipeline.train_file(str(p), backend=LocalBackend(fuse_fb=False), device="cpu", **kw)
+    _kernels.reset_launches()
+    card = pipeline.train_file(str(p), backend=LocalBackend(fuse_fb=False), device="cuda", **kw)
+    counts = dict(_kernels.launches)
+    fused = pipeline.train_file(str(p), device="cuda", **kw)
+    assert counts["oh_fwd"] == counts["oh_bwd"] == counts["oh_stats"] == 3
+    assert counts["oh_fwdbwd"] == counts["oh_seq_stats"] == 0
+    np.testing.assert_allclose(cpu.logliks, card.logliks, rtol=1e-5)
+    np.testing.assert_allclose(card.logliks, fused.logliks, rtol=1e-5)
+    for x, y in ((cpu.params.pi, card.params.pi), (cpu.params.A, card.params.A),
+                 (cpu.params.B, card.params.B)):
+        np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(), atol=1e-5)

@@ -226,8 +226,7 @@ def test_unported_options_raise_naming_their_item():
                      ({"streams_handle": object()}, "A13")):
         with pytest.raises(NotImplementedError, match=item):
             TF.compare_record(members, s, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="A14"):
-        FamilyEStep(fuse_fb=False)
+    assert FamilyEStep(fuse_fb=False).fuse_fb is False  # the split arm runs now
     with pytest.raises(ValueError, match="duplicate"):
         TF.compare_record([members[0], members[0]], s, device="cpu")
     with pytest.raises(ValueError, match="at least one"):

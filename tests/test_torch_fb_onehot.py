@@ -187,14 +187,20 @@ def test_wrappers_refuse_bad_operands(rng):
     with pytest.raises(ValueError):
         TFB.oh_seq_stats(al, be, tprep.pair2, tprep.lens2, tab, z(4, 2), gt, z(8, 3),
                          z(2, 3), z(1, 3), 0)
-    with pytest.raises(NotImplementedError, match="split.*B11"):
-        TFB.run_fb_kernels_onehot(tp, tprep.sel2, 0, tprep.lens2, z(8, 3), z(8, 3), 100,
-                                  fused=False)
-    # The fused arm's confidence comes from B4's streams (no B11).
-    _, conf, _ = TFB.run_fb_kernels_onehot(tp, tprep.sel2, 0, tprep.lens2, a0.repeat(4, 1),
-                                           torch.ones(8, 3), 100, conf_mask=torch.ones(8))
-    valid = torch.arange(conf.shape[0])[:, None] < tprep.lens2
-    assert torch.allclose(conf, valid.float())  # every state counted: 1 on valid steps
+    # The split arm runs: its forward (B9) is B4's, bit for bit.
+    al_s, _, _ = TFB.run_fb_kernels_onehot(tp, tprep.sel2, 0, tprep.lens2, a0.repeat(4, 1),
+                                           torch.ones(8, 3), 100, fused=False)
+    al_f, _, _ = TFB.run_fb_kernels_onehot(tp, tprep.sel2, 0, tprep.lens2, a0.repeat(4, 1),
+                                           torch.ones(8, 3), 100)
+    assert torch.equal(al_s, al_f)
+    # The fused arm's confidence comes from B4's streams, the split arm's
+    # from B11.
+    valid = torch.arange(al_f.shape[0])[:, None] < tprep.lens2
+    for fused in (True, False):
+        _, conf, _ = TFB.run_fb_kernels_onehot(tp, tprep.sel2, 0, tprep.lens2,
+                                               a0.repeat(4, 1), torch.ones(8, 3), 100,
+                                               conf_mask=torch.ones(8), fused=fused)
+        assert torch.allclose(conf, valid.float())  # every state counted: 1 on valid steps
 
 
 def test_run_fb_kernels_inline_pairs_equal_prepared(rng):

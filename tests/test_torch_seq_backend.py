@@ -229,10 +229,10 @@ def test_seq2d_compat_and_multi_device_raise(seq2d_fasta):
         TPL.train_file(path, compat=True, backend="seq2d", device="cpu")
     for make in (lambda: TBE.get_backend("spmd"), lambda: TBE.get_backend("seq", mesh=_mesh1()),
                  lambda: TBE.SeqBackend(mesh=_mesh1()),
-                 lambda: TBE.Seq2DBackend(mesh=_mesh2d()),
-                 lambda: TBE.SeqBackend(fuse_fb=False)):
+                 lambda: TBE.Seq2DBackend(mesh=_mesh2d())):
         with pytest.raises(NotImplementedError):
             make()
+    assert TBE.SeqBackend(fuse_fb=False).fuse_fb is False  # the split arm runs now
     with pytest.raises(NotImplementedError, match="A9"):
         TPL.train_file(path, compat=False, backend="spmd", device="cpu")
     with pytest.raises(ValueError, match="rescaled"):

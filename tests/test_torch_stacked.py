@@ -211,9 +211,16 @@ def test_stacked_wrappers_refuse_bad_members_and_operands(rng):
         TFB.check_stacked_members(four + pair)
     with pytest.raises(ValueError, match="at least one"):
         TFB.check_stacked_members([])
-    with pytest.raises(NotImplementedError, match="A14"):
-        TFB.run_fb_kernels_onehot_stacked(four, None, [], [], 8, pair_esym=None, fused=False)
     _, _, prep = _prep(rng, 4)
+    # The split arm runs (B22, B23): each member's alphas equal the fused
+    # arm's (B9 is B4's forward).
+    ones = [torch.ones(8, prep.pair2.shape[1])] * 2
+    streams = (prep.pair2, prep.esym2, prep.pairn2)
+    al_s, _, _ = TFB.run_fb_kernels_onehot_stacked(four, prep.lens2, ones, ones, 700,
+                                                   pair_esym=streams, fused=False)
+    al_f, _, _ = TFB.run_fb_kernels_onehot_stacked(four, prep.lens2, ones, ones, 700,
+                                                   pair_esym=streams)
+    assert torch.equal(al_s, al_f)
     _, tabs = TFB.stacked_tables(four)
     with pytest.raises(ValueError):
         TFB.oh_prod_stacked(prep.pair2.long(), tabs)

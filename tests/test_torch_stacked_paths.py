@@ -104,8 +104,10 @@ def test_family_estep_validates_members():
     with pytest.raises(ValueError, match="reduced-stats-eligible"):
         FamilyEStep().validate(four + [params_from_numpy(*(
             np.asarray(x) for x in (lambda p: (p.log_pi, p.log_A, p.log_B))(JP.two_state_cpg())))])
-    with pytest.raises(NotImplementedError, match="A14"):
-        FamilyEStep(fuse_fb=False)
+    # The split arm runs (B22, B23, B12 per member).
+    chunks, lengths = _chunks(np.random.default_rng(5), 4, 3, 300)
+    stats = FamilyEStep(fuse_fb=False)(four, torch.from_numpy(chunks), torch.from_numpy(lengths))
+    assert len(stats) == 2 and all(bool(torch.isfinite(st.loglik)) for st in stats)
 
 
 def _train_batch(rng):
