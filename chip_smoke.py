@@ -151,7 +151,23 @@ JSON line each:
    and 3 B12 an iteration, logliks within rtol 1e-5 of the fused fit, the
    stacked split E-step equal to the sequential one bit for bit) and
    ``posterior_sharded_stacked(fused=False)`` (B21, B22, B23 once each)
-   equal to its members' own split posteriors bit for bit.
+   equal to its members' own split posteriors bit for bit;
+34. the stacked decode's kernels: B26, B27 (path and scores arms) and B28
+   at bk=4096, nb=16384 over a chaining stream with PAD runs and resets,
+   for (S, M) in (4, 2), (4, 5), (16, 2) — bit-equal to their plain
+   versions and per member to B1 / B2 / B6 / B3, timed beside M x the
+   single kernel; at S = 16 (288-row tables) B1, B6 and B3 against their
+   plain versions;
+35. the mixed-model flush unit ``pipeline._decode_small_batch_stacked``
+   over the 256 scaffolds in decode_file's flushes of 8, owners
+   round-robin over M = 2 and 3 (the flagship plus random partition=2
+   members): B26, B27, B28 once a flush and B1-B3 never, every member's
+   paths equal to its own ``decode_batch_flat`` of the flush, island calls
+   against the per-model sequential flushes (a differing record's paths
+   rescored in float64 must tie), wall and device busy time of both, host
+   islands for one model, and ``decode_batch_flat_stacked(return_score=
+   True)`` over all scaffolds in one batch (paths and scores equal to each
+   member's own flat decode).
 
 Phase 2 also holds B6 (the score-threading backpointer kernel) bit for bit
 against its plain version on B2's flat stream, with B2's outputs equal to
@@ -182,14 +198,14 @@ import torch
 
 from cpgisland_tpu_torch import family, pipeline
 from cpgisland_tpu_torch.models import presets
-from cpgisland_tpu_torch.models.hmm import load_text
+from cpgisland_tpu_torch.models.hmm import HmmParams, load_text
 from cpgisland_tpu_torch.ops import _kernels, fb_chunked, fb_seq
 from cpgisland_tpu_torch.ops import fb_onehot as FB
 from cpgisland_tpu_torch.ops import fb_pallas as FP
 from cpgisland_tpu_torch.ops import loglik as LL
 from cpgisland_tpu_torch.ops import viterbi_onehot as OH
 from cpgisland_tpu_torch.ops import viterbi_pallas as VP
-from cpgisland_tpu_torch.ops.islands_device import call_islands_device
+from cpgisland_tpu_torch.ops.islands_device import DEFAULT_CAP, call_islands_device
 from cpgisland_tpu_torch.ops.prepared import prepare_chunked, prepare_seq
 from cpgisland_tpu_torch.parallel.decode import viterbi_sharded, viterbi_sharded_spans
 from cpgisland_tpu_torch.family.stacked import stack_groups
@@ -219,6 +235,14 @@ KERNELS = {
                      "cpgisland_tpu_torch/csrc/viterbi_onehot.cu"),
     "oh_backpointers_scores": ("cpgisland_tpu/ops/viterbi_onehot.py:481",
                                "cpgisland_tpu_torch/csrc/viterbi_onehot.cu"),
+    "oh_products_stacked": ("cpgisland_tpu/ops/viterbi_onehot.py:1257",
+                            "cpgisland_tpu_torch/csrc/viterbi_onehot.cu"),
+    "oh_backpointers_stacked": ("cpgisland_tpu/ops/viterbi_onehot.py:1341",
+                                "cpgisland_tpu_torch/csrc/viterbi_onehot.cu"),
+    "oh_backpointers_stacked_scores": ("cpgisland_tpu/ops/viterbi_onehot.py:1341",
+                                       "cpgisland_tpu_torch/csrc/viterbi_onehot.cu"),
+    "oh_backtrace_stacked": ("cpgisland_tpu/ops/viterbi_onehot.py:1519",
+                             "cpgisland_tpu_torch/csrc/viterbi_onehot.cu"),
     "oh_prod": ("cpgisland_tpu/ops/fb_onehot.py:102",
                 "cpgisland_tpu_torch/csrc/fb_onehot.cu"),
     "oh_fwdbwd": ("cpgisland_tpu/ops/fb_onehot.py:266",
@@ -262,6 +286,9 @@ KERNELS = {
                   "cpgisland_tpu_torch/csrc/loglik.cu"),
 }
 DECODE_KERNELS = ("oh_products", "oh_backpointers", "oh_backtrace")
+# The stacked decode: B26, B27 (path arm, scores arm) and B28.
+STACKED_DECODE_KERNELS = ("oh_products_stacked", "oh_backpointers_stacked",
+                          "oh_backpointers_stacked_scores", "oh_backtrace_stacked")
 DENSE_KERNELS = ("dense_products", "dense_backpointers", "dense_backtrace")
 TRAIN_KERNELS = ("oh_fwdbwd", "oh_seq_stats")
 POSTERIOR_KERNELS = ("oh_prod", "oh_fwdbwd")
@@ -295,6 +322,10 @@ SPLIT_CONF_ATOL, SPLIT_LL_RTOL = 2e-5, 1e-5
 # compare's casts run on the big record's first COMPARE_SYMBOLS plus
 # COMPARE_SCAFFOLDS scaffolds (the genome's 257 records cost ~170 s).
 COMPARE_SYMBOLS, COMPARE_SCAFFOLDS = 8 << 20, 16
+# The mixed-model flush unit: the flagship plus M - 1 random partition=2
+# members, over decode_file's flushes of the genome's scaffolds (its
+# device_batch of 8 records a flush).
+FLUSH_M, FLUSH_RECORDS, PROFILED_FLUSHES = (2, 3), 8, 8
 
 
 _START = time.perf_counter()
@@ -966,9 +997,10 @@ def device_rows(prof) -> list:
     return sorted(rows, key=lambda r: -r[1])
 
 
-def profiled(what: str, fn) -> None:
+def profiled(what: str, fn) -> dict:
     """torch.profiler over one call of ``fn`` (already warm): device time by
-    kernel name, and the device's busy and idle share of the wall time."""
+    kernel name, and the device's busy and idle share of the wall time
+    (printed, and returned)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -979,11 +1011,13 @@ def profiled(what: str, fn) -> None:
         wall = time.perf_counter() - t0
     rows = device_rows(prof)
     busy = sum(us for _, us, _ in rows) / 1e6
-    emit({
+    line = {
         "phase": "profile", "what": what, "wall_s": wall, "device_busy_s": busy,
         "idle_share": 1.0 - busy / wall if rows else None,
         "top": [{"name": k[:90], "device_ms": us / 1e3, "count": c} for k, us, c in rows[:14]],
-    })
+    }
+    emit(line)
+    return line
 
 
 def profile_phase(params, big: np.ndarray, fa: str, dev) -> None:
@@ -2708,6 +2742,332 @@ def split_family_phase(gen: torch.Generator, fa: str, big: np.ndarray, dev) -> d
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phases 34-35: the stacked decode (B26-B28) and the mixed-model flush unit
+
+
+def scrambled(p, gen: torch.Generator):
+    """p with its states renumbered at random: still one-hot in pairs, but
+    each symbol's group (so each member's exit ids and exit anchors) lies
+    elsewhere than in the flagship's layout."""
+    perm = torch.randperm(p.n_states, generator=gen).to(p.device)
+    return HmmParams(p.log_pi[perm], p.log_A[perm][:, perm], p.log_B[perm])
+
+
+def decode_members(first, gen: torch.Generator, dev, M: int) -> list:
+    """``first`` plus M - 1 scrambled random partition=2 members of its
+    alphabet: a stacked decode's member set."""
+    S = first.n_symbols
+    return [first] + [scrambled(presets.random_hmm(gen, 2 * S, S, partition=2, device=dev), gen)
+                      for _ in range(M - 1)]
+
+
+def _decode_stream(rng: np.random.Generator, S: int, dev):
+    """The B1-B3 geometry (BK x NB, 64 Mi steps) over a chaining stream of
+    the S-symbol alphabet (consecutive steps of a lane chain), with PAD
+    runs and sparse record resets: (steps [BK, NB] on the card, resets)."""
+    steps = chaining_stream(rng, BK * NB, S).reshape(NB, BK).T.astype(np.int32)
+    starts = rng.integers(0, BK, size=NB // 4)
+    lanes = rng.integers(0, NB, size=NB // 4)
+    lens = rng.integers(1, 200, size=NB // 4)
+    for k0, b, n in zip(starts, lanes, lens):
+        steps[k0 : k0 + n, b] = S
+    resets = torch.from_numpy(rng.random((BK, NB)) < 1e-4).to(dev)
+    return torch.from_numpy(np.ascontiguousarray(steps)).to(dev), resets
+
+
+def stacked_decode_kernel_phase(rng: np.random.Generator, gen: torch.Generator, dev) -> dict:
+    """B26, B27 (both arms) and B28 at the B1-B3 geometry for each of
+    STACK_CONFIGS (the flagship or dinuc_cpg plus scrambled random members):
+    bit-equal to their plain versions (one full-size run each, which also
+    gives plain_ms) and per member to B1 / B2 / B6 / B3 on
+    that member's operands, timed beside M x the single kernel's time and
+    the byte bound.  At S = 16 (288-row tables, the repair) B1, B6 and B3
+    are also held against their plain versions.  Returns the table rows
+    (S = 4, M = 2) by kernel name."""
+    results = {}
+    n = BK * NB
+    for S in (4, 16):
+        steps, resets = _decode_stream(rng, S, dev)
+        prev0 = int(steps[0, 0].clamp_max(S - 1))
+        for S_, M in STACK_CONFIGS:
+            if S_ != S:
+                continue
+            first = presets.durbin_cpg8(device=dev) if S == 4 else presets.dinuc_cpg(device=dev)
+            members = decode_members(first, gen, dev, M)
+            _, _, tabs, idtabs, pair2, _, _, nreal = OH.stacked_prepared(
+                members, steps, prev0, resets)
+            assert nreal == S * S + S and pair2.shape == (BK, NB)
+            tabs, idtabs = torch.stack(tabs), torch.stack(idtabs)
+            nP = tabs.shape[1]
+            v = rng.normal(scale=3.0, size=(M, 2, NB)).astype(np.float32)
+            v_red = torch.from_numpy(v - v.max(axis=1, keepdims=True)).to(dev)
+            bits = torch.from_numpy(rng.integers(0, 2, size=(M, NB)).astype(np.int32)).to(dev)
+            one = lambda t, m: t[m].contiguous()  # noqa: E731
+
+            red = OH.oh_products_stacked(pair2, tabs)
+            bpw = OH.oh_backpointers_stacked(pair2, v_red, tabs)
+            sc = OH.oh_backpointers_stacked_scores(pair2, v_red, tabs)
+            path = OH.oh_backtrace_stacked(bpw[0], pair2, idtabs, bits)
+            plain_ms = {}
+            red_p, plain_ms["oh_products_stacked"] = timed_once(
+                lambda: OH.oh_products_stacked_plain(pair2, tabs))
+            bpw_p, plain_ms["oh_backpointers_stacked"] = timed_once(
+                lambda: OH.oh_backpointers_stacked_plain(pair2, v_red, tabs))
+            sc_p, plain_ms["oh_backpointers_stacked_scores"] = timed_once(
+                lambda: OH.oh_backpointers_stacked_scores_plain(pair2, v_red, tabs))
+            path_p, plain_ms["oh_backtrace_stacked"] = timed_once(
+                lambda: OH.oh_backtrace_stacked_plain(bpw_p[0], pair2, idtabs, bits))
+            singles = {  # stacked name -> (single kernel's call on member m, stacked outputs)
+                "oh_products_stacked": (lambda m: (OH.oh_products(pair2, one(tabs, m)),),
+                                        (red,)),
+                "oh_backpointers_stacked": (lambda m: OH.oh_backpointers(
+                    pair2, one(v_red, m), one(tabs, m)), bpw),
+                "oh_backpointers_stacked_scores": (lambda m: OH.oh_backpointers_scores(
+                    pair2, one(v_red, m), one(tabs, m)), sc),
+                "oh_backtrace_stacked": (lambda m: (OH.oh_backtrace(
+                    one(bpw[0], m), pair2, one(idtabs, m), one(bits, m)),), (path,)),
+            }
+            got = {"oh_products_stacked": [red], "oh_backpointers_stacked": list(bpw),
+                   "oh_backpointers_stacked_scores": list(sc), "oh_backtrace_stacked": [path]}
+            want = {"oh_products_stacked": [red_p], "oh_backpointers_stacked": list(bpw_p),
+                    "oh_backpointers_stacked_scores": list(sc_p),
+                    "oh_backtrace_stacked": [path_p]}
+            calls = {
+                "oh_products_stacked": lambda: OH.oh_products_stacked(pair2, tabs),
+                "oh_backpointers_stacked": lambda: OH.oh_backpointers_stacked(pair2, v_red, tabs),
+                "oh_backpointers_stacked_scores": lambda: OH.oh_backpointers_stacked_scores(
+                    pair2, v_red, tabs),
+                "oh_backtrace_stacked": lambda: OH.oh_backtrace_stacked(bpw[0], pair2, idtabs,
+                                                                        bits),
+            }
+            tab_b, id_b = tabs[0].numel() * 4, idtabs[0].numel() * 4
+            # The shared pair stream read once; per member its table, its
+            # entering vectors and bits, and its outputs.
+            bytes_moved = {
+                "oh_products_stacked": 4 * n + M * (tab_b + 16 * NB),
+                "oh_backpointers_stacked": 4 * n + M * (8 * NB + tab_b + n // 2 + 12 * NB),
+                "oh_backpointers_stacked_scores": (4 * n + M * (8 * NB + tab_b + n // 2
+                                                                + 12 * NB + 4 * n)),
+                "oh_backtrace_stacked": 4 * n + M * (n // 2 + id_b + 4 * NB + 4 * n),
+            }
+            ops = {"oh_products_stacked": M * 12 * n, "oh_backpointers_stacked": M * 14 * n,
+                   "oh_backpointers_stacked_scores": M * 15 * n,
+                   "oh_backtrace_stacked": M * 3 * n}
+            for name, (single, outs) in singles.items():
+                per = all(all(torch.equal(a, b[m]) for a, b in zip(single(m), outs))
+                          for m in range(M))
+                single_ms = time_ms(lambda: single(0), runs=10)
+                row = _stacked_row(name, S, M, "decode block", got[name], want[name], per,
+                                   calls[name], plain_ms[name], single_ms, bytes_moved[name],
+                                   ops[name], n, nP=nP)
+                if (S, M) == (4, 2):
+                    results[name] = row
+            del red, bpw, sc, path, red_p, bpw_p, sc_p, path_p, got, want
+            if S == 16:
+                # The repair: the single-model kernels on a 288-row table.
+                tab0, id0, v0, b0 = one(tabs, 0), one(idtabs, 0), one(v_red, 0), one(bits, 0)
+                k1, (p1, ms1) = OH.oh_products(pair2, tab0), timed_once(
+                    lambda: OH.oh_products_plain(pair2, tab0))
+                k6, (p6, ms6) = OH.oh_backpointers_scores(pair2, v0, tab0), timed_once(
+                    lambda: OH.oh_backpointers_scores_plain(pair2, v0, tab0))
+                k3, (p3, ms3) = OH.oh_backtrace(k6[0], pair2, id0, b0), timed_once(
+                    lambda: OH.oh_backtrace_plain(p6[0], pair2, id0, b0))
+                eq = {"oh_products": torch.equal(k1, p1),
+                      "oh_backpointers_scores": all(torch.equal(a, b) for a, b in zip(k6, p6)),
+                      "oh_backtrace": torch.equal(k3, p3)}
+                emit({"phase": "decode_s16", "nP": nP, "bit_equal": eq,
+                      "ms": {"oh_products": time_ms(lambda: OH.oh_products(pair2, tab0), 10),
+                             "oh_backpointers_scores": time_ms(
+                                 lambda: OH.oh_backpointers_scores(pair2, v0, tab0), 10),
+                             "oh_backtrace": time_ms(
+                                 lambda: OH.oh_backtrace(k6[0], pair2, id0, b0), 10)},
+                      "plain_ms": {"oh_products": ms1, "oh_backpointers_scores": ms6,
+                                   "oh_backtrace": ms3}})
+                if not all(eq.values()):
+                    raise SystemExit(f"chip_smoke: B1 / B6 / B3 at S = 16 disagree with their "
+                                     f"plain versions: {eq}")
+                del k1, p1, k6, p6, k3, p3
+            del tabs, idtabs, pair2, v_red, bits
+            torch.cuda.empty_cache()
+        del steps, resets
+        torch.cuda.empty_cache()
+    return results
+
+
+
+
+def stacked_flush_phase(params, fa: str, gen: torch.Generator, dev) -> dict:
+    """``pipeline._decode_small_batch_stacked`` over the genome's 256
+    scaffolds in decode_file's flushes of FLUSH_RECORDS, owners round-robin
+    over M members (the flagship plus scrambled random partition=2
+    members), for each M of FLUSH_M.  Device islands for every model: each flush launches B26,
+    B27 and B28 once and B1-B3 never, and every member's flush paths equal
+    its own ``decode_batch_flat`` of the same padded batch bit for bit.
+    Island calls against the per-model sequential ``_decode_small_batch``
+    flushes: a record whose calls differ has its two paths rescored in
+    float64, and the scores must agree within 64 f32 ulps plus 5e-5 of the
+    score (a tie under the flat decoder's rounding contract, not a fault).
+    Wall of all flushes (stacked, sequential, sequential, stacked) and
+    device busy time of the first PROFILED_FLUSHES, both arms, with the
+    padded steps each arm walks.  Then host islands for one model (calls
+    equal the device engine's) and the scores arm of
+    ``decode_batch_flat_stacked`` over all scaffolds in one batch (B27's
+    scores arm once; each member's paths and scores equal its own flat
+    decode).  Returns the launch counts of those main-path runs."""
+    recs = [(name, s) for name, s in codec.iter_fasta_records(fa) if name != "chr1"]
+    starts = list(range(0, len(recs), FLUSH_RECORDS))
+    flushes = [recs[i : i + FLUSH_RECORDS] for i in starts]
+    totals: dict = {}
+    for M in FLUSH_M:
+        members = decode_members(params, gen, dev, M)
+        owners = [[(base + i) % M for i in range(len(b))] for b, base in zip(flushes, starts)]
+        caps = [[DEFAULT_CAP] for _ in range(M)]
+        kw = dict(min_len=None, island_states_list=[None] * M, cap_boxes=caps, phases={})
+
+        def stacked(use_dev, keep_paths=False, n=None):
+            parts, paths = [], []
+            for batch, own in zip(flushes[:n], owners[:n]):
+                def unit(batch=batch, own=own):
+                    return pipeline._decode_small_batch_stacked(
+                        members, batch, own, use_device_list=use_dev, **kw)[1]
+                if keep_paths:
+                    p, (_, out) = _captured(unit, OH, "decode_batch_flat_stacked")
+                    paths.append(out)
+                else:
+                    p = unit()
+                parts.extend(p)
+            return parts, paths
+
+        def sequential(n=None):
+            parts = [None] * len(recs)
+            for batch, own, base in zip(flushes[:n], owners[:n], starts[:n]):
+                for m in range(M):
+                    idx = [i for i in range(len(batch)) if own[i] == m]
+                    if not idx:
+                        continue
+                    p, _ = pipeline._decode_small_batch(
+                        members[m], [batch[i] for i in idx], engine="onehot", min_len=None,
+                        island_states=None, use_device=True, cap_box=caps[m], phases={})
+                    for i, c in zip(idx, p):
+                        parts[base + i] = c
+            return parts
+
+        def walled(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        stacked([True] * M, n=1)  # warm
+        sequential(n=1)
+        _kernels.reset_launches()
+        (parts_s, paths_s), wall_s1 = walled(lambda: stacked([True] * M, keep_paths=True))
+        counts = dict(_kernels.launches)
+        parts_q, wall_q1 = walled(sequential)
+        wall_q2 = walled(sequential)[1]
+        wall_s2 = walled(lambda: stacked([True] * M))[1]
+        # Device busy time over the first PROFILED_FLUSHES flushes (the
+        # profiler's post-processing grows with the events traced).
+        busy_s = profiled(f"stacked flushes 1-{PROFILED_FLUSHES}, M = {M}",
+                          lambda: stacked([True] * M, n=PROFILED_FLUSHES))
+        busy_q = profiled(f"sequential flushes 1-{PROFILED_FLUSHES}, M = {M}",
+                          lambda: sequential(n=PROFILED_FLUSHES))
+
+        # Every member's flush paths against its own flat decode of the
+        # same padded batch.
+        paths_equal = True
+        gaps, differ = [], 0
+        for f, (batch, own, base) in enumerate(zip(flushes, owners, starts)):
+            rows, lengths = pipeline._pad_small_batch(batch)
+            rows_d, len_d = torch.from_numpy(rows).to(dev), torch.from_numpy(lengths).to(dev)
+            for m in range(M):
+                paths_equal &= torch.equal(OH.decode_batch_flat(members[m], rows_d, len_d),
+                                           paths_s[f][m])
+            for m in range(M):
+                idx = [i for i in range(len(batch)) if own[i] == m]
+                seq_paths = None
+                for k, i in enumerate(idx):
+                    r = base + i
+                    if parts_s[r].format_lines() == parts_q[r].format_lines():
+                        continue
+                    differ += 1
+                    if seq_paths is None:  # the sequential flush's paths
+                        srows, slens = pipeline._pad_small_batch([batch[j] for j in idx])
+                        seq_paths = OH.decode_batch_flat(
+                            members[m], torch.from_numpy(srows).to(dev),
+                            torch.from_numpy(slens).to(dev)).cpu().numpy()
+                    sym = batch[i][1]
+                    a = path_score_f64(members[m], sym, paths_s[f][m][i, : sym.size].cpu().numpy())
+                    b = path_score_f64(members[m], sym, seq_paths[k, : sym.size])
+                    bound = 64 * float(np.spacing(np.float32(abs(a)))) + 5e-5 * abs(a)
+                    gaps.append((abs(a - b), bound))
+        del paths_s
+        _kernels.reset_launches()
+        parts_h, _ = stacked([True] + [False] * (M - 1))
+        host_counts = dict(_kernels.launches)
+        host_equal = all(a.format_lines() == b.format_lines() for a, b in zip(parts_s, parts_h))
+
+        # The scores arm: every scaffold in one padded batch.
+        rows, lengths = pipeline._pad_small_batch(recs)
+        rows_d, len_d = torch.from_numpy(rows).to(dev), torch.from_numpy(lengths).to(dev)
+        _kernels.reset_launches()
+        (paths_b, scores_b), wall_b = walled(lambda: OH.decode_batch_flat_stacked(
+            members, rows_d, len_d, return_score=True))
+        score_counts = dict(_kernels.launches)
+        scores_equal = True
+        for m in range(M):
+            own_p, own_sc = OH.decode_batch_flat(members[m], rows_d, len_d, return_score=True)
+            scores_equal &= torch.equal(own_p, paths_b[m]) and torch.equal(own_sc, scores_b[m])
+        finite = bool(torch.isfinite(scores_b).all())
+        del paths_b, scores_b, rows_d, len_d
+        torch.cuda.empty_cache()
+
+        # Padded steps each arm's chains and island calls walk: the stacked
+        # flush pads every model's rows to the flush's own row length.
+        padded = {"stacked": 0, "sequential": 0}
+        for batch, own in zip(flushes, owners):
+            padded["stacked"] += M * pipeline._pad_small_batch(batch)[0].size
+            for m in range(M):
+                sub = [b for b, o in zip(batch, own) if o == m]
+                padded["sequential"] += pipeline._pad_small_batch(sub)[0].size if sub else 0
+        n_flush = len(flushes)
+        path_arm = {"oh_products_stacked": n_flush, "oh_backpointers_stacked": n_flush,
+                    "oh_backtrace_stacked": n_flush}
+        # Each flush: B26, B27 and B28 once; nothing else of the decode.
+        flush_ok = all({k: v for k, v in c.items() if v} == path_arm
+                       for c in (counts, host_counts))
+        score_ok = ({k: v for k, v in score_counts.items() if v}
+                    == {"oh_products_stacked": 1, "oh_backpointers_stacked_scores": 1,
+                        "oh_backtrace_stacked": 1})
+        worst = max(gaps, key=lambda g: g[0] / g[1]) if gaps else (None, None)
+        emit({"phase": "stacked_flush", "M": M, "flushes": n_flush, "records": len(recs),
+              "symbols": int(sum(s.size for _, s in recs)), "padded_steps": padded,
+              "launches": {k: v for k, v in counts.items() if v},
+              "wall_s": {"stacked": [wall_s1, wall_s2], "sequential": [wall_q1, wall_q2]},
+              f"device_busy_s_first_{PROFILED_FLUSHES}_flushes": {
+                  "stacked": busy_s["device_busy_s"], "sequential": busy_q["device_busy_s"]},
+              "paths_equal_own_flat_decode": paths_equal,
+              "records_with_calls_differing_from_sequential": differ,
+              "max_f64_gap": worst[0], "its_bound": worst[1],
+              "host_islands_equal_device": host_equal,
+              "host_run_launches": {k: v for k, v in host_counts.items() if v},
+              "scores_arm": {"wall_s": wall_b, "launches": {k: v for k, v in score_counts.items()
+                                                            if v},
+                             "equal_own_flat_decode": scores_equal, "finite": finite}})
+        if not (flush_ok and paths_equal and host_equal and score_ok and scores_equal
+                and finite and all(g <= b for g, b in gaps)):
+            raise SystemExit(f"chip_smoke: the stacked flush (M = {M}) is off: launches "
+                             f"{flush_ok}, paths {paths_equal}, host islands {host_equal}, "
+                             f"scores arm {score_ok} / {scores_equal} / {finite}, ties "
+                             f"{[g for g in gaps if g[0] > g[1]]}")
+        for src in (counts, host_counts, score_counts):
+            for k in STACKED_DECODE_KERNELS:
+                totals[k] = totals.get(k, 0) + src.get(k, 0)
+    return totals
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2788,6 +3148,10 @@ def main(argv=None) -> int:
                        split_family_phase(gen, fa, big, dev)):
             for k, n in counts.items():
                 launches[k] = launches.get(k, 0) + n
+        # The stacked decode: its kernels, then the mixed-model flush unit.
+        results |= stacked_decode_kernel_phase(rng, gen, dev)
+        for k, n in stacked_flush_phase(params, fa, gen, dev).items():
+            launches[k] = launches.get(k, 0) + n
 
     table = []
     for name, r in results.items():

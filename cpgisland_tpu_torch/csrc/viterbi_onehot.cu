@@ -8,11 +8,27 @@
 // b*bk + k sits at [k, b]), one thread per lane b looping over the bk steps
 // of its block.  Neighbouring threads read neighbouring addresses at every
 // step, so each warp's load of a step row is one coalesced 128-byte
-// transaction.  The per-pair tables (at most MAX_PAIRS rows) are copied
-// into shared memory once per block; a lookup there returns exactly the f32
-// value the TPU kernel's compare/select tree produced.  Ragged lane counts
-// are masked here; the wrapper pads bk to a multiple of 8 with identity
-// pairs.
+// transaction.  The per-pair tables (at most MAX_PAIRS rows: S <= 16
+// symbols, S*S real pairs, S resets, S PAD carries) are copied into shared
+// memory once per block, nP rows and no more, so a small alphabet's block
+// loads what it did before the bound grew; a lookup there returns exactly
+// the f32 value the TPU kernel's compare/select tree produced.  Ragged lane
+// counts are masked here; the wrapper pads bk to a multiple of 8 with
+// identity pairs.
+//
+// Stacked decode (B26-B28): M models of one alphabet decode the SAME pair
+// stream.  Each kernel carries a member axis on the grid (blockIdx.y = m):
+// a block loads member m's table rows (tab + m*nP rows) and writes member
+// m's slice of every output, running the single-model chain body op for op,
+// so member m's outputs equal a single-model launch on its operands bit for
+// bit.  The single-model entries launch the same kernels instantiated with
+// STACKED = false, which folds the member offsets away at compile time (a
+// run-time member index of 0 cost B6 about a fifth of its time on the
+// H100).  The TPU kernels interleave the M chains inside one lane instead;
+// here a member per grid row needs no template cap on M and no M x 288-row
+// table in one block, and M members bring M x nb threads to a latency-bound
+// chain -- the extra warps are what stacking buys on this card.  The cost
+// is that each member re-reads the shared pair stream, mostly from L2.
 //
 // Max-plus needs adds and maxes only.  There is no multiply, so no FMA can
 // be contracted and every result equals its plain PyTorch version bit for
@@ -30,19 +46,24 @@
 #include <stdint.h>
 
 #define LOG_ZERO (-1e30f)
-#define MAX_PAIRS 64
+#define MAX_S 16
+#define MAX_PAIRS (MAX_S * MAX_S + 2 * MAX_S)  // 288 rows: 4.6 KB of tab, 2.3 KB of ids
 #define THREADS 128
 #define ROW_TILE 8
 
-// B1: replaces cpgisland_tpu/ops/viterbi_onehot.py::_oh_products_kernel.
+// B1: replaces cpgisland_tpu/ops/viterbi_onehot.py::_oh_products_kernel;
+// with M > 1 on the grid's y axis, B26 (_oh_products_stacked_kernel).
 // Per lane, the 2x2 max-plus product of its bk pair-selected step matrices:
-// out[0..3, b] = C00, C01, C10, C11.  Reads 4 B per step (the pair stream)
-// and writes 16 B per lane.
+// out[m, 0..3, b] = C00, C01, C10, C11.  Reads 4 B per step (the pair
+// stream) and writes 16 B per lane and member.
+template <bool STACKED>
 __global__ void __launch_bounds__(THREADS)
 oh_products_kernel(const int32_t* __restrict__ pair2, const float* __restrict__ tab,
                    float* __restrict__ out, int bk, int nb, int nP) {
   __shared__ float s_tab[MAX_PAIRS * 4];
-  for (int i = threadIdx.x; i < nP * 4; i += blockDim.x) s_tab[i] = tab[i];
+  const int m = STACKED ? blockIdx.y : 0;
+  const float* tab_m = tab + (size_t)m * nP * 4;
+  for (int i = threadIdx.x; i < nP * 4; i += blockDim.x) s_tab[i] = tab_m[i];
   __syncthreads();
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= nb) return;
@@ -65,10 +86,11 @@ oh_products_kernel(const int32_t* __restrict__ pair2, const float* __restrict__ 
       c00 = n00; c01 = n01; c10 = n10; c11 = n11;
     }
   }
-  out[b] = c00;
-  out[(size_t)nb + b] = c01;
-  out[2 * (size_t)nb + b] = c10;
-  out[3 * (size_t)nb + b] = c11;
+  float* o = out + (size_t)m * 4 * nb;
+  o[b] = c00;
+  o[(size_t)nb + b] = c01;
+  o[2 * (size_t)nb + b] = c10;
+  o[3 * (size_t)nb + b] = c11;
 }
 
 // B2 and B6 share one chain body.  B2 replaces _oh_backpointers_kernel: the
@@ -121,89 +143,157 @@ __device__ __forceinline__ void oh_backpointers_body(
   ebits[b] = E;
 }
 
-template <bool WANT_DMAX>
+// B2 / B6, and with M > 1 on the grid's y axis B27
+// (_oh_backpointers_stacked_kernel, both arms): member m reads v_red[m] and
+// its table rows, and writes bp[m] [bk/8, nb], dexit[m] [2, nb], ebits[m]
+// [nb] and (WANT_DMAX) dmax[m] [bk, nb].
+template <bool WANT_DMAX, bool STACKED>
 __global__ void __launch_bounds__(THREADS)
 oh_backpointers_kernel(const int32_t* __restrict__ pair2, const float* __restrict__ v_red,
                        const float* __restrict__ tab, int32_t* __restrict__ bp,
                        float* __restrict__ dexit, int32_t* __restrict__ ebits,
                        float* __restrict__ dmax, int bk, int nb, int nP) {
   __shared__ float s_tab[MAX_PAIRS * 4];
-  for (int i = threadIdx.x; i < nP * 4; i += blockDim.x) s_tab[i] = tab[i];
+  const int m = STACKED ? blockIdx.y : 0;
+  const float* tab_m = tab + (size_t)m * nP * 4;
+  for (int i = threadIdx.x; i < nP * 4; i += blockDim.x) s_tab[i] = tab_m[i];
   __syncthreads();
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= nb) return;
-  oh_backpointers_body<WANT_DMAX>(pair2, v_red, s_tab, bp, dexit, ebits, dmax, bk, nb, b);
+  oh_backpointers_body<WANT_DMAX>(
+      pair2, v_red + (size_t)m * 2 * nb, s_tab, bp + (size_t)m * (bk / ROW_TILE) * nb,
+      dexit + (size_t)m * 2 * nb, ebits + (size_t)m * nb,
+      WANT_DMAX ? dmax + (size_t)m * bk * nb : nullptr, bk, nb, b);
 }
 
-// B3: replaces _oh_backtrace_kernel.  Walks the packed pointers from the
-// anchored exit bit, k = bk-1 down to 0, emitting idtab[pair][bit] — the
-// full state id of the pair's exit group.  Reads 4.25 B and writes 4 B per
-// step.
+// B3: replaces _oh_backtrace_kernel; with M > 1 on the grid's y axis, B28
+// (_oh_backtrace_stacked_kernel).  Walks member m's packed pointers from its
+// anchored exit bit, k = bk-1 down to 0, emitting idtab[m][pair][bit] — the
+// full state id of the pair's exit group under member m.  Reads 4.25 B and
+// writes 4 B per step and member.
+template <bool STACKED>
 __global__ void __launch_bounds__(THREADS)
 oh_backtrace_kernel(const int32_t* __restrict__ bp, const int32_t* __restrict__ pair2,
                     const int32_t* __restrict__ idtab, const int32_t* __restrict__ exit_bits,
                     int32_t* __restrict__ path, int bk, int nb, int nP) {
   __shared__ int32_t s_id[MAX_PAIRS * 2];
-  for (int i = threadIdx.x; i < nP * 2; i += blockDim.x) s_id[i] = idtab[i];
+  const int m = STACKED ? blockIdx.y : 0;
+  const int32_t* idtab_m = idtab + (size_t)m * nP * 2;
+  for (int i = threadIdx.x; i < nP * 2; i += blockDim.x) s_id[i] = idtab_m[i];
   __syncthreads();
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= nb) return;
-  int32_t bit = exit_bits[b];
+  const int32_t* bp_m = bp + (size_t)m * (bk / ROW_TILE) * nb;
+  int32_t* path_m = path + (size_t)m * bk * nb;
+  int32_t bit = exit_bits[(size_t)m * nb + b];
   for (int w = bk / ROW_TILE - 1; w >= 0; --w) {
-    const int32_t word = __ldg(bp + (size_t)w * nb + b);
+    const int32_t word = __ldg(bp_m + (size_t)w * nb + b);
     int q[ROW_TILE];
 #pragma unroll
     for (int r = 0; r < ROW_TILE; ++r)
       q[r] = __ldg(pair2 + (size_t)(w * ROW_TILE + r) * nb + b);
 #pragma unroll
     for (int r = ROW_TILE - 1; r >= 0; --r) {
-      path[(size_t)(w * ROW_TILE + r) * nb + b] = s_id[2 * q[r] + bit];
+      path_m[(size_t)(w * ROW_TILE + r) * nb + b] = s_id[2 * q[r] + bit];
       bit = (word >> (2 * r + bit)) & 1;
     }
   }
 }
 
-static inline unsigned grid_for(int nb) { return (unsigned)((nb + THREADS - 1) / THREADS); }
+static inline dim3 grid_for(int nb, int M) {
+  return dim3((unsigned)((nb + THREADS - 1) / THREADS), (unsigned)M);
+}
 
-// The C interface: every pointer and the stream arrive as void*, sizes as
-// int.  Each function launches on the caller's stream and returns
-// cudaGetLastError(), so a refused launch reaches the Python wrapper.
-extern "C" {
+static inline bool bad_args(int bk, int nb, int nP, int M) {
+  return nP < 1 || nP > MAX_PAIRS || bk % ROW_TILE || nb <= 0 || M < 1 || M > 65535;
+}
 
-int oh_products(const void* pair2, const void* tab, void* out, int bk, int nb, int nP,
-                void* stream) {
-  if (nP > MAX_PAIRS || bk % ROW_TILE || nb <= 0) return (int)cudaErrorInvalidValue;
-  oh_products_kernel<<<grid_for(nb), THREADS, 0, (cudaStream_t)stream>>>(
+template <bool STACKED>
+static int products(const void* pair2, const void* tab, void* out, int bk, int nb, int nP,
+                    int M, void* stream) {
+  if (bad_args(bk, nb, nP, M)) return (int)cudaErrorInvalidValue;
+  oh_products_kernel<STACKED><<<grid_for(nb, M), THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)pair2, (const float*)tab, (float*)out, bk, nb, nP);
   return (int)cudaGetLastError();
 }
 
+template <bool WANT_DMAX, bool STACKED>
+static int backpointers(const void* pair2, const void* v_red, const void* tab, void* bp,
+                        void* dexit, void* ebits, void* dmax, int bk, int nb, int nP, int M,
+                        void* stream) {
+  if (bad_args(bk, nb, nP, M)) return (int)cudaErrorInvalidValue;
+  oh_backpointers_kernel<WANT_DMAX, STACKED>
+      <<<grid_for(nb, M), THREADS, 0, (cudaStream_t)stream>>>(
+          (const int32_t*)pair2, (const float*)v_red, (const float*)tab, (int32_t*)bp,
+          (float*)dexit, (int32_t*)ebits, (float*)dmax, bk, nb, nP);
+  return (int)cudaGetLastError();
+}
+
+template <bool STACKED>
+static int backtrace(const void* bp, const void* pair2, const void* idtab,
+                     const void* exit_bits, void* path, int bk, int nb, int nP, int M,
+                     void* stream) {
+  if (bad_args(bk, nb, nP, M)) return (int)cudaErrorInvalidValue;
+  oh_backtrace_kernel<STACKED><<<grid_for(nb, M), THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)bp, (const int32_t*)pair2, (const int32_t*)idtab,
+      (const int32_t*)exit_bits, (int32_t*)path, bk, nb, nP);
+  return (int)cudaGetLastError();
+}
+
+// The C interface: every pointer and the stream arrive as void*, sizes as
+// int.  Each function launches on the caller's stream and returns
+// cudaGetLastError(), so a refused launch reaches the Python wrapper.  The
+// single-model entries (B1, B2, B6, B3) launch one member; the stacked ones
+// (B26, B27 and its scores arm, B28) launch M, with every per-member operand
+// stacked on a leading member axis.
+extern "C" {
+
+int oh_products(const void* pair2, const void* tab, void* out, int bk, int nb, int nP,
+                void* stream) {
+  return products<false>(pair2, tab, out, bk, nb, nP, 1, stream);
+}
+
+int oh_products_stacked(const void* pair2, const void* tab, void* out, int bk, int nb, int nP,
+                        int M, void* stream) {
+  return products<true>(pair2, tab, out, bk, nb, nP, M, stream);
+}
+
 int oh_backpointers(const void* pair2, const void* v_red, const void* tab, void* bp,
                     void* dexit, void* ebits, int bk, int nb, int nP, void* stream) {
-  if (nP > MAX_PAIRS || bk % ROW_TILE || nb <= 0) return (int)cudaErrorInvalidValue;
-  oh_backpointers_kernel<false><<<grid_for(nb), THREADS, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)pair2, (const float*)v_red, (const float*)tab, (int32_t*)bp,
-      (float*)dexit, (int32_t*)ebits, nullptr, bk, nb, nP);
-  return (int)cudaGetLastError();
+  return backpointers<false, false>(pair2, v_red, tab, bp, dexit, ebits, nullptr, bk, nb, nP,
+                                    1, stream);
 }
 
 int oh_backpointers_scores(const void* pair2, const void* v_red, const void* tab, void* bp,
                            void* dexit, void* ebits, void* dmax, int bk, int nb, int nP,
                            void* stream) {
-  if (nP > MAX_PAIRS || bk % ROW_TILE || nb <= 0) return (int)cudaErrorInvalidValue;
-  oh_backpointers_kernel<true><<<grid_for(nb), THREADS, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)pair2, (const float*)v_red, (const float*)tab, (int32_t*)bp,
-      (float*)dexit, (int32_t*)ebits, (float*)dmax, bk, nb, nP);
-  return (int)cudaGetLastError();
+  return backpointers<true, false>(pair2, v_red, tab, bp, dexit, ebits, dmax, bk, nb, nP, 1,
+                                   stream);
+}
+
+int oh_backpointers_stacked(const void* pair2, const void* v_red, const void* tab, void* bp,
+                            void* dexit, void* ebits, int bk, int nb, int nP, int M,
+                            void* stream) {
+  return backpointers<false, true>(pair2, v_red, tab, bp, dexit, ebits, nullptr, bk, nb, nP,
+                                   M, stream);
+}
+
+int oh_backpointers_stacked_scores(const void* pair2, const void* v_red, const void* tab,
+                                   void* bp, void* dexit, void* ebits, void* dmax, int bk,
+                                   int nb, int nP, int M, void* stream) {
+  return backpointers<true, true>(pair2, v_red, tab, bp, dexit, ebits, dmax, bk, nb, nP, M,
+                                  stream);
 }
 
 int oh_backtrace(const void* bp, const void* pair2, const void* idtab, const void* exit_bits,
                  void* path, int bk, int nb, int nP, void* stream) {
-  if (nP > MAX_PAIRS || bk % ROW_TILE || nb <= 0) return (int)cudaErrorInvalidValue;
-  oh_backtrace_kernel<<<grid_for(nb), THREADS, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)bp, (const int32_t*)pair2, (const int32_t*)idtab,
-      (const int32_t*)exit_bits, (int32_t*)path, bk, nb, nP);
-  return (int)cudaGetLastError();
+  return backtrace<false>(bp, pair2, idtab, exit_bits, path, bk, nb, nP, 1, stream);
+}
+
+int oh_backtrace_stacked(const void* bp, const void* pair2, const void* idtab,
+                         const void* exit_bits, void* path, int bk, int nb, int nP, int M,
+                         void* stream) {
+  return backtrace<true>(bp, pair2, idtab, exit_bits, path, bk, nb, nP, M, stream);
 }
 
 }  // extern "C"

@@ -1,5 +1,5 @@
-"""One-hot-emission reduced Viterbi engine: four CUDA kernels and their
-plain PyTorch versions.
+"""One-hot-emission reduced Viterbi engine: the decode CUDA kernels (B1-B3,
+B6 and the stacked B26-B28) and their plain PyTorch versions.
 
 Counterpart of ``cpgisland_tpu/ops/viterbi_onehot.py``.  The flagship 8-state
 CpG model has ONE-HOT emissions (state X+/X- emits exactly symbol x), so at
@@ -13,12 +13,15 @@ per-step PAIR stream (p = s_prev * S + s_cur for real steps, S*S + carried
 symbol for PAD steps) and a per-pair table of 2x2 step matrices; small
 per-block scatters rebuild the full-K interfaces, so the shared stitching is
 untouched.  The flat batch decoder's score arm runs the backpointer pass
-through B6, which also emits the per-step chain max.  The kernels
-(``csrc/viterbi_onehot.cu``) run one thread per lane
-over the time-major [bk, nb] streams; each wrapper below launches its kernel
-for a CUDA tensor, takes the plain PyTorch version for a CPU tensor, and
-raises otherwise.  Max-plus is adds and maxes only, so kernel and plain
-version agree bit for bit.
+through B6, which also emits the per-step chain max.  The stacked decode
+(:func:`decode_batch_flat_stacked`, B26-B28) runs M models of one alphabet
+over one shared pair stream, one launch per pass for every member.  The
+kernels (``csrc/viterbi_onehot.cu``) run one thread per lane
+over the time-major [bk, nb] streams, with the pair tables in shared memory
+(at most :data:`MAX_PAIRS` rows: 16 symbols with record resets); each
+wrapper below launches its kernel for a CUDA tensor, takes the plain
+PyTorch version for a CPU tensor, and raises otherwise.  Max-plus is adds
+and maxes only, so kernel and plain version agree bit for bit.
 
 Exactness domain: one-hot emissions with exactly two states per symbol, and
 a known real symbol before each segment's first step (``prev0``).  PAD
@@ -41,6 +44,10 @@ from cpgisland_tpu_torch.ops.viterbi_parallel import scan_block_products
 ROW_TILE = 8  # steps per packed backpointer word (2 bits per step)
 # Reduced state dimension — the family partition oracle's block size.
 GROUP = REDUCED_GROUP
+# The kernels' shared pair tables: S*S real pairs, S resets and S PAD
+# carries for alphabets of up to MAX_SYMBOLS symbols.
+MAX_SYMBOLS = 16
+MAX_PAIRS = MAX_SYMBOLS * MAX_SYMBOLS + 2 * MAX_SYMBOLS
 
 _I32 = torch.int32
 _F32 = torch.float32
@@ -159,30 +166,66 @@ def prepare_pairs(S: int, steps2: torch.Tensor, prev0, resets=None):
     return pair2, e_in, e_out, nreal
 
 
+def _member_tables(params: HmmParams, resets):
+    """(gt, tab, idtab) of one model; with ``resets`` its RESET rows are
+    spliced in at [S*S, S*S + S), ahead of the PAD carries."""
+    S = params.n_symbols
+    gt = _groups(params)
+    tab, idtab = _pair_table(params, gt)
+    if resets is not None:
+        rrows, rgt = _reset_rows(params, gt)
+        tab = torch.cat([tab[: S * S], rrows, tab[S * S :]], dim=0)
+        idtab = torch.cat([idtab[: S * S], rgt, idtab[S * S :]], dim=0)
+    return gt, tab, idtab
+
+
 def _prepared(params: HmmParams, steps2, prev0, resets=None, pre=None):
     """Tables + pair stream for the passes (``pre``: a prepare_pairs tuple
     built with the SAME ``resets`` mask)."""
     S = params.n_symbols
-    gt = _groups(params)
-    tab, idtab = _pair_table(params, gt)
     if pre is None:
         pre = prepare_pairs(S, steps2, prev0, resets)
     pair2, e_in, e_out, nreal = pre
-    if resets is not None:
-        if nreal != S * S + S:
-            raise ValueError(
-                "prepared pair stream was built without the resets mask "
-                "this call passes (nreal mismatch)"
-            )
-        rrows, rgt = _reset_rows(params, gt)
-        tab = torch.cat([tab[: S * S], rrows, tab[S * S :]], dim=0)
-        idtab = torch.cat([idtab[: S * S], rgt, idtab[S * S :]], dim=0)
-    elif nreal != S * S:
+    if resets is not None and nreal != S * S + S:
+        raise ValueError(
+            "prepared pair stream was built without the resets mask "
+            "this call passes (nreal mismatch)"
+        )
+    if resets is None and nreal != S * S:
         raise ValueError(
             "prepared pair stream carries reset renumbering but this call "
             "passes no resets mask"
         )
+    gt, tab, idtab = _member_tables(params, resets)
     return S, gt, tab, idtab, pair2, e_in, e_out, nreal
+
+
+def stacked_prepared(params_list, steps2, prev0, resets=None, pre=None):
+    """The stacked twin of :func:`_prepared`: ONE shared symbol-only pair
+    stream plus per-member tables.  Returns (S, gts, tabs, idtabs, pair2,
+    e_in, e_out, nreal) with gts / tabs / idtabs per-member lists; with
+    ``resets`` each member's reset rows are spliced into its own table
+    (every member shares the reset MASK and restarts into its own initial
+    scores)."""
+    if not params_list:
+        raise ValueError("a stacked decode needs at least one member")
+    S = params_list[0].n_symbols
+    if any(p.n_symbols != S for p in params_list):
+        raise ValueError(
+            "stacked members must share one alphabet (pair stream); got "
+            f"n_symbols {[int(p.n_symbols) for p in params_list]}"
+        )
+    if pre is None:
+        pre = prepare_pairs(S, steps2, prev0, resets)
+    pair2, e_in, e_out, nreal = pre
+    want = S * S + (S if resets is not None else 0)
+    if nreal != want:
+        raise ValueError(
+            "prepared pair stream's reset renumbering does not match this "
+            f"call (nreal {nreal} != {want})"
+        )
+    gts, tabs, idtabs = zip(*(_member_tables(p, resets) for p in params_list))
+    return S, list(gts), list(tabs), list(idtabs), pair2, e_in, e_out, nreal
 
 
 def _pad_pair_rows(pair2: torch.Tensor, e_out: torch.Tensor, ident_base: int):
@@ -198,76 +241,109 @@ def _pad_pair_rows(pair2: torch.Tensor, e_out: torch.Tensor, ident_base: int):
 
 
 # ---------------------------------------------------------------------------
-# The three kernels: plain PyTorch versions and the wrappers that launch the
-# CUDA kernels.  Shapes are the kernels' own: pair2 [bk, nb] int32 with bk a
+# The kernels: plain PyTorch versions and the wrappers that launch the CUDA
+# kernels.  Shapes are the kernels' own: pair2 [bk, nb] int32 with bk a
 # multiple of ROW_TILE, tab [nP, 4] f32 (every pair's 2x2 step matrix,
-# identity rows included), idtab [nP, 2] int32.
+# identity rows included), idtab [nP, 2] int32.  The stacked kernels (B26-
+# B28) take every per-member operand with a leading member axis: tabs
+# [M, nP, 4], idtabs [M, nP, 2], v_red [M, 2, nb], exit bits [M, nb].  Each
+# plain version carries the member axis through one step loop, as the JAX
+# package's stacked XLA twins do; the single-model plain versions are its
+# M = 1 case (every operation is elementwise across members and lanes, so
+# a member's values do not depend on the others).
+
+
+def oh_products_stacked_plain(pair2: torch.Tensor, tabs: torch.Tensor) -> torch.Tensor:
+    """B26, plain version: each member's 2x2 max-plus product of each
+    lane's pair-selected step matrices -> [M, 4, nb] (rows C00, C01, C10,
+    C11).  Mirrors ``_xla_products_stacked`` (per member ``_xla_products``)
+    op for op; selection is an exact gather."""
+    M = tabs.shape[0]
+    nb = pair2.shape[1]
+    T = tabs[:, pair2.long()]  # [M, bk, nb, 4]
+    c00 = torch.zeros((M, nb), dtype=_F32, device=pair2.device)
+    c01 = torch.full((M, nb), LOG_ZERO, dtype=_F32, device=pair2.device)
+    c10 = c01.clone()
+    c11 = c00.clone()
+    for k in range(pair2.shape[0]):
+        t = T[:, k]
+        n00 = torch.maximum(c00 + t[..., 0], c01 + t[..., 2])
+        n01 = torch.maximum(c00 + t[..., 1], c01 + t[..., 3])
+        n10 = torch.maximum(c10 + t[..., 0], c11 + t[..., 2])
+        n11 = torch.maximum(c10 + t[..., 1], c11 + t[..., 3])
+        c00, c01, c10, c11 = n00, n01, n10, n11
+    return torch.stack([c00, c01, c10, c11], dim=1)
 
 
 def oh_products_plain(pair2: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
-    """Pass A, plain version: the 2x2 max-plus product of each lane's
-    pair-selected step matrices -> [4, nb] (rows C00, C01, C10, C11).
-    Mirrors the JAX package's ``_xla_products`` op for op; selection is an
-    exact gather."""
-    bk, nb = pair2.shape
-    T = tab[pair2.long()]  # [bk, nb, 4]
-    c00 = torch.zeros(nb, dtype=_F32, device=pair2.device)
-    c01 = torch.full((nb,), LOG_ZERO, dtype=_F32, device=pair2.device)
-    c10 = c01.clone()
-    c11 = c00.clone()
-    for k in range(bk):
-        t = T[k]
-        n00 = torch.maximum(c00 + t[:, 0], c01 + t[:, 2])
-        n01 = torch.maximum(c00 + t[:, 1], c01 + t[:, 3])
-        n10 = torch.maximum(c10 + t[:, 0], c11 + t[:, 2])
-        n11 = torch.maximum(c10 + t[:, 1], c11 + t[:, 3])
-        c00, c01, c10, c11 = n00, n01, n10, n11
-    return torch.stack([c00, c01, c10, c11])
+    """Pass A, plain version: [4, nb] block products.  Mirrors the JAX
+    package's ``_xla_products``."""
+    return oh_products_stacked_plain(pair2, tab[None])[0]
 
 
 def _pack_words(bp2: torch.Tensor) -> torch.Tensor:
-    """[bk, nb] 2-bit rows (bk % 8 == 0) -> [bk/8, nb] int32 words, step r
-    of a word at bits 2r..2r+1."""
-    bk, nb = bp2.shape
-    shifts = 2 * torch.arange(ROW_TILE, dtype=_I32, device=bp2.device)
-    rows = bp2.reshape(bk // ROW_TILE, ROW_TILE, nb) << shifts[None, :, None]
-    return rows.sum(dim=1, dtype=_I32)  # disjoint bits: sum == or
+    """[..., bk, nb] 2-bit rows (bk % 8 == 0) -> [..., bk/8, nb] int32
+    words, step r of a word at bits 2r..2r+1."""
+    *lead, bk, nb = bp2.shape
+    shifts = 2 * torch.arange(ROW_TILE, dtype=_I32, device=bp2.device)[:, None]
+    rows = bp2.reshape(*lead, bk // ROW_TILE, ROW_TILE, nb) << shifts
+    return rows.sum(dim=-2, dtype=_I32)  # disjoint bits: sum == or
 
 
 def _unpack_words(bp: torch.Tensor) -> torch.Tensor:
-    """Inverse of :func:`_pack_words`: [bk/8, nb] words -> [bk, nb] rows."""
-    nw, nb = bp.shape
-    shifts = 2 * torch.arange(ROW_TILE, dtype=_I32, device=bp.device)
-    return ((bp[:, None, :] >> shifts[None, :, None]) & 3).reshape(nw * ROW_TILE, nb)
+    """Inverse of :func:`_pack_words`: [..., bk/8, nb] words -> [..., bk,
+    nb] rows."""
+    *lead, nw, nb = bp.shape
+    shifts = 2 * torch.arange(ROW_TILE, dtype=_I32, device=bp.device)[:, None]
+    return ((bp[..., :, None, :] >> shifts) & 3).reshape(*lead, nw * ROW_TILE, nb)
 
 
-def _backpointers_chain(pair2: torch.Tensor, v_red: torch.Tensor, tab: torch.Tensor,
+def _backpointers_chain(pair2: torch.Tensor, v_red: torch.Tensor, tabs: torch.Tensor,
                         want_dmax: bool):
-    """The reduced delta recursion both plain pass-B versions share (the
-    counterpart of the kernels' ``WANT_DMAX`` template): (bp, dexit, ebits,
-    dmax2 [bk, nb] or None).  With ``want_dmax`` each step also stores
-    max(d0, d1), off the chain, so the first three outputs do not change."""
+    """The reduced delta recursion every plain pass-B version shares (the
+    counterpart of the kernels' ``WANT_DMAX`` template), over v_red
+    [M, 2, nb] and tabs [M, nP, 4]: (bp [M, bk/8, nb], dexit [M, 2, nb],
+    ebits [M, nb], dmax2 [M, bk, nb] or None).  With ``want_dmax`` each
+    step also stores max(d0, d1), off the chain, so the first three
+    outputs do not change."""
+    M = tabs.shape[0]
     bk, nb = pair2.shape
-    T = tab[pair2.long()]
-    d0, d1 = v_red[0].clone(), v_red[1].clone()
-    E = torch.full((nb,), 0b10, dtype=_I32, device=pair2.device)
+    T = tabs[:, pair2.long()]  # [M, bk, nb, 4]
+    d0, d1 = v_red[:, 0].clone(), v_red[:, 1].clone()
+    E = torch.full((M, nb), 0b10, dtype=_I32, device=pair2.device)
     rows = []
-    dmax2 = torch.empty((bk, nb), dtype=_F32, device=pair2.device) if want_dmax else None
+    dmax2 = torch.empty((M, bk, nb), dtype=_F32, device=pair2.device) if want_dmax else None
     for k in range(bk):
-        t = T[k]
-        a0 = d0 + t[:, 0]
-        a1 = d1 + t[:, 2]
-        b0 = d0 + t[:, 1]
-        b1 = d1 + t[:, 3]
+        t = T[:, k]
+        a0 = d0 + t[..., 0]
+        a1 = d1 + t[..., 2]
+        b0 = d0 + t[..., 1]
+        b1 = d1 + t[..., 3]
         bp0 = (a1 > a0).to(_I32)
         bp1 = (b1 > b0).to(_I32)
         E = ((E >> bp0) & 1) | (((E >> bp1) & 1) << 1)
         d0 = torch.maximum(a0, a1)
         d1 = torch.maximum(b0, b1)
         if want_dmax:
-            dmax2[k] = torch.maximum(d0, d1)
+            dmax2[:, k] = torch.maximum(d0, d1)
         rows.append(bp0 | (bp1 << 1))
-    return _pack_words(torch.stack(rows)), torch.stack([d0, d1]), E, dmax2
+    return _pack_words(torch.stack(rows, dim=1)), torch.stack([d0, d1], dim=1), E, dmax2
+
+
+def oh_backpointers_stacked_plain(pair2: torch.Tensor, v_red: torch.Tensor,
+                                  tabs: torch.Tensor):
+    """B27, plain version: every member's reduced delta recursion from its
+    entering vectors -> (bp [M, bk/8, nb], dexit [M, 2, nb], ebits
+    [M, nb]).  Mirrors ``_xla_backpointers_stacked`` without scores."""
+    return _backpointers_chain(pair2, v_red, tabs, want_dmax=False)[:3]
+
+
+def oh_backpointers_stacked_scores_plain(pair2: torch.Tensor, v_red: torch.Tensor,
+                                         tabs: torch.Tensor):
+    """B27's scores arm, plain version: B27's outputs plus each member's
+    per-step chain max dmax2 [M, bk, nb].  Mirrors
+    ``_xla_backpointers_stacked(want_scores=True)``."""
+    return _backpointers_chain(pair2, v_red, tabs, want_dmax=True)
 
 
 def oh_backpointers_plain(pair2: torch.Tensor, v_red: torch.Tensor, tab: torch.Tensor):
@@ -276,7 +352,8 @@ def oh_backpointers_plain(pair2: torch.Tensor, v_red: torch.Tensor, tab: torch.T
     backpointers, dexit [2, nb] f32, ebits [nb] int32 exit -> entry bits).
     Strict ``>`` keeps argmax first-max tie-breaking.  Mirrors
     ``_xla_backpointers``."""
-    return _backpointers_chain(pair2, v_red, tab, want_dmax=False)[:3]
+    out = _backpointers_chain(pair2, v_red[None], tab[None], want_dmax=False)
+    return tuple(x[0] for x in out[:3])
 
 
 def oh_backpointers_scores_plain(pair2: torch.Tensor, v_red: torch.Tensor, tab: torch.Tensor):
@@ -284,7 +361,26 @@ def oh_backpointers_scores_plain(pair2: torch.Tensor, v_red: torch.Tensor, tab: 
     [bk, nb]), dmax2 the running chain max max(d0, d1) after each step,
     relative to the block's normalized entering vector.  Mirrors
     ``_xla_backpointers_scores``."""
-    return _backpointers_chain(pair2, v_red, tab, want_dmax=True)
+    out = _backpointers_chain(pair2, v_red[None], tab[None], want_dmax=True)
+    return tuple(x[0] for x in out)
+
+
+def oh_backtrace_stacked_plain(bp: torch.Tensor, pair2: torch.Tensor, idtabs: torch.Tensor,
+                               exit_bits: torch.Tensor) -> torch.Tensor:
+    """B28, plain version: each member walks its 2-bit backpointers from
+    its exit bits, emitting full state ids through its pair -> exit-group
+    table -> path [M, bk, nb] int32.  Mirrors ``_xla_backtrace_bits_stacked``
+    with the ids resolved per member."""
+    M = idtabs.shape[0]
+    bk, nb = pair2.shape
+    rows = _unpack_words(bp)
+    ids = idtabs[:, pair2.long()]  # [M, bk, nb, 2]
+    path = torch.empty((M, bk, nb), dtype=_I32, device=pair2.device)
+    bit = exit_bits.to(_I32)
+    for k in range(bk - 1, -1, -1):
+        path[:, k] = torch.where(bit == 0, ids[:, k, :, 0], ids[:, k, :, 1])
+        bit = (rows[:, k] >> bit) & 1
+    return path
 
 
 def oh_backtrace_plain(bp: torch.Tensor, pair2: torch.Tensor, idtab: torch.Tensor,
@@ -292,15 +388,7 @@ def oh_backtrace_plain(bp: torch.Tensor, pair2: torch.Tensor, idtab: torch.Tenso
     """Pass C, plain version: walk the 2-bit backpointers from the exit
     bits, emitting full state ids through the pair -> exit-group table.
     Returns path [bk, nb] int32.  Mirrors ``_xla_backtrace``."""
-    bk, nb = pair2.shape
-    rows = _unpack_words(bp)
-    ids = idtab[pair2.long()]  # [bk, nb, 2]
-    path = torch.empty((bk, nb), dtype=_I32, device=pair2.device)
-    bit = exit_bits.to(_I32)
-    for k in range(bk - 1, -1, -1):
-        path[k] = torch.where(bit == 0, ids[k, :, 0], ids[k, :, 1])
-        bit = (rows[k] >> bit) & 1
-    return path
+    return oh_backtrace_stacked_plain(bp[None], pair2, idtab[None], exit_bits[None])[0]
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
@@ -325,79 +413,144 @@ def _check_stream(pair2: torch.Tensor, tables) -> None:
         raise ValueError(f"unsupported device {pair2.device}")
 
 
+def _table_rows(name: str, t: torch.Tensor, width: int, stacked: bool):
+    """(M, nP) of a pair table ([nP, width], or [M, nP, width] stacked),
+    refusing one the kernels' shared tables cannot hold."""
+    if t.dim() != (3 if stacked else 2) or t.shape[-1] != width:
+        want = f"[M, nP, {width}]" if stacked else f"[nP, {width}]"
+        raise ValueError(f"{name}: expected {want}, got {tuple(t.shape)}")
+    M, nP = (t.shape[0], t.shape[1]) if stacked else (1, t.shape[0])
+    if M < 1:
+        raise ValueError(f"{name}: a stacked launch needs at least one member")
+    if not 1 <= nP <= MAX_PAIRS:
+        raise ValueError(
+            f"{name}: a pair table of {nP} rows; the decode kernels take at most "
+            f"{MAX_PAIRS} ({MAX_SYMBOLS} symbols with record resets)"
+        )
+    return M, nP
+
+
+def _launch_ints(bk: int, nb: int, nP: int, M: int, stacked: bool) -> dict:
+    return {"bk": bk, "nb": nb, "nP": nP} | ({"M": M} if stacked else {})
+
+
+def _products_launch(name: str, pair2, tab, stacked: bool):
+    """B1 (single) or B26 (stacked): check, then the plain version on the
+    CPU or the kernel on the card."""
+    _check_stream(pair2, (tab,))
+    bk, nb = pair2.shape
+    M, nP = _table_rows("tab", tab, 4, stacked)
+    lead = (M,) if stacked else ()
+    _check("pair2", pair2, _I32, (bk, nb))
+    _check("tab", tab, _F32, lead + (nP, 4))
+    if pair2.device.type == "cpu":
+        out = oh_products_stacked_plain(pair2, tab.reshape(M, nP, 4))
+        return out if stacked else out[0]
+    out = torch.empty(lead + (4, nb), dtype=_F32, device=pair2.device)
+    _kernels.launch(name, pair2, tab, out, **_launch_ints(bk, nb, nP, M, stacked))
+    return out
+
+
 def oh_products(pair2: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
     """Kernel B1 (replaces the JAX package's ``_oh_products_kernel``):
     [bk, nb] pairs + [nP, 4] table -> [4, nb] block products."""
-    _check_stream(pair2, (tab,))
+    return _products_launch("oh_products", pair2, tab, False)
+
+
+def oh_products_stacked(pair2: torch.Tensor, tabs: torch.Tensor) -> torch.Tensor:
+    """Kernel B26 (replaces ``_oh_products_stacked_kernel``): [bk, nb]
+    pairs + [M, nP, 4] tables -> [M, 4, nb], member m's block products
+    (its C00, C01, C10, C11)."""
+    return _products_launch("oh_products_stacked", pair2, tabs, True)
+
+
+def _backpointers_launch(name: str, pair2, v_red, tab, stacked: bool, want_dmax: bool):
+    """B2 / B6 (single) or B27 / its scores arm (stacked): check, then the
+    plain version on the CPU or the kernel on the card."""
+    _check_stream(pair2, (v_red, tab))
     bk, nb = pair2.shape
-    nP = tab.shape[0]
+    M, nP = _table_rows("tab", tab, 4, stacked)
+    lead = (M,) if stacked else ()
     _check("pair2", pair2, _I32, (bk, nb))
-    _check("tab", tab, _F32, (nP, 4))
+    _check("v_red", v_red, _F32, lead + (GROUP, nb))
+    _check("tab", tab, _F32, lead + (nP, 4))
     if pair2.device.type == "cpu":
-        return oh_products_plain(pair2, tab)
-    out = torch.empty((4, nb), dtype=_F32, device=pair2.device)
-    _kernels.launch("oh_products", pair2, tab, out, bk=bk, nb=nb, nP=nP)
-    return out
+        out = _backpointers_chain(pair2, v_red.reshape(M, GROUP, nb),
+                                  tab.reshape(M, nP, 4), want_dmax)
+        out = out if want_dmax else out[:3]
+        return out if stacked else tuple(x[0] for x in out)
+    dev = pair2.device
+    outs = [torch.empty(lead + (bk // ROW_TILE, nb), dtype=_I32, device=dev),
+            torch.empty(lead + (GROUP, nb), dtype=_F32, device=dev),
+            torch.empty(lead + (nb,), dtype=_I32, device=dev)]
+    if want_dmax:
+        outs.append(torch.empty(lead + (bk, nb), dtype=_F32, device=dev))
+    _kernels.launch(name, pair2, v_red, tab, *outs, **_launch_ints(bk, nb, nP, M, stacked))
+    return tuple(outs)
 
 
 def oh_backpointers(pair2: torch.Tensor, v_red: torch.Tensor, tab: torch.Tensor):
     """Kernel B2 (replaces ``_oh_backpointers_kernel``): -> (bp [bk/8, nb]
     int32, dexit [2, nb] f32, ebits [nb] int32)."""
-    _check_stream(pair2, (v_red, tab))
-    bk, nb = pair2.shape
-    nP = tab.shape[0]
-    _check("pair2", pair2, _I32, (bk, nb))
-    _check("v_red", v_red, _F32, (GROUP, nb))
-    _check("tab", tab, _F32, (nP, 4))
-    if pair2.device.type == "cpu":
-        return oh_backpointers_plain(pair2, v_red, tab)
-    bp = torch.empty((bk // ROW_TILE, nb), dtype=_I32, device=pair2.device)
-    dexit = torch.empty((GROUP, nb), dtype=_F32, device=pair2.device)
-    ebits = torch.empty((nb,), dtype=_I32, device=pair2.device)
-    _kernels.launch("oh_backpointers", pair2, v_red, tab, bp, dexit, ebits,
-                    bk=bk, nb=nb, nP=nP)
-    return bp, dexit, ebits
+    return _backpointers_launch("oh_backpointers", pair2, v_red, tab, False, False)
 
 
 def oh_backpointers_scores(pair2: torch.Tensor, v_red: torch.Tensor, tab: torch.Tensor):
     """Kernel B6 (replaces ``_oh_backpointers_score_kernel``): B2's outputs
     plus dmax2 [bk, nb] f32, the per-step chain max -> (bp, dexit, ebits,
     dmax2)."""
-    _check_stream(pair2, (v_red, tab))
+    return _backpointers_launch("oh_backpointers_scores", pair2, v_red, tab, False, True)
+
+
+def oh_backpointers_stacked(pair2: torch.Tensor, v_red: torch.Tensor, tabs: torch.Tensor):
+    """Kernel B27 (replaces ``_oh_backpointers_stacked_kernel``): v_red
+    [M, 2, nb], tabs [M, nP, 4] -> (bp [M, bk/8, nb] int32, dexit [M, 2, nb]
+    f32, ebits [M, nb] int32), member m's equal to B2 on its operands."""
+    return _backpointers_launch("oh_backpointers_stacked", pair2, v_red, tabs, True, False)
+
+
+def oh_backpointers_stacked_scores(pair2: torch.Tensor, v_red: torch.Tensor,
+                                   tabs: torch.Tensor):
+    """Kernel B27 with ``want_scores`` (B6 for M members): B27's outputs
+    plus dmax2 [M, bk, nb] f32 -> (bp, dexit, ebits, dmax2)."""
+    return _backpointers_launch("oh_backpointers_stacked_scores", pair2, v_red, tabs,
+                                True, True)
+
+
+def _backtrace_launch(name: str, bp, pair2, idtab, exit_bits, stacked: bool):
+    """B3 (single) or B28 (stacked): check, then the plain version on the
+    CPU or the kernel on the card."""
+    _check_stream(pair2, (bp, idtab, exit_bits))
     bk, nb = pair2.shape
-    nP = tab.shape[0]
+    M, nP = _table_rows("idtab", idtab, GROUP, stacked)
+    lead = (M,) if stacked else ()
+    _check("bp", bp, _I32, lead + (bk // ROW_TILE, nb))
     _check("pair2", pair2, _I32, (bk, nb))
-    _check("v_red", v_red, _F32, (GROUP, nb))
-    _check("tab", tab, _F32, (nP, 4))
+    _check("idtab", idtab, _I32, lead + (nP, GROUP))
+    _check("exit_bits", exit_bits, _I32, lead + (nb,))
     if pair2.device.type == "cpu":
-        return oh_backpointers_scores_plain(pair2, v_red, tab)
-    bp = torch.empty((bk // ROW_TILE, nb), dtype=_I32, device=pair2.device)
-    dexit = torch.empty((GROUP, nb), dtype=_F32, device=pair2.device)
-    ebits = torch.empty((nb,), dtype=_I32, device=pair2.device)
-    dmax2 = torch.empty((bk, nb), dtype=_F32, device=pair2.device)
-    _kernels.launch("oh_backpointers_scores", pair2, v_red, tab, bp, dexit, ebits, dmax2,
-                    bk=bk, nb=nb, nP=nP)
-    return bp, dexit, ebits, dmax2
+        path = oh_backtrace_stacked_plain(bp.reshape(M, bk // ROW_TILE, nb), pair2,
+                                          idtab.reshape(M, nP, GROUP), exit_bits.reshape(M, nb))
+        return path if stacked else path[0]
+    path = torch.empty(lead + (bk, nb), dtype=_I32, device=pair2.device)
+    _kernels.launch(name, bp, pair2, idtab, exit_bits, path,
+                    **_launch_ints(bk, nb, nP, M, stacked))
+    return path
 
 
 def oh_backtrace(bp: torch.Tensor, pair2: torch.Tensor, idtab: torch.Tensor,
                  exit_bits: torch.Tensor) -> torch.Tensor:
     """Kernel B3 (replaces ``_oh_backtrace_kernel``): -> path [bk, nb] int32
     state ids."""
-    _check_stream(pair2, (bp, idtab, exit_bits))
-    bk, nb = pair2.shape
-    nP = idtab.shape[0]
-    _check("bp", bp, _I32, (bk // ROW_TILE, nb))
-    _check("pair2", pair2, _I32, (bk, nb))
-    _check("idtab", idtab, _I32, (nP, GROUP))
-    _check("exit_bits", exit_bits, _I32, (nb,))
-    if pair2.device.type == "cpu":
-        return oh_backtrace_plain(bp, pair2, idtab, exit_bits)
-    path = torch.empty((bk, nb), dtype=_I32, device=pair2.device)
-    _kernels.launch("oh_backtrace", bp, pair2, idtab, exit_bits, path,
-                    bk=bk, nb=nb, nP=nP)
-    return path
+    return _backtrace_launch("oh_backtrace", bp, pair2, idtab, exit_bits, False)
 
+
+def oh_backtrace_stacked(bp: torch.Tensor, pair2: torch.Tensor, idtabs: torch.Tensor,
+                         exit_bits: torch.Tensor) -> torch.Tensor:
+    """Kernel B28 (replaces ``_oh_backtrace_stacked_kernel``): bp
+    [M, bk/8, nb], idtabs [M, nP, 2], exit_bits [M, nb] -> path [M, bk, nb]
+    int32, member m's equal to B3 on its operands."""
+    return _backtrace_launch("oh_backtrace_stacked", bp, pair2, idtabs, exit_bits, True)
 
 # ---------------------------------------------------------------------------
 # Scatter glue: reduced block results -> full-K interfaces
@@ -514,6 +667,105 @@ def pass_backtrace(blob, exits: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Stacked passes: M members' reduced chains over ONE shared pair stream, one
+# launch per pass (B26-B28).  Member m's results equal its own single-model
+# pass over the same ``steps2`` bit for bit.
+
+
+def pass_products_stacked(params_list, steps2, prev0=None, resets=None, pre=None):
+    """Stacked :func:`pass_products` through B26: a per-member list of
+    (incl, offs, total)."""
+    _, gts, tabs, _, pair2, e_in, e_out, nreal = stacked_prepared(
+        params_list, steps2, prev0, resets, pre
+    )
+    nb = pair2.shape[1]
+    reds = oh_products_stacked(_pad_pair_rows(pair2, e_out, nreal), torch.stack(tabs))
+    out = []
+    for m, params in enumerate(params_list):
+        red = reds[m].T.reshape(nb, GROUP, GROUP)
+        incl, offs = scan_block_products(
+            _scatter_products(red, gts[m], e_in, e_out, params.n_states))
+        out.append((incl, offs, incl[-1]))
+    return out
+
+
+def pass_backpointers_stacked(params_list, v_enters, steps2, prev0=None, resets=None,
+                              pre=None, want_scores: bool = False):
+    """Stacked :func:`pass_backpointers` (through B27, or its scores arm
+    with ``want_scores``): ``v_enters`` is the per-member [nb, K] list of
+    entering vectors.  Returns a per-member list of (delta_exit, F, dmax2
+    [bk, nb] or None) and ONE blob for :func:`pass_backtrace_stacked`."""
+    _, gts, tabs, idtabs, pair2, e_in, e_out, nreal = stacked_prepared(
+        params_list, steps2, prev0, resets, pre
+    )
+    bk_real, nb = pair2.shape
+    v_red = torch.stack([torch.gather(v, 1, gt[e_in.long()]).T.to(_F32)
+                         for v, gt in zip(v_enters, gts)])  # [M, 2, nb]
+    pair2p = _pad_pair_rows(pair2, e_out, nreal)
+    args = (pair2p, v_red.contiguous(), torch.stack(tabs))
+    if want_scores:
+        bp, dexit_red, ebits, dmax2 = oh_backpointers_stacked_scores(*args)
+    else:
+        bp, dexit_red, ebits = oh_backpointers_stacked(*args)
+    outs = []
+    for m, params in enumerate(params_list):
+        K = params.n_states
+        outs.append((
+            _scatter_vec(dexit_red[m].T, gts[m], e_out, K),
+            _scatter_ftab(ebits[m], gts[m], e_in, e_out, K),
+            dmax2[m, :bk_real] if want_scores else None,
+        ))
+    ghigh_ends = [gt[e_out.long(), 1] for gt in gts]  # per-member exit-bit anchors
+    return outs, (bp, pair2p, torch.stack(idtabs), ghigh_ends, bk_real, nb)
+
+
+def pass_backtrace_stacked(blob, exits_list) -> list:
+    """Stacked :func:`pass_backtrace` through B28: ``exits_list`` holds each
+    member's [nb] exit-state anchors.  Returns per-member [bk*nb] paths."""
+    bp, pair2p, idtabs, ghigh_ends, bk_real, _ = blob
+    exit_bits = torch.stack([(exits.long() == g).to(_I32)
+                             for exits, g in zip(exits_list, ghigh_ends)])
+    path2 = oh_backtrace_stacked(bp, pair2p, idtabs, exit_bits)
+    return [p[:bk_real].T.reshape(-1) for p in path2]
+
+
+def _block_passes_stacked(params_list, v0s, padded, bk: int, resets, pre,
+                          want_scores: bool = False) -> list:
+    """The stacked twin of viterbi_parallel._block_passes (onehot engine):
+    ONE launch per pass for every member; the model-sized stitching loops
+    over members.  Member m's BlockDecode equals what ``_block_passes(...,
+    engine="onehot")`` returns for it alone."""
+    from cpgisland_tpu_torch.ops.viterbi_parallel import (
+        BlockDecode,
+        _enter_vectors,
+        _suffix_compositions,
+    )
+
+    nb = padded.shape[0] // bk
+    steps2 = padded.reshape(nb, bk).T
+    prods = pass_products_stacked(params_list, steps2, None, resets=resets, pre=pre)
+    v_enters, enter_offs = zip(*(_enter_vectors(v0, incl, offs)
+                                 for v0, (incl, offs, _) in zip(v0s, prods)))
+    bps, blob = pass_backpointers_stacked(params_list, v_enters, steps2, None, resets=resets,
+                                          pre=pre, want_scores=want_scores)
+    exits_list, Gsufs = [], []
+    for delta_blocks, F, _ in bps:
+        s_exit = torch.argmax(delta_blocks[-1]).to(torch.int32)
+        Gsuf = _suffix_compositions(F)
+        exits_list.append(torch.cat([Gsuf[1:, :][:, s_exit.long()], s_exit[None]]))
+        Gsufs.append(Gsuf)
+    paths = pass_backtrace_stacked(blob, exits_list)
+    return [
+        BlockDecode(
+            path=path, delta_exit=delta_blocks[-1], total=total, ftable=Gsuf[0],
+            score_offset=offs[-1], enter_offs=offs if want_scores else None, dmax2=dmax2,
+        )
+        for path, (delta_blocks, _, dmax2), (_, _, total), Gsuf, offs
+        in zip(paths, bps, prods, Gsufs, enter_offs)
+    ]
+
+
+# ---------------------------------------------------------------------------
 # Flat batched decode (one kernel launch per pass for N records)
 
 
@@ -589,6 +841,11 @@ def decode_batch_flat(params: HmmParams, chunks: torch.Tensor, lengths: torch.Te
         params, v0, padded, bk, engine="onehot", prev0=concat[0],
         resets=resets, pre=pre, want_scores=return_score,
     )
+    return _flat_result(dec, N, T, bk, return_score)
+
+
+def _flat_result(dec, N: int, T: int, bk: int, return_score: bool):
+    """A flat decode's paths [N, T] (and scores [N]) from its BlockDecode."""
     s0 = dec.ftable[torch.argmax(dec.delta_exit)]
     full = torch.cat([s0[None], dec.path[: N * T - 1]]).reshape(N, T)
     if not return_score:
@@ -598,3 +855,46 @@ def decode_batch_flat(params: HmmParams, chunks: torch.Tensor, lengths: torch.Te
     b = torch.div(e, bk, rounding_mode="floor")
     M = dec.dmax2[e - b * bk, b] + dec.enter_offs[b]
     return full, torch.cat([M[:1], M[1:] - M[:-1]])
+
+
+def decode_batch_flat_stacked(params_list, chunks: torch.Tensor, lengths: torch.Tensor,
+                              block_size=None, prepared=None, return_score: bool = False):
+    """Decode ONE [N, T] batch under M models of one alphabet in ONE
+    stacked launch set: paths [M, N, T], or (paths, scores [M, N]).
+
+    The multi-model twin of :func:`decode_batch_flat`: the flat reset-step
+    stream holds only symbols, so every member shares it and its prep, and
+    each pass runs once for all members (B26, B27 or its scores arm, B28).
+    Member m's paths and scores equal ``decode_batch_flat(params_list[m],
+    chunks, lengths, block_size)`` bit for bit.  ``block_size=None`` means
+    the prep's block when ``prepared`` is given, else 4096 (the port has no
+    tuner table); a prep built for another batch or block raises."""
+    from cpgisland_tpu_torch.ops.viterbi_parallel import DEFAULT_BLOCK, _step_tables
+
+    if not params_list:
+        raise ValueError("decode_batch_flat_stacked needs at least one member")
+    S = params_list[0].n_symbols
+    N, T = chunks.shape
+    if T < 2:
+        raise ValueError("decode_batch_flat_stacked needs records of at least 2 symbols")
+    if block_size is None:
+        block_size = prepared[3] if prepared is not None else DEFAULT_BLOCK
+    block_size = int(block_size)
+    if prepared is None:
+        prepared = prepare_decode_flat(S, chunks, lengths, block_size)
+    concat, padded, resets, bk, pre = prepared
+    n_steps = N * T - 1
+    want_bk = min(block_size, max(8, n_steps))
+    if concat.shape[0] != N * T or bk != want_bk:
+        raise ValueError(
+            f"prepared decode stream was built for {concat.shape[0]} symbols / "
+            f"bk={bk}; this call needs {N * T} symbols / bk={want_bk} — rebuild it "
+            "with prepare_decode_flat"
+        )
+    v0s = [p.log_pi + _step_tables(p)[1][concat[0].long()] for p in params_list]
+    decs = _block_passes_stacked(params_list, v0s, padded, bk, resets, pre,
+                                 want_scores=return_score)
+    outs = [_flat_result(dec, N, T, bk, return_score) for dec in decs]
+    if not return_score:
+        return torch.stack(outs)
+    return torch.stack([p for p, _ in outs]), torch.stack([s for _, s in outs])

@@ -32,7 +32,7 @@ from cpgisland_tpu_torch.models import presets
 from cpgisland_tpu_torch.models.hmm import HmmParams, dump_text
 from cpgisland_tpu_torch.ops import fb_seq
 from cpgisland_tpu_torch.ops import islands as islands_mod
-from cpgisland_tpu_torch.ops import islands_device
+from cpgisland_tpu_torch.ops import islands_device, viterbi_onehot
 from cpgisland_tpu_torch.ops.islands import IslandCalls
 from cpgisland_tpu_torch.ops.viterbi_parallel import viterbi_parallel_batch
 from cpgisland_tpu_torch.parallel import posterior as post
@@ -260,24 +260,30 @@ def _batched_device_calls(params: HmmParams, paths: torch.Tensor, rows: np.ndarr
     return parts
 
 
-def _decode_small_batch(params: HmmParams, batch: list, *, engine: str, min_len,
-                        island_states, use_device: bool, cap_box: list,
-                        phases: dict, want_paths: bool = False):
-    """Decode a batch of small records in one batched decode; islands per
-    record.  Rows pad to a power-of-two length and at least 8 rows, so few
-    distinct shapes occur across many scaffolds.  Small records that start
-    with PAD stay on the flat onehot batch, as in the JAX package.  Returns
-    ([IslandCalls per record], [int8 host path per record] when
-    ``want_paths``, else [])."""
-    B = len(batch)
+def _pad_small_batch(batch: list):
+    """Host [Bp, Tpad] uint8 rows and [Bp] lengths of a small-record batch:
+    rows pad to a power-of-two length and at least 8 rows (zero-length pad
+    rows), so few distinct shapes occur across many scaffolds."""
     sizes = [s.size for _, s in batch]
     Tpad = _round_pow2(max(sizes + [1]))
-    Bp = _round_pow2(B, floor=8)
+    Bp = _round_pow2(len(batch), floor=8)
     rows = np.full((Bp, Tpad), chunking.PAD_SYMBOL, np.uint8)
     for i, (_, s) in enumerate(batch):
         rows[i, : s.size] = s
     lengths = np.zeros(Bp, np.int32)
-    lengths[:B] = sizes
+    lengths[: len(batch)] = sizes
+    return rows, lengths
+
+
+def _decode_small_batch(params: HmmParams, batch: list, *, engine: str, min_len,
+                        island_states, use_device: bool, cap_box: list,
+                        phases: dict, want_paths: bool = False):
+    """Decode a batch of small records (:func:`_pad_small_batch` rows) in
+    one batched decode; islands per record.  Small records that start with
+    PAD stay on the flat onehot batch, as in the JAX package.  Returns
+    ([IslandCalls per record], [int8 host path per record] when
+    ``want_paths``, else [])."""
+    rows, lengths = _pad_small_batch(batch)
     with _phase(phases, "decode"):
         paths = _batch_paths(params, engine, rows, lengths)
         if use_device:
@@ -300,6 +306,68 @@ def _decode_small_batch(params: HmmParams, batch: list, *, engine: str, min_len,
         return parts, []
     host = np.asarray(paths)  # the dump forces host islands: already on the host
     return parts, [host[i, : s.size].astype(np.int8) for i, (_, s) in enumerate(batch)]
+
+
+def _decode_small_batch_stacked(params_list: list, batch: list, owners: list, *, min_len,
+                                island_states_list: list, use_device_list: list,
+                                cap_boxes: list, phases: dict):
+    """Decode ONE small-record batch under M models of one alphabet in one
+    stacked flat launch set (``viterbi_onehot.decode_batch_flat_stacked``:
+    B26, B27, B28 once each) — the serve broker's mixed-model decode flush
+    unit.  Record i's island calls come from its owning model's path
+    (``owners[i]`` indexes ``params_list``), called per model on that
+    model's records only: on the card through one batched island call over
+    a power-of-two sub-batch (zero-length pad rows emit no calls), or on the
+    host after one fetch of the model's rows.
+
+    Record i's path equals ``owners[i]``'s own ``decode_batch_flat`` of this
+    same padded batch bit for bit; against the per-model sequential flush
+    (a flat stream of that model's records only) the reset constants
+    differ, so paths agree up to the flat decoder's rounding-tie contract.
+    Phase seconds ("decode", "islands") add into ``phases``.  Returns
+    (B, [IslandCalls per record] in batch order)."""
+    B = len(batch)
+    rows, lengths = _pad_small_batch(batch)
+    dev = params_list[0].device
+    any_dev = any(use_device_list)
+    with _phase(phases, "decode"):
+        paths = viterbi_onehot.decode_batch_flat_stacked(
+            params_list,
+            torch.from_numpy(rows).to(dev),  # uint8 upload
+            torch.from_numpy(lengths).to(dev),
+        )
+        if any_dev:
+            _sync(dev)
+        else:
+            paths = paths.cpu().numpy()
+    parts: list = [None] * B
+    with _phase(phases, "islands"):
+        for m, params in enumerate(params_list):
+            idx = [i for i in range(B) if owners[i] == m]
+            if not idx:
+                continue
+            batch_m = [batch[i] for i in idx]
+            if use_device_list[m]:
+                sel = np.asarray(idx + [idx[0]] * (_round_pow2(len(idx), floor=8) - len(idx)))
+                lens_m = lengths[sel].copy()
+                lens_m[len(idx):] = 0
+                calls_m = _batched_device_calls(
+                    params, paths[m][torch.from_numpy(sel).to(dev)], rows[sel], lens_m, batch_m,
+                    island_states=island_states_list[m], min_len=min_len,
+                    cap_box=cap_boxes[m])
+            else:
+                # One batched fetch of the model's rows, not one per record.
+                pm = (paths[m][torch.from_numpy(np.asarray(idx)).to(dev)].cpu().numpy()
+                      if any_dev else paths[m][np.asarray(idx)])
+                calls_m = [
+                    _record_calls(pm[k, : symbols.size], symbols,
+                                  island_states=island_states_list[m], min_len=min_len,
+                                  use_device=False, cap_box=cap_boxes[m]).with_names(name or ".")
+                    for k, (name, symbols) in enumerate(batch_m)
+                ]
+            for k, i in enumerate(idx):
+                parts[i] = calls_m[k]
+    return B, parts
 
 
 def _write_calls(calls: IslandCalls, islands_out: Union[str, IO[str]]) -> None:

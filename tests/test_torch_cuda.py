@@ -968,3 +968,149 @@ def test_split_training_cuda_equals_cpu(cuda_device, tmp_path):
     for x, y in ((cpu.params.pi, card.params.pi), (cpu.params.A, card.params.A),
                  (cpu.params.B, card.params.B)):
         np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(), atol=1e-5)
+
+
+# -- B26-B28: the stacked decode; B1, B6 and B3 at 16 symbols -----------------
+
+
+def _decode_members(S, M, device, seed=0):
+    """The flagship (S = 4) or dinuc_cpg (S = 16) plus M - 1 random
+    partition=2 members of its alphabet, their states scrambled (so each
+    member has its own groups and exit anchors)."""
+    from cpgisland_tpu_torch.models.hmm import HmmParams
+
+    gen = torch.Generator().manual_seed(seed + 17 * M + S)
+    first = presets.durbin_cpg8(device=device) if S == 4 else presets.dinuc_cpg(device=device)
+    out = [first]
+    for _ in range(M - 1):
+        p = presets.random_hmm(gen, 2 * S, S, partition=2, device=device)
+        perm = torch.randperm(2 * S, generator=gen).to(device)  # scrambled groups
+        out.append(HmmParams(p.log_pi[perm], p.log_A[perm][:, perm], p.log_B[perm]))
+    return out
+
+
+def _decode_symbols(rng, S, shape):
+    """Random symbols; pair recodes of random bases (which chain) at S = 16."""
+    from cpgisland_tpu_torch.utils.codec import recode_pairs
+
+    base = rng.integers(0, 4, size=shape).astype(np.uint8)
+    return base if S == 4 else recode_pairs(base.ravel()).reshape(shape)
+
+
+STACKED_DECODE = ("oh_products_stacked", "oh_backpointers_stacked",
+                  "oh_backpointers_stacked_scores", "oh_backtrace_stacked")
+
+
+@pytest.mark.parametrize("S,M,bk,nb", [(4, 1, 8, 1), (4, 2, 64, 130), (4, 5, 512, 300),
+                                       (16, 2, 128, 257), (16, 3, 4096, 129)])
+def test_stacked_decode_kernels_equal_plain_and_single(cuda_device, S, M, bk, nb):
+    """B26, B27 (both arms) and B28 equal their plain versions bit for bit
+    over a reset-renumbered stream with PAD runs, and each member's slice
+    equals B1 / B2 / B6 / B3 on its own operands; one launch each."""
+    rng = np.random.default_rng(S * 1000 + M * 100 + nb)
+    members = _decode_members(S, M, cuda_device)
+    steps = _decode_symbols(rng, S, (nb, bk)).T.astype(np.int32).copy()
+    steps[rng.random((bk, nb)) < 0.02] = S
+    resets = torch.from_numpy(rng.random((bk, nb)) < 0.01).to(cuda_device)
+    _, _, tabs, idtabs, pair2, _, _, nreal = OH.stacked_prepared(
+        members, torch.from_numpy(steps).to(cuda_device), int(steps[0, 0]) % S, resets)
+    tabs, idtabs = torch.stack(tabs), torch.stack(idtabs)
+    assert tabs.shape == (M, S * S + 2 * S, 4) and nreal == S * S + S
+    v = torch.from_numpy(rng.normal(size=(M, 2, nb)).astype(np.float32)).to(cuda_device)
+    bits = torch.from_numpy(rng.integers(0, 2, size=(M, nb)).astype(np.int32)).to(cuda_device)
+    before = {k: _kernels.launches[k] for k in STACKED_DECODE}
+    red = OH.oh_products_stacked(pair2, tabs)
+    bpw = OH.oh_backpointers_stacked(pair2, v, tabs)
+    sc = OH.oh_backpointers_stacked_scores(pair2, v, tabs)
+    path = OH.oh_backtrace_stacked(sc[0], pair2, idtabs, bits)
+    torch.cuda.synchronize()
+    assert all(_kernels.launches[k] == before[k] + 1 for k in STACKED_DECODE)
+    assert torch.equal(red, OH.oh_products_stacked_plain(pair2, tabs))
+    want = OH.oh_backpointers_stacked_scores_plain(pair2, v, tabs)
+    assert all(torch.equal(a, b) for a, b in zip(sc, want))
+    assert all(torch.equal(a, b) for a, b in zip(bpw, want[:3]))
+    assert torch.equal(path, OH.oh_backtrace_stacked_plain(want[0], pair2, idtabs, bits))
+    for m in range(M):
+        assert torch.equal(OH.oh_products(pair2, tabs[m]), red[m])
+        single = OH.oh_backpointers_scores(pair2, v[m].contiguous(), tabs[m])
+        assert all(torch.equal(a, b[m]) for a, b in zip(single, sc))
+        assert all(torch.equal(a, b[m]) for a, b in zip(
+            OH.oh_backpointers(pair2, v[m].contiguous(), tabs[m]), bpw))
+        assert torch.equal(OH.oh_backtrace(sc[0][m].contiguous(), pair2, idtabs[m],
+                                           bits[m].contiguous()), path[m])
+
+
+def test_dinuc_flat_decode_kernels_equal_plain(cuda_device, monkeypatch):
+    """The repair: a dinuc_cpg flat batch (288-row tables) decodes on the
+    card through B1, B6 and B3, and the same batch through their plain
+    versions on the card gives the same paths and scores bit for bit."""
+    rng = np.random.default_rng(23)
+    params = presets.dinuc_cpg(device=cuda_device)
+    N, T = 6, 3000
+    chunks = torch.from_numpy(_decode_symbols(rng, 16, (N, T))).to(cuda_device)
+    lengths = torch.tensor([3000, 2000, 2, 2999, 1500, 3000], dtype=torch.int32,
+                           device=cuda_device)
+    kernels = ("oh_products", "oh_backpointers_scores", "oh_backtrace")
+    before = {k: _kernels.launches[k] for k in kernels}
+    paths, scores = OH.decode_batch_flat(params, chunks, lengths, block_size=512,
+                                         return_score=True)
+    torch.cuda.synchronize()
+    assert all(_kernels.launches[k] == before[k] + 1 for k in kernels)
+    for k in kernels:
+        monkeypatch.setattr(OH, k, getattr(OH, f"{k}_plain"))
+    paths_p, scores_p = OH.decode_batch_flat(params, chunks, lengths, block_size=512,
+                                             return_score=True)
+    assert torch.equal(paths, paths_p) and torch.equal(scores, scores_p)
+    assert torch.isfinite(scores).all()
+
+
+@pytest.mark.parametrize("S,M", [(4, 3), (16, 2)])
+def test_decode_batch_flat_stacked_cuda_equals_cpu(cuda_device, S, M):
+    """The stacked flat decode on the card (B26, B27's scores arm and B28
+    once each, B1-B3 and B6 never) equals the CPU's bit for bit, and each
+    member equals its own flat decode on the card."""
+    rng = np.random.default_rng(31 + S + M)
+    N, T = 7, 2500
+    chunks = _decode_symbols(rng, S, (N, T))
+    chunks[1, 500:560] = S
+    lengths = np.array([2500, 1800, 2, 2499, 900, 2500, 1234], np.int32)
+    single = ("oh_products", "oh_backpointers", "oh_backpointers_scores", "oh_backtrace")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        members = _decode_members(S, M, dev)
+        before = {k: _kernels.launches[k] for k in STACKED_DECODE + single}
+        out[dev] = OH.decode_batch_flat_stacked(
+            members, torch.from_numpy(chunks).to(dev), torch.from_numpy(lengths).to(dev),
+            block_size=512, return_score=True)
+        ran = {k: _kernels.launches[k] - before[k] for k in before}
+        want = {"oh_products_stacked": 1, "oh_backpointers_stacked_scores": 1,
+                "oh_backtrace_stacked": 1} if dev == "cuda" else {}
+        assert {k: n for k, n in ran.items() if n} == want
+    (pc, sc), (pg, sg) = out["cpu"], out["cuda"]
+    assert torch.equal(pc, pg.cpu()) and torch.equal(sc, sg.cpu())
+    for m, p in enumerate(_decode_members(S, M, cuda_device)):
+        own, own_s = OH.decode_batch_flat(p, torch.from_numpy(chunks).to(cuda_device),
+                                          torch.from_numpy(lengths).to(cuda_device),
+                                          block_size=512, return_score=True)
+        assert torch.equal(own, pg[m]) and torch.equal(own_s, sg[m])
+
+
+@pytest.mark.parametrize("use_device", [True, False])
+def test_decode_small_batch_stacked_cuda_equals_cpu(cuda_device, use_device):
+    """The mixed-model flush unit on the card gives the CPU's island calls,
+    record for record, with device or host islands."""
+    rng = np.random.default_rng(41)
+    batch = []
+    for i in range(9):
+        s = rng.choice(4, size=int(rng.integers(2000, 20000)), p=[0.3, 0.2, 0.2, 0.3])
+        s[500:2000] = rng.choice(4, size=1500, p=[0.1, 0.4, 0.4, 0.1])
+        batch.append((f"r{i}", s.astype(np.uint8)))
+    owners = [i % 3 for i in range(len(batch))]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        _, out[dev] = pipeline._decode_small_batch_stacked(
+            _decode_members(4, 3, dev), batch, owners, min_len=200,
+            island_states_list=[None] * 3, use_device_list=[use_device] * 3,
+            cap_boxes=[[1024] for _ in range(3)], phases={})
+    assert [c.format_lines() for c in out["cpu"]] == [c.format_lines() for c in out["cuda"]]
+    assert sum(len(c) for c in out["cuda"]) > 0
