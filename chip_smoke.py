@@ -90,9 +90,10 @@ JSON line each:
    the card (identical island files, confidence and model dumps within
    1e-5), and profiles of one dense EM iteration and one dense posterior
    of the big record;
-17-20. the stacked kernels (B21, B24, B25) and the scoring kernels, the
-   compare main path (three casts, stacked against sequential) and
-   ``fit_family`` against solo fits;
+17-20. the stacked kernels (B21, B24, B25; against their plain versions at
+   M = 2, per member against B7 / B4 / B5 at every M) and the scoring
+   kernels, the compare main path (three casts, stacked against
+   sequential) and ``fit_family`` against solo fits;
 21. flat-batch scores: ``viterbi_parallel_batch(engine="onehot")`` over the
    256 scaffolds in one padded batch (B6 exactly once, B2 never); the
    batch again through the plain B1, B6 and B3 on the card gives the same
@@ -136,9 +137,10 @@ JSON line each:
    4096, 8192 and 16384;
 30. the split arm's kernels: B9, B10 and B12 at NL=1024 x Tp=65,536
    (ragged, as B4 / B5), B22 and B23 there at M = 2 and 5, B9, B10 and
-   B11 at 8192 x 8192 on the genome's 64 Mi record — B9-B11, B22 and B23
-   bit-equal to their plain versions (B9 also to B4's alphas, B22 / B23
-   per member to B9 / B10), B12 within rtol 1e-5 / atol 1e-3;
+   B11 at 8192 x 8192 on the genome's 64 Mi record — B9-B11 bit-equal to
+   their plain versions, B22 and B23 too at M = 2 (B9 also to B4's alphas,
+   B22 / B23 per member to B9 / B10 at every M), B12 within rtol 1e-5 /
+   atol 1e-3;
 31. ``train_file`` with ``LocalBackend(fuse_fb=False)``, compat then
    clean (B9, B10, B12 exactly 5 each per mode, B4 and B5 never), the
    logliks within rtol 1e-5 of phase 4's;
@@ -167,7 +169,15 @@ JSON line each:
    rescored in float64 must tie), wall and device busy time of both, host
    islands for one model, and ``decode_batch_flat_stacked(return_score=
    True)`` over all scaffolds in one batch (paths and scores equal to each
-   member's own flat decode).
+   member's own flat decode);
+36. the pair-composition bench's kernels at its geometry (64 Mi symbols
+   as 1024 full lanes of 65,536): T2-T4 (``oh_fwd_strm``, ``oh_fwd_comp``,
+   ``oh_fwd_compsel``) bit-equal to their plain versions, T2 to B9 and T4
+   to T3, all four of T1-T4 within the bench's gate (1e-4) of the
+   single-step plain reference, each kernel timed beside its bound and
+   the whole variant (streams built) beside it; then the bench itself,
+   ``tools/bench_compose.main(["--mib", "64"])``: its JSON line, and the
+   launch counters moved by exactly the calls it reports.
 
 Phase 2 also holds B6 (the score-threading backpointer kernel) bit for bit
 against its plain version on B2's flat stream, with B2's outputs equal to
@@ -183,11 +193,11 @@ non-zero on any failure, or when CUDA is not available.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import io
 import json
 import os
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -200,6 +210,7 @@ from cpgisland_tpu_torch import family, pipeline
 from cpgisland_tpu_torch.models import presets
 from cpgisland_tpu_torch.models.hmm import HmmParams, load_text
 from cpgisland_tpu_torch.ops import _kernels, fb_chunked, fb_seq
+from cpgisland_tpu_torch.ops import fb_compose as FC
 from cpgisland_tpu_torch.ops import fb_onehot as FB
 from cpgisland_tpu_torch.ops import fb_pallas as FP
 from cpgisland_tpu_torch.ops import loglik as LL
@@ -211,6 +222,7 @@ from cpgisland_tpu_torch.parallel.decode import viterbi_sharded, viterbi_sharded
 from cpgisland_tpu_torch.family.stacked import stack_groups
 from cpgisland_tpu_torch.parallel.posterior import posterior_sharded, resolve_fb_engine
 from cpgisland_tpu_torch.train import baum_welch
+from cpgisland_tpu_torch.tools import bench_compose as BC
 from cpgisland_tpu_torch.train.backends import FamilyEStep, LocalBackend, fit_family
 from cpgisland_tpu_torch.utils import chunking, codec
 
@@ -278,6 +290,10 @@ KERNELS = {
                           "cpgisland_tpu_torch/csrc/fb_onehot.cu"),
     "oh_seq_stats_stacked": ("cpgisland_tpu/ops/fb_onehot.py:2323",
                              "cpgisland_tpu_torch/csrc/fb_onehot.cu"),
+    # The pair-composition bench's variants (T1 is B9).
+    "oh_fwd_strm": ("tools/bench_compose.py:135", "cpgisland_tpu_torch/csrc/fb_onehot.cu"),
+    "oh_fwd_comp": ("tools/bench_compose.py:205", "cpgisland_tpu_torch/csrc/fb_onehot.cu"),
+    "oh_fwd_compsel": ("tools/bench_compose.py:300", "cpgisland_tpu_torch/csrc/fb_onehot.cu"),
     # The scoring pass has no Pallas kernel: it replaces the serial lax.scan of
     # sequence_loglik.
     "oh_loglik": ("cpgisland_tpu/ops/forward_backward.py:316",
@@ -316,6 +332,10 @@ SPLIT_TRAIN_KERNELS = ("oh_fwd", "oh_bwd", "oh_stats")
 SPLIT_SEQ_KERNELS = ("oh_prod", "oh_fwd", "oh_bwd", "oh_seq_stats")
 FUSED_CHAINS = ("oh_fwdbwd", "oh_fwdbwd_stacked", "oh_fwdbwd_mat")
 SPLIT_STACK_M = (2, 5)
+# The stacked kernels' plain versions run at these M only: at M = 5 each
+# member is held bit for bit against the single-model kernel, itself held
+# to its own plain version in the same run.
+PLAIN_STACK_M = (2,)
 # The split arm's bounds against the fused arm (tests/test_passfusion.py):
 # confidence atol 2e-5, logliks rtol 1e-5, MPM paths equal.
 SPLIT_CONF_ATOL, SPLIT_LL_RTOL = 2e-5, 1e-5
@@ -338,14 +358,6 @@ def emit(obj) -> None:
     if "phase" in obj:
         obj = obj | {"t_s": round(time.perf_counter() - _START, 1)}
     print(json.dumps(obj), flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def time_ms(fn, runs: int, warmup: int = 2) -> float:
@@ -463,6 +475,13 @@ def timed_once(fn):
     b.record()
     torch.cuda.synchronize()
     return out, a.elapsed_time(b)
+
+
+def plain_once(run: bool, fn):
+    """timed_once(fn) where ``run``, else (None, None): a stacked kernel's
+    plain version runs at M = 2 only (PLAIN_STACK_M); at M = 5 each member
+    is held against the single-model kernel instead."""
+    return timed_once(fn) if run else (None, None)
 
 
 def kernel_row(name, agree, err, kernel_fn, plain_ms, n_bytes, n_ops, steps, **extra) -> dict:
@@ -1511,8 +1530,19 @@ def chaining_chunks(rng: np.random.Generator, S: int):
 def _stacked_row(name, S, M, geometry, got, want, per_member, kernel_fn, plain_ms, single_ms,
                  n_bytes, n_ops, steps, tol=None, **more) -> dict:
     """Hold a stacked kernel against its plain version (bit for bit, or
-    within ``tol``) and, per member, against the single-model kernel (bit
-    for bit); time it beside M x the single-model kernel's time."""
+    within ``tol``; ``want`` None where the plain version runs at another M
+    only) and, per member, against the single-model kernel (bit for bit);
+    time it beside M x the single-model kernel's time."""
+    if want is None:
+        row = kernel_row(name, per_member, None, kernel_fn, None, n_bytes, n_ops, steps, S=S,
+                         M=M, geometry=geometry, equals_single_per_member=per_member,
+                         single_ms=single_ms, m_times_single_ms=M * single_ms,
+                         plain="run at M = 2 only; held per member against the single "
+                               "kernel", **more)
+        if not per_member:
+            raise SystemExit(f"chip_smoke: {name} (S={S}, M={M}, {geometry}) disagrees with "
+                             f"the single-model kernel per member")
+        return row
     if tol is None:
         agree = all(torch.equal(g, w) for g, w in zip(got, want))
     else:
@@ -1533,9 +1563,10 @@ def _stacked_row(name, S, M, geometry, got, want, per_member, kernel_fn, plain_m
 def stacked_kernel_phase(rng: np.random.Generator, gen: torch.Generator, dev) -> dict:
     """B21 at NL=8192 x lane_T=8192, B24 there and at NL=1024 x Tp=65,536,
     B25 at the training geometry, for each of STACK_CONFIGS: per member
-    bit-equal to B7 / B4 / B5, B21 and B24 bit-equal to their plain
-    versions, B25 within rtol 1e-5 / atol 1e-3 of its plain version.
-    Returns the table rows (S = 4, M = 2) by kernel name."""
+    bit-equal to B7 / B4 / B5 (each held to its plain version in phase 2),
+    and at M = 2 B21 and B24 bit-equal to their plain versions, B25 within
+    rtol 1e-5 / atol 1e-3 of its plain version.  Returns the table rows (S
+    = 4, M = 2) by kernel name."""
     results = {}
     T = POST_NL * POST_LANE_T
     for S in (4, 16):
@@ -1553,6 +1584,7 @@ def stacked_kernel_phase(rng: np.random.Generator, gen: torch.Generator, dev) ->
             members = family_members(gen, dev, S, M)
             gts, tabs = FB.stacked_tables(members)
             K = 2 * S
+            plain = M in PLAIN_STACK_M
             tab_b = tabs[0].numel() * 4
             one = lambda m: tabs[m].contiguous()  # noqa: E731
 
@@ -1560,11 +1592,12 @@ def stacked_kernel_phase(rng: np.random.Generator, gen: torch.Generator, dev) ->
             Tp, NL = post.pair2.shape
             n = Tp * NL
             red = FB.oh_prod_stacked(post.pair2, tabs)
-            red_p, plain_ms = timed_once(lambda: FB.oh_prod_stacked_plain(post.pair2, tabs))
+            red_p, plain_ms = plain_once(
+                plain, lambda: [FB.oh_prod_stacked_plain(post.pair2, tabs)])
             per = all(torch.equal(FB.oh_prod(post.pair2, one(m)), red[m]) for m in range(M))
             single_ms = time_ms(lambda: FB.oh_prod(post.pair2, one(0)), runs=10)
             row = _stacked_row(
-                "oh_prod_stacked", S, M, "posterior span", [red], [red_p], per,
+                "oh_prod_stacked", S, M, "posterior span", [red], red_p, per,
                 lambda: FB.oh_prod_stacked(post.pair2, tabs), plain_ms, single_ms,
                 # the shared pair stream read once, M tables, M x [4, NL] written
                 4 * n + M * (tab_b + 16 * NL), M * 20 * n, n)
@@ -1579,7 +1612,8 @@ def stacked_kernel_phase(rng: np.random.Generator, gen: torch.Generator, dev) ->
                     rng.random((M, 2, NL)).astype(np.float32) + 0.01).to(dev)
                 args = (prep.pair2, prep.pairn2, lens2, rand(), rand(), tabs, steps_T)
                 al, be = FB.oh_fwdbwd_stacked(*args)
-                (al_p, be_p), plain_ms = timed_once(lambda: FB.oh_fwdbwd_stacked_plain(*args))
+                want, plain_ms = plain_once(
+                    plain, lambda: list(FB.oh_fwdbwd_stacked_plain(*args)))
                 per = True
                 for m in range(M):
                     a1, b1 = FB.oh_fwdbwd(prep.pair2, prep.pairn2, lens2, args[3][m], args[4][m],
@@ -1590,11 +1624,11 @@ def stacked_kernel_phase(rng: np.random.Generator, gen: torch.Generator, dev) ->
                                                          args[3][0], args[4][0], one(0), steps_T),
                                     runs=10)
                 fwd_row = _stacked_row(
-                    "oh_fwdbwd_stacked", S, M, geo, [al, be], [al_p, be_p], per,
+                    "oh_fwdbwd_stacked", S, M, geo, [al, be], want, per,
                     lambda: FB.oh_fwdbwd_stacked(*args), plain_ms, single_ms,
                     # pair + pairn read once, M x (alphas + betas) written
                     8 * n + M * (16 * n + 16 * NL + tab_b) + 4 * NL, M * 2 * 7 * n, n)
-                del al_p, be_p
+                del want
                 if geo == "posterior span":
                     del al, be
             # B25 on the training geometry's streams, with the chunked
@@ -1614,7 +1648,7 @@ def stacked_kernel_phase(rng: np.random.Generator, gen: torch.Generator, dev) ->
                    train.lens2[:, :lanes], tabs, B_reds, gts32, st_args[7][..., :lanes],
                    st_args[8][..., :lanes], st_args[9][:, :lanes])
             sub = tuple(x.contiguous() for x in sub)
-            want, plain_ms = timed_once(lambda: FB.oh_seq_stats_stacked_plain(*sub))
+            want, plain_ms = plain_once(plain, lambda: list(FB.oh_seq_stats_stacked_plain(*sub)))
             got_sub = [g[..., :lanes] for g in got]
             per = True
             for m in range(M):
@@ -1627,7 +1661,7 @@ def stacked_kernel_phase(rng: np.random.Generator, gen: torch.Generator, dev) ->
                 zeros(K, NL), zeros(2, NL), zeros(1, NL), train.Tt), runs=10)
             valid = int(np.minimum(lengths, Tp).sum())  # B25 reads valid steps only
             st_row = _stacked_row(
-                "oh_seq_stats_stacked", S, M, "train", got_sub, list(want), per,
+                "oh_seq_stats_stacked", S, M, "train", got_sub, want, per,
                 lambda: FB.oh_seq_stats_stacked(*st_args, train.Tt), plain_ms, single_ms,
                 # per member alphas + betas at the valid steps; the pair once
                 M * (16 * valid + (K * K + 2 * S + 1) * NL * 4) + 4 * valid + 4 * NL,
@@ -2424,9 +2458,9 @@ def split_kernel_phase(rng: np.random.Generator, gen: torch.Generator, params, b
     """The split arm's kernels at the main paths' shapes: B9, B10 and B12 at
     the training geometry (FB_NL x FB_TP, ragged as B4 / B5), B22 and B23
     there for M in SPLIT_STACK_M, and B9, B10 and B11 at 8192 x 8192 on the
-    genome's 64 Mi record.  B9-B11, B22 and B23 bit-equal to their plain
-    versions (B9 also to B4's alphas; B22 and B23 per member to B9 and
-    B10), B12 within rtol 1e-5 / atol 1e-3.  Returns the table rows: the
+    genome's 64 Mi record.  B9-B11 bit-equal to their plain versions, B22
+    and B23 too at M = 2 (B9 also to B4's alphas; B22 and B23 per member
+    to B9 and B10 at every M), B12 within rtol 1e-5 / atol 1e-3.  Returns the table rows: the
     training geometry's (stacked: M = 2), B11 at the posterior's."""
     K, S = params.n_states, params.n_symbols
     gt = OH._groups(params)
@@ -2492,13 +2526,14 @@ def split_kernel_phase(rng: np.random.Generator, gen: torch.Generator, params, b
             rng.random((M, 2, NL)).astype(np.float32) + 0.01).to(dev)
         a0s, b0s = rand(), rand()
         f_args = (prep.pair2, prep.lens2, a0s, tabs)
+        plain = M in PLAIN_STACK_M
         al = FB.oh_fwd_stacked(*f_args)
-        al_p, plain_ms = timed_once(lambda: FB.oh_fwd_stacked_plain(*f_args))
+        al_p, plain_ms = plain_once(plain, lambda: [FB.oh_fwd_stacked_plain(*f_args)])
         per = all(torch.equal(FB.oh_fwd(prep.pair2, prep.lens2, a0s[m], one(m)), al[m])
                   for m in range(M))
         single_ms = time_ms(lambda: FB.oh_fwd(prep.pair2, prep.lens2, a0s[0], one(0)), runs=10)
         f_row = _stacked_row(
-            "oh_fwd_stacked", S, M, "train", [al], [al_p], per,
+            "oh_fwd_stacked", S, M, "train", [al], al_p, per,
             lambda: FB.oh_fwd_stacked(*f_args), plain_ms, single_ms,
             # the shared pairs read once, M x the alphas written
             4 * n + M * (8 * n + 8 * NL + tab_b) + 4 * NL, M * 10 * n, n)
@@ -2506,13 +2541,13 @@ def split_kernel_phase(rng: np.random.Generator, gen: torch.Generator, params, b
         cs = FB.cs_next_of(al)
         b_args = (prep.pairn2, prep.lens2, cs, b0s, tabs, FB_TP)
         be = FB.oh_bwd_stacked(*b_args)
-        be_p, plain_ms = timed_once(lambda: FB.oh_bwd_stacked_plain(*b_args))
+        be_p, plain_ms = plain_once(plain, lambda: [FB.oh_bwd_stacked_plain(*b_args)])
         per = all(torch.equal(FB.oh_bwd(prep.pairn2, prep.lens2, cs[m], b0s[m], one(m), FB_TP),
                               be[m]) for m in range(M))
         single_ms = time_ms(lambda: FB.oh_bwd(prep.pairn2, prep.lens2, cs[0], b0s[0], one(0),
                                               FB_TP), runs=10)
         b_row = _stacked_row(
-            "oh_bwd_stacked", S, M, "train", [be], [be_p], per,
+            "oh_bwd_stacked", S, M, "train", [be], be_p, per,
             lambda: FB.oh_bwd_stacked(*b_args), plain_ms, single_ms,
             # the shared pairn once, M x (cs_next read, the betas written)
             4 * n + M * (12 * n + 8 * NL + tab_b) + 4 * NL, M * 9 * n, n)
@@ -3068,6 +3103,77 @@ def stacked_flush_phase(params, fa: str, gen: torch.Generator, dev) -> dict:
     return totals
 
 
+# ---------------------------------------------------------------------------
+# Phase 36: the pair-composition bench (T1 = B9, T2-T4)
+
+COMPOSE_MIB, COMPOSE_LANE_T = 64, 65536  # the bench's defaults: 1024 full lanes
+
+
+def compose_phase(dev) -> tuple:
+    """T2-T4 at the bench's geometry, on its inputs: bit-equal to their
+    plain versions, T2 to B9 and T4 to T3, T1-T4 within the bench's gate of
+    the single-step plain reference; each kernel timed beside its bound,
+    the whole variant (its streams built) beside it.  Then the bench's own
+    entry point.  Returns (the table rows of T2-T4, the bench's launches)."""
+    tab, tab_ext = BC.pair_tables(dev)
+    pair2, lens2, a0 = BC.inputs(COMPOSE_MIB << 20, COMPOSE_LANE_T, dev)
+    Tp, NL = pair2.shape
+    n = Tp * NL
+    fns = BC.variants(tab, tab_ext, lens2, a0)
+    operands = {name: build(pair2) for name, (build, _) in fns.items()}
+    got = {name: launch(operands[name]) for name, (_, launch) in fns.items()}
+    ref, ref_ms = timed_once(lambda: FB.oh_fwd_plain(pair2, lens2, a0, tab_ext))
+    mats, comp = operands["single-strm"], operands["composed"]
+    idx, *tables = operands["composed-sel"]
+    plains = {
+        "single": (ref, ref_ms),
+        "single-strm": timed_once(lambda: FC.oh_fwd_strm_plain(mats, lens2, a0)),
+        "composed": timed_once(lambda: FC.oh_fwd_comp_plain(comp, lens2, a0)),
+        "composed-sel": timed_once(lambda: FC.oh_fwd_compsel_plain(idx, lens2, a0, *tables)),
+    }
+    relations = {"t2_equals_b9": torch.equal(got["single-strm"], got["single"]),
+                 "t4_equals_t3": torch.equal(got["composed-sel"], got["composed"]),
+                 "t2_plain_equals_b9_plain": torch.equal(plains["single-strm"][0], ref)}
+    rows, failed = {}, [k for k, ok in relations.items() if not ok]
+    for name, (build, launch) in fns.items():
+        kernel = BC.KERNEL_OF[name]
+        want, plain_ms = plains[name]
+        equal = torch.equal(got[name], want)
+        gate = BC.gate_err(got[name], ref)
+        n_bytes, n_ops = BC.traffic(name, Tp, NL)
+        ops = operands[name]
+        variant_ms = time_ms(lambda: launch(build(pair2)), runs=10)
+        row = kernel_row(kernel, equal, max_abs_err(got[name], want), lambda: launch(ops),
+                         plain_ms, n_bytes, n_ops, n, bit_equal=equal, variant=name,
+                         geometry=f"bench, {NL} x {Tp}", gate_err=gate, variant_ms=variant_ms,
+                         **(relations if name == "single" else {}))
+        if name != "single":
+            rows[kernel] = row
+        if not equal or not gate < BC.GATE_TOL:
+            failed.append(f"{kernel} (bit_equal {equal}, gate {gate:.2e})")
+    if failed:
+        raise SystemExit(f"chip_smoke: the compose variants fail: {failed}")
+    del operands, got, ref, plains, mats, comp, idx, tables
+    torch.cuda.empty_cache()
+
+    # The bench's own entry point, its launches counted from 0.
+    _kernels.reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = BC.main(["--mib", str(COMPOSE_MIB)])
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in _kernels.launches.items() if n}
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    emit({"phase": "bench_compose", "rc": rc, "launches": launches, **line})
+    ok = (rc == 0 and line["engine"] == "cuda" and set(line["variants"]) == set(BC.KERNEL_OF)
+          and all(v["gate_err"] < BC.GATE_TOL for v in line["variants"].values())
+          and launches == line["calls"] and set(launches) == set(BC.KERNEL_OF.values()))
+    if not ok:
+        raise SystemExit("chip_smoke: bench_compose failed its gate or launched other than "
+                         "it reports")
+    return rows, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3076,7 +3182,7 @@ def main(argv=None) -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    card = card_line()
+    card = BC.card_line()
     print(card, flush=True)
     t0 = time.perf_counter()
     _kernels.library()
@@ -3151,6 +3257,11 @@ def main(argv=None) -> int:
         # The stacked decode: its kernels, then the mixed-model flush unit.
         results |= stacked_decode_kernel_phase(rng, gen, dev)
         for k, n in stacked_flush_phase(params, fa, gen, dev).items():
+            launches[k] = launches.get(k, 0) + n
+        # The pair-composition bench: its kernels, then its entry point.
+        compose_rows, compose_launches = compose_phase(dev)
+        results |= compose_rows
+        for k, n in compose_launches.items():
             launches[k] = launches.get(k, 0) + n
 
     table = []

@@ -5,7 +5,8 @@
 // functions, used on the CPU and as the reference on the card, live in
 // cpgisland_tpu_torch/ops/fb_onehot.py (oh_prod_plain, oh_fwdbwd_plain,
 // oh_seq_stats_plain, oh_fwd_plain, oh_bwd_plain, oh_bwd_conf_plain,
-// oh_stats_plain and their *_stacked_plain forms).
+// oh_stats_plain and their *_stacked_plain forms); those of T2-T4 in
+// cpgisland_tpu_torch/ops/fb_compose.py.
 //
 // Layout: time-major streams, [Tp, NL] for the pairs and [Tp, 2, NL] for
 // alphas and betas (lane n of step t at t * NL + n, component c at
@@ -132,6 +133,30 @@
 // stream once and write M times the single-model outputs; B25 reads M times
 // B5's streams.
 
+// T2-T4, the pair-composition variants of B9's forward chain, replace the
+// benchmark-only kernels of tools/bench_compose.py (T1 is B9 itself).
+// Bounds at the benchmark's geometry, 64 Mi symbols as 1024 lanes of
+// 65,536 steps, alphas written once at 8 B a symbol (3.35 TB/s):
+// T2 oh_fwd_strm_kernel replaces ::_fwd_strm_kernel: B9's chain with the
+// four entries of each step's matrix streamed from device memory in place
+// of B9's pair load and shared-table lookup; 16 + 8 B a symbol, 1.61 GB,
+// 0.481 ms.  It runs B9's step body (fwd_step), so its alphas equal B9's
+// bit for bit.  T3 oh_fwd_comp_kernel replaces ::_fwd_comp_kernel: the
+// double-step chain over ten streams (T2 = T_even . T_odd, R = the row
+// sums of T_even, T_even), alpha_{2h+1} = (v . T2) / (v . R) carried while
+// alpha_{2h} = (v . T_even) / (v0 + v1) hangs off the chain; 20 + 8 B a
+// symbol, 1.88 GB, 0.561 ms.  T4 oh_fwd_compsel_kernel replaces
+// ::_fwd_compsel_kernel: T3's chain with the composed rows looked up from
+// three tables (at S = 4: 96 x 4, 17 x 2 and 17 x 4 floats) in shared
+// memory, keyed by two int32 index streams; 4 + 8 B a symbol, 0.81 GB,
+// 0.240 ms.  Its tables hold T3's stream values bit for bit (the plain
+// side builds them with T3's formula), so its alphas equal T3's.  All three
+// are serial chains, one thread a lane (32 to a block) like B9; the
+// streams are read a group of steps ahead so a step waits on the chain
+// alone.  A double step's chain (v . R -> 1 / den beside v . T2, then one
+// multiply) is no deeper than B9's single step, so T3 and T4 carry one
+// dependent step per two symbols.
+
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -160,9 +185,25 @@ __device__ __forceinline__ void load_group(const int32_t* p, size_t stride, int 
 // output slice, so a member's results in a stacked launch equal its own
 // single-model launch bit for bit.
 
-// B4's forward: alpha_t = (alpha_{t-1} . M_t) * (1 / sum alpha_{t-1}) on
-// valid steps; the entering vector at t == 0; carried past len.  ``p`` and
-// ``out`` point at the lane's column.
+// One step of B4's forward (and of T2's): alpha_t = (alpha_{t-1} . M_t) *
+// (1 / sum alpha_{t-1}) on valid steps; the entering vector at t == 0;
+// carried past len.  m0..m3 are M_t's entries 00, 01, 10, 11.
+__device__ __forceinline__ void fwd_step(float& v0, float& v1, float m0, float m1, float m2,
+                                         float m3, int t, int len, float e0, float e1) {
+  const float inv = __fdiv_rn(1.0f, __fadd_rn(v0, v1));
+  const float raw0 = __fadd_rn(__fmul_rn(v0, m0), __fmul_rn(v1, m2));
+  const float raw1 = __fadd_rn(__fmul_rn(v0, m1), __fmul_rn(v1, m3));
+  if (t == 0) {
+    v0 = e0;
+    v1 = e1;
+  } else if (t < len) {
+    v0 = __fmul_rn(raw0, inv);
+    v1 = __fmul_rn(raw1, inv);
+  }
+}
+
+// B4's forward chain over the pair-selected table rows.  ``p`` and ``out``
+// point at the lane's column.
 __device__ __forceinline__ void fwd_chain(const int32_t* p, const float* s_tab, float e0,
                                           float e1, float* out, int len, int Tp, size_t nl,
                                           int nreal) {
@@ -176,16 +217,7 @@ __device__ __forceinline__ void fwd_chain(const int32_t* p, const float* s_tab, 
       const int t = t0 + r;
       if (t < Tp) {
         const float* m = s_tab + 4 * q[r];
-        const float inv = __fdiv_rn(1.0f, __fadd_rn(v0, v1));
-        const float raw0 = __fadd_rn(__fmul_rn(v0, m[0]), __fmul_rn(v1, m[2]));
-        const float raw1 = __fadd_rn(__fmul_rn(v0, m[1]), __fmul_rn(v1, m[3]));
-        if (t == 0) {
-          v0 = e0;
-          v1 = e1;
-        } else if (t < len) {
-          v0 = __fmul_rn(raw0, inv);
-          v1 = __fmul_rn(raw1, inv);
-        }
+        fwd_step(v0, v1, m[0], m[1], m[2], m[3], t, len, e0, e1);
         out[(size_t)(2 * t) * nl] = v0;
         out[(size_t)(2 * t + 1) * nl] = v1;
       }
@@ -880,6 +912,177 @@ static int launch_cs_stats(const void* alphas, const void* betas, const void* pa
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// T2-T4: the pair-composition variants of the forward chain (the
+// benchmark-only kernels of tools/bench_compose.py; B9 is T1).  One thread
+// a lane, 32 to a block, as B9; every operand off the chain read a group of
+// steps ahead; round-to-nearest intrinsics in the plain versions' order.
+
+#define STRM_AHEAD 8
+#define COMP_MAX_S 8
+#define COMP_MAX_TRIP (COMP_MAX_S * COMP_MAX_S * (COMP_MAX_S + 2))
+#define COMP_MAX_PE (COMP_MAX_S * COMP_MAX_S + 1)
+
+// f[r][k] = stream k of the lane at row first + r (streams ``plane`` floats
+// apart, rows ``nl`` apart); 0 past the last row, which is never read.
+template <int NS>
+__device__ __forceinline__ void load_rows(const float* p, size_t plane, size_t nl, int first,
+                                          int rows, float (&f)[STRM_AHEAD][NS]) {
+#pragma unroll
+  for (int r = 0; r < STRM_AHEAD; ++r) {
+    const int t = first + r;
+#pragma unroll
+    for (int k = 0; k < NS; ++k)
+      f[r][k] = t < rows ? __ldg(p + k * plane + (size_t)t * nl) : 0.0f;
+  }
+}
+
+// One double step (t = 2h) of T3 and T4 over c = T2 (00, 01, 10, 11), R (0,
+// 1), T_even (00, 01, 10, 11): the intermediate i (alpha_t, off the chain)
+// and the carried v <- alpha_{t+1}.
+__device__ __forceinline__ void comp_step(float& v0, float& v1, float& i0, float& i1,
+                                          const float* c, int t, int len, float e0, float e1) {
+  const float inv = __fdiv_rn(1.0f, __fadd_rn(v0, v1));
+  const float w0 = __fadd_rn(__fmul_rn(v0, c[6]), __fmul_rn(v1, c[8]));
+  const float w1 = __fadd_rn(__fmul_rn(v0, c[7]), __fmul_rn(v1, c[9]));
+  if (t == 0) {
+    i0 = e0;
+    i1 = e1;
+  } else if (t < len) {
+    i0 = __fmul_rn(w0, inv);
+    i1 = __fmul_rn(w1, inv);
+  } else {
+    i0 = v0;
+    i1 = v1;
+  }
+  const float den = __fadd_rn(__fmul_rn(v0, c[4]), __fmul_rn(v1, c[5]));
+  const float dinv = __fdiv_rn(1.0f, den);
+  const float u0 = __fadd_rn(__fmul_rn(v0, c[0]), __fmul_rn(v1, c[2]));
+  const float u1 = __fadd_rn(__fmul_rn(v0, c[1]), __fmul_rn(v1, c[3]));
+  if (t + 1 < len) {
+    v0 = __fmul_rn(u0, dinv);
+    v1 = __fmul_rn(u1, dinv);
+  } else {
+    v0 = i0;
+    v1 = i1;
+  }
+}
+
+// T2: mats [4, Tp, NL], the four entries of each step's matrix.
+__global__ void __launch_bounds__(FB_THREADS)
+oh_fwd_strm_kernel(const float* __restrict__ mats, const int32_t* __restrict__ lens,
+                   const float* __restrict__ a0, float* __restrict__ alphas, int Tp, int NL) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= NL) return;
+  const size_t nl = (size_t)NL, plane = (size_t)Tp * nl;
+  const float e0 = a0[n], e1 = a0[nl + n];
+  const int len = lens[n];
+  float* out = alphas + n;
+  float v0 = e0, v1 = e1;
+  float f[STRM_AHEAD][4], fn[STRM_AHEAD][4];
+  load_rows<4>(mats + n, plane, nl, 0, Tp, f);
+  for (int t0 = 0; t0 < Tp; t0 += STRM_AHEAD) {
+    load_rows<4>(mats + n, plane, nl, t0 + STRM_AHEAD, Tp, fn);
+#pragma unroll
+    for (int r = 0; r < STRM_AHEAD; ++r) {
+      const int t = t0 + r;
+      if (t < Tp) {
+        fwd_step(v0, v1, f[r][0], f[r][1], f[r][2], f[r][3], t, len, e0, e1);
+        out[(size_t)(2 * t) * nl] = v0;
+        out[(size_t)(2 * t + 1) * nl] = v1;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < STRM_AHEAD; ++r)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) f[r][k] = fn[r][k];
+  }
+}
+
+// T3: comp [10, H, NL], the composed streams of each double step.
+__global__ void __launch_bounds__(FB_THREADS)
+oh_fwd_comp_kernel(const float* __restrict__ comp, const int32_t* __restrict__ lens,
+                   const float* __restrict__ a0, float* __restrict__ alphas, int H, int NL) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= NL) return;
+  const size_t nl = (size_t)NL, plane = (size_t)H * nl;
+  const float e0 = a0[n], e1 = a0[nl + n];
+  const int len = lens[n];
+  float* out = alphas + n;
+  float v0 = e0, v1 = e1, i0, i1;
+  float f[STRM_AHEAD][10], fn[STRM_AHEAD][10];
+  load_rows<10>(comp + n, plane, nl, 0, H, f);
+  for (int h0 = 0; h0 < H; h0 += STRM_AHEAD) {
+    load_rows<10>(comp + n, plane, nl, h0 + STRM_AHEAD, H, fn);
+#pragma unroll
+    for (int r = 0; r < STRM_AHEAD; ++r) {
+      const int t = 2 * (h0 + r);
+      if (h0 + r < H) {
+        comp_step(v0, v1, i0, i1, f[r], t, len, e0, e1);
+        out[(size_t)(2 * t) * nl] = i0;
+        out[(size_t)(2 * t + 1) * nl] = i1;
+        out[(size_t)(2 * t + 2) * nl] = v0;
+        out[(size_t)(2 * t + 3) * nl] = v1;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < STRM_AHEAD; ++r)
+#pragma unroll
+      for (int k = 0; k < 10; ++k) f[r][k] = fn[r][k];
+  }
+}
+
+// T4: idx [2, H, NL] (t2tab's row, then rtab's and ttab's), the tables in
+// shared memory; each index is clamped into its table.
+__global__ void __launch_bounds__(FB_THREADS)
+oh_fwd_compsel_kernel(const int32_t* __restrict__ idx, const int32_t* __restrict__ lens,
+                      const float* __restrict__ a0, const float* __restrict__ t2tab,
+                      const float* __restrict__ rtab, const float* __restrict__ ttab,
+                      float* __restrict__ alphas, int H, int NL, int S) {
+  __shared__ float s_t2[COMP_MAX_TRIP * 4];
+  __shared__ float s_r[COMP_MAX_PE * 2];
+  __shared__ float s_te[COMP_MAX_PE * 4];
+  const int n_trip = S * S * (S + 2), n_pe = S * S + 1;
+  for (int i = threadIdx.x; i < n_trip * 4; i += blockDim.x) s_t2[i] = t2tab[i];
+  for (int i = threadIdx.x; i < n_pe * 2; i += blockDim.x) s_r[i] = rtab[i];
+  for (int i = threadIdx.x; i < n_pe * 4; i += blockDim.x) s_te[i] = ttab[i];
+  __syncthreads();
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= NL) return;
+  const size_t nl = (size_t)NL, plane = (size_t)H * nl;
+  const float e0 = a0[n], e1 = a0[nl + n];
+  const int len = lens[n];
+  float* out = alphas + n;
+  float v0 = e0, v1 = e1, i0, i1;
+  int q[LOOKAHEAD], qn[LOOKAHEAD], g[LOOKAHEAD], gn[LOOKAHEAD];
+  load_group(idx + n, nl, 0, 1, H, n_trip - 1, q);
+  load_group(idx + plane + n, nl, 0, 1, H, n_pe - 1, g);
+  for (int h0 = 0; h0 < H; h0 += LOOKAHEAD) {
+    load_group(idx + n, nl, h0 + LOOKAHEAD, 1, H, n_trip - 1, qn);
+    load_group(idx + plane + n, nl, h0 + LOOKAHEAD, 1, H, n_pe - 1, gn);
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) {
+      const int t = 2 * (h0 + r);
+      if (h0 + r < H) {
+        const int a = max(q[r], 0), b = max(g[r], 0);
+        const float c[10] = {s_t2[4 * a], s_t2[4 * a + 1], s_t2[4 * a + 2], s_t2[4 * a + 3],
+                             s_r[2 * b], s_r[2 * b + 1],
+                             s_te[4 * b], s_te[4 * b + 1], s_te[4 * b + 2], s_te[4 * b + 3]};
+        comp_step(v0, v1, i0, i1, c, t, len, e0, e1);
+        out[(size_t)(2 * t) * nl] = i0;
+        out[(size_t)(2 * t + 1) * nl] = i1;
+        out[(size_t)(2 * t + 2) * nl] = v0;
+        out[(size_t)(2 * t + 3) * nl] = v1;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) {
+      q[r] = qn[r];
+      g[r] = gn[r];
+    }
+  }
+}
+
 // The C interface: every pointer and the stream arrive as void*, sizes as
 // int.  Each function launches on the caller's stream and returns
 // cudaGetLastError(), so a refused launch reaches the Python wrapper.
@@ -1020,6 +1223,36 @@ int oh_seq_stats_stacked(const void* alphas, const void* betas, const void* pair
   return launch_seq_stats(alphas, betas, pair, lens, tab, bred, gt, enters_full, enters_red,
                           pair0m, part, macc, emit, ll, Tp, NL, S, K, Tt, M,
                           (cudaStream_t)stream);
+}
+
+// T2-T4 (the pair-composition variants).
+int oh_fwd_strm(const void* mats, const void* lens, const void* a0, void* alphas, int Tp,
+                int NL, void* stream) {
+  if (Tp <= 0 || NL <= 0) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((NL + FB_THREADS - 1) / FB_THREADS);
+  oh_fwd_strm_kernel<<<blocks, FB_THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)mats, (const int32_t*)lens, (const float*)a0, (float*)alphas, Tp, NL);
+  return (int)cudaGetLastError();
+}
+
+int oh_fwd_comp(const void* comp, const void* lens, const void* a0, void* alphas, int H, int NL,
+                void* stream) {
+  if (H <= 0 || NL <= 0) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((NL + FB_THREADS - 1) / FB_THREADS);
+  oh_fwd_comp_kernel<<<blocks, FB_THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)comp, (const int32_t*)lens, (const float*)a0, (float*)alphas, H, NL);
+  return (int)cudaGetLastError();
+}
+
+int oh_fwd_compsel(const void* idx, const void* lens, const void* a0, const void* t2tab,
+                   const void* rtab, const void* ttab, void* alphas, int H, int NL, int S,
+                   void* stream) {
+  if (H <= 0 || NL <= 0 || S < 1 || S > COMP_MAX_S) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((NL + FB_THREADS - 1) / FB_THREADS);
+  oh_fwd_compsel_kernel<<<blocks, FB_THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)idx, (const int32_t*)lens, (const float*)a0, (const float*)t2tab,
+      (const float*)rtab, (const float*)ttab, (float*)alphas, H, NL, S);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

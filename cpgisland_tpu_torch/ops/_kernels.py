@@ -61,6 +61,9 @@ _SIGNATURES = {
     "oh_fwd_stacked": ("fb_onehot", 5, ("Tp", "NL", "nreal", "M")),
     "oh_bwd_stacked": ("fb_onehot", 6, ("Tp", "NL", "nreal", "T", "M")),
     "oh_seq_stats_stacked": ("fb_onehot", 14, ("Tp", "NL", "S", "K", "Tt", "M")),
+    "oh_fwd_strm": ("fb_onehot", 4, ("Tp", "NL")),
+    "oh_fwd_comp": ("fb_onehot", 4, ("H", "NL")),
+    "oh_fwd_compsel": ("fb_onehot", 7, ("H", "NL", "S")),
     "oh_loglik": ("loglik", 4, ("Tp", "NL", "nreal", "M")),
     "fb_loglik": ("loglik", 5, ("Tp", "NL", "K", "S")),
     "dense_products": ("viterbi_dense", 4, ("bk", "nb", "K", "S")),

@@ -245,9 +245,15 @@ def oh_fwd_plain(pair2: torch.Tensor, lens2: torch.Tensor, a0_red: torch.Tensor,
     T[1, c], times 1 / (v0 + v1).  Both components are computed
     elementwise in one [2, NL] tensor; per element the operations and
     their order are the twin's."""
-    Tp = pair2.shape[0]
-    valid = (torch.arange(Tp, device=pair2.device)[:, None] < lens2).unbind(0)
-    fwd = _step_matrices(tab_ext, pair2, [0, 1, 2, 3])
+    return fwd_chain_plain(_step_matrices(tab_ext, pair2, [0, 1, 2, 3]), lens2, a0_red)
+
+
+def fwd_chain_plain(fwd, lens2: torch.Tensor, a0_red: torch.Tensor) -> torch.Tensor:
+    """The forward chain of :func:`oh_fwd_plain` over the per-step matrices
+    ``fwd`` (a sequence of Tp [2 (summed index a), 2 (output c), NL]
+    tensors; step 0's is never read) -> alphas2 [Tp, 2, NL]."""
+    Tp = len(fwd)
+    valid = (torch.arange(Tp, device=a0_red.device)[:, None] < lens2).unbind(0)
     alphas = [a0_red]
     for t in range(1, Tp):
         v = alphas[-1]

@@ -1,0 +1,252 @@
+"""The pair-composition variants of the port (T2-T4, ``ops/fb_compose.py``)
+and its bench (``tools/bench_compose.py``) vs the JAX package.
+
+On the CPU each wrapper takes its plain PyTorch version.  The reference is
+the JAX package's single-step XLA twin ``fb_onehot._xla_fwd_onehot``, the
+one ``tools/bench_compose.py`` gates its variants against.  Both sides get
+the JAX package's own ``prob_pair_table`` of ``durbin_cpg8`` as numpy, so
+XLA:CPU's ``exp`` does not enter, and the same seeded numpy stream: 4,096
+steps x 48 lanes of chaining random pairs, with ragged lengths (odd ones,
+a length-1 lane, a full lane).  The single-step variant is held within
+rtol 1e-5 (XLA:CPU contracts ``a*b + c*d`` into fused multiply-adds; the
+port rounds every product, as the CUDA kernels do), the composed ones
+within the JAX script's gate; between the port's own plain versions the
+relations are exact.  The script's stream and table helpers are closures
+inside its ``main``, so the tests below transcribe its lines (cited) onto
+the JAX table rather than import them.
+"""
+
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cpgisland_tpu.models import presets as JP
+from cpgisland_tpu.ops import fb_onehot as JFB
+from cpgisland_tpu.ops import viterbi_onehot as JOH
+from cpgisland_tpu_torch.ops import fb_compose as FC
+from cpgisland_tpu_torch.ops import fb_onehot as TFB
+from cpgisland_tpu_torch.tools import bench_compose
+
+S = 4
+TP, NL = 4096, 48
+IDENT = np.asarray(JFB.PROB_IDENT, np.float32)
+
+
+def _jax_table() -> np.ndarray:
+    params = JP.durbin_cpg8()
+    return np.array(JFB.prob_pair_table(params, JOH._groups(params)))
+
+
+def _stream(seed=0):
+    """(pair2 [TP, NL] int32 chaining per lane, lens2 [1, NL], a0 [2, NL])."""
+    rng = np.random.default_rng(seed)
+    syms = rng.integers(0, S, size=(NL, TP + 1)).astype(np.int32)
+    pair2 = np.ascontiguousarray((syms[:, :-1] * S + syms[:, 1:]).T)
+    lens = rng.integers(1, TP + 1, size=NL).astype(np.int32)
+    lens[0], lens[1], lens[2], lens[3], lens[4] = TP, 1, TP - 1, 2, 3
+    lens[5:12] |= 1  # odd lengths end on a double step's even half
+    a0 = rng.random((2, NL)).astype(np.float32) + 0.1
+    return pair2, lens[None, :], a0
+
+
+@pytest.fixture(scope="module")
+def case():
+    tab = _jax_table()
+    pair2, lens2, a0 = _stream()
+    tab_ext = np.concatenate([tab, IDENT[None, :]])
+    want = np.asarray(jax.jit(JFB._xla_fwd_onehot)(
+        jnp.asarray(tab_ext), jnp.asarray(pair2), jnp.asarray(lens2), jnp.asarray(a0).T))
+    t = {k: torch.from_numpy(v) for k, v in
+         dict(tab=tab, tab_ext=tab_ext, pair2=pair2, lens2=lens2, a0=a0).items()}
+    b9 = TFB.oh_fwd_plain(t["pair2"], t["lens2"], t["a0"], t["tab_ext"])
+    comp = FC.oh_fwd_comp_plain(FC.composed_streams(t["tab"], t["pair2"]), t["lens2"], t["a0"])
+    return tab, want, t, b9, comp
+
+
+def _gate(got: np.ndarray, ref: np.ndarray) -> float:
+    return float(np.max(np.abs(got - ref) / np.maximum(np.abs(ref), 1e-3)))
+
+
+# -- T2: the streamed single-step chain
+
+
+def test_strm_plain_equals_b9_plain_and_matches_xla(case):
+    _, want, t, b9, _ = case
+    al = FC.oh_fwd_strm_plain(FC.mat_streams(t["tab"], t["pair2"]), t["lens2"], t["a0"])
+    assert torch.equal(al, b9)
+    np.testing.assert_allclose(al.numpy(), want, rtol=1e-5)
+
+
+def test_mat_streams_are_the_scripts(case):
+    """bench_compose.py:132-133, ``tab[:, k][pair2]`` for k = 0..3."""
+    tab, _, t, _, _ = case
+    got = FC.mat_streams(t["tab"], t["pair2"]).numpy()
+    pair2 = t["pair2"].numpy()
+    for k in range(4):
+        assert np.array_equal(got[k], tab[:, k][pair2])
+
+
+# -- T3, T4: the double-step chain
+
+
+def test_composed_plain_within_the_scripts_gate(case):
+    """The JAX script's gate is max rel err < 1e-4 (1e-3 floor); measured
+    here 1.1e-6 for both (B9's plain version: 7e-7 relative), so the bound
+    is tightened to 1e-5."""
+    _, want, _, _, comp = case
+    err = _gate(comp.numpy(), want)
+    assert err < 1e-5, err
+
+
+def test_compsel_plain_equals_composed_plain(case):
+    tab, _, t, _, comp = case
+    idx = FC.compsel_index(t["pair2"], S)
+    sel = FC.oh_fwd_compsel_plain(idx, t["lens2"], t["a0"], *FC.composed_tables(t["tab"]))
+    assert torch.equal(sel, comp)
+
+
+def test_composed_ragged_lanes_carry_as_the_single_step_chain(case):
+    """A lane of odd length ends on a double step's even half; every row
+    past a lane's length repeats its last alpha, as in B9."""
+    _, _, t, _, comp = case
+    lens = t["lens2"][0]
+    for n in range(12):
+        last = int(lens[n]) - 1
+        assert torch.equal(comp[last:, :, n], comp[last, :, n].expand(TP - last, 2))
+    assert torch.equal(comp[0], t["a0"])
+
+
+def test_composed_streams_are_the_scripts(case):
+    """bench_compose.py:187-203 in numpy: T2 entrywise, R the row sums of
+    the even half, the even half with an identity on double step 0."""
+    tab, _, t, _, _ = case
+    pair2 = t["pair2"].numpy()
+    ge = [tab[:, k][pair2[0::2]] for k in range(4)]
+    go = [tab[:, k][pair2[1::2]] for k in range(4)]
+    for k, idv in enumerate(IDENT):
+        ge[k][0] = idv
+    t2 = (ge[0] * go[0] + ge[1] * go[2], ge[0] * go[1] + ge[1] * go[3],
+          ge[2] * go[0] + ge[3] * go[2], ge[2] * go[1] + ge[3] * go[3])
+    rs = (ge[0] + ge[1], ge[2] + ge[3])
+    want = np.stack([*t2, *rs, *ge])
+    assert np.array_equal(FC.composed_streams(t["tab"], t["pair2"]).numpy(), want)
+
+
+def test_compsel_index_is_the_scripts(case):
+    """bench_compose.py:346-351."""
+    _, _, t, _, _ = case
+    pair2 = t["pair2"].numpy()
+    trip = pair2[0::2] * (S + 1) + pair2[1::2] % S
+    paire = pair2[0::2].copy()
+    trip[0] = S * S * (S + 1) + pair2[1]
+    paire[0] = S * S
+    got = FC.compsel_index(t["pair2"], S)
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), np.stack([trip, paire]))
+
+
+def test_composed_tables_match_the_scripts():
+    """bench_compose.py:270-285 applied to the JAX table: rtab and ttab
+    equal, t2tab within one f32 ulp (the script composes with a numpy
+    matmul, the port with T3's elementwise formula)."""
+    tab = _jax_table()
+    tab_np = tab.reshape(S * S, 2, 2)
+    rows = []
+    for p in range(S * S):
+        e = p % S
+        for q in range(S + 1):
+            m = tab_np[p] @ tab_np[e * S + q] if q < S else tab_np[p]
+            rows.append(m.reshape(4))
+    t2tab = np.concatenate([np.stack(rows), tab_np.reshape(S * S, 4)])
+    rtab = np.concatenate([tab_np.sum(axis=2), np.ones((1, 2), np.float32)])
+    ttab = np.concatenate([tab, IDENT[None, :]])
+    g_t2, g_r, g_t = (x.numpy() for x in FC.composed_tables(torch.from_numpy(tab)))
+    assert g_t2.shape == (96, 4) and g_r.shape == (17, 2) and g_t.shape == (17, 4)
+    assert np.array_equal(g_r, rtab) and np.array_equal(g_t, ttab)
+    ulp = np.spacing(np.maximum(np.abs(g_t2), np.abs(t2tab)))
+    assert np.all(np.abs(g_t2 - t2tab) <= ulp)
+
+
+# -- the wrappers
+
+
+def test_wrappers_take_the_plain_versions_on_the_cpu(case):
+    _, _, t, b9, comp = case
+    tab, pair2, lens2, a0 = t["tab"], t["pair2"], t["lens2"], t["a0"]
+    assert torch.equal(FC.oh_fwd_strm(FC.mat_streams(tab, pair2), lens2, a0), b9)
+    assert torch.equal(FC.oh_fwd_comp(FC.composed_streams(tab, pair2), lens2, a0), comp)
+    got = FC.oh_fwd_compsel(FC.compsel_index(pair2, S), lens2, a0, *FC.composed_tables(tab))
+    assert torch.equal(got, comp)
+
+
+@pytest.mark.parametrize("build", [FC.composed_streams,
+                                   lambda tab, p: FC.compsel_index(p, S)])
+def test_composed_variants_refuse_an_odd_tp(case, build):
+    _, _, t, _, _ = case
+    with pytest.raises(ValueError, match="even"):
+        build(t["tab"], t["pair2"][:-1])
+
+
+def test_wrappers_refuse_wrong_dtypes_and_shapes(case):
+    _, _, t, _, _ = case
+    tab, pair2, lens2, a0 = t["tab"], t["pair2"][:64], t["lens2"], t["a0"]
+    mats = FC.mat_streams(tab, pair2)
+    comp = FC.composed_streams(tab, pair2)
+    idx = FC.compsel_index(pair2, S)
+    tables = FC.composed_tables(tab)
+    bad = [
+        lambda: FC.oh_fwd_strm(mats.double(), lens2, a0),
+        lambda: FC.oh_fwd_strm(mats[:3], lens2, a0),
+        lambda: FC.oh_fwd_strm(mats, lens2[:, :-1], a0),
+        lambda: FC.oh_fwd_strm(mats[:, :, ::2], lens2[:, ::2].contiguous(),
+                               a0[:, ::2].contiguous()),
+        lambda: FC.oh_fwd_comp(comp, lens2.long(), a0),
+        lambda: FC.oh_fwd_comp(comp[:4], lens2, a0),
+        lambda: FC.oh_fwd_comp(comp, lens2, a0[:, :-1]),
+        lambda: FC.oh_fwd_compsel(idx.long(), lens2, a0, *tables),
+        lambda: FC.oh_fwd_compsel(idx, lens2, a0, tables[0][:-1], *tables[1:]),
+        lambda: FC.oh_fwd_compsel(idx, lens2, a0, tables[0], tables[1][:, :1], tables[2]),
+        lambda: FC.mat_streams(tab[:15], pair2),
+    ]
+    for call in bad:
+        with pytest.raises(ValueError):
+            call()
+
+
+# -- the bench
+
+
+def test_bench_cpu_run_prints_all_four_variants(capsys):
+    assert bench_compose.main(["--device", "cpu", "--chain", "2"]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["engine"] == "plain" and line["device"] == "cpu" and line["card"] is None
+    assert line["symbols"] == 256 << 10 and line["lane_T"] == 2048
+    assert set(line["variants"]) == set(bench_compose.KERNEL_OF)
+    for name, v in line["variants"].items():
+        assert v["kernel"] == bench_compose.KERNEL_OF[name]
+        assert v["gate_err"] < 1e-4 and v["ms"] > 0 and v["bound_ms"] is None
+    assert line["variants"]["single"]["gate_err"] == 0.0
+    assert line["variants"]["single-strm"]["gate_err"] == 0.0
+    assert line["calls"] == {k: 1 + 2 * 3 for k in bench_compose.KERNEL_OF.values()}
+
+
+def test_bench_default_device_needs_cuda(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert bench_compose.main([]) != 0
+    captured = capsys.readouterr()
+    assert captured.out == "" and "CUDA is not available" in captured.err
+
+
+def test_bench_bounds_are_the_byte_bounds():
+    """At 64 Mi symbols in 1,024 lanes: T1 and T4 move 12 B a symbol, T2 24
+    and T3 28, plus the per-lane operands and the tables."""
+    Tp, NL = 65536, 1024
+    got = {k: bench_compose.bound_ms(k, Tp, NL) for k in bench_compose.KERNEL_OF}
+    assert got["single"] == pytest.approx(0.240, abs=1e-3)
+    assert got["single-strm"] == pytest.approx(0.481, abs=1e-3)
+    assert got["composed"] == pytest.approx(0.561, abs=1e-3)
+    assert got["composed-sel"] == pytest.approx(0.240, abs=1e-3)

@@ -1114,3 +1114,63 @@ def test_decode_small_batch_stacked_cuda_equals_cpu(cuda_device, use_device):
             cap_boxes=[[1024] for _ in range(3)], phases={})
     assert [c.format_lines() for c in out["cpu"]] == [c.format_lines() for c in out["cuda"]]
     assert sum(len(c) for c in out["cuda"]) > 0
+
+
+# -- T2-T4: the pair-composition variants of the forward chain ------------------
+
+
+def _compose_case(rng, T, NL, device):
+    """The flagship's pair tables (bare and B9's) and a chaining random
+    pair stream [T, NL] with ragged lengths (a length-1 lane, odd ones, a
+    full lane) and entering vectors."""
+    from cpgisland_tpu_torch.tools import bench_compose
+
+    syms = rng.integers(0, 4, size=(NL, T + 1)).astype(np.int32)
+    pair2 = np.ascontiguousarray((syms[:, :-1] * 4 + syms[:, 1:]).T)
+    lens = rng.integers(1, T + 1, size=NL).astype(np.int32) | 1
+    lens[0] = T
+    lens[-1] = 1
+    a0 = rng.random((2, NL)).astype(np.float32) + 0.1
+    t = lambda x: torch.from_numpy(x).to(device)  # noqa: E731
+    tab, tab_ext = bench_compose.pair_tables(device)
+    return tab, tab_ext, t(pair2), t(lens[None, :]), t(a0)
+
+
+@pytest.mark.parametrize("T,NL", [(8, 1), (4098, 33), (65536, 1024)])
+def test_compose_kernels_bit_equal(cuda_device, T, NL):
+    """T2, T3 and T4 equal their plain versions bit for bit; T2 equals B9
+    and T4 equals T3; each launches once."""
+    from cpgisland_tpu_torch.ops import fb_compose as FC
+    from cpgisland_tpu_torch.ops import fb_onehot as FB
+
+    tab, tab_ext, pair2, lens2, a0 = _compose_case(np.random.default_rng(T + NL), T, NL,
+                                                   cuda_device)
+    mats, comp = FC.mat_streams(tab, pair2), FC.composed_streams(tab, pair2)
+    idx, tables = FC.compsel_index(pair2, 4), FC.composed_tables(tab)
+    kernels = ("oh_fwd_strm", "oh_fwd_comp", "oh_fwd_compsel")
+    before = {k: _kernels.launches[k] for k in kernels}
+    strm = FC.oh_fwd_strm(mats, lens2, a0)
+    c = FC.oh_fwd_comp(comp, lens2, a0)
+    sel = FC.oh_fwd_compsel(idx, lens2, a0, *tables)
+    torch.cuda.synchronize()
+    assert all(_kernels.launches[k] == before[k] + 1 for k in kernels)
+    assert torch.equal(strm, FC.oh_fwd_strm_plain(mats, lens2, a0))
+    assert torch.equal(c, FC.oh_fwd_comp_plain(comp, lens2, a0))
+    assert torch.equal(sel, FC.oh_fwd_compsel_plain(idx, lens2, a0, *tables))
+    assert torch.equal(strm, FB.oh_fwd(pair2, lens2, a0, tab_ext))
+    assert torch.equal(sel, c)
+
+
+def test_compose_bench_on_the_card(cuda_device, capsys):
+    """The bench at a small size: all four variants pass the gate, and the
+    launch counters move by exactly the calls it reports."""
+    import json
+
+    from cpgisland_tpu_torch.tools import bench_compose
+
+    _kernels.reset_launches()
+    assert bench_compose.main(["--mib", "1", "--lane-T", "4096", "--chain", "2"]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["engine"] == "cuda" and line["card"]
+    assert all(v["gate_err"] < 1e-4 for v in line["variants"].values())
+    assert {k: _kernels.launches[k] for k in line["calls"]} == line["calls"]

@@ -22,7 +22,9 @@ bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "cpgisland_tpu")
              or m.startswith(("jax.", "jaxlib.", "cpgisland_tpu.")))
 missing ={"cpgisland_tpu_torch.ops.viterbi_pallas",
-           "cpgisland_tpu_torch.ops.islands_device"} - set(names)
+           "cpgisland_tpu_torch.ops.islands_device",
+           "cpgisland_tpu_torch.ops.fb_compose",
+           "cpgisland_tpu_torch.tools.bench_compose"} - set(names)
 print(len(names), bad, sorted(missing))
 sys.exit(1 if bad or missing or len(names) < 12 else 0)
 """
