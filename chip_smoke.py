@@ -9,14 +9,20 @@ on the card, drives the decode, training and posterior main paths end to
 end (a seeded chromosome-sized FASTA) and checks the results.  Phases, one
 JSON line each:
 
-1. card: name and power limit, kernel build time;
+1. card: name and power limit, kernel build time, and (its own line) the
+   ptxas registers and spills of the kernels redesigned last (B4, B24,
+   B17);
 2. kernels: B1-B3 at full size (bk=4096, nb=16384: 64 Mi steps, PAD runs
    and record resets in the pair stream), B4-B5 at NL=1024 lanes x
    Tp=65,536 steps (ragged lengths, a short last lane, PAD tails), and B7
    at the posterior's geometry, NL=8192 lanes x lane_T=8192 steps (64 Mi
    steps, a short last lane with a PAD tail), where B4 is timed again —
    B1-B4 and B7 bit-equal to their plain versions, B5 within rtol 1e-5 /
-   atol 1e-3 — with median time, bound and plain-version time;
+   atol 1e-3 — with median time, bound and plain-version time; B4 at both
+   geometries at its default sub-lanes (``fb_onehot.sublanes``) and in one
+   sub-lane (G = 1), each bit-equal to its plain version, and timed at
+   2, 4 and 8 Ki sub-lanes (the sweep, with each one's largest relative
+   difference from G = 1);
 3. main path, decode: ``pipeline.decode_file`` on a 64 Mi-base record plus
    256 scaffolds, clean then compat, with per-phase wall seconds and the
    launch counts of that run (B1-B3 each > 0);
@@ -91,7 +97,8 @@ JSON line each:
    1e-5), and profiles of one dense EM iteration and one dense posterior
    of the big record;
 17-20. the stacked kernels (B21, B24, B25; against their plain versions at
-   M = 2, per member against B7 / B4 / B5 at every M) and the scoring
+   M = 2, per member against B7 / B4 / B5 at every M; B24 also in one
+   sub-lane per member against B4 in one sub-lane) and the scoring
    kernels, the compare main path (three casts, stacked against
    sequential) and ``fit_family`` against solo fits;
 21. flat-batch scores: ``viterbi_parallel_batch(engine="onehot")`` over the
@@ -138,7 +145,8 @@ JSON line each:
 30. the split arm's kernels: B9, B10 and B12 at NL=1024 x Tp=65,536
    (ragged, as B4 / B5), B22 and B23 there at M = 2 and 5, B9, B10 and
    B11 at 8192 x 8192 on the genome's 64 Mi record — B9-B11 bit-equal to
-   their plain versions, B22 and B23 too at M = 2 (B9 also to B4's alphas,
+   their plain versions, B22 and B23 too at M = 2 (B9 also to B4's alphas
+   in one sub-lane, the sequential chain B9 runs,
    B22 / B23 per member to B9 / B10 at every M), B12 within rtol 1e-5 /
    atol 1e-3;
 31. ``train_file`` with ``LocalBackend(fuse_fb=False)``, compat then
@@ -234,6 +242,11 @@ BIG_LEAD_N = 10_000  # the big record opens with an N run, as assembled chromoso
 N_SCAFFOLDS = 256
 PARITY_SYMBOLS = 4 << 20
 TRAIN_ITERS = 5
+# B4's sub-lane lengths timed beside the default (fb_onehot.SUBLANE_T) and
+# one sub-lane (G = 1) at both of its geometries.
+SWEEP_SUBLANE_T = (2048, 4096, 8192)
+# The redesigned kernels whose ptxas registers and spills are printed.
+REDESIGNED = ("oh_fwdbwd_kernel", "oh_fwdbwd_stacked_kernel", "fb_prod_kernel")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 
@@ -378,6 +391,58 @@ def time_ms(fn, runs: int, warmup: int = 2) -> float:
 
 def max_abs_err(x: torch.Tensor, y: torch.Tensor) -> float:
     return float((x.double() - y.double()).abs().max())
+
+
+def max_rel_diff(x: torch.Tensor, y: torch.Tensor) -> float:
+    return float(((x.double() - y.double()).abs() / y.double().abs().clamp_min(1e-30)).max())
+
+
+def ptxas_of(names) -> dict:
+    """Kernel (mangled name) -> ptxas's registers and spills, for every
+    built kernel whose name contains one of ``names``."""
+    out = {}
+    for rep in _kernels.build_info.get("nvcc_report", {}).values():
+        lines = rep.splitlines()
+        for i, ln in enumerate(lines):
+            if "Compiling entry function" in ln and any(n in ln for n in names):
+                fn = ln.split("'")[1]
+                info = [x.split("info    :")[-1].strip() for x in lines[i + 2 : i + 4]]
+                out[fn] = " | ".join(info)
+    return out
+
+
+@contextlib.contextmanager
+def sublane_length(st: int):
+    """B4 / B24 with sub-lanes of ``st`` steps (``fb_onehot.SUBLANE_T``)
+    inside the block; ``st`` = the lane length gives one sub-lane."""
+    old, FB.SUBLANE_T = FB.SUBLANE_T, st
+    try:
+        yield
+    finally:
+        FB.SUBLANE_T = old
+
+
+def sublane_sweep(args) -> dict:
+    """B4 on ``args`` in one sub-lane (G = 1: held bit for bit against its
+    plain version, timed) and at each SWEEP_SUBLANE_T (timed, with its
+    largest relative difference from G = 1)."""
+    Tp = args[0].shape[0]
+    with sublane_length(Tp):
+        al1, be1 = FB.oh_fwdbwd(*args)
+        (al_p, be_p), g1_plain_ms = timed_once(lambda: FB.oh_fwdbwd_plain(*args))
+        g1_equal = torch.equal(al1, al_p) and torch.equal(be1, be_p)
+        del al_p, be_p
+        g1_ms = time_ms(lambda: FB.oh_fwdbwd(*args), runs=10)
+    sweep = {}
+    for st in SWEEP_SUBLANE_T:
+        with sublane_length(st):
+            al, be = FB.oh_fwdbwd(*args)
+            sweep[str(st)] = {
+                "G": FB.sublanes(Tp), "ms": time_ms(lambda: FB.oh_fwdbwd(*args), runs=10),
+                "max_rel_vs_g1": max(max_rel_diff(al, al1), max_rel_diff(be, be1))}
+        del al, be
+    return {"g1_bit_equal": g1_equal, "g1_plain_ms": g1_plain_ms, "g1_ms": g1_ms,
+            "sweep": sweep}
 
 
 # ---------------------------------------------------------------------------
@@ -537,13 +602,15 @@ def fb_kernel_phase(rng: np.random.Generator, params, dev) -> dict:
     del al_p, be_p
     Tp, NL = prep.pair2.shape
     steps_n = Tp * NL
+    sweep = sublane_sweep(fb_args)
     results = {"oh_fwdbwd": kernel_row(
         "oh_fwdbwd", equal, err, lambda: FB.oh_fwdbwd(*fb_args), fb_plain_ms,
         # pair + pairn read, alphas + betas written, per step
         n_bytes=8 * steps_n + 16 * steps_n + 4 * NL + 16 * NL + tab.numel() * 4,
-        n_ops=2 * 7 * steps_n, steps=steps_n, bit_equal=equal,
+        n_ops=2 * 7 * steps_n, steps=steps_n, bit_equal=equal, sublanes=FB.sublanes(Tp),
+        **sweep,
     )}
-    if not equal:
+    if not (equal and sweep["g1_bit_equal"]):
         raise SystemExit("chip_smoke: oh_fwdbwd disagrees with its plain version")
 
     assert not torch.backends.cuda.matmul.allow_tf32
@@ -603,12 +670,14 @@ def post_kernel_phase(rng: np.random.Generator, params, dev) -> dict:
     equal = torch.equal(al_k, al_p) and torch.equal(be_k, be_p)
     err = max(max_abs_err(al_k, al_p), max_abs_err(be_k, be_p))
     del al_p, be_p
+    sweep = sublane_sweep(fb_args)
     kernel_row(
         "oh_fwdbwd", equal, err, lambda: FB.oh_fwdbwd(*fb_args), fb_plain_ms,
         n_bytes=24 * steps_n + 4 * NL + 16 * NL + tab.numel() * 4, n_ops=2 * 7 * steps_n,
-        steps=steps_n, bit_equal=equal, geometry="posterior span",
+        steps=steps_n, bit_equal=equal, geometry="posterior span", sublanes=FB.sublanes(Tp),
+        **sweep,
     )
-    if not equal:
+    if not (equal and sweep["g1_bit_equal"]):
         raise SystemExit("chip_smoke: oh_fwdbwd disagrees with its plain version at the "
                          "posterior geometry")
     return results
@@ -1623,11 +1692,23 @@ def stacked_kernel_phase(rng: np.random.Generator, gen: torch.Generator, dev) ->
                 single_ms = time_ms(lambda: FB.oh_fwdbwd(prep.pair2, prep.pairn2, lens2,
                                                          args[3][0], args[4][0], one(0), steps_T),
                                     runs=10)
+                # In one sub-lane (G = 1) too: per member equal to B4 at G = 1.
+                with sublane_length(Tp):
+                    al1, be1 = FB.oh_fwdbwd_stacked(*args)
+                    per1 = True
+                    for m in range(M):
+                        a1, b1 = FB.oh_fwdbwd(prep.pair2, prep.pairn2, lens2, args[3][m],
+                                              args[4][m], one(m), steps_T)
+                        per1 = per1 and torch.equal(a1, al1[m]) and torch.equal(b1, be1[m])
+                        del a1, b1
+                    del al1, be1
+                    g1_ms = time_ms(lambda: FB.oh_fwdbwd_stacked(*args), runs=10)
                 fwd_row = _stacked_row(
-                    "oh_fwdbwd_stacked", S, M, geo, [al, be], want, per,
+                    "oh_fwdbwd_stacked", S, M, geo, [al, be], want, per and per1,
                     lambda: FB.oh_fwdbwd_stacked(*args), plain_ms, single_ms,
                     # pair + pairn read once, M x (alphas + betas) written
-                    8 * n + M * (16 * n + 16 * NL + tab_b) + 4 * NL, M * 2 * 7 * n, n)
+                    8 * n + M * (16 * n + 16 * NL + tab_b) + 4 * NL, M * 2 * 7 * n, n,
+                    sublanes=FB.sublanes(Tp), g1_equals_single_per_member=per1, g1_ms=g1_ms)
                 del want
                 if geo == "posterior span":
                     del al, be
@@ -2479,7 +2560,9 @@ def split_kernel_phase(rng: np.random.Generator, gen: torch.Generator, params, b
     f_args = (prep.pair2, prep.lens2, a0, tab)
     al = FB.oh_fwd(*f_args)
     al_p, plain_ms = timed_once(lambda: FB.oh_fwd_plain(*f_args))
-    al4, _ = FB.oh_fwdbwd(prep.pair2, prep.pairn2, prep.lens2, a0, b0, tab, FB_TP)
+    # B4 in one sub-lane runs B9's sequential chain (G > 1 rounds apart).
+    with sublane_length(Tp):
+        al4, _ = FB.oh_fwdbwd(prep.pair2, prep.pairn2, prep.lens2, a0, b0, tab, FB_TP)
     same_as_b4 = torch.equal(al, al4)
     del al4
     results["oh_fwd"] = _bit_row(
@@ -3191,6 +3274,7 @@ def main(argv=None) -> int:
           "ptxas": [ln.strip() for rep in _kernels.build_info.get("nvcc_report", {}).values()
                     for ln in rep.splitlines()
                     if "registers" in ln or "Compiling entry" in ln]})
+    emit({"phase": "ptxas_redesigned", "kernels": ptxas_of(REDESIGNED)})
 
     rng = np.random.default_rng(args.seed)
     params = presets.durbin_cpg8(device=dev)

@@ -10,9 +10,10 @@
 // batch or consecutive stretches of one record (the posterior).  The chain
 // kernels run one thread per lane, 32 to a block so the few warps spread over
 // the SMs; neighbouring threads take neighbouring lanes, so every load and
-// store of a warp is one coalesced row.  A, B and the island mask sit in
-// shared memory; the K-state vectors (the K x K product for B17) stay in
-// registers, sized by the template parameter K.  Each chain thread reads its
+// store of a warp is one coalesced row (B17: one thread a row of a lane's
+// product, below).  A, B and the island mask sit in shared memory; the
+// K-state vectors (a row of the K x K product for B17) stay in registers,
+// sized by the template parameter K.  Each chain thread reads its
 // symbol stream (and B18's scale factors) a group of LOOKAHEAD steps ahead
 // of the chain.
 //
@@ -36,12 +37,18 @@
 // step matrices M_t[m, j] = A[m, j] * B[j, o_t] (the identity for PAD, o_t >=
 // S), renormalized by the product's total after every 8th step counted from
 // the lane's start, as the TPU kernel does, so only directions leave it.  The
-// step matrices come from a [S + 1, K*K] table built by the caller, its rows
-// K*K + 1 floats apart in shared memory (an odd stride: lanes on different
-// symbols hit different banks).  Bound: K^3 multiplies and adds per real
-// step, 0.96 ms of f32 operations at K = 8 and 64 Mi steps; the 64-entry
-// product and its successor live in registers (B13's pressure).
-//
+// step matrices come from a [S + 1, K*K] table built by the caller.  Bound:
+// K^3 multiplies and adds per real step, 0.96 ms of f32 operations at K = 8
+// and 64 Mi steps.  What bounded the first design was its instruction
+// stream: one thread a lane carried the 64-entry product and built its
+// successor, 1,024 rounded operations a step from one thread, two warps an
+// SM (24x the bound).  The design: a row of C.M_t needs only the same row
+// of C, and the rows meet only in the total, so a lane's K rows go to K
+// neighbouring threads (one row each, the total's row sums gathered in
+// order by __shfl_sync): K times the warps, each thread a K-th of the
+// instructions and registers, the operations and their order the first
+// design's (bit for bit).  Contraction off keeps it above the ops bound:
+// each multiply-add is two instructions.
 // B18 fb_bwd_kernel<K, false> replaces _bwd_kernel: beta_t[j] = sum_k A[j, k]
 // * ((B[k, o_{t+1}] * (1 / c_{t+1})) * beta_{t+1}[k]) on the time-shifted
 // streams (steps_next[t] = o_{t+1}, cs_next[t] = c_{t+1}), where t <= T-2
@@ -259,26 +266,44 @@ fb_bwd_kernel(const int32_t* __restrict__ steps_next, const int32_t* __restrict_
 }
 
 // ---------------------------------------------------------------------------
-// B17: the per-lane transfer products.
+// B17: the per-lane transfer products, one thread per row.  A lane's K rows
+// go to KP = K rounded up to a power of two neighbouring threads (32 / KP
+// lanes a warp; threads K..KP-1 of a group carry a zero row and store
+// nothing).  Thread i carries row i of C: N[i][j] = sum_m C[i][m] * M[m][j],
+// m in order, needs no other row; every 8th step its row sum (in order) goes
+// to the group by __shfl_sync and every thread adds the K sums in order i =
+// 0..K-1, so the total, its reciprocal and the rescale are the one-thread
+// kernel's bits.  Each step's K x K table loads as float4s from shared
+// memory (one address a group, broadcast), rows PROD_STRIDE(K*K) floats
+// apart: a multiple of 4, and an odd count of float4s, so the tables of
+// different symbols start in different banks.
+
+#define PROD_THREADS 128
+#define PROD_STRIDE(KK) ((((KK) + 3) / 4 * 4) % 8 == 0 ? ((KK) + 3) / 4 * 4 + 4 : ((KK) + 3) / 4 * 4)
 
 template <int K>
-__global__ void __launch_bounds__(CHAIN_THREADS)
+__global__ void __launch_bounds__(PROD_THREADS)
 fb_prod_kernel(const int32_t* __restrict__ sel, const float* __restrict__ tab,
                float* __restrict__ out, int Tp, int NL, int S) {
   constexpr int KK = K * K;
-  __shared__ float s_M[(MAX_S + 1) * (MAX_K * MAX_K + 1)];
-  for (int i = threadIdx.x; i < (S + 1) * KK; i += blockDim.x)
-    s_M[(i / KK) * (KK + 1) + i % KK] = tab[i];
+  constexpr int KP = K <= 1 ? 1 : K <= 2 ? 2 : K <= 4 ? 4 : 8;
+  constexpr int SP = PROD_STRIDE(KK);
+  constexpr int NV = (KK + 3) / 4;  // float4s a table
+  __shared__ __align__(16) float s_M[(MAX_S + 1) * PROD_STRIDE(MAX_K * MAX_K)];
+  for (int i = threadIdx.x; i < (S + 1) * SP; i += blockDim.x) {
+    const int r = i / SP, c = i % SP;
+    s_M[i] = c < KK ? tab[r * KK + c] : 0.0f;
+  }
   __syncthreads();
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= NL) return;
+  const int i = threadIdx.x % KP;  // the row this thread carries
+  const int n = (blockIdx.x * blockDim.x + threadIdx.x) / KP;
+  // Every thread of a warp runs the loop (the shuffles name them all); a
+  // lane past NL reads lane NL - 1's stream and stores nothing.
   const size_t nl = (size_t)NL;
-  float C[K][K];
+  float C[K];
 #pragma unroll
-  for (int i = 0; i < K; ++i)
-#pragma unroll
-    for (int m = 0; m < K; ++m) C[i][m] = (i == m) ? 1.0f : 0.0f;
-  const int32_t* p = sel + n;
+  for (int m = 0; m < K; ++m) C[m] = (i == m) ? 1.0f : 0.0f;
+  const int32_t* p = sel + min(n, NL - 1);
   int q[LOOKAHEAD], qn[LOOKAHEAD];
   load_ints(p, nl, 0, 1, Tp, q);
   for (int t0 = 0; t0 < Tp; t0 += LOOKAHEAD) {
@@ -287,49 +312,46 @@ fb_prod_kernel(const int32_t* __restrict__ sel, const float* __restrict__ tab,
     for (int r = 0; r < LOOKAHEAD; ++r) {
       const int t = t0 + r;
       if (t < Tp) {
-        const float* M = s_M + min(max(q[r], 0), S) * (KK + 1);
-        float N[K][K];
-        // N[i][j] = sum_m C[i][m] * M[m][j], column by column.
+        const float4* M4 =
+            reinterpret_cast<const float4*>(s_M + min(max(q[r], 0), S) * SP);
+        float M[NV * 4];
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          const float4 x = M4[v];
+          M[4 * v] = x.x;
+          M[4 * v + 1] = x.y;
+          M[4 * v + 2] = x.z;
+          M[4 * v + 3] = x.w;
+        }
+        float N[K];
 #pragma unroll
         for (int j = 0; j < K; ++j) {
-          float col[K];
+          float acc = __fmul_rn(C[0], M[j]);
 #pragma unroll
-          for (int m = 0; m < K; ++m) col[m] = M[m * K + j];
-#pragma unroll
-          for (int i = 0; i < K; ++i) {
-            float acc = __fmul_rn(C[i][0], col[0]);
-#pragma unroll
-            for (int m = 1; m < K; ++m) acc = __fadd_rn(acc, __fmul_rn(C[i][m], col[m]));
-            N[i][j] = acc;
-          }
+          for (int m = 1; m < K; ++m) acc = __fadd_rn(acc, __fmul_rn(C[m], M[m * K + j]));
+          N[j] = acc;
         }
 #pragma unroll
-        for (int i = 0; i < K; ++i)
-#pragma unroll
-          for (int m = 0; m < K; ++m) C[i][m] = N[i][m];
+        for (int m = 0; m < K; ++m) C[m] = N[m];
         if ((t & 7) == 7) {
           // The total: row sums in order, then their sum in order.
-          float tot = 0.0f;
+          const float si = seq_sum<K>(C);
+          float tot = __shfl_sync(0xffffffffu, si, 0, KP);
 #pragma unroll
-          for (int i = 0; i < K; ++i) {
-            const float si = seq_sum<K>(C[i]);
-            tot = i == 0 ? si : __fadd_rn(tot, si);
-          }
+          for (int k = 1; k < K; ++k) tot = __fadd_rn(tot, __shfl_sync(0xffffffffu, si, k, KP));
           const float inv = __fdiv_rn(1.0f, fmaxf(tot, 1e-30f));
 #pragma unroll
-          for (int i = 0; i < K; ++i)
-#pragma unroll
-            for (int m = 0; m < K; ++m) C[i][m] = __fmul_rn(C[i][m], inv);
+          for (int m = 0; m < K; ++m) C[m] = __fmul_rn(C[m], inv);
         }
       }
     }
 #pragma unroll
     for (int r = 0; r < LOOKAHEAD; ++r) q[r] = qn[r];
   }
+  if (n < NL && i < K) {
 #pragma unroll
-  for (int i = 0; i < K; ++i)
-#pragma unroll
-    for (int m = 0; m < K; ++m) out[(size_t)(i * K + m) * nl + n] = C[i][m];
+    for (int m = 0; m < K; ++m) out[(size_t)(i * K + m) * nl + n] = C[m];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -481,7 +503,9 @@ static int launch_bwd(const void* steps_next, const void* lens, const void* cs_n
 template <int K>
 static int launch_prod(const void* sel, const void* tab, void* out, int Tp, int NL, int S,
                        cudaStream_t st) {
-  fb_prod_kernel<K><<<blocks_for(NL, CHAIN_THREADS), CHAIN_THREADS, 0, st>>>(
+  constexpr int KP = K <= 1 ? 1 : K <= 2 ? 2 : K <= 4 ? 4 : 8;
+  if ((long long)NL * KP > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  fb_prod_kernel<K><<<blocks_for(NL * KP, PROD_THREADS), PROD_THREADS, 0, st>>>(
       (const int32_t*)sel, (const float*)tab, (float*)out, Tp, NL, S);
   return (int)cudaGetLastError();
 }

@@ -33,18 +33,29 @@
 //
 // B4 oh_fwdbwd_kernel replaces cpgisland_tpu/ops/fb_onehot.py::
 // _oh_fwdbwd_kernel.  Bound: it reads 8 B and writes 16 B per step and
-// lane, 1.61 GB at NL = 1024, Tp = 65,536 (0.48 ms at 3.35 TB/s), but each
-// lane is two dependent chains of Tp steps whose every step waits on an
-// IEEE division, and the batch has only about a thousand lanes, so it is
-// latency-bound several times above that.  The design: the forward and
-// the backward chain of a lane are independent, so each gets its own
-// thread (2 * NL threads, 32 to a block so the few warps spread over many
-// SMs), and each thread reads its pair stream a group of steps ahead of the
-// chain.  Bit equality with the plain version: every multiply and add is an
-// explicit round-to-nearest intrinsic (__fmul_rn / __fadd_rn), so nvcc
-// contracts nothing into an FMA, and 1/x is __fdiv_rn (IEEE), in the plain
-// version's operand order — including the backward's raw contraction first,
-// then the multiply by the previous beta's reciprocal sum.
+// lane, 1.61 GB at NL = 1024, Tp = 65,536 (0.48 ms at 3.35 TB/s).  What
+// bounds it is the chains: each lane is two dependent chains of Tp steps
+// whose every step waits on an IEEE division, and a training batch has
+// only about a thousand lanes, so one thread a chain (the first design)
+// ran about 155 ns a step, 21x the bound.  The design: each lane runs as G
+// = Tp // SUBLANE_T sub-lanes (fb_onehot.sublanes; at most 32) joined by
+// exact boundary messages in one launch (fwdbwd_sublanes below: the
+// sub-lanes' transfer products, an in-order scan of the messages, then the
+// chains from them), so a thread walks about 2 Tp / G steps in place of
+// Tp.  The two chains are degree 0 in the vector they carry, so the
+// messages' directions are all they need.  A block is one direction of 32
+// lanes, warp g their sub-lane g: every load and store of a warp stays one
+// 128-byte row (8-lane groups of 4 sub-lanes, tried first, spread each
+// access over four rows and ran slower).  What bounds it now is that
+// access pattern: the G sub-lanes of a lane walk G rows at once, each a
+// 128-byte piece of a row NL * 8 B long, so the device memory sees
+// scattered pieces.  Bit equality with the plain
+// version: every multiply and add is an explicit round-to-nearest
+// intrinsic (__fmul_rn / __fadd_rn), so nvcc contracts nothing into an
+// FMA, and 1/x is __fdiv_rn (IEEE), in the plain version's operand order —
+// including the backward's raw contraction first, then the multiply by the
+// previous beta's reciprocal sum; the products' and messages' operations
+// follow fb_onehot._fwdbwd_sublanes_plain one for one.
 //
 // B5 oh_seq_stats_*_kernel replaces fb_onehot.py::_oh_seq_stats_kernel.
 // Bound: it reads 20 B per valid step (two alphas, two betas, the pair),
@@ -127,9 +138,8 @@
 // its member's table (in that block's shared memory, so M does not bound the
 // table space) and its member's slice of the member-major operands ([M, Tp,
 // 2, NL] streams, [M, 4, NL] products).  So a member's outputs equal its own
-// single-model launch bit for bit, and the launch is M times wider: the
-// chains are latency-bound and the single-model training batch fills 43 of
-// 132 SMs with one warp each.  Bound: B21 and B24 read the shared pair
+// single-model launch bit for bit, and the launch is M times wider (B24 in
+// B4's sub-lanes, G the same for every member).  Bound: B21 and B24 read the shared pair
 // stream once and write M times the single-model outputs; B25 reads M times
 // B5's streams.
 
@@ -202,20 +212,21 @@ __device__ __forceinline__ void fwd_step(float& v0, float& v1, float m0, float m
   }
 }
 
-// B4's forward chain over the pair-selected table rows.  ``p`` and ``out``
-// point at the lane's column.
-__device__ __forceinline__ void fwd_chain(const int32_t* p, const float* s_tab, float e0,
-                                          float e1, float* out, int len, int Tp, size_t nl,
-                                          int nreal) {
-  float v0 = e0, v1 = e1;
+// B4's forward chain over steps [tb, te) of a lane, from (v0, v1), the vector
+// entering step tb (at tb == 0 the entering vector e itself); leaves the
+// alpha of step te - 1 in (v0, v1).  ``p`` and ``out`` point at the lane's
+// column.
+__device__ __forceinline__ void fwd_range(const int32_t* p, const float* s_tab, float& v0,
+                                          float& v1, float e0, float e1, float* out, int len,
+                                          int tb, int te, int Tp, size_t nl, int nreal) {
   int q[LOOKAHEAD], qn[LOOKAHEAD];
-  load_group(p, nl, 0, 1, Tp, nreal, q);
-  for (int t0 = 0; t0 < Tp; t0 += LOOKAHEAD) {
+  load_group(p, nl, tb, 1, Tp, nreal, q);
+  for (int t0 = tb; t0 < te; t0 += LOOKAHEAD) {
     load_group(p, nl, t0 + LOOKAHEAD, 1, Tp, nreal, qn);
 #pragma unroll
     for (int r = 0; r < LOOKAHEAD; ++r) {
       const int t = t0 + r;
-      if (t < Tp) {
+      if (t < te) {
         const float* m = s_tab + 4 * q[r];
         fwd_step(v0, v1, m[0], m[1], m[2], m[3], t, len, e0, e1);
         out[(size_t)(2 * t) * nl] = v0;
@@ -227,19 +238,28 @@ __device__ __forceinline__ void fwd_chain(const int32_t* p, const float* s_tab, 
   }
 }
 
-// B4's backward, t = Tp-1 down to 0: beta_t = (M_{t+1} . beta_{t+1}) *
-// (1 / sum beta_{t+1}) where t <= T-2 and t+1 < len, else carried.
-__device__ __forceinline__ void bwd_chain(const int32_t* p, const float* s_tab, float b0,
-                                          float b1, float* out, int len, int Tp, size_t nl,
-                                          int nreal, int T) {
+// The whole lane's forward chain (B9, B22, and B4 with one sub-lane).
+__device__ __forceinline__ void fwd_chain(const int32_t* p, const float* s_tab, float e0,
+                                          float e1, float* out, int len, int Tp, size_t nl,
+                                          int nreal) {
+  float v0 = e0, v1 = e1;
+  fwd_range(p, s_tab, v0, v1, e0, e1, out, len, 0, Tp, Tp, nl, nreal);
+}
+
+// B4's backward over steps te-1 down to tb, from (b0, b1), the beta after
+// step te - 1: beta_t = (M_{t+1} . beta_{t+1}) * (1 / sum beta_{t+1})
+// where t <= T-2 and t+1 < len, else carried.
+__device__ __forceinline__ void bwd_range(const int32_t* p, const float* s_tab, float b0,
+                                          float b1, float* out, int len, int tb, int te,
+                                          int Tp, size_t nl, int nreal, int T) {
   int q[LOOKAHEAD], qn[LOOKAHEAD];
-  load_group(p, nl, Tp - 1, -1, Tp, nreal, q);
-  for (int k0 = 0; k0 < Tp; k0 += LOOKAHEAD) {
-    load_group(p, nl, Tp - 1 - (k0 + LOOKAHEAD), -1, Tp, nreal, qn);
+  load_group(p, nl, te - 1, -1, Tp, nreal, q);
+  for (int k0 = 0; k0 < te - tb; k0 += LOOKAHEAD) {
+    load_group(p, nl, te - 1 - (k0 + LOOKAHEAD), -1, Tp, nreal, qn);
 #pragma unroll
     for (int r = 0; r < LOOKAHEAD; ++r) {
-      const int t = Tp - 1 - (k0 + r);
-      if (t >= 0) {
+      const int t = te - 1 - (k0 + r);
+      if (t >= tb) {
         const float* m = s_tab + 4 * q[r];
         const float binv = __fdiv_rn(1.0f, __fadd_rn(b0, b1));
         const float x0 = __fmul_rn(__fadd_rn(__fmul_rn(m[0], b0), __fmul_rn(m[1], b1)), binv);
@@ -255,6 +275,69 @@ __device__ __forceinline__ void bwd_chain(const int32_t* p, const float* s_tab, 
 #pragma unroll
     for (int r = 0; r < LOOKAHEAD; ++r) q[r] = qn[r];
   }
+}
+
+// A sub-lane's transfer product for B4's sub-lane scan: from the identity,
+// C <- C . M_t over steps [tb, te) where lo <= t < hi (the direction's
+// valid steps), the identity elsewhere; after every 8th step counted from
+// tb, C times 1 / max(((C00 + C01) + C10) + C11, 1e-30).  Writes C00, C01,
+// C10, C11 at dst[0..3].  The forward takes the pair stream (the product
+// left to right); the backward the next-step pairs, its product Q with
+// beta_tb = Q . beta_te up to scale.
+__device__ __forceinline__ void sub_prod(const int32_t* p, const float* s_tab, int tb, int te,
+                                         int lo, int hi, int Tp, size_t nl, int nreal,
+                                         float* dst) {
+  float c00 = 1.0f, c01 = 0.0f, c10 = 0.0f, c11 = 1.0f;
+  int q[LOOKAHEAD], qn[LOOKAHEAD];
+  load_group(p, nl, tb, 1, Tp, nreal, q);
+  for (int t0 = tb; t0 < te; t0 += LOOKAHEAD) {
+    load_group(p, nl, t0 + LOOKAHEAD, 1, Tp, nreal, qn);
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) {
+      const int t = t0 + r;
+      if (t < te) {
+        if (t >= lo && t < hi) {
+          const float* m = s_tab + 4 * q[r];
+          const float n00 = __fadd_rn(__fmul_rn(c00, m[0]), __fmul_rn(c01, m[2]));
+          const float n01 = __fadd_rn(__fmul_rn(c00, m[1]), __fmul_rn(c01, m[3]));
+          const float n10 = __fadd_rn(__fmul_rn(c10, m[0]), __fmul_rn(c11, m[2]));
+          const float n11 = __fadd_rn(__fmul_rn(c10, m[1]), __fmul_rn(c11, m[3]));
+          c00 = n00;
+          c01 = n01;
+          c10 = n10;
+          c11 = n11;
+        }
+        // t - tb = (t0 - tb) + r with t0 - tb a multiple of LOOKAHEAD.
+        if ((r & 7) == 7) {
+          const float inv = __fdiv_rn(
+              1.0f, fmaxf(__fadd_rn(__fadd_rn(__fadd_rn(c00, c01), c10), c11), 1e-30f));
+          c00 = __fmul_rn(c00, inv);
+          c01 = __fmul_rn(c01, inv);
+          c10 = __fmul_rn(c10, inv);
+          c11 = __fmul_rn(c11, inv);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) q[r] = qn[r];
+  }
+  dst[0] = c00;
+  dst[1] = c01;
+  dst[2] = c10;
+  dst[3] = c11;
+}
+
+// The message that leaves a sub-lane, from the one that enters it and the
+// sub-lane's product: (v . P) (FWD) or (P . v), over max(its total, 1e-30).
+template <bool FWD>
+__device__ __forceinline__ void sub_message(float& v0, float& v1, const float* P) {
+  const float r0 = FWD ? __fadd_rn(__fmul_rn(v0, P[0]), __fmul_rn(v1, P[2]))
+                       : __fadd_rn(__fmul_rn(P[0], v0), __fmul_rn(P[1], v1));
+  const float r1 = FWD ? __fadd_rn(__fmul_rn(v0, P[1]), __fmul_rn(v1, P[3]))
+                       : __fadd_rn(__fmul_rn(P[2], v0), __fmul_rn(P[3], v1));
+  const float inv = __fdiv_rn(1.0f, fmaxf(__fadd_rn(r0, r1), 1e-30f));
+  v0 = __fmul_rn(r0, inv);
+  v1 = __fmul_rn(r1, inv);
 }
 
 // f[r] = the lane's value at step first + step * r; 1 outside [0, Tp).
@@ -477,45 +560,139 @@ __device__ __forceinline__ void load_table(float* s_tab, const float* tab, int n
 // ---------------------------------------------------------------------------
 // B4 and B24: the forward and the self-normalized backward chain of each lane
 // (B24: of each member, blockIdx.z; every stacked operand is member-major,
-// [M, ...], so member m's slice is one contiguous single-model operand).
+// [M, ...], so member m's slice is one contiguous single-model operand; a
+// single-model launch is member 0 of 1).  Each lane runs as G sub-lanes of
+// L steps, [g L, min((g + 1) L, Tp)), one thread per (lane, sub-lane); a
+// block holds one direction (blockIdx.y: 0 forward, 1 backward) of 32
+// lanes, warp g their sub-lane g, so every load and store of a warp is one
+// 128-byte row as in the one-thread-a-chain layout.  Three phases, joined
+// by __syncthreads:
+// 1. each sub-lane's transfer product of its valid steps (sub_prod);
+// 2. warp 0 walks the G products of its lanes in order: the forward's
+//    entering message of sub-lane g from a0 and the products of sub-lanes
+//    0..g-1, the backward's exit message from beta0 and those of g+1..G-1
+//    (a sub-lane with no valid step passes the message on as it is, so
+//    sub-lane 0's forward enters with a0 and the last valid sub-lane's
+//    backward with beta0 exactly);
+// 3. the chains of fwd_range / bwd_range over each sub-lane from those
+//    messages.  Both chains are degree 0 in the vector they carry, so a
+//    sub-lane entered with the exact direction stores, in exact arithmetic,
+//    the sequential chain's alphas and betas.  The forward carries its last
+//    valid alpha past len: the sub-lane holding step max(len, 1) - 1 leaves
+//    it in shared memory and the sub-lanes after it store it.
+// With G == 1 phases 1 and 2 do not run and the launch is the one-thread-
+// a-chain kernel, bit for bit.
 
-__global__ void __launch_bounds__(FB_THREADS)
+#define SUB_LANES_MAX 32  // sub-lanes a lane at most: 32 warps a block
+
+__device__ __forceinline__ void fwdbwd_sublanes(
+    const int32_t* __restrict__ pair, const int32_t* __restrict__ pairn,
+    const int32_t* __restrict__ lens, const float* __restrict__ a0,
+    const float* __restrict__ beta0, const float* s_tab, float* __restrict__ alphas,
+    float* __restrict__ betas, int Tp, int NL, int nreal, int T, int G, int L, float* s_msg,
+    float* s_last) {
+  const int j = threadIdx.x % FB_THREADS;
+  const int g = threadIdx.x / FB_THREADS;
+  const bool fwd = blockIdx.y == 0;
+  const int n = blockIdx.x * FB_THREADS + j;
+  const bool live = n < NL;
+  const size_t nl = (size_t)NL;
+  const int len = live ? lens[n] : 0;
+  const int tb = min(g * L, Tp), te = min(tb + L, Tp);
+  // The direction's valid steps, [lo, hi): the forward's 0 < t < len, the
+  // backward's t <= T - 2 and t + 1 < len.
+  const int lo = fwd ? 1 : 0;
+  const int hi = fwd ? len : min(T - 1, len - 1);
+  const int32_t* p = (fwd ? pair : pairn) + n;
+  // Slot (k, c) of lane j: entry c of sub-lane k's product, then of its
+  // message; [G][4][32], so a warp's accesses hit 32 banks.
+#define MSG(k, c) s_msg[((k) * 4 + (c)) * FB_THREADS + j]
+  if (G > 1) {
+    if (live) {
+      float P[4];
+      sub_prod(p, s_tab, tb, te, lo, hi, Tp, nl, nreal, P);
+      for (int c = 0; c < 4; ++c) MSG(g, c) = P[c];
+    }
+    __syncthreads();
+    if (live && g == 0) {
+      float v0 = fwd ? a0[n] : beta0[n], v1 = fwd ? a0[nl + n] : beta0[nl + n];
+      for (int i = 0; i < G; ++i) {
+        const int k = fwd ? i : G - 1 - i;
+        const float P[4] = {MSG(k, 0), MSG(k, 1), MSG(k, 2), MSG(k, 3)};
+        MSG(k, 0) = v0;
+        MSG(k, 1) = v1;
+        const int kb = min(k * L, Tp), ke = min(kb + L, Tp);
+        if (max(kb, lo) < min(ke, hi)) {
+          if (fwd)
+            sub_message<true>(v0, v1, P);
+          else
+            sub_message<false>(v0, v1, P);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  const int last = max(min(len, Tp), 1) - 1;  // the forward's last valid step
+  const int gl = last / L;                     // and its sub-lane
+  if (live) {
+    if (fwd) {
+      if (g <= gl) {
+        const float e0 = a0[n], e1 = a0[nl + n];
+        float v0 = g == 0 ? e0 : MSG(g, 0), v1 = g == 0 ? e1 : MSG(g, 1);
+        fwd_range(p, s_tab, v0, v1, e0, e1, alphas + n, len, tb, te, Tp, nl, nreal);
+        if (g == gl) {
+          s_last[j] = v0;
+          s_last[FB_THREADS + j] = v1;
+        }
+      }
+    } else {
+      const float b0 = g == G - 1 ? beta0[n] : MSG(g, 0);
+      const float b1 = g == G - 1 ? beta0[nl + n] : MSG(g, 1);
+      bwd_range(p, s_tab, b0, b1, betas + n, len, tb, te, Tp, nl, nreal, T);
+    }
+  }
+#undef MSG
+  if (G > 1 && fwd) {
+    __syncthreads();
+    if (live && g > gl) {
+      const float v0 = s_last[j], v1 = s_last[FB_THREADS + j];
+      for (int t = tb; t < te; ++t) {
+        alphas[(size_t)(2 * t) * nl + n] = v0;
+        alphas[(size_t)(2 * t + 1) * nl + n] = v1;
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(FB_THREADS * SUB_LANES_MAX)
 oh_fwdbwd_kernel(const int32_t* __restrict__ pair, const int32_t* __restrict__ pairn,
                  const int32_t* __restrict__ lens, const float* __restrict__ a0,
                  const float* __restrict__ beta0, const float* __restrict__ tab,
                  float* __restrict__ alphas, float* __restrict__ betas,
-                 int Tp, int NL, int nreal, int T) {
+                 int Tp, int NL, int nreal, int T, int G, int L) {
   __shared__ float s_tab[MAX_TAB];
+  __shared__ float s_msg[SUB_LANES_MAX * 4 * FB_THREADS];
+  __shared__ float s_last[2 * FB_THREADS];
   load_table(s_tab, tab, nreal);
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= NL) return;
-  const size_t nl = (size_t)NL;
-  if (blockIdx.y == 0)
-    fwd_chain(pair + n, s_tab, a0[n], a0[nl + n], alphas + n, lens[n], Tp, nl, nreal);
-  else
-    bwd_chain(pairn + n, s_tab, beta0[n], beta0[nl + n], betas + n, lens[n], Tp, nl, nreal, T);
+  fwdbwd_sublanes(pair, pairn, lens, a0, beta0, s_tab, alphas, betas, Tp, NL, nreal, T, G, L,
+                  s_msg, s_last);
 }
 
-__global__ void __launch_bounds__(FB_THREADS)
+__global__ void __launch_bounds__(FB_THREADS * SUB_LANES_MAX)
 oh_fwdbwd_stacked_kernel(const int32_t* __restrict__ pair, const int32_t* __restrict__ pairn,
                          const int32_t* __restrict__ lens, const float* __restrict__ a0,
                          const float* __restrict__ beta0, const float* __restrict__ tab,
                          float* __restrict__ alphas, float* __restrict__ betas,
-                         int Tp, int NL, int nreal, int T) {
+                         int Tp, int NL, int nreal, int T, int G, int L) {
   __shared__ float s_tab[MAX_TAB];
+  __shared__ float s_msg[SUB_LANES_MAX * 4 * FB_THREADS];
+  __shared__ float s_last[2 * FB_THREADS];
   const int m = blockIdx.z;
   load_table(s_tab, tab + (size_t)m * (nreal + 1) * 4, nreal);
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= NL) return;
-  const size_t nl = (size_t)NL;
-  const size_t vec = (size_t)m * 2 * nl;          // member m of [M, 2, NL]
-  const size_t strm = (size_t)m * Tp * 2 * nl;    // member m of [M, Tp, 2, NL]
-  if (blockIdx.y == 0)
-    fwd_chain(pair + n, s_tab, a0[vec + n], a0[vec + nl + n], alphas + strm + n, lens[n], Tp,
-              nl, nreal);
-  else
-    bwd_chain(pairn + n, s_tab, beta0[vec + n], beta0[vec + nl + n], betas + strm + n, lens[n],
-              Tp, nl, nreal, T);
+  const size_t vec = (size_t)m * 2 * NL;         // member m of [M, 2, NL]
+  const size_t strm = (size_t)m * Tp * 2 * NL;   // member m of [M, Tp, 2, NL]
+  fwdbwd_sublanes(pair, pairn, lens, a0 + vec, beta0 + vec, s_tab, alphas + strm,
+                  betas + strm, Tp, NL, nreal, T, G, L, s_msg, s_last);
 }
 
 // ---------------------------------------------------------------------------
@@ -1174,15 +1351,34 @@ int oh_prod_stacked(const void* pair, const void* tab, void* out, int Tp, int NL
   return (int)cudaGetLastError();
 }
 
+// B4 / B24: G sub-lanes a lane (fb_onehot.sublanes), member m on grid y.
+static int launch_fwdbwd(bool stacked, const void* pair, const void* pairn, const void* lens,
+                         const void* a0, const void* beta0, const void* tab, void* alphas,
+                         void* betas, int Tp, int NL, int nreal, int T, int G, int M,
+                         cudaStream_t st) {
+  if (bad_stream(Tp, NL, nreal) || M < 1 || M > 65535 || G < 1 || G > SUB_LANES_MAX || G > Tp)
+    return (int)cudaErrorInvalidValue;
+  const int L = (Tp + G - 1) / G;
+  const dim3 grid((unsigned)((NL + FB_THREADS - 1) / FB_THREADS), 2, (unsigned)M);
+  const unsigned threads = (unsigned)(FB_THREADS * G);
+  if (stacked)
+    oh_fwdbwd_stacked_kernel<<<grid, threads, 0, st>>>(
+        (const int32_t*)pair, (const int32_t*)pairn, (const int32_t*)lens, (const float*)a0,
+        (const float*)beta0, (const float*)tab, (float*)alphas, (float*)betas, Tp, NL, nreal,
+        T, G, L);
+  else
+    oh_fwdbwd_kernel<<<grid, threads, 0, st>>>(
+        (const int32_t*)pair, (const int32_t*)pairn, (const int32_t*)lens, (const float*)a0,
+        (const float*)beta0, (const float*)tab, (float*)alphas, (float*)betas, Tp, NL, nreal,
+        T, G, L);
+  return (int)cudaGetLastError();
+}
+
 int oh_fwdbwd(const void* pair, const void* pairn, const void* lens, const void* a0,
               const void* beta0, const void* tab, void* alphas, void* betas, int Tp,
-              int NL, int nreal, int T, void* stream) {
-  if (bad_stream(Tp, NL, nreal)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((NL + FB_THREADS - 1) / FB_THREADS), 2);
-  oh_fwdbwd_kernel<<<grid, FB_THREADS, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)pair, (const int32_t*)pairn, (const int32_t*)lens, (const float*)a0,
-      (const float*)beta0, (const float*)tab, (float*)alphas, (float*)betas, Tp, NL, nreal, T);
-  return (int)cudaGetLastError();
+              int NL, int nreal, int T, int G, void* stream) {
+  return launch_fwdbwd(false, pair, pairn, lens, a0, beta0, tab, alphas, betas, Tp, NL, nreal,
+                       T, G, 1, (cudaStream_t)stream);
 }
 
 int oh_fwdbwd_mat(const void* pair, const void* pairn, const void* lens, const void* tab,
@@ -1197,13 +1393,9 @@ int oh_fwdbwd_mat(const void* pair, const void* pairn, const void* lens, const v
 
 int oh_fwdbwd_stacked(const void* pair, const void* pairn, const void* lens, const void* a0,
                       const void* beta0, const void* tab, void* alphas, void* betas, int Tp,
-                      int NL, int nreal, int T, int M, void* stream) {
-  if (bad_stream(Tp, NL, nreal) || M < 1 || M > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((NL + FB_THREADS - 1) / FB_THREADS), 2, (unsigned)M);
-  oh_fwdbwd_stacked_kernel<<<grid, FB_THREADS, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)pair, (const int32_t*)pairn, (const int32_t*)lens, (const float*)a0,
-      (const float*)beta0, (const float*)tab, (float*)alphas, (float*)betas, Tp, NL, nreal, T);
-  return (int)cudaGetLastError();
+                      int NL, int nreal, int T, int G, int M, void* stream) {
+  return launch_fwdbwd(true, pair, pairn, lens, a0, beta0, tab, alphas, betas, Tp, NL, nreal,
+                       T, G, M, (cudaStream_t)stream);
 }
 
 int oh_seq_stats(const void* alphas, const void* betas, const void* pair, const void* lens,

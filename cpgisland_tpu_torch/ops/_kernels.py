@@ -49,11 +49,11 @@ _SIGNATURES = {
     "oh_backpointers_stacked_scores": ("viterbi_onehot", 7, ("bk", "nb", "nP", "M")),
     "oh_backtrace_stacked": ("viterbi_onehot", 5, ("bk", "nb", "nP", "M")),
     "oh_prod": ("fb_onehot", 3, ("Tp", "NL", "nreal")),
-    "oh_fwdbwd": ("fb_onehot", 8, ("Tp", "NL", "nreal", "T")),
+    "oh_fwdbwd": ("fb_onehot", 8, ("Tp", "NL", "nreal", "T", "G")),
     "oh_fwdbwd_mat": ("fb_onehot", 6, ("Tp", "NL", "nreal", "T")),
     "oh_seq_stats": ("fb_onehot", 14, ("Tp", "NL", "S", "K", "Tt")),
     "oh_prod_stacked": ("fb_onehot", 3, ("Tp", "NL", "nreal", "M")),
-    "oh_fwdbwd_stacked": ("fb_onehot", 8, ("Tp", "NL", "nreal", "T", "M")),
+    "oh_fwdbwd_stacked": ("fb_onehot", 8, ("Tp", "NL", "nreal", "T", "G", "M")),
     "oh_fwd": ("fb_onehot", 5, ("Tp", "NL", "nreal")),
     "oh_bwd": ("fb_onehot", 6, ("Tp", "NL", "nreal", "T")),
     "oh_bwd_conf": ("fb_onehot", 9, ("Tp", "NL", "S", "T")),

@@ -20,11 +20,15 @@ one's — the per-pair table :func:`prob_pair_table`.
   bit for bit.
 - B4 :func:`oh_fwdbwd` (replaces ``_oh_fwdbwd_kernel``): the forward
   chain with deferred Rabiner scaling and the self-normalized backward
-  chain, independent of each other, in one launch.  The plain version
-  :func:`oh_fwdbwd_plain` is the twin of ``_xla_fwdbwd_onehot``: the same
-  f32 operations in the same order, the row select an exact gather.  The
-  kernel turns FMA contraction off, so it equals the plain version bit for
-  bit.
+  chain, independent of each other, in one launch, each lane cut into
+  :func:`sublanes` sub-lanes joined by exact boundary messages (both
+  chains are degree 0 in the vector they carry).  The plain version
+  :func:`oh_fwdbwd_plain` is, in one sub-lane, the twin of
+  ``_xla_fwdbwd_onehot`` (the same f32 operations in the same order, the
+  row select an exact gather) and, in G > 1, the kernel's three phases op
+  for op (:func:`_fwdbwd_sublanes_plain`), equal to the twin in exact
+  arithmetic.  The kernel turns FMA contraction off, so it equals the
+  plain version bit for bit.
 - B8 :func:`oh_fwdbwd_mat` (replaces ``_oh_fwdbwd_mat_kernel``): the
   one-pass arm.  Both chains carried as 2x2 matrices from the identity,
   so it needs no entry vector and runs before the boundary messages
@@ -91,6 +95,11 @@ _F32 = torch.float32
 PROB_IDENT = (1.0, 0.0, 0.0, 1.0)  # the (+, x) identity matrix entries
 # Largest alphabet the kernels take: their pair tables live in shared memory.
 MAX_SYMBOLS = 16
+# B4 / B24's sub-lanes: a lane of Tp steps runs as Tp // SUBLANE_T sub-lanes
+# (at least 1, at most MAX_SUBLANES, the kernel's csrc SUB_LANES_MAX) joined
+# by exact boundary messages (:func:`sublanes`).
+SUBLANE_T = 4096
+MAX_SUBLANES = 32
 
 
 def prob_pair_table(params: HmmParams, gt: torch.Tensor) -> torch.Tensor:
@@ -284,6 +293,14 @@ def _bwd_plain(pairn2: torch.Tensor, lens2: torch.Tensor, beta0_red: torch.Tenso
     return torch.stack(betas[:0:-1])
 
 
+def sublanes(Tp: int) -> int:
+    """G, the sub-lanes B4 and B24 cut a lane of Tp steps into: Tp //
+    :data:`SUBLANE_T`, at least 1 and at most :data:`MAX_SUBLANES`; each
+    runs ceil(Tp / G) steps.  A function of Tp alone, so the CPU and the
+    card compute the same function."""
+    return max(1, min(Tp // SUBLANE_T, MAX_SUBLANES))
+
+
 def oh_fwdbwd_plain(pair2: torch.Tensor, pairn2: torch.Tensor, lens2: torch.Tensor,
                     a0_red: torch.Tensor, beta0_red: torch.Tensor, tab_ext: torch.Tensor,
                     T: int):
@@ -291,12 +308,117 @@ def oh_fwdbwd_plain(pair2: torch.Tensor, pairn2: torch.Tensor, lens2: torch.Tens
 
     pair2 / pairn2 [Tp, NL] int32 (pairn2[t] = pair2[t + 1]), lens2 [1, NL],
     a0_red / beta0_red [2, NL] the entering vectors, tab_ext [S*S + 1, 4]
-    (identity last), T the chunk length.  The twin of
-    ``_xla_fwdbwd_onehot``: the forward of :func:`oh_fwd_plain`, and the
-    self-normalized backward beta_t = (M_{t+1} . beta_{t+1}) /
-    sum(beta_{t+1}) for t <= min(T, len) - 2, carried elsewhere."""
+    (identity last), T the chunk length.  The forward of
+    :func:`oh_fwd_plain`, and the self-normalized backward beta_t = (M_{t+1}
+    . beta_{t+1}) / sum(beta_{t+1}) for t <= min(T, len) - 2, carried
+    elsewhere.  With one sub-lane (:func:`sublanes`) the twin of
+    ``_xla_fwdbwd_onehot``, op for op; with G > 1 the lane runs as G
+    sub-lanes joined by exact boundary messages
+    (:func:`_fwdbwd_sublanes_plain`), equal to the twin in exact
+    arithmetic."""
+    G = sublanes(pair2.shape[0])
+    if G > 1:
+        al, be = _fwdbwd_sublanes_plain(pair2, pairn2, lens2, a0_red[None], beta0_red[None],
+                                        tab_ext[None], T, G)
+        return al[0], be[0]
     return (oh_fwd_plain(pair2, lens2, a0_red, tab_ext),
             _bwd_plain(pairn2, lens2, beta0_red, tab_ext, T))
+
+
+def _fwdbwd_sublanes_plain(pair2, pairn2, lens2, a0, beta0, tabs, T: int, G: int):
+    """B4 / B24's sub-lane function for M members -> (alphas, betas), each
+    [M, Tp, 2, NL]; a0 / beta0 [M, 2, NL], tabs [M, S*S + 1, 4].
+
+    Each lane's steps split into G sub-lanes [g L, min((g + 1) L, Tp)), L =
+    ceil(Tp / G), carried side by side as a [G, NL] axis, in the kernel's
+    three phases and its f32 operations in its order:
+    1. each sub-lane's product of its valid steps' matrices from the
+       identity (the forward's steps 0 < t < len of the pair stream, the
+       backward's t <= T - 2, t + 1 < len of the next-step pairs), C <- C .
+       M entry by entry, times 1 / max(((C00 + C01) + C10) + C11, 1e-30)
+       after every 8th step of the sub-lane;
+    2. the messages, sub-lane by sub-lane: the forward's entering one from
+       a0 through (v . P) / total, the backward's leaving one from beta0
+       through (P . v) / total, a sub-lane without a valid step passing
+       its message on unchanged;
+    3. the chains of :func:`oh_fwd_plain` and :func:`_bwd_plain` over every
+       sub-lane from those messages; past the forward's last valid step
+       max(len, 1) - 1 every alpha is that step's."""
+    Tp, NL = pair2.shape
+    M, nP = tabs.shape[0], tabs.shape[1]
+    L = -(-Tp // G)
+    dev = pair2.device
+    t = torch.arange(G, device=dev)[:, None] * L + torch.arange(L, device=dev)  # [G, L]
+    real = t < Tp
+    rows = torch.clamp_max(t, Tp - 1)
+    lens = lens2[0]
+    tn = t[:, :, None]
+    fwd_ok = (tn >= 1) & (tn < lens) & real[:, :, None]  # [G, L, NL]
+    bwd_ok = (tn < T - 1) & (tn < lens - 1) & real[:, :, None]
+
+    def step(pairs, k):  # the four entries of every member's step k, [M, G, NL] each
+        return tabs[:, torch.clamp_max(pairs[rows[:, k]], nP - 1).long()].unbind(-1)
+
+    def products(pairs, ok):
+        one = torch.ones((M, G, NL), dtype=_F32, device=dev)
+        zero = torch.zeros_like(one)
+        c00, c01, c10, c11 = one, zero, zero, one
+        for k in range(L):
+            m0, m1, m2, m3 = step(pairs, k)
+            v = ok[:, k]
+            c00, c01, c10, c11 = (
+                torch.where(v, c00 * m0 + c01 * m2, c00), torch.where(v, c00 * m1 + c01 * m3, c01),
+                torch.where(v, c10 * m0 + c11 * m2, c10), torch.where(v, c10 * m1 + c11 * m3, c11))
+            if k % 8 == 7:
+                inv = torch.reciprocal(torch.clamp_min(((c00 + c01) + c10) + c11, 1e-30))
+                r = real[:, k][:, None]
+                c00, c01, c10, c11 = (torch.where(r, c * inv, c) for c in (c00, c01, c10, c11))
+        return c00, c01, c10, c11
+
+    def messages(v0, v1, P, has, order, fwd):
+        out = [None] * G
+        for g in order:
+            out[g] = (v0, v1)
+            p00, p01, p10, p11 = (c[:, g] for c in P)
+            r0 = v0 * p00 + v1 * p10 if fwd else p00 * v0 + p01 * v1
+            r1 = v0 * p01 + v1 * p11 if fwd else p10 * v0 + p11 * v1
+            inv = torch.reciprocal(torch.clamp_min(r0 + r1, 1e-30))
+            v0, v1 = torch.where(has[g], r0 * inv, v0), torch.where(has[g], r1 * inv, v1)
+        return (torch.stack([o[0] for o in out], 1), torch.stack([o[1] for o in out], 1))
+
+    # Phases 1 and 2.
+    ent0, ent1 = messages(a0[:, 0], a0[:, 1], products(pair2, fwd_ok), fwd_ok.any(1),
+                          range(G), True)
+    ext0, ext1 = messages(beta0[:, 0], beta0[:, 1], products(pairn2, bwd_ok), bwd_ok.any(1),
+                          range(G - 1, -1, -1), False)
+
+    # Phase 3: the forward chains (sub-lane 0's step 0 keeps a0: v = e).
+    v0, v1 = ent0, ent1
+    alphas = []
+    for k in range(L):
+        m0, m1, m2, m3 = step(pair2, k)
+        inv = torch.reciprocal(v0 + v1)
+        ok = fwd_ok[:, k]
+        v0, v1 = (torch.where(ok, (v0 * m0 + v1 * m2) * inv, v0),
+                  torch.where(ok, (v0 * m1 + v1 * m3) * inv, v1))
+        alphas.append(torch.stack([v0, v1], 1))  # [M, 2, G, NL]
+    al = torch.stack(alphas, 3).permute(0, 2, 3, 1, 4).reshape(M, G * L, 2, NL)[:, :Tp]
+    last = torch.clamp_min(torch.clamp_max(lens, Tp), 1) - 1
+    src = torch.minimum(torch.arange(Tp, device=dev)[:, None], last)  # [Tp, NL]
+    al = torch.gather(al, 1, src[None, :, None, :].expand(M, Tp, 2, NL).long())
+
+    # The backward chains, t = (g + 1) L - 1 down to g L.
+    b0, b1 = ext0, ext1
+    betas = [None] * L
+    for k in range(L - 1, -1, -1):
+        m0, m1, m2, m3 = step(pairn2, k)
+        inv = torch.reciprocal(b0 + b1)
+        ok = bwd_ok[:, k]
+        b0, b1 = (torch.where(ok, (m0 * b0 + m1 * b1) * inv, b0),
+                  torch.where(ok, (m2 * b0 + m3 * b1) * inv, b1))
+        betas[k] = torch.stack([b0, b1], 1)
+    be = torch.stack(betas, 3).permute(0, 2, 3, 1, 4).reshape(M, G * L, 2, NL)[:, :Tp]
+    return al.contiguous(), be.contiguous()
 
 
 def _check_same_device(ref: torch.Tensor, tensors) -> None:
@@ -318,8 +440,8 @@ def oh_fwdbwd(pair2: torch.Tensor, pairn2: torch.Tensor, lens2: torch.Tensor,
               a0_red: torch.Tensor, beta0_red: torch.Tensor, tab_ext: torch.Tensor,
               T: int):
     """Kernel B4 (replaces the JAX package's ``_oh_fwdbwd_kernel``) ->
-    (alphas2, betas2), each [Tp, 2, NL] f32.  Arguments as
-    :func:`oh_fwdbwd_plain`."""
+    (alphas2, betas2), each [Tp, 2, NL] f32, the lane in
+    :func:`sublanes` sub-lanes.  Arguments as :func:`oh_fwdbwd_plain`."""
     _check_same_device(pair2, (pairn2, lens2, a0_red, beta0_red, tab_ext))
     if pair2.dim() != 2 or 0 in pair2.shape:
         raise ValueError(f"pair2 must be a non-empty [Tp, NL], got {tuple(pair2.shape)}")
@@ -330,12 +452,13 @@ def oh_fwdbwd(pair2: torch.Tensor, pairn2: torch.Tensor, lens2: torch.Tensor,
     _check("a0_red", a0_red, _F32, (GROUP, NL))
     _check("beta0_red", beta0_red, _F32, (GROUP, NL))
     _check_table(tab_ext)
+    G = sublanes(Tp)
     if pair2.device.type == "cpu":
         return oh_fwdbwd_plain(pair2, pairn2, lens2, a0_red, beta0_red, tab_ext, T)
     alphas = torch.empty((Tp, GROUP, NL), dtype=_F32, device=pair2.device)
     betas = torch.empty((Tp, GROUP, NL), dtype=_F32, device=pair2.device)
     _kernels.launch("oh_fwdbwd", pair2, pairn2, lens2, a0_red, beta0_red, tab_ext,
-                    alphas, betas, Tp=Tp, NL=NL, nreal=tab_ext.shape[0] - 1, T=T)
+                    alphas, betas, Tp=Tp, NL=NL, nreal=tab_ext.shape[0] - 1, T=T, G=G)
     return alphas, betas
 
 
@@ -1038,15 +1161,19 @@ def oh_fwdbwd_stacked_plain(pair2, pairn2, lens2, a0_red, beta0_red, tabs, T: in
     """Plain version of B24 -> (alphas [M, Tp, 2, NL], betas [M, Tp, 2,
     NL]): :func:`oh_fwdbwd_plain` for every member (a0_red / beta0_red
     [M, 2, NL], tabs [M, S*S + 1, 4]), the member axis carried through one
-    step loop per direction."""
+    step loop per direction (with G > 1, through
+    :func:`_fwdbwd_sublanes_plain`'s loops)."""
+    G = sublanes(pair2.shape[0])
+    if G > 1:
+        return _fwdbwd_sublanes_plain(pair2, pairn2, lens2, a0_red, beta0_red, tabs, T, G)
     return (oh_fwd_stacked_plain(pair2, lens2, a0_red, tabs),
             _bwd_stacked_plain(pairn2, lens2, beta0_red, tabs, T))
 
 
 def oh_fwdbwd_stacked(pair2, pairn2, lens2, a0_red, beta0_red, tabs, T: int):
     """Kernel B24 (replaces ``_oh_fwdbwd_stacked_kernel``) -> (alphas,
-    betas), each [M, Tp, 2, NL] f32.  Arguments as
-    :func:`oh_fwdbwd_stacked_plain`."""
+    betas), each [M, Tp, 2, NL] f32; member m's equal B4's on its own
+    operands.  Arguments as :func:`oh_fwdbwd_stacked_plain`."""
     _check_same_device(pair2, (pairn2, lens2, a0_red, beta0_red, tabs))
     if pair2.dim() != 2 or 0 in pair2.shape:
         raise ValueError(f"pair2 must be a non-empty [Tp, NL], got {tuple(pair2.shape)}")
@@ -1057,12 +1184,13 @@ def oh_fwdbwd_stacked(pair2, pairn2, lens2, a0_red, beta0_red, tabs, T: int):
     _check("lens2", lens2, _I32, (1, NL))
     _check("a0_red", a0_red, _F32, (M, GROUP, NL))
     _check("beta0_red", beta0_red, _F32, (M, GROUP, NL))
+    G = sublanes(Tp)
     if pair2.device.type == "cpu":
         return oh_fwdbwd_stacked_plain(pair2, pairn2, lens2, a0_red, beta0_red, tabs, T)
     alphas = torch.empty((M, Tp, GROUP, NL), dtype=_F32, device=pair2.device)
     betas = torch.empty((M, Tp, GROUP, NL), dtype=_F32, device=pair2.device)
     _kernels.launch("oh_fwdbwd_stacked", pair2, pairn2, lens2, a0_red, beta0_red, tabs,
-                    alphas, betas, Tp=Tp, NL=NL, nreal=tabs.shape[1] - 1, T=T, M=M)
+                    alphas, betas, Tp=Tp, NL=NL, nreal=tabs.shape[1] - 1, T=T, G=G, M=M)
     return alphas, betas
 
 

@@ -120,6 +120,81 @@ def test_fwdbwd_kernel_bit_equal(cuda_device, NL, T):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+@pytest.mark.parametrize("sublane_t", [None, 1 << 20, 300])
+@pytest.mark.parametrize("T", [4099, 65536])
+@pytest.mark.parametrize("NL", [33, 1024])
+def test_fwdbwd_sublanes_bit_equal(cuda_device, monkeypatch, NL, T, sublane_t):
+    """B4 at the module's sub-lane length, in one sub-lane (G = 1) and in
+    many (G = 15 or 32): bit-equal to its plain version at ragged lanes,
+    with non-uniform entering vectors."""
+    from cpgisland_tpu_torch.ops import fb_onehot as FB
+
+    rng = np.random.default_rng(NL * 5 + T + (sublane_t or 0))
+    _, prep, _, _, _, tab = _fb_inputs(rng, NL, T, cuda_device)
+    v = lambda: torch.from_numpy(  # noqa: E731
+        rng.random((2, NL)).astype(np.float32) + 0.01).to(cuda_device)
+    args = (prep.pair2, prep.pairn2, prep.lens2, v(), v(), tab, T)
+    if sublane_t:
+        monkeypatch.setattr(FB, "SUBLANE_T", sublane_t)
+    before = _kernels.launches["oh_fwdbwd"]
+    got = FB.oh_fwdbwd(*args)
+    want = FB.oh_fwdbwd_plain(*args)
+    torch.cuda.synchronize()
+    assert _kernels.launches["oh_fwdbwd"] == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("lane_T,sublane_t", [(100, 3), (96, 7), (8192, 512)])
+def test_fwdbwd_sublanes_posterior_lanes_bit_equal(cuda_device, monkeypatch, lane_T, sublane_t):
+    """B4 on a posterior span's lanes (one record cut into lanes, the last
+    one short), including lanes whose last sub-lanes are empty: bit-equal
+    to its plain version."""
+    from cpgisland_tpu_torch.ops import fb_onehot as FB
+    from cpgisland_tpu_torch.ops.prepared import prepare_seq
+
+    rng = np.random.default_rng(lane_T + sublane_t)
+    params = presets.durbin_cpg8(device=cuda_device)
+    length = 37 * lane_T - lane_T // 3
+    obs = torch.from_numpy(rng.integers(0, 4, size=length).astype(np.uint8)).to(cuda_device)
+    prep = prepare_seq(4, obs, length, lane_T=lane_T)
+    NL = prep.pair2.shape[1]
+    lens2 = prep.lane_lens[None, :].contiguous()
+    tab = FB.prob_tab_ext(params, OH._groups(params))
+    v = lambda: torch.from_numpy(  # noqa: E731
+        rng.random((2, NL)).astype(np.float32) + 0.01).to(cuda_device)
+    args = (prep.pair2, prep.pairn2, lens2, v(), v(), tab, lane_T)
+    monkeypatch.setattr(FB, "SUBLANE_T", sublane_t)
+    assert FB.sublanes(prep.pair2.shape[0]) > 1
+    got = FB.oh_fwdbwd(*args)
+    want = FB.oh_fwdbwd_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("sublane_t", [None, 300])
+@pytest.mark.parametrize("M", [2, 3])
+def test_fwdbwd_stacked_sublanes_bit_equal(cuda_device, monkeypatch, M, sublane_t):
+    """B24 with sub-lanes: equal to its plain version, and each member to
+    its own B4 launch, bit for bit."""
+    from cpgisland_tpu_torch.ops import fb_onehot as FB
+
+    NL, T = 70, 9000
+    rng, _, prep, _, tabs = _stacked_batch(NL, T, 4, M, cuda_device)
+    if sublane_t:
+        monkeypatch.setattr(FB, "SUBLANE_T", sublane_t)
+    assert FB.sublanes(prep.pair2.shape[0]) > 1
+    v = lambda: torch.from_numpy(  # noqa: E731
+        rng.random((M, 2, NL)).astype(np.float32) + 0.01).to(cuda_device)
+    args = (prep.pair2, prep.pairn2, prep.lens2, v(), v(), tabs, T)
+    al, be = FB.oh_fwdbwd_stacked(*args)
+    al_p, be_p = FB.oh_fwdbwd_stacked_plain(*args)
+    assert torch.equal(al, al_p) and torch.equal(be, be_p)
+    for m in range(M):
+        a1, b1 = FB.oh_fwdbwd(prep.pair2, prep.pairn2, prep.lens2, args[3][m], args[4][m],
+                              tabs[m].contiguous(), T)
+        assert torch.equal(a1, al[m]) and torch.equal(b1, be[m])
+
+
 @pytest.mark.parametrize("T", [8, 4099, 65536])
 @pytest.mark.parametrize("NL", [1, 33, 1024])
 def test_seq_stats_kernel_within_tolerance(cuda_device, NL, T):
@@ -359,16 +434,21 @@ def test_fb_dense_chain_kernels_bit_equal(cuda_device, K, NL, T):
     assert all(_kernels.launches[k] == before[k] + 1 for k in names)
 
 
-@pytest.mark.parametrize("K", [2, 8])
+@pytest.mark.parametrize("K", [2, 3, 8])
 @pytest.mark.parametrize("T", [8, 4099])
 @pytest.mark.parametrize("NL", [1, 33, 1024])
 def test_fb_dense_prod_kernel_bit_equal(cuda_device, K, NL, T):
-    """B17 renormalizes after every 8th step as its plain version does:
-    bit-equal, PAD steps (the identity) and PAD tails included."""
+    """B17 renormalizes after every 8th step as its plain version does, one
+    thread a row with the total gathered in order: bit-equal, PAD steps
+    (the identity), PAD tails and a padded row group (K = 3) included."""
     from cpgisland_tpu_torch.ops import fb_pallas as FP
 
     rng = np.random.default_rng(K * 3000 + NL * 5 + T)
-    params = (presets.durbin_cpg8 if K == 8 else presets.two_state_cpg)(device=cuda_device)
+    if K == 3:
+        params = presets.random_hmm(torch.Generator().manual_seed(NL + T), 3, 4,
+                                    device=cuda_device)
+    else:
+        params = (presets.durbin_cpg8 if K == 8 else presets.two_state_cpg)(device=cuda_device)
     S = params.n_symbols
     sel = rng.integers(0, S, size=(T, NL)).astype(np.int32)
     sel[rng.random((T, NL)) < 0.05] = S
@@ -873,7 +953,7 @@ def _split_args(rng, NL, T, device):
 
 @pytest.mark.parametrize("T", [8, 4099, 65536])
 @pytest.mark.parametrize("NL", [1, 33, 1024])
-def test_split_chain_kernels_bit_equal(cuda_device, NL, T):
+def test_split_chain_kernels_bit_equal(cuda_device, monkeypatch, NL, T):
     """B9, B10 and B11 turn FMA contraction off: each equals its plain
     version bit for bit, and B9's alphas equal B4's."""
     from cpgisland_tpu_torch.ops import fb_onehot as FB
@@ -882,7 +962,10 @@ def test_split_chain_kernels_bit_equal(cuda_device, NL, T):
     before = {k: _kernels.launches[k] for k in ("oh_fwd", "oh_bwd", "oh_bwd_conf")}
     _, prep, gt, a0, b0, tab, al, cs_next = _split_args(rng, NL, T, cuda_device)
     assert torch.equal(al, FB.oh_fwd_plain(prep.pair2, prep.lens2, a0, tab))
+    # B4 in one sub-lane: the sequential chain B9 runs (G > 1 rounds apart).
+    monkeypatch.setattr(FB, "SUBLANE_T", prep.pair2.shape[0])
     al4, _ = FB.oh_fwdbwd(prep.pair2, prep.pairn2, prep.lens2, a0, b0, tab, T)
+    monkeypatch.undo()
     assert torch.equal(al, al4)
     bargs = (prep.pairn2, prep.lens2, cs_next, b0, tab, T)
     assert torch.equal(FB.oh_bwd(*bargs), FB.oh_bwd_plain(*bargs))
