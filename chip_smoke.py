@@ -10,8 +10,8 @@ end (a seeded chromosome-sized FASTA) and checks the results.  Phases, one
 JSON line each:
 
 1. card: name and power limit, kernel build time, and (its own line) the
-   ptxas registers and spills of the kernels redesigned last (B4, B24,
-   B17);
+   ptxas registers and spills of the kernels redesigned (B4, B24, B17, B7
+   / B21 and B18 with its sub-lane kernel);
 2. kernels: B1-B3 at full size (bk=4096, nb=16384: 64 Mi steps, PAD runs
    and record resets in the pair stream), B4-B5 at NL=1024 lanes x
    Tp=65,536 steps (ragged lengths, a short last lane, PAD tails), and B7
@@ -22,7 +22,10 @@ JSON line each:
    geometries at its default sub-lanes (``fb_onehot.sublanes``) and in one
    sub-lane (G = 1), each bit-equal to its plain version, and timed at
    2, 4 and 8 Ki sub-lanes (the sweep, with each one's largest relative
-   difference from G = 1);
+   difference from G = 1); B7 likewise at its default sub-lanes
+   (``fb_onehot.prod_sublanes``) and in one sub-lane, each bit-equal to
+   its plain version, and timed at 2 Ki, 1 Ki, 512 and 256-step
+   sub-lanes;
 3. main path, decode: ``pipeline.decode_file`` on a 64 Mi-base record plus
    256 scaffolds, clean then compat, with per-phase wall seconds and the
    launch counts of that run (B1-B3 each > 0);
@@ -77,7 +80,10 @@ JSON line each:
    B4/B5) and B17, B16 and B19 at NL=8192 x lane_T=8192 (a 64 Mi span,
    PAD tail), for K=8 (the flagship's tables) and K=2 (two_state) —
    B16-B19 bit-equal to their plain versions, B20 within rtol 1e-5 / atol
-   1e-3 — with median time, bound and plain-version time;
+   1e-3 — with median time, bound and plain-version time; B18 also on the
+   posterior lanes, and at both geometries in one sub-lane (bit-equal to
+   its plain version) and, at K = 2, in 256-step and 1, 2, 4 and 8 Ki
+   sub-lanes (``fb_pallas.BWD_SUBLANE_T``: timed);
 14. dense train: ``pipeline.train_file`` with two_state, compat then clean,
    5 iterations each (B16, B18 and B20 exactly 5 per mode, B4 and B5
    never; EM Msym/s, per-phase seconds, logliks non-decreasing), then the
@@ -97,8 +103,8 @@ JSON line each:
    1e-5), and profiles of one dense EM iteration and one dense posterior
    of the big record;
 17-20. the stacked kernels (B21, B24, B25; against their plain versions at
-   M = 2, per member against B7 / B4 / B5 at every M; B24 also in one
-   sub-lane per member against B4 in one sub-lane) and the scoring
+   M = 2, per member against B7 / B4 / B5 at every M; B21 and B24 also in
+   one sub-lane per member against B7 / B4 in one sub-lane) and the scoring
    kernels, the compare main path (three casts, stacked against
    sequential) and ``fit_family`` against solo fits;
 21. flat-batch scores: ``viterbi_parallel_batch(engine="onehot")`` over the
@@ -245,8 +251,14 @@ TRAIN_ITERS = 5
 # B4's sub-lane lengths timed beside the default (fb_onehot.SUBLANE_T) and
 # one sub-lane (G = 1) at both of its geometries.
 SWEEP_SUBLANE_T = (2048, 4096, 8192)
+# B18's (fb_pallas.BWD_SUBLANE_T), likewise at K <= 4.
+SWEEP_BWD_SUBLANE_T = (256, 1024, 2048, 4096, 8192)
+# B7's sub-lane lengths (fb_onehot.PROD_SUBLANE_T) timed at the posterior
+# geometry beside one sub-lane.
+SWEEP_PROD_SUBLANE_T = (2048, 1024, 512, 256)
 # The redesigned kernels whose ptxas registers and spills are printed.
-REDESIGNED = ("oh_fwdbwd_kernel", "oh_fwdbwd_stacked_kernel", "fb_prod_kernel")
+REDESIGNED = ("oh_fwdbwd_kernel", "oh_fwdbwd_stacked_kernel", "fb_prod_kernel",
+              "oh_prod_kernel", "fb_bwd_kernel", "fb_bwd_sub_kernel")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 
@@ -412,14 +424,35 @@ def ptxas_of(names) -> dict:
 
 
 @contextlib.contextmanager
-def sublane_length(st: int):
-    """B4 / B24 with sub-lanes of ``st`` steps (``fb_onehot.SUBLANE_T``)
-    inside the block; ``st`` = the lane length gives one sub-lane."""
-    old, FB.SUBLANE_T = FB.SUBLANE_T, st
+def patched(module, **values):
+    """The module's attributes set to ``values`` inside the block."""
+    old = {k: getattr(module, k) for k in values}
+    for k, v in values.items():
+        setattr(module, k, v)
     try:
         yield
     finally:
-        FB.SUBLANE_T = old
+        for k, v in old.items():
+            setattr(module, k, v)
+
+
+def sublane_length(st: int):
+    """B4 / B24 with sub-lanes of ``st`` steps (``fb_onehot.SUBLANE_T``)
+    inside the block; ``st`` = the lane length gives one sub-lane."""
+    return patched(FB, SUBLANE_T=st)
+
+
+def bwd_sublane_length(st: int):
+    """B18 at K <= 4 with sub-lanes of ``st`` steps
+    (``fb_pallas.BWD_SUBLANE_T``; lanes of 8 Ki steps or more); ``st`` =
+    the lane length gives one."""
+    return patched(FP, BWD_SUBLANE_T=st)
+
+
+def prod_sublane_length(st: int):
+    """B7 / B21 with sub-lanes of ``st`` steps (``fb_onehot.PROD_SUBLANE_T``;
+    lanes of 8 Ki steps or more); ``st`` = the lane length gives one."""
+    return patched(FB, PROD_SUBLANE_T=st)
 
 
 def sublane_sweep(args) -> dict:
@@ -441,6 +474,50 @@ def sublane_sweep(args) -> dict:
                 "G": FB.sublanes(Tp), "ms": time_ms(lambda: FB.oh_fwdbwd(*args), runs=10),
                 "max_rel_vs_g1": max(max_rel_diff(al, al1), max_rel_diff(be, be1))}
         del al, be
+    return {"g1_bit_equal": g1_equal, "g1_plain_ms": g1_plain_ms, "g1_ms": g1_ms,
+            "sweep": sweep}
+
+
+def prod_sweep(pair2, tab) -> dict:
+    """B7 on ``pair2`` in one sub-lane (G = 1: held bit for bit against its
+    plain version, timed) and at each SWEEP_PROD_SUBLANE_T (timed, with its
+    largest relative difference from G = 1)."""
+    Tp = pair2.shape[0]
+    with prod_sublane_length(Tp):
+        red1 = FB.oh_prod(pair2, tab)
+        red_p, g1_plain_ms = timed_once(lambda: FB.oh_prod_plain(pair2, tab))
+        g1_equal = torch.equal(red1, red_p)
+        g1_ms = time_ms(lambda: FB.oh_prod(pair2, tab), runs=10)
+    sweep = {}
+    for st in SWEEP_PROD_SUBLANE_T:
+        with prod_sublane_length(st):
+            red = FB.oh_prod(pair2, tab)
+            sweep[str(st)] = {
+                "G": FB.prod_sublanes(Tp), "ms": time_ms(lambda: FB.oh_prod(pair2, tab), runs=10),
+                "max_rel_vs_g1": max_rel_diff(red, red1)}
+    return {"g1_bit_equal": g1_equal, "g1_plain_ms": g1_plain_ms, "g1_ms": g1_ms,
+            "sweep": sweep}
+
+
+def bwd_sweep(args, K: int) -> dict:
+    """B18 on ``args`` in one sub-lane (G = 1: held bit for bit against its
+    plain version, timed) and, at K <= 4, at each SWEEP_BWD_SUBLANE_T
+    (timed, with the largest relative difference from G = 1)."""
+    Tp = args[0].shape[0]
+    with bwd_sublane_length(Tp):
+        be1 = FP.fb_bwd(*args)
+        be_p, g1_plain_ms = timed_once(lambda: FP.fb_bwd_plain(*args))
+        g1_equal = torch.equal(be1, be_p)
+        del be_p
+        g1_ms = time_ms(lambda: FP.fb_bwd(*args), runs=10)
+    sweep = {}
+    for st in SWEEP_BWD_SUBLANE_T if K <= FP.BWD_SUBLANE_MAX_K else ():
+        with bwd_sublane_length(st):
+            be = FP.fb_bwd(*args)
+            sweep[str(st)] = {
+                "G": FP.bwd_sublanes(Tp, K), "ms": time_ms(lambda: FP.fb_bwd(*args), runs=10),
+                "max_rel_vs_g1": max_rel_diff(be, be1)}
+            del be
     return {"g1_bit_equal": g1_equal, "g1_plain_ms": g1_plain_ms, "g1_ms": g1_ms,
             "sweep": sweep}
 
@@ -651,15 +728,17 @@ def post_kernel_phase(rng: np.random.Generator, params, dev) -> dict:
     red_p, prod_plain_ms = timed_once(lambda: FB.oh_prod_plain(prep.pair2, tab))
     equal = torch.equal(red_k, red_p)
     steps_n = Tp * NL
+    sweep = prod_sweep(prep.pair2, tab)
     results = {"oh_prod": kernel_row(
         "oh_prod", equal, max_abs_err(red_k, red_p), lambda: FB.oh_prod(prep.pair2, tab),
         prod_plain_ms,
-        # the pair stream read, [4, NL] written; per step 8 multiplies, 7
-        # adds, a max and 4 divisions
-        n_bytes=4 * steps_n + tab.numel() * 4 + 16 * NL, n_ops=20 * steps_n,
-        steps=steps_n, bit_equal=equal,
+        # the pair stream read, [4, NL] written; per step 8 multiplies and 4
+        # adds, and every 8th step a renormalization (3 adds, a max, a
+        # division, 4 multiplies)
+        n_bytes=4 * steps_n + tab.numel() * 4 + 16 * NL, n_ops=13 * steps_n,
+        steps=steps_n, bit_equal=equal, sublanes=FB.prod_sublanes(Tp), **sweep,
     )}
-    if not equal:
+    if not (equal and sweep["g1_bit_equal"]):
         raise SystemExit("chip_smoke: oh_prod disagrees with its plain version")
 
     lens2 = prep.lane_lens[None, :].contiguous()
@@ -1377,12 +1456,16 @@ def dense_fb_kernel_phase(rng: np.random.Generator, dev) -> dict:
         args = (steps_next, prep.lens2, cs_next, beta0, A, B, FB_TP)
         be = FP.fb_bwd(*args)
         be_p, plain_ms = timed_once(lambda: FP.fb_bwd_plain(*args))
+        sweep = bwd_sweep(args, K)
         keep["fb_bwd"] = _agree_row(
             "fb_bwd", [be], [be_p], lambda: FP.fb_bwd(*args), plain_ms,
             # o_{t+1} and c_{t+1} read, betas written
             8 * n + 4 * K * n + 4 * NL + 4 * K * NL + tab_b, (2 * K * K + K + 1) * valid, n,
-            K, **geo)
+            K, sublanes=FP.bwd_sublanes(Tp, K), **sweep, **geo)
         del be_p
+        if not sweep["g1_bit_equal"]:
+            raise SystemExit(f"chip_smoke: fb_bwd (K={K}) in one sub-lane disagrees with its "
+                             "plain version")
         args = (al, be, prep.steps2, prep.lens2, B)
         got = FP.fb_stats(*args, prep.Tt)
         want, plain_ms = timed_once(lambda: FP.fb_stats_plain(*args))
@@ -1420,6 +1503,23 @@ def dense_fb_kernel_phase(rng: np.random.Generator, dev) -> dict:
                    (2 * K * K + 2 * K) * real, n, K, **geo)
         del al_p
         _, steps_next, cs_next = FP.backward_inputs(prep.steps2, al)
+        # B18 on the posterior lanes (G = 8 at K <= 4; the sweep times G = 1,
+        # 2, 4 and 32 too).  Its entering betas come from a generator of their
+        # own, so ``rng`` reaches the later phases (the genome) unchanged.
+        own = np.random.default_rng(K)
+        beta0 = torch.from_numpy(own.random((K, NL)).astype(np.float32) + 0.01).to(dev)
+        args = (steps_next, lens2, cs_next, beta0, A, B, POST_LANE_T)
+        be = FP.fb_bwd(*args)
+        be_p, plain_ms = timed_once(lambda: FP.fb_bwd_plain(*args))
+        sweep = bwd_sweep(args, K)
+        _agree_row("fb_bwd", [be], [be_p], lambda: FP.fb_bwd(*args), plain_ms,
+                   8 * n + 4 * K * n + 4 * NL + 4 * K * NL + tab_b,
+                   (2 * K * K + K + 1) * real, n, K, sublanes=FP.bwd_sublanes(Tp, K), **sweep,
+                   **geo)
+        del be, be_p, beta0
+        if not sweep["g1_bit_equal"]:
+            raise SystemExit(f"chip_smoke: fb_bwd (K={K}, posterior span) in one sub-lane "
+                             "disagrees with its plain version")
         mask = torch.tensor([1.0] * (K // 2) + [0.0] * (K - K // 2), device=dev)
         args = (steps_next, lens2, cs_next, rand(), al, mask, A, B, POST_LANE_T)
         conf = FP.fb_bwd_conf(*args)
@@ -1665,12 +1765,19 @@ def stacked_kernel_phase(rng: np.random.Generator, gen: torch.Generator, dev) ->
                 plain, lambda: [FB.oh_prod_stacked_plain(post.pair2, tabs)])
             per = all(torch.equal(FB.oh_prod(post.pair2, one(m)), red[m]) for m in range(M))
             single_ms = time_ms(lambda: FB.oh_prod(post.pair2, one(0)), runs=10)
+            # In one sub-lane (G = 1) too: per member equal to B7 at G = 1.
+            with prod_sublane_length(Tp):
+                red1 = FB.oh_prod_stacked(post.pair2, tabs)
+                per1 = all(torch.equal(FB.oh_prod(post.pair2, one(m)), red1[m])
+                           for m in range(M))
+                g1_ms = time_ms(lambda: FB.oh_prod_stacked(post.pair2, tabs), runs=10)
             row = _stacked_row(
-                "oh_prod_stacked", S, M, "posterior span", [red], red_p, per,
+                "oh_prod_stacked", S, M, "posterior span", [red], red_p, per and per1,
                 lambda: FB.oh_prod_stacked(post.pair2, tabs), plain_ms, single_ms,
                 # the shared pair stream read once, M tables, M x [4, NL] written
-                4 * n + M * (tab_b + 16 * NL), M * 20 * n, n)
-            del red, red_p
+                4 * n + M * (tab_b + 16 * NL), M * 13 * n, n, sublanes=FB.prod_sublanes(Tp),
+                g1_equals_single_per_member=per1, g1_ms=g1_ms)
+            del red, red_p, red1
 
             # B24 at the posterior geometry, then at the training one.
             for geo, prep, lens2, steps_T in (("posterior span", post, post_lens, POST_LANE_T),

@@ -49,11 +49,20 @@
 // instructions and registers, the operations and their order the first
 // design's (bit for bit).  Contraction off keeps it above the ops bound:
 // each multiply-add is two instructions.
-// B18 fb_bwd_kernel<K, false> replaces _bwd_kernel: beta_t[j] = sum_k A[j, k]
-// * ((B[k, o_{t+1}] * (1 / c_{t+1})) * beta_{t+1}[k]) on the time-shifted
-// streams (steps_next[t] = o_{t+1}, cs_next[t] = c_{t+1}), where t <= T-2
-// (T the chunk length) and t + 1 < len; carried elsewhere.  Bound: it reads
-// 8 B and writes 4K B per step (latency-bound as B16).
+// B18 replaces _bwd_kernel: beta_t[j] = sum_k A[j, k] * ((B[k, o_{t+1}] *
+// (1 / c_{t+1})) * beta_{t+1}[k]) on the time-shifted streams
+// (steps_next[t] = o_{t+1}, cs_next[t] = c_{t+1}), where t <= T-2 (T the
+// chunk length) and t + 1 < len; carried elsewhere.  Bound: it reads 8 B
+// and writes 4K B per step (0.32 ms at K = 2 over 1,024 x 65,536).  What
+// bounds one thread a chain (fb_bwd_kernel<K, false>) is latency: a
+// training batch of 1,024 lanes is one warp on each of 32 SMs, 28x the
+// bound at K = 2.  So at K <= 4 and G = fb_pallas.bwd_sublanes > 1,
+// fb_bwd_sub_kernel runs each lane as G sub-lanes joined by exact boundary
+// messages that carry the betas' true magnitude (the recurrence is degree
+// 1 and B20 reads the Rabiner scale), over a (lane block, sub-lane) grid
+// so the 1,024 lanes spread over the card; below.  In one sub-lane (K >= 5,
+// short lanes) fb_bwd_kernel<K, false> runs: the sub-lane kernel's chain
+// alone ran 6-7% slower there.
 //
 // B19 fb_bwd_kernel<K, true> replaces _bwd_conf_kernel: B18's chain, emitting
 // conf_t = (sum_k g_k * mask_k) * (1 / max(sum_k g_k, 1e-30)), g = alpha_t *
@@ -177,6 +186,35 @@ fb_fwd_kernel(const int32_t* __restrict__ steps, const int32_t* __restrict__ len
 // ---------------------------------------------------------------------------
 // B18 (CONF = false) and B19 (CONF = true): the backward chain.
 
+// A backward step's column scale: bi[k] = B[k, o] * (1 / c), o the step's
+// symbol (clamped into [0, S)) and c its c_{t+1}.
+template <int K>
+__device__ __forceinline__ void bwd_scale(const float* s_B, int S, int sym, float c,
+                                          float (&bi)[K]) {
+  const int o = min(max(sym, 0), S - 1);
+  const float invc = __fdiv_rn(1.0f, c);
+#pragma unroll
+  for (int k = 0; k < K; ++k) bi[k] = __fmul_rn(s_B[k * S + o], invc);
+}
+
+// A backward step's contraction: nb[j] = sum_k A[j, k] * (bi[k] * v[k]), k
+// in order.  The chain applies it to beta_{t+1}; B18's sub-lane product to
+// each column of its matrix.
+template <int K>
+__device__ __forceinline__ void bwd_contract(const float* s_A, const float (&bi)[K],
+                                             const float (&v)[K], float (&nb)[K]) {
+  float w[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) w[k] = __fmul_rn(bi[k], v[k]);
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    float acc = __fmul_rn(s_A[j * K], w[0]);
+#pragma unroll
+    for (int k = 1; k < K; ++k) acc = __fadd_rn(acc, __fmul_rn(s_A[j * K + k], w[k]));
+    nb[j] = acc;
+  }
+}
+
 template <int K, bool CONF>
 __global__ void __launch_bounds__(CHAIN_THREADS)
 fb_bwd_kernel(const int32_t* __restrict__ steps_next, const int32_t* __restrict__ lens,
@@ -223,19 +261,9 @@ fb_bwd_kernel(const int32_t* __restrict__ steps_next, const int32_t* __restrict_
     for (int r = 0; r < LOOKAHEAD; ++r) {
       const int t = Tp - 1 - (k0 + r);
       if (t >= 0) {
-        const int o = min(max(q[r], 0), S - 1);
-        const float invc = __fdiv_rn(1.0f, cq[r]);
-        float w[K];
-#pragma unroll
-        for (int k = 0; k < K; ++k) w[k] = __fmul_rn(__fmul_rn(s_B[k * S + o], invc), beta[k]);
-        float nb[K];
-#pragma unroll
-        for (int j = 0; j < K; ++j) {
-          float acc = __fmul_rn(s_A[j * K], w[0]);
-#pragma unroll
-          for (int k = 1; k < K; ++k) acc = __fadd_rn(acc, __fmul_rn(s_A[j * K + k], w[k]));
-          nb[j] = acc;
-        }
+        float bi[K], nb[K];
+        bwd_scale<K>(s_B, S, q[r], cq[r], bi);
+        bwd_contract<K>(s_A, bi, beta, nb);
         if (t <= T - 2 && t + 1 < len) {
 #pragma unroll
           for (int k = 0; k < K; ++k) beta[k] = nb[k];
@@ -262,6 +290,213 @@ fb_bwd_kernel(const int32_t* __restrict__ steps_next, const int32_t* __restrict_
       q[r] = qn[r];
       cq[r] = cqn[r];
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B18 in sub-lanes (K <= 4; fb_pallas.bwd_sublanes).  Each lane runs as G
+// sub-lanes of L steps, [g L, min((g + 1) L, Tp)), one thread per (lane,
+// sub-lane).  The chain is DEGREE 1 in beta (the betas carry the Rabiner
+// scale B20 reads), so a sub-lane's message carries the true magnitude:
+// 1. each sub-lane's transfer matrix Q_g (beta_tb = Q_g . beta_te over its
+//    valid steps t < hi = min(T - 1, len - 1)), formed from the identity by
+//    the chain's own step applied to each column, walking t down from the
+//    sub-lane's end; after every 8th step counted from its padded end
+//    (g + 1) L - 1, Q_g is scaled by 2^-e, e the binary exponent of its
+//    total (scale_exp), and e is added to an int E_g.  Q_g (row-major)
+//    and E_g (as a float: exact below 2^24) go to the scratch [G, K*K + 1,
+//    NL];
+// 2. each thread forms the message entering its sub-lane from beta0 and
+//    the products of the sub-lanes after it, in order (v <- Q_h . v, then v
+//    scaled by a power of two to a total near 1, the exponents summed; a
+//    sub-lane with no valid step passes v on unchanged), and starts its
+//    chain from v 2^E (two exact power-of-two products).  The same ops in
+//    the same order in every thread, so the messages are a sequential
+//    scan's, and the last valid sub-lane starts from beta0 exactly;
+// 3. B18's chain over the sub-lane from that message.
+// A product by a power of two is exact away from float32's subnormals, so
+// in exact arithmetic the messages are the sequential chain's betas; the
+// stored betas differ from it in the last bits.  Phase 1 is one launch and
+// phases 2 and 3 another, each over a (32-lane block, sub-lane) grid, so
+// one direction of 1,024 lanes runs on G times 32 blocks instead of 32
+// (B4's layout, a lane's sub-lanes in one block, ran 1.1-1.8x slower on
+// the H100).  Every operation is an explicit round-to-nearest intrinsic in
+// fb_pallas._bwd_sublanes_plain's order.
+
+#define SUB_LANES_MAX 32
+#define BWD_SUB_MAX_K 4
+
+// 2^e for -126 <= e <= 126: a normal float, so a product by it is exact
+// unless the product leaves the normal range.
+__device__ __forceinline__ float pow2f(int e) { return __int_as_float((e + 127) << 23); }
+
+// x's binary exponent (frexp's: x = m 2^e, 0.5 <= m < 1, for a normal x;
+// -126 for 0 and subnormals), clamped to [-126, 126].
+__device__ __forceinline__ int scale_exp(float x) {
+  return min(max(((__float_as_int(x) >> 23) & 0xff) - 126, -126), 126);
+}
+
+// Phase 1: Q_g and E_g of the sub-lane [tb, te) into dst (lane column, rows
+// nl apart).  p and c: the lane's steps_next and cs_next columns.
+template <int K>
+__device__ __forceinline__ void bwd_sub_prod(const int32_t* p, const float* c, const float* s_A,
+                                             const float* s_B, int S, int tb, int te, int hi,
+                                             int L, int Tp, size_t nl, float* dst) {
+  float Q[K][K];
+#pragma unroll
+  for (int j = 0; j < K; ++j)
+#pragma unroll
+    for (int i = 0; i < K; ++i) Q[j][i] = j == i ? 1.0f : 0.0f;
+  int E = 0;
+  int q[LOOKAHEAD], qn[LOOKAHEAD];
+  float cq[LOOKAHEAD], cqn[LOOKAHEAD];
+  load_ints(p, nl, te - 1, -1, Tp, q);
+  load_floats(c, nl, te - 1, -1, Tp, cq);
+  for (int k0 = 0; k0 < te - tb; k0 += LOOKAHEAD) {
+    load_ints(p, nl, te - 1 - (k0 + LOOKAHEAD), -1, Tp, qn);
+    load_floats(c, nl, te - 1 - (k0 + LOOKAHEAD), -1, Tp, cqn);
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) {
+      const int t = te - 1 - (k0 + r);
+      if (t >= tb) {
+        if (t < hi) {
+          float bi[K];
+          bwd_scale<K>(s_B, S, q[r], cq[r], bi);
+#pragma unroll
+          for (int i = 0; i < K; ++i) {
+            float v[K], nv[K];
+#pragma unroll
+            for (int k = 0; k < K; ++k) v[k] = Q[k][i];
+            bwd_contract<K>(s_A, bi, v, nv);
+#pragma unroll
+            for (int j = 0; j < K; ++j) Q[j][i] = nv[j];
+          }
+        }
+        if (((tb + L - 1 - t) & 7) == 7) {
+          float tot = Q[0][0];
+#pragma unroll
+          for (int x = 1; x < K * K; ++x) tot = __fadd_rn(tot, Q[x / K][x % K]);
+          const int e = scale_exp(tot);
+          const float sc = pow2f(-e);
+#pragma unroll
+          for (int j = 0; j < K; ++j)
+#pragma unroll
+            for (int i = 0; i < K; ++i) Q[j][i] = __fmul_rn(Q[j][i], sc);
+          E += e;
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) {
+      q[r] = qn[r];
+      cq[r] = cqn[r];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < K; ++j)
+#pragma unroll
+    for (int i = 0; i < K; ++i) dst[(size_t)(j * K + i) * nl] = Q[j][i];
+  dst[(size_t)(K * K) * nl] = (float)E;
+}
+
+// Phase 2: the beta entering sub-lane g (beta at its end), from beta0 (the
+// lane's column, rows nl apart) and the products of sub-lanes G-1 .. g+1
+// in qbuf (the lane's column).
+template <int K>
+__device__ __forceinline__ void bwd_sub_entry(const float* qbuf, const float* beta0, int g,
+                                              int G, int L, int Tp, int hi, size_t nl,
+                                              float (&beta)[K]) {
+  float v[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) v[k] = beta0[k * nl];
+  int E = 0;
+  for (int h = G - 1; h > g; --h) {
+    const int hb = min(h * L, Tp), he = min(hb + L, Tp);
+    if (hb >= min(he, hi)) continue;  // no valid step: the message passes on
+    const float* Qh = qbuf + (size_t)h * (K * K + 1) * nl;
+    float r[K];
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      float acc = __fmul_rn(Qh[(size_t)(j * K) * nl], v[0]);
+#pragma unroll
+      for (int i = 1; i < K; ++i)
+        acc = __fadd_rn(acc, __fmul_rn(Qh[(size_t)(j * K + i) * nl], v[i]));
+      r[j] = acc;
+    }
+    const int e = scale_exp(seq_sum<K>(r));
+    const float sc = pow2f(-e);
+#pragma unroll
+    for (int j = 0; j < K; ++j) v[j] = __fmul_rn(r[j], sc);
+    E += (int)Qh[(size_t)(K * K) * nl] + e;
+  }
+  const int e1 = E / 2, e2 = E - e1;
+  const float s1 = pow2f(min(max(e1, -126), 126)), s2 = pow2f(min(max(e2, -126), 126));
+#pragma unroll
+  for (int k = 0; k < K; ++k) beta[k] = __fmul_rn(__fmul_rn(v[k], s1), s2);
+}
+
+// Phase 3: B18's chain over [tb, te) from beta (the beta at te), storing
+// beta_t at rows (t K + k) nl of out (the lane's column).
+template <int K>
+__device__ __forceinline__ void bwd_range(const int32_t* p, const float* c, const float* s_A,
+                                          const float* s_B, int S, float (&beta)[K], float* out,
+                                          int tb, int te, int hi, int Tp, size_t nl) {
+  int q[LOOKAHEAD], qn[LOOKAHEAD];
+  float cq[LOOKAHEAD], cqn[LOOKAHEAD];
+  load_ints(p, nl, te - 1, -1, Tp, q);
+  load_floats(c, nl, te - 1, -1, Tp, cq);
+  for (int k0 = 0; k0 < te - tb; k0 += LOOKAHEAD) {
+    load_ints(p, nl, te - 1 - (k0 + LOOKAHEAD), -1, Tp, qn);
+    load_floats(c, nl, te - 1 - (k0 + LOOKAHEAD), -1, Tp, cqn);
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) {
+      const int t = te - 1 - (k0 + r);
+      if (t >= tb) {
+        float bi[K], nb[K];
+        bwd_scale<K>(s_B, S, q[r], cq[r], bi);
+        bwd_contract<K>(s_A, bi, beta, nb);
+        if (t < hi) {
+#pragma unroll
+          for (int k = 0; k < K; ++k) beta[k] = nb[k];
+        }
+        float* o_row = out + (size_t)t * K * nl;
+#pragma unroll
+        for (int k = 0; k < K; ++k) o_row[k * nl] = beta[k];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) {
+      q[r] = qn[r];
+      cq[r] = cqn[r];
+    }
+  }
+}
+
+// PROD: phase 1 (the first launch); else phases 2 and 3 (the second).
+// Sub-lane g = blockIdx.y.
+template <int K, bool PROD>
+__global__ void __launch_bounds__(CHAIN_THREADS)
+fb_bwd_sub_kernel(const int32_t* __restrict__ steps_next, const int32_t* __restrict__ lens,
+                  const float* __restrict__ cs_next, const float* __restrict__ beta0,
+                  const float* __restrict__ A, const float* __restrict__ B, float* qbuf,
+                  float* __restrict__ betas, int Tp, int NL, int S, int T, int G, int L) {
+  __shared__ float s_A[K * K];
+  __shared__ float s_B[K * MAX_S];
+  load_tables<K>(s_A, s_B, A, B, S);
+  __syncthreads();
+  const int g = blockIdx.y;
+  const int n = blockIdx.x * CHAIN_THREADS + threadIdx.x;
+  if (n >= NL) return;
+  const size_t nl = (size_t)NL;
+  const int hi = min(T - 1, lens[n] - 1);
+  const int tb = min(g * L, Tp), te = min(tb + L, Tp);
+  if (PROD) {
+    bwd_sub_prod<K>(steps_next + n, cs_next + n, s_A, s_B, S, tb, te, hi, L, Tp, nl,
+                    qbuf + (size_t)g * (K * K + 1) * nl + n);
+  } else {
+    float beta[K];
+    bwd_sub_entry<K>(qbuf + n, beta0 + n, g, G, L, Tp, hi, nl, beta);
+    bwd_range<K>(steps_next + n, cs_next + n, s_A, s_B, S, beta, betas + n, tb, te, hi, Tp, nl);
   }
 }
 
@@ -501,6 +736,24 @@ static int launch_bwd(const void* steps_next, const void* lens, const void* cs_n
 }
 
 template <int K>
+static int launch_bwd_sub(const void* steps_next, const void* lens, const void* cs_next,
+                          const void* beta0, const void* A, const void* B, void* qbuf,
+                          void* betas, int Tp, int NL, int S, int T, int G, cudaStream_t st) {
+  const int L = (Tp + G - 1) / G;
+  const dim3 grid(blocks_for(NL, CHAIN_THREADS), (unsigned)G);
+#define BWD_SUB_ARGS                                                                    \
+  (const int32_t*)steps_next, (const int32_t*)lens, (const float*)cs_next,               \
+      (const float*)beta0, (const float*)A, (const float*)B, (float*)qbuf, (float*)betas, \
+      Tp, NL, S, T, G, L
+  fb_bwd_sub_kernel<K, true><<<grid, CHAIN_THREADS, 0, st>>>(BWD_SUB_ARGS);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  fb_bwd_sub_kernel<K, false><<<grid, CHAIN_THREADS, 0, st>>>(BWD_SUB_ARGS);
+#undef BWD_SUB_ARGS
+  return (int)cudaGetLastError();
+}
+
+template <int K>
 static int launch_prod(const void* sel, const void* tab, void* out, int Tp, int NL, int S,
                        cudaStream_t st) {
   constexpr int KP = K <= 1 ? 1 : K <= 2 ? 2 : K <= 4 ? 4 : 8;
@@ -538,10 +791,28 @@ int fb_fwd(const void* steps, const void* lens, const void* a0, const void* A, c
 #undef CALL_F
 }
 
+// B18: G sub-lanes a lane (fb_pallas.bwd_sublanes; G > 1 only at K <= 4),
+// two launches over a (lane block, sub-lane) grid; qbuf [G, K*K + 1, NL]
+// scratch where G > 1.
 int fb_bwd(const void* steps_next, const void* lens, const void* cs_next, const void* beta0,
-           const void* A, const void* B, void* betas, int Tp, int NL, int K, int S, int T,
-           void* stream) {
-  if (bad_dims(Tp, NL, K, S)) return (int)cudaErrorInvalidValue;
+           const void* A, const void* B, void* betas, void* qbuf, int Tp, int NL, int K, int S,
+           int T, int G, void* stream) {
+  if (bad_dims(Tp, NL, K, S) || G < 1 || G > SUB_LANES_MAX || G > Tp ||
+      (G > 1 && K > BWD_SUB_MAX_K))
+    return (int)cudaErrorInvalidValue;
+  if (G > 1) {
+#define CALL_BS(KK)                                                                       \
+  launch_bwd_sub<KK>(steps_next, lens, cs_next, beta0, A, B, qbuf, betas, Tp, NL, S, T, G, \
+                     (cudaStream_t)stream)
+    switch (K) {
+      case 1: return CALL_BS(1);
+      case 2: return CALL_BS(2);
+      case 3: return CALL_BS(3);
+      case 4: return CALL_BS(4);
+      default: return (int)cudaErrorInvalidValue;
+    }
+#undef CALL_BS
+  }
 #define CALL_B(KK)                                                                          \
   launch_bwd<KK, false>(steps_next, lens, cs_next, beta0, nullptr, nullptr, A, B, betas, Tp, \
                         NL, S, T, (cudaStream_t)stream)

@@ -19,18 +19,22 @@
 //
 // B7 oh_prod_kernel replaces cpgisland_tpu/ops/fb_onehot.py::
 // _oh_prod_kernel.  Per lane, the 2x2 (+, x) product of its pair-selected
-// step matrices, each step renormalized by the product's total.  Bound: it
-// reads 4 B per step and writes 16 B per lane, 0.27 GB at NL = 8192 lanes
-// of 8192 steps (0.080 ms at 3.35 TB/s); each lane is one dependent chain
-// of steps whose every step waits on four IEEE divisions, so like B4 it is
-// latency-bound well above that.  The design: one thread per lane (32 to a
-// block, so the warps spread over the SMs), the pair stream read a group of
-// steps ahead of the chain (as in B4), and every product, sum and division
-// an explicit round-to-nearest intrinsic in the plain version's order —
-// ((n00 + n01) + n10) + n11 for the total — so it equals the plain version
-// bit for bit.  (The TPU kernel renormalizes every 8 steps; the directions,
-// all that its consumers read, are the same.)
-//
+// step matrices, renormalized by the product's total.  Bound: it reads 4 B
+// per step and writes 16 B per lane, 0.27 GB at NL = 8192 lanes of 8192
+// steps (0.080 ms at 3.35 TB/s).  What bounded the first design was the
+// chain: one thread a lane walked 8192 dependent steps, each waiting on
+// four IEEE divisions, at 2-3 warps an SM (21x the bound).  The design:
+// B4's sub-lanes (fb_onehot.prod_sublanes: G = 16 sub-lanes of 512 steps
+// from 8 Ki-step lanes), each sub-lane's product renormalized every 8
+// steps by one reciprocal (the TPU kernel's cadence), then warp 0 of each
+// block composes its lanes' G products in order with the one-chain step
+// (prod_step).  Every product, sum and division is an explicit
+// round-to-nearest intrinsic in the plain version's order (the total
+// ((n00 + n01) + n10) + n11), so it equals fb_onehot.oh_prod_plain (in
+// G > 1, fb_onehot._prod_sublanes_plain) bit for bit.  With G = 1 it is
+// the one-chain product, the twin _xla_products_prob's operations; G > 1
+// differs from it in the last bits, and its consumers read directions.
+
 // B4 oh_fwdbwd_kernel replaces cpgisland_tpu/ops/fb_onehot.py::
 // _oh_fwdbwd_kernel.  Bound: it reads 8 B and writes 16 B per step and
 // lane, 1.61 GB at NL = 1024, Tp = 65,536 (0.48 ms at 3.35 TB/s).  What
@@ -127,21 +131,21 @@
 // the dense [K*K] rows.  Its sums run in another order than the plain
 // version's einsum, which agrees within a tolerance.
 //
-// B21 oh_prod_stacked_kernel, B24 oh_fwdbwd_stacked_kernel and B25 (the B5
-// kernels with M > 1) replace fb_onehot.py::_oh_prod_stacked_kernel,
+// B21 (oh_prod_kernel with M > 1), B24 oh_fwdbwd_stacked_kernel and B25
+// (the B5 kernels with M > 1) replace fb_onehot.py::_oh_prod_stacked_kernel,
 // _oh_fwdbwd_stacked_kernel and _oh_seq_stats_stacked_kernel: B7, B4 and B5
 // for M models over ONE shared pair stream (the members of a comparison, or
 // a family trained in lockstep).  On the TPU one program carries M members'
 // rows; here the member is one more grid dimension: one thread per (lane,
-// member) for B21, per (lane, direction, member) for B24, per (lane,
-// segment, member) for B25, each running exactly the single-model body on
+// sub-lane, member) for B21, per (lane, sub-lane, direction, member) for
+// B24, per (lane, segment, member) for B25, each running exactly the single-model body on
 // its member's table (in that block's shared memory, so M does not bound the
 // table space) and its member's slice of the member-major operands ([M, Tp,
 // 2, NL] streams, [M, 4, NL] products).  So a member's outputs equal its own
-// single-model launch bit for bit, and the launch is M times wider (B24 in
-// B4's sub-lanes, G the same for every member).  Bound: B21 and B24 read the shared pair
-// stream once and write M times the single-model outputs; B25 reads M times
-// B5's streams.
+// single-model launch bit for bit, and the launch is M times wider (B21 in
+// B7's sub-lanes and B24 in B4's, G the same for every member).  Bound:
+// B21 and B24 read the shared pair stream once and write M times the
+// single-model outputs; B25 reads M times B5's streams.
 
 // T2-T4, the pair-composition variants of B9's forward chain, replace the
 // benchmark-only kernels of tools/bench_compose.py (T1 is B9 itself).
@@ -443,8 +447,23 @@ __device__ __forceinline__ void split_bwd_chain(const int32_t* pn, const float* 
   }
 }
 
-// B7's product: from the identity, C <- C . T_t, each entry then over the
-// total ((n00 + n01) + n10) + n11, the twin's order (fb_onehot.py:162-167).
+// One step of B7's product: C <- C . m, each entry then over the total
+// ((n00 + n01) + n10) + n11, the twin's order (fb_onehot.py:162-167).  The
+// sub-lane form composes its sub-lanes' products with the same step.
+__device__ __forceinline__ void prod_step(float& c00, float& c01, float& c10, float& c11,
+                                          const float* m) {
+  const float n00 = __fadd_rn(__fmul_rn(c00, m[0]), __fmul_rn(c01, m[2]));
+  const float n01 = __fadd_rn(__fmul_rn(c00, m[1]), __fmul_rn(c01, m[3]));
+  const float n10 = __fadd_rn(__fmul_rn(c10, m[0]), __fmul_rn(c11, m[2]));
+  const float n11 = __fadd_rn(__fmul_rn(c10, m[1]), __fmul_rn(c11, m[3]));
+  const float tot = fmaxf(__fadd_rn(__fadd_rn(__fadd_rn(n00, n01), n10), n11), 1e-30f);
+  c00 = __fdiv_rn(n00, tot);
+  c01 = __fdiv_rn(n01, tot);
+  c10 = __fdiv_rn(n10, tot);
+  c11 = __fdiv_rn(n11, tot);
+}
+
+// B7's product in one chain: from the identity, prod_step over every step.
 // Writes C00, C01, C10, C11 at out[0], out[nl], out[2 nl], out[3 nl].
 __device__ __forceinline__ void prod_chain(const int32_t* p, const float* s_tab, float* out,
                                            int Tp, size_t nl, int nreal) {
@@ -454,20 +473,8 @@ __device__ __forceinline__ void prod_chain(const int32_t* p, const float* s_tab,
   for (int t0 = 0; t0 < Tp; t0 += LOOKAHEAD) {
     load_group(p, nl, t0 + LOOKAHEAD, 1, Tp, nreal, qn);
 #pragma unroll
-    for (int r = 0; r < LOOKAHEAD; ++r) {
-      if (t0 + r < Tp) {
-        const float* m = s_tab + 4 * q[r];
-        const float n00 = __fadd_rn(__fmul_rn(c00, m[0]), __fmul_rn(c01, m[2]));
-        const float n01 = __fadd_rn(__fmul_rn(c00, m[1]), __fmul_rn(c01, m[3]));
-        const float n10 = __fadd_rn(__fmul_rn(c10, m[0]), __fmul_rn(c11, m[2]));
-        const float n11 = __fadd_rn(__fmul_rn(c10, m[1]), __fmul_rn(c11, m[3]));
-        const float tot = fmaxf(__fadd_rn(__fadd_rn(__fadd_rn(n00, n01), n10), n11), 1e-30f);
-        c00 = __fdiv_rn(n00, tot);
-        c01 = __fdiv_rn(n01, tot);
-        c10 = __fdiv_rn(n10, tot);
-        c11 = __fdiv_rn(n11, tot);
-      }
-    }
+    for (int r = 0; r < LOOKAHEAD; ++r)
+      if (t0 + r < Tp) prod_step(c00, c01, c10, c11, s_tab + 4 * q[r]);
 #pragma unroll
     for (int r = 0; r < LOOKAHEAD; ++r) q[r] = qn[r];
   }
@@ -768,27 +775,65 @@ oh_fwdbwd_mat_kernel(const int32_t* __restrict__ pair, const int32_t* __restrict
 }
 
 // ---------------------------------------------------------------------------
-// B7 and B21: the per-lane transfer products (B21: of each member, blockIdx.y).
+// B7 and B21: the per-lane transfer products (B21: of each member, blockIdx.y;
+// a single-model launch is member 0 of 1).  Each lane runs as G sub-lanes of
+// L steps (fb_onehot.prod_sublanes), B4's layout: a block holds 32 lanes,
+// warp g their sub-lane g, so every pair load of a warp is one 128-byte row.
+// 1. each sub-lane's product of its steps from the identity (sub_prod, every
+//    step valid: a PAD pair selects the identity row), times 1 / max(total,
+//    1e-30) after every 8th step, the TPU kernel's cadence, so a step waits
+//    on no division;
+// 2. warp 0 composes its lanes' G products in order with prod_step (each
+//    composition over its total, so the output sums to 1 as the one-chain
+//    product's does) and writes them.
+// The product is associative, so the result's direction, all that its
+// consumers read, is the one chain's in exact arithmetic.  With G == 1 the
+// launch is prod_chain, one thread a lane, bit for bit.
 
-__global__ void __launch_bounds__(FB_THREADS)
-oh_prod_kernel(const int32_t* __restrict__ pair, const float* __restrict__ tab,
-               float* __restrict__ out, int Tp, int NL, int nreal) {
-  __shared__ float s_tab[MAX_TAB];
-  load_table(s_tab, tab, nreal);
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= NL) return;
-  prod_chain(pair + n, s_tab, out + n, Tp, (size_t)NL, nreal);
+__device__ __forceinline__ void prod_sublanes(const int32_t* __restrict__ pair,
+                                              const float* s_tab, float* __restrict__ out,
+                                              int Tp, int NL, int nreal, int G, int L,
+                                              float* s_msg) {
+  const int j = threadIdx.x % FB_THREADS;
+  const int g = threadIdx.x / FB_THREADS;
+  const int n = blockIdx.x * FB_THREADS + j;
+  const bool live = n < NL;
+  const size_t nl = (size_t)NL;
+  if (G == 1) {
+    if (live) prod_chain(pair + n, s_tab, out + n, Tp, nl, nreal);
+    return;
+  }
+  // Slot (k, c) of lane j: entry c of sub-lane k's product ([G][4][32]).
+#define MSG(k, c) s_msg[((k) * 4 + (c)) * FB_THREADS + j]
+  if (live) {
+    const int tb = min(g * L, Tp), te = min(tb + L, Tp);
+    float P[4];
+    sub_prod(pair + n, s_tab, tb, te, 0, Tp, Tp, nl, nreal, P);
+    for (int c = 0; c < 4; ++c) MSG(g, c) = P[c];
+  }
+  __syncthreads();
+  if (live && g == 0) {
+    float c00 = 1.0f, c01 = 0.0f, c10 = 0.0f, c11 = 1.0f;
+    for (int k = 0; k < G && k * L < Tp; ++k) {
+      const float P[4] = {MSG(k, 0), MSG(k, 1), MSG(k, 2), MSG(k, 3)};
+      prod_step(c00, c01, c10, c11, P);
+    }
+    out[n] = c00;
+    out[nl + n] = c01;
+    out[2 * nl + n] = c10;
+    out[3 * nl + n] = c11;
+  }
+#undef MSG
 }
 
-__global__ void __launch_bounds__(FB_THREADS)
-oh_prod_stacked_kernel(const int32_t* __restrict__ pair, const float* __restrict__ tab,
-                       float* __restrict__ out, int Tp, int NL, int nreal) {
+__global__ void __launch_bounds__(FB_THREADS * SUB_LANES_MAX)
+oh_prod_kernel(const int32_t* __restrict__ pair, const float* __restrict__ tab,
+               float* __restrict__ out, int Tp, int NL, int nreal, int G, int L) {
   __shared__ float s_tab[MAX_TAB];
+  extern __shared__ float s_msg[];  // [G][4][FB_THREADS] where G > 1, else none
   const int m = blockIdx.y;
   load_table(s_tab, tab + (size_t)m * (nreal + 1) * 4, nreal);
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= NL) return;
-  prod_chain(pair + n, s_tab, out + (size_t)m * 4 * NL + n, Tp, (size_t)NL, nreal);
+  prod_sublanes(pair, s_tab, out + (size_t)m * 4 * NL, Tp, NL, nreal, G, L, s_msg);
 }
 
 // ---------------------------------------------------------------------------
@@ -1333,22 +1378,27 @@ int oh_stats(const void* alphas, const void* betas, const void* pair, const void
                          Tt, (cudaStream_t)stream);
 }
 
-int oh_prod(const void* pair, const void* tab, void* out, int Tp, int NL, int nreal,
-            void* stream) {
-  if (bad_stream(Tp, NL, nreal)) return (int)cudaErrorInvalidValue;
-  const unsigned blocks = (unsigned)((NL + FB_THREADS - 1) / FB_THREADS);
-  oh_prod_kernel<<<blocks, FB_THREADS, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)pair, (const float*)tab, (float*)out, Tp, NL, nreal);
+// B7 / B21: G sub-lanes a lane (fb_onehot.prod_sublanes), member m on grid y.
+static int launch_prod(const void* pair, const void* tab, void* out, int Tp, int NL,
+                       int nreal, int G, int M, cudaStream_t st) {
+  if (bad_stream(Tp, NL, nreal) || M < 1 || M > 65535 || G < 1 || G > SUB_LANES_MAX || G > Tp)
+    return (int)cudaErrorInvalidValue;
+  const int L = (Tp + G - 1) / G;
+  const dim3 grid((unsigned)((NL + FB_THREADS - 1) / FB_THREADS), (unsigned)M);
+  const size_t msg_bytes = G > 1 ? (size_t)G * 4 * FB_THREADS * sizeof(float) : 0;
+  oh_prod_kernel<<<grid, (unsigned)(FB_THREADS * G), msg_bytes, st>>>(
+      (const int32_t*)pair, (const float*)tab, (float*)out, Tp, NL, nreal, G, L);
   return (int)cudaGetLastError();
 }
 
+int oh_prod(const void* pair, const void* tab, void* out, int Tp, int NL, int nreal, int G,
+            void* stream) {
+  return launch_prod(pair, tab, out, Tp, NL, nreal, G, 1, (cudaStream_t)stream);
+}
+
 int oh_prod_stacked(const void* pair, const void* tab, void* out, int Tp, int NL, int nreal,
-                    int M, void* stream) {
-  if (bad_stream(Tp, NL, nreal) || M < 1 || M > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((NL + FB_THREADS - 1) / FB_THREADS), (unsigned)M);
-  oh_prod_stacked_kernel<<<grid, FB_THREADS, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)pair, (const float*)tab, (float*)out, Tp, NL, nreal);
-  return (int)cudaGetLastError();
+                    int G, int M, void* stream) {
+  return launch_prod(pair, tab, out, Tp, NL, nreal, G, M, (cudaStream_t)stream);
 }
 
 // B4 / B24: G sub-lanes a lane (fb_onehot.sublanes), member m on grid y.

@@ -48,11 +48,11 @@ _SIGNATURES = {
     "oh_backpointers_stacked": ("viterbi_onehot", 6, ("bk", "nb", "nP", "M")),
     "oh_backpointers_stacked_scores": ("viterbi_onehot", 7, ("bk", "nb", "nP", "M")),
     "oh_backtrace_stacked": ("viterbi_onehot", 5, ("bk", "nb", "nP", "M")),
-    "oh_prod": ("fb_onehot", 3, ("Tp", "NL", "nreal")),
+    "oh_prod": ("fb_onehot", 3, ("Tp", "NL", "nreal", "G")),
     "oh_fwdbwd": ("fb_onehot", 8, ("Tp", "NL", "nreal", "T", "G")),
     "oh_fwdbwd_mat": ("fb_onehot", 6, ("Tp", "NL", "nreal", "T")),
     "oh_seq_stats": ("fb_onehot", 14, ("Tp", "NL", "S", "K", "Tt")),
-    "oh_prod_stacked": ("fb_onehot", 3, ("Tp", "NL", "nreal", "M")),
+    "oh_prod_stacked": ("fb_onehot", 3, ("Tp", "NL", "nreal", "G", "M")),
     "oh_fwdbwd_stacked": ("fb_onehot", 8, ("Tp", "NL", "nreal", "T", "G", "M")),
     "oh_fwd": ("fb_onehot", 5, ("Tp", "NL", "nreal")),
     "oh_bwd": ("fb_onehot", 6, ("Tp", "NL", "nreal", "T")),
@@ -71,7 +71,7 @@ _SIGNATURES = {
     "dense_backtrace": ("viterbi_dense", 3, ("bk", "nb")),
     "fb_fwd": ("fb_dense", 6, ("Tp", "NL", "K", "S")),
     "fb_prod": ("fb_dense", 3, ("Tp", "NL", "K", "S")),
-    "fb_bwd": ("fb_dense", 7, ("Tp", "NL", "K", "S", "T")),
+    "fb_bwd": ("fb_dense", 8, ("Tp", "NL", "K", "S", "T", "G")),
     "fb_bwd_conf": ("fb_dense", 9, ("Tp", "NL", "K", "S", "T")),
     "fb_stats": ("fb_dense", 9, ("Tp", "NL", "K", "S", "Tt")),
 }

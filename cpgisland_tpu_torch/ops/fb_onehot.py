@@ -13,11 +13,14 @@ one's — the per-pair table :func:`prob_pair_table`.
 - B7 :func:`oh_prod` (replaces ``_oh_prod_kernel``): each lane's 2x2
   (+, x) product of its pair-selected step matrices, renormalized by its
   own total — the lane transfer operators whose directions make the
-  whole-sequence boundary messages exact.  The plain version
-  :func:`oh_prod_plain` is the twin of ``_xla_products_prob`` (one
-  renormalizing division per step; the TPU kernel renormalizes every 8
-  steps, which changes only the internal scale).  The kernel equals it
-  bit for bit.
+  whole-sequence boundary messages exact.  Each lane runs as
+  :func:`prod_sublanes` sub-lanes whose products (renormalized every 8
+  steps, the TPU kernel's cadence) compose in order.  The plain version
+  :func:`oh_prod_plain` is, in one sub-lane, the twin of
+  ``_xla_products_prob`` (one renormalizing division per step) and, in
+  G > 1, the kernel's two phases op for op (:func:`_prod_sublanes_plain`),
+  whose directions equal the twin's in exact arithmetic.  The kernel
+  equals it bit for bit.
 - B4 :func:`oh_fwdbwd` (replaces ``_oh_fwdbwd_kernel``): the forward
   chain with deferred Rabiner scaling and the self-normalized backward
   chain, independent of each other, in one launch, each lane cut into
@@ -100,6 +103,11 @@ MAX_SYMBOLS = 16
 # by exact boundary messages (:func:`sublanes`).
 SUBLANE_T = 4096
 MAX_SUBLANES = 32
+# B7 / B21's sub-lanes (:func:`prod_sublanes`): lanes of PROD_SUBLANES_FROM
+# steps or more run as sub-lanes of PROD_SUBLANE_T steps (at most
+# MAX_SUBLANES), shorter lanes as one chain.
+PROD_SUBLANE_T = 512
+PROD_SUBLANES_FROM = 8192
 
 
 def prob_pair_table(params: HmmParams, gt: torch.Tensor) -> torch.Tensor:
@@ -148,14 +156,37 @@ def scatter_streams(x2: torch.Tensor, gt: torch.Tensor, esym2: torch.Tensor,
 # B7: the per-lane transfer products
 
 
+def prod_sublanes(Tp: int) -> int:
+    """G, the sub-lanes B7 and B21 cut a lane of Tp steps into: 1 below
+    :data:`PROD_SUBLANES_FROM` steps, else Tp // :data:`PROD_SUBLANE_T`, at
+    most :data:`MAX_SUBLANES`; each runs ceil(Tp / G) steps.  A function of
+    Tp alone, so the CPU and the card compute the same function.
+
+    Why these numbers: B7 writes no per-step stream, so its sub-lanes cost
+    no bytes, and shorter ones only spread the chain wider until the card
+    is full.  chip_smoke's sweep at the posterior's 8,192 lanes of 8,192
+    steps (H100): sub-lanes of 2 Ki / 1 Ki / 512 / 256 steps ran 0.244 /
+    0.177 / 0.153 / 0.156 ms against 1.730 in one chain; 512 (G = 16 on
+    the posterior and ``seq`` lanes of 8 Ki steps, 8,192-11,121 lanes x
+    16 threads) ties 256 with half the threads.  The CPU tests' lanes
+    (4-4.5 Ki steps) stay one chain, the twin's arithmetic bit for bit."""
+    if Tp < PROD_SUBLANES_FROM:
+        return 1
+    return max(1, min(Tp // PROD_SUBLANE_T, MAX_SUBLANES))
+
+
 def oh_prod_plain(pair2: torch.Tensor, tab_ext: torch.Tensor) -> torch.Tensor:
     """Plain version of B7 -> [4, NL] (rows C00, C01, C10, C11).
 
     pair2 [Tp, NL] int32, tab_ext [S*S + 1, 4] (identity last; PAD pairs
-    clamp onto it).  From the identity, each step takes C <- C . T_t, the
-    2x2 (+, x) product in the twin's operand order (each 2-term sum one
-    rounded addition), then divides every entry by max(((C00 + C01) + C10)
-    + C11, 1e-30)."""
+    clamp onto it).  In one sub-lane (:func:`prod_sublanes`): from the
+    identity, each step takes C <- C . T_t, the 2x2 (+, x) product in the
+    twin's operand order (each 2-term sum one rounded addition), then
+    divides every entry by max(((C00 + C01) + C10) + C11, 1e-30).  With
+    G > 1, :func:`_prod_sublanes_plain`."""
+    G = prod_sublanes(pair2.shape[0])
+    if G > 1:
+        return _prod_sublanes_plain(pair2, tab_ext[None], G)[0]
     Tp, NL = pair2.shape
     nreal = tab_ext.shape[0] - 1
     T = tab_ext[torch.clamp_max(pair2, nreal).long()].unbind(0)  # per-step [NL, 4]
@@ -173,9 +204,58 @@ def oh_prod_plain(pair2: torch.Tensor, tab_ext: torch.Tensor) -> torch.Tensor:
     return torch.stack([c00, c01, c10, c11])
 
 
+def _prod_sublanes_plain(pair2: torch.Tensor, tabs: torch.Tensor, G: int) -> torch.Tensor:
+    """B7 / B21's sub-lane function for M members -> [M, 4, NL]; tabs [M,
+    S*S + 1, 4].
+
+    Each lane's steps split into G sub-lanes [g L, min((g + 1) L, Tp)), L =
+    ceil(Tp / G), carried side by side as a [G, NL] axis, in the kernel's
+    two phases and its f32 operations in its order:
+    1. each sub-lane's product of its steps from the identity, C <- C . T
+       entry by entry, times 1 / max(((C00 + C01) + C10) + C11, 1e-30)
+       after every 8th step of the sub-lane;
+    2. from the identity, the sub-lanes' products composed in order, each
+       composition :func:`oh_prod_plain`'s step (its product, then every
+       entry over its total); an empty sub-lane (g L >= Tp) is skipped."""
+    Tp, NL = pair2.shape
+    M, nP = tabs.shape[0], tabs.shape[1]
+    L = -(-Tp // G)
+    dev = pair2.device
+    t = torch.arange(G, device=dev)[:, None] * L + torch.arange(L, device=dev)  # [G, L]
+    real = t < Tp
+    rows = torch.clamp_max(t, Tp - 1)
+    pc = torch.clamp_max(pair2, nP - 1).long()
+    one = torch.ones((M, G, NL), dtype=_F32, device=dev)
+    zero = torch.zeros_like(one)
+    c00, c01, c10, c11 = one, zero, zero, one
+    for k in range(L):
+        m0, m1, m2, m3 = tabs[:, pc[rows[:, k]]].unbind(-1)  # [M, G, NL] each
+        r = real[:, k][:, None]
+        c00, c01, c10, c11 = (
+            torch.where(r, c00 * m0 + c01 * m2, c00), torch.where(r, c00 * m1 + c01 * m3, c01),
+            torch.where(r, c10 * m0 + c11 * m2, c10), torch.where(r, c10 * m1 + c11 * m3, c11))
+        if k % 8 == 7:
+            inv = torch.reciprocal(torch.clamp_min(((c00 + c01) + c10) + c11, 1e-30))
+            c00, c01, c10, c11 = (torch.where(r, c * inv, c) for c in (c00, c01, c10, c11))
+    one, zero = one[:, 0], zero[:, 0]
+    C00, C01, C10, C11 = one, zero, zero, one
+    for g in range(G):
+        if g * L >= Tp:
+            break
+        p00, p01, p10, p11 = (c[:, g] for c in (c00, c01, c10, c11))
+        n00 = C00 * p00 + C01 * p10
+        n01 = C00 * p01 + C01 * p11
+        n10 = C10 * p00 + C11 * p10
+        n11 = C10 * p01 + C11 * p11
+        tot = torch.clamp_min(((n00 + n01) + n10) + n11, 1e-30)
+        C00, C01, C10, C11 = n00 / tot, n01 / tot, n10 / tot, n11 / tot
+    return torch.stack([C00, C01, C10, C11], dim=1)
+
+
 def oh_prod(pair2: torch.Tensor, tab_ext: torch.Tensor) -> torch.Tensor:
     """Kernel B7 (replaces the JAX package's ``_oh_prod_kernel``) -> [4, NL]
-    f32.  Arguments as :func:`oh_prod_plain`."""
+    f32, the lane in :func:`prod_sublanes` sub-lanes.  Arguments as
+    :func:`oh_prod_plain`."""
     _check_same_device(pair2, (tab_ext,))
     if pair2.dim() != 2 or 0 in pair2.shape:
         raise ValueError(f"pair2 must be a non-empty [Tp, NL], got {tuple(pair2.shape)}")
@@ -185,7 +265,8 @@ def oh_prod(pair2: torch.Tensor, tab_ext: torch.Tensor) -> torch.Tensor:
     if pair2.device.type == "cpu":
         return oh_prod_plain(pair2, tab_ext)
     out = torch.empty((4, NL), dtype=_F32, device=pair2.device)
-    _kernels.launch("oh_prod", pair2, tab_ext, out, Tp=Tp, NL=NL, nreal=tab_ext.shape[0] - 1)
+    _kernels.launch("oh_prod", pair2, tab_ext, out, Tp=Tp, NL=NL, nreal=tab_ext.shape[0] - 1,
+                    G=prod_sublanes(Tp))
     return out
 
 
@@ -1065,7 +1146,11 @@ def _check_stacked_tables(tabs: torch.Tensor) -> int:
 def oh_prod_stacked_plain(pair2: torch.Tensor, tabs: torch.Tensor) -> torch.Tensor:
     """Plain version of B21 -> [M, 4, NL]: :func:`oh_prod_plain` for every
     member's table ``tabs[m]`` ([M, S*S + 1, 4]), the member axis carried
-    through one step loop (per member the same operations)."""
+    through one step loop (per member the same operations; with G > 1,
+    through :func:`_prod_sublanes_plain`'s)."""
+    G = prod_sublanes(pair2.shape[0])
+    if G > 1:
+        return _prod_sublanes_plain(pair2, tabs, G)
     nreal = tabs.shape[1] - 1
     M, NL = tabs.shape[0], pair2.shape[1]
     pc = torch.clamp_max(pair2, nreal).long()
@@ -1096,7 +1181,7 @@ def oh_prod_stacked(pair2: torch.Tensor, tabs: torch.Tensor) -> torch.Tensor:
         return oh_prod_stacked_plain(pair2, tabs)
     out = torch.empty((M, 4, NL), dtype=_F32, device=pair2.device)
     _kernels.launch("oh_prod_stacked", pair2, tabs, out, Tp=Tp, NL=NL,
-                    nreal=tabs.shape[1] - 1, M=M)
+                    nreal=tabs.shape[1] - 1, G=prod_sublanes(Tp), M=M)
     return out
 
 

@@ -18,7 +18,10 @@ memory and the K-state vectors in registers:
   renormalized after every 8th step — the lane transfer operators of the
   whole-sequence boundary messages;
 - B18 :func:`fb_bwd` (replaces ``_bwd_kernel``): the backward on the
-  time-shifted o_{t+1}, c_{t+1};
+  time-shifted o_{t+1}, c_{t+1}; at K <= 4 each lane runs as
+  :func:`bwd_sublanes` sub-lanes joined by exact boundary messages that
+  carry the betas' true magnitude (power-of-two scaled transfer matrices,
+  :func:`_bwd_sublanes_plain`);
 - B19 :func:`fb_bwd_conf` (replaces ``_bwd_conf_kernel``): B18's chain
   emitting the island confidence instead of storing betas;
 - B20 :func:`fb_stats` (replaces ``_stats_kernel``): per-lane expected
@@ -28,10 +31,11 @@ Each wrapper takes its plain version for a CPU tensor, launches the kernel
 for a CUDA tensor, and raises otherwise.  The plain versions of B16-B19 do
 the kernels' float32 operations in the kernels' order — every K-term sum
 sequential from j = 0, every reciprocal an IEEE division — so kernel and
-plain version agree bit for bit; B20 sums over time in another order and
-agrees within a tolerance.  Against the JAX package (XLA:CPU contracts
-products into FMAs and reduces in its own order) they agree within the
-parity tests' tolerances.
+plain version agree bit for bit (B18 in one sub-lane is the sequential
+chain; in G > 1 it differs from that chain in the last bits); B20 sums
+over time in another order and agrees within a tolerance.  Against the
+JAX package (XLA:CPU contracts products into FMAs and reduces in its own
+order) they agree within the parity tests' tolerances.
 """
 
 from __future__ import annotations
@@ -39,12 +43,21 @@ from __future__ import annotations
 import torch
 
 from cpgisland_tpu_torch.models.hmm import HmmParams
-from cpgisland_tpu_torch.ops import _kernels
+from cpgisland_tpu_torch.ops import _kernels, fb_onehot
 from cpgisland_tpu_torch.ops.viterbi_pallas import _check
 
 MAX_STATES = 8  # the kernels' register-resident state vectors
 MAX_SYMBOLS = 16  # the kernels' shared-memory emission tables
 ROW_TILE = 8  # B17 renormalizes its product after every ROW_TILE steps
+# B18 runs in sub-lanes up to this K (the csrc BWD_SUB_MAX_K): a sub-lane's
+# K x K transfer matrix a thread costs K^3 operations a step, which at K = 8
+# is the instruction stream B17's first design drowned in.
+BWD_SUBLANE_MAX_K = 4
+# B18's sub-lanes (:func:`bwd_sublanes`): lanes of BWD_SUBLANES_FROM steps or
+# more run as sub-lanes of BWD_SUBLANE_T steps (at most
+# fb_onehot.MAX_SUBLANES), shorter lanes as one chain.
+BWD_SUBLANE_T = 1024
+BWD_SUBLANES_FROM = 8192
 
 _I32 = torch.int32
 _F32 = torch.float32
@@ -106,11 +119,45 @@ def fb_fwd_plain(steps2, lens2, a0, A, B) -> torch.Tensor:
     return out
 
 
+def bwd_sublanes(Tp: int, K: int) -> int:
+    """G, the sub-lanes B18 cuts a lane of Tp steps into: 1 at K >
+    :data:`BWD_SUBLANE_MAX_K` or below :data:`BWD_SUBLANES_FROM` steps, else
+    Tp // :data:`BWD_SUBLANE_T`, at most ``fb_onehot.MAX_SUBLANES``; each
+    runs ceil(Tp / G) steps.  A function of Tp and K alone, so the CPU and
+    the card compute the same function.
+
+    Why these numbers: chip_smoke's sweeps at K = 2 (H100).  At the
+    training batch's 1,024 lanes of 65,536 steps, sub-lanes of 8 Ki / 4 Ki
+    / 2 Ki steps ran 2.833 / 1.470 / 0.937 ms against 8.972 in one chain,
+    and shorter ones stop at G = 32.  At the posterior's 8,192 lanes of
+    8,192 steps, 4 Ki (G = 2) cost, 1.441 against 1.173 in one chain,
+    while 2 Ki / 1 Ki / 512 / 256 ran 0.905 / 0.704 / 0.701 / 0.683 ms.
+    So 1 Ki: G = 32 on the training batch, 8 on the posterior and ``seq``
+    lanes, within 3% of the fastest at both; B4's 4 Ki
+    (``fb_onehot.SUBLANE_T``) would cost on the 8 Ki-step lanes.  Lanes
+    below 8 Ki steps (the CPU tests' 4-4.5 Ki) stay one chain: no sweep
+    covers them."""
+    if K > BWD_SUBLANE_MAX_K or Tp < BWD_SUBLANES_FROM:
+        return 1
+    return max(1, min(Tp // BWD_SUBLANE_T, fb_onehot.MAX_SUBLANES))
+
+
 def fb_bwd_plain(steps_next, lens2, cs_next, beta0, A, B, T: int) -> torch.Tensor:
     """Plain version of B18 -> betas [Tp, K, NL]: from beta0 at t = Tp-1
     down to 0, beta_t[j] = sum_k A[j, k] * ((B[k, o_{t+1}] * (1 /
     c_{t+1})) * beta_{t+1}[k]) where t <= T-2 and t+1 < len, carried
-    elsewhere (steps_next[t] = o_{t+1}, cs_next[t] = c_{t+1})."""
+    elsewhere (steps_next[t] = o_{t+1}, cs_next[t] = c_{t+1}).  In one
+    sub-lane (:func:`bwd_sublanes`) the sequential chain; in G > 1,
+    :func:`_bwd_sublanes_plain`."""
+    G = bwd_sublanes(steps_next.shape[0], B.shape[0])
+    if G > 1:
+        return _bwd_sublanes_plain(steps_next, lens2, cs_next, beta0, A, B, T, G)
+    return _bwd_chain_plain(steps_next, lens2, cs_next, beta0, A, B, T)
+
+
+def _bwd_chain_plain(steps_next, lens2, cs_next, beta0, A, B, T: int) -> torch.Tensor:
+    """The sequential backward chain of :func:`fb_bwd_plain` (B18 in one
+    sub-lane, and B19's betas)."""
     Tp, NL = steps_next.shape
     K, S = B.shape
     out = torch.empty((Tp, K, NL), dtype=_F32, device=steps_next.device)
@@ -126,6 +173,94 @@ def fb_bwd_plain(steps_next, lens2, cs_next, beta0, A, B, T: int) -> torch.Tenso
     return out
 
 
+def _scale_exp(x: torch.Tensor) -> torch.Tensor:
+    """x's binary exponent as int32 (frexp's for a normal x; -126 for 0 and
+    subnormals), clamped to [-126, 126]: the kernel's scale_exp, read off
+    the float's bits."""
+    return torch.clamp(((x.view(torch.int32) >> 23) & 0xFF) - 126, -126, 126)
+
+
+def _pow2(e: torch.Tensor) -> torch.Tensor:
+    """2^e as float32 for int32 -126 <= e <= 126 (a normal float, built
+    from its bits as the kernel's pow2f)."""
+    return ((e + 127) << 23).view(_F32)
+
+
+def _bwd_sublanes_plain(steps_next, lens2, cs_next, beta0, A, B, T: int,
+                        G: int) -> torch.Tensor:
+    """B18's sub-lane function -> betas [Tp, K, NL].
+
+    Each lane's steps split into G sub-lanes [g L, min((g + 1) L, Tp)), L =
+    ceil(Tp / G), carried side by side as a [G, NL] axis, in the kernel's
+    three phases and its f32 operations in its order:
+    1. each sub-lane's transfer matrix Q (beta at its start = Q . beta at
+       its end) over its valid steps t < min(T - 1, len - 1), from the
+       identity, the chain's step applied to every column, t walking down;
+       after every 8th step counted from the sub-lane's padded end, Q times
+       2^-e with e the binary exponent of its total (row-major, in order),
+       e summed into an int E;
+    2. the messages, from beta0 at the lane's end, sub-lane by sub-lane
+       down: v <- Q . v (each row's terms in order), then v times 2^-e (e
+       of its sum) and the exponents summed; a sub-lane without a valid
+       step passes v on unchanged; a sub-lane's chain starts from (v
+       2^E1) 2^E2, E = E1 + E2, E1 = E / 2 truncated;
+    3. the chain of :func:`fb_bwd_plain` over every sub-lane from its
+       message.
+    Products by powers of two are exact, so the messages are, in exact
+    arithmetic, the sequential chain's betas with their Rabiner scale."""
+    Tp, NL = steps_next.shape
+    K, S = B.shape
+    L = -(-Tp // G)
+    dev = steps_next.device
+    t = torch.arange(G, device=dev)[:, None] * L + torch.arange(L, device=dev)  # [G, L]
+    real = t < Tp
+    rows = torch.clamp_max(t, Tp - 1)
+    hi = torch.clamp_max(lens2[0] - 1, T - 1)
+    ok = (t[:, :, None] < hi) & real[:, :, None]  # [G, L, NL]: the valid steps
+    o = torch.clamp(steps_next, 0, S - 1).long()
+    invc = torch.reciprocal(cs_next)
+    A5 = A[:, :, None, None, None]
+
+    def scale(k):  # B[:, o_{t+1}] * (1 / c_{t+1}) at step k of every sub-lane: [K, G, NL]
+        return B[:, o[rows[:, k]]] * invc[rows[:, k]]
+
+    # Phase 1: Q [K (row j), K (column), G, NL] and E [G, NL].
+    Q = torch.eye(K, dtype=_F32, device=dev)[:, :, None, None].expand(K, K, G, NL)
+    E = torch.zeros((G, NL), dtype=torch.int32, device=dev)
+    for s in range(L):
+        k = L - 1 - s
+        nQ = seq_sum(A5 * (scale(k)[:, None] * Q)[None], 1)
+        Q = torch.where(ok[:, k], nQ, Q)
+        if s % 8 == 7:
+            r = real[:, k][:, None]
+            e = _scale_exp(seq_sum(Q.reshape(K * K, G, NL), 0))
+            Q = torch.where(r, Q * _pow2(-e), Q)
+            E = torch.where(r, E + e, E)
+
+    # Phase 2: each sub-lane's entering beta.
+    has = ok.any(1)
+    v, Ev = beta0, torch.zeros(NL, dtype=torch.int32, device=dev)
+    starts = [None] * G
+    for g in range(G - 1, -1, -1):
+        e1 = torch.div(Ev, 2, rounding_mode="trunc")
+        e2 = Ev - e1
+        starts[g] = (v * _pow2(torch.clamp(e1, -126, 126))) * _pow2(torch.clamp(e2, -126, 126))
+        r = seq_sum(Q[:, :, g] * v[None], 1)
+        e = _scale_exp(seq_sum(r, 0))
+        v = torch.where(has[g], r * _pow2(-e), v)
+        Ev = torch.where(has[g], Ev + (E[g] + e), Ev)
+
+    # Phase 3: the chains, t = (g + 1) L - 1 down to g L.
+    b = torch.stack(starts, 1)  # [K, G, NL]
+    out = [None] * L
+    for k in range(L - 1, -1, -1):
+        nb = seq_sum(A[:, :, None, None] * (scale(k) * b)[None], 1)
+        b = torch.where(ok[:, k], nb, b)
+        out[k] = b
+    be = torch.stack(out, 0)  # [L, K, G, NL]
+    return be.permute(2, 0, 1, 3).reshape(G * L, K, NL)[:Tp].contiguous()
+
+
 def conf_from_streams(alphas, betas, lens2, mask) -> torch.Tensor:
     """B19's epilogue: conf_t = (sum_k g_k * mask_k) * (1 / max(sum_k g_k,
     1e-30)), g = alphas * betas, 0 past each lane's length -> [Tp, NL]."""
@@ -138,9 +273,9 @@ def conf_from_streams(alphas, betas, lens2, mask) -> torch.Tensor:
 
 def fb_bwd_conf_plain(steps_next, lens2, cs_next, beta0, alphas, mask, A, B,
                       T: int) -> torch.Tensor:
-    """Plain version of B19 -> conf [Tp, NL]: B18's betas through
-    :func:`conf_from_streams`."""
-    betas = fb_bwd_plain(steps_next, lens2, cs_next, beta0, A, B, T)
+    """Plain version of B19 -> conf [Tp, NL]: B18's sequential betas (B19
+    runs one thread a chain at every K) through :func:`conf_from_streams`."""
+    betas = _bwd_chain_plain(steps_next, lens2, cs_next, beta0, A, B, T)
     return conf_from_streams(alphas, betas, lens2, mask)
 
 
@@ -243,8 +378,9 @@ def fb_fwd(steps2, lens2, a0, A, B) -> torch.Tensor:
 
 
 def fb_bwd(steps_next, lens2, cs_next, beta0, A, B, T: int) -> torch.Tensor:
-    """Kernel B18 (replaces ``_bwd_kernel``) -> betas [Tp, K, NL] f32.
-    Arguments as :func:`fb_bwd_plain`."""
+    """Kernel B18 (replaces ``_bwd_kernel``) -> betas [Tp, K, NL] f32, the
+    lane in :func:`bwd_sublanes` sub-lanes.  Arguments as
+    :func:`fb_bwd_plain`."""
     _check_device(steps_next, (lens2, cs_next, beta0, A, B))
     Tp, NL = _check_stream("steps_next", steps_next)
     K, S = _check_tables(A, B)
@@ -253,9 +389,12 @@ def fb_bwd(steps_next, lens2, cs_next, beta0, A, B, T: int) -> torch.Tensor:
     _check("beta0", beta0, _F32, (K, NL))
     if steps_next.device.type == "cpu":
         return fb_bwd_plain(steps_next, lens2, cs_next, beta0, A, B, T)
-    betas = torch.empty((Tp, K, NL), dtype=_F32, device=steps_next.device)
-    _kernels.launch("fb_bwd", steps_next, lens2, cs_next, beta0, A, B, betas,
-                    Tp=Tp, NL=NL, K=K, S=S, T=T)
+    dev = steps_next.device
+    G = bwd_sublanes(Tp, K)
+    betas = torch.empty((Tp, K, NL), dtype=_F32, device=dev)
+    qbuf = torch.empty((G, K * K + 1, NL) if G > 1 else (1,), dtype=_F32, device=dev)
+    _kernels.launch("fb_bwd", steps_next, lens2, cs_next, beta0, A, B, betas, qbuf,
+                    Tp=Tp, NL=NL, K=K, S=S, T=T, G=G)
     return betas
 
 

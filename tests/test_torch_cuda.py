@@ -1257,3 +1257,125 @@ def test_compose_bench_on_the_card(cuda_device, capsys):
     assert line["engine"] == "cuda" and line["card"]
     assert all(v["gate_err"] < 1e-4 for v in line["variants"].values())
     assert {k: _kernels.launches[k] for k in line["calls"]} == line["calls"]
+
+
+# -- B7 / B21 and B18 in sub-lanes -------------------------------------------------
+
+
+def _prod_pairs(rng, T, NL, device):
+    """A pair stream with PAD pairs scattered, a PAD run and a PAD tail on
+    the last lane (a posterior span's short last lane)."""
+    pair = rng.integers(0, 16, size=(T, NL)).astype(np.int32)
+    pad = rng.random((T, NL)) < 0.05
+    pair[pad] = 16 + rng.integers(0, 4, size=int(pad.sum()))
+    pair[T // 2 : T // 2 + 70, 0] = 17
+    pair[T - T // 5 :, -1] = 16
+    return torch.from_numpy(pair).to(device)
+
+
+@pytest.mark.parametrize("sub", [None, 1 << 20, 7])
+@pytest.mark.parametrize("T", [8192, 9000])
+@pytest.mark.parametrize("NL", [33, 8192])
+def test_prod_sublanes_bit_equal(cuda_device, monkeypatch, NL, T, sub):
+    """B7 at the module's sub-lanes (G = 16 or 17 on lanes of 8 Ki steps or
+    more), in one sub-lane (G = 1) and in 32 short ones (the last of them
+    short or empty): bit-equal to its plain version."""
+    from cpgisland_tpu_torch.ops import fb_onehot as FB
+
+    if sub is not None:
+        monkeypatch.setattr(FB, "PROD_SUBLANE_T", sub)
+        monkeypatch.setattr(FB, "PROD_SUBLANES_FROM", 1)
+    rng = np.random.default_rng(NL + T + (sub or 0))
+    params = presets.durbin_cpg8(device=cuda_device)
+    pair = _prod_pairs(rng, T, NL, cuda_device)
+    tab = FB.prob_tab_ext(params, OH._groups(params))
+    assert (FB.prod_sublanes(T) == 1) == (sub == 1 << 20)
+    before = _kernels.launches["oh_prod"]
+    got = FB.oh_prod(pair, tab)
+    torch.cuda.synchronize()
+    assert _kernels.launches["oh_prod"] == before + 1
+    assert torch.equal(got, FB.oh_prod_plain(pair, tab))
+
+
+@pytest.mark.parametrize("sub", [None, 1 << 20, 300])
+@pytest.mark.parametrize("M", [2, 3])
+def test_prod_stacked_sublanes_bit_equal(cuda_device, monkeypatch, M, sub):
+    """B21 in sub-lanes and in one: equal to its plain version, and each
+    member to its own B7 launch, bit for bit."""
+    from cpgisland_tpu_torch.ops import fb_onehot as FB
+
+    _, _, prep, _, tabs = _stacked_batch(70, 9000, 4, M, cuda_device)
+    if sub is not None:
+        monkeypatch.setattr(FB, "PROD_SUBLANE_T", sub)
+    assert (FB.prod_sublanes(prep.pair2.shape[0]) == 1) == (sub == 1 << 20)
+    got = FB.oh_prod_stacked(prep.pair2, tabs)
+    assert torch.equal(got, FB.oh_prod_stacked_plain(prep.pair2, tabs))
+    for m in range(M):
+        assert torch.equal(got[m], FB.oh_prod(prep.pair2, tabs[m].contiguous()))
+
+
+def _dense_bwd_operands(rng, K, NL, T, device):
+    """A seeded K-state model over 4 symbols and the backward's inputs from
+    B16 on ragged chunks (an empty lane, a one-step lane, a short last
+    lane, PAD tails)."""
+    from cpgisland_tpu_torch.ops import fb_pallas as FP
+
+    A = torch.from_numpy(rng.dirichlet(np.ones(K), size=K).astype(np.float32)).to(device)
+    B = torch.from_numpy(rng.dirichlet(np.ones(4), size=K).astype(np.float32)).to(device)
+    steps = rng.integers(0, 4, size=(T, NL)).astype(np.int32)
+    lens = np.full((1, NL), T, np.int32)
+    lens[0, -1] = max(1, T // 3)
+    if NL > 3:
+        lens[0, 1:3] = [0, 1]
+        lens[0, 3:-1] = rng.integers(1, T + 1, size=NL - 4)
+    steps[np.arange(T)[:, None] >= lens] = 0
+    steps2, lens2 = (torch.from_numpy(x).to(device) for x in (steps, lens))
+    a0 = torch.from_numpy((rng.random((K, NL)) + 0.1).astype(np.float32)).to(device)
+    alphas = FP.fb_fwd(steps2, lens2, a0, A, B)
+    _, steps_next, cs_next = FP.backward_inputs(steps2, alphas)
+    beta0 = torch.from_numpy((rng.random((K, NL)) + 0.5).astype(np.float32)).to(device)
+    return steps_next, lens2, cs_next, beta0, A, B, alphas
+
+
+@pytest.mark.parametrize("NL,T,sub", [(33, 4099, 300), (1024, 65536, None), (1024, 65536, 4096),
+                                      (130, 9000, 1 << 20), (40, 3000, 93)])
+@pytest.mark.parametrize("K", [1, 2, 4])
+def test_fb_bwd_sublanes_bit_equal(cuda_device, monkeypatch, K, NL, T, sub):
+    """B18 at K <= 4 in sub-lanes (G = 13, 16 or 32) and in one (G = 1):
+    bit-equal to its plain version, ragged lanes included."""
+    from cpgisland_tpu_torch.ops import fb_pallas as FP
+
+    if sub is not None:
+        monkeypatch.setattr(FP, "BWD_SUBLANE_T", sub)
+        monkeypatch.setattr(FP, "BWD_SUBLANES_FROM", 1)
+    rng = np.random.default_rng(K * 100 + NL + T)
+    *args, _ = _dense_bwd_operands(rng, K, NL, T, cuda_device)
+    assert (FP.bwd_sublanes(T, K) == 1) == (sub == 1 << 20)
+    before = _kernels.launches["fb_bwd"]
+    got = FP.fb_bwd(*args, T - 3)
+    torch.cuda.synchronize()
+    assert _kernels.launches["fb_bwd"] == before + 1
+    assert torch.equal(got, FP.fb_bwd_plain(*args, T - 3))
+    assert bool(torch.isfinite(got).all())
+
+
+@pytest.mark.parametrize("K", [5, 8])
+def test_fb_bwd_wide_and_conf_stay_one_chain(cuda_device, monkeypatch, K):
+    """B18 at K >= 5 and B19 at every K keep one thread a chain: with the
+    sub-lane length lowered they still equal their (sequential) plain
+    versions bit for bit."""
+    from cpgisland_tpu_torch.ops import fb_pallas as FP
+
+    monkeypatch.setattr(FP, "BWD_SUBLANE_T", 300)
+    monkeypatch.setattr(FP, "BWD_SUBLANES_FROM", 1)
+    rng = np.random.default_rng(K)
+    for k in (K, 2):
+        *args, alphas = _dense_bwd_operands(rng, k, 70, 4099, cuda_device)
+        if k == K:
+            assert FP.bwd_sublanes(4099, k) == 1
+            assert torch.equal(FP.fb_bwd(*args, 4096), FP.fb_bwd_plain(*args, 4096))
+        mask = (torch.arange(k, device=cuda_device) < k // 2).float()
+        steps_next, lens2, cs_next, beta0, A, B = args
+        got = FP.fb_bwd_conf(steps_next, lens2, cs_next, beta0, alphas, mask, A, B, 4096)
+        assert torch.equal(got, FP.fb_bwd_conf_plain(steps_next, lens2, cs_next, beta0, alphas,
+                                                     mask, A, B, 4096))
