@@ -11,7 +11,7 @@ JSON line each:
 
 1. card: name and power limit, kernel build time, and (its own line) the
    ptxas registers and spills of the kernels redesigned (B4, B24, B17, B7
-   / B21 and B18 with its sub-lane kernel);
+   / B21, B18 and B16 with their sub-lane kernels, and B5's part kernel);
 2. kernels: B1-B3 at full size (bk=4096, nb=16384: 64 Mi steps, PAD runs
    and record resets in the pair stream), B4-B5 at NL=1024 lanes x
    Tp=65,536 steps (ragged lengths, a short last lane, PAD tails), and B7
@@ -25,7 +25,15 @@ JSON line each:
    difference from G = 1); B7 likewise at its default sub-lanes
    (``fb_onehot.prod_sublanes``) and in one sub-lane, each bit-equal to
    its plain version, and timed at 2 Ki, 1 Ki, 512 and 256-step
-   sub-lanes;
+   sub-lanes; B5 also at the seq geometry (the posterior lanes' B4
+   streams, random entering messages, every lane's t == 0 pair but lane
+   0's) and at the genome's own shapes (1,390 training chunks, 11,121 seq
+   lanes), at each of the four at its segment rule
+   (``fb_onehot.stats_segment_t``), two launches bit-equal, and in
+   segments of 128 to 4 Ki steps and the layout's old t-tile (the sweep:
+   the part and the reduce kernel timed apart by torch.profiler, the
+   whole call by CUDA events, blocks, blocks an SM and waves, agreement
+   with the plain version);
 3. main path, decode: ``pipeline.decode_file`` on a 64 Mi-base record plus
    256 scaffolds, clean then compat, with per-phase wall seconds and the
    launch counts of that run (B1-B3 each > 0);
@@ -83,7 +91,11 @@ JSON line each:
    1e-3 — with median time, bound and plain-version time; B18 also on the
    posterior lanes, and at both geometries in one sub-lane (bit-equal to
    its plain version) and, at K = 2, in 256-step and 1, 2, 4 and 8 Ki
-   sub-lanes (``fb_pallas.BWD_SUBLANE_T``: timed);
+   sub-lanes (``fb_pallas.BWD_SUBLANE_T``: timed); B16 likewise at both
+   geometries in one sub-lane (bit-equal to its plain version) and, at K
+   = 2, in sub-lanes of 256 to 4 Ki steps (``fb_pallas.FWD_SUBLANE_T``:
+   timed, each one's largest relative difference from G = 1), its row
+   carrying ``sublanes``;
 14. dense train: ``pipeline.train_file`` with two_state, compat then clean,
    5 iterations each (B16, B18 and B20 exactly 5 per mode, B4 and B5
    never; EM Msym/s, per-phase seconds, logliks non-decreasing), then the
@@ -231,7 +243,7 @@ from cpgisland_tpu_torch.ops import loglik as LL
 from cpgisland_tpu_torch.ops import viterbi_onehot as OH
 from cpgisland_tpu_torch.ops import viterbi_pallas as VP
 from cpgisland_tpu_torch.ops.islands_device import DEFAULT_CAP, call_islands_device
-from cpgisland_tpu_torch.ops.prepared import prepare_chunked, prepare_seq
+from cpgisland_tpu_torch.ops.prepared import chunked_Tt, prepare_chunked, prepare_seq
 from cpgisland_tpu_torch.parallel.decode import viterbi_sharded, viterbi_sharded_spans
 from cpgisland_tpu_torch.family.stacked import stack_groups
 from cpgisland_tpu_torch.parallel.posterior import posterior_sharded, resolve_fb_engine
@@ -242,6 +254,9 @@ from cpgisland_tpu_torch.utils import chunking, codec
 
 BK, NB = 4096, 16384  # the default block; 64 Mi steps
 FB_NL, FB_TP = 1024, chunking.TRAIN_CHUNK  # B4/B5: 1024 chunks of 65,536 steps
+# The genome's training batch (clean: 1,390 chunks of 65,536) and its seq
+# layout (11,121 lanes of 8,192 steps): B5's sweep runs at these too.
+GENOME_CHUNKS, GENOME_SEQ_LANES = 1390, 11121
 POST_NL, POST_LANE_T = 8192, fb_seq.DEFAULT_LANE_T  # B7 (and B4): a 64 Mi span
 BIG_RECORD = 64 << 20
 BIG_LEAD_N = 10_000  # the big record opens with an N run, as assembled chromosomes do
@@ -256,9 +271,16 @@ SWEEP_BWD_SUBLANE_T = (256, 1024, 2048, 4096, 8192)
 # B7's sub-lane lengths (fb_onehot.PROD_SUBLANE_T) timed at the posterior
 # geometry beside one sub-lane.
 SWEEP_PROD_SUBLANE_T = (2048, 1024, 512, 256)
+# B16's (fb_pallas.FWD_SUBLANE_T), at K <= 4 at both of its geometries.
+SWEEP_FWD_SUBLANE_T = (256, 512, 1024, 2048, 4096)
+# B5's segment lengths (fb_onehot.STATS_SEGMENT_T) timed at the training and
+# the seq geometry, beside the layout's old t-tile segments.
+SWEEP_STATS_SEGMENT_T = (128, 256, 512, 1024, 2048, 4096)
 # The redesigned kernels whose ptxas registers and spills are printed.
 REDESIGNED = ("oh_fwdbwd_kernel", "oh_fwdbwd_stacked_kernel", "fb_prod_kernel",
-              "oh_prod_kernel", "fb_bwd_kernel", "fb_bwd_sub_kernel")
+              "oh_prod_kernel", "fb_bwd_kernel", "fb_bwd_sub_kernel", "fb_fwd_kernel",
+              "fb_fwd_sub_kernel", "oh_seq_stats_part_kernel")
+H100_SMS, SMEM_PER_SM, SMEM_PER_BLOCK_RESERVED = 132, 228 * 1024, 1024
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 
@@ -449,6 +471,18 @@ def bwd_sublane_length(st: int):
     return patched(FP, BWD_SUBLANE_T=st)
 
 
+def fwd_sublane_length(st: int):
+    """B16 at K <= 4 with sub-lanes of ``st`` steps
+    (``fb_pallas.FWD_SUBLANE_T``; lanes of 8 Ki steps or more); ``st`` =
+    the lane length gives one."""
+    return patched(FP, FWD_SUBLANE_T=st)
+
+
+def stats_segment_length(st: int):
+    """B5 / B25 with segments of ``st`` steps (``fb_onehot.STATS_SEGMENT_T``)."""
+    return patched(FB, STATS_SEGMENT_T=st)
+
+
 def prod_sublane_length(st: int):
     """B7 / B21 with sub-lanes of ``st`` steps (``fb_onehot.PROD_SUBLANE_T``;
     lanes of 8 Ki steps or more); ``st`` = the lane length gives one."""
@@ -497,6 +531,96 @@ def prod_sweep(pair2, tab) -> dict:
                 "max_rel_vs_g1": max_rel_diff(red, red1)}
     return {"g1_bit_equal": g1_equal, "g1_plain_ms": g1_plain_ms, "g1_ms": g1_ms,
             "sweep": sweep}
+
+
+def fwd_sweep(args, K: int) -> dict:
+    """B16 on ``args`` in one sub-lane (G = 1: held bit for bit against its
+    plain version, timed) and, at K <= 4, at each SWEEP_FWD_SUBLANE_T
+    (timed, with the largest relative difference from G = 1)."""
+    Tp = args[0].shape[0]
+    with fwd_sublane_length(Tp):
+        al1 = FP.fb_fwd(*args)
+        al_p, g1_plain_ms = timed_once(lambda: FP.fb_fwd_plain(*args))
+        g1_equal = torch.equal(al1, al_p)
+        del al_p
+        g1_ms = time_ms(lambda: FP.fb_fwd(*args), runs=10)
+    sweep = {}
+    for st in SWEEP_FWD_SUBLANE_T if K <= FP.BWD_SUBLANE_MAX_K else ():
+        with fwd_sublane_length(st):
+            al = FP.fb_fwd(*args)
+            sweep[str(st)] = {
+                "G": FP.fwd_sublanes(Tp, K), "ms": time_ms(lambda: FP.fb_fwd(*args), runs=10),
+                "max_rel_vs_g1": max_rel_diff(al, al1)}
+            del al
+    return {"g1_bit_equal": g1_equal, "g1_plain_ms": g1_plain_ms, "g1_ms": g1_ms,
+            "sweep": sweep}
+
+
+def kernel_split_ms(fn, names, runs: int = 10) -> dict:
+    """Device ms a call of ``fn`` spends in the kernels whose names contain
+    each of ``names`` (torch.profiler over ``runs`` warm calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    out = {n: None for n in names}  # None: the profiler recorded no such kernel
+    for key, us, _ in device_rows(prof):
+        for n in names:
+            if n in key:
+                out[n] = (out[n] or 0.0) + us / 1e3 / runs
+    return out
+
+
+def stats_occupancy(Tp: int, NL: int, S: int) -> dict:
+    """B5's launch at this shape: blocks of the part kernel, the blocks an
+    SM holds as its shared memory (the accumulator columns plus the static
+    tables) and its registers allow, from ptxas's report, and the waves
+    over the card's SMs."""
+    spb = FB.stats_segments_per_block(S)
+    reports = list(ptxas_of(("oh_seq_stats_part_kernel",)).values())
+    if not reports:  # the kernels were built by an earlier process
+        return {"threads": 32 * spb, "blocks": -(-NL // 32) * FB._stats_part_rows(Tp, NL, S)}
+    static = int(reports[0].split(" bytes smem")[0].rsplit(" ", 1)[-1])
+    regs = int(reports[0].split(" registers")[0].rsplit(" ", 1)[-1])
+    smem = (4 * S * S + 2 * S + 1) * 32 * spb * 4 + static
+    warp_regs = -(-regs * 32 // 256) * 256  # registers go to a warp 256 at a time
+    per_sm = min(SMEM_PER_SM // (smem + SMEM_PER_BLOCK_RESERVED), 2048 // (32 * spb), 32,
+                 65536 // (warp_regs * spb))
+    blocks = -(-NL // 32) * FB._stats_part_rows(Tp, NL, S)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {"threads": 32 * spb, "smem_bytes": smem, "registers": regs, "blocks": blocks,
+            "blocks_per_sm": per_sm,
+            "waves": blocks / (sms * per_sm), "sms": sms}
+
+
+def stats_sweep(args, want, old_Tt: int) -> dict:
+    """B5 on ``args`` at each SWEEP_STATS_SEGMENT_T and at the layout's old
+    segment ``old_Tt``: the part and the reduce kernel timed apart
+    (torch.profiler), the whole call (CUDA events), the launch geometry,
+    and agreement with the plain version's ``want`` (rtol 1e-5 / atol
+    1e-3); at the default segment two launches must give the same bits."""
+    Tp, NL = args[2].shape
+    S = args[6].shape[0]
+    out = {}
+    for st in sorted(set(SWEEP_STATS_SEGMENT_T) | {old_Tt}):
+        with stats_segment_length(st):
+            got = FB.oh_seq_stats(*args)
+            split = kernel_split_ms(lambda: FB.oh_seq_stats(*args),
+                                    ("oh_seq_stats_part", "oh_seq_stats_reduce"))
+            out[str(st)] = {
+                "ms": time_ms(lambda: FB.oh_seq_stats(*args), runs=10),
+                "part_ms": split["oh_seq_stats_part"], "reduce_ms": split["oh_seq_stats_reduce"],
+                "agrees": all(torch.allclose(g, w, rtol=1e-5, atol=1e-3)
+                              for g, w in zip(got, want)),
+                **stats_occupancy(Tp, NL, S)}
+    first, again = FB.oh_seq_stats(*args), FB.oh_seq_stats(*args)
+    return {"segment_t": FB.stats_segment_t(Tp, NL), "old_Tt": old_Tt,
+            "two_launches_equal": all(torch.equal(a, b) for a, b in zip(first, again)),
+            "sweep": out}
 
 
 def bwd_sweep(args, K: int) -> dict:
@@ -645,16 +769,57 @@ def kernel_row(name, agree, err, kernel_fn, plain_ms, n_bytes, n_ops, steps, **e
     return row
 
 
-def ragged_chunks(rng: np.random.Generator, S: int):
-    """FB_NL chunks of FB_TP symbols, a quarter of them cut short and the
+def ragged_chunks(rng: np.random.Generator, S: int, NL: int = FB_NL):
+    """NL chunks of FB_TP symbols, a quarter of them cut short and the
     last one to a fifth, PAD past each length."""
-    chunks = rng.integers(0, S, size=(FB_NL, FB_TP)).astype(np.uint8)
-    lengths = np.full(FB_NL, FB_TP, np.int32)
+    chunks = rng.integers(0, S, size=(NL, FB_TP)).astype(np.uint8)
+    lengths = np.full(NL, FB_TP, np.int32)
     lengths[-1] = FB_TP // 5
-    ragged = rng.random(FB_NL) < 0.25
+    ragged = rng.random(NL) < 0.25
     lengths[:-1][ragged[:-1]] = rng.integers(1, FB_TP, size=int(ragged[:-1].sum()))
     chunks[np.arange(FB_TP)[None, :] >= lengths[:, None]] = S
     return chunks, lengths
+
+
+def seq_stats_main_shapes(params, dev) -> None:
+    """B5's rows and segment sweeps at the main path's own shapes: the
+    genome's training batch (GENOME_CHUNKS ragged chunks of FB_TP steps,
+    zero enters) and its ``seq`` layout (GENOME_SEQ_LANES lanes of
+    POST_LANE_T steps, random enters, every lane's t == 0 pair but lane
+    0's), on B4's streams; a generator of its own, so the genome's draw
+    is unchanged."""
+    own = np.random.default_rng(6)
+    S, K = params.n_symbols, params.n_states
+    gt = OH._groups(params)
+    tab = FB.prob_tab_ext(params, gt)
+    B_red, gt32 = FB.reduced_emissions(params, gt), gt.to(torch.int32).contiguous()
+    chunks, lengths = ragged_chunks(own, S, GENOME_CHUNKS)
+    prep = prepare_chunked(S, torch.from_numpy(chunks).to(dev),
+                           torch.from_numpy(lengths).to(dev), t_tile=fb_chunked.DEFAULT_T_TILE)
+    _, a0_raw, beta0, _ = fb_chunked._batch_lane_setup(params, prep)
+    a0 = torch.gather(a0_raw.T, 1, gt[prep.esym2[0].long()]).T.contiguous()
+    b0 = torch.gather(beta0.T, 1, gt[prep.esym2[-1].long()]).T.contiguous()
+    al, be = FB.oh_fwdbwd(prep.pair2, prep.pairn2, prep.lens2, a0, b0, tab, FB_TP)
+    NL = GENOME_CHUNKS
+    zeros = lambda rows: torch.zeros((rows, NL), dtype=torch.float32, device=dev)  # noqa: E731
+    seq_stats_row((al, be, prep.pair2, prep.lens2, tab, B_red, gt32, zeros(K), zeros(2),
+                   zeros(1)), int(np.minimum(lengths, FB_TP).sum()), prep.Tt,
+                  geometry=f"train, {NL} chunks")
+    del al, be, prep, chunks
+    NL = GENOME_SEQ_LANES
+    obs = torch.from_numpy(own.integers(0, S, size=NL * POST_LANE_T).astype(np.uint8)).to(dev)
+    prep = prepare_seq(S, obs, NL * POST_LANE_T - POST_LANE_T // 3, lane_T=POST_LANE_T)
+    lens2 = prep.lane_lens[None, :].contiguous()
+    ent = lambda rows: torch.from_numpy(  # noqa: E731
+        own.random((rows, NL)).astype(np.float32) + 0.01).to(dev)
+    al, be = FB.oh_fwdbwd(prep.pair2, prep.pairn2, lens2, ent(2), ent(2), tab, POST_LANE_T)
+    pair0 = torch.ones((1, NL), dtype=torch.float32, device=dev)
+    pair0[0, 0] = 0.0
+    seq_stats_row((al, be, prep.pair2, lens2, tab, B_red, gt32, ent(K), ent(2), pair0),
+                  int(prep.lane_lens.sum()), chunked_Tt(POST_LANE_T, fb_chunked.DEFAULT_T_TILE),
+                  geometry=f"seq lanes, {NL}")
+    del al, be, prep, obs
+    torch.cuda.empty_cache()
 
 
 def fb_kernel_phase(rng: np.random.Generator, params, dev) -> dict:
@@ -695,20 +860,33 @@ def fb_kernel_phase(rng: np.random.Generator, params, dev) -> dict:
     zeros = lambda rows: torch.zeros((rows, NL), dtype=torch.float32, device=dev)
     st_args = (al_k, be_k, prep.pair2, prep.lens2, tab, B_red,
                gt.to(torch.int32).contiguous(), zeros(K), zeros(2), zeros(1))
-    got = FB.oh_seq_stats(*st_args, prep.Tt)
+    valid = int(np.minimum(lengths, Tp).sum())  # B5 reads valid steps only
+    results["oh_seq_stats"] = seq_stats_row(st_args, valid, prep.Tt, geometry="train")
+    return results
+
+
+def seq_stats_row(st_args, valid: int, old_Tt: int, **extra) -> dict:
+    """B5 on ``st_args`` held within rtol 1e-5 / atol 1e-3 of its plain
+    version, timed, with its segment sweep (:func:`stats_sweep`); raises on
+    a disagreement."""
+    K, NL = st_args[7].shape
+    S = st_args[6].shape[0]
+    got = FB.oh_seq_stats(*st_args)
     want, st_plain_ms = timed_once(lambda: FB.oh_seq_stats_plain(*st_args))
     agree = all(torch.allclose(g, w, rtol=1e-5, atol=1e-3) for g, w in zip(got, want))
     err = max(max_abs_err(g, w) for g, w in zip(got, want))
+    sweep = stats_sweep(st_args, want, old_Tt)
     del want
-    valid = int(np.minimum(lengths, Tp).sum())  # B5 reads valid steps only
-    results["oh_seq_stats"] = kernel_row(
-        "oh_seq_stats", agree, err, lambda: FB.oh_seq_stats(*st_args, prep.Tt), st_plain_ms,
+    row = kernel_row(
+        "oh_seq_stats", agree, err, lambda: FB.oh_seq_stats(*st_args), st_plain_ms,
         n_bytes=20 * valid + 4 * NL + (K * K + 2 * S + 1) * NL * 4,
-        n_ops=40 * valid, steps=valid, tolerance="rtol 1e-5, atol 1e-3",
+        n_ops=40 * valid, steps=valid, tolerance="rtol 1e-5, atol 1e-3", **sweep, **extra,
     )
-    if not agree:
-        raise SystemExit("chip_smoke: oh_seq_stats disagrees with its plain version")
-    return results
+    if not (agree and sweep["two_launches_equal"]
+            and all(v["agrees"] for v in sweep["sweep"].values())):
+        raise SystemExit(f"chip_smoke: oh_seq_stats disagrees with its plain version "
+                         f"({extra}) or between two launches")
+    return row
 
 
 def post_kernel_phase(rng: np.random.Generator, params, dev) -> dict:
@@ -759,6 +937,19 @@ def post_kernel_phase(rng: np.random.Generator, params, dev) -> dict:
     if not (equal and sweep["g1_bit_equal"]):
         raise SystemExit("chip_smoke: oh_fwdbwd disagrees with its plain version at the "
                          "posterior geometry")
+    # B5 at the seq geometry on those streams: random entering messages, the
+    # pair0 mask of the whole-sequence caller (every lane but lane 0).
+    own = np.random.default_rng(5)  # ``rng`` reaches the genome unchanged
+    K = params.n_states
+    gt = OH._groups(params)
+    ent = lambda rows: torch.from_numpy(  # noqa: E731
+        own.random((rows, NL)).astype(np.float32) + 0.01).to(dev)
+    pair0 = torch.ones((1, NL), dtype=torch.float32, device=dev)
+    pair0[0, 0] = 0.0
+    st_args = (al_k, be_k, prep.pair2, lens2, tab, FB.reduced_emissions(params, gt),
+               gt.to(torch.int32).contiguous(), ent(K), ent(2), pair0)
+    seq_stats_row(st_args, int(prep.lane_lens.sum()),
+                  chunked_Tt(POST_LANE_T, fb_chunked.DEFAULT_T_TILE), geometry="seq lanes")
     return results
 
 
@@ -968,7 +1159,7 @@ def parity_phase(rng: np.random.Generator, params, big: np.ndarray, tmp: str, de
     fit_k = baum_welch.fit(params, chunked, num_iters=3, convergence=0.0)
     kernels = (FB.oh_fwdbwd, FB.oh_seq_stats)
     FB.oh_fwdbwd = FB.oh_fwdbwd_plain
-    FB.oh_seq_stats = lambda *args: FB.oh_seq_stats_plain(*args[:-1])  # drops Tt
+    FB.oh_seq_stats = FB.oh_seq_stats_plain
     try:
         fit_p = baum_welch.fit(params, chunked, num_iters=3, convergence=0.0)
     finally:
@@ -1445,13 +1636,17 @@ def dense_fb_kernel_phase(rng: np.random.Generator, dev) -> dict:
         args = (prep.steps2, prep.lens2, a0, A, B)
         al = FP.fb_fwd(*args)
         al_p, plain_ms = timed_once(lambda: FP.fb_fwd_plain(*args))
+        sweep = fwd_sweep(args, K)
         keep["fb_fwd"] = _agree_row(
             "fb_fwd", [al], [al_p], lambda: FP.fb_fwd(*args), plain_ms,
             # steps read, alphas written; K^2 products, K(K-1) sums, 2K scalings,
             # the row sum and its reciprocal a valid step
             4 * n + 4 * K * n + 4 * NL + 4 * K * NL + tab_b, (2 * K * K + 2 * K) * valid, n,
-            K, **geo)
+            K, sublanes=FP.fwd_sublanes(Tp, K), **sweep, **geo)
         del al_p
+        if not sweep["g1_bit_equal"]:
+            raise SystemExit(f"chip_smoke: fb_fwd (K={K}) in one sub-lane disagrees with its "
+                             "plain version")
         _, steps_next, cs_next = FP.backward_inputs(prep.steps2, al)
         args = (steps_next, prep.lens2, cs_next, beta0, A, B, FB_TP)
         be = FP.fb_bwd(*args)
@@ -1498,10 +1693,15 @@ def dense_fb_kernel_phase(rng: np.random.Generator, dev) -> dict:
         args = (prep.steps2, lens2, rand(), A, B)
         al = FP.fb_fwd(*args)
         al_p, plain_ms = timed_once(lambda: FP.fb_fwd_plain(*args))
+        sweep = fwd_sweep(args, K)
         _agree_row("fb_fwd", [al], [al_p], lambda: FP.fb_fwd(*args), plain_ms,
                    4 * n + 4 * K * n + 4 * NL + 4 * K * NL + tab_b,
-                   (2 * K * K + 2 * K) * real, n, K, **geo)
+                   (2 * K * K + 2 * K) * real, n, K, sublanes=FP.fwd_sublanes(Tp, K), **sweep,
+                   **geo)
         del al_p
+        if not sweep["g1_bit_equal"]:
+            raise SystemExit(f"chip_smoke: fb_fwd (K={K}, posterior span) in one sub-lane "
+                             "disagrees with its plain version")
         _, steps_next, cs_next = FP.backward_inputs(prep.steps2, al)
         # B18 on the posterior lanes (G = 8 at K <= 4; the sweep times G = 1,
         # 2, 4 and 32 too).  Its entering betas come from a generator of their
@@ -1827,7 +2027,7 @@ def stacked_kernel_phase(rng: np.random.Generator, gen: torch.Generator, dev) ->
             zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=dev)  # noqa: E731
             st_args = (al, be, train.pair2, train.lens2, tabs, B_reds, gts32, zeros(M, K, NL),
                        zeros(M, 2, NL), zeros(1, NL))
-            got = FB.oh_seq_stats_stacked(*st_args, train.Tt)
+            got = FB.oh_seq_stats_stacked(*st_args)
             # At S = 16 the plain version's [Tp, K, lanes] intermediates of the
             # whole batch outgrow the card: it is held on the first 128
             # lanes there (every lane's counts are its own).
@@ -1842,15 +2042,15 @@ def stacked_kernel_phase(rng: np.random.Generator, gen: torch.Generator, dev) ->
             for m in range(M):
                 single = FB.oh_seq_stats(al[m], be[m], train.pair2, train.lens2, one(m),
                                          B_reds[m], gts32[m], zeros(K, NL), zeros(2, NL),
-                                         zeros(1, NL), train.Tt)
+                                         zeros(1, NL))
                 per = per and all(torch.equal(a, b[m]) for a, b in zip(single, got))
             single_ms = time_ms(lambda: FB.oh_seq_stats(
                 al[0], be[0], train.pair2, train.lens2, one(0), B_reds[0], gts32[0],
-                zeros(K, NL), zeros(2, NL), zeros(1, NL), train.Tt), runs=10)
+                zeros(K, NL), zeros(2, NL), zeros(1, NL)), runs=10)
             valid = int(np.minimum(lengths, Tp).sum())  # B25 reads valid steps only
             st_row = _stacked_row(
                 "oh_seq_stats_stacked", S, M, "train", got_sub, want, per,
-                lambda: FB.oh_seq_stats_stacked(*st_args, train.Tt), plain_ms, single_ms,
+                lambda: FB.oh_seq_stats_stacked(*st_args), plain_ms, single_ms,
                 # per member alphas + betas at the valid steps; the pair once
                 M * (16 * valid + (K * K + 2 * S + 1) * NL * 4) + 4 * valid + 4 * NL,
                 M * 40 * valid, valid, tol=(1e-5, 1e-3), plain_lanes=lanes)
@@ -3388,6 +3588,7 @@ def main(argv=None) -> int:
     results = kernel_phase(rng, params, dev)
     results |= fb_kernel_phase(rng, params, dev)
     results |= post_kernel_phase(rng, params, dev)
+    seq_stats_main_shapes(params, dev)
     results |= dense_kernel_phase(rng, dev)
     results |= dense_fb_kernel_phase(rng, dev)
     gen = torch.Generator().manual_seed(args.seed)

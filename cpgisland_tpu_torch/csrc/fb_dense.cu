@@ -29,9 +29,17 @@
 // forward with deferred Rabiner scaling, v_t = ((sum_j v_{t-1}[j] A[j, k]) *
 // B[k, o_t]) * (1 / sum v_{t-1}); v_0 = a0; carried where t >= len.  Bound:
 // it reads 4 B and writes 4K B per step (2.4 GB at K = 8, NL = 1024, Tp =
-// 65,536: 0.72 ms at 3.35 TB/s); each lane is a dependent chain of Tp steps
-// and a training batch has only ~1,300 lanes, so it is latency-bound well
-// above that.
+// 65,536: 0.72 ms at 3.35 TB/s; 0.24 ms at K = 2).  What bounds one thread a
+// chain is latency: a training batch of 1,024-1,390 lanes is one warp on
+// each of 32-44 SMs (28x the bound at K = 2).  So at K <= 4 and G =
+// fb_pallas.fwd_sublanes > 1, fb_fwd_sub_kernel runs each lane as G
+// sub-lanes over a (lane block, sub-lane) grid, B18's layout; the step is
+// degree 0 in v_{t-1}, so a sub-lane needs only the direction of the alpha
+// before it (below).  In one sub-lane (K >= 5, short lanes) fb_fwd_kernel
+// runs the chain as before.  Blocks of 64 or 128 threads, a 16-step
+// lookahead and IEEE reciprocals (__frcp_rn) ran no faster than this
+// layout (cpgisland_tpu_torch/tools/kernel_variants.py), which leaves the
+// sub-lanes' scattered 128-byte row pieces, as in B18, what bounds it.
 //
 // B17 fb_prod_kernel replaces _prod_kernel: each lane's (+, x) product of its
 // step matrices M_t[m, j] = A[m, j] * B[j, o_t] (the identity for PAD, o_t >=
@@ -131,6 +139,77 @@ __device__ __forceinline__ void load_tables(float* s_A, float* s_B, const float*
 // ---------------------------------------------------------------------------
 // B16: the forward chain.
 
+// A forward step's contraction without the division: nv[k] = (sum_j v[j]
+// A[j, k]) * B[k, o], j in order, the chain's (fwd_range's) operations.
+// B16's sub-lane product applies it to each row of its matrix.
+template <int K>
+__device__ __forceinline__ void fwd_contract(const float* s_A, const float* s_B, int S, int o,
+                                             const float (&v)[K], float (&nv)[K]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    float acc = __fmul_rn(v[0], s_A[k]);
+#pragma unroll
+    for (int j = 1; j < K; ++j) acc = __fadd_rn(acc, __fmul_rn(v[j], s_A[j * K + k]));
+    nv[k] = __fmul_rn(acc, s_B[k * S + o]);
+  }
+}
+
+// B16's chain over steps [tb, te) of a lane, 1 <= tb, from v, the alpha of
+// step tb - 1: v_t = ((sum_j v[j] A[j, k]) * B[k, o_t]) * (1 / sum v) where
+// t < len, carried elsewhere; stores v_t at rows (t K + k) nl of out (the
+// lane's column).  p: the lane's steps column.  The callers store step 0
+// (a0) themselves, so the chain tests only t < len.
+template <int K>
+__device__ __forceinline__ void fwd_range(const int32_t* p, const float* s_A, const float* s_B,
+                                          int S, float (&v)[K], float* out, int len, int tb,
+                                          int te, int Tp, size_t nl) {
+  int q[LOOKAHEAD], qn[LOOKAHEAD];
+  load_ints(p, nl, tb, 1, Tp, q);
+  for (int t0 = tb; t0 < te; t0 += LOOKAHEAD) {
+    load_ints(p, nl, t0 + LOOKAHEAD, 1, Tp, qn);
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) {
+      const int t = t0 + r;
+      if (t < te) {
+        const int o = min(max(q[r], 0), S - 1);
+        const float inv = __fdiv_rn(1.0f, seq_sum<K>(v));
+        float nv[K];
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          float acc = __fmul_rn(v[0], s_A[k]);
+#pragma unroll
+          for (int j = 1; j < K; ++j) acc = __fadd_rn(acc, __fmul_rn(v[j], s_A[j * K + k]));
+          nv[k] = __fmul_rn(__fmul_rn(acc, s_B[k * S + o]), inv);
+        }
+        // A plain copy under the condition compiles to selects, not a
+        // branch the chain would wait on every step.
+        if (t < len) {
+#pragma unroll
+          for (int k = 0; k < K; ++k) v[k] = nv[k];
+        }
+        float* o_row = out + (size_t)t * K * nl;
+#pragma unroll
+        for (int k = 0; k < K; ++k) o_row[k * nl] = v[k];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) q[r] = qn[r];
+  }
+}
+
+// Step 0 of a lane: v = a0 (the lane's column, rows nl apart), stored at
+// row 0 of out (the lane's column).
+template <int K>
+__device__ __forceinline__ void fwd_start(const float* a0, float* out, size_t nl, float (&v)[K]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    v[k] = a0[k * nl];
+    out[k * nl] = v[k];
+  }
+}
+
+// The whole lane's chain (B16 in one sub-lane: K >= 5, lanes under
+// fb_pallas.FWD_SUBLANES_FROM steps).
 template <int K>
 __global__ void __launch_bounds__(CHAIN_THREADS)
 fb_fwd_kernel(const int32_t* __restrict__ steps, const int32_t* __restrict__ lens,
@@ -143,44 +222,9 @@ fb_fwd_kernel(const int32_t* __restrict__ steps, const int32_t* __restrict__ len
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= NL) return;
   const size_t nl = (size_t)NL;
-  const int len = lens[n];
   float v[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    v[k] = a0[k * nl + n];
-    alphas[k * nl + n] = v[k];
-  }
-  const int32_t* p = steps + n;
-  int q[LOOKAHEAD], qn[LOOKAHEAD];
-  load_ints(p, nl, 1, 1, Tp, q);
-  for (int t0 = 1; t0 < Tp; t0 += LOOKAHEAD) {
-    load_ints(p, nl, t0 + LOOKAHEAD, 1, Tp, qn);
-#pragma unroll
-    for (int r = 0; r < LOOKAHEAD; ++r) {
-      const int t = t0 + r;
-      if (t < Tp) {
-        const int o = min(max(q[r], 0), S - 1);
-        const float inv = __fdiv_rn(1.0f, seq_sum<K>(v));
-        float nv[K];
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-          float acc = __fmul_rn(v[0], s_A[k]);
-#pragma unroll
-          for (int j = 1; j < K; ++j) acc = __fadd_rn(acc, __fmul_rn(v[j], s_A[j * K + k]));
-          nv[k] = __fmul_rn(__fmul_rn(acc, s_B[k * S + o]), inv);
-        }
-        if (t < len) {
-#pragma unroll
-          for (int k = 0; k < K; ++k) v[k] = nv[k];
-        }
-        float* out = alphas + (size_t)t * K * nl + n;
-#pragma unroll
-        for (int k = 0; k < K; ++k) out[k * nl] = v[k];
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < LOOKAHEAD; ++r) q[r] = qn[r];
-  }
+  fwd_start<K>(a0 + n, alphas + n, nl, v);
+  fwd_range<K>(steps + n, s_A, s_B, S, v, alphas + n, lens[n], 1, Tp, Tp, nl);
 }
 
 // ---------------------------------------------------------------------------
@@ -324,7 +368,7 @@ fb_bwd_kernel(const int32_t* __restrict__ steps_next, const int32_t* __restrict_
 // fb_pallas._bwd_sublanes_plain's order.
 
 #define SUB_LANES_MAX 32
-#define BWD_SUB_MAX_K 4
+#define SUB_MAX_K 4  // B16 and B18 run in sub-lanes up to this K
 
 // 2^e for -126 <= e <= 126: a normal float, so a product by it is exact
 // unless the product leaves the normal range.
@@ -497,6 +541,156 @@ fb_bwd_sub_kernel(const int32_t* __restrict__ steps_next, const int32_t* __restr
     float beta[K];
     bwd_sub_entry<K>(qbuf + n, beta0 + n, g, G, L, Tp, hi, nl, beta);
     bwd_range<K>(steps_next + n, cs_next + n, s_A, s_B, S, beta, betas + n, tb, te, hi, Tp, nl);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B16 in sub-lanes (K <= 4; fb_pallas.fwd_sublanes).  Each lane runs as G
+// sub-lanes of L steps, [g L, min((g + 1) L, Tp)), one thread per (lane,
+// sub-lane), in three launches over a (32-lane block, sub-lane) grid.  The
+// step divides by sum v_{t-1}, so it is DEGREE 0 in v_{t-1}: a sub-lane
+// entered with any positive multiple of the alpha before it stores, in
+// exact arithmetic, the sequential chain's alphas, and a power-of-two
+// multiple changes no bit of them.  With last = max(min(len, Tp), 1) - 1,
+// the last valid step, and gl = last / L its sub-lane:
+// 1. each sub-lane g < gl forms its product P_g of M_t[j, k] = A[j, k] *
+//    B[k, o_t] over its valid steps 1 <= t < len, from the identity, by the
+//    chain's contraction applied to each row, t walking up; after every
+//    8th step counted from g L, P_g is scaled by 2^-e, e the binary
+//    exponent of its total (scale_exp; a power of two costs no division
+//    and rounds nothing), into the scratch [G, K*K, NL].  The products of
+//    sub-lanes gl and up are never read, so they are not formed;
+// 2. each thread g <= gl forms the direction entering its sub-lane from a0
+//    and P_0 .. P_{g-1}, in order (v <- v . P_h, then v times 2^-e of its
+//    sum; a sub-lane with no valid step passes v on unchanged): the same
+//    operations in the same order in every thread, so the messages are a
+//    sequential scan's, and sub-lane 0 starts from a0 exactly.  Then B16's
+//    chain (fwd_range) over the sub-lane, which in sub-lane gl carries the
+//    alpha of step last to the sub-lane's end;
+// 3. each sub-lane g > gl stores the alpha of step last, read back from
+//    the alphas, at every step: past the last valid step every alpha is
+//    that step's at its true magnitude, never a message's.
+// Every operation is an explicit round-to-nearest intrinsic in
+// fb_pallas._fwd_sublanes_plain's order.
+
+// Phase 1: P_g of the sub-lane [tb, te) into dst (the lane's column, rows nl
+// apart).  p: the lane's steps column.
+template <int K>
+__device__ __forceinline__ void fwd_sub_prod(const int32_t* p, const float* s_A, const float* s_B,
+                                             int S, int tb, int te, int len, int Tp, size_t nl,
+                                             float* dst) {
+  float P[K][K];
+#pragma unroll
+  for (int i = 0; i < K; ++i)
+#pragma unroll
+    for (int k = 0; k < K; ++k) P[i][k] = i == k ? 1.0f : 0.0f;
+  int q[LOOKAHEAD], qn[LOOKAHEAD];
+  load_ints(p, nl, tb, 1, Tp, q);
+  for (int t0 = tb; t0 < te; t0 += LOOKAHEAD) {
+    load_ints(p, nl, t0 + LOOKAHEAD, 1, Tp, qn);
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) {
+      const int t = t0 + r;
+      if (t < te) {
+        const int o = min(max(q[r], 0), S - 1);
+        float N[K][K];
+#pragma unroll
+        for (int i = 0; i < K; ++i) fwd_contract<K>(s_A, s_B, S, o, P[i], N[i]);
+        if (t >= 1 && t < len) {
+#pragma unroll
+          for (int i = 0; i < K; ++i)
+#pragma unroll
+            for (int k = 0; k < K; ++k) P[i][k] = N[i][k];
+        }
+        if (((t - tb) & 7) == 7) {
+          float tot = P[0][0];
+#pragma unroll
+          for (int x = 1; x < K * K; ++x) tot = __fadd_rn(tot, P[x / K][x % K]);
+          const float sc = pow2f(-scale_exp(tot));
+#pragma unroll
+          for (int i = 0; i < K; ++i)
+#pragma unroll
+            for (int k = 0; k < K; ++k) P[i][k] = __fmul_rn(P[i][k], sc);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) q[r] = qn[r];
+  }
+#pragma unroll
+  for (int i = 0; i < K; ++i)
+#pragma unroll
+    for (int k = 0; k < K; ++k) dst[(size_t)(i * K + k) * nl] = P[i][k];
+}
+
+// Phase 2's message: the direction entering sub-lane g, from a0 (the lane's
+// column, rows nl apart) and the products of sub-lanes 0 .. g-1 in pbuf (the
+// lane's column).
+template <int K>
+__device__ __forceinline__ void fwd_sub_entry(const float* pbuf, const float* a0, int g, int L,
+                                              int Tp, int len, size_t nl, float (&v)[K]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) v[k] = a0[k * nl];
+  for (int h = 0; h < g; ++h) {
+    const int hb = min(h * L, Tp), he = min(hb + L, Tp);
+    if (max(hb, 1) >= min(he, len)) continue;  // no valid step: the message passes on
+    const float* Ph = pbuf + (size_t)h * (K * K) * nl;
+    float r[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      float acc = __fmul_rn(v[0], Ph[(size_t)k * nl]);
+#pragma unroll
+      for (int i = 1; i < K; ++i) acc = __fadd_rn(acc, __fmul_rn(v[i], Ph[(size_t)(i * K + k) * nl]));
+      r[k] = acc;
+    }
+    const float sc = pow2f(-scale_exp(seq_sum<K>(r)));
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[k] = __fmul_rn(r[k], sc);
+  }
+}
+
+// PHASE 0: the products (the first launch); 1: the messages and chains (the
+// second); 2: the alphas past the last valid step (the third).  Sub-lane g =
+// blockIdx.y.
+template <int K, int PHASE>
+__global__ void __launch_bounds__(CHAIN_THREADS)
+fb_fwd_sub_kernel(const int32_t* __restrict__ steps, const int32_t* __restrict__ lens,
+                  const float* __restrict__ a0, const float* __restrict__ A,
+                  const float* __restrict__ B, float* alphas, float* pbuf, int Tp, int NL,
+                  int S, int L) {
+  __shared__ float s_A[K * K];
+  __shared__ float s_B[K * MAX_S];
+  load_tables<K>(s_A, s_B, A, B, S);
+  __syncthreads();
+  const int g = blockIdx.y;
+  const int n = blockIdx.x * CHAIN_THREADS + threadIdx.x;
+  if (n >= NL) return;
+  const size_t nl = (size_t)NL;
+  const int len = lens[n];
+  const int last = max(min(len, Tp), 1) - 1;
+  const int gl = last / L;
+  const int tb = min(g * L, Tp), te = min(tb + L, Tp);
+  if (PHASE == 0) {
+    if (g < gl)
+      fwd_sub_prod<K>(steps + n, s_A, s_B, S, tb, te, len, Tp, nl,
+                      pbuf + (size_t)g * (K * K) * nl + n);
+  } else if (PHASE == 1) {
+    if (g <= gl) {
+      float v[K];
+      if (g == 0) fwd_start<K>(a0 + n, alphas + n, nl, v);  // sub-lane 0 starts from a0
+      else fwd_sub_entry<K>(pbuf + n, a0 + n, g, L, Tp, len, nl, v);
+      fwd_range<K>(steps + n, s_A, s_B, S, v, alphas + n, len, max(tb, 1), te, Tp, nl);
+    }
+  } else if (g > gl) {
+    float v[K];
+    const float* src = alphas + (size_t)last * K * nl + n;
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[k] = src[k * nl];
+    for (int t = tb; t < te; ++t) {
+      float* o_row = alphas + (size_t)t * K * nl + n;
+#pragma unroll
+      for (int k = 0; k < K; ++k) o_row[k * nl] = v[k];
+    }
   }
 }
 
@@ -724,6 +918,26 @@ static int launch_fwd(const void* steps, const void* lens, const void* a0, const
   return (int)cudaGetLastError();
 }
 
+template <int K>
+static int launch_fwd_sub(const void* steps, const void* lens, const void* a0, const void* A,
+                          const void* B, void* alphas, void* pbuf, int Tp, int NL, int S, int G,
+                          cudaStream_t st) {
+  const int L = (Tp + G - 1) / G;
+  const dim3 grid(blocks_for(NL, CHAIN_THREADS), (unsigned)G);
+#define FWD_SUB_ARGS                                                                 \
+  (const int32_t*)steps, (const int32_t*)lens, (const float*)a0, (const float*)A,    \
+      (const float*)B, (float*)alphas, (float*)pbuf, Tp, NL, S, L
+  fb_fwd_sub_kernel<K, 0><<<grid, CHAIN_THREADS, 0, st>>>(FWD_SUB_ARGS);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  fb_fwd_sub_kernel<K, 1><<<grid, CHAIN_THREADS, 0, st>>>(FWD_SUB_ARGS);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  fb_fwd_sub_kernel<K, 2><<<grid, CHAIN_THREADS, 0, st>>>(FWD_SUB_ARGS);
+#undef FWD_SUB_ARGS
+  return (int)cudaGetLastError();
+}
+
 template <int K, bool CONF>
 static int launch_bwd(const void* steps_next, const void* lens, const void* cs_next,
                       const void* beta0, const void* alphas, const void* mask, const void* A,
@@ -783,9 +997,26 @@ static int launch_stats(const void* alphas, const void* betas, const void* steps
 
 extern "C" {
 
+// B16: G sub-lanes a lane (fb_pallas.fwd_sublanes; G > 1 only at K <= 4),
+// three launches over a (lane block, sub-lane) grid; pbuf [G, K*K, NL]
+// scratch where G > 1.
 int fb_fwd(const void* steps, const void* lens, const void* a0, const void* A, const void* B,
-           void* alphas, int Tp, int NL, int K, int S, void* stream) {
-  if (bad_dims(Tp, NL, K, S)) return (int)cudaErrorInvalidValue;
+           void* alphas, void* pbuf, int Tp, int NL, int K, int S, int G, void* stream) {
+  if (bad_dims(Tp, NL, K, S) || G < 1 || G > SUB_LANES_MAX || G > Tp ||
+      (G > 1 && K > SUB_MAX_K))
+    return (int)cudaErrorInvalidValue;
+  if (G > 1) {
+#define CALL_FS(KK) \
+  launch_fwd_sub<KK>(steps, lens, a0, A, B, alphas, pbuf, Tp, NL, S, G, (cudaStream_t)stream)
+    switch (K) {
+      case 1: return CALL_FS(1);
+      case 2: return CALL_FS(2);
+      case 3: return CALL_FS(3);
+      case 4: return CALL_FS(4);
+      default: return (int)cudaErrorInvalidValue;
+    }
+#undef CALL_FS
+  }
 #define CALL_F(KK) launch_fwd<KK>(steps, lens, a0, A, B, alphas, Tp, NL, S, (cudaStream_t)stream)
   DISPATCH_K(K, CALL_F)
 #undef CALL_F
@@ -798,7 +1029,7 @@ int fb_bwd(const void* steps_next, const void* lens, const void* cs_next, const 
            const void* A, const void* B, void* betas, void* qbuf, int Tp, int NL, int K, int S,
            int T, int G, void* stream) {
   if (bad_dims(Tp, NL, K, S) || G < 1 || G > SUB_LANES_MAX || G > Tp ||
-      (G > 1 && K > BWD_SUB_MAX_K))
+      (G > 1 && K > SUB_MAX_K))
     return (int)cudaErrorInvalidValue;
   if (G > 1) {
 #define CALL_BS(KK)                                                                       \

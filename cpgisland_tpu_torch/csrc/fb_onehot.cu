@@ -66,16 +66,27 @@
 // 1.34 GB at NL = 1024, Tp = 65,536 (0.40 ms).  It has no serial chain:
 // the previous step's normalized alpha, which the TPU kernel carries
 // because its tiles walk in order, is read from the stream.  So each lane's
-// time splits into segments of Tt steps, one thread per (lane, segment),
-// enough threads to fill the card; a second kernel sums each lane's
-// segments in order (no atomics, so the result is the same every run).
-// Only 4 of the K*K xi products of a step are nonzero (previous group x
-// current group); they map one to one onto (pair, a, c), so each thread
-// keeps 4 S^2 pair bins plus 2S emission bins in its own slice of shared
-// memory (bank-conflict free: thread i owns bank i mod 32) and the second
-// kernel writes bin (s_prev, s_cur, a, c) to macc row
+// time splits into segments of fb_onehot.stats_segment_t steps (a function
+// of the shape; the card's sweep chose it), one thread per (lane,
+// segment), enough threads to fill the card; a block of 32 lanes x 4
+// segments sums its segments in order, and a second kernel sums each
+// lane's blocks in order (no atomics, so the result is the same every
+// run).  Only 4 of the K*K xi products of a step are nonzero (previous
+// group x current group); they map one to one onto (pair, a, c), so each
+// thread keeps 4 S^2 pair bins plus 2S emission bins in its own slice of
+// shared memory (bank-conflict free: thread i owns bank i mod 32) and the
+// second kernel writes bin (s_prev, s_cur, a, c) to macc row
 // gt[s_prev, a] * K + gt[s_cur, c].  The sums run in another order than
-// the plain version's, which agrees within a tolerance.
+// the plain version's, which agrees within a tolerance.  What bounded the
+// first design was the loads: a step's five were issued when the step
+// ran, at the 20 warps an SM its shared memory allows.  Now each thread
+// reads its streams eight steps ahead (four and twelve ran slower:
+// cpgisland_tpu_torch/tools/kernel_variants.py), decodes pairs through a
+// shared table, reads
+// a step's six accumulators before its arithmetic and takes IEEE
+// reciprocals (__frcp_rn).  What bounds it now is the loads' access
+// pattern, 128-byte pieces of rows, one a warp: the loads alone, without
+// the arithmetic, take four fifths of its time on the card.
 //
 // B8 oh_fwdbwd_mat_kernel replaces fb_onehot.py::_oh_fwdbwd_mat_kernel, the
 // one-pass arm: both reduced chains of a lane carried as 2x2 MATRICES from
@@ -841,17 +852,129 @@ oh_prod_kernel(const int32_t* __restrict__ pair, const float* __restrict__ tab,
 // 2S + 1): [0, 4 S^2) pair bins ((s_prev * S + s_cur) * 4 + a * 2 + c), then
 // the 2S emission rows (2 * s + a), then the loglik.  B25 runs B5's body for
 // member blockIdx.z on its own slices.
+//
+// A block is STATS_LANES (32) lanes x SPB consecutive segments of Tt steps
+// (fb_onehot.stats_segment_t, a function of the shape; SPB =
+// fb_onehot.stats_segments_per_block, 4 where a block's accumulators fit,
+// else 1), warp s taking segment s, so every load of a warp is one 128-byte
+// row.  Each thread keeps its R accumulators in its own column of shared
+// memory and reads its streams STATS_AHEAD steps ahead of use (two groups
+// of registers, one being read while the next loads).  At the end the block sums its SPB segments' columns in
+// order into one partial row set, so the part buffer holds ceil(nseg / SPB)
+// partials a lane and the reduce kernel reads SPB times fewer bytes.
+
+#define STATS_LANES 32
+#define STATS_AHEAD 8
+
+// A pair's decode: its emitted symbol (bits 0-4), its pair bin s_prev * S +
+// s_cur (bits 5-12) and its table row (bits 13-21; PAD pairs, pr >= S^2,
+// take the identity row S^2 and carry their symbol: previous and current
+// are both it).
+__device__ __forceinline__ int stats_decode(int pr, int S) {
+  const int nreal = S * S;
+  const int esym = pr < nreal ? pr % S : pr - nreal;
+  const int bin = pr < nreal ? pr : esym * (S + 1);
+  return esym | (bin << 5) | (min(pr, nreal) << 13);
+}
+
+// One step of B5 at a t > 0 (FIRST = false), or at the lane's t == 0
+// (FIRST = true: the previous alpha is the entering message, reduced for z
+// and full K for the counts, masked by pair0).  Its three reciprocals are
+// __frcp_rn, the IEEE reciprocal: the bits of __fdiv_rn(1, x) in a shorter
+// instruction sequence.
+template <bool FIRST>
+__device__ __forceinline__ void stats_step(float a0, float a1, float be0, float be1, int d,
+                                           float& ah0, float& ah1, float& ll, float* my, int bd,
+                                           const float* s_tab, const float* s_bred,
+                                           const int* s_igt, const float* enters_full,
+                                           const float* enters_red, float pair0, size_t nl,
+                                           int S, int K) {
+  const int esym = d & 31, bin = (d >> 5) & 255, row = d >> 13;
+  const int EMIT = 4 * S * S;
+  // The step's six accumulators, read before any arithmetic so that their
+  // shared-memory latencies overlap the reciprocals' (the emission and
+  // pair-bin regions never overlap).
+  float* e = my + (EMIT + 2 * esym) * bd;
+  float* b = my + (bin * 4) * bd;
+  const float e0v = e[0], e1v = e[bd];
+  float b0v = 0.0f, b1v = 0.0f, b2v = 0.0f, b3v = 0.0f;
+  if (!FIRST) {
+    b0v = b[0];
+    b1v = b[bd];
+    b2v = b[2 * bd];
+    b3v = b[3 * bd];
+  }
+  const float cs = __fadd_rn(a0, a1);
+  const float inv_cs = __frcp_rn(fmaxf(cs, 1e-30f));
+  const float g0 = __fmul_rn(a0, be0), g1 = __fmul_rn(a1, be1);
+  const float inv_g = __frcp_rn(fmaxf(__fadd_rn(g0, g1), 1e-30f));
+  e[0] = __fadd_rn(e0v, __fmul_rn(g0, inv_g));
+  e[bd] = __fadd_rn(e1v, __fmul_rn(g1, inv_g));
+  ll = __fadd_rn(ll, logf(fmaxf(cs, 1e-30f)));
+  const float* m = s_tab + 4 * row;
+  // z = sum_ac aprev[a] T[a, c] beta[c]; xi[a, c] = aprev[a] w[c] / z
+  // with w[c] = B_red[esym, c] beta[c] (the table supplies A * B).
+  const float r0 = __fadd_rn(__fmul_rn(m[0], be0), __fmul_rn(m[1], be1));
+  const float r1 = __fadd_rn(__fmul_rn(m[2], be0), __fmul_rn(m[3], be1));
+  if (!FIRST) {
+    const float z = __fadd_rn(__fmul_rn(ah0, r0), __fmul_rn(ah1, r1));
+    const float inv_z = __frcp_rn(fmaxf(z, 1e-30f));
+    const float wz0 = __fmul_rn(__fmul_rn(s_bred[2 * esym], be0), inv_z);
+    const float wz1 = __fmul_rn(__fmul_rn(s_bred[2 * esym + 1], be1), inv_z);
+    b[0] = __fadd_rn(b0v, __fmul_rn(ah0, wz0));
+    b[bd] = __fadd_rn(b1v, __fmul_rn(ah0, wz1));
+    b[2 * bd] = __fadd_rn(b2v, __fmul_rn(ah1, wz0));
+    b[3 * bd] = __fadd_rn(b3v, __fmul_rn(ah1, wz1));
+  } else if (pair0 != 0.0f) {
+    const float e0 = enters_red[0], e1 = enters_red[nl];
+    const float z = __fadd_rn(__fmul_rn(e0, r0), __fmul_rn(e1, r1));
+    const float inv_z = __fmul_rn(pair0, __frcp_rn(fmaxf(z, 1e-30f)));
+    const float wz0 = __fmul_rn(__fmul_rn(s_bred[2 * esym], be0), inv_z);
+    const float wz1 = __fmul_rn(__fmul_rn(s_bred[2 * esym + 1], be1), inv_z);
+    for (int i = 0; i < K; ++i) {
+      const float ef = enters_full[(size_t)i * nl];
+      const int sa = s_igt[i];
+      float* bi = my + (((sa >> 1) * S + esym) * 4 + (sa & 1) * 2) * bd;
+      bi[0] = __fadd_rn(bi[0], __fmul_rn(ef, wz0));
+      bi[bd] = __fadd_rn(bi[bd], __fmul_rn(ef, wz1));
+    }
+  }
+  ah0 = __fmul_rn(a0, inv_cs);
+  ah1 = __fmul_rn(a1, inv_cs);
+}
+
+// The streams of STATS_AHEAD steps from t (decoded pairs; zeros at and past t1).
+struct StatsGroup {
+  float a0[STATS_AHEAD], a1[STATS_AHEAD], b0[STATS_AHEAD], b1[STATS_AHEAD];
+  int d[STATS_AHEAD];
+};
+
+__device__ __forceinline__ void stats_load(StatsGroup& q, const float* al, const float* be,
+                                           const int32_t* p, const int* s_dec, int t, int t1,
+                                           size_t nl, int npair) {
+#pragma unroll
+  for (int r = 0; r < STATS_AHEAD; ++r) {
+    const bool in = t + r < t1;
+    const size_t x = (size_t)(2 * (t + r)) * nl;
+    q.a0[r] = in ? __ldg(al + x) : 0.0f;
+    q.a1[r] = in ? __ldg(al + x + nl) : 0.0f;
+    q.b0[r] = in ? __ldg(be + x) : 0.0f;
+    q.b1[r] = in ? __ldg(be + x + nl) : 0.0f;
+    q.d[r] = in ? __ldg(p + (size_t)(t + r) * nl) : 0;
+  }
+#pragma unroll
+  for (int r = 0; r < STATS_AHEAD; ++r) q.d[r] = s_dec[min(max(q.d[r], 0), npair - 1)];
+}
 
 // One (lane, segment) of B5: accumulate into the thread's shared column
 // ``my`` (stride bd) over steps [t0, t1) of the lane whose streams ``al``,
 // ``be``, ``p`` point at (column n of the member's [Tp, 2, NL] / [Tp, NL]).
 __device__ __forceinline__ void stats_segment(
     const float* al, const float* be, const int32_t* p, const float* s_tab,
-    const float* s_bred, const int* s_igt, const float* enters_full, const float* enters_red,
-    float pair0, float* my, int bd, int t0, int t1, size_t nl, int S, int K) {
-  const int nreal = S * S;
-  const int EMIT = 4 * nreal;
-  const int LL = EMIT + 2 * S;
+    const float* s_bred, const int* s_igt, const int* s_dec, const float* enters_full,
+    const float* enters_red, float pair0, float* my, int bd, int t0, int t1, size_t nl, int S,
+    int K) {
+  const int LL = 4 * S * S + 2 * S;
   // Normalized alpha of the step before the segment.
   float ah0 = 0.0f, ah1 = 0.0f;
   if (t0 > 0) {
@@ -861,65 +984,34 @@ __device__ __forceinline__ void stats_segment(
     ah0 = __fmul_rn(p0, ic);
     ah1 = __fmul_rn(p1, ic);
   }
+  const int npair = S * S + S;
   float ll = 0.0f;
-  for (int t = t0; t < t1; ++t) {
-    const float a0 = al[(size_t)(2 * t) * nl];
-    const float a1 = al[(size_t)(2 * t + 1) * nl];
-    const float be0 = be[(size_t)(2 * t) * nl];
-    const float be1 = be[(size_t)(2 * t + 1) * nl];
-    const int pr = p[(size_t)t * nl];
-    // A PAD pair carries its symbol: previous and current are both it.
-    const int esym = pr < nreal ? pr % S : pr - nreal;
-    const int sprev = pr < nreal ? pr / S : esym;
-    const float cs = __fadd_rn(a0, a1);
-    const float inv_cs = __fdiv_rn(1.0f, fmaxf(cs, 1e-30f));
-    const float g0 = __fmul_rn(a0, be0), g1 = __fmul_rn(a1, be1);
-    const float inv_g = __fdiv_rn(1.0f, fmaxf(__fadd_rn(g0, g1), 1e-30f));
-    float* e = my + (EMIT + 2 * esym) * bd;
-    e[0] = __fadd_rn(e[0], __fmul_rn(g0, inv_g));
-    e[bd] = __fadd_rn(e[bd], __fmul_rn(g1, inv_g));
-    ll = __fadd_rn(ll, logf(fmaxf(cs, 1e-30f)));
-    const float* m = s_tab + 4 * (pr < nreal ? pr : nreal);
-    // z = sum_ac aprev[a] T[a, c] beta[c]; xi[a, c] = aprev[a] w[c] / z
-    // with w[c] = B_red[esym, c] beta[c] (the table supplies A * B).
-    const float r0 = __fadd_rn(__fmul_rn(m[0], be0), __fmul_rn(m[1], be1));
-    const float r1 = __fadd_rn(__fmul_rn(m[2], be0), __fmul_rn(m[3], be1));
-    if (t > 0) {
-      const float z = __fadd_rn(__fmul_rn(ah0, r0), __fmul_rn(ah1, r1));
-      const float inv_z = __fdiv_rn(1.0f, fmaxf(z, 1e-30f));
-      const float wz0 = __fmul_rn(__fmul_rn(s_bred[2 * esym], be0), inv_z);
-      const float wz1 = __fmul_rn(__fmul_rn(s_bred[2 * esym + 1], be1), inv_z);
-      float* bin = my + ((sprev * S + esym) * 4) * bd;
-      bin[0] = __fadd_rn(bin[0], __fmul_rn(ah0, wz0));
-      bin[bd] = __fadd_rn(bin[bd], __fmul_rn(ah0, wz1));
-      bin[2 * bd] = __fadd_rn(bin[2 * bd], __fmul_rn(ah1, wz0));
-      bin[3 * bd] = __fadd_rn(bin[3 * bd], __fmul_rn(ah1, wz1));
-    } else if (pair0 != 0.0f) {
-      // Within-lane t == 0: the previous alpha is the entering message
-      // (reduced for z, full K for the counts), masked by pair0.
-      const float e0 = enters_red[0], e1 = enters_red[nl];
-      const float z = __fadd_rn(__fmul_rn(e0, r0), __fmul_rn(e1, r1));
-      const float inv_z = __fmul_rn(pair0, __fdiv_rn(1.0f, fmaxf(z, 1e-30f)));
-      const float wz0 = __fmul_rn(__fmul_rn(s_bred[2 * esym], be0), inv_z);
-      const float wz1 = __fmul_rn(__fmul_rn(s_bred[2 * esym + 1], be1), inv_z);
-      for (int i = 0; i < K; ++i) {
-        const float ef = enters_full[(size_t)i * nl];
-        const int sa = s_igt[i];
-        float* bin = my + (((sa >> 1) * S + esym) * 4 + (sa & 1) * 2) * bd;
-        bin[0] = __fadd_rn(bin[0], __fmul_rn(ef, wz0));
-        bin[bd] = __fadd_rn(bin[bd], __fmul_rn(ef, wz1));
-      }
+  int t = t0;
+  if (t0 == 0) {
+    const int d = s_dec[min(max(p[0], 0), npair - 1)];
+    stats_step<true>(al[0], al[nl], be[0], be[nl], d, ah0, ah1, ll, my, bd, s_tab, s_bred,
+                     s_igt, enters_full, enters_red, pair0, nl, S, K);
+    t = 1;
+  }
+  StatsGroup q, qn;
+  stats_load(q, al, be, p, s_dec, t, t1, nl, npair);
+  for (; t < t1; t += STATS_AHEAD) {
+    stats_load(qn, al, be, p, s_dec, t + STATS_AHEAD, t1, nl, npair);
+#pragma unroll
+    for (int r = 0; r < STATS_AHEAD; ++r) {
+      if (t + r < t1)
+        stats_step<false>(q.a0[r], q.a1[r], q.b0[r], q.b1[r], q.d[r], ah0, ah1, ll, my, bd,
+                          s_tab, s_bred, s_igt, enters_full, enters_red, pair0, nl, S, K);
     }
-    ah0 = __fmul_rn(a0, inv_cs);
-    ah1 = __fmul_rn(a1, inv_cs);
+    q = qn;
   }
   my[LL * bd] = ll;
 }
 
-// Grid (lane blocks, segments, members); a single-model launch is member 0
-// of 1.  Member m's operands: alphas / betas at m * Tp * 2 * NL, tab at m *
-// (S^2 + 1) * 4, bred and gt at m * 2S, enters_full at m * K * NL,
-// enters_red at m * 2 * NL, part at m * nseg * R * NL.
+// Grid (lane blocks, segment groups, members); a single-model launch is
+// member 0 of 1.  Member m's operands: alphas / betas at m * Tp * 2 * NL, tab
+// at m * (S^2 + 1) * 4, bred and gt at m * 2S, enters_full at m * K * NL,
+// enters_red at m * 2 * NL, part at m * gridDim.y * R * NL.
 __global__ void oh_seq_stats_part_kernel(
     const float* __restrict__ alphas, const float* __restrict__ betas,
     const int32_t* __restrict__ pair, const int32_t* __restrict__ lens,
@@ -931,13 +1023,16 @@ __global__ void oh_seq_stats_part_kernel(
   __shared__ float s_tab[MAX_TAB];
   __shared__ float s_bred[2 * MAX_S];
   __shared__ int s_igt[2 * MAX_S];  // state id -> s * 2 + a
+  __shared__ int s_dec[MAX_S * MAX_S + MAX_S];
   const int m = blockIdx.z;
   const int nreal = S * S;
   const int R = 4 * nreal + 2 * S + 1;
   const int bd = blockDim.x;
+  const int SPB = bd / STATS_LANES;
   const size_t nl = (size_t)NL;
   const float* tab_m = tab + (size_t)m * (nreal + 1) * 4;
   for (int i = threadIdx.x; i < (nreal + 1) * 4; i += bd) s_tab[i] = tab_m[i];
+  for (int i = threadIdx.x; i < nreal + S; i += bd) s_dec[i] = stats_decode(i, S);
   for (int i = threadIdx.x; i < 2 * S; i += bd) {
     s_bred[i] = bred[(size_t)m * 2 * S + i];
     s_igt[gt[(size_t)m * 2 * S + i]] = i;
@@ -946,20 +1041,29 @@ __global__ void oh_seq_stats_part_kernel(
   for (int r = 0; r < R; ++r) my[r * bd] = 0.0f;
   __syncthreads();
 
-  const int n = blockIdx.x * bd + threadIdx.x;
-  if (n >= NL) return;
-  const int seg = blockIdx.y;
-  const int len = min(lens[n], Tp);
-  const int t0 = seg * Tt;
-  const int t1 = min(t0 + Tt, len);
-  const size_t strm = (size_t)m * Tp * 2 * nl;
-  if (t0 < t1)
-    stats_segment(alphas + strm + n, betas + strm + n, pair + n, s_tab, s_bred, s_igt,
-                  enters_full + (size_t)m * K * nl + n, enters_red + (size_t)m * 2 * nl + n,
-                  pair0m[n], my, bd, t0, t1, nl, S, K);
-  const int nseg = gridDim.y;
-  float* out = part + ((size_t)m * nseg + seg) * R * nl + n;
-  for (int r = 0; r < R; ++r) out[(size_t)r * nl] = my[r * bd];
+  const int j = threadIdx.x % STATS_LANES;
+  const int n = blockIdx.x * STATS_LANES + j;
+  if (n < NL) {
+    const int len = min(lens[n], Tp);
+    const int t0 = (blockIdx.y * SPB + threadIdx.x / STATS_LANES) * Tt;
+    const int t1 = min(t0 + Tt, len);
+    const size_t strm = (size_t)m * Tp * 2 * nl;
+    if (t0 < t1)
+      stats_segment(alphas + strm + n, betas + strm + n, pair + n, s_tab, s_bred, s_igt, s_dec,
+                    enters_full + (size_t)m * K * nl + n, enters_red + (size_t)m * 2 * nl + n,
+                    pair0m[n], my, bd, t0, t1, nl, S, K);
+  }
+  __syncthreads();
+  // The block's segments summed in order, warp w taking rows w, w + SPB, ...
+  if (n < NL) {
+    float* out = part + ((size_t)m * gridDim.y + blockIdx.y) * R * nl + n;
+    for (int r = threadIdx.x / STATS_LANES; r < R; r += SPB) {
+      const float* row = acc + r * bd + j;
+      float sum = row[0];
+      for (int w = 1; w < SPB; ++w) sum = __fadd_rn(sum, row[w * STATS_LANES]);
+      out[(size_t)r * nl] = sum;
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1072,24 +1176,27 @@ oh_seq_stats_reduce_kernel(const float* __restrict__ part, const int32_t* __rest
   }
 }
 
+// B5 / B25: the part kernel over (lane blocks, ceil(nseg / SPB), M), part
+// [M, ceil(nseg / SPB), R, NL], then the reduce.
 static int launch_seq_stats(const void* alphas, const void* betas, const void* pair,
                             const void* lens, const void* tab, const void* bred, const void* gt,
                             const void* enters_full, const void* enters_red, const void* pair0m,
                             void* part, void* macc, void* emit, void* ll, int Tp, int NL, int S,
-                            int K, int Tt, int M, cudaStream_t st) {
-  if (S < 1 || S > MAX_S || K != 2 * S || Tp <= 0 || NL <= 0 || Tt <= 0 || M < 1 || M > 65535)
+                            int K, int Tt, int SPB, int M, cudaStream_t st) {
+  if (S < 1 || S > MAX_S || K != 2 * S || Tp <= 0 || NL <= 0 || Tt <= 0 || M < 1 ||
+      M > 65535 || (SPB != 1 && SPB != 4))
     return (int)cudaErrorInvalidValue;
   const int R = 4 * S * S + 2 * S + 1;
-  const int nseg = (Tp + Tt - 1) / Tt;
-  if (nseg > 65535) return (int)cudaErrorInvalidValue;
-  const int threads = (size_t)R * 128 * sizeof(float) <= 200 * 1024 ? 128 : 32;
+  const int nblk = ((Tp + Tt - 1) / Tt + SPB - 1) / SPB;
+  const int threads = STATS_LANES * SPB;
   const size_t smem = (size_t)R * threads * sizeof(float);
+  if (nblk > 65535 || smem > 200 * 1024) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         oh_seq_stats_part_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const dim3 grid((unsigned)((NL + threads - 1) / threads), (unsigned)nseg, (unsigned)M);
+  const dim3 grid((unsigned)((NL + STATS_LANES - 1) / STATS_LANES), (unsigned)nblk, (unsigned)M);
   oh_seq_stats_part_kernel<<<grid, threads, smem, st>>>(
       (const float*)alphas, (const float*)betas, (const int32_t*)pair, (const int32_t*)lens,
       (const float*)tab, (const float*)bred, (const int32_t*)gt, (const float*)enters_full,
@@ -1099,7 +1206,7 @@ static int launch_seq_stats(const void* alphas, const void* betas, const void* p
   const dim3 rgrid((unsigned)((NL + REDUCE_THREADS - 1) / REDUCE_THREADS), (unsigned)R,
                    (unsigned)M);
   oh_seq_stats_reduce_kernel<<<rgrid, REDUCE_THREADS, 0, st>>>(
-      (const float*)part, (const int32_t*)gt, (float*)macc, (float*)emit, (float*)ll, nseg, NL,
+      (const float*)part, (const int32_t*)gt, (float*)macc, (float*)emit, (float*)ll, nblk, NL,
       S, K);
   return (int)cudaGetLastError();
 }
@@ -1451,9 +1558,10 @@ int oh_fwdbwd_stacked(const void* pair, const void* pairn, const void* lens, con
 int oh_seq_stats(const void* alphas, const void* betas, const void* pair, const void* lens,
                  const void* tab, const void* bred, const void* gt, const void* enters_full,
                  const void* enters_red, const void* pair0m, void* part, void* macc,
-                 void* emit, void* ll, int Tp, int NL, int S, int K, int Tt, void* stream) {
+                 void* emit, void* ll, int Tp, int NL, int S, int K, int Tt, int SPB,
+                 void* stream) {
   return launch_seq_stats(alphas, betas, pair, lens, tab, bred, gt, enters_full, enters_red,
-                          pair0m, part, macc, emit, ll, Tp, NL, S, K, Tt, 1,
+                          pair0m, part, macc, emit, ll, Tp, NL, S, K, Tt, SPB, 1,
                           (cudaStream_t)stream);
 }
 
@@ -1461,9 +1569,9 @@ int oh_seq_stats_stacked(const void* alphas, const void* betas, const void* pair
                          const void* lens, const void* tab, const void* bred, const void* gt,
                          const void* enters_full, const void* enters_red, const void* pair0m,
                          void* part, void* macc, void* emit, void* ll, int Tp, int NL, int S,
-                         int K, int Tt, int M, void* stream) {
+                         int K, int Tt, int SPB, int M, void* stream) {
   return launch_seq_stats(alphas, betas, pair, lens, tab, bred, gt, enters_full, enters_red,
-                          pair0m, part, macc, emit, ll, Tp, NL, S, K, Tt, M,
+                          pair0m, part, macc, emit, ll, Tp, NL, S, K, Tt, SPB, M,
                           (cudaStream_t)stream);
 }
 

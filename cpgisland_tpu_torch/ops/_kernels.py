@@ -51,7 +51,7 @@ _SIGNATURES = {
     "oh_prod": ("fb_onehot", 3, ("Tp", "NL", "nreal", "G")),
     "oh_fwdbwd": ("fb_onehot", 8, ("Tp", "NL", "nreal", "T", "G")),
     "oh_fwdbwd_mat": ("fb_onehot", 6, ("Tp", "NL", "nreal", "T")),
-    "oh_seq_stats": ("fb_onehot", 14, ("Tp", "NL", "S", "K", "Tt")),
+    "oh_seq_stats": ("fb_onehot", 14, ("Tp", "NL", "S", "K", "Tt", "SPB")),
     "oh_prod_stacked": ("fb_onehot", 3, ("Tp", "NL", "nreal", "G", "M")),
     "oh_fwdbwd_stacked": ("fb_onehot", 8, ("Tp", "NL", "nreal", "T", "G", "M")),
     "oh_fwd": ("fb_onehot", 5, ("Tp", "NL", "nreal")),
@@ -60,7 +60,7 @@ _SIGNATURES = {
     "oh_stats": ("fb_onehot", 10, ("Tp", "NL", "S", "K", "Tt")),
     "oh_fwd_stacked": ("fb_onehot", 5, ("Tp", "NL", "nreal", "M")),
     "oh_bwd_stacked": ("fb_onehot", 6, ("Tp", "NL", "nreal", "T", "M")),
-    "oh_seq_stats_stacked": ("fb_onehot", 14, ("Tp", "NL", "S", "K", "Tt", "M")),
+    "oh_seq_stats_stacked": ("fb_onehot", 14, ("Tp", "NL", "S", "K", "Tt", "SPB", "M")),
     "oh_fwd_strm": ("fb_onehot", 4, ("Tp", "NL")),
     "oh_fwd_comp": ("fb_onehot", 4, ("H", "NL")),
     "oh_fwd_compsel": ("fb_onehot", 7, ("H", "NL", "S")),
@@ -69,7 +69,7 @@ _SIGNATURES = {
     "dense_products": ("viterbi_dense", 4, ("bk", "nb", "K", "S")),
     "dense_backpointers": ("viterbi_dense", 7, ("bk", "nb", "K", "S")),
     "dense_backtrace": ("viterbi_dense", 3, ("bk", "nb")),
-    "fb_fwd": ("fb_dense", 6, ("Tp", "NL", "K", "S")),
+    "fb_fwd": ("fb_dense", 7, ("Tp", "NL", "K", "S", "G")),
     "fb_prod": ("fb_dense", 3, ("Tp", "NL", "K", "S")),
     "fb_bwd": ("fb_dense", 8, ("Tp", "NL", "K", "S", "T", "G")),
     "fb_bwd_conf": ("fb_dense", 9, ("Tp", "NL", "K", "S", "T")),

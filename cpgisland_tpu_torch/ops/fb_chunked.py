@@ -150,7 +150,6 @@ def batch_stats(params: HmmParams, chunks: torch.Tensor, lengths: torch.Tensor,
         zeros = lambda rows: torch.zeros((rows, NL), dtype=_F32, device=al2.device)
         counts = fb_onehot.run_seq_stats_onehot(
             params, al2, b2, prepared.pair2, lens2, gt, zeros(GROUP), zeros(K), zeros(1),
-            prepared.Tt,
         )
     else:
         counts = fb_onehot.run_stats_onehot(
@@ -202,7 +201,7 @@ def batch_stats_stacked(params_list, chunks: torch.Tensor, lengths: torch.Tensor
         zeros = lambda *shape: torch.zeros(shape, dtype=_F32, device=al.device)
         counts = fb_onehot.run_seq_stats_onehot_stacked(
             params_list, al, be, prepared.pair2, lens2, zeros(M, GROUP, NL), zeros(M, K, NL),
-            zeros(1, NL), prepared.Tt,
+            zeros(1, NL),
         )
     else:
         # The split arm's cs-scaled betas pair with B12, one launch per

@@ -44,8 +44,10 @@ one's — the per-pair table :func:`prob_pair_table`.
   z-normalized counts — each pair's xi divided by its own total, so any
   per-position scale of the betas cancels — giving dense ``macc [K*K]``,
   reduced ``emit [2S]`` and the loglik per lane.  The plain version
-  :func:`oh_seq_stats_plain` is the twin of ``_xla_znorm_stats``; the two
-  sum over time in different orders and agree within a tolerance.
+  :func:`oh_seq_stats_plain` is the twin of ``_xla_znorm_stats``; the
+  kernel sums each lane in segments of :func:`stats_segment_t` steps (a
+  function of the shape, not of the layout's t-tile), so the two sum over
+  time in different orders and agree within a tolerance.
 
 The split arm (``fused=False``, the JAX package's A/B baseline) runs the
 two chains in separate launches, the backward with true Rabiner scaling:
@@ -108,6 +110,9 @@ MAX_SUBLANES = 32
 # MAX_SUBLANES), shorter lanes as one chain.
 PROD_SUBLANE_T = 512
 PROD_SUBLANES_FROM = 8192
+# B5 / B25's segments (:func:`stats_segment_t`): each lane's steps split into
+# segments of STATS_SEGMENT_T steps (at most the lane), one thread each.
+STATS_SEGMENT_T = 512
 
 
 def prob_pair_table(params: HmmParams, gt: torch.Tensor) -> torch.Tensor:
@@ -808,12 +813,48 @@ def oh_seq_stats_plain(alphas2, betas2, pair2, lens2, tab_ext, B_red, gt,
     return macc, emit_red, ll
 
 
+def stats_segment_t(Tp: int, NL: int) -> int:
+    """B5 / B25's segment length for a [Tp, NL] layout: the kernel gives
+    each (lane, segment) a thread, so the segments set how many threads the
+    card gets and how many partial sums the reduce reads.  A function of
+    the shape alone (not of the layout's ``Tt``, the TPU's tile), so the
+    CPU and the card compute the same function:
+    min(:data:`STATS_SEGMENT_T`, Tp).
+
+    Why 512: the sweep of ``python -m
+    cpgisland_tpu_torch.tools.kernel_variants`` (the kernel alone, H100)
+    over segments of 128 / 256 / 512 / 1 Ki steps.  On the main
+    path's shapes, the genome's 1,390 training chunks of 65,536 steps and
+    its 11,121 ``seq`` lanes of 8,192, 512 was fastest (0.907 and 0.908
+    ms; 256: 0.925 and 0.926; 1 Ki: 1.070 and 1.082, a grid of one wave
+    and a sliver); on 1,024 x 65,536 and 8,192 x 8,192 it ran within 2% of
+    the fastest, 1 Ki (0.660 against 0.651, 0.649 against 0.642).  That
+    512 is also the layout's default t-tile at these shapes is a
+    coincidence the rule does not rely on: a layout prepared with another
+    tile gets the same segments."""
+    return max(1, min(STATS_SEGMENT_T, Tp))
+
+
+def stats_segments_per_block(S: int) -> int:
+    """Segments a block of B5 / B25 sums before the reduce: 4 (a block of
+    32 lanes x 4 segments, 128 threads) where the block's R = 4 S^2 + 2S + 1
+    accumulator columns fit in 200 KB of shared memory, else 1 (S = 16)."""
+    return 4 if (4 * S * S + 2 * S + 1) * 128 * 4 <= 200 * 1024 else 1
+
+
+def _stats_part_rows(Tp: int, NL: int, S: int) -> int:
+    """Partial row sets a lane of B5 / B25 leaves for the reduce."""
+    nseg = -(-Tp // stats_segment_t(Tp, NL))
+    return -(-nseg // stats_segments_per_block(S))
+
+
 def oh_seq_stats(alphas2, betas2, pair2, lens2, tab_ext, B_red, gt, enters_full,
-                 enters_red, pair0m, Tt: int):
+                 enters_red, pair0m):
     """Kernel B5 (replaces ``_oh_seq_stats_kernel``) -> (macc, emit_red, ll).
     Arguments as :func:`oh_seq_stats_plain`; the kernel reduces each lane
-    in segments of ``Tt`` steps, then sums the segments in order (no
-    atomics: the result does not change from run to run)."""
+    in segments of :func:`stats_segment_t` steps, sums each block's
+    :func:`stats_segments_per_block` segments, then the blocks' sums in
+    order (no atomics: the result does not change from run to run)."""
     _check_same_device(pair2, (alphas2, betas2, lens2, tab_ext, B_red, gt,
                                enters_full, enters_red, pair0m))
     if pair2.dim() != 2 or 0 in pair2.shape:
@@ -835,20 +876,19 @@ def oh_seq_stats(alphas2, betas2, pair2, lens2, tab_ext, B_red, gt, enters_full,
     _check("enters_full", enters_full, _F32, (K, NL))
     _check("enters_red", enters_red, _F32, (GROUP, NL))
     _check("pair0m", pair0m, _F32, (1, NL))
-    if Tt <= 0:
-        raise ValueError(f"Tt must be positive, got {Tt}")
     if pair2.device.type == "cpu":
         return oh_seq_stats_plain(alphas2, betas2, pair2, lens2, tab_ext, B_red, gt,
                                   enters_full, enters_red, pair0m)
     dev = pair2.device
     rows = 4 * S * S + 2 * S + 1  # per-lane accumulators: pair bins, emit, ll
-    part = torch.empty((-(-Tp // Tt), rows, NL), dtype=_F32, device=dev)
+    part = torch.empty((_stats_part_rows(Tp, NL, S), rows, NL), dtype=_F32, device=dev)
     macc = torch.empty((K * K, NL), dtype=_F32, device=dev)
     emit_red = torch.empty((2 * S, NL), dtype=_F32, device=dev)
     ll = torch.empty((1, NL), dtype=_F32, device=dev)
     _kernels.launch("oh_seq_stats", alphas2, betas2, pair2, lens2, tab_ext, B_red, gt,
                     enters_full, enters_red, pair0m, part, macc, emit_red, ll,
-                    Tp=Tp, NL=NL, S=S, K=K, Tt=Tt)
+                    Tp=Tp, NL=NL, S=S, K=K, Tt=stats_segment_t(Tp, NL),
+                    SPB=stats_segments_per_block(S))
     return macc, emit_red, ll
 
 
@@ -1054,7 +1094,7 @@ def mat_loglik_lanes(va, alphas2, lens2):
 
 
 def run_seq_stats_onehot(params: HmmParams, alphas2, betas2, pair2, lens2, gt,
-                         enters_red, enters_full, pair0_mask, Tt: int):
+                         enters_red, enters_full, pair0_mask):
     """Z-normalized stats from the reduced streams (power-of-two S).
     Returns (macc [K*K, NL] — trans = A * macc summed over lanes; emit_red
     [2S, NL]; ll [1, NL]).  The chunked caller passes zero enters and an
@@ -1064,7 +1104,7 @@ def run_seq_stats_onehot(params: HmmParams, alphas2, betas2, pair2, lens2, gt,
         raise ValueError("run_seq_stats_onehot: power-of-two S only")
     B_red = reduced_emissions(params, gt)
     return oh_seq_stats(alphas2, betas2, pair2, lens2, prob_tab_ext(params, gt), B_red,
-                        gt.to(_I32).contiguous(), enters_full, enters_red, pair0_mask, Tt)
+                        gt.to(_I32).contiguous(), enters_full, enters_red, pair0_mask)
 
 
 def beta_scale_of(fused: bool, one_pass: bool = False) -> str:
@@ -1375,7 +1415,7 @@ def _stack_keeping_strides(xs) -> torch.Tensor:
 
 
 def oh_seq_stats_stacked(alphas2, betas2, pair2, lens2, tabs, B_reds, gts, enters_full,
-                         enters_red, pair0m, Tt: int):
+                         enters_red, pair0m):
     """Kernel B25 (replaces ``_oh_seq_stats_stacked_kernel``): B5 with a
     member grid dimension -> (macc [M, K*K, NL], emit_red [M, 2S, NL], ll
     [M, 1, NL]).  Arguments member-major versions of :func:`oh_seq_stats`'s;
@@ -1400,20 +1440,19 @@ def oh_seq_stats_stacked(alphas2, betas2, pair2, lens2, tabs, B_reds, gts, enter
     _check("enters_full", enters_full, _F32, (M, K, NL))
     _check("enters_red", enters_red, _F32, (M, GROUP, NL))
     _check("pair0m", pair0m, _F32, (1, NL))
-    if Tt <= 0:
-        raise ValueError(f"Tt must be positive, got {Tt}")
     if pair2.device.type == "cpu":
         return oh_seq_stats_stacked_plain(alphas2, betas2, pair2, lens2, tabs, B_reds, gts,
                                           enters_full, enters_red, pair0m)
     dev = pair2.device
     rows = 4 * S * S + 2 * S + 1
-    part = torch.empty((M, -(-Tp // Tt), rows, NL), dtype=_F32, device=dev)
+    part = torch.empty((M, _stats_part_rows(Tp, NL, S), rows, NL), dtype=_F32, device=dev)
     macc = torch.empty((M, K * K, NL), dtype=_F32, device=dev)
     emit_red = torch.empty((M, 2 * S, NL), dtype=_F32, device=dev)
     ll = torch.empty((M, 1, NL), dtype=_F32, device=dev)
     _kernels.launch("oh_seq_stats_stacked", alphas2, betas2, pair2, lens2, tabs, B_reds, gts,
                     enters_full, enters_red, pair0m, part, macc, emit_red, ll,
-                    Tp=Tp, NL=NL, S=S, K=K, Tt=Tt, M=M)
+                    Tp=Tp, NL=NL, S=S, K=K, Tt=stats_segment_t(Tp, NL),
+                    SPB=stats_segments_per_block(S), M=M)
     return macc, emit_red, ll
 
 
@@ -1424,7 +1463,7 @@ def reduced_emissions(params: HmmParams, gt) -> torch.Tensor:
 
 
 def run_seq_stats_onehot_stacked(params_list, alphas2, betas2, pair2, lens2, enters_red,
-                                 enters_full, pair0_mask, Tt: int) -> list:
+                                 enters_full, pair0_mask) -> list:
     """:func:`run_seq_stats_onehot` for M members of one K (and a
     power-of-two S) in one launch of B25, over the member-major streams of
     :func:`run_fb_kernels_onehot_stacked` (enters_red [M, 2, NL],
@@ -1439,7 +1478,7 @@ def run_seq_stats_onehot_stacked(params_list, alphas2, betas2, pair2, lens2, ent
     B_reds = torch.stack([reduced_emissions(p, gt) for p, gt in zip(params_list, gts)])
     macc, emit_red, ll = oh_seq_stats_stacked(alphas2, betas2, pair2, lens2, tabs, B_reds,
                                               gts.to(_I32).contiguous(), enters_full,
-                                              enters_red, pair0_mask, Tt)
+                                              enters_red, pair0_mask)
     # Each member's counts in an allocation of their own, as a single-model
     # launch returns them: PyTorch's CUDA reductions vectorize only from an
     # aligned start, so a sum over a member's slice of the stacked buffer

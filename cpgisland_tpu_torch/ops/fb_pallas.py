@@ -12,7 +12,10 @@ memory and the K-state vectors in registers:
 - B16 :func:`fb_fwd` (replaces ``_fwd_kernel``): the forward with deferred
   Rabiner scaling, v_t = ((sum_j v_{t-1}[j] A[j, k]) * B[k, o_t]) *
   (1 / sum v_{t-1}), so the stored alphas carry alpha-hat_t * c_t and the
-  scale factors come back as row sums;
+  scale factors come back as row sums; at K <= 4 each lane runs as
+  :func:`fwd_sublanes` sub-lanes joined by exact boundary messages (the
+  step is degree 0 in v_{t-1}, so a message's direction is all a sub-lane
+  needs: :func:`_fwd_sublanes_plain`);
 - B17 :func:`fb_prod` (replaces ``_prod_kernel``): each lane's (+, x)
   product of its step matrices A[m, j] * B[j, o_t] (the identity for PAD),
   renormalized after every 8th step — the lane transfer operators of the
@@ -31,8 +34,8 @@ Each wrapper takes its plain version for a CPU tensor, launches the kernel
 for a CUDA tensor, and raises otherwise.  The plain versions of B16-B19 do
 the kernels' float32 operations in the kernels' order — every K-term sum
 sequential from j = 0, every reciprocal an IEEE division — so kernel and
-plain version agree bit for bit (B18 in one sub-lane is the sequential
-chain; in G > 1 it differs from that chain in the last bits); B20 sums
+plain version agree bit for bit (B16 and B18 in one sub-lane are the
+sequential chains; in G > 1 they differ from them in the last bits); B20 sums
 over time in another order and agrees within a tolerance.  Against the
 JAX package (XLA:CPU contracts products into FMAs and reduces in its own
 order) they agree within the parity tests' tolerances.
@@ -49,10 +52,15 @@ from cpgisland_tpu_torch.ops.viterbi_pallas import _check
 MAX_STATES = 8  # the kernels' register-resident state vectors
 MAX_SYMBOLS = 16  # the kernels' shared-memory emission tables
 ROW_TILE = 8  # B17 renormalizes its product after every ROW_TILE steps
-# B18 runs in sub-lanes up to this K (the csrc BWD_SUB_MAX_K): a sub-lane's
-# K x K transfer matrix a thread costs K^3 operations a step, which at K = 8
-# is the instruction stream B17's first design drowned in.
+# B16 and B18 run in sub-lanes up to this K (the csrc SUB_MAX_K): a
+# sub-lane's K x K transfer matrix a thread costs K^3 operations a step,
+# which at K = 8 is the instruction stream B17's first design drowned in.
 BWD_SUBLANE_MAX_K = 4
+# B16's sub-lanes (:func:`fwd_sublanes`): lanes of FWD_SUBLANES_FROM steps or
+# more run as sub-lanes of FWD_SUBLANE_T steps (at most
+# fb_onehot.MAX_SUBLANES), shorter lanes as one chain.
+FWD_SUBLANE_T = 512
+FWD_SUBLANES_FROM = 8192
 # B18's sub-lanes (:func:`bwd_sublanes`): lanes of BWD_SUBLANES_FROM steps or
 # more run as sub-lanes of BWD_SUBLANE_T steps (at most
 # fb_onehot.MAX_SUBLANES), shorter lanes as one chain.
@@ -103,7 +111,18 @@ def step_table(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
 def fb_fwd_plain(steps2, lens2, a0, A, B) -> torch.Tensor:
     """Plain version of B16 -> alphas [Tp, K, NL]: v_0 = a0; for t >= 1,
     v_t = ((sum_j v_{t-1}[j] * A[j, k]) * B[k, o_t]) * (1 / sum v_{t-1})
-    where t < len, v_{t-1} carried elsewhere."""
+    where t < len, v_{t-1} carried elsewhere.  In one sub-lane
+    (:func:`fwd_sublanes`) the sequential chain; in G > 1,
+    :func:`_fwd_sublanes_plain`."""
+    G = fwd_sublanes(steps2.shape[0], B.shape[0])
+    if G > 1:
+        return _fwd_sublanes_plain(steps2, lens2, a0, A, B, G)
+    return _fwd_chain_plain(steps2, lens2, a0, A, B)
+
+
+def _fwd_chain_plain(steps2, lens2, a0, A, B) -> torch.Tensor:
+    """The sequential forward chain of :func:`fb_fwd_plain` (B16 in one
+    sub-lane)."""
     Tp, NL = steps2.shape
     K, S = B.shape
     out = torch.empty((Tp, K, NL), dtype=_F32, device=steps2.device)
@@ -117,6 +136,99 @@ def fb_fwd_plain(steps2, lens2, a0, A, B) -> torch.Tensor:
         v = torch.where(valid[t], (raw * B[:, o[t]]) * inv, v)
         out[t] = v
     return out
+
+
+def fwd_sublanes(Tp: int, K: int) -> int:
+    """G, the sub-lanes B16 cuts a lane of Tp steps into: 1 at K >
+    :data:`BWD_SUBLANE_MAX_K` or below :data:`FWD_SUBLANES_FROM` steps, else
+    Tp // :data:`FWD_SUBLANE_T`, at most ``fb_onehot.MAX_SUBLANES``; each
+    runs ceil(Tp / G) steps.  A function of Tp and K alone, so the CPU and
+    the card compute the same function.
+
+    Why these numbers: chip_smoke's sweeps at K = 2 (H100, two runs).  At
+    the training batch's 1,024 lanes of 65,536 steps, sub-lanes of 4 Ki
+    steps (G = 16) ran 1.236-1.253 ms, and 2 Ki down to 256 steps all stop
+    at G = 32 (1.034-1.059 ms), against 6.62 in one chain.  At the
+    posterior's 8,192 lanes of 8,192 steps, 4 Ki / 2 Ki / 1 Ki / 512 / 256
+    ran 0.903 / 0.643 / 0.562 / 0.505 / 0.504 ms in one run and 0.849 /
+    0.613 / 0.499 / 0.525 / 0.508 in the other (one chain 0.877-0.957):
+    1 Ki down to 256 within the runs' spread.  So 512: G = 32 on the
+    training batch, 16 on the posterior and ``seq`` lanes.  Lanes below 8
+    Ki steps (the CPU tests' 4-4.5 Ki) stay one chain: no sweep covers
+    them."""
+    if K > BWD_SUBLANE_MAX_K or Tp < FWD_SUBLANES_FROM:
+        return 1
+    return max(1, min(Tp // FWD_SUBLANE_T, fb_onehot.MAX_SUBLANES))
+
+
+def _fwd_sublanes_plain(steps2, lens2, a0, A, B, G: int) -> torch.Tensor:
+    """B16's sub-lane function -> alphas [Tp, K, NL].
+
+    Each lane's steps split into G sub-lanes [g L, min((g + 1) L, Tp)), L =
+    ceil(Tp / G), carried side by side as a [G, NL] axis, in the kernel's
+    three phases and its f32 operations in its order:
+    1. each sub-lane's product P of its step matrices M_t[j, k] = A[j, k] *
+       B[k, o_t] over its valid steps 1 <= t < len, from the identity, the
+       chain's contraction applied to every row, t walking up; after every
+       8th step counted from the sub-lane's start, P times 2^-e with e the
+       binary exponent of its total (row-major, in order);
+    2. the messages, from a0, sub-lane by sub-lane up: sub-lane g enters
+       with v, then v <- v . P_g (each column's terms in order) times 2^-e
+       (e of its sum); a sub-lane without a valid step passes v on
+       unchanged;
+    3. the chain of :func:`fb_fwd_plain` over every sub-lane from its
+       message (sub-lane 0 from a0, so it stores a0 at t = 0); past the
+       last valid step max(len, 1) - 1 every alpha is that step's.
+    The step is degree 0 in v_{t-1} (its sum divides it out), so a message
+    needs only the direction of the alpha before its sub-lane, and a
+    power-of-two scale changes no bit of what the chain computes from it:
+    in exact arithmetic the stored alphas are the sequential chain's."""
+    Tp, NL = steps2.shape
+    K, S = B.shape
+    L = -(-Tp // G)
+    dev = steps2.device
+    t = torch.arange(G, device=dev)[:, None] * L + torch.arange(L, device=dev)  # [G, L]
+    real = t < Tp
+    rows = torch.clamp_max(t, Tp - 1)
+    lens = lens2[0]
+    ok = (t[:, :, None] >= 1) & (t[:, :, None] < lens) & real[:, :, None]  # [G, L, NL]
+    o = torch.clamp(steps2, 0, S - 1).long()
+    A5 = A[None, :, :, None, None]
+
+    def emis(k):  # B[:, o_t] at step k of every sub-lane: [K, G, NL]
+        return B[:, o[rows[:, k]]]
+
+    # Phase 1: P [K (row i), K (column k), G, NL].
+    P = torch.eye(K, dtype=_F32, device=dev)[:, :, None, None].expand(K, K, G, NL)
+    for k in range(L):
+        nP = seq_sum(P[:, :, None] * A5, 1) * emis(k)[None]
+        P = torch.where(ok[:, k], nP, P)
+        if k % 8 == 7:
+            e = _scale_exp(seq_sum(P.reshape(K * K, G, NL), 0))
+            P = torch.where(real[:, k][:, None], P * _pow2(-e), P)
+
+    # Phase 2: each sub-lane's entering direction.
+    has = ok.any(1)
+    v = a0
+    starts = []
+    for g in range(G):
+        starts.append(v)
+        r = seq_sum(v[:, None] * P[:, :, g], 0)
+        e = _scale_exp(seq_sum(r, 0))
+        v = torch.where(has[g], r * _pow2(-e), v)
+
+    # Phase 3: the chains, t = g L up to (g + 1) L - 1.
+    v = torch.stack(starts, 1)  # [K, G, NL]
+    out = []
+    for k in range(L):
+        inv = torch.reciprocal(seq_sum(v, 0))
+        raw = seq_sum(v[:, None] * A[:, :, None, None], 0)  # [k, G, NL]
+        v = torch.where(ok[:, k], (raw * emis(k)) * inv, v)
+        out.append(v)
+    al = torch.stack(out, 0).permute(2, 0, 1, 3).reshape(G * L, K, NL)[:Tp]
+    last = torch.clamp_min(torch.clamp_max(lens, Tp), 1) - 1
+    src = torch.minimum(torch.arange(Tp, device=dev)[:, None], last)  # [Tp, NL]
+    return torch.gather(al, 0, src[:, None, :].expand(Tp, K, NL).long()).contiguous()
 
 
 def bwd_sublanes(Tp: int, K: int) -> int:
@@ -364,7 +476,8 @@ def _check_tables(A: torch.Tensor, B: torch.Tensor):
 
 def fb_fwd(steps2, lens2, a0, A, B) -> torch.Tensor:
     """Kernel B16 (replaces the JAX package's ``_fwd_kernel``) -> alphas
-    [Tp, K, NL] f32.  Arguments as :func:`fb_fwd_plain`."""
+    [Tp, K, NL] f32, the lane in :func:`fwd_sublanes` sub-lanes.  Arguments
+    as :func:`fb_fwd_plain`."""
     _check_device(steps2, (lens2, a0, A, B))
     Tp, NL = _check_stream("steps2", steps2)
     K, S = _check_tables(A, B)
@@ -372,8 +485,12 @@ def fb_fwd(steps2, lens2, a0, A, B) -> torch.Tensor:
     _check("a0", a0, _F32, (K, NL))
     if steps2.device.type == "cpu":
         return fb_fwd_plain(steps2, lens2, a0, A, B)
-    alphas = torch.empty((Tp, K, NL), dtype=_F32, device=steps2.device)
-    _kernels.launch("fb_fwd", steps2, lens2, a0, A, B, alphas, Tp=Tp, NL=NL, K=K, S=S)
+    dev = steps2.device
+    G = fwd_sublanes(Tp, K)
+    alphas = torch.empty((Tp, K, NL), dtype=_F32, device=dev)
+    pbuf = torch.empty((G, K * K, NL) if G > 1 else (1,), dtype=_F32, device=dev)
+    _kernels.launch("fb_fwd", steps2, lens2, a0, A, B, alphas, pbuf, Tp=Tp, NL=NL, K=K, S=S,
+                    G=G)
     return alphas
 
 

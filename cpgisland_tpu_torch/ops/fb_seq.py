@@ -64,7 +64,6 @@ from cpgisland_tpu_torch.ops.forward_backward import SuffStats
 from cpgisland_tpu_torch.ops.prepared import (
     PreparedSeq,
     check_seq,
-    chunked_Tt,
     prepare_chunked,
     prepare_seq,
 )
@@ -407,8 +406,8 @@ def seq_stats(params: HmmParams, obs: torch.Tensor, length: int, *,
 
     Reduced engine (``engine="onehot"``) with a power-of-two alphabet: the
     streams of :func:`_lane_streams` go to B5 (z-normalized counts, in
-    segments of ``t_tile`` steps) with the entering directions for each
-    lane's t == 0 pair; with ``one_pass`` the streams come from B8 and the
+    segments of ``fb_onehot.stats_segment_t`` steps) with the entering
+    directions for each lane's t == 0 pair; with ``one_pass`` the streams come from B8 and the
     loglik from :func:`fb_onehot.mat_loglik_lanes` (B5's sum of log c reads
     matrix-scaled alphas).  The dense engine (``"pallas"``: B17, B16, B18),
     and a reduced model whose alphabet is not a power of two (its streams
@@ -417,7 +416,9 @@ def seq_stats(params: HmmParams, obs: torch.Tensor, length: int, *,
     only; elsewhere the two-pass arm runs, bit for bit as without it.
     ``fused=False`` runs the reduced engine's split chains (B9, B10): B5 is
     z-normalized, so it is exact over their cs-scaled betas.  ``prepared``:
-    the sequence's prep for the engine (built here otherwise)."""
+    the sequence's prep for the engine (built here otherwise).  ``t_tile``
+    is the JAX package's segment knob, kept in the signature: no kernel of
+    this route reads it."""
     onehot = _check_engine(engine)
     K, S = params.n_states, params.n_symbols
     if onehot:
@@ -439,7 +440,7 @@ def seq_stats(params: HmmParams, obs: torch.Tensor, length: int, *,
         pair0_mask = _not_lane0(NL, al2.device).to(_F32)[None, :]  # the global init
         macc, emit_red, ll = fb_onehot.run_seq_stats_onehot(
             params, al2, b2, prep.pair2, lens2, gt, enters_red.T.contiguous(),
-            ent_full.contiguous(), pair0_mask, chunked_Tt(prep.lane_T, t_tile))
+            ent_full.contiguous(), pair0_mask)
         if one_pass:
             ll = ll_lane
         trans, emit, loglik = _assemble_reduced_stats(params, params.A.to(_F32), gt, macc,

@@ -216,7 +216,7 @@ def test_seq_stats_kernel_within_tolerance(cuda_device, NL, T):
     args = (al2, b2, prep.pair2, prep.lens2, tab, B_red, gt.to(torch.int32).contiguous(),
             enters_full, enters_red, pair0m)
     before = _kernels.launches["oh_seq_stats"]
-    got = FB.oh_seq_stats(*args, prep.Tt)
+    got = FB.oh_seq_stats(*args)
     want = FB.oh_seq_stats_plain(*args)
     torch.cuda.synchronize()
     assert _kernels.launches["oh_seq_stats"] == before + 1
@@ -634,13 +634,13 @@ def test_seq_stats_stacked_kernel(cuda_device, NL, M, S):
     args = (al, be, prep.pair2, prep.lens2, tabs, B_reds, gts32, v(M, K, NL), v(M, 2, NL),
             pair0m)
     before = _kernels.launches["oh_seq_stats_stacked"]
-    got = FB.oh_seq_stats_stacked(*args, prep.Tt)
+    got = FB.oh_seq_stats_stacked(*args)
     assert _kernels.launches["oh_seq_stats_stacked"] == before + 1
     for g, w in zip(got, FB.oh_seq_stats_stacked_plain(*args)):
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=1e-5, atol=1e-3)
     for m in range(M):
         single = FB.oh_seq_stats(al[m], be[m], prep.pair2, prep.lens2, tabs[m].contiguous(),
-                                 B_reds[m], gts32[m], args[7][m], args[8][m], pair0m, prep.Tt)
+                                 B_reds[m], gts32[m], args[7][m], args[8][m], pair0m)
         assert all(torch.equal(a, b[m]) for a, b in zip(single, got))
 
 
@@ -1379,3 +1379,112 @@ def test_fb_bwd_wide_and_conf_stay_one_chain(cuda_device, monkeypatch, K):
         got = FP.fb_bwd_conf(steps_next, lens2, cs_next, beta0, alphas, mask, A, B, 4096)
         assert torch.equal(got, FP.fb_bwd_conf_plain(steps_next, lens2, cs_next, beta0, alphas,
                                                      mask, A, B, 4096))
+
+
+# -- B16 in sub-lanes, B5 / B25's segments --------------------------------------------
+
+
+def _dense_fwd_operands(rng, K, NL, T, device):
+    """A seeded K-state model over 4 symbols and ragged lanes for B16 (an
+    empty lane, a one-step lane, a short last lane, PAD tails)."""
+    A = torch.from_numpy(rng.dirichlet(np.ones(K), size=K).astype(np.float32)).to(device)
+    B = torch.from_numpy(rng.dirichlet(np.ones(4), size=K).astype(np.float32)).to(device)
+    steps = rng.integers(0, 4, size=(T, NL)).astype(np.int32)
+    lens = np.full((1, NL), T, np.int32)
+    lens[0, -1] = max(1, T // 3)
+    if NL > 3:
+        lens[0, 1:3] = [0, 1]
+        lens[0, 3:-1] = rng.integers(1, T + 1, size=NL - 4)
+    steps[np.arange(T)[:, None] >= lens] = 4
+    a0 = torch.from_numpy((rng.random((K, NL)) + 0.1).astype(np.float32)).to(device)
+    return tuple(torch.from_numpy(x).to(device) for x in (steps, lens)) + (a0, A, B)
+
+
+@pytest.mark.parametrize("NL,T,sub", [(33, 4099, 300), (1024, 65536, None), (1024, 65536, 4096),
+                                      (130, 9000, 1 << 20), (40, 3000, 93), (8, 8192, None)])
+@pytest.mark.parametrize("K", [1, 2, 3, 4])
+def test_fb_fwd_sublanes_bit_equal(cuda_device, monkeypatch, K, NL, T, sub):
+    """B16 at K <= 4 in sub-lanes (G = 8 to 32) and in one (G = 1): bit-equal
+    to its plain version, ragged lanes and lanes ending inside and past a
+    sub-lane included."""
+    from cpgisland_tpu_torch.ops import fb_pallas as FP
+
+    if sub is not None:
+        monkeypatch.setattr(FP, "FWD_SUBLANE_T", sub)
+        monkeypatch.setattr(FP, "FWD_SUBLANES_FROM", 1)
+    rng = np.random.default_rng(K * 100 + NL + T)
+    args = _dense_fwd_operands(rng, K, NL, T, cuda_device)
+    assert (FP.fwd_sublanes(T, K) == 1) == (sub == 1 << 20)
+    before = _kernels.launches["fb_fwd"]
+    got = FP.fb_fwd(*args)
+    torch.cuda.synchronize()
+    assert _kernels.launches["fb_fwd"] == before + 1
+    assert torch.equal(got, FP.fb_fwd_plain(*args))
+    assert bool(torch.isfinite(got).all())
+
+
+@pytest.mark.parametrize("K", [5, 8])
+def test_fb_fwd_wide_stays_one_chain(cuda_device, monkeypatch, K):
+    """B16 at K >= 5 keeps one thread a chain: with the sub-lane length
+    lowered it still equals the sequential plain chain bit for bit."""
+    from cpgisland_tpu_torch.ops import fb_pallas as FP
+
+    monkeypatch.setattr(FP, "FWD_SUBLANE_T", 300)
+    monkeypatch.setattr(FP, "FWD_SUBLANES_FROM", 1)
+    args = _dense_fwd_operands(np.random.default_rng(K), K, 70, 4099, cuda_device)
+    assert FP.fwd_sublanes(4099, K) == 1
+    assert torch.equal(FP.fb_fwd(*args), FP._fwd_chain_plain(*args))
+
+
+@pytest.mark.parametrize("seg", [256, 2048])
+@pytest.mark.parametrize("NL,T", [(33, 4099), (1024, 65536), (40, 9)])
+def test_seq_stats_segments_within_tolerance(cuda_device, monkeypatch, NL, T, seg):
+    """B5 at two segment lengths: within rtol 1e-5 / atol 1e-3 of its plain
+    version, and two launches give the same bits (no atomics)."""
+    from cpgisland_tpu_torch.ops import fb_onehot as FB
+
+    monkeypatch.setattr(FB, "STATS_SEGMENT_T", seg)
+    rng = np.random.default_rng(NL * 13 + T + seg)
+    params, prep, gt, a0, b0, tab = _fb_inputs(rng, NL, T, cuda_device)
+    al2, b2 = FB.oh_fwdbwd(prep.pair2, prep.pairn2, prep.lens2, a0, b0, tab, T)
+    K, S = params.n_states, params.n_symbols
+    dev = lambda x: torch.from_numpy(x.astype(np.float32)).to(cuda_device)  # noqa: E731
+    args = (al2, b2, prep.pair2, prep.lens2, tab, FB.reduced_emissions(params, gt),
+            gt.to(torch.int32).contiguous(), dev(rng.random((K, NL))), dev(rng.random((2, NL))),
+            dev(rng.integers(0, 2, size=(1, NL))))
+    got = FB.oh_seq_stats(*args)
+    again = FB.oh_seq_stats(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for g, w in zip(got, FB.oh_seq_stats_plain(*args)):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("seg", [256, 2048])
+@_STACK_GRID
+def test_seq_stats_stacked_segments(cuda_device, monkeypatch, S, seg):
+    """B25 at two segment lengths: within B5's tolerance of its plain
+    version, each member equal to its own B5 bit for bit, and two launches
+    equal."""
+    from cpgisland_tpu_torch.ops import fb_onehot as FB
+
+    monkeypatch.setattr(FB, "STATS_SEGMENT_T", seg)
+    M, NL, T = 2, 33, 4099
+    rng, members, prep, gts, tabs = _stacked_batch(NL, T, S, M, cuda_device)
+    K = 2 * S
+    v = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.random(shape).astype(np.float32) + 0.01).to(cuda_device)
+    al, be = FB.oh_fwdbwd_stacked(prep.pair2, prep.pairn2, prep.lens2, v(M, 2, NL),
+                                  v(M, 2, NL), tabs, T)
+    B_reds = torch.stack([FB.reduced_emissions(p, gt) for p, gt in zip(members, gts)])
+    gts32 = gts.to(torch.int32).contiguous()
+    pair0m = torch.from_numpy(rng.integers(0, 2, size=(1, NL)).astype(np.float32)).to(cuda_device)
+    args = (al, be, prep.pair2, prep.lens2, tabs, B_reds, gts32, v(M, K, NL), v(M, 2, NL),
+            pair0m)
+    got = FB.oh_seq_stats_stacked(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, FB.oh_seq_stats_stacked(*args)))
+    for g, w in zip(got, FB.oh_seq_stats_stacked_plain(*args)):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=1e-5, atol=1e-3)
+    for m in range(M):
+        single = FB.oh_seq_stats(al[m], be[m], prep.pair2, prep.lens2, tabs[m].contiguous(),
+                                 B_reds[m], gts32[m], args[7][m], args[8][m], pair0m)
+        assert all(torch.equal(a, b[m]) for a, b in zip(single, got))

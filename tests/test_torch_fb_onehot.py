@@ -129,7 +129,7 @@ def test_seq_stats_plain_matches_xla_twin(rng, enters):
         jprep.lens2[:, :N], jgt, jnp.asarray(er), jnp.asarray(ef), jnp.asarray(m0))
     got = TFB.run_seq_stats_onehot(tp, al, be, tprep.pair2, tprep.lens2, TOH._groups(tp),
                                    torch.from_numpy(er), torch.from_numpy(ef),
-                                   torch.from_numpy(m0), tprep.Tt)
+                                   torch.from_numpy(m0))
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5)
 
@@ -183,10 +183,10 @@ def test_wrappers_refuse_bad_operands(rng):
     z = torch.zeros
     with pytest.raises(ValueError, match="K == 2S"):
         TFB.oh_seq_stats(al, be, tprep.pair2, tprep.lens2, tab, z(4, 2), gt, z(6, 3),
-                         z(2, 3), z(1, 3), 512)
+                         z(2, 3), z(1, 3))
     with pytest.raises(ValueError):
         TFB.oh_seq_stats(al, be, tprep.pair2, tprep.lens2, tab, z(4, 2), gt, z(8, 3),
-                         z(2, 3), z(1, 3), 0)
+                         z(2, 3), z(2, 3))  # pair0m shape
     # The split arm runs: its forward (B9) is B4's, bit for bit.
     al_s, _, _ = TFB.run_fb_kernels_onehot(tp, tprep.sel2, 0, tprep.lens2, a0.repeat(4, 1),
                                            torch.ones(8, 3), 100, fused=False)

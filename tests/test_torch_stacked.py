@@ -109,11 +109,10 @@ def test_seq_stats_stacked_plain_equals_single(rng, S, M):
                                    _rand(rng, M, 2, NL), tabs, T)
     ef, er = _rand(rng, M, K, NL), _rand(rng, M, 2, NL)
     m0 = torch.from_numpy((rng.random((1, NL)) < 0.5).astype(np.float32))
-    got = TFB.run_seq_stats_onehot_stacked(tps, al, be, prep.pair2, prep.lens2, er, ef, m0,
-                                           prep.Tt)
+    got = TFB.run_seq_stats_onehot_stacked(tps, al, be, prep.pair2, prep.lens2, er, ef, m0)
     for m, p in enumerate(tps):
         want = TFB.run_seq_stats_onehot(p, al[m], be[m], prep.pair2, prep.lens2, gts[m], er[m],
-                                        ef[m], m0, prep.Tt)
+                                        ef[m], m0)
         assert all(torch.equal(g, w) for g, w in zip(got[m], want))
 
 
@@ -189,8 +188,7 @@ def test_seq_stats_stacked_matches_xla_twin(rng):
                                    _rand(rng, 3, 2, NL), tabs, T)
     ef, er = _rand(rng, 3, K, NL), _rand(rng, 3, 2, NL)
     m0 = torch.from_numpy((rng.random((1, NL)) < 0.5).astype(np.float32))
-    got = TFB.run_seq_stats_onehot_stacked(tps, al, be, prep.pair2, prep.lens2, er, ef, m0,
-                                           prep.Tt)
+    got = TFB.run_seq_stats_onehot_stacked(tps, al, be, prep.pair2, prep.lens2, er, ef, m0)
     twin = jax.jit(JFB._xla_znorm_stats)
     for m, jp in enumerate(jps):
         want = twin(jp, jnp.asarray(al[m].numpy()), jnp.asarray(be[m].numpy()),
