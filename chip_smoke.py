@@ -11,7 +11,8 @@ JSON line each:
 
 1. card: name and power limit, kernel build time, and (its own line) the
    ptxas registers and spills of the kernels redesigned (B4, B24, B17, B7
-   / B21, B18 and B16 with their sub-lane kernels, and B5's part kernel);
+   / B21, B18 and B16 with their sub-lane kernels, B5's part kernel, and
+   the scoring kernels, one chain and in sub-lanes);
 2. kernels: B1-B3 at full size (bk=4096, nb=16384: 64 Mi steps, PAD runs
    and record resets in the pair stream), B4-B5 at NL=1024 lanes x
    Tp=65,536 steps (ragged lengths, a short last lane, PAD tails), and B7
@@ -117,8 +118,12 @@ JSON line each:
 17-20. the stacked kernels (B21, B24, B25; against their plain versions at
    M = 2, per member against B7 / B4 / B5 at every M; B21 and B24 also in
    one sub-lane per member against B7 / B4 in one sub-lane) and the scoring
-   kernels, the compare main path (three casts, stacked against
-   sequential) and ``fit_family`` against solo fits;
+   kernels (in sub-lanes and in one, against their plain versions, at the
+   genome record's lanes and at compare's shapes; their sub-lane sweep; the
+   record in lanes of 512 steps; a stacked group's members against their
+   own launches), the compare main path (three casts, stacked against
+   sequential, with the score phase of each) and ``fit_family`` against
+   solo fits;
 21. flat-batch scores: ``viterbi_parallel_batch(engine="onehot")`` over the
    256 scaffolds in one padded batch (B6 exactly once, B2 never); the
    batch again through the plain B1, B6 and B3 on the card gives the same
@@ -276,13 +281,21 @@ SWEEP_FWD_SUBLANE_T = (256, 512, 1024, 2048, 4096)
 # B5's segment lengths (fb_onehot.STATS_SEGMENT_T) timed at the training and
 # the seq geometry, beside the layout's old t-tile segments.
 SWEEP_STATS_SEGMENT_T = (128, 256, 512, 1024, 2048, 4096)
+# The scoring kernels' sub-lane lengths (loglik.LOGLIK_SUBLANE_T) timed beside
+# the default and one sub-lane at the genome record's lanes and compare's.
+SWEEP_LOGLIK_SUBLANE_T = (2048, 1024, 512, 256)
 # The redesigned kernels whose ptxas registers and spills are printed.
 REDESIGNED = ("oh_fwdbwd_kernel", "oh_fwdbwd_stacked_kernel", "fb_prod_kernel",
               "oh_prod_kernel", "fb_bwd_kernel", "fb_bwd_sub_kernel", "fb_fwd_kernel",
-              "fb_fwd_sub_kernel", "oh_seq_stats_part_kernel")
+              "fb_fwd_sub_kernel", "oh_seq_stats_part_kernel", "oh_loglik_kernel",
+              "oh_loglik_sub_kernel", "fb_loglik_kernel", "fb_loglik_sub_kernel")
 H100_SMS, SMEM_PER_SM, SMEM_PER_BLOCK_RESERVED = 132, 228 * 1024, 1024
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+F64_OPS_PER_S = 34e12  # H100 SXM float64 outside the tensor cores
+# float64 operations counted for one log in the scoring kernels' bound: its
+# range reduction and a polynomial of about ten terms in FMAs.
+LOG_F64_OPS = 20
 
 # name -> (the TPU kernel it replaces, its CUDA source)
 KERNELS = {
@@ -481,6 +494,13 @@ def fwd_sublane_length(st: int):
 def stats_segment_length(st: int):
     """B5 / B25 with segments of ``st`` steps (``fb_onehot.STATS_SEGMENT_T``)."""
     return patched(FB, STATS_SEGMENT_T=st)
+
+
+def loglik_sublane_length(st: int):
+    """The scoring kernels with sub-lanes of ``st`` steps
+    (``loglik.LOGLIK_SUBLANE_T``; lanes of 8 Ki steps or more); ``st`` = the
+    lane length gives one."""
+    return patched(LL, LOGLIK_SUBLANE_T=st)
 
 
 def prod_sublane_length(st: int):
@@ -2080,14 +2100,126 @@ def _captured(fn, module, name: str):
     return out, seen[-1]
 
 
+def wall_s(fn, runs: int = 5) -> float:
+    """Median host seconds of ``fn`` (one that returns a host value, so each
+    call ends synchronized) over ``runs`` calls after one warm call."""
+    fn()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def _scoring_sublanes(name: str, args) -> int:
+    """G of the scoring kernel ``name`` on ``args`` (loglik.loglik_sublanes)."""
+    Tp = args[0].shape[0]
+    if name == "oh_loglik":
+        return LL.loglik_sublanes(Tp)
+    return LL.loglik_sublanes(Tp, args[2].shape[0])
+
+
+def _scoring_lanes_per_block(name: str, args) -> int:
+    """The lanes a block of the scoring kernel ``name`` holds on ``args``
+    where G > 1 (loglik._lanes_per_block)."""
+    M = args[1].shape[0] if name == "oh_loglik" else 1
+    sms = torch.cuda.get_device_properties(args[0].device).multi_processor_count
+    return LL._lanes_per_block(args[0].shape[1], M, sms)
+
+
+def scoring_g1(name: str, args, check: bool = True) -> dict:
+    """The scoring kernel ``name`` on ``args`` in one sub-lane (G = 1): its
+    lane sums (``out``) and time, and where ``check``, its plain version's
+    time and agreement (rtol 1e-12)."""
+    kernel, plain = getattr(LL, name), getattr(LL, f"{name}_plain")
+    with loglik_sublane_length(args[0].shape[0]):
+        out = kernel(*args)
+        row = {"g1_ms": time_ms(lambda: kernel(*args), runs=10)}
+        if check:
+            want, row["g1_plain_ms"] = timed_once(lambda: plain(*args))
+            row["g1_agrees"] = bool(torch.allclose(out, want, rtol=1e-12, atol=0))
+    return row | {"out": out}
+
+
+def scoring_sweep(name: str, args, g1: torch.Tensor) -> dict:
+    """The scoring kernel ``name`` on ``args`` at each SWEEP_LOGLIK_SUBLANE_T:
+    G, time and the largest relative difference of its lane sums from the
+    G = 1 sums ``g1``."""
+    kernel = getattr(LL, name)
+    sweep = {}
+    for st in SWEEP_LOGLIK_SUBLANE_T:
+        with loglik_sublane_length(st):
+            got = kernel(*args)
+            sweep[str(st)] = {"G": _scoring_sublanes(name, args),
+                              "ms": time_ms(lambda: kernel(*args), runs=10),
+                              "max_rel_vs_g1": max_rel_diff(got, g1)}
+    return sweep
+
+
+def scoring_shape(name: str, params, obs: torch.Tensor, label: str) -> dict:
+    """The scoring kernel at the shape ``sequence_loglik`` gives it on
+    ``obs`` (compare's records): at its default G against its plain version
+    (rtol 1e-12), timed beside G = 1, the sweep and the record in lanes of
+    512 steps (kernel and whole ``sequence_loglik``)."""
+    ll, (args, _) = _captured(lambda: LL.sequence_loglik(params, obs), LL, name)
+    kernel, plain = getattr(LL, name), getattr(LL, f"{name}_plain")
+    got = kernel(*args)
+    agree = bool(torch.allclose(got, plain(*args), rtol=1e-12, atol=0))
+    g1 = scoring_g1(name, args, check=False)
+    _, (args512, _) = _captured(lambda: LL.sequence_loglik(params, obs, lane_T=512), LL, name)
+    row = {"shape": label, "Tp": args[0].shape[0], "NL": args[0].shape[1],
+           "G": _scoring_sublanes(name, args),
+           "lanes_per_block": _scoring_lanes_per_block(name, args), "agrees": agree,
+           "ms": time_ms(lambda: kernel(*args), runs=10), "g1_ms": g1["g1_ms"],
+           "max_rel_vs_g1": max_rel_diff(got, g1["out"]), "loglik": ll,
+           "sequence_loglik_wall_s": wall_s(lambda: LL.sequence_loglik(params, obs)),
+           "sweep": scoring_sweep(name, args, g1["out"]),
+           "lane512": {"ms": time_ms(lambda: kernel(*args512), runs=10),
+                       "sequence_loglik_wall_s": wall_s(
+                           lambda: LL.sequence_loglik(params, obs, lane_T=512))}}
+    if not (agree and np.isfinite(ll)):
+        raise SystemExit(f"chip_smoke: {name} at {label} disagrees with its plain version, or "
+                         f"scored {ll}")
+    return row
+
+
+def scoring_stacked(obs: torch.Tensor, dev) -> None:
+    """The reduced scoring kernel for a stacked group (the flagship and two
+    random partition=2 members, M = 3) on the genome record's lanes: one
+    launch, each member's lane sums equal to its own M = 1 launch bit for
+    bit, timed beside M single launches."""
+    members = family_members(torch.Generator().manual_seed(15), dev, 4, 3)
+    _, (args, got) = _captured(lambda: LL.sequence_loglik_stacked(members, obs), LL,
+                               "oh_loglik")
+    pair2, enter, tabs = args
+    singles = [(pair2, enter[m : m + 1].contiguous(), tabs[m : m + 1].contiguous())
+               for m in range(len(members))]
+    equal = all(torch.equal(LL.oh_loglik(*a)[0], got[m]) for m, a in enumerate(singles))
+    emit({"phase": "scoring_stacked", "M": len(members), "Tp": pair2.shape[0],
+          "NL": pair2.shape[1], "G": LL.loglik_sublanes(pair2.shape[0]),
+          "lanes_per_block": _scoring_lanes_per_block("oh_loglik", args),
+          "members_equal_single": equal,
+          "ms": time_ms(lambda: LL.oh_loglik(*args), runs=10),
+          "single_ms": [time_ms(lambda a=a: LL.oh_loglik(*a), runs=10) for a in singles]})
+    if not equal:
+        raise SystemExit("chip_smoke: a stacked scoring member differs from its own launch")
+
+
 def scoring_kernel_phase(big: np.ndarray, dev) -> dict:
     """The scoring kernels on the genome's 64 Mi record (the lanes of the
-    posterior, 8,192 x 8,192) for the flagship (reduced chain), two_state
-    and null (dense chain, K = 2 and 1): the chain kernels against their
-    plain versions on the same lanes (rtol 1e-5 per lane), and the whole
-    sequence_loglik on a 4 Mi prefix through the kernels and through the
-    plain chains (rtol 1e-5).  Returns the rows: the flagship's oh_loglik
-    and two_state's fb_loglik."""
+    posterior, 8,192 x 8,192: G = 32 sub-lanes of 256 steps) for the
+    flagship (reduced chain), two_state and null (dense chain, K = 2 and 1):
+    the kernels against their plain versions on the same lanes (rtol 1e-12
+    per lane: the float32 chains bit for bit, the float64 logs to their
+    last bits), at their default G and in one sub-lane (G = 1), the sweep
+    of SWEEP_LOGLIK_SUBLANE_T, the same record through the kernels in lanes
+    of 512 steps (G = 1: the bar the sub-lanes must beat), compare's shapes
+    (one placed 16 Ki record, NL = 2; the 8 Mi record, NL = 1,024) at G > 1
+    and G = 1, a stacked group's members against their own launches, and
+    the whole sequence_loglik on a 4 Mi prefix through the kernels and
+    through the plain chains (rtol 1e-5).  Returns the rows: the flagship's
+    oh_loglik and two_state's fb_loglik."""
     results = {}
     obs = torch.from_numpy(big).to(dev)
     for model, params in (("durbin8", presets.durbin_cpg8(device=dev)),
@@ -2095,25 +2227,43 @@ def scoring_kernel_phase(big: np.ndarray, dev) -> dict:
                           ("null", presets.null_background(4, device=dev))):
         name = "oh_loglik" if LL.scoring_engine(params) == "onehot" else "fb_loglik"
         LL.sequence_loglik(params, obs[: 1 << 20])  # warm
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         ll, (args, _) = _captured(lambda: LL.sequence_loglik(params, obs), LL, name)
-        wall = time.perf_counter() - t0
+        wall = wall_s(lambda: LL.sequence_loglik(params, obs))
         kernel, plain = getattr(LL, name), getattr(LL, f"{name}_plain")
         got = kernel(*args)
         want, plain_ms = timed_once(lambda: plain(*args))
-        agree = bool(torch.allclose(got, want, rtol=1e-5, atol=0))
+        agree = bool(torch.allclose(got, want, rtol=1e-12, atol=0))
+        g1 = scoring_g1(name, args)
+        sweep = scoring_sweep(name, args, g1["out"])
+        ll512, (args512, _) = _captured(lambda: LL.sequence_loglik(params, obs, lane_T=512),
+                                        LL, name)
+        wall512 = wall_s(lambda: LL.sequence_loglik(params, obs, lane_T=512))
+        ms512 = time_ms(lambda: kernel(*args512), runs=10)
+        del args512
+        shapes = [scoring_shape(name, params, obs[:n], label)
+                  for n, label in ((16 << 10, "placed 16 Ki record"),
+                                   (COMPARE_SYMBOLS, "compare's 8 Mi record"))]
         Tp, NL = args[0].shape
         real = int((args[0] < (params.n_symbols ** 2 if name == "oh_loglik"
                                else params.n_symbols)).sum())
         K = params.n_states
-        ops = 10 * real if name == "oh_loglik" else (2 * K * K + 2 * K + 1) * real
+        f32 = 10 * real if name == "oh_loglik" else (2 * K * K + 2 * K + 1) * real
+        # The bound's operations: the float32 chain, and the float64 log and
+        # add of every real step at the float64 rate, as float32-time.
+        ops = f32 + real * (LOG_F64_OPS + 1) * F32_OPS_PER_S / F64_OPS_PER_S
         row = kernel_row(name, agree, max_abs_err(got, want), lambda: kernel(*args), plain_ms,
                          4 * Tp * NL + 4 * args[1].numel() + 8 * got.numel(), ops, Tp * NL,
-                         model=model, K=K,
-                         tolerance="rtol 1e-5 per lane", record_symbols=int(big.size),
-                         loglik=ll, sequence_loglik_wall_s=wall)
-        if not (agree and np.isfinite(ll)):
+                         model=model, K=K, sublanes=_scoring_sublanes(name, args),
+                         lanes_per_block=_scoring_lanes_per_block(name, args),
+                         tolerance="rtol 1e-12 per lane", record_symbols=int(big.size),
+                         loglik=ll, sequence_loglik_wall_s=wall,
+                         g1_ms=g1["g1_ms"], g1_plain_ms=g1["g1_plain_ms"],
+                         g1_agrees=g1["g1_agrees"],
+                         max_rel_vs_g1=max_rel_diff(got, g1["out"]), sweep=sweep,
+                         lane512={"ms": ms512, "sequence_loglik_wall_s": wall512,
+                                  "loglik": ll512},
+                         compare_shapes=shapes)
+        if not (agree and g1["g1_agrees"] and np.isfinite(ll)):
             raise SystemExit(f"chip_smoke: the {model} scoring kernel disagrees with its plain "
                              f"version, or scored {ll}")
         prefix = obs[:PARITY_SYMBOLS]
@@ -2131,6 +2281,7 @@ def scoring_kernel_phase(big: np.ndarray, dev) -> dict:
             raise SystemExit(f"chip_smoke: {model} scores differently through the plain chain")
         if model in ("durbin8", "two_state"):
             results[name] = row
+    scoring_stacked(obs, dev)
     return results
 
 

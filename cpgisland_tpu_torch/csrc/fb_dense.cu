@@ -93,21 +93,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dense_steps.cuh"
+
 #define MAX_K 8
 #define MAX_S 16
 #define CHAIN_THREADS 32
 #define LOOKAHEAD 8
 #define STATS_THREADS 64
 #define REDUCE_THREADS 128
-
-// Sequential K-term sum in round-to-nearest: x[0] + x[1] + ... + x[K-1].
-template <int K>
-__device__ __forceinline__ float seq_sum(const float (&x)[K]) {
-  float s = x[0];
-#pragma unroll
-  for (int k = 1; k < K; ++k) s = __fadd_rn(s, x[k]);
-  return s;
-}
 
 // q[r] = the int at step first + step * r of a lane's stream, 0 outside [0, Tp).
 __device__ __forceinline__ void load_ints(const int32_t* p, size_t stride, int first, int step,
@@ -138,21 +131,6 @@ __device__ __forceinline__ void load_tables(float* s_A, float* s_B, const float*
 
 // ---------------------------------------------------------------------------
 // B16: the forward chain.
-
-// A forward step's contraction without the division: nv[k] = (sum_j v[j]
-// A[j, k]) * B[k, o], j in order, the chain's (fwd_range's) operations.
-// B16's sub-lane product applies it to each row of its matrix.
-template <int K>
-__device__ __forceinline__ void fwd_contract(const float* s_A, const float* s_B, int S, int o,
-                                             const float (&v)[K], float (&nv)[K]) {
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    float acc = __fmul_rn(v[0], s_A[k]);
-#pragma unroll
-    for (int j = 1; j < K; ++j) acc = __fadd_rn(acc, __fmul_rn(v[j], s_A[j * K + k]));
-    nv[k] = __fmul_rn(acc, s_B[k * S + o]);
-  }
-}
 
 // B16's chain over steps [tb, te) of a lane, 1 <= tb, from v, the alpha of
 // step tb - 1: v_t = ((sum_j v[j] A[j, k]) * B[k, o_t]) * (1 / sum v) where
@@ -369,16 +347,6 @@ fb_bwd_kernel(const int32_t* __restrict__ steps_next, const int32_t* __restrict_
 
 #define SUB_LANES_MAX 32
 #define SUB_MAX_K 4  // B16 and B18 run in sub-lanes up to this K
-
-// 2^e for -126 <= e <= 126: a normal float, so a product by it is exact
-// unless the product leaves the normal range.
-__device__ __forceinline__ float pow2f(int e) { return __int_as_float((e + 127) << 23); }
-
-// x's binary exponent (frexp's: x = m 2^e, 0.5 <= m < 1, for a normal x;
-// -126 for 0 and subnormals), clamped to [-126, 126].
-__device__ __forceinline__ int scale_exp(float x) {
-  return min(max(((__float_as_int(x) >> 23) & 0xff) - 126, -126), 126);
-}
 
 // Phase 1: Q_g and E_g of the sub-lane [tb, te) into dst (lane column, rows
 // nl apart).  p and c: the lane's steps_next and cs_next columns.

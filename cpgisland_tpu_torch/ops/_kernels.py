@@ -3,8 +3,9 @@
 The sources under ``cpgisland_tpu_torch/csrc/`` expose a plain C interface.
 At first use each is compiled with ``nvcc`` for Hopper (``sm_90a``) into a
 shared library under ``build/torch_kernels/`` beside the package (named by
-a hash of source and flags, so an edited source rebuilds) — one ``nvcc``
-per source, all started together — and loaded with ctypes.  Nothing is
+a hash of source, the shared headers ``csrc/*.cuh`` and flags, so an
+edited source or header rebuilds) — one ``nvcc`` per source, all started
+together — and loaded with ctypes.  Nothing is
 built or loaded at import time: the CPU tests import every module, and the
 CPU has no ``nvcc``.
 
@@ -64,8 +65,8 @@ _SIGNATURES = {
     "oh_fwd_strm": ("fb_onehot", 4, ("Tp", "NL")),
     "oh_fwd_comp": ("fb_onehot", 4, ("H", "NL")),
     "oh_fwd_compsel": ("fb_onehot", 7, ("H", "NL", "S")),
-    "oh_loglik": ("loglik", 4, ("Tp", "NL", "nreal", "M")),
-    "fb_loglik": ("loglik", 5, ("Tp", "NL", "K", "S")),
+    "oh_loglik": ("loglik", 4, ("Tp", "NL", "nreal", "G", "LB", "M")),
+    "fb_loglik": ("loglik", 5, ("Tp", "NL", "K", "S", "G", "LB")),
     "dense_products": ("viterbi_dense", 4, ("bk", "nb", "K", "S")),
     "dense_backpointers": ("viterbi_dense", 7, ("bk", "nb", "K", "S")),
     "dense_backtrace": ("viterbi_dense", 3, ("bk", "nb")),
@@ -115,15 +116,17 @@ def _build_all() -> dict:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out, procs = {}, {}
     t0 = time.perf_counter()
+    headers = b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
     for stem in SOURCES:
         src = _CSRC / f"{stem}.cu"
-        tag = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        tag = hashlib.sha256(src.read_bytes() + headers
+                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
         lib = BUILD_DIR / f"lib{stem}_{tag}.so"
         out[stem] = lib
         if not lib.exists():
             tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
             procs[stem] = (tmp, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                [nvcc, *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp), str(src)],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             ))
     reports, failed = {}, []

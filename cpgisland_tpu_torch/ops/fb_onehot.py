@@ -216,12 +216,38 @@ def _prod_sublanes_plain(pair2: torch.Tensor, tabs: torch.Tensor, G: int) -> tor
     Each lane's steps split into G sub-lanes [g L, min((g + 1) L, Tp)), L =
     ceil(Tp / G), carried side by side as a [G, NL] axis, in the kernel's
     two phases and its f32 operations in its order:
-    1. each sub-lane's product of its steps from the identity, C <- C . T
-       entry by entry, times 1 / max(((C00 + C01) + C10) + C11, 1e-30)
-       after every 8th step of the sub-lane;
+    1. each sub-lane's product of its steps (:func:`_sub_products_plain`);
     2. from the identity, the sub-lanes' products composed in order, each
        composition :func:`oh_prod_plain`'s step (its product, then every
        entry over its total); an empty sub-lane (g L >= Tp) is skipped."""
+    Tp = pair2.shape[0]
+    L = -(-Tp // G)
+    c00, c01, c10, c11 = _sub_products_plain(pair2, tabs, G)
+    one = torch.ones_like(c00[:, 0])
+    zero = torch.zeros_like(one)
+    C00, C01, C10, C11 = one, zero, zero, one
+    for g in range(G):
+        if g * L >= Tp:
+            break
+        p00, p01, p10, p11 = (c[:, g] for c in (c00, c01, c10, c11))
+        n00 = C00 * p00 + C01 * p10
+        n01 = C00 * p01 + C01 * p11
+        n10 = C10 * p00 + C11 * p10
+        n11 = C10 * p01 + C11 * p11
+        tot = torch.clamp_min(((n00 + n01) + n10) + n11, 1e-30)
+        C00, C01, C10, C11 = n00 / tot, n01 / tot, n10 / tot, n11 / tot
+    return torch.stack([C00, C01, C10, C11], dim=1)
+
+
+def _sub_products_plain(pair2: torch.Tensor, tabs: torch.Tensor, G: int):
+    """The sub-lanes' 2x2 products of M members over one pair stream (the
+    kernels' ``sub_prod``: B7 / B21's phase 1, and the reduced scoring
+    chain's) -> (C00, C01, C10, C11), each [M, G, NL].
+
+    Sub-lane g holds steps [g L, min((g + 1) L, Tp)), L = ceil(Tp / G); from
+    the identity, C <- C . T entry by entry at every step (a PAD pair takes
+    the identity row), times 1 / max(((C00 + C01) + C10) + C11, 1e-30) after
+    every 8th step of the sub-lane."""
     Tp, NL = pair2.shape
     M, nP = tabs.shape[0], tabs.shape[1]
     L = -(-Tp // G)
@@ -242,19 +268,7 @@ def _prod_sublanes_plain(pair2: torch.Tensor, tabs: torch.Tensor, G: int) -> tor
         if k % 8 == 7:
             inv = torch.reciprocal(torch.clamp_min(((c00 + c01) + c10) + c11, 1e-30))
             c00, c01, c10, c11 = (torch.where(r, c * inv, c) for c in (c00, c01, c10, c11))
-    one, zero = one[:, 0], zero[:, 0]
-    C00, C01, C10, C11 = one, zero, zero, one
-    for g in range(G):
-        if g * L >= Tp:
-            break
-        p00, p01, p10, p11 = (c[:, g] for c in (c00, c01, c10, c11))
-        n00 = C00 * p00 + C01 * p10
-        n01 = C00 * p01 + C01 * p11
-        n10 = C10 * p00 + C11 * p10
-        n11 = C10 * p01 + C11 * p11
-        tot = torch.clamp_min(((n00 + n01) + n10) + n11, 1e-30)
-        C00, C01, C10, C11 = n00 / tot, n01 / tot, n10 / tot, n11 / tot
-    return torch.stack([C00, C01, C10, C11], dim=1)
+    return c00, c01, c10, c11
 
 
 def oh_prod(pair2: torch.Tensor, tab_ext: torch.Tensor) -> torch.Tensor:

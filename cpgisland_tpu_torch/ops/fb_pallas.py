@@ -193,29 +193,8 @@ def _fwd_sublanes_plain(steps2, lens2, a0, A, B, G: int) -> torch.Tensor:
     lens = lens2[0]
     ok = (t[:, :, None] >= 1) & (t[:, :, None] < lens) & real[:, :, None]  # [G, L, NL]
     o = torch.clamp(steps2, 0, S - 1).long()
-    A5 = A[None, :, :, None, None]
-
-    def emis(k):  # B[:, o_t] at step k of every sub-lane: [K, G, NL]
-        return B[:, o[rows[:, k]]]
-
-    # Phase 1: P [K (row i), K (column k), G, NL].
-    P = torch.eye(K, dtype=_F32, device=dev)[:, :, None, None].expand(K, K, G, NL)
-    for k in range(L):
-        nP = seq_sum(P[:, :, None] * A5, 1) * emis(k)[None]
-        P = torch.where(ok[:, k], nP, P)
-        if k % 8 == 7:
-            e = _scale_exp(seq_sum(P.reshape(K * K, G, NL), 0))
-            P = torch.where(real[:, k][:, None], P * _pow2(-e), P)
-
-    # Phase 2: each sub-lane's entering direction.
-    has = ok.any(1)
-    v = a0
-    starts = []
-    for g in range(G):
-        starts.append(v)
-        r = seq_sum(v[:, None] * P[:, :, g], 0)
-        e = _scale_exp(seq_sum(r, 0))
-        v = torch.where(has[g], r * _pow2(-e), v)
+    P = _fwd_sub_products(o, rows, ok, real, A, B)
+    starts = _fwd_sub_messages(a0, P, ok.any(1))
 
     # Phase 3: the chains, t = g L up to (g + 1) L - 1.
     v = torch.stack(starts, 1)  # [K, G, NL]
@@ -223,12 +202,49 @@ def _fwd_sublanes_plain(steps2, lens2, a0, A, B, G: int) -> torch.Tensor:
     for k in range(L):
         inv = torch.reciprocal(seq_sum(v, 0))
         raw = seq_sum(v[:, None] * A[:, :, None, None], 0)  # [k, G, NL]
-        v = torch.where(ok[:, k], (raw * emis(k)) * inv, v)
+        v = torch.where(ok[:, k], (raw * B[:, o[rows[:, k]]]) * inv, v)
         out.append(v)
     al = torch.stack(out, 0).permute(2, 0, 1, 3).reshape(G * L, K, NL)[:Tp]
     last = torch.clamp_min(torch.clamp_max(lens, Tp), 1) - 1
     src = torch.minimum(torch.arange(Tp, device=dev)[:, None], last)  # [Tp, NL]
     return torch.gather(al, 0, src[:, None, :].expand(Tp, K, NL).long()).contiguous()
+
+
+def _fwd_sub_products(o, rows, ok, real, A, B) -> torch.Tensor:
+    """Phase 1 of B16's sub-lane function (and of the dense scoring
+    chain's): P [K (row i), K (column k), G, NL], each sub-lane's product of
+    its step matrices M_t[j, k] = A[j, k] * B[k, o_t] where ``ok`` [G, L,
+    NL], from the identity, the chain's contraction applied to every row;
+    after every 8th step of the sub-lane (where ``real`` [G, L]), P times
+    2^-e with e the binary exponent of its total (row-major, in order).
+    ``o`` [Tp, NL] clamped symbols, ``rows`` [G, L] each step's row of it."""
+    K = A.shape[0]
+    G, L = rows.shape
+    NL = o.shape[1]
+    A5 = A[None, :, :, None, None]
+    P = torch.eye(K, dtype=_F32, device=A.device)[:, :, None, None].expand(K, K, G, NL)
+    for k in range(L):
+        nP = seq_sum(P[:, :, None] * A5, 1) * B[:, o[rows[:, k]]][None]
+        P = torch.where(ok[:, k], nP, P)
+        if k % 8 == 7:
+            e = _scale_exp(seq_sum(P.reshape(K * K, G, NL), 0))
+            P = torch.where(real[:, k][:, None], P * _pow2(-e), P)
+    return P
+
+
+def _fwd_sub_messages(v: torch.Tensor, P: torch.Tensor, has: torch.Tensor) -> list:
+    """Phase 2 of B16's sub-lane function (and of the dense scoring
+    chain's): the vector entering each sub-lane, from ``v`` [K, NL] entering
+    sub-lane 0, sub-lane by sub-lane up: v <- v . P_g (each column's terms
+    in order) times 2^-e (e of its sum) where ``has`` [G, NL] (the sub-lane
+    has a step to take), else v passes on unchanged."""
+    starts = []
+    for g in range(P.shape[2]):
+        starts.append(v)
+        r = seq_sum(v[:, None] * P[:, :, g], 0)
+        e = _scale_exp(seq_sum(r, 0))
+        v = torch.where(has[g], r * _pow2(-e), v)
+    return starts
 
 
 def bwd_sublanes(Tp: int, K: int) -> int:

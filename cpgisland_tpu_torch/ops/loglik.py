@@ -14,7 +14,17 @@ into the posterior's lanes, and the sum is exact in arithmetic:
 3. a forward-only chain per lane from that direction sums log c_t, where
    c_t = sum(alpha_{t-1} . M_t) with alpha_{t-1} normalized is P(o_t |
    o_<t): :func:`oh_loglik` (reduced, pair stream) or :func:`fb_loglik`
-   (dense, symbol stream), kernels of ``csrc/loglik.cu``;
+   (dense, symbol stream), kernels of ``csrc/loglik.cu``.  A lane of 8 Ki
+   steps or more (the posterior's lanes, and every placed record of
+   ``compare``) runs as :func:`loglik_sublanes` sub-lanes in the same
+   launch: each sub-lane's product of its step matrices, then each
+   sub-lane's entering direction composed in order from the lane's
+   through the products before it and normalized once, then each
+   sub-lane's chain from it, its float64 sums added in order
+   (:func:`_oh_loglik_sublanes_plain`, :func:`_fb_loglik_sublanes_plain`).
+   The chain is degree 0 in v, so the sub-lanes' c_t are, in exact
+   arithmetic, the one chain's; in float32 they differ from it in the
+   last bits;
 4. the lanes' sums add up in float64, after log c of the first scored
    position.
 
@@ -53,6 +63,73 @@ _I32 = torch.int32
 _F32 = torch.float32
 _F64 = torch.float64
 
+# The scoring chains' sub-lanes (:func:`loglik_sublanes`): lanes of
+# LOGLIK_SUBLANES_FROM steps or more run as sub-lanes of LOGLIK_SUBLANE_T
+# steps (at most fb_onehot.MAX_SUBLANES), shorter lanes as one chain.
+LOGLIK_SUBLANE_T = 256
+LOGLIK_SUBLANES_FROM = 8192
+
+
+def loglik_sublanes(Tp: int, K: int = GROUP) -> int:
+    """G, the sub-lanes the scoring kernels cut a lane of Tp steps into: 1
+    below :data:`LOGLIK_SUBLANES_FROM` steps or for a dense chain of K >
+    ``fb_pallas.BWD_SUBLANE_MAX_K`` states (the reduced chain's K is its
+    group, 2), else Tp // :data:`LOGLIK_SUBLANE_T`, at most
+    ``fb_onehot.MAX_SUBLANES``; each runs ceil(Tp / G) steps.  A function of
+    Tp and K alone, so the CPU and the card compute the same function.
+
+    Why these numbers: chip_smoke's sweep (H100).  At the posterior's 8,192
+    lanes of 8,192 steps, sub-lanes of 2 Ki / 1 Ki / 512 / 256 steps ran
+    0.979 / 0.623 / 0.533 / 0.514 ms (reduced) and 0.936 / 0.614 / 0.556 /
+    0.529 (dense, K = 2) against 2.557 and 2.622 in one chain; at compare's
+    8 Mi record (1,024 such lanes, blocks of 4) 0.904 / 0.475 / 0.263 /
+    0.171 and 0.847 / 0.444 / 0.239 / 0.149, and on a placed 16 Ki record
+    (2 lanes) 0.879 / 0.470 / 0.266 / 0.165 and 0.843 / 0.436 / 0.235 /
+    0.135.  So 256: G = 32 on every lane of 8 Ki steps or more, the
+    fastest where the card is not full (compare's records) and within 4%
+    of the fastest where it is."""
+    if Tp < LOGLIK_SUBLANES_FROM or K > fb_pallas.BWD_SUBLANE_MAX_K:
+        return 1
+    return max(1, min(Tp // LOGLIK_SUBLANE_T, fb_onehot.MAX_SUBLANES))
+
+
+def _lanes_per_block(NL: int, M: int, sms: int) -> int:
+    """Lanes a block of the sub-lane kernels holds on a card of ``sms`` SMs:
+    32 (a warp a sub-lane, each load one 128-byte row), halved while the
+    blocks, ceil(NL / lanes) x M, would leave SMs idle, down to 1 (a warp
+    then holds 32 sub-lanes of one lane).  A lane's sub-lanes share one
+    block, so on compare's few lanes 32-lane blocks put a few mostly dead
+    warps on a few SMs.  The layout only: no sum depends on it."""
+    lb = 32
+    while lb > 1 and -(-NL // lb) * M < sms:
+        lb //= 2
+    return lb
+
+
+def _layout(Tp: int, NL: int, M: int, K: int, dev) -> dict:
+    """The sub-lane arguments of a scoring launch: G, and the lanes a block
+    where G > 1."""
+    G = loglik_sublanes(Tp, K)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count if G > 1 else 0
+    return {"G": G, "LB": _lanes_per_block(NL, M, sms)}
+
+
+def _sublane_steps(Tp: int, G: int, dev):
+    """(L, rows [G, L] each sub-lane step's row of the stream, inb [G, L]
+    whether that step lies in the lane) for G sub-lanes of L = ceil(Tp /
+    G) steps."""
+    L = -(-Tp // G)
+    t = torch.arange(G, device=dev)[:, None] * L + torch.arange(L, device=dev)
+    return L, torch.clamp_max(t, Tp - 1), t < Tp
+
+
+def _sum_in_order(parts: torch.Tensor) -> torch.Tensor:
+    """[..., G, NL] float64 sub-lane sums -> [..., NL], added g = 0 .. G-1."""
+    out = parts[..., 0, :]
+    for g in range(1, parts.shape[-2]):
+        out = out + parts[..., g, :]
+    return out
+
 
 def oh_loglik_plain(pair2: torch.Tensor, enter: torch.Tensor, tabs: torch.Tensor):
     """Plain version of the reduced scoring chain -> [M, NL] float64.
@@ -62,7 +139,12 @@ def oh_loglik_plain(pair2: torch.Tensor, enter: torch.Tensor, tabs: torch.Tensor
     tabs [M, S*S + 1, 4] each member's pair table (identity last).  Per
     real step: raw_c = v0 * T[0, c] + v1 * T[1, c], c = raw_0 + raw_1, ll
     += log(c) in float64, and v <- raw / c where c > 0.  The member axis
-    rides along one step loop (per member the same operations)."""
+    rides along one step loop (per member the same operations).  In one
+    sub-lane (:func:`loglik_sublanes`) the one chain; in G > 1,
+    :func:`_oh_loglik_sublanes_plain`."""
+    G = loglik_sublanes(pair2.shape[0])
+    if G > 1:
+        return _oh_loglik_sublanes_plain(pair2, enter, tabs, G)
     nreal = tabs.shape[1] - 1
     pc = torch.clamp_max(pair2, nreal).long()
     real = pair2 < nreal
@@ -80,10 +162,57 @@ def oh_loglik_plain(pair2: torch.Tensor, enter: torch.Tensor, tabs: torch.Tensor
     return ll
 
 
+def _oh_loglik_sublanes_plain(pair2: torch.Tensor, enter: torch.Tensor, tabs: torch.Tensor,
+                              G: int) -> torch.Tensor:
+    """The reduced scoring kernel's sub-lane function -> [M, NL] float64.
+
+    Each lane's steps split into G sub-lanes [g L, min((g + 1) L, Tp)), L =
+    ceil(Tp / G), carried side by side as a [G, NL] axis, in the kernel's
+    three phases and its f32 operations in its order:
+    1. each sub-lane's product of its step matrices (B7's phase 1,
+       ``fb_onehot._sub_products_plain``), and whether it has a real step;
+    2. the messages, from ``enter``, sub-lane by sub-lane up: v <- (v . P_g)
+       times 1 / max(its sum, 1e-30) (B4's forward message) where sub-lane
+       g has a real step, else v passes on; sub-lane g > 0 starts from v /
+       max(v0 + v1, 1e-30), normalized once, sub-lane 0 from ``enter``;
+    3. the chain of :func:`oh_loglik_plain` over every sub-lane from its
+       message; each lane's G float64 sums added in order g = 0 .. G-1."""
+    Tp, NL = pair2.shape
+    nreal = tabs.shape[1] - 1
+    L, rows, inb = _sublane_steps(Tp, G, pair2.device)
+    real = (pair2[rows] < nreal) & inb[:, :, None]  # [G, L, NL]
+    has = real.any(1)
+    c00, c01, c10, c11 = fb_onehot._sub_products_plain(pair2, tabs, G)  # [M, G, NL]
+    v0, v1 = enter[:, 0], enter[:, 1]
+    s0, s1 = [v0], [v1]
+    for g in range(G - 1):
+        r0 = v0 * c00[:, g] + v1 * c10[:, g]
+        r1 = v0 * c01[:, g] + v1 * c11[:, g]
+        inv = torch.reciprocal(torch.clamp_min(r0 + r1, 1e-30))
+        v0, v1 = torch.where(has[g], r0 * inv, v0), torch.where(has[g], r1 * inv, v1)
+        d = torch.clamp_min(v0 + v1, 1e-30)
+        s0.append(v0 / d)
+        s1.append(v1 / d)
+    v0, v1 = torch.stack(s0, 1), torch.stack(s1, 1)  # [M, G, NL]
+    pc = torch.clamp_max(pair2, nreal).long()
+    ll = torch.zeros(v0.shape, dtype=_F64, device=pair2.device)
+    for k in range(L):
+        m = tabs[:, pc[rows[:, k]]]  # [M, G, NL, 4]
+        r = real[:, k]
+        raw0 = v0 * m[..., 0] + v1 * m[..., 2]
+        raw1 = v0 * m[..., 1] + v1 * m[..., 3]
+        c = raw0 + raw1
+        ll = torch.where(r, ll + torch.log(c.to(_F64)), ll)
+        upd = r & (c > 0)
+        v0, v1 = torch.where(upd, raw0 / c, v0), torch.where(upd, raw1 / c, v1)
+    return _sum_in_order(ll)
+
+
 def oh_loglik(pair2: torch.Tensor, enter: torch.Tensor, tabs: torch.Tensor):
-    """The reduced scoring kernel (``csrc/loglik.cu`` ``oh_loglik_kernel``;
-    no TPU counterpart) for M members over one pair stream -> [M, NL]
-    float64.  Arguments as :func:`oh_loglik_plain`."""
+    """The reduced scoring kernel (``csrc/loglik.cu`` ``oh_loglik_kernel``,
+    ``oh_loglik_sub_kernel`` in :func:`loglik_sublanes` sub-lanes; no TPU
+    counterpart) for M members over one pair stream -> [M, NL] float64, in
+    one launch.  Arguments as :func:`oh_loglik_plain`."""
     _check_same_device(pair2, (enter, tabs))
     if pair2.dim() != 2 or 0 in pair2.shape:
         raise ValueError(f"pair2 must be a non-empty [Tp, NL], got {tuple(pair2.shape)}")
@@ -95,7 +224,7 @@ def oh_loglik(pair2: torch.Tensor, enter: torch.Tensor, tabs: torch.Tensor):
         return oh_loglik_plain(pair2, enter, tabs)
     out = torch.empty((M, NL), dtype=_F64, device=pair2.device)
     _kernels.launch("oh_loglik", pair2, enter, tabs, out, Tp=Tp, NL=NL,
-                    nreal=tabs.shape[1] - 1, M=M)
+                    nreal=tabs.shape[1] - 1, M=M, **_layout(Tp, NL, M, GROUP, pair2.device))
     return out
 
 
@@ -105,8 +234,13 @@ def fb_loglik_plain(sel2: torch.Tensor, enter: torch.Tensor, A: torch.Tensor, B:
     sel2 [Tp, NL] int32 symbols (>= S: a PAD, skipped), enter [K, NL] each
     lane's normalized entering direction, A [K, K], B [K, S].  Per real
     step: raw_j = (sum_k v_k A[k, j], in order of k) * B[j, o_t], c = sum_j
-    raw_j in order, ll += log(c) in float64, v <- raw / c where c > 0."""
+    raw_j in order, ll += log(c) in float64, v <- raw / c where c > 0.  In
+    one sub-lane (:func:`loglik_sublanes`) the one chain; in G > 1,
+    :func:`_fb_loglik_sublanes_plain`."""
     K, S = B.shape
+    G = loglik_sublanes(sel2.shape[0], K)
+    if G > 1:
+        return _fb_loglik_sublanes_plain(sel2, enter, A, B, G)
     real = (sel2 < S).unbind(0)
     bo = B[:, torch.clamp_max(sel2, S - 1).long()].unbind(1)  # per-step [K, NL]
     v = enter
@@ -122,9 +256,49 @@ def fb_loglik_plain(sel2: torch.Tensor, enter: torch.Tensor, A: torch.Tensor, B:
     return ll
 
 
+def _fb_loglik_sublanes_plain(sel2: torch.Tensor, enter: torch.Tensor, A: torch.Tensor,
+                              B: torch.Tensor, G: int) -> torch.Tensor:
+    """The dense scoring kernel's sub-lane function -> [NL] float64.
+
+    Each lane's steps split into G sub-lanes [g L, min((g + 1) L, Tp)), L =
+    ceil(Tp / G), carried side by side as a [G, NL] axis, in the kernel's
+    three phases and its f32 operations in its order:
+    1. each sub-lane's product P of its step matrices M_t[j, k] = A[j, k] *
+       B[k, o_t] over its real steps, scaled every 8 steps by a power of two
+       (B16's phase 1, ``fb_pallas._fwd_sub_products``), and whether it has
+       a real step;
+    2. the messages, from ``enter``, sub-lane by sub-lane up (B16's phase 2,
+       ``fb_pallas._fwd_sub_messages``: v <- v . P_g times 2^-e where
+       sub-lane g has a real step); sub-lane g > 0 starts from v / max(sum
+       v, 1e-30), normalized once, sub-lane 0 from ``enter``;
+    3. the chain of :func:`fb_loglik_plain` over every sub-lane from its
+       message; each lane's G float64 sums added in order g = 0 .. G-1."""
+    Tp, NL = sel2.shape
+    K, S = B.shape
+    L, rows, inb = _sublane_steps(Tp, G, sel2.device)
+    real = (sel2[rows] < S) & inb[:, :, None]  # [G, L, NL]
+    o = torch.clamp_max(sel2, S - 1).long()
+    P = fb_pallas._fwd_sub_products(o, rows, real, inb, A, B)
+    starts = fb_pallas._fwd_sub_messages(enter, P, real.any(1))
+    v = torch.stack(starts[:1] + [x / torch.clamp_min(seq_sum(x, 0), 1e-30)
+                                  for x in starts[1:]], 1)  # [K, G, NL]
+    ll = torch.zeros((G, NL), dtype=_F64, device=sel2.device)
+    for k in range(L):
+        acc = v[0][None] * A[0][:, None, None]
+        for j in range(1, K):
+            acc = acc + v[j][None] * A[j][:, None, None]
+        raw = acc * B[:, o[rows[:, k]]]
+        c = seq_sum(raw, 0)
+        r = real[:, k]
+        ll = torch.where(r, ll + torch.log(c.to(_F64)), ll)
+        v = torch.where(r & (c > 0), raw / c, v)
+    return _sum_in_order(ll)
+
+
 def fb_loglik(sel2: torch.Tensor, enter: torch.Tensor, A: torch.Tensor, B: torch.Tensor):
-    """The dense scoring kernel (``csrc/loglik.cu`` ``fb_loglik_kernel<K>``;
-    no TPU counterpart) -> [NL] float64.  Arguments as
+    """The dense scoring kernel (``csrc/loglik.cu`` ``fb_loglik_kernel<K>``,
+    ``fb_loglik_sub_kernel<K>`` in :func:`loglik_sublanes` sub-lanes; no TPU
+    counterpart) -> [NL] float64, in one launch.  Arguments as
     :func:`fb_loglik_plain`."""
     _check_same_device(sel2, (enter, A, B))
     if sel2.dim() != 2 or 0 in sel2.shape:
@@ -141,7 +315,8 @@ def fb_loglik(sel2: torch.Tensor, enter: torch.Tensor, A: torch.Tensor, B: torch
     if sel2.device.type == "cpu":
         return fb_loglik_plain(sel2, enter, A, B)
     out = torch.empty(NL, dtype=_F64, device=sel2.device)
-    _kernels.launch("fb_loglik", sel2, enter, A, B, out, Tp=Tp, NL=NL, K=K, S=S)
+    _kernels.launch("fb_loglik", sel2, enter, A, B, out, Tp=Tp, NL=NL, K=K, S=S,
+                    **_layout(Tp, NL, 1, K, sel2.device))
     return out
 
 

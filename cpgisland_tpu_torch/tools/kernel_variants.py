@@ -81,7 +81,8 @@ def build_all() -> dict:
         path, lib = OUT_DIR / f"{tag}.cu", OUT_DIR / f"lib{tag}.so"
         path.write_text(src)
         procs[name] = (lib, subprocess.Popen(
-            [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-o", str(lib), str(path)],
+            [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-I", str(_kernels._CSRC), "-o", str(lib),
+             str(path)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     libs = {}
     for name, (lib, proc) in procs.items():

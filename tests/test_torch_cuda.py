@@ -1488,3 +1488,92 @@ def test_seq_stats_stacked_segments(cuda_device, monkeypatch, S, seg):
         single = FB.oh_seq_stats(al[m], be[m], prep.pair2, prep.lens2, tabs[m].contiguous(),
                                  B_reds[m], gts32[m], args[7][m], args[8][m], pair0m)
         assert all(torch.equal(a, b[m]) for a, b in zip(single, got))
+
+
+# -- the scoring kernels in sub-lanes --------------------------------------------
+
+
+@pytest.mark.parametrize("T", [8192, 65536])
+@_STACK_M
+@pytest.mark.parametrize("NL", [3, 33, 1024])
+def test_reduced_scoring_sublanes(cuda_device, NL, M, T):
+    """The reduced scoring chain on lanes of 8 Ki and 64 Ki steps (G = 32
+    sub-lanes of 256 and 2 Ki steps; an empty lane, ragged PAD tails; blocks
+    of 1 to 8 lanes), flagship and random members: per-lane sums within
+    1e-12 of the plain version, one launch, each member equal to its own
+    M = 1 launch bit for bit."""
+    from cpgisland_tpu_torch.ops import loglik as LL
+
+    rng, _, prep, _, tabs = _stacked_batch(NL, T, 4, M, cuda_device)
+    assert LL.loglik_sublanes(prep.pair2.shape[0]) > 1
+    e = rng.random((M, 2, NL)).astype(np.float32) + 0.01
+    enter = torch.from_numpy(e / e.sum(axis=1, keepdims=True)).to(cuda_device)
+    before = _kernels.launches["oh_loglik"]
+    got = LL.oh_loglik(prep.pair2, enter, tabs)
+    assert _kernels.launches["oh_loglik"] == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               LL.oh_loglik_plain(prep.pair2, enter, tabs).cpu().numpy(),
+                               rtol=1e-12)
+    for m in range(M):
+        one = LL.oh_loglik(prep.pair2, enter[m : m + 1], tabs[m : m + 1].contiguous())
+        assert torch.equal(one[0], got[m])
+
+
+def test_reduced_scoring_sublanes_impossible_pair(cuda_device):
+    """dinuc_cpg with pairs of all-zero 2x2 tables planted inside a
+    sub-lane, at a sub-lane's first step and at a lane's first step: the
+    lanes that hold one score -inf, never nan, on the card as in the plain
+    version; the other member scores them finite."""
+    from cpgisland_tpu_torch.ops import loglik as LL
+
+    rng, _, prep, _, tabs = _stacked_batch(3, 8192, 16, 2, cuda_device)
+    zero = int(torch.nonzero(tabs[0, :-1].abs().sum(1) == 0)[0, 0])
+    pair2 = prep.pair2.clone()
+    pair2[700, 0] = pair2[1024, 0] = pair2[0, 2] = zero
+    enter = torch.full((2, 2, 3), 0.5, device=cuda_device)
+    got = LL.oh_loglik(pair2, enter, tabs)
+    want = LL.oh_loglik_plain(pair2, enter, tabs)
+    assert not torch.isnan(got).any()
+    assert got[0, 0] == got[0, 2] == -float("inf")
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-12)
+
+
+@pytest.mark.parametrize("T", [8192, 65536])
+@pytest.mark.parametrize("model", ["two_state", "null4", "impossible"])
+@pytest.mark.parametrize("NL", [3, 33, 1024])
+def test_dense_scoring_sublanes(cuda_device, NL, model, T):
+    """The dense scoring chain (K = 2, 1) on lanes of 8 Ki and 64 Ki steps
+    (G = 32) with PADs, an all-PAD lane and a PAD tail: within 1e-12
+    per lane of its plain version, one launch.  ``impossible``: a K = 2
+    model whose symbol 2 has probability 0, planted at a sub-lane's first
+    step and inside one: those lanes -inf, never nan."""
+    from cpgisland_tpu_torch.ops import fb_pallas as FP
+    from cpgisland_tpu_torch.ops import loglik as LL
+
+    if model == "impossible":
+        A = torch.tensor([[0.9, 0.1], [0.2, 0.8]], device=cuda_device)
+        B = torch.tensor([[0.5, 0.5, 0.0, 0.0], [0.2, 0.8, 0.0, 0.0]], device=cuda_device)
+    else:
+        params = {"two_state": lambda: presets.two_state_cpg(device=cuda_device),
+                  "null4": lambda: presets.null_background(4, device=cuda_device)}[model]()
+        A, B, _ = FP.tables(params)
+    K, S = B.shape
+    rng = np.random.default_rng(NL + K + T)
+    sel = rng.integers(0, 2 if model == "impossible" else S, size=(T, NL)).astype(np.int32)
+    sel[rng.random(sel.shape) < 0.05] = S
+    sel[:, 1] = S
+    sel[T // 3 :, -1] = S
+    if model == "impossible":
+        sel[512, 0] = sel[5000, 2] = 2
+    e = rng.random((K, NL)).astype(np.float32) + 0.01
+    enter = torch.from_numpy(e / e.sum(axis=0)).to(cuda_device)
+    sel_d = torch.from_numpy(sel).to(cuda_device)
+    assert LL.loglik_sublanes(T, K) > 1
+    before = _kernels.launches["fb_loglik"]
+    got = LL.fb_loglik(sel_d, enter, A, B)
+    assert _kernels.launches["fb_loglik"] == before + 1
+    assert not torch.isnan(got).any()
+    if model == "impossible":
+        assert got[0] == got[2] == -float("inf")
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               LL.fb_loglik_plain(sel_d, enter, A, B).cpu().numpy(), rtol=1e-12)
