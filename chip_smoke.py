@@ -11,8 +11,9 @@ JSON line each:
 
 1. card: name and power limit, kernel build time, and (its own line) the
    ptxas registers and spills of the kernels redesigned (B4, B24, B17, B7
-   / B21, B18 and B16 with their sub-lane kernels, B5's part kernel, and
-   the scoring kernels, one chain and in sub-lanes);
+   / B21, B18 and B16 with their sub-lane kernels, B5's part kernel, the
+   scoring kernels, and B9 / B22 and B10 / B23, one chain and in
+   sub-lanes, with B11 beside them);
 2. kernels: B1-B3 at full size (bk=4096, nb=16384: 64 Mi steps, PAD runs
    and record resets in the pair stream), B4-B5 at NL=1024 lanes x
    Tp=65,536 steps (ragged lengths, a short last lane, PAD tails), and B7
@@ -166,12 +167,15 @@ JSON line each:
    ``SEQ_BYTES_PER_SYMBOL``, and one seq E-step of the genome at lane_T
    4096, 8192 and 16384;
 30. the split arm's kernels: B9, B10 and B12 at NL=1024 x Tp=65,536
-   (ragged, as B4 / B5), B22 and B23 there at M = 2 and 5, B9, B10 and
-   B11 at 8192 x 8192 on the genome's 64 Mi record — B9-B11 bit-equal to
-   their plain versions, B22 and B23 too at M = 2 (B9 also to B4's alphas
-   in one sub-lane, the sequential chain B9 runs,
-   B22 / B23 per member to B9 / B10 at every M), B12 within rtol 1e-5 /
-   atol 1e-3;
+   (ragged, as B4 / B5), B22 and B23 there at M = 2 and 5, B9, B10, B11,
+   and B22 and B23 at M = 2, at 8192 x 8192 on the genome's 64 Mi record
+   — B9-B11 bit-equal to their plain versions, B22 and B23 too at M = 2,
+   B9, B10, B11, B22 and B23 so at their default sub-lanes and in one
+   sub-lane (B9 and B22 also to B4's and B24's alphas at both, B11 to the
+   confidence over B10's betas at both; B10 also in
+   256 to 4 Ki-step sub-lanes, ``fb_pallas.BWD_SUBLANE_T``: timed, each
+   one's largest relative difference from G = 1), B22 / B23 per member to
+   B9 / B10 at every M, B12 within rtol 1e-5 / atol 1e-3;
 31. ``train_file`` with ``LocalBackend(fuse_fb=False)``, compat then
    clean (B9, B10, B12 exactly 5 each per mode, B4 and B5 never), the
    logliks within rtol 1e-5 of phase 4's;
@@ -184,7 +188,8 @@ JSON line each:
    and 3 B12 an iteration, logliks within rtol 1e-5 of the fused fit, the
    stacked split E-step equal to the sequential one bit for bit) and
    ``posterior_sharded_stacked(fused=False)`` (B21, B22, B23 once each)
-   equal to its members' own split posteriors bit for bit;
+   equal to its members' own split posteriors bit for bit, with the path
+   and without, and timed on the card beside the stacked fused posterior;
 34. the stacked decode's kernels: B26, B27 (path and scores arms) and B28
    at bk=4096, nb=16384 over a chaining stream with PAD runs and resets,
    for (S, M) in (4, 2), (4, 5), (16, 2) — bit-equal to their plain
@@ -203,9 +208,10 @@ JSON line each:
    member's own flat decode);
 36. the pair-composition bench's kernels at its geometry (64 Mi symbols
    as 1024 full lanes of 65,536): T2-T4 (``oh_fwd_strm``, ``oh_fwd_comp``,
-   ``oh_fwd_compsel``) bit-equal to their plain versions, T2 to B9 and T4
-   to T3, all four of T1-T4 within the bench's gate (1e-4) of the
-   single-step plain reference, each kernel timed beside its bound and
+   ``oh_fwd_compsel``) bit-equal to their plain versions, T2 to B9 in one
+   sub-lane and T4 to T3, all four of T1-T4 within the bench's gate (1e-4)
+   of the single-step plain reference (the sequential chain), each kernel
+   timed beside its bound and
    the whole variant (streams built) beside it; then the bench itself,
    ``tools/bench_compose.main(["--mib", "64"])``: its JSON line, and the
    launch counters moved by exactly the calls it reports.
@@ -273,6 +279,8 @@ TRAIN_ITERS = 5
 SWEEP_SUBLANE_T = (2048, 4096, 8192)
 # B18's (fb_pallas.BWD_SUBLANE_T), likewise at K <= 4.
 SWEEP_BWD_SUBLANE_T = (256, 1024, 2048, 4096, 8192)
+# B10's (fb_pallas.BWD_SUBLANE_T, B18's), likewise at both of its geometries.
+SWEEP_SPLIT_BWD_SUBLANE_T = (256, 512, 1024, 2048, 4096)
 # B7's sub-lane lengths (fb_onehot.PROD_SUBLANE_T) timed at the posterior
 # geometry beside one sub-lane.
 SWEEP_PROD_SUBLANE_T = (2048, 1024, 512, 256)
@@ -288,7 +296,8 @@ SWEEP_LOGLIK_SUBLANE_T = (2048, 1024, 512, 256)
 REDESIGNED = ("oh_fwdbwd_kernel", "oh_fwdbwd_stacked_kernel", "fb_prod_kernel",
               "oh_prod_kernel", "fb_bwd_kernel", "fb_bwd_sub_kernel", "fb_fwd_kernel",
               "fb_fwd_sub_kernel", "oh_seq_stats_part_kernel", "oh_loglik_kernel",
-              "oh_loglik_sub_kernel", "fb_loglik_kernel", "fb_loglik_sub_kernel")
+              "oh_loglik_sub_kernel", "fb_loglik_kernel", "fb_loglik_sub_kernel",
+              "oh_fwd_kernel", "oh_fwd_sub_kernel", "oh_bwd_kernel", "oh_bwd_sub_kernel")
 H100_SMS, SMEM_PER_SM, SMEM_PER_BLOCK_RESERVED = 132, 228 * 1024, 1024
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -478,7 +487,7 @@ def sublane_length(st: int):
 
 
 def bwd_sublane_length(st: int):
-    """B18 at K <= 4 with sub-lanes of ``st`` steps
+    """B18 at K <= 4, and B10 / B23, with sub-lanes of ``st`` steps
     (``fb_pallas.BWD_SUBLANE_T``; lanes of 8 Ki steps or more); ``st`` =
     the lane length gives one."""
     return patched(FP, BWD_SUBLANE_T=st)
@@ -2992,15 +3001,124 @@ def _bit_row(name, got, want, kernel_fn, plain_ms, n_bytes, n_ops, steps, **extr
     return row
 
 
+def split_fwd_checks(args, b4_args, stacked: bool) -> dict:
+    """B9 (B22 with ``stacked``) on ``args`` beside its row's check at the
+    default G: equal to B4's (B24's) alphas at the same G; in one sub-lane
+    bit-equal to its plain version (timed) and to B4's alphas in one
+    sub-lane.  Fails the run otherwise."""
+    kern = FB.oh_fwd_stacked if stacked else FB.oh_fwd
+    plain = FB.oh_fwd_stacked_plain if stacked else FB.oh_fwd_plain
+    b4 = FB.oh_fwdbwd_stacked if stacked else FB.oh_fwdbwd
+    Tp = args[0].shape[0]
+    al = kern(*args)
+    equals_b4 = torch.equal(b4(*b4_args)[0], al)
+    del al
+    with sublane_length(Tp):
+        al1 = kern(*args)
+        al_p, g1_plain_ms = timed_once(lambda: plain(*args))
+        g1_equal = torch.equal(al1, al_p)
+        del al_p
+        g1_equals_b4 = torch.equal(b4(*b4_args)[0], al1)
+        g1_ms = time_ms(lambda: kern(*args), runs=10)
+    del al1
+    out = {"sublanes": FB.sublanes(Tp), "equals_b4_alphas": equals_b4,
+           "g1_bit_equal": g1_equal, "g1_plain_ms": g1_plain_ms,
+           "g1_ms": g1_ms, "g1_equals_b4_alphas": g1_equals_b4}
+    if not (equals_b4 and g1_equal and g1_equals_b4):
+        raise SystemExit(f"chip_smoke: {'oh_fwd_stacked' if stacked else 'oh_fwd'} at "
+                         f"{tuple(args[0].shape)} fails a check: {out}")
+    return out
+
+
+def split_bwd_checks(args, stacked: bool) -> dict:
+    """B10 (B23 with ``stacked``) on ``args`` beside its row's check at the
+    default G: in one sub-lane bit-equal to its plain version (timed) and,
+    for B10, at each SWEEP_SPLIT_BWD_SUBLANE_T (timed, with its largest
+    relative difference from G = 1).  Fails the run otherwise."""
+    kern = FB.oh_bwd_stacked if stacked else FB.oh_bwd
+    plain = FB.oh_bwd_stacked_plain if stacked else FB.oh_bwd_plain
+    Tp = args[0].shape[0]
+    with bwd_sublane_length(Tp):
+        be1 = kern(*args)
+        be_p, g1_plain_ms = timed_once(lambda: plain(*args))
+        g1_equal = torch.equal(be1, be_p)
+        del be_p
+        g1_ms = time_ms(lambda: kern(*args), runs=10)
+    sweep = {}
+    for st in () if stacked else SWEEP_SPLIT_BWD_SUBLANE_T:
+        with bwd_sublane_length(st):
+            be = kern(*args)
+            sweep[str(st)] = {"G": FB.split_bwd_sublanes(Tp),
+                              "ms": time_ms(lambda: kern(*args), runs=10),
+                              "max_rel_vs_g1": max_rel_diff(be, be1)}
+            del be
+    del be1
+    out = {"sublanes": FB.split_bwd_sublanes(Tp), "g1_bit_equal": g1_equal,
+           "g1_plain_ms": g1_plain_ms, "g1_ms": g1_ms, "sweep": sweep}
+    if not g1_equal:
+        raise SystemExit(f"chip_smoke: {'oh_bwd_stacked' if stacked else 'oh_bwd'} in one "
+                         f"sub-lane disagrees with its plain version at {tuple(args[0].shape)}")
+    return out
+
+
+def split_stacked_rows(rng, gen, S: int, M: int, pair2, pairn2, lens2, T: int, geo: str,
+                       dev) -> tuple:
+    """B22 and B23 for M members at one geometry: against their plain
+    versions at M in PLAIN_STACK_M (at the default G, and in one sub-lane
+    by split_fwd_checks / split_bwd_checks), per member against B9 / B10 at
+    every M, timed beside M x the single-model kernel.  Returns their rows."""
+    Tp, NL = pair2.shape
+    n = Tp * NL
+    members = family_members(gen, dev, S, M)
+    _, tabs = FB.stacked_tables(members)
+    one = lambda m: tabs[m].contiguous()  # noqa: E731
+    rand = lambda: torch.from_numpy(  # noqa: E731
+        rng.random((M, 2, NL)).astype(np.float32) + 0.01).to(dev)
+    a0s, b0s = rand(), rand()
+    tab_b = tabs[0].numel() * 4
+    f_args = (pair2, lens2, a0s, tabs)
+    plain = M in PLAIN_STACK_M
+    al = FB.oh_fwd_stacked(*f_args)
+    al_p, plain_ms = plain_once(plain, lambda: [FB.oh_fwd_stacked_plain(*f_args)])
+    per = all(torch.equal(FB.oh_fwd(pair2, lens2, a0s[m], one(m)), al[m]) for m in range(M))
+    single_ms = time_ms(lambda: FB.oh_fwd(pair2, lens2, a0s[0], one(0)), runs=10)
+    more = split_fwd_checks(f_args, (pair2, pairn2, lens2, a0s, b0s, tabs, T), True) if plain \
+        else {}
+    f_row = _stacked_row(
+        "oh_fwd_stacked", S, M, geo, [al], al_p, per,
+        lambda: FB.oh_fwd_stacked(*f_args), plain_ms, single_ms,
+        # the shared pairs read once, M x the alphas written
+        4 * n + M * (8 * n + 8 * NL + tab_b) + 4 * NL, M * 10 * n, n, **more)
+    del al_p
+    cs = FB.cs_next_of(al)
+    b_args = (pairn2, lens2, cs, b0s, tabs, T)
+    be = FB.oh_bwd_stacked(*b_args)
+    be_p, plain_ms = plain_once(plain, lambda: [FB.oh_bwd_stacked_plain(*b_args)])
+    per = all(torch.equal(FB.oh_bwd(pairn2, lens2, cs[m], b0s[m], one(m), T), be[m])
+              for m in range(M))
+    single_ms = time_ms(lambda: FB.oh_bwd(pairn2, lens2, cs[0], b0s[0], one(0), T), runs=10)
+    more = split_bwd_checks(b_args, True) if plain else {}
+    b_row = _stacked_row(
+        "oh_bwd_stacked", S, M, geo, [be], be_p, per,
+        lambda: FB.oh_bwd_stacked(*b_args), plain_ms, single_ms,
+        # the shared pairn once, M x (cs_next read, the betas written)
+        4 * n + M * (12 * n + 8 * NL + tab_b) + 4 * NL, M * 9 * n, n, **more)
+    del al, be, be_p, cs
+    return f_row, b_row
+
+
 def split_kernel_phase(rng: np.random.Generator, gen: torch.Generator, params, big: np.ndarray,
                        dev) -> dict:
     """The split arm's kernels at the main paths' shapes: B9, B10 and B12 at
     the training geometry (FB_NL x FB_TP, ragged as B4 / B5), B22 and B23
-    there for M in SPLIT_STACK_M, and B9, B10 and B11 at 8192 x 8192 on the
-    genome's 64 Mi record.  B9-B11 bit-equal to their plain versions, B22
-    and B23 too at M = 2 (B9 also to B4's alphas; B22 and B23 per member
-    to B9 and B10 at every M), B12 within rtol 1e-5 / atol 1e-3.  Returns the table rows: the
-    training geometry's (stacked: M = 2), B11 at the posterior's."""
+    there for M in SPLIT_STACK_M, and B9, B10, B11, B22 and B23 (M = 2) at
+    8192 x 8192 on the genome's 64 Mi record.  B9-B11 bit-equal to their
+    plain versions, B22 and B23 too at M = 2, B9-B11 (B22 and B23 at M =
+    2) at their default sub-lanes and in one sub-lane; B9 also to B4's
+    alphas at both, B11 to the confidence over B10's betas at both; B10's
+    sub-lane sweep; B22 and B23 per member to B9 and B10 at every M; B12
+    within rtol 1e-5 / atol 1e-3.  Returns the table rows: the training
+    geometry's (stacked: M = 2), B11 at the posterior's."""
     K, S = params.n_states, params.n_symbols
     gt = OH._groups(params)
     tab = FB.prob_tab_ext(params, gt)
@@ -3018,19 +3136,14 @@ def split_kernel_phase(rng: np.random.Generator, gen: torch.Generator, params, b
     f_args = (prep.pair2, prep.lens2, a0, tab)
     al = FB.oh_fwd(*f_args)
     al_p, plain_ms = timed_once(lambda: FB.oh_fwd_plain(*f_args))
-    # B4 in one sub-lane runs B9's sequential chain (G > 1 rounds apart).
-    with sublane_length(Tp):
-        al4, _ = FB.oh_fwdbwd(prep.pair2, prep.pairn2, prep.lens2, a0, b0, tab, FB_TP)
-    same_as_b4 = torch.equal(al, al4)
-    del al4
+    more = split_fwd_checks(f_args, (prep.pair2, prep.pairn2, prep.lens2, a0, b0, tab, FB_TP),
+                            False)
     results["oh_fwd"] = _bit_row(
         "oh_fwd", al, al_p, lambda: FB.oh_fwd(*f_args), plain_ms,
         # the pairs read, the alphas written; per step 4 multiplies, 3 adds,
         # a division and 2 scaling multiplies
-        4 * n + 8 * n + 4 * NL + 8 * NL + tab_b, 10 * n, n, equals_b4_alphas=same_as_b4)
+        4 * n + 8 * n + 4 * NL + 8 * NL + tab_b, 10 * n, n, **more)
     del al_p
-    if not same_as_b4:
-        raise SystemExit("chip_smoke: oh_fwd's alphas differ from oh_fwdbwd's")
     cs_next = FB.cs_next_of(al)
     b_args = (prep.pairn2, prep.lens2, cs_next, b0, tab, FB_TP)
     be = FB.oh_bwd(*b_args)
@@ -3039,7 +3152,7 @@ def split_kernel_phase(rng: np.random.Generator, gen: torch.Generator, params, b
         "oh_bwd", be, be_p, lambda: FB.oh_bwd(*b_args), plain_ms,
         # pairn + cs_next read, the betas written; per step 6 multiplies, 2
         # adds and a division
-        8 * n + 8 * n + 4 * NL + 8 * NL + tab_b, 9 * n, n)
+        8 * n + 8 * n + 4 * NL + 8 * NL + tab_b, 9 * n, n, **split_bwd_checks(b_args, False))
     del be_p
     assert not torch.backends.cuda.matmul.allow_tf32
     st_args = (al, be, prep.pair2, prep.lens2, FB.reduced_emissions(params, gt),
@@ -3060,39 +3173,8 @@ def split_kernel_phase(rng: np.random.Generator, gen: torch.Generator, params, b
     del al, be, cs_next, got, st_args
 
     for M in SPLIT_STACK_M:
-        members = family_members(gen, dev, S, M)
-        _, tabs = FB.stacked_tables(members)
-        one = lambda m: tabs[m].contiguous()  # noqa: E731
-        rand = lambda: torch.from_numpy(  # noqa: E731
-            rng.random((M, 2, NL)).astype(np.float32) + 0.01).to(dev)
-        a0s, b0s = rand(), rand()
-        f_args = (prep.pair2, prep.lens2, a0s, tabs)
-        plain = M in PLAIN_STACK_M
-        al = FB.oh_fwd_stacked(*f_args)
-        al_p, plain_ms = plain_once(plain, lambda: [FB.oh_fwd_stacked_plain(*f_args)])
-        per = all(torch.equal(FB.oh_fwd(prep.pair2, prep.lens2, a0s[m], one(m)), al[m])
-                  for m in range(M))
-        single_ms = time_ms(lambda: FB.oh_fwd(prep.pair2, prep.lens2, a0s[0], one(0)), runs=10)
-        f_row = _stacked_row(
-            "oh_fwd_stacked", S, M, "train", [al], al_p, per,
-            lambda: FB.oh_fwd_stacked(*f_args), plain_ms, single_ms,
-            # the shared pairs read once, M x the alphas written
-            4 * n + M * (8 * n + 8 * NL + tab_b) + 4 * NL, M * 10 * n, n)
-        del al_p
-        cs = FB.cs_next_of(al)
-        b_args = (prep.pairn2, prep.lens2, cs, b0s, tabs, FB_TP)
-        be = FB.oh_bwd_stacked(*b_args)
-        be_p, plain_ms = plain_once(plain, lambda: [FB.oh_bwd_stacked_plain(*b_args)])
-        per = all(torch.equal(FB.oh_bwd(prep.pairn2, prep.lens2, cs[m], b0s[m], one(m), FB_TP),
-                              be[m]) for m in range(M))
-        single_ms = time_ms(lambda: FB.oh_bwd(prep.pairn2, prep.lens2, cs[0], b0s[0], one(0),
-                                              FB_TP), runs=10)
-        b_row = _stacked_row(
-            "oh_bwd_stacked", S, M, "train", [be], be_p, per,
-            lambda: FB.oh_bwd_stacked(*b_args), plain_ms, single_ms,
-            # the shared pairn once, M x (cs_next read, the betas written)
-            4 * n + M * (12 * n + 8 * NL + tab_b) + 4 * NL, M * 9 * n, n)
-        del al, be, be_p, cs
+        f_row, b_row = split_stacked_rows(rng, gen, S, M, prep.pair2, prep.pairn2, prep.lens2,
+                                          FB_TP, "train", dev)
         if M == 2:
             results |= {"oh_fwd_stacked": f_row, "oh_bwd_stacked": b_row}
     del prep
@@ -3108,28 +3190,48 @@ def split_kernel_phase(rng: np.random.Generator, gen: torch.Generator, params, b
     f_args = (post.pair2, lens2, a0, tab)
     al = FB.oh_fwd(*f_args)
     al_p, plain_ms = timed_once(lambda: FB.oh_fwd_plain(*f_args))
+    more = split_fwd_checks(f_args, (post.pair2, post.pairn2, lens2, a0, b0, tab, POST_LANE_T),
+                            False)
     _bit_row("oh_fwd", al, al_p, lambda: FB.oh_fwd(*f_args), plain_ms,
-             12 * T + 12 * POST_NL + tab_b, 10 * T, T, geometry=geo)
+             12 * T + 12 * POST_NL + tab_b, 10 * T, T, geometry=geo, **more)
     del al_p
     cs_next = FB.cs_next_of(al)
     b_args = (post.pairn2, lens2, cs_next, b0, tab, POST_LANE_T)
     be = FB.oh_bwd(*b_args)
     be_p, plain_ms = timed_once(lambda: FB.oh_bwd_plain(*b_args))
     _bit_row("oh_bwd", be, be_p, lambda: FB.oh_bwd(*b_args), plain_ms,
-             16 * T + 12 * POST_NL + tab_b, 9 * T, T, geometry=geo)
-    del be, be_p
+             16 * T + 12 * POST_NL + tab_b, 9 * T, T, geometry=geo,
+             **split_bwd_checks(b_args, False))
     mask = torch.zeros(K, dtype=torch.float32, device=dev)
     mask[list(ISLAND_STATES)] = 1.0
-    c_args = (post.pairn2, post.pair2, lens2, cs_next, b0, al, mask[gt].contiguous(), tab,
-              POST_LANE_T)
+    mtab = mask[gt].contiguous()
+    c_args = (post.pairn2, post.pair2, lens2, cs_next, b0, al, mtab, tab, POST_LANE_T)
     conf = FB.oh_bwd_conf(*c_args)
     conf_p, plain_ms = timed_once(lambda: FB.oh_bwd_conf_plain(*c_args))
+    esym = FB.decode_esym(post.pair2, S)
+    more = {"sublanes": FB.split_bwd_sublanes(POST_LANE_T),
+            "equals_conf_of_b10": torch.equal(conf, FB._conf_from_mtab(al, be, esym, lens2,
+                                                                        mtab))}
+    del be, be_p
+    with bwd_sublane_length(POST_LANE_T):
+        conf1 = FB.oh_bwd_conf(*c_args)
+        conf1_p, more["g1_plain_ms"] = timed_once(lambda: FB.oh_bwd_conf_plain(*c_args))
+        more["g1_bit_equal"] = torch.equal(conf1, conf1_p)
+        more["g1_equals_conf_of_b10"] = torch.equal(conf1, FB._conf_from_mtab(
+            al, FB.oh_bwd(*b_args), esym, lens2, mtab))
+        more["g1_ms"] = time_ms(lambda: FB.oh_bwd_conf(*c_args), runs=10)
+    del conf1, conf1_p
+    if not all(more[k] for k in ("equals_conf_of_b10", "g1_bit_equal", "g1_equals_conf_of_b10")):
+        raise SystemExit(f"chip_smoke: oh_bwd_conf fails a check: {more}")
     results["oh_bwd_conf"] = _bit_row(
         "oh_bwd_conf", conf, conf_p, lambda: FB.oh_bwd_conf(*c_args), plain_ms,
         # pairn, pairs, cs_next and alphas read, the confidence written; per
         # step B10's 9 operations and the confidence's 8
-        20 * T + 4 * T + 12 * POST_NL + tab_b + 8 * S, 17 * T, T, geometry=geo)
-    del al, cs_next, conf, conf_p, post
+        20 * T + 4 * T + 12 * POST_NL + tab_b + 8 * S, 17 * T, T, geometry=geo, **more)
+    del al, cs_next, conf, conf_p, esym
+    split_stacked_rows(rng, gen, S, PLAIN_STACK_M[0], post.pair2, post.pairn2, lens2,
+                       POST_LANE_T, geo, dev)
+    del post
     torch.cuda.empty_cache()
     return results
 
@@ -3259,9 +3361,12 @@ def split_family_phase(gen: torch.Generator, fa: str, big: np.ndarray, dev) -> d
     E-step equal to the sequential one bit for bit; then
     posterior_sharded_stacked(fused=False) of two members on the 64 Mi
     record (B21, B22 and B23 once each) equal to their own
-    posterior_sharded(fused=False) runs bit for bit and within
-    SPLIT_CONF_ATOL of the fused stacked run.  Returns the launch counts."""
-    from cpgisland_tpu_torch.parallel.posterior import place_record_span, \
+    posterior_sharded(fused=False) runs bit for bit, with the path and
+    without, and within SPLIT_CONF_ATOL of the fused stacked run; the
+    stacked posterior's device time on both arms, and on the split arm with
+    B22 and B23 in one chain (the kernels and glue before they took
+    sub-lanes).  Returns the launch counts."""
+    from cpgisland_tpu_torch.parallel.posterior import island_mask, place_record_span, \
         posterior_sharded_stacked
 
     chunked = chunking.frame(codec.encode_file(fa), chunking.TRAIN_CHUNK, drop_remainder=True)
@@ -3303,15 +3408,23 @@ def split_family_phase(gen: torch.Generator, fa: str, big: np.ndarray, dev) -> d
         conf, _ = posterior_sharded_stacked(pair, obs, states, placed=placed, fused=fused)
         runs[fused] = (conf, {k: v for k, v in _kernels.launches.items() if v})
     conf_s, n_s = runs[False]
-    solo = all(np.array_equal(conf_s[m], posterior_sharded(p, obs, states[m], engine="onehot",
-                                                           placed=placed, fused=False)[0])
-               for m, p in enumerate(pair))
+    solo = all(np.array_equal(conf_s[m], posterior_sharded(
+        p, obs, states[m], engine="onehot", placed=placed, fused=False, want_path=wp)[0])
+        for m, p in enumerate(pair) for wp in (False, True))
     err = float(np.abs(conf_s.astype(np.float64) - runs[True][0]).max())
-    emit({"phase": "split_posterior_stacked", "M": 2, "symbols": int(obs.size),
-          "equals_single_runs": solo, "max_conf_err_vs_fused": err, "launches": n_s})
+    masks = [island_mask(p, st) for p, st in zip(pair, states)]
+    T = int(obs.size)
+    dev_ms = lambda fused: time_ms(lambda: fb_seq.seq_posterior_stacked(  # noqa: E731
+        pair, placed, T, masks, lane_T=POST_LANE_T, fused=fused), runs=5)
+    ms = {"fused": dev_ms(True), "split": dev_ms(False)}
+    with sublane_length(POST_LANE_T), patched(FP, BWD_SUBLANES_FROM=POST_LANE_T + 1):
+        ms["split_one_chain"] = dev_ms(False)
+    emit({"phase": "split_posterior_stacked", "M": 2, "symbols": T,
+          "equals_single_runs": solo, "max_conf_err_vs_fused": err, "launches": n_s,
+          "device_ms": ms})
     want = {"oh_prod_stacked": 1, "oh_fwd_stacked": 1, "oh_bwd_stacked": 1}
     if not solo or err > SPLIT_CONF_ATOL or n_s != want:
-        raise SystemExit("chip_smoke: the stacked split posterior differs from its single "
+        raise SystemExit(f"chip_smoke: the stacked split posterior differs from its single "
                          f"runs ({solo}), the fused arm ({err}) or launched {n_s}")
     for k, v in n_s.items():
         counts[k] = counts.get(k, 0) + v
@@ -3652,8 +3765,10 @@ COMPOSE_MIB, COMPOSE_LANE_T = 64, 65536  # the bench's defaults: 1024 full lanes
 
 def compose_phase(dev) -> tuple:
     """T2-T4 at the bench's geometry, on its inputs: bit-equal to their
-    plain versions, T2 to B9 and T4 to T3, T1-T4 within the bench's gate of
-    the single-step plain reference; each kernel timed beside its bound,
+    plain versions, T2 to B9 in one sub-lane (the chain they share) and T4
+    to T3, T1-T4 within the bench's gate of the single-step plain reference
+    (the sequential chain, B9's plain version in one sub-lane, as the bench
+    gates); each kernel timed beside its bound,
     the whole variant (its streams built) beside it.  Then the bench's own
     entry point.  Returns (the table rows of T2-T4, the bench's launches)."""
     tab, tab_ext = BC.pair_tables(dev)
@@ -3663,18 +3778,23 @@ def compose_phase(dev) -> tuple:
     fns = BC.variants(tab, tab_ext, lens2, a0)
     operands = {name: build(pair2) for name, (build, _) in fns.items()}
     got = {name: launch(operands[name]) for name, (_, launch) in fns.items()}
-    ref, ref_ms = timed_once(lambda: FB.oh_fwd_plain(pair2, lens2, a0, tab_ext))
+    # T2 shares B9's one chain: B9 in one sub-lane (its sub-lanes round
+    # apart), whose plain version is the sequential chain the gate takes.
+    with sublane_length(Tp):
+        b9_g1 = FB.oh_fwd(pair2, lens2, a0, tab_ext)
+        ref = FB.oh_fwd_plain(pair2, lens2, a0, tab_ext)
     mats, comp = operands["single-strm"], operands["composed"]
     idx, *tables = operands["composed-sel"]
     plains = {
-        "single": (ref, ref_ms),
+        "single": timed_once(lambda: FB.oh_fwd_plain(pair2, lens2, a0, tab_ext)),
         "single-strm": timed_once(lambda: FC.oh_fwd_strm_plain(mats, lens2, a0)),
         "composed": timed_once(lambda: FC.oh_fwd_comp_plain(comp, lens2, a0)),
         "composed-sel": timed_once(lambda: FC.oh_fwd_compsel_plain(idx, lens2, a0, *tables)),
     }
-    relations = {"t2_equals_b9": torch.equal(got["single-strm"], got["single"]),
+    relations = {"t2_equals_b9": torch.equal(got["single-strm"], b9_g1),
                  "t4_equals_t3": torch.equal(got["composed-sel"], got["composed"]),
                  "t2_plain_equals_b9_plain": torch.equal(plains["single-strm"][0], ref)}
+    del b9_g1
     rows, failed = {}, [k for k, ok in relations.items() if not ok]
     for name, (build, launch) in fns.items():
         kernel = BC.KERNEL_OF[name]

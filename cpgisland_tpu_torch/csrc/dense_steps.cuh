@@ -1,8 +1,9 @@
 // The dense chains' shared steps, included by csrc/fb_dense.cu (B16-B20) and
 // csrc/loglik.cu (the dense scoring chain): the forward contraction and the
 // power-of-two scaling of the sub-lane products, one piece of code wherever
-// they run.  Every operation is an explicit round-to-nearest intrinsic, the
-// plain versions' order (cpgisland_tpu_torch/ops/fb_pallas.py).
+// they run (csrc/fb_onehot.cu's B10 takes the scaling too).  Every
+// operation is an explicit round-to-nearest intrinsic, the plain versions'
+// order (cpgisland_tpu_torch/ops/fb_pallas.py).
 #pragma once
 
 #include <cuda_runtime.h>

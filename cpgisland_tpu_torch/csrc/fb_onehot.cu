@@ -107,28 +107,44 @@
 // total summed ((00 + 01) + 10) + 11, 1/x as __fdiv_rn.
 //
 // The split arm (fused=False), B9-B12 with the stacked B22 and B23:
-// B9 oh_fwd_kernel replaces fb_onehot.py::_oh_fwd_kernel (and, with a
-// member grid axis, B22 ::_oh_fwd_stacked_kernel): B4's forward chain alone,
-// the same fwd_chain body, so its alphas equal B4's bit for bit.  B10
-// oh_bwd_kernel<false> replaces ::_oh_bwd_kernel (B23
-// ::_oh_bwd_stacked_kernel with the member axis): the backward chain with
-// true Rabiner betas, each step's raw contraction times 1 / c_{t+1} read
-// from a cs_next stream, in the XLA twin's order (contract first, then
-// scale; the TPU kernel pre-scales the table rows instead).  B11
-// oh_bwd_kernel<true> replaces ::_oh_bwd_conf_kernel: the same chain
-// emitting the island confidence (m0 g0 + m1 g1) / max(g0 + g1, 1e-30),
-// g = alpha * beta, with the mask keyed on the position's own symbol; the
-// betas never reach device memory.  Bound: B9 reads 4 B and writes 8 B a
-// step (0.24 ms at 67.1 M steps), B10 reads 8 B and writes 8 B (0.32 ms),
-// B11 reads 20 B (both pair streams, cs_next, the two alphas) and writes
-// 4 B (0.48 ms); each lane is one dependent chain of IEEE divisions and
-// rounded products, so like B4 they are latency-bound above that.  The
-// design is B4's, one thread per chain (32 to a block), every operand off
-// the chain (the pairs, cs_next and, for B11, each position's symbol and
-// alphas) read a group of steps ahead, so a step waits on the chain alone,
-// and every operation an explicit round-to-nearest intrinsic in the plain
-// version's order; the split arm runs the forward and backward chains in
-// two launches, where B4 runs them side by side in one.
+// B9 replaces fb_onehot.py::_oh_fwd_kernel (and, with the member axis, B22
+// ::_oh_fwd_stacked_kernel): B4's forward chain alone.  B10 replaces
+// ::_oh_bwd_kernel (B23 ::_oh_bwd_stacked_kernel with the member axis): the
+// backward chain with true Rabiner betas, each step's raw contraction times
+// 1 / c_{t+1} read from a cs_next stream, in the XLA twin's order (contract
+// first, then scale; the TPU kernel pre-scales the table rows instead).
+// B11 replaces ::_oh_bwd_conf_kernel: the same chain emitting the island
+// confidence (m0 g0 + m1 g1) / max(g0 + g1, 1e-30), g = alpha * beta, with
+// the mask keyed on the position's own symbol; the betas never reach device
+// memory.  Bound: B9
+// reads 4 B and writes 8 B a step (0.24 ms at 67.1 M steps), B10 reads 8 B
+// and writes 8 B (0.32 ms), B11 reads 20 B (both pair streams, cs_next, the
+// two alphas) and writes 4 B (0.48 ms).  What bounded B9 and B10 in their
+// first design, one thread a chain (32 to a block, operands read a group
+// ahead), was the chain: a training batch has only about a thousand lanes,
+// each Tp dependent steps that wait on an IEEE division, about 150 ns a
+// step, 42x and 27x their bounds.  Now each lane runs as G sub-lanes
+// joined by exact boundary messages, so a thread walks about Tp / G steps:
+// - B9 takes B4's G (fb_onehot.sublanes) and B4's operations in B4's order
+//   (sub_prod over the valid steps 0 < t < len, the in-order sub_message<true>
+//   scan from a0, fwd_range from each message, the last valid alpha carried
+//   past len), so its alphas equal B4's bit for bit.  Its layout is B16's,
+//   oh_fwd_sub_kernel over a (32-lane block, sub-lane, member) grid in three
+//   launches: the products, then each sub-lane's message and chain, then the
+//   alphas past the last valid step (B4's own layout, a lane's sub-lanes the
+//   warps of one block, ran 1.35x slower on the training batch).
+// - B10 is DEGREE 1 in beta (B12 reads the Rabiner scale), so a direction,
+//   all that B4's messages carry, is not enough: its messages carry the
+//   betas' magnitude, B18's design for the 2x2 chain (oh_bwd_sub_kernel,
+//   below), G = fb_onehot.split_bwd_sublanes.
+// - B11 runs B10's sub-lanes (the same products launch, then the chain with
+//   the confidence in place of the betas: oh_bwd_sub_kernel<false, true>),
+//   so a confidence-only run equals the confidence over B10's betas, and
+//   over B23's for a stacked member, bit for bit.
+// At G == 1 all three keep their one-thread-a-chain kernels (oh_fwd_kernel,
+// oh_bwd_kernel<false> and <true>), op for op the XLA twins.  Every
+// operation is an explicit round-to-nearest intrinsic in the plain
+// versions' order.
 //
 // B12 oh_stats_part_kernel replaces ::_oh_stats_kernel: the chunked counts
 // over the split arm's cs-scaled streams, DEGREE 1 in the betas (xi[a, c]
@@ -165,26 +181,28 @@
 // T2 oh_fwd_strm_kernel replaces ::_fwd_strm_kernel: B9's chain with the
 // four entries of each step's matrix streamed from device memory in place
 // of B9's pair load and shared-table lookup; 16 + 8 B a symbol, 1.61 GB,
-// 0.481 ms.  It runs B9's step body (fwd_step), so its alphas equal B9's
-// bit for bit.  T3 oh_fwd_comp_kernel replaces ::_fwd_comp_kernel: the
-// double-step chain over ten streams (T2 = T_even . T_odd, R = the row
-// sums of T_even, T_even), alpha_{2h+1} = (v . T2) / (v . R) carried while
+// 0.481 ms.  It runs B9's step body (fwd_step) in one chain, so its alphas
+// equal B9's in one sub-lane bit for bit.  T3 oh_fwd_comp_kernel replaces
+// ::_fwd_comp_kernel: the double-step chain over ten streams (T2 = T_even
+// . T_odd, R = the row sums of T_even, T_even), alpha_{2h+1} = (v . T2) /
+// (v . R) carried while
 // alpha_{2h} = (v . T_even) / (v0 + v1) hangs off the chain; 20 + 8 B a
 // symbol, 1.88 GB, 0.561 ms.  T4 oh_fwd_compsel_kernel replaces
 // ::_fwd_compsel_kernel: T3's chain with the composed rows looked up from
 // three tables (at S = 4: 96 x 4, 17 x 2 and 17 x 4 floats) in shared
 // memory, keyed by two int32 index streams; 4 + 8 B a symbol, 0.81 GB,
 // 0.240 ms.  Its tables hold T3's stream values bit for bit (the plain
-// side builds them with T3's formula), so its alphas equal T3's.  All three
-// are serial chains, one thread a lane (32 to a block) like B9; the
-// streams are read a group of steps ahead so a step waits on the chain
-// alone.  A double step's chain (v . R -> 1 / den beside v . T2, then one
+// side builds them with T3's formula), so its alphas equal T3's.  All
+// three are serial chains, one thread a lane (32 to a block) like B9 at G =
+// 1; the streams are read a group of steps ahead so a step waits on the
+// chain alone.  A double step's chain (v . R -> 1 / den beside v . T2, then one
 // multiply) is no deeper than B9's single step, so T3 and T4 carry one
 // dependent step per two symbols.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dense_steps.cuh"  // pow2f, scale_exp: B10's power-of-two message scaling
 #include "onehot_steps.cuh"
 
 #define FB_THREADS 32
@@ -306,6 +324,35 @@ __device__ __forceinline__ void load_conf_group(const int32_t* pc, const float* 
   }
 }
 
+// B11's island-mask row of every pair index into s_pmask [2 (S^2 + S)]:
+// real pairs p = prev * S + cur take cur's row, PAD pairs S^2 + s take s's,
+// so no step divides.  Returns their count, S^2 + S; the caller's
+// load_table syncs the block.
+__device__ __forceinline__ int load_pmask(float* s_pmask, const float* mtab, int nreal, int S) {
+  const int npm = nreal + S;
+  for (int i = threadIdx.x; i < npm; i += blockDim.x) {
+    const int sym = i < nreal ? i % S : i - nreal;
+    s_pmask[2 * i] = mtab[2 * sym];
+    s_pmask[2 * i + 1] = mtab[2 * sym + 1];
+  }
+  return npm;
+}
+
+// B11's confidence at a valid step t < len: (m0 g0 + m1 g1) / max(g0 + g1,
+// 1e-30), g = alpha_t * beta_t, (m0, m1) the mask row of pair index pp (a
+// pair index past the table carries no symbol: mask 0, as the plain
+// version's select gives).
+__device__ __forceinline__ float conf_of(int pp, float a0, float a1, float b0, float b1,
+                                         const float* s_pmask, int npm) {
+  const bool known = (unsigned)pp < (unsigned)npm;
+  const float m0 = known ? s_pmask[2 * pp] : 0.0f;
+  const float m1 = known ? s_pmask[2 * pp + 1] : 0.0f;
+  const float g0 = __fmul_rn(a0, b0);
+  const float g1 = __fmul_rn(a1, b1);
+  const float tot = fmaxf(__fadd_rn(g0, g1), 1e-30f);
+  return __fdiv_rn(__fadd_rn(__fmul_rn(m0, g0), __fmul_rn(m1, g1)), tot);
+}
+
 // B10's backward (B11's with CONF), t = Tp-1 down to 0: beta_t = (M_{t+1} .
 // beta_{t+1}) * (1 / c_{t+1}) where t <= T-2 and t+1 < len, else carried;
 // ``cn`` is the lane's cs_next column (c_{t+1} at row t, 1 at the last).
@@ -349,19 +396,8 @@ __device__ __forceinline__ void split_bwd_chain(const int32_t* pn, const float* 
           b1 = x1;
         }
         if (CONF) {
-          float conf = 0.0f;
-          if (t < len) {
-            // A pair index past the table carries no symbol: mask 0, as
-            // the plain version's select gives.
-            const bool known = (unsigned)pp[r] < (unsigned)npm;
-            const float m0 = known ? s_pmask[2 * pp[r]] : 0.0f;
-            const float m1 = known ? s_pmask[2 * pp[r] + 1] : 0.0f;
-            const float g0 = __fmul_rn(a0[r], b0);
-            const float g1 = __fmul_rn(a1[r], b1);
-            const float tot = fmaxf(__fadd_rn(g0, g1), 1e-30f);
-            conf = __fdiv_rn(__fadd_rn(__fmul_rn(m0, g0), __fmul_rn(m1, g1)), tot);
-          }
-          out[(size_t)t * nl] = conf;
+          out[(size_t)t * nl] = t < len ? conf_of(pp[r], a0[r], a1[r], b0, b1, s_pmask, npm)
+                                        : 0.0f;
         } else {
           out[(size_t)(2 * t) * nl] = b0;
           out[(size_t)(2 * t + 1) * nl] = b1;
@@ -668,15 +704,7 @@ oh_bwd_kernel(const int32_t* __restrict__ pairn, const int32_t* __restrict__ pai
   __shared__ float s_tab[MAX_TAB];
   __shared__ float s_pmask[2 * (MAX_S * MAX_S + MAX_S)];
   const int m = blockIdx.y;
-  // B11: the island-mask row of every pair index (real pairs p = prev * S +
-  // cur take cur's row, PAD pairs S^2 + s take s's), so no step divides.
-  const int npm = nreal + S;
-  if (CONF)
-    for (int i = threadIdx.x; i < npm; i += blockDim.x) {
-      const int sym = i < nreal ? i % S : i - nreal;
-      s_pmask[2 * i] = mtab[2 * sym];
-      s_pmask[2 * i + 1] = mtab[2 * sym + 1];
-    }
+  const int npm = CONF ? load_pmask(s_pmask, mtab, nreal, S) : 0;
   load_table(s_tab, tab + (size_t)m * (nreal + 1) * 4, nreal);
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= NL) return;
@@ -686,6 +714,276 @@ oh_bwd_kernel(const int32_t* __restrict__ pairn, const int32_t* __restrict__ pai
   split_bwd_chain<CONF>(pairn + n, cs_next + (size_t)m * Tp * nl + n, s_tab, beta0[vec + n],
                         beta0[vec + nl + n], dst, lens[n], Tp, nl, nreal, T,
                         CONF ? pair + n : nullptr, CONF ? alphas + n : nullptr, s_pmask, npm);
+}
+
+// ---------------------------------------------------------------------------
+// B9 / B22 in sub-lanes, the grid layout: one thread per (lane, sub-lane g =
+// blockIdx.y, member m = blockIdx.z), 32 lanes a block, three launches.
+// With last = max(min(len, Tp), 1) - 1 the last valid step and gl = last / L
+// its sub-lane:
+// PHASE 0: each sub-lane g < gl forms B4's product of its valid steps
+//    (sub_prod) into the scratch [M, G, 4, NL]; the products of sub-lanes gl
+//    and up are never read, so they are not formed;
+// PHASE 1: each thread g <= gl forms the direction entering its sub-lane
+//    from a0 and P_0 .. P_{g-1} with B4's in-order scan (sub_message<true>;
+//    a sub-lane with no valid step passes the message on), the same
+//    operations in the same order as B4's warp 0, then B4's chain
+//    (fwd_range), which in sub-lane gl carries the alpha of step last to
+//    the sub-lane's end;
+// PHASE 2: each sub-lane g > gl stores the alpha of step last, read back
+//    from the alphas, at every step (B4 hands it over in shared memory).
+template <int PHASE>
+__global__ void __launch_bounds__(FB_THREADS)
+oh_fwd_sub_kernel(const int32_t* __restrict__ pair, const int32_t* __restrict__ lens,
+                  const float* __restrict__ a0, const float* __restrict__ tab, float* alphas,
+                  float* pbuf, int Tp, int NL, int nreal, int G, int L) {
+  __shared__ float s_tab[MAX_TAB];
+  const int m = blockIdx.z;
+  if (PHASE < 2) load_table(s_tab, tab + (size_t)m * (nreal + 1) * 4, nreal);
+  const int g = blockIdx.y;
+  const int n = blockIdx.x * FB_THREADS + threadIdx.x;
+  if (n >= NL) return;
+  const size_t nl = (size_t)NL;
+  const int len = lens[n];
+  const int last = max(min(len, Tp), 1) - 1;
+  const int gl = last / L;
+  const int tb = min(g * L, Tp), te = min(tb + L, Tp);
+  float* al = alphas + (size_t)m * Tp * 2 * nl + n;
+  float* pb = pbuf + (size_t)m * G * 4 * nl + n;  // member m's [G, 4, NL], lane n
+  if (PHASE == 0) {
+    if (g < gl) {
+      float P[4];
+      sub_prod(pair + n, s_tab, tb, te, 1, len, Tp, nl, nreal, P);
+      for (int c = 0; c < 4; ++c) pb[(size_t)(4 * g + c) * nl] = P[c];
+    }
+  } else if (PHASE == 1) {
+    if (g <= gl) {
+      const float e0 = a0[(size_t)m * 2 * nl + n], e1 = a0[(size_t)(m * 2 + 1) * nl + n];
+      float v0 = e0, v1 = e1;
+      for (int h = 0; h < g; ++h) {
+        const int hb = min(h * L, Tp), he = min(hb + L, Tp);
+        if (max(hb, 1) >= min(he, len)) continue;  // no valid step: the message passes on
+        const float* Ph = pb + (size_t)(4 * h) * nl;
+        const float P[4] = {Ph[0], Ph[nl], Ph[2 * nl], Ph[3 * nl]};
+        sub_message<true>(v0, v1, P);
+      }
+      fwd_range(pair + n, s_tab, v0, v1, e0, e1, al, len, tb, te, Tp, nl, nreal);
+    }
+  } else if (g > gl) {
+    const float v0 = al[(size_t)(2 * last) * nl], v1 = al[(size_t)(2 * last + 1) * nl];
+    for (int t = tb; t < te; ++t) {
+      al[(size_t)(2 * t) * nl] = v0;
+      al[(size_t)(2 * t + 1) * nl] = v1;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B10 / B23 in sub-lanes (fb_onehot.split_bwd_sublanes): B18's design for the
+// 2x2 reduced chain.  Each lane runs as G sub-lanes of L steps, [g L,
+// min((g + 1) L, Tp)), one thread per (lane, sub-lane g = blockIdx.y,
+// member m = blockIdx.z), 32 lanes a block.  The chain is DEGREE 1 in beta,
+// so a sub-lane's message carries the true magnitude:
+// 1. (PROD) each sub-lane g > 0 with a valid step forms its transfer matrix
+//    Q_g (beta_tb = Q_g . beta_te over its valid steps t < hi = min(T - 1,
+//    len - 1)) from the identity, by the chain's own step applied to each
+//    column (contract, then times 1 / c_{t+1}), t walking down from the
+//    sub-lane's end; after every 8th step counted from its padded end (g +
+//    1) L - 1, Q_g is scaled by 2^-e, e the binary exponent of its total
+//    ((Q00 + Q01) + Q10) + Q11 (scale_exp: a power of two costs no division
+//    and rounds nothing), and e is added to an int E_g.  Q_g (row-major)
+//    and E_g (as a float: exact below 2^24) go to the scratch [M, G, 5, NL].
+//    Sub-lane 0's product and those of sub-lanes without a valid step are
+//    never read, so they are not formed;
+// 2. (!PROD) each thread forms the beta entering its sub-lane (the one after
+//    its last step) from beta0 and Q_{G-1} .. Q_{g+1} in order (v <- Q_h .
+//    v, then v times 2^-e of its sum, the exponents summed; a sub-lane with
+//    no valid step passes v on unchanged) and starts its chain from (v
+//    2^E1) 2^E2, E1 = E / 2: the same operations in the same order in every
+//    thread, so the messages are a sequential scan's, and the last valid
+//    sub-lane starts from beta0 exactly;
+// 3. B10's chain (cs_bwd_range) over the sub-lane from that message.
+// A product by a power of two is exact away from float32's subnormals, so in
+// exact arithmetic the messages are the sequential chain's betas; the
+// stored betas differ from it in the last bits.  Every operation is an
+// explicit round-to-nearest intrinsic in fb_onehot._split_bwd_sublanes_plain's
+// order.
+
+// Phase 1: Q_g and E_g of the sub-lane [tb, te) into dst (rows nl apart);
+// pn and cn: the lane's next-step pair and cs_next columns.
+__device__ __forceinline__ void cs_bwd_sub_prod(const int32_t* pn, const float* cn,
+                                                const float* s_tab, int tb, int te, int hi,
+                                                int L, int Tp, size_t nl, int nreal,
+                                                float* dst) {
+  float q00 = 1.0f, q01 = 0.0f, q10 = 0.0f, q11 = 1.0f;
+  int E = 0;
+  int q[LOOKAHEAD], qn[LOOKAHEAD];
+  float c[LOOKAHEAD], cx[LOOKAHEAD];
+  load_group(pn, nl, te - 1, -1, Tp, nreal, q);
+  load_fgroup(cn, nl, te - 1, -1, Tp, c);
+  for (int k0 = 0; k0 < te - tb; k0 += LOOKAHEAD) {
+    const int next = te - 1 - (k0 + LOOKAHEAD);
+    load_group(pn, nl, next, -1, Tp, nreal, qn);
+    load_fgroup(cn, nl, next, -1, Tp, cx);
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) {
+      const int t = te - 1 - (k0 + r);
+      if (t >= tb) {
+        if (t < hi) {
+          const float* m = s_tab + 4 * q[r];
+          const float ic = __fdiv_rn(1.0f, c[r]);
+          const float n00 = __fmul_rn(__fadd_rn(__fmul_rn(m[0], q00), __fmul_rn(m[1], q10)), ic);
+          const float n01 = __fmul_rn(__fadd_rn(__fmul_rn(m[0], q01), __fmul_rn(m[1], q11)), ic);
+          const float n10 = __fmul_rn(__fadd_rn(__fmul_rn(m[2], q00), __fmul_rn(m[3], q10)), ic);
+          const float n11 = __fmul_rn(__fadd_rn(__fmul_rn(m[2], q01), __fmul_rn(m[3], q11)), ic);
+          q00 = n00;
+          q01 = n01;
+          q10 = n10;
+          q11 = n11;
+        }
+        if (((tb + L - 1 - t) & 7) == 7) {
+          const int e = scale_exp(__fadd_rn(__fadd_rn(__fadd_rn(q00, q01), q10), q11));
+          const float sc = pow2f(-e);
+          q00 = __fmul_rn(q00, sc);
+          q01 = __fmul_rn(q01, sc);
+          q10 = __fmul_rn(q10, sc);
+          q11 = __fmul_rn(q11, sc);
+          E += e;
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) {
+      q[r] = qn[r];
+      c[r] = cx[r];
+    }
+  }
+  dst[0] = q00;
+  dst[nl] = q01;
+  dst[2 * nl] = q10;
+  dst[3 * nl] = q11;
+  dst[4 * nl] = (float)E;
+}
+
+// Phase 2: the beta entering sub-lane g (the beta after its last step) into
+// (b0, b1), from beta0 (the lane's column, rows nl apart) and the products
+// of sub-lanes G-1 .. g+1 in qb (the lane's column of the member's scratch).
+__device__ __forceinline__ void cs_bwd_entry(const float* qb, const float* beta0, int g, int G,
+                                             int L, int Tp, int hi, size_t nl, float& b0,
+                                             float& b1) {
+  float v0 = beta0[0], v1 = beta0[nl];
+  int E = 0;
+  for (int h = G - 1; h > g; --h) {
+    const int hb = min(h * L, Tp), he = min(hb + L, Tp);
+    if (hb >= min(he, hi)) continue;  // no valid step: the message passes on
+    const float* Q = qb + (size_t)(5 * h) * nl;
+    const float r0 = __fadd_rn(__fmul_rn(Q[0], v0), __fmul_rn(Q[nl], v1));
+    const float r1 = __fadd_rn(__fmul_rn(Q[2 * nl], v0), __fmul_rn(Q[3 * nl], v1));
+    const int e = scale_exp(__fadd_rn(r0, r1));
+    const float sc = pow2f(-e);
+    v0 = __fmul_rn(r0, sc);
+    v1 = __fmul_rn(r1, sc);
+    E += (int)Q[4 * nl] + e;
+  }
+  const int e1 = E / 2, e2 = E - e1;
+  const float s1 = pow2f(min(max(e1, -126), 126)), s2 = pow2f(min(max(e2, -126), 126));
+  b0 = __fmul_rn(__fmul_rn(v0, s1), s2);
+  b1 = __fmul_rn(__fmul_rn(v1, s1), s2);
+}
+
+// Phase 3: B10's chain over [tb, te) from (b0, b1), the beta after step te -
+// 1: beta_t = (M_{t+1} . beta_{t+1}) * (1 / c_{t+1}) where t < hi, else
+// carried; beta_t stored at rows 2t, 2t + 1 of out (the lane's column).
+// With CONF (B11) conf[t] at row t instead, split_bwd_chain's (pc, al,
+// s_pmask as there; 0 at t >= len).
+template <bool CONF>
+__device__ __forceinline__ void cs_bwd_range(const int32_t* pn, const float* cn,
+                                             const float* s_tab, float b0, float b1, float* out,
+                                             int tb, int te, int hi, int Tp, size_t nl,
+                                             int nreal, int len, const int32_t* pc,
+                                             const float* al, const float* s_pmask, int npm) {
+  int q[LOOKAHEAD], qn[LOOKAHEAD];
+  float c[LOOKAHEAD], cx[LOOKAHEAD];
+  int pp[LOOKAHEAD], ppx[LOOKAHEAD];
+  float a0[LOOKAHEAD], a1[LOOKAHEAD], a0x[LOOKAHEAD], a1x[LOOKAHEAD];
+  load_group(pn, nl, te - 1, -1, Tp, nreal, q);
+  load_fgroup(cn, nl, te - 1, -1, Tp, c);
+  if (CONF) load_conf_group(pc, al, nl, te - 1, Tp, pp, a0, a1);
+  for (int k0 = 0; k0 < te - tb; k0 += LOOKAHEAD) {
+    const int next = te - 1 - (k0 + LOOKAHEAD);
+    load_group(pn, nl, next, -1, Tp, nreal, qn);
+    load_fgroup(cn, nl, next, -1, Tp, cx);
+    if (CONF) load_conf_group(pc, al, nl, next, Tp, ppx, a0x, a1x);
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) {
+      const int t = te - 1 - (k0 + r);
+      if (t >= tb) {
+        const float* m = s_tab + 4 * q[r];
+        const float ic = __fdiv_rn(1.0f, c[r]);
+        const float x0 = __fmul_rn(__fadd_rn(__fmul_rn(m[0], b0), __fmul_rn(m[1], b1)), ic);
+        const float x1 = __fmul_rn(__fadd_rn(__fmul_rn(m[2], b0), __fmul_rn(m[3], b1)), ic);
+        if (t < hi) {
+          b0 = x0;
+          b1 = x1;
+        }
+        if (CONF) {
+          out[(size_t)t * nl] = t < len ? conf_of(pp[r], a0[r], a1[r], b0, b1, s_pmask, npm)
+                                        : 0.0f;
+        } else {
+          out[(size_t)(2 * t) * nl] = b0;
+          out[(size_t)(2 * t + 1) * nl] = b1;
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) {
+      q[r] = qn[r];
+      c[r] = cx[r];
+      if (CONF) {
+        pp[r] = ppx[r];
+        a0[r] = a0x[r];
+        a1[r] = a1x[r];
+      }
+    }
+  }
+}
+
+// PROD: phase 1 (the first launch); else phases 2 and 3 (the second).
+// cs_next member-major [M, Tp, NL], beta0 [M, 2, NL], out: the betas [M, Tp,
+// 2, NL], or with CONF (B11, M = 1) the confidence [Tp, NL] from pair [Tp,
+// NL], alphas [Tp, 2, NL] and mtab [S, 2] (B11's operands).
+template <bool PROD, bool CONF>
+__global__ void __launch_bounds__(FB_THREADS)
+oh_bwd_sub_kernel(const int32_t* __restrict__ pairn, const int32_t* __restrict__ lens,
+                  const float* __restrict__ cs_next, const float* __restrict__ beta0,
+                  const float* __restrict__ tab, float* qbuf, float* __restrict__ out, int Tp,
+                  int NL, int nreal, int T, int G, int L, const int32_t* __restrict__ pair,
+                  const float* __restrict__ alphas, const float* __restrict__ mtab, int S) {
+  __shared__ float s_tab[MAX_TAB];
+  __shared__ float s_pmask[2 * (MAX_S * MAX_S + MAX_S)];
+  const int m = blockIdx.z;
+  const int npm = CONF ? load_pmask(s_pmask, mtab, nreal, S) : 0;
+  load_table(s_tab, tab + (size_t)m * (nreal + 1) * 4, nreal);
+  const int g = blockIdx.y;
+  const int n = blockIdx.x * FB_THREADS + threadIdx.x;
+  if (n >= NL) return;
+  const size_t nl = (size_t)NL;
+  const int hi = min(T - 1, lens[n] - 1);
+  const int tb = min(g * L, Tp), te = min(tb + L, Tp);
+  const float* cn = cs_next + (size_t)m * Tp * nl + n;
+  float* qb = qbuf + (size_t)m * G * 5 * nl + n;
+  if (PROD) {
+    if (g > 0 && tb < min(te, hi))
+      cs_bwd_sub_prod(pairn + n, cn, s_tab, tb, te, hi, L, Tp, nl, nreal,
+                      qb + (size_t)(5 * g) * nl);
+  } else {
+    float b0, b1;
+    cs_bwd_entry(qb, beta0 + (size_t)m * 2 * nl + n, g, G, L, Tp, hi, nl, b0, b1);
+    cs_bwd_range<CONF>(pairn + n, cn, s_tab, b0, b1,
+                       CONF ? out + n : out + (size_t)m * Tp * 2 * nl + n, tb, te, hi, Tp, nl,
+                       nreal, lens[n], CONF ? pair + n : nullptr, CONF ? alphas + n : nullptr,
+                       s_pmask, npm);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1344,61 +1642,112 @@ static inline bool bad_stream(int Tp, int NL, int nreal) {
   return nreal < 1 || nreal > MAX_S * MAX_S || Tp <= 0 || NL <= 0;
 }
 
+// B9 / B22: member m on the last grid axis.  G == 1: one thread a chain
+// (oh_fwd_kernel); G > 1: the three launches of oh_fwd_sub_kernel (pbuf
+// [M, G, 4, NL]).
 static int launch_fwd(const void* pair, const void* lens, const void* a0, const void* tab,
-                      void* alphas, int Tp, int NL, int nreal, int M, cudaStream_t st) {
-  if (bad_stream(Tp, NL, nreal) || M < 1 || M > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((NL + FB_THREADS - 1) / FB_THREADS), (unsigned)M);
-  oh_fwd_kernel<<<grid, FB_THREADS, 0, st>>>((const int32_t*)pair, (const int32_t*)lens,
-                                             (const float*)a0, (const float*)tab,
-                                             (float*)alphas, Tp, NL, nreal);
+                      void* alphas, void* pbuf, int Tp, int NL, int nreal, int G, int M,
+                      cudaStream_t st) {
+  if (bad_stream(Tp, NL, nreal) || M < 1 || M > 65535 || G < 1 || G > SUB_LANES_MAX || G > Tp)
+    return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((NL + FB_THREADS - 1) / FB_THREADS);
+  if (G == 1) {
+    oh_fwd_kernel<<<dim3(blocks, (unsigned)M), FB_THREADS, 0, st>>>(
+        (const int32_t*)pair, (const int32_t*)lens, (const float*)a0, (const float*)tab,
+        (float*)alphas, Tp, NL, nreal);
+    return (int)cudaGetLastError();
+  }
+  const int L = (Tp + G - 1) / G;
+  const dim3 grid(blocks, (unsigned)G, (unsigned)M);
+#define FWD_SUB_ARGS                                                                \
+  (const int32_t*)pair, (const int32_t*)lens, (const float*)a0, (const float*)tab, \
+      (float*)alphas, (float*)pbuf, Tp, NL, nreal, G, L
+  oh_fwd_sub_kernel<0><<<grid, FB_THREADS, 0, st>>>(FWD_SUB_ARGS);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  oh_fwd_sub_kernel<1><<<grid, FB_THREADS, 0, st>>>(FWD_SUB_ARGS);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  oh_fwd_sub_kernel<2><<<grid, FB_THREADS, 0, st>>>(FWD_SUB_ARGS);
+#undef FWD_SUB_ARGS
   return (int)cudaGetLastError();
 }
 
+// B10 / B23 (``pair`` null: the betas, member m on the last grid axis) or
+// B11 (``pair`` given, M = 1: the confidence from pair, alphas and mtab).
+// G == 1: one thread a chain (oh_bwd_kernel); G > 1: the two launches of
+// oh_bwd_sub_kernel (qbuf [M, G, 5, NL]), the products shared.
 static int launch_bwd(const void* pairn, const void* lens, const void* cs_next,
-                      const void* beta0, const void* tab, void* betas, int Tp, int NL,
-                      int nreal, int T, int M, cudaStream_t st) {
-  if (bad_stream(Tp, NL, nreal) || M < 1 || M > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((NL + FB_THREADS - 1) / FB_THREADS), (unsigned)M);
-  oh_bwd_kernel<false><<<grid, FB_THREADS, 0, st>>>(
-      (const int32_t*)pairn, nullptr, (const int32_t*)lens, (const float*)cs_next,
-      (const float*)beta0, nullptr, nullptr, (const float*)tab, (float*)betas, Tp, NL, nreal, 1,
-      T);
+                      const void* beta0, const void* tab, void* out, void* qbuf, int Tp,
+                      int NL, int nreal, int T, int G, int M, const void* pair,
+                      const void* alphas, const void* mtab, int S, cudaStream_t st) {
+  const bool conf = pair != nullptr;
+  if (bad_stream(Tp, NL, nreal) || M < 1 || M > 65535 || G < 1 || G > SUB_LANES_MAX ||
+      G > Tp || (conf && (M != 1 || S < 1 || S > MAX_S || nreal != S * S)))
+    return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((NL + FB_THREADS - 1) / FB_THREADS);
+  if (G == 1) {
+#define BWD_ARGS                                                                     \
+  (const int32_t*)pairn, (const int32_t*)pair, (const int32_t*)lens,                \
+      (const float*)cs_next, (const float*)beta0, (const float*)alphas,             \
+      (const float*)mtab, (const float*)tab, (float*)out, Tp, NL, nreal, S, T
+    if (conf)
+      oh_bwd_kernel<true><<<dim3(blocks, 1), FB_THREADS, 0, st>>>(BWD_ARGS);
+    else
+      oh_bwd_kernel<false><<<dim3(blocks, (unsigned)M), FB_THREADS, 0, st>>>(BWD_ARGS);
+#undef BWD_ARGS
+    return (int)cudaGetLastError();
+  }
+  const int L = (Tp + G - 1) / G;
+  const dim3 grid(blocks, (unsigned)G, (unsigned)M);
+#define BWD_SUB_ARGS                                                                   \
+  (const int32_t*)pairn, (const int32_t*)lens, (const float*)cs_next,                 \
+      (const float*)beta0, (const float*)tab, (float*)qbuf, (float*)out, Tp, NL, nreal,   \
+      T, G, L, (const int32_t*)pair, (const float*)alphas, (const float*)mtab, S
+  oh_bwd_sub_kernel<true, false><<<grid, FB_THREADS, 0, st>>>(BWD_SUB_ARGS);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (conf)
+    oh_bwd_sub_kernel<false, true><<<grid, FB_THREADS, 0, st>>>(BWD_SUB_ARGS);
+  else
+    oh_bwd_sub_kernel<false, false><<<grid, FB_THREADS, 0, st>>>(BWD_SUB_ARGS);
+#undef BWD_SUB_ARGS
   return (int)cudaGetLastError();
 }
 
 int oh_fwd(const void* pair, const void* lens, const void* a0, const void* tab, void* alphas,
-           int Tp, int NL, int nreal, void* stream) {
-  return launch_fwd(pair, lens, a0, tab, alphas, Tp, NL, nreal, 1, (cudaStream_t)stream);
+           void* pbuf, int Tp, int NL, int nreal, int G, void* stream) {
+  return launch_fwd(pair, lens, a0, tab, alphas, pbuf, Tp, NL, nreal, G, 1,
+                    (cudaStream_t)stream);
 }
 
 int oh_fwd_stacked(const void* pair, const void* lens, const void* a0, const void* tab,
-                   void* alphas, int Tp, int NL, int nreal, int M, void* stream) {
-  return launch_fwd(pair, lens, a0, tab, alphas, Tp, NL, nreal, M, (cudaStream_t)stream);
+                   void* alphas, void* pbuf, int Tp, int NL, int nreal, int G, int M,
+                   void* stream) {
+  return launch_fwd(pair, lens, a0, tab, alphas, pbuf, Tp, NL, nreal, G, M,
+                    (cudaStream_t)stream);
 }
 
 int oh_bwd(const void* pairn, const void* lens, const void* cs_next, const void* beta0,
-           const void* tab, void* betas, int Tp, int NL, int nreal, int T, void* stream) {
-  return launch_bwd(pairn, lens, cs_next, beta0, tab, betas, Tp, NL, nreal, T, 1,
-                    (cudaStream_t)stream);
+           const void* tab, void* betas, void* qbuf, int Tp, int NL, int nreal, int T, int G,
+           void* stream) {
+  return launch_bwd(pairn, lens, cs_next, beta0, tab, betas, qbuf, Tp, NL, nreal, T, G, 1,
+                    nullptr, nullptr, nullptr, 1, (cudaStream_t)stream);
 }
 
 int oh_bwd_stacked(const void* pairn, const void* lens, const void* cs_next, const void* beta0,
-                   const void* tab, void* betas, int Tp, int NL, int nreal, int T, int M,
-                   void* stream) {
-  return launch_bwd(pairn, lens, cs_next, beta0, tab, betas, Tp, NL, nreal, T, M,
-                    (cudaStream_t)stream);
+                   const void* tab, void* betas, void* qbuf, int Tp, int NL, int nreal, int T,
+                   int G, int M, void* stream) {
+  return launch_bwd(pairn, lens, cs_next, beta0, tab, betas, qbuf, Tp, NL, nreal, T, G, M,
+                    nullptr, nullptr, nullptr, 1, (cudaStream_t)stream);
 }
 
 int oh_bwd_conf(const void* pairn, const void* pair, const void* lens, const void* cs_next,
                 const void* beta0, const void* alphas, const void* mtab, const void* tab,
-                void* conf, int Tp, int NL, int S, int T, void* stream) {
-  if (S < 1 || S > MAX_S || bad_stream(Tp, NL, S * S)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((NL + FB_THREADS - 1) / FB_THREADS), 1);
-  oh_bwd_kernel<true><<<grid, FB_THREADS, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)pairn, (const int32_t*)pair, (const int32_t*)lens, (const float*)cs_next,
-      (const float*)beta0, (const float*)alphas, (const float*)mtab, (const float*)tab,
-      (float*)conf, Tp, NL, S * S, S, T);
-  return (int)cudaGetLastError();
+                void* conf, void* qbuf, int Tp, int NL, int S, int T, int G, void* stream) {
+  if (pair == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_bwd(pairn, lens, cs_next, beta0, tab, conf, qbuf, Tp, NL, S * S, T, G, 1, pair,
+                    alphas, mtab, S, (cudaStream_t)stream);
 }
 
 int oh_stats(const void* alphas, const void* betas, const void* pair, const void* lens,

@@ -55,12 +55,12 @@ _SIGNATURES = {
     "oh_seq_stats": ("fb_onehot", 14, ("Tp", "NL", "S", "K", "Tt", "SPB")),
     "oh_prod_stacked": ("fb_onehot", 3, ("Tp", "NL", "nreal", "G", "M")),
     "oh_fwdbwd_stacked": ("fb_onehot", 8, ("Tp", "NL", "nreal", "T", "G", "M")),
-    "oh_fwd": ("fb_onehot", 5, ("Tp", "NL", "nreal")),
-    "oh_bwd": ("fb_onehot", 6, ("Tp", "NL", "nreal", "T")),
-    "oh_bwd_conf": ("fb_onehot", 9, ("Tp", "NL", "S", "T")),
+    "oh_fwd": ("fb_onehot", 6, ("Tp", "NL", "nreal", "G")),
+    "oh_bwd": ("fb_onehot", 7, ("Tp", "NL", "nreal", "T", "G")),
+    "oh_bwd_conf": ("fb_onehot", 10, ("Tp", "NL", "S", "T", "G")),
     "oh_stats": ("fb_onehot", 10, ("Tp", "NL", "S", "K", "Tt")),
-    "oh_fwd_stacked": ("fb_onehot", 5, ("Tp", "NL", "nreal", "M")),
-    "oh_bwd_stacked": ("fb_onehot", 6, ("Tp", "NL", "nreal", "T", "M")),
+    "oh_fwd_stacked": ("fb_onehot", 6, ("Tp", "NL", "nreal", "G", "M")),
+    "oh_bwd_stacked": ("fb_onehot", 7, ("Tp", "NL", "nreal", "T", "G", "M")),
     "oh_seq_stats_stacked": ("fb_onehot", 14, ("Tp", "NL", "S", "K", "Tt", "SPB", "M")),
     "oh_fwd_strm": ("fb_onehot", 4, ("Tp", "NL")),
     "oh_fwd_comp": ("fb_onehot", 4, ("H", "NL")),

@@ -51,15 +51,20 @@ one's — the per-pair table :func:`prob_pair_table`.
 
 The split arm (``fused=False``, the JAX package's A/B baseline) runs the
 two chains in separate launches, the backward with true Rabiner scaling:
-B9 :func:`oh_fwd` (replaces ``_oh_fwd_kernel``; B4's forward, equal to its
-alphas bit for bit), B10 :func:`oh_bwd` (``_oh_bwd_kernel``: the betas
-scaled by 1 / c_{t+1} from a ``cs_next`` stream), B11 :func:`oh_bwd_conf`
-(``_oh_bwd_conf_kernel``: B10 emitting the island confidence, the betas
-never stored) and B12 :func:`oh_stats` (``_oh_stats_kernel``: the chunked
-counts, degree 1 in those cs-scaled betas, behind the ``betas_scale``
-guard of :func:`run_stats_onehot`).  B9-B11 equal their plain versions
-(twins ``_xla_fwd_onehot``, ``_xla_bwd_onehot`` and the off-TPU conf
-branch of the runner) bit for bit; B12 sums in another order than its
+B9 :func:`oh_fwd` (replaces ``_oh_fwd_kernel``; B4's forward in B4's
+:func:`sublanes`, equal to its alphas bit for bit), B10 :func:`oh_bwd`
+(``_oh_bwd_kernel``: the betas scaled by 1 / c_{t+1} from a ``cs_next``
+stream, in :func:`split_bwd_sublanes` sub-lanes joined by messages that
+carry the betas' magnitude), B11 :func:`oh_bwd_conf`
+(``_oh_bwd_conf_kernel``: B10 in B10's sub-lanes emitting the island
+confidence, the betas never stored) and B12 :func:`oh_stats`
+(``_oh_stats_kernel``: the chunked counts, degree 1 in those cs-scaled
+betas, behind the ``betas_scale`` guard of :func:`run_stats_onehot`).
+B9-B11 equal their plain versions bit for bit; in one sub-lane those are
+the twins ``_xla_fwd_onehot``, ``_xla_bwd_onehot`` and the off-TPU conf
+branch of the runner op for op, in G > 1 the kernels' phases
+(:func:`_fwd_sublanes_plain`, :func:`_split_bwd_sublanes_plain`), equal
+to the twins in exact arithmetic.  B12 sums in another order than its
 plain version (the interpret branch of ``run_stats_onehot``) and agrees
 within a tolerance.
 
@@ -242,33 +247,11 @@ def _prod_sublanes_plain(pair2: torch.Tensor, tabs: torch.Tensor, G: int) -> tor
 def _sub_products_plain(pair2: torch.Tensor, tabs: torch.Tensor, G: int):
     """The sub-lanes' 2x2 products of M members over one pair stream (the
     kernels' ``sub_prod``: B7 / B21's phase 1, and the reduced scoring
-    chain's) -> (C00, C01, C10, C11), each [M, G, NL].
-
-    Sub-lane g holds steps [g L, min((g + 1) L, Tp)), L = ceil(Tp / G); from
-    the identity, C <- C . T entry by entry at every step (a PAD pair takes
-    the identity row), times 1 / max(((C00 + C01) + C10) + C11, 1e-30) after
-    every 8th step of the sub-lane."""
-    Tp, NL = pair2.shape
-    M, nP = tabs.shape[0], tabs.shape[1]
-    L = -(-Tp // G)
-    dev = pair2.device
-    t = torch.arange(G, device=dev)[:, None] * L + torch.arange(L, device=dev)  # [G, L]
-    real = t < Tp
-    rows = torch.clamp_max(t, Tp - 1)
-    pc = torch.clamp_max(pair2, nP - 1).long()
-    one = torch.ones((M, G, NL), dtype=_F32, device=dev)
-    zero = torch.zeros_like(one)
-    c00, c01, c10, c11 = one, zero, zero, one
-    for k in range(L):
-        m0, m1, m2, m3 = tabs[:, pc[rows[:, k]]].unbind(-1)  # [M, G, NL] each
-        r = real[:, k][:, None]
-        c00, c01, c10, c11 = (
-            torch.where(r, c00 * m0 + c01 * m2, c00), torch.where(r, c00 * m1 + c01 * m3, c01),
-            torch.where(r, c10 * m0 + c11 * m2, c10), torch.where(r, c10 * m1 + c11 * m3, c11))
-        if k % 8 == 7:
-            inv = torch.reciprocal(torch.clamp_min(((c00 + c01) + c10) + c11, 1e-30))
-            c00, c01, c10, c11 = (torch.where(r, c * inv, c) for c in (c00, c01, c10, c11))
-    return c00, c01, c10, c11
+    chain's) -> (C00, C01, C10, C11), each [M, G, NL]: every step of a
+    sub-lane is valid (a PAD pair takes the identity row), so this is
+    :func:`_valid_products` over the sub-lanes' real steps."""
+    _, _, real, rows = _sublane_grid(pair2.shape[0], G, pair2.device)
+    return _valid_products(tabs, pair2, real[:, :, None], real, rows)
 
 
 def oh_prod(pair2: torch.Tensor, tab_ext: torch.Tensor) -> torch.Tensor:
@@ -344,16 +327,19 @@ def _step_matrices(tab_ext: torch.Tensor, pairs: torch.Tensor, order):
 
 def oh_fwd_plain(pair2: torch.Tensor, lens2: torch.Tensor, a0_red: torch.Tensor,
                  tab_ext: torch.Tensor) -> torch.Tensor:
-    """Plain version of B9 -> alphas2 [Tp, 2, NL]: the twin of
-    ``_xla_fwd_onehot``, and B4's forward.
+    """Plain version of B9 -> alphas2 [Tp, 2, NL]: B4's forward.
 
     pair2 [Tp, NL] int32, lens2 [1, NL], a0_red [2, NL] the entering
     vector, tab_ext [S*S + 1, 4] (identity last).  alpha_t = (alpha_{t-1} .
     M_t) / sum(alpha_{t-1}) on valid steps (t < len), the entering vector
     at t == 0, carried past the lane's length: raw_c = v0 * T[0, c] + v1 *
-    T[1, c], times 1 / (v0 + v1).  Both components are computed
-    elementwise in one [2, NL] tensor; per element the operations and
-    their order are the twin's."""
+    T[1, c], times 1 / (v0 + v1).  In one sub-lane (:func:`sublanes`) the
+    twin of ``_xla_fwd_onehot``: both components computed elementwise in
+    one [2, NL] tensor, per element the twin's operations in its order.
+    With G > 1, :func:`_fwd_sublanes_plain`, B4's forward half."""
+    G = sublanes(pair2.shape[0])
+    if G > 1:
+        return _fwd_sublanes_plain(pair2, lens2, a0_red[None], tab_ext[None], G)[0]
     return fwd_chain_plain(_step_matrices(tab_ext, pair2, [0, 1, 2, 3]), lens2, a0_red)
 
 
@@ -425,100 +411,129 @@ def oh_fwdbwd_plain(pair2: torch.Tensor, pairn2: torch.Tensor, lens2: torch.Tens
             _bwd_plain(pairn2, lens2, beta0_red, tab_ext, T))
 
 
-def _fwdbwd_sublanes_plain(pair2, pairn2, lens2, a0, beta0, tabs, T: int, G: int):
-    """B4 / B24's sub-lane function for M members -> (alphas, betas), each
-    [M, Tp, 2, NL]; a0 / beta0 [M, 2, NL], tabs [M, S*S + 1, 4].
+def _sublane_grid(Tp: int, G: int, dev):
+    """The sub-lane layout of a Tp-step lane in G sub-lanes [g L, min((g +
+    1) L, Tp)), L = ceil(Tp / G) -> (L, t [G, L] each slot's step, real [G,
+    L] t < Tp, rows [G, L] t clamped into the stream)."""
+    L = -(-Tp // G)
+    t = torch.arange(G, device=dev)[:, None] * L + torch.arange(L, device=dev)
+    return L, t, t < Tp, torch.clamp_max(t, Tp - 1)
+
+
+def _sub_step(tabs: torch.Tensor, pairs: torch.Tensor, rows_k: torch.Tensor):
+    """The four entries of every member's step at ``rows_k`` ([G]) of every
+    sub-lane -> [M, G, NL] each (tabs [M, nP, 4])."""
+    return tabs[:, torch.clamp_max(pairs[rows_k], tabs.shape[1] - 1).long()].unbind(-1)
+
+
+def _valid_products(tabs, pairs, ok, real, rows):
+    """Every sub-lane's product of its valid steps' matrices (the kernels'
+    ``sub_prod``; ``ok`` the valid steps, [G, L, NL] or [G, L, 1]; ``real``
+    and ``rows`` from :func:`_sublane_grid`) -> (C00, C01, C10, C11),
+    each [M, G, NL]: from the identity, C <- C . M entry by entry, times 1 /
+    max(((C00 + C01) + C10) + C11, 1e-30) after every 8th step of the
+    sub-lane."""
+    M, NL = tabs.shape[0], pairs.shape[1]
+    G, L = rows.shape
+    one = torch.ones((M, G, NL), dtype=_F32, device=pairs.device)
+    zero = torch.zeros_like(one)
+    c00, c01, c10, c11 = one, zero, zero, one
+    for k in range(L):
+        m0, m1, m2, m3 = _sub_step(tabs, pairs, rows[:, k])
+        v = ok[:, k]
+        c00, c01, c10, c11 = (
+            torch.where(v, c00 * m0 + c01 * m2, c00), torch.where(v, c00 * m1 + c01 * m3, c01),
+            torch.where(v, c10 * m0 + c11 * m2, c10), torch.where(v, c10 * m1 + c11 * m3, c11))
+        if k % 8 == 7:
+            inv = torch.reciprocal(torch.clamp_min(((c00 + c01) + c10) + c11, 1e-30))
+            r = real[:, k][:, None]
+            c00, c01, c10, c11 = (torch.where(r, c * inv, c) for c in (c00, c01, c10, c11))
+    return c00, c01, c10, c11
+
+
+def _direction_messages(v0, v1, P, has, order, fwd: bool):
+    """The degree-0 chains' messages (the kernels' ``sub_message``), sub-lane
+    by sub-lane in ``order``: the forward's entering one through (v . P) /
+    total, the backward's leaving one through (P . v) / total, a sub-lane
+    without a valid step (``has`` [G, NL] false) passing its message on
+    unchanged -> (m0, m1), each [M, G, NL], the message of each sub-lane."""
+    G = has.shape[0]
+    out = [None] * G
+    for g in order:
+        out[g] = (v0, v1)
+        p00, p01, p10, p11 = (c[:, g] for c in P)
+        r0 = v0 * p00 + v1 * p10 if fwd else p00 * v0 + p01 * v1
+        r1 = v0 * p01 + v1 * p11 if fwd else p10 * v0 + p11 * v1
+        inv = torch.reciprocal(torch.clamp_min(r0 + r1, 1e-30))
+        v0, v1 = torch.where(has[g], r0 * inv, v0), torch.where(has[g], r1 * inv, v1)
+    return (torch.stack([o[0] for o in out], 1), torch.stack([o[1] for o in out], 1))
+
+
+def _fwd_sublanes_plain(pair2, lens2, a0, tabs, G: int):
+    """B4 / B24's forward half, and B9 / B22 in sub-lanes, for M members ->
+    alphas [M, Tp, 2, NL]; a0 [M, 2, NL], tabs [M, S*S + 1, 4].
 
     Each lane's steps split into G sub-lanes [g L, min((g + 1) L, Tp)), L =
-    ceil(Tp / G), carried side by side as a [G, NL] axis, in the kernel's
-    three phases and its f32 operations in its order:
-    1. each sub-lane's product of its valid steps' matrices from the
-       identity (the forward's steps 0 < t < len of the pair stream, the
-       backward's t <= T - 2, t + 1 < len of the next-step pairs), C <- C .
-       M entry by entry, times 1 / max(((C00 + C01) + C10) + C11, 1e-30)
-       after every 8th step of the sub-lane;
-    2. the messages, sub-lane by sub-lane: the forward's entering one from
-       a0 through (v . P) / total, the backward's leaving one from beta0
-       through (P . v) / total, a sub-lane without a valid step passing
-       its message on unchanged;
-    3. the chains of :func:`oh_fwd_plain` and :func:`_bwd_plain` over every
-       sub-lane from those messages; past the forward's last valid step
+    ceil(Tp / G), carried side by side as a [G, NL] axis, in the kernels'
+    phases and their f32 operations in their order:
+    1. each sub-lane's product of its valid steps' matrices (steps 0 < t <
+       len of the pair stream; :func:`_valid_products`);
+    2. the entering messages, from a0 through (v . P) / total sub-lane by
+       sub-lane in order (:func:`_direction_messages`);
+    3. :func:`oh_fwd_plain`'s chain over every sub-lane from its message
+       (sub-lane 0's step 0 keeps a0: v = e); past the last valid step
        max(len, 1) - 1 every alpha is that step's."""
     Tp, NL = pair2.shape
-    M, nP = tabs.shape[0], tabs.shape[1]
-    L = -(-Tp // G)
+    M = tabs.shape[0]
     dev = pair2.device
-    t = torch.arange(G, device=dev)[:, None] * L + torch.arange(L, device=dev)  # [G, L]
-    real = t < Tp
-    rows = torch.clamp_max(t, Tp - 1)
+    L, t, real, rows = _sublane_grid(Tp, G, dev)
     lens = lens2[0]
     tn = t[:, :, None]
-    fwd_ok = (tn >= 1) & (tn < lens) & real[:, :, None]  # [G, L, NL]
-    bwd_ok = (tn < T - 1) & (tn < lens - 1) & real[:, :, None]
-
-    def step(pairs, k):  # the four entries of every member's step k, [M, G, NL] each
-        return tabs[:, torch.clamp_max(pairs[rows[:, k]], nP - 1).long()].unbind(-1)
-
-    def products(pairs, ok):
-        one = torch.ones((M, G, NL), dtype=_F32, device=dev)
-        zero = torch.zeros_like(one)
-        c00, c01, c10, c11 = one, zero, zero, one
-        for k in range(L):
-            m0, m1, m2, m3 = step(pairs, k)
-            v = ok[:, k]
-            c00, c01, c10, c11 = (
-                torch.where(v, c00 * m0 + c01 * m2, c00), torch.where(v, c00 * m1 + c01 * m3, c01),
-                torch.where(v, c10 * m0 + c11 * m2, c10), torch.where(v, c10 * m1 + c11 * m3, c11))
-            if k % 8 == 7:
-                inv = torch.reciprocal(torch.clamp_min(((c00 + c01) + c10) + c11, 1e-30))
-                r = real[:, k][:, None]
-                c00, c01, c10, c11 = (torch.where(r, c * inv, c) for c in (c00, c01, c10, c11))
-        return c00, c01, c10, c11
-
-    def messages(v0, v1, P, has, order, fwd):
-        out = [None] * G
-        for g in order:
-            out[g] = (v0, v1)
-            p00, p01, p10, p11 = (c[:, g] for c in P)
-            r0 = v0 * p00 + v1 * p10 if fwd else p00 * v0 + p01 * v1
-            r1 = v0 * p01 + v1 * p11 if fwd else p10 * v0 + p11 * v1
-            inv = torch.reciprocal(torch.clamp_min(r0 + r1, 1e-30))
-            v0, v1 = torch.where(has[g], r0 * inv, v0), torch.where(has[g], r1 * inv, v1)
-        return (torch.stack([o[0] for o in out], 1), torch.stack([o[1] for o in out], 1))
-
-    # Phases 1 and 2.
-    ent0, ent1 = messages(a0[:, 0], a0[:, 1], products(pair2, fwd_ok), fwd_ok.any(1),
-                          range(G), True)
-    ext0, ext1 = messages(beta0[:, 0], beta0[:, 1], products(pairn2, bwd_ok), bwd_ok.any(1),
-                          range(G - 1, -1, -1), False)
-
-    # Phase 3: the forward chains (sub-lane 0's step 0 keeps a0: v = e).
-    v0, v1 = ent0, ent1
+    ok = (tn >= 1) & (tn < lens) & real[:, :, None]  # [G, L, NL]
+    v0, v1 = _direction_messages(a0[:, 0], a0[:, 1], _valid_products(tabs, pair2, ok, real, rows),
+                                 ok.any(1), range(G), True)
     alphas = []
     for k in range(L):
-        m0, m1, m2, m3 = step(pair2, k)
+        m0, m1, m2, m3 = _sub_step(tabs, pair2, rows[:, k])
         inv = torch.reciprocal(v0 + v1)
-        ok = fwd_ok[:, k]
-        v0, v1 = (torch.where(ok, (v0 * m0 + v1 * m2) * inv, v0),
-                  torch.where(ok, (v0 * m1 + v1 * m3) * inv, v1))
+        v = ok[:, k]
+        v0, v1 = (torch.where(v, (v0 * m0 + v1 * m2) * inv, v0),
+                  torch.where(v, (v0 * m1 + v1 * m3) * inv, v1))
         alphas.append(torch.stack([v0, v1], 1))  # [M, 2, G, NL]
     al = torch.stack(alphas, 3).permute(0, 2, 3, 1, 4).reshape(M, G * L, 2, NL)[:, :Tp]
     last = torch.clamp_min(torch.clamp_max(lens, Tp), 1) - 1
     src = torch.minimum(torch.arange(Tp, device=dev)[:, None], last)  # [Tp, NL]
-    al = torch.gather(al, 1, src[None, :, None, :].expand(M, Tp, 2, NL).long())
+    return torch.gather(al, 1, src[None, :, None, :].expand(M, Tp, 2, NL).long()).contiguous()
 
-    # The backward chains, t = (g + 1) L - 1 down to g L.
-    b0, b1 = ext0, ext1
+
+def _fwdbwd_sublanes_plain(pair2, pairn2, lens2, a0, beta0, tabs, T: int, G: int):
+    """B4 / B24's sub-lane function for M members -> (alphas, betas), each
+    [M, Tp, 2, NL]; a0 / beta0 [M, 2, NL], tabs [M, S*S + 1, 4].
+
+    The forward is :func:`_fwd_sublanes_plain`.  The backward, over the same
+    sub-lanes and in the kernel's phases: each sub-lane's product of its
+    valid steps (t <= T - 2, t + 1 < len) of the next-step pairs, the
+    leaving messages from beta0 through (P . v) / total sub-lane by
+    sub-lane down, then :func:`_bwd_plain`'s self-normalized chain over
+    every sub-lane from its message."""
+    Tp, NL = pair2.shape
+    M = tabs.shape[0]
+    L, t, real, rows = _sublane_grid(Tp, G, pair2.device)
+    tn = t[:, :, None]
+    ok = (tn < T - 1) & (tn < lens2[0] - 1) & real[:, :, None]
+    b0, b1 = _direction_messages(beta0[:, 0], beta0[:, 1],
+                                 _valid_products(tabs, pairn2, ok, real, rows), ok.any(1),
+                                 range(G - 1, -1, -1), False)
     betas = [None] * L
     for k in range(L - 1, -1, -1):
-        m0, m1, m2, m3 = step(pairn2, k)
+        m0, m1, m2, m3 = _sub_step(tabs, pairn2, rows[:, k])
         inv = torch.reciprocal(b0 + b1)
-        ok = bwd_ok[:, k]
-        b0, b1 = (torch.where(ok, (m0 * b0 + m1 * b1) * inv, b0),
-                  torch.where(ok, (m2 * b0 + m3 * b1) * inv, b1))
+        v = ok[:, k]
+        b0, b1 = (torch.where(v, (m0 * b0 + m1 * b1) * inv, b0),
+                  torch.where(v, (m2 * b0 + m3 * b1) * inv, b1))
         betas[k] = torch.stack([b0, b1], 1)
     be = torch.stack(betas, 3).permute(0, 2, 3, 1, 4).reshape(M, G * L, 2, NL)[:, :Tp]
-    return al.contiguous(), be.contiguous()
+    return _fwd_sublanes_plain(pair2, lens2, a0, tabs, G), be.contiguous()
 
 
 def _check_same_device(ref: torch.Tensor, tensors) -> None:
@@ -584,15 +599,28 @@ def _check_chain_operands(pairs: torch.Tensor, lens2: torch.Tensor, tab_ext: tor
 def oh_fwd(pair2: torch.Tensor, lens2: torch.Tensor, a0_red: torch.Tensor,
            tab_ext: torch.Tensor) -> torch.Tensor:
     """Kernel B9 (replaces the JAX package's ``_oh_fwd_kernel``) -> alphas2
-    [Tp, 2, NL] f32, equal to B4's alphas.  Arguments as
-    :func:`oh_fwd_plain`."""
+    [Tp, 2, NL] f32, the lane in :func:`sublanes` sub-lanes (B4's), equal
+    to B4's alphas.  Arguments as :func:`oh_fwd_plain`."""
     Tp, NL = _check_chain_operands(pair2, lens2, tab_ext, (a0_red,))
     _check("a0_red", a0_red, _F32, (GROUP, NL))
     if pair2.device.type == "cpu":
         return oh_fwd_plain(pair2, lens2, a0_red, tab_ext)
-    alphas = torch.empty((Tp, GROUP, NL), dtype=_F32, device=pair2.device)
-    _kernels.launch("oh_fwd", pair2, lens2, a0_red, tab_ext, alphas, Tp=Tp, NL=NL,
-                    nreal=tab_ext.shape[0] - 1)
+    return _launch_fwd(pair2, lens2, a0_red, tab_ext, stacked=False)
+
+
+def _launch_fwd(pair2, lens2, a0, tabs, stacked: bool) -> torch.Tensor:
+    """B9 (tabs [nP, 4]) or B22 (``stacked``, tabs [M, nP, 4]) on the card
+    -> alphas [Tp, 2, NL] or [M, Tp, 2, NL]; in G > 1 the sub-lanes'
+    products in a [M, G, 4, NL] scratch."""
+    Tp, NL = pair2.shape
+    M = tabs.shape[0] if stacked else 1
+    G = sublanes(Tp)
+    dev = pair2.device
+    alphas = torch.empty(((M,) if stacked else ()) + (Tp, GROUP, NL), dtype=_F32, device=dev)
+    pbuf = torch.empty((M, G, 4, NL) if G > 1 else (1,), dtype=_F32, device=dev)
+    ints = dict(Tp=Tp, NL=NL, nreal=tabs.shape[-2] - 1, G=G)
+    _kernels.launch("oh_fwd_stacked" if stacked else "oh_fwd", pair2, lens2, a0, tabs, alphas,
+                    pbuf, **(ints | ({"M": M} if stacked else {})))
     return alphas
 
 
@@ -605,29 +633,162 @@ def cs_next_of(alphas2: torch.Tensor) -> torch.Tensor:
     return torch.cat([cs, one], dim=-2).contiguous()
 
 
+def split_bwd_sublanes(Tp: int) -> int:
+    """G, the sub-lanes B10 and B23 cut a lane of Tp steps into: B18's rule
+    at K = 2 (``fb_pallas.bwd_sublanes``, its ``BWD_SUBLANE_T`` and
+    ``BWD_SUBLANES_FROM``), the same backward chain with magnitude messages
+    on the reduced 2x2 table; each sub-lane runs ceil(Tp / G) steps.  A
+    function of Tp alone, so the CPU and the card compute the same
+    function.  Lanes below 8 Ki steps (the CPU tests' 4-4.5 Ki chunks) stay
+    one chain, the twin's arithmetic op for op.  Why 1 Ki steps for B10 too:
+    chip_smoke's sweep (H100) could not tell 256 to 2 Ki apart on the
+    training batch, and 512 from 1 Ki on the posterior lanes."""
+    from cpgisland_tpu_torch.ops import fb_pallas  # fb_pallas imports this module
+
+    return fb_pallas.bwd_sublanes(Tp, GROUP)
+
+
+def scale_exp(x: torch.Tensor) -> torch.Tensor:
+    """x's binary exponent as int32 (frexp's for a normal x; -126 for 0 and
+    subnormals), clamped to [-126, 126]: the kernels' scale_exp, read off
+    the float's bits."""
+    return torch.clamp(((x.view(torch.int32) >> 23) & 0xFF) - 126, -126, 126)
+
+
+def pow2(e: torch.Tensor) -> torch.Tensor:
+    """2^e as float32 for int32 -126 <= e <= 126 (a normal float, built
+    from its bits as the kernels' pow2f)."""
+    return ((e + 127) << 23).view(_F32)
+
+
 def oh_bwd_plain(pairn2: torch.Tensor, lens2: torch.Tensor, cs_next: torch.Tensor,
                  beta0_red: torch.Tensor, tab_ext: torch.Tensor, T: int) -> torch.Tensor:
     """Plain version of B10 -> betas2 [Tp, 2, NL], the true Rabiner
-    (cs-scaled) betas: the twin of ``_xla_bwd_onehot``.  pairn2 [Tp, NL]
-    the time-shifted pairs (last row the identity's PAD), cs_next [Tp, NL]
-    (:func:`cs_next_of`), beta0_red [2, NL] the exit vector.  beta_t =
-    (G[a, 0] * bn0 + G[a, 1] * bn1) * (1 / cs_next[t]) where t <= T-2 and
-    t+1 < len, else carried."""
+    (cs-scaled) betas.  pairn2 [Tp, NL] the time-shifted pairs (last row
+    the identity's PAD), cs_next [Tp, NL] (:func:`cs_next_of`), beta0_red
+    [2, NL] the exit vector.  beta_t = (G[a, 0] * bn0 + G[a, 1] * bn1) * (1
+    / cs_next[t]) where t <= T-2 and t+1 < len, else carried.  In one
+    sub-lane (:func:`split_bwd_sublanes`) the twin of ``_xla_bwd_onehot``,
+    op for op; with G > 1, :func:`_split_bwd_sublanes_plain`."""
+    G = split_bwd_sublanes(pairn2.shape[0])
+    if G > 1:
+        return _split_bwd_sublanes_plain(pairn2, lens2, cs_next[None], beta0_red[None],
+                                         tab_ext[None], T, G)[0]
     return _bwd_plain(pairn2, lens2, beta0_red, tab_ext, T, cs_next=cs_next)
+
+
+def _split_bwd_sublanes_plain(pairn2, lens2, cs_next, beta0, tabs, T: int, G: int):
+    """B10 / B23's sub-lane function for M members -> betas [M, Tp, 2, NL];
+    cs_next [M, Tp, NL], beta0 [M, 2, NL], tabs [M, S*S + 1, 4].
+
+    The chain is DEGREE 1 in beta (B12 reads the Rabiner scale), so the
+    messages carry the betas' magnitude, as B18's do.  Each lane's steps
+    split into G sub-lanes [g L, min((g + 1) L, Tp)), L = ceil(Tp / G),
+    carried side by side as a [G, NL] axis, in the kernel's phases and its
+    f32 operations in its order:
+    1. each sub-lane's transfer matrix Q (beta at its start = Q . beta at
+       its end) over its valid steps t < min(T - 1, len - 1), from the
+       identity, the chain's step applied to every column (contract, then
+       times 1 / c_{t+1}), t walking down; after every 8th step counted
+       from the sub-lane's padded end, Q times 2^-e with e the binary
+       exponent of its total ((Q00 + Q01) + Q10) + Q11, e summed into an
+       int E;
+    2. the messages, from beta0 at the lane's end, sub-lane by sub-lane
+       down: v <- Q . v, then v times 2^-e (e of v0 + v1) and the exponents
+       summed; a sub-lane without a valid step passes v on unchanged; a
+       sub-lane's chain starts from (v 2^E1) 2^E2, E = E1 + E2, E1 = E / 2
+       truncated;
+    3. :func:`oh_bwd_plain`'s chain over every sub-lane from its message.
+    Products by powers of two are exact away from subnormals, so the
+    messages are, in exact arithmetic, the sequential chain's betas."""
+    Tp, NL = pairn2.shape
+    M = tabs.shape[0]
+    dev = pairn2.device
+    L, t, real, rows = _sublane_grid(Tp, G, dev)
+    hi = torch.clamp_max(lens2[0] - 1, T - 1)
+    ok = (t[:, :, None] < hi) & real[:, :, None]  # [G, L, NL]: the valid steps
+    invc = torch.reciprocal(cs_next)
+
+    def step(k):  # step k of every sub-lane: its matrix entries and 1 / c, [M, G, NL] each
+        return (*_sub_step(tabs, pairn2, rows[:, k]), invc[:, rows[:, k]])
+
+    # Phase 1: Q (q{row}{column}) and E, [M, G, NL] each.
+    one = torch.ones((M, G, NL), dtype=_F32, device=dev)
+    zero = torch.zeros_like(one)
+    q00, q01, q10, q11 = one, zero, zero, one
+    E = torch.zeros((M, G, NL), dtype=torch.int32, device=dev)
+    for s in range(L):
+        k = L - 1 - s
+        m0, m1, m2, m3, ic = step(k)
+        v = ok[:, k]
+        q00, q01, q10, q11 = (
+            torch.where(v, (m0 * q00 + m1 * q10) * ic, q00),
+            torch.where(v, (m0 * q01 + m1 * q11) * ic, q01),
+            torch.where(v, (m2 * q00 + m3 * q10) * ic, q10),
+            torch.where(v, (m2 * q01 + m3 * q11) * ic, q11))
+        if s % 8 == 7:
+            r = real[:, k][:, None]
+            e = scale_exp(((q00 + q01) + q10) + q11)
+            sc = pow2(-e)
+            q00, q01, q10, q11 = (torch.where(r, q * sc, q) for q in (q00, q01, q10, q11))
+            E = torch.where(r, E + e, E)
+
+    # Phase 2: each sub-lane's entering beta (the beta after its last step).
+    has = ok.any(1)
+    v0, v1 = beta0[:, 0], beta0[:, 1]
+    Ev = torch.zeros((M, NL), dtype=torch.int32, device=dev)
+    starts = [None] * G
+    for g in range(G - 1, -1, -1):
+        e1 = torch.div(Ev, 2, rounding_mode="trunc")
+        s1, s2 = pow2(torch.clamp(e1, -126, 126)), pow2(torch.clamp(Ev - e1, -126, 126))
+        starts[g] = ((v0 * s1) * s2, (v1 * s1) * s2)
+        r0 = q00[:, g] * v0 + q01[:, g] * v1
+        r1 = q10[:, g] * v0 + q11[:, g] * v1
+        e = scale_exp(r0 + r1)
+        sc = pow2(-e)
+        v0, v1 = torch.where(has[g], r0 * sc, v0), torch.where(has[g], r1 * sc, v1)
+        Ev = torch.where(has[g], Ev + (E[:, g] + e), Ev)
+
+    # Phase 3: the chains, t = (g + 1) L - 1 down to g L.
+    b0 = torch.stack([s[0] for s in starts], 1)  # [M, G, NL]
+    b1 = torch.stack([s[1] for s in starts], 1)
+    out = [None] * L
+    for k in range(L - 1, -1, -1):
+        m0, m1, m2, m3, ic = step(k)
+        v = ok[:, k]
+        b0, b1 = (torch.where(v, (m0 * b0 + m1 * b1) * ic, b0),
+                  torch.where(v, (m2 * b0 + m3 * b1) * ic, b1))
+        out[k] = torch.stack([b0, b1], 1)  # [M, 2, G, NL]
+    be = torch.stack(out, 3).permute(0, 2, 3, 1, 4).reshape(M, G * L, 2, NL)[:, :Tp]
+    return be.contiguous()
 
 
 def oh_bwd(pairn2: torch.Tensor, lens2: torch.Tensor, cs_next: torch.Tensor,
            beta0_red: torch.Tensor, tab_ext: torch.Tensor, T: int) -> torch.Tensor:
-    """Kernel B10 (replaces ``_oh_bwd_kernel``) -> betas2 [Tp, 2, NL] f32.
-    Arguments as :func:`oh_bwd_plain`."""
+    """Kernel B10 (replaces ``_oh_bwd_kernel``) -> betas2 [Tp, 2, NL] f32,
+    the lane in :func:`split_bwd_sublanes` sub-lanes.  Arguments as
+    :func:`oh_bwd_plain`."""
     Tp, NL = _check_chain_operands(pairn2, lens2, tab_ext, (cs_next, beta0_red))
     _check("cs_next", cs_next, _F32, (Tp, NL))
     _check("beta0_red", beta0_red, _F32, (GROUP, NL))
     if pairn2.device.type == "cpu":
         return oh_bwd_plain(pairn2, lens2, cs_next, beta0_red, tab_ext, T)
-    betas = torch.empty((Tp, GROUP, NL), dtype=_F32, device=pairn2.device)
-    _kernels.launch("oh_bwd", pairn2, lens2, cs_next, beta0_red, tab_ext, betas, Tp=Tp, NL=NL,
-                    nreal=tab_ext.shape[0] - 1, T=T)
+    return _launch_bwd(pairn2, lens2, cs_next, beta0_red, tab_ext, T, stacked=False)
+
+
+def _launch_bwd(pairn2, lens2, cs_next, beta0, tabs, T: int, stacked: bool) -> torch.Tensor:
+    """B10 (tabs [nP, 4]) or B23 (``stacked``, tabs [M, nP, 4]) on the card
+    -> betas [Tp, 2, NL] or [M, Tp, 2, NL]; in G > 1 the sub-lanes'
+    transfer matrices and exponents in a [M, G, 5, NL] scratch."""
+    Tp, NL = pairn2.shape
+    M = tabs.shape[0] if stacked else 1
+    G = split_bwd_sublanes(Tp)
+    dev = pairn2.device
+    betas = torch.empty(((M,) if stacked else ()) + (Tp, GROUP, NL), dtype=_F32, device=dev)
+    qbuf = torch.empty((M, G, 5, NL) if G > 1 else (1,), dtype=_F32, device=dev)
+    ints = dict(Tp=Tp, NL=NL, nreal=tabs.shape[-2] - 1, T=T, G=G)
+    _kernels.launch("oh_bwd_stacked" if stacked else "oh_bwd", pairn2, lens2, cs_next, beta0,
+                    tabs, betas, qbuf, **(ints | ({"M": M} if stacked else {})))
     return betas
 
 
@@ -645,9 +806,11 @@ def _conf_from_mtab(alphas2, betas2, esym2, lens2, mtab) -> torch.Tensor:
 
 def oh_bwd_conf_plain(pairn2, pair2, lens2, cs_next, beta0_red, alphas2, mtab, tab_ext,
                       T: int) -> torch.Tensor:
-    """Plain version of B11 -> conf [Tp, NL]: the B10 betas
-    (:func:`oh_bwd_plain`) reduced to the island confidence — the twin is
-    the off-TPU branch of the JAX runner, ``(m0*g0 + m1*g1) / tot``.
+    """Plain version of B11 -> conf [Tp, NL]: B10's betas (:func:`oh_bwd_plain`,
+    in B10's sub-lanes) reduced to the island confidence — in one sub-lane
+    the twin is the off-TPU branch of the JAX runner, ``(m0*g0 + m1*g1) /
+    tot``, op for op.  So a confidence-only run equals the confidence from
+    B10's or B23's betas (:func:`conf_from_reduced`) bit for bit.
     pair2 [Tp, NL] the pairs (each position's symbol), alphas2 [Tp, 2, NL]
     B9's alphas, mtab [S, 2] f32 the island mask of each symbol's group
     states; the rest as :func:`oh_bwd_plain`."""
@@ -657,8 +820,10 @@ def oh_bwd_conf_plain(pairn2, pair2, lens2, cs_next, beta0_red, alphas2, mtab, t
 
 def oh_bwd_conf(pairn2, pair2, lens2, cs_next, beta0_red, alphas2, mtab, tab_ext,
                 T: int) -> torch.Tensor:
-    """Kernel B11 (replaces ``_oh_bwd_conf_kernel``) -> conf [Tp, NL] f32;
-    the betas never reach device memory.  Arguments as
+    """Kernel B11 (replaces ``_oh_bwd_conf_kernel``) -> conf [Tp, NL] f32,
+    B10's chain in B10's :func:`split_bwd_sublanes` (its sub-lanes'
+    transfer matrices in a [G, 5, NL] scratch, shared with B10's); the
+    betas never reach device memory.  Arguments as
     :func:`oh_bwd_conf_plain`."""
     Tp, NL = _check_chain_operands(pairn2, lens2, tab_ext,
                                    (pair2, cs_next, beta0_red, alphas2, mtab))
@@ -673,9 +838,11 @@ def oh_bwd_conf(pairn2, pair2, lens2, cs_next, beta0_red, alphas2, mtab, tab_ext
     if pair2.device.type == "cpu":
         return oh_bwd_conf_plain(pairn2, pair2, lens2, cs_next, beta0_red, alphas2, mtab,
                                  tab_ext, T)
+    G = split_bwd_sublanes(Tp)
     conf = torch.empty((Tp, NL), dtype=_F32, device=pair2.device)
+    qbuf = torch.empty((1, G, 5, NL) if G > 1 else (1,), dtype=_F32, device=pair2.device)
     _kernels.launch("oh_bwd_conf", pairn2, pair2, lens2, cs_next, beta0_red, alphas2, mtab,
-                    tab_ext, conf, Tp=Tp, NL=NL, S=S, T=T)
+                    tab_ext, conf, qbuf, Tp=Tp, NL=NL, S=S, T=T, G=G)
     return conf
 
 
@@ -1259,9 +1426,13 @@ def _stacked_step(tabs: torch.Tensor, pairs_t: torch.Tensor, order) -> torch.Ten
 def oh_fwd_stacked_plain(pair2, lens2, a0_red, tabs) -> torch.Tensor:
     """Plain version of B22 -> alphas [M, Tp, 2, NL]: :func:`oh_fwd_plain`
     for every member (a0_red [M, 2, NL], tabs [M, S*S + 1, 4]), the member
-    axis carried through one step loop (per member the same operations).
-    The twin of ``_xla_fwd_onehot_stacked``."""
+    axis carried through one step loop (per member the same operations; in
+    G > 1 through :func:`_fwd_sublanes_plain`'s).  In one sub-lane the twin
+    of ``_xla_fwd_onehot_stacked``."""
     Tp = pair2.shape[0]
+    G = sublanes(Tp)
+    if G > 1:
+        return _fwd_sublanes_plain(pair2, lens2, a0_red, tabs, G)
     valid = (torch.arange(Tp, device=pair2.device)[:, None] < lens2).unbind(0)
     alphas = [a0_red]
     for t in range(1, Tp):
@@ -1291,8 +1462,12 @@ def _bwd_stacked_plain(pairn2, lens2, beta0_red, tabs, T: int, cs_next=None) -> 
 
 def oh_bwd_stacked_plain(pairn2, lens2, cs_next, beta0_red, tabs, T: int) -> torch.Tensor:
     """Plain version of B23 -> betas [M, Tp, 2, NL]: :func:`oh_bwd_plain`
-    for every member (cs_next [M, Tp, NL], beta0_red [M, 2, NL]).  The twin
-    of ``_xla_bwd_onehot_stacked``."""
+    for every member (cs_next [M, Tp, NL], beta0_red [M, 2, NL]), in G > 1
+    through :func:`_split_bwd_sublanes_plain`.  In one sub-lane the twin of
+    ``_xla_bwd_onehot_stacked``."""
+    G = split_bwd_sublanes(pairn2.shape[0])
+    if G > 1:
+        return _split_bwd_sublanes_plain(pairn2, lens2, cs_next, beta0_red, tabs, T, G)
     return _bwd_stacked_plain(pairn2, lens2, beta0_red, tabs, T, cs_next=cs_next)
 
 
@@ -1348,30 +1523,26 @@ def _check_stacked_chain(pairs, lens2, tabs, others) -> tuple:
 def oh_fwd_stacked(pair2, lens2, a0_red, tabs) -> torch.Tensor:
     """Kernel B22 (replaces ``_oh_fwd_stacked_kernel``): B9 with a member
     grid dimension -> alphas [M, Tp, 2, NL] f32; member m's equal B9's on
-    its own operands.  Arguments as :func:`oh_fwd_stacked_plain`."""
+    its own operands (the same sub-lanes).  Arguments as
+    :func:`oh_fwd_stacked_plain`."""
     Tp, NL, M = _check_stacked_chain(pair2, lens2, tabs, (a0_red,))
     _check("a0_red", a0_red, _F32, (M, GROUP, NL))
     if pair2.device.type == "cpu":
         return oh_fwd_stacked_plain(pair2, lens2, a0_red, tabs)
-    alphas = torch.empty((M, Tp, GROUP, NL), dtype=_F32, device=pair2.device)
-    _kernels.launch("oh_fwd_stacked", pair2, lens2, a0_red, tabs, alphas, Tp=Tp, NL=NL,
-                    nreal=tabs.shape[1] - 1, M=M)
-    return alphas
+    return _launch_fwd(pair2, lens2, a0_red, tabs, stacked=True)
 
 
 def oh_bwd_stacked(pairn2, lens2, cs_next, beta0_red, tabs, T: int) -> torch.Tensor:
     """Kernel B23 (replaces ``_oh_bwd_stacked_kernel``): B10 with a member
     grid dimension -> betas [M, Tp, 2, NL] f32; member m's equal B10's on
-    its own operands.  Arguments as :func:`oh_bwd_stacked_plain`."""
+    its own operands (the same sub-lanes).  Arguments as
+    :func:`oh_bwd_stacked_plain`."""
     Tp, NL, M = _check_stacked_chain(pairn2, lens2, tabs, (cs_next, beta0_red))
     _check("cs_next", cs_next, _F32, (M, Tp, NL))
     _check("beta0_red", beta0_red, _F32, (M, GROUP, NL))
     if pairn2.device.type == "cpu":
         return oh_bwd_stacked_plain(pairn2, lens2, cs_next, beta0_red, tabs, T)
-    betas = torch.empty((M, Tp, GROUP, NL), dtype=_F32, device=pairn2.device)
-    _kernels.launch("oh_bwd_stacked", pairn2, lens2, cs_next, beta0_red, tabs, betas, Tp=Tp,
-                    NL=NL, nreal=tabs.shape[1] - 1, T=T, M=M)
-    return betas
+    return _launch_bwd(pairn2, lens2, cs_next, beta0_red, tabs, T, stacked=True)
 
 
 def run_fb_kernels_onehot_stacked(params_list, lens2: torch.Tensor, a0_raws, beta0s, T: int,

@@ -227,8 +227,8 @@ def _fwd_sub_products(o, rows, ok, real, A, B) -> torch.Tensor:
         nP = seq_sum(P[:, :, None] * A5, 1) * B[:, o[rows[:, k]]][None]
         P = torch.where(ok[:, k], nP, P)
         if k % 8 == 7:
-            e = _scale_exp(seq_sum(P.reshape(K * K, G, NL), 0))
-            P = torch.where(real[:, k][:, None], P * _pow2(-e), P)
+            e = fb_onehot.scale_exp(seq_sum(P.reshape(K * K, G, NL), 0))
+            P = torch.where(real[:, k][:, None], P * fb_onehot.pow2(-e), P)
     return P
 
 
@@ -242,8 +242,8 @@ def _fwd_sub_messages(v: torch.Tensor, P: torch.Tensor, has: torch.Tensor) -> li
     for g in range(P.shape[2]):
         starts.append(v)
         r = seq_sum(v[:, None] * P[:, :, g], 0)
-        e = _scale_exp(seq_sum(r, 0))
-        v = torch.where(has[g], r * _pow2(-e), v)
+        e = fb_onehot.scale_exp(seq_sum(r, 0))
+        v = torch.where(has[g], r * fb_onehot.pow2(-e), v)
     return starts
 
 
@@ -301,19 +301,6 @@ def _bwd_chain_plain(steps_next, lens2, cs_next, beta0, A, B, T: int) -> torch.T
     return out
 
 
-def _scale_exp(x: torch.Tensor) -> torch.Tensor:
-    """x's binary exponent as int32 (frexp's for a normal x; -126 for 0 and
-    subnormals), clamped to [-126, 126]: the kernel's scale_exp, read off
-    the float's bits."""
-    return torch.clamp(((x.view(torch.int32) >> 23) & 0xFF) - 126, -126, 126)
-
-
-def _pow2(e: torch.Tensor) -> torch.Tensor:
-    """2^e as float32 for int32 -126 <= e <= 126 (a normal float, built
-    from its bits as the kernel's pow2f)."""
-    return ((e + 127) << 23).view(_F32)
-
-
 def _bwd_sublanes_plain(steps_next, lens2, cs_next, beta0, A, B, T: int,
                         G: int) -> torch.Tensor:
     """B18's sub-lane function -> betas [Tp, K, NL].
@@ -361,8 +348,8 @@ def _bwd_sublanes_plain(steps_next, lens2, cs_next, beta0, A, B, T: int,
         Q = torch.where(ok[:, k], nQ, Q)
         if s % 8 == 7:
             r = real[:, k][:, None]
-            e = _scale_exp(seq_sum(Q.reshape(K * K, G, NL), 0))
-            Q = torch.where(r, Q * _pow2(-e), Q)
+            e = fb_onehot.scale_exp(seq_sum(Q.reshape(K * K, G, NL), 0))
+            Q = torch.where(r, Q * fb_onehot.pow2(-e), Q)
             E = torch.where(r, E + e, E)
 
     # Phase 2: each sub-lane's entering beta.
@@ -372,10 +359,11 @@ def _bwd_sublanes_plain(steps_next, lens2, cs_next, beta0, A, B, T: int,
     for g in range(G - 1, -1, -1):
         e1 = torch.div(Ev, 2, rounding_mode="trunc")
         e2 = Ev - e1
-        starts[g] = (v * _pow2(torch.clamp(e1, -126, 126))) * _pow2(torch.clamp(e2, -126, 126))
+        starts[g] = ((v * fb_onehot.pow2(torch.clamp(e1, -126, 126)))
+                     * fb_onehot.pow2(torch.clamp(e2, -126, 126)))
         r = seq_sum(Q[:, :, g] * v[None], 1)
-        e = _scale_exp(seq_sum(r, 0))
-        v = torch.where(has[g], r * _pow2(-e), v)
+        e = fb_onehot.scale_exp(seq_sum(r, 0))
+        v = torch.where(has[g], r * fb_onehot.pow2(-e), v)
         Ev = torch.where(has[g], Ev + (E[g] + e), Ev)
 
     # Phase 3: the chains, t = (g + 1) L - 1 down to g L.

@@ -18,9 +18,10 @@ depth.  The inputs are ``--mib`` Mi random symbols of the flagship's
 - ``composed-sel`` (T4): T3's chain with the composed matrices looked up in
   the kernel from tables (``fb_compose.oh_fwd_compsel``).
 
-Each is first gated against the single-step plain reference
-(``fb_onehot.oh_fwd_plain``, the twin of the JAX package's
-``_xla_fwd_onehot``) on the first GATE_LANES lanes: max relative error
+Each is first gated against the single-step plain reference, the
+sequential chain at every lane length (``fb_onehot.fwd_chain_plain``, the
+twin of the JAX package's ``_xla_fwd_onehot``; B9 runs long lanes in
+sub-lanes) on the first GATE_LANES lanes: max relative error
 below 1e-4, with a 1e-3 floor on the reference.  Then it is timed with CUDA
 events, the median over ``--chain`` calls, twice: the whole variant (its
 streams or tables built from the pairs, as the JAX script times it) and
@@ -167,7 +168,7 @@ def run(T: int, lane_T: int, chain: int, dev) -> dict:
     pair_g, lens_g, a0_g = (x[:, :ng].contiguous() for x in (pair2, lens2, a0))
     print(f"bench_compose: {T} symbols, {NL} lanes of {Tp}, gate on {ng} lanes, "
           f"device {dev}", file=sys.stderr)
-    ref = FB.oh_fwd_plain(pair_g, lens_g, a0_g, tab_ext)
+    ref = FB.fwd_chain_plain(FB._step_matrices(tab_ext, pair_g, [0, 1, 2, 3]), lens_g, a0_g)
     gate_fns = variants(tab, tab_ext, lens_g, a0_g)
     fns = variants(tab, tab_ext, lens2, a0)
     out, calls = {}, {}

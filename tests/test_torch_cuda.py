@@ -955,17 +955,15 @@ def _split_args(rng, NL, T, device):
 @pytest.mark.parametrize("NL", [1, 33, 1024])
 def test_split_chain_kernels_bit_equal(cuda_device, monkeypatch, NL, T):
     """B9, B10 and B11 turn FMA contraction off: each equals its plain
-    version bit for bit, and B9's alphas equal B4's."""
+    version bit for bit, and B9's alphas equal B4's (B9 runs in B4's
+    sub-lanes)."""
     from cpgisland_tpu_torch.ops import fb_onehot as FB
 
     rng = np.random.default_rng(NL * 13 + T)
     before = {k: _kernels.launches[k] for k in ("oh_fwd", "oh_bwd", "oh_bwd_conf")}
     _, prep, gt, a0, b0, tab, al, cs_next = _split_args(rng, NL, T, cuda_device)
     assert torch.equal(al, FB.oh_fwd_plain(prep.pair2, prep.lens2, a0, tab))
-    # B4 in one sub-lane: the sequential chain B9 runs (G > 1 rounds apart).
-    monkeypatch.setattr(FB, "SUBLANE_T", prep.pair2.shape[0])
     al4, _ = FB.oh_fwdbwd(prep.pair2, prep.pairn2, prep.lens2, a0, b0, tab, T)
-    monkeypatch.undo()
     assert torch.equal(al, al4)
     bargs = (prep.pairn2, prep.lens2, cs_next, b0, tab, T)
     assert torch.equal(FB.oh_bwd(*bargs), FB.oh_bwd_plain(*bargs))
@@ -1220,9 +1218,10 @@ def _compose_case(rng, T, NL, device):
 
 
 @pytest.mark.parametrize("T,NL", [(8, 1), (4098, 33), (65536, 1024)])
-def test_compose_kernels_bit_equal(cuda_device, T, NL):
+def test_compose_kernels_bit_equal(cuda_device, monkeypatch, T, NL):
     """T2, T3 and T4 equal their plain versions bit for bit; T2 equals B9
-    and T4 equals T3; each launches once."""
+    in one sub-lane (the chain they share) and T4 equals T3; each launches
+    once."""
     from cpgisland_tpu_torch.ops import fb_compose as FC
     from cpgisland_tpu_torch.ops import fb_onehot as FB
 
@@ -1240,6 +1239,7 @@ def test_compose_kernels_bit_equal(cuda_device, T, NL):
     assert torch.equal(strm, FC.oh_fwd_strm_plain(mats, lens2, a0))
     assert torch.equal(c, FC.oh_fwd_comp_plain(comp, lens2, a0))
     assert torch.equal(sel, FC.oh_fwd_compsel_plain(idx, lens2, a0, *tables))
+    monkeypatch.setattr(FB, "SUBLANE_T", T)
     assert torch.equal(strm, FB.oh_fwd(pair2, lens2, a0, tab_ext))
     assert torch.equal(sel, c)
 
@@ -1577,3 +1577,138 @@ def test_dense_scoring_sublanes(cuda_device, NL, model, T):
         assert got[0] == got[2] == -float("inf")
     np.testing.assert_allclose(got.cpu().numpy(),
                                LL.fb_loglik_plain(sel_d, enter, A, B).cpu().numpy(), rtol=1e-12)
+
+
+# -- B9 / B22 and B10 / B23 in sub-lanes ------------------------------------------
+
+
+def _split_sublane_args(NL, T, M, device):
+    """A ragged chunked batch, M members' pair tables (the flagship first)
+    and entering vectors, B9's alphas and B10's cs_next from them."""
+    from cpgisland_tpu_torch.ops import fb_onehot as FB
+
+    rng, _, prep, _, tabs = _stacked_batch(NL, T, 4, M, device)
+    v = lambda: torch.from_numpy(  # noqa: E731
+        rng.random((M, 2, NL)).astype(np.float32) + 0.01).to(device)
+    a0, b0 = v(), v()
+    al = FB.oh_fwd_stacked(prep.pair2, prep.lens2, a0, tabs)
+    return prep, tabs, a0, b0, FB.cs_next_of(al)
+
+
+@pytest.mark.parametrize("sub", [None, 300, "lane"])
+@pytest.mark.parametrize("NL,T", [(33, 9000), (1024, 65536), (40, 4099)])
+def test_split_chains_in_sublanes_bit_equal(cuda_device, monkeypatch, NL, T, sub):
+    """B9, B10 and B11 at their default sub-lanes (``sub`` None), in
+    sub-lanes of 300 steps (B10 and B11 at every lane length) and in one
+    sub-lane ("lane"): each equals its plain version bit for bit, B9's
+    alphas B4's, B11's confidence the epilogue over B10's betas, and each
+    launch counts once."""
+    from cpgisland_tpu_torch.ops import fb_onehot as FB
+    from cpgisland_tpu_torch.ops import fb_pallas as FP
+
+    prep, tabs, a0, b0, cs = _split_sublane_args(NL, T, 1, cuda_device)
+    Tp = prep.pair2.shape[0]
+    st = {None: None, 300: 300, "lane": Tp}[sub]
+    if st is not None:
+        monkeypatch.setattr(FB, "SUBLANE_T", st)
+        monkeypatch.setattr(FP, "BWD_SUBLANE_T", st)
+        monkeypatch.setattr(FP, "BWD_SUBLANES_FROM", 1)
+    tab = tabs[0].contiguous()
+    fargs = (prep.pair2, prep.lens2, a0[0], tab)
+    bargs = (prep.pairn2, prep.lens2, cs[0], b0[0], tab, T)
+    mtab = torch.tensor([[1.0, 0.0], [0.0, 1.0], [1.0, 1.0], [0.0, 0.0]],
+                        device=cuda_device)
+    before = {k: _kernels.launches[k] for k in ("oh_fwd", "oh_bwd", "oh_bwd_conf")}
+    al, be = FB.oh_fwd(*fargs), FB.oh_bwd(*bargs)
+    cargs = (prep.pairn2, prep.pair2, prep.lens2, cs[0], b0[0], al, mtab, tab, T)
+    conf = FB.oh_bwd_conf(*cargs)
+    torch.cuda.synchronize()
+    assert all(_kernels.launches[k] == before[k] + 1 for k in before)
+    assert torch.equal(al, FB.oh_fwd_plain(*fargs))
+    assert torch.equal(be, FB.oh_bwd_plain(*bargs))
+    assert torch.equal(conf, FB.oh_bwd_conf_plain(*cargs))
+    esym = FB.decode_esym(prep.pair2, 4)
+    assert torch.equal(conf, FB._conf_from_mtab(al, be, esym, prep.lens2, mtab))
+    al4, _ = FB.oh_fwdbwd(prep.pair2, prep.pairn2, prep.lens2, a0[0], b0[0], tab, T)
+    assert torch.equal(al, al4)
+    assert (FB.sublanes(Tp) > 1) == (sub != "lane" and (sub == 300 or T >= 8192))
+
+
+@pytest.mark.parametrize("sub", [None, 300, "lane"])
+@_STACK_M
+def test_split_stacked_in_sublanes_bit_equal(cuda_device, monkeypatch, M, sub):
+    """B22 and B23 at the default sub-lanes, in sub-lanes of 300 steps and
+    in one: equal to their plain versions and per member to B9 / B10 bit
+    for bit, B22's alphas B24's."""
+    from cpgisland_tpu_torch.ops import fb_onehot as FB
+    from cpgisland_tpu_torch.ops import fb_pallas as FP
+
+    NL, T = 70, 16384
+    st = {None: None, 300: 300, "lane": T}[sub]
+    if st is not None:
+        monkeypatch.setattr(FB, "SUBLANE_T", st)
+        monkeypatch.setattr(FP, "BWD_SUBLANE_T", st)
+        monkeypatch.setattr(FP, "BWD_SUBLANES_FROM", 1)
+    prep, tabs, a0, b0, cs = _split_sublane_args(NL, T, M, cuda_device)
+    al = FB.oh_fwd_stacked(prep.pair2, prep.lens2, a0, tabs)
+    be = FB.oh_bwd_stacked(prep.pairn2, prep.lens2, cs, b0, tabs, T)
+    assert torch.equal(al, FB.oh_fwd_stacked_plain(prep.pair2, prep.lens2, a0, tabs))
+    assert torch.equal(be, FB.oh_bwd_stacked_plain(prep.pairn2, prep.lens2, cs, b0, tabs, T))
+    for m in range(M):
+        tab = tabs[m].contiguous()
+        assert torch.equal(al[m], FB.oh_fwd(prep.pair2, prep.lens2, a0[m], tab))
+        assert torch.equal(be[m], FB.oh_bwd(prep.pairn2, prep.lens2, cs[m], b0[m], tab, T))
+    al24, _ = FB.oh_fwdbwd_stacked(prep.pair2, prep.pairn2, prep.lens2, a0, b0, tabs, T)
+    assert torch.equal(al, al24)
+
+
+def _drift_streams(rng, Tp, NL, sub, growth):
+    """The flagship's pair table, next-step pairs (PADs scattered), a
+    cs_next whose backward betas drift by 2^growth[g] over sub-lane g of
+    ``sub`` steps (t walking down), beta0, and each step's 2x2 matrix in
+    float64 [Tp, NL, 2, 2]: cs_next[t] is the float64 self-normalized
+    chain's normalizer over the step's factor, so the betas move between
+    2^-100 and 2^100 while a sub-lane's unscaled transfer matrix can leave
+    float32's range."""
+    from cpgisland_tpu_torch.ops import fb_onehot as FB
+
+    params = presets.durbin_cpg8()
+    tab = FB.prob_tab_ext(params, OH._groups(params))
+    nreal = tab.shape[0] - 1
+    pairn = rng.integers(0, nreal, size=(Tp, NL)).astype(np.int32)
+    pairn[rng.random((Tp, NL)) < 0.05] = nreal + 1
+    pairn[-1] = nreal  # the last row: the identity's PAD
+    b0 = (rng.random((2, NL)) + 0.5).astype(np.float32)
+    G64 = tab.double().numpy()[np.minimum(pairn, nreal)].reshape(Tp, NL, 2, 2)
+    d = b0.astype(np.float64) / b0.sum(0)
+    cs = np.ones((Tp, NL))
+    for t in range(Tp - 2, -1, -1):  # t <= T - 2 with T = Tp
+        raw = np.einsum("nac,cn->an", G64[t], d)
+        norm = raw.sum(0)
+        d = raw / norm
+        cs[t] = norm / 2.0 ** (growth[t // sub] / sub)
+    return tab, pairn, cs.astype(np.float32), b0, G64
+
+
+def test_split_bwd_sublanes_keep_the_range(cuda_device, monkeypatch):
+    """B10 in three sub-lanes of 1,024 steps over a cs_next that drifts the
+    betas by 2^-100, 2^200 and 2^-100 (the middle sub-lane's unscaled
+    product overflows float32): bit-equal to its plain version, finite,
+    within rtol 1e-5 of the sequential chain."""
+    from cpgisland_tpu_torch.ops import fb_onehot as FB
+    from cpgisland_tpu_torch.ops import fb_pallas as FP
+
+    Tp, NL = 3072, 6
+    tab, pairn, cs, b0, _ = _drift_streams(np.random.default_rng(7), Tp, NL, 1024,
+                                           (-100, 200, -100))
+    lens = np.full((1, NL), Tp, np.int32)
+    lens[0, 4] = 3000
+    monkeypatch.setattr(FP, "BWD_SUBLANE_T", 1024)
+    monkeypatch.setattr(FP, "BWD_SUBLANES_FROM", 1)
+    t = lambda x: torch.from_numpy(x).to(cuda_device)  # noqa: E731
+    args = (t(pairn), t(lens), t(cs), t(b0), tab.to(cuda_device), Tp)
+    got = FB.oh_bwd(*args)
+    assert torch.equal(got, FB.oh_bwd_plain(*args))
+    assert torch.isfinite(got).all() and float(got.max()) > 2.0**90
+    seq = FB._bwd_plain(args[0], args[1], args[3], args[4], Tp, cs_next=args[2])
+    torch.testing.assert_close(got, seq, rtol=1e-5, atol=0)
