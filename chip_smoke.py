@@ -11,9 +11,9 @@ JSON line each:
 
 1. card: name and power limit, kernel build time, and (its own line) the
    ptxas registers and spills of the kernels redesigned (B4, B24, B17, B7
-   / B21, B18 and B16 with their sub-lane kernels, B5's part kernel, the
-   scoring kernels, and B9 / B22 and B10 / B23, one chain and in
-   sub-lanes, with B11 beside them);
+   / B21, B18 and B16 with their sub-lane and state-split kernels, B5's
+   part kernel, the scoring kernels, and B9 / B22 and B10 / B23, one chain
+   and in sub-lanes, with B11 beside them);
 2. kernels: B1-B3 at full size (bk=4096, nb=16384: 64 Mi steps, PAD runs
    and record resets in the pair stream), B4-B5 at NL=1024 lanes x
    Tp=65,536 steps (ragged lengths, a short last lane, PAD tails), and B7
@@ -88,16 +88,17 @@ JSON line each:
    the big record at K=8 and at K=2;
 13. dense FB kernels: B16, B18 and B20 at NL=1024 x Tp=65,536 (ragged, as
    B4/B5) and B17, B16 and B19 at NL=8192 x lane_T=8192 (a 64 Mi span,
-   PAD tail), for K=8 (the flagship's tables) and K=2 (two_state) —
-   B16-B19 bit-equal to their plain versions, B20 within rtol 1e-5 / atol
-   1e-3 — with median time, bound and plain-version time; B18 also on the
-   posterior lanes, and at both geometries in one sub-lane (bit-equal to
-   its plain version) and, at K = 2, in 256-step and 1, 2, 4 and 8 Ki
-   sub-lanes (``fb_pallas.BWD_SUBLANE_T``: timed); B16 likewise at both
-   geometries in one sub-lane (bit-equal to its plain version) and, at K
-   = 2, in sub-lanes of 256 to 4 Ki steps (``fb_pallas.FWD_SUBLANE_T``:
-   timed, each one's largest relative difference from G = 1), its row
-   carrying ``sublanes``;
+   PAD tail), for K=8 (the flagship's tables) and K=2 (two_state), and B16
+   and B18 at both geometries for K=5 (a random model) — B16-B19 bit-equal
+   to their plain versions, B20 within rtol 1e-5 / atol 1e-3 — with median
+   time, bound and plain-version time, B16 / B18 rows naming their CUDA
+   kernel (``cuda_kernel``: at K >= 5 the state-split chains); B18 also on
+   the posterior lanes, and at K = 2 at both geometries in one sub-lane
+   (bit-equal to its plain version) and in 256-step and 1, 2, 4 and 8 Ki
+   sub-lanes (``fb_pallas.BWD_SUBLANE_T``: timed); B16 likewise at K = 2 in
+   one sub-lane (bit-equal to its plain version) and in sub-lanes of 256
+   to 4 Ki steps (``fb_pallas.FWD_SUBLANE_T``: timed, each one's largest
+   relative difference from G = 1), its row carrying ``sublanes``;
 14. dense train: ``pipeline.train_file`` with two_state, compat then clean,
    5 iterations each (B16, B18 and B20 exactly 5 per mode, B4 and B5
    never; EM Msym/s, per-phase seconds, logliks non-decreasing), then the
@@ -164,8 +165,8 @@ JSON line each:
    counted, both timed (B8 once, no B7 or B4);
 29. peak device bytes per symbol of one seq E-step at 16 Mi and 64 Mi
    symbols (two-pass, one-pass, split, dense K = 8) against
-   ``SEQ_BYTES_PER_SYMBOL``, and one seq E-step of the genome at lane_T
-   4096, 8192 and 16384;
+   ``SEQ_BYTES_PER_SYMBOL``, with its device ms, and one seq E-step of
+   the genome at lane_T 4096, 8192 and 16384;
 30. the split arm's kernels: B9, B10 and B12 at NL=1024 x Tp=65,536
    (ragged, as B4 / B5), B22 and B23 there at M = 2 and 5, B9, B10, B11,
    and B22 and B23 at M = 2, at 8192 x 8192 on the genome's 64 Mi record
@@ -295,8 +296,9 @@ SWEEP_LOGLIK_SUBLANE_T = (2048, 1024, 512, 256)
 # The redesigned kernels whose ptxas registers and spills are printed.
 REDESIGNED = ("oh_fwdbwd_kernel", "oh_fwdbwd_stacked_kernel", "fb_prod_kernel",
               "oh_prod_kernel", "fb_bwd_kernel", "fb_bwd_sub_kernel", "fb_fwd_kernel",
-              "fb_fwd_sub_kernel", "oh_seq_stats_part_kernel", "oh_loglik_kernel",
-              "oh_loglik_sub_kernel", "fb_loglik_kernel", "fb_loglik_sub_kernel",
+              "fb_fwd_sub_kernel", "fb_fwd_split_kernel", "fb_bwd_split_kernel",
+              "oh_seq_stats_part_kernel", "oh_loglik_kernel", "oh_loglik_sub_kernel",
+              "fb_loglik_kernel", "fb_loglik_sub_kernel",
               "oh_fwd_kernel", "oh_fwd_sub_kernel", "oh_bwd_kernel", "oh_bwd_sub_kernel")
 H100_SMS, SMEM_PER_SM, SMEM_PER_BLOCK_RESERVED = 132, 228 * 1024, 1024
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -563,9 +565,12 @@ def prod_sweep(pair2, tab) -> dict:
 
 
 def fwd_sweep(args, K: int) -> dict:
-    """B16 on ``args`` in one sub-lane (G = 1: held bit for bit against its
-    plain version, timed) and, at K <= 4, at each SWEEP_FWD_SUBLANE_T
-    (timed, with the largest relative difference from G = 1)."""
+    """At K <= 4, B16 on ``args`` in one sub-lane (G = 1: held bit for bit
+    against its plain version, timed) and at each SWEEP_FWD_SUBLANE_T
+    (timed, with the largest relative difference from G = 1); at K >= 5
+    nothing: every lane is one chain (state-split), the row itself."""
+    if K > FP.BWD_SUBLANE_MAX_K:
+        return {}
     Tp = args[0].shape[0]
     with fwd_sublane_length(Tp):
         al1 = FP.fb_fwd(*args)
@@ -574,7 +579,7 @@ def fwd_sweep(args, K: int) -> dict:
         del al_p
         g1_ms = time_ms(lambda: FP.fb_fwd(*args), runs=10)
     sweep = {}
-    for st in SWEEP_FWD_SUBLANE_T if K <= FP.BWD_SUBLANE_MAX_K else ():
+    for st in SWEEP_FWD_SUBLANE_T:
         with fwd_sublane_length(st):
             al = FP.fb_fwd(*args)
             sweep[str(st)] = {
@@ -653,9 +658,12 @@ def stats_sweep(args, want, old_Tt: int) -> dict:
 
 
 def bwd_sweep(args, K: int) -> dict:
-    """B18 on ``args`` in one sub-lane (G = 1: held bit for bit against its
-    plain version, timed) and, at K <= 4, at each SWEEP_BWD_SUBLANE_T
-    (timed, with the largest relative difference from G = 1)."""
+    """At K <= 4, B18 on ``args`` in one sub-lane (G = 1: held bit for bit
+    against its plain version, timed) and at each SWEEP_BWD_SUBLANE_T
+    (timed, with the largest relative difference from G = 1); at K >= 5
+    nothing, as :func:`fwd_sweep`."""
+    if K > FP.BWD_SUBLANE_MAX_K:
+        return {}
     Tp = args[0].shape[0]
     with bwd_sublane_length(Tp):
         be1 = FP.fb_bwd(*args)
@@ -664,7 +672,7 @@ def bwd_sweep(args, K: int) -> dict:
         del be_p
         g1_ms = time_ms(lambda: FP.fb_bwd(*args), runs=10)
     sweep = {}
-    for st in SWEEP_BWD_SUBLANE_T if K <= FP.BWD_SUBLANE_MAX_K else ():
+    for st in SWEEP_BWD_SUBLANE_T:
         with bwd_sublane_length(st):
             be = FP.fb_bwd(*args)
             sweep[str(st)] = {
@@ -1639,22 +1647,47 @@ def _agree_row(name, got, want, kernel_fn, plain_ms, n_bytes, n_ops, steps, K, t
     return row
 
 
+def chain_kernel(name: str, K: int, G: int) -> str:
+    """The CUDA kernel B16 (``fb_fwd``) or B18 (``fb_bwd``) runs at K and G
+    (csrc/fb_dense.cu)."""
+    stem = name + "_"
+    if K > FP.BWD_SUBLANE_MAX_K:
+        return f"{stem}split_kernel<{K}>"
+    if G > 1:
+        return f"{stem}sub_kernel<{K}, " + ("0 / 1 / 2>" if name == "fb_fwd" else "true / false>")
+    return f"{stem}kernel<{K}" + (">" if name == "fb_fwd" else ", false>")
+
+
+def random_dense_model(K: int, S: int, dev) -> HmmParams:
+    """A seeded random K-state model over S symbols (its own generator)."""
+    own = np.random.default_rng(100 + K)
+    return HmmParams.from_probs(own.dirichlet(np.ones(K)), own.dirichlet(np.ones(K), size=K),
+                                own.dirichlet(np.ones(S), size=K), device=dev)
+
+
 def dense_fb_kernel_phase(rng: np.random.Generator, dev) -> dict:
     """B16, B18 and B20 at the training geometry (FB_NL ragged chunks of
     FB_TP steps) and B17, B16 and B19 at the posterior's (one 64 Mi span
     as POST_NL lanes of POST_LANE_T steps, a PAD tail), for K = 8 (the
-    flagship's tables) and K = 2 (two_state).  B16-B19 bit-equal to their
-    plain versions, B20 within rtol 1e-5 / atol 1e-3.  Returns the rows
-    for the table by kernel name: K = 8, B17 and B19 at the posterior
-    geometry, the others at the training one."""
+    flagship's tables), K = 2 (two_state) and K = 5 (a random model over
+    4 symbols, B16 and B18 only: the state-split chains at their smallest
+    K; its draws from a generator of its own, so ``rng`` reaches the later
+    phases unchanged).  B16-B19 bit-equal to their plain versions, B20
+    within rtol 1e-5 / atol 1e-3.  Returns the rows for the table by kernel
+    name: K = 8, B17 and B19 at the posterior geometry, the others at the
+    training one."""
     results = {}
-    for K, params in dense_models(dev).items():
+    # (K, model, the generator of its draws)
+    models = [(K, params, rng) for K, params in dense_models(dev).items()]
+    models.append((5, random_dense_model(5, 4, dev), np.random.default_rng(5)))
+    for K, params, gen in models:
         S = params.n_symbols
+        chains_only = K == 5
         A, B, _ = FP.tables(params)
         tab_b = (A.numel() + B.numel()) * 4
         keep = {}
 
-        chunks, lengths = ragged_chunks(rng, S)
+        chunks, lengths = ragged_chunks(gen, S)
         prep = prepare_chunked(S, torch.from_numpy(chunks).to(dev),
                                torch.from_numpy(lengths).to(dev),
                                t_tile=fb_chunked.DEFAULT_T_TILE, onehot=False)
@@ -1671,9 +1704,10 @@ def dense_fb_kernel_phase(rng: np.random.Generator, dev) -> dict:
             # steps read, alphas written; K^2 products, K(K-1) sums, 2K scalings,
             # the row sum and its reciprocal a valid step
             4 * n + 4 * K * n + 4 * NL + 4 * K * NL + tab_b, (2 * K * K + 2 * K) * valid, n,
-            K, sublanes=FP.fwd_sublanes(Tp, K), **sweep, **geo)
+            K, sublanes=FP.fwd_sublanes(Tp, K),
+            cuda_kernel=chain_kernel("fb_fwd", K, FP.fwd_sublanes(Tp, K)), **sweep, **geo)
         del al_p
-        if not sweep["g1_bit_equal"]:
+        if sweep and not sweep["g1_bit_equal"]:
             raise SystemExit(f"chip_smoke: fb_fwd (K={K}) in one sub-lane disagrees with its "
                              "plain version")
         _, steps_next, cs_next = FP.backward_inputs(prep.steps2, al)
@@ -1685,56 +1719,62 @@ def dense_fb_kernel_phase(rng: np.random.Generator, dev) -> dict:
             "fb_bwd", [be], [be_p], lambda: FP.fb_bwd(*args), plain_ms,
             # o_{t+1} and c_{t+1} read, betas written
             8 * n + 4 * K * n + 4 * NL + 4 * K * NL + tab_b, (2 * K * K + K + 1) * valid, n,
-            K, sublanes=FP.bwd_sublanes(Tp, K), **sweep, **geo)
+            K, sublanes=FP.bwd_sublanes(Tp, K),
+            cuda_kernel=chain_kernel("fb_bwd", K, FP.bwd_sublanes(Tp, K)), **sweep, **geo)
         del be_p
-        if not sweep["g1_bit_equal"]:
+        if sweep and not sweep["g1_bit_equal"]:
             raise SystemExit(f"chip_smoke: fb_bwd (K={K}) in one sub-lane disagrees with its "
                              "plain version")
-        args = (al, be, prep.steps2, prep.lens2, B)
-        got = FP.fb_stats(*args, prep.Tt)
-        want, plain_ms = timed_once(lambda: FP.fb_stats_plain(*args))
-        keep["fb_stats"] = _agree_row(
-            "fb_stats", list(got), list(want), lambda: FP.fb_stats(*args, prep.Tt), plain_ms,
-            # alphas, betas and the symbol read at the valid steps, the counts written
-            (8 * K + 4) * valid + 4 * NL + 4 * B.numel() + 4 * (K * K + K * S + 1) * NL,
-            (2 * K * K + 7 * K + 3) * valid, valid, K, tol=(1e-5, 1e-3), **geo)
-        del al, be, got, want, prep, steps_next, cs_next
+        if chains_only:
+            del al, be, prep, steps_next, cs_next
+        else:
+            args = (al, be, prep.steps2, prep.lens2, B)
+            got = FP.fb_stats(*args, prep.Tt)
+            want, plain_ms = timed_once(lambda: FP.fb_stats_plain(*args))
+            keep["fb_stats"] = _agree_row(
+                "fb_stats", list(got), list(want), lambda: FP.fb_stats(*args, prep.Tt), plain_ms,
+                # alphas, betas and the symbol read at the valid steps, the counts written
+                (8 * K + 4) * valid + 4 * NL + 4 * B.numel() + 4 * (K * K + K * S + 1) * NL,
+                (2 * K * K + 7 * K + 3) * valid, valid, K, tol=(1e-5, 1e-3), **geo)
+            del al, be, got, want, prep, steps_next, cs_next
 
         T = POST_NL * POST_LANE_T
-        obs = torch.from_numpy(rng.integers(0, S, size=T).astype(np.uint8)).to(dev)
+        obs = torch.from_numpy(gen.integers(0, S, size=T).astype(np.uint8)).to(dev)
         prep = prepare_seq(S, obs, T - POST_LANE_T // 3, lane_T=POST_LANE_T, onehot=False)
         Tp, NL = prep.steps2.shape
         assert (Tp, NL) == (POST_LANE_T, POST_NL)
         n, real = Tp * NL, int((prep.sel2 < S).sum())
         geo = {"geometry": "posterior span", "valid_steps": real}
-        tab = FP.step_table(A, B)
-        P = FP.fb_prod(prep.sel2, tab)
-        P_p, plain_ms = timed_once(lambda: FP.fb_prod_plain(prep.sel2, tab))
-        keep["fb_prod"] = _agree_row(
-            "fb_prod", [P], [P_p], lambda: FP.fb_prod(prep.sel2, tab), plain_ms,
-            # the step stream read, the K x K products written; K^2 (2K - 1) a
-            # real step, and a renormalization every 8 steps
-            4 * n + 4 * tab.numel() + 4 * K * K * NL,
-            K * K * (2 * K - 1) * real + 2 * K * K * (n // 8), n, K, **geo)
+        if not chains_only:
+            tab = FP.step_table(A, B)
+            P = FP.fb_prod(prep.sel2, tab)
+            P_p, plain_ms = timed_once(lambda: FP.fb_prod_plain(prep.sel2, tab))
+            keep["fb_prod"] = _agree_row(
+                "fb_prod", [P], [P_p], lambda: FP.fb_prod(prep.sel2, tab), plain_ms,
+                # the step stream read, the K x K products written; K^2 (2K - 1) a
+                # real step, and a renormalization every 8 steps
+                4 * n + 4 * tab.numel() + 4 * K * K * NL,
+                K * K * (2 * K - 1) * real + 2 * K * K * (n // 8), n, K, **geo)
+            del P, P_p
         lens2 = prep.lane_lens[None, :].contiguous()
         rand = lambda: torch.from_numpy(  # noqa: E731
-            rng.random((K, NL)).astype(np.float32) + 0.01).to(dev)
+            gen.random((K, NL)).astype(np.float32) + 0.01).to(dev)
         args = (prep.steps2, lens2, rand(), A, B)
         al = FP.fb_fwd(*args)
         al_p, plain_ms = timed_once(lambda: FP.fb_fwd_plain(*args))
         sweep = fwd_sweep(args, K)
         _agree_row("fb_fwd", [al], [al_p], lambda: FP.fb_fwd(*args), plain_ms,
                    4 * n + 4 * K * n + 4 * NL + 4 * K * NL + tab_b,
-                   (2 * K * K + 2 * K) * real, n, K, sublanes=FP.fwd_sublanes(Tp, K), **sweep,
-                   **geo)
+                   (2 * K * K + 2 * K) * real, n, K, sublanes=FP.fwd_sublanes(Tp, K),
+                   cuda_kernel=chain_kernel("fb_fwd", K, FP.fwd_sublanes(Tp, K)), **sweep, **geo)
         del al_p
-        if not sweep["g1_bit_equal"]:
+        if sweep and not sweep["g1_bit_equal"]:
             raise SystemExit(f"chip_smoke: fb_fwd (K={K}, posterior span) in one sub-lane "
                              "disagrees with its plain version")
         _, steps_next, cs_next = FP.backward_inputs(prep.steps2, al)
         # B18 on the posterior lanes (G = 8 at K <= 4; the sweep times G = 1,
         # 2, 4 and 32 too).  Its entering betas come from a generator of their
-        # own, so ``rng`` reaches the later phases (the genome) unchanged.
+        # own, so the draws reach the later phases (the genome) unchanged.
         own = np.random.default_rng(K)
         beta0 = torch.from_numpy(own.random((K, NL)).astype(np.float32) + 0.01).to(dev)
         args = (steps_next, lens2, cs_next, beta0, A, B, POST_LANE_T)
@@ -1743,12 +1783,15 @@ def dense_fb_kernel_phase(rng: np.random.Generator, dev) -> dict:
         sweep = bwd_sweep(args, K)
         _agree_row("fb_bwd", [be], [be_p], lambda: FP.fb_bwd(*args), plain_ms,
                    8 * n + 4 * K * n + 4 * NL + 4 * K * NL + tab_b,
-                   (2 * K * K + K + 1) * real, n, K, sublanes=FP.bwd_sublanes(Tp, K), **sweep,
-                   **geo)
+                   (2 * K * K + K + 1) * real, n, K, sublanes=FP.bwd_sublanes(Tp, K),
+                   cuda_kernel=chain_kernel("fb_bwd", K, FP.bwd_sublanes(Tp, K)), **sweep, **geo)
         del be, be_p, beta0
-        if not sweep["g1_bit_equal"]:
+        if sweep and not sweep["g1_bit_equal"]:
             raise SystemExit(f"chip_smoke: fb_bwd (K={K}, posterior span) in one sub-lane "
                              "disagrees with its plain version")
+        if chains_only:
+            del al, prep, obs
+            continue
         mask = torch.tensor([1.0] * (K // 2) + [0.0] * (K - K // 2), device=dev)
         args = (steps_next, lens2, cs_next, rand(), al, mask, A, B, POST_LANE_T)
         conf = FP.fb_bwd_conf(*args)
@@ -1758,7 +1801,7 @@ def dense_fb_kernel_phase(rng: np.random.Generator, dev) -> dict:
             # o_{t+1}, c_{t+1} and the alphas read, the confidence written
             8 * n + 4 * K * n + 4 * n + 4 * NL + 4 * K * NL + tab_b,
             (2 * K * K + 5 * K + 2) * real, n, K, **geo)
-        del al, conf, conf_p, P, P_p, prep, obs
+        del al, conf, conf_p, prep, obs
         if K == 8:
             results = keep
     return results
@@ -2938,9 +2981,10 @@ def one_pass_posterior_phase(params, big: np.ndarray, dev) -> dict:
 
 
 def budget_lane_phase(big: np.ndarray, fa: str, dev) -> None:
-    """Peak device bytes per symbol of one seq E-step at 16 Mi and 64 Mi
-    symbols (reduced two-pass, one-pass, dense K = 8), the budget they give
-    on this card, and one seq E-step of the genome at three lane lengths."""
+    """Peak device bytes per symbol and device ms (CUDA events, one call) of
+    one seq E-step at 16 Mi and 64 Mi symbols (reduced two-pass, one-pass,
+    split, dense K = 8), the budget they give on this card, and one seq
+    E-step of the genome at three lane lengths."""
     from cpgisland_tpu_torch.ops.prepared import prepare_seq as prep_seq
     from cpgisland_tpu_torch.train import backends as BE
 
@@ -2957,13 +3001,17 @@ def budget_lane_phase(big: np.ndarray, fa: str, dev) -> None:
             torch.cuda.reset_peak_memory_stats()
             lane_T = fb_seq.pick_lane_T(n)
             prep = prep_seq(4, obs, n, lane_T=lane_T, onehot=engine == "onehot")
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
             st = fb_seq.seq_stats(params, obs, n, lane_T=lane_T, engine=engine,
                                   prepared=prep, one_pass=one_pass, fused=fused)
+            b.record()
             torch.cuda.synchronize()
             per = (torch.cuda.max_memory_allocated() - base) / n
             worst = max(worst, per)
             emit({"phase": "seq_memory", "symbols": n, "arm": label,
-                  "peak_bytes_per_symbol": per, "loglik": float(st.loglik)})
+                  "peak_bytes_per_symbol": per, "estep_ms": a.elapsed_time(b),
+                  "loglik": float(st.loglik)})
             del prep, st
     total = torch.cuda.get_device_properties(dev).total_memory
     emit({"phase": "seq_budget", "worst_bytes_per_symbol": worst,
@@ -3932,7 +3980,7 @@ def main(argv=None) -> int:
         table.append({k: r[k] for k in (
             "name", "route", "source", "replaces")} | {"launches": launches[name]} | {
             k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                              "library_ms")})
+                              "library_ms")} | {k: r[k] for k in ("cuda_kernel",) if k in r})
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

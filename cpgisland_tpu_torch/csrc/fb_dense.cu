@@ -7,15 +7,16 @@
 // Layout: time-major streams, [Tp, NL] for the symbols, the scale factors and
 // the confidence, [Tp, K, NL] for alphas and betas (lane n of step t, state k
 // at (t * K + k) * NL + n).  Lanes are independent chunks of the training
-// batch or consecutive stretches of one record (the posterior).  The chain
-// kernels run one thread per lane, 32 to a block so the few warps spread over
-// the SMs; neighbouring threads take neighbouring lanes, so every load and
-// store of a warp is one coalesced row (B17: one thread a row of a lane's
-// product, below).  A, B and the island mask sit in shared memory; the
-// K-state vectors (a row of the K x K product for B17) stay in registers,
-// sized by the template parameter K.  Each chain thread reads its
-// symbol stream (and B18's scale factors) a group of LOOKAHEAD steps ahead
-// of the chain.
+// batch or consecutive stretches of one record (the posterior).  The
+// one-thread chain kernels run one thread per lane, 32 to a block so the few
+// warps spread over the SMs; neighbouring threads take neighbouring lanes, so
+// every load and store of a warp is one coalesced row.  B17, and B16 / B18 at
+// K >= 5, give a lane's K rows or states to K neighbouring threads instead
+// (below).  A, B and the island mask sit in shared memory; the K-state
+// vectors (a row of the K x K product for B17, one state for the
+// state-split chains) stay in registers, sized by the template parameter K.
+// Each chain thread reads its symbol stream (and B18's scale factors) a
+// group of LOOKAHEAD steps ahead of the chain.
 //
 // Bit equality with the plain versions (B16-B19): every product and sum is an
 // explicit round-to-nearest intrinsic (__fmul_rn / __fadd_rn), so nvcc
@@ -31,15 +32,22 @@
 // it reads 4 B and writes 4K B per step (2.4 GB at K = 8, NL = 1024, Tp =
 // 65,536: 0.72 ms at 3.35 TB/s; 0.24 ms at K = 2).  What bounds one thread a
 // chain is latency: a training batch of 1,024-1,390 lanes is one warp on
-// each of 32-44 SMs (28x the bound at K = 2).  So at K <= 4 and G =
-// fb_pallas.fwd_sublanes > 1, fb_fwd_sub_kernel runs each lane as G
-// sub-lanes over a (lane block, sub-lane) grid, B18's layout; the step is
-// degree 0 in v_{t-1}, so a sub-lane needs only the direction of the alpha
-// before it (below).  In one sub-lane (K >= 5, short lanes) fb_fwd_kernel
-// runs the chain as before.  Blocks of 64 or 128 threads, a 16-step
-// lookahead and IEEE reciprocals (__frcp_rn) ran no faster than this
-// layout (cpgisland_tpu_torch/tools/kernel_variants.py), which leaves the
-// sub-lanes' scattered 128-byte row pieces, as in B18, what bounds it.
+// each of 32-44 SMs, a step a chain of K dependent adds and a division (28x
+// the bound at K = 2, 23x at K = 8).  What each K runs:
+// - K <= 4, G = fb_pallas.fwd_sublanes > 1 (lanes of 8 Ki steps or more):
+//   fb_fwd_sub_kernel runs each lane as G sub-lanes over a (lane block,
+//   sub-lane) grid, B18's layout; the step is degree 0 in v_{t-1}, so a
+//   sub-lane needs only the direction of the alpha before it (below).
+//   Blocks of 64 or 128 threads, a 16-step lookahead and IEEE reciprocals
+//   (__frcp_rn) ran no faster (cpgisland_tpu_torch/tools/kernel_variants.py),
+//   which leaves the sub-lanes' scattered 128-byte row pieces, as in B18,
+//   what bounds it.  A sub-lane's transfer product costs K^3 operations a
+//   step against the chain's K^2, so sub-lanes stop at K = 4;
+// - K <= 4 on shorter lanes: fb_fwd_kernel, one thread a chain;
+// - K >= 5: fb_fwd_split_kernel, one chain split one thread a state (B17's
+//   layout applied to the chain; below): every thread a K-th of the
+//   arithmetic after a K-float exchange a step, each alpha formed by the
+//   one-thread chain's operations in its order.
 //
 // B17 fb_prod_kernel replaces _prod_kernel: each lane's (+, x) product of its
 // step matrices M_t[m, j] = A[m, j] * B[j, o_t] (the identity for PAD, o_t >=
@@ -61,16 +69,19 @@
 // (1 / c_{t+1})) * beta_{t+1}[k]) on the time-shifted streams
 // (steps_next[t] = o_{t+1}, cs_next[t] = c_{t+1}), where t <= T-2 (T the
 // chunk length) and t + 1 < len; carried elsewhere.  Bound: it reads 8 B
-// and writes 4K B per step (0.32 ms at K = 2 over 1,024 x 65,536).  What
-// bounds one thread a chain (fb_bwd_kernel<K, false>) is latency: a
-// training batch of 1,024 lanes is one warp on each of 32 SMs, 28x the
-// bound at K = 2.  So at K <= 4 and G = fb_pallas.bwd_sublanes > 1,
-// fb_bwd_sub_kernel runs each lane as G sub-lanes joined by exact boundary
-// messages that carry the betas' true magnitude (the recurrence is degree
-// 1 and B20 reads the Rabiner scale), over a (lane block, sub-lane) grid
-// so the 1,024 lanes spread over the card; below.  In one sub-lane (K >= 5,
-// short lanes) fb_bwd_kernel<K, false> runs: the sub-lane kernel's chain
-// alone ran 6-7% slower there.
+// and writes 4K B per step (0.32 ms at K = 2, 0.80 at K = 8, over 1,024 x
+// 65,536).  What bounds one thread a chain (fb_bwd_kernel<K, false>) is
+// latency: a training batch of 1,024 lanes is one warp on each of 32 SMs,
+// 28x the bound at K = 2, 26x at K = 8.  What each K runs:
+// - K <= 4, G = fb_pallas.bwd_sublanes > 1: fb_bwd_sub_kernel runs each
+//   lane as G sub-lanes joined by exact boundary messages that carry the
+//   betas' true magnitude (the recurrence is degree 1 and B20 reads the
+//   Rabiner scale), over a (lane block, sub-lane) grid so the 1,024 lanes
+//   spread over the card; below;
+// - K <= 4 on shorter lanes: fb_bwd_kernel<K, false>, one thread a chain
+//   (the sub-lane kernel's chain alone ran 6-7% slower there);
+// - K >= 5: fb_bwd_split_kernel, one chain split one thread a state, as
+//   B16's (below).
 //
 // B19 fb_bwd_kernel<K, true> replaces _bwd_conf_kernel: B18's chain, emitting
 // conf_t = (sum_k g_k * mask_k) * (1 / max(sum_k g_k, 1e-30)), g = alpha_t *
@@ -103,19 +114,21 @@
 #define REDUCE_THREADS 128
 
 // q[r] = the int at step first + step * r of a lane's stream, 0 outside [0, Tp).
+template <int N>
 __device__ __forceinline__ void load_ints(const int32_t* p, size_t stride, int first, int step,
-                                          int Tp, int (&q)[LOOKAHEAD]) {
+                                          int Tp, int (&q)[N]) {
 #pragma unroll
-  for (int r = 0; r < LOOKAHEAD; ++r) {
+  for (int r = 0; r < N; ++r) {
     const int t = first + step * r;
     q[r] = (t >= 0 && t < Tp) ? __ldg(p + (size_t)t * stride) : 0;
   }
 }
 
+template <int N>
 __device__ __forceinline__ void load_floats(const float* p, size_t stride, int first, int step,
-                                            int Tp, float (&q)[LOOKAHEAD]) {
+                                            int Tp, float (&q)[N]) {
 #pragma unroll
-  for (int r = 0; r < LOOKAHEAD; ++r) {
+  for (int r = 0; r < N; ++r) {
     const int t = first + step * r;
     q[r] = (t >= 0 && t < Tp) ? __ldg(p + (size_t)t * stride) : 1.0f;
   }
@@ -186,7 +199,7 @@ __device__ __forceinline__ void fwd_start(const float* a0, float* out, size_t nl
   }
 }
 
-// The whole lane's chain (B16 in one sub-lane: K >= 5, lanes under
+// The whole lane's chain (B16 at K <= 4 on lanes under
 // fb_pallas.FWD_SUBLANES_FROM steps).
 template <int K>
 __global__ void __launch_bounds__(CHAIN_THREADS)
@@ -752,6 +765,234 @@ fb_prod_kernel(const int32_t* __restrict__ sel, const float* __restrict__ tab,
 }
 
 // ---------------------------------------------------------------------------
+// B16 and B18 at K >= 5: one chain, split one thread a state.  A lane's
+// states go to SPLIT_KP = 8 neighbouring threads (4 lanes a warp; threads
+// K..7 of a group carry zeros and store nothing), B17's layout applied to
+// the chain.  Each step the group exchanges K floats by __shfl_sync of
+// width SPLIT_KP:
+// - B16: thread k forms inv = 1 / sum_j v_{t-1}[j] and its column's
+//   ((sum_j v_{t-1}[j] A[j, k]) * B[k, o_t]) * inv, j in order; the group
+//   exchanges the product before inv (fwd_split_step), so the exchange
+//   and the division overlap;
+// - B18: thread k forms w[k] = (B[k, o] * (1 / c)) * beta[k]; the group
+//   exchanges w, and thread j sums A[j, k] * w[k], k in order.  The
+//   divisions by c leave the chain: thread r of a group divides for step r
+//   of each group of SPLIT_KP steps (split_scales).
+// Both read their streams a group of SPLIT_KP steps ahead.
+// Each thread does a K-th of the one-thread chain's arithmetic, and every
+// value it forms is formed by that chain's operations in its order (no
+// shuffle tree: each thread adds the K exchanged values in sequence), so
+// the streams are the sequential chains' (_fwd_chain_plain,
+// _bwd_chain_plain) bit for bit.  A sub-lane's K x K transfer product
+// (K^3 operations a step) would cost as much as the whole chain at K = 8,
+// which is why K >= 5 splits the states instead.  The shuffles name every
+// thread of the warp, so every thread runs every step: a lane past NL runs
+// lane NL - 1's stream and stores nothing, the carry past len (B18: its
+// keep) is a select, the stores are predicated and whole groups of steps
+// run with no test of t, so no branch but the division's rare slow path
+// interrupts a group.  A warp's store at a step is K rows of 4 lanes, 16 B
+// each, a block's 64 B.
+// What bounds it is the chain's latency (the division's in B16, the
+// exchange's in B18) and, in B18, the stores' row pieces.  Layouts measured
+// with cpgisland_tpu_torch/tools/kernel_variants.py (--group split): a
+// warp a state (the exchange through shared memory, a barrier a step,
+// whole-row stores) and stores staged in shared memory ran slower at both
+// geometries; two or four states a thread (wider stores) ran faster on
+// 8,192 lanes but slower on the training batch; blocks of 4 lanes ran 4-5x
+// slower on 8,192 lanes (their 16-byte row pieces reach memory from
+// different SMs); __frcp_rn ran slower than __fdiv_rn.
+
+#define SPLIT_KP 8         // threads a lane: the states, padded to a power of two
+#define SPLIT_THREADS 128  // a block: 16 lanes, so a store covers 64-byte row pieces
+
+// (state k, lane n) of this thread; lanes past NL read lane NL - 1.
+__device__ __forceinline__ void split_coords(int NL, int& k, int& n, int& ln) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  k = i % SPLIT_KP;
+  n = i / SPLIT_KP;
+  ln = min(n, NL - 1);
+}
+
+// *p = v where on, as a predicated store: a branch around the store would
+// make the warp wait for its shuffles in flight at every step.
+__device__ __forceinline__ void store_if(float* p, float v, bool on) {
+  asm volatile("{\n\t.reg .pred q;\n\tsetp.ne.u32 q, %2, 0;\n\t@q st.global.f32 [%0], %1;\n\t}"
+               ::"l"(p), "f"(v), "r"((unsigned)on));
+}
+
+// The group's K values of x, state 0 first.
+template <int K>
+__device__ __forceinline__ void split_gather(float x, float (&all)[K]) {
+#pragma unroll
+  for (int j = 0; j < K; ++j) all[j] = __shfl_sync(0xffffffffu, x, j, SPLIT_KP);
+}
+
+// The forward carries this thread's v_t as u * s: u its raw product (sum_j
+// v_{t-1}[j] A[j, k]) * B[k, o_t] and s = 1 / sum v_{t-1}, the product the
+// one-thread chain rounds last (v_0 = a0 * 1, exact).  The group exchanges
+// u, and each thread forms v[j] = u[j] * s itself, so a step issues its
+// exchange before its division and the two latencies overlap.  x: the
+// group's u entering the step (the next step's on return); b: B[k, o_t].
+template <int K>
+__device__ __forceinline__ void fwd_split_step(const float (&a_col)[K], float b, bool live,
+                                               float (&x)[K], float& u, float& s, float* dst,
+                                               bool stores) {
+  float v[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) v[j] = __fmul_rn(x[j], s);
+  float acc = __fmul_rn(v[0], a_col[0]);
+#pragma unroll
+  for (int j = 1; j < K; ++j) acc = __fadd_rn(acc, __fmul_rn(v[j], a_col[j]));
+  const float sum = seq_sum<K>(v);
+  u = live ? __fmul_rn(acc, b) : u;
+  split_gather<K>(u, x);
+  const float inv = __fdiv_rn(1.0f, sum);
+  s = live ? inv : s;
+  store_if(dst, __fmul_rn(u, s), stores);
+}
+
+// A group's B[k, o_t], t = t0 + r (r < SPLIT_KP), from its symbols q.
+__device__ __forceinline__ void split_emits(const float* b_row, int S, const int (&q)[SPLIT_KP],
+                                            float (&bq)[SPLIT_KP]) {
+#pragma unroll
+  for (int r = 0; r < SPLIT_KP; ++r) bq[r] = b_row[min(max(q[r], 0), S - 1)];
+}
+
+template <int K>
+__global__ void __launch_bounds__(SPLIT_THREADS)
+fb_fwd_split_kernel(const int32_t* __restrict__ steps, const int32_t* __restrict__ lens,
+                    const float* __restrict__ a0, const float* __restrict__ A,
+                    const float* __restrict__ B, float* __restrict__ alphas, int Tp, int NL,
+                    int S) {
+  __shared__ float s_A[K * K];
+  __shared__ float s_B[K * MAX_S];
+  load_tables<K>(s_A, s_B, A, B, S);
+  __syncthreads();
+  int k, n, ln;
+  split_coords(NL, k, n, ln);
+  const bool own = k < K;
+  const bool stores = own && n < NL;
+  const int kc = min(k, K - 1);
+  const size_t nl = (size_t)NL;
+  float a_col[K];  // column k of A
+#pragma unroll
+  for (int j = 0; j < K; ++j) a_col[j] = own ? s_A[j * K + kc] : 0.0f;
+  const float* b_row = s_B + kc * S;
+  float* out = alphas + (size_t)kc * nl + n;
+  float u = own ? a0[(size_t)kc * nl + ln] : 0.0f, s = 1.0f;
+  store_if(out, u, stores);
+  float x[K];
+  split_gather<K>(u, x);
+  const int len = lens[ln];
+  const int32_t* p = steps + ln;
+  int q[SPLIT_KP], qn[SPLIT_KP];
+  float bq[SPLIT_KP];
+  load_ints(p, nl, 1, 1, Tp, q);
+  int t0 = 1;
+  // Whole groups with no test of t: one straight run of SPLIT_KP steps.
+  for (; t0 + SPLIT_KP <= Tp; t0 += SPLIT_KP) {
+    load_ints(p, nl, t0 + SPLIT_KP, 1, Tp, qn);
+    split_emits(b_row, S, q, bq);
+#pragma unroll
+    for (int r = 0; r < SPLIT_KP; ++r) {
+      const int t = t0 + r;
+      fwd_split_step<K>(a_col, bq[r], t < len, x, u, s, out + (size_t)t * K * nl, stores);
+    }
+#pragma unroll
+    for (int r = 0; r < SPLIT_KP; ++r) q[r] = qn[r];
+  }
+  split_emits(b_row, S, q, bq);
+#pragma unroll
+  for (int r = 0; r < SPLIT_KP; ++r) {
+    const int t = t0 + r;
+    if (t < Tp)
+      fwd_split_step<K>(a_col, bq[r], t < len, x, u, s, out + (size_t)t * K * nl, stores);
+  }
+}
+
+// A backward group's column scales B[k, o] * (1 / c), t = Tp - 1 - (k0 + r):
+// thread r of the lane's group divides for step r (its c, cm) and the group
+// reads each quotient by shuffle, one division a thread a group.
+__device__ __forceinline__ void split_scales(const float* b_row, int S, const int (&q)[SPLIT_KP],
+                                             float cm, float (&bq)[SPLIT_KP]) {
+  const float inv = __fdiv_rn(1.0f, cm);
+#pragma unroll
+  for (int r = 0; r < SPLIT_KP; ++r)
+    bq[r] = __fmul_rn(b_row[min(max(q[r], 0), S - 1)], __shfl_sync(0xffffffffu, inv, r, SPLIT_KP));
+}
+
+// B18's step: w[k] = bi[k] * beta[k] exchanged, thread j's nb[j] = sum_k
+// A[j, k] * w[k], k in order; kept where ``keep``.
+template <int K>
+__device__ __forceinline__ void bwd_split_step(const float (&a_row)[K], float bi, bool keep,
+                                               float& beta, float* dst, bool stores) {
+  float w[K];
+  split_gather<K>(__fmul_rn(bi, beta), w);
+  float acc = __fmul_rn(a_row[0], w[0]);
+#pragma unroll
+  for (int j = 1; j < K; ++j) acc = __fadd_rn(acc, __fmul_rn(a_row[j], w[j]));
+  beta = keep ? acc : beta;
+  store_if(dst, beta, stores);
+}
+
+template <int K>
+__global__ void __launch_bounds__(SPLIT_THREADS)
+fb_bwd_split_kernel(const int32_t* __restrict__ steps_next, const int32_t* __restrict__ lens,
+                    const float* __restrict__ cs_next, const float* __restrict__ beta0,
+                    const float* __restrict__ A, const float* __restrict__ B,
+                    float* __restrict__ betas, int Tp, int NL, int S, int T) {
+  __shared__ float s_A[K * K];
+  __shared__ float s_B[K * MAX_S];
+  load_tables<K>(s_A, s_B, A, B, S);
+  __syncthreads();
+  int k, n, ln;
+  split_coords(NL, k, n, ln);
+  const bool own = k < K;
+  const bool stores = own && n < NL;
+  const int kc = min(k, K - 1);
+  const size_t nl = (size_t)NL;
+  float a_row[K];  // row k of A
+#pragma unroll
+  for (int j = 0; j < K; ++j) a_row[j] = own ? s_A[kc * K + j] : 0.0f;
+  const float* b_row = s_B + kc * S;
+  float* out = betas + (size_t)kc * nl + n;
+  float beta = own ? beta0[(size_t)kc * nl + ln] : 0.0f;
+  const int len = lens[ln];
+  const int32_t* p = steps_next + ln;
+  const float* c = cs_next + ln;
+  // This thread's step of a group starting at k0: Tp - 1 - (k0 + k).
+  const auto c_at = [&](int t) { return (t >= 0 && t < Tp) ? __ldg(c + (size_t)t * nl) : 1.0f; };
+  int q[SPLIT_KP], qn[SPLIT_KP];
+  float bq[SPLIT_KP];
+  load_ints(p, nl, Tp - 1, -1, Tp, q);
+  float cm = c_at(Tp - 1 - k), cmn;
+  int k0 = 0;
+  // Whole groups with no test of t: one straight run of SPLIT_KP steps.
+  for (; k0 + SPLIT_KP <= Tp; k0 += SPLIT_KP) {
+    load_ints(p, nl, Tp - 1 - (k0 + SPLIT_KP), -1, Tp, qn);
+    cmn = c_at(Tp - 1 - (k0 + SPLIT_KP + k));
+    split_scales(b_row, S, q, cm, bq);
+#pragma unroll
+    for (int r = 0; r < SPLIT_KP; ++r) {
+      const int t = Tp - 1 - (k0 + r);
+      bwd_split_step<K>(a_row, bq[r], t <= T - 2 && t + 1 < len, beta,
+                        out + (size_t)t * K * nl, stores);
+    }
+#pragma unroll
+    for (int r = 0; r < SPLIT_KP; ++r) q[r] = qn[r];
+    cm = cmn;
+  }
+  split_scales(b_row, S, q, cm, bq);
+#pragma unroll
+  for (int r = 0; r < SPLIT_KP; ++r) {
+    const int t = Tp - 1 - (k0 + r);
+    if (t >= 0)
+      bwd_split_step<K>(a_row, bq[r], t <= T - 2 && t + 1 < len, beta,
+                        out + (size_t)t * K * nl, stores);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // B20: per-lane counts.  Partial rows per (segment, lane), R = K*K + K*S + 1:
 // [0, K*K) macc (j*K + k), then K*S emission rows (s*K + k), then the loglik.
 
@@ -887,6 +1128,16 @@ static int launch_fwd(const void* steps, const void* lens, const void* a0, const
 }
 
 template <int K>
+static int launch_fwd_split(const void* steps, const void* lens, const void* a0, const void* A,
+                            const void* B, void* alphas, int Tp, int NL, int S, cudaStream_t st) {
+  if ((long long)NL * SPLIT_KP > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  fb_fwd_split_kernel<K><<<blocks_for(NL * SPLIT_KP, SPLIT_THREADS), SPLIT_THREADS, 0, st>>>(
+      (const int32_t*)steps, (const int32_t*)lens, (const float*)a0, (const float*)A,
+      (const float*)B, (float*)alphas, Tp, NL, S);
+  return (int)cudaGetLastError();
+}
+
+template <int K>
 static int launch_fwd_sub(const void* steps, const void* lens, const void* a0, const void* A,
                           const void* B, void* alphas, void* pbuf, int Tp, int NL, int S, int G,
                           cudaStream_t st) {
@@ -914,6 +1165,17 @@ static int launch_bwd(const void* steps_next, const void* lens, const void* cs_n
       (const int32_t*)steps_next, (const int32_t*)lens, (const float*)cs_next,
       (const float*)beta0, (const float*)alphas, (const float*)mask, (const float*)A,
       (const float*)B, (float*)out, Tp, NL, S, T);
+  return (int)cudaGetLastError();
+}
+
+template <int K>
+static int launch_bwd_split(const void* steps_next, const void* lens, const void* cs_next,
+                            const void* beta0, const void* A, const void* B, void* betas, int Tp,
+                            int NL, int S, int T, cudaStream_t st) {
+  if ((long long)NL * SPLIT_KP > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  fb_bwd_split_kernel<K><<<blocks_for(NL * SPLIT_KP, SPLIT_THREADS), SPLIT_THREADS, 0, st>>>(
+      (const int32_t*)steps_next, (const int32_t*)lens, (const float*)cs_next,
+      (const float*)beta0, (const float*)A, (const float*)B, (float*)betas, Tp, NL, S, T);
   return (int)cudaGetLastError();
 }
 
@@ -965,9 +1227,10 @@ static int launch_stats(const void* alphas, const void* betas, const void* steps
 
 extern "C" {
 
-// B16: G sub-lanes a lane (fb_pallas.fwd_sublanes; G > 1 only at K <= 4),
-// three launches over a (lane block, sub-lane) grid; pbuf [G, K*K, NL]
-// scratch where G > 1.
+// B16: at K <= 4, G sub-lanes a lane (fb_pallas.fwd_sublanes), three
+// launches over a (lane block, sub-lane) grid (pbuf [G, K*K, NL] scratch
+// where G > 1), or one thread a chain at G = 1; at K >= 5 (G = 1) one chain
+// split one thread a state.
 int fb_fwd(const void* steps, const void* lens, const void* a0, const void* A, const void* B,
            void* alphas, void* pbuf, int Tp, int NL, int K, int S, int G, void* stream) {
   if (bad_dims(Tp, NL, K, S) || G < 1 || G > SUB_LANES_MAX || G > Tp ||
@@ -986,13 +1249,27 @@ int fb_fwd(const void* steps, const void* lens, const void* a0, const void* A, c
 #undef CALL_FS
   }
 #define CALL_F(KK) launch_fwd<KK>(steps, lens, a0, A, B, alphas, Tp, NL, S, (cudaStream_t)stream)
-  DISPATCH_K(K, CALL_F)
+#define CALL_FX(KK) \
+  launch_fwd_split<KK>(steps, lens, a0, A, B, alphas, Tp, NL, S, (cudaStream_t)stream)
+  switch (K) {
+    case 1: return CALL_F(1);
+    case 2: return CALL_F(2);
+    case 3: return CALL_F(3);
+    case 4: return CALL_F(4);
+    case 5: return CALL_FX(5);
+    case 6: return CALL_FX(6);
+    case 7: return CALL_FX(7);
+    case 8: return CALL_FX(8);
+    default: return (int)cudaErrorInvalidValue;
+  }
 #undef CALL_F
+#undef CALL_FX
 }
 
-// B18: G sub-lanes a lane (fb_pallas.bwd_sublanes; G > 1 only at K <= 4),
-// two launches over a (lane block, sub-lane) grid; qbuf [G, K*K + 1, NL]
-// scratch where G > 1.
+// B18: at K <= 4, G sub-lanes a lane (fb_pallas.bwd_sublanes), two launches
+// over a (lane block, sub-lane) grid (qbuf [G, K*K + 1, NL] scratch where
+// G > 1), or one thread a chain at G = 1; at K >= 5 (G = 1) one chain split
+// one thread a state.
 int fb_bwd(const void* steps_next, const void* lens, const void* cs_next, const void* beta0,
            const void* A, const void* B, void* betas, void* qbuf, int Tp, int NL, int K, int S,
            int T, int G, void* stream) {
@@ -1015,8 +1292,22 @@ int fb_bwd(const void* steps_next, const void* lens, const void* cs_next, const 
 #define CALL_B(KK)                                                                          \
   launch_bwd<KK, false>(steps_next, lens, cs_next, beta0, nullptr, nullptr, A, B, betas, Tp, \
                         NL, S, T, (cudaStream_t)stream)
-  DISPATCH_K(K, CALL_B)
+#define CALL_BX(KK)                                                                        \
+  launch_bwd_split<KK>(steps_next, lens, cs_next, beta0, A, B, betas, Tp, NL, S, T, \
+                       (cudaStream_t)stream)
+  switch (K) {
+    case 1: return CALL_B(1);
+    case 2: return CALL_B(2);
+    case 3: return CALL_B(3);
+    case 4: return CALL_B(4);
+    case 5: return CALL_BX(5);
+    case 6: return CALL_BX(6);
+    case 7: return CALL_BX(7);
+    case 8: return CALL_BX(8);
+    default: return (int)cudaErrorInvalidValue;
+  }
 #undef CALL_B
+#undef CALL_BX
 }
 
 int fb_bwd_conf(const void* steps_next, const void* lens, const void* cs_next,

@@ -6,27 +6,33 @@ rescaled E-step and posterior streams for any model with K <= 8 states,
 whatever its emissions (``--preset two_state``, a ``--model`` file whose
 emissions are not one-hot pairs, or the flagship's own tables when
 ``engine="pallas"`` is asked for).  The kernels (``csrc/fb_dense.cu``) run
-one thread per lane over the time-major streams, with A and B in shared
-memory and the K-state vectors in registers:
+over the time-major streams, with A and B in shared memory and the K-state
+vectors in registers:
 
 - B16 :func:`fb_fwd` (replaces ``_fwd_kernel``): the forward with deferred
   Rabiner scaling, v_t = ((sum_j v_{t-1}[j] A[j, k]) * B[k, o_t]) *
   (1 / sum v_{t-1}), so the stored alphas carry alpha-hat_t * c_t and the
-  scale factors come back as row sums; at K <= 4 each lane runs as
+  scale factors come back as row sums.  At K <= 4 each lane runs as
   :func:`fwd_sublanes` sub-lanes joined by exact boundary messages (the
   step is degree 0 in v_{t-1}, so a message's direction is all a sub-lane
-  needs: :func:`_fwd_sublanes_plain`);
+  needs: :func:`_fwd_sublanes_plain`), or one thread a chain on lanes
+  under 8 Ki steps; at K >= 5 each lane runs as one chain split one thread
+  a state (8 threads a lane exchanging v each step), the sequential chain
+  :func:`_fwd_chain_plain`;
 - B17 :func:`fb_prod` (replaces ``_prod_kernel``): each lane's (+, x)
   product of its step matrices A[m, j] * B[j, o_t] (the identity for PAD),
   renormalized after every 8th step — the lane transfer operators of the
   whole-sequence boundary messages;
 - B18 :func:`fb_bwd` (replaces ``_bwd_kernel``): the backward on the
-  time-shifted o_{t+1}, c_{t+1}; at K <= 4 each lane runs as
+  time-shifted o_{t+1}, c_{t+1}.  At K <= 4 each lane runs as
   :func:`bwd_sublanes` sub-lanes joined by exact boundary messages that
   carry the betas' true magnitude (power-of-two scaled transfer matrices,
-  :func:`_bwd_sublanes_plain`);
-- B19 :func:`fb_bwd_conf` (replaces ``_bwd_conf_kernel``): B18's chain
-  emitting the island confidence instead of storing betas;
+  :func:`_bwd_sublanes_plain`), or one thread a chain on lanes under 8 Ki
+  steps; at K >= 5 as one chain split one thread a state, the sequential
+  chain :func:`_bwd_chain_plain`;
+- B19 :func:`fb_bwd_conf` (replaces ``_bwd_conf_kernel``): B18's sequential
+  chain, one thread a lane at every K, emitting the island confidence
+  instead of storing betas;
 - B20 :func:`fb_stats` (replaces ``_stats_kernel``): per-lane expected
   counts and loglik from the stored streams.
 
@@ -34,8 +40,9 @@ Each wrapper takes its plain version for a CPU tensor, launches the kernel
 for a CUDA tensor, and raises otherwise.  The plain versions of B16-B19 do
 the kernels' float32 operations in the kernels' order — every K-term sum
 sequential from j = 0, every reciprocal an IEEE division — so kernel and
-plain version agree bit for bit (B16 and B18 in one sub-lane are the
-sequential chains; in G > 1 they differ from them in the last bits); B20 sums
+plain version agree bit for bit (B16 and B18 in one sub-lane, state-split
+or not, are the sequential chains; in G > 1 they differ from them in the
+last bits); B20 sums
 over time in another order and agrees within a tolerance.  Against the
 JAX package (XLA:CPU contracts products into FMAs and reduces in its own
 order) they agree within the parity tests' tolerances.
@@ -53,8 +60,11 @@ MAX_STATES = 8  # the kernels' register-resident state vectors
 MAX_SYMBOLS = 16  # the kernels' shared-memory emission tables
 ROW_TILE = 8  # B17 renormalizes its product after every ROW_TILE steps
 # B16 and B18 run in sub-lanes up to this K (the csrc SUB_MAX_K): a
-# sub-lane's K x K transfer matrix a thread costs K^3 operations a step,
-# which at K = 8 is the instruction stream B17's first design drowned in.
+# sub-lane's K x K transfer matrix a thread costs K^3 operations a step
+# against the chain's K^2, which at K = 8 is the instruction stream B17's
+# first design drowned in.  Above it each lane is one chain split one
+# thread a state (8 threads a lane), which keeps the sequential chain's
+# bits.
 BWD_SUBLANE_MAX_K = 4
 # B16's sub-lanes (:func:`fwd_sublanes`): lanes of FWD_SUBLANES_FROM steps or
 # more run as sub-lanes of FWD_SUBLANE_T steps (at most
@@ -122,7 +132,7 @@ def fb_fwd_plain(steps2, lens2, a0, A, B) -> torch.Tensor:
 
 def _fwd_chain_plain(steps2, lens2, a0, A, B) -> torch.Tensor:
     """The sequential forward chain of :func:`fb_fwd_plain` (B16 in one
-    sub-lane)."""
+    sub-lane: one thread a chain at K <= 4, state-split at K >= 5)."""
     Tp, NL = steps2.shape
     K, S = B.shape
     out = torch.empty((Tp, K, NL), dtype=_F32, device=steps2.device)
@@ -285,7 +295,8 @@ def fb_bwd_plain(steps_next, lens2, cs_next, beta0, A, B, T: int) -> torch.Tenso
 
 def _bwd_chain_plain(steps_next, lens2, cs_next, beta0, A, B, T: int) -> torch.Tensor:
     """The sequential backward chain of :func:`fb_bwd_plain` (B18 in one
-    sub-lane, and B19's betas)."""
+    sub-lane: one thread a chain at K <= 4, state-split at K >= 5; and
+    B19's betas)."""
     Tp, NL = steps_next.shape
     K, S = B.shape
     out = torch.empty((Tp, K, NL), dtype=_F32, device=steps_next.device)
@@ -480,8 +491,9 @@ def _check_tables(A: torch.Tensor, B: torch.Tensor):
 
 def fb_fwd(steps2, lens2, a0, A, B) -> torch.Tensor:
     """Kernel B16 (replaces the JAX package's ``_fwd_kernel``) -> alphas
-    [Tp, K, NL] f32, the lane in :func:`fwd_sublanes` sub-lanes.  Arguments
-    as :func:`fb_fwd_plain`."""
+    [Tp, K, NL] f32, the lane in :func:`fwd_sublanes` sub-lanes (at K >= 5
+    one chain split one thread a state).  Arguments as
+    :func:`fb_fwd_plain`."""
     _check_device(steps2, (lens2, a0, A, B))
     Tp, NL = _check_stream("steps2", steps2)
     K, S = _check_tables(A, B)
@@ -500,8 +512,8 @@ def fb_fwd(steps2, lens2, a0, A, B) -> torch.Tensor:
 
 def fb_bwd(steps_next, lens2, cs_next, beta0, A, B, T: int) -> torch.Tensor:
     """Kernel B18 (replaces ``_bwd_kernel``) -> betas [Tp, K, NL] f32, the
-    lane in :func:`bwd_sublanes` sub-lanes.  Arguments as
-    :func:`fb_bwd_plain`."""
+    lane in :func:`bwd_sublanes` sub-lanes (at K >= 5 one chain split one
+    thread a state).  Arguments as :func:`fb_bwd_plain`."""
     _check_device(steps_next, (lens2, cs_next, beta0, A, B))
     Tp, NL = _check_stream("steps_next", steps_next)
     K, S = _check_tables(A, B)

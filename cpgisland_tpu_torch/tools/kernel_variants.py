@@ -1,26 +1,45 @@
-"""Variant builds of the sub-lane forward-backward kernels and of B5, timed
-on identical inputs: the measurements behind their layouts.
+"""Variant builds of the dense chain kernels and of B5, timed on identical
+inputs: the measurements behind their layouts.
 
-    python -m cpgisland_tpu_torch.tools.kernel_variants
+    python -m cpgisland_tpu_torch.tools.kernel_variants [--group dense|split|stats ...]
 
 Each variant is a copy of ``csrc/fb_dense.cu`` or ``csrc/fb_onehot.cu`` with
 a few lines replaced (the table below), compiled with the port's nvcc flags
 into ``build/kernel_variants/`` and called through its C interface, so a
-variant changes nothing in the package.  On the card only: B16 and B18 at
-K = 2 (two_state) in sub-lanes on 1,024 ragged chunks of 65,536 steps (G =
-32) and on 8,192 lanes of 8,192 steps (G = 16 and 8), and B5 (the flagship)
-on 1,024 and the genome's 1,390 ragged chunks of 65,536 steps and on 8,192
-and the genome's 11,121 seq lanes of 8,192 steps, at segments of 128 to
-1,024 steps.  Each variant's outputs are held against the unchanged build
-(bit for bit for B16 and B18, within rtol 1e-5 / atol 1e-3 for the B5
-layouts; the ``diag_*`` variants drop work to find what bounds B5 and are
-not checked).  Times: CUDA events, median of 15.  One JSON line per
-variant on stdout, after the card's name and power limit (``nvidia-smi``);
-exits 2 without a card.
+variant changes nothing in the package.  On the card only, by group:
+
+- ``dense``: B16 and B18 at K = 2 (two_state) in sub-lanes on 1,024 ragged
+  chunks of 65,536 steps (G = 32) and on 8,192 lanes of 8,192 steps (G =
+  16 and 8);
+- ``split``: B16 and B18 at K = 5 and 8 (seeded random models over 4
+  symbols) on the same two geometries, where each lane is one chain: the
+  shipped state-split kernels (one state a thread, 8 threads a lane, a
+  shuffle exchange, blocks of 16 lanes) against blocks of 4, 8 and 32
+  lanes, two and four states a thread (:data:`SPT_KERNELS`), ``__frcp_rn``
+  for the divisions, a branch around each store, the kernels as first
+  written (:data:`SIMPLE_KERNELS`), a warp a state (:data:`WARP_KERNELS`:
+  K warps a block of 32 lanes, the exchange through shared memory and a
+  barrier each step, every store a 128-byte row), the stores staged in
+  shared memory for 8 steps and written as whole rows
+  (:data:`STAGE_KERNELS`, blocks of 32 lanes), one thread a chain (the
+  K <= 4 kernels' template at K >= 5, the layout every K >= 5 launch ran
+  before the state split) and, unchecked, the shipped kernels with their
+  stores dropped (``diag_nostore``);
+- ``stats``: B5 (the flagship) on 1,024 and the genome's 1,390 ragged
+  chunks of 65,536 steps and on 8,192 and the genome's 11,121 seq lanes of
+  8,192 steps, at segments of 128 to 1,024 steps.
+
+Each variant's outputs are held against its group's unchanged build (bit
+for bit for B16 and B18, within rtol 1e-5 / atol 1e-3 for the B5 layouts;
+the ``diag_*`` variants drop work to find what bounds B5 or the
+state-split chains and are not checked).  Times: CUDA events, median of 15.  One JSON line per variant on
+stdout, after the card's name and power limit (``nvidia-smi``); exits 2
+without a card.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import statistics
@@ -39,6 +58,638 @@ from cpgisland_tpu_torch.ops.viterbi_onehot import _groups
 from cpgisland_tpu_torch.tools.bench_compose import card_line
 
 OUT_DIR = _kernels.BUILD_DIR.parent / "kernel_variants"
+
+# The state-split chains with a warp a state: warp k of a block of K warps
+# carries state k of 32 lanes; each step's K values go through shared memory
+# (two buffers, so one barrier a step suffices) and every store is a whole
+# 128-byte row.  The operations and their order are the shipped kernels'.
+WARP_KERNELS = r"""
+template <int K>
+__global__ void __launch_bounds__(K * 32)
+fb_fwd_warp_kernel(const int32_t* __restrict__ steps, const int32_t* __restrict__ lens,
+                   const float* __restrict__ a0, const float* __restrict__ A,
+                   const float* __restrict__ B, float* __restrict__ alphas, int Tp, int NL,
+                   int S) {
+  __shared__ float s_A[K * K];
+  __shared__ float s_B[K * MAX_S];
+  __shared__ float s_x[2][K][32];
+  load_tables<K>(s_A, s_B, A, B, S);
+  __syncthreads();
+  const int k = threadIdx.x / 32, l = threadIdx.x % 32;
+  const int n = blockIdx.x * 32 + l, ln = min(n, NL - 1);
+  const size_t nl = (size_t)NL;
+  float a_col[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) a_col[j] = s_A[j * K + k];
+  const float* b_row = s_B + k * S;
+  float v = a0[(size_t)k * nl + ln];
+  float* out = alphas + (size_t)k * nl + n;
+  if (n < NL) out[0] = v;
+  const int len = lens[ln];
+  const int32_t* p = steps + ln;
+  int q[LOOKAHEAD], qn[LOOKAHEAD];
+  load_ints(p, nl, 1, 1, Tp, q);
+  for (int t0 = 1; t0 < Tp; t0 += LOOKAHEAD) {
+    load_ints(p, nl, t0 + LOOKAHEAD, 1, Tp, qn);
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) {
+      const int t = t0 + r;
+      if (t < Tp) {
+        s_x[t & 1][k][l] = v;
+        __syncthreads();
+        float x[K];
+#pragma unroll
+        for (int j = 0; j < K; ++j) x[j] = s_x[t & 1][j][l];
+        const float inv = __fdiv_rn(1.0f, seq_sum<K>(x));
+        float acc = __fmul_rn(x[0], a_col[0]);
+#pragma unroll
+        for (int j = 1; j < K; ++j) acc = __fadd_rn(acc, __fmul_rn(x[j], a_col[j]));
+        const int o = min(max(q[r], 0), S - 1);
+        const float nv = __fmul_rn(__fmul_rn(acc, b_row[o]), inv);
+        v = t < len ? nv : v;
+        if (n < NL) out[(size_t)t * K * nl] = v;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) q[r] = qn[r];
+  }
+}
+
+template <int K>
+__global__ void __launch_bounds__(K * 32)
+fb_bwd_warp_kernel(const int32_t* __restrict__ steps_next, const int32_t* __restrict__ lens,
+                   const float* __restrict__ cs_next, const float* __restrict__ beta0,
+                   const float* __restrict__ A, const float* __restrict__ B,
+                   float* __restrict__ betas, int Tp, int NL, int S, int T) {
+  __shared__ float s_A[K * K];
+  __shared__ float s_B[K * MAX_S];
+  __shared__ float s_x[2][K][32];
+  load_tables<K>(s_A, s_B, A, B, S);
+  __syncthreads();
+  const int k = threadIdx.x / 32, l = threadIdx.x % 32;
+  const int n = blockIdx.x * 32 + l, ln = min(n, NL - 1);
+  const size_t nl = (size_t)NL;
+  float a_row[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) a_row[j] = s_A[k * K + j];
+  const float* b_row = s_B + k * S;
+  float beta = beta0[(size_t)k * nl + ln];
+  float* out = betas + (size_t)k * nl + n;
+  const int len = lens[ln];
+  const int32_t* p = steps_next + ln;
+  const float* c = cs_next + ln;
+  int q[LOOKAHEAD], qn[LOOKAHEAD];
+  float cq[LOOKAHEAD], cqn[LOOKAHEAD];
+  load_ints(p, nl, Tp - 1, -1, Tp, q);
+  load_floats(c, nl, Tp - 1, -1, Tp, cq);
+  for (int k0 = 0; k0 < Tp; k0 += LOOKAHEAD) {
+    load_ints(p, nl, Tp - 1 - (k0 + LOOKAHEAD), -1, Tp, qn);
+    load_floats(c, nl, Tp - 1 - (k0 + LOOKAHEAD), -1, Tp, cqn);
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) {
+      const int t = Tp - 1 - (k0 + r);
+      if (t >= 0) {
+        const int o = min(max(q[r], 0), S - 1);
+        const float bi = __fmul_rn(b_row[o], __fdiv_rn(1.0f, cq[r]));
+        s_x[t & 1][k][l] = __fmul_rn(bi, beta);
+        __syncthreads();
+        float acc = __fmul_rn(a_row[0], s_x[t & 1][0][l]);
+#pragma unroll
+        for (int j = 1; j < K; ++j) acc = __fadd_rn(acc, __fmul_rn(a_row[j], s_x[t & 1][j][l]));
+        beta = (t <= T - 2 && t + 1 < len) ? acc : beta;
+        if (n < NL) out[(size_t)t * K * nl] = beta;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) {
+      q[r] = qn[r];
+      cq[r] = cqn[r];
+    }
+  }
+}
+"""
+
+# The state-split chains as first written: the group exchanges v (B16) or w
+# (B18) and each step forms its own division, B[k, o] load and product, with
+# a test of t at every step.
+SIMPLE_KERNELS = r"""
+// One float a thread, the group's K values (one state a thread).
+template <int K>
+__device__ __forceinline__ void one_gather(float x, float (&all)[K]) {
+#pragma unroll
+  for (int j = 0; j < K; ++j) all[j] = __shfl_sync(0xffffffffu, x, j, SPLIT_KP);
+}
+
+template <int K>
+__global__ void __launch_bounds__(SPLIT_THREADS)
+fb_fwd_simple_kernel(const int32_t* __restrict__ steps, const int32_t* __restrict__ lens,
+                    const float* __restrict__ a0, const float* __restrict__ A,
+                    const float* __restrict__ B, float* __restrict__ alphas, int Tp, int NL,
+                    int S) {
+  __shared__ float s_A[K * K];
+  __shared__ float s_B[K * MAX_S];
+  load_tables<K>(s_A, s_B, A, B, S);
+  __syncthreads();
+  int k, n, ln;
+  split_coords(NL, k, n, ln);
+  const bool own = k < K;
+  const bool stores = own && n < NL;
+  const int kc = min(k, K - 1);
+  const size_t nl = (size_t)NL;
+  float a_col[K];  // column k of A
+#pragma unroll
+  for (int j = 0; j < K; ++j) a_col[j] = own ? s_A[j * K + kc] : 0.0f;
+  const float* b_row = s_B + kc * S;
+  float v = own ? a0[(size_t)kc * nl + ln] : 0.0f;
+  float* out = alphas + (size_t)kc * nl + n;
+  if (stores) out[0] = v;
+  const int len = lens[ln];
+  const int32_t* p = steps + ln;
+  int q[LOOKAHEAD], qn[LOOKAHEAD];
+  load_ints(p, nl, 1, 1, Tp, q);
+  for (int t0 = 1; t0 < Tp; t0 += LOOKAHEAD) {
+    load_ints(p, nl, t0 + LOOKAHEAD, 1, Tp, qn);
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) {
+      const int t = t0 + r;
+      if (t < Tp) {
+        float x[K];
+        one_gather<K>(v, x);
+        const float inv = __fdiv_rn(1.0f, seq_sum<K>(x));
+        float acc = __fmul_rn(x[0], a_col[0]);
+#pragma unroll
+        for (int j = 1; j < K; ++j) acc = __fadd_rn(acc, __fmul_rn(x[j], a_col[j]));
+        const int o = min(max(q[r], 0), S - 1);
+        const float nv = __fmul_rn(__fmul_rn(acc, b_row[o]), inv);
+        v = t < len ? nv : v;
+        if (stores) out[(size_t)t * K * nl] = v;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) q[r] = qn[r];
+  }
+}
+
+template <int K>
+__global__ void __launch_bounds__(SPLIT_THREADS)
+fb_bwd_simple_kernel(const int32_t* __restrict__ steps_next, const int32_t* __restrict__ lens,
+                    const float* __restrict__ cs_next, const float* __restrict__ beta0,
+                    const float* __restrict__ A, const float* __restrict__ B,
+                    float* __restrict__ betas, int Tp, int NL, int S, int T) {
+  __shared__ float s_A[K * K];
+  __shared__ float s_B[K * MAX_S];
+  load_tables<K>(s_A, s_B, A, B, S);
+  __syncthreads();
+  int k, n, ln;
+  split_coords(NL, k, n, ln);
+  const bool own = k < K;
+  const bool stores = own && n < NL;
+  const int kc = min(k, K - 1);
+  const size_t nl = (size_t)NL;
+  float a_row[K];  // row k of A
+#pragma unroll
+  for (int j = 0; j < K; ++j) a_row[j] = own ? s_A[kc * K + j] : 0.0f;
+  const float* b_row = s_B + kc * S;
+  float beta = own ? beta0[(size_t)kc * nl + ln] : 0.0f;
+  float* out = betas + (size_t)kc * nl + n;
+  const int len = lens[ln];
+  const int32_t* p = steps_next + ln;
+  const float* c = cs_next + ln;
+  int q[LOOKAHEAD], qn[LOOKAHEAD];
+  float cq[LOOKAHEAD], cqn[LOOKAHEAD];
+  load_ints(p, nl, Tp - 1, -1, Tp, q);
+  load_floats(c, nl, Tp - 1, -1, Tp, cq);
+  for (int k0 = 0; k0 < Tp; k0 += LOOKAHEAD) {
+    load_ints(p, nl, Tp - 1 - (k0 + LOOKAHEAD), -1, Tp, qn);
+    load_floats(c, nl, Tp - 1 - (k0 + LOOKAHEAD), -1, Tp, cqn);
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) {
+      const int t = Tp - 1 - (k0 + r);
+      if (t >= 0) {
+        const int o = min(max(q[r], 0), S - 1);
+        const float bi = __fmul_rn(b_row[o], __fdiv_rn(1.0f, cq[r]));
+        float w[K];
+        one_gather<K>(__fmul_rn(bi, beta), w);
+        float acc = __fmul_rn(a_row[0], w[0]);
+#pragma unroll
+        for (int j = 1; j < K; ++j) acc = __fadd_rn(acc, __fmul_rn(a_row[j], w[j]));
+        beta = (t <= T - 2 && t + 1 < len) ? acc : beta;
+        if (stores) out[(size_t)t * K * nl] = beta;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) {
+      q[r] = qn[r];
+      cq[r] = cqn[r];
+    }
+  }
+}
+
+"""
+
+# The state-split chains with SPT_SPT states a thread (SPT_KP = 8 / SPT_SPT
+# threads a lane, 16 lanes a block): a K-float exchange a step as in the
+# shipped kernels (one state a thread), each thread SPT_SPT of the columns
+# (B16) or rows (B18), each store instruction SPT_SPT x 4 lanes wide; B18's
+# divisions spread SPT_DIV a thread a group.  The operations and their order
+# are the shipped kernels'.
+SPT_KERNELS = r"""
+#define SPT_SPT 2                    // states a thread
+#define SPT_KP (8 / SPT_SPT)         // threads a lane: 8 states, K..7 zeros
+#define SPT_LANES 16                 // lanes a block
+#define SPT_THREADS (SPT_LANES * SPT_KP)
+#define SPT_DIV (LOOKAHEAD / SPT_KP)  // B18's divisions a thread a group
+
+// (this thread's place g in its lane's group, lane n) of this thread; it
+// carries states g * SPT_SPT + e, e < SPT_SPT; lanes past NL read lane
+// NL - 1.
+__device__ __forceinline__ void spt_coords(int NL, int& g, int& n, int& ln) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  g = i % SPT_KP;
+  n = i / SPT_KP;
+  ln = min(n, NL - 1);
+}
+
+// The group's K values of u (state j from thread j / SPT_SPT), state 0
+// first.
+template <int K>
+__device__ __forceinline__ void spt_gather(const float (&u)[SPT_SPT], float (&all)[K]) {
+#pragma unroll
+  for (int j = 0; j < K; ++j)
+    all[j] = __shfl_sync(0xffffffffu, u[j % SPT_SPT], j / SPT_SPT, SPT_KP);
+}
+
+// A thread's states and tables: own[e] (state k0 + e < K), column (B16) or
+// row (B18) k0 + e of A, row k0 + e of B (clamped to a real state).
+template <int K, bool COLS>
+struct SptStates {
+  bool own[SPT_SPT];
+  float a[SPT_SPT][K];
+  const float* b[SPT_SPT];
+  int kc[SPT_SPT];
+  __device__ __forceinline__ SptStates(const float* s_A, const float* s_B, int S, int k0) {
+#pragma unroll
+    for (int e = 0; e < SPT_SPT; ++e) {
+      own[e] = k0 + e < K;
+      kc[e] = min(k0 + e, K - 1);
+#pragma unroll
+      for (int j = 0; j < K; ++j)
+        a[e][j] = own[e] ? s_A[COLS ? j * K + kc[e] : kc[e] * K + j] : 0.0f;
+      b[e] = s_B + kc[e] * S;
+    }
+  }
+};
+
+// The forward carries this thread's v_t as u * s: u its raw products (sum_j
+// v_{t-1}[j] A[j, k]) * B[k, o_t] and s = 1 / sum v_{t-1}, the product the
+// one-thread chain rounds last (v_0 = a0 * 1, exact).  The group exchanges
+// u, and each thread forms v[j] = u[j] * s itself, so a step issues its
+// exchange before its division and the two latencies overlap.  x: the
+// group's u entering the step (the next step's on return); b: B[k, o_t];
+// dst: state k0's row of the step (state k0 + e at dst + e nl).
+template <int K>
+__device__ __forceinline__ void fwd_spt_step(const SptStates<K, true>& st,
+                                               const float (&b)[SPT_SPT], bool live,
+                                               float (&x)[K], float (&u)[SPT_SPT], float& s,
+                                               float* dst, size_t nl, bool in_range) {
+  float v[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) v[j] = __fmul_rn(x[j], s);
+#pragma unroll
+  for (int e = 0; e < SPT_SPT; ++e) {
+    float acc = __fmul_rn(v[0], st.a[e][0]);
+#pragma unroll
+    for (int j = 1; j < K; ++j) acc = __fadd_rn(acc, __fmul_rn(v[j], st.a[e][j]));
+    u[e] = live ? __fmul_rn(acc, b[e]) : u[e];
+  }
+  const float sum = seq_sum<K>(v);
+  spt_gather<K>(u, x);
+  const float inv = __fdiv_rn(1.0f, sum);
+  s = live ? inv : s;
+#pragma unroll
+  for (int e = 0; e < SPT_SPT; ++e)
+    store_if(dst + e * nl, __fmul_rn(u[e], s), in_range && st.own[e]);
+}
+
+// A group's B[k, o_t] for each of this thread's states, t = t0 + r (r <
+// LOOKAHEAD), from its symbols q.
+template <int K, bool COLS>
+__device__ __forceinline__ void spt_emits(const SptStates<K, COLS>& st, int S,
+                                            const int (&q)[LOOKAHEAD],
+                                            float (&bq)[LOOKAHEAD][SPT_SPT]) {
+#pragma unroll
+  for (int r = 0; r < LOOKAHEAD; ++r) {
+    const int o = min(max(q[r], 0), S - 1);
+#pragma unroll
+    for (int e = 0; e < SPT_SPT; ++e) bq[r][e] = st.b[e][o];
+  }
+}
+
+template <int K>
+__global__ void __launch_bounds__(SPT_THREADS)
+fb_fwd_spt_kernel(const int32_t* __restrict__ steps, const int32_t* __restrict__ lens,
+                    const float* __restrict__ a0, const float* __restrict__ A,
+                    const float* __restrict__ B, float* __restrict__ alphas, int Tp, int NL,
+                    int S) {
+  __shared__ float s_A[K * K];
+  __shared__ float s_B[K * MAX_S];
+  load_tables<K>(s_A, s_B, A, B, S);
+  __syncthreads();
+  int g, n, ln;
+  spt_coords(NL, g, n, ln);
+  const SptStates<K, true> st(s_A, s_B, S, g * SPT_SPT);
+  const bool in_range = n < NL;
+  const size_t nl = (size_t)NL;
+  float* out = alphas + (size_t)st.kc[0] * nl + n;  // state k0's row, step 0
+  float u[SPT_SPT], s = 1.0f;
+#pragma unroll
+  for (int e = 0; e < SPT_SPT; ++e) {
+    u[e] = st.own[e] ? a0[(size_t)st.kc[e] * nl + ln] : 0.0f;
+    store_if(out + e * nl, u[e], in_range && st.own[e]);
+  }
+  float x[K];
+  spt_gather<K>(u, x);
+  const int len = lens[ln];
+  const int32_t* p = steps + ln;
+  int q[LOOKAHEAD], qn[LOOKAHEAD];
+  float bq[LOOKAHEAD][SPT_SPT];
+  load_ints(p, nl, 1, 1, Tp, q);
+  int t0 = 1;
+  // Whole groups with no test of t: one straight run of LOOKAHEAD steps.
+  for (; t0 + LOOKAHEAD <= Tp; t0 += LOOKAHEAD) {
+    load_ints(p, nl, t0 + LOOKAHEAD, 1, Tp, qn);
+    spt_emits(st, S, q, bq);
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) {
+      const int t = t0 + r;
+      fwd_spt_step<K>(st, bq[r], t < len, x, u, s, out + (size_t)t * K * nl, nl, in_range);
+    }
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) q[r] = qn[r];
+  }
+  spt_emits(st, S, q, bq);
+#pragma unroll
+  for (int r = 0; r < LOOKAHEAD; ++r) {
+    const int t = t0 + r;
+    if (t < Tp)
+      fwd_spt_step<K>(st, bq[r], t < len, x, u, s, out + (size_t)t * K * nl, nl, in_range);
+  }
+}
+
+// A backward group's column scales B[k, o] * (1 / c) for each of this
+// thread's states, t = Tp - 1 - (g0 + r): thread g of the lane's group
+// divides for steps r = g SPT_DIV + e (its c, cm[e]) and the group reads
+// each quotient by shuffle, SPT_DIV divisions a thread a group.
+template <int K>
+__device__ __forceinline__ void spt_scales(const SptStates<K, false>& st, int S,
+                                             const int (&q)[LOOKAHEAD],
+                                             const float (&cm)[SPT_DIV],
+                                             float (&bq)[LOOKAHEAD][SPT_SPT]) {
+  float inv[SPT_DIV];
+#pragma unroll
+  for (int e = 0; e < SPT_DIV; ++e) inv[e] = __fdiv_rn(1.0f, cm[e]);
+#pragma unroll
+  for (int r = 0; r < LOOKAHEAD; ++r) {
+    const int o = min(max(q[r], 0), S - 1);
+    const float ic = __shfl_sync(0xffffffffu, inv[r % SPT_DIV], r / SPT_DIV, SPT_KP);
+#pragma unroll
+    for (int e = 0; e < SPT_SPT; ++e) bq[r][e] = __fmul_rn(st.b[e][o], ic);
+  }
+}
+
+// B18's step: w[k] = bi[k] * beta[k] exchanged, state j's nb[j] = sum_k
+// A[j, k] * w[k], k in order; kept where ``keep``.
+template <int K>
+__device__ __forceinline__ void bwd_spt_step(const SptStates<K, false>& st,
+                                               const float (&bi)[SPT_SPT], bool keep,
+                                               float (&beta)[SPT_SPT], float* dst, size_t nl,
+                                               bool in_range) {
+  float w[SPT_SPT], wx[K];
+#pragma unroll
+  for (int e = 0; e < SPT_SPT; ++e) w[e] = __fmul_rn(bi[e], beta[e]);
+  spt_gather<K>(w, wx);
+#pragma unroll
+  for (int e = 0; e < SPT_SPT; ++e) {
+    float acc = __fmul_rn(st.a[e][0], wx[0]);
+#pragma unroll
+    for (int j = 1; j < K; ++j) acc = __fadd_rn(acc, __fmul_rn(st.a[e][j], wx[j]));
+    beta[e] = keep ? acc : beta[e];
+    store_if(dst + e * nl, beta[e], in_range && st.own[e]);
+  }
+}
+
+template <int K>
+__global__ void __launch_bounds__(SPT_THREADS)
+fb_bwd_spt_kernel(const int32_t* __restrict__ steps_next, const int32_t* __restrict__ lens,
+                    const float* __restrict__ cs_next, const float* __restrict__ beta0,
+                    const float* __restrict__ A, const float* __restrict__ B,
+                    float* __restrict__ betas, int Tp, int NL, int S, int T) {
+  static_assert(LOOKAHEAD % SPT_KP == 0, "a group's threads divide for its steps");
+  __shared__ float s_A[K * K];
+  __shared__ float s_B[K * MAX_S];
+  load_tables<K>(s_A, s_B, A, B, S);
+  __syncthreads();
+  int g, n, ln;
+  spt_coords(NL, g, n, ln);
+  const SptStates<K, false> st(s_A, s_B, S, g * SPT_SPT);
+  const bool in_range = n < NL;
+  const size_t nl = (size_t)NL;
+  float* out = betas + (size_t)st.kc[0] * nl + n;  // state k0's row, step 0
+  float beta[SPT_SPT];
+#pragma unroll
+  for (int e = 0; e < SPT_SPT; ++e) beta[e] = st.own[e] ? beta0[(size_t)st.kc[e] * nl + ln] : 0.0f;
+  const int len = lens[ln];
+  const int32_t* p = steps_next + ln;
+  const float* c = cs_next + ln;
+  // This thread's steps of the group starting at g0: Tp - 1 - (g0 + g SPT_DIV + e).
+  const auto c_at = [&](int g0, float (&cm)[SPT_DIV]) {
+#pragma unroll
+    for (int e = 0; e < SPT_DIV; ++e) {
+      const int t = Tp - 1 - (g0 + g * SPT_DIV + e);
+      cm[e] = (t >= 0 && t < Tp) ? __ldg(c + (size_t)t * nl) : 1.0f;
+    }
+  };
+  int q[LOOKAHEAD], qn[LOOKAHEAD];
+  float cm[SPT_DIV], cmn[SPT_DIV], bq[LOOKAHEAD][SPT_SPT];
+  load_ints(p, nl, Tp - 1, -1, Tp, q);
+  c_at(0, cm);
+  int g0 = 0;
+  // Whole groups with no test of t: one straight run of LOOKAHEAD steps.
+  for (; g0 + LOOKAHEAD <= Tp; g0 += LOOKAHEAD) {
+    load_ints(p, nl, Tp - 1 - (g0 + LOOKAHEAD), -1, Tp, qn);
+    c_at(g0 + LOOKAHEAD, cmn);
+    spt_scales(st, S, q, cm, bq);
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) {
+      const int t = Tp - 1 - (g0 + r);
+      bwd_spt_step<K>(st, bq[r], t <= T - 2 && t + 1 < len, beta, out + (size_t)t * K * nl,
+                        nl, in_range);
+    }
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) q[r] = qn[r];
+#pragma unroll
+    for (int e = 0; e < SPT_DIV; ++e) cm[e] = cmn[e];
+  }
+  spt_scales(st, S, q, cm, bq);
+#pragma unroll
+  for (int r = 0; r < LOOKAHEAD; ++r) {
+    const int t = Tp - 1 - (g0 + r);
+    if (t >= 0)
+      bwd_spt_step<K>(st, bq[r], t <= T - 2 && t + 1 < len, beta, out + (size_t)t * K * nl,
+                        nl, in_range);
+  }
+}
+"""
+
+# The first state-split chains with their stores staged: blocks of 256
+# threads (32 lanes) keep LOOKAHEAD steps' values in shared memory and write
+# them as whole 128-byte rows between two barriers.
+STAGE_KERNELS = r"""
+// One float a thread, the group's K values (one state a thread).
+template <int K>
+__device__ __forceinline__ void one_gather(float x, float (&all)[K]) {
+#pragma unroll
+  for (int j = 0; j < K; ++j) all[j] = __shfl_sync(0xffffffffu, x, j, SPLIT_KP);
+}
+
+template <int K>
+__global__ void __launch_bounds__(256)
+fb_fwd_stage_kernel(const int32_t* __restrict__ steps, const int32_t* __restrict__ lens,
+                    const float* __restrict__ a0, const float* __restrict__ A,
+                    const float* __restrict__ B, float* __restrict__ alphas, int Tp, int NL,
+                    int S) {
+  __shared__ float s_A[K * K];
+  __shared__ float s_B[K * MAX_S];
+  __shared__ float s_st[LOOKAHEAD][K][32];
+  load_tables<K>(s_A, s_B, A, B, S);
+  __syncthreads();
+  int k, n, ln;
+  split_coords(NL, k, n, ln);
+  const bool own = k < K;
+  const int kc = min(k, K - 1), lb = threadIdx.x / SPLIT_KP;
+  const size_t nl = (size_t)NL;
+  float a_col[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) a_col[j] = own ? s_A[j * K + kc] : 0.0f;
+  const float* b_row = s_B + kc * S;
+  float v = own ? a0[(size_t)kc * nl + ln] : 0.0f;
+  if (own && n < NL) alphas[(size_t)kc * nl + n] = v;
+  const int len = lens[ln];
+  const int32_t* p = steps + ln;
+  int q[LOOKAHEAD], qn[LOOKAHEAD];
+  load_ints(p, nl, 1, 1, Tp, q);
+  for (int t0 = 1; t0 < Tp; t0 += LOOKAHEAD) {
+    load_ints(p, nl, t0 + LOOKAHEAD, 1, Tp, qn);
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) {
+      const int t = t0 + r;
+      if (t < Tp) {
+        float x[K];
+        one_gather<K>(v, x);
+        const float inv = __fdiv_rn(1.0f, seq_sum<K>(x));
+        float acc = __fmul_rn(x[0], a_col[0]);
+#pragma unroll
+        for (int j = 1; j < K; ++j) acc = __fadd_rn(acc, __fmul_rn(x[j], a_col[j]));
+        const int o = min(max(q[r], 0), S - 1);
+        const float nv = __fmul_rn(__fmul_rn(acc, b_row[o]), inv);
+        v = t < len ? nv : v;
+        if (own) s_st[r][kc][lb] = v;
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < LOOKAHEAD * K * 32; i += 256) {
+      const int r = i / (K * 32), kk = (i / 32) % K, m = blockIdx.x * 32 + i % 32;
+      if (t0 + r < Tp && m < NL) alphas[((size_t)(t0 + r) * K + kk) * nl + m] = s_st[r][kk][i % 32];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) q[r] = qn[r];
+  }
+}
+
+template <int K>
+__global__ void __launch_bounds__(256)
+fb_bwd_stage_kernel(const int32_t* __restrict__ steps_next, const int32_t* __restrict__ lens,
+                    const float* __restrict__ cs_next, const float* __restrict__ beta0,
+                    const float* __restrict__ A, const float* __restrict__ B,
+                    float* __restrict__ betas, int Tp, int NL, int S, int T) {
+  __shared__ float s_A[K * K];
+  __shared__ float s_B[K * MAX_S];
+  __shared__ float s_st[LOOKAHEAD][K][32];
+  load_tables<K>(s_A, s_B, A, B, S);
+  __syncthreads();
+  int k, n, ln;
+  split_coords(NL, k, n, ln);
+  const bool own = k < K;
+  const int kc = min(k, K - 1), lb = threadIdx.x / SPLIT_KP;
+  const size_t nl = (size_t)NL;
+  float a_row[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) a_row[j] = own ? s_A[kc * K + j] : 0.0f;
+  const float* b_row = s_B + kc * S;
+  float beta = own ? beta0[(size_t)kc * nl + ln] : 0.0f;
+  const int len = lens[ln];
+  const int32_t* p = steps_next + ln;
+  const float* c = cs_next + ln;
+  int q[LOOKAHEAD], qn[LOOKAHEAD];
+  float cq[LOOKAHEAD], cqn[LOOKAHEAD];
+  load_ints(p, nl, Tp - 1, -1, Tp, q);
+  load_floats(c, nl, Tp - 1, -1, Tp, cq);
+  for (int k0 = 0; k0 < Tp; k0 += LOOKAHEAD) {
+    load_ints(p, nl, Tp - 1 - (k0 + LOOKAHEAD), -1, Tp, qn);
+    load_floats(c, nl, Tp - 1 - (k0 + LOOKAHEAD), -1, Tp, cqn);
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) {
+      const int t = Tp - 1 - (k0 + r);
+      if (t >= 0) {
+        const int o = min(max(q[r], 0), S - 1);
+        const float bi = __fmul_rn(b_row[o], __fdiv_rn(1.0f, cq[r]));
+        float w[K];
+        one_gather<K>(__fmul_rn(bi, beta), w);
+        float acc = __fmul_rn(a_row[0], w[0]);
+#pragma unroll
+        for (int j = 1; j < K; ++j) acc = __fadd_rn(acc, __fmul_rn(a_row[j], w[j]));
+        beta = (t <= T - 2 && t + 1 < len) ? acc : beta;
+        if (own) s_st[r][kc][lb] = beta;
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < LOOKAHEAD * K * 32; i += 256) {
+      const int r = i / (K * 32), kk = (i / 32) % K, m = blockIdx.x * 32 + i % 32;
+      const int t = Tp - 1 - (k0 + r);
+      if (t >= 0 && m < NL) betas[((size_t)t * K + kk) * nl + m] = s_st[r][kk][i % 32];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < LOOKAHEAD; ++r) {
+      q[r] = qn[r];
+      cq[r] = cqn[r];
+    }
+  }
+}
+"""
+_B20 = "// ---------------------------------------------------------------------------\n// B20:"
+_FWD_LAUNCH = ("  fb_fwd_split_kernel<K><<<blocks_for(NL * SPLIT_KP, SPLIT_THREADS), SPLIT_THREADS, "
+               "0, st>>>(")
+_BWD_LAUNCH = _FWD_LAUNCH.replace("fb_fwd_", "fb_bwd_")
+_STORE_IF = '"r"((unsigned)on)'
+_THREADS = "#define SPLIT_THREADS 128"
+
+
+def _spt_variant(spt: int) -> list:
+    """The replacements that build SPT_KERNELS with ``spt`` states a thread
+    and launch them for K >= 5."""
+    body = SPT_KERNELS.replace("#define SPT_SPT 2 ", f"#define SPT_SPT {spt} ")
+    launch = "  fb_{}_spt_kernel<K><<<blocks_for(NL * SPT_KP, SPT_THREADS), SPT_THREADS, 0, st>>>("
+    return [(_B20, body + "\n" + _B20), (_FWD_LAUNCH, launch.format("fwd")),
+            (_BWD_LAUNCH, launch.format("bwd"))]
+
+
+# The one-thread chain at K >= 5: the C entries' K >= 5 cases sent to the
+# K <= 4 launchers' template.
+_ONE_THREAD = [(f"case {k}: return CALL_{d}X({k});", f"case {k}: return CALL_{d}({k});")
+               for d in "FB" for k in range(5, 9)]
+
 # name -> (source stem, replacements)
 VARIANTS = {
     "dense/base": ("fb_dense", []),
@@ -47,6 +698,31 @@ VARIANTS = {
     "dense/lookahead16": ("fb_dense", [("#define LOOKAHEAD 8", "#define LOOKAHEAD 16")]),
     "dense/frcp": ("fb_dense", [("__fdiv_rn(1.0f, seq_sum<K>(v))", "__frcp_rn(seq_sum<K>(v))"),
                                 ("__fdiv_rn(1.0f, c)", "__frcp_rn(c)")]),
+    "split/base": ("fb_dense", []),
+    "split/threads32": ("fb_dense", [(_THREADS, "#define SPLIT_THREADS 32")]),
+    "split/threads64": ("fb_dense", [(_THREADS, "#define SPLIT_THREADS 64")]),
+    "split/threads256": ("fb_dense", [(_THREADS, "#define SPLIT_THREADS 256")]),
+    "split/spt2": ("fb_dense", _spt_variant(2)),
+    "split/spt4": ("fb_dense", _spt_variant(4)),
+    "split/frcp": ("fb_dense", [("__fdiv_rn(1.0f, sum)", "__frcp_rn(sum)"),
+                                ("__fdiv_rn(1.0f, cm)", "__frcp_rn(cm)")]),
+    "split/branch_store": ("fb_dense", [(
+        '  asm volatile("{\\n\\t.reg .pred q;\\n\\tsetp.ne.u32 q, %2, 0;\\n\\t@q st.global.f32 [%0], '
+        '%1;\\n\\t}"\n               ::"l"(p), "f"(v), "r"((unsigned)on));', "  if (on) *p = v;")]),
+    "split/simple": ("fb_dense", [
+        (_B20, SIMPLE_KERNELS + "\n" + _B20),
+        (_FWD_LAUNCH, _FWD_LAUNCH.replace("split", "simple")),
+        (_BWD_LAUNCH, _BWD_LAUNCH.replace("split", "simple"))]),
+    "split/warp": ("fb_dense", [
+        (_B20, WARP_KERNELS + "\n" + _B20),
+        (_FWD_LAUNCH, "  fb_fwd_warp_kernel<K><<<blocks_for(NL, 32), K * 32, 0, st>>>("),
+        (_BWD_LAUNCH, "  fb_bwd_warp_kernel<K><<<blocks_for(NL, 32), K * 32, 0, st>>>(")]),
+    "split/stage": ("fb_dense", [
+        (_B20, STAGE_KERNELS + "\n" + _B20),
+        (_FWD_LAUNCH, "  fb_fwd_stage_kernel<K><<<blocks_for(NL * SPLIT_KP, 256), 256, 0, st>>>("),
+        (_BWD_LAUNCH, "  fb_bwd_stage_kernel<K><<<blocks_for(NL * SPLIT_KP, 256), 256, 0, st>>>(")]),
+    "split/one_thread": ("fb_dense", _ONE_THREAD),
+    "split/diag_nostore": ("fb_dense", [(_STORE_IF, '"r"(0u)')]),
     "stats/base": ("fb_onehot", []),
     "stats/lanes128": ("fb_onehot", [("#define STATS_LANES 32", "#define STATS_LANES 128")]),
     "stats/ahead4": ("fb_onehot", [("#define STATS_AHEAD 8", "#define STATS_AHEAD 4")]),
@@ -63,15 +739,24 @@ _SPB_CHECK = ("(SPB != 1 && SPB != 4)", "(SPB < 1)")  # lanes128 runs one segmen
 SEGMENTS = (128, 256, 512, 1024)
 # The kernels whose registers and spills each variant build prints.
 PTXAS_OF = {"dense": ("_Z17fb_fwd_sub_kernelILi2E", "_Z17fb_bwd_sub_kernelILi2E"),
+            "split": ("_Z19fb_fwd_split_kernel", "_Z19fb_bwd_split_kernel", "_Z18fb_fwd_warp",
+                      "_Z17fb_fwd_spt_kernel", "_Z17fb_bwd_spt_kernel",
+                      "_Z20fb_fwd_simple", "_Z20fb_bwd_simple",
+                      "_Z18fb_bwd_warp", "_Z19fb_fwd_stage", "_Z19fb_bwd_stage",
+                      "_Z13fb_fwd_kernelILi8E", "_Z13fb_bwd_kernelILi8ELb0E"),
             "stats": ("_Z24oh_seq_stats_part_kernel",)}
+SPLIT_K = (5, 8)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
-def build_all() -> dict:
-    """variant -> the loaded library (all nvcc runs started together)."""
+def build_all(groups) -> dict:
+    """variant -> the loaded library, for the variants of ``groups`` (all
+    nvcc runs started together)."""
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, (stem, reps) in VARIANTS.items():
+        if name.split("/")[0] not in groups:
+            continue
         src = (_kernels._CSRC / f"{stem}.cu").read_text()
         for a, b in reps + ([_SPB_CHECK] if stem == "fb_onehot" else []):
             if a not in src:
@@ -158,6 +843,54 @@ def dense_inputs(rng, dev) -> dict:
             "post16": (seq.steps2, lens, v(), v(), 16), "post8": (seq.steps2, lens, v(), v(), 8)}
 
 
+def split_inputs(rng, dev) -> dict:
+    """(K, geometry) -> (steps2, lens2, a0, beta0, A, B) for a seeded random
+    K-state model over 4 symbols: 1,024 ragged chunks of 65,536 steps and
+    8,192 lanes of 8,192 steps."""
+    prep = prepare_chunked(4, *ragged(rng, 4, 1024, 65536, dev), t_tile=512, onehot=False)
+    n = 8192
+    obs = torch.from_numpy(rng.integers(0, 4, size=n * n).astype(np.uint8)).to(dev)
+    seq = prepare_seq(4, obs, n * n - 3000, lane_T=n, onehot=False)
+    out = {}
+    for K in SPLIT_K:
+        A = torch.from_numpy(rng.dirichlet(np.ones(K), size=K).astype(np.float32)).to(dev)
+        B = torch.from_numpy(rng.dirichlet(np.ones(4), size=K).astype(np.float32)).to(dev)
+        for geo, (steps, lens) in (("train", (prep.steps2, prep.lens2)),
+                                   ("post", (seq.steps2, seq.lane_lens[None, :].contiguous()))):
+            NL = steps.shape[1]
+            v = lambda: torch.from_numpy(  # noqa: E731
+                rng.random((K, NL)).astype(np.float32) + 0.01).to(dev)
+            out[(K, geo)] = (steps, lens, v(), v(), A, B)
+    return out
+
+
+def run_split(name, lib, inputs, ref) -> dict:
+    fwd, bwd = c_fn(lib, "fb_fwd", 7, 5), c_fn(lib, "fb_bwd", 8, 6)
+    row = {"variant": name}
+    for (K, geo), (steps, lens, a0, b0, A, B) in inputs.items():
+        Tp, NL = steps.shape
+        dev = steps.device
+        al, dummy = torch.empty((Tp, K, NL), device=dev), torch.empty((1,), device=dev)
+        f = lambda: fwd([steps, lens, a0, A, B, al, dummy], [Tp, NL, K, 4, 1])  # noqa: E731
+        row[f"fwd_k{K}_{geo}_ms"] = time_ms(f)
+        f()
+        _, sn, csn = FP.backward_inputs(steps, al)
+        be = torch.empty_like(al)
+        g = lambda: bwd([sn, lens, csn, b0, A, B, be, dummy], [Tp, NL, K, 4, Tp, 1])  # noqa: E731
+        row[f"bwd_k{K}_{geo}_ms"] = time_ms(g)
+        g()
+        key = (K, geo)
+        if name.startswith("split/diag"):
+            pass
+        elif key not in ref:
+            ref[key] = (al, be)
+        else:
+            row[f"k{K}_{geo}_bit_equal"] = bool(torch.equal(al, ref[key][0])
+                                                and torch.equal(be, ref[key][1]))
+        del sn, csn
+    return row
+
+
 def stats_inputs(rng, dev) -> dict:
     """shape -> B5's operands (the flagship) on B4's streams: ragged chunks
     of 65,536 steps (1,024, and the genome's 1,390) with zero enters, and
@@ -231,26 +964,42 @@ def run_stats(name, lib, inputs, want) -> dict:
     return row
 
 
-def main() -> int:
+GROUPS = ("dense", "split", "stats")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--group", action="append", choices=GROUPS,
+                    help="run only these variant groups (repeatable; default all)")
+    groups = tuple(ap.parse_args(argv).group or GROUPS)
     if not torch.cuda.is_available():
         print("kernel_variants: CUDA is not available", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
     print(card_line(), flush=True)
-    libs = build_all()
+    libs = build_all(groups)
     rng = np.random.default_rng(0)
-    A, B, _ = FP.tables(presets.two_state_cpg(device=dev))
-    inputs, ref = dense_inputs(rng, dev), {}
-    for name, lib in libs.items():
-        if name.startswith("dense/"):
-            print(json.dumps(run_dense(name, lib, inputs, A, B, ref)), flush=True)
-    del inputs, ref
-    torch.cuda.empty_cache()
-    inputs = stats_inputs(rng, dev)
-    want = {k: FB.oh_seq_stats_plain(*sa) for k, sa in inputs.items()}
-    for name, lib in libs.items():
-        if name.startswith("stats/"):
-            print(json.dumps(run_stats(name, lib, inputs, want)), flush=True)
+    if "dense" in groups:
+        A, B, _ = FP.tables(presets.two_state_cpg(device=dev))
+        inputs, ref = dense_inputs(rng, dev), {}
+        for name, lib in libs.items():
+            if name.startswith("dense/"):
+                print(json.dumps(run_dense(name, lib, inputs, A, B, ref)), flush=True)
+        del inputs, ref
+        torch.cuda.empty_cache()
+    if "split" in groups:
+        inputs, ref = split_inputs(rng, dev), {}
+        for name, lib in libs.items():
+            if name.startswith("split/"):
+                print(json.dumps(run_split(name, lib, inputs, ref)), flush=True)
+        del inputs, ref
+        torch.cuda.empty_cache()
+    if "stats" in groups:
+        inputs = stats_inputs(rng, dev)
+        want = {k: FB.oh_seq_stats_plain(*sa) for k, sa in inputs.items()}
+        for name, lib in libs.items():
+            if name.startswith("stats/"):
+                print(json.dumps(run_stats(name, lib, inputs, want)), flush=True)
     return 0
 
 

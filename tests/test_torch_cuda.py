@@ -1361,9 +1361,9 @@ def test_fb_bwd_sublanes_bit_equal(cuda_device, monkeypatch, K, NL, T, sub):
 
 @pytest.mark.parametrize("K", [5, 8])
 def test_fb_bwd_wide_and_conf_stay_one_chain(cuda_device, monkeypatch, K):
-    """B18 at K >= 5 and B19 at every K keep one thread a chain: with the
-    sub-lane length lowered they still equal their (sequential) plain
-    versions bit for bit."""
+    """B18 at K >= 5 stays one chain, state-split, and B19 at every K one
+    thread a chain: with the sub-lane length lowered they still equal their
+    (sequential) plain versions bit for bit."""
     from cpgisland_tpu_torch.ops import fb_pallas as FP
 
     monkeypatch.setattr(FP, "BWD_SUBLANE_T", 300)
@@ -1425,7 +1425,7 @@ def test_fb_fwd_sublanes_bit_equal(cuda_device, monkeypatch, K, NL, T, sub):
 
 @pytest.mark.parametrize("K", [5, 8])
 def test_fb_fwd_wide_stays_one_chain(cuda_device, monkeypatch, K):
-    """B16 at K >= 5 keeps one thread a chain: with the sub-lane length
+    """B16 at K >= 5 stays one chain, state-split: with the sub-lane length
     lowered it still equals the sequential plain chain bit for bit."""
     from cpgisland_tpu_torch.ops import fb_pallas as FP
 
@@ -1434,6 +1434,72 @@ def test_fb_fwd_wide_stays_one_chain(cuda_device, monkeypatch, K):
     args = _dense_fwd_operands(np.random.default_rng(K), K, 70, 4099, cuda_device)
     assert FP.fwd_sublanes(4099, K) == 1
     assert torch.equal(FP.fb_fwd(*args), FP._fwd_chain_plain(*args))
+
+
+def _split_operands(rng, K, S, NL, T, device):
+    """A seeded K-state model over S symbols and ragged lanes of T steps (an
+    empty lane, a one-step lane, a short last lane, PAD tails) for the
+    state-split chains."""
+    A = torch.from_numpy(rng.dirichlet(np.ones(K), size=K).astype(np.float32)).to(device)
+    B = torch.from_numpy(rng.dirichlet(np.ones(S), size=K).astype(np.float32)).to(device)
+    steps = rng.integers(0, S, size=(T, NL)).astype(np.int32)
+    lens = np.full((1, NL), T, np.int32)
+    lens[0, -1] = max(1, T // 3)
+    if NL > 3:
+        lens[0, 1:3] = [0, 1]
+        lens[0, 3:-1] = rng.integers(1, T + 1, size=NL - 4)
+    elif NL == 3:
+        lens[0, :2] = [0, 1]
+    steps[np.arange(T)[:, None] >= lens] = S
+    a0 = torch.from_numpy((rng.random((K, NL)) + 0.1).astype(np.float32)).to(device)
+    beta0 = torch.from_numpy((rng.random((K, NL)) + 0.5).astype(np.float32)).to(device)
+    return tuple(torch.from_numpy(x).to(device) for x in (steps, lens)) + (a0, beta0, A, B)
+
+
+@pytest.mark.parametrize("S", [4, 16])
+@pytest.mark.parametrize("T", [9, 4099])
+@pytest.mark.parametrize("NL", [1, 3, 33, 1024])
+@pytest.mark.parametrize("K", [5, 6, 7, 8])
+def test_fb_state_split_chains_bit_equal(cuda_device, K, NL, T, S):
+    """B16 and B18 at K >= 5, one chain split one thread a state (4 lanes a
+    warp, so NL = 1, 3 and 33 leave a warp part-empty): bit-equal to the
+    sequential plain chains, empty, one-step, ragged and PAD-tailed lanes
+    included, B18 with its chunk length at the lane length and below it;
+    one launch a call."""
+    from cpgisland_tpu_torch.ops import fb_pallas as FP
+
+    rng = np.random.default_rng(K * 1000 + NL * 10 + T + S)
+    steps2, lens2, a0, beta0, A, B = _split_operands(rng, K, S, NL, T, cuda_device)
+    assert FP.fwd_sublanes(T, K) == FP.bwd_sublanes(T, K) == 1
+    before = {k: _kernels.launches[k] for k in ("fb_fwd", "fb_bwd")}
+    alphas = FP.fb_fwd(steps2, lens2, a0, A, B)
+    torch.cuda.synchronize()
+    assert _kernels.launches["fb_fwd"] == before["fb_fwd"] + 1
+    assert torch.equal(alphas, FP._fwd_chain_plain(steps2, lens2, a0, A, B))
+    assert bool(torch.isfinite(alphas).all())
+    _, steps_next, cs_next = FP.backward_inputs(steps2, alphas)
+    args = (steps_next, lens2, cs_next, beta0, A, B)
+    for chunk in (T, T - 3):
+        got = FP.fb_bwd(*args, chunk)
+        torch.cuda.synchronize()
+        assert torch.equal(got, FP._bwd_chain_plain(*args, chunk))
+        assert bool(torch.isfinite(got).all())
+    assert _kernels.launches["fb_bwd"] == before["fb_bwd"] + 2
+
+
+@pytest.mark.parametrize("K", [5, 8])
+def test_fb_state_split_chains_full_lanes(cuda_device, K):
+    """The state-split chains at the training batch's 1,024 ragged lanes of
+    65,536 steps: bit-equal to the sequential plain chains."""
+    from cpgisland_tpu_torch.ops import fb_pallas as FP
+
+    rng = np.random.default_rng(K)
+    steps2, lens2, a0, beta0, A, B = _split_operands(rng, K, 4, 1024, 65536, cuda_device)
+    alphas = FP.fb_fwd(steps2, lens2, a0, A, B)
+    assert torch.equal(alphas, FP._fwd_chain_plain(steps2, lens2, a0, A, B))
+    _, steps_next, cs_next = FP.backward_inputs(steps2, alphas)
+    args = (steps_next, lens2, cs_next, beta0, A, B, 65536)
+    assert torch.equal(FP.fb_bwd(*args), FP._bwd_chain_plain(*args))
 
 
 @pytest.mark.parametrize("seg", [256, 2048])
