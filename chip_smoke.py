@@ -12,8 +12,9 @@ JSON line each:
 1. card: name and power limit, kernel build time, and (its own line) the
    ptxas registers and spills of the kernels redesigned (B4, B24, B17, B7
    / B21, B18 and B16 with their sub-lane and state-split kernels, B5's
-   part kernel, the scoring kernels, and B9 / B22 and B10 / B23, one chain
-   and in sub-lanes, with B11 beside them);
+   part kernel, the scoring kernels, B9 / B22 and B10 / B23, one chain
+   and in sub-lanes, with B11 beside them, and the Viterbi backpointer
+   chains B2 / B6 / B27 and B14 with their streams read ahead);
 2. kernels: B1-B3 at full size (bk=4096, nb=16384: 64 Mi steps, PAD runs
    and record resets in the pair stream), B4-B5 at NL=1024 lanes x
    Tp=65,536 steps (ragged lengths, a short last lane, PAD tails), and B7
@@ -196,7 +197,11 @@ JSON line each:
    for (S, M) in (4, 2), (4, 5), (16, 2) — bit-equal to their plain
    versions and per member to B1 / B2 / B6 / B3, timed beside M x the
    single kernel; at S = 16 (288-row tables) B1, B6 and B3 against their
-   plain versions;
+   plain versions; then B27 (both arms, M = 2 and 3), B2 and B6 at the
+   largest mixed-model flush's geometry (its 8 scaffolds padded as phase
+   35 pads them, one flat reset stream, the operands its decode hands
+   B27), each bit-equal to its plain version there and timed, the shape
+   printed;
 35. the mixed-model flush unit ``pipeline._decode_small_batch_stacked``
    over the 256 scaffolds in decode_file's flushes of 8, owners
    round-robin over M = 2 and 3 (the flagship plus random partition=2
@@ -299,7 +304,8 @@ REDESIGNED = ("oh_fwdbwd_kernel", "oh_fwdbwd_stacked_kernel", "fb_prod_kernel",
               "fb_fwd_sub_kernel", "fb_fwd_split_kernel", "fb_bwd_split_kernel",
               "oh_seq_stats_part_kernel", "oh_loglik_kernel", "oh_loglik_sub_kernel",
               "fb_loglik_kernel", "fb_loglik_sub_kernel",
-              "oh_fwd_kernel", "oh_fwd_sub_kernel", "oh_bwd_kernel", "oh_bwd_sub_kernel")
+              "oh_fwd_kernel", "oh_fwd_sub_kernel", "oh_bwd_kernel", "oh_bwd_sub_kernel",
+              "oh_backpointers_kernel", "dense_backpointers_kernel")
 H100_SMS, SMEM_PER_SM, SMEM_PER_BLOCK_RESERVED = 132, 228 * 1024, 1024
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -3513,15 +3519,17 @@ def _decode_stream(rng: np.random.Generator, S: int, dev):
     return torch.from_numpy(np.ascontiguousarray(steps)).to(dev), resets
 
 
-def stacked_decode_kernel_phase(rng: np.random.Generator, gen: torch.Generator, dev) -> dict:
+def stacked_decode_kernel_phase(rng: np.random.Generator, gen: torch.Generator, fa: str,
+                                dev) -> dict:
     """B26, B27 (both arms) and B28 at the B1-B3 geometry for each of
     STACK_CONFIGS (the flagship or dinuc_cpg plus scrambled random members):
     bit-equal to their plain versions (one full-size run each, which also
     gives plain_ms) and per member to B1 / B2 / B6 / B3 on
     that member's operands, timed beside M x the single kernel's time and
     the byte bound.  At S = 16 (288-row tables, the repair) B1, B6 and B3
-    are also held against their plain versions.  Returns the table rows
-    (S = 4, M = 2) by kernel name."""
+    are also held against their plain versions.  Then B27, B2 and B6 at
+    the flush's geometry (:func:`flush_geometry_timings`).  Returns the
+    table rows (S = 4, M = 2) by kernel name."""
     results = {}
     n = BK * NB
     for S in (4, 16):
@@ -3629,7 +3637,59 @@ def stacked_decode_kernel_phase(rng: np.random.Generator, gen: torch.Generator, 
             torch.cuda.empty_cache()
         del steps, resets
         torch.cuda.empty_cache()
+    flush_geometry_timings(fa, dev)
     return results
+
+
+def flush_geometry_timings(fa: str, dev) -> None:
+    """B27 (both arms) at M = 2 and 3, B2 and B6 (the flagship member) on
+    the operands the largest of phase 35's flushes hands B27: its
+    FLUSH_RECORDS scaffolds padded by ``pipeline._pad_small_batch`` and
+    decoded by ``decode_batch_flat_stacked`` (one flat reset stream of
+    bk = 4096 steps a lane), its members the flagship plus random
+    partition=2 ones from a generator of their own.  Each kernel is held
+    bit for bit against its plain version on those operands and timed
+    (CUDA events, median of 10); one line with the shape."""
+    recs = [(name, s) for name, s in codec.iter_fasta_records(fa) if name != "chr1"]
+    flushes = [recs[i : i + FLUSH_RECORDS] for i in range(0, len(recs), FLUSH_RECORDS)]
+    batch = max(flushes, key=lambda b: pipeline._pad_small_batch(b)[0].size)
+    rows, lengths = pipeline._pad_small_batch(batch)
+    rows_d, len_d = torch.from_numpy(rows).to(dev), torch.from_numpy(lengths).to(dev)
+    members = decode_members(presets.durbin_cpg8(device=dev), torch.Generator().manual_seed(7),
+                             dev, max(FLUSH_M))
+    _, ((pair2, v_red, tabs), _) = _captured(
+        lambda: OH.decode_batch_flat_stacked(members, rows_d, len_d), OH,
+        "oh_backpointers_stacked")
+    bk, nb = pair2.shape
+    row = {"phase": "decode_flush_geometry", "records": len(batch), "padded": list(rows.shape),
+           "bk": bk, "nb": nb, "ms": {}, "plain_ms": {}, "bit_equal": {}}
+    v0, t0 = v_red[0].contiguous(), tabs[0].contiguous()
+    want, row["plain_ms"]["oh_backpointers_scores"] = timed_once(
+        lambda: OH.oh_backpointers_scores_plain(pair2, v0, t0))
+    row["bit_equal"]["oh_backpointers"] = all(
+        torch.equal(a, b) for a, b in zip(OH.oh_backpointers(pair2, v0, t0), want[:3]))
+    row["bit_equal"]["oh_backpointers_scores"] = all(
+        torch.equal(a, b) for a, b in zip(OH.oh_backpointers_scores(pair2, v0, t0), want))
+    row["ms"]["oh_backpointers"] = time_ms(lambda: OH.oh_backpointers(pair2, v0, t0), runs=10)
+    row["ms"]["oh_backpointers_scores"] = time_ms(
+        lambda: OH.oh_backpointers_scores(pair2, v0, t0), runs=10)
+    for M in FLUSH_M:
+        v, t = v_red[:M].contiguous(), tabs[:M].contiguous()
+        want, row["plain_ms"][f"oh_backpointers_stacked_scores_m{M}"] = timed_once(
+            lambda: OH.oh_backpointers_stacked_scores_plain(pair2, v, t))
+        row["bit_equal"][f"oh_backpointers_stacked_m{M}"] = all(
+            torch.equal(a, b) for a, b in zip(OH.oh_backpointers_stacked(pair2, v, t), want[:3]))
+        row["bit_equal"][f"oh_backpointers_stacked_scores_m{M}"] = all(
+            torch.equal(a, b)
+            for a, b in zip(OH.oh_backpointers_stacked_scores(pair2, v, t), want))
+        row["ms"][f"oh_backpointers_stacked_m{M}"] = time_ms(
+            lambda: OH.oh_backpointers_stacked(pair2, v, t), runs=10)
+        row["ms"][f"oh_backpointers_stacked_scores_m{M}"] = time_ms(
+            lambda: OH.oh_backpointers_stacked_scores(pair2, v, t), runs=10)
+    emit(row)
+    if not all(row["bit_equal"].values()):
+        raise SystemExit(f"chip_smoke: B2 / B6 / B27 at the flush's geometry disagree with their "
+                         f"plain versions: {row['bit_equal']}")
 
 
 
@@ -3966,7 +4026,7 @@ def main(argv=None) -> int:
             for k, n in counts.items():
                 launches[k] = launches.get(k, 0) + n
         # The stacked decode: its kernels, then the mixed-model flush unit.
-        results |= stacked_decode_kernel_phase(rng, gen, dev)
+        results |= stacked_decode_kernel_phase(rng, gen, fa, dev)
         for k, n in stacked_flush_phase(params, fa, gen, dev).items():
             launches[k] = launches.get(k, 0) + n
         # The pair-composition bench: its kernels, then its entry point.

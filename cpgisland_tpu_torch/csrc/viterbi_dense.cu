@@ -26,9 +26,15 @@
 //
 // What bounds them: each lane is a dependent chain of bk steps.  At the
 // default block of 4096 steps a 64 Mi-symbol record has 16384 lanes, about
-// 124 threads per SM, so the kernels are latency-bound; at K = 8 the
-// products pass does about 1000 adds and maxes per step and is bound by
-// operations, at K = 2 all three are bound by bytes.
+// 124 threads per SM: too few warps to hide a device-memory load behind
+// other warps' work.  B14 therefore reads its step stream STEP_AHEAD steps
+// ahead of its chain (the next group's loads fly while the current group's
+// steps run) and, at K <= 2, the table rows of 8 steps before those steps
+// run; on the card it then runs at K = 2 at about 1.8x its byte bound (the
+// same chain with no loads at 1.25x) and at K = 8, bound by the issue of
+// its 64 candidates a step, within 10% of the chain with no loads
+// (PERF.md).  B13 (about 1000 adds and maxes a step at K = 8: bound by
+// operations) and B15 keep one load a step.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -37,6 +43,8 @@
 #define THREADS 128
 #define MAX_K 8
 #define MAX_S 255
+// Steps of the symbol stream B14 holds in registers ahead of its chain.
+#define STEP_AHEAD 16
 
 // Shared step table: row s holds M_s[m][j] at s * (K*K + 1) + m*K + j.
 template <int K>
@@ -105,17 +113,81 @@ dense_products_kernel(const int32_t* __restrict__ steps, const float* __restrict
     for (int m = 0; m < K; ++m) out[(size_t)(i * K + m) * nb + b] = C[i][m];
 }
 
+// q[r] = the symbol at step k0 + r of a lane's stream (column p), for the
+// steps below bk; no load is issued past the stream's last row.
+__device__ __forceinline__ void load_steps(const int32_t* __restrict__ p, int nb, int k0,
+                                           int bk, int (&q)[STEP_AHEAD]) {
+#pragma unroll
+  for (int r = 0; r < STEP_AHEAD; ++r) {
+    const int k = k0 + r;
+    q[r] = k < bk ? __ldg(p + (size_t)k * nb) : 0;
+  }
+}
+
+// TT steps of B14's chain from their symbols q[0..TT-1]: the TT table rows
+// are read first, so no step waits on a shared-memory lookup, then the steps
+// run in order (the first `left` of them: the rest lie past bk), each
+// storing its packed pointers at bp_t[i * nb].
+template <int K, int TT>
+__device__ __forceinline__ void dense_tile(const int* q, const float* __restrict__ s_M, int S,
+                                           float (&d)[K], uint32_t& E,
+                                           int32_t* __restrict__ bp_t, int nb, int left) {
+  float Mt[TT][K * K];
+#pragma unroll
+  for (int i = 0; i < TT; ++i) {
+    const float* Ms = s_M + min(q[i], S) * (K * K + 1);
+#pragma unroll
+    for (int mj = 0; mj < K * K; ++mj) Mt[i][mj] = Ms[mj];
+  }
+#pragma unroll
+  for (int i = 0; i < TT; ++i) {
+    if (i < left) {
+      const float* Ms = Mt[i];
+      float nd[K];
+      uint32_t word = 0, newE = 0;
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        float best = d[0] + Ms[j];
+        uint32_t arg = 0;
+#pragma unroll
+        for (int m = 1; m < K; ++m) {
+          const float c = d[m] + Ms[m * K + j];
+          if (c > best) {
+            best = c;
+            arg = m;
+          }
+        }
+        nd[j] = best;
+        word |= arg << (3 * j);
+        newE |= ((E >> (3 * arg)) & 7u) << (3 * j);
+      }
+#pragma unroll
+      for (int j = 0; j < K; ++j) d[j] = nd[j];
+      E = newE;
+      bp_t[(size_t)i * nb] = (int32_t)word;
+    }
+  }
+}
+
 // B14: replaces _backpointers_kernel.  The delta recursion from the true
 // entering vector v_enter [K, nb]; each step's K argmax pointers pack 3 bits
 // each into one int32 (bp[k, b]), and the exit -> entry table E (3 bits per
 // exit state) composes E'[j] = E[bp[j]].  Writes the exit deltas dexit
 // [K, nb] and the packed table ftab [nb].  Reads 4 B and writes 4 B per step.
+// The symbols are read STEP_AHEAD steps ahead: group g + 1's loads are issued
+// into qn before group g's steps run from q, so the chain no longer waits on
+// a load every step or two; at K <= 2 the table rows of 8 steps are read
+// before those steps run (at larger K a row is K*K floats: one step's), so
+// the chain's own compares and E composition set the pace.  bk is any
+// positive count: a group's steps past bk are neither loaded nor run, and
+// every step run stores its word.
 template <int K>
 __global__ void __launch_bounds__(THREADS)
 dense_backpointers_kernel(const int32_t* __restrict__ steps, const float* __restrict__ v_enter,
                           const float* __restrict__ logAT, const float* __restrict__ logB,
                           int32_t* __restrict__ bp, float* __restrict__ dexit,
                           int32_t* __restrict__ ftab, int bk, int nb, int S) {
+  constexpr int TT = K * K <= 4 ? 8 : 1;
   extern __shared__ float s_M[];
   load_step_table<K>(s_M, logAT, logB, S);
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
@@ -127,32 +199,17 @@ dense_backpointers_kernel(const int32_t* __restrict__ steps, const float* __rest
 #pragma unroll
   for (int j = 0; j < K; ++j) E |= (uint32_t)j << (3 * j);
   const int32_t* p = steps + b;
-#pragma unroll 2
-  for (int k = 0; k < bk; ++k) {
-    const int sym = min(__ldg(p + (size_t)k * nb), S);
-    const float* Ms = s_M + sym * (K * K + 1);
-    float nd[K];
-    uint32_t word = 0, newE = 0;
+  int q[STEP_AHEAD], qn[STEP_AHEAD];
+  load_steps(p, nb, 0, bk, q);
+  for (int k0 = 0; k0 < bk; k0 += STEP_AHEAD) {
+    load_steps(p, nb, k0 + STEP_AHEAD, bk, qn);
 #pragma unroll
-    for (int j = 0; j < K; ++j) {
-      float best = d[0] + Ms[j];
-      uint32_t arg = 0;
+    for (int h = 0; h < STEP_AHEAD; h += TT)
+      if (k0 + h < bk)
+        dense_tile<K, TT>(q + h, s_M, S, d, E, bp + (size_t)(k0 + h) * nb + b, nb,
+                          bk - (k0 + h));
 #pragma unroll
-      for (int m = 1; m < K; ++m) {
-        const float c = d[m] + Ms[m * K + j];
-        if (c > best) {
-          best = c;
-          arg = m;
-        }
-      }
-      nd[j] = best;
-      word |= arg << (3 * j);
-      newE |= ((E >> (3 * arg)) & 7u) << (3 * j);
-    }
-#pragma unroll
-    for (int j = 0; j < K; ++j) d[j] = nd[j];
-    E = newE;
-    bp[(size_t)k * nb + b] = (int32_t)word;
+    for (int r = 0; r < STEP_AHEAD; ++r) q[r] = qn[r];
   }
 #pragma unroll
   for (int m = 0; m < K; ++m) dexit[(size_t)m * nb + b] = d[m];

@@ -36,11 +36,18 @@
 //
 // What bounds them: each lane is a dependent chain of bk steps (add, max,
 // next step), and at the default block of 4096 steps a 64 Mi-symbol record
-// has only 16384 lanes, about 124 threads per SM.  Too few warps hide the
-// latency of the chain, so the kernels are latency-bound well above their
-// byte bound.  The design keeps each step's loads independent of the chain
-// (the pair stream is read ahead in groups of 8 steps) so several loads are
-// in flight per thread; retuning bk for more lanes is left to a later change.
+// has only 16384 lanes, about 124 threads per SM; a mixed-model flush (at
+// most 1,024 lanes a member) fills at most 24 of the 132 SMs.  B2 / B6 / B27
+// read their pair stream BP_AHEAD steps ahead of the chain (the next
+// group's loads are issued before the current group's steps run), so the
+// stream's latency hides behind the chain and the chain sets the pace:
+// about 17 instructions a step, nearly each waiting on the one before, some
+// 40 cycles a step for a warp alone on its scheduler.  On the card the pass
+// runs at about 2.4x its byte bound at 4096 x 16384, and at a flush's lanes
+// within 1.6x of the same chain with no loads at all (PERF.md).  Deeper
+// read-ahead, a shared-memory ring filled by cp.async, table rows read
+// before their steps and blocks of 64 threads measured no faster.  B1 and
+// B3 keep loading 8 steps at a time.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,6 +57,10 @@
 #define MAX_PAIRS (MAX_S * MAX_S + 2 * MAX_S)  // 288 rows: 4.6 KB of tab, 2.3 KB of ids
 #define THREADS 128
 #define ROW_TILE 8
+// Steps of the pair stream B2 / B6 / B27 hold in registers ahead of their
+// chain (a multiple of ROW_TILE): one group's loads fly while the previous
+// group's steps run.
+#define BP_AHEAD 16
 
 // B1: replaces cpgisland_tpu/ops/viterbi_onehot.py::_oh_products_kernel;
 // with M > 1 on the grid's y axis, B26 (_oh_products_stacked_kernel).
@@ -93,12 +104,28 @@ oh_products_kernel(const int32_t* __restrict__ pair2, const float* __restrict__ 
   o[3 * (size_t)nb + b] = c11;
 }
 
+// q[r] = the pair at step k0 + r of a lane's stream (column p), for the
+// steps below bk; no load is issued past the stream's last row.
+__device__ __forceinline__ void load_pairs(const int32_t* __restrict__ p, int nb, int k0,
+                                           int bk, int (&q)[BP_AHEAD]) {
+#pragma unroll
+  for (int r = 0; r < BP_AHEAD; ++r) {
+    const int k = k0 + r;
+    q[r] = k < bk ? __ldg(p + (size_t)k * nb) : 0;
+  }
+}
+
 // B2 and B6 share one chain body.  B2 replaces _oh_backpointers_kernel: the
 // reduced delta recursion from the true entering vector v_red [2, nb];
 // strict > keeps first-max tie-breaking.  Writes one int32 word per 8 steps
 // (bp0 | bp1 << 1 at bits 2r, 2r+1), the exit deltas dexit [2, nb] and the
 // exit -> entry composition bits ebits [nb].  Reads 4 B and writes 0.25 B
-// per step.
+// per step.  The pairs are read BP_AHEAD steps ahead: group g + 1's loads
+// are issued into qn before group g's steps run from q, so the chain waits
+// on memory only where a whole group's latency exceeds its steps' time,
+// and the chain's own instructions (about 40 cycles a step) set the pace.
+// bk is a multiple of ROW_TILE, so a group's tail holds whole words, and a
+// word past bk is neither run nor stored.
 //
 // B6 (WANT_DMAX) replaces _oh_backpointers_score_kernel
 // (cpgisland_tpu/ops/viterbi_onehot.py:481): the same recursion, plus the
@@ -116,27 +143,35 @@ __device__ __forceinline__ void oh_backpointers_body(
   float d0 = v_red[b], d1 = v_red[(size_t)nb + b];
   int32_t E = 0b10;  // identity: exit c -> entry c
   const int32_t* p = pair2 + b;
-  for (int k0 = 0; k0 < bk; k0 += ROW_TILE) {
-    int q[ROW_TILE];
+  int q[BP_AHEAD], qn[BP_AHEAD];
+  load_pairs(p, nb, 0, bk, q);
+  for (int k0 = 0; k0 < bk; k0 += BP_AHEAD) {
+    load_pairs(p, nb, k0 + BP_AHEAD, bk, qn);
 #pragma unroll
-    for (int r = 0; r < ROW_TILE; ++r) q[r] = __ldg(p + (size_t)(k0 + r) * nb);
-    int32_t word = 0;
+    for (int w = 0; w < BP_AHEAD / ROW_TILE; ++w) {
+      const int kw = k0 + w * ROW_TILE;
+      if (kw < bk) {
+        int32_t word = 0;
 #pragma unroll
-    for (int r = 0; r < ROW_TILE; ++r) {
-      const float* t = s_tab + 4 * q[r];
-      const float a0 = d0 + t[0];
-      const float a1 = d1 + t[2];
-      const float b0 = d0 + t[1];
-      const float b1 = d1 + t[3];
-      const int32_t bp0 = a1 > a0;
-      const int32_t bp1 = b1 > b0;
-      d0 = fmaxf(a0, a1);
-      d1 = fmaxf(b0, b1);
-      word |= (bp0 | (bp1 << 1)) << (2 * r);
-      E = ((E >> bp0) & 1) | (((E >> bp1) & 1) << 1);
-      if (WANT_DMAX) dmax[(size_t)(k0 + r) * nb + b] = fmaxf(d0, d1);
+        for (int r = 0; r < ROW_TILE; ++r) {
+          const float* t = s_tab + 4 * q[w * ROW_TILE + r];
+          const float a0 = d0 + t[0];
+          const float a1 = d1 + t[2];
+          const float b0 = d0 + t[1];
+          const float b1 = d1 + t[3];
+          const int32_t bp0 = a1 > a0;
+          const int32_t bp1 = b1 > b0;
+          d0 = fmaxf(a0, a1);
+          d1 = fmaxf(b0, b1);
+          word |= (bp0 | (bp1 << 1)) << (2 * r);
+          E = ((E >> bp0) & 1) | (((E >> bp1) & 1) << 1);
+          if (WANT_DMAX) dmax[(size_t)(kw + r) * nb + b] = fmaxf(d0, d1);
+        }
+        bp[(size_t)(kw / ROW_TILE) * nb + b] = word;
+      }
     }
-    bp[(size_t)(k0 / ROW_TILE) * nb + b] = word;
+#pragma unroll
+    for (int r = 0; r < BP_AHEAD; ++r) q[r] = qn[r];
   }
   dexit[b] = d0;
   dexit[(size_t)nb + b] = d1;

@@ -1,9 +1,10 @@
 """Variant builds of the dense chain kernels and of B5, timed on identical
 inputs: the measurements behind their layouts.
 
-    python -m cpgisland_tpu_torch.tools.kernel_variants [--group dense|split|stats ...]
+    python -m cpgisland_tpu_torch.tools.kernel_variants [--group dense|split|stats|decode ...]
 
-Each variant is a copy of ``csrc/fb_dense.cu`` or ``csrc/fb_onehot.cu`` with
+Each variant is a copy of a kernel source (``csrc/fb_dense.cu``,
+``csrc/fb_onehot.cu``, ``csrc/viterbi_onehot.cu``, ``csrc/viterbi_dense.cu``) with
 a few lines replaced (the table below), compiled with the port's nvcc flags
 into ``build/kernel_variants/`` and called through its C interface, so a
 variant changes nothing in the package.  On the card only, by group:
@@ -27,12 +28,26 @@ variant changes nothing in the package.  On the card only, by group:
   stores dropped (``diag_nostore``);
 - ``stats``: B5 (the flagship) on 1,024 and the genome's 1,390 ragged
   chunks of 65,536 steps and on 8,192 and the genome's 11,121 seq lanes of
-  8,192 steps, at segments of 128 to 1,024 steps.
+  8,192 steps, at segments of 128 to 1,024 steps;
+- ``decode``: where the Viterbi backpointer chains take each step's pair
+  or symbol and its table row from (``csrc/viterbi_onehot.cu``: B2, B6,
+  B27 and its scores arm; ``csrc/viterbi_dense.cu``: B14 at K = 2 and 8).
+  The shipped registers read ahead (``BP_AHEAD`` / ``STEP_AHEAD`` 16; B14
+  also reads 8 steps' table rows before they run at K <= 2) against 8 and
+  32 steps ahead, the loads before the read-ahead (B2: 8 steps loaded,
+  then run; B14: one load a step), the table rows read the other way (B2:
+  a word's rows before its steps; B14: inside each step), a shared-memory
+  ring filled by 4-byte ``cp.async`` (16 steps a stage, 5 stages, no block
+  barrier), blocks of 64 threads and, unchecked, the chains with their
+  loads replaced by arithmetic (``diag_noload``); B2, B6 and B27 (M = 2)
+  at 4,096 x 16,384 and B2 and B27 (M = 2, 3) at the largest mixed-model
+  flush (8 records padded to 512 Ki: 4,096 x 1,024), B14 at 4,096 x
+  16,384.
 
 Each variant's outputs are held against its group's unchanged build (bit
-for bit for B16 and B18, within rtol 1e-5 / atol 1e-3 for the B5 layouts;
-the ``diag_*`` variants drop work to find what bounds B5 or the
-state-split chains and are not checked).  Times: CUDA events, median of 15.  One JSON line per variant on
+for bit for B16, B18 and the decode chains, within rtol 1e-5 / atol 1e-3 for the B5 layouts;
+the ``diag_*`` variants drop work to find what bounds B5, the
+state-split chains or the decode chains and are not checked).  Times: CUDA events, median of 15.  One JSON line per variant on
 stdout, after the card's name and power limit (``nvidia-smi``); exits 2
 without a card.
 """
@@ -50,11 +65,13 @@ import numpy as np
 import torch
 
 from cpgisland_tpu_torch.models import presets
+from cpgisland_tpu_torch.models.hmm import HmmParams
 from cpgisland_tpu_torch.ops import _kernels, fb_chunked
 from cpgisland_tpu_torch.ops import fb_onehot as FB
 from cpgisland_tpu_torch.ops import fb_pallas as FP
+from cpgisland_tpu_torch.ops import viterbi_onehot as OH
+from cpgisland_tpu_torch.ops import viterbi_pallas as VP
 from cpgisland_tpu_torch.ops.prepared import prepare_chunked, prepare_seq
-from cpgisland_tpu_torch.ops.viterbi_onehot import _groups
 from cpgisland_tpu_torch.tools.bench_compose import card_line
 
 OUT_DIR = _kernels.BUILD_DIR.parent / "kernel_variants"
@@ -690,7 +707,317 @@ def _spt_variant(spt: int) -> list:
 _ONE_THREAD = [(f"case {k}: return CALL_{d}X({k});", f"case {k}: return CALL_{d}({k});")
                for d in "FB" for k in range(5, 9)]
 
-# name -> (source stem, replacements)
+# ---------------------------------------------------------------------------
+# The decode group: where B2 / B6 / B27 (csrc/viterbi_onehot.cu) and B14
+# (csrc/viterbi_dense.cu) take each step's pair or symbol and table row
+# from.  Each text replaces the shipped code from its first anchor up to
+# (not including) its second; the chain's operations are the same in all.
+_OH_REGION = ("// B2 and B6 share one chain body.", "// B2 / B6, and with M > 1")
+_DENSE_REGION = ("// B14: replaces _backpointers_kernel.", "// B15: replaces _backtrace_kernel.")
+
+# B2 / B6 as they ran before the read-ahead: 8 steps loaded, then run,
+# then the next 8.
+TILE8_OH_BODY = r"""template <bool WANT_DMAX>
+__device__ __forceinline__ void oh_backpointers_body(
+    const int32_t* __restrict__ pair2, const float* __restrict__ v_red,
+    const float* __restrict__ s_tab, int32_t* __restrict__ bp, float* __restrict__ dexit,
+    int32_t* __restrict__ ebits, float* __restrict__ dmax, int bk, int nb, int b) {
+  float d0 = v_red[b], d1 = v_red[(size_t)nb + b];
+  int32_t E = 0b10;
+  const int32_t* p = pair2 + b;
+  for (int k0 = 0; k0 < bk; k0 += ROW_TILE) {
+    int q[ROW_TILE];
+#pragma unroll
+    for (int r = 0; r < ROW_TILE; ++r) q[r] = __ldg(p + (size_t)(k0 + r) * nb);
+    int32_t word = 0;
+#pragma unroll
+    for (int r = 0; r < ROW_TILE; ++r) {
+      const float* t = s_tab + 4 * q[r];
+      const float a0 = d0 + t[0];
+      const float a1 = d1 + t[2];
+      const float b0 = d0 + t[1];
+      const float b1 = d1 + t[3];
+      const int32_t bp0 = a1 > a0;
+      const int32_t bp1 = b1 > b0;
+      d0 = fmaxf(a0, a1);
+      d1 = fmaxf(b0, b1);
+      word |= (bp0 | (bp1 << 1)) << (2 * r);
+      E = ((E >> bp0) & 1) | (((E >> bp1) & 1) << 1);
+      if (WANT_DMAX) dmax[(size_t)(k0 + r) * nb + b] = fmaxf(d0, d1);
+    }
+    bp[(size_t)(k0 / ROW_TILE) * nb + b] = word;
+  }
+  dexit[b] = d0;
+  dexit[(size_t)nb + b] = d1;
+  ebits[b] = E;
+}
+
+"""
+
+# B2 / B6 with each word's table rows read before its steps run.
+ROWS_FIRST_OH_BODY = r"""// One packed word of the reduced delta recursion: the ROW_TILE steps whose
+// pairs are q[0..7].  Their table rows are read first, so no step of the
+// chain waits on a shared-memory lookup; then the steps run in order.
+// Returns the word; with WANT_DMAX stores the chain max after step r at
+// dmax_w[r * nb].
+template <bool WANT_DMAX>
+__device__ __forceinline__ int32_t word_steps(const int* q, const float* __restrict__ s_tab,
+                                              float& d0, float& d1, int32_t& E,
+                                              float* __restrict__ dmax_w, int nb) {
+  float t0[ROW_TILE], t1[ROW_TILE], t2[ROW_TILE], t3[ROW_TILE];
+#pragma unroll
+  for (int r = 0; r < ROW_TILE; ++r) {
+    const float* t = s_tab + 4 * q[r];
+    t0[r] = t[0];
+    t1[r] = t[1];
+    t2[r] = t[2];
+    t3[r] = t[3];
+  }
+  int32_t word = 0;
+#pragma unroll
+  for (int r = 0; r < ROW_TILE; ++r) {
+    const float a0 = d0 + t0[r];
+    const float a1 = d1 + t2[r];
+    const float b0 = d0 + t1[r];
+    const float b1 = d1 + t3[r];
+    const int32_t bp0 = a1 > a0;
+    const int32_t bp1 = b1 > b0;
+    d0 = fmaxf(a0, a1);
+    d1 = fmaxf(b0, b1);
+    word |= (bp0 | (bp1 << 1)) << (2 * r);
+    E = ((E >> bp0) & 1) | (((E >> bp1) & 1) << 1);
+    if (WANT_DMAX) dmax_w[(size_t)r * nb] = fmaxf(d0, d1);
+  }
+  return word;
+}
+
+template <bool WANT_DMAX>
+__device__ __forceinline__ void oh_backpointers_body(
+    const int32_t* __restrict__ pair2, const float* __restrict__ v_red,
+    const float* __restrict__ s_tab, int32_t* __restrict__ bp, float* __restrict__ dexit,
+    int32_t* __restrict__ ebits, float* __restrict__ dmax, int bk, int nb, int b) {
+  float d0 = v_red[b], d1 = v_red[(size_t)nb + b];
+  int32_t E = 0b10;
+  const int32_t* p = pair2 + b;
+  int q[BP_AHEAD], qn[BP_AHEAD];
+  load_pairs(p, nb, 0, bk, q);
+  for (int k0 = 0; k0 < bk; k0 += BP_AHEAD) {
+    load_pairs(p, nb, k0 + BP_AHEAD, bk, qn);
+#pragma unroll
+    for (int w = 0; w < BP_AHEAD / ROW_TILE; ++w) {
+      const int kw = k0 + w * ROW_TILE;
+      if (kw < bk)
+        bp[(size_t)(kw / ROW_TILE) * nb + b] = word_steps<WANT_DMAX>(
+            q + w * ROW_TILE, s_tab, d0, d1, E, WANT_DMAX ? dmax + (size_t)kw * nb + b : nullptr,
+            nb);
+    }
+#pragma unroll
+    for (int r = 0; r < BP_AHEAD; ++r) q[r] = qn[r];
+  }
+  dexit[b] = d0;
+  dexit[(size_t)nb + b] = d1;
+  ebits[b] = E;
+}
+
+"""
+
+# The ring design: each thread copies its own lane's column with 4-byte
+# cp.async (a warp's row is one 128-byte transaction) into a shared ring of
+# RING_D stages of RING_R rows, RING_D - 1 stages ahead of the chain, and
+# waits for its own oldest stage only (no block barrier).  A stage's rows
+# past bk are not copied; every stage still commits a group, so the wait
+# counts stay aligned.  The chain takes each stage's pairs / symbols into
+# registers and runs the shipped steps (B14: dense_tile) on them.
+_RING_ISSUE = r"""#define RING_R {R}
+#define RING_D {D}
+#define RING_T {T}
+__device__ __forceinline__ void ring_issue(int32_t* slot, const int32_t* __restrict__ p, int nb,
+                                           int k0, int bk) {{
+#pragma unroll
+  for (int r = 0; r < RING_R; ++r) {{
+    const int k = k0 + r;
+    if (k < bk) {{
+      const unsigned dst = (unsigned)__cvta_generic_to_shared(slot + r * RING_T);
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+                   "l"(p + (size_t)k * nb) : "memory");
+    }}
+  }}
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}}
+
+"""
+_RING_LOOP_HEAD = r"""  __shared__ int32_t s_ring[RING_D * RING_R * RING_T];
+  int32_t* ring = s_ring + threadIdx.x;
+#pragma unroll
+  for (int s = 0; s < RING_D - 1; ++s)
+    ring_issue(ring + s * RING_R * RING_T, p, nb, s * RING_R, bk);
+  int slot = 0;
+  for (int k0 = 0; k0 < bk; k0 += RING_R) {
+    ring_issue(ring + (slot == 0 ? RING_D - 1 : slot - 1) * RING_R * RING_T, p, nb,
+               k0 + (RING_D - 1) * RING_R, bk);
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(RING_D - 1) : "memory");
+    int q[RING_R];
+#pragma unroll
+    for (int r = 0; r < RING_R; ++r) q[r] = ring[(slot * RING_R + r) * RING_T];
+    slot = slot + 1 == RING_D ? 0 : slot + 1;
+""".replace("{", "{{").replace("}", "}}")
+
+RING_OH_BODY = _RING_ISSUE + r"""template <bool WANT_DMAX>
+__device__ __forceinline__ void oh_backpointers_body(
+    const int32_t* __restrict__ pair2, const float* __restrict__ v_red,
+    const float* __restrict__ s_tab, int32_t* __restrict__ bp, float* __restrict__ dexit,
+    int32_t* __restrict__ ebits, float* __restrict__ dmax, int bk, int nb, int b) {{
+  float d0 = v_red[b], d1 = v_red[(size_t)nb + b];
+  int32_t E = 0b10;
+  const int32_t* p = pair2 + b;
+""" + _RING_LOOP_HEAD + r"""#pragma unroll
+    for (int w = 0; w < RING_R / ROW_TILE; ++w) {{
+      const int kw = k0 + w * ROW_TILE;
+      if (kw < bk) {{
+        int32_t word = 0;
+#pragma unroll
+        for (int r = 0; r < ROW_TILE; ++r) {{
+          const float* t = s_tab + 4 * q[w * ROW_TILE + r];
+          const float a0 = d0 + t[0];
+          const float a1 = d1 + t[2];
+          const float b0 = d0 + t[1];
+          const float b1 = d1 + t[3];
+          const int32_t bp0 = a1 > a0;
+          const int32_t bp1 = b1 > b0;
+          d0 = fmaxf(a0, a1);
+          d1 = fmaxf(b0, b1);
+          word |= (bp0 | (bp1 << 1)) << (2 * r);
+          E = ((E >> bp0) & 1) | (((E >> bp1) & 1) << 1);
+          if (WANT_DMAX) dmax[(size_t)(kw + r) * nb + b] = fmaxf(d0, d1);
+        }}
+        bp[(size_t)(kw / ROW_TILE) * nb + b] = word;
+      }}
+    }}
+  }}
+  dexit[b] = d0;
+  dexit[(size_t)nb + b] = d1;
+  ebits[b] = E;
+}}
+
+"""
+
+# B14 as it ran before the read-ahead: one load a step, the loop unrolled
+# twice, each step's table row read inside the chain.
+STEP1_DENSE_KERNEL = r"""template <int K>
+__global__ void __launch_bounds__(THREADS)
+dense_backpointers_kernel(const int32_t* __restrict__ steps, const float* __restrict__ v_enter,
+                          const float* __restrict__ logAT, const float* __restrict__ logB,
+                          int32_t* __restrict__ bp, float* __restrict__ dexit,
+                          int32_t* __restrict__ ftab, int bk, int nb, int S) {
+  extern __shared__ float s_M[];
+  load_step_table<K>(s_M, logAT, logB, S);
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= nb) return;
+  float d[K];
+#pragma unroll
+  for (int m = 0; m < K; ++m) d[m] = v_enter[(size_t)m * nb + b];
+  uint32_t E = 0;
+#pragma unroll
+  for (int j = 0; j < K; ++j) E |= (uint32_t)j << (3 * j);
+  const int32_t* p = steps + b;
+#pragma unroll 2
+  for (int k = 0; k < bk; ++k) {
+    const int sym = min(__ldg(p + (size_t)k * nb), S);
+    const float* Ms = s_M + sym * (K * K + 1);
+    float nd[K];
+    uint32_t word = 0, newE = 0;
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      float best = d[0] + Ms[j];
+      uint32_t arg = 0;
+#pragma unroll
+      for (int m = 1; m < K; ++m) {
+        const float c = d[m] + Ms[m * K + j];
+        if (c > best) {
+          best = c;
+          arg = m;
+        }
+      }
+      nd[j] = best;
+      word |= arg << (3 * j);
+      newE |= ((E >> (3 * arg)) & 7u) << (3 * j);
+    }
+#pragma unroll
+    for (int j = 0; j < K; ++j) d[j] = nd[j];
+    E = newE;
+    bp[(size_t)k * nb + b] = (int32_t)word;
+  }
+#pragma unroll
+  for (int m = 0; m < K; ++m) dexit[(size_t)m * nb + b] = d[m];
+  ftab[b] = (int32_t)E;
+}
+
+"""
+
+RING_DENSE_KERNEL = _RING_ISSUE + r"""template <int K>
+__global__ void __launch_bounds__(THREADS)
+dense_backpointers_kernel(const int32_t* __restrict__ steps, const float* __restrict__ v_enter,
+                          const float* __restrict__ logAT, const float* __restrict__ logB,
+                          int32_t* __restrict__ bp, float* __restrict__ dexit,
+                          int32_t* __restrict__ ftab, int bk, int nb, int S) {{
+  constexpr int TT = K * K <= 4 ? 8 : 1;
+  extern __shared__ float s_M[];
+  load_step_table<K>(s_M, logAT, logB, S);
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= nb) return;
+  float d[K];
+#pragma unroll
+  for (int m = 0; m < K; ++m) d[m] = v_enter[(size_t)m * nb + b];
+  uint32_t E = 0;
+#pragma unroll
+  for (int j = 0; j < K; ++j) E |= (uint32_t)j << (3 * j);
+  const int32_t* p = steps + b;
+""" + _RING_LOOP_HEAD + r"""#pragma unroll
+    for (int h = 0; h < RING_R; h += TT)
+      if (k0 + h < bk)
+        dense_tile<K, TT>(q + h, s_M, S, d, E, bp + (size_t)(k0 + h) * nb + b, nb,
+                          bk - (k0 + h));
+  }}
+#pragma unroll
+  for (int m = 0; m < K; ++m) dexit[(size_t)m * nb + b] = d[m];
+  ftab[b] = (int32_t)E;
+}}
+
+"""
+
+# Blocks of 64 threads for the backpointer kernels alone (B1, B3, B13 and
+# B15 keep 128).
+_OH_THREADS64 = [
+    ("template <bool WANT_DMAX, bool STACKED>\n__global__ void __launch_bounds__(THREADS)\n"
+     "oh_backpointers_kernel",
+     "template <bool WANT_DMAX, bool STACKED>\n__global__ void __launch_bounds__(64)\n"
+     "oh_backpointers_kernel"),
+    ("      <<<grid_for(nb, M), THREADS, 0, (cudaStream_t)stream>>>(\n"
+     "          (const int32_t*)pair2, (const float*)v_red",
+     "      <<<dim3((unsigned)((nb + 63) / 64), (unsigned)M), 64, 0, (cudaStream_t)stream>>>(\n"
+     "          (const int32_t*)pair2, (const float*)v_red")]
+_DENSE_THREADS64 = [
+    ("template <int K>\n__global__ void __launch_bounds__(THREADS)\ndense_backpointers_kernel",
+     "template <int K>\n__global__ void __launch_bounds__(64)\ndense_backpointers_kernel"),
+    ("dense_backpointers_kernel<K><<<grid_for(nb), THREADS, smem, stream>>>(",
+     "dense_backpointers_kernel<K><<<(unsigned)((nb + 63) / 64), 64, smem, stream>>>(")]
+
+
+def _ring(body: str, region, R: int, D: int, T: int = 128) -> list:
+    """The ring design in ``region``: RING_R steps a stage, RING_D stages,
+    blocks of RING_T threads."""
+    return [(*region, body.format(R=R, D=D, T=T))]
+
+
+# Diagnostics, not checked: the shipped chains with their loads replaced by
+# pairs / symbols made from the step and the lane (no memory read), so the
+# chain's own pace shows.
+_NOLOAD = "    q[r] = k < bk ? __ldg(p + (size_t)k * nb) : 0;"
+_OH_NOLOAD = (_NOLOAD, "    q[r] = (int)((k * 5 + ((size_t)p >> 2)) & 15);")
+_DENSE_NOLOAD = (_NOLOAD, "    q[r] = (int)((k * 5 + ((size_t)p >> 2)) & 3);")
+
+# name -> (source stem, replacements); a replacement of three strings
+# replaces the source from its first up to its second with its third.
 VARIANTS = {
     "dense/base": ("fb_dense", []),
     "dense/threads64": ("fb_dense", [("#define CHAIN_THREADS 32", "#define CHAIN_THREADS 64")]),
@@ -734,6 +1061,24 @@ VARIANTS = {
         "stats_step<false>(q.a0[r], q.a1[r], q.b0[r], q.b1[r], q.d[r], ah0, ah1, ll, my, bd,\n"
         "                          s_tab, s_bred, s_igt, enters_full, enters_red, pair0, nl, S, K);",
         "ll = __fadd_rn(ll, q.a0[r] + q.a1[r] + q.b0[r] + q.b1[r] + (float)q.d[r]);")]),
+    "decode/oh_base": ("viterbi_onehot", []),
+    "decode/oh_tile8": ("viterbi_onehot", [(*_OH_REGION, TILE8_OH_BODY)]),
+    "decode/oh_rows_first": ("viterbi_onehot", [(*_OH_REGION, ROWS_FIRST_OH_BODY)]),
+    "decode/oh_ahead8": ("viterbi_onehot", [("#define BP_AHEAD 16", "#define BP_AHEAD 8")]),
+    "decode/oh_ahead32": ("viterbi_onehot", [("#define BP_AHEAD 16", "#define BP_AHEAD 32")]),
+    "decode/oh_ring16x5": ("viterbi_onehot", _ring(RING_OH_BODY, _OH_REGION, 16, 5)),
+    "decode/oh_threads64": ("viterbi_onehot", _OH_THREADS64),
+    "decode/oh_diag_noload": ("viterbi_onehot", [_OH_NOLOAD]),
+    "decode/dense_base": ("viterbi_dense", []),
+    "decode/dense_step1": ("viterbi_dense", [(*_DENSE_REGION, STEP1_DENSE_KERNEL)]),
+    "decode/dense_rows_inline": ("viterbi_dense", [("constexpr int TT = K * K <= 4 ? 8 : 1;",
+                                                    "constexpr int TT = 1;")]),
+    "decode/dense_ahead8": ("viterbi_dense", [("#define STEP_AHEAD 16", "#define STEP_AHEAD 8")]),
+    "decode/dense_ahead32": ("viterbi_dense", [("#define STEP_AHEAD 16",
+                                                "#define STEP_AHEAD 32")]),
+    "decode/dense_ring16x5": ("viterbi_dense", _ring(RING_DENSE_KERNEL, _DENSE_REGION, 16, 5)),
+    "decode/dense_threads64": ("viterbi_dense", _DENSE_THREADS64),
+    "decode/dense_diag_noload": ("viterbi_dense", [_DENSE_NOLOAD]),
 }
 _SPB_CHECK = ("(SPB != 1 && SPB != 4)", "(SPB < 1)")  # lanes128 runs one segment a block
 SEGMENTS = (128, 256, 512, 1024)
@@ -744,7 +1089,8 @@ PTXAS_OF = {"dense": ("_Z17fb_fwd_sub_kernelILi2E", "_Z17fb_bwd_sub_kernelILi2E"
                       "_Z20fb_fwd_simple", "_Z20fb_bwd_simple",
                       "_Z18fb_bwd_warp", "_Z19fb_fwd_stage", "_Z19fb_bwd_stage",
                       "_Z13fb_fwd_kernelILi8E", "_Z13fb_bwd_kernelILi8ELb0E"),
-            "stats": ("_Z24oh_seq_stats_part_kernel",)}
+            "stats": ("_Z24oh_seq_stats_part_kernel",),
+            "decode": ("_Z22oh_backpointers_kernel", "_Z25dense_backpointers_kernel")}
 SPLIT_K = (5, 8)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -758,10 +1104,14 @@ def build_all(groups) -> dict:
         if name.split("/")[0] not in groups:
             continue
         src = (_kernels._CSRC / f"{stem}.cu").read_text()
-        for a, b in reps + ([_SPB_CHECK] if stem == "fb_onehot" else []):
-            if a not in src:
-                raise RuntimeError(f"{name}: {a!r} not in {stem}.cu")
-            src = src.replace(a, b)
+        for rep in reps + ([_SPB_CHECK] if stem == "fb_onehot" else []):
+            if any(a not in src for a in rep[:-1]):
+                raise RuntimeError(f"{name}: {rep[0]!r} not in {stem}.cu")
+            if len(rep) == 3:
+                i, j = src.index(rep[0]), src.index(rep[1])
+                src = src[:i] + rep[2] + src[j:]
+            else:
+                src = src.replace(*rep)
         tag = name.replace("/", "_")
         path, lib = OUT_DIR / f"{tag}.cu", OUT_DIR / f"lib{tag}.so"
         path.write_text(src)
@@ -897,7 +1247,7 @@ def stats_inputs(rng, dev) -> dict:
     seq lanes of 8,192 steps (8,192, and the genome's 11,121) with random
     enters, every lane's t == 0 pair but lane 0's."""
     fl = presets.durbin_cpg8(device=dev)
-    gt = _groups(fl)
+    gt = OH._groups(fl)
     tab = FB.prob_tab_ext(fl, gt)
     head = (tab, FB.reduced_emissions(fl, gt), gt.to(torch.int32).contiguous())
     out = {}
@@ -964,7 +1314,112 @@ def run_stats(name, lib, inputs, want) -> dict:
     return row
 
 
-GROUPS = ("dense", "split", "stats")
+def _members(dev, M: int) -> list:
+    """The flagship plus M - 1 random partition=2 members of its alphabet,
+    their states renumbered at random (chip_smoke's stacked decode)."""
+    gen = torch.Generator().manual_seed(0)
+    out = [presets.durbin_cpg8(device=dev)]
+    for _ in range(M - 1):
+        q = presets.random_hmm(gen, 8, 4, partition=2, device=dev)
+        perm = torch.randperm(8, generator=gen).to(dev)
+        out.append(HmmParams(q.log_pi[perm], q.log_A[perm][:, perm], q.log_B[perm]))
+    return out
+
+
+def _oh_operands(rng, members, steps2, prev0, resets, pre=None):
+    """(pair2, v_red [M, 2, nb], tabs [M, nP, 4]) of a stacked decode over
+    ``steps2``, with random entering vectors."""
+    _, _, tabs, _, pair2, _, e_out, nreal = OH.stacked_prepared(members, steps2, prev0, resets,
+                                                                pre)
+    pair2 = OH._pad_pair_rows(pair2, e_out, nreal)
+    M, nb = len(members), pair2.shape[1]
+    v = rng.normal(scale=3.0, size=(M, 2, nb)).astype(np.float32)
+    v_red = torch.from_numpy(v - v.max(axis=1, keepdims=True)).to(steps2.device)
+    return pair2, v_red, torch.stack(tabs).contiguous()
+
+
+def decode_inputs(rng, dev, bk: int = 4096, nb: int = 16384, T: int = 512 << 10) -> dict:
+    """geometry -> the reduced decode's operands: ``big``, 4,096 x 16,384
+    steps of the flagship's alphabet (PAD runs, sparse resets) under M = 2
+    members; ``flush``, the largest mixed-model flush (8 records padded to
+    512 Ki symbols, one flat reset stream: 4,096 x 1,024) under M = 3; and
+    ``dense2`` / ``dense8``, B14's 4,096 x 16,384 symbol streams (PAD runs)
+    with two_state's and the flagship's tables."""
+    steps = rng.integers(0, 4, size=(bk, nb)).astype(np.int32)
+    for k0, b, n in zip(rng.integers(0, bk, size=nb // 4), rng.integers(0, nb, size=nb // 4),
+                        rng.integers(1, 200, size=nb // 4)):
+        steps[k0 : k0 + n, b] = 4
+    steps_d = torch.from_numpy(steps).to(dev)
+    resets = torch.from_numpy(rng.random((bk, nb)) < 1e-4).to(dev)
+    out = {"big": _oh_operands(rng, _members(dev, 2), steps_d, 1, resets)}
+    rows = torch.from_numpy(rng.integers(0, 4, size=(8, T)).astype(np.uint8)).to(dev)
+    lengths = torch.from_numpy(np.array([T, T // 2, 3 * T // 4, T // 7, T, T // 3, T - 9, T // 128],
+                                        np.int32)).to(dev)
+    concat, padded, fresets, fbk, pre = OH.prepare_decode_flat(4, rows, lengths, bk)
+    fsteps = padded.reshape(-1, fbk).T
+    out["flush"] = _oh_operands(rng, _members(dev, 3), fsteps, None, fresets, pre)
+    for K, params in ((2, presets.two_state_cpg(device=dev)), (8, presets.durbin_cpg8(device=dev))):
+        v = rng.normal(scale=3.0, size=(K, nb)).astype(np.float32)
+        logAT, logB = VP._tables(params)
+        out[f"dense{K}"] = (steps_d, torch.from_numpy(v - v.max(axis=0)).to(dev), logAT, logB)
+    return out
+
+
+def run_decode(name, lib, inputs, ref) -> dict:
+    """The variant's B2, B6 and B27 (both arms) at 4,096 x 16,384 (M = 2)
+    and B2 and B27 at the flush's geometry (M = 2, 3), or its B14 at K = 2
+    and 8: ms and bit equality with the shipped build's outputs."""
+    calls = []  # (key, C function, operands, int arguments, outputs)
+    if "/oh_" in name:
+        b2, b6 = c_fn(lib, "oh_backpointers", 6, 3), c_fn(lib, "oh_backpointers_scores", 7, 3)
+        b27 = c_fn(lib, "oh_backpointers_stacked", 6, 4)
+        b27s = c_fn(lib, "oh_backpointers_stacked_scores", 7, 4)
+        for geo, Ms in (("big", (2,)), ("flush", (2, 3))):
+            pair2, v_red, tabs = inputs[geo]
+            bk, nb = pair2.shape
+            nP, dev = tabs.shape[1], pair2.device
+
+            def out(*lead, scores=False):
+                return [torch.empty(lead + (bk // 8, nb), dtype=torch.int32, device=dev),
+                        torch.empty(lead + (2, nb), device=dev),
+                        torch.empty(lead + (nb,), dtype=torch.int32, device=dev)] + (
+                            [torch.empty(lead + (bk, nb), device=dev)] if scores else [])
+            one = [pair2, v_red[0], tabs[0]]
+            calls.append((f"b2_{geo}", b2, one, [bk, nb, nP], out()))
+            if geo == "big":
+                calls.append(("b6_big", b6, one, [bk, nb, nP], out(scores=True)))
+                calls.append(("b27s_m2_big", b27s, [pair2, v_red[:2].contiguous(),
+                                                    tabs[:2].contiguous()],
+                              [bk, nb, nP, 2], out(2, scores=True)))
+            for M in Ms:
+                calls.append((f"b27_m{M}_{geo}", b27, [pair2, v_red[:M].contiguous(),
+                                                       tabs[:M].contiguous()],
+                              [bk, nb, nP, M], out(M)))
+    else:
+        b14 = c_fn(lib, "dense_backpointers", 7, 4)
+        for K in (2, 8):
+            steps, v, logAT, logB = inputs[f"dense{K}"]
+            bk, nb = steps.shape
+            outs = [torch.empty((bk, nb), dtype=torch.int32, device=steps.device),
+                    torch.empty((K, nb), device=steps.device),
+                    torch.empty((nb,), dtype=torch.int32, device=steps.device)]
+            calls.append((f"b14_k{K}", b14, [steps, v, logAT, logB], [bk, nb, K, logB.shape[1]],
+                          outs))
+    row = {"variant": name}
+    for key, fn, operands, ints, outs in calls:
+        def launch(fn=fn, tensors=operands + outs, ints=ints):
+            fn(tensors, ints)
+        row[f"{key}_ms"] = time_ms(launch)
+        launch()
+        if name.split("/")[1].startswith(("oh_diag", "dense_diag")):
+            continue
+        if key not in ref:
+            ref[key] = [x.clone() for x in outs]
+        else:
+            row[f"{key}_bit_equal"] = all(torch.equal(a, b) for a, b in zip(outs, ref[key]))
+    return row
+
+GROUPS = ("dense", "split", "stats", "decode")
 
 
 def main(argv=None) -> int:
@@ -1000,6 +1455,15 @@ def main(argv=None) -> int:
         for name, lib in libs.items():
             if name.startswith("stats/"):
                 print(json.dumps(run_stats(name, lib, inputs, want)), flush=True)
+        del inputs, want
+        torch.cuda.empty_cache()
+    if "decode" in groups:
+        inputs, ref = decode_inputs(rng, dev), {}
+        # The shipped builds first: every other variant is held against them.
+        order = sorted((n for n in libs if n.startswith("decode/")),
+                       key=lambda n: not n.endswith("_base"))
+        for name in order:
+            print(json.dumps(run_decode(name, libs[name], inputs, ref)), flush=True)
     return 0
 
 

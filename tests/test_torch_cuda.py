@@ -31,8 +31,18 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("bk,nb", [(8, 1), (64, 130), (4096, 257)])
+# The reduced decode's tails: bk a multiple of 8 but not of 16 or 32 (the
+# backpointer chains read 32 steps ahead), lanes short of a warp or a
+# block of 128 and past one.
+DECODE_BK = (8, 24, 40, 4104)
+DECODE_NB = (1, 33, 127, 129, 1024)
+
+
+@pytest.mark.parametrize("bk,nb", [(64, 130), (4096, 257)]
+                         + [(bk, nb) for bk in DECODE_BK for nb in DECODE_NB])
 def test_kernels_equal_plain_versions(cuda_device, bk, nb):
+    """B1, B2, B6 and B3 equal their plain versions bit for bit; one launch
+    each."""
     rng = np.random.default_rng(bk + nb)
     params = presets.durbin_cpg8(device=cuda_device)
     steps = rng.integers(0, 5, size=(bk, nb)).astype(np.int32)
@@ -41,12 +51,13 @@ def test_kernels_equal_plain_versions(cuda_device, bk, nb):
     _, _, tab, idtab, pair2, _, _, _ = OH._prepared(params, steps_d, 1, resets)
     v = torch.from_numpy(rng.normal(size=(2, nb)).astype(np.float32)).to(cuda_device)
     bits = torch.from_numpy(rng.integers(0, 2, size=nb).astype(np.int32)).to(cuda_device)
-    decode_kernels = ("oh_products", "oh_backpointers", "oh_backtrace")
+    decode_kernels = ("oh_products", "oh_backpointers", "oh_backpointers_scores", "oh_backtrace")
     before = {k: _kernels.launches[k] for k in decode_kernels}
     assert torch.equal(OH.oh_products(pair2, tab), OH.oh_products_plain(pair2, tab))
     got = OH.oh_backpointers(pair2, v, tab)
-    want = OH.oh_backpointers_plain(pair2, v, tab)
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    want = OH.oh_backpointers_scores_plain(pair2, v, tab)
+    assert all(torch.equal(a, b) for a, b in zip(got, want[:3]))
+    assert all(torch.equal(a, b) for a, b in zip(OH.oh_backpointers_scores(pair2, v, tab), want))
     assert torch.equal(OH.oh_backtrace(got[0], pair2, idtab, bits),
                        OH.oh_backtrace_plain(got[0], pair2, idtab, bits))
     torch.cuda.synchronize()
@@ -301,11 +312,15 @@ def test_posterior_file_cuda_equals_cpu(cuda_device, tmp_path):
 
 def _dense_operands(rng, K, bk, nb, device):
     """Seeded steps with PAD runs, a K-state model (the flagship's one-hot
-    tables at K = 8, the two_state preset at K = 2), entering vectors and
-    exit states, on ``device``."""
+    tables at K = 8, the two_state preset at K = 2, a seeded random model
+    over 4 symbols at any other K), entering vectors and exit states, on
+    ``device``."""
     from cpgisland_tpu_torch.ops import viterbi_pallas as VP
 
-    params = (presets.durbin_cpg8 if K == 8 else presets.two_state_cpg)(device=device)
+    if K in (2, 8):
+        params = (presets.durbin_cpg8 if K == 8 else presets.two_state_cpg)(device=device)
+    else:
+        params = presets.random_hmm(torch.Generator().manual_seed(K), K, 4, device=device)
     S = params.n_symbols
     steps = rng.integers(0, S, size=(bk, nb)).astype(np.int32)
     for _ in range(max(1, nb // 4)):
@@ -317,9 +332,12 @@ def _dense_operands(rng, K, bk, nb, device):
             logAT, logB, torch.from_numpy(rng.integers(0, K, size=nb).astype(np.int32)).to(device))
 
 
-@pytest.mark.parametrize("K", [2, 8])
-@pytest.mark.parametrize("bk", [8, 4096])
-@pytest.mark.parametrize("nb", [1, 33, 4096])
+@pytest.mark.parametrize("K,bk,nb", [(K, bk, nb) for K in (2, 8) for bk in (8, 4096)
+                                     for nb in (1, 33, 4096)]
+                         # B14 reads 32 steps ahead: bk short of a group, past
+                         # one and past many, at every K it packs
+                         + [(K, bk, nb) for K in (1, 2, 3, 5, 8) for bk in (1, 7, 9, 33, 4099)
+                            for nb in (1, 33, 129)])
 def test_dense_kernels_equal_plain_versions(cuda_device, K, bk, nb):
     from cpgisland_tpu_torch.ops import viterbi_pallas as VP
 
@@ -1083,7 +1101,12 @@ STACKED_DECODE = ("oh_products_stacked", "oh_backpointers_stacked",
 
 
 @pytest.mark.parametrize("S,M,bk,nb", [(4, 1, 8, 1), (4, 2, 64, 130), (4, 5, 512, 300),
-                                       (16, 2, 128, 257), (16, 3, 4096, 129)])
+                                       (16, 2, 128, 257), (16, 3, 4096, 129)]
+                         # every tail at each (S, M), every pair of them at (4, 2)
+                         + [(S, M, bk, nb) for S in (4, 16) for M in (1, 2, 5)
+                            for bk, nb in zip(DECODE_BK + (40,), DECODE_NB[::-1])
+                            if (S, M) != (4, 2)]
+                         + [(4, 2, bk, nb) for bk in DECODE_BK for nb in DECODE_NB])
 def test_stacked_decode_kernels_equal_plain_and_single(cuda_device, S, M, bk, nb):
     """B26, B27 (both arms) and B28 equal their plain versions bit for bit
     over a reset-renumbered stream with PAD runs, and each member's slice
