@@ -13,8 +13,10 @@ JSON line each:
    ptxas registers and spills of the kernels redesigned (B4, B24, B17, B7
    / B21, B18 and B16 with their sub-lane and state-split kernels, B5's
    part kernel, the scoring kernels, B9 / B22 and B10 / B23, one chain
-   and in sub-lanes, with B11 beside them, and the Viterbi backpointer
-   chains B2 / B6 / B27 and B14 with their streams read ahead);
+   and in sub-lanes, with B11 beside them, the Viterbi backpointer
+   chains B2 / B6 / B27 and B14 with their streams read ahead, B1 / B26
+   one row of the product a thread and B3 / B28 in segments joined by
+   exact bits);
 2. kernels: B1-B3 at full size (bk=4096, nb=16384: 64 Mi steps, PAD runs
    and record resets in the pair stream), B4-B5 at NL=1024 lanes x
    Tp=65,536 steps (ragged lengths, a short last lane, PAD tails), and B7
@@ -197,11 +199,12 @@ JSON line each:
    for (S, M) in (4, 2), (4, 5), (16, 2) — bit-equal to their plain
    versions and per member to B1 / B2 / B6 / B3, timed beside M x the
    single kernel; at S = 16 (288-row tables) B1, B6 and B3 against their
-   plain versions; then B27 (both arms, M = 2 and 3), B2 and B6 at the
-   largest mixed-model flush's geometry (its 8 scaffolds padded as phase
-   35 pads them, one flat reset stream, the operands its decode hands
-   B27), each bit-equal to its plain version there and timed, the shape
-   printed;
+   plain versions; then B26, B27 (both arms) and B28 at M = 2 and 3, B1,
+   B2, B6 and B3 at the largest mixed-model flush's geometry (its 8
+   scaffolds padded as phase 35 pads them, one flat reset stream, the
+   operands its decode hands B26, B27 and B28), each bit-equal to its
+   plain version there and timed through its wrapper and its C entry, the
+   shape printed;
 35. the mixed-model flush unit ``pipeline._decode_small_batch_stacked``
    over the 256 scaffolds in decode_file's flushes of 8, owners
    round-robin over M = 2 and 3 (the flagship plus random partition=2
@@ -305,7 +308,8 @@ REDESIGNED = ("oh_fwdbwd_kernel", "oh_fwdbwd_stacked_kernel", "fb_prod_kernel",
               "oh_seq_stats_part_kernel", "oh_loglik_kernel", "oh_loglik_sub_kernel",
               "fb_loglik_kernel", "fb_loglik_sub_kernel",
               "oh_fwd_kernel", "oh_fwd_sub_kernel", "oh_bwd_kernel", "oh_bwd_sub_kernel",
-              "oh_backpointers_kernel", "dense_backpointers_kernel")
+              "oh_backpointers_kernel", "dense_backpointers_kernel", "oh_products_kernel",
+              "oh_products_lane_kernel", "oh_backtrace_kernel")
 H100_SMS, SMEM_PER_SM, SMEM_PER_BLOCK_RESERVED = 132, 228 * 1024, 1024
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -3527,9 +3531,9 @@ def stacked_decode_kernel_phase(rng: np.random.Generator, gen: torch.Generator, 
     gives plain_ms) and per member to B1 / B2 / B6 / B3 on
     that member's operands, timed beside M x the single kernel's time and
     the byte bound.  At S = 16 (288-row tables, the repair) B1, B6 and B3
-    are also held against their plain versions.  Then B27, B2 and B6 at
-    the flush's geometry (:func:`flush_geometry_timings`).  Returns the
-    table rows (S = 4, M = 2) by kernel name."""
+    are also held against their plain versions.  Then the reduced decode
+    kernels at the flush's geometry (:func:`flush_geometry_timings`).
+    Returns the table rows (S = 4, M = 2) by kernel name."""
     results = {}
     n = BK * NB
     for S in (4, 16):
@@ -3641,15 +3645,32 @@ def stacked_decode_kernel_phase(rng: np.random.Generator, gen: torch.Generator, 
     return results
 
 
+def direct_ms(name: str, tensors, runs: int = 10, **ints) -> float:
+    """Median device time of kernel ``name``'s C entry called straight
+    through ctypes on ``tensors`` and ``ints`` (no wrapper checks, no
+    launch count): the wrapper's cost is the gap to its own time."""
+    fn = _kernels.library()[name]
+    args = ([t.data_ptr() for t in tensors] + [int(ints[k]) for k in _kernels._SIGNATURES[name][2]]
+            + [torch.cuda.current_stream().cuda_stream])
+
+    def call():
+        if fn(*args):
+            raise SystemExit(f"chip_smoke: {name}'s C entry failed")
+    return time_ms(call, runs)
+
+
 def flush_geometry_timings(fa: str, dev) -> None:
-    """B27 (both arms) at M = 2 and 3, B2 and B6 (the flagship member) on
-    the operands the largest of phase 35's flushes hands B27: its
-    FLUSH_RECORDS scaffolds padded by ``pipeline._pad_small_batch`` and
-    decoded by ``decode_batch_flat_stacked`` (one flat reset stream of
-    bk = 4096 steps a lane), its members the flagship plus random
-    partition=2 ones from a generator of their own.  Each kernel is held
-    bit for bit against its plain version on those operands and timed
-    (CUDA events, median of 10); one line with the shape."""
+    """The reduced decode kernels on the operands the largest of phase
+    35's flushes hands them: its FLUSH_RECORDS scaffolds padded by
+    ``pipeline._pad_small_batch`` and decoded by
+    ``decode_batch_flat_stacked`` (one flat reset stream of bk = 4096
+    steps a lane), its members the flagship plus random partition=2 ones
+    from a generator of their own.  B26, B27 (both arms) and B28 at M = 2
+    and 3, B1, B2, B6 and B3 on member 0: each held bit for bit against
+    its plain version on those operands (each plain version run once, for
+    all members: its ``plain_ms``) and timed (CUDA events, median of 10)
+    through its wrapper and through its C entry ("direct"); one line with
+    the shape."""
     recs = [(name, s) for name, s in codec.iter_fasta_records(fa) if name != "chr1"]
     flushes = [recs[i : i + FLUSH_RECORDS] for i in range(0, len(recs), FLUSH_RECORDS)]
     batch = max(flushes, key=lambda b: pipeline._pad_small_batch(b)[0].size)
@@ -3657,41 +3678,60 @@ def flush_geometry_timings(fa: str, dev) -> None:
     rows_d, len_d = torch.from_numpy(rows).to(dev), torch.from_numpy(lengths).to(dev)
     members = decode_members(presets.durbin_cpg8(device=dev), torch.Generator().manual_seed(7),
                              dev, max(FLUSH_M))
-    _, ((pair2, v_red, tabs), _) = _captured(
-        lambda: OH.decode_batch_flat_stacked(members, rows_d, len_d), OH,
-        "oh_backpointers_stacked")
+    ops = {name: _captured(lambda: OH.decode_batch_flat_stacked(members, rows_d, len_d), OH,
+                           name)[1][0]
+           for name in ("oh_products_stacked", "oh_backpointers_stacked", "oh_backtrace_stacked")}
+    pair2, v_red, tabs = ops["oh_backpointers_stacked"]
+    bp, _, idtabs, bits = ops["oh_backtrace_stacked"]
     bk, nb = pair2.shape
+    nP = tabs.shape[1]
     row = {"phase": "decode_flush_geometry", "records": len(batch), "padded": list(rows.shape),
-           "bk": bk, "nb": nb, "ms": {}, "plain_ms": {}, "bit_equal": {}}
-    v0, t0 = v_red[0].contiguous(), tabs[0].contiguous()
-    want, row["plain_ms"]["oh_backpointers_scores"] = timed_once(
-        lambda: OH.oh_backpointers_scores_plain(pair2, v0, t0))
-    row["bit_equal"]["oh_backpointers"] = all(
-        torch.equal(a, b) for a, b in zip(OH.oh_backpointers(pair2, v0, t0), want[:3]))
-    row["bit_equal"]["oh_backpointers_scores"] = all(
-        torch.equal(a, b) for a, b in zip(OH.oh_backpointers_scores(pair2, v0, t0), want))
-    row["ms"]["oh_backpointers"] = time_ms(lambda: OH.oh_backpointers(pair2, v0, t0), runs=10)
-    row["ms"]["oh_backpointers_scores"] = time_ms(
-        lambda: OH.oh_backpointers_scores(pair2, v0, t0), runs=10)
+           "bk": bk, "nb": nb, "ms": {}, "direct_ms": {}, "plain_ms": {}, "bit_equal": {}}
+
+    # Each plain version runs once, for all max(FLUSH_M) members: a member's
+    # values do not depend on the others', so member 0's are B1 / B2 / B6 /
+    # B3's reference and the first M members' the stacked kernels'.
+    M_all = max(FLUSH_M)
+    head = lambda t, M: t[:M].contiguous()  # noqa: E731
+    v3, t3 = head(v_red, M_all), head(tabs, M_all)
+    sc, row["plain_ms"]["oh_backpointers_stacked_scores"] = timed_once(
+        lambda: OH.oh_backpointers_stacked_scores_plain(pair2, v3, t3))
+    red, row["plain_ms"]["oh_products_stacked"] = timed_once(
+        lambda: OH.oh_products_stacked_plain(pair2, t3))
+    bt_args = tuple(head(x, M_all) for x in (bp, idtabs, bits))
+    path, row["plain_ms"]["oh_backtrace_stacked"] = timed_once(
+        lambda: OH.oh_backtrace_stacked_plain(bt_args[0], pair2, *bt_args[1:]))
+
+    def check(key, name, args, want, stacked_M=None):
+        got = getattr(OH, name)(*args)
+        got = got if isinstance(got, tuple) else (got,)
+        row["bit_equal"][key] = all(torch.equal(a, b) for a, b in zip(got, want))
+        row["ms"][key] = time_ms(lambda: getattr(OH, name)(*args), runs=10)
+        ints = {"bk": bk, "nb": nb, "nP": nP} | ({"M": stacked_M} if stacked_M else {})
+        if "backtrace" in name:
+            ints["seg"] = OH.BT_SEG_WORDS
+        row["direct_ms"][key] = direct_ms(name, [*args, *got], **ints)
+
+    first = lambda t: t[0].contiguous()  # noqa: E731
+    v0, t0 = first(v_red), first(tabs)
+    check("oh_backpointers", "oh_backpointers", (pair2, v0, t0), [x[0] for x in sc[:3]])
+    check("oh_backpointers_scores", "oh_backpointers_scores", (pair2, v0, t0), [x[0] for x in sc])
+    check("oh_products", "oh_products", (pair2, t0), [red[0]])
+    check("oh_backtrace", "oh_backtrace", (first(bp), pair2, first(idtabs), first(bits)),
+          [path[0]])
     for M in FLUSH_M:
-        v, t = v_red[:M].contiguous(), tabs[:M].contiguous()
-        want, row["plain_ms"][f"oh_backpointers_stacked_scores_m{M}"] = timed_once(
-            lambda: OH.oh_backpointers_stacked_scores_plain(pair2, v, t))
-        row["bit_equal"][f"oh_backpointers_stacked_m{M}"] = all(
-            torch.equal(a, b) for a, b in zip(OH.oh_backpointers_stacked(pair2, v, t), want[:3]))
-        row["bit_equal"][f"oh_backpointers_stacked_scores_m{M}"] = all(
-            torch.equal(a, b)
-            for a, b in zip(OH.oh_backpointers_stacked_scores(pair2, v, t), want))
-        row["ms"][f"oh_backpointers_stacked_m{M}"] = time_ms(
-            lambda: OH.oh_backpointers_stacked(pair2, v, t), runs=10)
-        row["ms"][f"oh_backpointers_stacked_scores_m{M}"] = time_ms(
-            lambda: OH.oh_backpointers_stacked_scores(pair2, v, t), runs=10)
+        v, t = head(v_red, M), head(tabs, M)
+        check(f"oh_backpointers_stacked_m{M}", "oh_backpointers_stacked", (pair2, v, t),
+              [x[:M] for x in sc[:3]], M)
+        check(f"oh_backpointers_stacked_scores_m{M}", "oh_backpointers_stacked_scores",
+              (pair2, v, t), [x[:M] for x in sc], M)
+        check(f"oh_products_stacked_m{M}", "oh_products_stacked", (pair2, t), [red[:M]], M)
+        check(f"oh_backtrace_stacked_m{M}", "oh_backtrace_stacked",
+              (head(bp, M), pair2, head(idtabs, M), head(bits, M)), [path[:M]], M)
     emit(row)
     if not all(row["bit_equal"].values()):
-        raise SystemExit(f"chip_smoke: B2 / B6 / B27 at the flush's geometry disagree with their "
-                         f"plain versions: {row['bit_equal']}")
-
-
+        raise SystemExit(f"chip_smoke: the reduced decode kernels at the flush's geometry "
+                         f"disagree with their plain versions: {row['bit_equal']}")
 
 
 def stacked_flush_phase(params, fa: str, gen: torch.Generator, dev) -> dict:

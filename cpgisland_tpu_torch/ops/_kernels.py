@@ -44,11 +44,11 @@ _SIGNATURES = {
     "oh_products": ("viterbi_onehot", 3, ("bk", "nb", "nP")),
     "oh_backpointers": ("viterbi_onehot", 6, ("bk", "nb", "nP")),
     "oh_backpointers_scores": ("viterbi_onehot", 7, ("bk", "nb", "nP")),
-    "oh_backtrace": ("viterbi_onehot", 5, ("bk", "nb", "nP")),
+    "oh_backtrace": ("viterbi_onehot", 5, ("bk", "nb", "nP", "seg")),
     "oh_products_stacked": ("viterbi_onehot", 3, ("bk", "nb", "nP", "M")),
     "oh_backpointers_stacked": ("viterbi_onehot", 6, ("bk", "nb", "nP", "M")),
     "oh_backpointers_stacked_scores": ("viterbi_onehot", 7, ("bk", "nb", "nP", "M")),
-    "oh_backtrace_stacked": ("viterbi_onehot", 5, ("bk", "nb", "nP", "M")),
+    "oh_backtrace_stacked": ("viterbi_onehot", 5, ("bk", "nb", "nP", "M", "seg")),
     "oh_prod": ("fb_onehot", 3, ("Tp", "NL", "nreal", "G")),
     "oh_fwdbwd": ("fb_onehot", 8, ("Tp", "NL", "nreal", "T", "G")),
     "oh_fwdbwd_mat": ("fb_onehot", 6, ("Tp", "NL", "nreal", "T")),

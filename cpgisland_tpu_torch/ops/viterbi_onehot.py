@@ -16,12 +16,14 @@ untouched.  The flat batch decoder's score arm runs the backpointer pass
 through B6, which also emits the per-step chain max.  The stacked decode
 (:func:`decode_batch_flat_stacked`, B26-B28) runs M models of one alphabet
 over one shared pair stream, one launch per pass for every member.  The
-kernels (``csrc/viterbi_onehot.cu``) run one thread per lane
-over the time-major [bk, nb] streams, with the pair tables in shared memory
-(at most :data:`MAX_PAIRS` rows: 16 symbols with record resets); each
-wrapper below launches its kernel for a CUDA tensor, takes the plain
-PyTorch version for a CPU tensor, and raises otherwise.  Max-plus is adds
-and maxes only, so kernel and plain version agree bit for bit.
+kernels (``csrc/viterbi_onehot.cu``) run one thread per lane (B1: per row
+of a lane's 2x2 product up to 48 Ki lanes, or 32 Ki lanes x members; B3:
+per segment of a lane's walk, the segments joined by exact bits) over the
+time-major [bk, nb] streams, with the pair tables in shared memory (at
+most :data:`MAX_PAIRS` rows: 16 symbols with record resets); each wrapper
+below launches its kernel for a CUDA tensor, takes the plain PyTorch
+version for a CPU tensor, and raises otherwise.  Max-plus is adds and maxes
+only, so kernel and plain version agree bit for bit.
 
 Exactness domain: one-hot emissions with exactly two states per symbol, and
 a known real symbol before each segment's first step (``prev0``).  PAD
@@ -48,6 +50,11 @@ GROUP = REDUCED_GROUP
 # carries for alphabets of up to MAX_SYMBOLS symbols.
 MAX_SYMBOLS = 16
 MAX_PAIRS = MAX_SYMBOLS * MAX_SYMBOLS + 2 * MAX_SYMBOLS
+# The segment length, in packed words (8 steps a word), B3 / B28's wrappers
+# pass to the kernel: 0 takes the kernel's own (csrc/viterbi_onehot.cu
+# BT_SEG, doubled on many lanes), which the kernel lengthens where a lane would need more segments
+# than a block holds.  The card tests set other lengths.
+BT_SEG_WORDS = 0
 
 _I32 = torch.int32
 _F32 = torch.float32
@@ -383,6 +390,44 @@ def oh_backtrace_stacked_plain(bp: torch.Tensor, pair2: torch.Tensor, idtabs: to
     return path
 
 
+def oh_backtrace_stacked_sub_plain(bp: torch.Tensor, pair2: torch.Tensor, idtabs: torch.Tensor,
+                                   exit_bits: torch.Tensor, seg: int):
+    """B28's walk as the kernels split it, plain version (for the tests):
+    each lane's nw = bk/8 words in G = ceil(nw / seg) segments of ``seg``
+    words, [s seg, min((s + 1) seg, nw)).  Each segment's map (the bit
+    below its first step from the bit at its last, walked from both bits)
+    is computed without the bit that enters it; the exit bit goes through
+    the maps of the segments above to each segment's last step, and each
+    segment then walks as :func:`oh_backtrace_stacked_plain` does.  Returns
+    path [M, bk, nb], equal to that one walk's."""
+    M = idtabs.shape[0]
+    bk, nb = pair2.shape
+    nw = bk // ROW_TILE
+    G = max(1, -(-nw // seg))
+    rows = _unpack_words(bp)
+    ids = idtabs[:, pair2.long()]  # [M, bk, nb, 2]
+    bounds = [(s * seg * ROW_TILE, min((s + 1) * seg, nw) * ROW_TILE) for s in range(G)]
+    maps = []
+    for k_lo, k_hi in bounds:
+        f = torch.stack([torch.zeros((M, nb), dtype=_I32, device=pair2.device),
+                         torch.ones((M, nb), dtype=_I32, device=pair2.device)])
+        for k in range(k_hi - 1, k_lo - 1, -1):
+            f = (rows[None, :, k] >> f) & 1
+        maps.append(f)
+    # The bit at each segment's last step: the exit bit through the maps of
+    # the segments above it.
+    tops, bit = [None] * G, exit_bits.to(_I32)
+    for s in range(G - 1, -1, -1):
+        tops[s] = bit
+        bit = torch.where(bit == 0, maps[s][0], maps[s][1])
+    path = torch.empty((M, bk, nb), dtype=_I32, device=pair2.device)
+    for (k_lo, k_hi), bit in zip(bounds, tops):
+        for k in range(k_hi - 1, k_lo - 1, -1):
+            path[:, k] = torch.where(bit == 0, ids[:, k, :, 0], ids[:, k, :, 1])
+            bit = (rows[:, k] >> bit) & 1
+    return path
+
+
 def oh_backtrace_plain(bp: torch.Tensor, pair2: torch.Tensor, idtab: torch.Tensor,
                        exit_bits: torch.Tensor) -> torch.Tensor:
     """Pass C, plain version: walk the 2-bit backpointers from the exit
@@ -534,6 +579,7 @@ def _backtrace_launch(name: str, bp, pair2, idtab, exit_bits, stacked: bool):
         return path if stacked else path[0]
     path = torch.empty(lead + (bk, nb), dtype=_I32, device=pair2.device)
     _kernels.launch(name, bp, pair2, idtab, exit_bits, path,
+                    seg=BT_SEG_WORDS,
                     **_launch_ints(bk, nb, nP, M, stacked))
     return path
 

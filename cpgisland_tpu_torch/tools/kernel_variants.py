@@ -29,20 +29,37 @@ variant changes nothing in the package.  On the card only, by group:
 - ``stats``: B5 (the flagship) on 1,024 and the genome's 1,390 ragged
   chunks of 65,536 steps and on 8,192 and the genome's 11,121 seq lanes of
   8,192 steps, at segments of 128 to 1,024 steps;
-- ``decode``: where the Viterbi backpointer chains take each step's pair
-  or symbol and its table row from (``csrc/viterbi_onehot.cu``: B2, B6,
-  B27 and its scores arm; ``csrc/viterbi_dense.cu``: B14 at K = 2 and 8).
-  The shipped registers read ahead (``BP_AHEAD`` / ``STEP_AHEAD`` 16; B14
-  also reads 8 steps' table rows before they run at K <= 2) against 8 and
-  32 steps ahead, the loads before the read-ahead (B2: 8 steps loaded,
-  then run; B14: one load a step), the table rows read the other way (B2:
-  a word's rows before its steps; B14: inside each step), a shared-memory
-  ring filled by 4-byte ``cp.async`` (16 steps a stage, 5 stages, no block
-  barrier), blocks of 64 threads and, unchecked, the chains with their
-  loads replaced by arithmetic (``diag_noload``); B2, B6 and B27 (M = 2)
-  at 4,096 x 16,384 and B2 and B27 (M = 2, 3) at the largest mixed-model
-  flush (8 records padded to 512 Ki: 4,096 x 1,024), B14 at 4,096 x
-  16,384.
+- ``decode``: the reduced decode kernels (``csrc/viterbi_onehot.cu``: B2,
+  B6, B27 and its scores arm, B1 / B26 and B3 / B28) and B14
+  (``csrc/viterbi_dense.cu``, K = 2 and 8). Where the max-plus chains (B1
+  and B2 share one body) take each step's pair or symbol and its table row
+  from: the shipped registers read ahead (``BP_AHEAD`` / ``STEP_AHEAD`` 16;
+  B14 also reads 8 steps' table rows before they run at K <= 2) against 8
+  and 32 steps ahead, the loads before the read-ahead (8 steps loaded, then
+  run; B14: one load a step), the table rows read the other way (a word's
+  rows before its steps; B14: inside each step), a shared-memory ring filled
+  by 4-byte ``cp.async`` (16 steps a stage, 5 stages, no block barrier),
+  B2's blocks of 64 threads and, unchecked, the chains with their loads
+  replaced by arithmetic (``diag_noload``). B1 / B26 one row a thread
+  (blocks of 128, the two rows of a lane on neighbouring threads) up to 48
+  Ki lanes or 32 Ki lanes x members and one thread a lane past them,
+  against the rows on every lane count (``prod_rows``, and so each row
+  layout below), blocks of 64 and 256, one thread a lane (as the parent
+  ran it, or read ahead), B26's member on the grid's x axis (``prod_member_x``), at least 10
+  blocks an SM (``prod_min10``) and the two rows of a lane a warp apart
+  (``prod_warp_rows``). B3 / B28 in segments of 16 words (32 past 32 Ki
+  lanes x members) joined by exact bits (``BT_AHEAD`` 16 steps read
+  ahead, at most 32 segments a block, B28's member on the grid's x axis)
+  against 8 and 32 steps ahead, at most 16
+  segments, B28's member on y (``bt_member_y``), each word's bits resolved
+  for both entering bits off the chain (``bt_resolved``), the segments on a
+  (lane block, segment) grid in two launches (``bt_grid2``), the parent's
+  one thread a lane and, unchecked, the walk with no loads or no stores;
+  segments of 16 to 256 words (:data:`BT_SEGS`) on the shipped build and
+  three others. The reduced kernels at 4,096 x 16,384 (M = 2 and 5, B26 also
+  at 3 and 4, B1 also on 32, 48 and 64 Ki lanes, and S = 16 at M = 2) and
+  at the largest mixed-model flush (8 records padded to 512 Ki: 4,096 x
+  1,024; M = 2, 3), B14 at 4,096 x 16,384.
 
 Each variant's outputs are held against its group's unchanged build (bit
 for bit for B16, B18 and the decode chains, within rtol 1e-5 / atol 1e-3 for the B5 layouts;
@@ -57,6 +74,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -712,17 +730,16 @@ _ONE_THREAD = [(f"case {k}: return CALL_{d}X({k});", f"case {k}: return CALL_{d}
 # (csrc/viterbi_dense.cu) take each step's pair or symbol and table row
 # from.  Each text replaces the shipped code from its first anchor up to
 # (not including) its second; the chain's operations are the same in all.
-_OH_REGION = ("// B2 and B6 share one chain body.", "// B2 / B6, and with M > 1")
+_OH_REGION = ("// B1, B2 and B6 share one chain body", "// B2 / B6, and with M > 1")
 _DENSE_REGION = ("// B14: replaces _backpointers_kernel.", "// B15: replaces _backtrace_kernel.")
 
-# B2 / B6 as they ran before the read-ahead: 8 steps loaded, then run,
-# then the next 8.
-TILE8_OH_BODY = r"""template <bool WANT_DMAX>
+# The chain body (B1, B2, B6) as B2 / B6 ran before the read-ahead: 8 steps
+# loaded, then run, then the next 8.
+TILE8_OH_BODY = r"""template <bool WANT_BP, bool WANT_DMAX>
 __device__ __forceinline__ void oh_backpointers_body(
-    const int32_t* __restrict__ pair2, const float* __restrict__ v_red,
-    const float* __restrict__ s_tab, int32_t* __restrict__ bp, float* __restrict__ dexit,
-    int32_t* __restrict__ ebits, float* __restrict__ dmax, int bk, int nb, int b) {
-  float d0 = v_red[b], d1 = v_red[(size_t)nb + b];
+    const int32_t* __restrict__ pair2, float d0, float d1, const float* __restrict__ s_tab,
+    int32_t* __restrict__ bp, float* __restrict__ dexit, int32_t* __restrict__ ebits,
+    float* __restrict__ dmax, int bk, int nb, int b) {
   int32_t E = 0b10;
   const int32_t* p = pair2 + b;
   for (int k0 = 0; k0 < bk; k0 += ROW_TILE) {
@@ -741,26 +758,28 @@ __device__ __forceinline__ void oh_backpointers_body(
       const int32_t bp1 = b1 > b0;
       d0 = fmaxf(a0, a1);
       d1 = fmaxf(b0, b1);
-      word |= (bp0 | (bp1 << 1)) << (2 * r);
-      E = ((E >> bp0) & 1) | (((E >> bp1) & 1) << 1);
+      if (WANT_BP) {
+        word |= (bp0 | (bp1 << 1)) << (2 * r);
+        E = ((E >> bp0) & 1) | (((E >> bp1) & 1) << 1);
+      }
       if (WANT_DMAX) dmax[(size_t)(k0 + r) * nb + b] = fmaxf(d0, d1);
     }
-    bp[(size_t)(k0 / ROW_TILE) * nb + b] = word;
+    if (WANT_BP) bp[(size_t)(k0 / ROW_TILE) * nb + b] = word;
   }
   dexit[b] = d0;
   dexit[(size_t)nb + b] = d1;
-  ebits[b] = E;
+  if (WANT_BP) ebits[b] = E;
 }
 
 """
 
-# B2 / B6 with each word's table rows read before its steps run.
+# The chain body with each word's table rows read before its steps run.
 ROWS_FIRST_OH_BODY = r"""// One packed word of the reduced delta recursion: the ROW_TILE steps whose
 // pairs are q[0..7].  Their table rows are read first, so no step of the
 // chain waits on a shared-memory lookup; then the steps run in order.
-// Returns the word; with WANT_DMAX stores the chain max after step r at
-// dmax_w[r * nb].
-template <bool WANT_DMAX>
+// Returns the word (WANT_BP); with WANT_DMAX stores the chain max after
+// step r at dmax_w[r * nb].
+template <bool WANT_BP, bool WANT_DMAX>
 __device__ __forceinline__ int32_t word_steps(const int* q, const float* __restrict__ s_tab,
                                               float& d0, float& d1, int32_t& E,
                                               float* __restrict__ dmax_w, int nb) {
@@ -784,19 +803,20 @@ __device__ __forceinline__ int32_t word_steps(const int* q, const float* __restr
     const int32_t bp1 = b1 > b0;
     d0 = fmaxf(a0, a1);
     d1 = fmaxf(b0, b1);
-    word |= (bp0 | (bp1 << 1)) << (2 * r);
-    E = ((E >> bp0) & 1) | (((E >> bp1) & 1) << 1);
+    if (WANT_BP) {
+      word |= (bp0 | (bp1 << 1)) << (2 * r);
+      E = ((E >> bp0) & 1) | (((E >> bp1) & 1) << 1);
+    }
     if (WANT_DMAX) dmax_w[(size_t)r * nb] = fmaxf(d0, d1);
   }
   return word;
 }
 
-template <bool WANT_DMAX>
+template <bool WANT_BP, bool WANT_DMAX>
 __device__ __forceinline__ void oh_backpointers_body(
-    const int32_t* __restrict__ pair2, const float* __restrict__ v_red,
-    const float* __restrict__ s_tab, int32_t* __restrict__ bp, float* __restrict__ dexit,
-    int32_t* __restrict__ ebits, float* __restrict__ dmax, int bk, int nb, int b) {
-  float d0 = v_red[b], d1 = v_red[(size_t)nb + b];
+    const int32_t* __restrict__ pair2, float d0, float d1, const float* __restrict__ s_tab,
+    int32_t* __restrict__ bp, float* __restrict__ dexit, int32_t* __restrict__ ebits,
+    float* __restrict__ dmax, int bk, int nb, int b) {
   int32_t E = 0b10;
   const int32_t* p = pair2 + b;
   int q[BP_AHEAD], qn[BP_AHEAD];
@@ -806,17 +826,19 @@ __device__ __forceinline__ void oh_backpointers_body(
 #pragma unroll
     for (int w = 0; w < BP_AHEAD / ROW_TILE; ++w) {
       const int kw = k0 + w * ROW_TILE;
-      if (kw < bk)
-        bp[(size_t)(kw / ROW_TILE) * nb + b] = word_steps<WANT_DMAX>(
+      if (kw < bk) {
+        const int32_t word = word_steps<WANT_BP, WANT_DMAX>(
             q + w * ROW_TILE, s_tab, d0, d1, E, WANT_DMAX ? dmax + (size_t)kw * nb + b : nullptr,
             nb);
+        if (WANT_BP) bp[(size_t)(kw / ROW_TILE) * nb + b] = word;
+      }
     }
 #pragma unroll
     for (int r = 0; r < BP_AHEAD; ++r) q[r] = qn[r];
   }
   dexit[b] = d0;
   dexit[(size_t)nb + b] = d1;
-  ebits[b] = E;
+  if (WANT_BP) ebits[b] = E;
 }
 
 """
@@ -862,12 +884,11 @@ _RING_LOOP_HEAD = r"""  __shared__ int32_t s_ring[RING_D * RING_R * RING_T];
     slot = slot + 1 == RING_D ? 0 : slot + 1;
 """.replace("{", "{{").replace("}", "}}")
 
-RING_OH_BODY = _RING_ISSUE + r"""template <bool WANT_DMAX>
+RING_OH_BODY = _RING_ISSUE + r"""template <bool WANT_BP, bool WANT_DMAX>
 __device__ __forceinline__ void oh_backpointers_body(
-    const int32_t* __restrict__ pair2, const float* __restrict__ v_red,
-    const float* __restrict__ s_tab, int32_t* __restrict__ bp, float* __restrict__ dexit,
-    int32_t* __restrict__ ebits, float* __restrict__ dmax, int bk, int nb, int b) {{
-  float d0 = v_red[b], d1 = v_red[(size_t)nb + b];
+    const int32_t* __restrict__ pair2, float d0, float d1, const float* __restrict__ s_tab,
+    int32_t* __restrict__ bp, float* __restrict__ dexit, int32_t* __restrict__ ebits,
+    float* __restrict__ dmax, int bk, int nb, int b) {{
   int32_t E = 0b10;
   const int32_t* p = pair2 + b;
 """ + _RING_LOOP_HEAD + r"""#pragma unroll
@@ -886,17 +907,19 @@ __device__ __forceinline__ void oh_backpointers_body(
           const int32_t bp1 = b1 > b0;
           d0 = fmaxf(a0, a1);
           d1 = fmaxf(b0, b1);
-          word |= (bp0 | (bp1 << 1)) << (2 * r);
-          E = ((E >> bp0) & 1) | (((E >> bp1) & 1) << 1);
+          if (WANT_BP) {{
+            word |= (bp0 | (bp1 << 1)) << (2 * r);
+            E = ((E >> bp0) & 1) | (((E >> bp1) & 1) << 1);
+          }}
           if (WANT_DMAX) dmax[(size_t)(kw + r) * nb + b] = fmaxf(d0, d1);
         }}
-        bp[(size_t)(kw / ROW_TILE) * nb + b] = word;
+        if (WANT_BP) bp[(size_t)(kw / ROW_TILE) * nb + b] = word;
       }}
     }}
   }}
   dexit[b] = d0;
   dexit[(size_t)nb + b] = d1;
-  ebits[b] = E;
+  if (WANT_BP) ebits[b] = E;
 }}
 
 """
@@ -1003,6 +1026,309 @@ _DENSE_THREADS64 = [
      "dense_backpointers_kernel<K><<<(unsigned)((nb + 63) / 64), 64, smem, stream>>>(")]
 
 
+# B1 / B26 and B3 / B28 (csrc/viterbi_onehot.cu): the regions their
+# kernels and launchers span, and the layouts measured against the shipped
+# ones (a row of the product a thread; the walk in segments).
+_PROD_REGION = ("// B1: replaces cpgisland_tpu/ops/viterbi_onehot.py::_oh_products_kernel;",
+                "// B3: replaces _oh_backtrace_kernel;")
+_PROD_ROWS_REGION = (_PROD_REGION[0], "// B1 / B26 past the rows' limits")
+# The rows at every lane count (the shipped build takes one thread a lane
+# past PROD_ROWS_MAX_LANES lanes, or PROD_ROWS_MAX_STACKED lanes x members).
+_ROWS_ONLY = [("#define PROD_ROWS_MAX_LANES 49152", "#define PROD_ROWS_MAX_LANES 0x7fffffff"),
+              ("#define PROD_ROWS_MAX_STACKED 32768", "#define PROD_ROWS_MAX_STACKED 0x7fffffff")]
+_PROD_LAUNCH = ("template <bool STACKED>\nstatic int products(",
+                "template <bool WANT_DMAX, bool STACKED>\nstatic int backpointers(")
+_BT_KERNEL = ("template <bool STACKED>\n__global__ void __launch_bounds__(32 * BT_MAX_SEG)\n"
+              "oh_backtrace_kernel", "static inline dim3 grid_for")
+_BT_LAUNCH = ("template <bool STACKED>\nstatic int backtrace(", "// The C interface:")
+
+# B1 / B26 one thread a lane carrying all four entries: as the parent ran
+# it (8 steps loaded, then run), or with the pair stream read BP_AHEAD
+# steps ahead as the shipped rows are.
+_PROD_LANE_HEAD = r"""// B1: one thread a lane, the four entries of its product.
+template <bool STACKED>
+__global__ void __launch_bounds__(THREADS)
+oh_products_kernel(const int32_t* __restrict__ pair2, const float* __restrict__ tab,
+                   float* __restrict__ out, int bk, int nb, int nP) {
+  __shared__ float s_tab[MAX_PAIRS * 4];
+  const int m = STACKED ? blockIdx.y : 0;
+  const float* tab_m = tab + (size_t)m * nP * 4;
+  for (int i = threadIdx.x; i < nP * 4; i += blockDim.x) s_tab[i] = tab_m[i];
+  __syncthreads();
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= nb) return;
+  float c00 = 0.0f, c01 = LOG_ZERO, c10 = LOG_ZERO, c11 = 0.0f;
+  const int32_t* p = pair2 + b;
+"""
+_PROD_LANE_STEP = r"""      const float* t = s_tab + 4 * q[{i}];
+      const float a00 = t[0], a01 = t[1], a10 = t[2], a11 = t[3];
+      const float n00 = fmaxf(c00 + a00, c01 + a10);
+      const float n01 = fmaxf(c00 + a01, c01 + a11);
+      const float n10 = fmaxf(c10 + a00, c11 + a10);
+      const float n11 = fmaxf(c10 + a01, c11 + a11);
+      c00 = n00; c01 = n01; c10 = n10; c11 = n11;
+"""
+_PROD_LANE_TAIL = r"""  float* o = out + (size_t)m * 4 * nb;
+  o[b] = c00;
+  o[(size_t)nb + b] = c01;
+  o[2 * (size_t)nb + b] = c10;
+  o[3 * (size_t)nb + b] = c11;
+}
+
+"""
+PROD_PARENT_KERNEL = _PROD_LANE_HEAD + r"""  for (int k0 = 0; k0 < bk; k0 += ROW_TILE) {
+    int q[ROW_TILE];
+#pragma unroll
+    for (int r = 0; r < ROW_TILE; ++r) q[r] = __ldg(p + (size_t)(k0 + r) * nb);
+#pragma unroll
+    for (int r = 0; r < ROW_TILE; ++r) {
+""" + _PROD_LANE_STEP.format(i="r") + "    }\n  }\n" + _PROD_LANE_TAIL
+PROD_LANE_AHEAD_KERNEL = _PROD_LANE_HEAD + r"""  int q[BP_AHEAD], qn[BP_AHEAD];
+  load_pairs(p, nb, 0, bk, q);
+  for (int k0 = 0; k0 < bk; k0 += BP_AHEAD) {
+    load_pairs(p, nb, k0 + BP_AHEAD, bk, qn);
+#pragma unroll
+    for (int r = 0; r < BP_AHEAD; ++r) {
+      if (k0 + r < bk) {
+""" + _PROD_LANE_STEP.format(i="r") + r"""      }
+    }
+#pragma unroll
+    for (int r = 0; r < BP_AHEAD; ++r) q[r] = qn[r];
+  }
+""" + _PROD_LANE_TAIL
+PROD_LANE_LAUNCH = r"""template <bool STACKED>
+static int products(const void* pair2, const void* tab, void* out, int bk, int nb, int nP,
+                    int M, void* stream) {
+  if (bad_args(bk, nb, nP, M)) return (int)cudaErrorInvalidValue;
+  oh_products_kernel<STACKED><<<grid_for(nb, M), THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)pair2, (const float*)tab, (float*)out, bk, nb, nP);
+  return (int)cudaGetLastError();
+}
+
+"""
+
+# B3 / B28 as the parent ran them: one thread walks a whole lane, each
+# word's pointers and 8 pairs loaded, then its steps run.
+BT_PARENT_KERNEL = r"""template <bool STACKED>
+__global__ void __launch_bounds__(THREADS)
+oh_backtrace_kernel(const int32_t* __restrict__ bp, const int32_t* __restrict__ pair2,
+                    const int32_t* __restrict__ idtab, const int32_t* __restrict__ exit_bits,
+                    int32_t* __restrict__ path, int bk, int nb, int nP) {
+  __shared__ int32_t s_id[MAX_PAIRS * 2];
+  const int m = STACKED ? blockIdx.y : 0;
+  const int32_t* idtab_m = idtab + (size_t)m * nP * 2;
+  for (int i = threadIdx.x; i < nP * 2; i += blockDim.x) s_id[i] = idtab_m[i];
+  __syncthreads();
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= nb) return;
+  const int32_t* bp_m = bp + (size_t)m * (bk / ROW_TILE) * nb;
+  int32_t* path_m = path + (size_t)m * bk * nb;
+  int32_t bit = exit_bits[(size_t)m * nb + b];
+  for (int w = bk / ROW_TILE - 1; w >= 0; --w) {
+    const int32_t word = __ldg(bp_m + (size_t)w * nb + b);
+    int q[ROW_TILE];
+#pragma unroll
+    for (int r = 0; r < ROW_TILE; ++r)
+      q[r] = __ldg(pair2 + (size_t)(w * ROW_TILE + r) * nb + b);
+#pragma unroll
+    for (int r = ROW_TILE - 1; r >= 0; --r) {
+      path_m[(size_t)(w * ROW_TILE + r) * nb + b] = s_id[2 * q[r] + bit];
+      bit = (word >> (2 * r + bit)) & 1;
+    }
+  }
+}
+
+"""
+BT_PARENT_LAUNCH = r"""template <bool STACKED>
+static int backtrace(const void* bp, const void* pair2, const void* idtab,
+                     const void* exit_bits, void* path, int bk, int nb, int nP, int M, int seg,
+                     void* stream) {
+  if (bad_args(bk, nb, nP, M)) return (int)cudaErrorInvalidValue;
+  oh_backtrace_kernel<STACKED><<<grid_for(nb, M), THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)bp, (const int32_t*)pair2, (const int32_t*)idtab,
+      (const int32_t*)exit_bits, (int32_t*)path, bk, nb, nP);
+  return (int)cudaGetLastError();
+}
+
+"""
+
+# The walk with each word's 8 bits resolved for both entering bits off the
+# chain (they depend on the word only): the chain then does one select a
+# word, at twice the bit operations.
+_BT_WORD_WALK = r"""#pragma unroll
+        for (int r = ROW_TILE - 1; r >= 0; --r) {
+          out[(size_t)(kw + r) * nb] = s_id[2 * q[u * ROW_TILE + r] + bit];
+          bit = (wq[u] >> (2 * r + bit)) & 1;
+        }
+"""
+BT_RESOLVED_WALK = r"""        int32_t c0 = 0, c1 = 1, m0 = 0, m1 = 0;
+#pragma unroll
+        for (int r = ROW_TILE - 1; r >= 0; --r) {
+          m0 |= c0 << r;
+          m1 |= c1 << r;
+          c0 = (wq[u] >> (2 * r + c0)) & 1;
+          c1 = (wq[u] >> (2 * r + c1)) & 1;
+        }
+        const int32_t mk = bit ? m1 : m0;
+#pragma unroll
+        for (int r = ROW_TILE - 1; r >= 0; --r)
+          out[(size_t)(kw + r) * nb] = s_id[2 * q[u * ROW_TILE + r] + ((mk >> r) & 1)];
+        bit = bit ? c1 : c0;
+"""
+
+# The segments on a (lane block, segment, member) grid in two launches: the
+# maps pass writes every segment's map to device memory, then the walk
+# composes the maps above its segment from there (B7's (lane block,
+# sub-lane) grid).
+BT_GRID2_KERNEL = r"""__device__ uint8_t g_bt_maps[1 << 22];
+
+template <bool STACKED>
+__global__ void __launch_bounds__(THREADS)
+oh_bt_maps_kernel(const int32_t* __restrict__ bp, int bk, int nb, int seg) {
+  const int G = gridDim.y, s = blockIdx.y, m = STACKED ? blockIdx.z : 0;
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= nb || s == 0) return;
+  const int nw = bk / ROW_TILE;
+  const int lo = min(s * seg, nw), hi = min(lo + seg, nw);
+  const int32_t* wp = bp + (size_t)m * nw * nb + b;
+  int f0 = 0, f1 = 1;
+  int32_t wd[BT_MAP_AHEAD], wn[BT_MAP_AHEAD];
+  load_words(wp, nb, hi - BT_MAP_AHEAD, lo, wd);
+  for (int w0 = hi - BT_MAP_AHEAD; w0 + BT_MAP_AHEAD > lo; w0 -= BT_MAP_AHEAD) {
+    load_words(wp, nb, w0 - BT_MAP_AHEAD, lo, wn);
+#pragma unroll
+    for (int u = BT_MAP_AHEAD - 1; u >= 0; --u) {
+#pragma unroll
+      for (int r = ROW_TILE - 1; r >= 0; --r) {
+        const int32_t x = wd[u] >> (2 * r);
+        f0 = (x >> f0) & 1;
+        f1 = (x >> f1) & 1;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < BT_MAP_AHEAD; ++u) wd[u] = wn[u];
+  }
+  g_bt_maps[((size_t)m * G + s) * nb + b] = (uint8_t)(f0 | (f1 << 1));
+}
+
+template <bool STACKED>
+__global__ void __launch_bounds__(THREADS)
+oh_backtrace_kernel(const int32_t* __restrict__ bp, const int32_t* __restrict__ pair2,
+                    const int32_t* __restrict__ idtab, const int32_t* __restrict__ exit_bits,
+                    int32_t* __restrict__ path, int bk, int nb, int nP, int seg) {
+  __shared__ int32_t s_id[MAX_PAIRS * 2];
+  const int G = gridDim.y, s = blockIdx.y, m = STACKED ? blockIdx.z : 0;
+  const int32_t* idtab_m = idtab + (size_t)m * nP * 2;
+  for (int i = threadIdx.x; i < nP * 2; i += blockDim.x) s_id[i] = idtab_m[i];
+  __syncthreads();
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= nb) return;
+  const int nw = bk / ROW_TILE;
+  const int lo = min(s * seg, nw), hi = min(lo + seg, nw);
+  const int32_t* wp = bp + (size_t)m * nw * nb + b;
+  int32_t bit = exit_bits[(size_t)m * nb + b];
+  for (int t = G - 1; t > s; --t) bit = (g_bt_maps[((size_t)m * G + t) * nb + b] >> bit) & 1;
+  const int32_t* pp = pair2 + b;
+  int32_t* out = path + (size_t)m * bk * nb + b;
+  const int k_lo = lo * ROW_TILE;
+  int q[BT_AHEAD], qn[BT_AHEAD];
+  int32_t wq[BT_AHEAD / ROW_TILE], wqn[BT_AHEAD / ROW_TILE];
+  load_back(pp, wp, nb, hi * ROW_TILE - BT_AHEAD, k_lo, q, wq);
+  for (int k0 = hi * ROW_TILE - BT_AHEAD; k0 + BT_AHEAD > k_lo; k0 -= BT_AHEAD) {
+    load_back(pp, wp, nb, k0 - BT_AHEAD, k_lo, qn, wqn);
+#pragma unroll
+    for (int u = BT_AHEAD / ROW_TILE - 1; u >= 0; --u) {
+      const int kw = k0 + u * ROW_TILE;
+      if (kw >= k_lo) {
+""" + _BT_WORD_WALK + r"""      }
+    }
+#pragma unroll
+    for (int r = 0; r < BT_AHEAD; ++r) q[r] = qn[r];
+#pragma unroll
+    for (int u = 0; u < BT_AHEAD / ROW_TILE; ++u) wq[u] = wqn[u];
+  }
+}
+
+"""
+BT_GRID2_LAUNCH = r"""template <bool STACKED>
+static int backtrace(const void* bp, const void* pair2, const void* idtab,
+                     const void* exit_bits, void* path, int bk, int nb, int nP, int M, int seg,
+                     void* stream) {
+  if (bad_args(bk, nb, nP, M) || seg < 0) return (int)cudaErrorInvalidValue;
+  const int nw = bk / ROW_TILE, need = (nw + BT_MAX_SEG - 1) / BT_MAX_SEG;
+  if (seg == 0) seg = BT_SEG;
+  if (seg < need) seg = need;
+  const int G = nw > seg ? (nw + seg - 1) / seg : 1;
+  if ((size_t)M * G * nb > (1u << 22)) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((nb + THREADS - 1) / THREADS), (unsigned)G, (unsigned)M);
+  oh_bt_maps_kernel<STACKED><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)bp, bk, nb, seg);
+  oh_backtrace_kernel<STACKED><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)bp, (const int32_t*)pair2, (const int32_t*)idtab,
+      (const int32_t*)exit_bits, (int32_t*)path, bk, nb, nP, seg);
+  return (int)cudaGetLastError();
+}
+
+"""
+
+# B26 with the member on the grid's x axis and the lane block on y (B28's
+# layout), and B28 with the member on y (B26's): blocks are dispatched x
+# first, so with the member on x the M members' blocks of one lane block
+# run side by side and read the shared pair stream together.
+def _swap(*pairs):
+    def fn(text: str) -> str:
+        for a, b in pairs:
+            if a not in text:
+                raise RuntimeError(f"{a!r} not in the span")
+            text = text.replace(a, b)
+        return text
+    return fn
+
+
+_M_X = ("const int m = STACKED ? blockIdx.y : 0;", "const int m = STACKED ? blockIdx.x : 0;")
+PROD_MEMBER_X = [
+    *_ROWS_ONLY,
+    (*_PROD_ROWS_REGION, _swap(_M_X, ("const int b = blockIdx.x * (PROD_THREADS / 2)",
+                                 "const int b = (STACKED ? blockIdx.y : blockIdx.x) * "
+                                 "(PROD_THREADS / 2)"))),
+    (*_PROD_LAUNCH, _swap(("dim3(((unsigned)nb + lanes - 1) / lanes, (unsigned)M)",
+                           "STACKED ? dim3((unsigned)M, ((unsigned)nb + lanes - 1) / lanes)\n"
+                           "                 : dim3(((unsigned)nb + lanes - 1) / lanes)")))]
+BT_MEMBER_Y = [
+    (*_BT_KERNEL, _swap(_M_X[::-1], ("const int b = (STACKED ? blockIdx.y : blockIdx.x) * 32 + l;",
+                                     "const int b = blockIdx.x * 32 + l;"))),
+    (*_BT_LAUNCH, _swap(("STACKED ? dim3((unsigned)M, blocks) : dim3(blocks)",
+                         "dim3(blocks, (unsigned)M)")))]
+
+# B1 / B26 with at least 10 blocks an SM (48 registers: at M = 5 on 16,384
+# lanes the rows' 1,280 blocks then fit one wave), and with the two rows of
+# a lane a warp apart (warp w runs row w % 2 of 32 lanes, so each warp's
+# loads and stores are whole 128-byte rows, and the two rows' loads of one
+# pair meet in L1).
+_PROD_MIN10 = ("__global__ void __launch_bounds__(PROD_THREADS)\noh_products_kernel",
+               "__global__ void __launch_bounds__(PROD_THREADS, 10)\noh_products_kernel")
+_PROD_WARP_ROWS = ("  const int i = threadIdx.x % 2;\n"
+                   "  const int b = blockIdx.x * (PROD_THREADS / 2) + threadIdx.x / 2;",
+                   "  const int w = threadIdx.x / 32, i = w % 2;\n"
+                   "  const int b = blockIdx.x * (PROD_THREADS / 2) + (w / 2) * 32 + "
+                   "threadIdx.x % 32;")
+
+# Diagnostics of the segmented walk, not checked: its loads replaced by
+# words and pairs made from the step and the lane (no memory read), or its
+# stores (and their table lookups) dropped behind a test no pair passes.
+_BT_NOLOAD = [
+    ("    wd[u] = w >= lo ? __ldg(wp + (size_t)w * nb) : (int32_t)0xAAAAAAAAu;",
+     "    wd[u] = w >= lo ? (int32_t)((w * 0x9E3779B1u) ^ ((size_t)wp >> 2)) : "
+     "(int32_t)0xAAAAAAAAu;"),
+    ("    wd[u] = in ? __ldg(wp + (size_t)(kw / ROW_TILE) * nb) : 0;",
+     "    wd[u] = in ? (int32_t)((kw * 0x9E3779B1u) ^ ((size_t)wp >> 2)) : 0;"),
+    ("      q[u * ROW_TILE + r] = in ? __ldg(pp + (size_t)(kw + r) * nb) : 0;",
+     "      q[u * ROW_TILE + r] = in ? (int)(((kw + r) * 5 + ((size_t)pp >> 2)) & 15) : 0;")]
+_BT_NOSTORE = [("          out[(size_t)(kw + r) * nb] = s_id[2 * q[u * ROW_TILE + r] + bit];",
+                "          if (q[u * ROW_TILE + r] < 0)\n"
+                "            out[(size_t)(kw + r) * nb] = s_id[2 * q[u * ROW_TILE + r] + bit];")]
+
+
 def _ring(body: str, region, R: int, D: int, T: int = 128) -> list:
     """The ring design in ``region``: RING_R steps a stage, RING_D stages,
     blocks of RING_T threads."""
@@ -1017,7 +1343,8 @@ _OH_NOLOAD = (_NOLOAD, "    q[r] = (int)((k * 5 + ((size_t)p >> 2)) & 15);")
 _DENSE_NOLOAD = (_NOLOAD, "    q[r] = (int)((k * 5 + ((size_t)p >> 2)) & 3);")
 
 # name -> (source stem, replacements); a replacement of three strings
-# replaces the source from its first up to its second with its third.
+# replaces the source from its first up to its second with its third (or
+# with what its third, a function, makes of that span).
 VARIANTS = {
     "dense/base": ("fb_dense", []),
     "dense/threads64": ("fb_dense", [("#define CHAIN_THREADS 32", "#define CHAIN_THREADS 64")]),
@@ -1069,6 +1396,29 @@ VARIANTS = {
     "decode/oh_ring16x5": ("viterbi_onehot", _ring(RING_OH_BODY, _OH_REGION, 16, 5)),
     "decode/oh_threads64": ("viterbi_onehot", _OH_THREADS64),
     "decode/oh_diag_noload": ("viterbi_onehot", [_OH_NOLOAD]),
+    "decode/prod_parent": ("viterbi_onehot", [(*_PROD_REGION, PROD_PARENT_KERNEL),
+                                              (*_PROD_LAUNCH, PROD_LANE_LAUNCH)]),
+    "decode/prod_lane_ahead": ("viterbi_onehot", [(*_PROD_REGION, PROD_LANE_AHEAD_KERNEL),
+                                                  (*_PROD_LAUNCH, PROD_LANE_LAUNCH)]),
+    "decode/prod_rows": ("viterbi_onehot", _ROWS_ONLY),
+    "decode/prod_threads64": ("viterbi_onehot", [*_ROWS_ONLY, ("#define PROD_THREADS 128",
+                                                               "#define PROD_THREADS 64")]),
+    "decode/prod_threads256": ("viterbi_onehot", [*_ROWS_ONLY, ("#define PROD_THREADS 128",
+                                                                "#define PROD_THREADS 256")]),
+    "decode/bt_parent": ("viterbi_onehot", [(*_BT_KERNEL, BT_PARENT_KERNEL),
+                                            (*_BT_LAUNCH, BT_PARENT_LAUNCH)]),
+    "decode/bt_ahead8": ("viterbi_onehot", [("#define BT_AHEAD 16", "#define BT_AHEAD 8")]),
+    "decode/bt_ahead32": ("viterbi_onehot", [("#define BT_AHEAD 16", "#define BT_AHEAD 32")]),
+    "decode/bt_max16": ("viterbi_onehot", [("#define BT_MAX_SEG 32", "#define BT_MAX_SEG 16")]),
+    "decode/bt_member_y": ("viterbi_onehot", BT_MEMBER_Y),
+    "decode/prod_member_x": ("viterbi_onehot", PROD_MEMBER_X),
+    "decode/prod_min10": ("viterbi_onehot", [*_ROWS_ONLY, _PROD_MIN10]),
+    "decode/prod_warp_rows": ("viterbi_onehot", [*_ROWS_ONLY, _PROD_WARP_ROWS]),
+    "decode/bt_resolved": ("viterbi_onehot", [(_BT_WORD_WALK, BT_RESOLVED_WALK)]),
+    "decode/bt_grid2": ("viterbi_onehot", [(*_BT_KERNEL, BT_GRID2_KERNEL),
+                                           (*_BT_LAUNCH, BT_GRID2_LAUNCH)]),
+    "decode/bt_diag_noload": ("viterbi_onehot", _BT_NOLOAD),
+    "decode/bt_diag_nostore": ("viterbi_onehot", _BT_NOSTORE),
     "decode/dense_base": ("viterbi_dense", []),
     "decode/dense_step1": ("viterbi_dense", [(*_DENSE_REGION, STEP1_DENSE_KERNEL)]),
     "decode/dense_rows_inline": ("viterbi_dense", [("constexpr int TT = K * K <= 4 ? 8 : 1;",
@@ -1090,9 +1440,16 @@ PTXAS_OF = {"dense": ("_Z17fb_fwd_sub_kernelILi2E", "_Z17fb_bwd_sub_kernelILi2E"
                       "_Z18fb_bwd_warp", "_Z19fb_fwd_stage", "_Z19fb_bwd_stage",
                       "_Z13fb_fwd_kernelILi8E", "_Z13fb_bwd_kernelILi8ELb0E"),
             "stats": ("_Z24oh_seq_stats_part_kernel",),
-            "decode": ("_Z22oh_backpointers_kernel", "_Z25dense_backpointers_kernel")}
+            "decode": ("_Z22oh_backpointers_kernel", "_Z25dense_backpointers_kernel",
+                       "_Z18oh_products_kernel", "_Z23oh_products_lane_kernel",
+                       "_Z19oh_backtrace_kernel",
+                       "_Z17oh_bt_maps_kernel")}
 SPLIT_K = (5, 8)
 _P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+# variant -> the source its build compiled.
+SOURCES = {}
 
 
 def build_all(groups) -> dict:
@@ -1105,13 +1462,15 @@ def build_all(groups) -> dict:
             continue
         src = (_kernels._CSRC / f"{stem}.cu").read_text()
         for rep in reps + ([_SPB_CHECK] if stem == "fb_onehot" else []):
-            if any(a not in src for a in rep[:-1]):
-                raise RuntimeError(f"{name}: {rep[0]!r} not in {stem}.cu")
+            missing = [a for a in rep[:-1] if a not in src]
+            if missing:
+                raise RuntimeError(f"{name}: {missing[0]!r} not in {stem}.cu")
             if len(rep) == 3:
                 i, j = src.index(rep[0]), src.index(rep[1])
-                src = src[:i] + rep[2] + src[j:]
+                src = src[:i] + (rep[2](src[i:j]) if callable(rep[2]) else rep[2]) + src[j:]
             else:
                 src = src.replace(*rep)
+        SOURCES[name] = src
         tag = name.replace("/", "_")
         path, lib = OUT_DIR / f"{tag}.cu", OUT_DIR / f"lib{tag}.so"
         path.write_text(src)
@@ -1314,34 +1673,42 @@ def run_stats(name, lib, inputs, want) -> dict:
     return row
 
 
-def _members(dev, M: int) -> list:
-    """The flagship plus M - 1 random partition=2 members of its alphabet,
-    their states renumbered at random (chip_smoke's stacked decode)."""
+def _members(dev, M: int, S: int = 4) -> list:
+    """The flagship (S = 4) or dinuc_cpg (S = 16) plus M - 1 random
+    partition=2 members of its alphabet, their states renumbered at random
+    (chip_smoke's stacked decode)."""
     gen = torch.Generator().manual_seed(0)
-    out = [presets.durbin_cpg8(device=dev)]
+    out = [presets.durbin_cpg8(device=dev) if S == 4 else presets.dinuc_cpg(device=dev)]
     for _ in range(M - 1):
-        q = presets.random_hmm(gen, 8, 4, partition=2, device=dev)
-        perm = torch.randperm(8, generator=gen).to(dev)
+        q = presets.random_hmm(gen, 2 * S, S, partition=2, device=dev)
+        perm = torch.randperm(2 * S, generator=gen).to(dev)
         out.append(HmmParams(q.log_pi[perm], q.log_A[perm][:, perm], q.log_B[perm]))
     return out
 
 
 def _oh_operands(rng, members, steps2, prev0, resets, pre=None):
-    """(pair2, v_red [M, 2, nb], tabs [M, nP, 4]) of a stacked decode over
-    ``steps2``, with random entering vectors."""
-    _, _, tabs, _, pair2, _, e_out, nreal = OH.stacked_prepared(members, steps2, prev0, resets,
-                                                                pre)
+    """(pair2, v_red [M, 2, nb], tabs [M, nP, 4], idtabs [M, nP, 2], bp
+    [M, bk/8, nb], exit bits [M, nb]) of a stacked decode over ``steps2``,
+    with random entering vectors and exit bits; bp is the plain version's
+    pointers from those vectors."""
+    _, _, tabs, idtabs, pair2, _, e_out, nreal = OH.stacked_prepared(members, steps2, prev0,
+                                                                     resets, pre)
     pair2 = OH._pad_pair_rows(pair2, e_out, nreal)
     M, nb = len(members), pair2.shape[1]
     v = rng.normal(scale=3.0, size=(M, 2, nb)).astype(np.float32)
     v_red = torch.from_numpy(v - v.max(axis=1, keepdims=True)).to(steps2.device)
-    return pair2, v_red, torch.stack(tabs).contiguous()
+    tabs, idtabs = torch.stack(tabs).contiguous(), torch.stack(idtabs).contiguous()
+    bp = OH.oh_backpointers_stacked_plain(pair2, v_red, tabs)[0]
+    bits = torch.from_numpy(rng.integers(0, 2, size=(M, nb)).astype(np.int32)).to(steps2.device)
+    return pair2, v_red, tabs, idtabs, bp, bits
 
 
 def decode_inputs(rng, dev, bk: int = 4096, nb: int = 16384, T: int = 512 << 10) -> dict:
     """geometry -> the reduced decode's operands: ``big``, 4,096 x 16,384
-    steps of the flagship's alphabet (PAD runs, sparse resets) under M = 2
-    members; ``flush``, the largest mixed-model flush (8 records padded to
+    steps of the flagship's alphabet (PAD runs, sparse resets) under M = 5
+    members (``wide``, its pair stream side by side to B1_WIDE_NB lanes);
+    ``big16``, the same geometry over dinuc_cpg's 16 symbols under
+    M = 2; ``flush``, the largest mixed-model flush (8 records padded to
     512 Ki symbols, one flat reset stream: 4,096 x 1,024) under M = 3; and
     ``dense2`` / ``dense8``, B14's 4,096 x 16,384 symbol streams (PAD runs)
     with two_state's and the flagship's tables."""
@@ -1351,7 +1718,12 @@ def decode_inputs(rng, dev, bk: int = 4096, nb: int = 16384, T: int = 512 << 10)
         steps[k0 : k0 + n, b] = 4
     steps_d = torch.from_numpy(steps).to(dev)
     resets = torch.from_numpy(rng.random((bk, nb)) < 1e-4).to(dev)
-    out = {"big": _oh_operands(rng, _members(dev, 2), steps_d, 1, resets)}
+    out = {"big": _oh_operands(rng, _members(dev, 5), steps_d, 1, resets)}
+    out["wide"] = out["big"][0].repeat(1, -(-max(B1_WIDE_NB) // nb))
+    steps16 = rng.integers(0, 16, size=(bk, nb)).astype(np.int32)
+    steps16[steps == 4] = 16
+    out["big16"] = _oh_operands(rng, _members(dev, 2, S=16), torch.from_numpy(steps16).to(dev),
+                                1, resets)
     rows = torch.from_numpy(rng.integers(0, 4, size=(8, T)).astype(np.uint8)).to(dev)
     lengths = torch.from_numpy(np.array([T, T // 2, 3 * T // 4, T // 7, T, T // 3, T - 9, T // 128],
                                         np.int32)).to(dev)
@@ -1365,37 +1737,83 @@ def decode_inputs(rng, dev, bk: int = 4096, nb: int = 16384, T: int = 512 << 10)
     return out
 
 
-def run_decode(name, lib, inputs, ref) -> dict:
-    """The variant's B2, B6 and B27 (both arms) at 4,096 x 16,384 (M = 2)
-    and B2 and B27 at the flush's geometry (M = 2, 3), or its B14 at K = 2
-    and 8: ms and bit equality with the shipped build's outputs."""
-    calls = []  # (key, C function, operands, int arguments, outputs)
-    if "/oh_" in name:
-        b2, b6 = c_fn(lib, "oh_backpointers", 6, 3), c_fn(lib, "oh_backpointers_scores", 7, 3)
-        b27 = c_fn(lib, "oh_backpointers_stacked", 6, 4)
-        b27s = c_fn(lib, "oh_backpointers_stacked_scores", 7, 4)
-        for geo, Ms in (("big", (2,)), ("flush", (2, 3))):
-            pair2, v_red, tabs = inputs[geo]
-            bk, nb = pair2.shape
-            nP, dev = tabs.shape[1], pair2.device
+# B3 / B28's segment lengths (words) swept at both geometries; a length
+# whose lanes would need more segments than the build's BT_MAX_SEG (the
+# kernel would lengthen it) is skipped.
+BT_SEGS = (16, 32, 64, 128, 256)
+# B1's lanes beside 16,384: the 4,096 x 16,384 stream side by side.
+B1_WIDE_NB = (32768, 49152, 65536)
 
-            def out(*lead, scores=False):
-                return [torch.empty(lead + (bk // 8, nb), dtype=torch.int32, device=dev),
-                        torch.empty(lead + (2, nb), device=dev),
-                        torch.empty(lead + (nb,), dtype=torch.int32, device=dev)] + (
-                            [torch.empty(lead + (bk, nb), device=dev)] if scores else [])
-            one = [pair2, v_red[0], tabs[0]]
-            calls.append((f"b2_{geo}", b2, one, [bk, nb, nP], out()))
-            if geo == "big":
-                calls.append(("b6_big", b6, one, [bk, nb, nP], out(scores=True)))
-                calls.append(("b27s_m2_big", b27s, [pair2, v_red[:2].contiguous(),
-                                                    tabs[:2].contiguous()],
-                              [bk, nb, nP, 2], out(2, scores=True)))
-            for M in Ms:
-                calls.append((f"b27_m{M}_{geo}", b27, [pair2, v_red[:M].contiguous(),
-                                                       tabs[:M].contiguous()],
-                              [bk, nb, nP, M], out(M)))
+
+def _oh_calls(lib, name, inputs) -> list:
+    """The reduced decode kernels of a viterbi_onehot build, as (key, C
+    function, operands, int arguments, outputs, segment sweep): B2, B6,
+    B27 (both arms), B1, B26, B3 and B28 at 4,096 x 16,384 (M = 2; B26,
+    B27 and B28 also at M = 5, B26 at M = 3 and 4, B1 also on
+    B1_WIDE_NB lanes, and at S = 16), and B2, B27, B1, B26, B3 and B28 at
+    the flush (M = 2, 3).  B3 / B28 take the kernel's own segment length
+    (seg 0); the sweep's lengths are passed."""
+    b2, b6 = c_fn(lib, "oh_backpointers", 6, 3), c_fn(lib, "oh_backpointers_scores", 7, 3)
+    b27 = c_fn(lib, "oh_backpointers_stacked", 6, 4)
+    b27s = c_fn(lib, "oh_backpointers_stacked_scores", 7, 4)
+    b1, b26 = c_fn(lib, "oh_products", 3, 3), c_fn(lib, "oh_products_stacked", 3, 4)
+    b3, b28 = c_fn(lib, "oh_backtrace", 5, 4), c_fn(lib, "oh_backtrace_stacked", 5, 5)
+    sweep = name in ("decode/oh_base", "decode/bt_max16", "decode/bt_member_y",
+                     "decode/bt_resolved", "decode/bt_grid2")
+    calls = []
+    for geo, Ms in (("big", (2, 5)), ("big16", (2,)), ("flush", (2, 3))):
+        pair2, v_red, tabs, idtabs, bp, bits = inputs[geo]
+        bk, nb = pair2.shape
+        nP, dev = tabs.shape[1], pair2.device
+        segs = [g for g in BT_SEGS if sweep and geo != "big16"
+                and -(-bk // 8 // g) <= _define(name, "BT_MAX_SEG")]
+
+        def out(*lead, scores=False):
+            return [torch.empty(lead + (bk // 8, nb), dtype=torch.int32, device=dev),
+                    torch.empty(lead + (2, nb), device=dev),
+                    torch.empty(lead + (nb,), dtype=torch.int32, device=dev)] + (
+                        [torch.empty(lead + (bk, nb), device=dev)] if scores else [])
+        one = [pair2, v_red[0], tabs[0]]
+        first = lambda t: t[0].contiguous()  # noqa: E731
+        calls.append((f"b2_{geo}", b2, one, [bk, nb, nP], out(), ()))
+        calls.append((f"b1_{geo}", b1, [pair2, tabs[0]], [bk, nb, nP],
+                      [torch.empty((4, nb), device=dev)], ()))
+        calls.append((f"b3_{geo}", b3, [first(bp), pair2, first(idtabs), first(bits)],
+                      [bk, nb, nP, 0], [torch.empty((bk, nb), dtype=torch.int32, device=dev)],
+                      segs))
+        if geo == "big":
+            for wide in B1_WIDE_NB:
+                w = inputs["wide"][:, :wide].contiguous()
+                calls.append((f"b1_nb{wide}_big", b1, [w, tabs[0]], [bk, wide, nP],
+                              [torch.empty((4, wide), device=dev)], ()))
+            for M in (3, 4):
+                calls.append((f"b26_m{M}_big", b26, [pair2, tabs[:M].contiguous()],
+                              [bk, nb, nP, M], [torch.empty((M, 4, nb), device=dev)], ()))
+            calls.append(("b6_big", b6, one, [bk, nb, nP], out(scores=True), ()))
+            calls.append(("b27s_m2_big", b27s, [pair2, v_red[:2].contiguous(),
+                                                tabs[:2].contiguous()],
+                          [bk, nb, nP, 2], out(2, scores=True), ()))
+        for M in Ms:
+            head = lambda t: t[:M].contiguous()  # noqa: E731
+            calls.append((f"b27_m{M}_{geo}", b27, [pair2, head(v_red), head(tabs)],
+                          [bk, nb, nP, M], out(M), ()))
+            calls.append((f"b26_m{M}_{geo}", b26, [pair2, head(tabs)], [bk, nb, nP, M],
+                          [torch.empty((M, 4, nb), device=dev)], ()))
+            calls.append((f"b28_m{M}_{geo}", b28, [head(bp), pair2, head(idtabs), head(bits)],
+                          [bk, nb, nP, M, 0],
+                          [torch.empty((M, bk, nb), dtype=torch.int32, device=dev)],
+                          segs if M != 3 else ()))
+    return calls
+
+
+def run_decode(name, lib, inputs, ref) -> dict:
+    """The variant's reduced decode kernels (:func:`_oh_calls`; B3 / B28
+    also at each of BT_SEGS for the segmented builds), or its B14 at K = 2
+    and 8: ms and bit equality with the shipped build's outputs."""
+    if VARIANTS[name][0] == "viterbi_onehot":
+        calls = _oh_calls(lib, name, inputs)
     else:
+        calls = []
         b14 = c_fn(lib, "dense_backpointers", 7, 4)
         for K in (2, 8):
             steps, v, logAT, logB = inputs[f"dense{K}"]
@@ -1404,20 +1822,28 @@ def run_decode(name, lib, inputs, ref) -> dict:
                     torch.empty((K, nb), device=steps.device),
                     torch.empty((nb,), dtype=torch.int32, device=steps.device)]
             calls.append((f"b14_k{K}", b14, [steps, v, logAT, logB], [bk, nb, K, logB.shape[1]],
-                          outs))
+                          outs, ()))
+    checked = "_diag_" not in name
     row = {"variant": name}
-    for key, fn, operands, ints, outs in calls:
-        def launch(fn=fn, tensors=operands + outs, ints=ints):
-            fn(tensors, ints)
-        row[f"{key}_ms"] = time_ms(launch)
-        launch()
-        if name.split("/")[1].startswith(("oh_diag", "dense_diag")):
-            continue
-        if key not in ref:
-            ref[key] = [x.clone() for x in outs]
-        else:
-            row[f"{key}_bit_equal"] = all(torch.equal(a, b) for a, b in zip(outs, ref[key]))
+    for key, fn, operands, ints, outs, segs in calls:
+        runs = [(key, ints)] + [(f"{key}_seg{g}", ints[:-1] + [g]) for g in segs]
+        for rkey, rints in runs:
+            def launch(fn=fn, tensors=operands + outs, ints=rints):
+                fn(tensors, ints)
+            row[f"{rkey}_ms"] = time_ms(launch)
+            launch()
+            if not checked:
+                continue
+            if key not in ref:
+                ref[key] = [x.clone() for x in outs]
+            else:
+                row[f"{rkey}_bit_equal"] = all(torch.equal(a, b) for a, b in zip(outs, ref[key]))
     return row
+
+
+def _define(name: str, macro: str) -> int:
+    """The value of ``#define macro`` in the variant's built source."""
+    return int(re.search(rf"^#define {macro} (\d+)", SOURCES[name], re.M).group(1))
 
 GROUPS = ("dense", "split", "stats", "decode")
 

@@ -36,10 +36,24 @@ def cuda_device():
 # block of 128 and past one.
 DECODE_BK = (8, 24, 40, 4104)
 DECODE_NB = (1, 33, 127, 129, 1024)
+# B3 / B28's segment tails (16-word segments: 520 steps leave a 1-word last
+# segment; 4,104 steps make 31 segments of 17 words, the last of 3) and B3 /
+# B28's 32-lane blocks.
+SEG_BK = (520, 4104)
+SEG_NB = (31, 33, 65)
+SEG_TAILS = [(bk, nb) for bk in SEG_BK for nb in SEG_NB
+             if not (bk in DECODE_BK and nb in DECODE_NB)]
+# B1 / B26 at their rows' limits (48 Ki lanes of one model, 32 Ki lanes x
+# members of several) and past them (one thread a lane; B3 / B28 then take
+# 32-word segments, two at 264 steps): (bk, nb) for B1, (S, M, bk, nb) for
+# B26, whose members are then held against B1's rows on their own lanes.
+PROD_LIMIT = [(264, 49152), (264, 49153)]
+PROD_LIMIT_STACKED = [(16, 2, 264, 16384), (4, 3, 264, 16384), (16, 5, 264, 9831)]
 
 
 @pytest.mark.parametrize("bk,nb", [(64, 130), (4096, 257)]
-                         + [(bk, nb) for bk in DECODE_BK for nb in DECODE_NB])
+                         + [(bk, nb) for bk in DECODE_BK for nb in DECODE_NB] + SEG_TAILS
+                         + PROD_LIMIT)
 def test_kernels_equal_plain_versions(cuda_device, bk, nb):
     """B1, B2, B6 and B3 equal their plain versions bit for bit; one launch
     each."""
@@ -1106,7 +1120,10 @@ STACKED_DECODE = ("oh_products_stacked", "oh_backpointers_stacked",
                          + [(S, M, bk, nb) for S in (4, 16) for M in (1, 2, 5)
                             for bk, nb in zip(DECODE_BK + (40,), DECODE_NB[::-1])
                             if (S, M) != (4, 2)]
-                         + [(4, 2, bk, nb) for bk in DECODE_BK for nb in DECODE_NB])
+                         + [(4, 2, bk, nb) for bk in DECODE_BK for nb in DECODE_NB]
+                         # the segment tails at every (S, M)
+                         + [(S, M, bk, nb) for S in (4, 16) for M in (1, 2, 5)
+                            for bk, nb in SEG_TAILS] + PROD_LIMIT_STACKED)
 def test_stacked_decode_kernels_equal_plain_and_single(cuda_device, S, M, bk, nb):
     """B26, B27 (both arms) and B28 equal their plain versions bit for bit
     over a reset-renumbered stream with PAD runs, and each member's slice
@@ -1166,6 +1183,37 @@ def test_dinuc_flat_decode_kernels_equal_plain(cuda_device, monkeypatch):
                                              return_score=True)
     assert torch.equal(paths, paths_p) and torch.equal(scores, scores_p)
     assert torch.isfinite(scores).all()
+
+
+@pytest.mark.parametrize("seg", [1, 3, 64])
+@pytest.mark.parametrize("M", [1, 2, 5])
+@pytest.mark.parametrize("bk,nb", [(24, 33), (520, 65), (4104, 31)])
+def test_backtrace_segments_equal_one_walk(cuda_device, monkeypatch, bk, nb, M, seg):
+    """B3 and B28 with ``seg``-word segments (the kernel lengthens them
+    where a lane would need more than its 32 segments: 17 words at 4,104
+    steps for 1 and 3) equal the one walk's plain version bit for bit; one
+    launch a call."""
+    monkeypatch.setattr(OH, "BT_SEG_WORDS", seg)
+    rng = np.random.default_rng(bk + nb + M + seg)
+    members = _decode_members(4, M, cuda_device)
+    steps = _decode_symbols(rng, 4, (nb, bk)).T.astype(np.int32).copy()
+    steps[rng.random((bk, nb)) < 0.02] = 4
+    resets = torch.from_numpy(rng.random((bk, nb)) < 0.01).to(cuda_device)
+    _, _, tabs, idtabs, pair2, _, _, _ = OH.stacked_prepared(
+        members, torch.from_numpy(steps).to(cuda_device), int(steps[0, 0]) % 4, resets)
+    tabs, idtabs = torch.stack(tabs), torch.stack(idtabs)
+    v = torch.from_numpy(rng.normal(size=(M, 2, nb)).astype(np.float32)).to(cuda_device)
+    bits = torch.from_numpy(rng.integers(0, 2, size=(M, nb)).astype(np.int32)).to(cuda_device)
+    bp = OH.oh_backpointers_stacked_plain(pair2, v, tabs)[0]
+    want = OH.oh_backtrace_stacked_plain(bp, pair2, idtabs, bits)
+    kernels = ("oh_backtrace", "oh_backtrace_stacked")
+    before = {k: _kernels.launches[k] for k in kernels}
+    path = OH.oh_backtrace_stacked(bp, pair2, idtabs, bits)
+    one = OH.oh_backtrace(bp[0].contiguous(), pair2, idtabs[0], bits[0].contiguous())
+    torch.cuda.synchronize()
+    assert all(_kernels.launches[k] == before[k] + 1 for k in kernels)
+    assert torch.equal(path, want)
+    assert torch.equal(one, want[0])
 
 
 @pytest.mark.parametrize("S,M", [(4, 3), (16, 2)])
