@@ -15,8 +15,8 @@ JSON line each:
    part kernel, the scoring kernels, B9 / B22 and B10 / B23, one chain
    and in sub-lanes, with B11 beside them, the Viterbi backpointer
    chains B2 / B6 / B27 and B14 with their streams read ahead, B1 / B26
-   one row of the product a thread and B3 / B28 in segments joined by
-   exact bits);
+   and B13 one row of the product a thread and B3 / B28 in segments
+   joined by exact bits, and B19 in B18's sub-lanes and state split);
 2. kernels: B1-B3 at full size (bk=4096, nb=16384: 64 Mi steps, PAD runs
    and record resets in the pair stream), B4-B5 at NL=1024 lanes x
    Tp=65,536 steps (ragged lengths, a short last lane, PAD tails), and B7
@@ -80,7 +80,9 @@ JSON line each:
    (the big record is demoted to the dense kernels: B13-B15 > 0, the
    scaffolds keep the flat reduced batch: B1-B3 > 0) and clean with the
    two_state preset and ``island_states=(0,)`` (B13-B15 > 0, B1-B3 = 0),
-   with wall, per-phase seconds and launch counts;
+   with wall, per-phase seconds and launch counts; then B13 on the
+   operands of the largest two_state scaffold flush, bit-equal to its
+   plain version, timed through its wrapper and its C entry;
 11. island engines: the clean decode and both dense decodes again with
    ``island_engine="host"`` — island files identical to the device
    engine's (the default on the card), islands phase seconds both ways;
@@ -94,8 +96,9 @@ JSON line each:
    PAD tail), for K=8 (the flagship's tables) and K=2 (two_state), and B16
    and B18 at both geometries for K=5 (a random model) — B16-B19 bit-equal
    to their plain versions, B20 within rtol 1e-5 / atol 1e-3 — with median
-   time, bound and plain-version time, B16 / B18 rows naming their CUDA
-   kernel (``cuda_kernel``: at K >= 5 the state-split chains); B18 also on
+   time, bound and plain-version time, B16 / B18 / B19 rows naming their
+   CUDA kernel (``cuda_kernel``: at K >= 5 the state-split chains; B19 in
+   B18's sub-lanes at K = 2) and their sub-lanes; B18 also on
    the posterior lanes, and at K = 2 at both geometries in one sub-lane
    (bit-equal to its plain version) and in 256-step and 1, 2, 4 and 8 Ki
    sub-lanes (``fb_pallas.BWD_SUBLANE_T``: timed); B16 likewise at K = 2 in
@@ -264,7 +267,7 @@ from cpgisland_tpu_torch.ops import viterbi_onehot as OH
 from cpgisland_tpu_torch.ops import viterbi_pallas as VP
 from cpgisland_tpu_torch.ops.islands_device import DEFAULT_CAP, call_islands_device
 from cpgisland_tpu_torch.ops.prepared import chunked_Tt, prepare_chunked, prepare_seq
-from cpgisland_tpu_torch.parallel.decode import viterbi_sharded, viterbi_sharded_spans
+from cpgisland_tpu_torch.parallel.decode import resolve_engine, viterbi_sharded, viterbi_sharded_spans
 from cpgisland_tpu_torch.family.stacked import stack_groups
 from cpgisland_tpu_torch.parallel.posterior import posterior_sharded, resolve_fb_engine
 from cpgisland_tpu_torch.train import baum_welch
@@ -309,7 +312,8 @@ REDESIGNED = ("oh_fwdbwd_kernel", "oh_fwdbwd_stacked_kernel", "fb_prod_kernel",
               "fb_loglik_kernel", "fb_loglik_sub_kernel",
               "oh_fwd_kernel", "oh_fwd_sub_kernel", "oh_bwd_kernel", "oh_bwd_sub_kernel",
               "oh_backpointers_kernel", "dense_backpointers_kernel", "oh_products_kernel",
-              "oh_products_lane_kernel", "oh_backtrace_kernel")
+              "oh_products_lane_kernel", "oh_backtrace_kernel", "dense_products_kernel",
+              "fb_bwd_sub_conf_kernel", "fb_bwd_split_conf_kernel")
 H100_SMS, SMEM_PER_SM, SMEM_PER_BLOCK_RESERVED = 132, 228 * 1024, 1024
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -1566,7 +1570,37 @@ def dense_main_phase(fa: str, tmp: str, dev) -> dict:
                              f"{len(res.calls)} islands")
         for k in DENSE_KERNELS:
             launches[k] += counts[k]
+    dense_flush_timings(fa, dev)
     return launches
+
+
+def dense_flush_timings(fa: str, dev) -> None:
+    """B13 on the operands the largest of the two_state decode's scaffold
+    flushes hands it (FLUSH_RECORDS records padded by
+    ``pipeline._pad_small_batch``, decoded by ``pipeline._batch_paths``;
+    32 of B13's 33 K = 2 launches in that run are such flushes): held bit
+    for bit against its plain version and timed (CUDA events, median of 10)
+    through its wrapper and its C entry; one line with the shape."""
+    two = presets.two_state_cpg(device=dev)
+    recs = [(name, s) for name, s in codec.iter_fasta_records(fa) if name != "chr1"]
+    flushes = [recs[i : i + FLUSH_RECORDS] for i in range(0, len(recs), FLUSH_RECORDS)]
+    rows, lengths = pipeline._pad_small_batch(
+        max(flushes, key=lambda b: pipeline._pad_small_batch(b)[0].size))
+    _, (args, got) = _captured(lambda: pipeline._batch_paths(
+        two, resolve_engine("auto", two), rows, lengths), VP, "dense_products")
+    steps, logAT, logB = args
+    bk, nb = steps.shape
+    want, plain_ms = timed_once(lambda: VP.dense_products_plain(*args))
+    equal = torch.equal(got, want)
+    emit({"phase": "dense_flush_geometry", "padded": list(rows.shape), "bk": bk, "nb": nb,
+          "K": 2, "bit_equal": equal,
+          "ms": time_ms(lambda: VP.dense_products(*args), runs=10),
+          "direct_ms": direct_ms("dense_products", [*args, got], bk=bk, nb=nb, K=2,
+                                 S=logB.shape[1]),
+          "plain_ms": plain_ms})
+    if not equal:
+        raise SystemExit("chip_smoke: B13 at the two_state flush's geometry disagrees with its "
+                         "plain version")
 
 
 def island_engine_phase(fa: str, tmp: str, dev) -> None:
@@ -1658,8 +1692,14 @@ def _agree_row(name, got, want, kernel_fn, plain_ms, n_bytes, n_ops, steps, K, t
 
 
 def chain_kernel(name: str, K: int, G: int) -> str:
-    """The CUDA kernel B16 (``fb_fwd``) or B18 (``fb_bwd``) runs at K and G
-    (csrc/fb_dense.cu)."""
+    """The CUDA kernels B16 (``fb_fwd``), B18 (``fb_bwd``) or B19
+    (``fb_bwd_conf``) run at K and G (csrc/fb_dense.cu)."""
+    if name == "fb_bwd_conf":
+        if K > FP.BWD_SUBLANE_MAX_K:
+            return f"fb_bwd_split_conf_kernel<{K}>"
+        if G > 1:
+            return f"fb_bwd_sub_kernel<{K}, true>, fb_bwd_sub_conf_kernel<{K}>"
+        return f"fb_bwd_kernel<{K}, true>"
     stem = name + "_"
     if K > FP.BWD_SUBLANE_MAX_K:
         return f"{stem}split_kernel<{K}>"
@@ -1806,11 +1846,13 @@ def dense_fb_kernel_phase(rng: np.random.Generator, dev) -> dict:
         args = (steps_next, lens2, cs_next, rand(), al, mask, A, B, POST_LANE_T)
         conf = FP.fb_bwd_conf(*args)
         conf_p, plain_ms = timed_once(lambda: FP.fb_bwd_conf_plain(*args))
+        G = FP.bwd_sublanes(Tp, K)
         keep["fb_bwd_conf"] = _agree_row(
             "fb_bwd_conf", [conf], [conf_p], lambda: FP.fb_bwd_conf(*args), plain_ms,
             # o_{t+1}, c_{t+1} and the alphas read, the confidence written
             8 * n + 4 * K * n + 4 * n + 4 * NL + 4 * K * NL + tab_b,
-            (2 * K * K + 5 * K + 2) * real, n, K, **geo)
+            (2 * K * K + 5 * K + 2) * real, n, K, sublanes=G,
+            cuda_kernel=chain_kernel("fb_bwd_conf", K, G), **geo)
         del al, conf, conf_p, prep, obs
         if K == 8:
             results = keep

@@ -83,11 +83,24 @@
 // - K >= 5: fb_bwd_split_kernel, one chain split one thread a state, as
 //   B16's (below).
 //
-// B19 fb_bwd_kernel<K, true> replaces _bwd_conf_kernel: B18's chain, emitting
-// conf_t = (sum_k g_k * mask_k) * (1 / max(sum_k g_k, 1e-30)), g = alpha_t *
-// beta_t, 0 past len, instead of storing the betas.  Reads 8 + 4K B, writes
-// 4 B per step; the alphas of a group of LOOKAHEAD steps load together at the
-// group's start (a load issued at its step stalls the chain for its latency).
+// B19 replaces _bwd_conf_kernel: B18's betas, in B18's layout at every K,
+// emitting conf_t = (sum_k g_k * mask_k) * (1 / max(sum_k g_k, 1e-30)), g =
+// alpha_t * beta_t, 0 past len, instead of storing the betas.  Reads 8 + 4K
+// B, writes 4 B per step (0.40 ms at K = 2, 0.88 at K = 8 over 8,192 x
+// 8,192).  The first port ran it one thread a chain at every K (32 threads a
+// block: 256 warps on the whole card at 8,192 lanes, 6x its bound at K = 2,
+// and one chain through each record's lane of up to 512 Ki steps in the
+// posterior's batches).  What each K runs now:
+// - K <= 4, G = fb_pallas.bwd_sublanes > 1: B18's phase 1 launch
+//   (fb_bwd_sub_kernel<K, true>), then fb_bwd_sub_conf_kernel, B18's
+//   phases 2 and 3 with the epilogue in place of the stores (below);
+// - K <= 4 on shorter lanes: fb_bwd_kernel<K, true>, one thread a chain;
+// - K >= 5: fb_bwd_split_conf_kernel, B18's state split with the epilogue
+//   (below).
+// In every layout the alphas of a group of steps load together at the
+// group's start (a load issued at its step stalls the chain for its
+// latency), and the betas are B18's bits, so B19's confidence is the
+// epilogue of B18's betas.
 //
 // B20 fb_stats_part_kernel + fb_stats_reduce_kernel replace _stats_kernel:
 // the per-lane counts macc[j*K + k] = sum_t ahat_{t-1}[j] * B[k, o_t] *
@@ -250,6 +263,32 @@ __device__ __forceinline__ void bwd_contract(const float* s_A, const float (&bi)
   }
 }
 
+// B19's epilogue from the K products g_k = alpha_t[k] * beta_t[k], k in
+// order: (sum_k g_k * mask_k) * (1 / max(sum_k g_k, 1e-30)) where valid, else
+// 0.
+template <int K>
+__device__ __forceinline__ float conf_of(const float (&g)[K], const float* mask, bool valid) {
+  float gm[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) gm[k] = __fmul_rn(g[k], mask[k]);
+  const float tot = fmaxf(seq_sum<K>(g), 1e-30f);
+  return valid ? __fmul_rn(seq_sum<K>(gm), __fdiv_rn(1.0f, tot)) : 0.0f;
+}
+
+// A group's alphas, ag[r][k] = alpha_t[k] at t = first - r (0 where t < 0):
+// the lane's column a, rows nl apart.
+template <int K, int N>
+__device__ __forceinline__ void load_alphas(const float* a, size_t nl, int first,
+                                            float (&ag)[N][K]) {
+#pragma unroll
+  for (int r = 0; r < N; ++r) {
+    const int t = first - r;
+    const float* row = a + (size_t)max(t, 0) * K * nl;
+#pragma unroll
+    for (int k = 0; k < K; ++k) ag[r][k] = t >= 0 ? __ldg(row + k * nl) : 0.0f;
+  }
+}
+
 template <int K, bool CONF>
 __global__ void __launch_bounds__(CHAIN_THREADS)
 fb_bwd_kernel(const int32_t* __restrict__ steps_next, const int32_t* __restrict__ lens,
@@ -283,15 +322,7 @@ fb_bwd_kernel(const int32_t* __restrict__ steps_next, const int32_t* __restrict_
   for (int k0 = 0; k0 < Tp; k0 += LOOKAHEAD) {
     load_ints(p, nl, Tp - 1 - (k0 + LOOKAHEAD), -1, Tp, qn);
     load_floats(c, nl, Tp - 1 - (k0 + LOOKAHEAD), -1, Tp, cqn);
-    if (CONF) {
-#pragma unroll
-      for (int r = 0; r < AG; ++r) {
-        const int t = Tp - 1 - (k0 + r);
-        const float* a = alphas + (size_t)max(t, 0) * K * nl + n;
-#pragma unroll
-        for (int k = 0; k < K; ++k) ag[r][k] = t >= 0 ? __ldg(a + k * nl) : 0.0f;
-      }
-    }
+    if (CONF) load_alphas<K, AG>(alphas + n, nl, Tp - 1 - k0, ag);
 #pragma unroll
     for (int r = 0; r < LOOKAHEAD; ++r) {
       const int t = Tp - 1 - (k0 + r);
@@ -304,15 +335,10 @@ fb_bwd_kernel(const int32_t* __restrict__ steps_next, const int32_t* __restrict_
           for (int k = 0; k < K; ++k) beta[k] = nb[k];
         }
         if (CONF) {
-          float g[K], gm[K];
+          float g[K];
 #pragma unroll
-          for (int k = 0; k < K; ++k) {
-            g[k] = __fmul_rn(ag[CONF ? r : 0][k], beta[k]);
-            gm[k] = __fmul_rn(g[k], s_mask[k]);
-          }
-          const float tot = fmaxf(seq_sum<K>(g), 1e-30f);
-          out[(size_t)t * nl + n] =
-              t < len ? __fmul_rn(seq_sum<K>(gm), __fdiv_rn(1.0f, tot)) : 0.0f;
+          for (int k = 0; k < K; ++k) g[k] = __fmul_rn(ag[CONF ? r : 0][k], beta[k]);
+          out[(size_t)t * nl + n] = conf_of<K>(g, s_mask, t < len);
         } else {
           float* o_row = out + (size_t)t * K * nl + n;
 #pragma unroll
@@ -356,7 +382,10 @@ fb_bwd_kernel(const int32_t* __restrict__ steps_next, const int32_t* __restrict_
 // one direction of 1,024 lanes runs on G times 32 blocks instead of 32
 // (B4's layout, a lane's sub-lanes in one block, ran 1.1-1.8x slower on
 // the H100).  Every operation is an explicit round-to-nearest intrinsic in
-// fb_pallas._bwd_sublanes_plain's order.
+// fb_pallas._bwd_sublanes_plain's order.  B19 takes phase 1's launch as it
+// is and then fb_bwd_sub_conf_kernel: phases 2 and 3 with the chain
+// emitting the confidence (each group's alphas loaded at its start) in
+// place of the betas' stores, so its betas are B18's bits.
 
 #define SUB_LANES_MAX 32
 #define SUB_MAX_K 4  // B16 and B18 run in sub-lanes up to this K
@@ -461,18 +490,25 @@ __device__ __forceinline__ void bwd_sub_entry(const float* qbuf, const float* be
 }
 
 // Phase 3: B18's chain over [tb, te) from beta (the beta at te), storing
-// beta_t at rows (t K + k) nl of out (the lane's column).
-template <int K>
+// beta_t at rows (t K + k) nl of out (the lane's column); CONF (B19): B19's
+// epilogue of beta_t and the alphas (al, the lane's column) at row t nl of
+// out instead, 0 from len on.
+template <int K, bool CONF>
 __device__ __forceinline__ void bwd_range(const int32_t* p, const float* c, const float* s_A,
                                           const float* s_B, int S, float (&beta)[K], float* out,
-                                          int tb, int te, int hi, int Tp, size_t nl) {
+                                          int tb, int te, int hi, int Tp, size_t nl,
+                                          const float* al = nullptr,
+                                          const float* s_mask = nullptr, int len = 0) {
   int q[LOOKAHEAD], qn[LOOKAHEAD];
   float cq[LOOKAHEAD], cqn[LOOKAHEAD];
+  constexpr int AG = CONF ? LOOKAHEAD : 1;
+  float ag[AG][K];
   load_ints(p, nl, te - 1, -1, Tp, q);
   load_floats(c, nl, te - 1, -1, Tp, cq);
   for (int k0 = 0; k0 < te - tb; k0 += LOOKAHEAD) {
     load_ints(p, nl, te - 1 - (k0 + LOOKAHEAD), -1, Tp, qn);
     load_floats(c, nl, te - 1 - (k0 + LOOKAHEAD), -1, Tp, cqn);
+    if (CONF) load_alphas<K, AG>(al, nl, te - 1 - k0, ag);
 #pragma unroll
     for (int r = 0; r < LOOKAHEAD; ++r) {
       const int t = te - 1 - (k0 + r);
@@ -484,9 +520,16 @@ __device__ __forceinline__ void bwd_range(const int32_t* p, const float* c, cons
 #pragma unroll
           for (int k = 0; k < K; ++k) beta[k] = nb[k];
         }
-        float* o_row = out + (size_t)t * K * nl;
+        if (CONF) {
+          float g[K];
 #pragma unroll
-        for (int k = 0; k < K; ++k) o_row[k * nl] = beta[k];
+          for (int k = 0; k < K; ++k) g[k] = __fmul_rn(ag[CONF ? r : 0][k], beta[k]);
+          out[(size_t)t * nl] = conf_of<K>(g, s_mask, t < len);
+        } else {
+          float* o_row = out + (size_t)t * K * nl;
+#pragma unroll
+          for (int k = 0; k < K; ++k) o_row[k * nl] = beta[k];
+        }
       }
     }
 #pragma unroll
@@ -521,8 +564,40 @@ fb_bwd_sub_kernel(const int32_t* __restrict__ steps_next, const int32_t* __restr
   } else {
     float beta[K];
     bwd_sub_entry<K>(qbuf + n, beta0 + n, g, G, L, Tp, hi, nl, beta);
-    bwd_range<K>(steps_next + n, cs_next + n, s_A, s_B, S, beta, betas + n, tb, te, hi, Tp, nl);
+    bwd_range<K, false>(steps_next + n, cs_next + n, s_A, s_B, S, beta, betas + n, tb, te, hi,
+                        Tp, nl);
   }
+}
+
+// B19 at K <= 4 in G > 1 sub-lanes, after B18's phase 1 launch
+// (fb_bwd_sub_kernel<K, true>, the products in qbuf): B18's phases 2 and 3,
+// the chain emitting B19's confidence (conf [Tp, NL]) instead of the betas.
+// Sub-lane g = blockIdx.y.
+template <int K>
+__global__ void __launch_bounds__(CHAIN_THREADS)
+fb_bwd_sub_conf_kernel(const int32_t* __restrict__ steps_next, const int32_t* __restrict__ lens,
+                       const float* __restrict__ cs_next, const float* __restrict__ beta0,
+                       const float* __restrict__ alphas, const float* __restrict__ mask,
+                       const float* __restrict__ A, const float* __restrict__ B,
+                       const float* qbuf, float* __restrict__ conf, int Tp, int NL, int S, int T,
+                       int G, int L) {
+  __shared__ float s_A[K * K];
+  __shared__ float s_B[K * MAX_S];
+  __shared__ float s_mask[K];
+  load_tables<K>(s_A, s_B, A, B, S);
+  if (threadIdx.x < K) s_mask[threadIdx.x] = mask[threadIdx.x];
+  __syncthreads();
+  const int g = blockIdx.y;
+  const int n = blockIdx.x * CHAIN_THREADS + threadIdx.x;
+  if (n >= NL) return;
+  const size_t nl = (size_t)NL;
+  const int len = lens[n];
+  const int hi = min(T - 1, len - 1);
+  const int tb = min(g * L, Tp), te = min(tb + L, Tp);
+  float beta[K];
+  bwd_sub_entry<K>(qbuf + n, beta0 + n, g, G, L, Tp, hi, nl, beta);
+  bwd_range<K, true>(steps_next + n, cs_next + n, s_A, s_B, S, beta, conf + n, tb, te, hi, Tp,
+                     nl, alphas + n, s_mask, len);
 }
 
 // ---------------------------------------------------------------------------
@@ -765,7 +840,7 @@ fb_prod_kernel(const int32_t* __restrict__ sel, const float* __restrict__ tab,
 }
 
 // ---------------------------------------------------------------------------
-// B16 and B18 at K >= 5: one chain, split one thread a state.  A lane's
+// B16, B18 and B19 at K >= 5: one chain, split one thread a state.  A lane's
 // states go to SPLIT_KP = 8 neighbouring threads (4 lanes a warp; threads
 // K..7 of a group carry zeros and store nothing), B17's layout applied to
 // the chain.  Each step the group exchanges K floats by __shfl_sync of
@@ -777,8 +852,15 @@ fb_prod_kernel(const int32_t* __restrict__ sel, const float* __restrict__ tab,
 // - B18: thread k forms w[k] = (B[k, o] * (1 / c)) * beta[k]; the group
 //   exchanges w, and thread j sums A[j, k] * w[k], k in order.  The
 //   divisions by c leave the chain: thread r of a group divides for step r
-//   of each group of SPLIT_KP steps (split_scales).
-// Both read their streams a group of SPLIT_KP steps ahead.
+//   of each group of SPLIT_KP steps (split_scales);
+// - B19: B18's chain (bwd_split_chain) and, at each step, thread k's g_k =
+//   alpha_t[k] * beta_t[k] gathered in state order, each thread adding the
+//   K values (and their masked products) in sequence; thread r keeps step
+//   r's two sums, so each thread divides and stores once a group, one
+//   store instruction writing the group's 8 steps (split_conf_sums,
+//   split_conf_store), instead of a division and a 16-byte store a step.
+// All read their streams (B19 each thread its state's alphas) a group of
+// SPLIT_KP steps ahead.
 // Each thread does a K-th of the one-thread chain's arithmetic, and every
 // value it forms is formed by that chain's operations in its order (no
 // shuffle tree: each thread adds the K exchanged values in sequence), so
@@ -922,8 +1004,9 @@ __device__ __forceinline__ void split_scales(const float* b_row, int S, const in
 }
 
 // B18's step: w[k] = bi[k] * beta[k] exchanged, thread j's nb[j] = sum_k
-// A[j, k] * w[k], k in order; kept where ``keep``.
-template <int K>
+// A[j, k] * w[k], k in order; kept where ``keep``.  B18 stores beta_t (CONF
+// false); B19 (CONF) stores nothing here.
+template <int K, bool CONF>
 __device__ __forceinline__ void bwd_split_step(const float (&a_row)[K], float bi, bool keep,
                                                float& beta, float* dst, bool stores) {
   float w[K];
@@ -932,15 +1015,42 @@ __device__ __forceinline__ void bwd_split_step(const float (&a_row)[K], float bi
 #pragma unroll
   for (int j = 1; j < K; ++j) acc = __fadd_rn(acc, __fmul_rn(a_row[j], w[j]));
   beta = keep ? acc : beta;
-  store_if(dst, beta, stores);
+  if (!CONF) store_if(dst, beta, stores);
 }
 
+// B19's epilogue on the state split: thread k forms g_k = alpha_t[k] *
+// beta_t[k], the group gathers g in state order, and every thread forms
+// the two K-term sums in sequence; thread r of the group keeps step r's
+// (isl, tot), so each thread divides and stores once a group of SPLIT_KP
+// steps (split_conf_store), as split_scales spreads B18's divisions.
 template <int K>
-__global__ void __launch_bounds__(SPLIT_THREADS)
-fb_bwd_split_kernel(const int32_t* __restrict__ steps_next, const int32_t* __restrict__ lens,
-                    const float* __restrict__ cs_next, const float* __restrict__ beta0,
-                    const float* __restrict__ A, const float* __restrict__ B,
-                    float* __restrict__ betas, int Tp, int NL, int S, int T) {
+__device__ __forceinline__ void split_conf_sums(float a, float beta, const float (&mask)[K],
+                                                bool mine, float& isl, float& tot) {
+  float g[K], gm[K];
+  split_gather<K>(__fmul_rn(a, beta), g);
+#pragma unroll
+  for (int j = 0; j < K; ++j) gm[j] = __fmul_rn(g[j], mask[j]);
+  const float s = seq_sum<K>(g), si = seq_sum<K>(gm);
+  isl = mine ? si : isl;
+  tot = mine ? s : tot;
+}
+
+// This thread's step of the group, t: conf_t = isl * (1 / max(tot, 1e-30))
+// where t < len, 0 from len on; stored where ``on``.
+__device__ __forceinline__ void split_conf_store(float* conf, size_t nl, int t, int len,
+                                                 float isl, float tot, bool on) {
+  const float v = t < len ? __fmul_rn(isl, __fdiv_rn(1.0f, fmaxf(tot, 1e-30f))) : 0.0f;
+  store_if(conf + (size_t)max(t, 0) * nl, v, on && t >= 0);
+}
+
+// The state-split backward chain: CONF false, B18 (out = betas [Tp, K,
+// NL]); CONF, B19 (out = conf [Tp, NL], from the alphas and the island mask).
+template <int K, bool CONF>
+__device__ __forceinline__ void bwd_split_chain(
+    const int32_t* __restrict__ steps_next, const int32_t* __restrict__ lens,
+    const float* __restrict__ cs_next, const float* __restrict__ beta0,
+    const float* __restrict__ alphas, const float* __restrict__ mask, const float* __restrict__ A,
+    const float* __restrict__ B, float* __restrict__ out, int Tp, int NL, int S, int T) {
   __shared__ float s_A[K * K];
   __shared__ float s_B[K * MAX_S];
   load_tables<K>(s_A, s_B, A, B, S);
@@ -955,7 +1065,7 @@ fb_bwd_split_kernel(const int32_t* __restrict__ steps_next, const int32_t* __res
 #pragma unroll
   for (int j = 0; j < K; ++j) a_row[j] = own ? s_A[kc * K + j] : 0.0f;
   const float* b_row = s_B + kc * S;
-  float* out = betas + (size_t)kc * nl + n;
+  float* dst = out + (size_t)kc * nl + n;
   float beta = own ? beta0[(size_t)kc * nl + ln] : 0.0f;
   const int len = lens[ln];
   const int32_t* p = steps_next + ln;
@@ -964,6 +1074,17 @@ fb_bwd_split_kernel(const int32_t* __restrict__ steps_next, const int32_t* __res
   const auto c_at = [&](int t) { return (t >= 0 && t < Tp) ? __ldg(c + (size_t)t * nl) : 1.0f; };
   int q[SPLIT_KP], qn[SPLIT_KP];
   float bq[SPLIT_KP];
+  // B19: the island mask, this thread's alphas of the group (state kc, a
+  // group ahead), and the sums of its own step of the group.
+  constexpr int AG = CONF ? SPLIT_KP : 1;
+  float mk[K], aq[AG][1], aqn[AG][1], isl = 0.0f, tot = 1.0f;
+  float* conf = out + n;
+  const float* al = alphas + (size_t)kc * nl + ln;
+  if (CONF) {
+#pragma unroll
+    for (int j = 0; j < K; ++j) mk[j] = mask[j];
+    load_alphas<1, AG>(al, (size_t)K * nl, Tp - 1, aq);
+  }
   load_ints(p, nl, Tp - 1, -1, Tp, q);
   float cm = c_at(Tp - 1 - k), cmn;
   int k0 = 0;
@@ -971,12 +1092,19 @@ fb_bwd_split_kernel(const int32_t* __restrict__ steps_next, const int32_t* __res
   for (; k0 + SPLIT_KP <= Tp; k0 += SPLIT_KP) {
     load_ints(p, nl, Tp - 1 - (k0 + SPLIT_KP), -1, Tp, qn);
     cmn = c_at(Tp - 1 - (k0 + SPLIT_KP + k));
+    if (CONF) load_alphas<1, AG>(al, (size_t)K * nl, Tp - 1 - (k0 + SPLIT_KP), aqn);
     split_scales(b_row, S, q, cm, bq);
 #pragma unroll
     for (int r = 0; r < SPLIT_KP; ++r) {
       const int t = Tp - 1 - (k0 + r);
-      bwd_split_step<K>(a_row, bq[r], t <= T - 2 && t + 1 < len, beta,
-                        out + (size_t)t * K * nl, stores);
+      bwd_split_step<K, CONF>(a_row, bq[r], t <= T - 2 && t + 1 < len, beta,
+                              dst + (size_t)t * K * nl, stores);
+      if (CONF) split_conf_sums<K>(aq[CONF ? r : 0][0], beta, mk, k == r, isl, tot);
+    }
+    if (CONF) {
+      split_conf_store(conf, nl, Tp - 1 - (k0 + k), len, isl, tot, n < NL);
+#pragma unroll
+      for (int r = 0; r < AG; ++r) aq[r][0] = aqn[r][0];
     }
 #pragma unroll
     for (int r = 0; r < SPLIT_KP; ++r) q[r] = qn[r];
@@ -986,10 +1114,35 @@ fb_bwd_split_kernel(const int32_t* __restrict__ steps_next, const int32_t* __res
 #pragma unroll
   for (int r = 0; r < SPLIT_KP; ++r) {
     const int t = Tp - 1 - (k0 + r);
-    if (t >= 0)
-      bwd_split_step<K>(a_row, bq[r], t <= T - 2 && t + 1 < len, beta,
-                        out + (size_t)t * K * nl, stores);
+    if (t >= 0) {
+      bwd_split_step<K, CONF>(a_row, bq[r], t <= T - 2 && t + 1 < len, beta,
+                              dst + (size_t)t * K * nl, stores);
+      if (CONF) split_conf_sums<K>(aq[CONF ? r : 0][0], beta, mk, k == r, isl, tot);
+    }
   }
+  if (CONF) split_conf_store(conf, nl, Tp - 1 - (k0 + k), len, isl, tot, n < NL);
+}
+
+template <int K>
+__global__ void __launch_bounds__(SPLIT_THREADS)
+fb_bwd_split_kernel(const int32_t* __restrict__ steps_next, const int32_t* __restrict__ lens,
+                    const float* __restrict__ cs_next, const float* __restrict__ beta0,
+                    const float* __restrict__ A, const float* __restrict__ B,
+                    float* __restrict__ betas, int Tp, int NL, int S, int T) {
+  bwd_split_chain<K, false>(steps_next, lens, cs_next, beta0, nullptr, nullptr, A, B, betas, Tp,
+                            NL, S, T);
+}
+
+template <int K>
+__global__ void __launch_bounds__(SPLIT_THREADS)
+fb_bwd_split_conf_kernel(const int32_t* __restrict__ steps_next,
+                         const int32_t* __restrict__ lens, const float* __restrict__ cs_next,
+                         const float* __restrict__ beta0, const float* __restrict__ alphas,
+                         const float* __restrict__ mask, const float* __restrict__ A,
+                         const float* __restrict__ B, float* __restrict__ conf, int Tp, int NL,
+                         int S, int T) {
+  bwd_split_chain<K, true>(steps_next, lens, cs_next, beta0, alphas, mask, A, B, conf, Tp, NL, S,
+                           T);
 }
 
 // ---------------------------------------------------------------------------
@@ -1180,6 +1333,20 @@ static int launch_bwd_split(const void* steps_next, const void* lens, const void
 }
 
 template <int K>
+static int launch_bwd_split_conf(const void* steps_next, const void* lens, const void* cs_next,
+                                 const void* beta0, const void* alphas, const void* mask,
+                                 const void* A, const void* B, void* conf, int Tp, int NL, int S,
+                                 int T, cudaStream_t st) {
+  if ((long long)NL * SPLIT_KP > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  fb_bwd_split_conf_kernel<K>
+      <<<blocks_for(NL * SPLIT_KP, SPLIT_THREADS), SPLIT_THREADS, 0, st>>>(
+          (const int32_t*)steps_next, (const int32_t*)lens, (const float*)cs_next,
+          (const float*)beta0, (const float*)alphas, (const float*)mask, (const float*)A,
+          (const float*)B, (float*)conf, Tp, NL, S, T);
+  return (int)cudaGetLastError();
+}
+
+template <int K>
 static int launch_bwd_sub(const void* steps_next, const void* lens, const void* cs_next,
                           const void* beta0, const void* A, const void* B, void* qbuf,
                           void* betas, int Tp, int NL, int S, int T, int G, cudaStream_t st) {
@@ -1194,6 +1361,28 @@ static int launch_bwd_sub(const void* steps_next, const void* lens, const void* 
   if (err != cudaSuccess) return (int)err;
   fb_bwd_sub_kernel<K, false><<<grid, CHAIN_THREADS, 0, st>>>(BWD_SUB_ARGS);
 #undef BWD_SUB_ARGS
+  return (int)cudaGetLastError();
+}
+
+// B19 in sub-lanes: B18's products launch into qbuf, then the messages and
+// the chains emitting the confidence.
+template <int K>
+static int launch_bwd_sub_conf(const void* steps_next, const void* lens, const void* cs_next,
+                               const void* beta0, const void* alphas, const void* mask,
+                               const void* A, const void* B, void* conf, void* qbuf, int Tp,
+                               int NL, int S, int T, int G, cudaStream_t st) {
+  const int L = (Tp + G - 1) / G;
+  const dim3 grid(blocks_for(NL, CHAIN_THREADS), (unsigned)G);
+  fb_bwd_sub_kernel<K, true><<<grid, CHAIN_THREADS, 0, st>>>(
+      (const int32_t*)steps_next, (const int32_t*)lens, (const float*)cs_next,
+      (const float*)beta0, (const float*)A, (const float*)B, (float*)qbuf, nullptr, Tp, NL, S, T,
+      G, L);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  fb_bwd_sub_conf_kernel<K><<<grid, CHAIN_THREADS, 0, st>>>(
+      (const int32_t*)steps_next, (const int32_t*)lens, (const float*)cs_next,
+      (const float*)beta0, (const float*)alphas, (const float*)mask, (const float*)A,
+      (const float*)B, (const float*)qbuf, (float*)conf, Tp, NL, S, T, G, L);
   return (int)cudaGetLastError();
 }
 
@@ -1310,15 +1499,49 @@ int fb_bwd(const void* steps_next, const void* lens, const void* cs_next, const 
 #undef CALL_BX
 }
 
+// B19: B18's layout at every K (fb_bwd) with the confidence epilogue: at K
+// <= 4, G sub-lanes a lane (qbuf [G, K*K + 1, NL] scratch where G > 1) or
+// one thread a chain at G = 1; at K >= 5 (G = 1) one chain split one thread
+// a state.
 int fb_bwd_conf(const void* steps_next, const void* lens, const void* cs_next,
                 const void* beta0, const void* alphas, const void* mask, const void* A,
-                const void* B, void* conf, int Tp, int NL, int K, int S, int T, void* stream) {
-  if (bad_dims(Tp, NL, K, S)) return (int)cudaErrorInvalidValue;
+                const void* B, void* conf, void* qbuf, int Tp, int NL, int K, int S, int T,
+                int G, void* stream) {
+  if (bad_dims(Tp, NL, K, S) || G < 1 || G > SUB_LANES_MAX || G > Tp ||
+      (G > 1 && K > SUB_MAX_K))
+    return (int)cudaErrorInvalidValue;
+  if (G > 1) {
+#define CALL_CS(KK)                                                                        \
+  launch_bwd_sub_conf<KK>(steps_next, lens, cs_next, beta0, alphas, mask, A, B, conf, qbuf, \
+                          Tp, NL, S, T, G, (cudaStream_t)stream)
+    switch (K) {
+      case 1: return CALL_CS(1);
+      case 2: return CALL_CS(2);
+      case 3: return CALL_CS(3);
+      case 4: return CALL_CS(4);
+      default: return (int)cudaErrorInvalidValue;
+    }
+#undef CALL_CS
+  }
 #define CALL_C(KK)                                                                        \
   launch_bwd<KK, true>(steps_next, lens, cs_next, beta0, alphas, mask, A, B, conf, Tp, NL, \
                        S, T, (cudaStream_t)stream)
-  DISPATCH_K(K, CALL_C)
+#define CALL_CX(KK)                                                                   \
+  launch_bwd_split_conf<KK>(steps_next, lens, cs_next, beta0, alphas, mask, A, B, conf, Tp, \
+                            NL, S, T, (cudaStream_t)stream)
+  switch (K) {
+    case 1: return CALL_C(1);
+    case 2: return CALL_C(2);
+    case 3: return CALL_C(3);
+    case 4: return CALL_C(4);
+    case 5: return CALL_CX(5);
+    case 6: return CALL_CX(6);
+    case 7: return CALL_CX(7);
+    case 8: return CALL_CX(8);
+    default: return (int)cudaErrorInvalidValue;
+  }
 #undef CALL_C
+#undef CALL_CX
 }
 
 int fb_prod(const void* sel, const void* tab, void* out, int Tp, int NL, int K, int S,

@@ -27,14 +27,15 @@
 // What bounds them: each lane is a dependent chain of bk steps.  At the
 // default block of 4096 steps a 64 Mi-symbol record has 16384 lanes, about
 // 124 threads per SM: too few warps to hide a device-memory load behind
-// other warps' work.  B14 therefore reads its step stream STEP_AHEAD steps
-// ahead of its chain (the next group's loads fly while the current group's
-// steps run) and, at K <= 2, the table rows of 8 steps before those steps
-// run; on the card it then runs at K = 2 at about 1.8x its byte bound (the
-// same chain with no loads at 1.25x) and at K = 8, bound by the issue of
-// its 64 candidates a step, within 10% of the chain with no loads
-// (PERF.md).  B13 (about 1000 adds and maxes a step at K = 8: bound by
-// operations) and B15 keep one load a step.
+// other warps' work.  B13 and B14 therefore read their step streams ahead
+// of the chain (B14 STEP_AHEAD steps, B13 below: the next group's loads fly
+// while the current group's steps run) and, at K <= 2, the table rows of 8
+// steps before those steps run; on up to 8 Ki lanes B13 also gives each
+// row of a lane's product to a thread of its own (below).  B14 then runs at
+// K = 2 at about 1.8x its byte bound (the same chain with no loads at
+// 1.25x) and at K = 8, bound by the issue of its 64 candidates a step,
+// within 10% of the chain with no loads (PERF.md).  B15 keeps one load a
+// step.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,64 +65,166 @@ __device__ __forceinline__ void load_step_table(float* s_M, const float* __restr
   __syncthreads();
 }
 
-// B13: replaces cpgisland_tpu/ops/viterbi_pallas.py::_products_kernel.  Per
-// lane, the max-plus product of its bk step matrices, written as
-// out[i*K + m, b] = C[i][m].  Reads 4 B per step (the step stream), writes
-// 4*K*K B per lane.
-template <int K>
-__global__ void __launch_bounds__(THREADS)
-dense_products_kernel(const int32_t* __restrict__ steps, const float* __restrict__ logAT,
-                      const float* __restrict__ logB, float* __restrict__ out, int bk, int nb,
-                      int S) {
-  extern __shared__ float s_M[];
-  load_step_table<K>(s_M, logAT, logB, S);
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= nb) return;
-  float C[K][K];
-#pragma unroll
-  for (int i = 0; i < K; ++i)
-#pragma unroll
-    for (int m = 0; m < K; ++m) C[i][m] = (i == m) ? 0.0f : LOG_ZERO;
-  const int32_t* p = steps + b;
-#pragma unroll 2
-  for (int k = 0; k < bk; ++k) {
-    const int sym = min(__ldg(p + (size_t)k * nb), S);
-    const float* Ms = s_M + sym * (K * K + 1);
-    float N[K][K];
-    // Column by column: M_s[:, j] is K lookups; new[i][j] = max_m C[i][m] + M[m][j].
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      float col[K];
-#pragma unroll
-      for (int m = 0; m < K; ++m) col[m] = Ms[m * K + j];
-#pragma unroll
-      for (int i = 0; i < K; ++i) {
-        float best = C[i][0] + col[0];
-#pragma unroll
-        for (int m = 1; m < K; ++m) best = fmaxf(best, C[i][m] + col[m]);
-        N[i][j] = best;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < K; ++i)
-#pragma unroll
-      for (int m = 0; m < K; ++m) C[i][m] = N[i][m];
-  }
-#pragma unroll
-  for (int i = 0; i < K; ++i)
-#pragma unroll
-    for (int m = 0; m < K; ++m) out[(size_t)(i * K + m) * nb + b] = C[i][m];
-}
-
 // q[r] = the symbol at step k0 + r of a lane's stream (column p), for the
 // steps below bk; no load is issued past the stream's last row.
+template <int N>
 __device__ __forceinline__ void load_steps(const int32_t* __restrict__ p, int nb, int k0,
-                                           int bk, int (&q)[STEP_AHEAD]) {
+                                           int bk, int (&q)[N]) {
 #pragma unroll
-  for (int r = 0; r < STEP_AHEAD; ++r) {
+  for (int r = 0; r < N; ++r) {
     const int k = k0 + r;
     q[r] = k < bk ? __ldg(p + (size_t)k * nb) : 0;
   }
+}
+
+// B13: replaces cpgisland_tpu/ops/viterbi_pallas.py::_products_kernel.  Per
+// lane, the max-plus product of its bk step matrices, written as
+// out[i*K + m, b] = C[i][m].  Reads 4 B per step (the step stream), writes
+// 4*K*K B per lane; K^2 (2K - 1) adds and maxes a real step (bound by
+// operations at K = 8, by bytes at K = 2).  The first port ran one thread a
+// lane with one load a step: at 16 Ki lanes a chain waiting on its load
+// every step or two (K = 2, 12.5x its byte bound) or one warp a scheduler
+// issuing 960 dependent-chain adds and maxes a step behind its loads (K =
+// 8, 4.7x the ops bound).
+//
+// Row i of the product evolves alone, C[i] <- C[i] (x) M_s, so a lane's
+// rows can go to R-row slices on KP = ceil(K / R) (rounded up to a power of
+// two) neighbouring threads.  Each thread runs, for its rows, exactly the
+// operations of the one-thread chain in its order (N[j] = C[0] + M[0][j],
+// then max with C[m] + M[m][j], m = 1..K-1), so the output is the same
+// bits whatever R.  Two layouts ship, chosen by the lane count (H100
+// measurements, cpgisland_tpu_torch/tools/kernel_variants.py --group
+// decode, PERF.md; not a law):
+// - up to DENSE_ROWS_MAX_LANES lanes, R = 1: one row a thread, K times the
+//   warps of one thread a lane, each issuing a K-th of the adds and maxes.
+//   A lane's K threads each read the whole step matrix, so the table has
+//   rows PROD_STRIDE(K*K) floats apart, a multiple of 4 and an odd count of
+//   float4s: a thread reads a step's matrix as K*K/4 128-bit loads, the K
+//   threads of a lane read one address (a broadcast), and the 4 lanes of a
+//   warp at K = 8 (8 at K = 4, 16 at K = 2) looking up different symbols
+//   start their rows in different banks (row s at bank 4s mod 32 with the
+//   stride of 68 floats).  Rows win where the lanes are too few to fill
+//   the schedulers: at K = 8 on 4 Ki lanes 0.94 ms against 2.62 one
+//   thread a lane, and on the two_state decode's scaffold flushes (8
+//   records padded to at most 512 Ki: 128 to 1,024 lanes of 4,096 steps,
+//   32 of that decode's 33 launches) 0.12 ms against 0.18 at K = 2;
+// - past it, R = K: one thread a lane, the first port's layout.  At 16 Ki
+//   lanes (a 64 Mi record's 4,096-step blocks: the big record of the
+//   two_state decode and of the flagship's masked decode) that is one warp a
+//   scheduler, which at K = 8 issues the step's 960 adds and maxes nearly
+//   every cycle (2.6 ms against the rows' 3.2: the rows issue the K-fold
+//   table reads on top); at K = 2 the two tie at 16 Ki lanes and one
+//   thread a lane wins past it (0.36 against 0.48 ms at 64 Ki).
+// Both read the symbols ahead of the chain (PROD_AHEAD, LANE_AHEAD) and,
+// at K <= 2, 8 steps' matrices before those steps run: the read-ahead is
+// most of what moves K = 2 (0.98 -> 0.19 ms at 16 Ki lanes; at the flushes
+// 0.43 -> 0.18 one thread a lane, 0.12 in rows).
+#define PROD_THREADS 128
+// One row a thread up to this many lanes, one thread a lane past it.
+#define DENSE_ROWS_MAX_LANES 8192
+// Steps of the symbol stream B13 holds ahead of its chain, one row a thread
+// (PROD_AHEAD) and one thread a lane (LANE_AHEAD): 16 where a step is a few
+// operations (K*K <= 4: the loads set the pace); above, 8 for the rows,
+// where 16 more registers would cost them blocks an SM (3.2 against 4.2 ms
+// at K = 8, 16 Ki lanes), and 2 for a lane, whose K x K product and step
+// matrix already hold some 130 registers (4 and 8 ran 2.2-2.3x slower).
+#define PROD_AHEAD(KK) ((KK) <= 4 ? 16 : 8)
+#define LANE_AHEAD(KK) ((KK) <= 4 ? 16 : 2)
+#define PROD_STRIDE(KK) \
+  ((((KK) + 3) / 4 * 4) % 8 == 0 ? ((KK) + 3) / 4 * 4 + 4 : ((KK) + 3) / 4 * 4)
+
+// B13's table: row s holds M_s[m][j] at s * PROD_STRIDE(K*K) + m*K + j (row
+// S: the max-plus identity), zeros in the padding.
+template <int K>
+__device__ __forceinline__ void load_prod_table(float* s_M, const float* __restrict__ logAT,
+                                                const float* __restrict__ logB, int S) {
+  constexpr int KK = K * K, SP = PROD_STRIDE(KK);
+  for (int i = threadIdx.x; i < (S + 1) * SP; i += blockDim.x) {
+    const int s = i / SP, c = i % SP, m = c / K, j = c % K;
+    float v = 0.0f;
+    if (c < KK) v = s < S ? logAT[j * K + m] + logB[j * S + s] : ((m == j) ? 0.0f : LOG_ZERO);
+    s_M[i] = v;
+  }
+  __syncthreads();
+}
+
+// TT steps of B13's chain for R rows C from their symbols q[0..TT-1]: the TT
+// matrices are read first (as float4s), then the steps run in order (the
+// first `left` of them: the rest lie past bk).
+template <int K, int R, int TT>
+__device__ __forceinline__ void prod_tile(const int* q, const float* __restrict__ s_M, int S,
+                                          float (&C)[R][K], int left) {
+  constexpr int NV = (K * K + 3) / 4, SP = PROD_STRIDE(K * K);
+  float Mt[TT][NV * 4];
+#pragma unroll
+  for (int i = 0; i < TT; ++i) {
+    const float4* M4 = reinterpret_cast<const float4*>(s_M + min(q[i], S) * SP);
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const float4 x = M4[v];
+      Mt[i][4 * v] = x.x;
+      Mt[i][4 * v + 1] = x.y;
+      Mt[i][4 * v + 2] = x.z;
+      Mt[i][4 * v + 3] = x.w;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < TT; ++i) {
+    if (i < left) {
+      const float* Ms = Mt[i];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float N[K];
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+          float best = C[r][0] + Ms[j];
+#pragma unroll
+          for (int m = 1; m < K; ++m) best = fmaxf(best, C[r][m] + Ms[m * K + j]);
+          N[j] = best;
+        }
+#pragma unroll
+        for (int j = 0; j < K; ++j) C[r][j] = N[j];
+      }
+    }
+  }
+}
+
+template <int K, int R>
+__global__ void __launch_bounds__(PROD_THREADS)
+dense_products_kernel(const int32_t* __restrict__ steps, const float* __restrict__ logAT,
+                      const float* __restrict__ logB, float* __restrict__ out, int bk, int nb,
+                      int S) {
+  constexpr int G = (K + R - 1) / R;  // threads a lane carrying rows
+  constexpr int KP = G <= 1 ? 1 : G <= 2 ? 2 : G <= 4 ? 4 : 8;
+  constexpr int TT = K * K <= 4 ? 8 : 1;
+  constexpr int AH = R == 1 ? PROD_AHEAD(K * K) : LANE_AHEAD(K * K);
+  extern __shared__ float s_P[];
+  load_prod_table<K>(s_P, logAT, logB, S);
+  const int i0 = (threadIdx.x % KP) * R;  // this thread's first row
+  const int b = (blockIdx.x * blockDim.x + threadIdx.x) / KP;
+  if (b >= nb || i0 >= K) return;
+  float C[R][K];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int m = 0; m < K; ++m) C[r][m] = (i0 + r == m) ? 0.0f : LOG_ZERO;
+  const int32_t* p = steps + b;
+  int q[AH], qn[AH];
+  load_steps(p, nb, 0, bk, q);
+  for (int k0 = 0; k0 < bk; k0 += AH) {
+    load_steps(p, nb, k0 + AH, bk, qn);
+#pragma unroll
+    for (int h = 0; h < AH; h += TT)
+      if (k0 + h < bk) prod_tile<K, R, TT>(q + h, s_P, S, C, bk - (k0 + h));
+#pragma unroll
+    for (int r = 0; r < AH; ++r) q[r] = qn[r];
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    if (i0 + r < K) {
+#pragma unroll
+      for (int m = 0; m < K; ++m) out[(size_t)((i0 + r) * K + m) * nb + b] = C[r][m];
+    }
 }
 
 // TT steps of B14's chain from their symbols q[0..TT-1]: the TT table rows
@@ -247,15 +350,28 @@ static int allow_smem(Fn fn, size_t bytes) {
   return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+template <int K, int R>
+static int launch_products_r(const void* steps, const void* logAT, const void* logB, void* out,
+                             int bk, int nb, int S, cudaStream_t stream) {
+  constexpr int G = (K + R - 1) / R;
+  constexpr int KP = G <= 1 ? 1 : G <= 2 ? 2 : G <= 4 ? 4 : 8;
+  if ((long long)nb * KP > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)(S + 1) * PROD_STRIDE(K * K) * sizeof(float);
+  int err = allow_smem(dense_products_kernel<K, R>, smem);
+  if (err) return err;
+  const unsigned grid = (unsigned)(((long long)nb * KP + PROD_THREADS - 1) / PROD_THREADS);
+  dense_products_kernel<K, R><<<grid, PROD_THREADS, smem, stream>>>(
+      (const int32_t*)steps, (const float*)logAT, (const float*)logB, (float*)out, bk, nb, S);
+  return (int)cudaGetLastError();
+}
+
+// One row a thread up to DENSE_ROWS_MAX_LANES lanes, one thread a lane past it.
 template <int K>
 static int launch_products(const void* steps, const void* logAT, const void* logB, void* out,
                            int bk, int nb, int S, cudaStream_t stream) {
-  const size_t smem = table_bytes(K, S);
-  int err = allow_smem(dense_products_kernel<K>, smem);
-  if (err) return err;
-  dense_products_kernel<K><<<grid_for(nb), THREADS, smem, stream>>>(
-      (const int32_t*)steps, (const float*)logAT, (const float*)logB, (float*)out, bk, nb, S);
-  return (int)cudaGetLastError();
+  if (nb <= DENSE_ROWS_MAX_LANES)
+    return launch_products_r<K, 1>(steps, logAT, logB, out, bk, nb, S, stream);
+  return launch_products_r<K, K>(steps, logAT, logB, out, bk, nb, S, stream);
 }
 
 template <int K>

@@ -73,7 +73,7 @@ _SIGNATURES = {
     "fb_fwd": ("fb_dense", 7, ("Tp", "NL", "K", "S", "G")),
     "fb_prod": ("fb_dense", 3, ("Tp", "NL", "K", "S")),
     "fb_bwd": ("fb_dense", 8, ("Tp", "NL", "K", "S", "T", "G")),
-    "fb_bwd_conf": ("fb_dense", 9, ("Tp", "NL", "K", "S", "T")),
+    "fb_bwd_conf": ("fb_dense", 10, ("Tp", "NL", "K", "S", "T", "G")),
     "fb_stats": ("fb_dense", 9, ("Tp", "NL", "K", "S", "Tt")),
 }
 SOURCES = tuple(sorted({src for src, _, _ in _SIGNATURES.values()}))

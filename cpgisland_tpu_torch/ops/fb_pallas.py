@@ -30,9 +30,9 @@ vectors in registers:
   :func:`_bwd_sublanes_plain`), or one thread a chain on lanes under 8 Ki
   steps; at K >= 5 as one chain split one thread a state, the sequential
   chain :func:`_bwd_chain_plain`;
-- B19 :func:`fb_bwd_conf` (replaces ``_bwd_conf_kernel``): B18's sequential
-  chain, one thread a lane at every K, emitting the island confidence
-  instead of storing betas;
+- B19 :func:`fb_bwd_conf` (replaces ``_bwd_conf_kernel``): B18 in B18's
+  layout at every K (its sub-lanes, its one chain or its state split),
+  emitting the island confidence instead of storing betas;
 - B20 :func:`fb_stats` (replaces ``_stats_kernel``): per-lane expected
   counts and loglik from the stored streams.
 
@@ -40,10 +40,10 @@ Each wrapper takes its plain version for a CPU tensor, launches the kernel
 for a CUDA tensor, and raises otherwise.  The plain versions of B16-B19 do
 the kernels' float32 operations in the kernels' order — every K-term sum
 sequential from j = 0, every reciprocal an IEEE division — so kernel and
-plain version agree bit for bit (B16 and B18 in one sub-lane, state-split
-or not, are the sequential chains; in G > 1 they differ from them in the
-last bits); B20 sums
-over time in another order and agrees within a tolerance.  Against the
+plain version agree bit for bit (B16, B18 and B19 in one sub-lane,
+state-split or not, are the sequential chains; in G > 1 they differ from
+them in the last bits); B20 sums over time in another order and agrees
+within a tolerance.  Against the
 JAX package (XLA:CPU contracts products into FMAs and reduces in its own
 order) they agree within the parity tests' tolerances.
 """
@@ -294,9 +294,9 @@ def fb_bwd_plain(steps_next, lens2, cs_next, beta0, A, B, T: int) -> torch.Tenso
 
 
 def _bwd_chain_plain(steps_next, lens2, cs_next, beta0, A, B, T: int) -> torch.Tensor:
-    """The sequential backward chain of :func:`fb_bwd_plain` (B18 in one
-    sub-lane: one thread a chain at K <= 4, state-split at K >= 5; and
-    B19's betas)."""
+    """The sequential backward chain of :func:`fb_bwd_plain` (B18 and B19
+    in one sub-lane: one thread a chain at K <= 4, state-split at K >=
+    5)."""
     Tp, NL = steps_next.shape
     K, S = B.shape
     out = torch.empty((Tp, K, NL), dtype=_F32, device=steps_next.device)
@@ -400,9 +400,10 @@ def conf_from_streams(alphas, betas, lens2, mask) -> torch.Tensor:
 
 def fb_bwd_conf_plain(steps_next, lens2, cs_next, beta0, alphas, mask, A, B,
                       T: int) -> torch.Tensor:
-    """Plain version of B19 -> conf [Tp, NL]: B18's sequential betas (B19
-    runs one thread a chain at every K) through :func:`conf_from_streams`."""
-    betas = _bwd_chain_plain(steps_next, lens2, cs_next, beta0, A, B, T)
+    """Plain version of B19 -> conf [Tp, NL]: B18's betas (:func:`fb_bwd_plain`:
+    its sub-lanes at G > 1, the sequential chain otherwise; B19 runs in
+    B18's layout) through :func:`conf_from_streams`."""
+    betas = fb_bwd_plain(steps_next, lens2, cs_next, beta0, A, B, T)
     return conf_from_streams(alphas, betas, lens2, mask)
 
 
@@ -532,8 +533,10 @@ def fb_bwd(steps_next, lens2, cs_next, beta0, A, B, T: int) -> torch.Tensor:
 
 
 def fb_bwd_conf(steps_next, lens2, cs_next, beta0, alphas, mask, A, B, T: int) -> torch.Tensor:
-    """Kernel B19 (replaces ``_bwd_conf_kernel``) -> conf [Tp, NL] f32; the
-    betas never leave the kernel.  Arguments as :func:`fb_bwd_conf_plain`."""
+    """Kernel B19 (replaces ``_bwd_conf_kernel``) -> conf [Tp, NL] f32, the
+    lane in B18's :func:`bwd_sublanes` sub-lanes (at K >= 5 one chain split
+    one thread a state); the betas never leave the kernel.  Arguments as
+    :func:`fb_bwd_conf_plain`."""
     _check_device(steps_next, (lens2, cs_next, beta0, alphas, mask, A, B))
     Tp, NL = _check_stream("steps_next", steps_next)
     K, S = _check_tables(A, B)
@@ -544,9 +547,12 @@ def fb_bwd_conf(steps_next, lens2, cs_next, beta0, alphas, mask, A, B, T: int) -
     _check("mask", mask, _F32, (K,))
     if steps_next.device.type == "cpu":
         return fb_bwd_conf_plain(steps_next, lens2, cs_next, beta0, alphas, mask, A, B, T)
-    conf = torch.empty((Tp, NL), dtype=_F32, device=steps_next.device)
+    dev = steps_next.device
+    G = bwd_sublanes(Tp, K)
+    conf = torch.empty((Tp, NL), dtype=_F32, device=dev)
+    qbuf = torch.empty((G, K * K + 1, NL) if G > 1 else (1,), dtype=_F32, device=dev)
     _kernels.launch("fb_bwd_conf", steps_next, lens2, cs_next, beta0, alphas, mask, A, B,
-                    conf, Tp=Tp, NL=NL, K=K, S=S, T=T)
+                    conf, qbuf, Tp=Tp, NL=NL, K=K, S=S, T=T, G=G)
     return conf
 
 

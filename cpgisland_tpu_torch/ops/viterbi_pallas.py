@@ -4,10 +4,12 @@ plain PyTorch versions.
 Counterpart of ``cpgisland_tpu/ops/viterbi_pallas.py``.  Same three passes
 as ops.viterbi_parallel (products -> backpointers -> backtrace) for any
 model with K <= 8 states, with the per-step loops as hand-written kernels
-(``csrc/viterbi_dense.cu``): one thread per lane over the time-major
-[bk, nb] step stream, the K x K product or the K-state delta in registers,
-and every step's matrix M_t[m, j] = logA[m, j] + logB[j, o_t] looked up in
-a per-symbol table (the identity for PAD).  All K backpointers of a step
+(``csrc/viterbi_dense.cu``) over the time-major [bk, nb] step stream: one
+thread per lane for the backpointers and the backtrace, one row of the
+K x K product per thread for the products on up to 8 Ki lanes (one
+thread per lane past them), the product rows or the K-state delta in
+registers, and every step's matrix M_t[m, j] = logA[m, j] + logB[j, o_t]
+looked up in a per-symbol table (the identity for PAD).  All K backpointers of a step
 pack into one int32 (3 bits per state), so the backtrace state machine is
 ``state = (packed >> 3 * state) & 7``, and the exit -> entry composition
 table threads through the same packing.
@@ -147,7 +149,8 @@ def _check_tables(logAT: torch.Tensor, logB: torch.Tensor):
 def dense_products(steps2: torch.Tensor, logAT: torch.Tensor,
                    logB: torch.Tensor) -> torch.Tensor:
     """Kernel B13 (replaces the JAX package's ``_products_kernel``):
-    [bk, nb] steps -> [K * K, nb] block products."""
+    [bk, nb] steps -> [K * K, nb] block products, one row of a lane's
+    product per thread up to 8 Ki lanes, one thread per lane past them."""
     _check_operands(steps2, (logAT, logB))
     K, S = _check_tables(logAT, logB)
     bk, nb = steps2.shape

@@ -2,6 +2,7 @@
 inputs: the measurements behind their layouts.
 
     python -m cpgisland_tpu_torch.tools.kernel_variants [--group dense|split|stats|decode ...]
+        [--variant NAME ...]
 
 Each variant is a copy of a kernel source (``csrc/fb_dense.cu``,
 ``csrc/fb_onehot.cu``, ``csrc/viterbi_onehot.cu``, ``csrc/viterbi_dense.cu``) with
@@ -9,13 +10,16 @@ a few lines replaced (the table below), compiled with the port's nvcc flags
 into ``build/kernel_variants/`` and called through its C interface, so a
 variant changes nothing in the package.  On the card only, by group:
 
-- ``dense``: B16 and B18 at K = 2 (two_state) in sub-lanes on 1,024 ragged
-  chunks of 65,536 steps (G = 32) and on 8,192 lanes of 8,192 steps (G =
-  16 and 8);
-- ``split``: B16 and B18 at K = 5 and 8 (seeded random models over 4
-  symbols) on the same two geometries, where each lane is one chain: the
-  shipped state-split kernels (one state a thread, 8 threads a lane, a
-  shuffle exchange, blocks of 16 lanes) against blocks of 4, 8 and 32
+- ``dense``: B16, B18 and B19 at K = 2 (two_state) in sub-lanes on 1,024
+  ragged chunks of 65,536 steps (G = 32) and on 8,192 lanes of 8,192 steps
+  (G = 16 and 8), B19 also in one sub-lane (G = 1: its one-thread chain);
+- ``split``: B16, B18 and B19 (island mask: the first half of the
+  states) at K = 5 and 8 (seeded random models over 4 symbols) on the
+  same two geometries, where each lane is one chain: the shipped
+  state-split kernels (one state a thread, 8 threads a lane, a shuffle
+  exchange, blocks of 16 lanes; B19 each thread dividing and storing
+  once a group of 8 steps) against B19 dividing and storing at every
+  step by one thread of the lane (``conf_step``), blocks of 4, 8 and 32
   lanes, two and four states a thread (:data:`SPT_KERNELS`), ``__frcp_rn``
   for the divisions, a branch around each store, the kernels as first
   written (:data:`SIMPLE_KERNELS`), a warp a state (:data:`WARP_KERNELS`:
@@ -56,13 +60,24 @@ variant changes nothing in the package.  On the card only, by group:
   (lane block, segment) grid in two launches (``bt_grid2``), the parent's
   one thread a lane and, unchecked, the walk with no loads or no stores;
   segments of 16 to 256 words (:data:`BT_SEGS`) on the shipped build and
-  three others. The reduced kernels at 4,096 x 16,384 (M = 2 and 5, B26 also
-  at 3 and 4, B1 also on 32, 48 and 64 Ki lanes, and S = 16 at M = 2) and
-  at the largest mixed-model flush (8 records padded to 512 Ki: 4,096 x
-  1,024; M = 2, 3), B14 at 4,096 x 16,384.
+  three others. B13 (``csrc/viterbi_dense.cu``, K = 2 and 8) one row of the
+  product a thread up to 8 Ki lanes and one thread a lane past them (both
+  read ahead: 16 steps at K = 2, 8 for rows and 2 for a lane above)
+  against the rows or one thread a lane on every lane count
+  (``dense_prod_rows``, ``dense_prod_lane``, the latter 4 and 8 steps
+  ahead), the parent's one thread a lane with one load a step
+  (``dense_prod_parent``), the table read as scalars with the odd stride
+  K*K + 1 (``dense_prod_scalar``), two rows a thread at K >= 4, blocks of
+  64 and 256, 16 and 8 steps ahead at every K and at least 8 blocks an
+  SM. The reduced kernels at 4,096 x 16,384 (M = 2 and 5, B26 also at 3
+  and 4, B1 also on 32, 48 and 64 Ki lanes, and S = 16 at M = 2) and at
+  the largest mixed-model flush (8 records padded to 512 Ki: 4,096 x
+  1,024; M = 2, 3), B14 at 4,096 x 16,384, B13 there, on 4, 8, 32, 48
+  and 64 Ki lanes and at two_state's scaffold flushes (8 records padded to
+  64 Ki and 512 Ki: 128 and 1,024 lanes of 4,096 steps).
 
 Each variant's outputs are held against its group's unchanged build (bit
-for bit for B16, B18 and the decode chains, within rtol 1e-5 / atol 1e-3 for the B5 layouts;
+for bit for B16, B18, B19, B13 and the decode chains, within rtol 1e-5 / atol 1e-3 for the B5 layouts;
 the ``diag_*`` variants drop work to find what bounds B5, the
 state-split chains or the decode chains and are not checked).  Times: CUDA events, median of 15.  One JSON line per variant on
 stdout, after the card's name and power limit (``nvidia-smi``); exits 2
@@ -720,10 +735,19 @@ def _spt_variant(spt: int) -> list:
             (_BWD_LAUNCH, launch.format("bwd"))]
 
 
-# The one-thread chain at K >= 5: the C entries' K >= 5 cases sent to the
-# K <= 4 launchers' template.
+# The one-thread chain at K >= 5: the C entries' K >= 5 cases (B16, B18 and
+# B19) sent to the K <= 4 launchers' template.
 _ONE_THREAD = [(f"case {k}: return CALL_{d}X({k});", f"case {k}: return CALL_{d}({k});")
-               for d in "FB" for k in range(5, 9)]
+               for d in "FBC" for k in range(5, 9)]
+# B19's state split with its epilogue at every step: thread 0 of the lane
+# divides and stores (a 16-byte row piece a warp a step) instead of thread r
+# once a group for step r.
+_CONF_STEP = [
+    ("if (CONF) split_conf_sums<K>(aq[CONF ? r : 0][0], beta, mk, k == r, isl, tot);",
+     "if (CONF) {\n        split_conf_sums<K>(aq[CONF ? r : 0][0], beta, mk, true, isl, tot);\n"
+     "        split_conf_store(conf, nl, t, len, isl, tot, n < NL && k == 0);\n      }"),
+    ("      split_conf_store(conf, nl, Tp - 1 - (k0 + k), len, isl, tot, n < NL);\n", ""),
+    ("  if (CONF) split_conf_store(conf, nl, Tp - 1 - (k0 + k), len, isl, tot, n < NL);\n", "")]
 
 # ---------------------------------------------------------------------------
 # The decode group: where B2 / B6 / B27 (csrc/viterbi_onehot.cu) and B14
@@ -732,6 +756,94 @@ _ONE_THREAD = [(f"case {k}: return CALL_{d}X({k});", f"case {k}: return CALL_{d}
 # (not including) its second; the chain's operations are the same in all.
 _OH_REGION = ("// B1, B2 and B6 share one chain body", "// B2 / B6, and with M > 1")
 _DENSE_REGION = ("// B14: replaces _backpointers_kernel.", "// B15: replaces _backtrace_kernel.")
+_B13_REGION = ("// B13: replaces cpgisland_tpu/ops/viterbi_pallas.py::_products_kernel.",
+               "// TT steps of B14's chain")
+_B13_LAUNCH = ("template <int K, int R>\nstatic int launch_products_r(",
+               "template <int K>\nstatic int launch_backpointers(")
+
+# B13 as the parent ran it: one thread a lane, one load a step (two steps
+# unrolled), the table rows K*K + 1 floats apart read as scalars.
+B13_PARENT_KERNEL = r"""// B13: replaces cpgisland_tpu/ops/viterbi_pallas.py::_products_kernel.  Per
+// lane, the max-plus product of its bk step matrices, written as
+// out[i*K + m, b] = C[i][m].  Reads 4 B per step (the step stream), writes
+// 4*K*K B per lane.
+template <int K>
+__global__ void __launch_bounds__(THREADS)
+dense_products_kernel(const int32_t* __restrict__ steps, const float* __restrict__ logAT,
+                      const float* __restrict__ logB, float* __restrict__ out, int bk, int nb,
+                      int S) {
+  extern __shared__ float s_M[];
+  load_step_table<K>(s_M, logAT, logB, S);
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= nb) return;
+  float C[K][K];
+#pragma unroll
+  for (int i = 0; i < K; ++i)
+#pragma unroll
+    for (int m = 0; m < K; ++m) C[i][m] = (i == m) ? 0.0f : LOG_ZERO;
+  const int32_t* p = steps + b;
+#pragma unroll 2
+  for (int k = 0; k < bk; ++k) {
+    const int sym = min(__ldg(p + (size_t)k * nb), S);
+    const float* Ms = s_M + sym * (K * K + 1);
+    float N[K][K];
+    // Column by column: M_s[:, j] is K lookups; new[i][j] = max_m C[i][m] + M[m][j].
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      float col[K];
+#pragma unroll
+      for (int m = 0; m < K; ++m) col[m] = Ms[m * K + j];
+#pragma unroll
+      for (int i = 0; i < K; ++i) {
+        float best = C[i][0] + col[0];
+#pragma unroll
+        for (int m = 1; m < K; ++m) best = fmaxf(best, C[i][m] + col[m]);
+        N[i][j] = best;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < K; ++i)
+#pragma unroll
+      for (int m = 0; m < K; ++m) C[i][m] = N[i][m];
+  }
+#pragma unroll
+  for (int i = 0; i < K; ++i)
+#pragma unroll
+    for (int m = 0; m < K; ++m) out[(size_t)(i * K + m) * nb + b] = C[i][m];
+}
+
+"""
+B13_PARENT_LAUNCH = r"""template <int K>
+static int launch_products(const void* steps, const void* logAT, const void* logB, void* out,
+                           int bk, int nb, int S, cudaStream_t stream) {
+  const size_t smem = table_bytes(K, S);
+  int err = allow_smem(dense_products_kernel<K>, smem);
+  if (err) return err;
+  dense_products_kernel<K><<<grid_for(nb), THREADS, smem, stream>>>(
+      (const int32_t*)steps, (const float*)logAT, (const float*)logB, (float*)out, bk, nb, S);
+  return (int)cudaGetLastError();
+}
+
+"""
+# B13's rows with the table read as scalars, rows K*K + 1 floats apart (an
+# odd stride: B14's table).
+_B13_STRIDE = ("#define PROD_STRIDE(KK) \\\n"
+               "  ((((KK) + 3) / 4 * 4) % 8 == 0 ? ((KK) + 3) / 4 * 4 + 4 : ((KK) + 3) / 4 * 4)",
+               "#define PROD_STRIDE(KK) ((KK) + 1)")
+_B13_FLOAT4 = ("""    const float4* M4 = reinterpret_cast<const float4*>(s_M + min(q[i], S) * SP);
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const float4 x = M4[v];
+      Mt[i][4 * v] = x.x;
+      Mt[i][4 * v + 1] = x.y;
+      Mt[i][4 * v + 2] = x.z;
+      Mt[i][4 * v + 3] = x.w;
+    }""", """    const float* Ms = s_M + min(q[i], S) * SP;
+#pragma unroll
+    for (int v = 0; v < K * K; ++v) Mt[i][v] = Ms[v];""")
+_B13_ROWS_MAX = "#define DENSE_ROWS_MAX_LANES "
+_B13_AHEAD = "#define PROD_AHEAD(KK) ((KK) <= 4 ? 16 : 8)"
+_B13_LANE_AHEAD = "#define LANE_AHEAD(KK) ((KK) <= 4 ? 16 : 2)"
 
 # The chain body (B1, B2, B6) as B2 / B6 ran before the read-ahead: 8 steps
 # loaded, then run, then the next 8.
@@ -1376,6 +1488,7 @@ VARIANTS = {
         (_FWD_LAUNCH, "  fb_fwd_stage_kernel<K><<<blocks_for(NL * SPLIT_KP, 256), 256, 0, st>>>("),
         (_BWD_LAUNCH, "  fb_bwd_stage_kernel<K><<<blocks_for(NL * SPLIT_KP, 256), 256, 0, st>>>(")]),
     "split/one_thread": ("fb_dense", _ONE_THREAD),
+    "split/conf_step": ("fb_dense", _CONF_STEP),
     "split/diag_nostore": ("fb_dense", [(_STORE_IF, '"r"(0u)')]),
     "stats/base": ("fb_onehot", []),
     "stats/lanes128": ("fb_onehot", [("#define STATS_LANES 32", "#define STATS_LANES 128")]),
@@ -1429,18 +1542,46 @@ VARIANTS = {
     "decode/dense_ring16x5": ("viterbi_dense", _ring(RING_DENSE_KERNEL, _DENSE_REGION, 16, 5)),
     "decode/dense_threads64": ("viterbi_dense", _DENSE_THREADS64),
     "decode/dense_diag_noload": ("viterbi_dense", [_DENSE_NOLOAD]),
+    "decode/dense_prod_parent": ("viterbi_dense", [(*_B13_REGION, B13_PARENT_KERNEL),
+                                                   (*_B13_LAUNCH, B13_PARENT_LAUNCH)]),
+    "decode/dense_prod_lane": ("viterbi_dense", [(_B13_ROWS_MAX + "8192",
+                                                  _B13_ROWS_MAX + "0")]),
+    "decode/dense_prod_rows": ("viterbi_dense", [(_B13_ROWS_MAX + "8192",
+                                                  _B13_ROWS_MAX + "0x7fffffff")]),
+    "decode/dense_prod_lane_ahead4": ("viterbi_dense", [
+        (_B13_ROWS_MAX + "8192", _B13_ROWS_MAX + "0"), (_B13_LANE_AHEAD, _B13_LANE_AHEAD[:-2] + "4)")]),
+    "decode/dense_prod_lane_ahead8": ("viterbi_dense", [
+        (_B13_ROWS_MAX + "8192", _B13_ROWS_MAX + "0"), (_B13_LANE_AHEAD, _B13_LANE_AHEAD[:-2] + "8)")]),
+    "decode/dense_prod_rows2": ("viterbi_dense", [("launch_products_r<K, 1>(",
+                                                   "launch_products_r<K, (K >= 4 ? 2 : 1)>(")]),
+    "decode/dense_prod_scalar": ("viterbi_dense", [_B13_STRIDE, _B13_FLOAT4]),
+    "decode/dense_prod_threads64": ("viterbi_dense", [("#define PROD_THREADS 128",
+                                                       "#define PROD_THREADS 64")]),
+    "decode/dense_prod_threads256": ("viterbi_dense", [("#define PROD_THREADS 128",
+                                                        "#define PROD_THREADS 256")]),
+    "decode/dense_prod_ahead16": ("viterbi_dense", [(_B13_AHEAD, "#define PROD_AHEAD(KK) 16")]),
+    "decode/dense_prod_ahead8": ("viterbi_dense", [(_B13_AHEAD, "#define PROD_AHEAD(KK) 8")]),
+    "decode/dense_prod_min8": ("viterbi_dense", [(
+        "template <int K, int R>\n__global__ void __launch_bounds__(PROD_THREADS)\n"
+        "dense_products_kernel",
+        "template <int K, int R>\n__global__ void __launch_bounds__(PROD_THREADS, 8)\n"
+        "dense_products_kernel")]),
 }
 _SPB_CHECK = ("(SPB != 1 && SPB != 4)", "(SPB < 1)")  # lanes128 runs one segment a block
 SEGMENTS = (128, 256, 512, 1024)
 # The kernels whose registers and spills each variant build prints.
-PTXAS_OF = {"dense": ("_Z17fb_fwd_sub_kernelILi2E", "_Z17fb_bwd_sub_kernelILi2E"),
-            "split": ("_Z19fb_fwd_split_kernel", "_Z19fb_bwd_split_kernel", "_Z18fb_fwd_warp",
+PTXAS_OF = {"dense": ("_Z17fb_fwd_sub_kernelILi2E", "_Z17fb_bwd_sub_kernelILi2E",
+                      "_Z22fb_bwd_sub_conf_kernelILi2E", "_Z13fb_bwd_kernelILi2ELb1E"),
+            "split": ("_Z19fb_fwd_split_kernel", "_Z19fb_bwd_split_kernel",
+                      "_Z24fb_bwd_split_conf_kernel", "_Z13fb_bwd_kernelILi8ELb1E",
+                      "_Z18fb_fwd_warp",
                       "_Z17fb_fwd_spt_kernel", "_Z17fb_bwd_spt_kernel",
                       "_Z20fb_fwd_simple", "_Z20fb_bwd_simple",
                       "_Z18fb_bwd_warp", "_Z19fb_fwd_stage", "_Z19fb_bwd_stage",
                       "_Z13fb_fwd_kernelILi8E", "_Z13fb_bwd_kernelILi8ELb0E"),
             "stats": ("_Z24oh_seq_stats_part_kernel",),
             "decode": ("_Z22oh_backpointers_kernel", "_Z25dense_backpointers_kernel",
+                       "_Z21dense_products_kernel",
                        "_Z18oh_products_kernel", "_Z23oh_products_lane_kernel",
                        "_Z19oh_backtrace_kernel",
                        "_Z17oh_bt_maps_kernel")}
@@ -1452,13 +1593,17 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SOURCES = {}
 
 
-def build_all(groups) -> dict:
-    """variant -> the loaded library, for the variants of ``groups`` (all
-    nvcc runs started together)."""
+def build_all(groups, only=None) -> dict:
+    """variant -> the loaded library, for the variants of ``groups`` (those
+    in ``only`` and each group's base builds, where given; all nvcc runs
+    started together)."""
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, (stem, reps) in VARIANTS.items():
         if name.split("/")[0] not in groups:
+            continue
+        if only and name not in only and not (name.endswith("base") and any(
+                VARIANTS[o][0] == stem and o.split("/")[0] == name.split("/")[0] for o in only)):
             continue
         src = (_kernels._CSRC / f"{stem}.cu").read_text()
         for rep in reps + ([_SPB_CHECK] if stem == "fb_onehot" else []):
@@ -1574,7 +1719,11 @@ def split_inputs(rng, dev) -> dict:
 
 
 def run_split(name, lib, inputs, ref) -> dict:
+    """B16, B18 and B19 (the island mask: the first half of the states) of
+    the variant at K = 5 and 8: ms and bit equality with the shipped
+    build's outputs."""
     fwd, bwd = c_fn(lib, "fb_fwd", 7, 5), c_fn(lib, "fb_bwd", 8, 6)
+    conf_fn = c_fn(lib, "fb_bwd_conf", 10, 6)
     row = {"variant": name}
     for (K, geo), (steps, lens, a0, b0, A, B) in inputs.items():
         Tp, NL = steps.shape
@@ -1588,14 +1737,21 @@ def run_split(name, lib, inputs, ref) -> dict:
         g = lambda: bwd([sn, lens, csn, b0, A, B, be, dummy], [Tp, NL, K, 4, Tp, 1])  # noqa: E731
         row[f"bwd_k{K}_{geo}_ms"] = time_ms(g)
         g()
+        mask = (torch.arange(K, device=dev) < K // 2).float()
+        cf = torch.empty((Tp, NL), device=dev)
+        h = lambda: conf_fn([sn, lens, csn, b0, al, mask, A, B, cf, dummy],  # noqa: E731
+                            [Tp, NL, K, 4, Tp, 1])
+        row[f"conf_k{K}_{geo}_ms"] = time_ms(h)
+        h()
         key = (K, geo)
         if name.startswith("split/diag"):
             pass
         elif key not in ref:
-            ref[key] = (al, be)
+            ref[key] = (al, be, cf)
         else:
             row[f"k{K}_{geo}_bit_equal"] = bool(torch.equal(al, ref[key][0])
                                                 and torch.equal(be, ref[key][1]))
+            row[f"conf_k{K}_{geo}_bit_equal"] = bool(torch.equal(cf, ref[key][2]))
         del sn, csn
     return row
 
@@ -1632,7 +1788,12 @@ def stats_inputs(rng, dev) -> dict:
 
 
 def run_dense(name, lib, inputs, A, B, ref) -> dict:
+    """B16, B18 and B19 (island mask [1, 0]; at the geometry's G and at
+    G = 1, the one-thread chain) of the variant at K = 2: ms and bit
+    equality with the shipped build's outputs."""
     fwd, bwd = c_fn(lib, "fb_fwd", 7, 5), c_fn(lib, "fb_bwd", 8, 6)
+    conf_fn = c_fn(lib, "fb_bwd_conf", 10, 6)
+    mask = torch.tensor([1.0, 0.0], device=A.device)
     row = {"variant": name}
     for geo, (steps, lens, a0, b0, G) in inputs.items():
         Tp, NL = steps.shape
@@ -1646,11 +1807,21 @@ def run_dense(name, lib, inputs, A, B, ref) -> dict:
         g = lambda: bwd([sn, lens, csn, b0, A, B, be, qb], [Tp, NL, 2, 4, Tp, G])  # noqa: E731
         row[f"bwd_{geo}_ms"] = time_ms(g)
         g()
+        confs = []
+        for cG, tag in ((G, ""), (1, "_g1")):
+            cf = torch.empty((Tp, NL), device=steps.device)
+            h = lambda: conf_fn([sn, lens, csn, b0, al, mask, A, B, cf, qb],  # noqa: E731
+                                [Tp, NL, 2, 4, Tp, cG])
+            row[f"conf{tag}_{geo}_ms"] = time_ms(h)
+            h()
+            confs.append(cf)
         if geo not in ref:
-            ref[geo] = (al, be)
+            ref[geo] = (al, be, *confs)
         else:
             row[f"{geo}_bit_equal"] = bool(torch.equal(al, ref[geo][0])
-                                           and torch.equal(be, ref[geo][1]))
+                                           and torch.equal(be, ref[geo][1])
+                                           and torch.equal(confs[0], ref[geo][2])
+                                           and torch.equal(confs[1], ref[geo][3]))
     return row
 
 
@@ -1710,8 +1881,9 @@ def decode_inputs(rng, dev, bk: int = 4096, nb: int = 16384, T: int = 512 << 10)
     ``big16``, the same geometry over dinuc_cpg's 16 symbols under
     M = 2; ``flush``, the largest mixed-model flush (8 records padded to
     512 Ki symbols, one flat reset stream: 4,096 x 1,024) under M = 3; and
-    ``dense2`` / ``dense8``, B14's 4,096 x 16,384 symbol streams (PAD runs)
-    with two_state's and the flagship's tables."""
+    ``dense2`` / ``dense8``, B13 / B14's 4,096 x 16,384 symbol streams (PAD
+    runs) with two_state's and the flagship's tables, and ``dense_wide``
+    the same stream side by side to the most of B13_WIDE_NB lanes."""
     steps = rng.integers(0, 4, size=(bk, nb)).astype(np.int32)
     for k0, b, n in zip(rng.integers(0, bk, size=nb // 4), rng.integers(0, nb, size=nb // 4),
                         rng.integers(1, 200, size=nb // 4)):
@@ -1734,7 +1906,27 @@ def decode_inputs(rng, dev, bk: int = 4096, nb: int = 16384, T: int = 512 << 10)
         v = rng.normal(scale=3.0, size=(K, nb)).astype(np.float32)
         logAT, logB = VP._tables(params)
         out[f"dense{K}"] = (steps_d, torch.from_numpy(v - v.max(axis=0)).to(dev), logAT, logB)
+    out["dense_wide"] = steps_d.repeat(1, -(-max(B13_WIDE_NB) // nb))
+    for Tf in B13_FLUSH_T:
+        out[f"dense_flush{Tf}"] = dense_flush_steps(rows[:, :Tf], lengths.long() * Tf // T, bk)
     return out
+
+
+def dense_flush_steps(rows, lengths, bk: int):
+    """B13's symbols for a two_state flush of ``rows`` (records padded to
+    one length, lengths ``lengths``), laid out as
+    ``viterbi_parallel._dense_batch`` lays them: each record's steps after
+    its first symbol, PAD past its length, in blocks of bk, record r's
+    block b on lane r * nb + b."""
+    N, T = rows.shape
+    obs = torch.where(torch.arange(T, device=rows.device)[None, :] >= lengths[:, None], 4,
+                      rows.to(torch.int32))
+    S = T - 1
+    bk = min(bk, max(8, S))
+    nb = -(-S // bk)
+    steps = torch.cat([obs[:, 1:], torch.full((N, nb * bk - S), 4, dtype=torch.int32,
+                                              device=rows.device)], dim=1)
+    return steps.reshape(N * nb, bk).T.contiguous()
 
 
 # B3 / B28's segment lengths (words) swept at both geometries; a length
@@ -1743,6 +1935,13 @@ def decode_inputs(rng, dev, bk: int = 4096, nb: int = 16384, T: int = 512 << 10)
 BT_SEGS = (16, 32, 64, 128, 256)
 # B1's lanes beside 16,384: the 4,096 x 16,384 stream side by side.
 B1_WIDE_NB = (32768, 49152, 65536)
+# B13's beside 16,384: a 16 Mi span's 4,096 lanes up to the one-pass decode
+# of a 2^28 record's 65,536.
+B13_WIDE_NB = (4096, 8192, 32768, 49152, 65536)
+# B13 at two_state's scaffold flushes: 8 records padded to 64 Ki and to 512
+# Ki symbols (128 and 1,024 lanes of 4,096 steps; 512 Ki is the most a
+# small record pads to).
+B13_FLUSH_T = (64 << 10, 512 << 10)
 
 
 def _oh_calls(lib, name, inputs) -> list:
@@ -1809,20 +2008,28 @@ def _oh_calls(lib, name, inputs) -> list:
 def run_decode(name, lib, inputs, ref) -> dict:
     """The variant's reduced decode kernels (:func:`_oh_calls`; B3 / B28
     also at each of BT_SEGS for the segmented builds), or its B14 at K = 2
-    and 8: ms and bit equality with the shipped build's outputs."""
+    and 8 and its B13 at K = 2 and 8 on 16,384 and each of B13_WIDE_NB lanes and at
+    two_state's flushes (B13_FLUSH_T): ms and bit equality with the shipped build's outputs."""
     if VARIANTS[name][0] == "viterbi_onehot":
         calls = _oh_calls(lib, name, inputs)
     else:
         calls = []
         b14 = c_fn(lib, "dense_backpointers", 7, 4)
+        b13 = c_fn(lib, "dense_products", 4, 4)
         for K in (2, 8):
             steps, v, logAT, logB = inputs[f"dense{K}"]
             bk, nb = steps.shape
-            outs = [torch.empty((bk, nb), dtype=torch.int32, device=steps.device),
-                    torch.empty((K, nb), device=steps.device),
-                    torch.empty((nb,), dtype=torch.int32, device=steps.device)]
-            calls.append((f"b14_k{K}", b14, [steps, v, logAT, logB], [bk, nb, K, logB.shape[1]],
-                          outs, ()))
+            S, dev = logB.shape[1], steps.device
+            outs = [torch.empty((bk, nb), dtype=torch.int32, device=dev),
+                    torch.empty((K, nb), device=dev),
+                    torch.empty((nb,), dtype=torch.int32, device=dev)]
+            calls.append((f"b14_k{K}", b14, [steps, v, logAT, logB], [bk, nb, K, S], outs, ()))
+            wide = [(f"_nb{w}", inputs["dense_wide"][:, :w].contiguous()) for w in B13_WIDE_NB]
+            flush = [(f"_flush{inputs[f'dense_flush{T}'].shape[1]}", inputs[f"dense_flush{T}"])
+                     for T in B13_FLUSH_T]
+            for tag, st in [("", steps)] + wide + flush:
+                calls.append((f"b13_k{K}{tag}", b13, [st, logAT, logB], [bk, st.shape[1], K, S],
+                              [torch.empty((K * K, st.shape[1]), device=dev)], ()))
     checked = "_diag_" not in name
     row = {"variant": name}
     for key, fn, operands, ints, outs, segs in calls:
@@ -1852,13 +2059,17 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--group", action="append", choices=GROUPS,
                     help="run only these variant groups (repeatable; default all)")
-    groups = tuple(ap.parse_args(argv).group or GROUPS)
+    ap.add_argument("--variant", action="append", choices=sorted(VARIANTS),
+                    help="run only these variants of the groups (repeatable; a group's base "
+                         "build always runs: the others are held against it)")
+    args = ap.parse_args(argv)
+    groups = tuple(args.group or GROUPS)
     if not torch.cuda.is_available():
         print("kernel_variants: CUDA is not available", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
     print(card_line(), flush=True)
-    libs = build_all(groups)
+    libs = build_all(groups, args.variant)
     rng = np.random.default_rng(0)
     if "dense" in groups:
         A, B, _ = FP.tables(presets.two_state_cpg(device=dev))

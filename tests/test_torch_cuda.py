@@ -369,6 +369,33 @@ def test_dense_kernels_equal_plain_versions(cuda_device, K, bk, nb):
     assert all(_kernels.launches[k] == before[k] + 1 for k in names)
 
 
+# B13 one row of the product a thread (K threads a lane, padded to a power of
+# two: 16 lanes a block of 128 at K >= 5) up to 8 Ki lanes, one thread a
+# lane past them, the symbols read 2, 8 or 16 steps ahead: bk short of a
+# group, one past a group and past many; lanes short of a block, past one,
+# the largest scaffold flush's 1,024, either side of the layouts' limit and
+# the one-pass decode of a 2^28 record's 65,536.
+B13_GEOMETRIES = [(7, 1), (17, 33), (33, 129), (4099, 17), (4096, 1024), (264, 8192),
+                  (264, 8193), (4099, 16384), (264, 65536)]
+
+
+@pytest.mark.parametrize("bk,nb", B13_GEOMETRIES)
+@pytest.mark.parametrize("K", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_dense_products_rows_equal_plain(cuda_device, K, bk, nb):
+    """B13 in both of its layouts (each row of a lane's product on a
+    thread of its own, or one thread a lane): bit for bit its plain
+    version, PAD runs included, one launch a call."""
+    from cpgisland_tpu_torch.ops import viterbi_pallas as VP
+
+    steps, _, logAT, logB, _ = _dense_operands(np.random.default_rng(K * 7 + bk + nb), K, bk,
+                                               nb, cuda_device)
+    before = _kernels.launches["dense_products"]
+    got = VP.dense_products(steps, logAT, logB)
+    torch.cuda.synchronize()
+    assert _kernels.launches["dense_products"] == before + 1
+    assert torch.equal(got, VP.dense_products_plain(steps, logAT, logB))
+
+
 def test_dense_decode_file_cuda_equals_cpu(cuda_device, tmp_path):
     """two_state (island_states=(0,)) and the flagship on a record that
     opens with N under mask: island files identical on the card (device
@@ -1385,10 +1412,11 @@ def test_prod_stacked_sublanes_bit_equal(cuda_device, monkeypatch, M, sub):
         assert torch.equal(got[m], FB.oh_prod(prep.pair2, tabs[m].contiguous()))
 
 
-def _dense_bwd_operands(rng, K, NL, T, device):
+def _dense_bwd_operands(rng, K, NL, T, device, lens_from3=()):
     """A seeded K-state model over 4 symbols and the backward's inputs from
     B16 on ragged chunks (an empty lane, a one-step lane, a short last
-    lane, PAD tails)."""
+    lane, PAD tails; lanes 3, 4, ... of the lengths ``lens_from3`` where
+    given)."""
     from cpgisland_tpu_torch.ops import fb_pallas as FP
 
     A = torch.from_numpy(rng.dirichlet(np.ones(K), size=K).astype(np.float32)).to(device)
@@ -1399,6 +1427,7 @@ def _dense_bwd_operands(rng, K, NL, T, device):
     if NL > 3:
         lens[0, 1:3] = [0, 1]
         lens[0, 3:-1] = rng.integers(1, T + 1, size=NL - 4)
+        lens[0, 3 : 3 + len(lens_from3)] = lens_from3
     steps[np.arange(T)[:, None] >= lens] = 0
     steps2, lens2 = (torch.from_numpy(x).to(device) for x in (steps, lens))
     a0 = torch.from_numpy((rng.random((K, NL)) + 0.1).astype(np.float32)).to(device)
@@ -1432,9 +1461,9 @@ def test_fb_bwd_sublanes_bit_equal(cuda_device, monkeypatch, K, NL, T, sub):
 
 @pytest.mark.parametrize("K", [5, 8])
 def test_fb_bwd_wide_and_conf_stay_one_chain(cuda_device, monkeypatch, K):
-    """B18 at K >= 5 stays one chain, state-split, and B19 at every K one
-    thread a chain: with the sub-lane length lowered they still equal their
-    (sequential) plain versions bit for bit."""
+    """B18 and B19 at K >= 5 stay one chain, state-split, and B19 at K = 2
+    takes B18's sub-lanes: with the sub-lane length lowered they still
+    equal their plain versions bit for bit."""
     from cpgisland_tpu_torch.ops import fb_pallas as FP
 
     monkeypatch.setattr(FP, "BWD_SUBLANE_T", 300)
@@ -1450,6 +1479,49 @@ def test_fb_bwd_wide_and_conf_stay_one_chain(cuda_device, monkeypatch, K):
         got = FP.fb_bwd_conf(steps_next, lens2, cs_next, beta0, alphas, mask, A, B, 4096)
         assert torch.equal(got, FP.fb_bwd_conf_plain(steps_next, lens2, cs_next, beta0, alphas,
                                                      mask, A, B, 4096))
+
+
+# B19 in B18's layouts: (K, NL, T, sub-lane length) with G = 13 (300-step
+# sub-lanes of 4,099 steps), G = 8 (the default, 8,192-step lanes) and G = 1
+# at K <= 4; the state split at K = 5 and 8 (4 lanes a warp, 16 a block).
+B19_CASES = ([(K, NL, T, sub) for K in (2, 3, 4)
+              for NL, T, sub in ((33, 4099, 300), (70, 8192, None), (33, 4099, 1 << 20))]
+             + [(K, NL, T, None) for K in (5, 8) for NL, T in ((33, 4099), (3, 9), (70, 8192))])
+
+
+@pytest.mark.parametrize("K,NL,T,sub", B19_CASES)
+def test_fb_bwd_conf_in_b18_layouts(cuda_device, monkeypatch, K, NL, T, sub):
+    """B19 runs B18's layout at its K and lane length: bit for bit its
+    plain version (the confidence over B18's betas), lanes of length 0, 1,
+    the chunk length and the lane's included; one launch a call; nothing
+    stored past the last lane (a sentinel after the confidence stays)."""
+    from cpgisland_tpu_torch.ops import fb_pallas as FP
+
+    if sub is not None:
+        monkeypatch.setattr(FP, "BWD_SUBLANE_T", sub)
+        monkeypatch.setattr(FP, "BWD_SUBLANES_FROM", 1)
+    rng = np.random.default_rng(K * 31 + NL + T)
+    chunk = T - 3
+    steps_next, lens2, cs_next, beta0, A, B, alphas = _dense_bwd_operands(
+        rng, K, NL, T, cuda_device, lens_from3=(chunk, T))
+    G = FP.bwd_sublanes(T, K)
+    assert (G > 1) == (K <= 4 and sub != 1 << 20)
+    mask = (torch.arange(K, device=cuda_device) < (K + 1) // 2).float()
+    args = (steps_next, lens2, cs_next, beta0, alphas, mask, A, B, chunk)
+    want = FP.fb_bwd_conf_plain(*args)
+    assert bool(torch.isfinite(want).all())
+    assert torch.equal(want, FP.conf_from_streams(
+        alphas, FP.fb_bwd_plain(steps_next, lens2, cs_next, beta0, A, B, chunk), lens2, mask))
+    before = _kernels.launches["fb_bwd_conf"]
+    assert torch.equal(FP.fb_bwd_conf(*args), want)
+    buf = torch.full((T * NL + 64,), -3.0, device=cuda_device)
+    qbuf = torch.empty((G, K * K + 1, NL) if G > 1 else (1,), device=cuda_device)
+    _kernels.launch("fb_bwd_conf", steps_next, lens2, cs_next, beta0, alphas, mask, A, B,
+                    buf[: T * NL].view(T, NL), qbuf, Tp=T, NL=NL, K=K, S=4, T=chunk, G=G)
+    torch.cuda.synchronize()
+    assert _kernels.launches["fb_bwd_conf"] == before + 2
+    assert torch.equal(buf[: T * NL].view(T, NL), want)
+    assert bool((buf[T * NL :] == -3.0).all())
 
 
 # -- B16 in sub-lanes, B5 / B25's segments --------------------------------------------

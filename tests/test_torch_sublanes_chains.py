@@ -17,11 +17,12 @@ tests/test_torch_fb_dense.py), at ragged lanes, with the sub-lane lengths
 set small so that a few thousand steps make several sub-lanes.  A B18 lane
 whose sub-lane products leave float32's range unscaled stays finite and
 within the bound.  With G = 1 each is its sequential plain version bit for
-bit; a B21 member equals its own B7 at every G; B19 keeps the sequential
-chain.  End to end, with the sub-lane lengths lowered: posterior island
-files equal the JAX package's byte for byte (the flagship through B7,
-two_state through B18), and a two_state ``LocalBackend`` fit and a flagship
-``SeqBackend`` fit hold the JAX EM parity bound.
+bit; a B21 member equals its own B7 at every G; B19 takes B18's betas in
+B18's layout.  End to end, with the sub-lane lengths lowered: posterior
+island files equal the JAX package's byte for byte (the flagship through
+B7, two_state through B18 and, confidence only, through B19), and a
+two_state ``LocalBackend`` fit and a flagship ``SeqBackend`` fit hold the
+JAX EM parity bound.
 """
 
 import functools
@@ -315,22 +316,32 @@ def test_bwd_one_sublane_is_the_sequential_plain(rng, monkeypatch, K):
 
 
 def test_bwd_conf_keeps_the_sequential_chain(rng, monkeypatch):
-    """B19 keeps one chain at every K: its plain version is B18's
-    sequential betas through the confidence epilogue, whatever the
-    sub-lane length."""
-    K, S, Tp, NL = 2, 4, 1024, 5
-    A, B = (torch.from_numpy(x) for x in _dense_model(rng, K, S))
-    sn = torch.from_numpy(rng.integers(0, S, size=(Tp, NL)).astype(np.int32))
+    """B19 runs in B18's layout: its plain version is the confidence
+    epilogue over B18's betas, the sub-lane betas at G > 1 (K = 2, 10
+    sub-lanes of 100 steps; in the last bits not the sequential chain's)
+    and the sequential chain's at K >= 5 (state-split, one chain whatever
+    the sub-lane length)."""
+    S, Tp, NL = 4, 1024, 5
     lens = torch.from_numpy(np.array([[1024, 0, 1, 600, 1000]], np.int32))
-    cs = torch.from_numpy((rng.random((Tp, NL)) + 0.2).astype(np.float32))
-    b0 = torch.from_numpy((rng.random((K, NL)) + 0.5).astype(np.float32))
-    al = torch.from_numpy(rng.random((Tp, K, NL)).astype(np.float32))
-    mask = torch.tensor([1.0, 0.0])
     _bwd_sublane_t(monkeypatch, 100)
-    assert TFP.bwd_sublanes(Tp, K) == 10
-    want = TFP.conf_from_streams(al, TFP._bwd_chain_plain(sn, lens, cs, b0, A, B, 1000), lens,
-                                 mask)
-    assert torch.equal(TFP.fb_bwd_conf(sn, lens, cs, b0, al, mask, A, B, 1000), want)
+    for K, G in ((2, 10), (5, 1), (8, 1)):
+        A, B = (torch.from_numpy(x) for x in _dense_model(rng, K, S))
+        sn = torch.from_numpy(rng.integers(0, S, size=(Tp, NL)).astype(np.int32))
+        cs = torch.from_numpy((rng.random((Tp, NL)) + 0.2).astype(np.float32))
+        b0 = torch.from_numpy((rng.random((K, NL)) + 0.5).astype(np.float32))
+        al = torch.from_numpy(rng.random((Tp, K, NL)).astype(np.float32))
+        mask = torch.from_numpy((np.arange(K) < (K + 1) // 2).astype(np.float32))
+        assert TFP.bwd_sublanes(Tp, K) == G
+        seq = TFP._bwd_chain_plain(sn, lens, cs, b0, A, B, 1000)
+        betas = TFP._bwd_sublanes_plain(sn, lens, cs, b0, A, B, 1000, G) if G > 1 else seq
+        want = TFP.conf_from_streams(al, betas, lens, mask)
+        got = TFP.fb_bwd_conf(sn, lens, cs, b0, al, mask, A, B, 1000)
+        assert torch.equal(got, want)
+        assert torch.equal(TFP.fb_bwd_conf_plain(sn, lens, cs, b0, al, mask, A, B, 1000), want)
+        if G > 1:  # the sub-lane betas are not the sequential chain's bits
+            assert not torch.equal(betas, seq)
+            np.testing.assert_allclose(got.numpy(), TFP.conf_from_streams(
+                al, seq, lens, mask).numpy(), rtol=0, atol=2e-5)
 
 
 @pytest.mark.parametrize("Tp,K,sub,start,G", [
@@ -406,6 +417,33 @@ def test_two_state_posterior_file_with_bwd_sublanes_matches_jax(fasta, monkeypat
     np.testing.assert_allclose(np.load(tmp_path / "t.npy"), np.load(tmp_path / "j.npy"),
                                rtol=0, atol=2e-5)
     assert np.array_equal(np.load(tmp_path / "tp.npy"), np.load(tmp_path / "jp.npy"))
+
+
+def test_two_state_confidence_only_posterior_file_with_bwd_sublanes_matches_jax(
+        fasta, monkeypatch, tmp_path):
+    """two_state ``posterior_file`` asked for the confidence alone (so the
+    backward is B19, never B18) over 1 Ki-step lanes, B19 in B18's 4
+    sub-lanes of 256: the JAX package's island file byte for byte (its
+    sequential betas), the confidence within atol 2e-5 of JAX and within
+    1e-6 of the port's own run with a path output (B18's betas, a division
+    where B19 multiplies by a reciprocal)."""
+    monkeypatch.setattr(fb_seq, "DEFAULT_LANE_T", 1024)
+    _bwd_sublane_t(monkeypatch, 256)
+    assert TFP.bwd_sublanes(1024, 2) == 4
+    jp, tp = _two_state()
+    want, got = io.StringIO(), io.StringIO()
+    JPL.posterior_file(fasta, jp, islands_out=want, confidence_out=str(tmp_path / "j.npy"),
+                       island_states=(0,), engine="pallas", island_engine="host")
+    TPL.posterior_file(fasta, tp, islands_out=got, confidence_out=str(tmp_path / "t.npy"),
+                       island_states=(0,), device="cpu")
+    assert got.getvalue() == want.getvalue() and want.getvalue().count("\n") >= 2
+    conf = np.load(tmp_path / "t.npy")
+    np.testing.assert_allclose(conf, np.load(tmp_path / "j.npy"), rtol=0, atol=2e-5)
+    TPL.posterior_file(fasta, tp, islands_out=io.StringIO(),
+                       confidence_out=str(tmp_path / "tp.npy"),
+                       mpm_path_out=str(tmp_path / "tpath.npy"), island_states=(0,),
+                       device="cpu")
+    np.testing.assert_allclose(conf, np.load(tmp_path / "tp.npy"), rtol=0, atol=1e-6)
 
 
 def test_two_state_local_fit_with_bwd_sublanes_matches_jax(rng, monkeypatch):

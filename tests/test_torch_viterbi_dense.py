@@ -73,12 +73,16 @@ MODELS = ["rand2", "rand5", "rand8", "two_state", "dense8"]
 GEOMETRIES = [(8, 1), (64, 3), (100, 130), (8, 130), (100, 1)]
 
 
-@pytest.mark.parametrize("model", MODELS)
+# K = 2, 3, 5 and 8: B13's rows on 2, 4 (one idle) and 8 threads a lane.
+PASS_MODELS = MODELS + ["rand3"]
+
+
+@pytest.mark.parametrize("model", PASS_MODELS)
 @pytest.mark.parametrize("bk,nb", GEOMETRIES)
 def test_passes_match_jax_bitwise(model, bk, nb):
     """Plain B13/B14/B15 (through the pallas pass API) and the port's xla
     twin against the JAX xla passes: incl, offs, exit deltas, F and path."""
-    rng = np.random.default_rng(MODELS.index(model) * 100_000 + bk * 1000 + nb)
+    rng = np.random.default_rng(PASS_MODELS.index(model) * 100_000 + bk * 1000 + nb)
     jp, tp = _model(model, rng)
     K, S = tp.n_states, tp.n_symbols
     steps = _steps(rng, bk, nb, S)
