@@ -15,8 +15,9 @@ JSON line each:
    part kernel, the scoring kernels, B9 / B22 and B10 / B23, one chain
    and in sub-lanes, with B11 beside them, the Viterbi backpointer
    chains B2 / B6 / B27 and B14 with their streams read ahead, B1 / B26
-   and B13 one row of the product a thread and B3 / B28 in segments
-   joined by exact bits, and B19 in B18's sub-lanes and state split);
+   and B13 one row of the product a thread, B3 / B28 in segments joined
+   by exact bits and B15 in segments joined by exact K-state maps, B19 in
+   B18's sub-lanes and state split, and B12 in B5's part kernel);
 2. kernels: B1-B3 at full size (bk=4096, nb=16384: 64 Mi steps, PAD runs
    and record resets in the pair stream), B4-B5 at NL=1024 lanes x
    Tp=65,536 steps (ragged lengths, a short last lane, PAD tails), and B7
@@ -80,9 +81,9 @@ JSON line each:
    (the big record is demoted to the dense kernels: B13-B15 > 0, the
    scaffolds keep the flat reduced batch: B1-B3 > 0) and clean with the
    two_state preset and ``island_states=(0,)`` (B13-B15 > 0, B1-B3 = 0),
-   with wall, per-phase seconds and launch counts; then B13 on the
-   operands of the largest two_state scaffold flush, bit-equal to its
-   plain version, timed through its wrapper and its C entry;
+   with wall, per-phase seconds and launch counts; then B13, B14 and B15
+   on the operands of the largest two_state scaffold flush, each bit-equal
+   to its plain version, timed through its wrapper and its C entry;
 11. island engines: the clean decode and both dense decodes again with
    ``island_engine="host"`` — island files identical to the device
    engine's (the default on the card), islands phase seconds both ways;
@@ -182,7 +183,8 @@ JSON line each:
    confidence over B10's betas at both; B10 also in
    256 to 4 Ki-step sub-lanes, ``fb_pallas.BWD_SUBLANE_T``: timed, each
    one's largest relative difference from G = 1), B22 / B23 per member to
-   B9 / B10 at every M, B12 within rtol 1e-5 / atol 1e-3;
+   B9 / B10 at every M, B12 within rtol 1e-5 / atol 1e-3 (two launches
+   bit-equal), also at the genome's 1,390 training chunks;
 31. ``train_file`` with ``LocalBackend(fuse_fb=False)``, compat then
    clean (B9, B10, B12 exactly 5 each per mode, B4 and B5 never), the
    logliks within rtol 1e-5 of phase 4's;
@@ -313,7 +315,7 @@ REDESIGNED = ("oh_fwdbwd_kernel", "oh_fwdbwd_stacked_kernel", "fb_prod_kernel",
               "oh_fwd_kernel", "oh_fwd_sub_kernel", "oh_bwd_kernel", "oh_bwd_sub_kernel",
               "oh_backpointers_kernel", "dense_backpointers_kernel", "oh_products_kernel",
               "oh_products_lane_kernel", "oh_backtrace_kernel", "dense_products_kernel",
-              "fb_bwd_sub_conf_kernel", "fb_bwd_split_conf_kernel")
+              "fb_bwd_sub_conf_kernel", "fb_bwd_split_conf_kernel", "dense_backtrace_kernel")
 H100_SMS, SMEM_PER_SM, SMEM_PER_BLOCK_RESERVED = 132, 228 * 1024, 1024
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -1501,7 +1503,7 @@ def dense_kernel_phase(rng: np.random.Generator, dev) -> dict:
         P_p, p_ms = timed_once(lambda: VP.dense_products_plain(steps_d, logAT, logB))
         bp_k = VP.dense_backpointers(steps_d, v_d, logAT, logB)
         bp_p, bp_ms = timed_once(lambda: VP.dense_backpointers_plain(steps_d, v_d, logAT, logB))
-        path_k = VP.dense_backtrace(bp_k[0], exits)
+        path_k = VP.dense_backtrace(bp_k[0], exits, K)
         path_p, bt_ms = timed_once(lambda: VP.dense_backtrace_plain(bp_k[0], exits))
         steps_n = BK * NB
         rows = {  # (pairs to compare, kernel, plain ms, bytes moved, operations)
@@ -1515,7 +1517,7 @@ def dense_kernel_phase(rng: np.random.Generator, dev) -> dict:
                 # steps read and packed pointers written; K^2 adds + K (K-1) compares
                 8 * steps_n + tab_b + 8 * K * NB + 4 * NB, K * (2 * K - 1) * real),
             "dense_backtrace": (
-                [(path_k, path_p)], lambda: VP.dense_backtrace(bp_k[0], exits), bt_ms,
+                [(path_k, path_p)], lambda: VP.dense_backtrace(bp_k[0], exits, K), bt_ms,
                 # packed pointers read, path written; shift and mask per step
                 8 * steps_n + 4 * NB, 2 * steps_n),
         }
@@ -1575,32 +1577,42 @@ def dense_main_phase(fa: str, tmp: str, dev) -> dict:
 
 
 def dense_flush_timings(fa: str, dev) -> None:
-    """B13 on the operands the largest of the two_state decode's scaffold
-    flushes hands it (FLUSH_RECORDS records padded by
+    """B13, B14 and B15 on the operands the largest of the two_state
+    decode's scaffold flushes hands them (FLUSH_RECORDS records padded by
     ``pipeline._pad_small_batch``, decoded by ``pipeline._batch_paths``;
-    32 of B13's 33 K = 2 launches in that run are such flushes): held bit
-    for bit against its plain version and timed (CUDA events, median of 10)
-    through its wrapper and its C entry; one line with the shape."""
+    32 of each one's 33 K = 2 launches in that run are such flushes): each
+    held bit for bit against its plain version and timed (CUDA events,
+    median of 10) through its wrapper and its C entry; one line with the
+    shape."""
     two = presets.two_state_cpg(device=dev)
     recs = [(name, s) for name, s in codec.iter_fasta_records(fa) if name != "chr1"]
     flushes = [recs[i : i + FLUSH_RECORDS] for i in range(0, len(recs), FLUSH_RECORDS)]
     rows, lengths = pipeline._pad_small_batch(
         max(flushes, key=lambda b: pipeline._pad_small_batch(b)[0].size))
-    _, (args, got) = _captured(lambda: pipeline._batch_paths(
-        two, resolve_engine("auto", two), rows, lengths), VP, "dense_products")
-    steps, logAT, logB = args
+    ops = {name: _captured(lambda: pipeline._batch_paths(
+        two, resolve_engine("auto", two), rows, lengths), VP, name)[1] for name in DENSE_KERNELS}
+    steps, logAT, logB = ops["dense_products"][0]
     bk, nb = steps.shape
-    want, plain_ms = timed_once(lambda: VP.dense_products_plain(*args))
-    equal = torch.equal(got, want)
-    emit({"phase": "dense_flush_geometry", "padded": list(rows.shape), "bk": bk, "nb": nb,
-          "K": 2, "bit_equal": equal,
-          "ms": time_ms(lambda: VP.dense_products(*args), runs=10),
-          "direct_ms": direct_ms("dense_products", [*args, got], bk=bk, nb=nb, K=2,
-                                 S=logB.shape[1]),
-          "plain_ms": plain_ms})
-    if not equal:
-        raise SystemExit("chip_smoke: B13 at the two_state flush's geometry disagrees with its "
-                         "plain version")
+    plains = {"dense_products": VP.dense_products_plain,
+              "dense_backpointers": VP.dense_backpointers_plain,
+              "dense_backtrace": lambda bp, exits, K: VP.dense_backtrace_plain(bp, exits)}
+    ints = {"dense_products": {"K": 2, "S": logB.shape[1]},
+            "dense_backpointers": {"K": 2, "S": logB.shape[1]},
+            "dense_backtrace": {"K": 2, "seg": 0}}
+    line = {"phase": "dense_flush_geometry", "padded": list(rows.shape), "bk": bk, "nb": nb,
+            "K": 2, "bit_equal": {}, "ms": {}, "direct_ms": {}, "plain_ms": {}}
+    for name, (args, got) in ops.items():
+        got = got if isinstance(got, tuple) else (got,)
+        want, line["plain_ms"][name] = timed_once(lambda: plains[name](*args))
+        want = want if isinstance(want, tuple) else (want,)
+        line["bit_equal"][name] = all(torch.equal(a, b) for a, b in zip(got, want))
+        line["ms"][name] = time_ms(lambda: getattr(VP, name)(*args), runs=10)
+        tensors = [a for a in args if isinstance(a, torch.Tensor)]
+        line["direct_ms"][name] = direct_ms(name, [*tensors, *got], bk=bk, nb=nb, **ints[name])
+    emit(line)
+    if not all(line["bit_equal"].values()):
+        raise SystemExit(f"chip_smoke: the dense decode kernels at the two_state flush's "
+                         f"geometry disagree with their plain versions: {line['bit_equal']}")
 
 
 def island_engine_phase(fa: str, tmp: str, dev) -> None:
@@ -1630,7 +1642,8 @@ def dense_parity_phase(rng: np.random.Generator, big: np.ndarray, tmp: str, dev)
         path_k = viterbi_sharded(params, obs, engine="pallas")
         kernels = (VP.dense_products, VP.dense_backpointers, VP.dense_backtrace)
         VP.dense_products, VP.dense_backpointers, VP.dense_backtrace = (
-            VP.dense_products_plain, VP.dense_backpointers_plain, VP.dense_backtrace_plain)
+            VP.dense_products_plain, VP.dense_backpointers_plain,
+            lambda bp, exits, K: VP.dense_backtrace_plain(bp, exits))
         try:
             path_p = viterbi_sharded(params, obs, engine="pallas")
         finally:
@@ -3207,6 +3220,55 @@ def split_stacked_rows(rng, gen, S: int, M: int, pair2, pairn2, lens2, T: int, g
     return f_row, b_row
 
 
+def split_stats_row(st_args, valid: int, **extra) -> dict:
+    """B12 on ``st_args`` held within rtol 1e-5 / atol 1e-3 of its plain
+    version, two launches bit-equal, timed beside its bound; raises on a
+    disagreement."""
+    Tp, _, NL = st_args[0].shape
+    S = st_args[5].shape[0]
+    K = 2 * S
+    got, again = FB.oh_stats(*st_args), FB.oh_stats(*st_args)
+    want, plain_ms = timed_once(lambda: FB.oh_stats_plain(*st_args))
+    agree = all(torch.allclose(g, w, rtol=1e-5, atol=1e-3) for g, w in zip(got, want))
+    err = max(max_abs_err(g, w) for g, w in zip(got, want))
+    equal = all(torch.equal(a, b) for a, b in zip(got, again))
+    del want, got, again
+    row = kernel_row(
+        "oh_stats", agree, err, lambda: FB.oh_stats(*st_args), plain_ms,
+        # B12 reads valid steps only
+        n_bytes=20 * valid + 4 * NL + (K * K + 2 * S + 1) * NL * 4,
+        n_ops=26 * valid, steps=valid, tolerance="rtol 1e-5, atol 1e-3",
+        segment_t=FB.stats_segment_t(Tp, NL), segments_per_block=FB.stats_segments_per_block(S),
+        two_launches_equal=equal, **extra)
+    if not (agree and equal):
+        raise SystemExit(f"chip_smoke: oh_stats disagrees with its plain version or between "
+                         f"two launches ({extra})")
+    return row
+
+
+def split_stats_genome_row(params, dev) -> None:
+    """B12's row at the genome's own training batch (GENOME_CHUNKS ragged
+    chunks of FB_TP steps) on B9's and B10's streams, as
+    :func:`seq_stats_main_shapes` gives B5's; a generator of its own."""
+    own = np.random.default_rng(6)
+    S = params.n_symbols
+    gt = OH._groups(params)
+    tab = FB.prob_tab_ext(params, gt)
+    chunks, lengths = ragged_chunks(own, S, GENOME_CHUNKS)
+    prep = prepare_chunked(S, torch.from_numpy(chunks).to(dev),
+                           torch.from_numpy(lengths).to(dev), t_tile=fb_chunked.DEFAULT_T_TILE)
+    _, a0_raw, beta0, _ = fb_chunked._batch_lane_setup(params, prep)
+    a0 = torch.gather(a0_raw.T, 1, gt[prep.esym2[0].long()]).T.contiguous()
+    b0 = torch.gather(beta0.T, 1, gt[prep.esym2[-1].long()]).T.contiguous()
+    al = FB.oh_fwd(prep.pair2, prep.lens2, a0, tab)
+    be = FB.oh_bwd(prep.pairn2, prep.lens2, FB.cs_next_of(al), b0, tab, FB_TP)
+    split_stats_row((al, be, prep.pair2, prep.lens2, FB.reduced_emissions(params, gt),
+                     gt.to(torch.int32).contiguous()), int(np.minimum(lengths, FB_TP).sum()),
+                    geometry=f"train, {GENOME_CHUNKS} chunks")
+    del al, be, prep, chunks
+    torch.cuda.empty_cache()
+
+
 def split_kernel_phase(rng: np.random.Generator, gen: torch.Generator, params, big: np.ndarray,
                        dev) -> dict:
     """The split arm's kernels at the main paths' shapes: B9, B10 and B12 at
@@ -3217,7 +3279,8 @@ def split_kernel_phase(rng: np.random.Generator, gen: torch.Generator, params, b
     2) at their default sub-lanes and in one sub-lane; B9 also to B4's
     alphas at both, B11 to the confidence over B10's betas at both; B10's
     sub-lane sweep; B22 and B23 per member to B9 and B10 at every M; B12
-    within rtol 1e-5 / atol 1e-3.  Returns the table rows: the training
+    within rtol 1e-5 / atol 1e-3, two launches bit-equal, also at the
+    genome's GENOME_CHUNKS chunks.  Returns the table rows: the training
     geometry's (stacked: M = 2), B11 at the posterior's."""
     K, S = params.n_states, params.n_symbols
     gt = OH._groups(params)
@@ -3257,20 +3320,10 @@ def split_kernel_phase(rng: np.random.Generator, gen: torch.Generator, params, b
     assert not torch.backends.cuda.matmul.allow_tf32
     st_args = (al, be, prep.pair2, prep.lens2, FB.reduced_emissions(params, gt),
                gt.to(torch.int32).contiguous())
-    got = FB.oh_stats(*st_args, prep.Tt)
-    want, plain_ms = timed_once(lambda: FB.oh_stats_plain(*st_args))
-    agree = all(torch.allclose(g, w, rtol=1e-5, atol=1e-3) for g, w in zip(got, want))
-    err = max(max_abs_err(g, w) for g, w in zip(got, want))
-    del want
-    valid = int(np.minimum(lengths, Tp).sum())  # B12 reads valid steps only
-    results["oh_stats"] = kernel_row(
-        "oh_stats", agree, err, lambda: FB.oh_stats(*st_args, prep.Tt), plain_ms,
-        n_bytes=20 * valid + 4 * NL + (K * K + 2 * S + 1) * NL * 4,
-        n_ops=26 * valid, steps=valid, tolerance="rtol 1e-5, atol 1e-3",
-    )
-    if not agree:
-        raise SystemExit("chip_smoke: oh_stats disagrees with its plain version")
-    del al, be, cs_next, got, st_args
+    results["oh_stats"] = split_stats_row(st_args, int(np.minimum(lengths, Tp).sum()),
+                                          geometry="train")
+    del al, be, cs_next, st_args
+    split_stats_genome_row(params, dev)
 
     for M in SPLIT_STACK_M:
         f_row, b_row = split_stacked_rows(rng, gen, S, M, prep.pair2, prep.pairn2, prep.lens2,

@@ -146,17 +146,27 @@
 // operation is an explicit round-to-nearest intrinsic in the plain
 // versions' order.
 //
-// B12 oh_stats_part_kernel replaces ::_oh_stats_kernel: the chunked counts
-// over the split arm's cs-scaled streams, DEGREE 1 in the betas (xi[a, c]
-// = a_hat_{t-1}[a] * B_red[s_t, c] * beta_t[c] / c_t, no per-pair
-// normalizer), each lane's t == 0 pair excluded (every chunk lane is its
-// own record).  Bound: 20 B per valid step (two alphas, two betas, the
-// pair; 0.40 ms at 67.1 M steps).  Design: B5's, segments of Tt steps per
-// lane, one thread per (lane, segment) with its bins in shared memory, the
-// previous step's a_hat read from the stream at the segment's start; B5's
-// reduce kernel sums the segments in order and scatters the pair bins to
-// the dense [K*K] rows.  Its sums run in another order than the plain
-// version's einsum, which agrees within a tolerance.
+// B12 (oh_seq_stats_part_kernel<true> + B5's reduce) replaces
+// ::_oh_stats_kernel: the chunked counts over the split arm's cs-scaled
+// streams, DEGREE 1 in the betas (xi[a, c] = a_hat_{t-1}[a] * B_red[s_t, c]
+// * beta_t[c] / c_t, no per-pair normalizer), each lane's t == 0 pair
+// excluded (every chunk lane is its own record).  Bound: 20 B per valid
+// step (two alphas, two betas, the pair; 0.35 ms on the training batch),
+// the same as B5's, with less arithmetic (no z, no table row).  What
+// bounded its first design, one thread per (lane, segment of the TPU
+// layout's tile) in blocks of 128 lanes of one segment, was B5's old one:
+// a step's five loads issued when the step ran, two IEEE divisions a step,
+// and no block sums, so the reduce read four times B5's partial rows.  So
+// B12 is B5's body with the CS flag (stats_step<FIRST, true>): the same
+// segments (fb_onehot.stats_segment_t of the shape), the same 32 lanes x
+// stats_segments_per_block segments a block with in-order block sums, the
+// same decode table, loads STATS_AHEAD steps ahead, __frcp_rn and the same
+// reduce; its sums run in another order than the plain version's einsum,
+// which agrees within a tolerance, and the same every run (no atomics).
+// On the H100 it then runs as B5 does, bound as B5 is by the loads' access
+// pattern: 0.62 ms on the training batch against B5's 0.67 and the first
+// design's 0.97 (PERF.md), its segment rule B5's (512 steps were fastest
+// for both on the genome's 1,390 chunks).
 //
 // B21 (oh_prod_kernel with M > 1), B24 oh_fwdbwd_stacked_kernel and B25
 // (the B5 kernels with M > 1) replace fb_onehot.py::_oh_prod_stacked_kernel,
@@ -1069,10 +1079,11 @@ oh_prod_kernel(const int32_t* __restrict__ pair, const float* __restrict__ tab,
 }
 
 // ---------------------------------------------------------------------------
-// B5 and B25: z-normalized counts.  Per-lane accumulator rows (R = 4 S^2 +
-// 2S + 1): [0, 4 S^2) pair bins ((s_prev * S + s_cur) * 4 + a * 2 + c), then
-// the 2S emission rows (2 * s + a), then the loglik.  B25 runs B5's body for
-// member blockIdx.z on its own slices.
+// B5 and B25: z-normalized counts; with CS set, B12: the split arm's
+// cs-scaled counts.  Per-lane accumulator rows (R = 4 S^2 + 2S + 1): [0, 4
+// S^2) pair bins ((s_prev * S + s_cur) * 4 + a * 2 + c), then the 2S
+// emission rows (2 * s + a), then the loglik.  B25 runs B5's body for
+// member blockIdx.z on its own slices; B12 runs it for member 0 of 1.
 //
 // A block is STATS_LANES (32) lanes x SPB consecutive segments of Tt steps
 // (fb_onehot.stats_segment_t, a function of the shape; SPB =
@@ -1102,8 +1113,12 @@ __device__ __forceinline__ int stats_decode(int pr, int S) {
 // (FIRST = true: the previous alpha is the entering message, reduced for z
 // and full K for the counts, masked by pair0).  Its three reciprocals are
 // __frcp_rn, the IEEE reciprocal: the bits of __fdiv_rn(1, x) in a shorter
-// instruction sequence.
-template <bool FIRST>
+// instruction sequence.  With CS (B12) the pair bin's normalizer is 1 / c_t
+// in place of 1 / z: xi[a, c] = a_hat[a] * ((B_red[s_t, c] * beta_t[c]) *
+// (1 / c_t)), the XLA twin's operand order, and no z or table row is
+// formed; at t == 0 only the gamma rows and log c are added (every chunk
+// lane is its own record: its t == 0 pair is excluded).
+template <bool FIRST, bool CS>
 __device__ __forceinline__ void stats_step(float a0, float a1, float be0, float be1, int d,
                                            float& ah0, float& ah1, float& ll, float* my, int bd,
                                            const float* s_tab, const float* s_bred,
@@ -1135,18 +1150,18 @@ __device__ __forceinline__ void stats_step(float a0, float a1, float be0, float 
   const float* m = s_tab + 4 * row;
   // z = sum_ac aprev[a] T[a, c] beta[c]; xi[a, c] = aprev[a] w[c] / z
   // with w[c] = B_red[esym, c] beta[c] (the table supplies A * B).
-  const float r0 = __fadd_rn(__fmul_rn(m[0], be0), __fmul_rn(m[1], be1));
-  const float r1 = __fadd_rn(__fmul_rn(m[2], be0), __fmul_rn(m[3], be1));
+  const float r0 = CS ? 0.0f : __fadd_rn(__fmul_rn(m[0], be0), __fmul_rn(m[1], be1));
+  const float r1 = CS ? 0.0f : __fadd_rn(__fmul_rn(m[2], be0), __fmul_rn(m[3], be1));
   if (!FIRST) {
-    const float z = __fadd_rn(__fmul_rn(ah0, r0), __fmul_rn(ah1, r1));
-    const float inv_z = __frcp_rn(fmaxf(z, 1e-30f));
+    const float inv_z =
+        CS ? inv_cs : __frcp_rn(fmaxf(__fadd_rn(__fmul_rn(ah0, r0), __fmul_rn(ah1, r1)), 1e-30f));
     const float wz0 = __fmul_rn(__fmul_rn(s_bred[2 * esym], be0), inv_z);
     const float wz1 = __fmul_rn(__fmul_rn(s_bred[2 * esym + 1], be1), inv_z);
     b[0] = __fadd_rn(b0v, __fmul_rn(ah0, wz0));
     b[bd] = __fadd_rn(b1v, __fmul_rn(ah0, wz1));
     b[2 * bd] = __fadd_rn(b2v, __fmul_rn(ah1, wz0));
     b[3 * bd] = __fadd_rn(b3v, __fmul_rn(ah1, wz1));
-  } else if (pair0 != 0.0f) {
+  } else if (!CS && pair0 != 0.0f) {
     const float e0 = enters_red[0], e1 = enters_red[nl];
     const float z = __fadd_rn(__fmul_rn(e0, r0), __fmul_rn(e1, r1));
     const float inv_z = __fmul_rn(pair0, __frcp_rn(fmaxf(z, 1e-30f)));
@@ -1187,9 +1202,11 @@ __device__ __forceinline__ void stats_load(StatsGroup& q, const float* al, const
   for (int r = 0; r < STATS_AHEAD; ++r) q.d[r] = s_dec[min(max(q.d[r], 0), npair - 1)];
 }
 
-// One (lane, segment) of B5: accumulate into the thread's shared column
-// ``my`` (stride bd) over steps [t0, t1) of the lane whose streams ``al``,
-// ``be``, ``p`` point at (column n of the member's [Tp, 2, NL] / [Tp, NL]).
+// One (lane, segment) of B5 (B12 with CS): accumulate into the thread's
+// shared column ``my`` (stride bd) over steps [t0, t1) of the lane whose
+// streams ``al``, ``be``, ``p`` point at (column n of the member's [Tp, 2,
+// NL] / [Tp, NL]).
+template <bool CS>
 __device__ __forceinline__ void stats_segment(
     const float* al, const float* be, const int32_t* p, const float* s_tab,
     const float* s_bred, const int* s_igt, const int* s_dec, const float* enters_full,
@@ -1210,8 +1227,8 @@ __device__ __forceinline__ void stats_segment(
   int t = t0;
   if (t0 == 0) {
     const int d = s_dec[min(max(p[0], 0), npair - 1)];
-    stats_step<true>(al[0], al[nl], be[0], be[nl], d, ah0, ah1, ll, my, bd, s_tab, s_bred,
-                     s_igt, enters_full, enters_red, pair0, nl, S, K);
+    stats_step<true, CS>(al[0], al[nl], be[0], be[nl], d, ah0, ah1, ll, my, bd, s_tab, s_bred,
+                         s_igt, enters_full, enters_red, pair0, nl, S, K);
     t = 1;
   }
   StatsGroup q, qn;
@@ -1221,8 +1238,9 @@ __device__ __forceinline__ void stats_segment(
 #pragma unroll
     for (int r = 0; r < STATS_AHEAD; ++r) {
       if (t + r < t1)
-        stats_step<false>(q.a0[r], q.a1[r], q.b0[r], q.b1[r], q.d[r], ah0, ah1, ll, my, bd,
-                          s_tab, s_bred, s_igt, enters_full, enters_red, pair0, nl, S, K);
+        stats_step<false, CS>(q.a0[r], q.a1[r], q.b0[r], q.b1[r], q.d[r], ah0, ah1, ll, my,
+                              bd, s_tab, s_bred, s_igt, enters_full, enters_red, pair0, nl, S,
+                              K);
     }
     q = qn;
   }
@@ -1232,7 +1250,9 @@ __device__ __forceinline__ void stats_segment(
 // Grid (lane blocks, segment groups, members); a single-model launch is
 // member 0 of 1.  Member m's operands: alphas / betas at m * Tp * 2 * NL, tab
 // at m * (S^2 + 1) * 4, bred and gt at m * 2S, enters_full at m * K * NL,
-// enters_red at m * 2 * NL, part at m * gridDim.y * R * NL.
+// enters_red at m * 2 * NL, part at m * gridDim.y * R * NL.  With CS (B12)
+// tab, enters_full, enters_red and pair0m are not read (null).
+template <bool CS>
 __global__ void oh_seq_stats_part_kernel(
     const float* __restrict__ alphas, const float* __restrict__ betas,
     const int32_t* __restrict__ pair, const int32_t* __restrict__ lens,
@@ -1251,12 +1271,14 @@ __global__ void oh_seq_stats_part_kernel(
   const int bd = blockDim.x;
   const int SPB = bd / STATS_LANES;
   const size_t nl = (size_t)NL;
-  const float* tab_m = tab + (size_t)m * (nreal + 1) * 4;
-  for (int i = threadIdx.x; i < (nreal + 1) * 4; i += bd) s_tab[i] = tab_m[i];
+  if (!CS) {
+    const float* tab_m = tab + (size_t)m * (nreal + 1) * 4;
+    for (int i = threadIdx.x; i < (nreal + 1) * 4; i += bd) s_tab[i] = tab_m[i];
+  }
   for (int i = threadIdx.x; i < nreal + S; i += bd) s_dec[i] = stats_decode(i, S);
   for (int i = threadIdx.x; i < 2 * S; i += bd) {
     s_bred[i] = bred[(size_t)m * 2 * S + i];
-    s_igt[gt[(size_t)m * 2 * S + i]] = i;
+    if (!CS) s_igt[gt[(size_t)m * 2 * S + i]] = i;
   }
   float* my = acc + threadIdx.x;
   for (int r = 0; r < R; ++r) my[r * bd] = 0.0f;
@@ -1270,9 +1292,10 @@ __global__ void oh_seq_stats_part_kernel(
     const int t1 = min(t0 + Tt, len);
     const size_t strm = (size_t)m * Tp * 2 * nl;
     if (t0 < t1)
-      stats_segment(alphas + strm + n, betas + strm + n, pair + n, s_tab, s_bred, s_igt, s_dec,
-                    enters_full + (size_t)m * K * nl + n, enters_red + (size_t)m * 2 * nl + n,
-                    pair0m[n], my, bd, t0, t1, nl, S, K);
+      stats_segment<CS>(alphas + strm + n, betas + strm + n, pair + n, s_tab, s_bred, s_igt,
+                        s_dec, CS ? nullptr : enters_full + (size_t)m * K * nl + n,
+                        CS ? nullptr : enters_red + (size_t)m * 2 * nl + n,
+                        CS ? 0.0f : pair0m[n], my, bd, t0, t1, nl, S, K);
   }
   __syncthreads();
   // The block's segments summed in order, warp w taking rows w, w + SPB, ...
@@ -1285,89 +1308,6 @@ __global__ void oh_seq_stats_part_kernel(
       out[(size_t)r * nl] = sum;
     }
   }
-}
-
-// ---------------------------------------------------------------------------
-// B12: the chunked counts over the split arm's cs-scaled streams, in B5's
-// accumulator rows (so B5's reduce kernel finishes them).  One (lane,
-// segment) over steps [t0, t1): gamma rows and log c as B5; for t >= 1 the
-// pair bin (s_prev, s_cur, a, c) gains a_hat_{t-1}[a] * ((B_red[s_cur, c] *
-// beta_t[c]) * (1 / c_t)), the twin's operand order.
-
-__device__ __forceinline__ void cs_stats_segment(const float* al, const float* be,
-                                                 const int32_t* p, const float* s_bred,
-                                                 float* my, int bd, int t0, int t1, size_t nl,
-                                                 int S) {
-  const int nreal = S * S;
-  const int EMIT = 4 * nreal;
-  const int LL = EMIT + 2 * S;
-  float ah0 = 0.0f, ah1 = 0.0f;
-  if (t0 > 0) {
-    const float p0 = al[(size_t)(2 * t0 - 2) * nl];
-    const float p1 = al[(size_t)(2 * t0 - 1) * nl];
-    const float ic = __fdiv_rn(1.0f, fmaxf(__fadd_rn(p0, p1), 1e-30f));
-    ah0 = __fmul_rn(p0, ic);
-    ah1 = __fmul_rn(p1, ic);
-  }
-  float ll = 0.0f;
-  for (int t = t0; t < t1; ++t) {
-    const float a0 = al[(size_t)(2 * t) * nl];
-    const float a1 = al[(size_t)(2 * t + 1) * nl];
-    const float be0 = be[(size_t)(2 * t) * nl];
-    const float be1 = be[(size_t)(2 * t + 1) * nl];
-    const int pr = p[(size_t)t * nl];
-    // A PAD pair carries its symbol: previous and current are both it.
-    const int esym = pr < nreal ? pr % S : pr - nreal;
-    const int sprev = pr < nreal ? pr / S : esym;
-    const float cs = __fadd_rn(a0, a1);
-    const float inv_cs = __fdiv_rn(1.0f, fmaxf(cs, 1e-30f));
-    const float g0 = __fmul_rn(a0, be0), g1 = __fmul_rn(a1, be1);
-    const float inv_g = __fdiv_rn(1.0f, fmaxf(__fadd_rn(g0, g1), 1e-30f));
-    float* e = my + (EMIT + 2 * esym) * bd;
-    e[0] = __fadd_rn(e[0], __fmul_rn(g0, inv_g));
-    e[bd] = __fadd_rn(e[bd], __fmul_rn(g1, inv_g));
-    ll = __fadd_rn(ll, logf(fmaxf(cs, 1e-30f)));
-    if (t > 0) {
-      const float w0 = __fmul_rn(__fmul_rn(s_bred[2 * esym], be0), inv_cs);
-      const float w1 = __fmul_rn(__fmul_rn(s_bred[2 * esym + 1], be1), inv_cs);
-      float* bin = my + ((sprev * S + esym) * 4) * bd;
-      bin[0] = __fadd_rn(bin[0], __fmul_rn(ah0, w0));
-      bin[bd] = __fadd_rn(bin[bd], __fmul_rn(ah0, w1));
-      bin[2 * bd] = __fadd_rn(bin[2 * bd], __fmul_rn(ah1, w0));
-      bin[3 * bd] = __fadd_rn(bin[3 * bd], __fmul_rn(ah1, w1));
-    }
-    ah0 = __fmul_rn(a0, inv_cs);
-    ah1 = __fmul_rn(a1, inv_cs);
-  }
-  my[LL * bd] = ll;
-}
-
-// Grid (lane blocks, segments); part [nseg, R, NL].
-__global__ void oh_stats_part_kernel(const float* __restrict__ alphas,
-                                     const float* __restrict__ betas,
-                                     const int32_t* __restrict__ pair,
-                                     const int32_t* __restrict__ lens,
-                                     const float* __restrict__ bred, float* __restrict__ part,
-                                     int Tp, int NL, int S, int Tt) {
-  extern __shared__ float acc[];  // [R][blockDim.x]
-  __shared__ float s_bred[2 * MAX_S];
-  const int R = 4 * S * S + 2 * S + 1;
-  const int bd = blockDim.x;
-  const size_t nl = (size_t)NL;
-  for (int i = threadIdx.x; i < 2 * S; i += bd) s_bred[i] = bred[i];
-  float* my = acc + threadIdx.x;
-  for (int r = 0; r < R; ++r) my[r * bd] = 0.0f;
-  __syncthreads();
-
-  const int n = blockIdx.x * bd + threadIdx.x;
-  if (n >= NL) return;
-  const int seg = blockIdx.y;
-  const int len = min(lens[n], Tp);
-  const int t0 = seg * Tt;
-  const int t1 = min(t0 + Tt, len);
-  if (t0 < t1) cs_stats_segment(alphas + n, betas + n, pair + n, s_bred, my, bd, t0, t1, nl, S);
-  float* out = part + (size_t)seg * R * nl + n;
-  for (int r = 0; r < R; ++r) out[(size_t)r * nl] = my[r * bd];
 }
 
 // Grid (lane blocks, rows R, members): each lane's segments summed in order.
@@ -1397,9 +1337,9 @@ oh_seq_stats_reduce_kernel(const float* __restrict__ part, const int32_t* __rest
   }
 }
 
-// B5 / B25: the part kernel over (lane blocks, ceil(nseg / SPB), M), part
-// [M, ceil(nseg / SPB), R, NL], then the reduce.
-static int launch_seq_stats(const void* alphas, const void* betas, const void* pair,
+// B5 / B25 (B12 with cs): the part kernel over (lane blocks, ceil(nseg /
+// SPB), M), part [M, ceil(nseg / SPB), R, NL], then the reduce.
+static int launch_seq_stats(bool cs, const void* alphas, const void* betas, const void* pair,
                             const void* lens, const void* tab, const void* bred, const void* gt,
                             const void* enters_full, const void* enters_red, const void* pair0m,
                             void* part, void* macc, void* emit, void* ll, int Tp, int NL, int S,
@@ -1412,13 +1352,14 @@ static int launch_seq_stats(const void* alphas, const void* betas, const void* p
   const int threads = STATS_LANES * SPB;
   const size_t smem = (size_t)R * threads * sizeof(float);
   if (nblk > 65535 || smem > 200 * 1024) return (int)cudaErrorInvalidValue;
+  auto kernel = cs ? oh_seq_stats_part_kernel<true> : oh_seq_stats_part_kernel<false>;
   if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        oh_seq_stats_part_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid((unsigned)((NL + STATS_LANES - 1) / STATS_LANES), (unsigned)nblk, (unsigned)M);
-  oh_seq_stats_part_kernel<<<grid, threads, smem, st>>>(
+  kernel<<<grid, threads, smem, st>>>(
       (const float*)alphas, (const float*)betas, (const int32_t*)pair, (const int32_t*)lens,
       (const float*)tab, (const float*)bred, (const int32_t*)gt, (const float*)enters_full,
       (const float*)enters_red, (const float*)pair0m, (float*)part, Tp, NL, S, K, Tt);
@@ -1428,36 +1369,6 @@ static int launch_seq_stats(const void* alphas, const void* betas, const void* p
                    (unsigned)M);
   oh_seq_stats_reduce_kernel<<<rgrid, REDUCE_THREADS, 0, st>>>(
       (const float*)part, (const int32_t*)gt, (float*)macc, (float*)emit, (float*)ll, nblk, NL,
-      S, K);
-  return (int)cudaGetLastError();
-}
-
-// B12: the part kernel, then B5's reduce (member 0 of 1).
-static int launch_cs_stats(const void* alphas, const void* betas, const void* pair,
-                           const void* lens, const void* bred, const void* gt, void* part,
-                           void* macc, void* emit, void* ll, int Tp, int NL, int S, int K, int Tt,
-                           cudaStream_t st) {
-  if (S < 1 || S > MAX_S || K != 2 * S || Tp <= 0 || NL <= 0 || Tt <= 0)
-    return (int)cudaErrorInvalidValue;
-  const int R = 4 * S * S + 2 * S + 1;
-  const int nseg = (Tp + Tt - 1) / Tt;
-  if (nseg > 65535) return (int)cudaErrorInvalidValue;
-  const int threads = (size_t)R * 128 * sizeof(float) <= 200 * 1024 ? 128 : 32;
-  const size_t smem = (size_t)R * threads * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        oh_stats_part_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid((unsigned)((NL + threads - 1) / threads), (unsigned)nseg);
-  oh_stats_part_kernel<<<grid, threads, smem, st>>>(
-      (const float*)alphas, (const float*)betas, (const int32_t*)pair, (const int32_t*)lens,
-      (const float*)bred, (float*)part, Tp, NL, S, Tt);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 rgrid((unsigned)((NL + REDUCE_THREADS - 1) / REDUCE_THREADS), (unsigned)R, 1);
-  oh_seq_stats_reduce_kernel<<<rgrid, REDUCE_THREADS, 0, st>>>(
-      (const float*)part, (const int32_t*)gt, (float*)macc, (float*)emit, (float*)ll, nseg, NL,
       S, K);
   return (int)cudaGetLastError();
 }
@@ -1752,9 +1663,10 @@ int oh_bwd_conf(const void* pairn, const void* pair, const void* lens, const voi
 
 int oh_stats(const void* alphas, const void* betas, const void* pair, const void* lens,
              const void* bred, const void* gt, void* part, void* macc, void* emit, void* ll,
-             int Tp, int NL, int S, int K, int Tt, void* stream) {
-  return launch_cs_stats(alphas, betas, pair, lens, bred, gt, part, macc, emit, ll, Tp, NL, S, K,
-                         Tt, (cudaStream_t)stream);
+             int Tp, int NL, int S, int K, int Tt, int SPB, void* stream) {
+  return launch_seq_stats(true, alphas, betas, pair, lens, nullptr, bred, gt, nullptr, nullptr,
+                          nullptr, part, macc, emit, ll, Tp, NL, S, K, Tt, SPB, 1,
+                          (cudaStream_t)stream);
 }
 
 // B7 / B21: G sub-lanes a lane (fb_onehot.prod_sublanes), member m on grid y.
@@ -1832,8 +1744,8 @@ int oh_seq_stats(const void* alphas, const void* betas, const void* pair, const 
                  const void* enters_red, const void* pair0m, void* part, void* macc,
                  void* emit, void* ll, int Tp, int NL, int S, int K, int Tt, int SPB,
                  void* stream) {
-  return launch_seq_stats(alphas, betas, pair, lens, tab, bred, gt, enters_full, enters_red,
-                          pair0m, part, macc, emit, ll, Tp, NL, S, K, Tt, SPB, 1,
+  return launch_seq_stats(false, alphas, betas, pair, lens, tab, bred, gt, enters_full,
+                          enters_red, pair0m, part, macc, emit, ll, Tp, NL, S, K, Tt, SPB, 1,
                           (cudaStream_t)stream);
 }
 
@@ -1842,8 +1754,8 @@ int oh_seq_stats_stacked(const void* alphas, const void* betas, const void* pair
                          const void* enters_full, const void* enters_red, const void* pair0m,
                          void* part, void* macc, void* emit, void* ll, int Tp, int NL, int S,
                          int K, int Tt, int SPB, int M, void* stream) {
-  return launch_seq_stats(alphas, betas, pair, lens, tab, bred, gt, enters_full, enters_red,
-                          pair0m, part, macc, emit, ll, Tp, NL, S, K, Tt, SPB, M,
+  return launch_seq_stats(false, alphas, betas, pair, lens, tab, bred, gt, enters_full,
+                          enters_red, pair0m, part, macc, emit, ll, Tp, NL, S, K, Tt, SPB, M,
                           (cudaStream_t)stream);
 }
 

@@ -6,9 +6,9 @@
 // (dense_*_plain).
 //
 // Layout shared by all three: the time-major step stream [bk, nb] (global
-// step b*bk + k sits at [k, b]), one thread per lane b looping over the bk
-// steps of its block, so each warp's load of a step row is one coalesced
-// transaction.  The state arrays (the K x K product, the K-state delta) are
+// step b*bk + k sits at [k, b]), neighbouring lanes on neighbouring threads
+// (B14 one thread a lane over its bk steps; B13 and B15 as below), so each
+// warp's load of a step row is one coalesced transaction.  The state arrays (the K x K product, the K-state delta) are
 // template-sized and stay in registers.  Every step's matrix
 // M_s[m][j] = logA[m][j] + logB[j][s] (row S: the max-plus identity, for
 // PAD) is built once per thread block into a shared-memory table; its rows
@@ -34,8 +34,18 @@
 // row of a lane's product to a thread of its own (below).  B14 then runs at
 // K = 2 at about 1.8x its byte bound (the same chain with no loads at
 // 1.25x) and at K = 8, bound by the issue of its 64 candidates a step,
-// within 10% of the chain with no loads (PERF.md).  B15 keeps one load a
-// step.
+// within 10% of the chain with no loads (PERF.md).  B15's walk has no
+// arithmetic to speak of (a shift and a mask a step): one thread a lane
+// walking bk dependent steps, one load a step (its first design), was
+// bound by the load latency at those 4 warps an SM, and at two_state's
+// scaffold flushes (1,024 lanes) by 8 blocks on 132 SMs.  Its bound is its
+// bytes, 8 a step.  So each lane walks as up to DBT_MAX_SEG segments, one
+// warp each, joined by exact K-state maps (below): 32 times the threads,
+// each walking 1 / G of the lane with its words read ahead.  On the H100
+// that runs at 1.9x the byte bound on 16 Ki lanes (0.30 ms: phase 2 reads
+// its segment's words again, 12 B a step in all) and 4.7x faster than the
+// first design at the flushes (0.05 ms, where 32 blocks fill 32 SMs);
+// blocks of 16 lanes ran faster there and slower on 16 Ki lanes (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,6 +56,15 @@
 #define MAX_S 255
 // Steps of the symbol stream B14 holds in registers ahead of its chain.
 #define STEP_AHEAD 16
+// B15's segments: the kernel's own length in steps (DBT_SEG), the lanes of
+// a block (DBT_LANES, a warp's worth), the most segments a lane
+// (DBT_MAX_SEG, one warp each), and the pointer words each walk holds in
+// registers ahead of use (DBT_AHEAD).
+#define DBT_SEG 128
+#define DBT_LANES 32
+#define DBT_MAX_SEG 32
+#define DBT_AHEAD 16
+#define DBT_IDENTITY 0xFAC688  // entry j = j for j < 8, 3 bits each
 
 // Shared step table: row s holds M_s[m][j] at s * (K*K + 1) + m*K + j.
 template <int K>
@@ -323,17 +342,84 @@ dense_backpointers_kernel(const int32_t* __restrict__ steps, const float* __rest
 // anchored exit state, k = bk-1 down to 0, emitting the state after each
 // step: path[k] = state; state = (bp[k] >> 3*state) & 7.  Reads 4 B and
 // writes 4 B per step.
-__global__ void __launch_bounds__(THREADS)
+//
+// A lane's bk steps split into G = ceil(bk / seg) = blockDim.x / 32
+// segments of seg steps, [s seg, min((s + 1) seg, bk)) (the last may be
+// short, none is empty); warp s of a block is segment s of its 32
+// consecutive lanes, so every load and store of a warp is one 128-byte
+// time-major row.  What a run of steps does to the state is a map of the K
+// states onto the K states, known before the state that enters it, and it
+// packs as a pointer word does (entry j at bits 3j).  Phase 1: the thread
+// of segment s > 0 walks its words from last to first from all K entering
+// states at once (f[j] = (w >> 3 f[j]) & 7), its words read DBT_AHEAD
+// ahead, and leaves its segment's map in shared memory.  Phase 2: after one
+// barrier, the thread takes the lane's exit state through the maps of
+// segments G-1, ..., s+1 to its segment's last step and walks the segment
+// as one thread walked the lane, its words read DBT_AHEAD steps ahead; it
+// loads nothing outside its segment.  Every state is the one walk's state
+// (pointers and exit states lie below K, as the packing's producers
+// guarantee), so the path equals the plain version's whatever G and seg.
+
+// w[u] = the pointer word of step k0 + u of a lane (column wp); steps below
+// lo are not read and take the identity word (every state keeps itself).
+__device__ __forceinline__ void load_back_words(const int32_t* __restrict__ wp, int nb, int k0,
+                                                int lo, int32_t (&w)[DBT_AHEAD]) {
+#pragma unroll
+  for (int u = 0; u < DBT_AHEAD; ++u) {
+    const int k = k0 + u;
+    w[u] = k >= lo ? __ldg(wp + (size_t)k * nb) : DBT_IDENTITY;
+  }
+}
+
+template <int K>
+__global__ void __launch_bounds__(DBT_LANES * DBT_MAX_SEG)
 dense_backtrace_kernel(const int32_t* __restrict__ bp, const int32_t* __restrict__ exits,
-                       int32_t* __restrict__ path, int bk, int nb) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+                       int32_t* __restrict__ path, int bk, int nb, int seg) {
+  __shared__ uint32_t s_map[DBT_MAX_SEG * DBT_LANES];
+  const int G = blockDim.x / DBT_LANES, s = threadIdx.x / DBT_LANES, l = threadIdx.x % DBT_LANES;
+  const int b = blockIdx.x * DBT_LANES + l;
+  const int lo = s * seg, hi = min(lo + seg, bk);
+  const int32_t* wp = bp + b;
+  int32_t w[DBT_AHEAD], wn[DBT_AHEAD];
+  if (s > 0 && b < nb) {
+    // Phase 1: the segment's map from all K entering states.
+    uint32_t f[K];
+#pragma unroll
+    for (int j = 0; j < K; ++j) f[j] = j;
+    load_back_words(wp, nb, hi - DBT_AHEAD, lo, w);
+    for (int k0 = hi - DBT_AHEAD; k0 + DBT_AHEAD > lo; k0 -= DBT_AHEAD) {
+      load_back_words(wp, nb, k0 - DBT_AHEAD, lo, wn);
+#pragma unroll
+      for (int u = DBT_AHEAD - 1; u >= 0; --u) {
+#pragma unroll
+        for (int j = 0; j < K; ++j) f[j] = ((uint32_t)w[u] >> (3 * f[j])) & 7u;
+      }
+#pragma unroll
+      for (int u = 0; u < DBT_AHEAD; ++u) w[u] = wn[u];
+    }
+    uint32_t map = 0;
+#pragma unroll
+    for (int j = 0; j < K; ++j) map |= f[j] << (3 * j);
+    s_map[s * DBT_LANES + l] = map;
+  }
+  __syncthreads();
   if (b >= nb) return;
   uint32_t state = (uint32_t)exits[b];
-#pragma unroll 8
-  for (int k = bk - 1; k >= 0; --k) {
-    const uint32_t word = (uint32_t)__ldg(bp + (size_t)k * nb + b);
-    path[(size_t)k * nb + b] = (int32_t)state;
-    state = (word >> (3 * state)) & 7u;
+  for (int t = G - 1; t > s; --t) state = (s_map[t * DBT_LANES + l] >> (3 * state)) & 7u;
+  // Phase 2: the walk of steps [lo, hi), last to first.
+  int32_t* out = path + b;
+  load_back_words(wp, nb, hi - DBT_AHEAD, lo, w);
+  for (int k0 = hi - DBT_AHEAD; k0 + DBT_AHEAD > lo; k0 -= DBT_AHEAD) {
+    load_back_words(wp, nb, k0 - DBT_AHEAD, lo, wn);
+#pragma unroll
+    for (int u = DBT_AHEAD - 1; u >= 0; --u) {
+      if (k0 + u >= lo) {
+        out[(size_t)(k0 + u) * nb] = (int32_t)state;
+        state = ((uint32_t)w[u] >> (3 * state)) & 7u;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < DBT_AHEAD; ++u) w[u] = wn[u];
   }
 }
 
@@ -387,6 +473,21 @@ static int launch_backpointers(const void* steps, const void* v_enter, const voi
   return (int)cudaGetLastError();
 }
 
+// seg: steps a segment, 0 for the kernel's own (DBT_SEG); lengthened where a
+// lane's bk steps would need more than DBT_MAX_SEG segments.
+template <int K>
+static int launch_backtrace(const void* bp, const void* exits, void* path, int bk, int nb,
+                            int seg, cudaStream_t stream) {
+  const int need = (bk + DBT_MAX_SEG - 1) / DBT_MAX_SEG;
+  if (seg == 0) seg = DBT_SEG;
+  if (seg < need) seg = need;
+  const int G = (bk + seg - 1) / seg;
+  dense_backtrace_kernel<K><<<(unsigned)((nb + DBT_LANES - 1) / DBT_LANES), DBT_LANES * G, 0,
+                              stream>>>(
+      (const int32_t*)bp, (const int32_t*)exits, (int32_t*)path, bk, nb, seg);
+  return (int)cudaGetLastError();
+}
+
 #define DISPATCH_K(K, CALL)    \
   switch (K) {                 \
     case 1: return CALL(1);    \
@@ -425,12 +526,12 @@ int dense_backpointers(const void* steps, const void* v_enter, const void* logAT
 #undef CALL_B
 }
 
-int dense_backtrace(const void* bp, const void* exits, void* path, int bk, int nb,
-                    void* stream) {
-  if (bk <= 0 || nb <= 0) return (int)cudaErrorInvalidValue;
-  dense_backtrace_kernel<<<grid_for(nb), THREADS, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)bp, (const int32_t*)exits, (int32_t*)path, bk, nb);
-  return (int)cudaGetLastError();
+int dense_backtrace(const void* bp, const void* exits, void* path, int bk, int nb, int K,
+                    int seg, void* stream) {
+  if (bk <= 0 || nb <= 0 || seg < 0) return (int)cudaErrorInvalidValue;
+#define CALL_T(KK) launch_backtrace<KK>(bp, exits, path, bk, nb, seg, (cudaStream_t)stream)
+  DISPATCH_K(K, CALL_T)
+#undef CALL_T
 }
 
 }  // extern "C"

@@ -58,7 +58,7 @@ _SIGNATURES = {
     "oh_fwd": ("fb_onehot", 6, ("Tp", "NL", "nreal", "G")),
     "oh_bwd": ("fb_onehot", 7, ("Tp", "NL", "nreal", "T", "G")),
     "oh_bwd_conf": ("fb_onehot", 10, ("Tp", "NL", "S", "T", "G")),
-    "oh_stats": ("fb_onehot", 10, ("Tp", "NL", "S", "K", "Tt")),
+    "oh_stats": ("fb_onehot", 10, ("Tp", "NL", "S", "K", "Tt", "SPB")),
     "oh_fwd_stacked": ("fb_onehot", 6, ("Tp", "NL", "nreal", "G", "M")),
     "oh_bwd_stacked": ("fb_onehot", 7, ("Tp", "NL", "nreal", "T", "G", "M")),
     "oh_seq_stats_stacked": ("fb_onehot", 14, ("Tp", "NL", "S", "K", "Tt", "SPB", "M")),
@@ -69,7 +69,7 @@ _SIGNATURES = {
     "fb_loglik": ("loglik", 5, ("Tp", "NL", "K", "S", "G", "LB")),
     "dense_products": ("viterbi_dense", 4, ("bk", "nb", "K", "S")),
     "dense_backpointers": ("viterbi_dense", 7, ("bk", "nb", "K", "S")),
-    "dense_backtrace": ("viterbi_dense", 3, ("bk", "nb")),
+    "dense_backtrace": ("viterbi_dense", 3, ("bk", "nb", "K", "seg")),
     "fb_fwd": ("fb_dense", 7, ("Tp", "NL", "K", "S", "G")),
     "fb_prod": ("fb_dense", 3, ("Tp", "NL", "K", "S")),
     "fb_bwd": ("fb_dense", 8, ("Tp", "NL", "K", "S", "T", "G")),

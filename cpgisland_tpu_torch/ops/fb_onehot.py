@@ -115,8 +115,8 @@ MAX_SUBLANES = 32
 # MAX_SUBLANES), shorter lanes as one chain.
 PROD_SUBLANE_T = 512
 PROD_SUBLANES_FROM = 8192
-# B5 / B25's segments (:func:`stats_segment_t`): each lane's steps split into
-# segments of STATS_SEGMENT_T steps (at most the lane), one thread each.
+# B5 / B25 / B12's segments (:func:`stats_segment_t`): each lane's steps split
+# into segments of STATS_SEGMENT_T steps (at most the lane), one thread each.
 STATS_SEGMENT_T = 512
 
 
@@ -995,7 +995,7 @@ def oh_seq_stats_plain(alphas2, betas2, pair2, lens2, tab_ext, B_red, gt,
 
 
 def stats_segment_t(Tp: int, NL: int) -> int:
-    """B5 / B25's segment length for a [Tp, NL] layout: the kernel gives
+    """B5 / B25 / B12's segment length for a [Tp, NL] layout: the kernel gives
     each (lane, segment) a thread, so the segments set how many threads the
     card gets and how many partial sums the reduce reads.  A function of
     the shape alone (not of the layout's ``Tt``, the TPU's tile), so the
@@ -1017,14 +1017,14 @@ def stats_segment_t(Tp: int, NL: int) -> int:
 
 
 def stats_segments_per_block(S: int) -> int:
-    """Segments a block of B5 / B25 sums before the reduce: 4 (a block of
+    """Segments a block of B5 / B25 / B12 sums before the reduce: 4 (a block of
     32 lanes x 4 segments, 128 threads) where the block's R = 4 S^2 + 2S + 1
     accumulator columns fit in 200 KB of shared memory, else 1 (S = 16)."""
     return 4 if (4 * S * S + 2 * S + 1) * 128 * 4 <= 200 * 1024 else 1
 
 
 def _stats_part_rows(Tp: int, NL: int, S: int) -> int:
-    """Partial row sets a lane of B5 / B25 leaves for the reduce."""
+    """Partial row sets a lane of B5 / B25 / B12 leaves for the reduce."""
     nseg = -(-Tp // stats_segment_t(Tp, NL))
     return -(-nseg // stats_segments_per_block(S))
 
@@ -1112,12 +1112,13 @@ def oh_stats_plain(alphas2, betas2, pair2, lens2, B_red, gt):
     return macc, emit_red, ll
 
 
-def oh_stats(alphas2, betas2, pair2, lens2, B_red, gt, Tt: int):
+def oh_stats(alphas2, betas2, pair2, lens2, B_red, gt):
     """Kernel B12 (replaces ``_oh_stats_kernel``) -> (macc, emit_red, ll).
-    Arguments as :func:`oh_stats_plain` (gt int32); the kernel reduces each
-    lane in segments of ``Tt`` steps, then sums the segments in order with
-    B5's reduce kernel (no atomics: the result does not change from run to
-    run)."""
+    Arguments as :func:`oh_stats_plain` (gt int32).  B5's kernels with the
+    cs-scaled normalizer: each lane in segments of :func:`stats_segment_t`
+    steps, each block's :func:`stats_segments_per_block` segments summed,
+    then the blocks' sums in order (no atomics: the result does not change
+    from run to run)."""
     _check_same_device(pair2, (alphas2, betas2, lens2, B_red, gt))
     if pair2.dim() != 2 or 0 in pair2.shape:
         raise ValueError(f"pair2 must be a non-empty [Tp, NL], got {tuple(pair2.shape)}")
@@ -1132,18 +1133,17 @@ def oh_stats(alphas2, betas2, pair2, lens2, B_red, gt, Tt: int):
     _check("lens2", lens2, _I32, (1, NL))
     _check("B_red", B_red, _F32, (S, GROUP))
     _check("gt", gt, _I32, (S, GROUP))
-    if Tt <= 0:
-        raise ValueError(f"Tt must be positive, got {Tt}")
     if pair2.device.type == "cpu":
         return oh_stats_plain(alphas2, betas2, pair2, lens2, B_red, gt)
     dev = pair2.device
     rows = 4 * S * S + 2 * S + 1  # per-lane accumulators: pair bins, emit, ll
-    part = torch.empty((-(-Tp // Tt), rows, NL), dtype=_F32, device=dev)
+    part = torch.empty((_stats_part_rows(Tp, NL, S), rows, NL), dtype=_F32, device=dev)
     macc = torch.empty((K * K, NL), dtype=_F32, device=dev)
     emit_red = torch.empty((2 * S, NL), dtype=_F32, device=dev)
     ll = torch.empty((1, NL), dtype=_F32, device=dev)
     _kernels.launch("oh_stats", alphas2, betas2, pair2, lens2, B_red, gt, part, macc, emit_red,
-                    ll, Tp=Tp, NL=NL, S=S, K=K, Tt=Tt)
+                    ll, Tp=Tp, NL=NL, S=S, K=K, Tt=stats_segment_t(Tp, NL),
+                    SPB=stats_segments_per_block(S))
     return macc, emit_red, ll
 
 
@@ -1304,7 +1304,10 @@ def run_stats_onehot(params: HmmParams, alphas2, betas2, pair2, lens2, gt, Tt: i
     """Chunked counts from the split arm's reduced streams (B12): (macc
     [K*K, NL] — trans = A * macc summed over lanes; emit_red [2S, NL],
     emit_full[gt[s, c], s] = emit_red[2s + c]; ll [1, NL]).  Power-of-two
-    S only; callers fall back to the dense stats kernel otherwise.
+    S only; callers fall back to the dense stats kernel otherwise.  ``Tt``
+    is the TPU layout's tile, kept so the signature is the JAX package's:
+    the card's layout does not read it (B12 takes its segments from the
+    shape, :func:`stats_segment_t`).
 
     ``betas_scale`` guards the route: macc is DEGREE 1 in the betas, so
     only "cs" betas (the split backward's) are legal.  "selfnorm" (fused)
@@ -1325,7 +1328,7 @@ def run_stats_onehot(params: HmmParams, alphas2, betas2, pair2, lens2, gt, Tt: i
             "dense stats kernel otherwise"
         )
     return oh_stats(alphas2, betas2, pair2, lens2, reduced_emissions(params, gt),
-                    gt.to(_I32).contiguous(), Tt)
+                    gt.to(_I32).contiguous())
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,8 @@ Counterpart of ``cpgisland_tpu/ops/viterbi_pallas.py``.  Same three passes
 as ops.viterbi_parallel (products -> backpointers -> backtrace) for any
 model with K <= 8 states, with the per-step loops as hand-written kernels
 (``csrc/viterbi_dense.cu``) over the time-major [bk, nb] step stream: one
-thread per lane for the backpointers and the backtrace, one row of the
+thread per lane for the backpointers, one warp per segment of 32 lanes for
+the backtrace (segments joined by exact K-state maps), one row of the
 K x K product per thread for the products on up to 8 Ki lanes (one
 thread per lane past them), the product rows or the K-state delta in
 registers, and every step's matrix M_t[m, j] = logA[m, j] + logB[j, o_t]
@@ -117,6 +118,39 @@ def dense_backtrace_plain(bp: torch.Tensor, exits: torch.Tensor) -> torch.Tensor
     return path
 
 
+def dense_backtrace_sub_plain(bp: torch.Tensor, exits: torch.Tensor, K: int,
+                              seg: int) -> torch.Tensor:
+    """B15's walk as the kernel splits it, plain version (for the tests):
+    each lane's bk steps in G = ceil(bk / seg) segments of ``seg`` steps,
+    [s seg, min((s + 1) seg, bk)).  Each segment's map (the state below its
+    first step from each of the K states at its last, packed 3 bits an
+    entry as a pointer word) is walked from all K states without the state
+    that enters it; the exit state goes through the maps of the segments
+    above to each segment's last step, and each segment then walks as
+    :func:`dense_backtrace_plain` does.  Returns path [bk, nb], equal to
+    that one walk's for pointers and exit states below K."""
+    bk, nb = bp.shape
+    G = max(1, -(-bk // seg))
+    bounds = [(s * seg, min((s + 1) * seg, bk)) for s in range(G)]
+    maps = []
+    for k_lo, k_hi in bounds:
+        f = torch.arange(K, dtype=_I32, device=bp.device)[:, None].expand(K, nb)
+        for k in range(k_hi - 1, k_lo - 1, -1):
+            f = (bp[k][None, :] >> (3 * f)) & 7
+        maps.append((f << _shifts(K, bp.device)[:, None]).sum(dim=0, dtype=_I32))
+    path = torch.empty((bk, nb), dtype=_I32, device=bp.device)
+    state = exits.to(_I32)
+    tops = [None] * G
+    for s in range(G - 1, -1, -1):
+        tops[s] = state
+        state = (maps[s] >> (3 * state)) & 7
+    for (k_lo, k_hi), state in zip(bounds, tops):
+        for k in range(k_hi - 1, k_lo - 1, -1):
+            path[k] = state
+            state = (bp[k] >> (3 * state)) & 7
+    return path
+
+
 def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
     if t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
         raise ValueError(
@@ -181,17 +215,27 @@ def dense_backpointers(steps2: torch.Tensor, v_enter: torch.Tensor, logAT: torch
     return bp, dexit, ftab
 
 
-def dense_backtrace(bp: torch.Tensor, exits: torch.Tensor) -> torch.Tensor:
+def dense_backtrace(bp: torch.Tensor, exits: torch.Tensor, K: int,
+                    seg: int = 0) -> torch.Tensor:
     """Kernel B15 (replaces ``_backtrace_kernel``): -> path [bk, nb] int32
-    state ids."""
+    state ids of a K-state model.  The kernel walks each lane in segments
+    of ``seg`` steps joined by exact K-state maps (0: the kernel's own
+    length, ``csrc/viterbi_dense.cu`` DBT_SEG, lengthened where a lane
+    would need more segments than a block holds); the path is the one
+    walk's whatever the length."""
     _check_operands(bp, (exits,))
+    if not 1 <= K <= MAX_PACK_STATES:
+        raise ValueError(f"dense_backtrace packs 3 bits a state: needs 1 <= K <= "
+                         f"{MAX_PACK_STATES}, got {K}")
+    if seg < 0:
+        raise ValueError(f"seg must be 0 (the kernel's own) or positive, got {seg}")
     bk, nb = bp.shape
     _check("bp", bp, _I32, (bk, nb))
     _check("exits", exits, _I32, (nb,))
     if bp.device.type == "cpu":
         return dense_backtrace_plain(bp, exits)
     path = torch.empty((bk, nb), dtype=_I32, device=bp.device)
-    _kernels.launch("dense_backtrace", bp, exits, path, bk=bk, nb=nb)
+    _kernels.launch("dense_backtrace", bp, exits, path, bk=bk, nb=nb, K=K, seg=seg)
     return path
 
 
@@ -224,18 +268,19 @@ def pass_products(params: HmmParams, steps2: torch.Tensor, prev0=None):
 def pass_backpointers(params: HmmParams, v_enter: torch.Tensor, steps2: torch.Tensor,
                       prev0=None):
     """Twin of viterbi_parallel._pass_backpointers: (delta_exit [nb, K],
-    F [nb, K] int32, blob) — the blob is the packed pointers, consumed only
-    by :func:`pass_backtrace`."""
+    F [nb, K] int32, blob) — the blob (the packed pointers and K) is
+    consumed only by :func:`pass_backtrace`."""
     logAT, logB = _tables(params)
     bp, dexit, ftab = dense_backpointers(
         steps2.to(_I32).contiguous(), v_enter.T.to(_F32).contiguous(), logAT, logB)
     F = (ftab[:, None] >> _shifts(params.n_states, ftab.device)) & 7
-    return dexit.T, F, bp
+    return dexit.T, F, (bp, params.n_states)
 
 
-def pass_backtrace(blob: torch.Tensor, exits: torch.Tensor) -> torch.Tensor:
+def pass_backtrace(blob, exits: torch.Tensor) -> torch.Tensor:
     """Twin of viterbi_parallel._pass_backtrace -> [bk * nb] path."""
-    return dense_backtrace(blob, exits.to(_I32).contiguous()).T.reshape(-1)
+    bp, K = blob
+    return dense_backtrace(bp, exits.to(_I32).contiguous(), K).T.reshape(-1)
 
 
 def viterbi_pallas(params: HmmParams, obs: torch.Tensor, block_size: int = DEFAULT_BLOCK,

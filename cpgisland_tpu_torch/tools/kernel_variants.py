@@ -1,5 +1,5 @@
-"""Variant builds of the dense chain kernels and of B5, timed on identical
-inputs: the measurements behind their layouts.
+"""Variant builds of the dense chain kernels, of B5 / B12 and of the decode
+kernels, timed on identical inputs: the measurements behind their layouts.
 
     python -m cpgisland_tpu_torch.tools.kernel_variants [--group dense|split|stats|decode ...]
         [--variant NAME ...]
@@ -32,7 +32,13 @@ variant changes nothing in the package.  On the card only, by group:
   stores dropped (``diag_nostore``);
 - ``stats``: B5 (the flagship) on 1,024 and the genome's 1,390 ragged
   chunks of 65,536 steps and on 8,192 and the genome's 11,121 seq lanes of
-  8,192 steps, at segments of 128 to 1,024 steps;
+  8,192 steps, and B12 (B5's body with the cs-scaled normalizer, on B9's
+  and B10's streams) on the same chunks, at segments of 128 to 1,024
+  steps: the shipped build, its read-ahead at 4, 12 and 16 steps, blocks
+  of 128 lanes of one segment, ``__fdiv_rn`` for the reciprocals, B12 as
+  the parent ran it (``b12_parent``: one thread per (lane, segment) in
+  blocks of 128 lanes, a step's loads when it runs, no block sums) and,
+  unchecked, B5 without its log or its arithmetic;
 - ``decode``: the reduced decode kernels (``csrc/viterbi_onehot.cu``: B2,
   B6, B27 and its scores arm, B1 / B26 and B3 / B28) and B14
   (``csrc/viterbi_dense.cu``, K = 2 and 8). Where the max-plus chains (B1
@@ -69,7 +75,13 @@ variant changes nothing in the package.  On the card only, by group:
   (``dense_prod_parent``), the table read as scalars with the odd stride
   K*K + 1 (``dense_prod_scalar``), two rows a thread at K >= 4, blocks of
   64 and 256, 16 and 8 steps ahead at every K and at least 8 blocks an
-  SM. The reduced kernels at 4,096 x 16,384 (M = 2 and 5, B26 also at 3
+  SM. B15 (``csrc/viterbi_dense.cu``, K = 2 and 8) in segments of 128
+  steps joined by exact K-state maps, one warp a segment of 32 lanes, its
+  words read 16 ahead, against 8 and 32 ahead, blocks of 16 and 8 lanes
+  (16 also with 64-step segments, and with 8 ahead) and the parent's one
+  thread a lane (``dbt_parent``), with segments of 128 to 1,024 steps
+  (:data:`DBT_SEGS`) on the shipped build and three others, at 4,096 x
+  16,384 and at two_state's flushes. The reduced kernels at 4,096 x 16,384 (M = 2 and 5, B26 also at 3
   and 4, B1 also on 32, 48 and 64 Ki lanes, and S = 16 at M = 2) and at
   the largest mixed-model flush (8 records padded to 512 Ki: 4,096 x
   1,024; M = 2, 3), B14 at 4,096 x 16,384, B13 there, on 4, 8, 32, 48
@@ -1387,6 +1399,237 @@ static int backtrace(const void* bp, const void* pair2, const void* idtab,
 # layout), and B28 with the member on y (B26's): blocks are dispatched x
 # first, so with the member on x the M members' blocks of one lane block
 # run side by side and read the shared pair stream together.
+# B12 as the parent ran it: one thread per (lane, segment of Tt steps) in
+# blocks of 128 lanes of one segment, a step's loads issued when it runs,
+# two IEEE divisions a step, no block sums; B5's reduce over every
+# segment's partial rows.  The C entry keeps the shipped signature and
+# ignores SPB.
+B12_PARENT_KERNEL = r"""// B12: the chunked counts over the split arm's cs-scaled streams, in B5's
+// accumulator rows (so B5's reduce kernel finishes them).  One (lane,
+// segment) over steps [t0, t1): gamma rows and log c as B5; for t >= 1 the
+// pair bin (s_prev, s_cur, a, c) gains a_hat_{t-1}[a] * ((B_red[s_cur, c] *
+// beta_t[c]) * (1 / c_t)), the twin's operand order.
+
+__device__ __forceinline__ void cs_stats_segment(const float* al, const float* be,
+                                                 const int32_t* p, const float* s_bred,
+                                                 float* my, int bd, int t0, int t1, size_t nl,
+                                                 int S) {
+  const int nreal = S * S;
+  const int EMIT = 4 * nreal;
+  const int LL = EMIT + 2 * S;
+  float ah0 = 0.0f, ah1 = 0.0f;
+  if (t0 > 0) {
+    const float p0 = al[(size_t)(2 * t0 - 2) * nl];
+    const float p1 = al[(size_t)(2 * t0 - 1) * nl];
+    const float ic = __fdiv_rn(1.0f, fmaxf(__fadd_rn(p0, p1), 1e-30f));
+    ah0 = __fmul_rn(p0, ic);
+    ah1 = __fmul_rn(p1, ic);
+  }
+  float ll = 0.0f;
+  for (int t = t0; t < t1; ++t) {
+    const float a0 = al[(size_t)(2 * t) * nl];
+    const float a1 = al[(size_t)(2 * t + 1) * nl];
+    const float be0 = be[(size_t)(2 * t) * nl];
+    const float be1 = be[(size_t)(2 * t + 1) * nl];
+    const int pr = p[(size_t)t * nl];
+    // A PAD pair carries its symbol: previous and current are both it.
+    const int esym = pr < nreal ? pr % S : pr - nreal;
+    const int sprev = pr < nreal ? pr / S : esym;
+    const float cs = __fadd_rn(a0, a1);
+    const float inv_cs = __fdiv_rn(1.0f, fmaxf(cs, 1e-30f));
+    const float g0 = __fmul_rn(a0, be0), g1 = __fmul_rn(a1, be1);
+    const float inv_g = __fdiv_rn(1.0f, fmaxf(__fadd_rn(g0, g1), 1e-30f));
+    float* e = my + (EMIT + 2 * esym) * bd;
+    e[0] = __fadd_rn(e[0], __fmul_rn(g0, inv_g));
+    e[bd] = __fadd_rn(e[bd], __fmul_rn(g1, inv_g));
+    ll = __fadd_rn(ll, logf(fmaxf(cs, 1e-30f)));
+    if (t > 0) {
+      const float w0 = __fmul_rn(__fmul_rn(s_bred[2 * esym], be0), inv_cs);
+      const float w1 = __fmul_rn(__fmul_rn(s_bred[2 * esym + 1], be1), inv_cs);
+      float* bin = my + ((sprev * S + esym) * 4) * bd;
+      bin[0] = __fadd_rn(bin[0], __fmul_rn(ah0, w0));
+      bin[bd] = __fadd_rn(bin[bd], __fmul_rn(ah0, w1));
+      bin[2 * bd] = __fadd_rn(bin[2 * bd], __fmul_rn(ah1, w0));
+      bin[3 * bd] = __fadd_rn(bin[3 * bd], __fmul_rn(ah1, w1));
+    }
+    ah0 = __fmul_rn(a0, inv_cs);
+    ah1 = __fmul_rn(a1, inv_cs);
+  }
+  my[LL * bd] = ll;
+}
+
+// Grid (lane blocks, segments); part [nseg, R, NL].
+__global__ void oh_stats_part_kernel(const float* __restrict__ alphas,
+                                     const float* __restrict__ betas,
+                                     const int32_t* __restrict__ pair,
+                                     const int32_t* __restrict__ lens,
+                                     const float* __restrict__ bred, float* __restrict__ part,
+                                     int Tp, int NL, int S, int Tt) {
+  extern __shared__ float acc[];  // [R][blockDim.x]
+  __shared__ float s_bred[2 * MAX_S];
+  const int R = 4 * S * S + 2 * S + 1;
+  const int bd = blockDim.x;
+  const size_t nl = (size_t)NL;
+  for (int i = threadIdx.x; i < 2 * S; i += bd) s_bred[i] = bred[i];
+  float* my = acc + threadIdx.x;
+  for (int r = 0; r < R; ++r) my[r * bd] = 0.0f;
+  __syncthreads();
+
+  const int n = blockIdx.x * bd + threadIdx.x;
+  if (n >= NL) return;
+  const int seg = blockIdx.y;
+  const int len = min(lens[n], Tp);
+  const int t0 = seg * Tt;
+  const int t1 = min(t0 + Tt, len);
+  if (t0 < t1) cs_stats_segment(alphas + n, betas + n, pair + n, s_bred, my, bd, t0, t1, nl, S);
+  float* out = part + (size_t)seg * R * nl + n;
+  for (int r = 0; r < R; ++r) out[(size_t)r * nl] = my[r * bd];
+}
+
+"""
+B12_PARENT_LAUNCH = r"""// B12: the part kernel, then B5's reduce (member 0 of 1).
+static int launch_cs_stats(const void* alphas, const void* betas, const void* pair,
+                           const void* lens, const void* bred, const void* gt, void* part,
+                           void* macc, void* emit, void* ll, int Tp, int NL, int S, int K, int Tt,
+                           cudaStream_t st) {
+  if (S < 1 || S > MAX_S || K != 2 * S || Tp <= 0 || NL <= 0 || Tt <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int R = 4 * S * S + 2 * S + 1;
+  const int nseg = (Tp + Tt - 1) / Tt;
+  if (nseg > 65535) return (int)cudaErrorInvalidValue;
+  const int threads = (size_t)R * 128 * sizeof(float) <= 200 * 1024 ? 128 : 32;
+  const size_t smem = (size_t)R * threads * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        oh_stats_part_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((unsigned)((NL + threads - 1) / threads), (unsigned)nseg);
+  oh_stats_part_kernel<<<grid, threads, smem, st>>>(
+      (const float*)alphas, (const float*)betas, (const int32_t*)pair, (const int32_t*)lens,
+      (const float*)bred, (float*)part, Tp, NL, S, Tt);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 rgrid((unsigned)((NL + REDUCE_THREADS - 1) / REDUCE_THREADS), (unsigned)R, 1);
+  oh_seq_stats_reduce_kernel<<<rgrid, REDUCE_THREADS, 0, st>>>(
+      (const float*)part, (const int32_t*)gt, (float*)macc, (float*)emit, (float*)ll, nseg, NL,
+      S, K);
+  return (int)cudaGetLastError();
+}
+
+"""
+_B12_REDUCE = "// Grid (lane blocks, rows R, members): each lane's segments summed in order."
+_B12_LAUNCH_AT = "// B5 / B25 (B12 with cs): the part kernel over"
+_B12_ENTRY = ("return launch_seq_stats(true, alphas, betas, pair, lens, nullptr, bred, gt, "
+              "nullptr, nullptr,\n                          nullptr, part, macc, emit, ll, Tp, NL, "
+              "S, K, Tt, SPB, 1,")
+B12_PARENT = [(_B12_REDUCE, B12_PARENT_KERNEL + _B12_REDUCE),
+              (_B12_LAUNCH_AT, B12_PARENT_LAUNCH + _B12_LAUNCH_AT),
+              (_B12_ENTRY, "return launch_cs_stats(alphas, betas, pair, lens, bred, gt, part, macc, "
+                           "emit, ll, Tp, NL, S, K, Tt,")]
+
+# B15 as the parent ran it: one thread a lane (blocks of 128) walking all
+# bk steps, one load a step; the C entry keeps the shipped signature and
+# ignores seg.
+B15_PARENT_KERNEL = r"""template <int K>
+__global__ void __launch_bounds__(THREADS)
+dense_backtrace_kernel(const int32_t* __restrict__ bp, const int32_t* __restrict__ exits,
+                       int32_t* __restrict__ path, int bk, int nb, int seg) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= nb) return;
+  uint32_t state = (uint32_t)exits[b];
+#pragma unroll 8
+  for (int k = bk - 1; k >= 0; --k) {
+    const uint32_t word = (uint32_t)__ldg(bp + (size_t)k * nb + b);
+    path[(size_t)k * nb + b] = (int32_t)state;
+    state = (word >> (3 * state)) & 7u;
+  }
+}
+
+"""
+B15_PARENT_LAUNCH = r"""template <int K>
+static int launch_backtrace(const void* bp, const void* exits, void* path, int bk, int nb,
+                            int seg, cudaStream_t stream) {
+  dense_backtrace_kernel<K><<<grid_for(nb), THREADS, 0, stream>>>(
+      (const int32_t*)bp, (const int32_t*)exits, (int32_t*)path, bk, nb, seg);
+  return (int)cudaGetLastError();
+}
+
+"""
+_B15_KERNEL = ("template <int K>\n__global__ void __launch_bounds__(DBT_LANES * DBT_MAX_SEG)\n"
+               "dense_backtrace_kernel", "static inline unsigned grid_for(int nb)")
+_B15_LAUNCH = ("template <int K>\nstatic int launch_backtrace(", "#define DISPATCH_K(K, CALL)")
+B15_PARENT = [(*_B15_KERNEL, B15_PARENT_KERNEL), (*_B15_LAUNCH, B15_PARENT_LAUNCH)]
+
+# B15 with at most DBT_GRID blocks, each walking lane blocks b, b + DBT_GRID,
+# ...: fewer blocks in flight, so the words phase 1 read may still be in L2
+# when phase 2 reads them again (a lane block's words are 512 KB at 4,096
+# steps).  The operations and their order are the shipped kernel's.
+B15_PERSIST_KERNEL = r"""template <int K>
+__global__ void __launch_bounds__(DBT_LANES * DBT_MAX_SEG)
+dense_backtrace_kernel(const int32_t* __restrict__ bp, const int32_t* __restrict__ exits,
+                       int32_t* __restrict__ path, int bk, int nb, int seg) {
+  __shared__ uint32_t s_map[DBT_MAX_SEG * DBT_LANES];
+  const int G = blockDim.x / DBT_LANES, s = threadIdx.x / DBT_LANES, l = threadIdx.x % DBT_LANES;
+  const int lo = s * seg, hi = min(lo + seg, bk);
+  const int nblk = (nb + DBT_LANES - 1) / DBT_LANES;
+  for (int blk = blockIdx.x; blk < nblk; blk += gridDim.x) {
+    const int b = blk * DBT_LANES + l;
+    const int32_t* wp = bp + b;
+    int32_t w[DBT_AHEAD], wn[DBT_AHEAD];
+    if (s > 0 && b < nb) {
+      uint32_t f[K];
+#pragma unroll
+      for (int j = 0; j < K; ++j) f[j] = j;
+      load_back_words(wp, nb, hi - DBT_AHEAD, lo, w);
+      for (int k0 = hi - DBT_AHEAD; k0 + DBT_AHEAD > lo; k0 -= DBT_AHEAD) {
+        load_back_words(wp, nb, k0 - DBT_AHEAD, lo, wn);
+#pragma unroll
+        for (int u = DBT_AHEAD - 1; u >= 0; --u) {
+#pragma unroll
+          for (int j = 0; j < K; ++j) f[j] = ((uint32_t)w[u] >> (3 * f[j])) & 7u;
+        }
+#pragma unroll
+        for (int u = 0; u < DBT_AHEAD; ++u) w[u] = wn[u];
+      }
+      uint32_t map = 0;
+#pragma unroll
+      for (int j = 0; j < K; ++j) map |= f[j] << (3 * j);
+      s_map[s * DBT_LANES + l] = map;
+    }
+    __syncthreads();
+    if (b < nb) {
+      uint32_t state = (uint32_t)exits[b];
+      for (int t = G - 1; t > s; --t) state = (s_map[t * DBT_LANES + l] >> (3 * state)) & 7u;
+      int32_t* out = path + b;
+      load_back_words(wp, nb, hi - DBT_AHEAD, lo, w);
+      for (int k0 = hi - DBT_AHEAD; k0 + DBT_AHEAD > lo; k0 -= DBT_AHEAD) {
+        load_back_words(wp, nb, k0 - DBT_AHEAD, lo, wn);
+#pragma unroll
+        for (int u = DBT_AHEAD - 1; u >= 0; --u) {
+          if (k0 + u >= lo) {
+            out[(size_t)(k0 + u) * nb] = (int32_t)state;
+            state = ((uint32_t)w[u] >> (3 * state)) & 7u;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < DBT_AHEAD; ++u) w[u] = wn[u];
+      }
+    }
+    __syncthreads();
+  }
+}
+
+"""
+_B15_GRID = ("dense_backtrace_kernel<K><<<(unsigned)((nb + DBT_LANES - 1) / DBT_LANES),",
+             "dense_backtrace_kernel<K><<<(unsigned)min((nb + DBT_LANES - 1) / DBT_LANES, "
+             "DBT_GRID),")
+
+
+def _persist(blocks: int) -> list:
+    return [(*_B15_KERNEL, B15_PERSIST_KERNEL), _B15_GRID,
+            ("#define DBT_AHEAD 16", f"#define DBT_AHEAD 16\n#define DBT_GRID {blocks}")]
+
 def _swap(*pairs):
     def fn(text: str) -> str:
         for a, b in pairs:
@@ -1497,9 +1740,11 @@ VARIANTS = {
     "stats/ahead16": ("fb_onehot", [("#define STATS_AHEAD 8", "#define STATS_AHEAD 16")]),
     "stats/fdiv": ("fb_onehot", [("__frcp_rn(", "__fdiv_rn(1.0f, ")]),
     "stats/diag_nolog": ("fb_onehot", [("logf(fmaxf(cs, 1e-30f))", "fmaxf(cs, 1e-30f)")]),
+    "stats/b12_parent": ("fb_onehot", B12_PARENT),
     "stats/diag_loads": ("fb_onehot", [(
-        "stats_step<false>(q.a0[r], q.a1[r], q.b0[r], q.b1[r], q.d[r], ah0, ah1, ll, my, bd,\n"
-        "                          s_tab, s_bred, s_igt, enters_full, enters_red, pair0, nl, S, K);",
+        "stats_step<false, CS>(q.a0[r], q.a1[r], q.b0[r], q.b1[r], q.d[r], ah0, ah1, ll, my,\n"
+        "                              bd, s_tab, s_bred, s_igt, enters_full, enters_red, pair0, nl, S,\n"
+        "                              K);",
         "ll = __fadd_rn(ll, q.a0[r] + q.a1[r] + q.b0[r] + q.b1[r] + (float)q.d[r]);")]),
     "decode/oh_base": ("viterbi_onehot", []),
     "decode/oh_tile8": ("viterbi_onehot", [(*_OH_REGION, TILE8_OH_BODY)]),
@@ -1561,6 +1806,22 @@ VARIANTS = {
                                                         "#define PROD_THREADS 256")]),
     "decode/dense_prod_ahead16": ("viterbi_dense", [(_B13_AHEAD, "#define PROD_AHEAD(KK) 16")]),
     "decode/dense_prod_ahead8": ("viterbi_dense", [(_B13_AHEAD, "#define PROD_AHEAD(KK) 8")]),
+    "decode/dbt_parent": ("viterbi_dense", B15_PARENT),
+    "decode/dbt_ahead8": ("viterbi_dense", [("#define DBT_AHEAD 16", "#define DBT_AHEAD 8")]),
+    "decode/dbt_ahead32": ("viterbi_dense", [("#define DBT_AHEAD 16", "#define DBT_AHEAD 32")]),
+    "decode/dbt_lanes16": ("viterbi_dense", [("#define DBT_LANES 32", "#define DBT_LANES 16")]),
+    "decode/dbt_lanes16_seg64": ("viterbi_dense", [("#define DBT_LANES 32", "#define DBT_LANES 16"),
+                                                   ("#define DBT_MAX_SEG 32",
+                                                    "#define DBT_MAX_SEG 64"),
+                                                   ("#define DBT_SEG 128", "#define DBT_SEG 64")]),
+    "decode/dbt_lanes8": ("viterbi_dense", [("#define DBT_LANES 32", "#define DBT_LANES 8")]),
+    "decode/dbt_grid48": ("viterbi_dense", _persist(48)),
+    "decode/dbt_grid80": ("viterbi_dense", _persist(80)),
+    "decode/dbt_grid132": ("viterbi_dense", _persist(132)),
+    "decode/dbt_ahead8_lanes16": ("viterbi_dense", [("#define DBT_LANES 32",
+                                                     "#define DBT_LANES 16"),
+                                                    ("#define DBT_AHEAD 16",
+                                                     "#define DBT_AHEAD 8")]),
     "decode/dense_prod_min8": ("viterbi_dense", [(
         "template <int K, int R>\n__global__ void __launch_bounds__(PROD_THREADS)\n"
         "dense_products_kernel",
@@ -1579,12 +1840,12 @@ PTXAS_OF = {"dense": ("_Z17fb_fwd_sub_kernelILi2E", "_Z17fb_bwd_sub_kernelILi2E"
                       "_Z20fb_fwd_simple", "_Z20fb_bwd_simple",
                       "_Z18fb_bwd_warp", "_Z19fb_fwd_stage", "_Z19fb_bwd_stage",
                       "_Z13fb_fwd_kernelILi8E", "_Z13fb_bwd_kernelILi8ELb0E"),
-            "stats": ("_Z24oh_seq_stats_part_kernel",),
+            "stats": ("_Z24oh_seq_stats_part_kernel", "_Z20oh_stats_part_kernel"),
             "decode": ("_Z22oh_backpointers_kernel", "_Z25dense_backpointers_kernel",
                        "_Z21dense_products_kernel",
                        "_Z18oh_products_kernel", "_Z23oh_products_lane_kernel",
                        "_Z19oh_backtrace_kernel",
-                       "_Z17oh_bt_maps_kernel")}
+                       "_Z17oh_bt_maps_kernel", "_Z22dense_backtrace_kernel")}
 SPLIT_K = (5, 8)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -1760,7 +2021,8 @@ def stats_inputs(rng, dev) -> dict:
     """shape -> B5's operands (the flagship) on B4's streams: ragged chunks
     of 65,536 steps (1,024, and the genome's 1,390) with zero enters, and
     seq lanes of 8,192 steps (8,192, and the genome's 11,121) with random
-    enters, every lane's t == 0 pair but lane 0's."""
+    enters, every lane's t == 0 pair but lane 0's; and B12's (``split*``)
+    on B9's and B10's streams over the same chunks."""
     fl = presets.durbin_cpg8(device=dev)
     gt = OH._groups(fl)
     tab = FB.prob_tab_ext(fl, gt)
@@ -1774,6 +2036,10 @@ def stats_inputs(rng, dev) -> dict:
         al, be = FB.oh_fwdbwd(prep.pair2, prep.pairn2, prep.lens2, a0, b0, tab, 65536)
         z = lambda r: torch.zeros((r, NL), dtype=torch.float32, device=dev)  # noqa: E731
         out[f"train{NL}"] = (al, be, prep.pair2, prep.lens2, *head, z(8), z(2), z(1))
+        # B12 on the split arm's streams (B9's alphas, B10's cs-scaled betas).
+        al = FB.oh_fwd(prep.pair2, prep.lens2, a0, tab)
+        be = FB.oh_bwd(prep.pairn2, prep.lens2, FB.cs_next_of(al), b0, tab, 65536)
+        out[f"split{NL}"] = (al, be, prep.pair2, prep.lens2, *head[1:])
     for NL in (8192, 11121):
         obs = torch.from_numpy(rng.integers(0, 4, size=NL * 8192).astype(np.uint8)).to(dev)
         seq = prepare_seq(4, obs, NL * 8192 - 3000, lane_T=8192)
@@ -1826,14 +2092,19 @@ def run_dense(name, lib, inputs, A, B, ref) -> dict:
 
 
 def run_stats(name, lib, inputs, want) -> dict:
-    fn = c_fn(lib, "oh_seq_stats", 14, 6)
+    """B5 (``train*`` and ``seq*`` shapes) and B12 (``split*``) of the
+    variant at each of SEGMENTS: ms and agreement with the plain
+    version."""
+    fns = {"oh_seq_stats": c_fn(lib, "oh_seq_stats", 14, 6),
+           "oh_stats": c_fn(lib, "oh_stats", 10, 6)}
     spb = 1 if name == "stats/lanes128" else 4
     row = {"variant": name}
     for shape, sa in inputs.items():
         Tp, NL = sa[2].shape
+        fn = fns["oh_stats" if shape.startswith("split") else "oh_seq_stats"]
         for seg in SEGMENTS:
-            rows = -(-(-(-Tp // seg)) // spb)
-            part = torch.empty((rows, 73, NL), device=sa[0].device)
+            # every segment's row set: the parent's B12 sums no blocks
+            part = torch.empty((-(-Tp // seg), 73, NL), device=sa[0].device)
             out = [torch.empty((r, NL), device=sa[0].device) for r in (64, 8, 1)]
             f = lambda: fn([*sa, part, *out], [Tp, NL, 4, 8, seg, spb])  # noqa: E731
             row[f"{shape}_{seg}_ms"] = time_ms(f)
@@ -1909,6 +2180,18 @@ def decode_inputs(rng, dev, bk: int = 4096, nb: int = 16384, T: int = 512 << 10)
     out["dense_wide"] = steps_d.repeat(1, -(-max(B13_WIDE_NB) // nb))
     for Tf in B13_FLUSH_T:
         out[f"dense_flush{Tf}"] = dense_flush_steps(rows[:, :Tf], lengths.long() * Tf // T, bk)
+    # B15's operands: B14's pointers (the package's kernel) from random
+    # entering vectors, random exit states, at 16,384 lanes and the flushes.
+    for K in (2, 8):
+        _, _, logAT, logB = out[f"dense{K}"]
+        for tag, st in [("", steps_d)] + [(f"_flush{Tf}", out[f"dense_flush{Tf}"])
+                                          for Tf in B13_FLUSH_T]:
+            n = st.shape[1]
+            v = rng.normal(scale=3.0, size=(K, n)).astype(np.float32)
+            bp = VP.dense_backpointers(st, torch.from_numpy(v - v.max(axis=0)).to(dev), logAT,
+                                       logB)[0]
+            exits = torch.from_numpy(rng.integers(0, K, size=n).astype(np.int32)).to(dev)
+            out[f"bt{K}{tag}"] = (bp, exits)
     return out
 
 
@@ -1929,6 +2212,12 @@ def dense_flush_steps(rows, lengths, bk: int):
     return steps.reshape(N * nb, bk).T.contiguous()
 
 
+# B15's segment lengths (steps) swept at 16,384 lanes and at the flushes on
+# the builds of DBT_SWEEP (4,096-step lanes: 128 is the least the kernel
+# takes there, 32 segments).
+DBT_SEGS = (128, 256, 512, 1024)
+DBT_SWEEP = ("decode/dense_base", "decode/dbt_ahead8", "decode/dbt_ahead32",
+             "decode/dbt_lanes16")
 # B3 / B28's segment lengths (words) swept at both geometries; a length
 # whose lanes would need more segments than the build's BT_MAX_SEG (the
 # kernel would lengthen it) is skipped.
@@ -2008,14 +2297,18 @@ def _oh_calls(lib, name, inputs) -> list:
 def run_decode(name, lib, inputs, ref) -> dict:
     """The variant's reduced decode kernels (:func:`_oh_calls`; B3 / B28
     also at each of BT_SEGS for the segmented builds), or its B14 at K = 2
-    and 8 and its B13 at K = 2 and 8 on 16,384 and each of B13_WIDE_NB lanes and at
-    two_state's flushes (B13_FLUSH_T): ms and bit equality with the shipped build's outputs."""
+    and 8, its B13 at K = 2 and 8 on 16,384 and each of B13_WIDE_NB lanes
+    and at two_state's flushes (B13_FLUSH_T), and its B15 at K = 2 and 8 on
+    16,384 lanes and at the flushes (also at each of DBT_SEGS for the
+    builds of DBT_SWEEP): ms and bit equality with the shipped build's
+    outputs."""
     if VARIANTS[name][0] == "viterbi_onehot":
         calls = _oh_calls(lib, name, inputs)
     else:
         calls = []
         b14 = c_fn(lib, "dense_backpointers", 7, 4)
         b13 = c_fn(lib, "dense_products", 4, 4)
+        b15 = c_fn(lib, "dense_backtrace", 3, 4)
         for K in (2, 8):
             steps, v, logAT, logB = inputs[f"dense{K}"]
             bk, nb = steps.shape
@@ -2030,6 +2323,13 @@ def run_decode(name, lib, inputs, ref) -> dict:
             for tag, st in [("", steps)] + wide + flush:
                 calls.append((f"b13_k{K}{tag}", b13, [st, logAT, logB], [bk, st.shape[1], K, S],
                               [torch.empty((K * K, st.shape[1]), device=dev)], ()))
+            for tag in [""] + [f"_flush{T}" for T in B13_FLUSH_T]:
+                bp, exits = inputs[f"bt{K}{tag}"]
+                n = bp.shape[1]
+                calls.append((f"b15_k{K}{tag and '_flush' + str(n)}", b15, [bp, exits],
+                              [bk, n, K, 0],
+                              [torch.empty((bk, n), dtype=torch.int32, device=dev)],
+                              DBT_SEGS if name in DBT_SWEEP else ()))
     checked = "_diag_" not in name
     row = {"variant": name}
     for key, fn, operands, ints, outs, segs in calls:
@@ -2088,7 +2388,8 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if "stats" in groups:
         inputs = stats_inputs(rng, dev)
-        want = {k: FB.oh_seq_stats_plain(*sa) for k, sa in inputs.items()}
+        want = {k: (FB.oh_stats_plain if k.startswith("split") else FB.oh_seq_stats_plain)(*sa)
+                for k, sa in inputs.items()}
         for name, lib in libs.items():
             if name.startswith("stats/"):
                 print(json.dumps(run_stats(name, lib, inputs, want)), flush=True)

@@ -364,9 +364,37 @@ def test_dense_kernels_equal_plain_versions(cuda_device, K, bk, nb):
     got = VP.dense_backpointers(steps, v, logAT, logB)
     want = VP.dense_backpointers_plain(steps, v, logAT, logB)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert torch.equal(VP.dense_backtrace(got[0], exits), VP.dense_backtrace_plain(got[0], exits))
+    assert torch.equal(VP.dense_backtrace(got[0], exits, K),
+                       VP.dense_backtrace_plain(got[0], exits))
     torch.cuda.synchronize()
     assert all(_kernels.launches[k] == before[k] + 1 for k in names)
+
+
+# B15 in segments joined by exact K-state maps: lanes short of a warp, one
+# short of a block of 32, the largest two_state flush's 1,024 and a 64 Mi
+# record's 16,384; the decode block's 4,096 steps and ragged lengths (1,000
+# and 4,097: a 1-step last segment at 128 and 256 steps, and at the kernel's
+# own 128 a lane that needs 33 segments, lengthened to 129); the kernel's own
+# length (seg 0) and 1 (lengthened to ceil(bk / 32)), 3 and 64 steps.
+B15_GEOMETRIES = [(bk, nb) for bk in (4096, 1000, 4097) for nb in (1, 31, 1024, 16384)]
+
+
+@pytest.mark.parametrize("seg", [0, 1, 3, 64])
+@pytest.mark.parametrize("bk,nb", B15_GEOMETRIES)
+@pytest.mark.parametrize("K", [2, 5, 8])
+def test_dense_backtrace_segments_equal_plain(cuda_device, K, bk, nb, seg):
+    """B15 walks each lane in segments joined by exact K-state maps: bit
+    for bit the one walk's plain version, one launch a call."""
+    from cpgisland_tpu_torch.ops import viterbi_pallas as VP
+
+    steps, v, logAT, logB, exits = _dense_operands(np.random.default_rng(K * 5 + bk + nb), K,
+                                                   bk, nb, cuda_device)
+    bp = VP.dense_backpointers(steps, v, logAT, logB)[0]
+    before = _kernels.launches["dense_backtrace"]
+    path = VP.dense_backtrace(bp, exits, K, seg)
+    torch.cuda.synchronize()
+    assert _kernels.launches["dense_backtrace"] == before + 1
+    assert torch.equal(path, VP.dense_backtrace_plain(bp, exits))
 
 
 # B13 one row of the product a thread (K threads a lane, padded to a power of
@@ -1047,12 +1075,98 @@ def test_stats_kernel_within_tolerance(cuda_device, NL, T):
     args = (al, be, prep.pair2, prep.lens2, FB.reduced_emissions(params, gt),
             gt.to(torch.int32).contiguous())
     before = _kernels.launches["oh_stats"]
-    got = FB.oh_stats(*args, prep.Tt)
+    got = FB.oh_stats(*args)
     want = FB.oh_stats_plain(*args)
     torch.cuda.synchronize()
     assert _kernels.launches["oh_stats"] == before + 1
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=1e-5, atol=1e-3)
+
+
+def _split_model_batch(S, NL, T, device):
+    """One reduced model of S symbols (a random partition=2 model at S = 2,
+    the flagship at 4, dinuc_cpg at 16) over a seeded [NL, T] chunk batch
+    (ragged, an empty lane where NL allows, PAD tails; pairs recoded at S =
+    16), and its split arm's streams: (params, prep, gt, alphas, betas)."""
+    from cpgisland_tpu_torch.ops import fb_chunked
+    from cpgisland_tpu_torch.ops import fb_onehot as FB
+    from cpgisland_tpu_torch.ops.prepared import prepare_chunked
+    from cpgisland_tpu_torch.utils.codec import recode_pairs
+
+    rng = np.random.default_rng(S * 101 + NL + T)
+    if S == 2:
+        params = presets.random_hmm(torch.Generator().manual_seed(NL + T), 4, 2, partition=2,
+                                    device=device)
+    else:
+        params = (presets.durbin_cpg8 if S == 4 else presets.dinuc_cpg)(device=device)
+    chunks = rng.integers(0, min(S, 4), size=(NL, T)).astype(np.uint8)
+    if S == 16:
+        chunks = recode_pairs(chunks.ravel()).reshape(NL, T)
+    lengths = np.full(NL, T, np.int32)
+    lengths[-1] = max(1, T // 3)
+    if NL > 2:
+        lengths[1] = 0
+        lengths[2:-1] = rng.integers(1, T + 1, size=NL - 3)
+    chunks[np.arange(T)[None, :] >= lengths[:, None]] = S
+    prep = prepare_chunked(S, torch.from_numpy(chunks).to(device),
+                           torch.from_numpy(lengths).to(device), t_tile=512)
+    gt = OH._groups(params)
+    tab = FB.prob_tab_ext(params, gt)
+    _, a0_raw, beta0, _ = fb_chunked._batch_lane_setup(params, prep)
+    a0 = torch.gather(a0_raw.T, 1, gt[prep.esym2[0].long()]).T.contiguous()
+    b0 = torch.gather(beta0.T, 1, gt[prep.esym2[-1].long()]).T.contiguous()
+    al = FB.oh_fwd(prep.pair2, prep.lens2, a0, tab)
+    be = FB.oh_bwd(prep.pairn2, prep.lens2, FB.cs_next_of(al), b0, tab, T)
+    return params, prep, gt, al, be
+
+
+# B12 in B5's layout: Tp below one 512-step segment, past one and not a
+# multiple of it; NL short of a block's 32 lanes and past one.
+@pytest.mark.parametrize("NL,T", [(33, 300), (33, 4099), (1, 4099), (40, 1100)])
+@pytest.mark.parametrize("S", [2, 4, 16])
+def test_stats_kernel_in_seq_stats_layout(cuda_device, S, NL, T):
+    """B12 through B5's part and reduce kernels (32 lanes x
+    stats_segments_per_block segments a block: 4, or 1 at S = 16): within
+    rtol 1e-5 / atol 1e-3 of its plain version, two launches the same bits
+    (no atomics), one launch a call."""
+    from cpgisland_tpu_torch.ops import fb_onehot as FB
+
+    params, prep, gt, al, be = _split_model_batch(S, NL, T, cuda_device)
+    args = (al, be, prep.pair2, prep.lens2, FB.reduced_emissions(params, gt),
+            gt.to(torch.int32).contiguous())
+    before = _kernels.launches["oh_stats"]
+    got, again = FB.oh_stats(*args), FB.oh_stats(*args)
+    torch.cuda.synchronize()
+    assert _kernels.launches["oh_stats"] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for g, w in zip(got, FB.oh_stats_plain(*args)):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=1e-5, atol=1e-3)
+
+
+def test_split_stacked_member_equals_single_launch(cuda_device):
+    """``batch_stats_stacked(fused=False)`` (B22, B23, then B12 per member)
+    gives every member the stats of its own split-arm ``batch_stats`` on
+    the card bit for bit: both run B12 on the same streams."""
+    from cpgisland_tpu_torch.ops import fb_chunked
+
+    M, NL, T = 3, 33, 4099
+    rng = np.random.default_rng(5)
+    gen = torch.Generator().manual_seed(5)
+    members = [presets.durbin_cpg8(device=cuda_device)] + [
+        presets.random_hmm(gen, 8, 4, partition=2, device=cuda_device) for _ in range(M - 1)]
+    chunks = rng.integers(0, 4, size=(NL, T)).astype(np.uint8)
+    lengths = rng.integers(0, T + 1, size=NL).astype(np.int32)
+    chunks[np.arange(T)[None, :] >= lengths[:, None]] = 4
+    chunks = torch.from_numpy(chunks).to(cuda_device)
+    lengths = torch.from_numpy(lengths).to(cuda_device)
+    before = _kernels.launches["oh_stats"]
+    stacked = fb_chunked.batch_stats_stacked(members, chunks, lengths, fused=False)
+    torch.cuda.synchronize()
+    assert _kernels.launches["oh_stats"] == before + M
+    for p, got in zip(members, stacked):
+        own = fb_chunked.batch_stats(p, chunks, lengths, fused=False)
+        for f in ("init", "trans", "emit", "loglik", "n_seqs"):
+            assert torch.equal(getattr(got, f), getattr(own, f)), f
 
 
 @_STACK_GRID

@@ -294,9 +294,7 @@ def test_split_wrappers_refuse_bad_operands(rng):
         lambda p: (p.log_pi, p.log_A, p.log_B))(JP.durbin_cpg8())))).to(torch.int32)
     bred = torch.ones(4, 2)
     with pytest.raises(ValueError):
-        TFB.oh_stats(al, be, tprep.pair2, tprep.lens2, bred, gt.long(), 512)
-    with pytest.raises(ValueError):
-        TFB.oh_stats(al, be, tprep.pair2, tprep.lens2, bred, gt, 0)
+        TFB.oh_stats(al, be, tprep.pair2, tprep.lens2, bred, gt.long())
     _, tabs = TFB.stacked_tables(_both(4, 2)[1])
     with pytest.raises(ValueError):
         TFB.oh_fwd_stacked(tprep.pair2, tprep.lens2, a0, tabs)  # [2, NL], not [M, 2, NL]

@@ -103,7 +103,9 @@ def test_passes_match_jax_bitwise(model, bk, nb):
             assert _eq(jbps, blob)
         else:
             # The packed word holds the JAX twin's K pointers, 3 bits each.
-            unpacked = (blob[:, :, None] >> (3 * torch.arange(K))) & 7
+            bp, blob_k = blob
+            assert blob_k == K
+            unpacked = (bp[:, :, None] >> (3 * torch.arange(K))) & 7
             assert _eq(np.asarray(jbps).astype(np.int32), unpacked)
         assert _eq(jpath, backtrace(blob, torch.from_numpy(exits))), engine
 
@@ -222,7 +224,10 @@ def test_wrappers_check_operands():
     with pytest.raises(ValueError):
         TVPL.dense_backpointers(steps, torch.zeros((3, 2)), logAT, logB)
     with pytest.raises(ValueError):
-        TVPL.dense_backtrace(steps, torch.zeros(2, dtype=torch.int32))
+        TVPL.dense_backtrace(steps, torch.zeros(2, dtype=torch.int32), 2)
+    for K, seg in ((0, 0), (9, 0), (2, -1)):
+        with pytest.raises(ValueError):
+            TVPL.dense_backtrace(steps, torch.zeros(3, dtype=torch.int32), K, seg)
 
 
 def _dense_params(rng):
