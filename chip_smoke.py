@@ -222,11 +222,13 @@ JSON line each:
    member's own flat decode);
 36. the pair-composition bench's kernels at its geometry (64 Mi symbols
    as 1024 full lanes of 65,536): T2-T4 (``oh_fwd_strm``, ``oh_fwd_comp``,
-   ``oh_fwd_compsel``) bit-equal to their plain versions, T2 to B9 in one
-   sub-lane and T4 to T3, all four of T1-T4 within the bench's gate (1e-4)
-   of the single-step plain reference (the sequential chain), each kernel
-   timed beside its bound and
-   the whole variant (streams built) beside it; then the bench itself,
+   ``oh_fwd_compsel``) bit-equal to their plain versions, T2 and T3 in B9's
+   16 sub-lanes, T2 to B9 at B9's G; T2's and T3's one-chain kernels (G =
+   1) bit-equal to their plain versions, T2's to B9 in one sub-lane and T4
+   to T3's; all four of T1-T4 within the bench's gate (1e-4) of the
+   single-step plain reference (the sequential chain), each kernel timed
+   beside its bound, T2 and T3 beside their G = 1 kernels, and the whole
+   variant (streams built) beside it; then the bench itself,
    ``tools/bench_compose.main(["--mib", "64"])``: its JSON line, and the
    launch counters moved by exactly the calls it reports.
 
@@ -315,7 +317,8 @@ REDESIGNED = ("oh_fwdbwd_kernel", "oh_fwdbwd_stacked_kernel", "fb_prod_kernel",
               "oh_fwd_kernel", "oh_fwd_sub_kernel", "oh_bwd_kernel", "oh_bwd_sub_kernel",
               "oh_backpointers_kernel", "dense_backpointers_kernel", "oh_products_kernel",
               "oh_products_lane_kernel", "oh_backtrace_kernel", "dense_products_kernel",
-              "fb_bwd_sub_conf_kernel", "fb_bwd_split_conf_kernel", "dense_backtrace_kernel")
+              "fb_bwd_sub_conf_kernel", "fb_bwd_split_conf_kernel", "dense_backtrace_kernel",
+              "oh_fwd_strm_kernel", "oh_fwd_comp_kernel", "oh_fwd_comp_sub_kernel")
 H100_SMS, SMEM_PER_SM, SMEM_PER_BLOCK_RESERVED = 132, 228 * 1024, 1024
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -4007,25 +4010,25 @@ COMPOSE_MIB, COMPOSE_LANE_T = 64, 65536  # the bench's defaults: 1024 full lanes
 
 
 def compose_phase(dev) -> tuple:
-    """T2-T4 at the bench's geometry, on its inputs: bit-equal to their
-    plain versions, T2 to B9 in one sub-lane (the chain they share) and T4
-    to T3, T1-T4 within the bench's gate of the single-step plain reference
-    (the sequential chain, B9's plain version in one sub-lane, as the bench
-    gates); each kernel timed beside its bound,
-    the whole variant (its streams built) beside it.  Then the bench's own
-    entry point.  Returns (the table rows of T2-T4, the bench's launches)."""
+    """T2-T4 at the bench's geometry, on its inputs.  T2 and T3 run in B9's
+    G = ``fb_onehot.sublanes(Tp)`` sub-lanes (16 here): bit for bit their
+    plain versions, T2 to B9 at B9's G (the body they share).  In one
+    sub-lane (``sublane_length(Tp)``, the parent layout) T2's kernel equals
+    B9's and the sequential chain (B9's plain version in one sub-lane, which
+    T2's plain version equals op for op), T3's its one-chain plain version,
+    and T4 equals T3.  T1-T4 within the bench's gate of that sequential
+    chain; each kernel timed beside its bound, T2 and T3 beside their G = 1
+    kernels, the whole variant (its streams built) beside each.  Then the
+    bench's own entry point.  Returns (the table rows of T2-T4, the bench's
+    launches)."""
     tab, tab_ext = BC.pair_tables(dev)
     pair2, lens2, a0 = BC.inputs(COMPOSE_MIB << 20, COMPOSE_LANE_T, dev)
     Tp, NL = pair2.shape
     n = Tp * NL
+    G = FB.sublanes(Tp)
     fns = BC.variants(tab, tab_ext, lens2, a0)
     operands = {name: build(pair2) for name, (build, _) in fns.items()}
     got = {name: launch(operands[name]) for name, (_, launch) in fns.items()}
-    # T2 shares B9's one chain: B9 in one sub-lane (its sub-lanes round
-    # apart), whose plain version is the sequential chain the gate takes.
-    with sublane_length(Tp):
-        b9_g1 = FB.oh_fwd(pair2, lens2, a0, tab_ext)
-        ref = FB.oh_fwd_plain(pair2, lens2, a0, tab_ext)
     mats, comp = operands["single-strm"], operands["composed"]
     idx, *tables = operands["composed-sel"]
     plains = {
@@ -4034,11 +4037,25 @@ def compose_phase(dev) -> tuple:
         "composed": timed_once(lambda: FC.oh_fwd_comp_plain(comp, lens2, a0)),
         "composed-sel": timed_once(lambda: FC.oh_fwd_compsel_plain(idx, lens2, a0, *tables)),
     }
-    relations = {"t2_equals_b9": torch.equal(got["single-strm"], b9_g1),
-                 "t4_equals_t3": torch.equal(got["composed-sel"], got["composed"]),
-                 "t2_plain_equals_b9_plain": torch.equal(plains["single-strm"][0], ref)}
+    # One sub-lane: the parent layout of T2 and T3 (their one-chain kernels)
+    # and B9's; B9's plain version there is the sequential chain the gate takes.
+    with sublane_length(Tp):
+        b9_g1 = FB.oh_fwd(pair2, lens2, a0, tab_ext)
+        ref, ref_ms = timed_once(lambda: FB.oh_fwd_plain(pair2, lens2, a0, tab_ext))
+        g1 = {"single-strm": FC.oh_fwd_strm(mats, lens2, a0),
+              "composed": FC.oh_fwd_comp(comp, lens2, a0)}
+        g1_plain = {"single-strm": (ref, ref_ms),
+                    "composed": timed_once(lambda: FC._comp_chain_plain(comp, lens2, a0))}
+        g1_ms = {"single-strm": time_ms(lambda: FC.oh_fwd_strm(mats, lens2, a0), runs=10),
+                 "composed": time_ms(lambda: FC.oh_fwd_comp(comp, lens2, a0), runs=10)}
+    relations = {"sublanes": G,
+                 "t2_equals_b9": torch.equal(got["single-strm"], got["single"]),
+                 "t2_plain_equals_b9_plain": torch.equal(plains["single-strm"][0],
+                                                         plains["single"][0]),
+                 "t2_g1_equals_b9_g1": torch.equal(g1["single-strm"], b9_g1),
+                 "t4_equals_t3_g1": torch.equal(got["composed-sel"], g1["composed"])}
     del b9_g1
-    rows, failed = {}, [k for k, ok in relations.items() if not ok]
+    rows, failed = {}, [k for k, ok in relations.items() if ok is False]
     for name, (build, launch) in fns.items():
         kernel = BC.KERNEL_OF[name]
         want, plain_ms = plains[name]
@@ -4047,17 +4064,25 @@ def compose_phase(dev) -> tuple:
         n_bytes, n_ops = BC.traffic(name, Tp, NL)
         ops = operands[name]
         variant_ms = time_ms(lambda: launch(build(pair2)), runs=10)
+        extra = relations if name == "single" else {}
+        if name in g1:
+            g1_equal = torch.equal(g1[name], g1_plain[name][0])
+            extra = {"sublanes": G, "g1_ms": g1_ms[name], "g1_bit_equal": g1_equal,
+                     "g1_plain_ms": g1_plain[name][1],
+                     "g1_gate_err": BC.gate_err(g1[name], ref)}
+            if not g1_equal:
+                failed.append(f"{kernel} at G = 1")
         row = kernel_row(kernel, equal, max_abs_err(got[name], want), lambda: launch(ops),
                          plain_ms, n_bytes, n_ops, n, bit_equal=equal, variant=name,
                          geometry=f"bench, {NL} x {Tp}", gate_err=gate, variant_ms=variant_ms,
-                         **(relations if name == "single" else {}))
+                         **extra)
         if name != "single":
             rows[kernel] = row
         if not equal or not gate < BC.GATE_TOL:
             failed.append(f"{kernel} (bit_equal {equal}, gate {gate:.2e})")
     if failed:
         raise SystemExit(f"chip_smoke: the compose variants fail: {failed}")
-    del operands, got, ref, plains, mats, comp, idx, tables
+    del operands, got, ref, plains, g1, g1_plain, mats, comp, idx, tables
     torch.cuda.empty_cache()
 
     # The bench's own entry point, its launches counted from 0.

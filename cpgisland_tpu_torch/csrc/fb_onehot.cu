@@ -188,26 +188,31 @@
 // benchmark-only kernels of tools/bench_compose.py (T1 is B9 itself).
 // Bounds at the benchmark's geometry, 64 Mi symbols as 1024 lanes of
 // 65,536 steps, alphas written once at 8 B a symbol (3.35 TB/s):
-// T2 oh_fwd_strm_kernel replaces ::_fwd_strm_kernel: B9's chain with the
-// four entries of each step's matrix streamed from device memory in place
-// of B9's pair load and shared-table lookup; 16 + 8 B a symbol, 1.61 GB,
-// 0.481 ms.  It runs B9's step body (fwd_step) in one chain, so its alphas
-// equal B9's in one sub-lane bit for bit.  T3 oh_fwd_comp_kernel replaces
-// ::_fwd_comp_kernel: the double-step chain over ten streams (T2 = T_even
-// . T_odd, R = the row sums of T_even, T_even), alpha_{2h+1} = (v . T2) /
-// (v . R) carried while
-// alpha_{2h} = (v . T_even) / (v0 + v1) hangs off the chain; 20 + 8 B a
-// symbol, 1.88 GB, 0.561 ms.  T4 oh_fwd_compsel_kernel replaces
-// ::_fwd_compsel_kernel: T3's chain with the composed rows looked up from
-// three tables (at S = 4: 96 x 4, 17 x 2 and 17 x 4 floats) in shared
-// memory, keyed by two int32 index streams; 4 + 8 B a symbol, 0.81 GB,
-// 0.240 ms.  Its tables hold T3's stream values bit for bit (the plain
-// side builds them with T3's formula), so its alphas equal T3's.  All
-// three are serial chains, one thread a lane (32 to a block) like B9 at G =
-// 1; the streams are read a group of steps ahead so a step waits on the
-// chain alone.  A double step's chain (v . R -> 1 / den beside v . T2, then one
-// multiply) is no deeper than B9's single step, so T3 and T4 carry one
-// dependent step per two symbols.
+// T2 oh_fwd_strm replaces ::_fwd_strm_kernel: B9's chain with the four
+// entries of each step's matrix streamed from device memory in place of
+// B9's pair load and shared-table lookup; 16 + 8 B a symbol, 1.61 GB, 0.481
+// ms.  It runs B9's own sub-lane kernel (oh_fwd_sub_kernel<PHASE, true>:
+// the step source a template flag of sub_prod and fwd_range) at B9's G, so
+// its alphas equal B9's bit for bit at every G; at G = 1 oh_fwd_strm_kernel,
+// B9's one chain over the streams.  T3 oh_fwd_comp replaces
+// ::_fwd_comp_kernel: the double-step chain over ten streams (T2 = T_even .
+// T_odd, R = the row sums of T_even, T_even), alpha_{2h+1} = (v . T2) / (v .
+// R) carried while alpha_{2h} = (v . T_even) / (v0 + v1) hangs off the
+// chain; 20 + 8 B a symbol, 1.88 GB, 0.561 ms.  It runs in B9's G sub-lanes
+// of whole double steps, B9's three launches (oh_fwd_comp_sub_kernel; the
+// chain is degree 0 in v, so a sub-lane's message is a direction), its
+// alphas the one chain's in exact arithmetic; at G = 1 oh_fwd_comp_kernel,
+// one chain.  T4 oh_fwd_compsel_kernel replaces ::_fwd_compsel_kernel: T3's
+// one chain with the composed rows looked up from three tables (at S = 4:
+// 96 x 4, 17 x 2 and 17 x 4 floats) in shared memory, keyed by two int32
+// index streams; 4 + 8 B a symbol, 0.81 GB, 0.240 ms.  Its tables hold T3's
+// stream values bit for bit (the plain side builds them with T3's
+// formula), so its alphas equal T3's at G = 1.  The one-chain kernels run
+// one thread a lane (32 to a block) like B9 at G = 1; the streams are read a
+// group of steps ahead so a step waits on the chain alone.  A double step's
+// chain (v . R -> 1 / den beside v . T2, then one multiply) is no deeper
+// than B9's single step, so T3 and T4 carry one dependent step per two
+// symbols.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -241,30 +246,81 @@ __device__ __forceinline__ void fwd_step(float& v0, float& v1, float m0, float m
   }
 }
 
+// T2's step source and T3's streams: float streams read STRM_AHEAD rows
+// ahead of the chain (a row holds 4 or 10 floats, a pair one int).
+#define STRM_AHEAD 8
+
+// f[r][k] = stream k of the lane at row first + r (streams ``plane`` floats
+// apart, rows ``nl`` apart); 0 past the last row, which is never read.
+template <int NS>
+__device__ __forceinline__ void load_rows(const float* p, size_t plane, size_t nl, int first,
+                                          int rows, float (&f)[STRM_AHEAD][NS]) {
+#pragma unroll
+  for (int r = 0; r < STRM_AHEAD; ++r) {
+    const int t = first + r;
+#pragma unroll
+    for (int k = 0; k < NS; ++k)
+      f[r][k] = t < rows ? __ldg(p + k * plane + (size_t)t * nl) : 0.0f;
+  }
+}
+
+// The step source of four streamed planes (onehot_steps.cuh's PairSteps has
+// the interface): entry k of row t at p[k * plane + t * nl], every step
+// real.  T2's matrices ([4, Tp, NL]) and T3's composed T2 rows (rows 0-3 of
+// [10, H, NL], a row a double step).
+struct StreamSteps {
+  static constexpr int AHEAD = STRM_AHEAD;
+  struct Group {
+    float f[AHEAD][4];
+  };
+  const float* p;
+  size_t plane, nl;
+  int rows;
+  __device__ __forceinline__ void load(int first, Group& g) const {
+    load_rows<4>(p, plane, nl, first, rows, g.f);
+  }
+  __device__ __forceinline__ void mat(const Group& g, int r, float (&m)[4]) const {
+    m[0] = g.f[r][0];
+    m[1] = g.f[r][1];
+    m[2] = g.f[r][2];
+    m[3] = g.f[r][3];
+  }
+  __device__ __forceinline__ bool real(const Group&, int) const { return true; }
+};
+
 // B4's forward chain over steps [tb, te) of a lane, from (v0, v1), the vector
 // entering step tb (at tb == 0 the entering vector e itself); leaves the
-// alpha of step te - 1 in (v0, v1).  ``p`` and ``out`` point at the lane's
+// alpha of step te - 1 in (v0, v1).  ``src`` reads the lane's steps (B4 and
+// B9 a pair stream, T2 its streamed matrices); ``out`` points at the lane's
 // column.
-__device__ __forceinline__ void fwd_range(const int32_t* p, const float* s_tab, float& v0,
-                                          float& v1, float e0, float e1, float* out, int len,
-                                          int tb, int te, int Tp, size_t nl, int nreal) {
-  int q[LOOKAHEAD], qn[LOOKAHEAD];
-  load_group(p, nl, tb, 1, Tp, nreal, q);
-  for (int t0 = tb; t0 < te; t0 += LOOKAHEAD) {
-    load_group(p, nl, t0 + LOOKAHEAD, 1, Tp, nreal, qn);
+template <class Src>
+__device__ __forceinline__ void fwd_range(const Src& src, float& v0, float& v1, float e0,
+                                          float e1, float* out, int len, int tb, int te,
+                                          size_t nl) {
+  typename Src::Group q, qn;
+  src.load(tb, q);
+  for (int t0 = tb; t0 < te; t0 += Src::AHEAD) {
+    src.load(t0 + Src::AHEAD, qn);
 #pragma unroll
-    for (int r = 0; r < LOOKAHEAD; ++r) {
+    for (int r = 0; r < Src::AHEAD; ++r) {
       const int t = t0 + r;
       if (t < te) {
-        const float* m = s_tab + 4 * q[r];
+        float m[4];
+        src.mat(q, r, m);
         fwd_step(v0, v1, m[0], m[1], m[2], m[3], t, len, e0, e1);
         out[(size_t)(2 * t) * nl] = v0;
         out[(size_t)(2 * t + 1) * nl] = v1;
       }
     }
-#pragma unroll
-    for (int r = 0; r < LOOKAHEAD; ++r) q[r] = qn[r];
+    q = qn;
   }
+}
+
+// fwd_range over a lane's pair stream ``p`` and the table ``s_tab``.
+__device__ __forceinline__ void fwd_range(const int32_t* p, const float* s_tab, float& v0,
+                                          float& v1, float e0, float e1, float* out, int len,
+                                          int tb, int te, int Tp, size_t nl, int nreal) {
+  fwd_range(PairSteps{p, s_tab, nl, Tp, nreal}, v0, v1, e0, e1, out, len, tb, te, nl);
 }
 
 // The whole lane's forward chain (B9, B22, and B4 with one sub-lane).
@@ -727,10 +783,10 @@ oh_bwd_kernel(const int32_t* __restrict__ pairn, const int32_t* __restrict__ pai
 }
 
 // ---------------------------------------------------------------------------
-// B9 / B22 in sub-lanes, the grid layout: one thread per (lane, sub-lane g =
-// blockIdx.y, member m = blockIdx.z), 32 lanes a block, three launches.
-// With last = max(min(len, Tp), 1) - 1 the last valid step and gl = last / L
-// its sub-lane:
+// B9 / B22 in sub-lanes, and T2 in B9's, the grid layout: one thread per
+// (lane, sub-lane g = blockIdx.y, member m = blockIdx.z), 32 lanes a block,
+// three launches.  With last = max(min(len, Tp), 1) - 1 the last valid step
+// and gl = last / L its sub-lane:
 // PHASE 0: each sub-lane g < gl forms B4's product of its valid steps
 //    (sub_prod) into the scratch [M, G, 4, NL]; the products of sub-lanes gl
 //    and up are never read, so they are not formed;
@@ -742,14 +798,28 @@ oh_bwd_kernel(const int32_t* __restrict__ pairn, const int32_t* __restrict__ pai
 //    the sub-lane's end;
 // PHASE 2: each sub-lane g > gl stores the alpha of step last, read back
 //    from the alphas, at every step (B4 hands it over in shared memory).
-template <int PHASE>
+// The steps come from the pair stream and the member's table (B9, B22) or,
+// with STRM, from T2's streamed matrices ``mats`` [4, Tp, NL] (M = 1): the
+// same operations in the same order, so T2's alphas equal B9's at every G.
+template <bool STRM>
+__device__ __forceinline__ auto lane_steps(const int32_t* pair, const float* s_tab,
+                                           const float* mats, int n, size_t nl, int Tp,
+                                           int nreal) {
+  if constexpr (STRM)
+    return StreamSteps{mats + n, (size_t)Tp * nl, nl, Tp};
+  else
+    return PairSteps{pair + n, s_tab, nl, Tp, nreal};
+}
+
+template <int PHASE, bool STRM>
 __global__ void __launch_bounds__(FB_THREADS)
-oh_fwd_sub_kernel(const int32_t* __restrict__ pair, const int32_t* __restrict__ lens,
-                  const float* __restrict__ a0, const float* __restrict__ tab, float* alphas,
-                  float* pbuf, int Tp, int NL, int nreal, int G, int L) {
-  __shared__ float s_tab[MAX_TAB];
+oh_fwd_sub_kernel(const int32_t* __restrict__ pair, const float* __restrict__ mats,
+                  const int32_t* __restrict__ lens, const float* __restrict__ a0,
+                  const float* __restrict__ tab, float* alphas, float* pbuf, int Tp, int NL,
+                  int nreal, int G, int L) {
+  __shared__ float s_tab[STRM ? 1 : MAX_TAB];
   const int m = blockIdx.z;
-  if (PHASE < 2) load_table(s_tab, tab + (size_t)m * (nreal + 1) * 4, nreal);
+  if (!STRM && PHASE < 2) load_table(s_tab, tab + (size_t)m * (nreal + 1) * 4, nreal);
   const int g = blockIdx.y;
   const int n = blockIdx.x * FB_THREADS + threadIdx.x;
   if (n >= NL) return;
@@ -763,7 +833,7 @@ oh_fwd_sub_kernel(const int32_t* __restrict__ pair, const int32_t* __restrict__ 
   if (PHASE == 0) {
     if (g < gl) {
       float P[4];
-      sub_prod(pair + n, s_tab, tb, te, 1, len, Tp, nl, nreal, P);
+      sub_prod(lane_steps<STRM>(pair, s_tab, mats, n, nl, Tp, nreal), tb, te, 1, len, P);
       for (int c = 0; c < 4; ++c) pb[(size_t)(4 * g + c) * nl] = P[c];
     }
   } else if (PHASE == 1) {
@@ -777,7 +847,8 @@ oh_fwd_sub_kernel(const int32_t* __restrict__ pair, const int32_t* __restrict__ 
         const float P[4] = {Ph[0], Ph[nl], Ph[2 * nl], Ph[3 * nl]};
         sub_message<true>(v0, v1, P);
       }
-      fwd_range(pair + n, s_tab, v0, v1, e0, e1, al, len, tb, te, Tp, nl, nreal);
+      fwd_range(lane_steps<STRM>(pair, s_tab, mats, n, nl, Tp, nreal), v0, v1, e0, e1,
+                al, len, tb, te, nl);
     }
   } else if (g > gl) {
     const float v0 = al[(size_t)(2 * last) * nl], v1 = al[(size_t)(2 * last + 1) * nl];
@@ -1375,28 +1446,16 @@ static int launch_seq_stats(bool cs, const void* alphas, const void* betas, cons
 
 // ---------------------------------------------------------------------------
 // T2-T4: the pair-composition variants of the forward chain (the
-// benchmark-only kernels of tools/bench_compose.py; B9 is T1).  One thread
-// a lane, 32 to a block, as B9; every operand off the chain read a group of
-// steps ahead; round-to-nearest intrinsics in the plain versions' order.
+// benchmark-only kernels of tools/bench_compose.py; B9 is T1).  T2 and T3 run
+// in B9's sub-lanes (G = fb_onehot.sublanes(Tp)), T2 through B9's own
+// oh_fwd_sub_kernel, T3 through oh_fwd_comp_sub_kernel; at G = 1, and T4
+// always, one thread a lane, 32 to a block; every operand off the chain read a
+// group of steps ahead; round-to-nearest intrinsics in the plain versions'
+// order.
 
-#define STRM_AHEAD 8
 #define COMP_MAX_S 8
 #define COMP_MAX_TRIP (COMP_MAX_S * COMP_MAX_S * (COMP_MAX_S + 2))
 #define COMP_MAX_PE (COMP_MAX_S * COMP_MAX_S + 1)
-
-// f[r][k] = stream k of the lane at row first + r (streams ``plane`` floats
-// apart, rows ``nl`` apart); 0 past the last row, which is never read.
-template <int NS>
-__device__ __forceinline__ void load_rows(const float* p, size_t plane, size_t nl, int first,
-                                          int rows, float (&f)[STRM_AHEAD][NS]) {
-#pragma unroll
-  for (int r = 0; r < STRM_AHEAD; ++r) {
-    const int t = first + r;
-#pragma unroll
-    for (int k = 0; k < NS; ++k)
-      f[r][k] = t < rows ? __ldg(p + k * plane + (size_t)t * nl) : 0.0f;
-  }
-}
 
 // One double step (t = 2h) of T3 and T4 over c = T2 (00, 01, 10, 11), R (0,
 // 1), T_even (00, 01, 10, 11): the intermediate i (alpha_t, off the chain)
@@ -1429,56 +1488,23 @@ __device__ __forceinline__ void comp_step(float& v0, float& v1, float& i0, float
   }
 }
 
-// T2: mats [4, Tp, NL], the four entries of each step's matrix.
-__global__ void __launch_bounds__(FB_THREADS)
-oh_fwd_strm_kernel(const float* __restrict__ mats, const int32_t* __restrict__ lens,
-                   const float* __restrict__ a0, float* __restrict__ alphas, int Tp, int NL) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= NL) return;
-  const size_t nl = (size_t)NL, plane = (size_t)Tp * nl;
-  const float e0 = a0[n], e1 = a0[nl + n];
-  const int len = lens[n];
-  float* out = alphas + n;
-  float v0 = e0, v1 = e1;
-  float f[STRM_AHEAD][4], fn[STRM_AHEAD][4];
-  load_rows<4>(mats + n, plane, nl, 0, Tp, f);
-  for (int t0 = 0; t0 < Tp; t0 += STRM_AHEAD) {
-    load_rows<4>(mats + n, plane, nl, t0 + STRM_AHEAD, Tp, fn);
-#pragma unroll
-    for (int r = 0; r < STRM_AHEAD; ++r) {
-      const int t = t0 + r;
-      if (t < Tp) {
-        fwd_step(v0, v1, f[r][0], f[r][1], f[r][2], f[r][3], t, len, e0, e1);
-        out[(size_t)(2 * t) * nl] = v0;
-        out[(size_t)(2 * t + 1) * nl] = v1;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < STRM_AHEAD; ++r)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) f[r][k] = fn[r][k];
-  }
-}
-
-// T3: comp [10, H, NL], the composed streams of each double step.
-__global__ void __launch_bounds__(FB_THREADS)
-oh_fwd_comp_kernel(const float* __restrict__ comp, const int32_t* __restrict__ lens,
-                   const float* __restrict__ a0, float* __restrict__ alphas, int H, int NL) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= NL) return;
-  const size_t nl = (size_t)NL, plane = (size_t)H * nl;
-  const float e0 = a0[n], e1 = a0[nl + n];
-  const int len = lens[n];
-  float* out = alphas + n;
-  float v0 = e0, v1 = e1, i0, i1;
+// T3's double-step chain over double steps [hb, he) of a lane, from (v0,
+// v1), the vector entering double step hb (at hb == 0 the entering vector e
+// itself); comp_step at each, alpha_2h and alpha_2h+1 stored.  The ten rows
+// of ``c`` (the lane's column of comp [10, H, NL]) are read STRM_AHEAD
+// double steps ahead, no further than he.
+__device__ __forceinline__ void comp_range(const float* c, size_t plane, size_t nl, float& v0,
+                                           float& v1, float e0, float e1, float* out, int len,
+                                           int hb, int he) {
+  float i0, i1;
   float f[STRM_AHEAD][10], fn[STRM_AHEAD][10];
-  load_rows<10>(comp + n, plane, nl, 0, H, f);
-  for (int h0 = 0; h0 < H; h0 += STRM_AHEAD) {
-    load_rows<10>(comp + n, plane, nl, h0 + STRM_AHEAD, H, fn);
+  load_rows<10>(c, plane, nl, hb, he, f);
+  for (int h0 = hb; h0 < he; h0 += STRM_AHEAD) {
+    load_rows<10>(c, plane, nl, h0 + STRM_AHEAD, he, fn);
 #pragma unroll
     for (int r = 0; r < STRM_AHEAD; ++r) {
       const int t = 2 * (h0 + r);
-      if (h0 + r < H) {
+      if (h0 + r < he) {
         comp_step(v0, v1, i0, i1, f[r], t, len, e0, e1);
         out[(size_t)(2 * t) * nl] = i0;
         out[(size_t)(2 * t + 1) * nl] = i1;
@@ -1490,6 +1516,93 @@ oh_fwd_comp_kernel(const float* __restrict__ comp, const int32_t* __restrict__ l
     for (int r = 0; r < STRM_AHEAD; ++r)
 #pragma unroll
       for (int k = 0; k < 10; ++k) f[r][k] = fn[r][k];
+  }
+}
+
+// T2 at G = 1: mats [4, Tp, NL], the four entries of each step's matrix, in
+// one chain (B9's oh_fwd_kernel with the streamed step source).
+__global__ void __launch_bounds__(FB_THREADS)
+oh_fwd_strm_kernel(const float* __restrict__ mats, const int32_t* __restrict__ lens,
+                   const float* __restrict__ a0, float* __restrict__ alphas, int Tp, int NL) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= NL) return;
+  const size_t nl = (size_t)NL;
+  const float e0 = a0[n], e1 = a0[nl + n];
+  float v0 = e0, v1 = e1;
+  fwd_range(StreamSteps{mats + n, (size_t)Tp * nl, nl, Tp}, v0, v1, e0, e1, alphas + n, lens[n],
+            0, Tp, nl);
+}
+
+// T3 at G = 1: comp [10, H, NL], the composed streams of each double step,
+// in one chain.
+__global__ void __launch_bounds__(FB_THREADS)
+oh_fwd_comp_kernel(const float* __restrict__ comp, const int32_t* __restrict__ lens,
+                   const float* __restrict__ a0, float* __restrict__ alphas, int H, int NL) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= NL) return;
+  const size_t nl = (size_t)NL;
+  const float e0 = a0[n], e1 = a0[nl + n];
+  float v0 = e0, v1 = e1;
+  comp_range(comp + n, (size_t)H * nl, nl, v0, v1, e0, e1, alphas + n, lens[n], 0, H);
+}
+
+// T3 in B9's sub-lanes: one thread per (lane, sub-lane g = blockIdx.y), 32
+// lanes a block, three launches; sub-lane g covers double steps [g Lh,
+// min((g + 1) Lh, H)), so every boundary falls between double steps.  With
+// last = max(min(len, Tp), 1) - 1 the last valid step and gl = (last / 2) /
+// Lh its sub-lane:
+// PHASE 0: each sub-lane g < gl forms the product of its composed matrices
+//    T2_h (rows 0-3 of comp) from the identity, scaled after every 8th
+//    double step (sub_prod over StreamSteps) into pbuf [G, 4, NL].  Every
+//    double step below gl is valid in both halves; double step 0's even half
+//    is the identity in the streams, so T2_0 = T_1 and step 0 applies
+//    nothing, as in B9;
+// PHASE 1: each thread g <= gl forms the direction entering its sub-lane
+//    from a0 and P_0 .. P_{g-1} (sub_message<true>, in order; each has a
+//    valid double step), then comp_range over its double steps: the chain
+//    is degree 0 in v (i = (v . T_even) / (v0 + v1), n = (v . T2) / (v .
+//    R)), so a direction is all a message needs; in sub-lane gl comp_step's
+//    own masks carry the alpha of step last to the sub-lane's end;
+// PHASE 2: each sub-lane g > gl stores the alpha of step last at every step.
+template <int PHASE>
+__global__ void __launch_bounds__(FB_THREADS)
+oh_fwd_comp_sub_kernel(const float* __restrict__ comp, const int32_t* __restrict__ lens,
+                       const float* __restrict__ a0, float* alphas, float* pbuf, int H, int NL,
+                       int G, int Lh) {
+  const int g = blockIdx.y;
+  const int n = blockIdx.x * FB_THREADS + threadIdx.x;
+  if (n >= NL) return;
+  const size_t nl = (size_t)NL, plane = (size_t)H * nl;
+  const int Tp = 2 * H;
+  const int len = lens[n];
+  const int last = max(min(len, Tp), 1) - 1;
+  const int gl = (last / 2) / Lh;
+  const int hb = min(g * Lh, H), he = min(hb + Lh, H);
+  float* al = alphas + n;
+  float* pb = pbuf + n;  // [G, 4, NL], lane n
+  if (PHASE == 0) {
+    if (g < gl) {
+      float P[4];
+      sub_prod(StreamSteps{comp + n, plane, nl, H}, hb, he, 0, H, P);
+      for (int c = 0; c < 4; ++c) pb[(size_t)(4 * g + c) * nl] = P[c];
+    }
+  } else if (PHASE == 1) {
+    if (g <= gl) {
+      const float e0 = a0[n], e1 = a0[nl + n];
+      float v0 = e0, v1 = e1;
+      for (int h = 0; h < g; ++h) {
+        const float* Ph = pb + (size_t)(4 * h) * nl;
+        const float P[4] = {Ph[0], Ph[nl], Ph[2 * nl], Ph[3 * nl]};
+        sub_message<true>(v0, v1, P);
+      }
+      comp_range(comp + n, plane, nl, v0, v1, e0, e1, al, len, hb, he);
+    }
+  } else if (g > gl) {
+    const float v0 = al[(size_t)(2 * last) * nl], v1 = al[(size_t)(2 * last + 1) * nl];
+    for (int t = 2 * hb; t < 2 * he; ++t) {
+      al[(size_t)(2 * t) * nl] = v0;
+      al[(size_t)(2 * t + 1) * nl] = v1;
+    }
   }
 }
 
@@ -1570,16 +1683,16 @@ static int launch_fwd(const void* pair, const void* lens, const void* a0, const 
   }
   const int L = (Tp + G - 1) / G;
   const dim3 grid(blocks, (unsigned)G, (unsigned)M);
-#define FWD_SUB_ARGS                                                                \
-  (const int32_t*)pair, (const int32_t*)lens, (const float*)a0, (const float*)tab, \
+#define FWD_SUB_ARGS                                                                       \
+  (const int32_t*)pair, nullptr, (const int32_t*)lens, (const float*)a0, (const float*)tab, \
       (float*)alphas, (float*)pbuf, Tp, NL, nreal, G, L
-  oh_fwd_sub_kernel<0><<<grid, FB_THREADS, 0, st>>>(FWD_SUB_ARGS);
+  oh_fwd_sub_kernel<0, false><<<grid, FB_THREADS, 0, st>>>(FWD_SUB_ARGS);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  oh_fwd_sub_kernel<1><<<grid, FB_THREADS, 0, st>>>(FWD_SUB_ARGS);
+  oh_fwd_sub_kernel<1, false><<<grid, FB_THREADS, 0, st>>>(FWD_SUB_ARGS);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  oh_fwd_sub_kernel<2><<<grid, FB_THREADS, 0, st>>>(FWD_SUB_ARGS);
+  oh_fwd_sub_kernel<2, false><<<grid, FB_THREADS, 0, st>>>(FWD_SUB_ARGS);
 #undef FWD_SUB_ARGS
   return (int)cudaGetLastError();
 }
@@ -1759,22 +1872,59 @@ int oh_seq_stats_stacked(const void* alphas, const void* betas, const void* pair
                           (cudaStream_t)stream);
 }
 
-// T2-T4 (the pair-composition variants).
-int oh_fwd_strm(const void* mats, const void* lens, const void* a0, void* alphas, int Tp,
-                int NL, void* stream) {
-  if (Tp <= 0 || NL <= 0) return (int)cudaErrorInvalidValue;
+// T2-T4 (the pair-composition variants).  T2 / T3: G == 1 one thread a
+// chain (oh_fwd_strm_kernel, oh_fwd_comp_kernel); G > 1 the three launches
+// of oh_fwd_sub_kernel<., true> / oh_fwd_comp_sub_kernel (pbuf [G, 4, NL]).
+int oh_fwd_strm(const void* mats, const void* lens, const void* a0, void* alphas, void* pbuf,
+                int Tp, int NL, int G, void* stream) {
+  if (Tp <= 0 || NL <= 0 || G < 1 || G > SUB_LANES_MAX || G > Tp)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
   const unsigned blocks = (unsigned)((NL + FB_THREADS - 1) / FB_THREADS);
-  oh_fwd_strm_kernel<<<blocks, FB_THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)mats, (const int32_t*)lens, (const float*)a0, (float*)alphas, Tp, NL);
+  if (G == 1) {
+    oh_fwd_strm_kernel<<<blocks, FB_THREADS, 0, st>>>(
+        (const float*)mats, (const int32_t*)lens, (const float*)a0, (float*)alphas, Tp, NL);
+    return (int)cudaGetLastError();
+  }
+  const int L = (Tp + G - 1) / G;
+  const dim3 grid(blocks, (unsigned)G, 1u);
+#define STRM_SUB_ARGS                                                                      \
+  nullptr, (const float*)mats, (const int32_t*)lens, (const float*)a0, nullptr,            \
+      (float*)alphas, (float*)pbuf, Tp, NL, 0, G, L
+  oh_fwd_sub_kernel<0, true><<<grid, FB_THREADS, 0, st>>>(STRM_SUB_ARGS);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  oh_fwd_sub_kernel<1, true><<<grid, FB_THREADS, 0, st>>>(STRM_SUB_ARGS);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  oh_fwd_sub_kernel<2, true><<<grid, FB_THREADS, 0, st>>>(STRM_SUB_ARGS);
+#undef STRM_SUB_ARGS
   return (int)cudaGetLastError();
 }
 
-int oh_fwd_comp(const void* comp, const void* lens, const void* a0, void* alphas, int H, int NL,
-                void* stream) {
-  if (H <= 0 || NL <= 0) return (int)cudaErrorInvalidValue;
+int oh_fwd_comp(const void* comp, const void* lens, const void* a0, void* alphas, void* pbuf,
+                int H, int NL, int G, void* stream) {
+  if (H <= 0 || NL <= 0 || G < 1 || G > SUB_LANES_MAX || G > H)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
   const unsigned blocks = (unsigned)((NL + FB_THREADS - 1) / FB_THREADS);
-  oh_fwd_comp_kernel<<<blocks, FB_THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)comp, (const int32_t*)lens, (const float*)a0, (float*)alphas, H, NL);
+  if (G == 1) {
+    oh_fwd_comp_kernel<<<blocks, FB_THREADS, 0, st>>>(
+        (const float*)comp, (const int32_t*)lens, (const float*)a0, (float*)alphas, H, NL);
+    return (int)cudaGetLastError();
+  }
+  const int Lh = (H + G - 1) / G;
+  const dim3 grid(blocks, (unsigned)G, 1u);
+#define COMP_SUB_ARGS \
+  (const float*)comp, (const int32_t*)lens, (const float*)a0, (float*)alphas, (float*)pbuf, H, NL, G, Lh
+  oh_fwd_comp_sub_kernel<0><<<grid, FB_THREADS, 0, st>>>(COMP_SUB_ARGS);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  oh_fwd_comp_sub_kernel<1><<<grid, FB_THREADS, 0, st>>>(COMP_SUB_ARGS);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  oh_fwd_comp_sub_kernel<2><<<grid, FB_THREADS, 0, st>>>(COMP_SUB_ARGS);
+#undef COMP_SUB_ARGS
   return (int)cudaGetLastError();
 }
 

@@ -26,29 +26,59 @@ __device__ __forceinline__ void load_group(const int32_t* p, size_t stride, int 
   }
 }
 
+// The step sources of the reduced forward chains.  A source reads the
+// matrices of a group of AHEAD consecutive steps of a lane (``load``, a group
+// ahead of the chain) and hands out step r's four entries 00, 01, 10, 11 from
+// the group it read (``mat``).  PairSteps: the lane's pair stream and the
+// table in shared memory (B4, B7, B9 and the chains beside them), a step's
+// entries looked up when it runs; PAD pairs and steps outside [0, Tp) -> the
+// identity row.  fb_onehot.cu adds T2's four streamed planes (StreamSteps).
+struct PairSteps {
+  static constexpr int AHEAD = LOOKAHEAD;
+  struct Group {
+    int q[AHEAD];
+  };
+  const int32_t* p;
+  const float* s_tab;
+  size_t nl;
+  int Tp, nreal;
+  __device__ __forceinline__ void load(int first, Group& g) const {
+    load_group(p, nl, first, 1, Tp, nreal, g.q);
+  }
+  __device__ __forceinline__ void mat(const Group& g, int r, float (&m)[4]) const {
+    const float* t = s_tab + 4 * g.q[r];
+    m[0] = t[0];
+    m[1] = t[1];
+    m[2] = t[2];
+    m[3] = t[3];
+  }
+  __device__ __forceinline__ bool real(const Group& g, int r) const { return g.q[r] < nreal; }
+};
+
 // A sub-lane's transfer product for the sub-lane scans: from the identity,
 // C <- C . M_t over steps [tb, te) where lo <= t < hi (the direction's
 // valid steps), the identity elsewhere; after every 8th step counted from
 // tb, C times 1 / max(((C00 + C01) + C10) + C11, 1e-30).  Writes C00, C01,
-// C10, C11 at dst[0..3] and returns whether a real pair (not a PAD) fell on
-// one of those valid steps.  The forward takes the pair stream (the product
-// left to right); the backward the next-step pairs, its product Q with
-// beta_tb = Q . beta_te up to scale.
-__device__ __forceinline__ bool sub_prod(const int32_t* p, const float* s_tab, int tb, int te,
-                                         int lo, int hi, int Tp, size_t nl, int nreal,
+// C10, C11 at dst[0..3] and returns whether a real step (not a PAD pair)
+// fell on one of those valid steps.  The forward takes its step source (the
+// product left to right); the backward the next-step pairs, its product Q
+// with beta_tb = Q . beta_te up to scale.
+template <class Src>
+__device__ __forceinline__ bool sub_prod(const Src& src, int tb, int te, int lo, int hi,
                                          float* dst) {
   float c00 = 1.0f, c01 = 0.0f, c10 = 0.0f, c11 = 1.0f;
   bool any = false;
-  int q[LOOKAHEAD], qn[LOOKAHEAD];
-  load_group(p, nl, tb, 1, Tp, nreal, q);
-  for (int t0 = tb; t0 < te; t0 += LOOKAHEAD) {
-    load_group(p, nl, t0 + LOOKAHEAD, 1, Tp, nreal, qn);
+  typename Src::Group q, qn;
+  src.load(tb, q);
+  for (int t0 = tb; t0 < te; t0 += Src::AHEAD) {
+    src.load(t0 + Src::AHEAD, qn);
 #pragma unroll
-    for (int r = 0; r < LOOKAHEAD; ++r) {
+    for (int r = 0; r < Src::AHEAD; ++r) {
       const int t = t0 + r;
       if (t < te) {
         if (t >= lo && t < hi) {
-          const float* m = s_tab + 4 * q[r];
+          float m[4];
+          src.mat(q, r, m);
           const float n00 = __fadd_rn(__fmul_rn(c00, m[0]), __fmul_rn(c01, m[2]));
           const float n01 = __fadd_rn(__fmul_rn(c00, m[1]), __fmul_rn(c01, m[3]));
           const float n10 = __fadd_rn(__fmul_rn(c10, m[0]), __fmul_rn(c11, m[2]));
@@ -57,9 +87,9 @@ __device__ __forceinline__ bool sub_prod(const int32_t* p, const float* s_tab, i
           c01 = n01;
           c10 = n10;
           c11 = n11;
-          any = any || q[r] < nreal;
+          any = any || src.real(q, r);
         }
-        // t - tb = (t0 - tb) + r with t0 - tb a multiple of LOOKAHEAD.
+        // t - tb = (t0 - tb) + r with t0 - tb a multiple of AHEAD (of 8).
         if ((r & 7) == 7) {
           const float inv = __fdiv_rn(
               1.0f, fmaxf(__fadd_rn(__fadd_rn(__fadd_rn(c00, c01), c10), c11), 1e-30f));
@@ -70,14 +100,20 @@ __device__ __forceinline__ bool sub_prod(const int32_t* p, const float* s_tab, i
         }
       }
     }
-#pragma unroll
-    for (int r = 0; r < LOOKAHEAD; ++r) q[r] = qn[r];
+    q = qn;
   }
   dst[0] = c00;
   dst[1] = c01;
   dst[2] = c10;
   dst[3] = c11;
   return any;
+}
+
+// sub_prod over a lane's pair stream ``p`` and the table ``s_tab``.
+__device__ __forceinline__ bool sub_prod(const int32_t* p, const float* s_tab, int tb, int te,
+                                         int lo, int hi, int Tp, size_t nl, int nreal,
+                                         float* dst) {
+  return sub_prod(PairSteps{p, s_tab, nl, Tp, nreal}, tb, te, lo, hi, dst);
 }
 
 // The message that leaves a sub-lane, from the one that enters it and the

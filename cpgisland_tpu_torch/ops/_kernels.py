@@ -62,8 +62,8 @@ _SIGNATURES = {
     "oh_fwd_stacked": ("fb_onehot", 6, ("Tp", "NL", "nreal", "G", "M")),
     "oh_bwd_stacked": ("fb_onehot", 7, ("Tp", "NL", "nreal", "T", "G", "M")),
     "oh_seq_stats_stacked": ("fb_onehot", 14, ("Tp", "NL", "S", "K", "Tt", "SPB", "M")),
-    "oh_fwd_strm": ("fb_onehot", 4, ("Tp", "NL")),
-    "oh_fwd_comp": ("fb_onehot", 4, ("H", "NL")),
+    "oh_fwd_strm": ("fb_onehot", 5, ("Tp", "NL", "G")),
+    "oh_fwd_comp": ("fb_onehot", 5, ("H", "NL", "G")),
     "oh_fwd_compsel": ("fb_onehot", 7, ("H", "NL", "S")),
     "oh_loglik": ("loglik", 4, ("Tp", "NL", "nreal", "G", "LB", "M")),
     "fb_loglik": ("loglik", 5, ("Tp", "NL", "K", "S", "G", "LB")),

@@ -16,20 +16,24 @@ lane's length).
   with :func:`fb_onehot.prob_tab_ext`.
 - T2 :func:`oh_fwd_strm` (replaces ``_fwd_strm_kernel``): B9's chain with
   the four entries of each step's 2x2 matrix streamed from device memory
-  (:func:`mat_streams`) instead of looked up in the kernel.  Its alphas
-  equal B9's bit for bit.
+  (:func:`mat_streams`) instead of looked up in the kernel, in B9's
+  sub-lanes (``fb_onehot.sublanes(Tp)``) with B9's operations in B9's
+  order.  Its alphas equal B9's bit for bit at every G.
 - T3 :func:`oh_fwd_comp` (replaces ``_fwd_comp_kernel``): the double-step
   chain.  Double step h covers steps 2h and 2h + 1: the carried alpha
   takes alpha_{2h+1} = (v . T2_h) / (v . R_h) with T2_h = T_{2h} T_{2h+1}
   precomposed and R_h the row sums of T_{2h}, while the intermediate
   alpha_{2h} = (v . T_{2h}) / (v0 + v1) hangs off the chain.  The same
   real arithmetic as the single-step chain, rounded elsewhere.  Ten
-  streams (:func:`composed_streams`): T2, R and T_even.
-- T4 :func:`oh_fwd_compsel` (replaces ``_fwd_compsel_kernel``): T3's chain
-  with the composed matrices looked up in the kernel from the tables of
-  :func:`composed_tables`, keyed by two index streams
+  streams (:func:`composed_streams`): T2, R and T_even.  It runs in B9's
+  G = ``fb_onehot.sublanes(Tp)`` sub-lanes of ceil(H / G) double steps
+  (:func:`_comp_sublanes_plain`), one chain at G = 1.
+- T4 :func:`oh_fwd_compsel` (replaces ``_fwd_compsel_kernel``): T3's one
+  chain with the composed matrices looked up in the kernel from the tables
+  of :func:`composed_tables`, keyed by two index streams
   (:func:`compsel_index`).  Its table rows are built with T3's own
-  elementwise formula, so its alphas equal T3's bit for bit.
+  elementwise formula, so its alphas equal T3's in one sub-lane bit for
+  bit.
 
 Each lane's double step 0 takes an identity even half: alpha_0 is the
 entering vector, so only T_1 applies there.  The composed variants need an
@@ -46,6 +50,7 @@ import math
 import torch
 
 from cpgisland_tpu_torch.ops import _kernels
+from cpgisland_tpu_torch.ops import fb_onehot as FB
 from cpgisland_tpu_torch.ops.fb_onehot import PROB_IDENT, _check_same_device, fwd_chain_plain
 from cpgisland_tpu_torch.ops.viterbi_onehot import GROUP, _check
 
@@ -149,13 +154,26 @@ def compsel_index(pair2: torch.Tensor, S: int) -> torch.Tensor:
 # The plain versions
 
 
+def _mat_steps(mats: torch.Tensor):
+    """The step source of four streamed planes ``mats`` [4, rows, NL] (T2's
+    matrices, T3's composed T2 rows): rows_k [G] -> the four entries [1, G,
+    NL] of each sub-lane's step at rows_k."""
+    return lambda rows_k: mats[:, rows_k][:, None].unbind(0)
+
+
 def oh_fwd_strm_plain(mats: torch.Tensor, lens2: torch.Tensor,
                       a0_red: torch.Tensor) -> torch.Tensor:
-    """Plain version of T2 -> alphas2 [Tp, 2, NL]: B9's plain chain
-    (:func:`fb_onehot.fwd_chain_plain`, the same operations in the same
-    order) over the streamed matrices ``mats`` [4, Tp, NL], so it equals
-    :func:`fb_onehot.oh_fwd_plain` on the same pairs bit for bit."""
+    """Plain version of T2 -> alphas2 [Tp, 2, NL]: B9's plain version over
+    the streamed matrices ``mats`` [4, Tp, NL], so it equals
+    :func:`fb_onehot.oh_fwd_plain` on the same pairs bit for bit.  In G =
+    ``fb_onehot.sublanes(Tp)`` sub-lanes B9's body
+    :func:`fb_onehot.fwd_sublanes_plain`; at G = 1 its chain
+    :func:`fb_onehot.fwd_chain_plain` (the same operations in the same
+    order)."""
     Tp, NL = mats.shape[1:]
+    G = FB.sublanes(Tp)
+    if G > 1:
+        return FB.fwd_sublanes_plain(_mat_steps(mats), Tp, lens2, a0_red[None], G)[0]
     fwd = mats.reshape(GROUP, GROUP, Tp, NL).permute(2, 0, 1, 3).unbind(0)
     return fwd_chain_plain(fwd, lens2, a0_red)
 
@@ -163,12 +181,23 @@ def oh_fwd_strm_plain(mats: torch.Tensor, lens2: torch.Tensor,
 def oh_fwd_comp_plain(comp: torch.Tensor, lens2: torch.Tensor,
                       a0_red: torch.Tensor) -> torch.Tensor:
     """Plain version of T3 -> alphas2 [2H, 2, NL] over the composed
-    streams ``comp`` [10, H, NL].  The chain of ``_fwd_comp_kernel`` op for
-    op, over [2, NL] tensors, one Python step a double step (t = 2h, v the
-    carry): inv = 1 / (v0 + v1); w = v . TE; i = where(t < len, w * inv,
-    v), the entering vector at t == 0; den = v . R; u = v . T2; n =
-    where(t + 1 < len, u * (1 / den), i).  Writes i at 2h and n at 2h + 1,
-    and carries n."""
+    streams ``comp`` [10, H, NL]: in G = ``fb_onehot.sublanes(2H)``
+    sub-lanes :func:`_comp_sublanes_plain`, at G = 1 the one chain
+    :func:`_comp_chain_plain`."""
+    G = FB.sublanes(2 * comp.shape[1])
+    if G > 1:
+        return _comp_sublanes_plain(comp, lens2, a0_red, G)
+    return _comp_chain_plain(comp, lens2, a0_red)
+
+
+def _comp_chain_plain(comp: torch.Tensor, lens2: torch.Tensor,
+                      a0_red: torch.Tensor) -> torch.Tensor:
+    """T3 in one chain (and T4's chain) -> alphas2 [2H, 2, NL]: the chain of
+    ``_fwd_comp_kernel`` op for op, over [2, NL] tensors, one Python step a
+    double step (t = 2h, v the carry): inv = 1 / (v0 + v1); w = v . TE; i =
+    where(t < len, w * inv, v), the entering vector at t == 0; den = v . R;
+    u = v . T2; n = where(t + 1 < len, u * (1 / den), i).  Writes i at 2h
+    and n at 2h + 1, and carries n."""
     H, NL = comp.shape[1:]
     t2 = comp[0:4].reshape(GROUP, GROUP, H, NL).permute(2, 0, 1, 3).unbind(0)
     rr = comp[4:6].permute(1, 0, 2).unbind(0)
@@ -189,6 +218,52 @@ def oh_fwd_comp_plain(comp: torch.Tensor, lens2: torch.Tensor,
     return torch.stack(alphas)
 
 
+def _comp_sublanes_plain(comp: torch.Tensor, lens2: torch.Tensor, a0_red: torch.Tensor,
+                         G: int) -> torch.Tensor:
+    """T3 in G sub-lanes -> alphas2 [2H, 2, NL], the kernel's three phases
+    with its f32 operations in its order.  Sub-lane g covers double steps
+    [g Lh, min((g + 1) Lh, H)), Lh = ceil(H / G), carried side by side as
+    a [G, NL] axis:
+    1. each sub-lane's product of its composed matrices T2_h (rows 0-3)
+       from the identity, scaled after every 8th double step
+       (:func:`fb_onehot._valid_products`; double step 0's even half is the
+       identity, so T2_0 = T_1);
+    2. the entering directions, from a0 through (v . P) / total sub-lane by
+       sub-lane in order (:func:`fb_onehot._direction_messages`; only those
+       of sub-lanes up to the one holding a lane's last valid step are
+       read, and below it every double step is valid);
+    3. :func:`_comp_chain_plain`'s step over every sub-lane from its
+       direction (the chain is degree 0 in v); past the last valid step
+       max(min(len, Tp), 1) - 1 every alpha is that step's.
+    In exact arithmetic these are the one chain's alphas."""
+    H, NL = comp.shape[1:]
+    Tp = 2 * H
+    Lh, h, real, rows = FB._sublane_grid(H, G, comp.device)
+    P = FB._valid_products(_mat_steps(comp[0:4]), (1, G, NL), real[:, :, None], real, rows)
+    has = torch.ones((G, 1), dtype=torch.bool, device=comp.device)
+    m0, m1 = FB._direction_messages(a0_red[None, 0], a0_red[None, 1], P, has, range(G), True)
+    v0, v1 = m0[0], m1[0]  # [G, NL]
+    lens = lens2[0]
+    alphas = []
+    for k in range(Lh):
+        c = comp[:, rows[:, k]]  # [10, G, NL]
+        t = 2 * h[:, k, None]  # [G, 1]
+        inv = torch.reciprocal(v0 + v1)
+        w0, w1 = v0 * c[6] + v1 * c[8], v0 * c[7] + v1 * c[9]
+        act0 = t < lens
+        i0 = torch.where(t == 0, a0_red[0], torch.where(act0, w0 * inv, v0))
+        i1 = torch.where(t == 0, a0_red[1], torch.where(act0, w1 * inv, v1))
+        den = v0 * c[4] + v1 * c[5]
+        u0, u1 = v0 * c[0] + v1 * c[2], v0 * c[1] + v1 * c[3]
+        dinv = torch.reciprocal(den)
+        act1 = t + 1 < lens
+        v0, v1 = torch.where(act1, u0 * dinv, i0), torch.where(act1, u1 * dinv, i1)
+        alphas.append(torch.stack([torch.stack([i0, i1], 1), torch.stack([v0, v1], 1)], 1))
+    # [Lh, G, 2 (i, n), 2, NL] -> [G, Lh, 2, 2, NL] -> rows in step order
+    al = torch.stack(alphas).transpose(0, 1).reshape(G * Lh * 2, 2, NL)[:Tp]
+    return FB.carry_past_last(al[None], lens)[0]
+
+
 def _gather_comp(idx: torch.Tensor, t2tab: torch.Tensor, rtab: torch.Tensor,
                  ttab: torch.Tensor) -> torch.Tensor:
     """The [10, H, NL] composed streams that T4's index streams select (the
@@ -202,9 +277,9 @@ def oh_fwd_compsel_plain(idx: torch.Tensor, lens2: torch.Tensor, a0_red: torch.T
                          t2tab: torch.Tensor, rtab: torch.Tensor,
                          ttab: torch.Tensor) -> torch.Tensor:
     """Plain version of T4 -> alphas2 [2H, 2, NL]: the rows that ``idx`` [2,
-    H, NL] selects from the tables of :func:`composed_tables`, through
-    :func:`oh_fwd_comp_plain`'s chain."""
-    return oh_fwd_comp_plain(_gather_comp(idx, t2tab, rtab, ttab), lens2, a0_red)
+    H, NL] selects from the tables of :func:`composed_tables`, through T3's
+    one chain (:func:`_comp_chain_plain`)."""
+    return _comp_chain_plain(_gather_comp(idx, t2tab, rtab, ttab), lens2, a0_red)
 
 
 # ---------------------------------------------------------------------------
@@ -226,23 +301,31 @@ def _check_lanes(x: torch.Tensor, rows: int, dtype, lens2, a0_red, tables=()) ->
 
 def oh_fwd_strm(mats: torch.Tensor, lens2: torch.Tensor, a0_red: torch.Tensor) -> torch.Tensor:
     """Kernel T2 (replaces ``tools/bench_compose.py::_fwd_strm_kernel``) ->
-    alphas2 [Tp, 2, NL] f32.  Arguments as :func:`oh_fwd_strm_plain`."""
+    alphas2 [Tp, 2, NL] f32, the lane in B9's ``fb_onehot.sublanes(Tp)``
+    sub-lanes (their products in a [G, 4, NL] scratch).  Arguments as
+    :func:`oh_fwd_strm_plain`."""
     Tp, NL = _check_lanes(mats, 4, _F32, lens2, a0_red)
     if mats.device.type == "cpu":
         return oh_fwd_strm_plain(mats, lens2, a0_red)
+    G = FB.sublanes(Tp)
     alphas = torch.empty((Tp, GROUP, NL), dtype=_F32, device=mats.device)
-    _kernels.launch("oh_fwd_strm", mats, lens2, a0_red, alphas, Tp=Tp, NL=NL)
+    pbuf = torch.empty((G, 4, NL) if G > 1 else (1,), dtype=_F32, device=mats.device)
+    _kernels.launch("oh_fwd_strm", mats, lens2, a0_red, alphas, pbuf, Tp=Tp, NL=NL, G=G)
     return alphas
 
 
 def oh_fwd_comp(comp: torch.Tensor, lens2: torch.Tensor, a0_red: torch.Tensor) -> torch.Tensor:
     """Kernel T3 (replaces ``tools/bench_compose.py::_fwd_comp_kernel``) ->
-    alphas2 [2H, 2, NL] f32.  Arguments as :func:`oh_fwd_comp_plain`."""
+    alphas2 [2H, 2, NL] f32, the lane in B9's ``fb_onehot.sublanes(2H)``
+    sub-lanes (their products in a [G, 4, NL] scratch).  Arguments as
+    :func:`oh_fwd_comp_plain`."""
     H, NL = _check_lanes(comp, N_COMP, _F32, lens2, a0_red)
     if comp.device.type == "cpu":
         return oh_fwd_comp_plain(comp, lens2, a0_red)
+    G = FB.sublanes(2 * H)
     alphas = torch.empty((2 * H, GROUP, NL), dtype=_F32, device=comp.device)
-    _kernels.launch("oh_fwd_comp", comp, lens2, a0_red, alphas, H=H, NL=NL)
+    pbuf = torch.empty((G, 4, NL) if G > 1 else (1,), dtype=_F32, device=comp.device)
+    _kernels.launch("oh_fwd_comp", comp, lens2, a0_red, alphas, pbuf, H=H, NL=NL, G=G)
     return alphas
 
 

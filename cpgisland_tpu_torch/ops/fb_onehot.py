@@ -251,7 +251,8 @@ def _sub_products_plain(pair2: torch.Tensor, tabs: torch.Tensor, G: int):
     sub-lane is valid (a PAD pair takes the identity row), so this is
     :func:`_valid_products` over the sub-lanes' real steps."""
     _, _, real, rows = _sublane_grid(pair2.shape[0], G, pair2.device)
-    return _valid_products(tabs, pair2, real[:, :, None], real, rows)
+    return _valid_products(_pair_steps(tabs, pair2), (tabs.shape[0], G, pair2.shape[1]),
+                           real[:, :, None], real, rows)
 
 
 def oh_prod(pair2: torch.Tensor, tab_ext: torch.Tensor) -> torch.Tensor:
@@ -426,20 +427,27 @@ def _sub_step(tabs: torch.Tensor, pairs: torch.Tensor, rows_k: torch.Tensor):
     return tabs[:, torch.clamp_max(pairs[rows_k], tabs.shape[1] - 1).long()].unbind(-1)
 
 
-def _valid_products(tabs, pairs, ok, real, rows):
+def _pair_steps(tabs: torch.Tensor, pairs: torch.Tensor):
+    """The pair stream's step source (the kernels' ``PairSteps``): rows_k
+    [G] -> the four entries of every member's step at ``rows_k`` of every
+    sub-lane, [M, G, NL] each (:func:`_sub_step`)."""
+    return lambda rows_k: _sub_step(tabs, pairs, rows_k)
+
+
+def _valid_products(step, shape, ok, real, rows):
     """Every sub-lane's product of its valid steps' matrices (the kernels'
-    ``sub_prod``; ``ok`` the valid steps, [G, L, NL] or [G, L, 1]; ``real``
-    and ``rows`` from :func:`_sublane_grid`) -> (C00, C01, C10, C11),
-    each [M, G, NL]: from the identity, C <- C . M entry by entry, times 1 /
-    max(((C00 + C01) + C10) + C11, 1e-30) after every 8th step of the
-    sub-lane."""
-    M, NL = tabs.shape[0], pairs.shape[1]
-    G, L = rows.shape
-    one = torch.ones((M, G, NL), dtype=_F32, device=pairs.device)
+    ``sub_prod``; ``step`` the step source, rows_k [G] -> four [M, G, NL]
+    entries, e.g. :func:`_pair_steps`; ``shape`` (M, G, NL); ``ok`` the
+    valid steps, [G, L, NL] or [G, L, 1]; ``real`` and ``rows`` from
+    :func:`_sublane_grid`) -> (C00, C01, C10, C11), each [M, G, NL]: from
+    the identity, C <- C . M entry by entry, times 1 / max(((C00 + C01) +
+    C10) + C11, 1e-30) after every 8th step of the sub-lane."""
+    L = rows.shape[1]
+    one = torch.ones(shape, dtype=_F32, device=rows.device)
     zero = torch.zeros_like(one)
     c00, c01, c10, c11 = one, zero, zero, one
     for k in range(L):
-        m0, m1, m2, m3 = _sub_step(tabs, pairs, rows[:, k])
+        m0, m1, m2, m3 = step(rows[:, k])
         v = ok[:, k]
         c00, c01, c10, c11 = (
             torch.where(v, c00 * m0 + c01 * m2, c00), torch.where(v, c00 * m1 + c01 * m3, c01),
@@ -471,38 +479,56 @@ def _direction_messages(v0, v1, P, has, order, fwd: bool):
 
 def _fwd_sublanes_plain(pair2, lens2, a0, tabs, G: int):
     """B4 / B24's forward half, and B9 / B22 in sub-lanes, for M members ->
-    alphas [M, Tp, 2, NL]; a0 [M, 2, NL], tabs [M, S*S + 1, 4].
+    alphas [M, Tp, 2, NL]; a0 [M, 2, NL], tabs [M, S*S + 1, 4]:
+    :func:`fwd_sublanes_plain` over the pair stream's steps."""
+    return fwd_sublanes_plain(_pair_steps(tabs, pair2), pair2.shape[0], lens2, a0, G)
+
+
+def fwd_sublanes_plain(step, Tp: int, lens2, a0, G: int):
+    """The forward chain in G sub-lanes over a step source, the body B4 /
+    B24's forward half, B9 / B22 and T2 share -> alphas [M, Tp, 2, NL]; a0
+    [M, 2, NL]; ``step`` maps rows_k [G] to the four entries [M, G, NL] of
+    each sub-lane's step at rows_k (:func:`_pair_steps`, or T2's streamed
+    matrices).
 
     Each lane's steps split into G sub-lanes [g L, min((g + 1) L, Tp)), L =
     ceil(Tp / G), carried side by side as a [G, NL] axis, in the kernels'
     phases and their f32 operations in their order:
     1. each sub-lane's product of its valid steps' matrices (steps 0 < t <
-       len of the pair stream; :func:`_valid_products`);
+       len; :func:`_valid_products`);
     2. the entering messages, from a0 through (v . P) / total sub-lane by
        sub-lane in order (:func:`_direction_messages`);
     3. :func:`oh_fwd_plain`'s chain over every sub-lane from its message
        (sub-lane 0's step 0 keeps a0: v = e); past the last valid step
        max(len, 1) - 1 every alpha is that step's."""
-    Tp, NL = pair2.shape
-    M = tabs.shape[0]
-    dev = pair2.device
+    M, _, NL = a0.shape
+    dev = a0.device
     L, t, real, rows = _sublane_grid(Tp, G, dev)
     lens = lens2[0]
     tn = t[:, :, None]
     ok = (tn >= 1) & (tn < lens) & real[:, :, None]  # [G, L, NL]
-    v0, v1 = _direction_messages(a0[:, 0], a0[:, 1], _valid_products(tabs, pair2, ok, real, rows),
+    v0, v1 = _direction_messages(a0[:, 0], a0[:, 1],
+                                 _valid_products(step, (M, G, NL), ok, real, rows),
                                  ok.any(1), range(G), True)
     alphas = []
     for k in range(L):
-        m0, m1, m2, m3 = _sub_step(tabs, pair2, rows[:, k])
+        m0, m1, m2, m3 = step(rows[:, k])
         inv = torch.reciprocal(v0 + v1)
         v = ok[:, k]
         v0, v1 = (torch.where(v, (v0 * m0 + v1 * m2) * inv, v0),
                   torch.where(v, (v0 * m1 + v1 * m3) * inv, v1))
         alphas.append(torch.stack([v0, v1], 1))  # [M, 2, G, NL]
     al = torch.stack(alphas, 3).permute(0, 2, 3, 1, 4).reshape(M, G * L, 2, NL)[:, :Tp]
+    return carry_past_last(al, lens)
+
+
+def carry_past_last(al: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """al [M, Tp, 2, NL] with every row past a lane's last valid step
+    max(min(len, Tp), 1) - 1 replaced by that step's (``lens`` [NL]): the
+    sub-lane chains' last phase."""
+    M, Tp, _, NL = al.shape
     last = torch.clamp_min(torch.clamp_max(lens, Tp), 1) - 1
-    src = torch.minimum(torch.arange(Tp, device=dev)[:, None], last)  # [Tp, NL]
+    src = torch.minimum(torch.arange(Tp, device=al.device)[:, None], last)  # [Tp, NL]
     return torch.gather(al, 1, src[None, :, None, :].expand(M, Tp, 2, NL).long()).contiguous()
 
 
@@ -522,8 +548,9 @@ def _fwdbwd_sublanes_plain(pair2, pairn2, lens2, a0, beta0, tabs, T: int, G: int
     tn = t[:, :, None]
     ok = (tn < T - 1) & (tn < lens2[0] - 1) & real[:, :, None]
     b0, b1 = _direction_messages(beta0[:, 0], beta0[:, 1],
-                                 _valid_products(tabs, pairn2, ok, real, rows), ok.any(1),
-                                 range(G - 1, -1, -1), False)
+                                 _valid_products(_pair_steps(tabs, pairn2), (M, G, NL), ok,
+                                                 real, rows),
+                                 ok.any(1), range(G - 1, -1, -1), False)
     betas = [None] * L
     for k in range(L - 1, -1, -1):
         m0, m1, m2, m3 = _sub_step(tabs, pairn2, rows[:, k])

@@ -18,10 +18,16 @@ depth.  The inputs are ``--mib`` Mi random symbols of the flagship's
 - ``composed-sel`` (T4): T3's chain with the composed matrices looked up in
   the kernel from tables (``fb_compose.oh_fwd_compsel``).
 
+T1, T2 and T3 run each lane as B9's G = ``fb_onehot.sublanes(--lane-T)``
+sub-lanes (16 at the default 65,536 steps, 4 at 16,384, 1 at 4,096) joined
+by exact messages, so T1 against T2 (a table lookup against a streamed
+matrix) and T1 against T3 (one step against two) compare at equal
+parallelism; T4 runs one chain a lane.
+
 Each is first gated against the single-step plain reference, the
 sequential chain at every lane length (``fb_onehot.fwd_chain_plain``, the
-twin of the JAX package's ``_xla_fwd_onehot``; B9 runs long lanes in
-sub-lanes) on the first GATE_LANES lanes: max relative error
+twin of the JAX package's ``_xla_fwd_onehot``; the sub-lanes round apart
+from it) on the first GATE_LANES lanes: max relative error
 below 1e-4, with a 1e-3 floor on the reference.  Then it is timed with CUDA
 events, the median over ``--chain`` calls, twice: the whole variant (its
 streams or tables built from the pairs, as the JAX script times it) and

@@ -1,7 +1,8 @@
-"""Variant builds of the dense chain kernels, of B5 / B12 and of the decode
-kernels, timed on identical inputs: the measurements behind their layouts.
+"""Variant builds of the dense chain kernels, of B5 / B12, of the decode
+kernels and of the compose bench's chains, timed on identical inputs: the
+measurements behind their layouts.
 
-    python -m cpgisland_tpu_torch.tools.kernel_variants [--group dense|split|stats|decode ...]
+    python -m cpgisland_tpu_torch.tools.kernel_variants [--group dense|split|stats|decode|compose ...]
         [--variant NAME ...]
 
 Each variant is a copy of a kernel source (``csrc/fb_dense.cu``,
@@ -87,6 +88,15 @@ variant changes nothing in the package.  On the card only, by group:
   1,024; M = 2, 3), B14 at 4,096 x 16,384, B13 there, on 4, 8, 32, 48
   and 64 Ki lanes and at two_state's scaffold flushes (8 records padded to
   64 Ki and 512 Ki: 128 and 1,024 lanes of 4,096 steps).
+
+- ``compose``: the compose bench's chains (``csrc/fb_onehot.cu``) through
+  their C entries on its 64 Mi seeded symbols as 1,024 x 65,536 and 4,096 x
+  16,384: T1 (B9), T2 and T3 at G = 1 (one chain a lane, the parent layout
+  of T2 and T3), 8, 16 and 32 sub-lanes (:data:`COMPOSE_G`), on the shipped
+  build, with T2 and T3's float streams read 16 rows ahead (``ahead16``)
+  and, unchecked, with every alpha store behind a test no lane passes
+  (``diag_nostore``): T2 bit for bit T1 at each G, T3's largest relative
+  difference from the sequential chain.
 
 Each variant's outputs are held against its group's unchanged build (bit
 for bit for B16, B18, B19, B13 and the decode chains, within rtol 1e-5 / atol 1e-3 for the B5 layouts;
@@ -1697,6 +1707,14 @@ _NOLOAD = "    q[r] = k < bk ? __ldg(p + (size_t)k * nb) : 0;"
 _OH_NOLOAD = (_NOLOAD, "    q[r] = (int)((k * 5 + ((size_t)p >> 2)) & 15);")
 _DENSE_NOLOAD = (_NOLOAD, "    q[r] = (int)((k * 5 + ((size_t)p >> 2)) & 3);")
 
+# The forward chains' alpha stores (B4 / B9 / T2's fwd_range, T3's
+# comp_range) behind a test no lane passes: the chains run, nothing is written.
+_NOSTORE_FWD = ("        out[(size_t)(2 * t) * nl] = v0;\n        out[(size_t)(2 * t + 1) * nl] = v1;\n",
+                "        if (len < 0) {\n          out[(size_t)(2 * t) * nl] = v0;\n"
+                "          out[(size_t)(2 * t + 1) * nl] = v1;\n        }\n")
+_COMP_STORES = ("        out[(size_t)(2 * t) * nl] = i0;\n        out[(size_t)(2 * t + 1) * nl] = i1;\n"
+                "        out[(size_t)(2 * t + 2) * nl] = v0;\n        out[(size_t)(2 * t + 3) * nl] = v1;\n")
+_NOSTORE_COMP = (_COMP_STORES, "        if (len < 0) {\n" + _COMP_STORES + "        }\n")
 # name -> (source stem, replacements); a replacement of three strings
 # replaces the source from its first up to its second with its third (or
 # with what its third, a function, makes of that span).
@@ -1822,6 +1840,9 @@ VARIANTS = {
                                                      "#define DBT_LANES 16"),
                                                     ("#define DBT_AHEAD 16",
                                                      "#define DBT_AHEAD 8")]),
+    "compose/base": ("fb_onehot", []),
+    "compose/ahead16": ("fb_onehot", [("#define STRM_AHEAD 8", "#define STRM_AHEAD 16")]),
+    "compose/diag_nostore": ("fb_onehot", [_NOSTORE_FWD, _NOSTORE_COMP]),
     "decode/dense_prod_min8": ("viterbi_dense", [(
         "template <int K, int R>\n__global__ void __launch_bounds__(PROD_THREADS)\n"
         "dense_products_kernel",
@@ -1841,6 +1862,9 @@ PTXAS_OF = {"dense": ("_Z17fb_fwd_sub_kernelILi2E", "_Z17fb_bwd_sub_kernelILi2E"
                       "_Z18fb_bwd_warp", "_Z19fb_fwd_stage", "_Z19fb_bwd_stage",
                       "_Z13fb_fwd_kernelILi8E", "_Z13fb_bwd_kernelILi8ELb0E"),
             "stats": ("_Z24oh_seq_stats_part_kernel", "_Z20oh_stats_part_kernel"),
+            "compose": ("_Z17oh_fwd_sub_kernel", "_Z18oh_fwd_strm_kernel",
+                        "_Z18oh_fwd_comp_kernel", "_Z22oh_fwd_comp_sub_kernel",
+                        "_Z13oh_fwd_kernel"),
             "decode": ("_Z22oh_backpointers_kernel", "_Z25dense_backpointers_kernel",
                        "_Z21dense_products_kernel",
                        "_Z18oh_products_kernel", "_Z23oh_products_lane_kernel",
@@ -2348,11 +2372,79 @@ def run_decode(name, lib, inputs, ref) -> dict:
     return row
 
 
+# T1 (B9), T2 and T3 at the compose bench's 64 Mi symbols as (lanes, steps),
+# each at these G (G = 1: the one-chain kernels, the parent layout of T2 / T3).
+COMPOSE_SHAPES = ((1024, 65536), (4096, 16384))
+COMPOSE_G = (1, 8, 16, 32)
+
+
+def compose_inputs(dev) -> dict:
+    """(lanes, steps) -> the bench's seeded operands of T1-T3 and the
+    alphas / products scratch."""
+    from cpgisland_tpu_torch.ops import fb_compose as FC
+    from cpgisland_tpu_torch.tools import bench_compose as BC
+
+    tab, tab_ext = BC.pair_tables(dev)
+    out = {}
+    for NL, Tp in COMPOSE_SHAPES:
+        pair2, lens2, a0 = BC.inputs(NL * Tp, Tp, dev)
+        out[(NL, Tp)] = dict(
+            pair2=pair2, lens2=lens2, a0=a0, tab_ext=tab_ext, mats=FC.mat_streams(tab, pair2),
+            comp=FC.composed_streams(tab, pair2),
+            alphas=torch.empty((Tp, 2, NL), device=dev),
+            pbuf=torch.empty((max(COMPOSE_G), 4, NL), device=dev))
+    return out
+
+
+def run_compose(name, lib, inputs, ref) -> dict:
+    """T1 (``oh_fwd``), T2 (``oh_fwd_strm``) and T3 (``oh_fwd_comp``) of the
+    variant through their C entries at each shape and each of COMPOSE_G: ms,
+    T2 bit for bit T1 at the same G, each kernel bit for bit the shipped
+    build's at the same G (``ref``), and T3's largest relative difference
+    from T1 at G = 1 (the sequential chain)."""
+    fns = {"t1": c_fn(lib, "oh_fwd", 6, 4), "t2": c_fn(lib, "oh_fwd_strm", 5, 3),
+           "t3": c_fn(lib, "oh_fwd_comp", 5, 3)}
+    checked = not name.startswith("compose/diag")
+    row = {"variant": name}
+    for (NL, Tp), x in inputs.items():
+        calls = {
+            "t1": lambda G: fns["t1"]([x["pair2"], x["lens2"], x["a0"], x["tab_ext"], x["alphas"],
+                                       x["pbuf"]], [Tp, NL, x["tab_ext"].shape[0] - 1, G]),
+            "t2": lambda G: fns["t2"]([x["mats"], x["lens2"], x["a0"], x["alphas"], x["pbuf"]],
+                                      [Tp, NL, G]),
+            "t3": lambda G: fns["t3"]([x["comp"], x["lens2"], x["a0"], x["alphas"], x["pbuf"]],
+                                      [Tp // 2, NL, G])}
+        for G in COMPOSE_G:
+            outs = {}
+            for k, call in calls.items():
+                key = f"{NL}x{Tp}_G{G}_{k}"
+                row[f"{key}_ms"] = time_ms(lambda: call(G))
+                call(G)
+                torch.cuda.synchronize()
+                outs[k] = x["alphas"].clone()
+                if not checked:
+                    continue
+                if (key, "base") not in ref:
+                    ref[(key, "base")] = outs[k]
+                else:
+                    row[f"{key}_bit_equal_base"] = torch.equal(outs[k], ref[(key, "base")])
+            if not checked:
+                continue
+            row[f"{NL}x{Tp}_G{G}_t2_equals_t1"] = torch.equal(outs["t2"], outs["t1"])
+            if G == 1:
+                ref[(NL, Tp, "seq")] = outs["t1"]
+            seq = ref[(NL, Tp, "seq")]
+            row[f"{NL}x{Tp}_G{G}_t3_max_rel_vs_seq"] = float(
+                ((outs["t3"].double() - seq.double()).abs()
+                 / seq.double().abs().clamp_min(1e-3)).max())
+    return row
+
+
 def _define(name: str, macro: str) -> int:
     """The value of ``#define macro`` in the variant's built source."""
     return int(re.search(rf"^#define {macro} (\d+)", SOURCES[name], re.M).group(1))
 
-GROUPS = ("dense", "split", "stats", "decode")
+GROUPS = ("dense", "split", "stats", "decode", "compose")
 
 
 def main(argv=None) -> int:
@@ -2394,6 +2486,14 @@ def main(argv=None) -> int:
             if name.startswith("stats/"):
                 print(json.dumps(run_stats(name, lib, inputs, want)), flush=True)
         del inputs, want
+        torch.cuda.empty_cache()
+    if "compose" in groups:
+        inputs, ref = compose_inputs(dev), {}
+        order = sorted((n for n in libs if n.startswith("compose/")),
+                       key=lambda n: n != "compose/base")
+        for name in order:
+            print(json.dumps(run_compose(name, libs[name], inputs, ref)), flush=True)
+        del inputs, ref
         torch.cuda.empty_cache()
     if "decode" in groups:
         inputs, ref = decode_inputs(rng, dev), {}

@@ -14,6 +14,11 @@ within the JAX script's gate; between the port's own plain versions the
 relations are exact.  The script's stream and table helpers are closures
 inside its ``main``, so the tests below transcribe its lines (cited) onto
 the JAX table rather than import them.
+
+T2 and T3 run in B9's sub-lanes (``fb_onehot.sublanes``); 4,096-step lanes
+are one sub-lane.  The sub-lane tests lower ``fb_onehot.SUBLANE_T`` so that
+lanes of 8,194 and 4,096 steps run as 8 and 4 sub-lanes, with lengths on
+every side of the sub-lane boundaries.
 """
 
 import json
@@ -215,6 +220,121 @@ def test_wrappers_refuse_wrong_dtypes_and_shapes(case):
     for call in bad:
         with pytest.raises(ValueError):
             call()
+
+
+# -- T2 and T3 in B9's sub-lanes
+#
+# fb_onehot.SUBLANE_T is lowered so that the lanes run as G sub-lanes: G = 8
+# on 8,194 steps (L = 1,025 and, for T3, Lh = 513 double steps: neither
+# divides its lane), G = 4 on 4,096 (both divide).
+
+SUB_CASES = [(8194, 1024), (4096, 1024)]
+
+
+def _sub_stream(Tp: int, st: int, seed: int):
+    """A chaining pair stream [Tp, NL] whose ragged lengths hit lengths 1, 2
+    and 3, odd lengths, a full lane and every side of the first sub-lane
+    boundaries of T2 (L steps) and of T3 (2 Lh steps)."""
+    rng = np.random.default_rng(seed)
+    G = max(1, min(Tp // st, 32))
+    L, Lh = -(-Tp // G), -(-(Tp // 2) // G)
+    syms = rng.integers(0, S, size=(NL, Tp + 1)).astype(np.int32)
+    pair2 = np.ascontiguousarray((syms[:, :-1] * S + syms[:, 1:]).T)
+    lens = rng.integers(1, Tp + 1, size=NL).astype(np.int32)
+    fixed = [Tp, 1, 2, 3, Tp - 1, L - 1, L, L + 1, 2 * Lh - 1, 2 * Lh, 2 * Lh + 1,
+             3 * L + 1, 2 * L - 2, 4 * Lh + 1, Tp + 5]
+    lens[:len(fixed)] = fixed
+    lens[len(fixed):len(fixed) + 8] |= 1
+    a0 = rng.random((2, NL)).astype(np.float32) + 0.1
+    return G, pair2, lens[None, :], a0
+
+
+@pytest.fixture(scope="module", params=SUB_CASES, ids=lambda c: f"Tp{c[0]}-st{c[1]}")
+def sub_case(request):
+    Tp, st = request.param
+    tab = _jax_table()
+    G, pair2, lens2, a0 = _sub_stream(Tp, st, seed=Tp)
+    tab_ext = np.concatenate([tab, IDENT[None, :]])
+    want = np.asarray(jax.jit(JFB._xla_fwd_onehot)(
+        jnp.asarray(tab_ext), jnp.asarray(pair2), jnp.asarray(lens2), jnp.asarray(a0).T))
+    t = {k: torch.from_numpy(v) for k, v in
+         dict(tab=tab, tab_ext=tab_ext, pair2=pair2, lens2=lens2, a0=a0).items()}
+    return st, G, want, t
+
+
+def test_strm_sublanes_plain_equals_b9_sublanes_plain(sub_case, monkeypatch):
+    """T2's plain version in sub-lanes is B9's body over the streamed
+    matrices: equal to B9's ``_fwd_sublanes_plain`` bit for bit."""
+    st, G, want, t = sub_case
+    monkeypatch.setattr(TFB, "SUBLANE_T", st)
+    al = FC.oh_fwd_strm_plain(FC.mat_streams(t["tab"], t["pair2"]), t["lens2"], t["a0"])
+    b9 = TFB._fwd_sublanes_plain(t["pair2"], t["lens2"], t["a0"][None], t["tab_ext"][None], G)[0]
+    assert torch.equal(al, b9)
+    assert torch.equal(al, TFB.oh_fwd_plain(t["pair2"], t["lens2"], t["a0"], t["tab_ext"]))
+    np.testing.assert_allclose(al.numpy(), want, rtol=1e-5)
+
+
+def test_comp_sublanes_plain_within_gate_of_xla(sub_case, monkeypatch):
+    """T3 in sub-lanes: the one chain's alphas in exact arithmetic, within
+    the file's tightened gate (1e-5) of ``_xla_fwd_onehot``, and not the
+    one chain's bits (the sub-lanes round apart)."""
+    st, _, want, t = sub_case
+    monkeypatch.setattr(TFB, "SUBLANE_T", st)
+    comp = FC.composed_streams(t["tab"], t["pair2"])
+    al = FC.oh_fwd_comp_plain(comp, t["lens2"], t["a0"])
+    err = _gate(al.numpy(), want)
+    assert err < 1e-5, err
+    assert not torch.equal(al, FC._comp_chain_plain(comp, t["lens2"], t["a0"]))
+
+
+def test_comp_sublanes_plain_is_its_phases(sub_case, monkeypatch):
+    """``oh_fwd_comp_plain`` in sub-lanes is ``_comp_sublanes_plain`` at
+    B9's G; every row past a lane's last valid step repeats that step's
+    alpha, and row 0 is the entering vector."""
+    st, G, _, t = sub_case
+    monkeypatch.setattr(TFB, "SUBLANE_T", st)
+    comp = FC.composed_streams(t["tab"], t["pair2"])
+    al = FC.oh_fwd_comp_plain(comp, t["lens2"], t["a0"])
+    Tp = al.shape[0]
+    assert TFB.sublanes(Tp) == G and G in (4, 8)
+    assert torch.equal(al, FC._comp_sublanes_plain(comp, t["lens2"], t["a0"], G))
+    for name, x in (("T3", al), ("T2", FC.oh_fwd_strm_plain(
+            FC.mat_streams(t["tab"], t["pair2"]), t["lens2"], t["a0"]))):
+        for n in range(NL):
+            last = max(min(int(t["lens2"][0, n]), Tp), 1) - 1
+            assert torch.equal(x[last:, :, n], x[last, :, n].expand(Tp - last, 2)), (name, n)
+        assert torch.equal(x[0], t["a0"]), name
+        assert torch.isfinite(x).all(), name
+
+
+def test_comp_one_sublane_is_the_one_chain_and_t4(sub_case, monkeypatch):
+    """With one sub-lane (SUBLANE_T = Tp) T3's plain version is the one
+    chain bit for bit, and T4's equals it."""
+    _, _, want, t = sub_case
+    Tp = t["pair2"].shape[0]
+    monkeypatch.setattr(TFB, "SUBLANE_T", Tp)
+    comp = FC.composed_streams(t["tab"], t["pair2"])
+    al = FC.oh_fwd_comp_plain(comp, t["lens2"], t["a0"])
+    assert torch.equal(al, FC._comp_chain_plain(comp, t["lens2"], t["a0"]))
+    sel = FC.oh_fwd_compsel_plain(FC.compsel_index(t["pair2"], S), t["lens2"], t["a0"],
+                                  *FC.composed_tables(t["tab"]))
+    assert torch.equal(sel, al)
+    assert _gate(al.numpy(), want) < 1e-5
+
+
+def test_cpu_wrappers_take_the_sublane_plain_versions(sub_case, monkeypatch):
+    st, G, _, t = sub_case
+    monkeypatch.setattr(TFB, "SUBLANE_T", st)
+    tab, pair2, lens2, a0 = t["tab"], t["pair2"], t["lens2"], t["a0"]
+    mats, comp = FC.mat_streams(tab, pair2), FC.composed_streams(tab, pair2)
+    got = FC.oh_fwd_strm(mats, lens2, a0)
+    assert torch.equal(got, TFB.fwd_sublanes_plain(FC._mat_steps(mats), pair2.shape[0], lens2,
+                                                    a0[None], G)[0])
+    assert torch.equal(FC.oh_fwd_comp(comp, lens2, a0),
+                       FC._comp_sublanes_plain(comp, lens2, a0, G))
+    # T4 stays one chain: equal to T3 in one sub-lane, whatever SUBLANE_T.
+    sel = FC.oh_fwd_compsel(FC.compsel_index(pair2, S), lens2, a0, *FC.composed_tables(tab))
+    assert torch.equal(sel, FC._comp_chain_plain(comp, lens2, a0))
 
 
 # -- the bench

@@ -1429,14 +1429,18 @@ def _compose_case(rng, T, NL, device):
     return tab, tab_ext, t(pair2), t(lens[None, :]), t(a0)
 
 
-@pytest.mark.parametrize("T,NL", [(8, 1), (4098, 33), (65536, 1024)])
-def test_compose_kernels_bit_equal(cuda_device, monkeypatch, T, NL):
-    """T2, T3 and T4 equal their plain versions bit for bit; T2 equals B9
-    in one sub-lane (the chain they share) and T4 equals T3; each launches
-    once."""
+@pytest.mark.parametrize("T,NL,st", [(8, 1, None), (4098, 33, None), (8194, 33, None),
+                                     (8194, 33, 1000), (65536, 1024, None)])
+def test_compose_kernels_bit_equal(cuda_device, monkeypatch, T, NL, st):
+    """T2, T3 and T4 equal their plain versions bit for bit; T2 and T3 run
+    in B9's sub-lanes (G = ``fb_onehot.sublanes(T)``: 1, 1, 2, 8 with
+    1,000-step sub-lanes, 16), T2 equals B9 at B9's G, and T4 equals T3
+    in one sub-lane; each wrapper counts one launch."""
     from cpgisland_tpu_torch.ops import fb_compose as FC
     from cpgisland_tpu_torch.ops import fb_onehot as FB
 
+    if st is not None:
+        monkeypatch.setattr(FB, "SUBLANE_T", st)
     tab, tab_ext, pair2, lens2, a0 = _compose_case(np.random.default_rng(T + NL), T, NL,
                                                    cuda_device)
     mats, comp = FC.mat_streams(tab, pair2), FC.composed_streams(tab, pair2)
@@ -1451,9 +1455,9 @@ def test_compose_kernels_bit_equal(cuda_device, monkeypatch, T, NL):
     assert torch.equal(strm, FC.oh_fwd_strm_plain(mats, lens2, a0))
     assert torch.equal(c, FC.oh_fwd_comp_plain(comp, lens2, a0))
     assert torch.equal(sel, FC.oh_fwd_compsel_plain(idx, lens2, a0, *tables))
-    monkeypatch.setattr(FB, "SUBLANE_T", T)
     assert torch.equal(strm, FB.oh_fwd(pair2, lens2, a0, tab_ext))
-    assert torch.equal(sel, c)
+    monkeypatch.setattr(FB, "SUBLANE_T", T)
+    assert torch.equal(sel, FC.oh_fwd_comp(comp, lens2, a0))
 
 
 def test_compose_bench_on_the_card(cuda_device, capsys):
