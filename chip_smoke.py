@@ -222,12 +222,13 @@ JSON line each:
    member's own flat decode);
 36. the pair-composition bench's kernels at its geometry (64 Mi symbols
    as 1024 full lanes of 65,536): T2-T4 (``oh_fwd_strm``, ``oh_fwd_comp``,
-   ``oh_fwd_compsel``) bit-equal to their plain versions, T2 and T3 in B9's
-   16 sub-lanes, T2 to B9 at B9's G; T2's and T3's one-chain kernels (G =
-   1) bit-equal to their plain versions, T2's to B9 in one sub-lane and T4
-   to T3's; all four of T1-T4 within the bench's gate (1e-4) of the
-   single-step plain reference (the sequential chain), each kernel timed
-   beside its bound, T2 and T3 beside their G = 1 kernels, and the whole
+   ``oh_fwd_compsel``) bit-equal to their plain versions in B9's 16
+   sub-lanes, T2 to B9 at B9's G, T4 to T3 (T4's looked-up rows equal to
+   T3's streams); T2-T4's one-chain kernels (G = 1) bit-equal to their
+   plain versions, T2's to B9 in one sub-lane and T4's to T3's; all four of
+   T1-T4 within the bench's gate (1e-4) of the single-step plain reference
+   (the sequential chain), each kernel timed beside its bound, T2-T4
+   beside their G = 1 kernels, and the whole
    variant (streams built) beside it; then the bench itself,
    ``tools/bench_compose.main(["--mib", "64"])``: its JSON line, and the
    launch counters moved by exactly the calls it reports.
@@ -318,7 +319,8 @@ REDESIGNED = ("oh_fwdbwd_kernel", "oh_fwdbwd_stacked_kernel", "fb_prod_kernel",
               "oh_backpointers_kernel", "dense_backpointers_kernel", "oh_products_kernel",
               "oh_products_lane_kernel", "oh_backtrace_kernel", "dense_products_kernel",
               "fb_bwd_sub_conf_kernel", "fb_bwd_split_conf_kernel", "dense_backtrace_kernel",
-              "oh_fwd_strm_kernel", "oh_fwd_comp_kernel", "oh_fwd_comp_sub_kernel")
+              "oh_fwd_strm_kernel", "oh_fwd_comp_kernel", "oh_fwd_comp_sub_kernel",
+              "oh_fwd_compsel_sub_kernel")
 H100_SMS, SMEM_PER_SM, SMEM_PER_BLOCK_RESERVED = 132, 228 * 1024, 1024
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -4010,17 +4012,19 @@ COMPOSE_MIB, COMPOSE_LANE_T = 64, 65536  # the bench's defaults: 1024 full lanes
 
 
 def compose_phase(dev) -> tuple:
-    """T2-T4 at the bench's geometry, on its inputs.  T2 and T3 run in B9's
+    """T2-T4 at the bench's geometry, on its inputs.  T2-T4 run in B9's
     G = ``fb_onehot.sublanes(Tp)`` sub-lanes (16 here): bit for bit their
-    plain versions, T2 to B9 at B9's G (the body they share).  In one
-    sub-lane (``sublane_length(Tp)``, the parent layout) T2's kernel equals
-    B9's and the sequential chain (B9's plain version in one sub-lane, which
-    T2's plain version equals op for op), T3's its one-chain plain version,
-    and T4 equals T3.  T1-T4 within the bench's gate of that sequential
-    chain; each kernel timed beside its bound, T2 and T3 beside their G = 1
-    kernels, the whole variant (its streams built) beside each.  Then the
-    bench's own entry point.  Returns (the table rows of T2-T4, the bench's
-    launches)."""
+    plain versions, T2 to B9 at B9's G (the body they share), T4 to T3 (the
+    rows T4 looks up are T3's streams: checked once, so T4's plain version
+    in one sub-lane is T3's and is not run again).  In one sub-lane
+    (``sublane_length(Tp)``, the parent layout) T2's kernel equals B9's and
+    the sequential chain (B9's plain version in one sub-lane, which T2's
+    plain version equals op for op), T3's and T4's their one-chain plain
+    version, and T4's T3's.  T1-T4 within the bench's gate of that
+    sequential chain; each kernel timed beside its bound, T2-T4 beside
+    their G = 1 kernels, the whole variant (its streams built) beside each.
+    Then the bench's own entry point.  Returns (the table rows of T2-T4,
+    the bench's launches)."""
     tab, tab_ext = BC.pair_tables(dev)
     pair2, lens2, a0 = BC.inputs(COMPOSE_MIB << 20, COMPOSE_LANE_T, dev)
     Tp, NL = pair2.shape
@@ -4037,23 +4041,31 @@ def compose_phase(dev) -> tuple:
         "composed": timed_once(lambda: FC.oh_fwd_comp_plain(comp, lens2, a0)),
         "composed-sel": timed_once(lambda: FC.oh_fwd_compsel_plain(idx, lens2, a0, *tables)),
     }
-    # One sub-lane: the parent layout of T2 and T3 (their one-chain kernels)
-    # and B9's; B9's plain version there is the sequential chain the gate takes.
+    # One sub-lane: the parent layout of T2-T4 (their one-chain kernels) and
+    # B9's; B9's plain version there is the sequential chain the gate takes.
     with sublane_length(Tp):
         b9_g1 = FB.oh_fwd(pair2, lens2, a0, tab_ext)
         ref, ref_ms = timed_once(lambda: FB.oh_fwd_plain(pair2, lens2, a0, tab_ext))
         g1 = {"single-strm": FC.oh_fwd_strm(mats, lens2, a0),
-              "composed": FC.oh_fwd_comp(comp, lens2, a0)}
+              "composed": FC.oh_fwd_comp(comp, lens2, a0),
+              "composed-sel": FC.oh_fwd_compsel(idx, lens2, a0, *tables)}
         g1_plain = {"single-strm": (ref, ref_ms),
                     "composed": timed_once(lambda: FC._comp_chain_plain(comp, lens2, a0))}
+        # T4's one-chain plain version is T3's on T3's streams, which T4's
+        # rows are (t4_rows_equal_t3_streams): held against, not timed as T4's.
+        g1_plain["composed-sel"] = (g1_plain["composed"][0], None)
         g1_ms = {"single-strm": time_ms(lambda: FC.oh_fwd_strm(mats, lens2, a0), runs=10),
-                 "composed": time_ms(lambda: FC.oh_fwd_comp(comp, lens2, a0), runs=10)}
+                 "composed": time_ms(lambda: FC.oh_fwd_comp(comp, lens2, a0), runs=10),
+                 "composed-sel": time_ms(lambda: FC.oh_fwd_compsel(idx, lens2, a0, *tables),
+                                         runs=10)}
     relations = {"sublanes": G,
                  "t2_equals_b9": torch.equal(got["single-strm"], got["single"]),
                  "t2_plain_equals_b9_plain": torch.equal(plains["single-strm"][0],
                                                          plains["single"][0]),
                  "t2_g1_equals_b9_g1": torch.equal(g1["single-strm"], b9_g1),
-                 "t4_equals_t3_g1": torch.equal(got["composed-sel"], g1["composed"])}
+                 "t4_rows_equal_t3_streams": torch.equal(FC._gather_comp(idx, *tables), comp),
+                 "t4_equals_t3": torch.equal(got["composed-sel"], got["composed"]),
+                 "t4_equals_t3_g1": torch.equal(g1["composed-sel"], g1["composed"])}
     del b9_g1
     rows, failed = {}, [k for k, ok in relations.items() if ok is False]
     for name, (build, launch) in fns.items():
@@ -4069,6 +4081,7 @@ def compose_phase(dev) -> tuple:
             g1_equal = torch.equal(g1[name], g1_plain[name][0])
             extra = {"sublanes": G, "g1_ms": g1_ms[name], "g1_bit_equal": g1_equal,
                      "g1_plain_ms": g1_plain[name][1],
+                     "g1_plain_of": "composed" if name == "composed-sel" else name,
                      "g1_gate_err": BC.gate_err(g1[name], ref)}
             if not g1_equal:
                 failed.append(f"{kernel} at G = 1")

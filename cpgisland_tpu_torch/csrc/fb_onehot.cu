@@ -202,13 +202,22 @@
 // of whole double steps, B9's three launches (oh_fwd_comp_sub_kernel; the
 // chain is degree 0 in v, so a sub-lane's message is a direction), its
 // alphas the one chain's in exact arithmetic; at G = 1 oh_fwd_comp_kernel,
-// one chain.  T4 oh_fwd_compsel_kernel replaces ::_fwd_compsel_kernel: T3's
-// one chain with the composed rows looked up from three tables (at S = 4:
-// 96 x 4, 17 x 2 and 17 x 4 floats) in shared memory, keyed by two int32
-// index streams; 4 + 8 B a symbol, 0.81 GB, 0.240 ms.  Its tables hold T3's
-// stream values bit for bit (the plain side builds them with T3's
-// formula), so its alphas equal T3's at G = 1.  The one-chain kernels run
-// one thread a lane (32 to a block) like B9 at G = 1; the streams are read a
+// one chain.  T4 oh_fwd_compsel replaces ::_fwd_compsel_kernel: T3's chain
+// with the composed rows looked up from three tables (at S = 4: 96 x 4, 17
+// x 2 and 17 x 4 floats) in shared memory, keyed by two int32 index
+// streams; 4 + 8 B a symbol, 0.81 GB, 0.240 ms.  What bounded its first
+// design, one thread a lane (32 warps on 132 SMs at the benchmark's 1,024
+// lanes), was the chain: 32,768 dependent double steps a thread, each
+// waiting on two IEEE divisions.  Now it runs T3's sub-lanes and T3's three
+// launches (oh_fwd_compsel_sub_kernel: T3's phases, comp_sub_phase, over a
+// table step source for the products and a table row source for the chain,
+// its indices read COMPSEL_AHEAD double steps ahead, each table row one
+// vector load); at G = 1 its phase 1 alone, one chain.  The phases read
+// 2 B a symbol (the products' index) and 4 B (both indices) beside the 8 B
+// of alphas, 14 B in all.  Its tables hold T3's stream values bit for bit
+// (the plain side builds them with T3's formula), so on chained pairs its
+// alphas equal T3's bit for bit at every G.  The one-chain kernels run one
+// thread a lane (32 to a block) like B9 at G = 1; the streams are read a
 // group of steps ahead so a step waits on the chain alone.  A double step's
 // chain (v . R -> 1 / den beside v . T2, then one multiply) is no deeper
 // than B9's single step, so T3 and T4 carry one dependent step per two
@@ -1446,16 +1455,15 @@ static int launch_seq_stats(bool cs, const void* alphas, const void* betas, cons
 
 // ---------------------------------------------------------------------------
 // T2-T4: the pair-composition variants of the forward chain (the
-// benchmark-only kernels of tools/bench_compose.py; B9 is T1).  T2 and T3 run
-// in B9's sub-lanes (G = fb_onehot.sublanes(Tp)), T2 through B9's own
-// oh_fwd_sub_kernel, T3 through oh_fwd_comp_sub_kernel; at G = 1, and T4
-// always, one thread a lane, 32 to a block; every operand off the chain read a
-// group of steps ahead; round-to-nearest intrinsics in the plain versions'
+// benchmark-only kernels of tools/bench_compose.py; B9 is T1).  All three run
+// in B9's sub-lanes (G = fb_onehot.sublanes(Tp)): T2 through B9's own
+// oh_fwd_sub_kernel, T3 through oh_fwd_comp_sub_kernel, T4 through
+// oh_fwd_compsel_sub_kernel (T3's phases with its rows looked up in tables);
+// at G = 1 one thread a lane, 32 to a block; every operand off the chain read
+// a group of steps ahead; round-to-nearest intrinsics in the plain versions'
 // order.
 
-#define COMP_MAX_S 8
-#define COMP_MAX_TRIP (COMP_MAX_S * COMP_MAX_S * (COMP_MAX_S + 2))
-#define COMP_MAX_PE (COMP_MAX_S * COMP_MAX_S + 1)
+#define COMP_MAX_S 8  // T4's largest alphabet (its tables in shared memory)
 
 // One double step (t = 2h) of T3 and T4 over c = T2 (00, 01, 10, 11), R (0,
 // 1), T_even (00, 01, 10, 11): the intermediate i (alpha_t, off the chain)
@@ -1488,34 +1496,160 @@ __device__ __forceinline__ void comp_step(float& v0, float& v1, float& i0, float
   }
 }
 
-// T3's double-step chain over double steps [hb, he) of a lane, from (v0,
-// v1), the vector entering double step hb (at hb == 0 the entering vector e
-// itself); comp_step at each, alpha_2h and alpha_2h+1 stored.  The ten rows
-// of ``c`` (the lane's column of comp [10, H, NL]) are read STRM_AHEAD
-// double steps ahead, no further than he.
-__device__ __forceinline__ void comp_range(const float* c, size_t plane, size_t nl, float& v0,
-                                           float& v1, float e0, float e1, float* out, int len,
-                                           int hb, int he) {
-  float i0, i1;
-  float f[STRM_AHEAD][10], fn[STRM_AHEAD][10];
-  load_rows<10>(c, plane, nl, hb, he, f);
-  for (int h0 = hb; h0 < he; h0 += STRM_AHEAD) {
-    load_rows<10>(c, plane, nl, h0 + STRM_AHEAD, he, fn);
+// The row sources of T3's and T4's double-step chain (comp_range).  A source
+// reads the rows of AHEAD consecutive double steps of a lane (``load``, a
+// group ahead of the chain, no row at or past ``rows``) and hands out double
+// step r's ten values, T2 (00, 01, 10, 11), R (0, 1) and T_even (00, 01, 10,
+// 11), from the group it read (``row``).  CompStreamRows (T3): the lane's
+// column of the ten streams comp [10, H, NL], read STRM_AHEAD double steps
+// ahead.
+struct CompStreamRows {
+  static constexpr int AHEAD = STRM_AHEAD;
+  struct Group {
+    float f[AHEAD][10];
+  };
+  const float* c;
+  size_t plane, nl;
+  __device__ __forceinline__ void load(int first, int rows, Group& g) const {
+    load_rows<10>(c, plane, nl, first, rows, g.f);
+  }
+  __device__ __forceinline__ void row(const Group& g, int r, float (&x)[10]) const {
 #pragma unroll
-    for (int r = 0; r < STRM_AHEAD; ++r) {
+    for (int k = 0; k < 10; ++k) x[k] = g.f[r][k];
+  }
+};
+
+// T4's index streams are read COMPSEL_AHEAD double steps ahead of the chain
+// (a multiple of 8: sub_prod counts its scaling cadence within a group).
+#define COMPSEL_AHEAD 16
+
+// q[r] = the index at double step first + r of a lane's stream ``p`` (rows
+// ``nl`` apart), clamped into a table of last + 1 rows as T4's plain version
+// clamps it; rows at or past ``rows`` take the last row (never read).
+template <int N>
+__device__ __forceinline__ void load_idx(const int32_t* p, size_t nl, int first, int rows,
+                                         int last, int (&q)[N]) {
+#pragma unroll
+  for (int r = 0; r < N; ++r) {
+    const int t = first + r;
+    const int v = t < rows ? __ldg(p + (size_t)t * nl) : last;
+    q[r] = max(min(v, last), 0);
+  }
+}
+
+// T4's tables in the block's dynamic shared memory, a row one vector load:
+// t2tab's n_trip rows (T2, 16 B), ttab's n_pe (T_even, 16 B), then rtab's
+// n_pe (R, 8 B); comp_tables_bytes(S) of them.  load_comp_tables fills them
+// from device memory and syncs the block.
+struct CompTables {
+  const float4* t2;
+  const float4* te;
+  const float2* r;
+  int last_trip, last_pe;
+};
+
+static inline size_t comp_tables_bytes(int S) {
+  const int n_trip = S * S * (S + 2), n_pe = S * S + 1;
+  return (size_t)(n_trip + n_pe) * 16 + (size_t)n_pe * 8;
+}
+
+__device__ __forceinline__ CompTables load_comp_tables(float4* s, const float* t2tab,
+                                                       const float* rtab, const float* ttab,
+                                                       int S) {
+  const int n_trip = S * S * (S + 2), n_pe = S * S + 1;
+  float* f = reinterpret_cast<float*>(s);
+  for (int i = threadIdx.x; i < 4 * n_trip; i += blockDim.x) f[i] = t2tab[i];
+  for (int i = threadIdx.x; i < 4 * n_pe; i += blockDim.x) f[4 * n_trip + i] = ttab[i];
+  for (int i = threadIdx.x; i < 2 * n_pe; i += blockDim.x) f[4 * (n_trip + n_pe) + i] = rtab[i];
+  __syncthreads();
+  return CompTables{s, s + n_trip, reinterpret_cast<const float2*>(s + n_trip + n_pe),
+                    n_trip - 1, n_pe - 1};
+}
+
+// CompTabRows (T4): the lane's two index streams idx [2, H, NL] (t2tab's
+// row, then rtab's and ttab's), read COMPSEL_AHEAD double steps ahead; a
+// double step's rows are looked up in the shared tables when it runs.
+struct CompTabRows {
+  static constexpr int AHEAD = COMPSEL_AHEAD;
+  struct Group {
+    int a[AHEAD], b[AHEAD];
+  };
+  const int32_t* idx;
+  size_t plane, nl;
+  CompTables tab;
+  __device__ __forceinline__ void load(int first, int rows, Group& g) const {
+    load_idx(idx, nl, first, rows, tab.last_trip, g.a);
+    load_idx(idx + plane, nl, first, rows, tab.last_pe, g.b);
+  }
+  __device__ __forceinline__ void row(const Group& g, int r, float (&x)[10]) const {
+    const float4 t2 = tab.t2[g.a[r]], te = tab.te[g.b[r]];
+    const float2 rr = tab.r[g.b[r]];
+    x[0] = t2.x;
+    x[1] = t2.y;
+    x[2] = t2.z;
+    x[3] = t2.w;
+    x[4] = rr.x;
+    x[5] = rr.y;
+    x[6] = te.x;
+    x[7] = te.y;
+    x[8] = te.z;
+    x[9] = te.w;
+  }
+};
+
+// T4's step source for sub_prod (onehot_steps.cuh's PairSteps has the
+// interface): the lane's t2tab index stream (idx row 0) and t2tab in shared
+// memory, every step real.
+struct CompTabSteps {
+  static constexpr int AHEAD = COMPSEL_AHEAD;
+  struct Group {
+    int a[AHEAD];
+  };
+  const int32_t* idx;
+  size_t nl;
+  int rows;
+  CompTables tab;
+  __device__ __forceinline__ void load(int first, Group& g) const {
+    load_idx(idx, nl, first, rows, tab.last_trip, g.a);
+  }
+  __device__ __forceinline__ void mat(const Group& g, int r, float (&m)[4]) const {
+    const float4 t = tab.t2[g.a[r]];
+    m[0] = t.x;
+    m[1] = t.y;
+    m[2] = t.z;
+    m[3] = t.w;
+  }
+  __device__ __forceinline__ bool real(const Group&, int) const { return true; }
+};
+
+// T3's and T4's double-step chain over double steps [hb, he) of a lane, from
+// (v0, v1), the vector entering double step hb (at hb == 0 the entering
+// vector e itself); comp_step at each, alpha_2h and alpha_2h+1 stored at the
+// lane's column ``out``.  ``src`` reads the rows (CompStreamRows,
+// CompTabRows), no further than he.
+template <class Rows>
+__device__ __forceinline__ void comp_range(const Rows& src, float& v0, float& v1, float e0,
+                                           float e1, float* out, int len, int hb, int he,
+                                           size_t nl) {
+  float i0, i1;
+  typename Rows::Group q, qn;
+  src.load(hb, he, q);
+  for (int h0 = hb; h0 < he; h0 += Rows::AHEAD) {
+    src.load(h0 + Rows::AHEAD, he, qn);
+#pragma unroll
+    for (int r = 0; r < Rows::AHEAD; ++r) {
       const int t = 2 * (h0 + r);
       if (h0 + r < he) {
-        comp_step(v0, v1, i0, i1, f[r], t, len, e0, e1);
+        float c[10];
+        src.row(q, r, c);
+        comp_step(v0, v1, i0, i1, c, t, len, e0, e1);
         out[(size_t)(2 * t) * nl] = i0;
         out[(size_t)(2 * t + 1) * nl] = i1;
         out[(size_t)(2 * t + 2) * nl] = v0;
         out[(size_t)(2 * t + 3) * nl] = v1;
       }
     }
-#pragma unroll
-    for (int r = 0; r < STRM_AHEAD; ++r)
-#pragma unroll
-      for (int k = 0; k < 10; ++k) f[r][k] = fn[r][k];
+    q = qn;
   }
 }
 
@@ -1543,19 +1677,22 @@ oh_fwd_comp_kernel(const float* __restrict__ comp, const int32_t* __restrict__ l
   const size_t nl = (size_t)NL;
   const float e0 = a0[n], e1 = a0[nl + n];
   float v0 = e0, v1 = e1;
-  comp_range(comp + n, (size_t)H * nl, nl, v0, v1, e0, e1, alphas + n, lens[n], 0, H);
+  comp_range(CompStreamRows{comp + n, (size_t)H * nl, nl}, v0, v1, e0, e1, alphas + n, lens[n],
+             0, H, nl);
 }
 
-// T3 in B9's sub-lanes: one thread per (lane, sub-lane g = blockIdx.y), 32
-// lanes a block, three launches; sub-lane g covers double steps [g Lh,
-// min((g + 1) Lh, H)), so every boundary falls between double steps.  With
+// T3 and T4 in B9's sub-lanes: one thread per (lane n, sub-lane g =
+// blockIdx.y), 32 lanes a block, three launches; sub-lane g covers double
+// steps [g Lh, min((g + 1) Lh, H)), so every boundary falls between double
+// steps.  ``steps`` reads the lane's composed matrices T2_h for sub_prod
+// (T3: rows 0-3 of comp through StreamSteps; T4: t2tab's rows through
+// CompTabSteps), ``rows`` a double step's ten values for comp_range.  With
 // last = max(min(len, Tp), 1) - 1 the last valid step and gl = (last / 2) /
 // Lh its sub-lane:
-// PHASE 0: each sub-lane g < gl forms the product of its composed matrices
-//    T2_h (rows 0-3 of comp) from the identity, scaled after every 8th
-//    double step (sub_prod over StreamSteps) into pbuf [G, 4, NL].  Every
-//    double step below gl is valid in both halves; double step 0's even half
-//    is the identity in the streams, so T2_0 = T_1 and step 0 applies
+// PHASE 0: each sub-lane g < gl forms the product of its T2_h from the
+//    identity, scaled after every 8th double step (sub_prod), into pbuf [G,
+//    4, NL].  Every double step below gl is valid in both halves; double
+//    step 0's even half is the identity, so T2_0 = T_1 and step 0 applies
 //    nothing, as in B9;
 // PHASE 1: each thread g <= gl forms the direction entering its sub-lane
 //    from a0 and P_0 .. P_{g-1} (sub_message<true>, in order; each has a
@@ -1564,15 +1701,11 @@ oh_fwd_comp_kernel(const float* __restrict__ comp, const int32_t* __restrict__ l
 //    R)), so a direction is all a message needs; in sub-lane gl comp_step's
 //    own masks carry the alpha of step last to the sub-lane's end;
 // PHASE 2: each sub-lane g > gl stores the alpha of step last at every step.
-template <int PHASE>
-__global__ void __launch_bounds__(FB_THREADS)
-oh_fwd_comp_sub_kernel(const float* __restrict__ comp, const int32_t* __restrict__ lens,
-                       const float* __restrict__ a0, float* alphas, float* pbuf, int H, int NL,
-                       int G, int Lh) {
-  const int g = blockIdx.y;
-  const int n = blockIdx.x * FB_THREADS + threadIdx.x;
-  if (n >= NL) return;
-  const size_t nl = (size_t)NL, plane = (size_t)H * nl;
+template <int PHASE, class Steps, class Rows>
+__device__ __forceinline__ void comp_sub_phase(const Steps& steps, const Rows& rows,
+                                               const int32_t* lens, const float* a0,
+                                               float* alphas, float* pbuf, int H, int n, int g,
+                                               int Lh, size_t nl) {
   const int Tp = 2 * H;
   const int len = lens[n];
   const int last = max(min(len, Tp), 1) - 1;
@@ -1583,7 +1716,7 @@ oh_fwd_comp_sub_kernel(const float* __restrict__ comp, const int32_t* __restrict
   if (PHASE == 0) {
     if (g < gl) {
       float P[4];
-      sub_prod(StreamSteps{comp + n, plane, nl, H}, hb, he, 0, H, P);
+      sub_prod(steps, hb, he, 0, H, P);
       for (int c = 0; c < 4; ++c) pb[(size_t)(4 * g + c) * nl] = P[c];
     }
   } else if (PHASE == 1) {
@@ -1595,7 +1728,7 @@ oh_fwd_comp_sub_kernel(const float* __restrict__ comp, const int32_t* __restrict
         const float P[4] = {Ph[0], Ph[nl], Ph[2 * nl], Ph[3 * nl]};
         sub_message<true>(v0, v1, P);
       }
-      comp_range(comp + n, plane, nl, v0, v1, e0, e1, al, len, hb, he);
+      comp_range(rows, v0, v1, e0, e1, al, len, hb, he, nl);
     }
   } else if (g > gl) {
     const float v0 = al[(size_t)(2 * last) * nl], v1 = al[(size_t)(2 * last + 1) * nl];
@@ -1606,55 +1739,36 @@ oh_fwd_comp_sub_kernel(const float* __restrict__ comp, const int32_t* __restrict
   }
 }
 
-// T4: idx [2, H, NL] (t2tab's row, then rtab's and ttab's), the tables in
-// shared memory; each index is clamped into its table.
+// T3 in sub-lanes over comp [10, H, NL].
+template <int PHASE>
 __global__ void __launch_bounds__(FB_THREADS)
-oh_fwd_compsel_kernel(const int32_t* __restrict__ idx, const int32_t* __restrict__ lens,
-                      const float* __restrict__ a0, const float* __restrict__ t2tab,
-                      const float* __restrict__ rtab, const float* __restrict__ ttab,
-                      float* __restrict__ alphas, int H, int NL, int S) {
-  __shared__ float s_t2[COMP_MAX_TRIP * 4];
-  __shared__ float s_r[COMP_MAX_PE * 2];
-  __shared__ float s_te[COMP_MAX_PE * 4];
-  const int n_trip = S * S * (S + 2), n_pe = S * S + 1;
-  for (int i = threadIdx.x; i < n_trip * 4; i += blockDim.x) s_t2[i] = t2tab[i];
-  for (int i = threadIdx.x; i < n_pe * 2; i += blockDim.x) s_r[i] = rtab[i];
-  for (int i = threadIdx.x; i < n_pe * 4; i += blockDim.x) s_te[i] = ttab[i];
-  __syncthreads();
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+oh_fwd_comp_sub_kernel(const float* __restrict__ comp, const int32_t* __restrict__ lens,
+                       const float* __restrict__ a0, float* alphas, float* pbuf, int H, int NL,
+                       int G, int Lh) {
+  const int n = blockIdx.x * FB_THREADS + threadIdx.x;
   if (n >= NL) return;
   const size_t nl = (size_t)NL, plane = (size_t)H * nl;
-  const float e0 = a0[n], e1 = a0[nl + n];
-  const int len = lens[n];
-  float* out = alphas + n;
-  float v0 = e0, v1 = e1, i0, i1;
-  int q[LOOKAHEAD], qn[LOOKAHEAD], g[LOOKAHEAD], gn[LOOKAHEAD];
-  load_group(idx + n, nl, 0, 1, H, n_trip - 1, q);
-  load_group(idx + plane + n, nl, 0, 1, H, n_pe - 1, g);
-  for (int h0 = 0; h0 < H; h0 += LOOKAHEAD) {
-    load_group(idx + n, nl, h0 + LOOKAHEAD, 1, H, n_trip - 1, qn);
-    load_group(idx + plane + n, nl, h0 + LOOKAHEAD, 1, H, n_pe - 1, gn);
-#pragma unroll
-    for (int r = 0; r < LOOKAHEAD; ++r) {
-      const int t = 2 * (h0 + r);
-      if (h0 + r < H) {
-        const int a = max(q[r], 0), b = max(g[r], 0);
-        const float c[10] = {s_t2[4 * a], s_t2[4 * a + 1], s_t2[4 * a + 2], s_t2[4 * a + 3],
-                             s_r[2 * b], s_r[2 * b + 1],
-                             s_te[4 * b], s_te[4 * b + 1], s_te[4 * b + 2], s_te[4 * b + 3]};
-        comp_step(v0, v1, i0, i1, c, t, len, e0, e1);
-        out[(size_t)(2 * t) * nl] = i0;
-        out[(size_t)(2 * t + 1) * nl] = i1;
-        out[(size_t)(2 * t + 2) * nl] = v0;
-        out[(size_t)(2 * t + 3) * nl] = v1;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < LOOKAHEAD; ++r) {
-      q[r] = qn[r];
-      g[r] = gn[r];
-    }
-  }
+  comp_sub_phase<PHASE>(StreamSteps{comp + n, plane, nl, H}, CompStreamRows{comp + n, plane, nl},
+                        lens, a0, alphas, pbuf, H, n, blockIdx.y, Lh, nl);
+}
+
+// T4 in sub-lanes over idx [2, H, NL] and the tables of S symbols (phases 0
+// and 1 load them into shared memory; phase 2 reads none).  At G = 1 phase 1
+// alone is T4's one chain: sub-lane 0 covers [0, H) from a0, no message.
+template <int PHASE>
+__global__ void __launch_bounds__(FB_THREADS)
+oh_fwd_compsel_sub_kernel(const int32_t* __restrict__ idx, const int32_t* __restrict__ lens,
+                          const float* __restrict__ a0, const float* __restrict__ t2tab,
+                          const float* __restrict__ rtab, const float* __restrict__ ttab,
+                          float* alphas, float* pbuf, int H, int NL, int S, int G, int Lh) {
+  extern __shared__ float4 s_comp[];
+  CompTables tab{};
+  if (PHASE < 2) tab = load_comp_tables(s_comp, t2tab, rtab, ttab, S);
+  const int n = blockIdx.x * FB_THREADS + threadIdx.x;
+  if (n >= NL) return;
+  const size_t nl = (size_t)NL, plane = (size_t)H * nl;
+  comp_sub_phase<PHASE>(CompTabSteps{idx + n, nl, H, tab}, CompTabRows{idx + n, plane, nl, tab},
+                        lens, a0, alphas, pbuf, H, n, blockIdx.y, Lh, nl);
 }
 
 // The C interface: every pointer and the stream arrive as void*, sizes as
@@ -1872,9 +1986,12 @@ int oh_seq_stats_stacked(const void* alphas, const void* betas, const void* pair
                           (cudaStream_t)stream);
 }
 
-// T2-T4 (the pair-composition variants).  T2 / T3: G == 1 one thread a
-// chain (oh_fwd_strm_kernel, oh_fwd_comp_kernel); G > 1 the three launches
-// of oh_fwd_sub_kernel<., true> / oh_fwd_comp_sub_kernel (pbuf [G, 4, NL]).
+// T2-T4 (the pair-composition variants): G == 1 one thread a chain
+// (oh_fwd_strm_kernel, oh_fwd_comp_kernel; T4 oh_fwd_compsel_sub_kernel<1>
+// alone, its one sub-lane the whole chain); G > 1 the three launches of
+// oh_fwd_sub_kernel<., true> / oh_fwd_comp_sub_kernel /
+// oh_fwd_compsel_sub_kernel (pbuf [G, 4, NL]).  T4's tables take
+// comp_tables_bytes(S) of dynamic shared memory where they are read.
 int oh_fwd_strm(const void* mats, const void* lens, const void* a0, void* alphas, void* pbuf,
                 int Tp, int NL, int G, void* stream) {
   if (Tp <= 0 || NL <= 0 || G < 1 || G > SUB_LANES_MAX || G > Tp)
@@ -1929,13 +2046,30 @@ int oh_fwd_comp(const void* comp, const void* lens, const void* a0, void* alphas
 }
 
 int oh_fwd_compsel(const void* idx, const void* lens, const void* a0, const void* t2tab,
-                   const void* rtab, const void* ttab, void* alphas, int H, int NL, int S,
-                   void* stream) {
-  if (H <= 0 || NL <= 0 || S < 1 || S > COMP_MAX_S) return (int)cudaErrorInvalidValue;
+                   const void* rtab, const void* ttab, void* alphas, void* pbuf, int H, int NL,
+                   int S, int G, void* stream) {
+  if (H <= 0 || NL <= 0 || S < 1 || S > COMP_MAX_S || G < 1 || G > SUB_LANES_MAX || G > H)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
   const unsigned blocks = (unsigned)((NL + FB_THREADS - 1) / FB_THREADS);
-  oh_fwd_compsel_kernel<<<blocks, FB_THREADS, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)idx, (const int32_t*)lens, (const float*)a0, (const float*)t2tab,
-      (const float*)rtab, (const float*)ttab, (float*)alphas, H, NL, S);
+  const size_t smem = comp_tables_bytes(S);
+  const int Lh = (H + G - 1) / G;
+  const dim3 grid(blocks, (unsigned)G, 1u);
+#define COMPSEL_SUB_ARGS                                                                 \
+  (const int32_t*)idx, (const int32_t*)lens, (const float*)a0, (const float*)t2tab,       \
+      (const float*)rtab, (const float*)ttab, (float*)alphas, (float*)pbuf, H, NL, S, G, Lh
+  if (G == 1) {  // phase 1 alone: sub-lane 0 is the whole chain, from a0
+    oh_fwd_compsel_sub_kernel<1><<<grid, FB_THREADS, smem, st>>>(COMPSEL_SUB_ARGS);
+    return (int)cudaGetLastError();
+  }
+  oh_fwd_compsel_sub_kernel<0><<<grid, FB_THREADS, smem, st>>>(COMPSEL_SUB_ARGS);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  oh_fwd_compsel_sub_kernel<1><<<grid, FB_THREADS, smem, st>>>(COMPSEL_SUB_ARGS);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  oh_fwd_compsel_sub_kernel<2><<<grid, FB_THREADS, 0, st>>>(COMPSEL_SUB_ARGS);
+#undef COMPSEL_SUB_ARGS
   return (int)cudaGetLastError();
 }
 

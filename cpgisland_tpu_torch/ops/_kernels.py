@@ -64,7 +64,7 @@ _SIGNATURES = {
     "oh_seq_stats_stacked": ("fb_onehot", 14, ("Tp", "NL", "S", "K", "Tt", "SPB", "M")),
     "oh_fwd_strm": ("fb_onehot", 5, ("Tp", "NL", "G")),
     "oh_fwd_comp": ("fb_onehot", 5, ("H", "NL", "G")),
-    "oh_fwd_compsel": ("fb_onehot", 7, ("H", "NL", "S")),
+    "oh_fwd_compsel": ("fb_onehot", 8, ("H", "NL", "S", "G")),
     "oh_loglik": ("loglik", 4, ("Tp", "NL", "nreal", "G", "LB", "M")),
     "fb_loglik": ("loglik", 5, ("Tp", "NL", "K", "S", "G", "LB")),
     "dense_products": ("viterbi_dense", 4, ("bk", "nb", "K", "S")),

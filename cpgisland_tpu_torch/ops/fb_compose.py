@@ -28,12 +28,12 @@ lane's length).
   streams (:func:`composed_streams`): T2, R and T_even.  It runs in B9's
   G = ``fb_onehot.sublanes(Tp)`` sub-lanes of ceil(H / G) double steps
   (:func:`_comp_sublanes_plain`), one chain at G = 1.
-- T4 :func:`oh_fwd_compsel` (replaces ``_fwd_compsel_kernel``): T3's one
-  chain with the composed matrices looked up in the kernel from the tables
-  of :func:`composed_tables`, keyed by two index streams
-  (:func:`compsel_index`).  Its table rows are built with T3's own
-  elementwise formula, so its alphas equal T3's in one sub-lane bit for
-  bit.
+- T4 :func:`oh_fwd_compsel` (replaces ``_fwd_compsel_kernel``): T3's
+  chain, in T3's sub-lanes at T3's G, with the composed matrices looked up
+  in the kernel from the tables of :func:`composed_tables`, keyed by two
+  index streams (:func:`compsel_index`).  Its table rows are built with
+  T3's own elementwise formula, so on chained pairs its alphas equal T3's
+  bit for bit at every G.
 
 Each lane's double step 0 takes an identity even half: alpha_0 is the
 entering vector, so only T_1 applies there.  The composed variants need an
@@ -192,7 +192,7 @@ def oh_fwd_comp_plain(comp: torch.Tensor, lens2: torch.Tensor,
 
 def _comp_chain_plain(comp: torch.Tensor, lens2: torch.Tensor,
                       a0_red: torch.Tensor) -> torch.Tensor:
-    """T3 in one chain (and T4's chain) -> alphas2 [2H, 2, NL]: the chain of
+    """T3 (and T4) in one chain -> alphas2 [2H, 2, NL]: the chain of
     ``_fwd_comp_kernel`` op for op, over [2, NL] tensors, one Python step a
     double step (t = 2h, v the carry): inv = 1 / (v0 + v1); w = v . TE; i =
     where(t < len, w * inv, v), the entering vector at t == 0; den = v . R;
@@ -267,7 +267,10 @@ def _comp_sublanes_plain(comp: torch.Tensor, lens2: torch.Tensor, a0_red: torch.
 def _gather_comp(idx: torch.Tensor, t2tab: torch.Tensor, rtab: torch.Tensor,
                  ttab: torch.Tensor) -> torch.Tensor:
     """The [10, H, NL] composed streams that T4's index streams select (the
-    indices clamped into the tables, as the kernel clamps them)."""
+    indices clamped into the tables, as the kernel clamps them).  The clamp
+    is a guard of the port alone: the JAX bench's ``_sel_rows`` selects zero
+    rows for an index outside a table.  :func:`compsel_index` never makes
+    one, so on the bench's inputs the two agree."""
     trip = idx[0].clamp(0, t2tab.shape[0] - 1).long()
     pe = idx[1].clamp(0, rtab.shape[0] - 1).long()
     return torch.cat([t2tab.T[:, trip], rtab.T[:, pe], ttab.T[:, pe]])
@@ -276,10 +279,11 @@ def _gather_comp(idx: torch.Tensor, t2tab: torch.Tensor, rtab: torch.Tensor,
 def oh_fwd_compsel_plain(idx: torch.Tensor, lens2: torch.Tensor, a0_red: torch.Tensor,
                          t2tab: torch.Tensor, rtab: torch.Tensor,
                          ttab: torch.Tensor) -> torch.Tensor:
-    """Plain version of T4 -> alphas2 [2H, 2, NL]: the rows that ``idx`` [2,
-    H, NL] selects from the tables of :func:`composed_tables`, through T3's
-    one chain (:func:`_comp_chain_plain`)."""
-    return _comp_chain_plain(_gather_comp(idx, t2tab, rtab, ttab), lens2, a0_red)
+    """Plain version of T4 -> alphas2 [2H, 2, NL]: T3's plain version
+    (:func:`oh_fwd_comp_plain`, sub-lanes at ``fb_onehot.sublanes(2H)``)
+    over the rows that ``idx`` [2, H, NL] selects from the tables of
+    :func:`composed_tables`."""
+    return oh_fwd_comp_plain(_gather_comp(idx, t2tab, rtab, ttab), lens2, a0_red)
 
 
 # ---------------------------------------------------------------------------
@@ -332,9 +336,11 @@ def oh_fwd_comp(comp: torch.Tensor, lens2: torch.Tensor, a0_red: torch.Tensor) -
 def oh_fwd_compsel(idx: torch.Tensor, lens2: torch.Tensor, a0_red: torch.Tensor,
                    t2tab: torch.Tensor, rtab: torch.Tensor, ttab: torch.Tensor) -> torch.Tensor:
     """Kernel T4 (replaces ``tools/bench_compose.py::_fwd_compsel_kernel``)
-    -> alphas2 [2H, 2, NL] f32.  Arguments as :func:`oh_fwd_compsel_plain`;
-    the tables are those of :func:`composed_tables` for S <=
-    MAX_COMP_SYMBOLS symbols (the kernel keeps them in shared memory)."""
+    -> alphas2 [2H, 2, NL] f32, the lane in T3's ``fb_onehot.sublanes(2H)``
+    sub-lanes (their products in a [G, 4, NL] scratch).  Arguments as
+    :func:`oh_fwd_compsel_plain`; the tables are those of
+    :func:`composed_tables` for S <= MAX_COMP_SYMBOLS symbols (the kernel
+    keeps them in shared memory)."""
     H, NL = _check_lanes(idx, 2, _I32, lens2, a0_red, (t2tab, rtab, ttab))
     S = math.isqrt(rtab.shape[0] - 1)
     n_pe = S * S + 1
@@ -345,7 +351,9 @@ def oh_fwd_compsel(idx: torch.Tensor, lens2: torch.Tensor, a0_red: torch.Tensor,
         raise ValueError(f"composed tables of {S} symbols: at most {MAX_COMP_SYMBOLS}")
     if idx.device.type == "cpu":
         return oh_fwd_compsel_plain(idx, lens2, a0_red, t2tab, rtab, ttab)
+    G = FB.sublanes(2 * H)
     alphas = torch.empty((2 * H, GROUP, NL), dtype=_F32, device=idx.device)
-    _kernels.launch("oh_fwd_compsel", idx, lens2, a0_red, t2tab, rtab, ttab, alphas, H=H,
-                    NL=NL, S=S)
+    pbuf = torch.empty((G, 4, NL) if G > 1 else (1,), dtype=_F32, device=idx.device)
+    _kernels.launch("oh_fwd_compsel", idx, lens2, a0_red, t2tab, rtab, ttab, alphas, pbuf, H=H,
+                    NL=NL, S=S, G=G)
     return alphas

@@ -18,11 +18,11 @@ depth.  The inputs are ``--mib`` Mi random symbols of the flagship's
 - ``composed-sel`` (T4): T3's chain with the composed matrices looked up in
   the kernel from tables (``fb_compose.oh_fwd_compsel``).
 
-T1, T2 and T3 run each lane as B9's G = ``fb_onehot.sublanes(--lane-T)``
+All four run each lane as B9's G = ``fb_onehot.sublanes(--lane-T)``
 sub-lanes (16 at the default 65,536 steps, 4 at 16,384, 1 at 4,096) joined
 by exact messages, so T1 against T2 (a table lookup against a streamed
-matrix) and T1 against T3 (one step against two) compare at equal
-parallelism; T4 runs one chain a lane.
+matrix), T1 against T3 (one step against two) and T3 against T4 (streamed
+composed matrices against looked-up ones) compare at equal parallelism.
 
 Each is first gated against the single-step plain reference, the
 sequential chain at every lane length (``fb_onehot.fwd_chain_plain``, the

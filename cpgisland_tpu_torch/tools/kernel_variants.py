@@ -91,12 +91,14 @@ variant changes nothing in the package.  On the card only, by group:
 
 - ``compose``: the compose bench's chains (``csrc/fb_onehot.cu``) through
   their C entries on its 64 Mi seeded symbols as 1,024 x 65,536 and 4,096 x
-  16,384: T1 (B9), T2 and T3 at G = 1 (one chain a lane, the parent layout
-  of T2 and T3), 8, 16 and 32 sub-lanes (:data:`COMPOSE_G`), on the shipped
-  build, with T2 and T3's float streams read 16 rows ahead (``ahead16``)
-  and, unchecked, with every alpha store behind a test no lane passes
-  (``diag_nostore``): T2 bit for bit T1 at each G, T3's largest relative
-  difference from the sequential chain.
+  16,384: T1 (B9), T2, T3 and T4 at G = 1 (one chain a lane, the parent
+  layout of T2-T4), 8, 16 and 32 sub-lanes (:data:`COMPOSE_G`), on the
+  shipped build, with T2 and T3's float streams read 16 rows ahead
+  (``ahead16``), T4's index streams read 8 and 32 double steps ahead
+  (``t4_ahead8``, ``t4_ahead32``) and, unchecked, with every alpha store
+  behind a test no lane passes (``diag_nostore``): T2 bit for bit T1 and
+  T4 bit for bit T3 at each G, T3's largest relative difference from the
+  sequential chain.
 
 Each variant's outputs are held against its group's unchanged build (bit
 for bit for B16, B18, B19, B13 and the decode chains, within rtol 1e-5 / atol 1e-3 for the B5 layouts;
@@ -1843,6 +1845,9 @@ VARIANTS = {
     "compose/base": ("fb_onehot", []),
     "compose/ahead16": ("fb_onehot", [("#define STRM_AHEAD 8", "#define STRM_AHEAD 16")]),
     "compose/diag_nostore": ("fb_onehot", [_NOSTORE_FWD, _NOSTORE_COMP]),
+    "compose/t4_ahead8": ("fb_onehot", [("#define COMPSEL_AHEAD 16", "#define COMPSEL_AHEAD 8")]),
+    "compose/t4_ahead32": ("fb_onehot", [("#define COMPSEL_AHEAD 16",
+                                          "#define COMPSEL_AHEAD 32")]),
     "decode/dense_prod_min8": ("viterbi_dense", [(
         "template <int K, int R>\n__global__ void __launch_bounds__(PROD_THREADS)\n"
         "dense_products_kernel",
@@ -1864,6 +1869,7 @@ PTXAS_OF = {"dense": ("_Z17fb_fwd_sub_kernelILi2E", "_Z17fb_bwd_sub_kernelILi2E"
             "stats": ("_Z24oh_seq_stats_part_kernel", "_Z20oh_stats_part_kernel"),
             "compose": ("_Z17oh_fwd_sub_kernel", "_Z18oh_fwd_strm_kernel",
                         "_Z18oh_fwd_comp_kernel", "_Z22oh_fwd_comp_sub_kernel",
+                        "_Z25oh_fwd_compsel_sub_kernel",
                         "_Z13oh_fwd_kernel"),
             "decode": ("_Z22oh_backpointers_kernel", "_Z25dense_backpointers_kernel",
                        "_Z21dense_products_kernel",
@@ -2372,38 +2378,40 @@ def run_decode(name, lib, inputs, ref) -> dict:
     return row
 
 
-# T1 (B9), T2 and T3 at the compose bench's 64 Mi symbols as (lanes, steps),
-# each at these G (G = 1: the one-chain kernels, the parent layout of T2 / T3).
+# T1 (B9) and T2-T4 at the compose bench's 64 Mi symbols as (lanes, steps),
+# each at these G (G = 1: the one-chain kernels, the parent layout of T2-T4).
 COMPOSE_SHAPES = ((1024, 65536), (4096, 16384))
 COMPOSE_G = (1, 8, 16, 32)
 
 
 def compose_inputs(dev) -> dict:
-    """(lanes, steps) -> the bench's seeded operands of T1-T3 and the
+    """(lanes, steps) -> the bench's seeded operands of T1-T4 and the
     alphas / products scratch."""
     from cpgisland_tpu_torch.ops import fb_compose as FC
     from cpgisland_tpu_torch.tools import bench_compose as BC
 
     tab, tab_ext = BC.pair_tables(dev)
+    tables = FC.composed_tables(tab)
     out = {}
     for NL, Tp in COMPOSE_SHAPES:
         pair2, lens2, a0 = BC.inputs(NL * Tp, Tp, dev)
         out[(NL, Tp)] = dict(
             pair2=pair2, lens2=lens2, a0=a0, tab_ext=tab_ext, mats=FC.mat_streams(tab, pair2),
-            comp=FC.composed_streams(tab, pair2),
+            comp=FC.composed_streams(tab, pair2), idx=FC.compsel_index(pair2, 4), tables=tables,
             alphas=torch.empty((Tp, 2, NL), device=dev),
             pbuf=torch.empty((max(COMPOSE_G), 4, NL), device=dev))
     return out
 
 
 def run_compose(name, lib, inputs, ref) -> dict:
-    """T1 (``oh_fwd``), T2 (``oh_fwd_strm``) and T3 (``oh_fwd_comp``) of the
-    variant through their C entries at each shape and each of COMPOSE_G: ms,
-    T2 bit for bit T1 at the same G, each kernel bit for bit the shipped
-    build's at the same G (``ref``), and T3's largest relative difference
-    from T1 at G = 1 (the sequential chain)."""
+    """T1 (``oh_fwd``), T2 (``oh_fwd_strm``), T3 (``oh_fwd_comp``) and T4
+    (``oh_fwd_compsel``) of the variant through their C entries at each
+    shape and each of COMPOSE_G: ms, T2 bit for bit T1 and T4 bit for bit
+    T3 at the same G, each kernel bit for bit the shipped build's at the
+    same G (``ref``), and T3's largest relative difference from T1 at G = 1
+    (the sequential chain)."""
     fns = {"t1": c_fn(lib, "oh_fwd", 6, 4), "t2": c_fn(lib, "oh_fwd_strm", 5, 3),
-           "t3": c_fn(lib, "oh_fwd_comp", 5, 3)}
+           "t3": c_fn(lib, "oh_fwd_comp", 5, 3), "t4": c_fn(lib, "oh_fwd_compsel", 8, 4)}
     checked = not name.startswith("compose/diag")
     row = {"variant": name}
     for (NL, Tp), x in inputs.items():
@@ -2413,7 +2421,9 @@ def run_compose(name, lib, inputs, ref) -> dict:
             "t2": lambda G: fns["t2"]([x["mats"], x["lens2"], x["a0"], x["alphas"], x["pbuf"]],
                                       [Tp, NL, G]),
             "t3": lambda G: fns["t3"]([x["comp"], x["lens2"], x["a0"], x["alphas"], x["pbuf"]],
-                                      [Tp // 2, NL, G])}
+                                      [Tp // 2, NL, G]),
+            "t4": lambda G: fns["t4"]([x["idx"], x["lens2"], x["a0"], *x["tables"], x["alphas"],
+                                       x["pbuf"]], [Tp // 2, NL, 4, G])}
         for G in COMPOSE_G:
             outs = {}
             for k, call in calls.items():
@@ -2431,6 +2441,7 @@ def run_compose(name, lib, inputs, ref) -> dict:
             if not checked:
                 continue
             row[f"{NL}x{Tp}_G{G}_t2_equals_t1"] = torch.equal(outs["t2"], outs["t1"])
+            row[f"{NL}x{Tp}_G{G}_t4_equals_t3"] = torch.equal(outs["t4"], outs["t3"])
             if G == 1:
                 ref[(NL, Tp, "seq")] = outs["t1"]
             seq = ref[(NL, Tp, "seq")]

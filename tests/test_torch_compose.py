@@ -15,7 +15,7 @@ relations are exact.  The script's stream and table helpers are closures
 inside its ``main``, so the tests below transcribe its lines (cited) onto
 the JAX table rather than import them.
 
-T2 and T3 run in B9's sub-lanes (``fb_onehot.sublanes``); 4,096-step lanes
+T2-T4 run in B9's sub-lanes (``fb_onehot.sublanes``); 4,096-step lanes
 are one sub-lane.  The sub-lane tests lower ``fb_onehot.SUBLANE_T`` so that
 lanes of 8,194 and 4,096 steps run as 8 and 4 sub-lanes, with lengths on
 every side of the sub-lane boundaries.
@@ -222,7 +222,7 @@ def test_wrappers_refuse_wrong_dtypes_and_shapes(case):
             call()
 
 
-# -- T2 and T3 in B9's sub-lanes
+# -- T2-T4 in B9's sub-lanes
 #
 # fb_onehot.SUBLANE_T is lowered so that the lanes run as G sub-lanes: G = 8
 # on 8,194 steps (L = 1,025 and, for T3, Lh = 513 double steps: neither
@@ -309,7 +309,7 @@ def test_comp_sublanes_plain_is_its_phases(sub_case, monkeypatch):
 
 def test_comp_one_sublane_is_the_one_chain_and_t4(sub_case, monkeypatch):
     """With one sub-lane (SUBLANE_T = Tp) T3's plain version is the one
-    chain bit for bit, and T4's equals it."""
+    chain bit for bit, and T4's equals it (T4's G = 1 is the one chain)."""
     _, _, want, t = sub_case
     Tp = t["pair2"].shape[0]
     monkeypatch.setattr(TFB, "SUBLANE_T", Tp)
@@ -332,9 +332,55 @@ def test_cpu_wrappers_take_the_sublane_plain_versions(sub_case, monkeypatch):
                                                     a0[None], G)[0])
     assert torch.equal(FC.oh_fwd_comp(comp, lens2, a0),
                        FC._comp_sublanes_plain(comp, lens2, a0, G))
-    # T4 stays one chain: equal to T3 in one sub-lane, whatever SUBLANE_T.
+    # T4 runs T3's sub-lanes: equal to T3 at the same G.
     sel = FC.oh_fwd_compsel(FC.compsel_index(pair2, S), lens2, a0, *FC.composed_tables(tab))
-    assert torch.equal(sel, FC._comp_chain_plain(comp, lens2, a0))
+    assert torch.equal(sel, FC._comp_sublanes_plain(comp, lens2, a0, G))
+
+
+def test_compsel_rows_are_t3_streams(sub_case):
+    """The rows T4's indices select from its tables (``_gather_comp``) are
+    T3's ten streams bit for bit on chained pairs, double step 0's identity
+    even half included."""
+    _, _, _, t = sub_case
+    rows = FC._gather_comp(FC.compsel_index(t["pair2"], S), *FC.composed_tables(t["tab"]))
+    assert torch.equal(rows, FC.composed_streams(t["tab"], t["pair2"]))
+
+
+def test_compsel_sublanes_plain_equals_t3_sublanes_plain(sub_case, monkeypatch):
+    """T4's plain version runs T3's sub-lanes at T3's G: bit for bit
+    ``_comp_sublanes_plain`` on T3's streams, and within the file's gate
+    (1e-5) of ``_xla_fwd_onehot``."""
+    st, G, want, t = sub_case
+    monkeypatch.setattr(TFB, "SUBLANE_T", st)
+    sel = FC.oh_fwd_compsel_plain(FC.compsel_index(t["pair2"], S), t["lens2"], t["a0"],
+                                  *FC.composed_tables(t["tab"]))
+    comp = FC.composed_streams(t["tab"], t["pair2"])
+    assert torch.equal(sel, FC._comp_sublanes_plain(comp, t["lens2"], t["a0"], G))
+    err = _gate(sel.numpy(), want)
+    assert err < 1e-5, err
+
+
+def test_compsel_plain_clamps_indices_into_the_tables(sub_case, monkeypatch):
+    """Indices outside the tables (negative, past the last row) select the
+    first and the last row, as the kernel clamps them, in sub-lanes and in
+    one.  The clamp is a guard of the port alone: the JAX bench's
+    ``_sel_rows`` selects zero rows there, and ``compsel_index`` never
+    makes such an index, so this holds the port against itself."""
+    st, _, _, t = sub_case
+    tables = FC.composed_tables(t["tab"])
+    idx = FC.compsel_index(t["pair2"], S)
+    rng = np.random.default_rng(idx.shape[1])
+    hit = rng.random(idx.shape) < 0.05
+    junk = torch.from_numpy(np.where(hit, rng.integers(-500, 500, size=idx.shape),
+                                     idx.numpy()).astype(np.int32))
+    lasts = np.array([tables[0].shape[0] - 1, tables[1].shape[0] - 1])[:, None, None]
+    clipped = torch.from_numpy(np.clip(junk.numpy(), 0, lasts).astype(np.int32))
+    assert not torch.equal(junk, clipped)
+    for length in (st, t["pair2"].shape[0]):
+        monkeypatch.setattr(TFB, "SUBLANE_T", length)
+        got = FC.oh_fwd_compsel_plain(junk, t["lens2"], t["a0"], *tables)
+        assert torch.equal(got, FC.oh_fwd_compsel_plain(clipped, t["lens2"], t["a0"], *tables))
+        assert torch.isfinite(got).all()
 
 
 # -- the bench

@@ -1432,10 +1432,11 @@ def _compose_case(rng, T, NL, device):
 @pytest.mark.parametrize("T,NL,st", [(8, 1, None), (4098, 33, None), (8194, 33, None),
                                      (8194, 33, 1000), (65536, 1024, None)])
 def test_compose_kernels_bit_equal(cuda_device, monkeypatch, T, NL, st):
-    """T2, T3 and T4 equal their plain versions bit for bit; T2 and T3 run
-    in B9's sub-lanes (G = ``fb_onehot.sublanes(T)``: 1, 1, 2, 8 with
-    1,000-step sub-lanes, 16), T2 equals B9 at B9's G, and T4 equals T3
-    in one sub-lane; each wrapper counts one launch."""
+    """T2, T3 and T4 equal their plain versions bit for bit in B9's
+    sub-lanes (G = ``fb_onehot.sublanes(T)``: 1, 1, 2, 8 with 1,000-step
+    sub-lanes, 16), T2 equals B9 and T4 equals T3 at the same G, and T4's
+    one-chain kernel equals T3's (G = 1); each wrapper counts one
+    launch."""
     from cpgisland_tpu_torch.ops import fb_compose as FC
     from cpgisland_tpu_torch.ops import fb_onehot as FB
 
@@ -1456,8 +1457,55 @@ def test_compose_kernels_bit_equal(cuda_device, monkeypatch, T, NL, st):
     assert torch.equal(c, FC.oh_fwd_comp_plain(comp, lens2, a0))
     assert torch.equal(sel, FC.oh_fwd_compsel_plain(idx, lens2, a0, *tables))
     assert torch.equal(strm, FB.oh_fwd(pair2, lens2, a0, tab_ext))
+    assert torch.equal(sel, c)
     monkeypatch.setattr(FB, "SUBLANE_T", T)
-    assert torch.equal(sel, FC.oh_fwd_comp(comp, lens2, a0))
+    sel1 = FC.oh_fwd_compsel(idx, lens2, a0, *tables)
+    assert torch.equal(sel1, FC.oh_fwd_comp(comp, lens2, a0))
+    assert torch.equal(sel1, FC._comp_chain_plain(comp, lens2, a0))
+
+
+@pytest.mark.parametrize("T,NL,st", [(4098, 33, None), (8194, 33, 1000)])
+def test_compsel_kernel_clamps_indices_into_the_tables(cuda_device, monkeypatch, T, NL, st):
+    """T4's kernels (G = 1, and G = 8 with 1,000-step sub-lanes) on indices
+    outside the tables, negative and past the last row, equal the plain
+    version, which clamps them (``_gather_comp``).  The clamp is the port's
+    own guard (the JAX bench selects zero rows there; ``compsel_index``
+    never makes such an index)."""
+    from cpgisland_tpu_torch.ops import fb_compose as FC
+    from cpgisland_tpu_torch.ops import fb_onehot as FB
+
+    if st is not None:
+        monkeypatch.setattr(FB, "SUBLANE_T", st)
+    rng = np.random.default_rng(T + 7)
+    tab, _, pair2, lens2, a0 = _compose_case(rng, T, NL, cuda_device)
+    idx, tables = FC.compsel_index(pair2, 4), FC.composed_tables(tab)
+    hit = torch.from_numpy(rng.random(tuple(idx.shape)) < 0.05).to(cuda_device)
+    junk = torch.from_numpy(rng.integers(-500, 500, size=tuple(idx.shape)).astype(np.int32))
+    idx = torch.where(hit, junk.to(cuda_device), idx).contiguous()
+    assert (idx < 0).any() and (idx[0] >= tables[0].shape[0]).any()
+    got = FC.oh_fwd_compsel(idx, lens2, a0, *tables)
+    assert torch.equal(got, FC.oh_fwd_compsel_plain(idx, lens2, a0, *tables))
+    assert torch.isfinite(got).all()
+
+
+def test_compsel_entry_refuses_bad_sublane_counts(cuda_device):
+    """T4's C entry refuses G < 1, G above its 32 sub-lanes and G above the
+    double steps H, as T3's does."""
+    from cpgisland_tpu_torch.ops import fb_compose as FC
+
+    H, NL = 4, 8
+    tab, _, pair2, lens2, a0 = _compose_case(np.random.default_rng(3), 2 * H, NL, cuda_device)
+    idx, tables = FC.compsel_index(pair2, 4), FC.composed_tables(tab)
+    alphas = torch.empty((2 * H, 2, NL), device=cuda_device)
+    pbuf = torch.empty((64, 4, NL), device=cuda_device)
+    for G in (0, H + 1, 33):
+        with pytest.raises(RuntimeError, match="oh_fwd_compsel"):
+            _kernels.launch("oh_fwd_compsel", idx, lens2, a0, *tables, alphas, pbuf, H=H, NL=NL,
+                            S=4, G=G)
+    _kernels.launch("oh_fwd_compsel", idx, lens2, a0, *tables, alphas, pbuf, H=H, NL=NL, S=4, G=H)
+    torch.cuda.synchronize()
+    assert torch.equal(alphas, FC._comp_sublanes_plain(FC.composed_streams(tab, pair2), lens2,
+                                                       a0, H))
 
 
 def test_compose_bench_on_the_card(cuda_device, capsys):
