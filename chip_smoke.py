@@ -9,7 +9,8 @@ on the card, drives the decode, training and posterior main paths end to
 end (a seeded chromosome-sized FASTA) and checks the results.  Phases, one
 JSON line each:
 
-1. card: name and power limit, kernel build time, and (its own line) the
+1. card: name and power limit, kernel build time, the host codec's build
+   time (g++, ``utils/native.py``), and (its own line) the
    ptxas registers and spills of the kernels redesigned (B4, B24, B17, B7
    / B21, B18 and B16 with their sub-lane and state-split kernels, B5's
    part kernel, the scoring kernels, B9 / B22 and B10 / B23, one chain
@@ -231,7 +232,33 @@ JSON line each:
    beside their G = 1 kernels, and the whole
    variant (streams built) beside it; then the bench itself,
    ``tools/bench_compose.main(["--mib", "64"])``: its JSON line, and the
-   launch counters moved by exactly the calls it reports.
+   launch counters moved by exactly the calls it reports;
+37. encode: the genome encoded on the host three ways (clean whole file,
+   records, compat) through the native codec (``csrc/codec.cpp``, built
+   with g++ into ``build/torch_native/``) and through the NumPy path
+   (``CPGISLAND_NATIVE=0``), byte for byte, each timed, with the host's
+   ``os.cpu_count()``;
+38. symbol_cache: a clean decode of the genome through a symbol cache,
+   cold (built) then warm (read): island files equal to phase 3's uncached
+   clean decode byte for byte, B1-B3 launched, encode and wall seconds;
+39. run_models: ``pipeline.run`` with ``params=two_state``,
+   ``island_states=(0,)``, ``compat=False``, 5 iterations on the genome
+   (B16, B18, B20 exactly 5 each, B13-B15 for the decode; train and decode
+   phases printed), then on phase 5's small FASTA on the CPU and on the
+   card: identical island files, model dumps within atol 1e-5;
+40. generic_estep: the generic "xla" E-step through ``baum_welch.fit``
+   over 256 chunks of 4 Ki on the card and on the CPU, two iterations of
+   the device loop each, for a seeded dense K = 10 model
+   (``engine="auto"`` resolves to "xla") and the flagship in the log
+   numerics: the fits within the EM parity bound (logliks rtol 1e-5,
+   probabilities atol 1e-5; the log numerics' own bound for the
+   flagship), 0 synchronizing CUDA calls in the card's EM loop, seconds an
+   iteration on each; then ``train_file(mode="log")`` on the genome at
+   the main path's 64 Ki chunks, one iteration, and the K = 10 model's
+   ``train_file(engine="auto")`` there too: no kernel launched, the
+   flagship's loglik within TRAIN_CHUNK x 2^-24 (relative) of phase 4's
+   clean fit on the reduced kernels, seconds an iteration and peak device
+   memory of each.
 
 Phase 2 also holds B6 (the score-threading backpointer kernel) bit for bit
 against its plain version on B2's flat stream, with B2's outputs equal to
@@ -250,6 +277,7 @@ import argparse
 import contextlib
 import io
 import json
+import math
 import os
 import statistics
 import sys
@@ -278,7 +306,7 @@ from cpgisland_tpu_torch.parallel.posterior import posterior_sharded, resolve_fb
 from cpgisland_tpu_torch.train import baum_welch
 from cpgisland_tpu_torch.tools import bench_compose as BC
 from cpgisland_tpu_torch.train.backends import FamilyEStep, LocalBackend, fit_family
-from cpgisland_tpu_torch.utils import chunking, codec
+from cpgisland_tpu_torch.utils import chunking, codec, native
 
 BK, NB = 4096, 16384  # the default block; 64 Mi steps
 FB_NL, FB_TP = 1024, chunking.TRAIN_CHUNK  # B4/B5: 1024 chunks of 65,536 steps
@@ -4116,6 +4144,281 @@ def compose_phase(dev) -> tuple:
     return rows, launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 37-40: the input layer (native codec, symbol caches), run with any
+# model, and the generic E-step
+
+
+@contextlib.contextmanager
+def numpy_codec():
+    """The codec's NumPy path, selected explicitly (CPGISLAND_NATIVE=0)."""
+    old = os.environ.get("CPGISLAND_NATIVE")
+    os.environ["CPGISLAND_NATIVE"] = "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["CPGISLAND_NATIVE"]
+        else:
+            os.environ["CPGISLAND_NATIVE"] = old
+
+
+def _same_encode(a, b) -> bool:
+    if isinstance(a, list):
+        return (len(a) == len(b) and all(n == m and x.dtype == y.dtype == np.uint8
+                                          and np.array_equal(x, y)
+                                          for (n, x), (m, y) in zip(a, b)))
+    return a.dtype == b.dtype == np.uint8 and np.array_equal(a, b)
+
+
+def encode_phase(fa: str) -> None:
+    """The genome encoded on the host three ways (clean whole file: clean
+    training's; records: clean decode's, posterior's and compare's; compat:
+    compat decode's and training's), native and NumPy, byte for byte."""
+    calls = (("clean", lambda: codec.encode_file(fa, skip_headers=True)),
+             ("records", lambda: list(codec.iter_fasta_records(fa))),
+             ("compat", lambda: codec.encode_file(fa, skip_headers=False)))
+    rows = {}
+    for label, fn in calls:
+        t0 = time.perf_counter()
+        got = fn()
+        native_s = time.perf_counter() - t0
+        with numpy_codec():
+            t0 = time.perf_counter()
+            want = fn()
+            numpy_s = time.perf_counter() - t0
+        n = sum(s.size for _, s in got) if isinstance(got, list) else got.size
+        rows[label] = {"native_s": native_s, "numpy_s": numpy_s, "symbols": int(n),
+                       "equal": _same_encode(got, want)}
+        del got, want
+    emit({"phase": "encode", "cpu_count": os.cpu_count(), "fasta_bytes": os.path.getsize(fa),
+          "paths": rows})
+    if not all(r["equal"] for r in rows.values()):
+        raise SystemExit("chip_smoke: the native codec and the NumPy codec disagree")
+
+
+def symbol_cache_phase(params, fa: str, tmp: str, dev) -> dict:
+    """A clean decode of the genome through a symbol cache, cold (built)
+    then warm (read): each island file equal to phase 3's uncached clean
+    decode byte for byte, B1-B3 launched in each run."""
+    with open(os.path.join(tmp, "islands.clean.device.txt")) as f:
+        want = f.read()
+    prefix = os.path.join(tmp, "genome.cache")
+    launches = {k: 0 for k in DECODE_KERNELS}
+    for label in ("cold", "warm"):
+        out = os.path.join(tmp, f"islands.cache.{label}.txt")
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = pipeline.decode_file(fa, params, islands_out=out, compat=False,
+                                   symbol_cache=prefix, device=dev)
+        wall = time.perf_counter() - t0
+        counts = {k: _kernels.launches[k] for k in DECODE_KERNELS}
+        with open(out) as f:
+            identical = f.read() == want
+        emit({"phase": "symbol_cache", "run": label, "wall_s": wall,
+              "encode_s": res.phases["encode"], "phases_s": res.phases,
+              "symbols": res.n_symbols, "cache_bytes": os.path.getsize(prefix + ".symbols.npy"),
+              "identical": identical, "launches": counts})
+        if not identical or not all(counts.values()):
+            raise SystemExit(f"chip_smoke: the {label} cached decode differs from the uncached "
+                             f"one or launched {counts}")
+        for k in DECODE_KERNELS:
+            launches[k] += counts[k]
+    return launches
+
+
+def run_models_phase(fa: str, tmp: str, dev) -> dict:
+    """pipeline.run with params=two_state, island_states=(0,), compat=False
+    and TRAIN_ITERS iterations (convergence 0): on the genome (B16, B18,
+    B20 exactly TRAIN_ITERS each, B13-B15 for the decode), then on phase
+    5's small FASTA on the CPU and on the card (identical island files,
+    model dumps within atol 1e-5)."""
+    fits = []
+    real_train = pipeline.train_file
+
+    def train_spy(*a, **k):
+        fits.append(real_train(*a, **k))
+        return fits[-1]
+
+    kw = dict(island_states=(0,), compat=False)
+    isl, mod = os.path.join(tmp, "run2.islands.txt"), os.path.join(tmp, "run2.model.txt")
+    _kernels.reset_launches()
+    pipeline.train_file = train_spy
+    try:
+        t0 = time.perf_counter()
+        res = pipeline.run(fa, fa, isl, mod, 0.0, TRAIN_ITERS,
+                           params=presets.two_state_cpg(device=dev), device=dev, **kw)
+        wall = time.perf_counter() - t0
+    finally:
+        pipeline.train_file = real_train
+    counts = {k: _kernels.launches[k] for k in DENSE_TRAIN_KERNELS + DENSE_KERNELS
+              + TRAIN_KERNELS + DECODE_KERNELS}
+    check_calls(res, "run two_state")
+    fit = fits[-1]
+    emit({"phase": "run_models", "model": "two_state", "wall_s": wall, "train_s": fit.phases,
+          "decode_s": res.phases, "iterations": fit.iterations, "logliks": fit.logliks,
+          "symbols_decoded": res.n_symbols, "islands": len(res.calls), "launches": counts})
+    if (fit.iterations != TRAIN_ITERS or any(counts[k] != TRAIN_ITERS for k in DENSE_TRAIN_KERNELS)
+            or not all(counts[k] for k in DENSE_KERNELS)
+            or any(counts[k] for k in TRAIN_KERNELS + DECODE_KERNELS)):
+        raise SystemExit(f"chip_smoke: run with two_state launched {counts}")
+    small = os.path.join(tmp, "small.fa")
+    out = {}
+    for where in ("cpu", dev):
+        i2, m2 = (os.path.join(tmp, f"run2_small.{where}.{x}") for x in ("islands", "model"))
+        t0 = time.perf_counter()
+        pipeline.run(small, small, i2, m2, 0.0, TRAIN_ITERS,
+                     params=presets.two_state_cpg(device=where), device=where, **kw)
+        with open(i2) as f:
+            out[str(where)] = (f.read(), load_text(m2), time.perf_counter() - t0)
+    (isl_c, mod_c, s_c), (isl_g, mod_g, s_g) = out["cpu"], out[str(dev)]
+    d_err, close = _models_close(mod_c, mod_g)
+    emit({"phase": "run_models_cpu_vs_cuda", "islands_identical": isl_c == isl_g,
+          "lines": isl_g.count("\n"), "max_dump_err": d_err, "cpu_s": s_c, "card_s": s_g})
+    if not (isl_c == isl_g and close and isl_g):
+        raise SystemExit("chip_smoke: run with two_state on the CPU and on the card disagree")
+    return {k: counts[k] for k in DENSE_TRAIN_KERNELS + DENSE_KERNELS}
+
+
+GENERIC_SYMBOLS = 1 << 20  # 256 chunks of 4 Ki
+GENERIC_CHUNK = 4096
+GENERIC_ITERS = 2
+GENOME_XLA_ITERS = 1
+
+
+def _log_atol(params, chunked) -> float:
+    """The log numerics' EM bound: max(1e-5, 2 ulp of the largest chunk
+    loglik, relative) (tests/test_torch_generic_engines.py)."""
+    from cpgisland_tpu_torch.ops import forward_backward as FWB
+
+    obs_c, valid = FWB._masks(params, torch.from_numpy(chunked.chunks),
+                              torch.from_numpy(chunked.lengths))
+    _, cs = FWB._rescaled_forward(params, obs_c, valid)
+    per = torch.sum(torch.where(valid, torch.log(cs), 0.0), 1)
+    return max(1e-5, 2 * float(torch.max(torch.abs(per))) * 2.0 ** -24)
+
+
+@contextlib.contextmanager
+def sync_window(syncs: list):
+    """The EM loop that ``baum_welch.fit`` runs (``_device_loop``) under
+    the sync debug mode: each synchronizing CUDA call inside it lands in
+    ``syncs`` (the mode's once-a-process notice that it is a prototype
+    does not)."""
+    real = baum_welch._device_loop
+
+    def watched(*a, **k):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return real(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                syncs.extend(str(w.message)[:200] for w in caught
+                             if "synchronizing CUDA operation" in str(w.message))
+
+    baum_welch._device_loop = watched
+    try:
+        yield
+    finally:
+        baum_welch._device_loop = real
+
+
+def generic_estep_phase(big: np.ndarray, dev) -> None:
+    """The generic ("xla") E-step through ``baum_welch.fit`` at 4 Ki chunks
+    on the card and on the CPU: a seeded dense K = 10 model over 4 symbols
+    with engine="auto" (which resolves to "xla"), and the flagship with
+    mode="log"; GENERIC_ITERS iterations each, the card's after a warm
+    one-iteration fit, with the synchronizing CUDA calls of its EM loop
+    counted, within the EM parity bound of the CPU fit (the log numerics'
+    own bound for the flagship)."""
+    from cpgisland_tpu_torch.train.backends import resolve_fb_engine as train_engine
+
+    chunked = chunking.frame(big[:GENERIC_SYMBOLS], GENERIC_CHUNK)
+    wide = presets.random_hmm(torch.Generator().manual_seed(10), 10, 4)
+    for label, params, mode in (("dense_k10", wide, "rescaled"),
+                                ("flagship_log", presets.durbin_cpg8(), "log")):
+        if train_engine("auto", params, mode) != "xla":
+            raise SystemExit(f"chip_smoke: auto does not resolve {label} to the xla engine")
+        res = {}
+        for where in ("cpu", dev):
+            p = params.to(where)
+            backend = LocalBackend(mode=mode, engine="auto")
+            syncs: list = []
+            if torch.device(where).type == "cuda":
+                # Warm: the first fit allocates (pinned rows, the caching allocator).
+                baum_welch.fit(p, chunked, num_iters=1, convergence=0.0, backend=backend)
+                with sync_window(syncs):
+                    fit = baum_welch.fit(p, chunked, num_iters=GENERIC_ITERS, convergence=0.0,
+                                         backend=backend)
+            else:
+                fit = baum_welch.fit(p, chunked, num_iters=GENERIC_ITERS, convergence=0.0,
+                                     backend=backend)
+            res[str(where)] = (fit, syncs, backend.resolved)
+        (fc, _, _), (fg, syncs, resolved) = res["cpu"], res[str(dev)]
+        atol = _log_atol(params, chunked) if mode == "log" else MODEL_ATOL
+        err, close = _models_close(fc.params, fg.params, atol)
+        ll_ok = np.allclose(fg.logliks, fc.logliks, rtol=1e-5, atol=0)
+        emit({"phase": "generic_estep", "workload": label, "mode": mode, "engine": resolved,
+              "chunks": chunked.num_chunks, "chunk": GENERIC_CHUNK, "iterations": fg.iterations,
+              "s_per_iter_card": fg.phases["em"] / fg.iterations,
+              "s_per_iter_cpu": fc.phases["em"] / fc.iterations,
+              "logliks_card": fg.logliks, "logliks_cpu": fc.logliks, "max_prob_err": err,
+              "atol": atol, "synchronizing_calls": len(syncs), "sync_warnings": syncs[:3]})
+        if not (close and ll_ok and fg.iterations == GENERIC_ITERS and resolved == "xla"
+                and not syncs):
+            raise SystemExit(f"chip_smoke: the generic E-step ({label}) on the card and on "
+                             "the CPU disagree, or its device loop synchronized")
+
+
+def generic_genome_phase(fa: str, dev, onehot_logliks: dict) -> None:
+    """``train_file`` on the generic "xla" engine at the main path's chunks
+    (``chunking.TRAIN_CHUNK``), clean, GENOME_XLA_ITERS iterations, for the
+    two routes a user takes to it: ``mode="log"`` with the flagship (what
+    ``train --numerics log`` pays) and ``engine="auto"`` with phase 40's
+    seeded K = 10 model.  Neither launches a kernel; the flagship's loglik
+    is phase 4's clean fit's (the reduced kernels, rescaled numerics, the
+    same model and chunks) within one float32 ulp a step of the chunk's
+    chain (TRAIN_CHUNK x 2^-24, relative; float32 logsumexp drops each
+    step's small terms, a bias the JAX package's log numerics share).
+    Prints the seconds an iteration and the peak device memory."""
+    kernels = TRAIN_KERNELS + DENSE_TRAIN_KERNELS
+    wide = presets.random_hmm(torch.Generator().manual_seed(10), 10, 4)
+    for label, params, mode in (("flagship_log", presets.durbin_cpg8(), "log"),
+                                ("dense_k10", wide, "rescaled")):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        fit = pipeline.train_file(fa, params=params, mode=mode, engine="auto", compat=False,
+                                  num_iters=GENOME_XLA_ITERS, convergence=0.0, device=dev)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        counts = {k: _kernels.launches[k] for k in kernels}
+        ok = (fit.iterations == GENOME_XLA_ITERS and not any(counts.values())
+              and all(math.isfinite(x) for x in fit.logliks)
+              and all(bool(torch.isfinite(x).all()) for x in (
+                  fit.params.log_pi, fit.params.log_A, fit.params.log_B)))
+        row = {"phase": "generic_genome", "workload": label, "mode": mode,
+               "chunk": chunking.TRAIN_CHUNK, "iterations": fit.iterations, "wall_s": wall,
+               "phases_s": fit.phases, "s_per_iter": fit.phases["em"] / fit.iterations,
+               "peak_gib": peak / 2**30, "peak_over_start_gib": (peak - base) / 2**30,
+               "logliks": fit.logliks, "launches": counts}
+        if label == "flagship_log":
+            want = onehot_logliks["clean"][0]
+            rtol = chunking.TRAIN_CHUNK * 2.0 ** -24
+            err = abs(fit.logliks[0] - want) / abs(want)
+            row |= {"reduced_kernels_loglik": want, "loglik_rel_err": err, "rtol": rtol}
+            ok = ok and err <= rtol
+        emit(row)
+        if not ok:
+            raise SystemExit(f"chip_smoke: train_file on the xla engine ({label}) on the genome "
+                             "launched a kernel, is not finite, or its loglik is not the "
+                             "reduced kernels'")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4128,8 +4431,14 @@ def main(argv=None) -> int:
     print(card, flush=True)
     t0 = time.perf_counter()
     _kernels.library()
+    build_s = time.perf_counter() - t0
+    # The host codec builds here too (g++), not inside the first encode a
+    # main path times.
+    t0 = time.perf_counter()
+    if not native.available():
+        raise SystemExit("chip_smoke: the native codec is not selected (CPGISLAND_NATIVE=0?)")
     emit({"phase": "card", "nvidia_smi": card, "kind": torch.cuda.get_device_name(0),
-          "build_s": time.perf_counter() - t0,
+          "build_s": build_s, "codec_build_s": time.perf_counter() - t0,
           "ptxas": [ln.strip() for rep in _kernels.build_info.get("nvcc_report", {}).values()
                     for ln in rep.splitlines()
                     if "registers" in ln or "Compiling entry" in ln]})
@@ -4207,6 +4516,13 @@ def main(argv=None) -> int:
         results |= compose_rows
         for k, n in compose_launches.items():
             launches[k] = launches.get(k, 0) + n
+        # The input layer, run with any model, the generic E-step.
+        encode_phase(fa)
+        for counts in (symbol_cache_phase(params, fa, tmp, dev), run_models_phase(fa, tmp, dev)):
+            for k, n in counts.items():
+                launches[k] = launches.get(k, 0) + n
+        generic_estep_phase(big, dev)
+        generic_genome_phase(fa, dev, onehot_logliks)
 
     table = []
     for name, r in results.items():

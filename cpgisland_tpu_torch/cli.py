@@ -15,25 +15,29 @@ Two forms, as ``python -m cpgisland_tpu``:
 
        python -m cpgisland_tpu_torch train FILE --model-out m.txt [--iters N] \\
            [--convergence E] [--init-model m0.txt | --preset durbin8|two_state] \\
-           [--engine auto|xla|pallas|onehot] [--backend local|spmd|seq|seq2d] \\
-           [--em-fuse auto|on|off] [--clean] [--invalid-symbols P]
+           [--engine auto|xla|pallas|onehot] [--numerics rescaled|log] \\
+           [--backend local|spmd|seq|seq2d] [--em-fuse auto|on|off] [--clean] \\
+           [--symbol-cache PREFIX] [--invalid-symbols P]
        python -m cpgisland_tpu_torch decode FILE --islands-out i.txt \\
            [--model m.txt | --preset durbin8|two_state] [--clean [--min-len N]] \\
            [--island-states 0] [--engine auto|xla|pallas|onehot] \\
            [--island-engine auto|host|device] [--island-cap N] \\
-           [--invalid-symbols skip|mask|fail]
+           [--symbol-cache PREFIX] [--invalid-symbols skip|mask|fail]
        python -m cpgisland_tpu_torch run TRAIN TEST --islands-out i.txt \\
            --model-out m.txt [--iters N] [--convergence E] [--clean] \\
-           [--backend local|spmd|seq|seq2d] [--em-fuse auto|on|off]
+           [--preset durbin8|two_state] [--island-states 0] \\
+           [--engine auto|xla|pallas|onehot] [--numerics rescaled|log] \\
+           [--backend local|spmd|seq|seq2d] [--em-fuse auto|on|off] \\
+           [--symbol-cache PREFIX]
        python -m cpgisland_tpu_torch posterior FILE [--islands-out i.txt] \\
            [--confidence-out c.npy] [--mpm-path-out p.npy] [--min-len N] \\
            [--island-states 0,1,2,3] [--model m.txt | --preset durbin8|two_state] \\
            [--engine auto|xla|pallas|onehot] [--island-engine auto|host|device] \\
-           [--island-cap N] [--invalid-symbols P]
+           [--island-cap N] [--symbol-cache PREFIX] [--invalid-symbols P]
        python -m cpgisland_tpu_torch compare FILE --out report.txt \\
            [--models durbin8,two_state,null | NAME=MODEL.txt,...] [--baseline NAME] \\
            [--min-len N] [--threshold X] [--engine auto|xla|pallas|onehot] \\
-           [--no-stacked] [--invalid-symbols P]
+           [--no-stacked] [--symbol-cache PREFIX] [--invalid-symbols P]
 
 Everything runs on the card unless ``--device cpu`` is given (the kernels'
 plain versions); that flag may stand anywhere in the arguments, the
@@ -106,6 +110,18 @@ def _add_invalid_symbols_flag(p: argparse.ArgumentParser) -> None:
     )
 
 
+def _add_numerics_flag(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--numerics", choices=("log", "rescaled"), default="rescaled", dest="mode",
+                   help="E-step numerics: the reference's per-step rescaling, or log space "
+                   "(the generic xla engine; auto takes it for log)")
+
+
+def _add_symbol_cache_flag(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--symbol-cache",
+                   help="symbol cache prefix (clean mode): the FASTA's encode is written "
+                   "there on first use and read without a parse after it")
+
+
 def _add_clean_flag(p: argparse.ArgumentParser) -> None:
     p.add_argument(
         "--clean", action="store_true",
@@ -152,11 +168,12 @@ def _add_preset_flag(p: argparse.ArgumentParser, what: str) -> None:
                    "to call islands)")
 
 
-def _add_fb_engine_flag(p: argparse.ArgumentParser) -> None:
+def _add_fb_engine_flag(p: argparse.ArgumentParser, train: bool = False) -> None:
+    tail = ("else the generic xla engine, which --numerics log also takes" if train
+            else "xla is not ported yet")
     p.add_argument("--engine", choices=("auto", "xla", "pallas", "onehot"), default="auto",
                    help="forward-backward engine (auto: the reduced one-hot kernels for "
-                   "eligible models, else the dense kernels for K <= 8; xla is not "
-                   "ported yet)")
+                   f"eligible models, else the dense kernels for K <= 8; {tail})")
 
 
 def _preset_params(name: str):
@@ -177,9 +194,11 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--convergence", type=float, default=0.005)
     t.add_argument("--init-model", help="start from a model text file instead of the --preset model")
     _add_preset_flag(t, "initial model")
-    _add_fb_engine_flag(t)
+    _add_fb_engine_flag(t, train=True)
+    _add_numerics_flag(t)
     _add_train_flags(t)
     _add_clean_flag(t)
+    _add_symbol_cache_flag(t)
     _add_invalid_symbols_flag(t)
 
     d = sub.add_parser("decode", help="Viterbi decode + island calling")
@@ -198,6 +217,8 @@ def build_parser() -> argparse.ArgumentParser:
                    "the path lies and returns only the call records (auto: device on the "
                    "card)")
     _add_island_cap_flag(d)
+    _add_numerics_flag(d)
+    _add_symbol_cache_flag(d)
     _add_invalid_symbols_flag(d)
 
     r = sub.add_parser("run", help="train then decode (the reference main())")
@@ -207,8 +228,14 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--model-out", required=True)
     r.add_argument("--iters", type=int, default=10)
     r.add_argument("--convergence", type=float, default=0.005)
+    _add_preset_flag(r, "initial model")
+    _add_island_states_flag(r)
+    r.add_argument("--engine", choices=("auto", "xla", "pallas", "onehot"), default="auto",
+                   help="decode engine (training takes its own auto engine), as in decode")
+    _add_numerics_flag(r)
     _add_train_flags(r)
     _add_clean_flag(r)
+    _add_symbol_cache_flag(r)
 
     po = sub.add_parser(
         "posterior",
@@ -232,6 +259,7 @@ def build_parser() -> argparse.ArgumentParser:
     _add_island_cap_flag(po)
     _add_island_states_flag(po)
     _add_fb_engine_flag(po)
+    _add_symbol_cache_flag(po)
     _add_invalid_symbols_flag(po)
 
     cp = sub.add_parser(
@@ -259,6 +287,7 @@ def build_parser() -> argparse.ArgumentParser:
     cp.add_argument("--no-stacked", action="store_true",
                     help="run every member on its own (the stacked dispatch puts same-order "
                     "reduced members in ONE launch set; results are bit-identical either way)")
+    _add_symbol_cache_flag(cp)
     _add_invalid_symbols_flag(cp)
     return ap
 
@@ -286,14 +315,17 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     compat = not getattr(args, "clean", True)  # posterior is always clean
     if getattr(args, "invalid_symbols", "skip") != "skip" and compat:
         parser.error("--invalid-symbols mask|fail requires --clean")
+    if getattr(args, "symbol_cache", None) and compat:
+        parser.error("--symbol-cache is FASTA-aware and requires --clean")
 
     if args.cmd == "train":
         params = load_text(args.init_model) if args.init_model else _preset_params(args.preset)
         res = pipeline.train_file(
             args.training_file, params=params, num_iters=args.iters,
             convergence=args.convergence, compat=compat, model_out=args.model_out,
-            engine=args.engine, invalid_symbols=args.invalid_symbols, backend=args.backend,
-            fuse=args.em_fuse, device=device,
+            engine=args.engine, mode=args.mode, invalid_symbols=args.invalid_symbols,
+            backend=args.backend, fuse=args.em_fuse, symbol_cache=args.symbol_cache,
+            device=device,
         )
         final = res.logliks[-1] if res.logliks else float("nan")
         print(f"trained: iters={res.iterations} converged={res.converged} "
@@ -316,7 +348,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             mpm_path_out=args.mpm_path_out, islands_out=args.islands_out,
             min_len=args.min_len, island_states=island_states, engine=args.engine,
             island_engine=args.island_engine, island_cap=args.island_cap,
-            invalid_symbols=args.invalid_symbols, device=device,
+            symbol_cache=args.symbol_cache, invalid_symbols=args.invalid_symbols, device=device,
         )
         extra = (f"; {len(res.calls)} islands -> {args.islands_out}"
                  if res.calls is not None else "")
@@ -349,7 +381,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             parser.error(str(e))
         res = pipeline.compare_file(
             args.test_file, members, out=args.out, engine=args.engine, baseline=args.baseline,
-            min_len=args.min_len, threshold=args.threshold,
+            min_len=args.min_len, threshold=args.threshold, symbol_cache=args.symbol_cache,
             invalid_symbols=args.invalid_symbols, stacked=not args.no_stacked, device=device,
         )
         n_winner = sum(len(rc.winner_calls) for rc in res.records)
@@ -372,16 +404,25 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             args.test_file, params, islands_out=args.islands_out, compat=compat,
             min_len=args.min_len, engine=args.engine, island_states=island_states,
             island_engine=args.island_engine, island_cap=args.island_cap,
-            invalid_symbols=args.invalid_symbols, device=device,
+            symbol_cache=args.symbol_cache, invalid_symbols=args.invalid_symbols, device=device,
         )
         print(f"decoded {res.n_symbols} symbols in {res.n_chunks} chunks; "
               f"{len(res.calls)} islands")
         return 0
 
+    island_states = _parse_island_states(parser, args.island_states)
+    if island_states is not None and compat:
+        parser.error("--island-states requires --clean")
+    params = _preset_params(args.preset)
+    # decode_file's pairing check, at parse time rather than after training.
+    err = pipeline.island_layout_error(params, island_states)
+    if err:
+        parser.error(f"--preset {args.preset}: {err}")
     res = pipeline.run(
         args.training_file, args.test_file, args.islands_out, args.model_out,
-        convergence=args.convergence, num_iters=args.iters, compat=compat,
-        backend=args.backend, fuse=args.em_fuse, device=device,
+        convergence=args.convergence, num_iters=args.iters, params=params, compat=compat,
+        engine=args.engine, island_states=island_states, backend=args.backend,
+        mode=args.mode, symbol_cache=args.symbol_cache, fuse=args.em_fuse, device=device,
     )
     print(f"{len(res.calls)} islands -> {args.islands_out}")
     return 0

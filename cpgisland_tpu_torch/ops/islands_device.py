@@ -43,6 +43,7 @@ from cpgisland_tpu_torch.ops.islands import (
     _empty_calls,
     counts_to_gc_oe,
 )
+from cpgisland_tpu_torch.utils import chunking
 
 # Default maximum number of emitted calls per invocation.  Real genomes carry
 # ~25-45k CpG islands in all; each slot costs 24 B of device output.
@@ -272,7 +273,7 @@ def call_islands_device_obs(path, obs, *, island_states, min_len: Optional[int] 
     device counterpart of ops.islands.call_islands_obs, bit-identical to
     it."""
     path = torch.as_tensor(path)
-    obs = torch.as_tensor(obs).to(path.device)
+    obs = chunking.upload(obs, path.device)
     if path.shape[0] != obs.shape[0]:
         raise ValueError(f"path {tuple(path.shape)} and obs {tuple(obs.shape)} differ")
     if path.shape[0] == 0:

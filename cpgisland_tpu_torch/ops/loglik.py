@@ -41,6 +41,11 @@ scores -inf, never nan.  The chains round every operation on its own
 (XLA contracts the JAX scan's matmul into FMAs), so the score agrees with
 the JAX package's within a tolerance (rtol 1e-5).
 
+A model outside both chains' domains (not reduced-eligible, and K > 8 or
+S > 16) is scored by the JAX function's serial chain in plain torch
+(``forward_backward.sequence_loglik_serial``, :func:`scoring_engine`
+"xla").
+
 Each kernel wrapper takes its plain version for a CPU tensor, launches the
 kernel for a CUDA tensor, and raises otherwise.
 """
@@ -58,6 +63,7 @@ from cpgisland_tpu_torch.ops import _kernels, fb_onehot, fb_pallas
 from cpgisland_tpu_torch.ops.fb_onehot import GROUP, _check_same_device
 from cpgisland_tpu_torch.ops.fb_pallas import seq_sum
 from cpgisland_tpu_torch.ops.viterbi_onehot import _check, _groups, pair_stream
+from cpgisland_tpu_torch.utils import chunking
 
 _I32 = torch.int32
 _F32 = torch.float32
@@ -323,16 +329,14 @@ def fb_loglik(sel2: torch.Tensor, enter: torch.Tensor, A: torch.Tensor, B: torch
 def scoring_engine(params: HmmParams) -> str:
     """"onehot" (the reduced chain) for a reduced-eligible model within the
     pair tables' alphabet, "pallas" (the dense chain) for K <= 8, else
-    NotImplementedError (the generic engines, ROADMAP A2)."""
+    "xla": the JAX package's serial chain in plain torch
+    (``forward_backward.sequence_loglik_serial``)."""
     if (family_partition.reduced_eligible(params)
             and params.n_symbols <= fb_onehot.MAX_SYMBOLS):
         return "onehot"
     if fb_pallas.supports(params):
         return "pallas"
-    raise NotImplementedError(
-        f"scoring a model of {params.n_states} states over {params.n_symbols} symbols needs "
-        "the generic engines, not ported yet (ROADMAP A2)"
-    )
+    return "xla"
 
 
 def _vecmat(v: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
@@ -350,7 +354,7 @@ def _scoring_stream(obs, length: Optional[int], S: int, dev, lane_T: Optional[in
     alphabet only, so a stacked group shares it."""
     from cpgisland_tpu_torch.ops import fb_seq
 
-    obs = torch.as_tensor(obs).to(dev)
+    obs = chunking.upload(obs, dev)
     T = int(obs.shape[0])
     L = T if length is None else min(int(length), T)
     pos = torch.arange(T, device=dev)
@@ -419,6 +423,10 @@ def sequence_loglik(params: HmmParams, obs, length: Optional[int] = None, *,
     dev = params.device
     K, S = params.n_states, params.n_symbols
     eng = scoring_engine(params)
+    if eng == "xla":
+        from cpgisland_tpu_torch.ops.forward_backward import sequence_loglik_serial
+
+        return float(sequence_loglik_serial(params, chunking.upload(obs, dev), length))
     stream = _scoring_stream(obs, length, S, dev, lane_T)
     if stream is None:
         return 0.0  # nothing scored: the prior carries through

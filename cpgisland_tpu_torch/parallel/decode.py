@@ -27,6 +27,7 @@ from cpgisland_tpu_torch.ops.viterbi_parallel import (
     nrm_maxplus,
     nrm_maxplus_vec,
 )
+from cpgisland_tpu_torch.utils import chunking
 
 
 def resolve_engine(engine: str, params: HmmParams) -> str:
@@ -137,7 +138,7 @@ def _span_total(params: HmmParams, arr: torch.Tensor, block_size: int, engine: s
 def _place(params: HmmParams, piece: np.ndarray, n: int) -> torch.Tensor:
     """Upload symbols (as they come, uint8 for FASTA records) and pad them
     on the device with PAD to ``n`` symbols."""
-    arr = torch.from_numpy(np.ascontiguousarray(piece)).to(params.device)
+    arr = chunking.upload(piece, params.device)
     if n > arr.shape[0]:
         arr = torch.cat([arr, arr.new_full((n - arr.shape[0],), params.n_symbols)])
     return arr

@@ -26,6 +26,7 @@ from cpgisland_tpu_torch.models.hmm import HmmParams
 from cpgisland_tpu_torch.ops import fb_pallas, fb_seq
 from cpgisland_tpu_torch.ops.prepared import PreparedSeq, prepare_seq
 from cpgisland_tpu_torch.train.backends import ONEHOT_MAX_STATES
+from cpgisland_tpu_torch.utils import chunking
 
 _XLA_NOT_PORTED = (
     "the generic XLA lane posterior (any K, log numerics) is not ported yet "
@@ -103,7 +104,7 @@ def place_record_span(params: HmmParams, piece, *, pad_to: Optional[int] = None)
     if pad_to is not None and pad_to > piece.shape[0]:
         piece = np.concatenate([piece, np.full(pad_to - piece.shape[0], params.n_symbols,
                                                piece.dtype)])
-    return torch.from_numpy(piece).to(params.device)
+    return chunking.upload(piece, params.device)
 
 
 def prepare_record_span(params: HmmParams, placed: torch.Tensor, length: int, *,

@@ -118,6 +118,11 @@ def island_layout_error(params: HmmParams, island_states=None) -> Optional[str]:
     return None
 
 
+def _check_symbol_cache(symbol_cache: Optional[str], compat: bool) -> None:
+    if symbol_cache is not None and compat:
+        raise ValueError("symbol_cache is FASTA-aware — use compat=False (--clean)")
+
+
 def _check_invalid_symbols(invalid_symbols: str, compat: bool) -> None:
     if invalid_symbols not in codec.INVALID_POLICIES:
         raise ValueError(
@@ -153,8 +158,8 @@ def _batch_paths(params: HmmParams, eng: str, chunks: np.ndarray,
     dev = params.device
     return viterbi_parallel_batch(
         params,
-        torch.from_numpy(np.ascontiguousarray(chunks)).to(dev),  # uint8 upload
-        torch.from_numpy(np.ascontiguousarray(lengths)).to(dev),
+        chunking.upload(chunks, dev),  # uint8 upload
+        chunking.upload(lengths, dev),
         return_score=False,
         engine=eng,
     )
@@ -211,7 +216,7 @@ def _record_calls(path, symbols: np.ndarray, *, island_states, min_len, use_devi
         if island_states is not None:
             return _device_calls_retry(
                 islands_device.call_islands_device_obs, path,
-                torch.from_numpy(symbols).to(path.device), island_states=island_states,
+                chunking.upload(symbols, path.device), island_states=island_states,
                 min_len=min_len, cap_box=cap_box)
         return _device_calls_retry(islands_device.call_islands_device, path,
                                    min_len=min_len, cap_box=cap_box)
@@ -405,6 +410,7 @@ def decode_file(
     island_states=None,
     island_engine: str = "auto",
     island_cap: Optional[int] = None,
+    symbol_cache: Optional[str] = None,
     invalid_symbols: str = "skip",
     device="cuda",
 ) -> DecodeResult:
@@ -433,10 +439,13 @@ def decode_file(
     the spans (``viterbi_sharded_spans``): the result equals the one-pass
     decode, and the span only bounds device memory.  ``state_path_out``
     (clean mode; compat writes none, as in the JAX package) streams every
-    record's decoded state path, int8, in file order to one .npy file."""
+    record's decoded state path, int8, in file order to one .npy file.
+    ``symbol_cache``: a symbol cache prefix (``utils.codec``; clean mode):
+    built on first use, read without a parse after it."""
     if island_states is not None and compat:
         raise ValueError("island_states needs clean mode (compat=False); the "
                          "reference caller is 8-state-specific")
+    _check_symbol_cache(symbol_cache, compat)
     _check_invalid_symbols(invalid_symbols, compat)
     err = island_layout_error(params, island_states)
     if err:
@@ -532,7 +541,7 @@ def decode_file(
         for p in batch_paths:
             path_writer.write(p)
 
-    records = codec.iter_fasta_records(test_path, invalid=invalid_symbols)
+    records = codec.iter_fasta_records_cached(test_path, symbol_cache, invalid=invalid_symbols)
     pending: list = []
     try:
         if state_path_out is not None:
@@ -683,11 +692,10 @@ def posterior_file(
     ``islands_out`` and no ``mpm_path_out`` (the path dump is host-side).
     "auto" takes it on the card when eligible.  An island-only run then
     sums the confidence on the device and moves one scalar to the host.
-    The prefetching executor, resume manifests, integrity checks, metrics,
-    sessions and symbol caches are not ported and raise
-    NotImplementedError."""
+    ``symbol_cache``: as in :func:`decode_file`.  The prefetching executor,
+    resume manifests, integrity checks, metrics and sessions are not ported
+    and raise NotImplementedError."""
     for requested, what in (
-        (symbol_cache is not None, "symbol caches (ROADMAP A1)"),
         (prefetch > 0, "the prefetching record executor (ROADMAP A12)"),
         (resume or manifest_path is not None, "resume manifests (ROADMAP A12)"),
         (integrity_check, "integrity checks (ROADMAP A12)"),
@@ -872,7 +880,7 @@ def posterior_file(
             # device engine), so no island is clipped at a span boundary.
             call_rec(name, symbols, torch.cat(paths) if use_device else np.concatenate(paths))
 
-    records = codec.iter_fasta_records(test_path, invalid=invalid_symbols)
+    records = codec.iter_fasta_records_cached(test_path, symbol_cache, invalid=invalid_symbols)
     pending: list = []
     try:
         if want_conf:
@@ -968,12 +976,12 @@ def compare_file(
     ``members`` defaults to the 3-model cast (durbin8, two_state, null).
     ``stacked`` (default) groups same-order reduced members into one
     stacked launch set per record; the results are bit-identical either
-    way.  Symbol caches (ROADMAP A1), metrics and phase timers (A12) and
-    serving sessions (A13) are not ported and raise NotImplementedError."""
+    way.  ``symbol_cache``: as in :func:`decode_file`.  Metrics and phase
+    timers (ROADMAP A12) and serving sessions (A13) are not ported and raise
+    NotImplementedError."""
     from cpgisland_tpu_torch import family
 
     for requested, what in (
-        (symbol_cache is not None, "symbol caches (ROADMAP A1)"),
         (metrics is not None, "metrics logging (ROADMAP A12)"),
         (timer is not None, "phase timers (ROADMAP A12)"),
         (sessions is not None, "serving sessions (ROADMAP A13)"),
@@ -990,7 +998,7 @@ def compare_file(
     phases: dict = {}
     records: list = []
     n_sym = 0
-    rec_iter = codec.iter_fasta_records(test_path, invalid=invalid_symbols)
+    rec_iter = codec.iter_fasta_records_cached(test_path, symbol_cache, invalid=invalid_symbols)
     while True:
         with _phase(phases, "encode"):
             rec = next(rec_iter, None)
@@ -1032,7 +1040,7 @@ def _write_compare(records, names, baseline: str, out) -> None:
 
 
 def _train_input(training_path: str, params: HmmParams, backend, compat: bool,
-                 chunk_size: int, invalid_symbols: str):
+                 chunk_size: int, symbol_cache: Optional[str], invalid_symbols: str):
     """train_file's input: whole FASTA records in power-of-two buckets for
     ``backend="seq2d"`` (clean mode only: compat mode has no records),
     else the reference's chunk framing."""
@@ -1044,12 +1052,14 @@ def _train_input(training_path: str, params: HmmParams, backend, compat: bool,
             )
         try:
             return chunking.bucket_records(
-                (s for _, s in codec.iter_fasta_records(training_path, invalid=invalid_symbols)),
+                (s for _, s in codec.iter_fasta_records_cached(training_path, symbol_cache,
+                                                                invalid=invalid_symbols)),
                 pad_value=params.n_symbols,
             )
         except ValueError:
             raise ValueError(f"no sequence records in {training_path}")
-    symbols = codec.encode_file(training_path, skip_headers=not compat, invalid=invalid_symbols)
+    symbols = codec.encode_file_cached(training_path, symbol_cache, skip_headers=not compat,
+                                       invalid=invalid_symbols)
     return chunking.frame(symbols, chunk_size, drop_remainder=compat)
 
 
@@ -1079,24 +1089,26 @@ def train_file(
     as its own whole sequence (clean mode only); "spmd" raises (ROADMAP
     A9).  ``engine``: auto|xla|pallas|onehot (``train.backends``: auto
     takes the reduced kernels for the flagship's family, the dense ones for
-    any other model with K <= 8; "xla" is not ported).  ``fuse``: the EM
+    any other model with K <= 8, else the generic "xla" engine, which
+    ``mode="log"`` also takes; the whole-sequence backends have no "xla"
+    path yet, ROADMAP A2).  ``mode``: the numerics, "rescaled" or "log".
+    ``fuse``: the EM
     loop, on the device ("auto", "on") or on the host ("off").  compat mode
     encodes header lines as bases and drops the remainder chunk, so it
     trains nothing on a file below ``chunk_size`` symbols; clean mode
     parses FASTA and pads the last chunk.  ``invalid_symbols`` is the
     codec's skip/mask/fail policy (clean mode only).  ``model_out``: write
-    the reference's text dump of the trained model.  Symbol caches are not
-    ported and raise NotImplementedError."""
+    the reference's text dump of the trained model.  ``symbol_cache``: as
+    in :func:`decode_file` (clean mode; every backend's input)."""
     if params is None:
         params = presets.durbin_cpg8()
-    if symbol_cache is not None:
-        raise NotImplementedError("symbol caches are not ported yet (ROADMAP A1)")
+    _check_symbol_cache(symbol_cache, compat)
     _check_invalid_symbols(invalid_symbols, compat)
     dev = resolve_device(device)
     phases: dict = {}
     with _phase(phases, "encode"):
         chunked = _train_input(training_path, params, backend, compat, chunk_size,
-                               invalid_symbols)
+                               symbol_cache, invalid_symbols)
     result = baum_welch.fit(
         params.to(dev), chunked, num_iters=num_iters, convergence=convergence,
         backend=backend, mode=mode, engine=engine, fuse=fuse,
@@ -1115,20 +1127,35 @@ def run(
     convergence: float = 0.005,
     num_iters: int = 10,
     *,
-    compat: bool = True,
-    engine: str = "auto",
+    params: Optional[HmmParams] = None,
     backend="local",
     mode: str = "rescaled",
+    compat: bool = True,
+    checkpoint_dir: Optional[str] = None,
+    min_len: Optional[int] = None,
+    engine: str = "auto",
+    island_states=None,
+    symbol_cache: Optional[str] = None,
     fuse: Union[bool, str] = "auto",
+    prefetch: int = 0,
     device="cuda",
 ) -> DecodeResult:
-    """The reference's full ``main()`` from the Durbin preset: train, dump
-    the model, decode, write islands (CpGIslandFinder.java:346-357).
-    ``engine`` goes to the decode, as in the JAX package; training takes
-    its own "auto" engine, ``backend``, ``mode`` and ``fuse``
-    (:func:`train_file`)."""
-    fit = train_file(training_path, num_iters=num_iters, convergence=convergence,
-                     model_out=model_out, compat=compat, backend=backend, mode=mode,
-                     fuse=fuse, device=device)
+    """The reference's full ``main()``: train, dump the model, decode,
+    write islands (CpGIslandFinder.java:346-357).  ``params`` is the initial
+    model (default: the Durbin preset); ``engine``, ``min_len`` and
+    ``island_states`` go to the decode, as in the JAX package; training
+    takes its own "auto" engine, ``backend``, ``mode`` and ``fuse``
+    (:func:`train_file`); ``symbol_cache`` serves both files (clean mode).
+    Checkpoints and the prefetching executor (ROADMAP A12) raise
+    NotImplementedError."""
+    for requested, what in ((checkpoint_dir is not None, "checkpoints (ROADMAP A12)"),
+                            (prefetch > 0, "the prefetching record executor (ROADMAP A12)")):
+        if requested:
+            raise NotImplementedError(f"run: {what} not ported yet")
+    fit = train_file(training_path, params=params, num_iters=num_iters,
+                     convergence=convergence, model_out=model_out, compat=compat,
+                     backend=backend, mode=mode, symbol_cache=symbol_cache, fuse=fuse,
+                     device=device)
     return decode_file(test_path, fit.params, islands_out=islands_out, compat=compat,
-                       engine=engine, device=device)
+                       min_len=min_len, engine=engine, island_states=island_states,
+                       symbol_cache=symbol_cache, device=device)

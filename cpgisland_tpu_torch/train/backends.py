@@ -1,7 +1,9 @@
 """E-step execution backends behind the reference's mapper/reducer contract.
 
 Counterpart of ``cpgisland_tpu/train/backends.py``, cut to one device, on
-the reduced (one-hot) and dense ("pallas") kernel engines.  The reference
+the reduced (one-hot) and dense ("pallas") kernel engines and the generic
+"xla" engine (``ops.forward_backward``: any model, both numerics), which
+the chunked backends take wherever the JAX router does.  The reference
 trains by one MR job per EM iteration: mappers run forward-backward over
 65,536-symbol chunks and emit expected counts, the reduce sums them
 (CpGIslandFinder.java:200-201).  :class:`LocalBackend` keeps that framing:
@@ -30,7 +32,7 @@ import torch
 
 from cpgisland_tpu_torch.family import partition as family_partition
 from cpgisland_tpu_torch.models.hmm import HmmParams
-from cpgisland_tpu_torch.ops import fb_chunked, fb_onehot, fb_pallas, fb_seq
+from cpgisland_tpu_torch.ops import fb_chunked, fb_onehot, fb_pallas, fb_seq, forward_backward
 from cpgisland_tpu_torch.ops import prepared as prep_mod
 from cpgisland_tpu_torch.ops.forward_backward import SuffStats
 from cpgisland_tpu_torch.ops.prepared import PreparedChunked, prepare_chunked, prepare_seq
@@ -44,38 +46,28 @@ ONEHOT_MAX_STATES = 32
 
 def resolve_fb_engine(engine: str, params: HmmParams, mode: str) -> str:
     """The E-step engine for ``params``, as the JAX router picks it on its
-    TPU: "auto" takes "onehot" for a model with reduced-stats-eligible
-    emissions (one-hot states in groups of 2, power-of-two alphabet) and
-    K <= ONEHOT_MAX_STATES, else "pallas" (the dense kernels) where
-    ``fb_pallas.supports`` the model (K <= 8).  An explicit "pallas" or
-    "onehot" is honoured where its kernels fit.  The generic "xla" engine
-    and the log numerics (ROADMAP A2) are not ported: asking for them, or
-    "auto" for a model neither kernel engine takes, raises
-    NotImplementedError."""
+    TPU: "auto" with the rescaled numerics takes "onehot" for a model with
+    reduced-stats-eligible emissions (one-hot states in groups of 2,
+    power-of-two alphabet) and K <= ONEHOT_MAX_STATES, else "pallas" (the
+    dense kernels) where ``fb_pallas.supports`` the model (K <= 8), else
+    "xla", the generic engine (``ops.forward_backward.batch_stats``); with
+    ``mode="log"`` it takes "xla", the one engine with the log numerics.
+    An explicit engine is honoured where it fits: "pallas" and "onehot"
+    implement the rescaled numerics only."""
     if engine not in ("auto", "xla", "pallas", "onehot"):
         raise ValueError(f"unknown engine {engine!r}; expected auto|xla|pallas|onehot")
-    if mode != "rescaled":
-        raise NotImplementedError(
-            f"numerics mode {mode!r}: only the rescaled E-step is ported (the "
-            "generic engines of ROADMAP A2 carry the log numerics)"
-        )
-    if engine == "xla":
-        raise NotImplementedError(
-            "the generic 'xla' E-step engine is not ported yet (ROADMAP A2)"
-        )
+    if mode not in ("rescaled", "log"):
+        raise ValueError(f"unknown numerics mode: {mode!r}")
     onehot_ok = (params.n_states <= ONEHOT_MAX_STATES
                  and family_partition.reduced_stats_eligible(params))
     if engine == "auto":
-        if onehot_ok:
+        if mode == "rescaled" and onehot_ok:
             return "onehot"
-        if fb_pallas.supports(params):
+        if mode == "rescaled" and fb_pallas.supports(params):
             return "pallas"
-        raise NotImplementedError(
-            f"{params.n_states} states over {params.n_symbols} symbols: outside the "
-            "reduced E-step's domain and the dense kernels' (K <= "
-            f"{fb_pallas.MAX_STATES}, S <= {fb_pallas.MAX_SYMBOLS}); the generic "
-            "'xla' engine is not ported yet (ROADMAP A2)"
-        )
+        return "xla"
+    if engine in ("pallas", "onehot") and mode != "rescaled":
+        raise ValueError(f"{engine} E-step implements rescaled numerics only")
     if engine == "pallas" and not fb_pallas.supports(params):
         raise ValueError(
             f"pallas E-step kernels need n_states <= {fb_pallas.MAX_STATES} and "
@@ -93,7 +85,8 @@ def resolve_fb_engine(engine: str, params: HmmParams, mode: str) -> str:
 class LocalBackend:
     """One device: the chunk batch is placed and its symbol streams are
     prepared once per fit; each call is one E-step over all chunks on the
-    engine resolved in :meth:`prepare_streams`.
+    engine resolved in :meth:`prepare_streams` (:func:`resolve_fb_engine`;
+    "xla" runs ``forward_backward.batch_stats`` in ``mode``).
 
     ``fuse_fb=False`` runs the reduced engine's split arm (B9, B10, B12 in
     place of B4 and B5), the JAX package's A/B baseline; its ``None``
@@ -114,25 +107,30 @@ class LocalBackend:
 
     def place(self, chunked: chunking.Chunked, device) -> tuple:
         """Upload the uint8 chunks and their lengths once, before the loop."""
-        chunks = torch.from_numpy(chunked.chunks).to(device)
-        lengths = torch.from_numpy(chunked.lengths).to(device)
+        chunks = chunking.upload(chunked.chunks, device)
+        lengths = chunking.upload(chunked.lengths, device)
         return chunks, lengths
 
     def prepare_streams(self, params: HmmParams, chunks: torch.Tensor,
-                        lengths: torch.Tensor) -> PreparedChunked:
-        """The symbol-only prep of the placed batch (built on its device).
+                        lengths: torch.Tensor) -> Optional[PreparedChunked]:
+        """The symbol-only prep of the placed batch (built on its device;
+        None for the generic engine, which reads the chunks as they are).
         The engine resolves here, once per fit: it reads the emission
         structure on the host, and EM keeps that structure (structural
         zeros are fixed points), so the iterations need not re-resolve."""
         self.resolved = resolve_fb_engine(self.engine, params, self.mode)
+        if self.resolved == "xla":
+            return None
         return prepare_chunked(params.n_symbols, chunks, lengths,
                                t_tile=fb_chunked.DEFAULT_T_TILE,
                                onehot=self.resolved == "onehot")
 
     def __call__(self, params: HmmParams, chunks: torch.Tensor, lengths: torch.Tensor,
-                 prepared: PreparedChunked) -> SuffStats:
+                 prepared: Optional[PreparedChunked]) -> SuffStats:
         if self.resolved is None:
             raise RuntimeError("LocalBackend: call prepare_streams before the E-step")
+        if self.resolved == "xla":
+            return forward_backward.batch_stats(params, chunks, lengths, mode=self.mode)
         return fb_chunked.batch_stats(params, chunks, lengths, prepared=prepared,
                                       engine=self.resolved, fused=self.fuse_fb)
 
@@ -460,7 +458,7 @@ class Seq2DBackend:
             groups = zip(chunked.chunks, chunked.lengths)
         else:
             groups = [(chunked.chunks, chunked.lengths)]
-        placed = [(torch.from_numpy(np.ascontiguousarray(c)).to(device),
+        placed = [(chunking.upload(c, device),
                    torch.from_numpy(np.asarray(l, np.int32)).to(device)) for c, l in groups]
         return tuple(c for c, _ in placed), tuple(l for _, l in placed)
 
@@ -475,6 +473,8 @@ class Seq2DBackend:
         _check_seq_shard(T, "Seq2DBackend", rows.device)
         if T <= SMALL_RECORD_ROWS_MAX:
             eng = resolve_fb_engine(self.engine, params, "rescaled")
+            if eng == "xla":
+                return "rows", eng, None
             prep = prep_mod.cached_build(
                 "chunked-seq2d", (rows, lens), (S, self.t_tile, eng),
                 lambda: prepare_chunked(S, rows, lens, t_tile=self.t_tile,
@@ -503,7 +503,9 @@ class Seq2DBackend:
             prepared = self.prepare_streams(params, chunks, lengths)
         total = None
         for (route, eng, prep), rows, lens in zip(prepared, chunks, lengths):
-            if route == "rows":
+            if route == "rows" and eng == "xla":
+                st = forward_backward.batch_stats(params, rows, lens, mode="rescaled")
+            elif route == "rows":
                 st = fb_chunked.batch_stats(params, rows, lens, prepared=prep, engine=eng)
             else:
                 preps, host_lens = prep

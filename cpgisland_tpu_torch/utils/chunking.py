@@ -13,10 +13,23 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 TRAIN_CHUNK = 0x10000  # CpGIslandFinder.java:130 (training shards)
 DECODE_CHUNK = 0x100000  # CpGIslandFinder.java:256
 PAD_SYMBOL = 4  # one past the 4 real symbols; ops treat it as "no observation"
+
+
+def upload(arr, device) -> torch.Tensor:
+    """A host array (or a tensor) on ``device``.  A read-only array (a
+    symbol cache's memmap slice) is copied first, so no tensor ever aliases
+    the mapping."""
+    if isinstance(arr, torch.Tensor):
+        return arr.to(device)
+    arr = np.ascontiguousarray(arr)
+    if not arr.flags.writeable:
+        arr = arr.copy()
+    return torch.from_numpy(arr).to(device)
 
 
 @dataclass(frozen=True)

@@ -12,13 +12,30 @@ reference), "mask" encodes a non-base, non-whitespace byte as the PAD
 sentinel (an identity DP step, so coordinates keep matching the FASTA),
 "fail" raises :class:`InvalidSymbolError`.  Line breaks and other
 whitespace are file format, never invalid.
+
+The skip policy takes the native codec (``utils.native``, built from
+``csrc/codec.cpp``) exactly where the JAX package takes its own: the
+multithreaded whole-buffer encode for files of ``_MT_THRESHOLD`` bytes or
+more (:func:`encode_file`), the fused streaming header-strip and encode in
+:func:`iter_encoded_blocks`, and the bulk encode of header-free blocks in
+:func:`iter_fasta_records`.  The NumPy path is the parity oracle; the mask
+and fail policies, and ``CPGISLAND_NATIVE=0``, take it.
+
+Symbol caches (:func:`write_symbol_cache`, :func:`open_symbol_cache`,
+:func:`encode_file_cached`, :func:`iter_fasta_records_cached`) store a
+file's clean (FASTA-aware, skip) encode once, in the JAX package's format:
+a cache written by either package is valid for the other.
 """
 
 from __future__ import annotations
 
+import logging
+import os
 from typing import Iterator, Optional, Union
 
 import numpy as np
+
+from cpgisland_tpu_torch.utils import native
 
 A, C, G, T = 0, 1, 2, 3
 N_SYMBOLS = 4
@@ -132,25 +149,49 @@ def iter_encoded_blocks(
     read_size: int = 1 << 24,
     invalid: str = "skip",
 ) -> Iterator[np.ndarray]:
-    """Stream-encode a file in bounded-memory blocks."""
+    """Stream-encode a file in bounded-memory blocks.  Header lines may span
+    read boundaries; a small carry tracks them.  The skip policy takes the
+    native fused kernel (the same bytes out as the NumPy path)."""
     _check_policy(invalid)
+    use_native = invalid == "skip" and native.available()
+    fasta_enc = native.FastaEncoder() if use_native and skip_headers else None
     in_header, at_line_start = False, True
     with open(path, "rb", buffering=0) as f:
         while True:
             data = f.read(read_size)
             if not data:
                 return
-            if skip_headers:
-                data, in_header, at_line_start = _strip_headers_stateful(
-                    data, in_header, at_line_start
-                )
-            syms = encode_bytes(data, invalid=invalid)
+            if use_native:
+                syms = fasta_enc.feed(data) if skip_headers else native.encode(data)
+            else:
+                if skip_headers:
+                    data, in_header, at_line_start = _strip_headers_stateful(
+                        data, in_header, at_line_start
+                    )
+                syms = encode_bytes(data, invalid=invalid)
             if syms.size:
                 yield syms
 
 
-def encode_file(path: str, *, skip_headers: bool = False, invalid: str = "skip") -> np.ndarray:
-    """Encode an entire file into one symbol array."""
+# Above this size the parallel whole-buffer native path wins over streaming;
+# below it, thread spawn and the extra count pass cost more than they save.
+_MT_THRESHOLD = 8 << 20
+
+
+def encode_file(path: str, *, skip_headers: bool = False,
+                invalid: str = "skip") -> np.ndarray:
+    """Encode an entire file into one symbol array.  Files of
+    ``_MT_THRESHOLD`` bytes or more take the multithreaded native path under
+    the skip policy (peak memory: file size plus symbol count); smaller
+    files, and the mask / fail policies, stream through
+    :func:`iter_encoded_blocks`."""
+    _check_policy(invalid)
+    try:
+        size = os.path.getsize(path)
+    except OSError:
+        size = 0
+    if size >= _MT_THRESHOLD and native.available() and invalid == "skip":
+        return native.encode_mt(np.fromfile(path, dtype=np.uint8), fasta=skip_headers)
     blocks = list(iter_encoded_blocks(path, skip_headers=skip_headers, invalid=invalid))
     if not blocks:
         return np.zeros(0, dtype=np.uint8)
@@ -164,7 +205,8 @@ def iter_fasta_records(
 
     The record name is the header token up to the first whitespace (">chr21
     GRCh38 alt" -> "chr21"); leading sequence before any header yields a
-    record named "".  Blocks without a '>' encode in bulk."""
+    record named "".  Blocks without a '>' encode in bulk (the native
+    kernel under the skip policy)."""
     _check_policy(invalid)
     name = ""
     bufs: list[np.ndarray] = []
@@ -173,13 +215,21 @@ def iter_fasta_records(
     header_frag = b""
     at_line_start = True
 
+    def _bulk(seg: Union[bytes, memoryview]) -> np.ndarray:
+        if isinstance(seg, memoryview):
+            seg = bytes(seg)
+        if invalid != "skip":
+            return encode_bytes(seg, invalid=invalid)
+        out = native.encode(seg)
+        return out if out is not None else encode_bytes(seg)
+
     with open(path, "rb", buffering=0) as f:
         while True:
             data = f.read(read_size)
             if not data:
                 break
             if not in_header and b">" not in data:
-                syms = encode_bytes(data, invalid=invalid)
+                syms = _bulk(data)
                 if syms.size:
                     bufs.append(syms)
                     have_record = True
@@ -219,7 +269,7 @@ def iter_fasta_records(
                 if nxt != -1 and data[nxt - 1 : nxt] != b"\n":
                     nl = data.find(b"\n", nxt)
                     nl_end = n if nl == -1 else nl + 1
-                syms = encode_bytes(memoryview(data)[i:nl_end], invalid=invalid)
+                syms = _bulk(memoryview(data)[i:nl_end])
                 if syms.size:
                     bufs.append(syms)
                     have_record = True
@@ -235,6 +285,135 @@ def _concat(bufs: list) -> np.ndarray:
     if not bufs:
         return np.zeros(0, dtype=np.uint8)
     return np.concatenate(bufs)
+
+
+# ---------------------------------------------------------------------------
+# Symbol caches: a file's clean encode stored once (the JAX package's format,
+# version 1): the symbols as a streamed .npy, memmap-loadable, so repeat runs
+# read pages from the OS cache with no parse and no copy, and a .meta.npz of
+# the record names, their offsets and the source's size and mtime_ns.
+# FASTA-aware (clean) semantics and the skip policy only.
+
+_CACHE_VERSION = 1
+
+
+def _source_fingerprint(path: str) -> dict:
+    st = os.stat(path)
+    return {"size": st.st_size, "mtime_ns": st.st_mtime_ns}
+
+
+def symbol_cache_paths(cache: str) -> tuple[str, str]:
+    """(symbols .npy path, metadata .npz path) of a cache prefix."""
+    return cache + ".symbols.npy", cache + ".meta.npz"
+
+
+def write_symbol_cache(path: str, cache: str) -> int:
+    """Encode ``path`` (FASTA-aware) into a symbol cache at prefix ``cache``;
+    returns the symbol count.  Both files are written under temporary names
+    and renamed into place, symbols first and metadata last: a reader that
+    validated the cache keeps its memmap of the old symbols (the rename
+    unlinks the name, not the inode), and validation never sees metadata
+    whose symbols are not in place."""
+    from cpgisland_tpu_torch.utils.npystream import NpyStreamWriter
+
+    sym_p, meta_p = symbol_cache_paths(cache)
+    # The temporary names keep the extensions (np.savez appends ".npz"
+    # otherwise) and carry the pid, so concurrent builders never collide.
+    sym_tmp = f"{cache}.tmp.{os.getpid()}.symbols.npy"
+    meta_tmp = f"{cache}.tmp.{os.getpid()}.meta.npz"
+    # Fingerprint before the parse: a source replaced mid-encode leaves a
+    # cache that validates as stale, never one that matches the new file.
+    fp = _source_fingerprint(path)
+    names: list[str] = []
+    offsets: list[int] = [0]
+    try:
+        with NpyStreamWriter(sym_tmp, np.uint8) as w:
+            for name, syms in iter_fasta_records(path):
+                names.append(name)
+                w.write(syms)
+                offsets.append(w.count)
+            total = w.count
+        np.savez(meta_tmp, version=_CACHE_VERSION, names=np.asarray(names, dtype=object),
+                 offsets=np.asarray(offsets, dtype=np.int64), **fp)
+        os.rename(sym_tmp, sym_p)
+        os.rename(meta_tmp, meta_p)
+    finally:
+        for p in (sym_tmp, meta_tmp):
+            if os.path.exists(p):
+                os.unlink(p)
+    return total
+
+
+def open_symbol_cache(path: str, cache: str):
+    """(names, offsets, read-only symbols memmap) of a valid cache, else
+    None.  Valid: the cache version and the source's size and mtime_ns
+    match, so an edited FASTA invalidates its cache."""
+    sym_p, meta_p = symbol_cache_paths(cache)
+    if not (os.path.exists(sym_p) and os.path.exists(meta_p)):
+        return None
+    try:
+        meta = np.load(meta_p, allow_pickle=True)
+        fp = _source_fingerprint(path)
+        if (int(meta["version"]) != _CACHE_VERSION or int(meta["size"]) != fp["size"]
+                or int(meta["mtime_ns"]) != fp["mtime_ns"]):
+            return None
+        symbols = np.load(sym_p, mmap_mode="r")
+        offsets = np.asarray(meta["offsets"], np.int64)
+        if symbols.shape[0] != int(offsets[-1]):
+            return None
+        return list(meta["names"]), offsets, symbols
+    except Exception:
+        return None
+
+
+def _open_or_build(path: str, cache: str):
+    hit = open_symbol_cache(path, cache)
+    if hit is None:
+        write_symbol_cache(path, cache)
+        hit = open_symbol_cache(path, cache)
+    return hit
+
+
+def encode_file_cached(path: str, cache: Optional[str], *, skip_headers: bool,
+                       invalid: str = "skip") -> np.ndarray:
+    """:func:`encode_file` through an optional read-through symbol cache.
+    Only the clean encode (``skip_headers=True``, skip policy) is served
+    from it; a hit is a read-only memmap."""
+    if invalid != "skip":
+        _check_policy(invalid)
+        return encode_file(path, skip_headers=skip_headers, invalid=invalid)
+    if cache is None or not skip_headers:
+        return encode_file(path, skip_headers=skip_headers)
+    hit = _open_or_build(path, cache)
+    if hit is None:  # pragma: no cover - a racing writer or an unwritable directory
+        return encode_file(path, skip_headers=True)
+    return hit[2]
+
+
+def iter_fasta_records_cached(path: str, cache: Optional[str] = None, *,
+                              invalid: str = "skip"):
+    """:func:`iter_fasta_records` through an optional read-through symbol
+    cache (``cache``: a file prefix).  A valid cache yields read-only memmap
+    slices (no parse, no copy); a missing or stale one is built first.  A
+    policy other than skip bypasses the cache (logged once)."""
+    if invalid != "skip":
+        _check_policy(invalid)
+        if cache is not None:
+            logging.getLogger(__name__).info(
+                "symbol cache bypassed: invalid-symbol policy %r differs from the "
+                "cache's skip encoding", invalid)
+        yield from iter_fasta_records(path, invalid=invalid)
+        return
+    if cache is None:
+        yield from iter_fasta_records(path)
+        return
+    hit = _open_or_build(path, cache)
+    if hit is None:  # pragma: no cover - a racing writer or an unwritable directory
+        yield from iter_fasta_records(path)
+        return
+    names, offsets, symbols = hit
+    for i, name in enumerate(names):
+        yield name, symbols[offsets[i] : offsets[i + 1]]
 
 
 def recode_pairs(symbols: np.ndarray, n_symbols: int = N_SYMBOLS,

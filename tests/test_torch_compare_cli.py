@@ -109,11 +109,15 @@ def test_dinuc_pair_lift_equals_flagship():
     assert float(np.abs(flag.conf.astype(np.float64) - dinuc.conf).max()) < 1e-3
 
 
-def test_compare_file_options_not_ported_raise(fasta):
-    for kw, item in (({"symbol_cache": "x"}, "A1"), ({"metrics": object()}, "A12"),
+def test_compare_file_options_not_ported_raise(fasta, tmp_path):
+    for kw, item in (({"metrics": object()}, "A12"),
                      ({"timer": object()}, "A12"), ({"sessions": {}}, "A13")):
         with pytest.raises(NotImplementedError, match=item):
             TPL.compare_file(fasta, out=io.StringIO(), device="cpu", **kw)
+    # Symbol caches are ported (A1): the cached report is the uncached one.
+    members = TF.default_members()
+    assert _report(fasta, members, symbol_cache=str(tmp_path / "c")) == _report(fasta, members)
+    assert (tmp_path / "c.meta.npz").exists()
 
 
 def test_a_wide_dense_member_raises_naming_a2(fasta):

@@ -2087,3 +2087,62 @@ def test_split_bwd_sublanes_keep_the_range(cuda_device, monkeypatch):
     assert torch.isfinite(got).all() and float(got.max()) > 2.0**90
     seq = FB._bwd_plain(args[0], args[1], args[3], args[4], Tp, cs_next=args[2])
     torch.testing.assert_close(got, seq, rtol=1e-5, atol=0)
+
+
+# -- the input layer and the generic E-step on the card's host and the card ------------
+
+
+def test_native_codec_equals_numpy_on_the_card_host(cuda_device, tmp_path, monkeypatch):
+    """The native codec built on the card's machine (g++ into build/)
+    against the NumPy path (CPGISLAND_NATIVE=0), byte for byte: whole
+    file clean and compat (past the multithreaded threshold) and records."""
+    from cpgisland_tpu_torch.utils import codec, native
+
+    rng = np.random.default_rng(24)
+    parts = []
+    for i in range(6):
+        seq = rng.choice(list(b"ACGTacgtNnRY\n"), size=2 << 20).astype(np.uint8).tobytes()
+        parts.append(f">chr{i} desc acgt\n".encode() + seq + b"\nAC>GT\n")
+    path = tmp_path / "g.fa"
+    path.write_bytes(b"".join(parts))
+    assert path.stat().st_size >= codec._MT_THRESHOLD and native.available()
+    calls = (lambda: codec.encode_file(str(path), skip_headers=True),
+             lambda: codec.encode_file(str(path), skip_headers=False),
+             lambda: list(codec.iter_fasta_records(str(path), read_size=1 << 20)))
+    got = [fn() for fn in calls]
+    monkeypatch.setenv("CPGISLAND_NATIVE", "0")
+    want = [fn() for fn in calls]
+    for g, w in zip(got[:2], want[:2]):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+    assert [n for n, _ in got[2]] == [n for n, _ in want[2]]
+    assert all(np.array_equal(a, b) for (_, a), (_, b) in zip(got[2], want[2]))
+
+
+@pytest.mark.parametrize("model,mode", [("k10", "rescaled"), ("k10", "log"),
+                                        ("flagship", "log")])
+def test_generic_estep_card_equals_cpu(cuda_device, model, mode):
+    """forward_backward.batch_stats (the "xla" E-step) on the card against
+    the CPU at ragged 4 Ki chunks: counts within rtol 1e-5 (the log
+    numerics within one float32 ulp of the largest chunk loglik, relative,
+    as tests/test_torch_generic_engines.py bounds them), n_seqs equal."""
+    from cpgisland_tpu_torch.ops import forward_backward as FWB
+
+    params = (presets.durbin_cpg8() if model == "flagship"
+              else presets.random_hmm(torch.Generator().manual_seed(10), 10, 4))
+    rng = np.random.default_rng(5)
+    obs = rng.integers(0, 4, size=(33, 4096)).astype(np.uint8)
+    lens = rng.integers(0, 4097, size=33).astype(np.int32)
+    lens[:3] = (4096, 1, 0)
+    obs[np.arange(4096)[None, :] >= lens[:, None]] = 4
+    cpu = FWB.batch_stats(params, torch.from_numpy(obs), torch.from_numpy(lens), mode=mode)
+    card = FWB.batch_stats(params.to(cuda_device), torch.from_numpy(obs).to(cuda_device),
+                           torch.from_numpy(lens).to(cuda_device), mode=mode)
+    rtol = 1e-5
+    if mode == "log":
+        obs_c, valid = FWB._masks(params, torch.from_numpy(obs), torch.from_numpy(lens))
+        _, cs = FWB._rescaled_forward(params, obs_c, valid)
+        per = torch.sum(torch.where(valid, torch.log(cs), 0.0), 1)
+        rtol = max(rtol, float(torch.max(torch.abs(per))) * 2.0 ** -24)
+    for f in ("init", "trans", "emit", "loglik"):
+        torch.testing.assert_close(getattr(card, f).cpu(), getattr(cpu, f), rtol=rtol, atol=1e-4)
+    assert int(card.n_seqs) == int(cpu.n_seqs) == 32

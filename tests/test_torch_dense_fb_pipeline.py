@@ -163,9 +163,14 @@ def test_cli_train_two_state(fasta, tmp_path, monkeypatch, capsys):
          model_out=str(ref), device="cpu")
     assert out.read_text() == ref.read_text()
     assert load_text(str(out)).n_states == 2
-    with pytest.raises(NotImplementedError, match="A2"):
-        cli.main(["train", fasta, "--preset", "two_state", "--clean", "--engine", "xla",
-                  "--model-out", str(out), "--device", "cpu"])
+    # --engine xla trains on the generic engine, as the JAX package's does.
+    assert cli.main(["train", fasta, "--preset", "two_state", "--clean", "--engine", "xla",
+                     "--iters", "2", "--model-out", str(out), "--device", "cpu"]) == 0
+    jr = JPL.train_file(fasta, params=JP.two_state_cpg(), compat=False, num_iters=2,
+                        chunk_size=CHUNK, engine="xla")
+    got = load_text(str(out))
+    for a, b in zip((got.pi, got.A, got.B), (jr.params.pi, jr.params.A, jr.params.B)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
 
 
 # -- routing -------------------------------------------------------------------------
@@ -181,31 +186,38 @@ def _routing_model(name):
                                 np.full((K, 4), 0.25))
 
 
+# (engine, model, the E-step's engine, the posterior's engine)
 ROUTES = [
-    ("auto", "flagship", "onehot"),
-    ("auto", "two_state", "pallas"),
-    ("auto", "rand5", "pallas"),
-    ("pallas", "flagship", "pallas"),
-    ("pallas", "two_state", "pallas"),
-    ("onehot", "two_state", ValueError),
-    ("pallas", "k9", ValueError),
-    ("auto", "k9", NotImplementedError),
-    ("xla", "flagship", NotImplementedError),
-    ("xla", "two_state", NotImplementedError),
+    ("auto", "flagship", "onehot", "onehot"),
+    ("auto", "two_state", "pallas", "pallas"),
+    ("auto", "rand5", "pallas", "pallas"),
+    ("pallas", "flagship", "pallas", "pallas"),
+    ("pallas", "two_state", "pallas", "pallas"),
+    ("onehot", "two_state", ValueError, ValueError),
+    ("pallas", "k9", ValueError, ValueError),
+    ("auto", "k9", "xla", NotImplementedError),
+    ("xla", "flagship", "xla", NotImplementedError),
+    ("xla", "two_state", "xla", NotImplementedError),
 ]
 
 
 @pytest.mark.parametrize("router", ["train", "posterior"])
-@pytest.mark.parametrize("engine,model,want", ROUTES)
-def test_fb_engine_routing(router, engine, model, want):
+@pytest.mark.parametrize("engine,model,want_train,want_post", ROUTES)
+def test_fb_engine_routing(router, engine, model, want_train, want_post):
     """'auto' takes the reduced engine for the flagship's family and the
-    dense one for any other model with K <= 8; K > 8 and 'xla' raise,
-    naming ROADMAP A2."""
+    dense one for any other model with K <= 8; the E-step takes the generic
+    'xla' engine for K > 8 and on request, and trains there; the
+    posterior's xla engine still raises, naming ROADMAP A2."""
     params = _routing_model(model)
+    want = want_train if router == "train" else want_post
     resolve = ((lambda e, p: TBE.resolve_fb_engine(e, p, "rescaled")) if router == "train"
                else TPO.resolve_fb_engine)
     if isinstance(want, str):
         assert resolve(engine, params) == want
+        if want == "xla":
+            sym = np.random.default_rng(5).integers(0, 4, size=700).astype(np.uint8)
+            fit = TBW.fit(params, TCH.frame(sym, 256), num_iters=1, engine=engine)
+            assert fit.iterations == 1 and np.isfinite(fit.logliks[0])
         return
     with pytest.raises(want, match="A2" if want is NotImplementedError else None):
         resolve(engine, params)

@@ -136,8 +136,13 @@ def test_scoring_engine_routes_like_the_posterior():
     assert TL.scoring_engine(_both("two_state")[1]) == "pallas"
     assert TL.scoring_engine(_both("null16")[1]) == "pallas"
     jp = JP.random_hmm(__import__("jax").random.PRNGKey(0), 12, 4)
-    with pytest.raises(NotImplementedError, match="A2"):
-        TL.scoring_engine(params_from_numpy(jp.log_pi, jp.log_A, jp.log_B))
+    # Outside both chains' domains: the JAX function's serial chain.
+    tp = params_from_numpy(jp.log_pi, jp.log_A, jp.log_B)
+    assert TL.scoring_engine(tp) == "xla"
+    obs = np.random.default_rng(3).integers(0, 4, size=3000).astype(np.uint8)
+    np.testing.assert_allclose(TL.sequence_loglik(tp, obs),
+                               float(j_loglik(jp, jnp.asarray(obs))),
+                               rtol=1e-5)
 
 
 def test_chain_wrappers_refuse_bad_operands():

@@ -141,10 +141,16 @@ def test_cli_posterior(fasta, tmp_path, short_lanes, capsys):
         cli.main(["posterior", fasta, "--device", "cpu"])  # nothing to do
 
 
-def test_posterior_unported_and_bad_options(fasta, monkeypatch):
+def test_posterior_unported_and_bad_options(fasta, monkeypatch, tmp_path, short_lanes):
     _, tp = _models()
     kw = dict(islands_out=io.StringIO(), device="cpu")
-    for opt, val in (("symbol_cache", "x.npy"), ("prefetch", 1), ("resume", True),
+    # Symbol caches are ported: a cached run writes the uncached run's islands.
+    want, got = io.StringIO(), io.StringIO()
+    TPL.posterior_file(fasta, tp, islands_out=want, device="cpu")
+    TPL.posterior_file(fasta, tp, islands_out=got, symbol_cache=str(tmp_path / "c"),
+                       device="cpu")
+    assert got.getvalue() == want.getvalue() and (tmp_path / "c.symbols.npy").exists()
+    for opt, val in (("prefetch", 1), ("resume", True),
                      ("manifest_path", "m.jsonl"), ("integrity_check", True),
                      ("metrics", object()), ("session", object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -123,10 +123,13 @@ def test_resolve_fb_engine_and_backends():
     assert TBE.resolve_fb_engine("auto", dense, "rescaled") == "pallas"
     assert TBE.resolve_fb_engine("pallas", tp, "rescaled") == "pallas"
     big = HmmParams.from_probs(np.full(9, 1 / 9), np.full((9, 9), 1 / 9), np.full((9, 4), 0.25))
+    # The generic engine: "auto" takes it outside both kernel domains and
+    # for the log numerics, as the JAX router does on its TPU.
     for engine, params, mode in (("auto", big, "rescaled"), ("xla", tp, "rescaled"),
                                  ("auto", tp, "log")):
-        with pytest.raises(NotImplementedError):
-            TBE.resolve_fb_engine(engine, params, mode)
+        assert TBE.resolve_fb_engine(engine, params, mode) == "xla"
+    with pytest.raises(ValueError, match="rescaled numerics only"):
+        TBE.resolve_fb_engine("onehot", tp, "log")
     with pytest.raises(ValueError):
         TBE.resolve_fb_engine("bogus", tp, "rescaled")
     assert isinstance(TBE.get_backend("local"), TBE.LocalBackend)
@@ -221,7 +224,8 @@ def test_entry_points_default_to_cuda(fasta, monkeypatch, tmp_path):
         TPL.run(fasta, fasta, *out)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TCLI.main([fasta, fasta, *out, "0.005", "2"])
-    with pytest.raises(NotImplementedError):
+    # A symbol cache is FASTA-aware: compat mode (the default) refuses it.
+    with pytest.raises(ValueError, match="FASTA-aware"):
         TPL.train_file(fasta, symbol_cache=str(tmp_path / "c"), device="cpu")
     with pytest.raises(ValueError):
         TPL.train_file(fasta, invalid_symbols="mask", device="cpu")  # compat
