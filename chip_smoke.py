@@ -258,7 +258,29 @@ JSON line each:
    ``train_file(engine="auto")`` there too: no kernel launched, the
    flagship's loglik within TRAIN_CHUNK x 2^-24 (relative) of phase 4's
    clean fit on the reduced kernels, seconds an iteration and peak device
-   memory of each.
+   memory of each;
+41. lane_path: the generic lane path (``parallel.fb_sharded``) on the
+   genome at full width, clean, one EM iteration each:
+   ``train_file(backend="seq", engine="xla")`` with the flagship (its
+   loglik within rtol 1e-5 of phase 25's kernel seq fit, and one E-step's
+   counts within rtol 1e-5 of the kernels' on the same stream) and
+   ``train_file(backend="seq")`` with phase 40's K = 10 model ("auto"
+   resolves to "xla"), no kernel launched and 0 synchronizing CUDA calls
+   in either EM loop; then ``posterior_file`` of the K = 10 model with
+   ``island_states`` over the 64 Mi record, in one pass and threaded
+   across two spans (confidence within atol 2e-5); seconds and peak
+   device memory of each;
+42. mesh: a port mesh of 4 entries on the one card against the one-entry
+   mesh, each timed: ``SeqBackend`` with the flagship, one E-step (stats
+   within rtol 1e-5), ``SpmdBackend`` over the genome's chunks (stats
+   within rtol 1e-5), ``viterbi_sharded`` of the 64 Mi record (paths
+   equal, or under the tie contract the same f64 path score) and
+   ``posterior_sharded`` of it (confidence within atol 2e-5); with two
+   cards or more the same checks on a mesh of the cards.  Its launches
+   (B7, B4, B5, B1-B3, each required) stand in its own row and stay out
+   of the kernel table;
+43. dryrun_mesh: ``tools/dryrun_mesh.py``'s checks on a mesh of 4 entries
+   on the card.
 
 Phase 2 also holds B6 (the score-threading backpointer kernel) bit for bit
 against its plain version on B2's flat stream, with B2's outputs equal to
@@ -4419,6 +4441,222 @@ def generic_genome_phase(fa: str, dev, onehot_logliks: dict) -> None:
                              "reduced kernels'")
 
 
+# Phases 41-43: the lane path on the genome, the mesh on one card, the
+# dryrun tool.
+LANE_KERNELS = tuple(sorted(set(TRAIN_KERNELS + DENSE_TRAIN_KERNELS + SEQ_KERNELS
+                                + DENSE_SEQ_KERNELS + ONE_PASS_KERNELS)))
+MESH_ENTRIES = 4
+POSTERIOR_CONF_ATOL = 2e-5
+
+
+def _peak_run(fn):
+    """(result, wall seconds, peak device GiB, peak over the start GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    return out, wall, peak / 2**30, (peak - base) / 2**30
+
+
+def _stats_rel(a, b) -> float:
+    """The largest difference of two SuffStats over each field's largest
+    magnitude (init, trans, emit, loglik)."""
+    out = 0.0
+    for f in ("init", "trans", "emit", "loglik"):
+        x = getattr(a, f).double().cpu()
+        y = getattr(b, f).double().cpu()
+        out = max(out, float(torch.max(torch.abs(x - y))) / max(float(torch.max(torch.abs(y))),
+                                                                1e-30))
+    return out
+
+
+def _estep(backend, params, chunked, dev):
+    """One E-step of ``backend`` on ``chunked`` (laid out, placed and
+    prepared first, outside the clock) -> (stats, seconds)."""
+    backend.bind(dev)
+    placed = backend.place(backend.prepare(chunked), dev)
+    prep = backend.prepare_streams(params, *placed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = backend(params, *placed, prepared=prep)
+    torch.cuda.synchronize()
+    return st, time.perf_counter() - t0
+
+
+def lane_path_phase(fa: str, big: np.ndarray, tmp: str, dev, seq_results: dict) -> None:
+    """Phase 41 (see the module docstring)."""
+    from cpgisland_tpu_torch.train.backends import SeqBackend
+
+    flagship = presets.durbin_cpg8(device=dev)
+    wide = presets.random_hmm(torch.Generator().manual_seed(10), 10, 4)
+    for label, params, engine in (("flagship_xla", flagship, "xla"), ("k10_auto", wide, "auto")):
+        backend = SeqBackend(engine=engine)
+        syncs: list = []
+        _kernels.reset_launches()
+
+        def fit():
+            with sync_window(syncs):
+                return pipeline.train_file(fa, params=params, backend=backend, num_iters=1,
+                                           convergence=0.0, compat=False, device=dev)
+
+        res, wall, peak, over = _peak_run(fit)
+        counts = {k: _kernels.launches[k] for k in LANE_KERNELS if _kernels.launches[k]}
+        row = {"phase": "lane_path", "run": f"train_seq_{label}", "engine": backend.resolved,
+               "iterations": res.iterations, "wall_s": wall, "phases_s": res.phases,
+               "s_per_iter": res.phases["em"] / res.iterations,
+               "estep_s": res.phases["estep"] / res.iterations, "peak_gib": peak,
+               "peak_over_start_gib": over, "logliks": res.logliks,
+               "synchronizing_calls": len(syncs), "sync_warnings": syncs[:3],
+               "launches": counts}
+        ok = (backend.resolved == "xla" and not counts and not syncs
+              and res.iterations == 1 and all(math.isfinite(x) for x in res.logliks))
+        if label == "flagship_xla":
+            want = seq_results["seq"].logliks[0]
+            rel = abs(res.logliks[0] - want) / abs(want)
+            row |= {"kernel_seq_loglik": want, "loglik_rel_err": rel}
+            ok = ok and rel <= 1e-5
+        emit(row)
+        if not ok:
+            raise SystemExit(f"chip_smoke: the lane path's seq fit ({label}) launched a "
+                             "kernel, synchronized, or left the kernel seq fit")
+    # One E-step's counts: the lane path against the kernels, same stream.
+    chunked = chunking.frame(codec.encode_file(fa, skip_headers=True), chunking.TRAIN_CHUNK)
+    (st_lane, s_lane), _, peak, _ = _peak_run(
+        lambda: _estep(SeqBackend(engine="xla"), flagship, chunked, dev))
+    st_kern, s_kern = _estep(SeqBackend(engine="auto"), flagship, chunked, dev)
+    rel = _stats_rel(st_lane, st_kern)
+    emit({"phase": "lane_path", "run": "estep_counts_vs_kernels", "lane_s": s_lane,
+          "kernels_s": s_kern, "lane_peak_gib": peak, "max_rel": rel})
+    if rel > 1e-5:
+        raise SystemExit("chip_smoke: the lane path's seq counts leave the kernels'")
+    # The K = 10 posterior over the 64 Mi record: one pass, two spans.
+    big_fa = os.path.join(tmp, "big_record.fa")
+    with open(big_fa, "wb") as f:
+        f.write(to_fasta_bytes(np.random.default_rng(41), "chr1", big))
+    confs = {}
+    for label, span in (("one_span", pipeline.POSTERIOR_SPAN), ("two_spans", BIG_RECORD // 2)):
+        out, conf = os.path.join(tmp, f"lane.{label}.txt"), os.path.join(tmp, f"lane.{label}.npy")
+        _kernels.reset_launches()
+        res, wall, peak, over = _peak_run(lambda: pipeline.posterior_file(
+            big_fa, wide, islands_out=out, confidence_out=conf, island_states=ISLAND_STATES,
+            span=span, device=dev))
+        counts = {k: n for k, n in _kernels.launches.items() if n and k in LANE_KERNELS}
+        confs[label] = np.load(conf, mmap_mode="r")
+        emit({"phase": "lane_path", "run": f"posterior_k10_{label}", "span": span,
+              "symbols": res.n_symbols, "wall_s": wall, "phases_s": res.phases,
+              "peak_gib": peak, "peak_over_start_gib": over, "islands": len(res.calls),
+              "mean_confidence": res.mean_island_confidence, "fb_launches": counts})
+        if counts or not np.isfinite(res.mean_island_confidence):
+            raise SystemExit(f"chip_smoke: the lane path's posterior ({label}) launched an FB "
+                             "kernel or is not finite")
+    err = float(np.max(np.abs(confs["one_span"] - confs["two_spans"])))
+    same = (open(os.path.join(tmp, "lane.one_span.txt")).read()
+            == open(os.path.join(tmp, "lane.two_spans.txt")).read())
+    emit({"phase": "lane_path", "run": "posterior_spans", "max_conf_err": err,
+          "atol": POSTERIOR_CONF_ATOL, "islands_identical": same})
+    if err > POSTERIOR_CONF_ATOL:
+        raise SystemExit("chip_smoke: the span-threaded lane posterior leaves the one-pass one")
+
+
+def _wall(fn):
+    """(result, wall seconds) of one call, the card synchronized around it."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _path_same(params, obs: np.ndarray, a: np.ndarray, b: np.ndarray) -> tuple:
+    """(equal, f64 score difference): two decode paths equal, or under the
+    tie contract of the same f64 path score (64 f32 ulps of it)."""
+    if np.array_equal(a, b):
+        return True, 0.0
+    sa, sb = path_score_f64(params, obs, a), path_score_f64(params, obs, b)
+    return abs(sa - sb) <= 64 * abs(sb) * 2.0 ** -24, abs(sa - sb)
+
+
+def _mesh_checks(label: str, mesh, one, fa: str, big: np.ndarray, dev) -> None:
+    """Phase 42's four checks on ``mesh`` against the one-entry ``one``.
+    The mesh's runs must launch B7, B4, B5 and B1-B3; their launches go in
+    the phase's own row, not in the kernel table (a mesh of one card's
+    entries is a test layout, not a user's)."""
+    from cpgisland_tpu_torch.parallel.mesh import Mesh
+    from cpgisland_tpu_torch.train.backends import SeqBackend, SpmdBackend
+
+    params = presets.durbin_cpg8(device=dev)
+    symbols = codec.encode_file(fa, skip_headers=True)
+    chunked = chunking.frame(symbols, chunking.TRAIN_CHUNK)
+    launches: dict = {}
+
+    def count(fn):
+        _kernels.reset_launches()
+        out = fn()
+        for k, n in _kernels.launches.items():
+            if n:
+                launches[k] = launches.get(k, 0) + n
+        return out
+
+    data = lambda m: Mesh(m.devices, ("data",))
+    rows = {}
+    st1, s1 = _estep(SeqBackend(mesh=one), params, chunked, dev)
+    st4, s4 = count(lambda: _estep(SeqBackend(mesh=mesh), params, chunked, dev))
+    rows["seq_estep"] = {"one_s": s1, "mesh_s": s4, "max_rel": _stats_rel(st4, st1),
+                         "ok": _stats_rel(st4, st1) <= 1e-5}
+    st1, s1 = _estep(SpmdBackend(mesh=data(one)), params, chunked, dev)
+    st4, s4 = count(lambda: _estep(SpmdBackend(mesh=data(mesh)), params, chunked, dev))
+    rows["spmd_estep"] = {"one_s": s1, "mesh_s": s4, "max_rel": _stats_rel(st4, st1),
+                          "ok": _stats_rel(st4, st1) <= 1e-5}
+    p1, s1 = _wall(lambda: viterbi_sharded(params, big, mesh=one))
+    p4, s4 = count(lambda: _wall(lambda: viterbi_sharded(params, big, mesh=mesh)))
+    same, diff = _path_same(params, big, p4, p1)
+    rows["viterbi_sharded"] = {"one_s": s1, "mesh_s": s4, "paths_equal": bool(np.array_equal(
+        p4, p1)), "f64_score_diff": diff, "ok": same}
+    (c1, _), s1 = _wall(lambda: posterior_sharded(params, big, ISLAND_STATES, mesh=one))
+    (c4, _), s4 = count(lambda: _wall(
+        lambda: posterior_sharded(params, big, ISLAND_STATES, mesh=mesh)))
+    err = float(np.max(np.abs(c4 - c1)))
+    rows["posterior_sharded"] = {"one_s": s1, "mesh_s": s4, "max_conf_err": err,
+                                 "ok": err <= POSTERIOR_CONF_ATOL}
+    emit({"phase": "mesh", "mesh": label, "entries": mesh.size,
+          "devices": [str(d) for d in mesh.device_list], "checks": rows, "launches": launches})
+    bad = [k for k, r in rows.items() if not r["ok"]]
+    bad += [k for k in SEQ_KERNELS + DECODE_KERNELS if not launches.get(k)]
+    if bad:
+        raise SystemExit(f"chip_smoke: the {label} mesh leaves the one-entry mesh or "
+                         f"launched no kernel in {bad}")
+
+
+def mesh_phase(fa: str, big: np.ndarray, dev) -> None:
+    """Phase 42 (see the module docstring)."""
+    from cpgisland_tpu_torch.parallel.mesh import Mesh, make_mesh
+
+    one = Mesh([dev], ("seq",))  # the card ("cuda" names the current one)
+    _mesh_checks("one_card_x4", Mesh([one.first] * MESH_ENTRIES, ("seq",)), one, fa, big, dev)
+    n = torch.cuda.device_count()
+    if n >= 2:
+        _mesh_checks("cards", make_mesh(axis="seq", device="cuda"), one, fa, big, dev)
+    emit({"phase": "mesh", "device_count": n,
+          "cards_mesh": "run" if n >= 2 else "one card: the mesh of real cards was not run"})
+
+
+def dryrun_mesh_phase(dev) -> None:
+    """Phase 43: tools/dryrun_mesh.py on MESH_ENTRIES entries of the card."""
+    from cpgisland_tpu_torch.tools import dryrun_mesh
+
+    from cpgisland_tpu_torch.parallel.mesh import Mesh
+
+    card = str(Mesh([dev], ("seq",)).first)
+    t0 = time.perf_counter()
+    times = dryrun_mesh.dryrun(MESH_ENTRIES, card)
+    emit({"phase": "dryrun_mesh", "n": MESH_ENTRIES, "device": card,
+          "wall_s": time.perf_counter() - t0, "seconds": times})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4523,6 +4761,10 @@ def main(argv=None) -> int:
                 launches[k] = launches.get(k, 0) + n
         generic_estep_phase(big, dev)
         generic_genome_phase(fa, dev, onehot_logliks)
+        # The lane path, the mesh on one card, the dryrun tool.
+        lane_path_phase(fa, big, tmp, dev, seq_results)
+        mesh_phase(fa, big, dev)
+        dryrun_mesh_phase(dev)
 
     table = []
     for name, r in results.items():

@@ -87,8 +87,8 @@ _EM_FUSE = ("auto", "on", "off")
 _BACKEND_HELP = (
     "E-step backend: one device / chunk-sharded mesh psum / exact whole-sequence "
     "sequence-parallel / per-record 2-D data x seq mesh (the last two have no "
-    "chunk-boundary approximation; seq2d needs --clean).  spmd (a mesh) is not "
-    "ported yet"
+    "chunk-boundary approximation; seq2d needs --clean).  The meshes take every "
+    "card of --device cuda (one entry on the CPU)"
 )
 _EM_FUSE_HELP = (
     "EM loop execution: auto/on keeps the loop on the card with the convergence "
@@ -170,7 +170,7 @@ def _add_preset_flag(p: argparse.ArgumentParser, what: str) -> None:
 
 def _add_fb_engine_flag(p: argparse.ArgumentParser, train: bool = False) -> None:
     tail = ("else the generic xla engine, which --numerics log also takes" if train
-            else "xla is not ported yet")
+            else "else the generic xla lane path, any K")
     p.add_argument("--engine", choices=("auto", "xla", "pallas", "onehot"), default="auto",
                    help="forward-backward engine (auto: the reduced one-hot kernels for "
                    f"eligible models, else the dense kernels for K <= 8; {tail})")

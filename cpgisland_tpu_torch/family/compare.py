@@ -35,6 +35,7 @@ import numpy as np
 
 from cpgisland_tpu_torch.ops import islands as islands_mod
 from cpgisland_tpu_torch.ops.islands import IslandCalls
+from cpgisland_tpu_torch.parallel.mesh import SEQ_AXIS, make_mesh
 
 #: A winner-track position must beat this island confidence to be claimed
 #: by a member; everything else falls back to the background (-1).
@@ -170,6 +171,9 @@ def compare_record(
     stacked = True if stacked is None else bool(stacked)
     phases = {} if phases is None else phases
     dev = pipeline.resolve_device(device)
+    # The posteriors split each record over every local card (one entry on
+    # the CPU), as the JAX package's default mesh takes every device.
+    mesh = make_mesh(axis=SEQ_AXIS, device=dev)
     symbols = np.ascontiguousarray(symbols, dtype=np.uint8)
     T = symbols.shape[0]
     b_idx = resolve_baseline(members, baseline)
@@ -182,40 +186,44 @@ def compare_record(
         for m in members:
             if m.order not in streams:
                 st = m.encode(symbols, prev=prev)
-                streams[m.order] = (st, post.place_record_span(
-                    m.params, st, pad_to=pipeline._round_pow2(max(st.shape[0], 1),
-                                                              floor=1 << 14)))
+                pad = pipeline._round_pow2(max(st.shape[0], 1), floor=1 << 14)
+                placed = post.place_record_span(m.params, st, pad_to=pad)
+                # A mesh of several entries holds its own copy in shards.
+                on_mesh = (placed if mesh.size == 1 else
+                           post.place_record_span(m.params, st, pad_to=pad, mesh=mesh))
+                streams[m.order] = (st, placed, on_mesh)
     fb_engs = [None if (m.is_null or T == 0) else post.resolve_fb_engine(engine, m.params)
                for m in members]
     groups = stacked_mod.stack_groups(members, fb_engs, enabled=stacked)
     with pipeline._phase(phases, "score"):
         logliks: dict = {}
         for order, idxs in groups.items():
-            st, placed = streams[order]
+            st, placed, _ = streams[order]
             scores = sequence_loglik_stacked([members[i].params for i in idxs], placed,
                                              st.shape[0])
             logliks.update(zip(idxs, scores))
         for i, m in enumerate(members):
             if i not in logliks:
-                st, placed = streams[m.order]
+                st, placed, _ = streams[m.order]
                 logliks[i] = sequence_loglik(m.params, placed, st.shape[0])
 
     confs = np.zeros((len(members), T), np.float32)
     paths: dict = {}
     t0 = time.perf_counter()
     for order, idxs in groups.items():
-        st, placed = streams[order]
+        st, _, on_mesh = streams[order]
         g_confs, g_paths = stacked_mod.stacked_posterior_records(
-            [members[i] for i in idxs], st, placed=placed)
+            [members[i] for i in idxs], st, placed=on_mesh, mesh=mesh)
         for k, i in enumerate(idxs):
             confs[i] = g_confs[k]
             paths[i] = g_paths[k]
     for i, m in enumerate(members):
         if m.is_null or T == 0 or i in paths:
             continue
-        st, placed = streams[m.order]
+        st, _, on_mesh = streams[m.order]
         confs[i], paths[i] = pipeline._posterior_record_unit(
-            m.params, st, m.island_states, engine=fb_engs[i], want_path=True, placed=placed)
+            m.params, st, m.island_states, engine=fb_engs[i], want_path=True, placed=on_mesh,
+            mesh=mesh)
     phases["posterior"] = phases.get("posterior", 0.0) + time.perf_counter() - t0
 
     calls: list = []

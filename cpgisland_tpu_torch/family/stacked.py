@@ -30,13 +30,14 @@ def stack_groups(members, fb_engines, enabled: bool = True) -> dict:
     return {o: ix for o, ix in by_order.items() if len(ix) >= 2}
 
 
-def stacked_posterior_records(members, symbols, *, placed=None, prepared=None):
+def stacked_posterior_records(members, symbols, *, placed=None, prepared=None, mesh=None):
     """ONE stacked dispatch for a group over one record: per-member (conf
     [M, T], path [M, T]) host arrays.  ``symbols``: the group's stream (of
-    its order); the members' params lie on the device they run on."""
+    its order); the members' params lie on the device they run on;
+    ``mesh``: as in ``posterior_sharded_stacked``."""
     from cpgisland_tpu_torch.parallel.posterior import posterior_sharded_stacked
 
     return posterior_sharded_stacked(
         [m.params for m in members], symbols, [m.island_states for m in members],
-        want_path=True, placed=placed, prepared=prepared,
+        want_path=True, placed=placed, prepared=prepared, mesh=mesh,
     )

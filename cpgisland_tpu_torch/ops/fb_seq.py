@@ -47,6 +47,7 @@ input's power-of-two size (:func:`pick_lane_T`).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -69,6 +70,11 @@ from cpgisland_tpu_torch.ops.prepared import (
 )
 from cpgisland_tpu_torch.ops.viterbi_onehot import GROUP, _groups
 from cpgisland_tpu_torch.ops.viterbi_parallel import associative_scan
+from cpgisland_tpu_torch.parallel.fb_sharded import (
+    device_boundary_messages,
+    entry_symbols,
+    shard_params,
+)
 
 # Steps per lane (the JAX package's legacy DEFAULT_LANE_T).  At a 64 Mi
 # span that is 8192 lanes, one B4 / B7 chain per thread each.
@@ -198,7 +204,8 @@ def _lane_v0(prep: PreparedSeq, enters, A, B, pi, first: bool) -> torch.Tensor:
 def _lane_streams_dense(params: HmmParams, obs: torch.Tensor, length: int,
                         lane_T: Optional[int] = None, *, enter_dir=None, exit_dir=None,
                         first: bool = True, conf_mask=None,
-                        prepared: Optional[PreparedSeq] = None, with_enters: bool = False):
+                        prepared: Optional[PreparedSeq] = None, with_enters: bool = False,
+                        phase1: Optional["ShardProducts"] = None):
     """The dense branch of ``_lane_streams``: B17 products -> the two
     [NL, K, K] boundary scans -> entering / exiting directions and each
     lane's v_0 -> B16 and B18 (or B19 with ``conf_mask``).  Returns
@@ -209,8 +216,11 @@ def _lane_streams_dense(params: HmmParams, obs: torch.Tensor, length: int,
     K = params.n_states
     _check_continuation(first, enter_dir)
     A, B, pi = fb_pallas.tables(params)
-    prep = _prep_for(params, obs, length, lane_T, first, None, prepared, onehot=False)
-    P = fb_pallas._run_products_kernel(A, B, prep.sel2)  # [NL, K, K]
+    if phase1 is not None:
+        prep, P = phase1.prep, phase1.prods
+    else:
+        prep = _prep_for(params, obs, length, lane_T, first, None, prepared, onehot=False)
+        P = fb_pallas._run_products_kernel(A, B, prep.sel2)  # [NL, K, K]
     base_dir, anchor = _boundary_dirs(params, prep.o0, first, enter_dir, exit_dir)
     eye = torch.eye(K, dtype=_F32, device=A.device)[None]
     excl = torch.cat([eye, _scan(P)[:-1]], dim=0)  # prefix products
@@ -269,7 +279,8 @@ def _lane_streams(params: HmmParams, obs: torch.Tensor, length: int,
                   lane_T: Optional[int] = None, *,
                   enter_dir=None, exit_dir=None, first: bool = True, conf_mask=None,
                   prev_sym: Optional[int] = None, prepared: Optional[PreparedSeq] = None,
-                  one_pass: bool = False, return_reduced: bool = False, fused: bool = True):
+                  one_pass: bool = False, return_reduced: bool = False, fused: bool = True,
+                  phase1: Optional["ShardProducts"] = None):
     """Lane transfer products -> boundary messages -> the reduced streams.
 
     ``first``: this span starts the sequence (global position 0 is the
@@ -289,11 +300,21 @@ def _lane_streams(params: HmmParams, obs: torch.Tensor, length: int,
     ``return_reduced`` (without ``conf_mask``): return (alphas2, betas2,
     esym2, lens2, prep, enters_red, ll_lane) for the seq-stats consumer;
     ll_lane is the one-pass arm's telescoped loglik [1, NL]
-    (:func:`fb_onehot.mat_loglik_lanes`), None on the two-pass arm."""
+    (:func:`fb_onehot.mat_loglik_lanes`), None on the two-pass arm.
+    ``phase1`` (:func:`shard_products`, a mesh shard's first phase): the
+    prep and the lane products (B8's streams on the one-pass arm) already
+    built for the exchange."""
     _check_continuation(first, enter_dir)
-    prep = _prep_for(params, obs, length, lane_T, first, prev_sym, prepared)
+    if phase1 is not None:
+        prep = phase1.prep
+    else:
+        prep = _prep_for(params, obs, length, lane_T, first, prev_sym, prepared)
     lens2 = prep.lane_lens[None, :].contiguous()
-    if one_pass:
+    if phase1 is not None:
+        red = phase1.prods
+        if one_pass:
+            va, wb, esym2, _ = phase1.mat
+    elif one_pass:
         va, wb, esym2, red = fb_onehot.run_fb_mat_onehot(
             params, lens2, prep.lane_T, (prep.pair2, None, prep.pairn2))
     else:
@@ -321,21 +342,32 @@ def _lane_streams(params: HmmParams, obs: torch.Tensor, length: int,
 
 def _lane_streams_stacked(params_list, obs: torch.Tensor, length: int,
                           lane_T: Optional[int] = None, *, conf_masks=None,
-                          prepared: Optional[PreparedSeq] = None, fused: bool = True):
+                          prepared: Optional[PreparedSeq] = None, fused: bool = True,
+                          first: bool = True, enter_dirs=None, exit_dirs=None,
+                          phase1: Optional[tuple] = None):
     """:func:`_lane_streams` for M reduced members of one alphabet over one
-    record (a first span with a free end): the symbol-only prep is built
-    once, every member's lane products come from one launch of B21, the
-    boundary glue runs per member (:func:`_reduced_lane_inputs`), and the
-    chains from one launch of B24 (``fused``) or of B22 and B23.  The
-    counterpart of the JAX package's ``fb_pallas._lane_streams_stacked``.
-    Returns (alphas [M, lane_T, 2, NL], betas [M, lane_T, 2, NL] — or, with
-    ``conf_masks``, the list of per-member confidences [lane_T, NL] —,
-    esym2, lens2)."""
+    record (by default a first span with a free end): the symbol-only prep
+    is built once, every member's lane products come from one launch of
+    B21, the boundary glue runs per member (:func:`_reduced_lane_inputs`),
+    and the chains from one launch of B24 (``fused``) or of B22 and B23.
+    The counterpart of the JAX package's ``fb_pallas._lane_streams_stacked``.
+    A later shard of a mesh (:func:`seq_posterior_stacked_sharded`) passes
+    ``first=False``, each member's entering / exiting directions
+    (``enter_dirs`` / ``exit_dirs``) and ``phase1``, its (prep, per-member
+    lane products).  Returns (alphas [M, lane_T, 2, NL], betas [M, lane_T,
+    2, NL] — or, with ``conf_masks``, the list of per-member confidences
+    [lane_T, NL] —, esym2, lens2)."""
     fb_onehot.check_stacked_members(params_list)
-    prep = _prep_for(params_list[0], obs, length, lane_T, True, None, prepared)
-    reds = fb_onehot.products_reduced_stacked(params_list, prep.pair2)
-    inputs = [_reduced_lane_inputs(p, prep, red, True, None, None)[:2]
-              for p, red in zip(params_list, reds)]
+    if phase1 is not None:
+        prep, reds = phase1
+    else:
+        prep = _prep_for(params_list[0], obs, length, lane_T, True, None, prepared)
+        reds = fb_onehot.products_reduced_stacked(params_list, prep.pair2)
+    M = len(params_list)
+    enter_dirs = [None] * M if enter_dirs is None else enter_dirs
+    exit_dirs = [None] * M if exit_dirs is None else exit_dirs
+    inputs = [_reduced_lane_inputs(p, prep, red, first, e, x)[:2]
+              for p, red, e, x in zip(params_list, reds, enter_dirs, exit_dirs)]
     lens2 = prep.lane_lens[None, :].contiguous()
     al, third, esym2 = fb_onehot.run_fb_kernels_onehot_stacked(
         params_list, lens2, [v0.T for v0, _ in inputs], [b.T for _, b in inputs], prep.lane_T,
@@ -352,14 +384,16 @@ def _not_lane0(NL: int, dev) -> torch.Tensor:
 
 
 def _scale_free_stats(params: HmmParams, alphas, betas, cs, steps2, lens2, enters,
-                      length: int) -> SuffStats:
+                      length: int, is_first: bool = True) -> SuffStats:
     """The JAX package's scale-free assembly (``_gamma_emit_loglik`` and the
     per-pair xi of ``_seq_stats_core``) for dense [Tp, K, NL] streams of a
     first span: gamma_t = normalize(alpha_t * beta_t); xi per pair divided
     by its own total, so only the betas' directions matter; lane 0's pair
     uses the entering direction, and the global init has no pair.  Sums
     over K run in order; the sums over time and lanes, and the xi
-    contraction (one full-f32 matmul), run as tensor reductions."""
+    contraction (one full-f32 matmul), run as tensor reductions.
+    ``is_first=False`` (a later shard of a mesh, or a continuation span):
+    no init, and lane 0's pair counts from its entering direction."""
     K, S = params.n_states, params.n_symbols
     A, B = params.A.to(_F32), params.B.to(_F32)
     Tp, NL = steps2.shape
@@ -372,14 +406,15 @@ def _scale_free_stats(params: HmmParams, alphas, betas, cs, steps2, lens2, enter
     gamma = torch.where(vmask[:, None, :], gamma, 0.0)
     emit = torch.stack([torch.sum(torch.where((steps2 == s)[:, None, :], gamma, 0.0), dim=(0, 2))
                         for s in range(S)], dim=1)  # [K, S]
-    init = gamma[0, :, 0] if length > 0 else torch.zeros(K, dtype=_F32, device=dev)
+    at_init = is_first and length > 0
+    init = gamma[0, :, 0] if at_init else torch.zeros(K, dtype=_F32, device=dev)
     del gamma
     w = fb_pallas.emit_sel(B, steps2.long()).permute(1, 0, 2) * betas  # [Tp, K, NL]
     a_hat = alphas / torch.clamp_min(cs[:, None, :], 1e-30)
     a_prev = torch.cat([enters.T[None], a_hat[:-1]], dim=0)
     del a_hat
     # The global init (lane 0, t == 0) has no incoming pair.
-    pair = torch.cat([vmask[:1] & _not_lane0(NL, dev)[None, :], vmask[1:]])
+    pair = torch.cat([vmask[:1] & _not_lane0(NL, dev)[None, :], vmask[1:]]) if is_first else vmask
     a_prev = torch.where(pair[:, None, :], a_prev, 0.0)
     # Aw[t, j] = sum_k A[j, k] w[t, k], in order of k.
     Aw = A[None, :, 0:1] * w[:, 0:1, :]
@@ -392,14 +427,16 @@ def _scale_free_stats(params: HmmParams, alphas, betas, cs, steps2, lens2, enter
     if a_scaled.is_cuda and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("the xi contraction needs full f32 matmuls (allow_tf32 is set)")
     counts = a_scaled.permute(1, 0, 2).reshape(K, -1) @ w.permute(1, 0, 2).reshape(K, -1).T
-    n_seqs = torch.full((), int(length > 0), dtype=torch.int32, device=dev)
+    n_seqs = torch.full((), int(at_init), dtype=torch.int32, device=dev)
     return SuffStats(init=init, trans=A * counts, emit=emit, loglik=loglik, n_seqs=n_seqs)
 
 
 def seq_stats(params: HmmParams, obs: torch.Tensor, length: int, *,
               lane_T: Optional[int] = None, engine: str = "onehot",
               prepared: Optional[PreparedSeq] = None, one_pass: bool = False,
-              t_tile: int = DEFAULT_T_TILE, fused: bool = True) -> SuffStats:
+              t_tile: int = DEFAULT_T_TILE, fused: bool = True, is_first: bool = True,
+              enter_dir=None, exit_dir=None, prev_sym: Optional[int] = None,
+              phase1: Optional["ShardProducts"] = None) -> SuffStats:
     """Exact whole-sequence sufficient statistics of ONE sequence on one
     device (n_seqs 1): the counterpart of ``seq_stats_pallas`` and its
     ``_seq_stats_core(axis=None)``.
@@ -418,14 +455,23 @@ def seq_stats(params: HmmParams, obs: torch.Tensor, length: int, *,
     z-normalized, so it is exact over their cs-scaled betas.  ``prepared``:
     the sequence's prep for the engine (built here otherwise).  ``t_tile``
     is the JAX package's segment knob, kept in the signature: no kernel of
-    this route reads it."""
+    this route reads it.
+
+    One shard of a mesh (``_seq_stats_core`` with an ``axis``;
+    :func:`seq_stats_sharded`): ``is_first`` marks the shard that holds
+    the sequence's init (shard 0); the others enter with their
+    ``enter_dir`` from the exchange and, on the reduced engine, their entry
+    symbol ``prev_sym``; every shard leaves with its ``exit_dir``;
+    ``phase1``: the shard's prep and lane products from
+    :func:`shard_products`."""
     onehot = _check_engine(engine)
     K, S = params.n_states, params.n_symbols
     if onehot:
         kernel_stats = S & (S - 1) == 0
         al2, b2, esym2, lens2, prep, enters_red, ll_lane = _lane_streams(
             params, obs, length, lane_T, prepared=prepared, one_pass=one_pass and kernel_stats,
-            return_reduced=True, fused=fused)
+            return_reduced=True, fused=fused, first=is_first, enter_dir=enter_dir,
+            exit_dir=exit_dir, prev_sym=prev_sym, phase1=phase1)
         gt = _groups(params)
         if not kernel_stats:
             # Scattered to dense [Tp, K, NL] (exact: out-of-group entries are
@@ -434,10 +480,11 @@ def seq_stats(params: HmmParams, obs: torch.Tensor, length: int, *,
             scatter = lambda x: fb_onehot.scatter_streams(x, gt, esym2, K)
             enters = _scatter_rows(enters_red, gt[prep.e_in.long()], K)
             return _scale_free_stats(params, scatter(al2), scatter(b2), al2[:, 0] + al2[:, 1],
-                                     esym2, lens2, enters, int(length))
+                                     esym2, lens2, enters, int(length), is_first)
         NL = al2.shape[2]
         ent_full = fb_onehot.scatter_streams(enters_red.T[None], gt, prep.e_in[None, :], K)[0]
-        pair0_mask = _not_lane0(NL, al2.device).to(_F32)[None, :]  # the global init
+        pair0_mask = (_not_lane0(NL, al2.device) if is_first  # the global init
+                      else torch.ones(NL, dtype=torch.bool, device=al2.device)).to(_F32)[None, :]
         macc, emit_red, ll = fb_onehot.run_seq_stats_onehot(
             params, al2, b2, prep.pair2, lens2, gt, enters_red.T.contiguous(),
             ent_full.contiguous(), pair0_mask)
@@ -446,14 +493,16 @@ def seq_stats(params: HmmParams, obs: torch.Tensor, length: int, *,
         trans, emit, loglik = _assemble_reduced_stats(params, params.A.to(_F32), gt, macc,
                                                       emit_red, ll)
         g0f = _gamma0_full(al2, b2, gt, esym2, K)
-        at_init = int(length) > 0
+        at_init = is_first and int(length) > 0
         init = g0f[:, 0] if at_init else torch.zeros(K, dtype=_F32, device=al2.device)
         return SuffStats(init=init, trans=trans, emit=emit, loglik=loglik,
                          n_seqs=torch.full((), int(at_init), dtype=torch.int32,
                                            device=al2.device))
     alphas, betas, lens2, cs, enters, prep = _lane_streams_dense(
-        params, obs, length, lane_T, prepared=prepared, with_enters=True)
-    return _scale_free_stats(params, alphas, betas, cs, prep.steps2, lens2, enters, int(length))
+        params, obs, length, lane_T, prepared=prepared, with_enters=True, first=is_first,
+        enter_dir=enter_dir, exit_dir=exit_dir, phase1=phase1)
+    return _scale_free_stats(params, alphas, betas, cs, prep.steps2, lens2, enters, int(length),
+                             is_first)
 
 
 def _conf_path_from_streams(alphas2, betas2, esym2, lens2, island_mask, gt):
@@ -480,7 +529,8 @@ def seq_posterior(params: HmmParams, obs: torch.Tensor, length: int, island_mask
                   enter_dir=None, exit_dir=None, first: bool = True, want_path: bool = False,
                   lane_T: Optional[int] = None, prev_sym: Optional[int] = None,
                   prepared: Optional[PreparedSeq] = None, engine: str = "onehot",
-                  one_pass: bool = False, fused: bool = True):
+                  one_pass: bool = False, fused: bool = True,
+                  phase1: Optional["ShardProducts"] = None):
     """Single-device posterior of one span: (conf [T] f32, MPM path [T]
     int32 — zeros unless ``want_path``), on ``obs``'s device (the params'
     device).  The twin of ``seq_posterior_pallas`` and its
@@ -495,10 +545,12 @@ def seq_posterior(params: HmmParams, obs: torch.Tensor, length: int, island_mask
     mass on them.  ``prepared``: the span's :class:`PreparedSeq` for the
     same engine, shared with its transfer-total sweep.  ``lane_T``
     default: the prep's, else :func:`pick_lane_T`.  Continuation spans
-    need ``enter_dir``, and on the reduced engine ``prev_sym``."""
+    need ``enter_dir``, and on the reduced engine ``prev_sym``.  ``phase1``:
+    a mesh shard's prep and lane products (:func:`shard_products`)."""
     T = obs.shape[0]
     island_mask = torch.as_tensor(island_mask, dtype=_F32, device=params.device)
-    kw = dict(enter_dir=enter_dir, exit_dir=exit_dir, first=first, prepared=prepared)
+    kw = dict(enter_dir=enter_dir, exit_dir=exit_dir, first=first, prepared=prepared,
+              phase1=phase1)
     if not _check_engine(engine):
         if not want_path:
             _, conf2, _ = _lane_streams_dense(params, obs, length, lane_T,
@@ -615,3 +667,198 @@ def seq_transfer_total(params: HmmParams, obs: torch.Tensor, length: int, *,
     return fb_onehot._scatter_products_prob(
         total_red, _groups(params), prep.e_in[:1], prep.e_out[-1:], params.n_states
     )[0]
+
+
+# ---------------------------------------------------------------------------
+# Sequence-parallel over a mesh: every shard's lane products, the exchange
+# of ``parallel.fb_sharded.device_boundary_messages``, then every shard's
+# chains from its messages (the JAX package's ``_lane_streams`` with an
+# ``axis``).
+
+
+@dataclasses.dataclass
+class ShardProducts:
+    """A mesh shard's first phase: its prep, its lane products (reduced
+    [NL, 2, 2] or dense [NL, K, K]), B8's streams on the one-pass arm
+    (``mat``, else None), its normalized [K, K] transfer total (dense, for
+    the exchange) and its init direction ``a0_dir`` (read on shard 0)."""
+
+    prep: PreparedSeq
+    prods: torch.Tensor
+    mat: Optional[tuple]
+    total: torch.Tensor
+    a0_dir: torch.Tensor
+
+
+def shard_products(params: HmmParams, obs: torch.Tensor, length: int, lane_T: int, *,
+                   first: bool, prev_sym: Optional[int], prepared: Optional[PreparedSeq],
+                   onehot: bool, one_pass: bool = False) -> ShardProducts:
+    """Phase 1 of one shard: its prep (built here unless ``prepared``) and
+    lane products through B7 (B8 with ``one_pass``) or B17, and the total
+    the exchange reads (the reduced total scattered to [K, K]: its
+    out-of-group entries are exact zeros).  ``first``: this shard holds the
+    sequence's init; ``prev_sym``: the symbol before it (reduced engine,
+    ``first=False``)."""
+    K = params.n_states
+    prep = _prep_for(params, obs, length, lane_T, first, prev_sym if onehot else None,
+                     prepared, onehot=onehot)
+    mat = None
+    if onehot:
+        if one_pass:
+            lens2 = prep.lane_lens[None, :].contiguous()
+            mat = fb_onehot.run_fb_mat_onehot(params, lens2, prep.lane_T,
+                                             (prep.pair2, None, prep.pairn2))
+            prods = mat[3]
+        else:
+            prods = fb_onehot.products_reduced(params, prep.pair2)
+        total = fb_onehot._scatter_products_prob(
+            _scan(prods)[-1:], _groups(params), prep.e_in[:1], prep.e_out[-1:], K)[0]
+    else:
+        A, B, _ = fb_pallas.tables(params)
+        prods = fb_pallas._run_products_kernel(A, B, prep.sel2)
+        total = _scan(prods)[-1]
+    a0_dir = _norm_rows(params.pi.to(_F32) * params.B.to(_F32)[:, prep.o0])
+    return ShardProducts(prep=prep, prods=prods, mat=mat, total=total, a0_dir=a0_dir)
+
+
+def _sharded_phase1(params: HmmParams, shards, lengths, lane_T: int, *, onehot: bool,
+                    one_pass: bool, prepared, entry_syms, first: bool, prev_sym,
+                    enter_dir, exit_dir):
+    """Every shard's first phase and the exchange -> (per-shard params,
+    phase-1 results, entering directions, exiting directions, entry
+    symbols)."""
+    if not first and enter_dir is None:
+        raise ValueError("continuation spans (first=False) need enter_dir — the "
+                         "entering-alpha direction from the previous span")
+    S = params.n_symbols
+    ps = shard_params(params, shards)
+    if onehot and entry_syms is None:
+        entry_syms = entry_symbols(shards, lengths, S, 0 if first else int(prev_sym))
+    ph = []
+    for d, (p, o, n) in enumerate(zip(ps, shards, lengths)):
+        is_first = first and d == 0
+        ps_d = None
+        if onehot and not is_first:
+            ps_d = int(prev_sym) if d == 0 else entry_syms[d]
+        ph.append(shard_products(p, o, int(n), lane_T, first=is_first, prev_sym=ps_d,
+                                 prepared=None if prepared is None else prepared[d],
+                                 onehot=onehot, one_pass=one_pass))
+    _, enters, exits = device_boundary_messages(
+        [x.a0_dir for x in ph], [x.total for x in ph],
+        start_dir=None if first else enter_dir, end_dir=exit_dir)
+    return ps, ph, enters, exits, entry_syms
+
+
+def seq_stats_sharded(params: HmmParams, shards, lengths, *, lane_T: int, engine: str,
+                      prepared=None, entry_syms=None, one_pass: bool = False,
+                      fused: bool = True) -> list:
+    """:func:`seq_stats` of ONE sequence split over a mesh's shards
+    (``shards``: [L] tensors in mesh order, each on its device;
+    ``lengths``: host ints): every shard's lane products, the exchange,
+    then every shard's chains and statistics from its messages.  Returns
+    the per-shard statistics, each on its shard's device (the caller sums
+    them).  ``prepared``: one :class:`PreparedSeq` per shard, built with
+    :func:`prepare_shards`; ``entry_syms``: the symbol before each shard
+    (read from the shards when None)."""
+    onehot = _check_engine(engine)
+    kernel_stats = onehot and params.n_symbols & (params.n_symbols - 1) == 0
+    one_pass = bool(one_pass) and kernel_stats
+    ps, ph, enters, exits, entry_syms = _sharded_phase1(
+        params, shards, lengths, lane_T, onehot=onehot, one_pass=one_pass, prepared=prepared,
+        entry_syms=entry_syms, first=True, prev_sym=None, enter_dir=None, exit_dir=None)
+    out = []
+    for d, (p, o, n) in enumerate(zip(ps, shards, lengths)):
+        out.append(seq_stats(
+            p, o, int(n), lane_T=lane_T, engine=engine, one_pass=one_pass,
+            fused=fused, is_first=d == 0, enter_dir=enters[d], exit_dir=exits[d],
+            prev_sym=entry_syms[d] if onehot and d else None, phase1=ph[d]))
+        ph[d] = None
+    return out
+
+
+def seq_posterior_sharded(params: HmmParams, shards, lengths, island_mask, *, lane_T: int,
+                          engine: str, enter_dir=None, exit_dir=None, first: bool = True,
+                          want_path: bool = False, prev_sym: Optional[int] = None,
+                          one_pass: bool = False, fused: bool = True) -> list:
+    """:func:`seq_posterior` of one span split over a mesh's shards (the
+    layout of :func:`seq_stats_sharded`): the span's messages
+    ``enter_dir`` / ``exit_dir`` enter the exchange at its ends.  Returns
+    the per-shard (conf [L], path [L]) in mesh order, each on its shard's
+    device."""
+    onehot = _check_engine(engine)
+    one_pass = bool(one_pass) and onehot
+    ps, ph, enters, exits, entry_syms = _sharded_phase1(
+        params, shards, lengths, lane_T, onehot=onehot, one_pass=one_pass, prepared=None,
+        entry_syms=None, first=first, prev_sym=prev_sym, enter_dir=enter_dir,
+        exit_dir=exit_dir)
+    out = []
+    for d, (p, o, n) in enumerate(zip(ps, shards, lengths)):
+        is_first = first and d == 0
+        ps_d = None
+        if onehot and not is_first:
+            ps_d = int(prev_sym) if d == 0 else entry_syms[d]
+        out.append(seq_posterior(
+            p, o, int(n), island_mask, enter_dir=enters[d], exit_dir=exits[d],
+            first=is_first, want_path=want_path, lane_T=lane_T, prev_sym=ps_d,
+            engine=engine, one_pass=one_pass, fused=fused, phase1=ph[d]))
+        ph[d] = None
+    return out
+
+
+def prepare_shards(params: HmmParams, shards, lengths, *, lane_T: int, onehot: bool,
+                   entry_syms) -> list:
+    """One whole-sequence :class:`PreparedSeq` per shard of a first span
+    (shard 0 holds the init; the others are conditioned on their entry
+    symbols), each on its shard's device."""
+    S = params.n_symbols
+    return [prepare_seq(S, o, int(n), lane_T=lane_T, first=d == 0,
+                        prev_sym=entry_syms[d] if onehot and d else None, onehot=onehot)
+            for d, (o, n) in enumerate(zip(shards, lengths))]
+
+
+def seq_posterior_stacked_sharded(params_list, shards, lengths, island_masks, *, lane_T: int,
+                                  want_path: bool = False, fused: bool = True) -> list:
+    """:func:`seq_posterior_stacked` (a first span with a free end) of one
+    record split over a mesh's shards: every shard's products of every
+    member in one launch of B21, one exchange per member, then every
+    shard's chains of every member in one launch of B24 (or B22 and B23).
+    Returns the per-shard (conf [M, L], path [M, L]) in mesh order, each
+    on its shard's device; member m's rows equal
+    :func:`seq_posterior_sharded` of ``params_list[m]`` on the reduced
+    engine."""
+    fb_onehot.check_stacked_members(params_list)
+    S, M = params_list[0].n_symbols, len(params_list)
+    entry_syms = entry_symbols(shards, lengths, S, 0)
+    per_dev = [shard_params(p, shards) for p in params_list]  # [M][D]
+    phase1, totals, a0s = [], [], []
+    for d, (o, n) in enumerate(zip(shards, lengths)):
+        ps = [per_dev[m][d] for m in range(M)]
+        prep = _prep_for(ps[0], o, int(n), lane_T, d == 0, entry_syms[d] if d else None, None)
+        reds = fb_onehot.products_reduced_stacked(ps, prep.pair2)
+        phase1.append((prep, reds))
+        totals.append([fb_onehot._scatter_products_prob(
+            _scan(r)[-1:], _groups(p), prep.e_in[:1], prep.e_out[-1:], p.n_states)[0]
+            for p, r in zip(ps, reds)])
+        a0s.append([_norm_rows(p.pi.to(_F32) * p.B.to(_F32)[:, prep.o0]) for p in ps])
+    msgs = [device_boundary_messages([a0s[d][m] for d in range(len(shards))],
+                                     [totals[d][m] for d in range(len(shards))])[1:]
+            for m in range(M)]
+    out = []
+    for d, (o, n) in enumerate(zip(shards, lengths)):
+        ps = [per_dev[m][d] for m in range(M)]
+        T = o.shape[0]
+        masks = [torch.as_tensor(x, dtype=_F32).to(o.device) for x in island_masks]
+        kw = dict(first=d == 0, enter_dirs=[msgs[m][0][d] for m in range(M)],
+                  exit_dirs=[msgs[m][1][d] for m in range(M)], phase1=phase1[d], fused=fused)
+        phase1[d] = None
+        if not want_path:
+            _, confs, _, _ = _lane_streams_stacked(ps, o, int(n), lane_T, conf_masks=masks, **kw)
+            out.append((torch.stack([c.T.reshape(-1)[:T] for c in confs]),
+                        torch.zeros((M, T), dtype=torch.int32, device=o.device)))
+            continue
+        al, be, esym2, lens2 = _lane_streams_stacked(ps, o, int(n), lane_T, **kw)
+        paths = [_conf_path_from_streams(al[m], be[m], esym2, lens2, masks[m], _groups(p))
+                 for m, p in enumerate(ps)]
+        out.append((torch.stack([c.T.reshape(-1)[:T] for c, _ in paths]),
+                    torch.stack([q.T.reshape(-1)[:T] for _, q in paths])))
+    return out

@@ -36,6 +36,7 @@ from cpgisland_tpu_torch.ops import islands_device, viterbi_onehot
 from cpgisland_tpu_torch.ops.islands import IslandCalls
 from cpgisland_tpu_torch.ops.viterbi_parallel import viterbi_parallel_batch
 from cpgisland_tpu_torch.parallel import posterior as post
+from cpgisland_tpu_torch.parallel.mesh import SEQ_AXIS, make_mesh
 from cpgisland_tpu_torch.parallel.decode import (
     _prev_real_symbol,
     resolve_engine,
@@ -453,6 +454,9 @@ def decode_file(
     dev = resolve_device(device)
     params = params.to(dev)
     eng = resolve_engine(engine, params)
+    # Whole records split over every local card (one entry on the CPU), as
+    # the JAX package's default mesh takes every device.
+    mesh = make_mesh(axis=SEQ_AXIS, device=dev)
     use_device, cap_box = _resolve_island_engine(
         island_engine, dev=dev, device_eligible=not compat and state_path_out is None,
         island_cap=island_cap,
@@ -508,11 +512,12 @@ def decode_file(
                 full = np.zeros(0, dtype=np.int32)
             elif n_spans > 1:
                 pieces = viterbi_sharded_spans(params, symbols, span=span, engine=eng,
-                                               return_device=use_device)
+                                               mesh=mesh, return_device=use_device)
                 # Device islands: the span paths join on the card.
                 full = torch.cat(pieces) if use_device else np.concatenate(pieces)
             else:
-                full = viterbi_sharded(params, symbols, engine=eng, return_device=use_device)
+                full = viterbi_sharded(params, symbols, engine=eng, mesh=mesh,
+                                       return_device=use_device)
             _sync(dev)
         with _phase(phases, "islands"):
             if symbols.size == 0:
@@ -602,15 +607,21 @@ class PosteriorResult:
 
 def _posterior_record_unit(params: HmmParams, symbols: np.ndarray, island_states, *,
                            engine: str, want_path: bool, placed=None,
-                           return_device: bool = False):
-    """One whole record's posterior on the params' device -> (conf, path or
-    None), on the host or, with ``return_device``, left on the device: the
-    single-record core of :func:`posterior_file` and of ``family.compare``'s
-    sequential arm.  ``placed``: the record already on the device
-    (``parallel.posterior.place_record_span``, possibly padded), which
-    compare shares between the scoring pass and an order's members."""
+                           return_device: bool = False, mesh=None):
+    """One whole record's posterior over ``mesh`` (default: one entry on
+    the params' device) -> (conf, path or None), on the host or, with
+    ``return_device``, left on the device: the single-record core of
+    :func:`posterior_file` and of ``family.compare``'s sequential arm.
+    ``placed``: the record already on the device
+    (``parallel.posterior.place_record_span`` on the same mesh, possibly
+    padded), which compare shares between the scoring pass and an order's
+    members.  The lane path ("xla") pads a record it places to a power of
+    two (floor 16 Ki), the JAX package's lane geometry."""
+    if placed is None and engine == "xla":
+        placed = post.place_record_span(params, symbols, mesh=mesh,
+                                        pad_to=_round_pow2(symbols.size, floor=1 << 14))
     return post.posterior_sharded(params, symbols, island_states, engine=engine,
-                                  want_path=want_path, placed=placed,
+                                  want_path=want_path, placed=placed, mesh=mesh,
                                   return_device=return_device)
 
 
@@ -677,13 +688,16 @@ def posterior_file(
     then have; given explicitly, islands are called from the observations'
     composition).  Records up to ``span`` symbols run in one pass; longer
     ones run span by span with exact boundary messages threaded between
-    the spans; records up to min(span, POSTERIOR_BATCH_MAX) batch together,
-    one per lane, by power-of-two size class (file order kept).  ``engine``:
-    auto|xla|pallas|onehot (``parallel.posterior.resolve_fb_engine``: auto
-    takes the reduced kernels for the flagship's family, the dense ones for
-    any other model with K <= 8; "xla" is not ported).  A run without a path
-    output (confidence only) takes the dense engine's confidence-emitting
-    backward (B19).  Runs on ``device`` (default "cuda").
+    the spans; on the kernel engines records up to min(span,
+    POSTERIOR_BATCH_MAX) batch together, one per lane, by power-of-two size
+    class (file order kept).  ``engine``: auto|xla|pallas|onehot
+    (``parallel.posterior.resolve_fb_engine``: auto takes the reduced
+    kernels for the flagship's family, the dense ones for any other model
+    with K <= 8, else "xla", the generic lane path, any K).  A run without
+    a path output (confidence only) takes the dense engine's
+    confidence-emitting backward (B19).  Runs on ``device`` (default
+    "cuda"); whole records and spans split over every local card of a
+    "cuda" device (``parallel.mesh.make_mesh``).
 
     ``island_engine`` / ``island_cap``: as in :func:`decode_file`.
     "device" reduces the MPM path to compact call records where it lies
@@ -726,6 +740,10 @@ def posterior_file(
     dev = resolve_device(device)
     params = params.to(dev)
     eng = post.resolve_fb_engine(engine, params)
+    mesh = make_mesh(axis=SEQ_AXIS, device=dev)
+    # The small-record batch runs the kernels' chunked layout; the lane path
+    # takes every record whole, as in the JAX package.
+    batch_small = eng != "xla"
     use_device, cap_box = _resolve_island_engine(
         island_engine, dev=dev, device_eligible=want_islands and mpm_path_out is None,
         island_cap=island_cap,
@@ -771,7 +789,8 @@ def posterior_file(
     def one_record(name: str, symbols: np.ndarray) -> None:
         with _phase(phases, "posterior"):
             conf, path = _posterior_record_unit(params, symbols, island_states, engine=eng,
-                                                want_path=want_path, return_device=use_device)
+                                                want_path=want_path, return_device=use_device,
+                                                mesh=mesh)
             _sync(dev)
         emit(conf, path)
         call_rec(name, symbols, path)
@@ -850,15 +869,18 @@ def posterior_file(
         starts = range(0, symbols.size, span)
         prevs = [0 if lo == 0 else _prev_real_symbol(symbols, lo, S) for lo in starts]
         placed, preps, span_totals = [], [], []
+        # The lane path pads every span to the span size (the JAX package's
+        # geometry); the kernels take the span as it is.
+        pad_to = span if eng == "xla" else None
         with _phase(phases, "span-totals"):
             for lo, prev in zip(starts, prevs):
                 piece = symbols[lo : lo + span]
-                placed.append(post.place_record_span(params, piece))
+                placed.append(post.place_record_span(params, piece, mesh=mesh, pad_to=pad_to))
                 preps.append(post.prepare_record_span(params, placed[-1], piece.size, engine=eng,
-                                                      first=lo == 0, prev_sym=prev))
+                                                      first=lo == 0, prev_sym=prev, mesh=mesh))
                 span_totals.append(post.transfer_total_sharded(
                     params, piece, engine=eng, first=lo == 0, placed=placed[-1],
-                    prev_sym=prev, prepared=preps[-1]))
+                    prev_sym=prev, prepared=preps[-1], mesh=mesh))
         enters, exits = _thread_spans(params, int(symbols[0]), span_totals)
         # Sweep B: each span's posterior with the threaded messages.
         paths = []
@@ -869,7 +891,7 @@ def posterior_file(
                     params, piece, island_states, engine=eng,
                     enter_dir=None if s == 0 else enters[s], exit_dir=exits[s], first=s == 0,
                     want_path=want_path, placed=placed[s], prev_sym=prev, prepared=preps[s],
-                    return_device=use_device,
+                    return_device=use_device, mesh=mesh,
                 )
                 _sync(dev)
             placed[s] = preps[s] = None  # release the span's device memory
@@ -898,7 +920,7 @@ def posterior_file(
             if symbols.size == 0:
                 continue
             # A record the span would split takes the span path, never the batch.
-            if symbols.size <= min(span, POSTERIOR_BATCH_MAX):
+            if batch_small and symbols.size <= min(span, POSTERIOR_BATCH_MAX):
                 pending.append((name, symbols))
                 if len(pending) >= 128:
                     flush_small(pending)
@@ -1085,13 +1107,16 @@ def train_file(
     ``params`` (default: the Durbin 8-state preset) moves to ``device``
     (default "cuda").  ``backend``: a name or a backend instance
     (``train.backends``): "local" trains on the reference's chunk framing;
-    "seq" on the whole input as ONE sequence; "seq2d" on every FASTA record
-    as its own whole sequence (clean mode only); "spmd" raises (ROADMAP
-    A9).  ``engine``: auto|xla|pallas|onehot (``train.backends``: auto
-    takes the reduced kernels for the flagship's family, the dense ones for
-    any other model with K <= 8, else the generic "xla" engine, which
-    ``mode="log"`` also takes; the whole-sequence backends have no "xla"
-    path yet, ROADMAP A2).  ``mode``: the numerics, "rescaled" or "log".
+    "spmd" on the same chunks split over a mesh's data axis; "seq" on the
+    whole input as ONE sequence; "seq2d" on every FASTA record as its own
+    whole sequence (clean mode only); the mesh backends' default mesh
+    takes every local card of a "cuda" device (one entry on the CPU).
+    ``engine``: auto|xla|pallas|onehot (``train.backends``: auto takes the
+    reduced kernels for the flagship's family, the dense ones for any
+    other model with K <= 8, else the generic "xla" engine, which
+    ``mode="log"`` also takes; on the whole-sequence backends "xla" is the
+    lane path of ``parallel.fb_sharded``).  ``mode``: the numerics,
+    "rescaled" or "log".
     ``fuse``: the EM
     loop, on the device ("auto", "on") or on the host ("off").  compat mode
     encodes header lines as bases and drops the remainder chunk, so it
@@ -1109,6 +1134,12 @@ def train_file(
     with _phase(phases, "encode"):
         chunked = _train_input(training_path, params, backend, compat, chunk_size,
                                symbol_cache, invalid_symbols)
+    if isinstance(backend, str):
+        backend = baum_welch.get_backend(backend, mode=mode, engine=engine)
+    if hasattr(backend, "bind"):
+        # A mesh backend's default mesh takes every local card of "cuda"
+        # (fit would bind it to the model's one card).
+        backend.bind(dev)
     result = baum_welch.fit(
         params.to(dev), chunked, num_iters=num_iters, convergence=convergence,
         backend=backend, mode=mode, engine=engine, fuse=fuse,

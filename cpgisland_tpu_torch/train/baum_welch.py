@@ -132,15 +132,19 @@ def fit(
     any model probability drops below ``convergence``, or for ``num_iters``
     iterations.
 
-    ``backend``: a name (``get_backend``: local | seq | seq2d; spmd raises,
-    ROADMAP A9) or an instance; its ``prepare`` lays ``chunked`` out (a
-    Chunked, or a Bucketed batch of records for seq2d) before one upload
-    and one symbol-stream prep.  ``fuse``: "auto", True or "on" run the
-    device loop, False or "off" the host loop (the module docstring); the
-    results are equal bit for bit.  The device loop raises
-    FloatingPointError after the loop when a loglik or delta is not finite
-    (the host loop at that iteration); a failed device loop raises, with
-    no fallback to the host loop.  Checkpoints, callbacks, a fallback
+    ``backend``: a name (``get_backend``: local | spmd | seq | seq2d) or an
+    instance; a mesh backend's mesh defaults to ``params``' device (a
+    caller that wants every local card binds the backend to "cuda" first,
+    as ``pipeline.train_file`` does), and the model moves to the mesh's
+    first entry, where the statistics are summed and the M-step runs (the
+    next E-step copies it to every entry without a blocking read).  Its
+    ``prepare`` lays ``chunked`` out (a Chunked, or a Bucketed batch of
+    records for seq2d) before one upload and one symbol-stream prep.
+    ``fuse``: "auto", True or "on" run the device loop, False or "off" the
+    host loop (the module docstring); the results are equal bit for bit.
+    The device loop raises FloatingPointError after the loop when a loglik
+    or delta is not finite (the host loop at that iteration); a failed
+    device loop raises, with no fallback to the host loop.  Checkpoints, callbacks, a fallback
     backend and resumed numbering (ROADMAP A12) raise
     NotImplementedError."""
     device_loop = _parse_fuse(fuse)
@@ -151,6 +155,14 @@ def fit(
             raise NotImplementedError(f"fit({what}=...) is not ported yet (ROADMAP A12)")
     if isinstance(backend, str):
         backend = get_backend(backend, mode=mode, engine=engine)
+    # A mesh backend builds its default mesh on the model's device, and the
+    # model lives on the mesh's first entry, where the statistics are
+    # summed and the M-step runs.
+    if hasattr(backend, "bind"):
+        backend.bind(params.device)
+    home = getattr(backend, "home", None)
+    if home is not None:
+        params = params.to(home)
     dev = params.device
     params = HmmParams(params.log_pi.float(), params.log_A.float(), params.log_B.float())
     t0 = time.perf_counter()

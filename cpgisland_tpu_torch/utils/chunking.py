@@ -68,6 +68,23 @@ def frame(symbols: np.ndarray, chunk_size: int, *, drop_remainder: bool = False)
     return Chunked(chunks=chunks, lengths=lengths, total=n)
 
 
+def pad_to_multiple(chunked: Chunked, multiple: int) -> Chunked:
+    """Pad the batch with empty (all-PAD, length-0) chunks to a multiple
+    of ``multiple`` rows, so it splits evenly over a mesh axis: empty
+    chunks add exactly-zero statistics."""
+    n = chunked.num_chunks
+    target = -(-n // multiple) * multiple
+    if target == n:
+        return chunked
+    extra = target - n
+    T = np.asarray(chunked.chunks).shape[1] if n else 1
+    return Chunked(
+        chunks=np.concatenate([chunked.chunks, np.full((extra, T), PAD_SYMBOL, np.uint8)]),
+        lengths=np.concatenate([chunked.lengths, np.zeros(extra, np.int32)]),
+        total=chunked.total,
+    )
+
+
 @dataclass(frozen=True)
 class Bucketed:
     """A length-bucketed batch of whole sequences (the seq2d training

@@ -18,6 +18,7 @@ from cpgisland_tpu_torch.family import stacked as stacked_mod
 from cpgisland_tpu_torch.models import presets
 from cpgisland_tpu_torch.models.hmm import dump_text
 from cpgisland_tpu_torch.ops import fb_seq
+from cpgisland_tpu_torch.parallel import posterior as TPO
 
 
 @pytest.fixture(autouse=True)
@@ -121,9 +122,19 @@ def test_compare_file_options_not_ported_raise(fasta, tmp_path):
 
 
 def test_a_wide_dense_member_raises_naming_a2(fasta):
+    """A K = 12 member outside both kernel domains (it raised, naming
+    ROADMAP A2, before the lane path was ported) now scores and calls on
+    the generic "xla" engine: its confidence is the lane-path posterior
+    of each record, and the report carries its model line."""
     p = presets.random_hmm(torch.Generator().manual_seed(0), 12, 4)
-    with pytest.raises(NotImplementedError, match="A2"):
-        _report(fasta, [TF.builtin_member("durbin8"), TF.Member("wide", p, (0,), 1)])
+    members = [TF.builtin_member("durbin8"), TF.Member("wide", p, (0,), 1)]
+    res = TPL.compare_file(fasta, members, out=io.StringIO(), device="cpu")
+    recs = [r for r in TPL.codec.iter_fasta_records(fasta)]
+    for rc, (_, sym) in zip(res.records, recs):
+        conf, _ = TPO.posterior_sharded(p, sym, (0,), engine="xla")
+        np.testing.assert_allclose(rc.member("wide").conf, conf, atol=2e-5)
+        assert np.isfinite(rc.member("wide").loglik)
+    assert _report(fasta, members).count("# model wide loglik") == 3
 
 
 def test_compare_result_carries_phases(fasta):

@@ -2146,3 +2146,59 @@ def test_generic_estep_card_equals_cpu(cuda_device, model, mode):
     for f in ("init", "trans", "emit", "loglik"):
         torch.testing.assert_close(getattr(card, f).cpu(), getattr(cpu, f), rtol=rtol, atol=1e-4)
     assert int(card.n_seqs) == int(cpu.n_seqs) == 32
+
+
+def _mesh_runs(mesh, seed: int = 25):
+    """The mesh paths on ``mesh`` over one seeded record: (seq E-step
+    stats on the kernels, on the lane path, spmd E-step stats, the
+    sharded decode's path, the sharded posterior's confidence)."""
+    from cpgisland_tpu_torch.parallel.decode import viterbi_sharded
+    from cpgisland_tpu_torch.parallel.mesh import Mesh
+    from cpgisland_tpu_torch.parallel.posterior import posterior_sharded
+    from cpgisland_tpu_torch.train.backends import SeqBackend, SpmdBackend
+    from cpgisland_tpu_torch.utils import chunking
+
+    rng = np.random.default_rng(seed)
+    obs = rng.integers(0, 4, size=40_000).astype(np.uint8)
+    obs[9_000:13_000] = rng.choice([1, 2], size=4_000)
+    params = presets.durbin_cpg8().to(mesh.first)
+    chunked = chunking.frame(obs, 4096)
+    out = []
+    for b in (SeqBackend(mesh=mesh, lane_T=1024), SeqBackend(mesh=mesh, engine="xla",
+                                                             block_size=256),
+              SpmdBackend(mesh=Mesh(mesh.devices, ("data",)))):
+        out.append(b(params, *b.place(b.prepare(chunked), mesh.first)))
+    out.append(viterbi_sharded(params, obs, mesh=mesh, block_size=1024))
+    out.append(posterior_sharded(params, obs, (0, 1, 2, 3), mesh=mesh, lane_T=1024)[0])
+    return out
+
+
+def _mesh_runs_agree(got, want):
+    for g, w in zip(got[:3], want[:3]):
+        for f in ("init", "trans", "emit", "loglik"):
+            torch.testing.assert_close(getattr(g, f).cpu(), getattr(w, f).cpu(), rtol=1e-5,
+                                       atol=1e-4)
+    assert np.array_equal(got[3], want[3])
+    np.testing.assert_allclose(got[4], want[4], atol=2e-5)
+
+
+def test_mesh_of_two_entries_on_one_card_equals_cpu(cuda_device):
+    """A port mesh of 2 entries naming the card (B7, B4, B5, B1-B3 per
+    shard, the lane path, the exchange on the card) against the same mesh
+    of 2 CPU entries (the plain versions)."""
+    from cpgisland_tpu_torch.parallel.mesh import Mesh
+
+    _mesh_runs_agree(_mesh_runs(Mesh([cuda_device] * 2, ("seq",))),
+                     _mesh_runs(Mesh(["cpu"] * 2, ("seq",))))
+
+
+def test_mesh_of_cards_equals_cpu(cuda_device):
+    """The mesh of every card of this host against a CPU mesh of as many
+    entries (the shards' exchanges cross cards)."""
+    from cpgisland_tpu_torch.parallel.mesh import Mesh, make_mesh
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs 2 or more cards for a mesh of cards; this host has {n}")
+    _mesh_runs_agree(_mesh_runs(make_mesh(axis="seq", device="cuda")),
+                     _mesh_runs(Mesh(["cpu"] * n, ("seq",))))

@@ -35,6 +35,7 @@ from cpgisland_tpu_torch.models.hmm import params_from_numpy
 from cpgisland_tpu_torch.ops import fb_seq
 from cpgisland_tpu_torch.ops import prepared as TPR
 from cpgisland_tpu_torch.parallel import fb_sharded as TFS
+from cpgisland_tpu_torch.parallel.mesh import make_mesh, make_mesh2d
 from cpgisland_tpu_torch.train import backends as TBE
 from cpgisland_tpu_torch.train import baum_welch as TBW
 from cpgisland_tpu_torch.utils import chunking as TCH
@@ -224,24 +225,35 @@ def test_cli_train_seq2d_writes_the_same_dump(seq2d_fasta, port_seq2d, tmp_path,
 
 
 def test_seq2d_compat_and_multi_device_raise(seq2d_fasta):
+    """compat seq2d still raises; spmd, seq and seq2d with a port mesh now
+    train (they raised, naming ROADMAP A9, before the mesh was ported), a
+    JAX mesh is refused with a TypeError, and engine="xla" routes the
+    whole-sequence E-step to the lane path (it raised naming A2)."""
     path = seq2d_fasta[0]
     with pytest.raises(ValueError, match="compat mode has no records"):
         TPL.train_file(path, compat=True, backend="seq2d", device="cpu")
-    for make in (lambda: TBE.get_backend("spmd"), lambda: TBE.get_backend("seq", mesh=_mesh1()),
+    for make in (lambda: TBE.get_backend("seq", mesh=_mesh1()),
                  lambda: TBE.SeqBackend(mesh=_mesh1()),
                  lambda: TBE.Seq2DBackend(mesh=_mesh2d())):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(TypeError):
             make()
+    tp = _tp(JP.durbin_cpg8())
+    ch = TCH.frame(np.random.default_rng(2).integers(0, 4, 3000).astype(np.uint8), 1024)
+    fits = [TBW.fit(tp, ch, num_iters=1, convergence=0.0, backend=b) for b in (
+        TBE.get_backend("spmd", mesh=make_mesh(2, axis="data", device="cpu")),
+        TBE.get_backend("seq", mesh=make_mesh(2, axis="seq", device="cpu")),
+        TBE.Seq2DBackend(mesh=make_mesh2d(1, 2, device="cpu", n_devices=2)))]
+    assert all(f.iterations == 1 and np.isfinite(f.logliks[0]) for f in fits)
+    assert isinstance(TBE.get_backend("spmd"), TBE.SpmdBackend)
     assert TBE.SeqBackend(fuse_fb=False).fuse_fb is False  # the split arm runs now
-    with pytest.raises(NotImplementedError, match="A9"):
-        TPL.train_file(path, compat=False, backend="spmd", device="cpu")
+    res = TPL.train_file(path, compat=False, backend="spmd", device="cpu", num_iters=1)
+    assert res.iterations == 1 and np.isfinite(res.logliks[0])
     with pytest.raises(ValueError, match="rescaled"):
         TBE.get_backend("seq", mode="log")
     with pytest.raises(ValueError, match="Bucketed"):
         TBE.SeqBackend().prepare(TCH.bucket_records(iter([np.zeros(5, np.uint8)])))
-    with pytest.raises(NotImplementedError, match="A2"):
-        TBE.SeqBackend(engine="xla")._geometry(_tp(JP.durbin_cpg8()),
-                                                torch.zeros(1024, dtype=torch.uint8))
+    assert TBE.SeqBackend(engine="xla")._geometry(
+        tp, torch.zeros(1024, dtype=torch.uint8))[0] == "xla"
 
 
 def test_seq_prep_builds_once_per_placed_input(rng):

@@ -133,11 +133,10 @@ def test_resolve_fb_engine_and_backends():
     with pytest.raises(ValueError):
         TBE.resolve_fb_engine("bogus", tp, "rescaled")
     assert isinstance(TBE.get_backend("local"), TBE.LocalBackend)
-    # The whole-sequence backends are ported; multi-device training is not.
+    # The whole-sequence backends and the chunk-sharded mesh backend are ported.
     assert isinstance(TBE.get_backend("seq"), TBE.SeqBackend)
     assert isinstance(TBE.get_backend("seq2d"), TBE.Seq2DBackend)
-    with pytest.raises(NotImplementedError, match="A9"):
-        TBE.get_backend("spmd")
+    assert isinstance(TBE.get_backend("spmd"), TBE.SpmdBackend)
 
 
 # -- fit -------------------------------------------------------------------------
